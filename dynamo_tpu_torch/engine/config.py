@@ -1,0 +1,448 @@
+"""Engine configuration.
+
+The flag surface mirrors the reference's engine CLI contracts so the DGD
+manifests port mechanically:
+- `--model` / `--model-path` / `--served-model-name`
+  (reference examples/deploy/vllm/agg.yaml:33-35,
+   reference examples/deploy/sglang/agg.yaml:33-37)
+- `--page-size` (reference examples/deploy/sglang/agg.yaml:38-39)
+- `--tp` (reference examples/deploy/sglang/agg.yaml:40-41)
+- `--disaggregation-mode prefill|decode`, `--disaggregation-bootstrap-port`,
+  `--disaggregation-transfer-backend`
+  (reference examples/deploy/sglang/disagg.yaml:45-52)
+- `--is-prefill-worker` / `--is-decode-worker`
+  (reference examples/deploy/vllm/disagg.yaml:37,57)
+
+The port's own copy of `dynamo_tpu/engine/config.py` (it imports nothing of the
+JAX package); keep the two in step.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    model: str = "tiny-debug"
+    served_model_name: Optional[str] = None
+    model_path: Optional[str] = None  # local checkpoint dir (safetensors)
+    dtype: Optional[str] = None  # default: bfloat16 on the GPU, float32 on CPU
+
+    # KV cache / batching
+    page_size: int = 16
+    num_pages: int = 512  # total KV pages (page 0 is reserved as trash)
+    max_num_seqs: int = 8  # concurrent decode slots
+    max_seq_len: int = 1024  # max context per sequence
+
+    # parallelism
+    tensor_parallel: int = 1
+    data_parallel: int = 1
+    expert_parallel: int = 1
+    # long-context: shard PREFILL sequence over a `seq` mesh axis (ring /
+    # Ulysses attention over ICI, ops/ring_attention.py). Requires
+    # data_parallel == expert_parallel == 1; decode stays paged on the
+    # (seq x model) mesh via GSPMD. Beyond reference parity (SURVEY §5).
+    sequence_parallel: int = 1
+    # MoE prefill dispatch: 0 = exact dense-masked; > 0 enables the
+    # capacity-gather path with this capacity factor (ops/moe.py)
+    moe_capacity_factor: float = 0.0
+
+    # disaggregation (NIXL-contract mirror)
+    disaggregation_mode: str = "agg"  # agg | prefill | decode
+    disaggregation_transfer_backend: str = "ici"  # ici | dcn
+    disaggregation_bootstrap_port: int = 12345
+
+    seed: int = 0
+
+    # live elasticity (dynamo_tpu/elasticity): the weight-version label the
+    # engine boots at. "v0" is the hash-compatible baseline; any other label
+    # version-namespaces every prefix-cache/KVBM/KV-event hash so v1 KV
+    # never verifies against v2 weights across a hot swap. A fresh pod
+    # materialized at the fleet's rollout target boots here directly
+    # (operator `modelVersion`); live pods reach it via /internal/rollout.
+    model_version: str = "v0"
+
+    # KV-cache dtype: auto (the model dtype) | int8 — int8 stores page rows
+    # as quantized values with a bf16 scale per (token, kv-head) packed into
+    # spare lanes of the same row, halving KV HBM footprint and stream (the
+    # binding constraint at the reference SLA's 4000-token ISL,
+    # reference examples/dgdr/trtllm/dgdr.yaml:23). v1 serves int8 KV
+    # through the XLA attention paths and requires tensor_parallel == 1.
+    kv_cache_dtype: str = "auto"
+
+    # quantization: none | int8 (weight-only, per-channel symmetric; exact
+    # w.r.t. the stored int8 weights) | w8a8 (same int8 weights plus dynamic
+    # per-token int8 activations on the native int8 MXU path — the fast
+    # serving mode; measured ~3.8x faster matmuls than weight-only on v5e).
+    # Either puts the 8B north-star model inside a v5e chip's 16 GiB
+    # (BASELINE.json #3).
+    quantization: str = "none"
+
+    # admission batching: up to this many same-bucket full-prefill prompts
+    # run in ONE padded prefill dispatch (amortizes the per-dispatch host
+    # round trip across a burst; 1 disables). Chunked/cached prompts keep
+    # their own paths.
+    max_prefill_batch: int = 4
+
+    # chunked prefill: prompts longer than this many tokens are prefetched
+    # in fixed-size chunks interleaved with decode windows, bounding the
+    # decode stall a long admission causes (the reference's engines chunk
+    # prefill for the same reason — the 25ms ITL SLA of
+    # reference examples/dgdr/trtllm/dgdr.yaml:26 demands it).
+    # 0 disables. Rounded up to a page multiple at engine init.
+    prefill_chunk_tokens: int = 256
+
+    # unified ragged step (RPA, PAPERS.md arxiv 2604.15464): > 0 packs up
+    # to this many prefill-chunk tokens into the SAME program as the active
+    # decode slots, so a long admission no longer stalls decode between
+    # fused windows (the ITL p95 tail). The budget is the chunk size of the
+    # mixed step; rounded up to a page multiple at engine init, and implies
+    # chunked prefill (prefill_chunk_tokens defaults to the same budget
+    # when unset). 0 keeps the classic alternating chunk/decode dispatch.
+    mixed_batch_tokens: int = 0
+
+    # multi-step decode: fuse this many decode iterations into one jit
+    # dispatch (lax.scan with on-device sampling). Amortises per-step host
+    # round-trips — the dominant cost on networked TPU backends — at the cost
+    # of token-burst granularity in streams. 1 = classic per-token stepping.
+    num_scheduler_steps: int = 1
+
+    # automatic prefix caching: full prompt pages are shared (ref-counted)
+    # across requests keyed by a block-hash chain; repeated prefixes skip
+    # straight to suffix prefill. Needs prefill_chunk_tokens > 0 (the suffix
+    # runs through the chunked-prefill path).
+    enable_prefix_caching: bool = True
+
+    # KVBM tiered KV block manager (dynamo_tpu.kvbm): > 0 enables a
+    # preallocated host-RAM pool of this many KV blocks (pages) that
+    # evicted prefix pages demote into instead of being destroyed; prefix
+    # lookups onboard them back. Host RAM cost = blocks * bytes/page (the
+    # pool logs it at startup). Requires enable_prefix_caching.
+    kvbm_host_blocks: int = 0
+    # onboarding cost gate: auto (roofline restore-vs-recompute compare) |
+    # always | never (kvbm/cost_model.py)
+    kvbm_gate: str = "auto"
+    # optional disk tier behind the host pool: blocks LRU-evicted from
+    # host RAM spill into this directory (empty = no disk tier)
+    kvbm_disk_dir: Optional[str] = None
+    kvbm_disk_blocks: int = 256
+
+    # multi-LoRA serving (dynamo_tpu.lora): > 0 reserves this many device
+    # adapter slots — stacked [L, slots+1, in, rank] LoRA tensors ride the
+    # param tree (slot 0 = the all-zero base slot) and every forward
+    # carries per-sequence slot indices, so mixed adapter/base batches run
+    # one fused program. 0 disables (no extra args, no extra HBM).
+    lora_slots: int = 0
+    # max adapter rank the device stacks hold; lower-rank adapters are
+    # zero-padded (free — padded lanes contribute nothing)
+    lora_rank: int = 16
+    # boot-time host-store registrations: "name=/path,other=/path2"
+    # (each path holds adapter.npz or HF-peft adapter_model.safetensors);
+    # device residency stays lazy. The operator materializes the
+    # `loraAdapters` manifest key into DYNAMO_TPU_LORA_ADAPTERS.
+    lora_adapters: Optional[str] = None
+
+    # per-tenant QoS (dynamo_tpu.qos): JSON list of tenant classes
+    # ({name, weight, priority, maxInflight, apiKeys}) enabling the
+    # weighted-fair token-budget scheduler — over-budget tenants' requests
+    # defer admission and rank first for preemption under pressure. None
+    # reads the DYNAMO_TPU_TENANTS env (the operator materializes the
+    # manifest `tenants:` key into it); empty/absent disables QoS.
+    tenants: Optional[str] = None
+    # budget clamp: how many tokens of claim/debt a tenant can bank
+    qos_burst_tokens: int = 512
+
+    # async scheduling: dispatch decode window k+1 BEFORE reading window k's
+    # tokens back, overlapping the host sync with device compute (vLLM's
+    # async scheduler analogue). Stop detection lags one window; membership
+    # changes (admission/abort/finish) flush the pipeline first, so outputs
+    # are identical to synchronous stepping.
+    async_scheduling: bool = True
+
+    # speculative decoding: "off" | "ngram" (prompt-lookup drafts from each
+    # sequence's own token history — no draft model, the same capability the
+    # reference's vLLM/TRT-LLM engines ship). v2 semantics (docs/perf.md
+    # "Speculative decoding v2"): acceptance replays the per-slot PRNG
+    # chain, so GREEDY AND SEEDED-SAMPLED sequences both speculate with
+    # byte-identical output vs spec-off; LoRA-adapter sequences verify
+    # through their adapter (gathered einsum); speculating slots ride the
+    # unified ragged mixed step as K+1-wide rows alongside prefill chunks.
+    # Penalized (presence/frequency) and guided-grammar sequences demote to
+    # one token per step — counted in
+    # dynamo_pallas_fallback_total{op="spec"}. Takes the place of
+    # multi-step windows when on.
+    speculative_mode: str = "off"
+    # drafts per verify window (K). Engine init validates 1 <= K <
+    # page_size: the K+1-token verify window must fit one KV page (and one
+    # ragged query block). Tune against the live acceptance-length
+    # histogram (dynamo_engine_spec_accept_length) — mean near K means
+    # raise it, near 0 means the workload doesn't repeat and spec costs
+    # K+1x compute per emitted token.
+    num_speculative_tokens: int = 4
+    # draft proposer: length of the history n-gram matched to find a
+    # continuation to propose (engine init validates >= 1)
+    ngram_lookup: int = 2
+    # Speculation v3 (dynamo_tpu.speculation, docs/perf.md "Speculation
+    # v3"): which proposer fills the verify window. "ngram" is the
+    # prompt-lookup drafter above; "model" runs a small same-tokenizer
+    # DRAFT MODEL (draft_model / draft_model_path) with its own paged KV
+    # pool — acceptance holds up on non-repetitive chat/agentic traffic
+    # where n-gram lookup finds nothing. `speculative_mode="model"` is
+    # accepted as shorthand for mode=on + drafter=model.
+    drafter: str = "ngram"
+    # the draft model (same tokenizer/vocab as the target — engine init
+    # verifies the tokenizer hash; a mismatched drafter can never verify)
+    draft_model: Optional[str] = None
+    draft_model_path: Optional[str] = None
+    # draft KV pool size in pages (page 0 reserved as trash, like the
+    # target pool). 0 = auto: max(K+2, num_pages // 8) — the draft model
+    # is far smaller per token, so an eighth of the target's page count
+    # costs well under an eighth of its HBM. Engine init validates the
+    # resolved size >= K+1 (one verify window plus the bonus position).
+    draft_num_pages: int = 0
+    # adaptive window control: adjust K per slot from live acceptance
+    # lengths (halve on zero-accept windows, grow after full-accept
+    # streaks, bounded 1 <= k <= K). Off by default: a fixed window keeps
+    # draft-vs-emitted accounting predictable for QoS/capacity tests.
+    spec_adaptive_k: bool = False
+
+    # runtime
+    # AOT warmup: precompile every prefill bucket + decode window before the
+    # worker flips /ready — the XLA analogue of the reference's TRT engine
+    # build (first traffic never eats a multi-second compile). Workers
+    # default it on via --warmup/--no-warmup; library users opt in.
+    warmup: bool = False
+    enforce_eager: bool = False  # skip jit (debug only)
+    # attention kernel backend: auto (Pallas on TPU, XLA elsewhere) | xla |
+    # pallas | pallas_interpret (CPU debugging)
+    attention_backend: str = "auto"
+
+    @property
+    def served_name(self) -> str:
+        return self.served_model_name or self.model
+
+    @property
+    def max_pages_per_seq(self) -> int:
+        return (self.max_seq_len + self.page_size - 1) // self.page_size
+
+    def resolved_draft_pages(self) -> int:
+        """Draft KV pool size with the auto default applied."""
+        if self.draft_num_pages > 0:
+            return self.draft_num_pages
+        return max(self.num_speculative_tokens + 2, self.num_pages // 8)
+
+    @staticmethod
+    def add_cli_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+        p.add_argument("--model", default="tiny-debug")
+        p.add_argument("--model-path", default=None)
+        p.add_argument("--served-model-name", default=None)
+        p.add_argument("--dtype", default=None)
+        p.add_argument("--page-size", type=int, default=16)
+        p.add_argument("--num-pages", type=int, default=512)
+        p.add_argument("--max-num-seqs", type=int, default=8)
+        p.add_argument("--max-seq-len", type=int, default=1024)
+        p.add_argument("--tp", "--tensor-parallel-size", type=int, default=1, dest="tp")
+        p.add_argument("--dp", type=int, default=1)
+        p.add_argument("--ep", type=int, default=1)
+        p.add_argument("--sp", "--sequence-parallel", type=int, default=1,
+                       dest="sp")
+        p.add_argument("--moe-capacity-factor", type=float, default=0.0)
+        p.add_argument("--num-scheduler-steps", type=int, default=1)
+        import os as _os
+
+        p.add_argument("--speculative-mode", default="off",
+                       choices=["off", "ngram", "model"],
+                       help="speculative decoding (v2 semantics: composes "
+                            "with the mixed ragged step, LoRA, and seeded "
+                            "sampling; docs/perf.md). 'model' is shorthand "
+                            "for on + --drafter model")
+        p.add_argument("--num-speculative-tokens", type=int, default=4,
+                       help="drafts per verify window (K); engine init "
+                            "enforces 1 <= K < --page-size")
+        p.add_argument("--ngram-lookup", type=int, default=2,
+                       help="history n-gram length the n-gram draft "
+                            "proposer matches (>= 1)")
+        # Speculation v3 (operator materializes the drafter/draftModel
+        # manifest keys into the DYNAMO_TPU_SPEC_* envs)
+        p.add_argument("--drafter",
+                       default=_os.environ.get(
+                           "DYNAMO_TPU_SPEC_DRAFTER", "ngram") or "ngram",
+                       choices=["ngram", "model"],
+                       help="speculative proposer: 'ngram' drafts from each "
+                            "sequence's own history (free, but only "
+                            "repetitive traffic accepts); 'model' runs "
+                            "--draft-model with its own small paged KV pool "
+                            "(acceptance holds on non-repetitive traffic)")
+        p.add_argument("--draft-model",
+                       default=_os.environ.get("DYNAMO_TPU_SPEC_DRAFT_MODEL"),
+                       help="small SAME-TOKENIZER draft model for --drafter "
+                            "model (e.g. a 1B drafting for an 8B target); "
+                            "engine init verifies the tokenizer hash vs the "
+                            "target — mismatched drafts can never verify")
+        p.add_argument("--draft-model-path",
+                       default=_os.environ.get(
+                           "DYNAMO_TPU_SPEC_DRAFT_MODEL_PATH"),
+                       help="local checkpoint dir for the draft model")
+        p.add_argument("--draft-num-pages", type=int,
+                       default=int(_os.environ.get(
+                           "DYNAMO_TPU_SPEC_DRAFT_PAGES", "0") or 0),
+                       help="draft KV pool pages (0 = auto: max(K+2, "
+                            "num_pages/8)); engine init enforces >= K+1 so "
+                            "one verify window always fits before the LRU "
+                            "arm can shed other slots")
+        p.add_argument("--spec-adaptive-k",
+                       action=argparse.BooleanOptionalAction,
+                       default=(_os.environ.get(
+                           "DYNAMO_TPU_SPEC_ADAPTIVE_K", "") or ""
+                           ).lower() in ("1", "true", "on"),
+                       help="adapt the speculative window per slot from "
+                            "live acceptance lengths (halve on zero-accept, "
+                            "grow after full-accept streaks, 1 <= k <= K)")
+        p.add_argument("--async-scheduling",
+                       action=argparse.BooleanOptionalAction, default=True)
+        p.add_argument("--enable-prefix-caching",
+                       action=argparse.BooleanOptionalAction, default=True)
+        p.add_argument("--prefill-chunk-tokens", type=int, default=256)
+        p.add_argument("--mixed-batch-tokens", type=int, default=0)
+        p.add_argument("--max-prefill-batch", type=int, default=4)
+        # KVBM host tier (deploy manifests size it via the
+        # DYNAMO_TPU_KVBM_HOST_BLOCKS env the operator materializes)
+        p.add_argument("--kvbm-host-blocks", type=int,
+                       default=int(_os.environ.get(
+                           "DYNAMO_TPU_KVBM_HOST_BLOCKS", "0") or 0))
+        p.add_argument("--kvbm-gate", default="auto",
+                       choices=["auto", "always", "never"])
+        p.add_argument("--kvbm-disk-dir",
+                       default=_os.environ.get("DYNAMO_TPU_KVBM_DISK_DIR"))
+        p.add_argument("--kvbm-disk-blocks", type=int, default=256)
+        # multi-LoRA serving (manifests size it via the DYNAMO_TPU_LORA_*
+        # envs the operator materializes from the loraAdapters key)
+        p.add_argument("--lora-slots", type=int,
+                       default=int(_os.environ.get(
+                           "DYNAMO_TPU_LORA_SLOTS", "0") or 0))
+        p.add_argument("--lora-rank", type=int,
+                       default=int(_os.environ.get(
+                           "DYNAMO_TPU_LORA_RANK", "16") or 16))
+        p.add_argument("--lora-adapters",
+                       default=_os.environ.get("DYNAMO_TPU_LORA_ADAPTERS"),
+                       help="boot-time adapter registrations: "
+                            "name=/path[,name2=/path2]")
+        # per-tenant QoS (the operator materializes the `tenants:`
+        # manifest key into DYNAMO_TPU_TENANTS on every component)
+        p.add_argument("--tenants",
+                       default=_os.environ.get("DYNAMO_TPU_TENANTS"),
+                       help="JSON list of tenant classes "
+                            '([{"name","weight","priority",...}])')
+        p.add_argument("--qos-burst-tokens", type=int, default=512)
+        p.add_argument("--disaggregation-mode", default="agg",
+                       choices=["agg", "prefill", "decode"])
+        p.add_argument("--is-prefill-worker", action="store_true")
+        p.add_argument("--is-decode-worker", action="store_true")
+        p.add_argument("--disaggregation-transfer-backend", default="ici")
+        p.add_argument("--disaggregation-bootstrap-port", type=int, default=12345)
+        p.add_argument("--trust-remote-code", action="store_true")  # accepted, unused
+        p.add_argument("--skip-tokenizer-init", action="store_true")
+        p.add_argument("--seed", type=int, default=0)
+        p.add_argument("--model-version",
+                       default=_os.environ.get(
+                           "DYNAMO_TPU_MODEL_VERSION", "v0") or "v0",
+                       help="boot weight-version label (operator "
+                            "modelVersion; hot swaps move it live via "
+                            "/internal/rollout)")
+        p.add_argument("--quantization", default="none",
+                       choices=["none", "int8", "w8a8"])
+        p.add_argument("--kv-cache-dtype", default="auto",
+                       choices=["auto", "int8"])
+        p.add_argument("--attention-backend", default="auto",
+                       choices=["auto", "xla", "pallas", "pallas_interpret"])
+        p.add_argument("--warmup", action=argparse.BooleanOptionalAction,
+                       default=True,
+                       help="precompile all programs before /ready flips")
+        p.add_argument("--engine-config", default=None, metavar="FILE",
+                       help="per-role YAML/JSON file of EngineConfig field "
+                            "overrides (the TRT --extra-engine-args analogue, "
+                            "reference examples/dgdr/trtllm/"
+                            "disagg.yaml:39-40,64-65)")
+        return p
+
+    @staticmethod
+    def from_cli_args(args: argparse.Namespace) -> "EngineConfig":
+        mode = args.disaggregation_mode
+        if getattr(args, "is_prefill_worker", False):
+            mode = "prefill"
+        if getattr(args, "is_decode_worker", False):
+            mode = "decode"
+        cfg = EngineConfig(
+            model=args.model,
+            model_path=args.model_path,
+            served_model_name=args.served_model_name,
+            dtype=args.dtype,
+            page_size=args.page_size,
+            num_pages=args.num_pages,
+            max_num_seqs=args.max_num_seqs,
+            max_seq_len=args.max_seq_len,
+            tensor_parallel=args.tp,
+            data_parallel=args.dp,
+            expert_parallel=args.ep,
+            sequence_parallel=getattr(args, "sp", 1),
+            moe_capacity_factor=args.moe_capacity_factor,
+            num_scheduler_steps=args.num_scheduler_steps,
+            speculative_mode=getattr(args, "speculative_mode", "off"),
+            num_speculative_tokens=getattr(args, "num_speculative_tokens", 4),
+            ngram_lookup=getattr(args, "ngram_lookup", 2),
+            drafter=getattr(args, "drafter", "ngram") or "ngram",
+            draft_model=getattr(args, "draft_model", None),
+            draft_model_path=getattr(args, "draft_model_path", None),
+            draft_num_pages=getattr(args, "draft_num_pages", 0),
+            spec_adaptive_k=getattr(args, "spec_adaptive_k", False),
+            async_scheduling=getattr(args, "async_scheduling", True),
+            enable_prefix_caching=getattr(args, "enable_prefix_caching",
+                                          True),
+            prefill_chunk_tokens=getattr(args, "prefill_chunk_tokens", 256),
+            mixed_batch_tokens=getattr(args, "mixed_batch_tokens", 0),
+            max_prefill_batch=getattr(args, "max_prefill_batch", 4),
+            kvbm_host_blocks=getattr(args, "kvbm_host_blocks", 0),
+            kvbm_gate=getattr(args, "kvbm_gate", "auto"),
+            kvbm_disk_dir=getattr(args, "kvbm_disk_dir", None),
+            kvbm_disk_blocks=getattr(args, "kvbm_disk_blocks", 256),
+            lora_slots=getattr(args, "lora_slots", 0),
+            lora_rank=getattr(args, "lora_rank", 16),
+            lora_adapters=getattr(args, "lora_adapters", None),
+            tenants=getattr(args, "tenants", None),
+            qos_burst_tokens=getattr(args, "qos_burst_tokens", 512),
+            disaggregation_mode=mode,
+            disaggregation_transfer_backend=args.disaggregation_transfer_backend,
+            disaggregation_bootstrap_port=args.disaggregation_bootstrap_port,
+            seed=args.seed,
+            model_version=getattr(args, "model_version", "v0") or "v0",
+            quantization=getattr(args, "quantization", "none"),
+            kv_cache_dtype=getattr(args, "kv_cache_dtype", "auto"),
+            attention_backend=args.attention_backend,
+            warmup=getattr(args, "warmup", False),
+        )
+        path = getattr(args, "engine_config", None)
+        if path:
+            cfg = cfg.apply_file(path)
+        return cfg
+
+    def apply_file(self, path: str) -> "EngineConfig":
+        """Overlay EngineConfig fields from a YAML/JSON file (per-role engine
+        configs — prefill and decode roles ship different tuning files in the
+        disagg manifests). File values override CLI values; unknown keys are
+        an error so typos fail loudly."""
+        import yaml
+
+        with open(path) as f:
+            overrides = yaml.safe_load(f) or {}
+        if not isinstance(overrides, dict):
+            raise ValueError(f"engine config {path!r} must be a mapping")
+        valid = {f.name for f in dataclasses.fields(EngineConfig)}
+        unknown = set(overrides) - valid
+        if unknown:
+            raise ValueError(
+                f"unknown engine-config keys in {path!r}: {sorted(unknown)}"
+            )
+        return dataclasses.replace(self, **overrides)

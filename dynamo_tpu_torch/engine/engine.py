@@ -1,0 +1,810 @@
+"""The PyTorch engine: paged KV cache, continuous batching, chunked prefill.
+
+Port of the aggregated-serving core of `dynamo_tpu/engine/engine.py`:
+
+- Admission with power-of-two prefill buckets (`_next_bucket`), batched
+  prefill of same-bucket prompts (up to `max_prefill_batch`) and the
+  single-prompt prefill.
+- Chunked prefill for prompts longer than `prefill_chunk_tokens`, one chunk
+  per step, interleaved with decode, on a trash-padded page list
+  (`KVCacheSpec.page_table_width`).
+- A decode step over all `max_num_seqs` slots, inactive slots sitting on
+  the trash page at context 1, with sampling on the device and one token
+  read back per slot.
+- Stops (stop ids, model eos unless `ignore_eos`, `max_tokens`,
+  `max_seq_len`), aborts, logprobs, OutOfPages deferral at admission and
+  preemption by recompute when decode runs out of pages.
+
+Runs on the card by default (`device=None` means CUDA and raises without
+it; the tests pass `device="cpu"`), in bf16 there and float32 on the CPU,
+the JAX engine's choice. PyTorch runs eagerly: there is no jit, donation or
+device-resident carry; the host mirrors are uploaded each step and the KV
+pools are updated in place. Settings this slice does not port are refused
+at construction with NotImplementedError naming the field.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import logging
+import threading
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from dynamo_tpu_torch.engine import sampling as smp
+from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.engine.kv_cache import (
+    KVCacheSpec,
+    OutOfPages,
+    PageAllocator,
+    SeqState,
+    alloc_kv_pages,
+)
+from dynamo_tpu_torch.engine.request import GenRequest, TokenEvent
+from dynamo_tpu_torch.models import llama, loader
+from dynamo_tpu_torch.models.config import ModelConfig
+
+log = logging.getLogger("dynamo_tpu_torch.engine")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The engine's device: CUDA unless the caller names another; never a
+    silent fall back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the engine runs on the GPU unless "
+            "device='cpu' is passed explicitly")
+    return dev
+
+
+def unported_settings(cfg: EngineConfig) -> List[str]:
+    """EngineConfig fields set to something this slice does not serve."""
+    checks = [
+        ("enable_prefix_caching", cfg.enable_prefix_caching),
+        ("speculative_mode", cfg.speculative_mode != "off"),
+        ("lora_slots", cfg.lora_slots > 0),
+        ("kvbm_host_blocks", cfg.kvbm_host_blocks > 0),
+        ("quantization", cfg.quantization != "none"),
+        ("kv_cache_dtype", cfg.kv_cache_dtype not in ("auto", "")),
+        ("tensor_parallel", cfg.tensor_parallel > 1),
+        ("data_parallel", cfg.data_parallel > 1),
+        ("expert_parallel", cfg.expert_parallel > 1),
+        ("sequence_parallel", cfg.sequence_parallel > 1),
+        ("mixed_batch_tokens", cfg.mixed_batch_tokens > 0),
+        ("num_scheduler_steps", cfg.num_scheduler_steps > 1),
+        ("tenants", bool(cfg.tenants)),
+        ("disaggregation_mode", cfg.disaggregation_mode != "agg"),
+        ("model_path", cfg.model_path is not None),
+    ]
+    return [name for name, bad in checks if bad]
+
+
+def unported_model_features(m: ModelConfig) -> List[str]:
+    """ModelConfig features the port's dense Llama does not implement."""
+    checks = [
+        ("num_experts", m.is_moe),
+        ("kv_lora_rank", m.is_mla),
+        ("sliding_window", m.sliding_window > 0),
+        ("attn_logit_softcapping", m.attn_logit_softcapping > 0),
+        ("final_logit_softcapping", m.final_logit_softcapping > 0),
+        ("qk_norm", m.qk_norm),
+        ("attention_bias", m.attention_bias),
+        ("hidden_act", m.hidden_act != "silu"),
+        ("rms_norm_unit_offset", m.rms_norm_unit_offset),
+        ("embed_scale", m.embed_scale),
+        ("post_norms", m.post_norms),
+        ("query_pre_attn_scalar", m.query_pre_attn_scalar > 0),
+        ("rope_local_theta", m.rope_local_theta > 0),
+        ("rope_yarn_scaling", m.rope_yarn_scaling is not None),
+        ("rope_longrope_scaling", m.rope_longrope_scaling is not None),
+    ]
+    return [name for name, bad in checks if bad]
+
+
+def _pack_logit_bias(req: GenRequest):
+    """A request's {token_id: bias} map as fixed [BIAS_K] lanes (-1 =
+    empty). Oversized maps raise rather than drop biases."""
+    ids = np.full((smp.BIAS_K,), -1, np.int64)
+    vals = np.zeros((smp.BIAS_K,), np.float32)
+    if req.logit_bias:
+        if len(req.logit_bias) > smp.BIAS_K:
+            raise ValueError(
+                f"logit_bias has {len(req.logit_bias)} entries; the engine "
+                f"supports at most {smp.BIAS_K}")
+        for i, (tok, b) in enumerate(req.logit_bias.items()):
+            ids[i] = int(tok)
+            vals[i] = float(b)
+    return ids, vals
+
+
+def _next_bucket(n: int, page_size: int, max_len: int) -> int:
+    """Smallest power-of-two multiple of page_size >= n (capped at max_len
+    rounded up to a page multiple)."""
+    cap = -(-max_len // page_size) * page_size
+    b = page_size
+    while b < n:
+        b *= 2
+    return min(b, cap)
+
+
+@dataclasses.dataclass
+class EngineMetrics:
+    num_requests: int = 0
+    num_finished: int = 0
+    prompt_tokens: int = 0
+    output_tokens: int = 0
+    decode_steps: int = 0
+    prefill_time_s: float = 0.0
+    decode_time_s: float = 0.0
+    kv_oom: int = 0
+    num_preempted: int = 0
+
+    def snapshot(self) -> Dict[str, float]:
+        return dataclasses.asdict(self)
+
+
+class InflightPrefill:
+    """A long prompt being prefilled chunk by chunk between decode steps."""
+
+    __slots__ = ("req", "pages", "pages_dev", "prompt_len", "done", "slot")
+
+    def __init__(self, req: GenRequest, pages, pages_dev, prompt_len: int,
+                 slot: int):
+        self.req = req
+        self.pages = pages  # real page ids (allocator-owned)
+        self.pages_dev = pages_dev  # trash-padded page list on the device
+        self.prompt_len = prompt_len
+        self.done = 0  # tokens whose KV is cached so far
+        self.slot = slot  # decode slot reserved at admission
+
+
+class Engine:
+    """Single-replica engine: owns the model, the KV pools and the batch."""
+
+    def __init__(self, cfg: EngineConfig,
+                 model_cfg: Optional[ModelConfig] = None, params=None,
+                 device=None):
+        """`params`: None (random init from cfg.seed), a
+        `models.llama.Llama` on `device`, or a JAX parameter tree of numpy
+        arrays (carried across by `models.loader.from_jax_params`)."""
+        bad = unported_settings(cfg)
+        if bad:
+            raise NotImplementedError(
+                f"EngineConfig field(s) {bad} are not ported to "
+                f"dynamo_tpu_torch yet (see ROADMAP.md)")
+        self.device = resolve_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        default_dtype = "float32" if self.device.type == "cpu" else "bfloat16"
+        if model_cfg is None:
+            model_cfg = ModelConfig.from_model_name(
+                cfg.model, dtype=cfg.dtype or default_dtype)
+        bad = unported_model_features(model_cfg)
+        if bad:
+            raise NotImplementedError(
+                f"ModelConfig feature(s) {bad} of {model_cfg.name} are not "
+                f"ported to dynamo_tpu_torch yet (see ROADMAP.md)")
+        self.model_cfg = model_cfg
+        self.dtype = getattr(torch, model_cfg.dtype)
+        if cfg.prefill_chunk_tokens > 0:
+            # chunks scatter whole pages: round up to a page multiple
+            rounded = -(-cfg.prefill_chunk_tokens
+                        // cfg.page_size) * cfg.page_size
+            if rounded != cfg.prefill_chunk_tokens:
+                cfg = dataclasses.replace(cfg, prefill_chunk_tokens=rounded)
+        self.cfg = cfg
+        self.metrics = EngineMetrics()
+        self._lock = threading.Lock()  # guards pending + _aborted
+        self._exec_lock = threading.RLock()  # serialises step()
+
+        if params is None:
+            self.model = loader.init_params(model_cfg, seed=cfg.seed,
+                                            device=self.device,
+                                            dtype=self.dtype)
+        elif isinstance(params, llama.Llama):
+            self.model = params
+        else:
+            self.model = loader.from_jax_params(model_cfg, params,
+                                                device=self.device,
+                                                dtype=self.dtype)
+
+        self.kv_spec = KVCacheSpec.from_model(model_cfg, cfg.num_pages,
+                                              cfg.page_size)
+        self.k_pages, self.v_pages = alloc_kv_pages(self.kv_spec,
+                                                    self.device)
+        self.allocator = PageAllocator(cfg.num_pages)
+
+        b, pmax = cfg.max_num_seqs, cfg.max_pages_per_seq
+        self.block_tables = np.zeros((b, pmax), dtype=np.int32)
+        self._dev_tables: Optional[torch.Tensor] = None
+        self.temperature = np.zeros((b,), np.float32)
+        self.top_p = np.ones((b,), np.float32)
+        self.top_k = np.zeros((b,), np.int64)
+        self.presence = np.zeros((b,), np.float32)
+        self.frequency = np.zeros((b,), np.float32)
+        self.min_p = np.zeros((b,), np.float32)
+        self.bias_ids = np.full((b, smp.BIAS_K), -1, np.int64)
+        self.bias_vals = np.zeros((b, smp.BIAS_K), np.float32)
+        self.slot_keys = [0] * b  # per-slot sampling chain roots
+        # output-token counts for presence/frequency penalties [B, V]
+        self.token_counts = torch.zeros(
+            (b, model_cfg.vocab_size), dtype=torch.int32, device=self.device)
+        self.seqs: Dict[int, SeqState] = {}
+        self._free_slots = list(range(b - 1, -1, -1))
+        # guarded_by: _lock (both)
+        self.pending: collections.deque = collections.deque()
+        self._aborted: set = set()
+        self._inflight: Optional[InflightPrefill] = None
+        self._rng = np.random.default_rng(cfg.seed)  # unseeded chain roots
+
+    # ------------------------------------------------------------- intake --
+
+    def warmup(self) -> None:
+        """Build the attention kernels before serving (CUDA only); the
+        eager forward has nothing else to compile."""
+        if self.device.type == "cuda":
+            from dynamo_tpu_torch.ops import cuda_attention
+
+            cuda_attention.build()
+
+    def validate_request(self, req: GenRequest) -> None:
+        """Raise ValueError if the request can never be served here."""
+        if req.guided_json:
+            raise ValueError("guided_json (response_format json_object) is "
+                             "not supported by dynamo_tpu_torch yet")
+        if req.adapter:
+            raise ValueError("LoRA adapters are not supported by "
+                             "dynamo_tpu_torch yet")
+        if req.resume_key is not None:
+            raise ValueError("resume_key continuations are not supported by "
+                             "dynamo_tpu_torch yet")
+        if len(req.prompt_token_ids) >= self.cfg.max_seq_len:
+            raise ValueError(
+                f"prompt of {len(req.prompt_token_ids)} tokens exceeds "
+                f"max_seq_len={self.cfg.max_seq_len}")
+        n_pages = max(1, -(-len(req.prompt_token_ids) // self.cfg.page_size))
+        if n_pages > self.cfg.num_pages - 1:
+            raise ValueError(f"prompt needs {n_pages} KV pages; pool only has "
+                             f"{self.cfg.num_pages - 1}")
+        _pack_logit_bias(req)
+
+    def _insert_pending(self, req: GenRequest, requeue: bool = False) -> None:
+        """Priority insertion (caller holds _lock): lower priority values
+        admit sooner, FIFO within a level; requeued continuations go before
+        their level's existing entries."""
+        p = req.priority
+        if requeue:
+            idx = next((i for i, r in enumerate(self.pending)
+                        if r.priority >= p), None)
+        else:
+            idx = next((i for i, r in enumerate(self.pending)
+                        if r.priority > p), None)
+        if idx is None:
+            self.pending.append(req)
+        else:
+            self.pending.insert(idx, req)
+
+    def add_request(self, req: GenRequest) -> None:
+        """Enqueue a request (raises like validate_request)."""
+        self.validate_request(req)
+        with self._lock:
+            self._insert_pending(req)
+            self.metrics.num_requests += 1
+
+    def abort_request(self, request_id: str) -> None:
+        """Mark a request aborted; step() applies it."""
+        with self._lock:
+            self._aborted.add(request_id)
+
+    @property
+    def num_active(self) -> int:
+        return len(self.seqs)
+
+    @property
+    def has_work(self) -> bool:
+        return (bool(self.seqs) or bool(self.pending)
+                or self._inflight is not None)
+
+    # --------------------------------------------------------- scheduling --
+
+    def step(self) -> List[TokenEvent]:
+        """One scheduler iteration: apply aborts, admit (prefill) or run
+        one chunk, then one decode step. Single consumer: one thread calls
+        step(); add_request/abort_request synchronise through _lock."""
+        with self._exec_lock, torch.inference_mode():
+            events = self._apply_aborts()
+            if self._inflight is not None:
+                events.extend(self._advance_chunk())
+            else:
+                events.extend(self._admit())
+            if self.seqs:
+                events.extend(self._decode_once())
+            return events
+
+    def generate(self, req: GenRequest) -> List[int]:
+        """Blocking single-request generation (tests, CLI)."""
+        self.add_request(req)
+        out: List[int] = []
+        while self.has_work:
+            for ev in self.step():
+                if ev.request_id == req.request_id and ev.token_id >= 0:
+                    out.append(ev.token_id)
+        return out
+
+    def _apply_aborts(self) -> List[TokenEvent]:
+        with self._lock:
+            aborted, self._aborted = self._aborted, set()
+            if not aborted:
+                return []
+            events = [TokenEvent(r.request_id, -1, 0, True, "abort")
+                      for r in self.pending if r.request_id in aborted]
+            self.pending = collections.deque(
+                r for r in self.pending if r.request_id not in aborted)
+        inf = self._inflight
+        if inf is not None and inf.req.request_id in aborted:
+            self.allocator.free(inf.pages)
+            self._free_slots.append(inf.slot)
+            self._inflight = None
+            events.append(TokenEvent(inf.req.request_id, -1, 0, True, "abort"))
+        for slot, seq in list(self.seqs.items()):
+            if seq.request_id in aborted:
+                events.append(TokenEvent(seq.request_id, -1,
+                                         len(seq.output_tokens), True,
+                                         "abort"))
+                self._finish_slot(slot, "abort")
+        return events
+
+    def _admit(self) -> List[TokenEvent]:
+        events: List[TokenEvent] = []
+        chunk = self.cfg.prefill_chunk_tokens
+        while self._free_slots:
+            with self._lock:
+                if not self.pending:
+                    break
+                req = self.pending[0]
+            n_pages = max(1, -(-len(req.prompt_token_ids)
+                               // self.cfg.page_size))
+            if not self.allocator.can_alloc(n_pages):
+                break  # OutOfPages deferral: running sequences free pages
+            with self._lock:
+                self.pending.popleft()
+            if chunk > 0 and len(req.prompt_token_ids) > chunk:
+                # long prompt: prefill in chunks across later step()s
+                # instead of stalling every active stream
+                self._start_inflight(req)
+                break
+            group = self._widen_group(req, chunk)
+            if len(group) > 1:
+                got = self._prefill_group(group)
+                if got is None:
+                    break
+                events.extend(got)
+                continue
+            try:
+                events.append(self._prefill_request(req))
+            except OutOfPages:
+                self.metrics.kv_oom += 1
+                events.append(TokenEvent(req.request_id, -1, 0, True,
+                                         "kv_oom"))
+        return events
+
+    def _widen_group(self, req: GenRequest, chunk: int) -> List[GenRequest]:
+        """Pull further pending same-bucket full-prefill requests into one
+        batched admission (up to max_prefill_batch, bounded by free slots
+        and pages, counted cumulatively)."""
+        cfg = self.cfg
+        group = [req]
+        if cfg.max_prefill_batch <= 1:
+            return group
+        bucket = _next_bucket(len(req.prompt_token_ids), cfg.page_size,
+                              cfg.max_seq_len)
+        need = max(1, -(-len(req.prompt_token_ids) // cfg.page_size))
+        while (len(group) < cfg.max_prefill_batch
+               and len(self._free_slots) > len(group)):
+            with self._lock:
+                if not self.pending:
+                    break
+                nxt = self.pending[0]
+            plen = len(nxt.prompt_token_ids)
+            if chunk > 0 and plen > chunk:
+                break  # chunked path
+            if _next_bucket(plen, cfg.page_size, cfg.max_seq_len) != bucket:
+                break
+            n_pg = max(1, -(-plen // cfg.page_size))
+            if not self.allocator.can_alloc(need + n_pg):
+                break
+            need += n_pg
+            with self._lock:
+                self.pending.popleft()
+            group.append(nxt)
+        return group
+
+    def _tensor(self, a, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+    def _prefill_group(self, reqs: List[GenRequest]
+                       ) -> Optional[List[TokenEvent]]:
+        """One batched prefill for same-bucket admissions."""
+        cfg = self.cfg
+        t0 = time.monotonic()
+        bucket = _next_bucket(len(reqs[0].prompt_token_ids), cfg.page_size,
+                              cfg.max_seq_len)
+        n, w = len(reqs), bucket // cfg.page_size
+        tokens = np.zeros((n, bucket), np.int64)
+        seq_lens = np.ones((n,), np.int32)
+        pages_arr = np.zeros((n, w), np.int32)
+        page_lists: List[List[int]] = []
+        try:
+            for i, r in enumerate(reqs):
+                plen = len(r.prompt_token_ids)
+                pages = self.allocator.alloc(max(1, -(-plen // cfg.page_size)))
+                page_lists.append(pages)
+                tokens[i, :plen] = r.prompt_token_ids
+                seq_lens[i] = plen
+                pages_arr[i, :len(pages)] = pages
+        except OutOfPages:
+            for pl in page_lists:
+                self.allocator.free(pl)
+            with self._lock:
+                for r in reversed(reqs):
+                    self._insert_pending(r, requeue=True)
+            return None
+        logits = llama.prefill_batch(
+            self.model, self._tensor(tokens), self._tensor(seq_lens),
+            self.k_pages, self.v_pages, self._tensor(pages_arr),
+            page_size=cfg.page_size)
+        keys = [self._request_key(r) for r in reqs]
+        toks, chosen, tids, tvals = self._sample_first(
+            logits, reqs, keys, [int(s) - 1 for s in seq_lens])
+        dt = time.monotonic() - t0
+        self.metrics.prefill_time_s += dt
+        events = []
+        for i, r in enumerate(reqs):
+            self.metrics.prompt_tokens += int(seq_lens[i])
+            events.append(self._finalize_admission(
+                r, page_lists[i], int(seq_lens[i]), int(toks[i]), keys[i],
+                (float(chosen[i]), tids[i], tvals[i])))
+        return events
+
+    def _request_key(self, req: GenRequest) -> int:
+        """Per-request sampling chain root: the seed when given."""
+        if req.seed is not None:
+            return int(req.seed) & ((1 << 63) - 1)
+        return int(self._rng.integers(0, 1 << 63))
+
+    def _penalty_row(self, req: GenRequest) -> Optional[np.ndarray]:
+        """Presence/frequency penalties for a preempted continuation's first
+        token: its prior output rides in the prompt but is still output."""
+        if not req.prior_output_token_ids or not (req.presence_penalty
+                                                  or req.frequency_penalty):
+            return None
+        row = np.zeros((self.model_cfg.vocab_size,), np.float32)
+        np.add.at(row, np.asarray(req.prior_output_token_ids, np.int64), 1.0)
+        return (req.presence_penalty * (row > 0).astype(np.float32)
+                + req.frequency_penalty * row)
+
+    def _sample_first(self, logits, reqs, keys, positions):
+        """First tokens from prefill logits [N, V]: per-request sampling
+        params and chains; logprobs always computed (from raw logits)."""
+        n = len(reqs)
+        bias = [_pack_logit_bias(r) for r in reqs]
+        state = smp.make_state(
+            [r.temperature for r in reqs], [r.top_p for r in reqs],
+            [r.top_k for r in reqs], min_p=[r.min_p for r in reqs],
+            bias_ids=np.stack([b[0] for b in bias]),
+            bias_vals=np.stack([b[1] for b in bias]), device=self.device)
+        pen = [self._penalty_row(r) for r in reqs]
+        sample_logits = logits
+        if any(p is not None for p in pen):
+            rows = np.zeros((n, self.model_cfg.vocab_size), np.float32)
+            for i, p in enumerate(pen):
+                if p is not None:
+                    rows[i] = p
+            sample_logits = logits.float() - self._tensor(rows)
+        toks = smp.sample(sample_logits, state,
+                          smp.fold_positions(keys, positions))
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        chosen = logp.gather(1, toks[:, None])[:, 0]
+        tvals, tids = logp.topk(min(5, logp.shape[-1]), dim=-1)
+        return (toks.cpu().numpy(), chosen.cpu().numpy(),
+                tids.cpu().numpy(), tvals.cpu().numpy())
+
+    def _finalize_admission(self, req: GenRequest, pages, prompt_len: int,
+                            first: int, req_key: int, lp,
+                            slot: Optional[int] = None) -> TokenEvent:
+        """Install the slot, stop-check the first token, decorate logprobs."""
+        if slot is None:
+            slot = self._free_slots.pop()
+        seq = self._install_slot(req, slot, pages, prompt_len, first, req_key)
+        finished, reason = self._check_stop(seq, first)
+        ev = TokenEvent(req.request_id, first, 0, finished, reason)
+        if req.logprobs is not None:
+            self._decorate_lp(ev, seq, *lp)
+        if finished:
+            self._finish_slot(slot, reason)
+        return ev
+
+    def _prefill_request(self, req: GenRequest) -> TokenEvent:
+        """Bucketed single-prompt prefill + first token."""
+        cfg = self.cfg
+        t0 = time.monotonic()
+        prompt = req.prompt_token_ids
+        prompt_len = len(prompt)
+        bucket = _next_bucket(prompt_len, cfg.page_size, cfg.max_seq_len)
+        pages = self.allocator.alloc(max(1, -(-prompt_len // cfg.page_size)))
+        pages_arr = np.zeros((bucket // cfg.page_size,), np.int32)
+        pages_arr[:len(pages)] = pages
+        tokens = np.zeros((bucket,), np.int64)
+        tokens[:prompt_len] = prompt
+        logits = llama.prefill(
+            self.model, self._tensor(tokens), prompt_len, self.k_pages,
+            self.v_pages, self._tensor(pages_arr), page_size=cfg.page_size)
+        key = self._request_key(req)
+        toks, chosen, tids, tvals = self._sample_first(
+            logits[None], [req], [key], [prompt_len - 1])
+        self.metrics.prefill_time_s += time.monotonic() - t0
+        self.metrics.prompt_tokens += prompt_len
+        return self._finalize_admission(
+            req, pages, prompt_len, int(toks[0]), key,
+            (float(chosen[0]), tids[0], tvals[0]))
+
+    def _start_inflight(self, req: GenRequest) -> None:
+        cfg = self.cfg
+        prompt_len = len(req.prompt_token_ids)
+        bucket = _next_bucket(prompt_len, cfg.page_size, cfg.max_seq_len)
+        pages = self.allocator.alloc(max(1, -(-prompt_len // cfg.page_size)))
+        # trailing TRASH slots: the final padded chunk's page slice lands on
+        # page 0 instead of running off the list
+        width = self.kv_spec.page_table_width(bucket,
+                                              cfg.prefill_chunk_tokens)
+        pages_arr = np.zeros((width,), np.int32)
+        pages_arr[:len(pages)] = pages
+        slot = self._free_slots.pop()
+        self._inflight = InflightPrefill(req, pages, self._tensor(pages_arr),
+                                         prompt_len, slot)
+
+    def _advance_chunk(self) -> List[TokenEvent]:
+        """Run ONE chunk of the inflight prefill; on the last chunk sample
+        the first token and install the sequence in its reserved slot."""
+        inf = self._inflight
+        cfg = self.cfg
+        t0 = time.monotonic()
+        c = cfg.prefill_chunk_tokens
+        start = inf.done
+        take = min(c, inf.prompt_len - start)
+        tokens = np.zeros((c,), np.int64)
+        tokens[:take] = inf.req.prompt_token_ids[start:start + take]
+        logits = llama.prefill_chunk(
+            self.model, self._tensor(tokens), start, take, self.k_pages,
+            self.v_pages, inf.pages_dev, page_size=cfg.page_size)
+        inf.done += take
+        self.metrics.prefill_time_s += time.monotonic() - t0
+        if inf.done < inf.prompt_len:
+            return []
+        self._inflight = None
+        self.metrics.prompt_tokens += inf.prompt_len
+        req = inf.req
+        key = self._request_key(req)
+        toks, chosen, tids, tvals = self._sample_first(
+            logits[None], [req], [key], [inf.prompt_len - 1])
+        return [self._finalize_admission(
+            req, inf.pages, inf.prompt_len, int(toks[0]), key,
+            (float(chosen[0]), tids[0], tvals[0]), slot=inf.slot)]
+
+    def _stop_ids_for(self, req: GenRequest) -> List[int]:
+        """User stop ids plus the model's eos ids, unless ignore_eos (which
+        exempts only the model's)."""
+        if req.ignore_eos:
+            return list(req.stop_token_ids or [])
+        return list(dict.fromkeys(
+            [*(req.stop_token_ids or []), self.model_cfg.eos_token_id,
+             *self.model_cfg.extra_stop_token_ids]))
+
+    def _install_slot(self, req: GenRequest, slot: int, pages,
+                      prompt_len: int, first: int, req_key: int) -> SeqState:
+        seq = SeqState(req.request_id, slot, pages, prompt_len,
+                       max_tokens=req.max_tokens,
+                       temperature=req.temperature, top_p=req.top_p,
+                       top_k=req.top_k,
+                       stop_token_ids=self._stop_ids_for(req),
+                       logprobs=req.logprobs)
+        seq.prompt_ids = list(req.prompt_token_ids)
+        seq.req = req
+        seq.output_tokens.append(first)
+        self.seqs[slot] = seq
+        self.block_tables[slot, :] = 0
+        self.block_tables[slot, :len(pages)] = pages
+        self._dev_tables = None
+        self.temperature[slot] = req.temperature
+        self.top_p[slot] = req.top_p
+        self.top_k[slot] = req.top_k
+        self.presence[slot] = req.presence_penalty
+        self.frequency[slot] = req.frequency_penalty
+        self.min_p[slot] = req.min_p
+        self.bias_ids[slot], self.bias_vals[slot] = _pack_logit_bias(req)
+        self.slot_keys[slot] = req_key
+        self.token_counts[slot].zero_()
+        self.token_counts[slot, first] += 1
+        if req.prior_output_token_ids and (req.presence_penalty
+                                           or req.frequency_penalty):
+            # preempted continuation: its earlier output is still output
+            row = np.zeros((self.model_cfg.vocab_size,), np.int32)
+            np.add.at(row, np.asarray(req.prior_output_token_ids,
+                                      np.int64), 1)
+            self.token_counts[slot] += self._tensor(row)
+        self.metrics.output_tokens += 1
+        return seq
+
+    @staticmethod
+    def _decorate_lp(ev: TokenEvent, seq: SeqState, chosen: float, tids,
+                     tvals) -> None:
+        ev.logprob = float(chosen)
+        n = min(int(seq.logprobs or 0), len(tids))
+        ev.top_logprobs = [(int(tids[i]), float(tvals[i])) for i in range(n)]
+
+    # ------------------------------------------------------------- decode --
+
+    def _grow_pages(self, events: List[TokenEvent]) -> None:
+        """Give every active sequence a page for its next token, preempting
+        (recompute) under pressure and finishing with kv_oom only when the
+        pool could never hold the sequence."""
+        cfg = self.cfg
+        pcap = cfg.max_pages_per_seq - 1
+        for slot, seq in list(self.seqs.items()):
+            if self.seqs.get(slot) is not seq:
+                continue  # preempted by an earlier iteration
+            last_page = min(seq.num_tokens // cfg.page_size, pcap)
+            need = max(0, last_page + 1 - len(seq.pages))
+            if need == 0:
+                continue
+            if not self.allocator.can_alloc(need):
+                self._preempt_for(need, protect=slot)
+                if not self.allocator.can_alloc(need):
+                    if (len(self.seqs) > 1 and len(seq.pages) + need
+                            <= cfg.num_pages - 1):
+                        self._preempt_slot(slot)
+                        continue
+                    self.metrics.kv_oom += 1
+                    events.append(TokenEvent(seq.request_id, -1,
+                                             len(seq.output_tokens), True,
+                                             "kv_oom"))
+                    self._finish_slot(slot, "kv_oom")
+                    continue
+            for page in self.allocator.alloc(need):
+                seq.pages.append(page)
+                self.block_tables[slot, len(seq.pages) - 1] = page
+            self._dev_tables = None
+
+    def _preempt_for(self, need: int, protect: int) -> None:
+        """Free >= `need` pages by preempting victims (worst priority, then
+        youngest), never the protected slot nor a better-priority one."""
+        def rank(seq):
+            return (seq.req.priority, seq.req.arrival_time)
+
+        protected = self.seqs.get(protect)
+        floor = rank(protected) if protected is not None else (-(1 << 30),)
+        while not self.allocator.can_alloc(need):
+            victims = [(s, q) for s, q in self.seqs.items()
+                       if s != protect and rank(q) >= floor]
+            if not victims:
+                return
+            slot, _ = max(victims, key=lambda kv: rank(kv[1]))
+            self._preempt_slot(slot)
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Preempt one sequence by recompute: free its pages and requeue a
+        continuation (prompt + output so far) at the front of its level."""
+        seq = self.seqs.get(slot)
+        if seq is None:
+            return
+        old = seq.req
+        cont = dataclasses.replace(
+            old,
+            prompt_token_ids=list(seq.prompt_ids) + list(seq.output_tokens),
+            max_tokens=seq.max_tokens - len(seq.output_tokens),
+            prior_output_token_ids=(list(old.prior_output_token_ids)
+                                    + list(seq.output_tokens)),
+        )
+        log.info("preempting %s under page pressure (%d output tokens "
+                 "recompute)", seq.request_id, len(seq.output_tokens))
+        self._finish_slot(slot, None)
+        self.metrics.num_finished -= 1  # preempted, not finished
+        self.metrics.num_preempted += 1
+        with self._lock:
+            self._insert_pending(cont, requeue=True)
+
+    def _decode_once(self) -> List[TokenEvent]:
+        """One decode step for every slot: write KV, attend, sample, read
+        the tokens back."""
+        events: List[TokenEvent] = []
+        self._grow_pages(events)
+        if not self.seqs:
+            return events
+        t0 = time.monotonic()
+        cfg = self.cfg
+        b = cfg.max_num_seqs
+        tokens = np.zeros((b,), np.int64)
+        positions = np.zeros((b,), np.int32)
+        ctx = np.ones((b,), np.int32)  # inactive: trash page, context 1
+        active = np.zeros((b,), bool)
+        for slot, seq in self.seqs.items():
+            tokens[slot] = seq.output_tokens[-1]
+            positions[slot] = seq.num_tokens
+            ctx[slot] = seq.num_tokens + 1
+            active[slot] = True
+        if self._dev_tables is None:
+            self._dev_tables = self._tensor(self.block_tables)
+        pos_dev = self._tensor(positions)
+        logits = llama.decode_step(
+            self.model, self._tensor(tokens), pos_dev, self._dev_tables,
+            self._tensor(ctx), self.k_pages, self.v_pages,
+            page_size=cfg.page_size)
+        state = smp.make_state(
+            self.temperature, self.top_p, self.top_k, self.presence,
+            self.frequency, self.min_p, self.bias_ids, self.bias_vals,
+            device=self.device)
+        seeds = smp.fold_positions(self.slot_keys, positions)
+        want_lp = any(s.logprobs is not None for s in self.seqs.values())
+        if want_lp:
+            nxt, chosen, tids, tvals = smp.sample_with_logprobs(
+                logits, state, seeds, self.token_counts)
+            chosen, tids, tvals = (chosen.cpu().numpy(), tids.cpu().numpy(),
+                                   tvals.cpu().numpy())
+        else:
+            nxt = smp.sample(logits, state, seeds, self.token_counts)
+        rows = torch.arange(b, device=self.device)
+        self.token_counts[rows, nxt] += self._tensor(active, torch.int32)
+        next_np = nxt.cpu().numpy()
+        dt = time.monotonic() - t0
+        self.metrics.decode_steps += 1
+        self.metrics.decode_time_s += dt
+        for slot in map(int, np.flatnonzero(active)):
+            seq = self.seqs[slot]
+            tok = int(next_np[slot])
+            seq.num_tokens += 1  # the attended token is now cached
+            seq.output_tokens.append(tok)
+            self.metrics.output_tokens += 1
+            finished, reason = self._check_stop(seq, tok)
+            ev = TokenEvent(seq.request_id, tok, len(seq.output_tokens) - 1,
+                            finished, reason)
+            if want_lp and seq.logprobs is not None:
+                self._decorate_lp(ev, seq, chosen[slot], tids[slot],
+                                  tvals[slot])
+            events.append(ev)
+            if finished:
+                self._finish_slot(slot, reason)
+        return events
+
+    def _check_stop(self, seq: SeqState, token: int):
+        if token in seq.stop_token_ids:
+            return True, "stop"
+        if len(seq.output_tokens) >= seq.max_tokens:
+            return True, "length"
+        if seq.prompt_len + len(seq.output_tokens) >= self.cfg.max_seq_len:
+            return True, "length"
+        return False, None
+
+    def _finish_slot(self, slot: int, reason: Optional[str]) -> None:
+        seq = self.seqs.pop(slot, None)
+        if seq is None:
+            return
+        self.allocator.free(seq.pages)
+        self.block_tables[slot, :] = 0
+        self._dev_tables = None
+        # reset the slot's sampling mirrors so the host-side gates see an
+        # all-greedy batch again once sampled requests leave
+        self.temperature[slot] = 0.0
+        self.top_p[slot] = 1.0
+        self.top_k[slot] = 0
+        self.presence[slot] = 0.0
+        self.frequency[slot] = 0.0
+        self.min_p[slot] = 0.0
+        self.bias_ids[slot] = -1
+        self.bias_vals[slot] = 0.0
+        self._free_slots.append(slot)
+        self.metrics.num_finished += 1

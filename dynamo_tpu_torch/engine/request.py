@@ -1,0 +1,89 @@
+"""Engine-level request/event types (token-id domain; text lives in serving/).
+
+The port's own copy of `dynamo_tpu/engine/request.py` (it imports nothing of the
+JAX package); keep the two in step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Tuple
+
+
+# max logit_bias entries per request (OpenAI caps the map at 300; the
+# engine packs the common small maps into fixed [B, BIAS_K] lanes so the
+# sampler stays shape-static under jit). Lives here — not in sampling.py —
+# so the jax-free frontend/protocol layer can validate against it.
+BIAS_K = 32
+
+
+@dataclasses.dataclass
+class GenRequest:
+    request_id: str
+    prompt_token_ids: List[int]
+    max_tokens: int = 64
+    temperature: float = 0.0
+    top_p: float = 1.0
+    top_k: int = 0
+    stop_token_ids: List[int] = dataclasses.field(default_factory=list)
+    ignore_eos: bool = False
+    # OpenAI sampling extensions (reference README.md:277-292 serves the
+    # full OpenAI client surface; parity is fields, not just endpoint names)
+    seed: Optional[int] = None  # deterministic per-request sampling chain
+    presence_penalty: float = 0.0  # subtract if token appeared in output
+    frequency_penalty: float = 0.0  # subtract per occurrence in output
+    min_p: float = 0.0  # drop tokens with prob < min_p * max prob (vLLM)
+    # OpenAI logit_bias: {token_id: bias in [-100, 100]} added to logits
+    # (affects greedy too); at most sampling.BIAS_K entries
+    logit_bias: Optional[Dict[int, float]] = None
+    logprobs: Optional[int] = None  # None = off; N = return top-N alternatives
+    # OpenAI response_format {"type": "json_object"}: constrain generation
+    # to one complete JSON object via the device-side grammar automaton
+    # (ops/json_guide.py); composes with multistep decode windows
+    guided_json: bool = False
+    # admission priority (vLLM semantics: LOWER value admits sooner, 0
+    # default); FIFO within a priority level
+    priority: int = 0
+    arrival_time: float = dataclasses.field(default_factory=time.monotonic)
+    # preemption-by-recompute continuation (engine-internal): tokens this
+    # REQUEST already emitted before being preempted — they ride in the
+    # prompt for recompute, but penalties must still count them as output
+    prior_output_token_ids: List[int] = dataclasses.field(
+        default_factory=list)
+    # exact PRNG chain-root restore (sampling.key_snapshot pair) for
+    # cross-worker recovery/drain handoff: when set, the request samples
+    # the identical fold_in(key, position) chain the original worker was
+    # on — even for unseeded sampled requests
+    resume_key: Optional[List[int]] = None
+    # multi-LoRA serving (dynamo_tpu.lora): adapter NAME this request
+    # decodes under (None = the bare base model). Resolved to a device
+    # slot at admission — lazily loading the adapter if it isn't resident
+    # — and carried across preemption/recovery continuations.
+    adapter: Optional[str] = None
+    # per-tenant QoS (dynamo_tpu.qos): the tenant identity the serving
+    # layer resolved from the request's headers (None = the default
+    # tenant). Drives weighted-fair budget accounting, queue priority
+    # (tenant class priority adds to `priority`), and preemption-victim
+    # ranking; carried across preemption/recovery continuations and the
+    # disagg prefill RPC. Scheduling-only: sampling never reads it.
+    tenant: Optional[str] = None
+
+
+@dataclasses.dataclass
+class TokenEvent:
+    request_id: str
+    token_id: int
+    index: int  # 0-based output-token index
+    finished: bool = False
+    finish_reason: Optional[str] = None  # stop | length | abort | kv_oom
+    logprob: Optional[float] = None  # chosen-token logprob when requested
+    # [(token_id, logprob)] best-first alternatives when requested
+    top_logprobs: Optional[List[Tuple[int, float]]] = None
+    # per-request phase timings (seconds), attached ONLY to the first-token
+    # event by the engine's prefill paths: {"queue_s": admission wait,
+    # "prefill_s": prompt compute}. This is the bridge from the engine's
+    # aggregate PhaseTimer histograms to per-request trace spans — the
+    # serving layer back-dates worker.queue / worker.prefill child spans
+    # from these without the engine knowing about tracing.
+    phase: Optional[Dict[str, float]] = None

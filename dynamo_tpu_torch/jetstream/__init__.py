@@ -1,0 +1,1 @@
+"""JetStream-profile worker of the port: python -m dynamo_tpu_torch.jetstream."""

@@ -1,0 +1,782 @@
+"""Model configuration for the llama-family decoder architectures served by the
+engine workers.
+
+The reference stack serves models by HF id via engine CLI flags
+(`reference examples/deploy/vllm/agg.yaml:33-35` `--model
+meta-llama/Llama-3.2-1B-Instruct`); here the analogous contract is
+`ModelConfig.from_model_name`, which understands either a preset name, a local
+HF checkpoint directory (config.json), or falls back to a tiny debug model.
+
+The port's own copy of `dynamo_tpu/models/config.py` (it imports nothing of the
+JAX package); keep the two in step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Optional, Tuple
+
+
+def _llama3_rope_scaling(cfg: dict):
+    """HF rope_scaling with rope_type "llama3" (Llama-3.1+) ->
+    (factor, low_freq_factor, high_freq_factor, original_max_pos).
+
+    Other scaling kinds: "linear" is modeled for gemma-3 (per-layer),
+    "yarn" by _yarn_rope_scaling below, "longrope" (Phi-3) by
+    _longrope_rope_scaling; "dynamic" is NOT modeled — warn loudly rather
+    than silently serving frequencies the checkpoint wasn't trained
+    with."""
+    rs = cfg.get("rope_scaling") or {}
+    kind = rs.get("rope_type") or rs.get("type")
+    if kind != "llama3":
+        if kind in ("dynamic",):
+            import logging
+
+            logging.getLogger("dynamo_tpu_torch.models").warning(
+                "rope_scaling type %r is not modeled — serving with "
+                "UNSCALED rope; outputs will diverge from the checkpoint's "
+                "training distribution beyond its original context", kind)
+        return None
+    return (
+        float(rs.get("factor", 8.0)),
+        float(rs.get("low_freq_factor", 1.0)),
+        float(rs.get("high_freq_factor", 4.0)),
+        int(rs.get("original_max_position_embeddings", 8192)),
+    )
+
+
+def _yarn_rope_scaling(cfg: dict):
+    """HF rope_scaling with type "yarn" (DeepSeek-V2's default) ->
+    (factor, beta_fast, beta_slow, original_max_pos, mscale,
+    mscale_all_dim, attention_factor).
+
+    mscale_all_dim=0 flows through AS zero — yarn_get_mscale(f, 0) == 1,
+    HF's softmax-neutral default. attention_factor=-1 means "derive from
+    mscale"; an explicit value (generic HF yarn) overrides the rotary
+    magnitude and suppresses the DeepSeek softmax mscale^2."""
+    rs = cfg.get("rope_scaling") or {}
+    if (rs.get("rope_type") or rs.get("type")) != "yarn":
+        return None
+    af = rs.get("attention_factor")
+    return (
+        float(rs.get("factor", 1.0)),
+        float(rs.get("beta_fast", 32.0)),
+        float(rs.get("beta_slow", 1.0)),
+        int(rs.get("original_max_position_embeddings", 4096)),
+        float(rs.get("mscale", 1.0)),
+        float(rs.get("mscale_all_dim", 0.0)),
+        float(af) if af is not None else -1.0,
+    )
+
+
+def _longrope_rope_scaling(cfg: dict):
+    """HF rope_scaling with type "longrope" (Phi-3) ->
+    (short_factors, long_factors, original_max_position_embeddings).
+
+    Factor selection is PER POSITION at apply time (ops/rope.apply_rope):
+    positions inside the original window rotate with short-factor
+    frequencies, positions beyond with long-factor ones — vLLM's
+    su-rope serving semantics, which keep short prompts on the
+    frequencies the base model trained with. (HF torch instead switches
+    the WHOLE forward to long factors once total length exceeds the
+    window; the two agree on every request that fits the original
+    window.) The attention magnitude sqrt(1 + ln(s)/ln(orig)) applies
+    globally when the checkpoint extends the window, as in vLLM."""
+    rs = cfg.get("rope_scaling") or {}
+    if (rs.get("rope_type") or rs.get("type")) != "longrope":
+        return None
+    orig = int(rs.get("original_max_position_embeddings",
+                      cfg.get("original_max_position_embeddings", 4096)))
+    short = rs.get("short_factor")
+    long = rs.get("long_factor")
+    if not short or not long:
+        import logging
+
+        logging.getLogger("dynamo_tpu_torch.models").warning(
+            "rope_scaling type 'longrope' is missing short_factor/"
+            "long_factor arrays — serving with UNSCALED rope; outputs "
+            "will diverge from the checkpoint's training distribution")
+        return None
+    return (tuple(float(f) for f in short),
+            tuple(float(f) for f in long), orig)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str = "tiny-debug"
+    vocab_size: int = 512
+    hidden_size: int = 128
+    intermediate_size: int = 256
+    num_layers: int = 2
+    num_heads: int = 4
+    num_kv_heads: int = 2
+    head_dim: int = 32
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+    max_position_embeddings: int = 8192
+    tie_word_embeddings: bool = True
+    # MLP activation: "silu" (Llama/Qwen/Mixtral SwiGLU) or "gelu_tanh"
+    # (Gemma GeGLU)
+    hidden_act: str = "silu"
+    # Gemma conventions: norms scale by (1 + w) instead of w, and the
+    # embedding output is multiplied by sqrt(hidden_size)
+    rms_norm_unit_offset: bool = False
+    embed_scale: bool = False
+    # Gemma-2 family:
+    # sliding_window > 0 interleaves local-attention layers — layer i is
+    # GLOBAL iff (i+1) % sliding_window_pattern == 0 (gemma-2: pattern 2 =
+    # even layers local, matching HF's `not bool(layer_idx % 2)`), else
+    # attends only to the last `sliding_window` positions. KV pages are
+    # kept in full (masking enforces the window), and sliding models run
+    # the XLA attention paths (the Pallas kernels don't window yet).
+    sliding_window: int = 0
+    sliding_window_pattern: int = 2
+    # soft caps: cap * tanh(x / cap) on attention scores / final logits
+    attn_logit_softcapping: float = 0.0
+    final_logit_softcapping: float = 0.0
+    # query scaling override: attention scales by query_pre_attn_scalar
+    # ^-0.5 instead of head_dim^-0.5 when > 0 (gemma-2 uses 256 even
+    # where head_dim is 128)
+    query_pre_attn_scalar: float = 0.0
+    # Gemma-3: per-layer rope bases — local (sliding) layers use
+    # rope_local_theta, GLOBAL layers use rope_theta with positions
+    # divided by rope_scaling_factor (HF linear rope scaling). 0 disables
+    # (single rope_theta everywhere).
+    rope_local_theta: float = 0.0
+    rope_scaling_factor: float = 1.0
+    # Llama-3.1+ frequency-dependent rope scaling (HF rope_type "llama3"):
+    # (factor, low_freq_factor, high_freq_factor, original_max_position
+    # _embeddings), or None. Applied to inv_freq once — affects every
+    # position, so omitting it diverges from HF at ANY length.
+    rope_llama3_scaling: Optional[Tuple[float, float, float, int]] = None
+    # YaRN rope scaling (HF type "yarn"; DeepSeek-V2's default):
+    # (factor, beta_fast, beta_slow, original_max_pos, mscale,
+    # mscale_all_dim, attention_factor). Frequencies remap via the
+    # correction-dim ramp; the attention softmax scale gains
+    # yarn_get_mscale(factor, mscale_all_dim)^2 (applied as a q
+    # pre-scale) unless an explicit attention_factor (>= 0) overrides
+    # the rotary magnitude instead (generic HF yarn).
+    rope_yarn_scaling: Optional[
+        Tuple[float, float, float, int, float, float, float]] = None
+    # Phi-3 longrope (HF type "longrope"): (short_factors, long_factors,
+    # original_max_position_embeddings) — per-dim inv_freq divisors
+    # selected PER POSITION at apply time (short inside the original
+    # window, long beyond; vLLM su-rope semantics). cos/sin are
+    # multiplied by sqrt(1 + ln(max/orig)/ln(orig)) when the checkpoint
+    # extends the window.
+    rope_longrope_scaling: Optional[
+        Tuple[Tuple[float, ...], Tuple[float, ...], int]] = None
+    # gemma-2/3 sandwich norms: extra RMSNorms on the attention and MLP
+    # OUTPUTS (post_attention_layernorm / post_feedforward_layernorm in HF
+    # naming — note HF llama's "post_attention_layernorm" is the PRE-MLP
+    # norm; gemma-2's is genuinely post-attention)
+    post_norms: bool = False
+    # qwen3-style per-head q/k RMSNorm
+    qk_norm: bool = False
+    # qwen2-style attention bias on q/k/v projections
+    attention_bias: bool = False
+    # MoE (mixtral/deepseek-style). num_experts == 0 -> dense MLP.
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    # capacity factor for the prefill dispatch path (ops/moe.py). 0 (default)
+    # = exact dense-masked dispatch everywhere; > 0 enables the capacity-based
+    # gather for prefill-sized batches (~X/k fewer expert-MLP FLOPs), where
+    # tokens past an expert's capacity drop that expert — a throughput/
+    # fidelity trade the operator opts into per deployment
+    moe_capacity_factor: float = 0.0
+    # DeepSeek-style SHARED experts: always-active dense experts added to
+    # the routed top-k output (each of width intermediate_size)
+    num_shared_experts: int = 0
+    # router gate convention: True (Mixtral/Qwen3) renormalizes the top-k
+    # weights to sum 1; False (DeepSeek norm_topk_prob=false) keeps the
+    # global-softmax probabilities, scaled by routed_scaling_factor
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    # MLA (DeepSeek-V2-family multi-head latent attention). kv_lora_rank > 0
+    # switches attention to the latent form: the paged cache stores ONE
+    # shared [c_kv | k_rope] row per token (kv_lora_rank + qk_rope_head_dim
+    # lanes) instead of per-head K/V — a 4x+ KV-cache compression — and
+    # decode runs in the ABSORBED form (q_nope folded through W_UK so
+    # queries attend directly over the latent rows).
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0   # per-head no-rope query/key dim
+    qk_rope_head_dim: int = 0   # shared rope dim appended to the latent row
+    v_head_dim: int = 0         # per-head value dim out of W_UV
+    # dtype for params/compute (bfloat16 on TPU; float32 for CPU tests)
+    dtype: str = "bfloat16"
+    eos_token_id: int = 2
+    bos_token_id: int = 1
+    # additional end-of-generation tokens (HF generation_config's eos
+    # LIST): gemma-it models end chat turns with <end_of_turn>=107, which
+    # they emit BEFORE <eos> — without it generations run to max_tokens
+    extra_stop_token_ids: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        if self.is_moe and self.hidden_act != "silu":
+            # the MoE dispatch kernels (ops/moe.py) contract with SwiGLU;
+            # a GeGLU MoE config would silently serve the wrong activation
+            raise ValueError(
+                f"MoE models are SwiGLU-only (hidden_act={self.hidden_act!r}"
+                " requested); ops/moe.py would need the activation plumbed")
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    # --- KV-cache geometry (what the paged pools actually store): MLA keeps
+    # one shared latent row per token; classic attention keeps per-head K/V.
+    @property
+    def cache_kv_heads(self) -> int:
+        return 1 if self.is_mla else self.num_kv_heads
+
+    @property
+    def cache_head_dim(self) -> int:
+        if self.is_mla:
+            w = self.kv_lora_rank + self.qk_rope_head_dim
+            if w >= 128:
+                # pad real-size latent rows to a 128-lane multiple so the
+                # Pallas decode kernel's DMA tiling is eligible (e.g.
+                # DeepSeek-V2's 576 -> 640, +11% cache for kernel access);
+                # tiny test configs stay unpadded
+                return -(-w // 128) * 128
+            return w
+        return self.head_dim
+
+    @staticmethod
+    def from_hf_config(cfg: dict, name: str = "hf-model", dtype: str = "bfloat16") -> "ModelConfig":
+        """Map a HuggingFace config.json dict onto ModelConfig.
+
+        Covers LlamaForCausalLM / Qwen2ForCausalLM / Qwen3ForCausalLM /
+        MixtralForCausalLM config keys.
+        """
+        arch = (cfg.get("architectures") or [""])[0]
+        if arch.startswith("Gemma3n"):
+            # Gemma-3n's altup/laurel/per-layer-embedding structure is a
+            # different architecture, not a config variation of Gemma-3
+            raise ValueError(
+                f"{arch} (MatFormer/altup) is not supported; Gemma v1/2/3 "
+                "dense text models are")
+        if arch == "Gemma3ForConditionalGeneration":
+            # multimodal wrapper: serve the nested TEXT config (this is
+            # what the released gemma-3-4b+ checkpoints' config.json is;
+            # vision towers are out of scope)
+            text = cfg.get("text_config")
+            if not text:
+                raise ValueError(
+                    "Gemma3ForConditionalGeneration config has no "
+                    "text_config to serve")
+            return ModelConfig.from_hf_config(
+                {**text, "architectures": ["Gemma3ForCausalLM"]},
+                name=name, dtype=dtype)
+        is_gemma = arch.startswith("Gemma")
+        is_gemma2 = arch.startswith("Gemma2")
+        is_gemma3 = arch.startswith("Gemma3")
+        num_heads = cfg["num_attention_heads"]
+        hidden = cfg["hidden_size"]
+        head_dim = cfg.get("head_dim") or hidden // num_heads
+        eos = cfg.get("eos_token_id", 2)
+        if isinstance(eos, list):
+            eos = eos[0]
+        if cfg.get("first_k_dense_replace"):
+            # DeepSeek's dense-first-k layout breaks the uniform layer scan
+            raise ValueError(
+                "first_k_dense_replace (dense first layers in an MoE "
+                "model) is not supported yet — all layers must share one "
+                "structure for the lax.scan layer stack")
+        # expert count: Mixtral uses num_local_experts, DeepSeek
+        # n_routed_experts, Qwen3-MoE plain num_experts
+        n_experts = (cfg.get("num_local_experts")
+                     or cfg.get("n_routed_experts")
+                     or cfg.get("num_experts") or 0)
+        if n_experts:
+            # MoE configs carry BOTH intermediate_size (dense-equivalent,
+            # unused) and moe_intermediate_size (per-expert, the real one)
+            inter = (cfg.get("moe_intermediate_size")
+                     or cfg.get("intermediate_size") or 4 * hidden)
+        else:
+            inter = cfg.get("intermediate_size") or 4 * hidden
+        return ModelConfig(
+            name=name,
+            vocab_size=cfg["vocab_size"],
+            hidden_size=hidden,
+            intermediate_size=inter,
+            num_layers=cfg["num_hidden_layers"],
+            num_heads=num_heads,
+            num_kv_heads=cfg.get("num_key_value_heads", num_heads),
+            head_dim=head_dim,
+            rope_theta=cfg.get("rope_theta", 10000.0),
+            rms_norm_eps=cfg.get("rms_norm_eps", 1e-5),
+            max_position_embeddings=cfg.get("max_position_embeddings", 8192),
+            tie_word_embeddings=cfg.get("tie_word_embeddings", is_gemma),
+            hidden_act="gelu_tanh" if (cfg.get("hidden_activation")
+                                       or cfg.get("hidden_act", "silu")
+                                       ).startswith("gelu") else "silu",
+            rms_norm_unit_offset=is_gemma,
+            embed_scale=is_gemma,
+            sliding_window=(int(cfg.get("sliding_window") or 0)
+                            if (is_gemma2 or is_gemma3
+                                or "Mistral" in arch
+                                or "Phi3" in arch) else 0),
+            # Mistral and Phi-3 apply their window on EVERY layer
+            # (pattern 0 = no global layers); gemma-2/3 interleave
+            sliding_window_pattern=(
+                0 if ("Mistral" in arch or "Phi3" in arch) else int(
+                    cfg.get("sliding_window_pattern")
+                    or (6 if is_gemma3 else 2))),
+            attn_logit_softcapping=float(
+                cfg.get("attn_logit_softcapping") or 0.0),
+            final_logit_softcapping=float(
+                cfg.get("final_logit_softcapping") or 0.0),
+            query_pre_attn_scalar=float(
+                cfg.get("query_pre_attn_scalar") or 0.0),
+            post_norms=is_gemma2 or is_gemma3,
+            rope_local_theta=float(
+                cfg.get("rope_local_base_freq") or 0.0),
+            rope_scaling_factor=float(
+                ((cfg.get("rope_scaling") or {}).get("factor"))
+                or 1.0) if is_gemma3 else 1.0,
+            rope_llama3_scaling=_llama3_rope_scaling(cfg),
+            rope_yarn_scaling=_yarn_rope_scaling(cfg),
+            rope_longrope_scaling=_longrope_rope_scaling(cfg),
+            qk_norm="Qwen3" in arch or is_gemma3,
+            attention_bias=cfg.get("attention_bias", "Qwen2" in arch),
+            num_experts=n_experts,
+            num_experts_per_tok=cfg.get("num_experts_per_tok", 2),
+            num_shared_experts=cfg.get("n_shared_experts", 0) or 0,
+            norm_topk_prob=bool(cfg.get("norm_topk_prob", True)),
+            routed_scaling_factor=float(
+                cfg.get("routed_scaling_factor", 1.0)),
+            kv_lora_rank=cfg.get("kv_lora_rank", 0) or 0,
+            qk_nope_head_dim=cfg.get("qk_nope_head_dim", 0) or 0,
+            qk_rope_head_dim=cfg.get("qk_rope_head_dim", 0) or 0,
+            v_head_dim=cfg.get("v_head_dim", 0) or 0,
+            dtype=dtype,
+            eos_token_id=eos,
+            bos_token_id=cfg.get("bos_token_id", 1),
+        )
+
+    @staticmethod
+    def from_model_name(model: str, dtype: Optional[str] = None) -> "ModelConfig":
+        """Resolve a model identifier the way the reference's engine flags do.
+
+        Accepts: a preset key (see PRESETS), a local directory containing an HF
+        config.json, or an HF-style id whose basename matches a preset.
+        """
+        if model in PRESETS:
+            cfg = PRESETS[model]
+        else:
+            cfg_path = os.path.join(model, "config.json")
+            if os.path.isdir(model) and os.path.exists(cfg_path):
+                with open(cfg_path) as f:
+                    cfg = ModelConfig.from_hf_config(json.load(f), name=model)
+            else:
+                base = model.rstrip("/").split("/")[-1].lower()
+                if base not in PRESETS:
+                    raise ValueError(
+                        f"unknown model {model!r}: not a preset "
+                        f"({sorted(PRESETS)}), and not a local checkpoint dir "
+                        f"with a config.json"
+                    )
+                cfg = dataclasses.replace(PRESETS[base], name=model)
+        if dtype is not None:
+            cfg = dataclasses.replace(cfg, dtype=dtype)
+        return cfg
+
+
+# Architecture presets for the model families named in BASELINE.json configs.
+# Sizes match the public HF configs for each model.
+PRESETS = {
+    "tiny-debug": ModelConfig(),
+    "tiny-moe-debug": ModelConfig(
+        name="tiny-moe-debug", num_experts=4, num_experts_per_tok=2
+    ),
+    "tiny-mla-debug": ModelConfig(
+        name="tiny-mla-debug",
+        kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+        v_head_dim=16,
+    ),
+    "llama-3.2-1b-instruct": ModelConfig(
+        name="llama-3.2-1b-instruct",
+        vocab_size=128256,
+        hidden_size=2048,
+        intermediate_size=8192,
+        num_layers=16,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=64,
+        rope_theta=500000.0,
+        max_position_embeddings=131072,
+        # Llama-3.2 ships rope_type "llama3" scaling — part of the model,
+        # not a long-context add-on (it reshapes inv_freq at every length)
+        rope_llama3_scaling=(32.0, 1.0, 4.0, 8192),
+        tie_word_embeddings=True,
+        eos_token_id=128009,
+        bos_token_id=128000,
+    ),
+    "meta-llama-3-8b-instruct": ModelConfig(
+        name="meta-llama-3-8b-instruct",
+        vocab_size=128256,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        rope_theta=500000.0,
+        tie_word_embeddings=False,
+        eos_token_id=128009,
+        bos_token_id=128000,
+    ),
+    # Llama-3.1: same architecture as 3.0-8B plus llama3 rope scaling and
+    # the 128k window (public HF config)
+    "llama-3.1-8b-instruct": ModelConfig(
+        name="llama-3.1-8b-instruct",
+        vocab_size=128256,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        rope_theta=500000.0,
+        max_position_embeddings=131072,
+        rope_llama3_scaling=(8.0, 1.0, 4.0, 8192),
+        tie_word_embeddings=False,
+        eos_token_id=128009,
+        bos_token_id=128000,
+    ),
+    # Phi-3-mini 4k (public HF config): llama-family decoder with FUSED
+    # qkv_proj / gate_up_proj checkpoints (split by the loader), MHA
+    # (kv_heads == heads), head_dim 96. The 128k variants add longrope
+    # rope_scaling, parsed exactly from a local checkpoint's config.json
+    # (from_model_name on the checkpoint dir) — the per-dim factor arrays
+    # are checkpoint data, not preset constants.
+    "phi-3-mini-4k-instruct": ModelConfig(
+        name="phi-3-mini-4k-instruct",
+        vocab_size=32064,
+        hidden_size=3072,
+        intermediate_size=8192,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=32,
+        head_dim=96,
+        rope_theta=10000.0,
+        max_position_embeddings=4096,
+        # Phi-3 trains with a 2047-token window on EVERY layer (HF
+        # config.sliding_window; pattern 0 = no global layers)
+        sliding_window=2047,
+        sliding_window_pattern=0,
+        tie_word_embeddings=False,
+        eos_token_id=32000,
+        extra_stop_token_ids=(32007,),  # <|end|>
+        bos_token_id=1,
+    ),
+    # Qwen2.5: Qwen2 architecture (attention bias, no qk-norm)
+    "qwen2.5-7b-instruct": ModelConfig(
+        name="qwen2.5-7b-instruct",
+        vocab_size=152064,
+        hidden_size=3584,
+        intermediate_size=18944,
+        num_layers=28,
+        num_heads=28,
+        num_kv_heads=4,
+        head_dim=128,
+        rope_theta=1000000.0,
+        max_position_embeddings=32768,
+        tie_word_embeddings=False,
+        attention_bias=True,
+        eos_token_id=151645,
+        bos_token_id=151643,
+    ),
+    "meta-llama-3-70b-instruct": ModelConfig(
+        name="meta-llama-3-70b-instruct",
+        vocab_size=128256,
+        hidden_size=8192,
+        intermediate_size=28672,
+        num_layers=80,
+        num_heads=64,
+        num_kv_heads=8,
+        head_dim=128,
+        rope_theta=500000.0,
+        tie_word_embeddings=False,
+        eos_token_id=128009,
+        bos_token_id=128000,
+    ),
+    "qwen3-0.6b": ModelConfig(
+        name="qwen3-0.6b",
+        vocab_size=151936,
+        hidden_size=1024,
+        intermediate_size=3072,
+        num_layers=28,
+        num_heads=16,
+        num_kv_heads=8,
+        head_dim=128,
+        rope_theta=1000000.0,
+        tie_word_embeddings=True,
+        qk_norm=True,
+        eos_token_id=151645,
+        bos_token_id=151643,
+    ),
+    "mixtral-8x7b-instruct-v0.1": ModelConfig(
+        name="mixtral-8x7b-instruct-v0.1",
+        vocab_size=32000,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        rope_theta=1000000.0,
+        num_experts=8,
+        num_experts_per_tok=2,
+        eos_token_id=2,
+        bos_token_id=1,
+    ),
+    # fine-grained MoE + per-head q/k RMSNorm (the qwen3 combination) —
+    # 30.5B total / ~3.3B active; the modern expert-parallel serving target
+    # beyond Mixtral's 8-expert layout
+    "qwen3-30b-a3b": ModelConfig(
+        name="qwen3-30b-a3b",
+        vocab_size=151936,
+        hidden_size=2048,
+        intermediate_size=768,  # PER-EXPERT width (hf moe_intermediate_size)
+        num_layers=48,
+        num_heads=32,
+        num_kv_heads=4,
+        head_dim=128,
+        rope_theta=1000000.0,
+        qk_norm=True,
+        tie_word_embeddings=False,
+        num_experts=128,
+        num_experts_per_tok=8,
+        eos_token_id=151645,
+        bos_token_id=151643,
+    ),
+    # DeepSeek-V2-Lite dims: MLA latent attention — the paged cache stores
+    # one shared [c_kv | k_rope] row per token (576 lanes, padded to 640
+    # for Pallas DMA tiling) in each of the K/V pools: 1280 lanes total vs
+    # 4096 for the equivalent per-head MHA = 3.2x KV compression (the
+    # symmetric-pool duplication keeps the whole engine/transfer/donation
+    # machinery unchanged) + 64 routed top-6 / 2
+    # shared experts. DEVIATION from the checkpoint: the real model's FIRST
+    # layer is a dense FFN (first_k_dense_replace=1), which the uniform
+    # layer scan doesn't support yet — here every layer is MoE, so param
+    # count runs ~0.5B over the published 15.7B.
+    "deepseek-v2-lite": ModelConfig(
+        name="deepseek-v2-lite",
+        vocab_size=102400,
+        hidden_size=2048,
+        intermediate_size=1408,  # per-expert (hf moe_intermediate_size)
+        num_layers=27,
+        num_heads=16,
+        num_kv_heads=16,
+        head_dim=128,
+        rope_theta=10000.0,
+        tie_word_embeddings=False,
+        num_experts=64,
+        num_experts_per_tok=6,
+        num_shared_experts=2,
+        norm_topk_prob=False,  # DeepSeek gate convention
+        kv_lora_rank=512,
+        qk_nope_head_dim=128,
+        qk_rope_head_dim=64,
+        v_head_dim=128,
+        # DeepSeek-V2 ships with YaRN on by default (32k over a 4k
+        # original context, mscale 0.707 both — rotary ratio 1, softmax
+        # scale x yarn_get_mscale(40, .707)^2)
+        rope_yarn_scaling=(40.0, 32.0, 1.0, 4096, 0.707, 0.707, -1.0),
+        max_position_embeddings=163840,
+        eos_token_id=100001,
+        bos_token_id=100000,
+    ),
+    # Gemma (v1) family: GeGLU activation, (1+w) norms, sqrt(E)-scaled
+    # embeddings, tied head, head_dim 256 (public HF configs). The 2B is
+    # MQA (one KV head) — the smallest-KV serving point in the zoo.
+    "gemma-7b-it": ModelConfig(
+        name="gemma-7b-it",
+        vocab_size=256000,
+        hidden_size=3072,
+        intermediate_size=24576,
+        num_layers=28,
+        num_heads=16,
+        num_kv_heads=16,
+        head_dim=256,
+        rms_norm_eps=1e-6,
+        tie_word_embeddings=True,
+        hidden_act="gelu_tanh",
+        rms_norm_unit_offset=True,
+        embed_scale=True,
+        eos_token_id=1,
+        extra_stop_token_ids=(107,),  # <end_of_turn>
+        bos_token_id=2,
+    ),
+    "gemma-2b-it": ModelConfig(
+        name="gemma-2b-it",
+        vocab_size=256000,
+        hidden_size=2048,
+        intermediate_size=16384,
+        num_layers=18,
+        num_heads=8,
+        num_kv_heads=1,
+        head_dim=256,
+        rms_norm_eps=1e-6,
+        tie_word_embeddings=True,
+        hidden_act="gelu_tanh",
+        rms_norm_unit_offset=True,
+        embed_scale=True,
+        eos_token_id=1,
+        extra_stop_token_ids=(107,),  # <end_of_turn>
+        bos_token_id=2,
+    ),
+    "tiny-gemma-debug": ModelConfig(
+        name="tiny-gemma-debug",
+        num_kv_heads=1,  # exercise the MQA path in every engine test
+        hidden_act="gelu_tanh",
+        rms_norm_unit_offset=True,
+        embed_scale=True,
+    ),
+    # Gemma-2 family: sandwich norms, interleaved sliding-window layers,
+    # attn/final logit soft-caps, query_pre_attn_scalar (public HF configs)
+    "gemma-2-9b-it": ModelConfig(
+        name="gemma-2-9b-it",
+        vocab_size=256000,
+        hidden_size=3584,
+        intermediate_size=14336,
+        num_layers=42,
+        num_heads=16,
+        num_kv_heads=8,
+        head_dim=256,
+        rms_norm_eps=1e-6,
+        tie_word_embeddings=True,
+        hidden_act="gelu_tanh",
+        rms_norm_unit_offset=True,
+        embed_scale=True,
+        sliding_window=4096,
+        attn_logit_softcapping=50.0,
+        final_logit_softcapping=30.0,
+        query_pre_attn_scalar=256.0,
+        post_norms=True,
+        eos_token_id=1,
+        extra_stop_token_ids=(107,),  # <end_of_turn>
+        bos_token_id=2,
+    ),
+    "gemma-2-2b-it": ModelConfig(
+        name="gemma-2-2b-it",
+        vocab_size=256000,
+        hidden_size=2304,
+        intermediate_size=9216,
+        num_layers=26,
+        num_heads=8,
+        num_kv_heads=4,
+        head_dim=256,
+        rms_norm_eps=1e-6,
+        tie_word_embeddings=True,
+        hidden_act="gelu_tanh",
+        rms_norm_unit_offset=True,
+        embed_scale=True,
+        sliding_window=4096,
+        attn_logit_softcapping=50.0,
+        final_logit_softcapping=30.0,
+        query_pre_attn_scalar=256.0,
+        post_norms=True,
+        eos_token_id=1,
+        extra_stop_token_ids=(107,),  # <end_of_turn>
+        bos_token_id=2,
+    ),
+    # Gemma-3 (text): 5-local:1-global sliding pattern, per-layer rope
+    # bases (local 10k / global 1M, linear position scaling on global
+    # layers), gemma-style qk-norm, no soft-caps (public HF text configs;
+    # from_hf_config stays authoritative for real checkpoints)
+    "gemma-3-4b-it": ModelConfig(
+        name="gemma-3-4b-it",
+        vocab_size=262208,
+        hidden_size=2560,
+        intermediate_size=10240,
+        num_layers=34,
+        num_heads=8,
+        num_kv_heads=4,
+        head_dim=256,
+        rms_norm_eps=1e-6,
+        max_position_embeddings=131072,
+        tie_word_embeddings=True,
+        hidden_act="gelu_tanh",
+        rms_norm_unit_offset=True,
+        embed_scale=True,
+        qk_norm=True,
+        sliding_window=1024,
+        sliding_window_pattern=6,
+        query_pre_attn_scalar=256.0,
+        post_norms=True,
+        rope_theta=1_000_000.0,
+        rope_local_theta=10_000.0,
+        rope_scaling_factor=8.0,
+        eos_token_id=1,
+        extra_stop_token_ids=(107,),  # <end_of_turn>
+        bos_token_id=2,
+    ),
+    "gemma-3-1b-it": ModelConfig(
+        name="gemma-3-1b-it",
+        vocab_size=262144,
+        hidden_size=1152,
+        intermediate_size=6912,
+        num_layers=26,
+        num_heads=4,
+        num_kv_heads=1,
+        head_dim=256,
+        rms_norm_eps=1e-6,
+        max_position_embeddings=32768,
+        tie_word_embeddings=True,
+        hidden_act="gelu_tanh",
+        rms_norm_unit_offset=True,
+        embed_scale=True,
+        qk_norm=True,
+        sliding_window=512,
+        sliding_window_pattern=6,
+        query_pre_attn_scalar=256.0,
+        post_norms=True,
+        rope_theta=1_000_000.0,
+        rope_local_theta=10_000.0,
+        eos_token_id=1,
+        extra_stop_token_ids=(107,),  # <end_of_turn>
+        bos_token_id=2,
+    ),
+    "tiny-gemma3-debug": ModelConfig(
+        name="tiny-gemma3-debug",
+        num_layers=3,  # pattern 3: layers 0,1 local, layer 2 GLOBAL
+        hidden_act="gelu_tanh",
+        rms_norm_unit_offset=True,
+        embed_scale=True,
+        qk_norm=True,
+        sliding_window=8,
+        sliding_window_pattern=3,
+        query_pre_attn_scalar=64.0,
+        post_norms=True,
+        rope_theta=1_000_000.0,
+        rope_local_theta=10_000.0,
+        rope_scaling_factor=8.0,
+    ),
+    "tiny-gemma2-debug": ModelConfig(
+        name="tiny-gemma2-debug",
+        hidden_act="gelu_tanh",
+        rms_norm_unit_offset=True,
+        embed_scale=True,
+        sliding_window=8,  # tiny: windows engage within test prompts
+        attn_logit_softcapping=50.0,
+        final_logit_softcapping=30.0,
+        query_pre_attn_scalar=64.0,  # != head_dim 32: scaling exercised
+        post_norms=True,
+    ),
+}
+# Aliases matching the ids used in the reference manifests
+# (reference examples/deploy/vllm/agg.yaml:33, .../dgdr/trtllm/disagg.yaml).
+PRESETS["meta-llama/Llama-3.2-1B-Instruct".lower().split("/")[-1]] = PRESETS[
+    "llama-3.2-1b-instruct"
+]
+PRESETS["qwen/qwen3-0.6b".split("/")[-1]] = PRESETS["qwen3-0.6b"]
+PRESETS["deepseek-v2-lite-chat"] = PRESETS["deepseek-v2-lite"]

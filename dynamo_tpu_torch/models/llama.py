@@ -1,0 +1,232 @@
+"""Dense Llama decoder over the paged KV cache, in PyTorch.
+
+Port of the dense path of `dynamo_tpu/models/llama.py` (Llama 3.x: SwiGLU,
+RMSNorm, rotary embeddings with optional llama3 scaling, GQA, tied or
+untied head). Differences in idiom, not in arithmetic:
+
+- Weights live in an `nn.Module` (`Llama`, one `LlamaLayer` per layer)
+  instead of a layer-stacked pytree, and the forward is a Python loop over
+  layers instead of `lax.scan`.
+- The KV pools [L, P, ps, KV*D] are updated IN PLACE: each layer gets the
+  free view `k_pages[l]` with the sequence's own page ids, where the JAX
+  scan offsets page ids by `l * P` into a flattened pool because a JAX
+  slice would copy. The layout is unchanged (page 0 is the trash page), so
+  the pools compare byte for byte with the JAX package's.
+- Each forward takes `attn`, the attention functions to call
+  (`ops.attention.DISPATCH` by default: the CUDA kernels on the card, the
+  plain versions on the CPU; `ops.attention.PLAIN` forces the plain ones).
+
+Projections and the LM head are plain matmuls, as the JAX package leaves
+them to XLA.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.ops import attention as att
+from dynamo_tpu_torch.ops.rope import rope_cos_sin, rotate
+
+
+def _weight(shape, device, dtype) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+class LlamaLayer(nn.Module):
+    """One decoder layer's weights, in the JAX layout with the head axes
+    flattened: wq [E, H*D], wk/wv [E, KV*D], wo [H*D, E], w_gate/w_up
+    [E, F], w_down [F, E]."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        e, h, kv, d = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.head_dim)
+        f = cfg.intermediate_size
+        self.attn_norm = _weight((e,), device, dtype)
+        self.wq = _weight((e, h * d), device, dtype)
+        self.wk = _weight((e, kv * d), device, dtype)
+        self.wv = _weight((e, kv * d), device, dtype)
+        self.wo = _weight((h * d, e), device, dtype)
+        self.mlp_norm = _weight((e,), device, dtype)
+        self.w_gate = _weight((e, f), device, dtype)
+        self.w_up = _weight((e, f), device, dtype)
+        self.w_down = _weight((f, e), device, dtype)
+
+
+class Llama(nn.Module):
+    """Weights of a dense Llama model (uninitialised: see models.loader)."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        e = cfg.hidden_size
+        self.embed = _weight((cfg.vocab_size, e), device, dtype)
+        self.layers = nn.ModuleList(
+            LlamaLayer(cfg, device, dtype) for _ in range(cfg.num_layers))
+        self.final_norm = _weight((e,), device, dtype)
+        self.lm_head = (None if cfg.tie_word_embeddings
+                        else _weight((e, cfg.vocab_size), device, dtype))
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """Normalize in f32, cast back to x's dtype, then scale (the JAX
+    package's cast order)."""
+    x32 = x.to(torch.float32)
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def _embed_rows(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens.long(), model.embed)
+
+
+def _rope(cfg: ModelConfig, positions: torch.Tensor):
+    """cos/sin of `positions`, shared by every layer of one forward."""
+    return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                        llama3_scaling=cfg.rope_llama3_scaling)
+
+
+def _qkv(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor, rope):
+    """x [T, E] -> q [T, H, D], k/v [T, KV, D] with rope (cos, sin)
+    applied."""
+    t = x.shape[0]
+    q = (x @ layer.wq).view(t, cfg.num_heads, cfg.head_dim)
+    k = (x @ layer.wk).view(t, cfg.num_kv_heads, cfg.head_dim)
+    v = (x @ layer.wv).view(t, cfg.num_kv_heads, cfg.head_dim)
+    return rotate(q, *rope), rotate(k, *rope), v
+
+
+def _attn_out(layer: LlamaLayer, o: torch.Tensor) -> torch.Tensor:
+    """Attention output [T, H, D] -> residual [T, E]."""
+    return o.reshape(o.shape[0], -1) @ layer.wo
+
+
+def _mlp(layer: LlamaLayer, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP, x [T, E]."""
+    return (F.silu(x @ layer.w_gate) * (x @ layer.w_up)) @ layer.w_down
+
+
+def _logits(model: Llama, x: torch.Tensor) -> torch.Tensor:
+    cfg = model.cfg
+    x = rms_norm(x, model.final_norm, cfg.rms_norm_eps)
+    if model.lm_head is None:  # tied head: x @ embed.T
+        return x @ model.embed.t()
+    return x @ model.lm_head
+
+
+def _layer(cfg, layer, x, rope, attend):
+    """One decoder layer around `attend(q, k, v) -> o`, which also owns
+    the KV write (before or after attention, as the caller needs)."""
+    h = rms_norm(x, layer.attn_norm, cfg.rms_norm_eps)
+    q, k, v = _qkv(cfg, layer, h, rope)
+    x = x + _attn_out(layer, attend(q, k, v))
+    h = rms_norm(x, layer.mlp_norm, cfg.rms_norm_eps)
+    return x + _mlp(layer, h)
+
+
+def prefill(model: Llama, tokens: torch.Tensor, seq_len: int,
+            k_pages: torch.Tensor, v_pages: torch.Tensor, pages: torch.Tensor,
+            *, page_size: int, attn: att.AttentionFns = att.DISPATCH
+            ) -> torch.Tensor:
+    """One padded prompt tokens [S] (S a page multiple, seq_len true
+    tokens) -> logits [V] at the last real token; writes the prompt's KV
+    into `pages` [S // ps] of every layer's pool."""
+    cfg = model.cfg
+    s = tokens.shape[0]
+    rope = _rope(cfg, torch.arange(s, device=tokens.device))
+    lens = torch.tensor([seq_len], dtype=torch.int32).to(tokens.device)
+    x = _embed_rows(model, tokens)
+    for l, layer in enumerate(model.layers):
+        kp, vp = k_pages[l], v_pages[l]
+
+        def attend(q, k, v):
+            o = attn.prefill(q, k, v, lens)
+            att.write_kv_prefill(kp, vp, k, v, pages, page_size=page_size)
+            return o
+
+        x = _layer(cfg, layer, x, rope, attend)
+    return _logits(model, x[seq_len - 1][None])[0]
+
+
+def prefill_chunk(model: Llama, tokens: torch.Tensor, start: int,
+                  chunk_len: int, k_pages: torch.Tensor,
+                  v_pages: torch.Tensor, pages: torch.Tensor, *,
+                  page_size: int, attn: att.AttentionFns = att.DISPATCH
+                  ) -> torch.Tensor:
+    """One chunk tokens [C] (page multiple, chunk_len valid) at absolute
+    position `start` of a sequence whose pages are `pages` [W] (ALL of
+    them, trash-padded): write the chunk's KV, attend prefix + chunk, and
+    return the logits [V] at the chunk's last valid token (meaningful on
+    the final chunk)."""
+    cfg = model.cfg
+    c = tokens.shape[0]
+    rope = _rope(cfg, start + torch.arange(c, device=tokens.device))
+    first = start // page_size
+    chunk_pages = pages[first:first + c // page_size]
+    x = _embed_rows(model, tokens)
+    for l, layer in enumerate(model.layers):
+        kp, vp = k_pages[l], v_pages[l]
+
+        def attend(q, k, v):
+            att.write_kv_prefill(kp, vp, k, v, chunk_pages,
+                                 page_size=page_size)
+            return attn.chunk(q, kp, vp, pages, start, page_size=page_size)
+
+        x = _layer(cfg, layer, x, rope, attend)
+    return _logits(model, x[chunk_len - 1][None])[0]
+
+
+def prefill_batch(model: Llama, tokens: torch.Tensor, seq_lens: torch.Tensor,
+                  k_pages: torch.Tensor, v_pages: torch.Tensor,
+                  pages: torch.Tensor, *, page_size: int,
+                  attn: att.AttentionFns = att.DISPATCH) -> torch.Tensor:
+    """N same-bucket prompts tokens [N, S] with true lengths seq_lens [N]
+    (>= 1) in one pass -> logits [N, V]. Lane n writes its KV into pages
+    [n] ([N, S // ps], trash 0 for padding); attention stays per lane."""
+    cfg = model.cfg
+    n, s = tokens.shape
+    rope = _rope(cfg, torch.arange(s, device=tokens.device).repeat(n))
+    x = _embed_rows(model, tokens.reshape(-1))
+    flat_pages = pages.reshape(-1)
+    for l, layer in enumerate(model.layers):
+        kp, vp = k_pages[l], v_pages[l]
+
+        def attend(q, k, v):
+            o = attn.prefill(q.view(n, s, *q.shape[1:]),
+                             k.view(n, s, *k.shape[1:]),
+                             v.view(n, s, *v.shape[1:]), seq_lens)
+            att.write_kv_prefill(kp, vp, k, v, flat_pages,
+                                 page_size=page_size)
+            return o.reshape(n * s, *o.shape[2:])
+
+        x = _layer(cfg, layer, x, rope, attend)
+    idx = torch.arange(n, device=x.device) * s + seq_lens.long() - 1
+    return _logits(model, x[idx])
+
+
+def decode_step(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
+                block_tables: torch.Tensor, context_lens: torch.Tensor,
+                k_pages: torch.Tensor, v_pages: torch.Tensor, *,
+                page_size: int, attn: att.AttentionFns = att.DISPATCH
+                ) -> torch.Tensor:
+    """One decode step over every batch slot: tokens/positions [B],
+    block_tables [B, Pmax], context_lens [B] INCLUDING the current token
+    -> logits [B, V]. The token's KV is written before attention."""
+    cfg = model.cfg
+    rope = _rope(cfg, positions)
+    x = _embed_rows(model, tokens)
+    for l, layer in enumerate(model.layers):
+        kp, vp = k_pages[l], v_pages[l]
+
+        def attend(q, k, v):
+            att.write_kv_token(kp, vp, k, v, block_tables, positions,
+                               page_size=page_size)
+            return attn.decode(q, kp, vp, block_tables, context_lens,
+                               page_size=page_size)
+
+        x = _layer(cfg, layer, x, rope, attend)
+    return _logits(model, x)

@@ -1,0 +1,107 @@
+"""HTTP plumbing for the worker API server: JSON responses, error
+envelopes, body reading, chunked SSE framing (port of
+`dynamo_tpu/serving/http_base.py` without its fault-injection seams)."""
+
+from __future__ import annotations
+
+import json
+import logging
+import socket
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict
+
+from dynamo_tpu_torch.serving import protocol as proto
+
+log = logging.getLogger("dynamo_tpu_torch.http")
+
+MAX_BODY_BYTES = 10 * 1024 * 1024
+
+
+class JsonHTTPHandler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    sse_started: bool = False
+
+    def log_message(self, fmt, *args):
+        log.debug("%s %s", self.address_string(), fmt % args)
+
+    def handle_one_request(self):
+        # keep-alive reuses the handler: reset per-request state
+        self.sse_started = False
+        super().handle_one_request()
+
+    def end_headers(self):
+        inbound = self.headers.get("x-request-id") if self.headers else None
+        self.send_header("X-Request-Id",
+                         (inbound or "").strip() or uuid.uuid4().hex)
+        super().end_headers()
+
+    def _json(self, code: int, obj: Dict[str, Any]):
+        data = json.dumps(obj).encode()
+        try:
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+        except (BrokenPipeError, ConnectionResetError, socket.error):
+            self.close_connection = True  # the client hung up first
+
+    def _error(self, code: int, msg: str,
+               etype: str = "invalid_request_error"):
+        self._json(code, {"error": {"message": msg, "type": etype,
+                                    "code": code}})
+
+    def _read_json_body(self) -> Dict[str, Any]:
+        length = int(self.headers.get("Content-Length", 0))
+        if length <= 0 or length > MAX_BODY_BYTES:
+            raise proto.BadRequest("missing or oversized request body")
+        try:
+            return json.loads(self.rfile.read(length))
+        except json.JSONDecodeError as e:
+            raise proto.BadRequest(f"invalid JSON: {e}")
+
+    def _start_sse(self):
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+        self.sse_started = True
+
+    def _write_chunk(self, payload: bytes) -> bool:
+        try:
+            self.wfile.write(b"%x\r\n%s\r\n" % (len(payload), payload))
+            self.wfile.flush()
+            return True
+        except (BrokenPipeError, ConnectionResetError, socket.error,
+                ValueError):
+            return False
+
+    def _sse_chunk(self, obj) -> bool:
+        payload = (f"data: {obj}\n\n".encode() if isinstance(obj, str)
+                   else b"data: " + json.dumps(obj).encode() + b"\n\n")
+        return self._write_chunk(payload)
+
+    def _end_sse(self):
+        try:
+            self.wfile.write(b"0\r\n\r\n")
+            self.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError, socket.error,
+                ValueError):
+            pass
+
+    def _sse_error(self, msg: str):
+        """Error after SSE headers went out: an error event, then [DONE]."""
+        self._sse_chunk({"error": {"message": msg, "type": "stream_error"}})
+        self._sse_chunk("[DONE]")
+        self._end_sse()
+
+
+def make_http_server(handler_cls, attrs: Dict[str, Any], host: str,
+                     port: int) -> ThreadingHTTPServer:
+    handler = type(f"Bound{handler_cls.__name__}", (handler_cls,), attrs)
+    srv = ThreadingHTTPServer((host, port), handler)
+    srv.daemon_threads = True
+    return srv
+

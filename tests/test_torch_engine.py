@@ -1,0 +1,318 @@
+"""The port's Engine and OpenAI worker against the JAX package's.
+
+Same weights (the JAX tree of tiny-debug from PRNGKey(0)), same requests,
+float32 on the CPU: greedy token streams must be identical, through the
+batched same-bucket prefill, the chunked prefill of a prompt longer than
+prefill_chunk_tokens, the decode batch, and page-pressure deferral. One
+greedy /v1/chat/completions through both packages' servers must return the
+same content. The rest pins what the slice refuses.
+"""
+
+import dataclasses
+import json
+import re
+import signal
+import subprocess
+import sys
+import threading
+import urllib.error
+import urllib.request
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from dynamo_tpu.engine.config import EngineConfig as JEngineConfig
+from dynamo_tpu.engine.engine import Engine as JEngine
+from dynamo_tpu.engine.request import GenRequest as JGenRequest
+from dynamo_tpu.models import llama as jllama
+from dynamo_tpu.models.config import PRESETS as JPRESETS
+from dynamo_tpu.serving import api as japi
+from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.engine.engine import Engine
+from dynamo_tpu_torch.engine.request import GenRequest
+from dynamo_tpu_torch.serving import api
+
+BASE = dict(model="tiny-debug", page_size=16, num_pages=64, max_num_seqs=4,
+            max_seq_len=512, prefill_chunk_tokens=32,
+            enable_prefix_caching=False)
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    cfg = dataclasses.replace(JPRESETS["tiny-debug"], dtype="float32")
+    return jllama.init_params(cfg, jax.random.PRNGKey(0))
+
+
+def _np(params):
+    return {k: np.asarray(v) for k, v in params.items()}
+
+
+def _requests(rng, lengths, max_tokens):
+    return [(f"r{i}", rng.integers(0, 256, size=n).tolist(), max_tokens)
+            for i, n in enumerate(lengths)]
+
+
+def _run(engine, make_req, reqs):
+    for rid, prompt, mt in reqs:
+        engine.add_request(make_req(rid, prompt, max_tokens=mt,
+                                    temperature=0.0, ignore_eos=True))
+    streams, reasons = {}, {}
+    for _ in range(10_000):
+        if not engine.has_work:
+            break
+        for ev in engine.step():
+            if ev.token_id >= 0:
+                streams.setdefault(ev.request_id, []).append(ev.token_id)
+            if ev.finished:
+                reasons[ev.request_id] = ev.finish_reason
+    return streams, reasons
+
+
+def test_greedy_streams_match_jax_engine(jparams):
+    """Three same-bucket prompts (one batched prefill) and one 70-token
+    prompt over the 32-token chunk, decoded together."""
+    reqs = _requests(np.random.default_rng(0), [5, 9, 12, 70], 12)
+    ref = _run(JEngine(JEngineConfig(**BASE), params=jparams), JGenRequest,
+               reqs)
+    eng = Engine(EngineConfig(**BASE), params=_np(jparams), device="cpu")
+    got = _run(eng, GenRequest, reqs)
+    assert got == ref
+    assert all(len(s) == 12 for s in got[0].values())
+    assert eng.allocator.free_pages == BASE["num_pages"] - 1
+
+
+def test_greedy_streams_match_under_page_pressure(jparams):
+    """A pool too small for every sequence at once: admission defers on
+    OutOfPages and decode preempts by recompute, in both engines."""
+    cfg = dict(BASE, num_pages=10, max_seq_len=128)
+    reqs = _requests(np.random.default_rng(1), [20, 24, 18, 30], 40)
+    ref = _run(JEngine(JEngineConfig(**cfg, async_scheduling=False),
+                       params=jparams), JGenRequest, reqs)
+    eng = Engine(EngineConfig(**cfg), params=_np(jparams), device="cpu")
+    got = _run(eng, GenRequest, reqs)
+    assert got == ref
+    assert eng.metrics.num_preempted > 0 and eng.metrics.kv_oom == 0
+
+
+def test_logprobs_match_jax_engine(jparams):
+    """Chosen-token logprobs and top-3 alternatives of a greedy stream,
+    first token (from prefill) and decoded ones, agree with the JAX
+    engine's within 1e-4."""
+    prompt = list(np.random.default_rng(2).integers(0, 256, size=11))
+    outs = []
+    for engine, make_req in (
+            (JEngine(JEngineConfig(**BASE), params=jparams), JGenRequest),
+            (Engine(EngineConfig(**BASE), params=_np(jparams), device="cpu"),
+             GenRequest)):
+        engine.add_request(make_req("lp", [int(t) for t in prompt],
+                                    max_tokens=6, logprobs=3,
+                                    ignore_eos=True))
+        evs = [ev for _ in range(20) if engine.has_work
+               for ev in engine.step() if ev.token_id >= 0]
+        outs.append(evs)
+    ref, got = outs
+    assert [e.token_id for e in got] == [e.token_id for e in ref]
+    for r, g in zip(ref, got):
+        assert g.logprob == pytest.approx(r.logprob, rel=1e-4, abs=1e-4)
+        assert [t for t, _ in g.top_logprobs] == [t for t, _ in r.top_logprobs]
+        np.testing.assert_allclose([v for _, v in g.top_logprobs],
+                                   [v for _, v in r.top_logprobs],
+                                   rtol=1e-4, atol=1e-4)
+
+
+def _serve(ctx_cls, make_server, engine):
+    ctx = ctx_cls(engine, "tiny-debug")
+    srv = make_server(ctx, host="127.0.0.1", port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return ctx, srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def _post(url, body, timeout=120):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read().decode()
+
+
+CHAT = {"model": "tiny-debug", "max_tokens": 16, "temperature": 0.0,
+        "ignore_eos": True,
+        "messages": [{"role": "user", "content": "Say hello to the port."}]}
+
+
+def test_chat_completion_matches_jax_worker(jparams):
+    outs = []
+    for ctx_cls, mk, engine in (
+            (japi.ServingContext, japi.make_server,
+             JEngine(JEngineConfig(**BASE), params=jparams)),
+            (api.ServingContext, api.make_server,
+             Engine(EngineConfig(**BASE), params=_np(jparams),
+                    device="cpu"))):
+        ctx, srv, url = _serve(ctx_cls, mk, engine)
+        try:
+            status, body = _post(url + "/v1/chat/completions", CHAT)
+        finally:
+            srv.shutdown()
+            ctx.close()
+        assert status == 200
+        outs.append(json.loads(body))
+    ref, got = outs
+    assert (got["choices"][0]["message"]["content"]
+            == ref["choices"][0]["message"]["content"])
+    assert got["usage"] == ref["usage"]
+    assert got["usage"]["completion_tokens"] == 16
+
+
+@pytest.fixture(scope="module")
+def port_server():
+    eng = Engine(EngineConfig(**BASE), device="cpu")
+    ctx, srv, url = _serve(api.ServingContext, api.make_server, eng)
+    yield url
+    srv.shutdown()
+    ctx.close()
+
+
+def _sse(url, body):
+    status, text = _post(url, body)
+    events = [ln[len("data: "):] for ln in text.splitlines()
+              if ln.startswith("data: ")]
+    assert status == 200 and events[-1] == "[DONE]"
+    return [json.loads(e) for e in events[:-1]]
+
+
+def test_port_server_streams_chat_and_completions(port_server):
+    chunks = _sse(port_server + "/v1/chat/completions",
+                  dict(CHAT, stream=True,
+                       stream_options={"include_usage": True}))
+    assert chunks[0]["choices"][0]["delta"] == {"role": "assistant"}
+    assert chunks[-1]["usage"]["completion_tokens"] == 16
+    assert chunks[-2]["choices"][0]["finish_reason"] == "length"
+    chunks = _sse(port_server + "/v1/completions",
+                  {"model": "tiny-debug", "prompt": "abc", "max_tokens": 5,
+                   "temperature": 0.0, "ignore_eos": True, "stream": True})
+    assert chunks[-1]["choices"][0]["finish_reason"] == "length"
+    status, body = _post(port_server + "/v1/completions",
+                         {"model": "tiny-debug", "prompt": "abc",
+                          "max_tokens": 5, "temperature": 0.7, "n": 2,
+                          "seed": 3, "logprobs": 2, "ignore_eos": True})
+    out = json.loads(body)
+    assert status == 200 and len(out["choices"]) == 2
+    assert out["usage"]["completion_tokens"] == 10
+    assert len(out["choices"][0]["logprobs"]["token_logprobs"]) <= 5
+
+
+def test_port_server_models_and_health(port_server):
+    with urllib.request.urlopen(port_server + "/v1/models") as r:
+        assert json.loads(r.read())["data"][0]["id"] == "tiny-debug"
+    with urllib.request.urlopen(port_server + "/health") as r:
+        assert json.loads(r.read())["status"] == "ok"
+
+
+@pytest.mark.parametrize("body", [
+    dict(CHAT, response_format={"type": "json_object"}),
+    dict(CHAT, model="not-served"),
+    dict(CHAT, tools=[{"type": "function", "function": {"name": "f"}}],
+         tool_choice={"type": "function", "function": {"name": "f"}}),
+])
+def test_port_server_refuses_with_400(port_server, body):
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(port_server + "/v1/chat/completions", body)
+    assert e.value.code == 400
+
+
+@pytest.mark.parametrize("field,value", [
+    ("enable_prefix_caching", True),
+    ("speculative_mode", "ngram"),
+    ("lora_slots", 2),
+    ("kvbm_host_blocks", 8),
+    ("quantization", "int8"),
+    ("kv_cache_dtype", "int8"),
+    ("tensor_parallel", 2),
+    ("data_parallel", 2),
+    ("expert_parallel", 2),
+    ("sequence_parallel", 2),
+    ("mixed_batch_tokens", 64),
+    ("num_scheduler_steps", 4),
+    ("tenants", '[{"name": "a"}]'),
+    ("disaggregation_mode", "prefill"),
+])
+def test_unported_settings_are_refused(field, value):
+    cfg = EngineConfig(**dict(BASE, **{field: value}))
+    with pytest.raises(NotImplementedError, match=field):
+        Engine(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("model,feature", [
+    ("tiny-moe-debug", "num_experts"),
+    ("tiny-mla-debug", "kv_lora_rank"),
+    ("tiny-gemma-debug", "hidden_act"),
+    ("tiny-gemma2-debug", "sliding_window"),
+    ("qwen3-0.6b", "qk_norm"),
+    ("qwen2.5-7b-instruct", "attention_bias"),
+    ("deepseek-v2-lite", "rope_yarn_scaling"),
+])
+def test_unported_models_are_refused(model, feature):
+    with pytest.raises(NotImplementedError, match=feature):
+        Engine(EngineConfig(**dict(BASE, model=model)), device="cpu")
+
+
+def test_engine_without_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(EngineConfig(**BASE))
+
+
+def test_guided_json_requests_are_refused():
+    eng = Engine(EngineConfig(**BASE), device="cpu")
+    with pytest.raises(ValueError, match="guided_json"):
+        eng.add_request(GenRequest("g", [1, 2, 3], guided_json=True))
+
+
+def test_abort_and_stop_tokens():
+    eng = Engine(EngineConfig(**BASE), device="cpu")
+    first = eng.generate(GenRequest("a", [1, 2, 3], max_tokens=3,
+                                    ignore_eos=True))
+    # stopping on the first generated token ends the request at once
+    stop = eng.generate(GenRequest("b", [1, 2, 3], max_tokens=8,
+                                   stop_token_ids=[first[0]],
+                                   ignore_eos=True))
+    assert stop == first[:1]
+    eng.add_request(GenRequest("c", [4, 5], max_tokens=50, ignore_eos=True))
+    eng.step()
+    eng.abort_request("c")
+    events = eng.step()
+    assert any(e.request_id == "c" and e.finish_reason == "abort"
+               for e in events)
+    assert not eng.has_work
+    assert eng.allocator.free_pages == BASE["num_pages"] - 1
+
+
+def test_jetstream_worker_serves_and_stops():
+    """`python -m dynamo_tpu_torch.jetstream` on the CPU: the profile's
+    defaults start (prefix caching off), one chat completion is served,
+    SIGTERM stops the process."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dynamo_tpu_torch.jetstream", "--model",
+         "tiny-debug", "--device", "cpu", "--host", "127.0.0.1", "--port",
+         "0", "--max-seq-len", "256", "--num-pages", "32"],
+        stderr=subprocess.PIPE, text=True)
+    try:
+        port = None
+        for line in proc.stderr:
+            m = re.search(r"worker serving .* on 127\.0\.0\.1:(\d+)", line)
+            if m:
+                port = int(m.group(1))
+                break
+        assert port, "worker never reported its port"
+        status, body = _post(f"http://127.0.0.1:{port}/v1/chat/completions",
+                             dict(CHAT, max_tokens=4))
+        assert status == 200
+        assert json.loads(body)["usage"]["completion_tokens"] == 4
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
