@@ -12,34 +12,52 @@ on failure:
 2. Build the attention kernels from dynamo_tpu_torch/csrc (nvcc, one per
    source in parallel).
 3. Each kernel at the shapes the main path gives it for Llama-3.1-8B
-   (bf16, H=32, KV=8, D=128, page size 16) against its plain PyTorch
-   version on the same bf16 inputs (computed in f32, stored bf16), within
-   atol=rtol=2e-2 and, per output row, a max error within 5e-2 of the
-   plain row's RMS (see disagreement); with its time, the plain version's,
-   one PyTorch scaled_dot_product_attention call's over the same K/V
-   gathered dense (the gather not timed; a yardstick the port never
-   calls), and the bound max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s)
-   worked out from the bytes and FLOPs this run's inputs need. This is the
-   numerical check of the kernels on random inputs.
+   (bf16, H=32, KV=8, D=128, page size 16; int8 pools of 1152-lane rows)
+   against its plain PyTorch version on the same inputs (computed in f32,
+   stored bf16), within atol=rtol=2e-2 and, per output row, a max error
+   within 5e-2 of the plain row's RMS (see disagreement); with its time,
+   the plain version's, the time of PyTorch's scaled_dot_product_attention
+   over the same K/V gathered dense (int8 pools dequantized to bf16 first;
+   gather and dequantization not timed; one call, or for the ragged kernel
+   one per row kind, summed: a yardstick the port never calls), and the
+   bound max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s) worked out from the
+   bytes and FLOPs this run's inputs need. The kernels: decode, prefill,
+   chunk, ragged (8 decode rows and a 256-token chunk; again with rows of
+   4 queries), and the int8 variants of decode, chunk and ragged. This is
+   the numerical check of the kernels on random inputs.
 4. The engine for llama-3.1-8b-instruct at full width and depth, random
-   bf16 weights from seed 0: a full prefill, a decode step and a chunked
-   prefill through the kernels, every attention call of every layer held
-   against the plain version on the same inputs, and the full-depth logits
-   against the same forwards through the plain attention. q is scaled down
-   before attention so that softmax is not one-hot (see forward_checks).
+   bf16 weights from seed 0: a full prefill, a decode step, a chunked
+   prefill and a mixed step (the decode row beside a 256-token chunk)
+   through the kernels, every attention call of every layer held against
+   the plain version on the same inputs, and the full-depth logits against
+   the same forwards through the plain attention. q is scaled down before
+   attention so that softmax is not one-hot (see forward_checks). Run on
+   bf16 pools and again on int8 pools (an engine sharing the weights).
 5. The OpenAI server on 127.0.0.1:0 with the launch counts zeroed: four
    concurrent greedy requests of 32 tokens (chat, chat streamed, a
    completion, and a ~600-token prompt that takes the chunked path), then
-   one request twice, which must give identical tokens. Every kernel must
-   have launched.
-6. Where a steady decode step's time goes (8 slots, torch.profiler device
-   time by kernel family, idle share against the host clock).
+   one request twice, which must give identical tokens, then the
+   interference traffic (below); decode, prefill and chunk must have
+   launched. Then two engines sharing the weights, with
+   mixed_batch_tokens=256 on bf16 and on int8 pools, each serving the
+   interference traffic: the ~600-token prompt alone (the classic chunk
+   path), then a streamed chat and, after its first token, the same
+   prompt, which rides the mixed step. Each must count mixed steps, and
+   launch its ragged kernel 32 times (once per layer) per mixed step. The
+   streamed request's worst inter-token gap while the prompt prefills is
+   reported for the classic and the mixed engines side by side.
+6. Where a steady step's time goes (torch.profiler device time by kernel
+   family, kernels per step, idle share against the host clock): a decode
+   step of 8 slots on bf16 and on int8 pools, and a mixed step (7 decode
+   slots beside the chunks at 256, 512 and 768 of a 1024-token prompt) on
+   bf16 and on int8 pools.
 7. A `kernels` JSON line (launches from phase 5), the card line, and last
    the {"ok": true, ...} line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -68,6 +86,10 @@ ROW_TOL = 5e-2  # max |error| of an output row over the plain row's RMS
 LOGIT_REL_TOL = 5e-2  # relative L2 of full-depth logits, kernels vs plain
 Q_SCALE = 2 ** -4  # q scaling of phase 4's forwards (exact in bf16)
 MAX_TOKENS = 32
+INT8_W = att.kv_lane_width(KV, D, True)  # 1152 lanes per int8 pool row
+# bytes of an int8 row the kernels read: its values and scales (1040 of
+# INT8_W; the zero pad is never read)
+INT8_ROW_BYTES = KV * D + 2 * KV
 SOURCES = {
     "decode": ("dynamo_tpu_torch/csrc/decode.cu",
                "dynamo_tpu/ops/pallas_attention.py:181 (_decode_kernel)"),
@@ -75,7 +97,19 @@ SOURCES = {
                 "dynamo_tpu/ops/pallas_attention.py:421 (_prefill_kernel)"),
     "chunk": ("dynamo_tpu_torch/csrc/chunk.cu",
               "dynamo_tpu/ops/pallas_attention.py:554 (_chunk_kernel)"),
+    "ragged": ("dynamo_tpu_torch/csrc/ragged.cu",
+               "dynamo_tpu/ops/ragged_attention.py:73 (_ragged_kernel)"),
+    "decode_int8": ("dynamo_tpu_torch/csrc/decode.cu",
+                    "dynamo_tpu/ops/pallas_attention.py:181 (_decode_kernel,"
+                    " int8 pools)"),
+    "chunk_int8": ("dynamo_tpu_torch/csrc/chunk.cu",
+                   "dynamo_tpu/ops/pallas_attention.py:554 (_chunk_kernel,"
+                   " int8 pools)"),
+    "ragged_int8": ("dynamo_tpu_torch/csrc/ragged.cu",
+                    "dynamo_tpu/ops/ragged_attention.py:73 (_ragged_kernel,"
+                    " int8 pools)"),
 }
+CLASSIC = ("decode", "prefill", "chunk")
 
 
 def emit(obj) -> None:
@@ -136,7 +170,7 @@ def disagreement(out: torch.Tensor, ref: torch.Tensor):
     return float(err.max()), max_rel, ok
 
 
-def check(name, kernel, plain, library, cost, shapes) -> dict:
+def check(name, kernel, plain, library, cost, shapes, extra=None) -> dict:
     """Kernel vs plain on the same inputs; raises on disagreement."""
     out_k = kernel()
     out_p = plain()
@@ -146,13 +180,59 @@ def check(name, kernel, plain, library, cost, shapes) -> dict:
            "max_row_rel_err": max_rel,
            "tolerance": f"atol=rtol={TOL}, row max/RMS <= {ROW_TOL}",
            "kernel_ms": time_ms(kernel, 20), "plain_ms": time_ms(plain, 3),
-           "library_ms": time_ms(library, 20), **cost}
+           "library_ms": time_ms(library, 20), **cost, **(extra or {})}
     emit({"kernel_check": row})
     if not ok:
         raise AssertionError(f"{name} kernel disagrees with its plain "
                              f"version: max_abs_err {max_abs}, max row "
                              f"error / RMS {max_rel}")
     return row
+
+
+def paged_cost(q_numel: int, rows, row_bytes: int, desc_ints: int) -> dict:
+    """The bound of a paged-attention call from what its inputs need: q
+    read and the output written once (bf16), each distinct K and V row
+    below some query's horizon read once (`row_bytes` each: 2 * KV * D in
+    bf16, KV * D values and 2 * KV scale bytes in int8), one int32 page id
+    per page walked and `desc_ints` int32 descriptors; 4 * H * D FLOPs per
+    visible (query, key) pair. rows: (page ids [W] on the CPU, first query
+    position, queries, kv_len) per sequence."""
+    ids, walked, pairs = [], 0, 0
+    for pages, q_start, n_q, kv_len in rows:
+        horizon = max(min(q_start + n_q, kv_len), 0)
+        tok = torch.arange(horizon)
+        ids.append(pages[tok // PS].long() * PS + tok % PS)
+        walked += -(-horizon // PS)
+        pairs += sum(max(min(q_start + j + 1, kv_len), 0)
+                     for j in range(n_q))
+    kv_rows = int(torch.unique(torch.cat(ids)).numel())
+    return bound(2 * 2 * q_numel + 2 * kv_rows * row_bytes
+                 + 4 * (walked + desc_ints), 4 * pairs * H * D)
+
+
+def paged_library(q, kp, vp, tables, q_starts, kv_lens):
+    """scaled_dot_product_attention over paged K/V gathered dense: q
+    [N, Q, H, D], bf16 pools, tables [N, W]; query j of row n sees key tok
+    iff tok <= q_starts[n] + j and tok < kv_lens[n] (keys past the longest
+    kv_len are not gathered). The gather is not timed."""
+    n, nq = q.shape[:2]
+    s = int(kv_lens.max())
+    kd = kp[tables.long()].reshape(n, -1, KV, D)[:, :s].permute(0, 2, 1, 3)
+    vd = vp[tables.long()].reshape(n, -1, KV, D)[:, :s].permute(0, 2, 1, 3)
+    kd = kd.repeat_interleave(H // KV, 1).contiguous()
+    vd = vd.repeat_interleave(H // KV, 1).contiguous()
+    tok = torch.arange(s, device=q.device)
+    qpos = q_starts[:, None] + torch.arange(nq, device=q.device)[None]
+    mask = ((tok[None, None] <= qpos[:, :, None])
+            & (tok[None, None] < kv_lens[:, None, None]))[:, None]
+    qt = q.transpose(1, 2).contiguous()
+    return lambda: sdpa(qt, kd, vd, mask)
+
+
+def dequantized(pool: torch.Tensor) -> torch.Tensor:
+    """An int8 packed pool as a bf16 [P, ps, KV*D] pool."""
+    return att.unpack_kv_rows(pool, KV, D).reshape(
+        *pool.shape[:2], KV * D).to(torch.bfloat16)
 
 
 def kernel_checks(dev) -> dict:
@@ -164,6 +244,14 @@ def kernel_checks(dev) -> dict:
 
     rows = {}
     kp, vp = rnd(NUM_PAGES, PS, KV * D), rnd(NUM_PAGES, PS, KV * D)
+    # int8 pools packed from the same values
+    kp8 = att.pack_kv_rows(kp.reshape(-1, KV, D), INT8_W).reshape(
+        NUM_PAGES, PS, INT8_W)
+    vp8 = att.pack_kv_rows(vp.reshape(-1, KV, D), INT8_W).reshape(
+        NUM_PAGES, PS, INT8_W)
+    kq, vq = dequantized(kp8), dequantized(vp8)
+    pools = {"": (kp, vp, kp, vp, 2 * KV * D, None),
+             "_int8": (kp8, vp8, kq, vq, INT8_ROW_BYTES, KV)}
 
     # decode: the engine's batch of 8 slots, ragged contexts incl. ctx 0
     pmax = MAX_SEQ_LEN // PS
@@ -177,27 +265,23 @@ def kernel_checks(dev) -> dict:
         n = -(-c // PS)
         table[b, :n] = perm[used:used + n] + 1
         used += n
-    table, ctx_d = table.to(dev), ctx.to(dev)
+    table_d, ctx_d = table.to(dev), ctx.to(dev)
     q = rnd(MAX_SEQS, H, D)
-    kd = kp[table.long()].reshape(MAX_SEQS, -1, KV, D).permute(0, 2, 1, 3)
-    vd = vp[table.long()].reshape(MAX_SEQS, -1, KV, D).permute(0, 2, 1, 3)
-    kd = kd.repeat_interleave(H // KV, 1).contiguous()
-    vd = vd.repeat_interleave(H // KV, 1).contiguous()
-    dmask = (torch.arange(pmax * PS, device=dev)[None, :]
-             < ctx_d[:, None])[:, None, None, :]
-    tok = int(ctx.sum())
-    rows["decode"] = check(
-        "decode",
-        lambda: ca.paged_attention_decode(q, kp, vp, table, ctx_d,
-                                          page_size=PS),
-        lambda: att.paged_attention_decode_ref(q, kp, vp, table, ctx_d,
-                                               page_size=PS),
-        lambda: sdpa(q[:, :, None], kd, vd, dmask),
-        bound(2 * q.numel() * 2 + 2 * tok * KV * D * 2
-              + 4 * (sum(-(-c // PS) for c in ctx.tolist()) + MAX_SEQS),
-              4 * tok * H * D),
-        {"q": [MAX_SEQS, H, D], "pools": [NUM_PAGES, PS, KV * D],
-         "block_table": [MAX_SEQS, pmax], "context_lens": ctx.tolist()})
+    for sfx, (k, v, kl, vl, row_bytes, n_kv) in pools.items():
+        rows["decode" + sfx] = check(
+            "decode" + sfx,
+            lambda: ca.paged_attention_decode(q, k, v, table_d, ctx_d,
+                                              page_size=PS,
+                                              num_kv_heads=n_kv),
+            lambda: att.paged_attention_decode_ref(q, k, v, table_d, ctx_d,
+                                                   page_size=PS,
+                                                   num_kv_heads=n_kv),
+            paged_library(q[:, None], kl, vl, table_d, ctx_d - 1, ctx_d),
+            paged_cost(q.numel(), [(table[b], c - 1, 1, c) for b, c in
+                                   enumerate(ctx.tolist())], row_bytes,
+                       MAX_SEQS),
+            {"q": [MAX_SEQS, H, D], "pools": list(k.shape),
+             "block_table": [MAX_SEQS, pmax], "context_lens": ctx.tolist()})
 
     # prefill: a batch of same-bucket prompts, one below its bucket
     n, s = 4, 256
@@ -223,37 +307,95 @@ def kernel_checks(dev) -> dict:
         {"q": [n, s, H, D], "kv": [n, s, KV, D], "seq_lens": lens.tolist()})
 
     # chunk: the third 256-token chunk of a 600-token prompt (start 512) on
-    # its trash-padded page list
+    # its trash-padded page list (the trash tail repeats page 0)
     start, c = 512, CHUNK
     width = 1024 // PS + CHUNK // PS - 1
     pages = torch.zeros((width,), dtype=torch.int32)
     pages[:-(-600 // PS)] = perm[:-(-600 // PS)] + 1
-    pages = pages.to(dev)
+    pages_d = pages.to(dev)
     qc = rnd(c, H, D)
-    horizon = start + c
-    kc = kp[pages.long()].reshape(-1, KV, D)[:horizon].permute(1, 0, 2)
-    vc = vp[pages.long()].reshape(-1, KV, D)[:horizon].permute(1, 0, 2)
-    kc = kc.repeat_interleave(H // KV, 0).contiguous()[None]
-    vc = vc.repeat_interleave(H // KV, 0).contiguous()[None]
-    cmask = (torch.arange(horizon, device=dev)[None, :]
-             <= start + torch.arange(c, device=dev)[:, None])[None, None]
-    qct = qc.transpose(0, 1).contiguous()[None]
-    cpairs = sum(start + r + 1 for r in range(c))
-    # K/V bytes: each distinct page below the horizon once (the trash tail
-    # repeats page 0); page ids: one int32 per page walked
-    walked = pages[:-(-horizon // PS)]
-    cpages = int(torch.unique(walked).numel())
-    rows["chunk"] = check(
-        "chunk",
-        lambda: ca.chunk_prefill_attention(qc, kp, vp, pages, start,
-                                           page_size=PS),
-        lambda: att.chunk_attention_ref(qc, kp, vp, pages, start,
-                                        page_size=PS),
-        lambda: sdpa(qct, kc, vc, cmask),
-        bound(2 * 2 * qc.numel() + 2 * cpages * PS * KV * D * 2
-              + 4 * walked.numel(), 4 * cpairs * H * D),
-        {"q": [c, H, D], "start": start, "pages": width,
-         "pools": [NUM_PAGES, PS, KV * D]})
+    start_d = torch.tensor([start], device=dev)
+    for sfx, (k, v, kl, vl, row_bytes, n_kv) in pools.items():
+        rows["chunk" + sfx] = check(
+            "chunk" + sfx,
+            lambda: ca.chunk_prefill_attention(qc, k, v, pages_d, start,
+                                               page_size=PS,
+                                               num_kv_heads=n_kv),
+            lambda: att.chunk_attention_ref(qc, k, v, pages_d, start,
+                                            page_size=PS, num_kv_heads=n_kv),
+            paged_library(qc[None], kl, vl, pages_d[None], start_d,
+                          start_d + c),
+            paged_cost(qc.numel(), [(pages, start, c, start + c)], row_bytes,
+                       0),
+            {"q": [c, H, D], "start": start, "pages": width,
+             "pools": list(k.shape)})
+
+    # ragged: the mixed step's shapes, 8 decode rows (slot 0 inactive: a
+    # zero table row at context 1) beside the chunk above, descriptors
+    # built as the engine builds them; decode rows of 4 queries as well
+    # (the TPU kernel's verify windows)
+    rctx = torch.tensor([1, 1, 17, 100, 255, 600, 1024, 2048],
+                        dtype=torch.int32)
+    rctx_d = rctx.to(dev)  # row 0 (context 0 above) has no pages
+    desc = att.ragged_descriptors(table_d, rctx_d, pages_d,
+                                  start, c)
+    cpu_desc = [t.cpu() for t in desc]
+    for decode_q in (1, 4):
+        qr = rnd(MAX_SEQS * decode_q + c, H, D)
+        tabs, kv_lens, q_starts = desc
+        if decode_q > 1:  # windows ending at each row's context
+            q_starts = torch.clamp(kv_lens - decode_q, min=0)
+            q_starts[-1] = start
+            kv_lens = torch.maximum(kv_lens, q_starts + decode_q)
+            kv_lens[-1] = start + c
+        spans = [(cpu_desc[0][r], int(q_starts[r]),
+                  decode_q if r < MAX_SEQS else c, int(kv_lens[r]))
+                 for r in range(MAX_SEQS + 1)]
+        for sfx, (k, v, kl, vl, row_bytes, n_kv) in pools.items():
+            if decode_q > 1 and sfx:
+                continue
+            name = "ragged" + sfx + ("" if decode_q == 1
+                                     else f"_decode_q{decode_q}")
+            kw = dict(page_size=PS, num_kv_heads=KV, num_decode=MAX_SEQS,
+                      decode_q=decode_q)
+
+            def kernel(k=k, v=v, q_starts=q_starts, kv_lens=kv_lens, kw=kw):
+                return ca.ragged_paged_attention(qr, k, v, tabs, kv_lens,
+                                                 q_starts, **kw)
+
+            def plain(k=k, v=v, q_starts=q_starts, kv_lens=kv_lens, kw=kw):
+                return att.ragged_paged_attention_ref(qr, k, v, tabs,
+                                                      kv_lens, q_starts, **kw)
+
+            nd = MAX_SEQS * decode_q
+            dec_lib = paged_library(
+                qr[:nd].reshape(MAX_SEQS, decode_q, H, D), kl, vl,
+                tabs[:MAX_SEQS], q_starts[:MAX_SEQS], kv_lens[:MAX_SEQS])
+            chk_lib = paged_library(qr[nd:][None], kl, vl, tabs[-1:],
+                                    q_starts[-1:], kv_lens[-1:])
+            extra = {}
+            if decode_q == 1:
+                # the same rows through decode.cu and chunk.cu
+                out = kernel()
+                dec = ca.paged_attention_decode(
+                    qr[:nd], k, v, table_d, rctx_d,
+                    page_size=PS, num_kv_heads=n_kv)
+                chk = ca.chunk_prefill_attention(
+                    qr[nd:], k, v, pages_d, start, page_size=PS,
+                    num_kv_heads=n_kv)
+                extra = {
+                    "max_abs_diff_vs_decode_cu":
+                        float((out[:nd].float() - dec.float()).abs().max()),
+                    "max_abs_diff_vs_chunk_cu":
+                        float((out[nd:].float() - chk.float()).abs().max())}
+            rows[name] = check(
+                name, kernel, plain, lambda: (dec_lib(), chk_lib()),
+                paged_cost(qr.numel(), spans, row_bytes,
+                           2 * (MAX_SEQS + 1)),
+                {"q": [nd + c, H, D], "num_decode": MAX_SEQS,
+                 "decode_q": decode_q, "context_lens": rctx.tolist(),
+                 "chunk_start": start, "tables": list(tabs.shape),
+                 "pools": list(k.shape)}, extra)
     return rows
 
 
@@ -295,8 +437,9 @@ def q_scaled(fns: att.AttentionFns, factor: float) -> att.AttentionFns:
 
 def three_paths(engine: Engine, attn) -> dict:
     """Logits of a full prefill (100 tokens in a 128 bucket), one decode
-    step after it (slot 0 live, seven slots on the trash page) and a
-    chunked prefill (600 tokens in 256-token chunks), with `attn`."""
+    step after it (slot 0 live, seven slots on the trash page), a chunked
+    prefill (600 tokens in 256-token chunks) and a mixed step (that decode
+    row beside the prompt's second chunk again), with `attn`."""
     model, dev, out = engine.model, engine.device, {}
     prompt = torch.randint(0, 256, (600,),
                            generator=torch.Generator().manual_seed(2))
@@ -328,6 +471,11 @@ def three_paths(engine: Engine, attn) -> dict:
             out["chunked_prefill"] = llama.prefill_chunk(
                 model, chunk.to(dev), start, take, engine.k_pages,
                 engine.v_pages, plist, page_size=PS, attn=attn)
+        out["mixed_decode"], out["mixed_chunk"] = llama.mixed_step(
+            model, tok, pos, table, ctx, prompt[CHUNK:2 * CHUNK].to(dev),
+            CHUNK, CHUNK, plist, engine.k_pages, engine.v_pages,
+            page_size=PS, attn=attn)
+        out["mixed_decode"] = out["mixed_decode"][0]
     finally:
         engine.allocator.free(pages)
     return out
@@ -339,8 +487,8 @@ def rel_l2(got: dict, ref: dict) -> dict:
 
 
 def forward_checks(engine: Engine) -> dict:
-    """The three forwards through the kernels against the plain attention,
-    at full depth.
+    """The four forwards through the kernels against the plain attention,
+    at full depth, on the engine's pools (bf16 or int8).
 
     With the random weights, wq's sigma 1/sqrt(head_dim) over 4096 inputs
     gives attention scores of standard deviation near 30: softmax is close
@@ -360,7 +508,7 @@ def forward_checks(engine: Engine) -> dict:
     plain = three_paths(engine, q_scaled(att.PLAIN, Q_SCALE))
     kernels = three_paths(engine, q_scaled(held.fns, Q_SCALE))
     unscaled = three_paths(engine, q_scaled(att.PLAIN, Q_SCALE * D ** 0.5))
-    row = {"q_scale": Q_SCALE,
+    row = {"kv_cache_dtype": engine.kv_spec.dtype, "q_scale": Q_SCALE,
            "attention_calls_held": held.calls,
            "attention_max_abs_err": held.max_abs_err,
            "attention_max_row_rel_err": held.max_row_rel_err,
@@ -373,7 +521,8 @@ def forward_checks(engine: Engine) -> dict:
            "logits_tolerance": f"rel_l2 < {LOGIT_REL_TOL}",
            "logits_rel_l2_without_softmax_scale": rel_l2(unscaled, plain)}
     emit({"forward_check": row})
-    expected = len(engine.model.layers) * (2 + -(-600 // CHUNK))
+    # per layer: prefill, decode, the chunks, the mixed step
+    expected = len(engine.model.layers) * (3 + -(-600 // CHUNK))
     if held.failed or held.calls != expected:
         raise AssertionError(f"attention calls in the forward disagree with "
                              f"the plain version: {held.failed[:5]} "
@@ -389,9 +538,12 @@ def forward_checks(engine: Engine) -> dict:
     return row
 
 
-def post(url: str, body: dict, stream: bool):
+def post(url: str, body: dict, stream: bool,
+         first: threading.Event = None):
     """POST; returns (status, payload, arrival times of the SSE events in
-    seconds after the request, total seconds)."""
+    seconds after the request, total seconds). `first` is set once a
+    streamed response's first token event (the one after the role) has
+    arrived."""
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
     t0 = time.monotonic()
@@ -404,79 +556,122 @@ def post(url: str, body: dict, stream: bool):
             if line.startswith("data: "):
                 events.append(line[len("data: "):])
                 stamps.append(time.monotonic() - t0)
+                if first is not None and len(events) == 2:
+                    first.set()
         return r.status, events, stamps, time.monotonic() - t0
 
 
-def serve_checks(engine: Engine) -> dict:
+@contextlib.contextmanager
+def serving(engine: Engine):
+    """The OpenAI server for `engine` on 127.0.0.1:0; yields its base URL
+    and stops server and engine thread on exit."""
     ctx = ServingContext(engine, MODEL)
     srv = make_server(ctx, host="127.0.0.1", port=0)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
-    base = f"http://127.0.0.1:{srv.server_address[1]}"
-    common = {"model": MODEL, "max_tokens": MAX_TOKENS, "temperature": 0.0,
-              "ignore_eos": True}
-    chat = dict(common, messages=[{"role": "user",
-                                   "content": "Port this kernel to Hopper."}])
-    long_text = ("The paged KV cache keeps page zero as trash. " * 14)[:596]
-    jobs = {
-        "chat": (base + "/v1/chat/completions", chat, False),
-        # logprobs: every token gets its own SSE chunk, even one the byte
-        # tokenizer decodes to no text (random weights emit ids >= 256)
-        "chat_stream": (base + "/v1/chat/completions",
-                        dict(chat, stream=True, logprobs=True,
-                             stream_options={"include_usage": True}), True),
-        "completion": (base + "/v1/completions",
-                       dict(common, prompt="Hopper has 132 SMs and",
+    try:
+        yield f"http://127.0.0.1:{srv.server_address[1]}"
+    finally:
+        srv.shutdown()
+        ctx.close()
+        thread.join(timeout=30)
+
+
+COMMON = {"model": MODEL, "max_tokens": MAX_TOKENS, "temperature": 0.0,
+          "ignore_eos": True}
+CHAT = dict(COMMON, messages=[{"role": "user",
+                               "content": "Port this kernel to Hopper."}])
+# logprobs: every token gets its own SSE chunk, even one the byte tokenizer
+# decodes to no text (random weights emit ids >= 256)
+CHAT_STREAM = dict(CHAT, stream=True, logprobs=True,
+                   stream_options={"include_usage": True})
+LONG_TEXT = ("The paged KV cache keeps page zero as trash. " * 14)[:596]
+
+
+def summarize(name: str, result, stream: bool) -> dict:
+    """Usage and, for a stream, TTFT and inter-token gaps of one request;
+    raises unless it returned MAX_TOKENS tokens."""
+    status, payload, stamps, total = result
+    if status != 200:
+        raise AssertionError(f"{name}: HTTP {status}")
+    if stream:
+        if payload[-1] != "[DONE]":
+            raise AssertionError(f"{name}: SSE did not end with [DONE]")
+        usage = json.loads(payload[-2])["usage"]
+    else:
+        usage = payload["usage"]
+    if usage["completion_tokens"] != MAX_TOKENS:
+        raise AssertionError(f"{name}: usage {usage}")
+    out = {"prompt_tokens": usage["prompt_tokens"],
+           "completion_tokens": usage["completion_tokens"], "total_s": total}
+    if stream:
+        # events: role, one per token, finish, usage, [DONE]
+        tok = stamps[1:1 + MAX_TOKENS]
+        gaps = [b - a for a, b in zip(tok, tok[1:])]
+        out.update(ttft_s=tok[0], itl_mean_s=sum(gaps) / len(gaps),
+                   itl_max_s=max(gaps))
+    return out
+
+
+def interference(base: str) -> dict:
+    """The ~600-token prompt alone on the idle engine (the chunked path),
+    then a streamed chat and, once its first token is out, the same prompt
+    again, which prefills while the stream decodes."""
+    long_job = (base + "/v1/completions", dict(COMMON, prompt=LONG_TEXT),
+                False)
+    out = {"long_alone": summarize("long_alone", post(*long_job), False)}
+    first, got = threading.Event(), {}
+    stream = threading.Thread(target=lambda: got.update(stream=post(
+        base + "/v1/chat/completions", CHAT_STREAM, True, first)))
+    stream.start()
+    if not first.wait(timeout=600):
+        raise AssertionError("the streamed request never produced a token")
+    out["long_beside_stream"] = summarize("long_beside_stream",
+                                          post(*long_job), False)
+    stream.join(timeout=600)
+    out["stream"] = summarize("stream", got["stream"], True)
+    if out["long_alone"]["prompt_tokens"] <= CHUNK:
+        raise AssertionError("the long prompt did not take the chunked path")
+    return out
+
+
+def stats(base: str) -> dict:
+    return json.loads(urllib.request.urlopen(base + "/worker/stats",
+                                             timeout=30).read())
+
+
+def serve_checks(engine: Engine) -> dict:
+    """Phase 5 on the classic engine: the classic kernels must launch."""
+    jobs = {  # (path, body, stream)
+        "chat": ("/v1/chat/completions", CHAT, False),
+        "chat_stream": ("/v1/chat/completions", CHAT_STREAM, True),
+        "completion": ("/v1/completions",
+                       dict(COMMON, prompt="Hopper has 132 SMs and",
                             logprobs=1), False),
-        "long_prompt": (base + "/v1/completions",
-                        dict(common, prompt=long_text), False),
+        "long_prompt": ("/v1/completions", dict(COMMON, prompt=LONG_TEXT),
+                        False),
     }
     results = {}
-    try:
+    with serving(engine) as base:
         ca.reset_launch_counts()
 
         def run(name):
-            results[name] = post(*jobs[name])
+            path, body, stream = jobs[name]
+            results[name] = post(base + path, body, stream)
 
         threads = [threading.Thread(target=run, args=(n,)) for n in jobs]
         for t in threads:
             t.start()
         for t in threads:
             t.join(timeout=600)
-        again = [post(*jobs["completion"]) for _ in range(2)]
+        again = [post(base + "/v1/completions", jobs["completion"][1], False)
+                 for _ in range(2)]
+        mixed_traffic = interference(base)
         launches = dict(ca.LAUNCHES)
-        stats = json.loads(urllib.request.urlopen(
-            base + "/worker/stats", timeout=30).read())
-    finally:
-        srv.shutdown()
-        ctx.close()
-        thread.join(timeout=30)
+        worker = stats(base)
 
-    summary = {}
-    for name, (status, payload, stamps, total) in results.items():
-        if status != 200:
-            raise AssertionError(f"{name}: HTTP {status}")
-        if jobs[name][2]:
-            if payload[-1] != "[DONE]":
-                raise AssertionError(f"{name}: SSE did not end with [DONE]")
-            chunks = [json.loads(e) for e in payload[:-1]]
-            usage = chunks[-1]["usage"]
-        else:
-            usage = payload["usage"]
-        if usage["completion_tokens"] != MAX_TOKENS:
-            raise AssertionError(f"{name}: usage {usage}")
-        summary[name] = {"prompt_tokens": usage["prompt_tokens"],
-                         "completion_tokens": usage["completion_tokens"],
-                         "total_s": total}
-        if stamps:
-            # events: role, one per token, finish, usage, [DONE]
-            tok = stamps[1:1 + MAX_TOKENS]
-            gaps = [b - a for a, b in zip(tok, tok[1:])]
-            summary[name].update(ttft_s=tok[0],
-                                 itl_mean_s=sum(gaps) / len(gaps),
-                                 itl_max_s=max(gaps))
-    if summary["long_prompt"]["prompt_tokens"] <= CHUNK:
-        raise AssertionError("the long prompt did not take the chunked path")
+    summary = {name: summarize(name, results[name], jobs[name][2])
+               for name in jobs}
     lp = [r[1]["choices"][0]["logprobs"] for r in again]
     if (lp[0]["token_logprobs"] != lp[1]["token_logprobs"]
             or lp[0]["tokens"] != lp[1]["tokens"]):
@@ -485,12 +680,39 @@ def serve_checks(engine: Engine) -> dict:
     summary["repeat_matches_concurrent_run"] = (
         results["completion"][1]["choices"][0]["logprobs"]["token_logprobs"]
         == lp[0]["token_logprobs"])
-    summary["engine_metrics"] = stats["metrics"]
-    missing = [k for k, n in launches.items() if n == 0]
+    summary["interference"] = mixed_traffic
+    summary["engine_metrics"] = worker["metrics"]
+    missing = [k for k in CLASSIC if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing} ({launches})")
     return {"requests": summary, "launches": launches}
+
+
+def mixed_serve_checks(engine: Engine) -> dict:
+    """Phase 5 on a mixed engine: the interference traffic must ride the
+    mixed step, whose ragged kernel launches once per layer per step."""
+    sfx = "_int8" if engine.kv_spec.quantized else ""
+    with serving(engine) as base:
+        ca.reset_launch_counts()
+        traffic = interference(base)
+        launches = dict(ca.LAUNCHES)
+        worker = stats(base)
+    mixed = worker["metrics"]["mixed_count"]
+    want = ("prefill", "decode" + sfx, "chunk" + sfx, "ragged" + sfx)
+    missing = [k for k in want if launches[k] == 0]
+    if mixed == 0 or missing:
+        raise AssertionError(f"mixed engine ({engine.kv_spec.dtype} pools):"
+                             f" {mixed} mixed steps, kernels never launched:"
+                             f" {missing} ({launches})")
+    layers = engine.model_cfg.num_layers
+    if launches["ragged" + sfx] != layers * mixed:
+        raise AssertionError(f"ragged{sfx} launched {launches['ragged' + sfx]}"
+                             f" times for {mixed} mixed steps of {layers} "
+                             f"layers")
+    return {"kv_cache": worker["kv_cache"], "mixed_count": mixed,
+            "requests": traffic, "engine_metrics": worker["metrics"],
+            "launches": launches}
 
 
 def kernel_family(name: str) -> str:
@@ -504,46 +726,72 @@ def kernel_family(name: str) -> str:
     return "other (elementwise, norms, rope, sampling, KV writes)"
 
 
-def profile_decode(engine: Engine, steps: int = 10) -> dict:
-    """Where a steady decode step's time goes: all 8 slots decoding after
-    100-token prompts; `steps` steps timed on the host clock, then the same
-    number under torch.profiler for device time by kernel family."""
-    for i in range(MAX_SEQS):
-        engine.add_request(GenRequest(f"profile-{i}", list(range(1, 101)),
-                                      max_tokens=2 * steps + 8,
-                                      ignore_eos=True))
-    while engine.pending:
+def profile_steps(engine: Engine, steps: int, long_prompt: int = 0) -> dict:
+    """Where a steady step's time goes: `steps` steps timed on the host
+    clock, then the same steps again under torch.profiler for device time
+    by kernel family and the kernels launched per step. Each pass drives
+    the same traffic from an idle engine: with long_prompt 0, all 8 slots
+    decoding after 100-token prompts; otherwise (a mixed engine) 7 slots
+    decoding beside a long_prompt-token prompt whose chunks after the
+    first ride the measured mixed steps, and every measured step must be
+    one."""
+    n_decode = MAX_SEQS - 1 if long_prompt else MAX_SEQS
+
+    def drive(tag: str, measured) -> float:
+        for i in range(n_decode):
+            engine.add_request(GenRequest(
+                f"profile-{tag}-{i}", list(range(1, 101)),
+                max_tokens=steps + 8, ignore_eos=True))
+        while engine.pending:
+            engine.step()
         engine.step()
-    engine.step()
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    for _ in range(steps):
-        engine.step()
-    torch.cuda.synchronize()
-    wall_ms = (time.monotonic() - t0) / steps * 1e3
+        if long_prompt:
+            engine.add_request(GenRequest(
+                f"profile-{tag}-long", [1 + i % 200 for i in
+                                        range(long_prompt)],
+                max_tokens=2, ignore_eos=True))
+            engine.step()  # starts the chunked prefill
+            engine.step()  # the first mixed step
+        mixed0 = engine.metrics.mixed_count
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with measured:
+            for _ in range(steps):
+                engine.step()
+            torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) / steps * 1e3
+        mixed = engine.metrics.mixed_count - mixed0
+        while engine.has_work:
+            engine.step()
+        if mixed != (steps if long_prompt else 0):
+            raise AssertionError(f"{mixed} of the {steps} measured steps "
+                                 f"were mixed steps (long prompt "
+                                 f"{long_prompt})")
+        return wall
+
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            engine.step()
-        torch.cuda.synchronize()
-    while engine.has_work:
-        engine.step()
-    families, kernels = {}, {}
+    wall_ms = drive("timed", contextlib.nullcontext())
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    drive("profiled", prof)
+    families, kernels, n_kernels = {}, {}, 0
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        n_kernels += 1
         ms = ev.time_range.elapsed_us() / 1e3 / steps
         fam = kernel_family(ev.name)
         families[fam] = families.get(fam, 0.0) + ms
         kernels[ev.name] = kernels.get(ev.name, 0.0) + ms
     busy = sum(families.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    return {"slots": MAX_SEQS, "steps": steps,
-            "wall_ms_per_step": wall_ms,
+    return {"kv_cache_dtype": engine.kv_spec.dtype,
+            "step": "mixed" if long_prompt else "decode",
+            "decode_slots": n_decode, "long_prompt": long_prompt,
+            "steps": steps, "wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": busy if busy else "not measured",
             "idle_share": 1 - busy / wall_ms if busy else "not measured",
+            "device_kernels_per_step": n_kernels / steps,
             "by_family_ms_per_step": families,
             "top_kernels_ms_per_step": [[n[:80], t] for n, t in top]}
 
@@ -568,34 +816,66 @@ def main() -> int:
     rows = kernel_checks(dev)
 
     t0 = time.monotonic()
-    engine = Engine(EngineConfig(
-        model=MODEL, page_size=PS, num_pages=NUM_PAGES, max_num_seqs=MAX_SEQS,
-        max_seq_len=MAX_SEQ_LEN, prefill_chunk_tokens=CHUNK,
-        enable_prefix_caching=False, seed=0))
+    base_cfg = dict(model=MODEL, page_size=PS, num_pages=NUM_PAGES,
+                    max_num_seqs=MAX_SEQS, max_seq_len=MAX_SEQ_LEN,
+                    prefill_chunk_tokens=CHUNK, enable_prefix_caching=False,
+                    seed=0)
+    engine = Engine(EngineConfig(**base_cfg))
     emit({"phase": "engine", "model": MODEL, "seconds": time.monotonic() - t0,
           "layers": engine.model_cfg.num_layers,
           "hidden": engine.model_cfg.hidden_size,
           "weights_gib": sum(p.numel() * p.element_size()
                              for p in engine.model.parameters()) / 2**30,
-          "kv_pool_gib": 2 * engine.k_pages.numel()
-          * engine.k_pages.element_size() / 2**30})
+          "kv_pool_gib": engine.kv_spec.pool_bytes / 2**30})
+    # the mixed engines share the weights; the int8 one also takes phase 4
+    mixed = Engine(EngineConfig(**base_cfg, mixed_batch_tokens=CHUNK),
+                   params=engine.model)
+    mixed8 = Engine(EngineConfig(**base_cfg, mixed_batch_tokens=CHUNK,
+                                 kv_cache_dtype="int8"), params=engine.model)
+    emit({"phase": "engine_int8", "kv_pool_gib": mixed8.kv_spec.pool_bytes
+          / 2**30, "lane_width": mixed8.kv_spec.lane_width})
     with torch.inference_mode():
         forward_checks(engine)
+        forward_checks(mixed8)
 
     served = serve_checks(engine)
     emit({"phase": "serve", **served["requests"]})
+    served_mixed = {"": mixed_serve_checks(mixed),
+                    "_int8": mixed_serve_checks(mixed8)}
+    classic_itl = served["requests"]["interference"]["stream"]
+    for sfx, row in served_mixed.items():
+        emit({"phase": "serve_mixed" + sfx, **row})
+    emit({"phase": "itl_while_long_prompt_prefills",
+          "classic": classic_itl,
+          "mixed": served_mixed[""]["requests"]["stream"],
+          "mixed_int8": served_mixed["_int8"]["requests"]["stream"]})
     with torch.inference_mode():
-        emit({"phase": "profile", **profile_decode(engine)})
+        # decode steps on bf16 and int8 pools (the mixed engines decode as
+        # the classic one does while nothing prefills), then mixed steps
+        for eng, long_prompt, steps in ((engine, 0, 10), (mixed8, 0, 10),
+                                        (mixed, 4 * CHUNK, 3),
+                                        (mixed8, 4 * CHUNK, 3)):
+            emit({"phase": "profile",
+                  **profile_steps(eng, steps, long_prompt)})
 
+    # launches from the served phase that runs each kernel: the classic
+    # engine for the classic kernels, each mixed engine for its own
+    launches = dict(served["launches"])
+    launches["ragged"] = served_mixed[""]["launches"]["ragged"]
+    for name in ("decode_int8", "chunk_int8", "ragged_int8"):
+        launches[name] = served_mixed["_int8"]["launches"][name]
     kernels = []
-    for name, row in rows.items():
-        source, replaces = SOURCES[name]
+    for name, (source, replaces) in SOURCES.items():
+        row = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": served["launches"][name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    if any(k["launches"] == 0 for k in kernels):
+        raise AssertionError(f"a kernel never launched when served: "
+                             f"{launches}")
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.monotonic() - t_all,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})

@@ -1,5 +1,5 @@
-// Shared device code of the port's three attention kernels (decode.cu,
-// prefill.cu, chunk.cu).
+// Shared device code of the port's attention kernels (decode.cu, prefill.cu,
+// chunk.cu, ragged.cu).
 //
 // Every kernel is one call of `attend`: a thread block owns `nq` query
 // positions x `group` query heads of ONE KV head (rows r = i * group + g,
@@ -12,17 +12,25 @@
 //
 // decode sets qpos0 = ctx - 1, kv_len = ctx; chunked prefill qpos0 =
 // start + first query of the block, kv_len = start + C; prefill qpos0 =
-// first query of the block, kv_len = seq_len. The block stops at the
-// causal horizon min(qpos0 + nq, kv_len): tokens past it are never read,
-// which is what makes a trash-padded page list or a padded prompt free.
-// A row that sees no key at all (decode ctx 0, prefill seq_len 0) writes
-// exact zeros, as the TPU kernels do.
+// first query of the block, kv_len = seq_len; the ragged kernel reads both
+// from its descriptors. The block stops at the causal horizon
+// min(qpos0 + nq, kv_len): tokens past it are never read, which is what
+// makes a trash-padded page list or a padded prompt free. A row that sees
+// no key at all (decode ctx 0, prefill seq_len 0) writes exact zeros, as
+// the TPU kernels do.
 //
-// Keys and values reach shared memory as f32 (16-byte vector loads from the
-// bf16 rows: a head's D values are contiguous at stride KV*D); q is scaled
-// by 1/sqrt(D) in f32 once. Scores, softmax and the PV product run in f32
-// on CUDA cores: the kernels are bounded by the bytes of K/V they read
-// (decode, chunk) and this first version makes no use of the tensor cores.
+// Two policies feed `attend`: `Rows` says where token tok's K/V row starts
+// (PagedRows through a page list, DenseRows in a dense block), and `KVRows`
+// how a row is read. Bf16Rows reads a head's D bf16 values (lanes
+// [kvh*D, (kvh+1)*D) of a KV*D row) with 16-byte loads; Int8Rows reads the
+// packed int8 row [KV*D int8 values | KV bf16 scales | pad] of the
+// `kv_cache_dtype="int8"` pools, 16 values per 16-byte load, and the head's
+// bf16 scale at byte KV*D + 2*kvh, and dequantizes value * scale in f32
+// (exact, as the TPU kernels' _dequant_rows). Either way keys and values
+// reach shared memory as f32; q is scaled by 1/sqrt(D) in f32 once. Scores,
+// softmax and the PV product run in f32 on CUDA cores: the kernels are
+// bounded by the bytes of K/V they read (decode, chunk) and this first
+// version makes no use of the tensor cores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,23 +52,78 @@ inline bool fits_accumulators(int rows, int d) {
   return rows > 0 && d > 0 && (long long)rows * d <= kMaxRowsTimesDim;
 }
 
-// Offset of token `tok`'s K/V row in a paged pool [P, ps, KV*D].
+// Offset (in pool elements) of token `tok`'s K/V row in a paged pool
+// [P, ps, W].
 struct PagedRows {
   const int* pages;  // the sequence's page ids
   int page_size;
-  int row_stride;  // KV*D
+  int row_stride;  // the pool's lane width W
   __device__ __forceinline__ long long operator()(int tok) const {
     const int page = __ldg(pages + tok / page_size);
     return ((long long)page * page_size + tok % page_size) * row_stride;
   }
 };
 
-// Offset of token `tok`'s K/V row in a dense [S, KV*D] block.
+// Offset of token `tok`'s K/V row in a dense [S, KV*D] bf16 block.
 struct DenseRows {
   long long base;  // offset of token 0
   int row_stride;  // KV*D
   __device__ __forceinline__ long long operator()(int tok) const {
     return base + (long long)tok * row_stride;
+  }
+};
+
+// K/V rows of bf16 values.
+struct Bf16Rows {
+  static constexpr int kVec = 8;  // values per 16-byte load
+  const __nv_bfloat16* __restrict__ k;
+  const __nv_bfloat16* __restrict__ v;
+  // chunk c (kVec values) of head kvh's D values in the row at `row`
+  __device__ __forceinline__ void load(long long row, int kvh, int d, int c,
+                                       float* kd, float* vd) const {
+    const long long off = row + (long long)kvh * d + c * kVec;
+    const uint4 kr = __ldg(reinterpret_cast<const uint4*>(k + off));
+    const uint4 vr = __ldg(reinterpret_cast<const uint4*>(v + off));
+    const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kr);
+    const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&vr);
+#pragma unroll
+    for (int e = 0; e < kVec / 2; ++e) {
+      const float2 kf = __bfloat1622float2(k2[e]);
+      const float2 vf = __bfloat1622float2(v2[e]);
+      kd[2 * e] = kf.x;
+      kd[2 * e + 1] = kf.y;
+      vd[2 * e] = vf.x;
+      vd[2 * e + 1] = vf.y;
+    }
+  }
+};
+
+// Packed int8 K/V rows [KV*D int8 | KV bf16 scales | pad]; the lane width W
+// is a multiple of 128, so every row starts 16-byte aligned, and D % 16 == 0
+// keeps each head's values so.
+struct Int8Rows {
+  static constexpr int kVec = 16;
+  const int8_t* __restrict__ k;
+  const int8_t* __restrict__ v;
+  int kvd;  // KV*D: the byte offset of the scales in a row
+  __device__ __forceinline__ void load(long long row, int kvh, int d, int c,
+                                       float* kd, float* vd) const {
+    const long long off = row + (long long)kvh * d + c * kVec;
+    const uint4 kr = __ldg(reinterpret_cast<const uint4*>(k + off));
+    const uint4 vr = __ldg(reinterpret_cast<const uint4*>(v + off));
+    // the scale: a bf16 at an even byte offset, widened to f32 exactly
+    const long long sc = row + kvd + 2 * kvh;
+    const float ks = __uint_as_float(
+        (unsigned)__ldg(reinterpret_cast<const unsigned short*>(k + sc)) << 16);
+    const float vs = __uint_as_float(
+        (unsigned)__ldg(reinterpret_cast<const unsigned short*>(v + sc)) << 16);
+    const int8_t* k8 = reinterpret_cast<const int8_t*>(&kr);
+    const int8_t* v8 = reinterpret_cast<const int8_t*>(&vr);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      kd[e] = (float)k8[e] * ks;
+      vd[e] = (float)v8[e] * vs;
+    }
   }
 };
 
@@ -84,14 +147,12 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // q element (i, g, dd) is q[q_off + i * q_row_stride + g * d + dd]; the
-// output uses the same addressing. kv_off selects the KV head's D lanes in
-// a K/V row.
-template <typename Rows>
+// output uses the same addressing. kvh is the KV head the block reads.
+template <typename KVRows, typename Rows>
 __device__ __forceinline__ void attend(
     const __nv_bfloat16* __restrict__ q, long long q_off, int q_row_stride,
-    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-    Rows rows, int kv_off, __nv_bfloat16* __restrict__ out, int nq, int group,
-    int d, int qpos0, int kv_len, float scale) {
+    KVRows kv, Rows rows, int kvh, __nv_bfloat16* __restrict__ out, int nq,
+    int group, int d, int qpos0, int kv_len, float scale) {
   extern __shared__ float smem[];
   const int n_rows = nq * group;
   const int kv_stride = d + 1;  // +1 float: conflict-free column reads
@@ -121,27 +182,13 @@ __device__ __forceinline__ void attend(
   __syncthreads();
 
   const int horizon = min(qpos0 + nq, kv_len);
-  const int vecs = d / 8;  // 16-byte chunks of a head's row
+  const int vecs = d / KVRows::kVec;  // 16-byte chunks of a head's row
   for (int t0 = 0; t0 < horizon; t0 += kTile) {
     const int n = min(kTile, horizon - t0);
     for (int idx = tid; idx < n * vecs; idx += kThreads) {
       const int t = idx / vecs, c = idx - t * vecs;
-      const long long off = rows(t0 + t) + kv_off + c * 8;
-      const uint4 kr = __ldg(reinterpret_cast<const uint4*>(k + off));
-      const uint4 vr = __ldg(reinterpret_cast<const uint4*>(v + off));
-      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kr);
-      const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&vr);
-      float* kd = ks + t * kv_stride + c * 8;
-      float* vd = vs + t * kv_stride + c * 8;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 kf = __bfloat1622float2(k2[e]);
-        const float2 vf = __bfloat1622float2(v2[e]);
-        kd[2 * e] = kf.x;
-        kd[2 * e + 1] = kf.y;
-        vd[2 * e] = vf.x;
-        vd[2 * e + 1] = vf.y;
-      }
+      kv.load(rows(t0 + t), kvh, d, c, ks + t * kv_stride + c * KVRows::kVec,
+              vs + t * kv_stride + c * KVRows::kVec);
     }
     __syncthreads();
 

@@ -34,8 +34,8 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(
   const int group = H / KV;
   const int nq = min(q_tile, S - i0);
   const DenseRows rows{(long long)lane_n * S * KV * D, KV * D};
-  attend(q, (((long long)lane_n * S + i0) * H + kvh * group) * D, H * D, k, v,
-         rows, kvh * D, out, nq, group, D, /*qpos0=*/i0,
+  attend(q, (((long long)lane_n * S + i0) * H + kvh * group) * D, H * D,
+         Bf16Rows{k, v}, rows, kvh, out, nq, group, D, /*qpos0=*/i0,
          /*kv_len=*/seq_lens[lane_n], scale);
 }
 

@@ -11,6 +11,13 @@ Port of the aggregated-serving core of `dynamo_tpu/engine/engine.py`:
 - A decode step over all `max_num_seqs` slots, inactive slots sitting on
   the trash page at context 1, with sampling on the device and one token
   read back per slot.
+- The mixed step (`mixed_batch_tokens > 0`): while a chunked prefill is in
+  flight and decode slots are live, one forward (`llama.mixed_step`, one
+  ragged attention launch per layer) advances every slot by a token AND
+  the prefill by up to `mixed_batch_tokens`, so a long admission no longer
+  stalls the streams for whole chunks.
+- int8 KV pools (`kv_cache_dtype="int8"`: packed values and per-head
+  scales, about half the bf16 pool's bytes).
 - Stops (stop ids, model eos unless `ignore_eos`, `max_tokens`,
   `max_seq_len`), aborts, logprobs, OutOfPages deferral at admission and
   preemption by recompute when decode runs out of pages.
@@ -70,12 +77,10 @@ def unported_settings(cfg: EngineConfig) -> List[str]:
         ("lora_slots", cfg.lora_slots > 0),
         ("kvbm_host_blocks", cfg.kvbm_host_blocks > 0),
         ("quantization", cfg.quantization != "none"),
-        ("kv_cache_dtype", cfg.kv_cache_dtype not in ("auto", "")),
         ("tensor_parallel", cfg.tensor_parallel > 1),
         ("data_parallel", cfg.data_parallel > 1),
         ("expert_parallel", cfg.expert_parallel > 1),
         ("sequence_parallel", cfg.sequence_parallel > 1),
-        ("mixed_batch_tokens", cfg.mixed_batch_tokens > 0),
         ("num_scheduler_steps", cfg.num_scheduler_steps > 1),
         ("tenants", bool(cfg.tenants)),
         ("disaggregation_mode", cfg.disaggregation_mode != "agg"),
@@ -143,6 +148,7 @@ class EngineMetrics:
     decode_time_s: float = 0.0
     kv_oom: int = 0
     num_preempted: int = 0
+    mixed_count: int = 0  # mixed steps (each also counts as a decode step)
 
     def snapshot(self) -> Dict[str, float]:
         return dataclasses.asdict(self)
@@ -191,6 +197,16 @@ class Engine:
                 f"ported to dynamo_tpu_torch yet (see ROADMAP.md)")
         self.model_cfg = model_cfg
         self.dtype = getattr(torch, model_cfg.dtype)
+        self.kv_spec = KVCacheSpec.from_model(
+            model_cfg, cfg.num_pages, cfg.page_size, cfg.kv_cache_dtype)
+        if cfg.mixed_batch_tokens > 0:
+            # the mixed step writes the chunk's KV in whole pages, so its
+            # budget is a page multiple; it implies chunked prefill, and an
+            # unset chunk size takes the same value
+            mixed = -(-cfg.mixed_batch_tokens // cfg.page_size) * cfg.page_size
+            cfg = dataclasses.replace(
+                cfg, mixed_batch_tokens=mixed,
+                prefill_chunk_tokens=cfg.prefill_chunk_tokens or mixed)
         if cfg.prefill_chunk_tokens > 0:
             # chunks scatter whole pages: round up to a page multiple
             rounded = -(-cfg.prefill_chunk_tokens
@@ -213,10 +229,12 @@ class Engine:
                                                 device=self.device,
                                                 dtype=self.dtype)
 
-        self.kv_spec = KVCacheSpec.from_model(model_cfg, cfg.num_pages,
-                                              cfg.page_size)
         self.k_pages, self.v_pages = alloc_kv_pages(self.kv_spec,
                                                     self.device)
+        log.info("KV pools: %s, %d pages of %d tokens, %d lanes per row, "
+                 "%d bytes", self.kv_spec.dtype, cfg.num_pages,
+                 cfg.page_size, self.kv_spec.lane_width,
+                 self.kv_spec.pool_bytes)
         self.allocator = PageAllocator(cfg.num_pages)
 
         b, pmax = cfg.max_num_seqs, cfg.max_pages_per_seq
@@ -313,11 +331,16 @@ class Engine:
     # --------------------------------------------------------- scheduling --
 
     def step(self) -> List[TokenEvent]:
-        """One scheduler iteration: apply aborts, admit (prefill) or run
-        one chunk, then one decode step. Single consumer: one thread calls
+        """One scheduler iteration: apply aborts, then either one mixed
+        step (a chunked prefill in flight, decode slots live and
+        mixed_batch_tokens set) or admit (prefill) or run one chunk,
+        followed by one decode step. Single consumer: one thread calls
         step(); add_request/abort_request synchronise through _lock."""
         with self._exec_lock, torch.inference_mode():
             events = self._apply_aborts()
+            if self._mixed_eligible():
+                events.extend(self._mixed_step())
+                return events
             if self._inflight is not None:
                 events.extend(self._advance_chunk())
             else:
@@ -558,10 +581,11 @@ class Engine:
         prompt_len = len(req.prompt_token_ids)
         bucket = _next_bucket(prompt_len, cfg.page_size, cfg.max_seq_len)
         pages = self.allocator.alloc(max(1, -(-prompt_len // cfg.page_size)))
-        # trailing TRASH slots: the final padded chunk's page slice lands on
+        # trailing TRASH slots: the final padded chunk's page slice (of a
+        # classic chunk or of a mixed step, whichever is wider) lands on
         # page 0 instead of running off the list
-        width = self.kv_spec.page_table_width(bucket,
-                                              cfg.prefill_chunk_tokens)
+        width = self.kv_spec.page_table_width(
+            bucket, max(cfg.prefill_chunk_tokens, cfg.mixed_batch_tokens))
         pages_arr = np.zeros((width,), np.int32)
         pages_arr[:len(pages)] = pages
         slot = self._free_slots.pop()
@@ -586,15 +610,68 @@ class Engine:
         self.metrics.prefill_time_s += time.monotonic() - t0
         if inf.done < inf.prompt_len:
             return []
+        return [self._install_inflight(logits)]
+
+    def _install_inflight(self, logits) -> TokenEvent:
+        """The inflight prefill's last chunk ran: sample its first token
+        from the chunk's last-row logits [V] and install the sequence in
+        its reserved slot."""
+        inf = self._inflight
         self._inflight = None
         self.metrics.prompt_tokens += inf.prompt_len
         req = inf.req
         key = self._request_key(req)
         toks, chosen, tids, tvals = self._sample_first(
             logits[None], [req], [key], [inf.prompt_len - 1])
-        return [self._finalize_admission(
+        return self._finalize_admission(
             req, inf.pages, inf.prompt_len, int(toks[0]), key,
-            (float(chosen[0]), tids[0], tvals[0]), slot=inf.slot)]
+            (float(chosen[0]), tids[0], tvals[0]), slot=inf.slot)
+
+    def _mixed_eligible(self) -> bool:
+        """The mixed step serves this iteration iff a chunked prefill is in
+        flight AND decode slots are live; otherwise the classic paths
+        (full or batched prefill when idle, plain decode when nothing is
+        admitting) do the work."""
+        return (self.cfg.mixed_batch_tokens > 0
+                and self._inflight is not None and bool(self.seqs))
+
+    def _mixed_step(self) -> List[TokenEvent]:
+        """One mixed step: a single forward advances every decode slot by
+        one token (sampled exactly as _decode_once samples) AND the
+        inflight prefill by up to mixed_batch_tokens; on the final chunk
+        the first token comes from the same forward's last-row logits."""
+        inf = self._inflight
+        cfg = self.cfg
+        events: List[TokenEvent] = []
+        self._grow_pages(events)
+        if not self.seqs:
+            # page pressure emptied the batch: the chunk still has its
+            # reserved pages, so it advances on the classic path
+            events.extend(self._advance_chunk())
+            return events
+        c = cfg.mixed_batch_tokens
+        start = inf.done
+        take = min(c, inf.prompt_len - start)
+        chunk = np.zeros((c,), np.int64)
+        chunk[:take] = inf.req.prompt_token_ids[start:start + take]
+        chunk_dev = self._tensor(chunk)
+        chunk_logits = []
+
+        def forward(tokens, positions, tables, ctx):
+            logits, last = llama.mixed_step(
+                self.model, tokens, positions, tables, ctx, chunk_dev, start,
+                take, inf.pages_dev, self.k_pages, self.v_pages,
+                page_size=cfg.page_size)
+            chunk_logits.append(last)
+            return logits
+
+        events.extend(self._decode_rows(forward))
+        inf.done += take
+        self.metrics.mixed_count += 1
+        if inf.done < inf.prompt_len:
+            return events
+        events.append(self._install_inflight(chunk_logits[0]))
+        return events
 
     def _stop_ids_for(self, req: GenRequest) -> List[int]:
         """User stop ids plus the model's eos ids, unless ignore_eos (which
@@ -725,6 +802,21 @@ class Engine:
         self._grow_pages(events)
         if not self.seqs:
             return events
+
+        def forward(tokens, positions, tables, ctx):
+            return llama.decode_step(
+                self.model, tokens, positions, tables, ctx, self.k_pages,
+                self.v_pages, page_size=self.cfg.page_size)
+
+        events.extend(self._decode_rows(forward))
+        return events
+
+    def _decode_rows(self, forward) -> List[TokenEvent]:
+        """Advance every live slot by one token: build the batch inputs,
+        run `forward(tokens, positions, tables, ctx) -> logits [B, V]`,
+        sample, read the tokens back and stop-check them (counted as one
+        decode step)."""
+        events: List[TokenEvent] = []
         t0 = time.monotonic()
         cfg = self.cfg
         b = cfg.max_num_seqs
@@ -739,11 +831,8 @@ class Engine:
             active[slot] = True
         if self._dev_tables is None:
             self._dev_tables = self._tensor(self.block_tables)
-        pos_dev = self._tensor(positions)
-        logits = llama.decode_step(
-            self.model, self._tensor(tokens), pos_dev, self._dev_tables,
-            self._tensor(ctx), self.k_pages, self.v_pages,
-            page_size=cfg.page_size)
+        logits = forward(self._tensor(tokens), self._tensor(positions),
+                         self._dev_tables, self._tensor(ctx))
         state = smp.make_state(
             self.temperature, self.top_p, self.top_k, self.presence,
             self.frequency, self.min_p, self.bias_ids, self.bias_vals,

@@ -1,22 +1,26 @@
 """Paged KV cache: device page pools + host-side page allocator.
 
 Port of `dynamo_tpu/engine/kv_cache.py` without the prefix cache. The pools
-are [num_layers, num_pages, page_size, num_kv_heads * head_dim] for K and
-V, page-major with the KV heads fused into the last axis (head h occupies
-lanes [h*D, (h+1)*D)), the JAX package's layout. Page 0 is a reserved
-trash page: inactive batch slots point at it so the full-batch decode step
-needs no masked writes.
+are [num_layers, num_pages, page_size, lane_width] for K and V, page-major:
+in the model dtype with the KV heads fused into the last axis (head h
+occupies lanes [h*D, (h+1)*D), lane_width = KV*D), or, with
+`kv_cache_dtype="int8"`, int8 packed rows of values and per-head bf16
+scales (`dynamo_tpu_torch.ops.attention`, int8 rows), the JAX package's
+layouts. Page 0 is a reserved trash page: inactive batch slots point at it
+so the full-batch decode step needs no masked writes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.ops.attention import kv_lane_width
 
 
 class OutOfPages(Exception):
@@ -30,24 +34,37 @@ class KVCacheSpec:
     num_pages: int
     page_size: int
     head_dim: int
-    dtype: str = "bfloat16"
+    dtype: str = "bfloat16"  # "int8": packed-scale quantized rows
 
     @staticmethod
-    def from_model(cfg: ModelConfig, num_pages: int,
-                   page_size: int) -> "KVCacheSpec":
-        """Pools in the model's dtype (int8 pools are not ported)."""
+    def from_model(cfg: ModelConfig, num_pages: int, page_size: int,
+                   kv_cache_dtype: str = "auto") -> "KVCacheSpec":
+        """Pools in the model's dtype ('auto' or '') or int8 packed rows
+        ('int8'); any other value raises."""
+        if kv_cache_dtype not in ("auto", "", "int8"):
+            raise ValueError(f"kv_cache_dtype must be 'auto' or 'int8', got "
+                             f"{kv_cache_dtype!r}")
         return KVCacheSpec(
             num_layers=cfg.num_layers,
             num_kv_heads=cfg.cache_kv_heads,
             num_pages=num_pages,
             page_size=page_size,
             head_dim=cfg.cache_head_dim,
-            dtype=cfg.dtype,
+            dtype="int8" if kv_cache_dtype == "int8" else cfg.dtype,
         )
 
     @property
+    def quantized(self) -> bool:
+        return self.dtype == "int8"
+
+    @property
     def lane_width(self) -> int:
-        return self.num_kv_heads * self.head_dim
+        return kv_lane_width(self.num_kv_heads, self.head_dim, self.quantized)
+
+    @property
+    def pool_bytes(self) -> int:
+        """Bytes of the K and V pools together."""
+        return 2 * math.prod(self.shape) * getattr(torch, self.dtype).itemsize
 
     @property
     def shape(self):

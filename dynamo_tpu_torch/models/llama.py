@@ -174,7 +174,8 @@ def prefill_chunk(model: Llama, tokens: torch.Tensor, start: int,
         def attend(q, k, v):
             att.write_kv_prefill(kp, vp, k, v, chunk_pages,
                                  page_size=page_size)
-            return attn.chunk(q, kp, vp, pages, start, page_size=page_size)
+            return attn.chunk(q, kp, vp, pages, start, page_size=page_size,
+                              num_kv_heads=cfg.cache_kv_heads)
 
         x = _layer(cfg, layer, x, rope, attend)
     return _logits(model, x[chunk_len - 1][None])[0]
@@ -226,7 +227,49 @@ def decode_step(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
             att.write_kv_token(kp, vp, k, v, block_tables, positions,
                                page_size=page_size)
             return attn.decode(q, kp, vp, block_tables, context_lens,
-                               page_size=page_size)
+                               page_size=page_size,
+                               num_kv_heads=cfg.cache_kv_heads)
 
         x = _layer(cfg, layer, x, rope, attend)
     return _logits(model, x)
+
+
+def mixed_step(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
+               block_tables: torch.Tensor, context_lens: torch.Tensor,
+               chunk_tokens: torch.Tensor, chunk_start: int, chunk_len: int,
+               chunk_pages: torch.Tensor, k_pages: torch.Tensor,
+               v_pages: torch.Tensor, *, page_size: int,
+               attn: att.AttentionFns = att.DISPATCH):
+    """ONE mixed step: every decode slot advances a token and one prefill
+    chunk makes progress, in one forward. tokens/positions [B],
+    block_tables [B, Pmax] and context_lens [B] (INCLUDING the current
+    token) are decode_step's; chunk_tokens [C] (page multiple, chunk_len
+    valid) at absolute position chunk_start is prefill_chunk's, over the
+    sequence's trash-padded page list chunk_pages [W]. The B + C rows run
+    as one batch through the projections, rope and MLP; per layer the
+    decode tokens' KV is written, then the chunk's pages, then one ragged
+    attention serves both. -> (decode logits [B, V], logits [V] at the
+    chunk's last valid token)."""
+    cfg = model.cfg
+    b, c = tokens.shape[0], chunk_tokens.shape[0]
+    dev = tokens.device
+    rope = _rope(cfg, torch.cat([positions.to(dev).long(),
+                                 chunk_start + torch.arange(c, device=dev)]))
+    first = chunk_start // page_size
+    write_pages = chunk_pages[first:first + c // page_size]
+    x = _embed_rows(model, torch.cat([tokens.long(), chunk_tokens.long()]))
+    for l, layer in enumerate(model.layers):
+        kp, vp = k_pages[l], v_pages[l]
+
+        def attend(q, k, v):
+            att.write_kv_token(kp, vp, k[:b], v[:b], block_tables, positions,
+                               page_size=page_size)
+            att.write_kv_prefill(kp, vp, k[b:], v[b:], write_pages,
+                                 page_size=page_size)
+            return attn.ragged(q, kp, vp, block_tables, context_lens,
+                               chunk_pages, chunk_start, page_size=page_size,
+                               num_kv_heads=cfg.cache_kv_heads, num_decode=b)
+
+        x = _layer(cfg, layer, x, rope, attend)
+    logits = _logits(model, torch.cat([x[:b], x[b + chunk_len - 1][None]]))
+    return logits[:b], logits[b]

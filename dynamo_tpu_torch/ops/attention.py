@@ -1,33 +1,117 @@
 """Paged attention ops: KV-cache writes, plain PyTorch attention, dispatch.
 
-Port of the bf16 paths of `dynamo_tpu/ops/attention.py`. The KV layout is
-the JAX package's, so pools compare byte for byte:
+Port of the single-device paths of `dynamo_tpu/ops/attention.py`. The KV
+layout is the JAX package's, so pools compare byte for byte:
 
-  k_pages, v_pages: [num_pages, page_size, num_kv_heads * head_dim]
+  k_pages, v_pages: [num_pages, page_size, lane_width]
   block_table:      [batch, max_pages_per_seq] int32 (page ids; 0 is trash)
   context_lens:     [batch] int32, tokens INCLUDING the current one
 
+A pool row is either the token's K (or V) in the model dtype, KV heads fused
+(lane_width = KV*D, head h at lanes [h*D, (h+1)*D)), or an int8 packed row
+(`kv_cache_dtype="int8"`):
+
+  [KV*D int8 values | KV bf16 scales as 2*KV int8 lanes | zero pad]
+
+padded to a multiple of 128 lanes (`kv_lane_width`). A head's scale is
+amax/127 of its D values, rounded to bf16 and stored little-endian; a value
+dequantizes as value * scale, exact in f32. This is the JAX package's
+single-block layout (its tensor-parallel lane blocking is not ported). An
+int8 pool does not encode its KV-head count, so every function that reads a
+pool takes `num_kv_heads`, required for int8 pools.
+
 The model passes each layer's pool as a view (`k_pages[l]` of the
-[L, P, ps, KV*D] pool), and the writes below update it IN PLACE where the
-JAX functions returned new arrays.
+[L, P, ps, W] pool), and the writes below update it IN PLACE where the JAX
+functions returned new arrays.
 
 The plain versions (`*_ref`) compute what the TPU kernels compute: scale
-1/sqrt(D) applied to q in f32, f32 softmax and products, the kernels' masks,
-and exact zeros for a row that sees no valid token (decode ctx 0, prefill
-seq_len 0). The dispatch functions send a CPU tensor to the plain version
-and a CUDA tensor to the hand-written kernel in
-`dynamo_tpu_torch.ops.cuda_attention`; there is no fallback between them.
+1/sqrt(D) applied to q in f32, K/V read (or dequantized) into f32, f32
+softmax and products, the kernels' masks, and exact zeros for a row that
+sees no valid token (decode ctx 0, prefill seq_len 0). The dispatch
+functions send a CPU tensor to the plain version and a CUDA tensor to the
+hand-written kernel in `dynamo_tpu_torch.ops.cuda_attention`; there is no
+fallback between them.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
 from dynamo_tpu_torch.ops import cuda_attention
 
 SeqLens = Union[int, torch.Tensor]
+
+
+# ----------------------------------------------------------- int8 rows --
+
+
+def kv_lane_width(n_kv: int, head_dim: int, quantized: bool) -> int:
+    """Lane (last-dim) width of one KV page row."""
+    if not quantized:
+        return n_kv * head_dim
+    return -(-(n_kv * head_dim + 2 * n_kv) // 128) * 128
+
+
+def pack_kv_rows(x: torch.Tensor, lane_width: int) -> torch.Tensor:
+    """[T, KV, D] values -> [T, lane_width] int8 packed rows."""
+    t, kv, d = x.shape
+    x32 = x.float()
+    amax = x32.abs().amax(dim=2)  # [T, KV]
+    scale = torch.where(amax > 0, amax / 127.0,
+                        torch.ones((), device=x.device)).to(torch.bfloat16)
+    q = torch.clamp(torch.round(x32 / scale.float()[:, :, None]), -127,
+                    127).to(torch.int8)
+    sc8 = scale.contiguous().view(torch.int8)  # [T, 2*KV], little-endian
+    rows = torch.zeros((t, lane_width), dtype=torch.int8, device=x.device)
+    rows[:, :kv * d] = q.reshape(t, kv * d)
+    rows[:, kv * d:kv * d + 2 * kv] = sc8
+    return rows
+
+
+def unpack_kv_rows(rows: torch.Tensor, n_kv: int, head_dim: int
+                   ) -> torch.Tensor:
+    """[..., lane_width] int8 rows -> [..., KV, D] float32 values."""
+    lead = rows.shape[:-1]
+    kvd = n_kv * head_dim
+    q = rows[..., :kvd].reshape(*lead, n_kv, head_dim)
+    scale = rows[..., kvd:kvd + 2 * n_kv].contiguous().view(torch.bfloat16)
+    return q.float() * scale.float()[..., None]
+
+
+def pool_kv_heads(k_pages: torch.Tensor, head_dim: int,
+                  num_kv_heads: Optional[int]) -> int:
+    """KV-head count of a pool: a model-dtype pool's lane width encodes it;
+    an int8 pool (packed scale lanes) needs the caller to say."""
+    if k_pages.dtype == torch.int8:
+        if num_kv_heads is None:
+            raise ValueError("int8 KV pools need explicit num_kv_heads")
+        return num_kv_heads
+    return k_pages.shape[-1] // head_dim
+
+
+def _paged_kv(pool: torch.Tensor, idx: torch.Tensor, n_kv: int,
+              head_dim: int) -> torch.Tensor:
+    """Pages `idx` [..., W] of `pool` as f32 [..., KV, W*ps, D] (int8 rows
+    dequantized)."""
+    rows = pool[idx.long()]  # [..., W, ps, lanes]
+    rows = rows.reshape(*idx.shape[:-1], -1, rows.shape[-1])
+    if pool.dtype == torch.int8:
+        kv = unpack_kv_rows(rows, n_kv, head_dim)
+    else:
+        kv = rows.reshape(*rows.shape[:-1], n_kv, head_dim).float()
+    return kv.transpose(-3, -2)
+
+
+def _pool_rows(pool: torch.Tensor, k_new: torch.Tensor) -> torch.Tensor:
+    """New K or V [T, KV, D] as pool rows [T, lane_width]."""
+    if pool.dtype == torch.int8:
+        return pack_kv_rows(k_new, pool.shape[-1])
+    return k_new.reshape(k_new.shape[0], -1).to(pool.dtype)
+
+
+# ------------------------------------------------------------- writes --
 
 
 def write_kv_token(k_pages, v_pages, k_new, v_new, block_table, positions, *,
@@ -39,12 +123,11 @@ def write_kv_token(k_pages, v_pages, k_new, v_new, block_table, positions, *,
     in the trash page 0. Unlike JAX's dropping scatter, torch indexing
     raises on an out-of-range index: positions // page_size must stay below
     Pmax, which the engine guarantees."""
-    b = k_new.shape[0]
     pos = positions.long()
     page_idx = block_table.long().gather(1, (pos // page_size)[:, None])[:, 0]
     slot_idx = pos % page_size
-    k_pages[page_idx, slot_idx] = k_new.reshape(b, -1).to(k_pages.dtype)
-    v_pages[page_idx, slot_idx] = v_new.reshape(b, -1).to(v_pages.dtype)
+    k_pages[page_idx, slot_idx] = _pool_rows(k_pages, k_new)
+    v_pages[page_idx, slot_idx] = _pool_rows(v_pages, v_new)
 
 
 def write_kv_prefill(k_pages, v_pages, k_new, v_new, pages, *,
@@ -53,8 +136,11 @@ def write_kv_prefill(k_pages, v_pages, k_new, v_new, pages, *,
     (trash page 0 pads the list), in place."""
     n_pages = k_new.shape[0] // page_size
     idx = pages.long()
-    k_pages[idx] = k_new.reshape(n_pages, page_size, -1).to(k_pages.dtype)
-    v_pages[idx] = v_new.reshape(n_pages, page_size, -1).to(v_pages.dtype)
+    k_pages[idx] = _pool_rows(k_pages, k_new).reshape(n_pages, page_size, -1)
+    v_pages[idx] = _pool_rows(v_pages, v_new).reshape(n_pages, page_size, -1)
+
+
+# ------------------------------------------------------ plain versions --
 
 
 def _attend(q32: torch.Tensor, k32: torch.Tensor, v32: torch.Tensor,
@@ -71,20 +157,19 @@ def _attend(q32: torch.Tensor, k32: torch.Tensor, v32: torch.Tensor,
 
 
 def paged_attention_decode_ref(q, k_pages, v_pages, block_table, context_lens,
-                               *, page_size: int) -> torch.Tensor:
+                               *, page_size: int,
+                               num_kv_heads: Optional[int] = None
+                               ) -> torch.Tensor:
     """Plain paged decode: q [B, H, D] over the pages of each row's block
     table, mask tok < ctx -> [B, H, D]."""
     b, h, d = q.shape
-    n_kv = k_pages.shape[-1] // d
-    pmax = block_table.shape[1]
-    rows = k_pages[block_table.long()]  # [B, Pmax, ps, KV*D]
-    k = rows.reshape(b, pmax * page_size, n_kv, d).permute(0, 2, 1, 3)
-    v = v_pages[block_table.long()].reshape(b, pmax * page_size, n_kv,
-                                            d).permute(0, 2, 1, 3)
+    n_kv = pool_kv_heads(k_pages, d, num_kv_heads)
+    k = _paged_kv(k_pages, block_table, n_kv, d)  # [B, KV, S, D]
+    v = _paged_kv(v_pages, block_table, n_kv, d)
     q32 = (q.float() * d ** -0.5).reshape(b, n_kv, h // n_kv, 1, d)
-    span = torch.arange(pmax * page_size, device=q.device)
+    span = torch.arange(k.shape[2], device=q.device)
     mask = span[None, :] < context_lens.long()[:, None]  # [B, S]
-    out = _attend(q32, k.float(), v.float(), mask[:, None, None, None, :])
+    out = _attend(q32, k, v, mask[:, None, None, None, :])
     return out.reshape(b, h, d).to(q.dtype)
 
 
@@ -110,34 +195,111 @@ def prefill_attention_ref(q, k, v, seq_lens: SeqLens) -> torch.Tensor:
 
 
 def chunk_attention_ref(q, k_pages, v_pages, pages, start: int, *,
-                        page_size: int) -> torch.Tensor:
+                        page_size: int, num_kv_heads: Optional[int] = None
+                        ) -> torch.Tensor:
     """Plain chunked-prefill attention: C queries at absolute positions
     start..start+C-1 over the sequence's pages [W] (prefix plus the chunk,
     already written), mask tok <= start + i -> [C, H, D]."""
     c, h, d = q.shape
-    n_kv = k_pages.shape[-1] // d
-    s_ctx = pages.shape[0] * page_size
-    k = k_pages[pages.long()].reshape(s_ctx, n_kv, d).permute(1, 0, 2)
-    v = v_pages[pages.long()].reshape(s_ctx, n_kv, d).permute(1, 0, 2)
+    n_kv = pool_kv_heads(k_pages, d, num_kv_heads)
+    k = _paged_kv(k_pages, pages, n_kv, d)  # [KV, S, D]
+    v = _paged_kv(v_pages, pages, n_kv, d)
     q32 = (q.float() * d ** -0.5).reshape(c, n_kv, h // n_kv, d)
     q32 = q32.permute(1, 2, 0, 3)  # [KV, G, C, D]
     qpos = int(start) + torch.arange(c, device=q.device)[:, None]
-    kpos = torch.arange(s_ctx, device=q.device)[None, :]
-    out = _attend(q32, k.float(), v.float(), (kpos <= qpos)[None, None])
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    out = _attend(q32, k, v, (kpos <= qpos)[None, None])
     return out.permute(2, 0, 1, 3).reshape(c, h, d).to(q.dtype)
+
+
+def ragged_paged_attention_ref(q, k_pages, v_pages, tables, kv_lens,
+                               q_starts, *, page_size: int,
+                               num_kv_heads: Optional[int], num_decode: int,
+                               decode_q: int = 1) -> torch.Tensor:
+    """Plain ragged attention, the TPU ragged kernel's contract read from
+    the descriptors: q [num_decode*decode_q + C, H, D] holds num_decode
+    rows of decode_q queries, then one chunk of C; row r (r = num_decode
+    for the chunk) reads pages tables[r] [W], and its query j sits at
+    q_starts[r] + j and sees key tok iff tok <= q_starts[r] + j and
+    tok < kv_lens[r] -> [num_decode*decode_q + C, H, D]."""
+    total, h, d = q.shape
+    nd = num_decode * decode_q
+    c = total - nd
+    n_kv = pool_kv_heads(k_pages, d, num_kv_heads)
+    g = h // n_kv
+    k = _paged_kv(k_pages, tables, n_kv, d)  # [R, KV, S, D]
+    v = _paged_kv(v_pages, tables, n_kv, d)
+    tok = torch.arange(k.shape[2], device=q.device)
+    kv_lens, q_starts = kv_lens.long(), q_starts.long()
+
+    def rows(qr, kr, vr, qpos, kv_len):
+        # qr [N, Q, H, D] -> [N, Q, H, D]; qpos [N, Q]; kv_len [N]
+        n, nq = qr.shape[:2]
+        q32 = (qr.float() * d ** -0.5).reshape(n, nq, n_kv, g, d)
+        mask = ((tok[None, None] <= qpos[:, :, None])
+                & (tok[None, None] < kv_len[:, None, None]))  # [N, Q, S]
+        out = _attend(q32.permute(0, 2, 3, 1, 4), kr, vr,
+                      mask[:, None, None])  # [N, KV, G, Q, D]
+        return out.permute(0, 3, 1, 2, 4).reshape(n, nq, h, d)
+
+    j = torch.arange(decode_q, device=q.device)
+    dec = rows(q[:nd].reshape(num_decode, decode_q, h, d), k[:num_decode],
+               v[:num_decode], q_starts[:num_decode, None] + j[None],
+               kv_lens[:num_decode]).reshape(nd, h, d)
+    i = torch.arange(c, device=q.device)
+    chk = rows(q[nd:][None], k[num_decode:], v[num_decode:],
+               (q_starts[num_decode] + i)[None], kv_lens[num_decode:])[0]
+    return torch.cat([dec, chk]).to(q.dtype)
+
+
+def ragged_descriptors(block_tables, context_lens, p_pages, p_start: int,
+                       c: int):
+    """The ragged kernel's descriptors for B decode rows plus one C-token
+    chunk, built as `dynamo_tpu.ops.attention.ragged_mixed_attention`
+    builds them: tables [B+1, max(Pmax, Wp)] (zero, i.e. trash, padded;
+    the last row is the chunk's pages), kv_lens [B+1] (each decode row's
+    context, then p_start + C) and q_starts [B+1] (max(ctx - 1, 0), then
+    p_start)."""
+    b, pmax = block_tables.shape
+    wp = p_pages.shape[0]
+    tabs = torch.zeros((b + 1, max(pmax, wp)), dtype=torch.int32,
+                       device=block_tables.device)
+    tabs[:b, :pmax] = block_tables
+    tabs[b, :wp] = p_pages
+    cl = context_lens.to(torch.int32)
+    kv_lens = torch.cat([cl, cl.new_full((1,), int(p_start) + c)])
+    q_starts = torch.cat([torch.clamp(cl - 1, min=0),
+                          cl.new_full((1,), int(p_start))])
+    return tabs, kv_lens, q_starts
+
+
+def ragged_mixed_attention_ref(q, k_pages, v_pages, block_tables,
+                               context_lens, p_pages, p_start: int, *,
+                               page_size: int,
+                               num_kv_heads: Optional[int] = None,
+                               num_decode: int) -> torch.Tensor:
+    """Plain mixed-batch attention: q [B + C, H, D], B decode rows over
+    their block tables then one chunk over its page list."""
+    desc = ragged_descriptors(block_tables, context_lens, p_pages, p_start,
+                              q.shape[0] - num_decode)
+    return ragged_paged_attention_ref(
+        q, k_pages, v_pages, *desc, page_size=page_size,
+        num_kv_heads=num_kv_heads, num_decode=num_decode)
 
 
 # ----------------------------------------------------------- dispatch --
 
 
 def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
-                           page_size: int) -> torch.Tensor:
+                           page_size: int, num_kv_heads: Optional[int] = None
+                           ) -> torch.Tensor:
     if q.is_cuda:
         return cuda_attention.paged_attention_decode(
             q, k_pages, v_pages, block_table, context_lens,
-            page_size=page_size)
+            page_size=page_size, num_kv_heads=num_kv_heads)
     return paged_attention_decode_ref(q, k_pages, v_pages, block_table,
-                                      context_lens, page_size=page_size)
+                                      context_lens, page_size=page_size,
+                                      num_kv_heads=num_kv_heads)
 
 
 def prefill_attention(q, k, v, seq_lens: SeqLens) -> torch.Tensor:
@@ -155,25 +317,43 @@ def prefill_attention(q, k, v, seq_lens: SeqLens) -> torch.Tensor:
 
 
 def chunk_attention(q, k_pages, v_pages, pages, start: int, *,
-                    page_size: int) -> torch.Tensor:
+                    page_size: int, num_kv_heads: Optional[int] = None
+                    ) -> torch.Tensor:
     if q.is_cuda:
         return cuda_attention.chunk_prefill_attention(
-            q, k_pages, v_pages, pages, start, page_size=page_size)
+            q, k_pages, v_pages, pages, start, page_size=page_size,
+            num_kv_heads=num_kv_heads)
     return chunk_attention_ref(q, k_pages, v_pages, pages, start,
-                               page_size=page_size)
+                               page_size=page_size, num_kv_heads=num_kv_heads)
+
+
+def ragged_mixed_attention(q, k_pages, v_pages, block_tables, context_lens,
+                           p_pages, p_start: int, *, page_size: int,
+                           num_kv_heads: Optional[int] = None,
+                           num_decode: int) -> torch.Tensor:
+    """Mixed-batch attention (the engine's mixed step): q [B + C, H, D],
+    B decode rows then one C-token chunk at p_start, in one ragged
+    kernel launch on the card."""
+    desc = ragged_descriptors(block_tables, context_lens, p_pages, p_start,
+                              q.shape[0] - num_decode)
+    ragged = (cuda_attention.ragged_paged_attention if q.is_cuda
+              else ragged_paged_attention_ref)
+    return ragged(q, k_pages, v_pages, *desc, page_size=page_size,
+                  num_kv_heads=num_kv_heads, num_decode=num_decode)
 
 
 class AttentionFns(NamedTuple):
-    """The three attention functions a forward pass calls."""
+    """The attention functions a forward pass calls."""
 
     decode: Callable
     prefill: Callable
     chunk: Callable
+    ragged: Callable
 
 
 # the serving path: kernels on the card, plain versions on the CPU
 DISPATCH = AttentionFns(paged_attention_decode, prefill_attention,
-                        chunk_attention)
+                        chunk_attention, ragged_mixed_attention)
 # the plain versions on any device (the card-side reference)
 PLAIN = AttentionFns(paged_attention_decode_ref, prefill_attention_ref,
-                     chunk_attention_ref)
+                     chunk_attention_ref, ragged_mixed_attention_ref)

@@ -1,11 +1,17 @@
 """Hand-written CUDA attention kernels for Hopper and their wrappers.
 
-The three kernels of the serving path live in `dynamo_tpu_torch/csrc/`:
+The four kernels of the serving path live in `dynamo_tpu_torch/csrc/`:
 `decode.cu` (paged decode), `prefill.cu` (causal prefill over padded
-prompts) and `chunk.cu` (chunked prefill over the paged cache). They replace
+prompts), `chunk.cu` (chunked prefill over the paged cache) and `ragged.cu`
+(the mixed step: decode rows and one chunk in one launch). They replace
 `_decode_kernel`, `_prefill_kernel` and `_chunk_kernel` of
-`dynamo_tpu/ops/pallas_attention.py`; each source's header says what bounds
-it on the H100 and how its design answers that.
+`dynamo_tpu/ops/pallas_attention.py` and `_ragged_kernel` of
+`dynamo_tpu/ops/ragged_attention.py`; each source's header says what bounds
+it on the H100 and how its design answers that. The three pool-reading
+kernels (decode, chunk, ragged) each have a bf16 and an int8 entry point,
+the latter for the packed rows of `kv_cache_dtype="int8"` pools; their
+wrappers take either pool and count the int8 launches under their own
+`*_int8` names.
 
 Build: the first call compiles every `csrc/*.cu` with
 `nvcc -gencode arch=compute_90a,code=sm_90a` (one nvcc per source, started
@@ -39,7 +45,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dynamo_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # launches of each kernel since the last reset (see reset_launch_counts)
-LAUNCHES: Dict[str, int] = {"decode": 0, "prefill": 0, "chunk": 0}
+LAUNCHES: Dict[str, int] = {
+    "decode": 0, "prefill": 0, "chunk": 0, "ragged": 0,
+    "decode_int8": 0, "chunk_int8": 0, "ragged_int8": 0}
 
 MAX_QUERY_TILE = 16
 
@@ -124,7 +132,17 @@ def build() -> ctypes.CDLL:
                                          f, p]
         lib.dtt_prefill.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p]
         lib.dtt_chunk.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, p]
-        for fn in (lib.dtt_paged_decode, lib.dtt_prefill, lib.dtt_chunk):
+        lib.dtt_ragged.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                   i, i, f, p]
+        lib.dtt_paged_decode_int8.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                              i, i, i, f, p]
+        lib.dtt_chunk_int8.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
+                                       i, f, p]
+        lib.dtt_ragged_int8.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                        i, i, i, i, i, f, p]
+        for fn in (lib.dtt_paged_decode, lib.dtt_prefill, lib.dtt_chunk,
+                   lib.dtt_ragged, lib.dtt_paged_decode_int8,
+                   lib.dtt_chunk_int8, lib.dtt_ragged_int8):
             fn.restype = ctypes.c_int
         lib.dtt_error_string.argtypes = [ctypes.c_int]
         lib.dtt_error_string.restype = ctypes.c_char_p
@@ -160,7 +178,7 @@ def _expect(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+    if t.dtype in (torch.bfloat16, torch.int8) and t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
@@ -179,6 +197,42 @@ def _check_heads(lib: ctypes.CDLL, n_heads: int, n_kv: int,
     return group
 
 
+def _check_pools(k_pages, v_pages, page_size: int, head_dim: int,
+                 num_kv_heads: Optional[int], device: torch.device):
+    """(KV heads, lane width, int8?) of a K/V pool pair [P, ps, W]: bf16
+    rows of KV*D lanes, or int8 packed rows of at least KV*D + 2*KV lanes
+    (num_kv_heads required) with D a multiple of 16."""
+    # ops.attention imports this module: its pool rule is looked up here
+    from dynamo_tpu_torch.ops.attention import pool_kv_heads
+
+    int8 = k_pages.dtype == torch.int8
+    dtype = torch.int8 if int8 else torch.bfloat16
+    _expect(k_pages, "k_pages", dtype, 3, device)
+    _expect(v_pages, "v_pages", dtype, 3, device)
+    if k_pages.shape != v_pages.shape or k_pages.shape[1] != page_size:
+        raise ValueError(f"pools {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} do not match page_size "
+                         f"{page_size}")
+    width = k_pages.shape[2]
+    n_kv = pool_kv_heads(k_pages, head_dim, num_kv_heads)
+    if not int8:
+        if width % head_dim:
+            raise ValueError(f"pool lane width {width} is not a multiple of "
+                             f"head_dim {head_dim}")
+        if num_kv_heads is not None and num_kv_heads != n_kv:
+            raise ValueError(f"num_kv_heads {num_kv_heads} does not match "
+                             f"the pool's {n_kv}")
+        return n_kv, width, False
+    if head_dim % 16:
+        raise ValueError(f"int8 KV pools need head_dim a multiple of 16, got "
+                         f"{head_dim}")
+    if width < n_kv * (head_dim + 2) or width % 16:
+        raise ValueError(f"int8 pool lane width {width} cannot hold "
+                         f"{n_kv} heads of {head_dim} values and "
+                         f"their scales in 16-byte aligned rows")
+    return n_kv, width, True
+
+
 def query_tile(lib: ctypes.CDLL, group: int, head_dim: int) -> int:
     """Query positions per block for prefill and chunk: the largest power
     of two <= MAX_QUERY_TILE whose rows fit the block's accumulators (the
@@ -191,24 +245,18 @@ def query_tile(lib: ctypes.CDLL, group: int, head_dim: int) -> int:
 
 
 def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
-                           page_size: int) -> torch.Tensor:
-    """q [B, H, D] bf16; pools [P, ps, KV*D] bf16; block_table [B, Pmax]
-    int32; context_lens [B] int32 (incl. the current token) -> [B, H, D]."""
+                           page_size: int, num_kv_heads: Optional[int] = None
+                           ) -> torch.Tensor:
+    """q [B, H, D] bf16; pools [P, ps, W] bf16 (W = KV*D) or int8 packed
+    (with num_kv_heads); block_table [B, Pmax] int32; context_lens [B]
+    int32 (incl. the current token) -> [B, H, D]."""
     dev = q.device
     _expect(q, "q", torch.bfloat16, 3, dev)
-    _expect(k_pages, "k_pages", torch.bfloat16, 3, dev)
-    _expect(v_pages, "v_pages", torch.bfloat16, 3, dev)
     _expect(block_table, "block_table", torch.int32, 2, dev)
     _expect(context_lens, "context_lens", torch.int32, 1, dev)
     b, h, d = q.shape
-    if k_pages.shape != v_pages.shape or k_pages.shape[1] != page_size:
-        raise ValueError(f"pools {tuple(k_pages.shape)} / "
-                         f"{tuple(v_pages.shape)} do not match page_size "
-                         f"{page_size}")
-    if k_pages.shape[2] % d:
-        raise ValueError(f"pool lane width {k_pages.shape[2]} is not a "
-                         f"multiple of head_dim {d}")
-    n_kv = k_pages.shape[2] // d
+    n_kv, width, int8 = _check_pools(k_pages, v_pages, page_size, d,
+                                     num_kv_heads, dev)
     lib = build()
     _check_heads(lib, h, n_kv, d)
     if block_table.shape[0] != b or context_lens.shape[0] != b:
@@ -216,12 +264,16 @@ def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    rc = lib.dtt_paged_decode(
-        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_table),
-        _ptr(context_lens), _ptr(out), b, h, n_kv, d, page_size,
-        block_table.shape[1], d ** -0.5, _stream(q))
-    _raise_on(lib, rc, "decode")
-    LAUNCHES["decode"] += 1
+    args = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_table),
+            _ptr(context_lens), _ptr(out), b, h, n_kv, d, page_size,
+            block_table.shape[1]]
+    name = "decode_int8" if int8 else "decode"
+    if int8:
+        rc = lib.dtt_paged_decode_int8(*args, width, d ** -0.5, _stream(q))
+    else:
+        rc = lib.dtt_paged_decode(*args, d ** -0.5, _stream(q))
+    _raise_on(lib, rc, name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -255,23 +307,18 @@ def prefill_attention(q, k, v, seq_lens) -> torch.Tensor:
 
 
 def chunk_prefill_attention(q, k_pages, v_pages, pages, start: int, *,
-                            page_size: int) -> torch.Tensor:
+                            page_size: int,
+                            num_kv_heads: Optional[int] = None
+                            ) -> torch.Tensor:
     """q [C, H, D] bf16 at absolute positions start..start+C-1; pools
-    [P, ps, KV*D] bf16; pages [W] int32 (trash-padded tail) -> [C, H, D]."""
+    [P, ps, W] bf16 or int8 packed (with num_kv_heads); pages [W] int32
+    (trash-padded tail) -> [C, H, D]."""
     dev = q.device
     _expect(q, "q", torch.bfloat16, 3, dev)
-    _expect(k_pages, "k_pages", torch.bfloat16, 3, dev)
-    _expect(v_pages, "v_pages", torch.bfloat16, 3, dev)
     _expect(pages, "pages", torch.int32, 1, dev)
     c, h, d = q.shape
-    if k_pages.shape != v_pages.shape or k_pages.shape[1] != page_size:
-        raise ValueError(f"pools {tuple(k_pages.shape)} / "
-                         f"{tuple(v_pages.shape)} do not match page_size "
-                         f"{page_size}")
-    if k_pages.shape[2] % d:
-        raise ValueError(f"pool lane width {k_pages.shape[2]} is not a "
-                         f"multiple of head_dim {d}")
-    n_kv = k_pages.shape[2] // d
+    n_kv, width, int8 = _check_pools(k_pages, v_pages, page_size, d,
+                                     num_kv_heads, dev)
     lib = build()
     group = _check_heads(lib, h, n_kv, d)
     start = int(start)
@@ -282,9 +329,66 @@ def chunk_prefill_attention(q, k_pages, v_pages, pages, start: int, *,
     if c == 0:
         return out
     qt = query_tile(lib, group, d)
-    rc = lib.dtt_chunk(
-        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(pages), _ptr(out), c, h,
-        n_kv, d, page_size, start, qt, d ** -0.5, _stream(q))
-    _raise_on(lib, rc, "chunk")
-    LAUNCHES["chunk"] += 1
+    args = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(pages), _ptr(out), c,
+            h, n_kv, d, page_size]
+    name = "chunk_int8" if int8 else "chunk"
+    if int8:
+        rc = lib.dtt_chunk_int8(*args, width, start, qt, d ** -0.5,
+                                _stream(q))
+    else:
+        rc = lib.dtt_chunk(*args, start, qt, d ** -0.5, _stream(q))
+    _raise_on(lib, rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def ragged_paged_attention(q, k_pages, v_pages, tables, kv_lens, q_starts, *,
+                           page_size: int, num_kv_heads: Optional[int] = None,
+                           num_decode: int, decode_q: int = 1
+                           ) -> torch.Tensor:
+    """q [num_decode*decode_q + C, H, D] bf16 (C >= 1): num_decode rows of
+    decode_q queries, then one chunk; pools [P, ps, W] bf16 or int8 packed
+    (with num_kv_heads); tables [num_decode + 1, W] int32 (the last row is
+    the chunk's pages); kv_lens, q_starts [num_decode + 1] int32 -> like q.
+    Query j of row r sees key tok iff tok <= q_starts[r] + j and
+    tok < kv_lens[r]."""
+    dev = q.device
+    _expect(q, "q", torch.bfloat16, 3, dev)
+    _expect(tables, "tables", torch.int32, 2, dev)
+    _expect(kv_lens, "kv_lens", torch.int32, 1, dev)
+    _expect(q_starts, "q_starts", torch.int32, 1, dev)
+    total, h, d = q.shape
+    n_kv, width, int8 = _check_pools(k_pages, v_pages, page_size, d,
+                                     num_kv_heads, dev)
+    lib = build()
+    group = _check_heads(lib, h, n_kv, d)
+    if num_decode < 0 or decode_q < 1:
+        raise ValueError(f"num_decode {num_decode} / decode_q {decode_q}")
+    c = total - num_decode * decode_q
+    if c < 1:
+        raise ValueError(f"the ragged batch needs a chunk: {total} queries "
+                         f"for {num_decode} rows of {decode_q}")
+    rows = num_decode + 1
+    if (tables.shape[0] != rows or kv_lens.shape[0] != rows
+            or q_starts.shape[0] != rows):
+        raise ValueError(f"descriptors {tuple(tables.shape)}, "
+                         f"{tuple(kv_lens.shape)}, {tuple(q_starts.shape)} "
+                         f"do not have num_decode + 1 = {rows} rows")
+    limit = lib.dtt_max_rows_times_dim()
+    if decode_q * group * d > limit:
+        raise ValueError(f"decode_q x GQA group x head_dim ({decode_q} x "
+                         f"{group} x {d}) exceeds the kernels' {limit} "
+                         f"accumulators")
+    out = torch.empty_like(q)
+    qt = query_tile(lib, group, d)
+    args = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(tables),
+            _ptr(kv_lens), _ptr(q_starts), _ptr(out), num_decode, decode_q,
+            c, h, n_kv, d, page_size, tables.shape[1]]
+    name = "ragged_int8" if int8 else "ragged"
+    if int8:
+        rc = lib.dtt_ragged_int8(*args, width, qt, d ** -0.5, _stream(q))
+    else:
+        rc = lib.dtt_ragged(*args, qt, d ** -0.5, _stream(q))
+    _raise_on(lib, rc, name)
+    LAUNCHES[name] += 1
     return out

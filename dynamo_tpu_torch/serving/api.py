@@ -261,6 +261,9 @@ class _Handler(JsonHTTPHandler):
                 "free_pages": eng.allocator.free_pages,
                 "total_pages": eng.cfg.num_pages,
                 "max_num_seqs": eng.cfg.max_num_seqs,
+                "kv_cache": {"dtype": eng.kv_spec.dtype,
+                             "lane_width": eng.kv_spec.lane_width,
+                             "bytes": eng.kv_spec.pool_bytes},
                 "metrics": eng.metrics.snapshot(),
             })
         else:

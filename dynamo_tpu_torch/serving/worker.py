@@ -7,10 +7,14 @@ NotImplementedError naming them. The `jetstream` profile's defaults are the
 slice's main path: one decode step per dispatch, chunked prefill at 256
 tokens, no prefix caching, synchronous scheduling. (The JAX jetstream
 profile fuses 8-step windows without chunking; multi-step windows are not
-ported yet.)
+ported yet.) The profile leaves `--mixed-batch-tokens` (the mixed ragged
+step: decode rows and a prefill chunk in one forward) and
+`--kv-cache-dtype` (`int8`: packed-scale KV pools) at their defaults, off,
+as the JAX profile does; both are served when set.
 
     python -m dynamo_tpu_torch.jetstream --model llama-3.1-8b-instruct \
-        --no-enable-prefix-caching --port 8000
+        --no-enable-prefix-caching --port 8000 \
+        [--mixed-batch-tokens 256] [--kv-cache-dtype int8]
 """
 
 from __future__ import annotations

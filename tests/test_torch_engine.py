@@ -227,12 +227,10 @@ def test_port_server_refuses_with_400(port_server, body):
     ("lora_slots", 2),
     ("kvbm_host_blocks", 8),
     ("quantization", "int8"),
-    ("kv_cache_dtype", "int8"),
     ("tensor_parallel", 2),
     ("data_parallel", 2),
     ("expert_parallel", 2),
     ("sequence_parallel", 2),
-    ("mixed_batch_tokens", 64),
     ("num_scheduler_steps", 4),
     ("tenants", '[{"name": "a"}]'),
     ("disaggregation_mode", "prefill"),
@@ -289,14 +287,14 @@ def test_abort_and_stop_tokens():
     assert eng.allocator.free_pages == BASE["num_pages"] - 1
 
 
-def test_jetstream_worker_serves_and_stops():
-    """`python -m dynamo_tpu_torch.jetstream` on the CPU: the profile's
-    defaults start (prefix caching off), one chat completion is served,
-    SIGTERM stops the process."""
+def _serve_worker(*extra):
+    """Start `python -m dynamo_tpu_torch.jetstream` on the CPU with the
+    profile's defaults plus `extra`, serve one chat completion, read
+    /worker/stats, stop it with SIGTERM; returns the stats."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "dynamo_tpu_torch.jetstream", "--model",
          "tiny-debug", "--device", "cpu", "--host", "127.0.0.1", "--port",
-         "0", "--max-seq-len", "256", "--num-pages", "32"],
+         "0", "--max-seq-len", "256", "--num-pages", "32", *extra],
         stderr=subprocess.PIPE, text=True)
     try:
         port = None
@@ -310,9 +308,32 @@ def test_jetstream_worker_serves_and_stops():
                              dict(CHAT, max_tokens=4))
         assert status == 200
         assert json.loads(body)["usage"]["completion_tokens"] == 4
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/worker/stats",
+                                    timeout=30) as r:
+            stats = json.loads(r.read())
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=60) == 0
+        return stats
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=30)
+
+
+def test_jetstream_worker_serves_and_stops():
+    """`python -m dynamo_tpu_torch.jetstream` on the CPU: the profile's
+    defaults start (prefix caching off), one chat completion is served,
+    SIGTERM stops the process."""
+    stats = _serve_worker()
+    assert stats["kv_cache"]["dtype"] == "float32"
+    assert stats["metrics"]["mixed_count"] == 0
+
+
+def test_jetstream_worker_serves_mixed_step_on_int8_pools():
+    """The worker's --mixed-batch-tokens and --kv-cache-dtype int8 flags
+    reach the engine, and /worker/stats reports the int8 pool."""
+    stats = _serve_worker("--mixed-batch-tokens", "16", "--kv-cache-dtype",
+                          "int8")
+    assert stats["kv_cache"]["dtype"] == "int8"
+    assert stats["kv_cache"]["lane_width"] == 128
+    assert "mixed_count" in stats["metrics"]
