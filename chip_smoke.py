@@ -21,10 +21,20 @@ on failure:
    gather and dequantization not timed; one call, or for the ragged kernel
    one per row kind, summed: a yardstick the port never calls), and the
    bound max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s) worked out from the
-   bytes and FLOPs this run's inputs need. The kernels: decode, prefill,
-   chunk, ragged (8 decode rows and a 256-token chunk; again with rows of
-   4 queries), and the int8 variants of decode, chunk and ragged. This is
-   the numerical check of the kernels on random inputs.
+   bytes and FLOPs this run's inputs need. Each function's time is its
+   device time per call (calls queued behind a sleep kernel run back to
+   back, CUDA events; median of three batches), since a call's host time
+   can exceed a short kernel's; its call time (CUDA events around calls
+   made back to back from the host, median of five batches) is reported
+   beside it. The kernels:
+   decode, prefill, chunk (the 256-token chunk at 512, and again at 1792,
+   the last chunk of a 2048-token prompt), ragged (8 decode rows and a
+   256-token chunk; again with rows of 4 queries), and the int8 variants
+   of decode, chunk and ragged. Ragged's chunk rows must equal chunk.cu's
+   output exactly and its decode rows (split along their keys) agree with
+   decode.cu's within the tolerance above. Each row carries its kernels'
+   registers and spills from the build's ptxas output. This is the
+   numerical check of the kernels on random inputs.
 4. The engine for llama-3.1-8b-instruct at full width and depth, random
    bf16 weights from seed 0: a full prefill, a decode step, a chunked
    prefill and a mixed step (the decode row beside a 256-token chunk)
@@ -51,14 +61,17 @@ on failure:
    step of 8 slots on bf16 and on int8 pools, and a mixed step (7 decode
    slots beside the chunks at 256, 512 and 768 of a 1024-token prompt) on
    bf16 and on int8 pools.
-7. A `kernels` JSON line (launches from phase 5), the card line, and last
-   the {"ok": true, ...} line.
+7. A `kernels` JSON line (launches from phase 5; `ms` and `library_ms`
+   device times, `call_ms` and `library_call_ms` call times, as phase 3
+   measures them), the card line, and last the {"ok": true, ...} line.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import re
+import statistics
 import subprocess
 import sys
 import threading
@@ -123,17 +136,107 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int) -> float:
+def time_ms(fn, iters: int, batches: int = 5) -> float:
+    """Median over `batches` timed batches of `iters` calls each (CUDA
+    events) of the time per call."""
     fn()  # warm up
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    times = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+SLEEP_CYCLES = 100_000_000  # ~50 ms of the card's clock
+
+
+def device_ms(fn, iters: int, batches: int = 3) -> float:
+    """Median over `batches` batches of `iters` calls each of the device
+    time per call: the calls are queued behind a sleep kernel, so that the
+    card runs them back to back once it wakes, and CUDA events time them
+    from there, without the host's launch overhead between them. Raises if
+    queueing a batch outlasted the sleep. (torch.profiler would give the
+    same, but leaves the host slower at launching kernels afterwards,
+    which phase 5 would feel.)"""
+    fn()  # warm up
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(batches):
+        wake = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        wake.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        t0 = time.monotonic()
+        for _ in range(iters):
+            fn()
+        queued_ms = (time.monotonic() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if queued_ms >= wake.elapsed_time(start):
+            raise AssertionError(f"queueing {iters} calls took {queued_ms} "
+                                 f"ms, longer than the sleep before them")
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def ptxas_usage(log: str) -> dict:
+    """{source file: {kernel: {"registers", "spill_stores", "spill_loads"}}}
+    from the `nvcc -Xptxas -v` output of the build; a kernel is named
+    `name<head_dim, policy>` (what it has of them) from its mangled dtt::
+    name."""
+    usage, src, fn = {}, None, None
+    for ln in log.splitlines():
+        if ln.startswith("== "):
+            src, fn = ln[3:].strip(), None
+            usage[src] = {}
+            continue
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m and src:
+            mangled = m.group(1)
+            n = re.match(r"_ZN3dtt(\d+)", mangled)
+            fn = (mangled[n.end():n.end() + int(n.group(1))] if n
+                  else mangled)
+            args = re.findall(r"ILi(\d+)E", mangled)  # head_dim, if any
+            args += [p for p in ("Bf16Tiles", "Int8Tiles", "Bf16Rows",
+                                 "Int8Rows") if p in mangled]
+            fn += f"<{', '.join(args)}>" if args else ""
+            usage[src][fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and fn:
+            usage[src][fn].update(spill_stores=int(m.group(1)),
+                                  spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            usage[src][fn]["registers"] = int(m.group(1))
+    return usage
+
+
+def kernel_usage(name: str) -> dict:
+    """ptxas registers and spills of the device kernels behind entry point
+    `name` at this script's head_dim: its source's kernels for its pool
+    kind, and any kernel there that takes no pool policy."""
+    base = name.split("_")[0]
+    src = SOURCES[base][0].rsplit("/", 1)[-1]
+    pool = "Int8" if "int8" in name else "Bf16"
+
+    def wanted(label: str) -> bool:
+        args = label[label.index("<") + 1:-1].split(", ") if "<" in label else []
+        return (all(a == str(D) for a in args if a.isdigit())
+                and all(a.startswith(pool) for a in args if not a.isdigit()))
+
+    return {k: v for k, v in ptxas_usage(ca.build_log).get(src, {}).items()
+            if wanted(k)}
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -179,8 +282,11 @@ def check(name, kernel, plain, library, cost, shapes, extra=None) -> dict:
     row = {"name": name, "shapes": shapes, "max_abs_err": max_abs,
            "max_row_rel_err": max_rel,
            "tolerance": f"atol=rtol={TOL}, row max/RMS <= {ROW_TOL}",
-           "kernel_ms": time_ms(kernel, 20), "plain_ms": time_ms(plain, 3),
-           "library_ms": time_ms(library, 20), **cost, **(extra or {})}
+           "kernel_ms": device_ms(kernel, 20), "plain_ms": device_ms(plain, 3),
+           "library_ms": device_ms(library, 20),
+           "kernel_call_ms": time_ms(kernel, 20),
+           "library_call_ms": time_ms(library, 20), **cost,
+           "ptxas": kernel_usage(name), **(extra or {})}
     emit({"kernel_check": row})
     if not ok:
         raise AssertionError(f"{name} kernel disagrees with its plain "
@@ -330,6 +436,27 @@ def kernel_checks(dev) -> dict:
             {"q": [c, H, D], "start": start, "pages": width,
              "pools": list(k.shape)})
 
+    # the last 256-token chunk of a 2048-token prompt: how the tile scales
+    # with the prefix (bf16 pools)
+    start_l = MAX_SEQ_LEN - CHUNK
+    width_l = MAX_SEQ_LEN // PS + CHUNK // PS - 1
+    pages_l = torch.zeros((width_l,), dtype=torch.int32)
+    pages_l[:MAX_SEQ_LEN // PS] = perm[:MAX_SEQ_LEN // PS] + 1
+    pages_ld = pages_l.to(dev)
+    start_ld = torch.tensor([start_l], device=dev)
+    rows[f"chunk_start{start_l}"] = check(
+        f"chunk_start{start_l}",
+        lambda: ca.chunk_prefill_attention(qc, kp, vp, pages_ld, start_l,
+                                           page_size=PS),
+        lambda: att.chunk_attention_ref(qc, kp, vp, pages_ld, start_l,
+                                        page_size=PS),
+        paged_library(qc[None], kp, vp, pages_ld[None], start_ld,
+                      start_ld + c),
+        paged_cost(qc.numel(), [(pages_l, start_l, c, start_l + c)],
+                   2 * KV * D, 0),
+        {"q": [c, H, D], "start": start_l, "pages": width_l,
+         "pools": list(kp.shape)})
+
     # ragged: the mixed step's shapes, 8 decode rows (slot 0 inactive: a
     # zero table row at context 1) beside the chunk above, descriptors
     # built as the engine builds them; decode rows of 4 queries as well
@@ -373,21 +500,23 @@ def kernel_checks(dev) -> dict:
                 tabs[:MAX_SEQS], q_starts[:MAX_SEQS], kv_lens[:MAX_SEQS])
             chk_lib = paged_library(qr[nd:][None], kl, vl, tabs[-1:],
                                     q_starts[-1:], kv_lens[-1:])
-            extra = {}
+            # the same rows through chunk.cu (the same tile: bit-identical)
+            # and decode.cu (another loop: within the tolerance)
+            out = kernel()
+            chk = ca.chunk_prefill_attention(
+                qr[nd:], k, v, pages_d, start, page_size=PS,
+                num_kv_heads=n_kv)
+            extra = {"chunk_rows_equal_chunk_cu": torch.equal(out[nd:], chk),
+                     "max_abs_diff_vs_chunk_cu":
+                         float((out[nd:].float() - chk.float()).abs().max())}
             if decode_q == 1:
-                # the same rows through decode.cu and chunk.cu
-                out = kernel()
                 dec = ca.paged_attention_decode(
                     qr[:nd], k, v, table_d, rctx_d,
                     page_size=PS, num_kv_heads=n_kv)
-                chk = ca.chunk_prefill_attention(
-                    qr[nd:], k, v, pages_d, start, page_size=PS,
-                    num_kv_heads=n_kv)
-                extra = {
-                    "max_abs_diff_vs_decode_cu":
-                        float((out[:nd].float() - dec.float()).abs().max()),
-                    "max_abs_diff_vs_chunk_cu":
-                        float((out[nd:].float() - chk.float()).abs().max())}
+                vs_dec = disagreement(out[:nd], dec)
+                extra.update(max_abs_diff_vs_decode_cu=vs_dec[0],
+                             max_row_rel_diff_vs_decode_cu=vs_dec[1],
+                             decode_rows_agree_with_decode_cu=vs_dec[2])
             rows[name] = check(
                 name, kernel, plain, lambda: (dec_lib(), chk_lib()),
                 paged_cost(qr.numel(), spans, row_bytes,
@@ -396,6 +525,10 @@ def kernel_checks(dev) -> dict:
                  "decode_q": decode_q, "context_lens": rctx.tolist(),
                  "chunk_start": start, "tables": list(tabs.shape),
                  "pools": list(k.shape)}, extra)
+            if not (extra["chunk_rows_equal_chunk_cu"]
+                    and extra.get("decode_rows_agree_with_decode_cu", True)):
+                raise AssertionError(f"{name}: its rows differ from "
+                                     f"chunk.cu's or decode.cu's: {extra}")
     return rows
 
 
@@ -808,10 +941,8 @@ def main() -> int:
 
     t0 = time.monotonic()
     ca.build()
-    ptxas = [ln.strip() for ln in ca.build_log.splitlines()
-             if "registers" in ln or "spill" in ln or ln.startswith("==")]
     emit({"phase": "build", "seconds": time.monotonic() - t0,
-          "ptxas": ptxas})
+          "ptxas": ptxas_usage(ca.build_log)})
 
     rows = kernel_checks(dev)
 
@@ -871,8 +1002,10 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "call_ms": row["kernel_call_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library_call_ms": row["library_call_ms"]})
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel never launched when served: "
                              f"{launches}")

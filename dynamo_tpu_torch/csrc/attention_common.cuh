@@ -1,7 +1,13 @@
 // Shared device code of the port's attention kernels (decode.cu, prefill.cu,
 // chunk.cu, ragged.cu).
 //
-// Every kernel is one call of `attend`: a thread block owns `nq` query
+// Two block-level device functions. `attend` (decode.cu, prefill.cu) runs
+// on CUDA cores and is described first; `attend_mma` (chunk.cu, ragged.cu),
+// the tensor-core query tile, is described at its definition below. Both
+// keep the same contract: the mask, the horizon, the GQA row mapping and
+// exact zeros for a row that sees no key.
+//
+// `attend`: a thread block owns `nq` query
 // positions x `group` query heads of ONE KV head (rows r = i * group + g,
 // query head kvh * group + g reads KV head kvh, the GQA mapping of the JAX
 // package's repeat_kv), and walks that KV head's keys in tiles of kTile
@@ -28,15 +34,17 @@
 // bf16 scale at byte KV*D + 2*kvh, and dequantizes value * scale in f32
 // (exact, as the TPU kernels' _dequant_rows). Either way keys and values
 // reach shared memory as f32; q is scaled by 1/sqrt(D) in f32 once. Scores,
-// softmax and the PV product run in f32 on CUDA cores: the kernels are
-// bounded by the bytes of K/V they read (decode, chunk) and this first
-// version makes no use of the tensor cores.
+// softmax and the PV product run in f32 on CUDA cores; `attend` makes no
+// use of the tensor cores (attend_mma below does).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
 
 namespace dtt {
 
@@ -253,6 +261,581 @@ __device__ __forceinline__ void attend(
 template <typename Kernel>
 inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// ---------------------------------------------------------------------------
+// attend_mma: the tensor-core query tile of chunk.cu and ragged.cu.
+//
+// A block owns kTileRows = 64 query rows of ONE KV head, rows r = i * group
+// + g as in `attend` (i a position, g the head in the GQA group). Rows past
+// nq * group are zero queries whose outputs are not written. The block
+// walks its keys [key_lo, hi) with hi = min(qpos0 + nq, kv_len, key_hi) in
+// tiles of kKeyTile = 64 keys, with two warpgroups of 4 warps: warp w of
+// warpgroup wg owns rows 16 (w % 4) .. + 15 and keys 32 wg .. + 31 of every
+// tile, with its own (m, l, O); the halves merge through shared memory at
+// the end. A warp that owns none of the real rows skips the math.
+//
+//   - K/V tiles stream through a ring of kStages = 3 stages in shared
+//     memory, filled with 16-byte cp.async copies through the page list
+//     (four threads per key; a key's page id is loaded a tile ahead), so
+//     two tiles are in flight while one is multiplied, and one barrier per
+//     tile frees the oldest stage. Keys at or past hi are never addressed
+//     (the page list is never read past the horizon, hence never past its
+//     width) and are zero-filled in the tile: a zero row keeps the masked
+//     products finite (0 * garbage can be NaN).
+//   - S = Q K^T and O += P V are mma.sync.m16n8k16 bf16 products with f32
+//     accumulation; the fragments come from shared memory through ldmatrix
+//     (V transposed by ldmatrix.trans). Tile rows are padded from D to
+//     D + 8 bf16 values, which shifts consecutive rows by 16 bytes, so the
+//     eight rows of an ldmatrix phase hit disjoint banks for every D % 16.
+//     head_dim is a template parameter (with_head_dim: 32, 64 and 128, the
+//     port's servable presets), so the loops over D are straight-line code
+//     the compiler can schedule.
+//   - q enters the MMA as the caller gives it (bf16) and the f32 scores are
+//     scaled by 1/sqrt(D), in log2 units so that the softmax uses exp2f.
+//     The online softmax (m, l) and O stay in registers; each thread holds
+//     two rows (lane / 4 and lane / 4 + 8 of its warp's 16) and reduces a
+//     row's max and sum over the four lanes that share it.
+//   - int8 pools: the raw int8 values and the 16-byte chunk holding the
+//     head's bf16 scale are copied as they are, widened to bf16 in shared
+//     memory (an int8 value is exact in bf16) once the stage arrives, and
+//     the scales are folded in f32: s_t = (q . k_t) * k_scale_t / sqrt(D),
+//     and P V takes p_t * v_scale_t (rounded to bf16, as P is in the bf16
+//     path) against the integer V; l sums the unscaled p_t. So the TPU's
+//     value * scale product is kept exact and no K value is rounded.
+//
+// Output: the normalized bf16 rows at the q addressing (TileOut::out), or
+// (out == nullptr) the unnormalized partial of the key range: O in f32 at
+// part_o and (m, l) at part_ml, m in log2 units, for a later merge
+// (ragged.cu's split decode rows). A row that sees no key writes exact
+// zeros, or m = -inf, l = 0.
+constexpr int kTileRows = 64;     // query rows per block: 4 warps x 16
+constexpr int kTileThreads = 256;  // two warpgroups, one per key half
+constexpr int kKeyTile = 64;      // keys per K/V tile: 4 pages of 16
+constexpr int kHalfKeys = kKeyTile / 2;  // keys of a tile per warpgroup
+constexpr int kStages = 3;        // the cp.async ring: two tiles in flight
+constexpr int kMaxTileDim = 128;  // largest head_dim
+constexpr int kSplitKeys = 256;   // least keys per split of a ragged decode row
+constexpr int kSplitBlocksPerSm = 4;  // most decode blocks per SM, all splits
+
+// The head_dims the tile is compiled for (with_head_dim): those of the
+// port's servable presets.
+inline bool tile_head_dim(int d) { return d == 32 || d == 64 || d == 128; }
+
+inline bool tile_fits(int group, int d) {
+  return group >= 1 && group <= kTileRows && tile_head_dim(d);
+}
+
+// query positions per attend_mma block
+inline int tile_positions(int group) { return kTileRows / group; }
+
+// Keys per split of a ragged decode row whose page list holds max_tok keys,
+// with num_decode rows x kv heads on num_sms SMs: kSplitKeys, or more where
+// kSplitKeys would give the rows more than kSplitBlocksPerSm blocks per SM
+// in all, rounded up to whole key tiles. So the decode blocks and the
+// partials' scratch stay bounded by the card, not by the table's width.
+inline long long ragged_split_keys(long long max_tok, int num_decode, int kv,
+                                   int num_sms) {
+  const long long pairs = std::max(1LL, (long long)num_decode * kv);
+  const long long cap =
+      std::max(1LL, (long long)kSplitBlocksPerSm * num_sms / pairs);
+  const long long n =
+      std::min(std::max(1LL, (max_tok + kSplitKeys - 1) / kSplitKeys), cap);
+  const long long span = (max_tok + n - 1) / n;
+  return std::max((long long)kSplitKeys,
+                  (span + kKeyTile - 1) / kKeyTile * kKeyTile);
+}
+
+// splits of max_tok keys in spans of split_keys
+inline int ragged_splits(long long max_tok, long long split_keys) {
+  return (int)std::max(1LL, (max_tok + split_keys - 1) / split_keys);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, or 16 zero bytes when !valid (src not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c[16x8 f32] += a[16x16 bf16, row] * b[16x8 bf16, col]
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 as a bf16 pair, `lo` in the low half (the lower column)
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// K/V tiles of bf16 pool rows: a stage holds the K tile then the V tile,
+// [kKeyTile][d + 8] bf16 each, read by the MMAs where they land.
+struct Bf16Tiles {
+  static constexpr bool kInt8 = false;
+  const __nv_bfloat16* __restrict__ k;
+  const __nv_bfloat16* __restrict__ v;
+  __host__ __device__ static constexpr size_t stage_bytes(int d) {
+    return 2 * (size_t)kKeyTile * (d + 8) * sizeof(__nv_bfloat16);
+  }
+  __host__ __device__ static constexpr size_t work_bytes(int) { return 0; }
+  // this thread's share of key slot t's copies: four threads per key,
+  // `part` taking every fourth 16-byte chunk of its K and V rows, so the
+  // four threads of a key read 64 contiguous bytes; row < 0 zero-fills.
+  template <int kD>
+  __device__ __forceinline__ void copy_key(char* stage, int t, int part,
+                                           long long row, int kvh) const {
+    __nv_bfloat16* kd = reinterpret_cast<__nv_bfloat16*>(stage) + t * (kD + 8);
+    __nv_bfloat16* vd = kd + kKeyTile * (kD + 8);
+    const long long off = row + (long long)kvh * kD;
+#pragma unroll
+    for (int c = part; c < kD / 8; c += 4) {
+      cp_async16(kd + c * 8, row >= 0 ? k + off + c * 8 : k, row >= 0);
+      cp_async16(vd + c * 8, row >= 0 ? v + off + c * 8 : v, row >= 0);
+    }
+  }
+  template <int kD>
+  __device__ __forceinline__ void prepare(char*, char*, int, int) const {}
+  __device__ __forceinline__ const __nv_bfloat16* ktile(char* stage, char*,
+                                                        int) const {
+    return reinterpret_cast<const __nv_bfloat16*>(stage);
+  }
+  __device__ __forceinline__ const __nv_bfloat16* vtile(char* stage, char*,
+                                                        int d) const {
+    return reinterpret_cast<const __nv_bfloat16*>(stage) + kKeyTile * (d + 8);
+  }
+  __device__ __forceinline__ const float* scales(char*, int) const {
+    return nullptr;
+  }
+};
+
+// K/V tiles of int8 packed rows [KV*D int8 | KV bf16 scales | pad]. A stage
+// holds the raw K values [kKeyTile][d], V values, then per key the 16-byte
+// chunk of K's and of V's scale lanes that holds head kvh's scale (byte
+// KV*D + 16 * (kvh / 8); the lane width is a multiple of 16, so the chunk
+// lies inside the row). `prepare` widens an arrived stage into the work
+// area: bf16 K and V tiles [kKeyTile][d + 8] and the f32 scales
+// [2][kKeyTile].
+struct Int8Tiles {
+  static constexpr bool kInt8 = true;
+  const int8_t* __restrict__ k;
+  const int8_t* __restrict__ v;
+  int kvd;  // KV*D: the byte offset of the scales in a row
+  __host__ __device__ static constexpr size_t stage_bytes(int d) {
+    return 2 * (size_t)kKeyTile * d + 2 * (size_t)kKeyTile * 16;
+  }
+  __host__ __device__ static constexpr size_t work_bytes(int d) {
+    return 2 * (size_t)kKeyTile * (d + 8) * sizeof(__nv_bfloat16)
+           + 2 * (size_t)kKeyTile * sizeof(float);
+  }
+  // as Bf16Tiles::copy_key; part 0 also copies K's scale chunk, part 1 V's
+  template <int kD>
+  __device__ __forceinline__ void copy_key(char* stage, int t, int part,
+                                           long long row, int kvh) const {
+    char* kd = stage + t * kD;
+    char* vd = kd + kKeyTile * kD;
+    const long long off = row + (long long)kvh * kD;
+#pragma unroll
+    for (int c = part; c < kD / 16; c += 4) {
+      cp_async16(kd + c * 16, row >= 0 ? k + off + c * 16 : k, row >= 0);
+      cp_async16(vd + c * 16, row >= 0 ? v + off + c * 16 : v, row >= 0);
+    }
+    if (part < 2) {
+      const int8_t* src = part ? v : k;
+      cp_async16(stage + 2 * kKeyTile * kD + (part * kKeyTile + t) * 16,
+                 row >= 0 ? src + row + kvd + 16 * (kvh / 8) : src, row >= 0);
+    }
+  }
+  template <int kD>
+  __device__ __forceinline__ void prepare(char* stage, char* work, int kvh,
+                                          int tid) const {
+    constexpr int n = kD / 16;  // 16-value chunks per row
+    __nv_bfloat16* wt = reinterpret_cast<__nv_bfloat16*>(work);
+#pragma unroll
+    for (int idx = tid; idx < 2 * kKeyTile * n; idx += kTileThreads) {
+      const int row = idx / n, c = idx - row * n;  // row: K rows, then V's
+      const uint4 raw = *reinterpret_cast<const uint4*>(stage + row * kD + c * 16);
+      const unsigned* w = reinterpret_cast<const unsigned*>(&raw);
+      unsigned out[8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // x + 128 as a byte u: the float with bits 0x4B0000uu is 2^23 + u,
+        // so subtracting 2^23 + 128 gives x exactly (no I2F)
+        const unsigned u = w[e] ^ 0x80808080u;
+        float f[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          f[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | b))
+                 - 8388736.f;
+        out[2 * e] = pack_bf16(f[0], f[1]);
+        out[2 * e + 1] = pack_bf16(f[2], f[3]);
+      }
+      uint4* dst = reinterpret_cast<uint4*>(wt + row * (kD + 8) + c * 16);
+      dst[0] = make_uint4(out[0], out[1], out[2], out[3]);
+      dst[1] = make_uint4(out[4], out[5], out[6], out[7]);
+    }
+    float* sc = reinterpret_cast<float*>(wt + 2 * kKeyTile * (kD + 8));
+    for (int idx = tid; idx < 2 * kKeyTile; idx += kTileThreads) {
+      const unsigned short bits = *reinterpret_cast<const unsigned short*>(
+          stage + 2 * kKeyTile * kD + idx * 16 + 2 * (kvh % 8));
+      sc[idx] = __uint_as_float((unsigned)bits << 16);  // bf16 -> f32, exact
+    }
+  }
+  __device__ __forceinline__ const __nv_bfloat16* ktile(char*, char* work,
+                                                        int) const {
+    return reinterpret_cast<const __nv_bfloat16*>(work);
+  }
+  __device__ __forceinline__ const __nv_bfloat16* vtile(char*, char* work,
+                                                        int d) const {
+    return reinterpret_cast<const __nv_bfloat16*>(work) + kKeyTile * (d + 8);
+  }
+  // K scales [kKeyTile], then V scales [kKeyTile]
+  __device__ __forceinline__ const float* scales(char* work, int d) const {
+    return reinterpret_cast<const float*>(
+        reinterpret_cast<const __nv_bfloat16*>(work) + 2 * kKeyTile * (d + 8));
+  }
+};
+
+template <typename KVTiles>
+inline size_t tile_smem_bytes(int d) {
+  return (size_t)kTileRows * (d + 8) * sizeof(__nv_bfloat16)
+         + kStages * KVTiles::stage_bytes(d) + KVTiles::work_bytes(d);
+}
+
+// Runs fn(std::integral_constant<int, D>{}) for the head_dim d, one of
+// tile_head_dim's: the tile is compiled for each, so its loops over D are
+// straight-line code. Refuses any other d.
+template <typename Fn>
+inline int with_head_dim(int d, Fn&& fn) {
+  switch (d) {
+    case 32: return fn(std::integral_constant<int, 32>{});
+    case 64: return fn(std::integral_constant<int, 64>{});
+    case 128: return fn(std::integral_constant<int, 128>{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Where attend_mma writes: bf16 rows at the q addressing (out), or, with
+// out == nullptr, the partial (O, m, l) of query part_q0 + i, head h at
+// part_o[((part_q0 + i) * heads + h) * d ..] and part_ml[.. * 2 + {0, 1}].
+struct TileOut {
+  __nv_bfloat16* out;
+  float* part_o;
+  float* part_ml;
+  long long part_q0;
+  int heads;
+};
+
+// q element (i, g, dd) is q[q_off + i * q_row_stride + g * kD + dd]; kvh is
+// the KV head the block reads; queries i = 0 .. nq - 1 sit at qpos0 + i and
+// see key tok iff tok <= qpos0 + i, tok < kv_len and key_lo <= tok < key_hi.
+// Block of kTileThreads: warp w of warpgroup wg = w / 4 owns rows
+// 16 (w % 4) .. + 15 and keys wg * 32 .. + 31 of every tile; the two
+// warpgroups' (O, m, l) merge through shared memory at the end.
+template <int kD, typename KVTiles, typename Rows>
+__device__ __forceinline__ void attend_mma(
+    const __nv_bfloat16* __restrict__ q, long long q_off, int q_row_stride,
+    KVTiles kv, Rows rows, int kvh, int nq, int group, int qpos0, int kv_len,
+    int key_lo, int key_hi, float scale, TileOut dst) {
+  static_assert(kD % 16 == 0 && kD <= kMaxTileDim, "head_dim");
+  constexpr int ld = kD + 8;  // padded tile row, in bf16 values
+  constexpr int kSteps = kD / 16;  // k16 steps of Q K^T, n16 blocks of P V
+  extern __shared__ __align__(16) char tile_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wrow = (warp & 3) * 16;  // key half, first row
+  const int quad = lane >> 2, pair = (lane & 3) * 2;  // fragment row, column
+  const int n_rows = nq * group;
+  const int lo = key_lo;
+  const int hi = min(min(qpos0 + nq, kv_len), key_hi);
+
+  if (lo >= hi) {  // no key in range: zeros, or an empty partial
+    for (int idx = tid; idx < n_rows * kD; idx += kTileThreads) {
+      const int r = idx / kD, dd = idx - r * kD, i = r / group, g = r - i * group;
+      if (dst.out) {
+        dst.out[q_off + (long long)i * q_row_stride + g * kD + dd] =
+            __float2bfloat16(0.f);
+      } else if (dd == 0) {
+        const long long p = (dst.part_q0 + i) * dst.heads + kvh * group + g;
+        dst.part_ml[2 * p] = -INFINITY;
+        dst.part_ml[2 * p + 1] = 0.f;
+      }
+    }
+    return;
+  }
+
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tile_smem);  // [64][ld]
+  char* ring = tile_smem + (size_t)kTileRows * ld * sizeof(__nv_bfloat16);
+  char* work = ring + kStages * KVTiles::stage_bytes(kD);
+  const int n_tiles = (hi - lo + kKeyTile - 1) / kKeyTile;
+
+  // Copies: four threads per key slot of every tile. A key's row offset
+  // (one page-id load) is fetched a tile ahead, so the load's latency
+  // hides under the current tile's math; -1 marks a key at or past hi.
+  const int slot = tid >> 2, part = tid & 3;
+  auto row_of = [&](int t) -> long long {
+    const int tok = lo + t * kKeyTile + slot;
+    return tok < hi ? rows(tok) : -1;
+  };
+  auto fetch = [&](int t, long long row) {
+    kv.template copy_key<kD>(ring + (t % kStages) * KVTiles::stage_bytes(kD),
+                             slot, part, row, kvh);
+  };
+
+  // q rows (zero rows past n_rows) join the first tile's group
+  for (int idx = tid; idx < kTileRows * (kD / 8); idx += kTileThreads) {
+    const int r = idx / (kD / 8), c = idx - r * (kD / 8);
+    const int i = r / group, g = r - i * group;
+    const bool valid = r < n_rows;
+    const __nv_bfloat16* src =
+        valid ? q + q_off + (long long)i * q_row_stride + g * kD + c * 8 : q;
+    cp_async16(qs + r * ld + c * 8, src, valid);
+  }
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) fetch(t, row_of(t));
+    cp_async_commit();
+  }
+  long long next_row = kStages - 1 < n_tiles ? row_of(kStages - 1) : -1;
+
+  const bool active = wrow < n_rows;
+  // positions of this thread's two rows (a padding row's is past the range)
+  int qlim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) qlim[h] = qpos0 + (wrow + quad + 8 * h) / group;
+  const float sl2 = scale * 1.4426950408889634f;  // 1/sqrt(D) in log2 units
+  unsigned qf[kSteps][4];
+  float o[kD / 8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t (and q) have landed
+    // every warp is past tile t - 1: its stage, and the int8 work area,
+    // are free again
+    __syncthreads();
+    const int tn = t + kStages - 1;
+    if (tn < n_tiles) {
+      fetch(tn, next_row);
+      if (tn + 1 < n_tiles) next_row = row_of(tn + 1);
+    }
+    cp_async_commit();
+    char* stage = ring + (t % kStages) * KVTiles::stage_bytes(kD);
+    if (KVTiles::kInt8) {
+      kv.template prepare<kD>(stage, work, kvh, tid);
+      __syncthreads();
+    }
+    const int k0 = lo + t * kKeyTile + wg * kHalfKeys;  // this warp's keys
+    if (active && k0 < hi) {
+      if (t == 0) {
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk)
+          ldsm_x4(qf[kk], qs + (wrow + (lane & 15)) * ld + kk * 16
+                              + ((lane >> 4) << 3));
+      }
+      const __nv_bfloat16* kt = kv.ktile(stage, work, kD) + wg * kHalfKeys * ld;
+      const __nv_bfloat16* vt = kv.vtile(stage, work, kD) + wg * kHalfKeys * ld;
+      const float* ksc = kv.scales(work, kD) + wg * kHalfKeys;
+      const float* vsc = ksc + kKeyTile;
+
+      // S = Q K^T over this warp's 32 keys: per k16 step, the 4 key blocks
+      // of 8 as independent accumulators (two per ldmatrix.x4)
+      float s[kHalfKeys / 8][4];
+#pragma unroll
+      for (int j = 0; j < kHalfKeys / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        unsigned b[kHalfKeys / 16][4];
+#pragma unroll
+        for (int nb = 0; nb < kHalfKeys / 16; ++nb)
+          ldsm_x4(b[nb], kt + (nb * 16 + (lane & 7) + ((lane >> 4) << 3)) * ld
+                             + kk * 16 + (((lane >> 3) & 1) << 3));
+#pragma unroll
+        for (int nb = 0; nb < kHalfKeys / 16; ++nb) {
+          mma_bf16(s[2 * nb], qf[kk], b[nb][0], b[nb][1]);
+          mma_bf16(s[2 * nb + 1], qf[kk], b[nb][2], b[nb][3]);
+        }
+      }
+
+      // scale, mask, online softmax; s[j][2h + e] is row quad + 8h, key
+      // k0 + j * 8 + pair + e
+      const bool edge = k0 + kHalfKeys > hi || k0 + kHalfKeys - 1 > qpos0;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kHalfKeys / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = j * 8 + pair + e, tok = k0 + key;
+          const float f = KVTiles::kInt8 ? sl2 * ksc[key] : sl2;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float x = s[j][2 * h + e] * f;
+            if (edge && !(tok < hi && tok <= qlim[h])) x = -INFINITY;
+            s[j][2 * h + e] = x;
+            mx[h] = fmaxf(mx[h], x);
+          }
+        }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        // never exp(-inf - -inf): a row that has seen nothing keeps 0s
+        const float base = m_new == -INFINITY ? 0.f : m_new;
+        alpha[h] = exp2f(m[h] - base);  // 0 while the row saw nothing
+        m[h] = m_new;
+        l[h] *= alpha[h];
+#pragma unroll
+        for (int j = 0; j < kHalfKeys / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(s[j][2 * h + e] - base);
+            s[j][2 * h + e] = p;
+            l[h] += p;
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
+      }
+
+      // O += P V: P from the score registers (the m16n8 accumulator layout
+      // of two key blocks is the A layout of one k16 step)
+#pragma unroll
+      for (int kk = 0; kk < kHalfKeys / 16; ++kk) {
+        float p[2][4];
+#pragma unroll
+        for (int hb = 0; hb < 2; ++hb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float vs = KVTiles::kInt8
+                ? vsc[(2 * kk + hb) * 8 + pair + (e & 1)] : 1.f;
+            p[hb][e] = s[2 * kk + hb][e] * vs;
+          }
+        const unsigned a[4] = {
+            pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+            pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+        unsigned b[kSteps][4];
+#pragma unroll
+        for (int db = 0; db < kSteps; ++db)
+          ldsm_x4_trans(b[db], vt + (kk * 16 + (lane & 7)
+                                     + (((lane >> 3) & 1) << 3)) * ld
+                                   + db * 16 + ((lane >> 4) << 3));
+#pragma unroll
+        for (int db = 0; db < kSteps; ++db) {
+          mma_bf16(o[2 * db], a, b[db][0], b[db][1]);
+          mma_bf16(o[2 * db + 1], a, b[db][2], b[db][3]);
+        }
+      }
+    }
+  }
+
+  // merge the key halves: warpgroup 1 leaves its rows' (O, m, l) in the
+  // ring (free now: the last copies have landed), warpgroup 0 folds them in
+  // and writes. xo rows are padded by 4 floats against bank conflicts.
+  constexpr int xld = kD + 4;
+  float* xo = reinterpret_cast<float*>(ring);   // [64][xld]
+  float* xml = xo + kTileRows * xld;             // [64][2]
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  if (wg == 1 && active) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wrow + quad + 8 * h;
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j)
+        *reinterpret_cast<float2*>(xo + r * xld + j * 8 + pair) =
+            make_float2(o[j][2 * h], o[j][2 * h + 1]);
+      if (pair == 0) {
+        xml[2 * r] = m[h];
+        xml[2 * r + 1] = l[h];
+      }
+    }
+  }
+  __syncthreads();
+  if (wg == 1 || !active) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wrow + quad + 8 * h;
+    if (r >= n_rows) continue;
+    const float m1 = xml[2 * r], l1 = xml[2 * r + 1];
+    const float mm = fmaxf(m[h], m1);
+    const float base = mm == -INFINITY ? 0.f : mm;
+    const float a0 = exp2f(m[h] - base), a1 = exp2f(m1 - base);
+    const float lm = l[h] * a0 + l1 * a1;
+    const float* xr = xo + r * xld;
+    const int i = r / group, g = r - i * group;
+    if (dst.out) {
+      const float inv = lm > 0.f ? 1.f / lm : 0.f;
+      __nv_bfloat16* orow = dst.out + q_off + (long long)i * q_row_stride + g * kD;
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        const float2 x = *reinterpret_cast<const float2*>(xr + j * 8 + pair);
+        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + pair) =
+            __floats2bfloat162_rn((o[j][2 * h] * a0 + x.x * a1) * inv,
+                                  (o[j][2 * h + 1] * a0 + x.y * a1) * inv);
+      }
+    } else {
+      const long long p = (dst.part_q0 + i) * dst.heads + kvh * group + g;
+      float* orow = dst.part_o + p * kD;
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        const float2 x = *reinterpret_cast<const float2*>(xr + j * 8 + pair);
+        *reinterpret_cast<float2*>(orow + j * 8 + pair) =
+            make_float2(o[j][2 * h] * a0 + x.x * a1,
+                        o[j][2 * h + 1] * a0 + x.y * a1);
+      }
+      if (pair == 0) {
+        dst.part_ml[2 * p] = mm;
+        dst.part_ml[2 * p + 1] = lm;
+      }
+    }
+  }
 }
 
 }  // namespace dtt

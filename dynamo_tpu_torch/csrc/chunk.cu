@@ -6,53 +6,72 @@
 // (prefix plus the chunk itself, already written) with the causal mask
 // tok <= start + i. The page list has W entries with a trash-page tail; the
 // kernel stops at each query tile's causal horizon and never reads the tail.
-// bf16 pools (dtt_chunk) or int8 packed pools (dtt_chunk_int8, dequantized
-// on read as the TPU kernel's int8 branch does).
+// bf16 pools (dtt_chunk) or int8 packed pools (dtt_chunk_int8, whose scales
+// fold into the scores and probabilities; see attention_common.cuh).
 //
-// Bound on the H100: bytes for short chunks over a long prefix (each query
-// tile re-reads the prefix: C / q_tile * (start + C) * KV * D * 4 bytes),
-// FLOPs (4 * C * (start + C / 2) * H * D) once the chunk is long.
+// Bound on the H100: operations. A 256-token chunk over a 512-token prefix
+// does 4 * C * (start + C / 2) * H * D = 2.7 GFLOP on 3 MB of K/V, ~900
+// FLOP per byte, three times the ~295 where the tensor cores start to bind;
+// a short chunk over a long prefix moves towards bytes.
 //
-// Design: the decode kernel's loop with a tile of the chunk's queries in
-// place of one token. One block per (query tile of up to 16 positions, KV
-// head); the rows are the tile's positions x the group = H/KV query heads of
-// the KV head, so a K/V tile is shared by the whole GQA group, and the page
-// walk, the 16-byte K/V loads and the f32 online softmax are the ones decode
-// uses (attention_common.cuh). Larger query tiles on wgmma, and a prefix
-// read once for several query tiles, are later work.
+// Design: one block per (query tile of 64 / group positions, KV head), the
+// tensor-core tile `attend_mma` (attention_common.cuh): 64 rows = positions
+// x the GQA group of one KV head, so a K/V tile feeds the whole group; S and
+// P V on mma.sync with f32 accumulation, the online softmax and O in
+// registers, two warpgroups splitting each 64-key tile, and the K/V tiles
+// streamed through a three-stage cp.async ring. A 256-token chunk with
+// group 4 is 16 x 8 = 128 blocks: one wave on the 132 SMs. Each query tile
+// re-reads its causal prefix, 16 times per chunk (32 with the CUDA-core
+// tile of 8 positions), and mostly from the 50 MB L2: the 3 MB of K/V are
+// read from device memory about once. What holds the tile back is latency,
+// not the tensor cores: with one block per SM, the 16-byte copies (2048 per
+// tile, made by the math warps), the barriers and the softmax's
+// dependent steps leave the MMAs idle most of the time. TMA copies from a
+// producer warp, and reading the prefix once for several query tiles (a
+// cluster sharing its tiles), are later work.
+#include <limits.h>
+
 #include "attention_common.cuh"
 
 namespace dtt {
 
-template <typename KVRows>
-__global__ void __launch_bounds__(kThreads) chunk_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [C, H, D]
-    KVRows kv,                            // pools [P, ps, W]
+template <int kD, typename KVTiles>
+__global__ void __launch_bounds__(kTileThreads) chunk_kernel(
+    const __nv_bfloat16* __restrict__ q,  // [C, H, kD]
+    KVTiles kv,                           // pools [P, ps, W]
     const int* __restrict__ pages,        // [W]
-    __nv_bfloat16* __restrict__ out,      // [C, H, D]
-    int C, int H, int KV, int D, int page_size, int lane_width, int start,
-    int q_tile, float scale) {
-  const int i0 = blockIdx.x * q_tile, kvh = blockIdx.y;
+    __nv_bfloat16* __restrict__ out,      // [C, H, kD]
+    int C, int H, int KV, int page_size, int lane_width, int start,
+    int positions, float scale) {
+  const int i0 = blockIdx.x * positions, kvh = blockIdx.y;
   const int group = H / KV;
-  const int nq = min(q_tile, C - i0);
+  const int nq = min(positions, C - i0);
   const PagedRows rows{pages, page_size, lane_width};
-  attend(q, ((long long)i0 * H + kvh * group) * D, H * D, kv, rows, kvh, out,
-         nq, group, D, /*qpos0=*/start + i0, /*kv_len=*/start + C, scale);
+  attend_mma<kD>(q, ((long long)i0 * H + kvh * group) * kD, H * kD, kv, rows,
+                 kvh, nq, group, /*qpos0=*/start + i0, /*kv_len=*/start + C,
+                 /*key_lo=*/0, /*key_hi=*/INT_MAX, scale,
+                 TileOut{out, nullptr, nullptr, 0, H});
 }
 
-template <typename KVRows>
-int launch_chunk(const void* q, KVRows kv, const void* pages, void* out,
+template <typename KVTiles>
+int launch_chunk(const void* q, KVTiles kv, const void* pages, void* out,
                  int C, int H, int KV, int D, int page_size, int lane_width,
-                 int start, int q_tile, float scale, void* stream) {
-  if (!fits_accumulators(q_tile * (H / KV), D)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(q_tile * (H / KV), D);
-  cudaError_t err = set_smem(chunk_kernel<KVRows>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((C + q_tile - 1) / q_tile, KV);
-  chunk_kernel<KVRows><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, kv, (const int*)pages, (__nv_bfloat16*)out, C,
-      H, KV, D, page_size, lane_width, start, q_tile, scale);
-  return (int)cudaGetLastError();
+                 int start, int positions, float scale, void* stream) {
+  if (KV < 1 || H % KV || !tile_fits(H / KV, D)
+      || positions != tile_positions(H / KV) || C < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = tile_smem_bytes<KVTiles>(D);
+  const dim3 grid((C + positions - 1) / positions, KV);
+  return with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    cudaError_t err = set_smem(chunk_kernel<kD, KVTiles>, smem);
+    if (err != cudaSuccess) return (int)err;
+    chunk_kernel<kD, KVTiles><<<grid, kTileThreads, smem,
+                                (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)q, kv, (const int*)pages, (__nv_bfloat16*)out,
+        C, H, KV, page_size, lane_width, start, positions, scale);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace dtt
@@ -60,21 +79,28 @@ int launch_chunk(const void* q, KVRows kv, const void* pages, void* out,
 extern "C" int dtt_chunk(const void* q, const void* k_pages,
                          const void* v_pages, const void* pages, void* out,
                          int C, int H, int KV, int D, int page_size, int start,
-                         int q_tile, float scale, void* stream) {
-  const dtt::Bf16Rows kv{(const __nv_bfloat16*)k_pages,
-                         (const __nv_bfloat16*)v_pages};
+                         int positions, float scale, void* stream) {
+  const dtt::Bf16Tiles kv{(const __nv_bfloat16*)k_pages,
+                          (const __nv_bfloat16*)v_pages};
   return dtt::launch_chunk(q, kv, pages, out, C, H, KV, D, page_size, KV * D,
-                           start, q_tile, scale, stream);
+                           start, positions, scale, stream);
 }
 
 extern "C" int dtt_chunk_int8(const void* q, const void* k_pages,
                               const void* v_pages, const void* pages,
                               void* out, int C, int H, int KV, int D,
                               int page_size, int lane_width, int start,
-                              int q_tile, float scale, void* stream) {
-  if (D % dtt::Int8Rows::kVec) return (int)cudaErrorInvalidValue;
-  const dtt::Int8Rows kv{(const int8_t*)k_pages, (const int8_t*)v_pages,
-                         KV * D};
+                              int positions, float scale, void* stream) {
+  if (lane_width % 16 || lane_width < KV * (D + 2))
+    return (int)cudaErrorInvalidValue;
+  const dtt::Int8Tiles kv{(const int8_t*)k_pages, (const int8_t*)v_pages,
+                          KV * D};
   return dtt::launch_chunk(q, kv, pages, out, C, H, KV, D, page_size,
-                           lane_width, start, q_tile, scale, stream);
+                           lane_width, start, positions, scale, stream);
+}
+
+// Query positions per block of chunk.cu and ragged.cu for a GQA group and
+// head_dim, or 0 where the tile refuses them.
+extern "C" int dtt_chunk_positions(int group, int D) {
+  return dtt::tile_fits(group, D) ? dtt::tile_positions(group) : 0;
 }

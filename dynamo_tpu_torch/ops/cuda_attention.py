@@ -7,7 +7,13 @@ prompts), `chunk.cu` (chunked prefill over the paged cache) and `ragged.cu`
 `_decode_kernel`, `_prefill_kernel` and `_chunk_kernel` of
 `dynamo_tpu/ops/pallas_attention.py` and `_ragged_kernel` of
 `dynamo_tpu/ops/ragged_attention.py`; each source's header says what bounds
-it on the H100 and how its design answers that. The three pool-reading
+it on the H100 and how its design answers that. Decode and prefill run on
+CUDA cores (`attend` in `attention_common.cuh`); chunk and ragged on the
+tensor cores (`attend_mma`: 64-row query tiles on mma.sync, K/V tiles
+through a cp.async ring), and the ragged kernel splits its decode rows
+along their keys and merges the splits in a second small kernel. The
+launch plans of the tensor-core tile (`tile_positions`, `split_keys`) are
+pure functions of host-known sizes. The three pool-reading
 kernels (decode, chunk, ragged) each have a bf16 and an int8 entry point,
 the latter for the packed rows of `kv_cache_dtype="int8"` pools; their
 wrappers take either pool and count the int8 launches under their own
@@ -17,7 +23,9 @@ Build: the first call compiles every `csrc/*.cu` with
 `nvcc -gencode arch=compute_90a,code=sm_90a` (one nvcc per source, started
 together) and links them into one shared library with a plain C interface
 under `build/dynamo_tpu_torch/`, named by a hash of the sources, so an edited
-source rebuilds. It is loaded with ctypes: pointers and PyTorch's current
+source rebuilds; nvcc's output (ptxas's registers and spills per kernel)
+is kept beside it as `.log` and read into `build_log` with the library.
+It is loaded with ctypes: pointers and PyTorch's current
 stream go over as `c_void_p`, each C entry point returns `cudaGetLastError()`
 and the wrapper raises when that is not 0.
 
@@ -36,7 +44,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -49,11 +57,22 @@ LAUNCHES: Dict[str, int] = {
     "decode": 0, "prefill": 0, "chunk": 0, "ragged": 0,
     "decode_int8": 0, "chunk_int8": 0, "ragged_int8": 0}
 
-MAX_QUERY_TILE = 16
+MAX_QUERY_TILE = 16  # prefill's CUDA-core tile (query_tile)
+
+# The tensor-core tile of chunk.cu and ragged.cu (attention_common.cuh:
+# kTileRows, tile_head_dim, kKeyTile, kSplitKeys, kSplitBlocksPerSm). The
+# library reports its own values (dtt_chunk_positions,
+# dtt_ragged_split_keys) and its entry points refuse a launch that
+# disagrees with them.
+TILE_ROWS = 64
+TILE_HEAD_DIMS = (32, 64, 128)  # the head_dims the tile is compiled for
+KEY_TILE = 64
+SPLIT_KEYS = 256
+SPLIT_BLOCKS_PER_SM = 4
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-build_log = ""  # nvcc/ptxas output of the build this process made
+build_log = ""  # nvcc/ptxas output of the build of the loaded library
 
 
 def reset_launch_counts() -> None:
@@ -113,8 +132,10 @@ def _compile(so: Path) -> str:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"linking {so.name} failed:\n{link.stdout}")
+    text = "\n".join(log)
+    so.with_suffix(".log").write_text(text)
     os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
-    return "\n".join(log)
+    return text
 
 
 def build() -> ctypes.CDLL:
@@ -126,20 +147,23 @@ def build() -> ctypes.CDLL:
         so = BUILD_DIR / f"libdtt_attention_{_sources_digest()}.so"
         if not so.exists():
             build_log = _compile(so)
+        else:  # built before: its log was kept beside it
+            log = so.with_suffix(".log")
+            build_log = log.read_text() if log.exists() else ""
         lib = ctypes.CDLL(str(so))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dtt_paged_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                          f, p]
         lib.dtt_prefill.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p]
         lib.dtt_chunk.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, p]
-        lib.dtt_ragged.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                   i, i, f, p]
+        lib.dtt_ragged.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                   i, i, i, i, i, i, f, p]
         lib.dtt_paged_decode_int8.argtypes = [p, p, p, p, p, p, i, i, i, i,
                                               i, i, i, f, p]
         lib.dtt_chunk_int8.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                        i, f, p]
-        lib.dtt_ragged_int8.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
-                                        i, i, i, i, i, f, p]
+        lib.dtt_ragged_int8.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
+                                        i, i, i, i, i, i, i, i, i, f, p]
         for fn in (lib.dtt_paged_decode, lib.dtt_prefill, lib.dtt_chunk,
                    lib.dtt_ragged, lib.dtt_paged_decode_int8,
                    lib.dtt_chunk_int8, lib.dtt_ragged_int8):
@@ -148,6 +172,10 @@ def build() -> ctypes.CDLL:
         lib.dtt_error_string.restype = ctypes.c_char_p
         lib.dtt_max_rows_times_dim.argtypes = []
         lib.dtt_max_rows_times_dim.restype = ctypes.c_int
+        lib.dtt_chunk_positions.argtypes = [i, i]
+        lib.dtt_chunk_positions.restype = ctypes.c_int
+        lib.dtt_ragged_split_keys.argtypes = [i, i, i, i, i]
+        lib.dtt_ragged_split_keys.restype = ctypes.c_longlong
         _lib = lib
         return lib
 
@@ -182,14 +210,19 @@ def _expect(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _check_heads(lib: ctypes.CDLL, n_heads: int, n_kv: int,
-                 head_dim: int) -> int:
+def _gqa_group(n_heads: int, n_kv: int) -> int:
     if n_kv < 1 or n_heads % n_kv:
         raise ValueError(f"query heads ({n_heads}) must be a multiple of the "
                          f"KV heads ({n_kv})")
+    return n_heads // n_kv
+
+
+def _check_heads(lib: ctypes.CDLL, n_heads: int, n_kv: int,
+                 head_dim: int) -> int:
+    """The GQA group, within the CUDA-core tile of decode and prefill."""
+    group = _gqa_group(n_heads, n_kv)
     if head_dim % 8:
         raise ValueError(f"head_dim must be a multiple of 8, got {head_dim}")
-    group = n_heads // n_kv
     limit = lib.dtt_max_rows_times_dim()
     if group * head_dim > limit:
         raise ValueError(f"GQA group x head_dim ({group} x {head_dim}) "
@@ -234,7 +267,7 @@ def _check_pools(k_pages, v_pages, page_size: int, head_dim: int,
 
 
 def query_tile(lib: ctypes.CDLL, group: int, head_dim: int) -> int:
-    """Query positions per block for prefill and chunk: the largest power
+    """Query positions per block for prefill: the largest power
     of two <= MAX_QUERY_TILE whose rows fit the block's accumulators (the
     library's limit; its entry points refuse a launch past it)."""
     limit = lib.dtt_max_rows_times_dim()
@@ -242,6 +275,57 @@ def query_tile(lib: ctypes.CDLL, group: int, head_dim: int) -> int:
     while qt > 1 and qt * group * head_dim > limit:
         qt //= 2
     return qt
+
+
+def tile_positions(group: int, head_dim: int) -> int:
+    """Query positions per block of chunk.cu and ragged.cu: the 64-row
+    tensor-core tile holds positions x the GQA group. Raises ValueError
+    for what the tile cannot take: a head_dim it is not compiled for
+    (TILE_HEAD_DIMS), a group above 64."""
+    if head_dim not in TILE_HEAD_DIMS:
+        raise ValueError(f"the chunk and ragged kernels are built for "
+                         f"head_dim in {TILE_HEAD_DIMS}, got {head_dim}")
+    if not 1 <= group <= TILE_ROWS:
+        raise ValueError(f"GQA group {group} does not fit the chunk and "
+                         f"ragged kernels' {TILE_ROWS}-row query tile")
+    return TILE_ROWS // group
+
+
+def check_decode_rows(decode_q: int, group: int, head_dim: int) -> int:
+    """tile_positions, also refusing ragged decode rows of decode_q queries
+    x the group past the tile's rows."""
+    positions = tile_positions(group, head_dim)
+    if decode_q * group > TILE_ROWS:
+        raise ValueError(f"decode_q x GQA group ({decode_q} x {group}) does "
+                         f"not fit the ragged kernel's {TILE_ROWS}-row query "
+                         f"tile")
+    return positions
+
+
+def split_keys(width: int, page_size: int, num_decode: int, num_kv: int,
+               num_sms: int) -> int:
+    """Keys per split of a ragged decode row, from host-known sizes only
+    (the kv_lens live on the card and are never read back): SPLIT_KEYS, or
+    more where that would give num_decode rows x num_kv heads more than
+    SPLIT_BLOCKS_PER_SM decode blocks per SM in all, rounded up to whole
+    KEY_TILEs. So the blocks and the partials' scratch grow with the rows
+    and the card, not with the table's width * page_size keys."""
+    keys = width * page_size
+    cap = max(1, SPLIT_BLOCKS_PER_SM * num_sms // max(1, num_decode * num_kv))
+    n = min(max(1, -(-keys // SPLIT_KEYS)), cap)
+    span = -(-keys // n)
+    return max(SPLIT_KEYS, -(-span // KEY_TILE) * KEY_TILE)
+
+
+def split_spans(width: int, page_size: int, num_decode: int, num_kv: int,
+                num_sms: int) -> List[Tuple[int, int]]:
+    """Key spans [lo, hi) of a ragged decode row's splits: spans of
+    split_keys keys over the table's width * page_size keys, the last cut
+    at the table's end. A split walks its span below its row's horizon
+    (none at all when the span starts past it)."""
+    keys = width * page_size
+    span = split_keys(width, page_size, num_decode, num_kv, num_sms)
+    return [(lo, min(lo + span, keys)) for lo in range(0, keys, span)]
 
 
 def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
@@ -319,8 +403,8 @@ def chunk_prefill_attention(q, k_pages, v_pages, pages, start: int, *,
     c, h, d = q.shape
     n_kv, width, int8 = _check_pools(k_pages, v_pages, page_size, d,
                                      num_kv_heads, dev)
+    positions = tile_positions(_gqa_group(h, n_kv), d)
     lib = build()
-    group = _check_heads(lib, h, n_kv, d)
     start = int(start)
     if start < 0 or start + c > pages.shape[0] * page_size:
         raise ValueError(f"chunk [{start}, {start + c}) runs past the "
@@ -328,15 +412,14 @@ def chunk_prefill_attention(q, k_pages, v_pages, pages, start: int, *,
     out = torch.empty_like(q)
     if c == 0:
         return out
-    qt = query_tile(lib, group, d)
     args = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(pages), _ptr(out), c,
             h, n_kv, d, page_size]
     name = "chunk_int8" if int8 else "chunk"
     if int8:
-        rc = lib.dtt_chunk_int8(*args, width, start, qt, d ** -0.5,
+        rc = lib.dtt_chunk_int8(*args, width, start, positions, d ** -0.5,
                                 _stream(q))
     else:
-        rc = lib.dtt_chunk(*args, start, qt, d ** -0.5, _stream(q))
+        rc = lib.dtt_chunk(*args, start, positions, d ** -0.5, _stream(q))
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
     return out
@@ -360,8 +443,7 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, kv_lens, q_starts, *,
     total, h, d = q.shape
     n_kv, width, int8 = _check_pools(k_pages, v_pages, page_size, d,
                                      num_kv_heads, dev)
-    lib = build()
-    group = _check_heads(lib, h, n_kv, d)
+    group = _gqa_group(h, n_kv)
     if num_decode < 0 or decode_q < 1:
         raise ValueError(f"num_decode {num_decode} / decode_q {decode_q}")
     c = total - num_decode * decode_q
@@ -374,21 +456,30 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, kv_lens, q_starts, *,
         raise ValueError(f"descriptors {tuple(tables.shape)}, "
                          f"{tuple(kv_lens.shape)}, {tuple(q_starts.shape)} "
                          f"do not have num_decode + 1 = {rows} rows")
-    limit = lib.dtt_max_rows_times_dim()
-    if decode_q * group * d > limit:
-        raise ValueError(f"decode_q x GQA group x head_dim ({decode_q} x "
-                         f"{group} x {d}) exceeds the kernels' {limit} "
-                         f"accumulators")
+    positions = check_decode_rows(decode_q, group, d)
+    width_pages = tables.shape[1]
+    span = split_keys(width_pages, page_size, num_decode, n_kv,
+                      torch.cuda.get_device_properties(dev)
+                      .multi_processor_count)
+    n_splits = -(-(width_pages * page_size) // span)
+    lib = build()
     out = torch.empty_like(q)
-    qt = query_tile(lib, group, d)
+    # the decode rows' per-split partials, merged into `out` by the library
+    nd = num_decode * decode_q
+    part_o = torch.empty((n_splits, nd, h, d), dtype=torch.float32,
+                         device=dev)
+    part_ml = torch.empty((n_splits, nd, h, 2), dtype=torch.float32,
+                          device=dev)
     args = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(tables),
-            _ptr(kv_lens), _ptr(q_starts), _ptr(out), num_decode, decode_q,
-            c, h, n_kv, d, page_size, tables.shape[1]]
+            _ptr(kv_lens), _ptr(q_starts), _ptr(out), _ptr(part_o),
+            _ptr(part_ml), num_decode, decode_q, c, h, n_kv, d, page_size,
+            width_pages]
+    tail = [positions, n_splits, span, d ** -0.5, _stream(q)]
     name = "ragged_int8" if int8 else "ragged"
     if int8:
-        rc = lib.dtt_ragged_int8(*args, width, qt, d ** -0.5, _stream(q))
+        rc = lib.dtt_ragged_int8(*args, width, *tail)
     else:
-        rc = lib.dtt_ragged(*args, qt, d ** -0.5, _stream(q))
+        rc = lib.dtt_ragged(*args, *tail)
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
     return out

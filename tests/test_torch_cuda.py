@@ -3,7 +3,10 @@
 These need an NVIDIA GPU with nvcc (the kernels build for sm_90a) and skip
 without one; run them there with
 
-    python -m pytest tests/test_torch_cuda.py -q
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+
+(`--noconftest`: tests/conftest.py imports jax, which the card's machine
+need not have).
 
 Tolerance: atol=rtol=2e-2 on bf16 outputs (the plain versions compute in
 f32 from the same bf16 inputs; both round the output to bf16).
@@ -63,19 +66,103 @@ def test_prefill_kernel_matches_plain(dev, s, lens, head_dim):
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
 
 
-@pytest.mark.parametrize("start,c", [(0, 256), (512, 256), (48, 16)])
+def _page_list(dev, n_tok, ps, pool_pages, seed):
+    """A trash-padded page list for n_tok tokens: distinct random pages,
+    then a tail of page 0, 5 entries past the last page (so the list's
+    width is no multiple of the 64-key tile for most n_tok)."""
+    real = -(-n_tok // ps)
+    pages = np.zeros((real + 5,), np.int32)
+    pages[:real] = np.random.default_rng(seed).permutation(
+        pool_pages - 1)[:real] + 1
+    return torch.tensor(pages, device=dev)
+
+
+@pytest.mark.parametrize("start", [0, 5, 48, 512, 1792])
+@pytest.mark.parametrize("c", [1, 16, 17, 100, 256])
 def test_chunk_kernel_matches_plain(dev, start, c):
     ps, n_kv, d = 16, 8, 128
-    kp = _rnd(dev, 128, ps, n_kv * d, seed=7)
-    vp = _rnd(dev, 128, ps, n_kv * d, seed=8)
-    width = (start + c) // ps + 15
-    pages = torch.zeros((width,), dtype=torch.int32, device=dev)
-    real = (start + c) // ps
-    pages[:real] = torch.arange(1, real + 1, dtype=torch.int32, device=dev)
+    kp = _rnd(dev, 160, ps, n_kv * d, seed=7)
+    vp = _rnd(dev, 160, ps, n_kv * d, seed=8)
+    pages = _page_list(dev, start + c, ps, 160, seed=start + c)
     q = _rnd(dev, c, 32, d, seed=9)
     out = ca.chunk_prefill_attention(q, kp, vp, pages, start, page_size=ps)
     ref = att.chunk_attention_ref(q, kp, vp, pages, start, page_size=ps)
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_chunk_kernel_groups_and_head_dims(dev, int8, group, head_dim):
+    """Every GQA group and head_dim the tile takes, on both pools, with a
+    chunk whose last query tile is partial, over a prefix."""
+    ps, n_kv, start, c = 16, 2, 40, 77
+    if int8:
+        kp, vp = _int8_pools(dev, 32, ps, n_kv, head_dim, seed=41)
+    else:
+        kp = _rnd(dev, 32, ps, n_kv * head_dim, seed=41)
+        vp = _rnd(dev, 32, ps, n_kv * head_dim, seed=42)
+    pages = _page_list(dev, start + c, ps, 32, seed=3)
+    q = _rnd(dev, c, group * n_kv, head_dim, seed=43)
+    out = ca.chunk_prefill_attention(q, kp, vp, pages, start, page_size=ps,
+                                     num_kv_heads=n_kv)
+    ref = att.chunk_attention_ref(q, kp, vp, pages, start, page_size=ps,
+                                  num_kv_heads=n_kv)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+def test_tile_limits_agree_with_the_library_and_are_refused(dev):
+    lib = ca.build()
+    for group in (1, 2, 3, 4, 8, 64):
+        for d in (32, 64, 128):
+            assert lib.dtt_chunk_positions(group, d) == ca.tile_positions(
+                group, d)
+    assert lib.dtt_chunk_positions(65, 64) == 0
+    for d in (16, 40, 96, 144):
+        assert lib.dtt_chunk_positions(4, d) == 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for width, ps, n_dec, n_kv in ((1, 16, 1, 8), (128, 16, 8, 8),
+                                   (143, 16, 3, 2), (7, 4, 1, 1),
+                                   (8192, 16, 8, 8), (2048, 16, 256, 8)):
+        assert lib.dtt_ragged_split_keys(width, ps, n_dec, n_kv, sms) == \
+            ca.split_keys(width, ps, n_dec, n_kv, sms)
+    pages = torch.ones((4,), dtype=torch.int32, device=dev)
+    tables = torch.ones((2, 4), dtype=torch.int32, device=dev)
+    lens = torch.tensor([3, 20], dtype=torch.int32, device=dev)
+    for h, n_kv, d, match in ((8, 2, 40, "head_dim"),
+                              (8, 2, 96, "head_dim"),
+                              (4, 1, 256, "head_dim"),
+                              (128, 1, 32, "64-row")):
+        q = _rnd(dev, 16 + 1, h, d)
+        kp = _rnd(dev, 4, 16, n_kv * d)
+        with pytest.raises(ValueError, match=match):
+            ca.chunk_prefill_attention(q[:16], kp, kp, pages, 0,
+                                       page_size=16)
+        with pytest.raises(ValueError, match=match):
+            ca.ragged_paged_attention(q, kp, kp, tables, lens, lens - 1,
+                                      page_size=16, num_decode=1)
+    q = _rnd(dev, 4 + 16, 64, 32)
+    kp = _rnd(dev, 4, 16, 2 * 32)
+    with pytest.raises(ValueError, match="decode_q"):
+        ca.ragged_paged_attention(q, kp, kp, tables, lens, lens - 1,
+                                  page_size=16, num_decode=1, decode_q=4)
+    # the entry points refuse a tiling or a split other than their own
+    q = _rnd(dev, 16, 32, 128)
+    kp = _rnd(dev, 4, 16, 8 * 128)
+    out = torch.empty_like(q)
+    rc = lib.dtt_chunk(ca._ptr(q), ca._ptr(kp), ca._ptr(kp), ca._ptr(pages),
+                       ca._ptr(out), 16, 32, 8, 128, 16, 0, 8, 0.1,
+                       ca._stream(q))
+    assert rc != 0
+    qr = _rnd(dev, 1 + 16, 32, 128)
+    part = torch.empty((1, 1, 32, 128), dtype=torch.float32, device=dev)
+    for n_splits, span in ((1, 64), (2, 256)):  # own: one span of 256
+        rc = lib.dtt_ragged(
+            ca._ptr(qr), ca._ptr(kp), ca._ptr(kp), ca._ptr(tables),
+            ca._ptr(lens), ca._ptr(lens), ca._ptr(qr), ca._ptr(part),
+            ca._ptr(part), 1, 1, 16, 32, 8, 128, 16, 4, 16, n_splits, span,
+            0.1, ca._stream(qr))
+        assert rc != 0
 
 
 def test_wrappers_count_launches_and_refuse_bad_inputs(dev):
@@ -168,14 +255,12 @@ def test_int8_decode_kernel_matches_plain(dev, n_heads, n_kv, head_dim):
     assert ca.LAUNCHES["decode_int8"] == before + 1
 
 
-@pytest.mark.parametrize("start,c", [(0, 256), (512, 256), (48, 16)])
+@pytest.mark.parametrize("start", [0, 5, 48, 512, 1792])
+@pytest.mark.parametrize("c", [1, 16, 17, 100, 256])
 def test_int8_chunk_kernel_matches_plain(dev, start, c):
     ps, n_kv, d = 16, 8, 128
-    kp, vp = _int8_pools(dev, 128, ps, n_kv, d, seed=13)
-    width = (start + c) // ps + 15
-    pages = torch.zeros((width,), dtype=torch.int32, device=dev)
-    real = (start + c) // ps
-    pages[:real] = torch.arange(1, real + 1, dtype=torch.int32, device=dev)
+    kp, vp = _int8_pools(dev, 160, ps, n_kv, d, seed=13)
+    pages = _page_list(dev, start + c, ps, 160, seed=start + c)
     q = _rnd(dev, c, 32, d, seed=9)
     out = ca.chunk_prefill_attention(q, kp, vp, pages, start, page_size=ps,
                                      num_kv_heads=n_kv)
@@ -187,16 +272,18 @@ def test_int8_chunk_kernel_matches_plain(dev, start, c):
 @pytest.mark.parametrize("decode_q", [1, 4])
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_ragged_kernel_matches_plain(dev, int8, decode_q):
-    """Eight decode rows (an inactive one on the trash page at context 1,
-    contexts up to a full table) and a 256-token chunk at position 512 on a
-    trash-padded list, in one launch; with int8 pools too."""
+    """Eight decode rows (context 0 on the trash page, context 1, rows
+    ending on a 256-key split boundary and one key past it, a full table) and a 256-token chunk at position 512 on a trash-padded
+    list, in one call; with int8 pools too. The chunk rows equal chunk.cu's
+    output exactly; the decode rows (split along their keys and merged)
+    agree with decode.cu's within the tolerance."""
     ps, n_kv, d, h, pmax = 16, 8, 128, 32, 64
     if int8:
         kp, vp = _int8_pools(dev, 256, ps, n_kv, d, seed=21)
     else:
         kp = _rnd(dev, 256, ps, n_kv * d, seed=21)
         vp = _rnd(dev, 256, ps, n_kv * d, seed=22)
-    ctx = [1, 4, 17, 100, 255, 300, 700, pmax * ps]
+    ctx = [0, 1, 17, 255, 256, 257, 700, pmax * ps]
     rng = np.random.default_rng(5)
     tables = np.zeros((9, pmax), np.int32)
     for r, n in enumerate(ctx[1:], start=1):
@@ -205,7 +292,7 @@ def test_ragged_kernel_matches_plain(dev, int8, decode_q):
     kv_lens = np.array(ctx + [512 + 256], np.int32)
     q_starts = np.array([max(n - decode_q, 0) for n in ctx] + [512],
                         np.int32)
-    kv_lens[:8] = np.maximum(kv_lens[:8], q_starts[:8] + decode_q)
+    kv_lens[1:8] = np.maximum(kv_lens[1:8], q_starts[1:8] + decode_q)
     q = _rnd(dev, 8 * decode_q + 256, h, d, seed=23)
     args = [torch.tensor(a, device=dev) for a in (tables, kv_lens, q_starts)]
     name = "ragged_int8" if int8 else "ragged"
@@ -218,6 +305,15 @@ def test_ragged_kernel_matches_plain(dev, int8, decode_q):
                                          decode_q=decode_q)
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
     assert ca.LAUNCHES[name] == before + 1
+    assert not out[:decode_q].any()  # context 0: exact zeros
+    n_kw = dict(page_size=ps, num_kv_heads=n_kv)
+    chunk = ca.chunk_prefill_attention(q[8 * decode_q:], kp, vp, args[0][8],
+                                       512, **n_kw)
+    assert torch.equal(out[8 * decode_q:], chunk)
+    if decode_q == 1:
+        dec = ca.paged_attention_decode(q[:8], kp, vp, args[0][:8],
+                                        args[1][:8], **n_kw)
+        torch.testing.assert_close(out[:8].float(), dec.float(), **TOL)
     with pytest.raises(ValueError, match="chunk"):
         ca.ragged_paged_attention(q[:8 * decode_q], kp, vp, *args,
                                   page_size=ps, num_kv_heads=n_kv,
