@@ -27,14 +27,18 @@ on failure:
    can exceed a short kernel's; its call time (CUDA events around calls
    made back to back from the host, median of five batches) is reported
    beside it. The kernels:
-   decode, prefill, chunk (the 256-token chunk at 512, and again at 1792,
-   the last chunk of a 2048-token prompt), ragged (8 decode rows and a
-   256-token chunk; again with rows of 4 queries), and the int8 variants
-   of decode, chunk and ragged. Ragged's chunk rows must equal chunk.cu's
-   output exactly and its decode rows (split along their keys) agree with
-   decode.cu's within the tolerance above. Each row carries its kernels'
-   registers and spills from the build's ptxas output. This is the
-   numerical check of the kernels on random inputs.
+   decode (8 slots on 128-page tables, and again as `decode_long` on a
+   512-page table with one row at 8192 tokens, where the key spans widen
+   past 256), prefill, chunk (the 256-token chunk at 512, and again at
+   1792, the last chunk of a 2048-token prompt), ragged (8 decode rows and
+   a 256-token chunk; again with rows of 4 queries), and the int8
+   variants of decode, chunk and ragged. All run the same tensor-core
+   tile, so some rows must be bit-identical: ragged's chunk rows to
+   chunk.cu's, its decode rows to decode.cu's (the same split plan: the
+   same table width and row count), and a prefill lane at seq_len = S to
+   chunk.cu's chunk at start 0 over the same K/V in pages. Each row
+   carries its kernels' registers and spills from the build's ptxas
+   output. This is the numerical check of the kernels on random inputs.
 4. The engine for llama-3.1-8b-instruct at full width and depth, random
    bf16 weights from seed 0: a full prefill, a decode step, a chunked
    prefill and a mixed step (the decode row beside a 256-token chunk)
@@ -206,8 +210,7 @@ def ptxas_usage(log: str) -> dict:
             fn = (mangled[n.end():n.end() + int(n.group(1))] if n
                   else mangled)
             args = re.findall(r"ILi(\d+)E", mangled)  # head_dim, if any
-            args += [p for p in ("Bf16Tiles", "Int8Tiles", "Bf16Rows",
-                                 "Int8Rows") if p in mangled]
+            args += [p for p in ("Bf16Tiles", "Int8Tiles") if p in mangled]
             fn += f"<{', '.join(args)}>" if args else ""
             usage[src][fn] = {}
             continue
@@ -359,23 +362,25 @@ def kernel_checks(dev) -> dict:
     pools = {"": (kp, vp, kp, vp, 2 * KV * D, None),
              "_int8": (kp8, vp8, kq, vq, INT8_ROW_BYTES, KV)}
 
-    # decode: the engine's batch of 8 slots, ragged contexts incl. ctx 0
-    pmax = MAX_SEQ_LEN // PS
-    ctx = torch.tensor([0, 1, 17, 100, 255, 600, 1024, 2048],
-                       dtype=torch.int32)
     perm = torch.randperm(NUM_PAGES - 1,
                           generator=torch.Generator().manual_seed(1))
-    table = torch.zeros((MAX_SEQS, pmax), dtype=torch.int32)
-    used = 0  # distinct pages for every sequence (256 of 1023 in all)
-    for b, c in enumerate(ctx.tolist()):
-        n = -(-c // PS)
-        table[b, :n] = perm[used:used + n] + 1
-        used += n
-    table_d, ctx_d = table.to(dev), ctx.to(dev)
-    q = rnd(MAX_SEQS, H, D)
-    for sfx, (k, v, kl, vl, row_bytes, n_kv) in pools.items():
-        rows["decode" + sfx] = check(
-            "decode" + sfx,
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def decode_table(contexts, width):
+        """A [MAX_SEQS, width] block table giving each sequence distinct
+        pages, trash-padded."""
+        table = torch.zeros((MAX_SEQS, width), dtype=torch.int32)
+        used = 0
+        for b, c in enumerate(contexts):
+            n = -(-c // PS)
+            table[b, :n] = perm[used:used + n] + 1
+            used += n
+        return table
+
+    def check_decode(name, table, ctx, k, v, kl, vl, row_bytes, n_kv):
+        table_d, ctx_d = table.to(dev), ctx.to(dev)
+        return check(
+            name,
             lambda: ca.paged_attention_decode(q, k, v, table_d, ctx_d,
                                               page_size=PS,
                                               num_kv_heads=n_kv),
@@ -387,7 +392,32 @@ def kernel_checks(dev) -> dict:
                                    enumerate(ctx.tolist())], row_bytes,
                        MAX_SEQS),
             {"q": [MAX_SEQS, H, D], "pools": list(k.shape),
-             "block_table": [MAX_SEQS, pmax], "context_lens": ctx.tolist()})
+             "block_table": list(table.shape), "context_lens": ctx.tolist(),
+             "split_keys": ca.split_keys(table.shape[1], PS, MAX_SEQS, KV,
+                                         sms)})
+
+    # decode: the engine's batch of 8 slots, ragged contexts incl. ctx 0,
+    # on its 128-page tables (8 spans of 256 keys)
+    pmax = MAX_SEQ_LEN // PS
+    ctx = torch.tensor([0, 1, 17, 100, 255, 600, 1024, 2048],
+                       dtype=torch.int32)
+    table = decode_table(ctx.tolist(), pmax)  # 256 of the 1023 pages
+    table_d, ctx_d = table.to(dev), ctx.to(dev)
+    q = rnd(MAX_SEQS, H, D)
+    for sfx, (k, v, kl, vl, row_bytes, n_kv) in pools.items():
+        rows["decode" + sfx] = check_decode("decode" + sfx, table, ctx, k, v,
+                                            kl, vl, row_bytes, n_kv)
+    # a 512-page table with one row at 8192 tokens: 8 spans of 1024 keys
+    # (bf16 pools)
+    ctx_l = torch.tensor([0, 1, 100, 255, 600, 1024, 2048, 8192],
+                         dtype=torch.int32)
+    rows["decode_long"] = check_decode(
+        "decode_long", decode_table(ctx_l.tolist(), 512), ctx_l,
+        *pools[""])  # 766 of the 1023 pages
+    span = rows["decode_long"]["shapes"]["split_keys"]
+    if span <= ca.SPLIT_KEYS:
+        raise AssertionError(f"decode_long: the spans did not widen past "
+                             f"{ca.SPLIT_KEYS} keys: {span}")
 
     # prefill: a batch of same-bucket prompts, one below its bucket
     n, s = 4, 256
@@ -401,6 +431,18 @@ def kernel_checks(dev) -> dict:
     kt = kk.repeat_interleave(H // KV, 2).transpose(1, 2).contiguous()
     vt = vv.repeat_interleave(H // KV, 2).transpose(1, 2).contiguous()
     pairs = sum(min(r + 1, int(L)) for L in lens.tolist() for r in range(s))
+    # lane 0 (seq_len = S) through chunk.cu at start 0 over the same K/V
+    # written to pages 1 .. S / PS: the same tile, bit-identical
+    pk = torch.zeros((s // PS + 1, PS, KV * D), dtype=torch.bfloat16,
+                     device=dev)
+    pv = torch.zeros_like(pk)
+    pk[1:] = kk[0].reshape(s // PS, PS, KV * D)
+    pv[1:] = vv[0].reshape(s // PS, PS, KV * D)
+    lane0 = ca.chunk_prefill_attention(
+        qp[0], pk, pv, torch.arange(1, s // PS + 1, dtype=torch.int32,
+                                    device=dev), 0, page_size=PS)
+    lane0_equal = torch.equal(ca.prefill_attention(qp, kk, vv, lens_d)[0],
+                              lane0)
     # q read and out written in full (padded rows are part of the output);
     # K/V only below seq_len, the rows the mask lets any query see
     rows["prefill"] = check(
@@ -410,7 +452,11 @@ def kernel_checks(dev) -> dict:
         lambda: sdpa(qt, kt, vt, pmask),
         bound(2 * 2 * qp.numel() + 2 * int(lens.sum()) * KV * D * 2 + 4 * n,
               4 * pairs * H * D),
-        {"q": [n, s, H, D], "kv": [n, s, KV, D], "seq_lens": lens.tolist()})
+        {"q": [n, s, H, D], "kv": [n, s, KV, D], "seq_lens": lens.tolist()},
+        {"lane0_equals_chunk_cu": lane0_equal})
+    if not lane0_equal:
+        raise AssertionError("prefill: a lane at seq_len = S differs from "
+                             "chunk.cu's chunk at start 0")
 
     # chunk: the third 256-token chunk of a 600-token prompt (start 512) on
     # its trash-padded page list (the trash tail repeats page 0)
@@ -500,8 +546,9 @@ def kernel_checks(dev) -> dict:
                 tabs[:MAX_SEQS], q_starts[:MAX_SEQS], kv_lens[:MAX_SEQS])
             chk_lib = paged_library(qr[nd:][None], kl, vl, tabs[-1:],
                                     q_starts[-1:], kv_lens[-1:])
-            # the same rows through chunk.cu (the same tile: bit-identical)
-            # and decode.cu (another loop: within the tolerance)
+            # the same rows through chunk.cu and decode.cu: the same tile
+            # blocks, so bit-identical (decode.cu's under the same split
+            # plan: the same table width and row count)
             out = kernel()
             chk = ca.chunk_prefill_attention(
                 qr[nd:], k, v, pages_d, start, page_size=PS,
@@ -513,10 +560,16 @@ def kernel_checks(dev) -> dict:
                 dec = ca.paged_attention_decode(
                     qr[:nd], k, v, table_d, rctx_d,
                     page_size=PS, num_kv_heads=n_kv)
-                vs_dec = disagreement(out[:nd], dec)
-                extra.update(max_abs_diff_vs_decode_cu=vs_dec[0],
-                             max_row_rel_diff_vs_decode_cu=vs_dec[1],
-                             decode_rows_agree_with_decode_cu=vs_dec[2])
+                same_plan = tabs.shape[1] == table_d.shape[1]
+                equal = torch.equal(out[:nd], dec)
+                extra.update(
+                    max_abs_diff_vs_decode_cu=float(
+                        (out[:nd].float() - dec.float()).abs().max()),
+                    same_split_plan_as_decode_cu=same_plan,
+                    decode_rows_equal_decode_cu=equal,
+                    decode_rows_agree_with_decode_cu=(
+                        equal if same_plan else disagreement(out[:nd],
+                                                             dec)[2]))
             rows[name] = check(
                 name, kernel, plain, lambda: (dec_lib(), chk_lib()),
                 paged_cost(qr.numel(), spans, row_bytes,

@@ -1,17 +1,12 @@
 // Shared device code of the port's attention kernels (decode.cu, prefill.cu,
-// chunk.cu, ragged.cu).
+// chunk.cu, ragged.cu): `attend_mma`, the tensor-core query tile all four
+// run, its K/V policies, and the split decode rows of decode.cu and
+// ragged.cu (`decode_split_block`, `merge_splits_kernel`).
 //
-// Two block-level device functions. `attend` (decode.cu, prefill.cu) runs
-// on CUDA cores and is described first; `attend_mma` (chunk.cu, ragged.cu),
-// the tensor-core query tile, is described at its definition below. Both
-// keep the same contract: the mask, the horizon, the GQA row mapping and
-// exact zeros for a row that sees no key.
-//
-// `attend`: a thread block owns `nq` query
-// positions x `group` query heads of ONE KV head (rows r = i * group + g,
-// query head kvh * group + g reads KV head kvh, the GQA mapping of the JAX
-// package's repeat_kv), and walks that KV head's keys in tiles of kTile
-// tokens with an f32 online softmax. The mask is the general one of the TPU
+// A block owns query positions x the `group` = H/KV query heads of ONE KV
+// head (rows r = i * group + g, query head kvh * group + g reads KV head
+// kvh, the GQA mapping of the JAX package's repeat_kv), so each K/V tile is
+// read once for the whole group. The mask is the general one of the TPU
 // kernels:
 //
 //     key tok is visible to query i  <=>  tok <= qpos0 + i  and  tok < kv_len
@@ -25,17 +20,8 @@
 // no key at all (decode ctx 0, prefill seq_len 0) writes exact zeros, as
 // the TPU kernels do.
 //
-// Two policies feed `attend`: `Rows` says where token tok's K/V row starts
-// (PagedRows through a page list, DenseRows in a dense block), and `KVRows`
-// how a row is read. Bf16Rows reads a head's D bf16 values (lanes
-// [kvh*D, (kvh+1)*D) of a KV*D row) with 16-byte loads; Int8Rows reads the
-// packed int8 row [KV*D int8 values | KV bf16 scales | pad] of the
-// `kv_cache_dtype="int8"` pools, 16 values per 16-byte load, and the head's
-// bf16 scale at byte KV*D + 2*kvh, and dequantizes value * scale in f32
-// (exact, as the TPU kernels' _dequant_rows). Either way keys and values
-// reach shared memory as f32; q is scaled by 1/sqrt(D) in f32 once. Scores,
-// softmax and the PV product run in f32 on CUDA cores; `attend` makes no
-// use of the tensor cores (attend_mma below does).
+// `Rows` says where token tok's K/V row starts: PagedRows through a page
+// list (decode, chunk, ragged), DenseRows in a dense block (prefill).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,18 +33,6 @@
 #include <type_traits>
 
 namespace dtt {
-
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kTile = 32;      // keys per tile: one key per lane
-constexpr int kMaxAcc = 32;    // f32 accumulators per thread
-// rows * D a block may hold in registers: attend() keeps no output past
-// it, so every entry point refuses a launch beyond it (fits_accumulators),
-// and the Python wrappers read it from dtt_max_rows_times_dim().
-constexpr int kMaxRowsTimesDim = kThreads * kMaxAcc;
-
-inline bool fits_accumulators(int rows, int d) {
-  return rows > 0 && d > 0 && (long long)rows * d <= kMaxRowsTimesDim;
-}
 
 // Offset (in pool elements) of token `tok`'s K/V row in a paged pool
 // [P, ps, W].
@@ -81,182 +55,6 @@ struct DenseRows {
   }
 };
 
-// K/V rows of bf16 values.
-struct Bf16Rows {
-  static constexpr int kVec = 8;  // values per 16-byte load
-  const __nv_bfloat16* __restrict__ k;
-  const __nv_bfloat16* __restrict__ v;
-  // chunk c (kVec values) of head kvh's D values in the row at `row`
-  __device__ __forceinline__ void load(long long row, int kvh, int d, int c,
-                                       float* kd, float* vd) const {
-    const long long off = row + (long long)kvh * d + c * kVec;
-    const uint4 kr = __ldg(reinterpret_cast<const uint4*>(k + off));
-    const uint4 vr = __ldg(reinterpret_cast<const uint4*>(v + off));
-    const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kr);
-    const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&vr);
-#pragma unroll
-    for (int e = 0; e < kVec / 2; ++e) {
-      const float2 kf = __bfloat1622float2(k2[e]);
-      const float2 vf = __bfloat1622float2(v2[e]);
-      kd[2 * e] = kf.x;
-      kd[2 * e + 1] = kf.y;
-      vd[2 * e] = vf.x;
-      vd[2 * e + 1] = vf.y;
-    }
-  }
-};
-
-// Packed int8 K/V rows [KV*D int8 | KV bf16 scales | pad]; the lane width W
-// is a multiple of 128, so every row starts 16-byte aligned, and D % 16 == 0
-// keeps each head's values so.
-struct Int8Rows {
-  static constexpr int kVec = 16;
-  const int8_t* __restrict__ k;
-  const int8_t* __restrict__ v;
-  int kvd;  // KV*D: the byte offset of the scales in a row
-  __device__ __forceinline__ void load(long long row, int kvh, int d, int c,
-                                       float* kd, float* vd) const {
-    const long long off = row + (long long)kvh * d + c * kVec;
-    const uint4 kr = __ldg(reinterpret_cast<const uint4*>(k + off));
-    const uint4 vr = __ldg(reinterpret_cast<const uint4*>(v + off));
-    // the scale: a bf16 at an even byte offset, widened to f32 exactly
-    const long long sc = row + kvd + 2 * kvh;
-    const float ks = __uint_as_float(
-        (unsigned)__ldg(reinterpret_cast<const unsigned short*>(k + sc)) << 16);
-    const float vs = __uint_as_float(
-        (unsigned)__ldg(reinterpret_cast<const unsigned short*>(v + sc)) << 16);
-    const int8_t* k8 = reinterpret_cast<const int8_t*>(&kr);
-    const int8_t* v8 = reinterpret_cast<const int8_t*>(&vr);
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      kd[e] = (float)k8[e] * ks;
-      vd[e] = (float)v8[e] * vs;
-    }
-  }
-};
-
-inline size_t smem_bytes(int rows, int d) {
-  return sizeof(float) * ((size_t)rows * d           // q
-                          + 2 * (size_t)kTile * (d + 1)  // K and V tiles
-                          + (size_t)rows * kTile     // scores / probs
-                          + 3 * (size_t)rows);       // m, l, alpha
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// q element (i, g, dd) is q[q_off + i * q_row_stride + g * d + dd]; the
-// output uses the same addressing. kvh is the KV head the block reads.
-template <typename KVRows, typename Rows>
-__device__ __forceinline__ void attend(
-    const __nv_bfloat16* __restrict__ q, long long q_off, int q_row_stride,
-    KVRows kv, Rows rows, int kvh, __nv_bfloat16* __restrict__ out, int nq,
-    int group, int d, int qpos0, int kv_len, float scale) {
-  extern __shared__ float smem[];
-  const int n_rows = nq * group;
-  const int kv_stride = d + 1;  // +1 float: conflict-free column reads
-  float* qs = smem;                       // [n_rows, d]
-  float* ks = qs + n_rows * d;            // [kTile, d + 1]
-  float* vs = ks + kTile * kv_stride;     // [kTile, d + 1]
-  float* ps = vs + kTile * kv_stride;     // [n_rows, kTile]
-  float* m_s = ps + n_rows * kTile;       // [n_rows] running max
-  float* l_s = m_s + n_rows;              // [n_rows] running denominator
-  float* a_s = l_s + n_rows;              // [n_rows] this tile's rescale
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  for (int idx = tid; idx < n_rows * d; idx += kThreads) {
-    const int r = idx / d, dd = idx - r * d;
-    const int i = r / group, g = r - i * group;
-    qs[idx] = __bfloat162float(q[q_off + (long long)i * q_row_stride + g * d + dd]) * scale;
-  }
-  for (int r = tid; r < n_rows; r += kThreads) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.f;
-  }
-  float acc[kMaxAcc];
-#pragma unroll
-  for (int j = 0; j < kMaxAcc; ++j) acc[j] = 0.f;
-  __syncthreads();
-
-  const int horizon = min(qpos0 + nq, kv_len);
-  const int vecs = d / KVRows::kVec;  // 16-byte chunks of a head's row
-  for (int t0 = 0; t0 < horizon; t0 += kTile) {
-    const int n = min(kTile, horizon - t0);
-    for (int idx = tid; idx < n * vecs; idx += kThreads) {
-      const int t = idx / vecs, c = idx - t * vecs;
-      kv.load(rows(t0 + t), kvh, d, c, ks + t * kv_stride + c * KVRows::kVec,
-              vs + t * kv_stride + c * KVRows::kVec);
-    }
-    __syncthreads();
-
-    // scores and the online-softmax update: one warp per row, lane = key
-    for (int r = warp; r < n_rows; r += kThreads / 32) {
-      const int i = r / group;
-      const int tok = t0 + lane;
-      float s = -INFINITY;
-      if (lane < n && tok <= qpos0 + i && tok < kv_len) {
-        const float* qr = qs + r * d;
-        const float* kr = ks + lane * kv_stride;
-        float dot = 0.f;
-        for (int dd = 0; dd < d; ++dd) dot = fmaf(qr[dd], kr[dd], dot);
-        s = dot;
-      }
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, warp_max(s));
-      float p = 0.f, alpha = 1.f;
-      if (m_new != -INFINITY) {  // never exp(-inf - -inf)
-        p = (s == -INFINITY) ? 0.f : __expf(s - m_new);
-        alpha = __expf(m_old - m_new);  // 0 while the row saw nothing
-      }
-      const float sum = warp_sum(p);
-      ps[r * kTile + lane] = p;
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + sum;
-        a_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P V, thread-owned (row, lane-of-D) outputs
-#pragma unroll
-    for (int j = 0; j < kMaxAcc; ++j) {
-      const int idx = tid + j * kThreads;
-      if (idx < n_rows * d) {
-        const int r = idx / d, dd = idx - r * d;
-        const float* pr = ps + r * kTile;
-        float a = acc[j] * a_s[r];
-        for (int t = 0; t < n; ++t) a = fmaf(pr[t], vs[t * kv_stride + dd], a);
-        acc[j] = a;
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int j = 0; j < kMaxAcc; ++j) {
-    const int idx = tid + j * kThreads;
-    if (idx < n_rows * d) {
-      const int r = idx / d, dd = idx - r * d;
-      const int i = r / group, g = r - i * group;
-      const float l = l_s[r];
-      const float o = l > 0.f ? acc[j] / l : 0.f;
-      out[q_off + (long long)i * q_row_stride + g * d + dd] = __float2bfloat16(o);
-    }
-  }
-}
-
 // Dynamic shared memory above 48 KB must be opted into per kernel.
 template <typename Kernel>
 inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
@@ -264,10 +62,10 @@ inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// attend_mma: the tensor-core query tile of chunk.cu and ragged.cu.
+// attend_mma: the tensor-core query tile.
 //
 // A block owns kTileRows = 64 query rows of ONE KV head, rows r = i * group
-// + g as in `attend` (i a position, g the head in the GQA group). Rows past
+// + g (i a position, g the head in the GQA group). Rows past
 // nq * group are zero queries whose outputs are not written. The block
 // walks its keys [key_lo, hi) with hi = min(qpos0 + nq, kv_len, key_hi) in
 // tiles of kKeyTile = 64 keys, with two warpgroups of 4 warps: warp w of
@@ -306,16 +104,16 @@ inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
 //
 // Output: the normalized bf16 rows at the q addressing (TileOut::out), or
 // (out == nullptr) the unnormalized partial of the key range: O in f32 at
-// part_o and (m, l) at part_ml, m in log2 units, for a later merge
-// (ragged.cu's split decode rows). A row that sees no key writes exact
-// zeros, or m = -inf, l = 0.
+// part_o and (m, l) at part_ml, m in log2 units, for a later merge (the
+// split decode rows below). A row that sees no key writes exact zeros, or
+// m = -inf, l = 0.
 constexpr int kTileRows = 64;     // query rows per block: 4 warps x 16
 constexpr int kTileThreads = 256;  // two warpgroups, one per key half
 constexpr int kKeyTile = 64;      // keys per K/V tile: 4 pages of 16
 constexpr int kHalfKeys = kKeyTile / 2;  // keys of a tile per warpgroup
 constexpr int kStages = 3;        // the cp.async ring: two tiles in flight
 constexpr int kMaxTileDim = 128;  // largest head_dim
-constexpr int kSplitKeys = 256;   // least keys per split of a ragged decode row
+constexpr int kSplitKeys = 256;   // least keys per split of a decode row
 constexpr int kSplitBlocksPerSm = 4;  // most decode blocks per SM, all splits
 
 // The head_dims the tile is compiled for (with_head_dim): those of the
@@ -329,12 +127,12 @@ inline bool tile_fits(int group, int d) {
 // query positions per attend_mma block
 inline int tile_positions(int group) { return kTileRows / group; }
 
-// Keys per split of a ragged decode row whose page list holds max_tok keys,
-// with num_decode rows x kv heads on num_sms SMs: kSplitKeys, or more where
+// Keys per split of a decode row whose page list holds max_tok keys, with
+// num_decode rows x kv heads on num_sms SMs: kSplitKeys, or more where
 // kSplitKeys would give the rows more than kSplitBlocksPerSm blocks per SM
 // in all, rounded up to whole key tiles. So the decode blocks and the
 // partials' scratch stay bounded by the card, not by the table's width.
-inline long long ragged_split_keys(long long max_tok, int num_decode, int kv,
+inline long long decode_split_keys(long long max_tok, int num_decode, int kv,
                                    int num_sms) {
   const long long pairs = std::max(1LL, (long long)num_decode * kv);
   const long long cap =
@@ -347,7 +145,7 @@ inline long long ragged_split_keys(long long max_tok, int num_decode, int kv,
 }
 
 // splits of max_tok keys in spans of split_keys
-inline int ragged_splits(long long max_tok, long long split_keys) {
+inline int decode_splits(long long max_tok, long long split_keys) {
   return (int)std::max(1LL, (max_tok + split_keys - 1) / split_keys);
 }
 
@@ -836,6 +634,120 @@ __device__ __forceinline__ void attend_mma(
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Split decode rows (decode.cu, and the decode rows of ragged.cu).
+//
+// A decode row, decode_q queries of one sequence at qpos0 .. qpos0 +
+// decode_q - 1 over its page list of W pages, is split along its keys into
+// num_splits spans of split_keys keys (decode_split_keys: from the list's
+// width, the row count and the SM count on the host; the kv_lens live on
+// the card and are never read back). One block per (row, span, KV head)
+// runs attend_mma over the span's keys and writes its unnormalized partial
+// (O, m, l) in f32; a span at or past its row's horizon writes m = -inf,
+// l = 0 and exits. merge_splits_kernel then folds the spans into the bf16
+// rows. So a 2048-token row runs on 8 SMs instead of serially on one. The
+// block runs the 64-row tile with decode_q x group real rows: the rows are
+// bound by bytes, and the MMA lanes the padding wastes cost no bytes.
+
+// The partials' scratch: split s of decode query n (of nd in all), head h
+// at part_o[((s * nd + n) * heads + h) * D ..] and part_ml[.. * 2 + {0, 1}].
+struct Splits {
+  float* part_o;
+  float* part_ml;
+  long long nd;
+  int num_splits;
+  int split_keys;
+};
+
+// Decode block bx of a grid of (row, span) blocks, span fastest, for KV
+// head kvh: row b = bx / num_splits reads page list tables[b] [W] up to
+// min(kv_lens[b], W * page_size) keys; its queries sit at q_starts[b] ..,
+// or without q_starts (decode.cu: one query per row) at kv_lens[b] - 1.
+// q and its rows as in ragged_kernel: query j of row b, head h at
+// q[((b * decode_q + j) * heads + h) * kD ..].
+template <int kD, typename KVTiles>
+__device__ __forceinline__ void decode_split_block(
+    int bx, int kvh, const __nv_bfloat16* __restrict__ q, KVTiles kv,
+    const int* __restrict__ tables, int W, int page_size, int lane_width,
+    const int* __restrict__ kv_lens, const int* __restrict__ q_starts,
+    int decode_q, int group, int heads, float scale, Splits sp) {
+  const int b = bx / sp.num_splits, s = bx - b * sp.num_splits;
+  const int kv_len = kv_lens[b];
+  const int qpos0 = q_starts ? q_starts[b] : kv_len - 1;
+  const PagedRows rows{tables + (long long)b * W, page_size, lane_width};
+  attend_mma<kD>(q, ((long long)b * decode_q * heads + kvh * group) * kD,
+                 heads * kD, kv, rows, kvh, decode_q, group, qpos0,
+                 min(kv_len, W * page_size), s * sp.split_keys,
+                 (s + 1) * sp.split_keys, scale,
+                 TileOut{nullptr, sp.part_o + s * sp.nd * heads * kD,
+                         sp.part_ml + s * sp.nd * heads * 2,
+                         (long long)b * decode_q, heads});
+}
+
+constexpr int kMergeThreads = 128;  // 4 warps, one (query, head) each
+
+// out[pair * kD ..] for pair = decode query * heads + head, from the
+// partials of num_splits spans: the log-sum-exp merge O = sum_s O_s
+// 2^(m_s - M) / sum_s l_s 2^(m_s - M) with M = max_s m_s, skipping empty
+// spans; exact zeros where every span was empty.
+template <int kD>
+__global__ void __launch_bounds__(kMergeThreads) merge_splits_kernel(
+    const float* __restrict__ part_o, const float* __restrict__ part_ml,
+    __nv_bfloat16* __restrict__ out, int n_pairs, int num_splits) {
+  const int pair = blockIdx.x * (kMergeThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (pair >= n_pairs) return;
+  float big = -INFINITY;
+  for (int s = 0; s < num_splits; ++s)
+    big = fmaxf(big, part_ml[2 * ((long long)s * n_pairs + pair)]);
+  constexpr int kPer = kD / 32;  // values per lane
+  float acc[kPer] = {};
+  float denom = 0.f;
+  if (big != -INFINITY) {
+    for (int s = 0; s < num_splits; ++s) {
+      const long long p = (long long)s * n_pairs + pair;
+      const float m = part_ml[2 * p];
+      if (m == -INFINITY) continue;  // an empty span: its O is never written
+      const float w = exp2f(m - big);
+      denom += w * part_ml[2 * p + 1];
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) acc[c] += w * part_o[p * kD + lane + 32 * c];
+    }
+  }
+  const float inv = denom > 0.f ? 1.f / denom : 0.f;
+#pragma unroll
+  for (int c = 0; c < kPer; ++c)
+    out[(long long)pair * kD + lane + 32 * c] = __float2bfloat16(acc[c] * inv);
+}
+
+// 0 where (split_keys, num_splits) is the plan of num_decode rows of kv
+// heads over max_tok-key page lists on the current device, else the error
+// to return: the entry points refuse a plan other than their own.
+inline int check_split_plan(long long max_tok, int num_decode, int kv,
+                            long long split_keys, int num_splits) {
+  int device = 0, num_sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return (int)err;
+  return split_keys == decode_split_keys(max_tok, num_decode, kv, num_sms)
+                 && num_splits == decode_splits(max_tok, split_keys)
+             ? 0
+             : (int)cudaErrorInvalidValue;
+}
+
+// Merges n_pairs (query, head) rows of num_splits partials into out.
+template <int kD>
+inline int launch_merge(const Splits& sp, __nv_bfloat16* out, int n_pairs,
+                        cudaStream_t stream) {
+  constexpr int per_block = kMergeThreads / 32;
+  merge_splits_kernel<kD><<<(n_pairs + per_block - 1) / per_block,
+                            kMergeThreads, 0, stream>>>(
+      sp.part_o, sp.part_ml, out, n_pairs, sp.num_splits);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace dtt

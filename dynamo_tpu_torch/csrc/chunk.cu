@@ -21,8 +21,8 @@
 // registers, two warpgroups splitting each 64-key tile, and the K/V tiles
 // streamed through a three-stage cp.async ring. A 256-token chunk with
 // group 4 is 16 x 8 = 128 blocks: one wave on the 132 SMs. Each query tile
-// re-reads its causal prefix, 16 times per chunk (32 with the CUDA-core
-// tile of 8 positions), and mostly from the 50 MB L2: the 3 MB of K/V are
+// re-reads its causal prefix, 16 times per chunk, and mostly from the
+// 50 MB L2: the 3 MB of K/V are
 // read from device memory about once. What holds the tile back is latency,
 // not the tensor cores: with one block per SM, the 16-byte copies (2048 per
 // tile, made by the math warps), the barriers and the softmax's
@@ -99,8 +99,9 @@ extern "C" int dtt_chunk_int8(const void* q, const void* k_pages,
                            lane_width, start, positions, scale, stream);
 }
 
-// Query positions per block of chunk.cu and ragged.cu for a GQA group and
-// head_dim, or 0 where the tile refuses them.
+// Query positions per block of the tensor-core tile (chunk.cu, prefill.cu
+// and ragged.cu's chunk tiles) for a GQA group and head_dim, or 0 where
+// the tile refuses them.
 extern "C" int dtt_chunk_positions(int group, int D) {
   return dtt::tile_fits(group, D) ? dtt::tile_positions(group) : 0;
 }

@@ -5,89 +5,123 @@
 // context through the block table, mask tok < ctx (ctx counts the token
 // written this step), ctx 0 -> zeros. Pools are [P, ps, W] with page 0 as
 // the trash page: bf16 rows (W = KV*D, dtt_paged_decode) or the int8 packed
-// rows of kv_cache_dtype="int8" (dtt_paged_decode_int8), dequantized on read
-// as the TPU kernel's int8 branch does.
+// rows of kv_cache_dtype="int8" (dtt_paged_decode_int8), whose scales fold
+// into the scores and probabilities as the TPU kernel's int8 branch
+// dequantizes (attention_common.cuh).
 //
 // Bound on the H100: bytes. Each step reads every valid K and V row of every
-// sequence once (2 * sum(ctx) * KV * D * 2 bytes in bf16, 2 * sum(ctx) * W
-// bytes in int8) and does ~4 FLOPs per bf16 byte, far below the ~295
-// FLOP/byte where the tensor cores would bind.
+// sequence once (2 * sum(ctx) * KV * D * 2 bytes in bf16, 2 * sum(ctx) *
+// (KV * D + 2 * KV) bytes in int8) and does ~1 FLOP per byte per query
+// head, far below the ~295 FLOP/byte where the tensor cores would bind.
 //
-// Design: one block per (sequence, KV head). The block holds the
-// group = H/KV query heads that share the KV head, so each K/V byte is read
-// from device memory once per step (not once per query head), walks the
-// sequence's pages up to ctx in 32-token tiles with 16-byte loads, and keeps
-// an f32 online softmax (attention_common.cuh). The TPU machinery (the
-// sequential grid with its SMEM DMA cursor, the num_bufs ring, the
-// block-diagonal [H, KV*D] query) does not come across: blocks run in
-// parallel and load their own tiles. Split-K over long contexts, cp.async or
-// TMA pipelining and wgmma are later work.
+// Design: the split decode rows of attention_common.cuh, two kernels on one
+// stream counted as one call. decode_kernel runs one block per (sequence,
+// key span, KV head): the tensor-core tile attend_mma over the span's keys
+// with the group = H/KV query heads that share the KV head as its real
+// rows (so each K/V byte is read once per step, not once per query head),
+// K/V through the cp.async ring, writing the span's f32 partial; spans of
+// decode_split_keys keys (256, widened so that the blocks stay within 4
+// per SM), planned on the host from the table's width, the batch and the
+// SM count, never from context_lens. merge_splits_kernel folds the spans
+// into the bf16 rows. So a 2048-token context runs on 8 SMs, not serially
+// on one; the blocks are ragged.cu's decode blocks, and a row here is
+// bit-identical to the same row there under the same plan. The TPU
+// machinery (the sequential grid with its SMEM DMA cursor, the num_bufs
+// ring, the block-diagonal [H, KV*D] query) does not come across.
+#include <limits.h>
+
 #include "attention_common.cuh"
 
 namespace dtt {
 
-template <typename KVRows>
-__global__ void __launch_bounds__(kThreads) decode_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [B, H, D]
-    KVRows kv,                            // pools [P, ps, W]
+template <int kD, typename KVTiles>
+__global__ void __launch_bounds__(kTileThreads) decode_kernel(
+    const __nv_bfloat16* __restrict__ q,  // [B, H, kD]
+    KVTiles kv,                           // pools [P, ps, lane_width]
     const int* __restrict__ block_table,  // [B, pmax]
     const int* __restrict__ context_lens, // [B]
-    __nv_bfloat16* __restrict__ out,      // [B, H, D]
-    int H, int KV, int D, int page_size, int pmax, int lane_width,
-    float scale) {
-  const int b = blockIdx.x, kvh = blockIdx.y;
-  const int group = H / KV;
-  const int ctx = context_lens[b];
-  const PagedRows rows{block_table + (long long)b * pmax, page_size,
-                       lane_width};
-  attend(q, ((long long)b * H + kvh * group) * D, H * D, kv, rows, kvh, out,
-         /*nq=*/1, group, D, /*qpos0=*/ctx - 1, /*kv_len=*/ctx, scale);
+    int H, int KV, int page_size, int pmax, int lane_width, float scale,
+    Splits sp) {
+  const int bx = blockIdx.x / KV, kvh = blockIdx.x - bx * KV;
+  decode_split_block<kD>(bx, kvh, q, kv, block_table, pmax, page_size,
+                         lane_width, context_lens, /*q_starts=*/nullptr,
+                         /*decode_q=*/1, H / KV, H, scale, sp);
 }
 
-template <typename KVRows>
-int launch_decode(const void* q, KVRows kv, const void* block_table,
-                  const void* context_lens, void* out, int B, int H, int KV,
-                  int D, int page_size, int pmax, int lane_width, float scale,
-                  void* stream) {
-  if (!fits_accumulators(H / KV, D)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(H / KV, D);
-  cudaError_t err = set_smem(decode_kernel<KVRows>, smem);
-  if (err != cudaSuccess) return (int)err;
-  decode_kernel<KVRows><<<dim3(B, KV), kThreads, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, kv, (const int*)block_table,
-      (const int*)context_lens, (__nv_bfloat16*)out, H, KV, D, page_size, pmax,
-      lane_width, scale);
-  return (int)cudaGetLastError();
+template <typename KVTiles>
+int launch_decode(const void* q, KVTiles kv, const void* block_table,
+                  const void* context_lens, void* out, void* part_o,
+                  void* part_ml, int B, int H, int KV, int D, int page_size,
+                  int pmax, int lane_width, int num_splits, int split_keys,
+                  float scale, void* stream) {
+  if (B < 1 || KV < 1 || H % KV || pmax < 1 || !tile_fits(H / KV, D)
+      || part_o == nullptr || part_ml == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int plan = check_split_plan((long long)pmax * page_size, B, KV,
+                                    split_keys, num_splits);
+  if (plan != 0) return plan;
+  const long long blocks = (long long)B * num_splits * KV;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const size_t smem = tile_smem_bytes<KVTiles>(D);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Splits sp{(float*)part_o, (float*)part_ml, B, num_splits, split_keys};
+  return with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    const cudaError_t set = set_smem(decode_kernel<kD, KVTiles>, smem);
+    if (set != cudaSuccess) return (int)set;
+    decode_kernel<kD, KVTiles><<<(unsigned)blocks, kTileThreads, smem, st>>>(
+        (const __nv_bfloat16*)q, kv, (const int*)block_table,
+        (const int*)context_lens, H, KV, page_size, pmax, lane_width, scale,
+        sp);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+    return launch_merge<kD>(sp, (__nv_bfloat16*)out, B * H, st);
+  });
 }
 
 }  // namespace dtt
 
 extern "C" int dtt_paged_decode(const void* q, const void* k_pages,
                                 const void* v_pages, const void* block_table,
-                                const void* context_lens, void* out, int B,
-                                int H, int KV, int D, int page_size, int pmax,
-                                float scale, void* stream) {
-  const dtt::Bf16Rows kv{(const __nv_bfloat16*)k_pages,
-                         (const __nv_bfloat16*)v_pages};
-  return dtt::launch_decode(q, kv, block_table, context_lens, out, B, H, KV,
-                            D, page_size, pmax, KV * D, scale, stream);
+                                const void* context_lens, void* out,
+                                void* part_o, void* part_ml, int B, int H,
+                                int KV, int D, int page_size, int pmax,
+                                int num_splits, int split_keys, float scale,
+                                void* stream) {
+  const dtt::Bf16Tiles kv{(const __nv_bfloat16*)k_pages,
+                          (const __nv_bfloat16*)v_pages};
+  return dtt::launch_decode(q, kv, block_table, context_lens, out, part_o,
+                            part_ml, B, H, KV, D, page_size, pmax, KV * D,
+                            num_splits, split_keys, scale, stream);
 }
 
 extern "C" int dtt_paged_decode_int8(const void* q, const void* k_pages,
                                      const void* v_pages,
                                      const void* block_table,
                                      const void* context_lens, void* out,
-                                     int B, int H, int KV, int D,
-                                     int page_size, int pmax, int lane_width,
-                                     float scale, void* stream) {
-  if (D % dtt::Int8Rows::kVec) return (int)cudaErrorInvalidValue;
-  const dtt::Int8Rows kv{(const int8_t*)k_pages, (const int8_t*)v_pages,
-                         KV * D};
-  return dtt::launch_decode(q, kv, block_table, context_lens, out, B, H, KV,
-                            D, page_size, pmax, lane_width, scale, stream);
+                                     void* part_o, void* part_ml, int B,
+                                     int H, int KV, int D, int page_size,
+                                     int pmax, int lane_width, int num_splits,
+                                     int split_keys, float scale,
+                                     void* stream) {
+  if (lane_width % 16 || lane_width < KV * (D + 2))
+    return (int)cudaErrorInvalidValue;
+  const dtt::Int8Tiles kv{(const int8_t*)k_pages, (const int8_t*)v_pages,
+                          KV * D};
+  return dtt::launch_decode(q, kv, block_table, context_lens, out, part_o,
+                            part_ml, B, H, KV, D, page_size, pmax, lane_width,
+                            num_splits, split_keys, scale, stream);
 }
 
-extern "C" int dtt_max_rows_times_dim() { return dtt::kMaxRowsTimesDim; }
+// Keys per split of a decode row (decode.cu, ragged.cu) whose table holds
+// W pages of page_size, for num_decode rows of KV heads on a card of
+// num_sms SMs.
+extern "C" long long dtt_decode_split_keys(int W, int page_size,
+                                           int num_decode, int KV,
+                                           int num_sms) {
+  return dtt::decode_split_keys((long long)W * page_size, num_decode, KV,
+                                num_sms);
+}
 
 extern "C" const char* dtt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

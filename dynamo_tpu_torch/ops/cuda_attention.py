@@ -7,13 +7,13 @@ prompts), `chunk.cu` (chunked prefill over the paged cache) and `ragged.cu`
 `_decode_kernel`, `_prefill_kernel` and `_chunk_kernel` of
 `dynamo_tpu/ops/pallas_attention.py` and `_ragged_kernel` of
 `dynamo_tpu/ops/ragged_attention.py`; each source's header says what bounds
-it on the H100 and how its design answers that. Decode and prefill run on
-CUDA cores (`attend` in `attention_common.cuh`); chunk and ragged on the
-tensor cores (`attend_mma`: 64-row query tiles on mma.sync, K/V tiles
-through a cp.async ring), and the ragged kernel splits its decode rows
-along their keys and merges the splits in a second small kernel. The
-launch plans of the tensor-core tile (`tile_positions`, `split_keys`) are
-pure functions of host-known sizes. The three pool-reading
+it on the H100 and how its design answers that. All four run the
+tensor-core tile (`attend_mma` in `attention_common.cuh`: 64-row query
+tiles on mma.sync, K/V tiles through a cp.async ring); decode and the
+ragged kernel's decode rows are split along their keys, one block per
+(row, span, KV head), and the spans merged by a second small kernel. The
+launch plans of the tile (`tile_positions`, `split_plan`) are pure
+functions of host-known sizes. The three pool-reading
 kernels (decode, chunk, ragged) each have a bf16 and an int8 entry point,
 the latter for the packed rows of `kv_cache_dtype="int8"` pools; their
 wrappers take either pool and count the int8 launches under their own
@@ -38,6 +38,7 @@ of the same functions are in `dynamo_tpu_torch.ops.attention`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -57,13 +58,10 @@ LAUNCHES: Dict[str, int] = {
     "decode": 0, "prefill": 0, "chunk": 0, "ragged": 0,
     "decode_int8": 0, "chunk_int8": 0, "ragged_int8": 0}
 
-MAX_QUERY_TILE = 16  # prefill's CUDA-core tile (query_tile)
-
-# The tensor-core tile of chunk.cu and ragged.cu (attention_common.cuh:
-# kTileRows, tile_head_dim, kKeyTile, kSplitKeys, kSplitBlocksPerSm). The
-# library reports its own values (dtt_chunk_positions,
-# dtt_ragged_split_keys) and its entry points refuse a launch that
-# disagrees with them.
+# The tensor-core tile of every kernel (attention_common.cuh: kTileRows,
+# tile_head_dim, kKeyTile, kSplitKeys, kSplitBlocksPerSm). The library
+# reports its own values (dtt_chunk_positions, dtt_decode_split_keys) and
+# its entry points refuse a launch that disagrees with them.
 TILE_ROWS = 64
 TILE_HEAD_DIMS = (32, 64, 128)  # the head_dims the tile is compiled for
 KEY_TILE = 64
@@ -152,14 +150,14 @@ def build() -> ctypes.CDLL:
             build_log = log.read_text() if log.exists() else ""
         lib = ctypes.CDLL(str(so))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.dtt_paged_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                         f, p]
+        lib.dtt_paged_decode.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                         i, i, i, i, f, p]
         lib.dtt_prefill.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p]
         lib.dtt_chunk.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, p]
         lib.dtt_ragged.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
                                    i, i, i, i, i, i, f, p]
-        lib.dtt_paged_decode_int8.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                              i, i, i, f, p]
+        lib.dtt_paged_decode_int8.argtypes = [p, p, p, p, p, p, p, p, i, i,
+                                              i, i, i, i, i, i, i, f, p]
         lib.dtt_chunk_int8.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                        i, f, p]
         lib.dtt_ragged_int8.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
@@ -170,12 +168,10 @@ def build() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.dtt_error_string.argtypes = [ctypes.c_int]
         lib.dtt_error_string.restype = ctypes.c_char_p
-        lib.dtt_max_rows_times_dim.argtypes = []
-        lib.dtt_max_rows_times_dim.restype = ctypes.c_int
         lib.dtt_chunk_positions.argtypes = [i, i]
         lib.dtt_chunk_positions.restype = ctypes.c_int
-        lib.dtt_ragged_split_keys.argtypes = [i, i, i, i, i]
-        lib.dtt_ragged_split_keys.restype = ctypes.c_longlong
+        lib.dtt_decode_split_keys.argtypes = [i, i, i, i, i]
+        lib.dtt_decode_split_keys.restype = ctypes.c_longlong
         _lib = lib
         return lib
 
@@ -217,19 +213,6 @@ def _gqa_group(n_heads: int, n_kv: int) -> int:
     return n_heads // n_kv
 
 
-def _check_heads(lib: ctypes.CDLL, n_heads: int, n_kv: int,
-                 head_dim: int) -> int:
-    """The GQA group, within the CUDA-core tile of decode and prefill."""
-    group = _gqa_group(n_heads, n_kv)
-    if head_dim % 8:
-        raise ValueError(f"head_dim must be a multiple of 8, got {head_dim}")
-    limit = lib.dtt_max_rows_times_dim()
-    if group * head_dim > limit:
-        raise ValueError(f"GQA group x head_dim ({group} x {head_dim}) "
-                         f"exceeds the kernels' {limit} accumulators")
-    return group
-
-
 def _check_pools(k_pages, v_pages, page_size: int, head_dim: int,
                  num_kv_heads: Optional[int], device: torch.device):
     """(KV heads, lane width, int8?) of a K/V pool pair [P, ps, W]: bf16
@@ -266,34 +249,24 @@ def _check_pools(k_pages, v_pages, page_size: int, head_dim: int,
     return n_kv, width, True
 
 
-def query_tile(lib: ctypes.CDLL, group: int, head_dim: int) -> int:
-    """Query positions per block for prefill: the largest power
-    of two <= MAX_QUERY_TILE whose rows fit the block's accumulators (the
-    library's limit; its entry points refuse a launch past it)."""
-    limit = lib.dtt_max_rows_times_dim()
-    qt = MAX_QUERY_TILE
-    while qt > 1 and qt * group * head_dim > limit:
-        qt //= 2
-    return qt
-
-
 def tile_positions(group: int, head_dim: int) -> int:
-    """Query positions per block of chunk.cu and ragged.cu: the 64-row
-    tensor-core tile holds positions x the GQA group. Raises ValueError
-    for what the tile cannot take: a head_dim it is not compiled for
-    (TILE_HEAD_DIMS), a group above 64."""
+    """Query positions per block of the tensor-core tile (prefill, chunk
+    and ragged's chunk tiles): its 64 rows hold positions x the GQA group.
+    Raises ValueError for what the tile cannot take: a head_dim it is not
+    compiled for (TILE_HEAD_DIMS), a group above 64."""
     if head_dim not in TILE_HEAD_DIMS:
-        raise ValueError(f"the chunk and ragged kernels are built for "
-                         f"head_dim in {TILE_HEAD_DIMS}, got {head_dim}")
+        raise ValueError(f"the attention kernels are built for head_dim in "
+                         f"{TILE_HEAD_DIMS}, got {head_dim}")
     if not 1 <= group <= TILE_ROWS:
-        raise ValueError(f"GQA group {group} does not fit the chunk and "
-                         f"ragged kernels' {TILE_ROWS}-row query tile")
+        raise ValueError(f"GQA group {group} does not fit the attention "
+                         f"kernels' {TILE_ROWS}-row query tile")
     return TILE_ROWS // group
 
 
 def check_decode_rows(decode_q: int, group: int, head_dim: int) -> int:
-    """tile_positions, also refusing ragged decode rows of decode_q queries
-    x the group past the tile's rows."""
+    """tile_positions, also refusing decode rows (decode.cu's with
+    decode_q = 1, ragged's) of decode_q queries x the group past the
+    tile's rows."""
     positions = tile_positions(group, head_dim)
     if decode_q * group > TILE_ROWS:
         raise ValueError(f"decode_q x GQA group ({decode_q} x {group}) does "
@@ -304,8 +277,9 @@ def check_decode_rows(decode_q: int, group: int, head_dim: int) -> int:
 
 def split_keys(width: int, page_size: int, num_decode: int, num_kv: int,
                num_sms: int) -> int:
-    """Keys per split of a ragged decode row, from host-known sizes only
-    (the kv_lens live on the card and are never read back): SPLIT_KEYS, or
+    """Keys per split of a decode row (decode.cu, ragged.cu) whose page
+    list has `width` pages, from host-known sizes only (the context
+    lengths live on the card and are never read back): SPLIT_KEYS, or
     more where that would give num_decode rows x num_kv heads more than
     SPLIT_BLOCKS_PER_SM decode blocks per SM in all, rounded up to whole
     KEY_TILEs. So the blocks and the partials' scratch grow with the rows
@@ -317,15 +291,47 @@ def split_keys(width: int, page_size: int, num_decode: int, num_kv: int,
     return max(SPLIT_KEYS, -(-span // KEY_TILE) * KEY_TILE)
 
 
+def split_plan(width: int, page_size: int, num_decode: int, num_kv: int,
+               num_sms: int) -> Tuple[int, int]:
+    """(keys per split, splits) of num_decode decode rows over page lists
+    of `width` pages: the plan the library's entry points take."""
+    span = split_keys(width, page_size, num_decode, num_kv, num_sms)
+    return span, -(-(width * page_size) // span)
+
+
 def split_spans(width: int, page_size: int, num_decode: int, num_kv: int,
                 num_sms: int) -> List[Tuple[int, int]]:
-    """Key spans [lo, hi) of a ragged decode row's splits: spans of
-    split_keys keys over the table's width * page_size keys, the last cut
-    at the table's end. A split walks its span below its row's horizon
-    (none at all when the span starts past it)."""
+    """Key spans [lo, hi) of a decode row's splits: spans of split_keys
+    keys over the table's width * page_size keys, the last cut at the
+    table's end. A split walks its span below its row's horizon (none at
+    all when the span starts past it)."""
     keys = width * page_size
     span = split_keys(width, page_size, num_decode, num_kv, num_sms)
     return [(lo, min(lo + span, keys)) for lo in range(0, keys, span)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _num_sms(dev: torch.device) -> int:
+    """The SM count of `dev` (split_plan), looked up once per device."""
+    return _sms_of(torch.cuda.current_device() if dev.index is None
+                   else dev.index)
+
+
+def _split_scratch(n_splits: int, nd: int, h: int, d: int,
+                   dev: torch.device) -> Tuple[ctypes.c_void_p,
+                                               ctypes.c_void_p, torch.Tensor]:
+    """The split decode rows' partials, part_o [n_splits, nd, h, d] then
+    part_ml [n_splits, nd, h, 2] f32, in one allocation: (part_o pointer,
+    part_ml pointer, the tensor that owns both)."""
+    n_o = n_splits * nd * h * d
+    part = torch.empty((n_o + n_splits * nd * h * 2,), dtype=torch.float32,
+                       device=dev)
+    return (ctypes.c_void_p(part.data_ptr()),
+            ctypes.c_void_p(part.data_ptr() + 4 * n_o), part)
 
 
 def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
@@ -333,7 +339,8 @@ def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
                            ) -> torch.Tensor:
     """q [B, H, D] bf16; pools [P, ps, W] bf16 (W = KV*D) or int8 packed
     (with num_kv_heads); block_table [B, Pmax] int32; context_lens [B]
-    int32 (incl. the current token) -> [B, H, D]."""
+    int32 (incl. the current token) -> [B, H, D]. Each row is split along
+    its keys (split_plan, from B, Pmax and the SM count) and merged."""
     dev = q.device
     _expect(q, "q", torch.bfloat16, 3, dev)
     _expect(block_table, "block_table", torch.int32, 2, dev)
@@ -341,21 +348,27 @@ def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
     b, h, d = q.shape
     n_kv, width, int8 = _check_pools(k_pages, v_pages, page_size, d,
                                      num_kv_heads, dev)
-    lib = build()
-    _check_heads(lib, h, n_kv, d)
+    check_decode_rows(1, _gqa_group(h, n_kv), d)
     if block_table.shape[0] != b or context_lens.shape[0] != b:
         raise ValueError("block_table / context_lens batch does not match q")
+    pmax = block_table.shape[1]
+    if pmax < 1:
+        raise ValueError("block_table has no page column")
+    lib = build()
     out = torch.empty_like(q)
     if b == 0:
         return out
+    span, n_splits = split_plan(pmax, page_size, b, n_kv, _num_sms(dev))
+    part_o, part_ml, _part = _split_scratch(n_splits, b, h, d, dev)
     args = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_table),
-            _ptr(context_lens), _ptr(out), b, h, n_kv, d, page_size,
-            block_table.shape[1]]
+            _ptr(context_lens), _ptr(out), part_o, part_ml, b, h, n_kv, d,
+            page_size, pmax]
+    tail = [n_splits, span, d ** -0.5, _stream(q)]
     name = "decode_int8" if int8 else "decode"
     if int8:
-        rc = lib.dtt_paged_decode_int8(*args, width, d ** -0.5, _stream(q))
+        rc = lib.dtt_paged_decode_int8(*args, width, *tail)
     else:
-        rc = lib.dtt_paged_decode(*args, d ** -0.5, _stream(q))
+        rc = lib.dtt_paged_decode(*args, *tail)
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
     return out
@@ -376,15 +389,14 @@ def prefill_attention(q, k, v, seq_lens) -> torch.Tensor:
     if seq_lens.shape[0] != n:
         raise ValueError("seq_lens does not match the lane count")
     n_kv = k.shape[2]
+    positions = tile_positions(_gqa_group(h, n_kv), d)
     lib = build()
-    group = _check_heads(lib, h, n_kv, d)
     out = torch.empty_like(q)
     if n == 0 or s == 0:
         return out
-    qt = query_tile(lib, group, d)
     rc = lib.dtt_prefill(
         _ptr(q), _ptr(k), _ptr(v), _ptr(seq_lens), _ptr(out), n, s, h, n_kv,
-        d, qt, d ** -0.5, _stream(q))
+        d, positions, d ** -0.5, _stream(q))
     _raise_on(lib, rc, "prefill")
     LAUNCHES["prefill"] += 1
     return out
@@ -458,22 +470,16 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, kv_lens, q_starts, *,
                          f"do not have num_decode + 1 = {rows} rows")
     positions = check_decode_rows(decode_q, group, d)
     width_pages = tables.shape[1]
-    span = split_keys(width_pages, page_size, num_decode, n_kv,
-                      torch.cuda.get_device_properties(dev)
-                      .multi_processor_count)
-    n_splits = -(-(width_pages * page_size) // span)
+    span, n_splits = split_plan(width_pages, page_size, num_decode, n_kv,
+                                _num_sms(dev))
     lib = build()
     out = torch.empty_like(q)
     # the decode rows' per-split partials, merged into `out` by the library
-    nd = num_decode * decode_q
-    part_o = torch.empty((n_splits, nd, h, d), dtype=torch.float32,
-                         device=dev)
-    part_ml = torch.empty((n_splits, nd, h, 2), dtype=torch.float32,
-                          device=dev)
+    part_o, part_ml, _part = _split_scratch(n_splits, num_decode * decode_q,
+                                            h, d, dev)
     args = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(tables),
-            _ptr(kv_lens), _ptr(q_starts), _ptr(out), _ptr(part_o),
-            _ptr(part_ml), num_decode, decode_q, c, h, n_kv, d, page_size,
-            width_pages]
+            _ptr(kv_lens), _ptr(q_starts), _ptr(out), part_o, part_ml,
+            num_decode, decode_q, c, h, n_kv, d, page_size, width_pages]
     tail = [positions, n_splits, span, d ** -0.5, _stream(q)]
     name = "ragged_int8" if int8 else "ragged"
     if int8:

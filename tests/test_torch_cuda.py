@@ -53,6 +53,62 @@ def test_decode_kernel_matches_plain(dev, n_heads, n_kv, head_dim):
     assert not out[0].any()  # ctx 0 -> exact zeros
 
 
+def _decode_inputs(dev, int8, n_heads, n_kv, head_dim, ctx, pmax, pages=64,
+                   ps=16, seed=0):
+    """Pools of `pages` pages, q [len(ctx), H, D] and a [len(ctx), pmax]
+    table giving each row distinct pages (trash-padded; page 0 past them)."""
+    if int8:
+        kp, vp = _int8_pools(dev, pages, ps, n_kv, head_dim, seed=seed + 1)
+    else:
+        kp = _rnd(dev, pages, ps, n_kv * head_dim, seed=seed + 1)
+        vp = _rnd(dev, pages, ps, n_kv * head_dim, seed=seed + 2)
+    q = _rnd(dev, len(ctx), n_heads, head_dim, seed=seed + 3)
+    perm = np.random.default_rng(seed).permutation(pages - 1) + 1
+    table = np.zeros((len(ctx), pmax), np.int32)
+    used = 0
+    for b, c in enumerate(ctx):
+        n = -(-c // ps)
+        table[b, :n] = perm[used:used + n]
+        used += n
+    return (q, kp, vp, torch.tensor(table, device=dev),
+            torch.tensor(ctx, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_decode_kernel_groups_and_head_dims(dev, int8, group, head_dim):
+    """Every GQA group and head_dim the tile takes, on both pools: rows at
+    context 0, 1, on and one past a 256-key span boundary, and a full
+    table (two spans)."""
+    n_kv, ps = 2, 16
+    ctx = [0, 1, 256, 257, 300, 512]
+    q, kp, vp, table, cl = _decode_inputs(dev, int8, group * n_kv, n_kv,
+                                          head_dim, ctx, 512 // ps, pages=128)
+    kw = dict(page_size=ps, num_kv_heads=n_kv)
+    out = ca.paged_attention_decode(q, kp, vp, table, cl, **kw)
+    ref = att.paged_attention_decode_ref(q, kp, vp, table, cl, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    assert not out[0].any()  # ctx 0 -> exact zeros
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_decode_kernel_on_a_wide_table(dev, int8):
+    """A 512-page table of 8 rows (8192 keys): the spans widen to 1024
+    keys (8 per row), one row reads all of them."""
+    ps, n_kv, d = 16, 8, 128
+    ctx = [0, 1, 100, 1023, 1024, 1025, 3000, 8192]
+    q, kp, vp, table, cl = _decode_inputs(dev, int8, 32, n_kv, d, ctx, 512,
+                                          pages=1024, seed=50)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert ca.split_plan(512, ps, 8, n_kv, sms) == (1024, 8)
+    kw = dict(page_size=ps, num_kv_heads=n_kv)
+    out = ca.paged_attention_decode(q, kp, vp, table, cl, **kw)
+    ref = att.paged_attention_decode_ref(q, kp, vp, table, cl, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    assert not out[0].any()
+
+
 @pytest.mark.parametrize("s,lens,head_dim", [(256, [256, 200, 37, 1], 128),
                                              (48, [48, 0], 32)])
 def test_prefill_kernel_matches_plain(dev, s, lens, head_dim):
@@ -64,6 +120,45 @@ def test_prefill_kernel_matches_plain(dev, s, lens, head_dim):
     out = ca.prefill_attention(q, k, v, sl)
     ref = att.prefill_attention_ref(q, k, v, sl)
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    for lane, n_tok in enumerate(lens):  # seq_len 0 -> exact zeros
+        if n_tok == 0:
+            assert not out[lane].any()
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_prefill_kernel_groups_and_head_dims(dev, group, head_dim):
+    """Every GQA group and head_dim the tile takes, at S = 48 (no multiple
+    of the 64-key tile): a full lane, a lane at seq_len 0 and one whose
+    bucket padding starts mid-tile."""
+    n_kv, s, lens = 2, 48, [48, 0, 17]
+    q = _rnd(dev, 3, s, group * n_kv, head_dim, seed=44)
+    k = _rnd(dev, 3, s, n_kv, head_dim, seed=45)
+    v = _rnd(dev, 3, s, n_kv, head_dim, seed=46)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    out = ca.prefill_attention(q, k, v, sl)
+    ref = att.prefill_attention_ref(q, k, v, sl)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    assert not out[1].any()
+
+
+@pytest.mark.parametrize("s", [48, 256])
+def test_prefill_lane_equals_chunk_at_start_0(dev, s):
+    """A lane at seq_len = S runs the blocks of chunk.cu's chunk at start 0
+    over the same K/V written to pages: bit-identical outputs."""
+    ps, n_kv, d = 16, 8, 128
+    q = _rnd(dev, 2, s, 32, d, seed=47)
+    k = _rnd(dev, 2, s, n_kv, d, seed=48)
+    v = _rnd(dev, 2, s, n_kv, d, seed=49)
+    sl = torch.tensor([s, s // 3], dtype=torch.int32, device=dev)
+    pk = torch.zeros((s // ps + 1, ps, n_kv * d), dtype=torch.bfloat16,
+                     device=dev)
+    pv = torch.zeros_like(pk)
+    pk[1:] = k[0].reshape(s // ps, ps, n_kv * d)
+    pv[1:] = v[0].reshape(s // ps, ps, n_kv * d)
+    pages = torch.arange(1, s // ps + 1, dtype=torch.int32, device=dev)
+    chunk = ca.chunk_prefill_attention(q[0], pk, pv, pages, 0, page_size=ps)
+    assert torch.equal(ca.prefill_attention(q, k, v, sl)[0], chunk)
 
 
 def _page_list(dev, n_tok, ps, pool_pages, seed):
@@ -124,7 +219,7 @@ def test_tile_limits_agree_with_the_library_and_are_refused(dev):
     for width, ps, n_dec, n_kv in ((1, 16, 1, 8), (128, 16, 8, 8),
                                    (143, 16, 3, 2), (7, 4, 1, 1),
                                    (8192, 16, 8, 8), (2048, 16, 256, 8)):
-        assert lib.dtt_ragged_split_keys(width, ps, n_dec, n_kv, sms) == \
+        assert lib.dtt_decode_split_keys(width, ps, n_dec, n_kv, sms) == \
             ca.split_keys(width, ps, n_dec, n_kv, sms)
     pages = torch.ones((4,), dtype=torch.int32, device=dev)
     tables = torch.ones((2, 4), dtype=torch.int32, device=dev)
@@ -141,6 +236,12 @@ def test_tile_limits_agree_with_the_library_and_are_refused(dev):
         with pytest.raises(ValueError, match=match):
             ca.ragged_paged_attention(q, kp, kp, tables, lens, lens - 1,
                                       page_size=16, num_decode=1)
+        with pytest.raises(ValueError, match=match):
+            ca.paged_attention_decode(q[:2], kp, kp, tables, lens,
+                                      page_size=16)
+        kd = kp[:1].reshape(1, 16, n_kv, d)
+        with pytest.raises(ValueError, match=match):
+            ca.prefill_attention(q[None, :16], kd, kd, lens[:1])
     q = _rnd(dev, 4 + 16, 64, 32)
     kp = _rnd(dev, 4, 16, 2 * 32)
     with pytest.raises(ValueError, match="decode_q"):
@@ -163,6 +264,19 @@ def test_tile_limits_agree_with_the_library_and_are_refused(dev):
             ca._ptr(part), 1, 1, 16, 32, 8, 128, 16, 4, 16, n_splits, span,
             0.1, ca._stream(qr))
         assert rc != 0
+        args = [ca._ptr(qr), ca._ptr(kp), ca._ptr(kp), ca._ptr(tables),
+                ca._ptr(lens), ca._ptr(qr), ca._ptr(part), ca._ptr(part), 2,
+                32, 8, 128, 16, 4]
+        assert lib.dtt_paged_decode(*args, n_splits, span, 0.1,
+                                    ca._stream(qr)) != 0
+        assert lib.dtt_paged_decode_int8(*args, 8 * 128 + 16 * 8, n_splits,
+                                         span, 0.1, ca._stream(qr)) != 0
+    # prefill refuses a tiling other than the tile's 64 / group positions
+    kd = _rnd(dev, 1, 16, 8, 128)
+    rc = lib.dtt_prefill(ca._ptr(q), ca._ptr(kd), ca._ptr(kd),
+                         ca._ptr(lens), ca._ptr(out), 1, 16, 32, 8, 128, 8,
+                         0.1, ca._stream(q))
+    assert rc != 0
 
 
 def test_wrappers_count_launches_and_refuse_bad_inputs(dev):
@@ -182,19 +296,22 @@ def test_wrappers_count_launches_and_refuse_bad_inputs(dev):
         ca.paged_attention_decode(q.transpose(0, 1).contiguous()
                                   .transpose(0, 1), kp, kp, table, ctx,
                                   page_size=16)
-    # a GQA group past the block's accumulators: the wrapper refuses it with
-    # the library's own limit, and so does the library's entry point
+    # a GQA group past the tile's 64 rows: the wrapper refuses it with the
+    # tile's limit, and so does the library's entry point under the split
+    # plan the wrapper would have used
     lib = ca.build()
-    wide_q = _rnd(dev, 1, 2 * lib.dtt_max_rows_times_dim() // 64, 64)
+    wide_q = _rnd(dev, 1, 2 * ca.TILE_ROWS, 64)
     kp1 = _rnd(dev, 4, 16, 64)
-    with pytest.raises(ValueError, match="accumulators"):
+    with pytest.raises(ValueError, match="64-row"):
         ca.paged_attention_decode(wide_q, kp1, kp1, table[:1], ctx[:1],
                                   page_size=16)
     out = torch.empty_like(wide_q)
+    part = torch.empty((1, 1, 2 * ca.TILE_ROWS, 66), dtype=torch.float32,
+                       device=dev)
     rc = lib.dtt_paged_decode(
         ca._ptr(wide_q), ca._ptr(kp1), ca._ptr(kp1), ca._ptr(table[:1]),
-        ca._ptr(ctx[:1]), ca._ptr(out), 1, wide_q.shape[1], 1, 64, 16, 2,
-        0.125, ca._stream(wide_q))
+        ca._ptr(ctx[:1]), ca._ptr(out), ca._ptr(part), ca._ptr(part), 1,
+        wide_q.shape[1], 1, 64, 16, 2, 1, 256, 0.125, ca._stream(wide_q))
     assert rc != 0
 
 
@@ -236,7 +353,7 @@ def _int8_pools(dev, pages, ps, n_kv, d, seed):
 
 
 @pytest.mark.parametrize("n_heads,n_kv,head_dim", [(32, 8, 128), (8, 2, 64),
-                                                   (4, 2, 16)])
+                                                   (4, 2, 32)])
 def test_int8_decode_kernel_matches_plain(dev, n_heads, n_kv, head_dim):
     ps, pages, pmax = 16, 64, 8
     kp, vp = _int8_pools(dev, pages, ps, n_kv, head_dim, seed=11)
@@ -275,8 +392,8 @@ def test_ragged_kernel_matches_plain(dev, int8, decode_q):
     """Eight decode rows (context 0 on the trash page, context 1, rows
     ending on a 256-key split boundary and one key past it, a full table) and a 256-token chunk at position 512 on a trash-padded
     list, in one call; with int8 pools too. The chunk rows equal chunk.cu's
-    output exactly; the decode rows (split along their keys and merged)
-    agree with decode.cu's within the tolerance."""
+    output exactly, and the decode rows decode.cu's (the same blocks under
+    the same split plan: the same table width and row count)."""
     ps, n_kv, d, h, pmax = 16, 8, 128, 32, 64
     if int8:
         kp, vp = _int8_pools(dev, 256, ps, n_kv, d, seed=21)
@@ -313,7 +430,7 @@ def test_ragged_kernel_matches_plain(dev, int8, decode_q):
     if decode_q == 1:
         dec = ca.paged_attention_decode(q[:8], kp, vp, args[0][:8],
                                         args[1][:8], **n_kw)
-        torch.testing.assert_close(out[:8].float(), dec.float(), **TOL)
+        assert torch.equal(out[:8], dec)
     with pytest.raises(ValueError, match="chunk"):
         ca.ragged_paged_attention(q[:8 * decode_q], kp, vp, *args,
                                   page_size=ps, num_kv_heads=n_kv,

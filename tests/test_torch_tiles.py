@@ -1,21 +1,27 @@
 """The tensor-core tile's launch plans and the split-key decode rows, on
 the CPU.
 
-- The launch plans of chunk.cu and ragged.cu (`cuda_attention.tile_positions`,
-  `check_decode_rows`, `split_keys`, `split_spans`) are pure functions of
-  host-known sizes. Every (query, visible key) pair is walked by exactly one
-  block, no split starts past the table's W * page_size keys, the decode
-  blocks stay within SPLIT_BLOCKS_PER_SM per SM whatever the table's width,
-  and the tile's limits (head_dim 32, 64 or 128, a GQA group of at most 64,
-  a decode row of at most 64 rows) raise ValueError.
-- The split-and-merge formula of ragged.cu's decode rows, in plain f32
-  PyTorch (`_partials` then `_merge`, models of ragged_kernel's decode
-  blocks and of merge_splits_kernel), against the plain ragged attention
-  and the Pallas ragged kernel in interpret mode at tiny-debug sizes (H 4,
-  KV 2, D 32), on f32 and int8 pools: a row at context 0, spans that see no
-  key, rows ending on a split boundary (256) and one key past it (257), and
-  a full table; with 256-key spans and with the one span a small card
-  gets. Tolerance 1e-5: all are f32.
+- The launch plans of the tile (`cuda_attention.tile_positions`,
+  `check_decode_rows`, `split_keys`, `split_plan`, `split_spans`) are pure
+  functions of host-known sizes. Every (query, visible key) pair is walked
+  by exactly one block: chunk.cu's query tiles, prefill.cu's query tiles
+  per lane (padding rows past seq_len, a lane at seq_len 0, S = 48), and
+  the split decode rows of decode.cu (a [B, Pmax] table, contexts 0, 1,
+  255, 256, 257 and full) and ragged.cu; no block reads a page past the
+  list's width, the decode blocks stay within SPLIT_BLOCKS_PER_SM per SM
+  whatever the table's width, and the tile's limits (head_dim 32, 64 or
+  128, a GQA group of at most 64, a decode row of at most 64 rows) raise
+  ValueError.
+- The split-and-merge formula of the decode rows, in plain f32 PyTorch
+  (`_partials` then `_merge`, models of decode_split_block and of
+  merge_splits_kernel), at tiny-debug sizes (H 4, KV 2, D 32) on f32 and
+  int8 pools, with the H100's spans and a small card's one span: against
+  the plain ragged attention and the Pallas ragged kernel in interpret
+  mode (ragged.cu's rows), and against the plain decode attention and the
+  Pallas decode kernel in interpret mode (decode.cu's rows: decode_q = 1,
+  queries at ctx - 1). Rows: context 0, spans that see no key, rows ending
+  on a split boundary (256) and one key past it (257), a full table.
+  Tolerance 1e-5: all are f32, and only the order of the sums differs.
 """
 
 import jax.numpy as jnp
@@ -23,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from dynamo_tpu.ops import pallas_attention as pa
 from dynamo_tpu.ops import ragged_attention as ra
 from dynamo_tpu_torch.ops import attention as att
 from dynamo_tpu_torch.ops import cuda_attention as ca
@@ -277,3 +284,107 @@ def test_split_merge_matches_plain_ragged(quantized, decode_q, sms):
     # block takes exp(-inf - -inf)); every other row agrees
     np.testing.assert_allclose(out[decode_q:].numpy(),
                                np.asarray(pallas)[decode_q:nd], **TOL)
+
+
+def _decode_blocks(width, ps, contexts, n_kv, sms):
+    """How many blocks of decode.cu's grid walk each (row, key) pair, as a
+    [B, width * ps] count: block bx of row b = bx // splits, span s (as
+    decode_split_block splits it) walks keys [s * span, (s + 1) * span)
+    below min(ctx, width * ps), its query at ctx - 1. Asserts that no
+    block reads a page past the table's width."""
+    keys = width * ps
+    span, n_splits = ca.split_plan(width, ps, len(contexts), n_kv, sms)
+    count = np.zeros((len(contexts), keys), np.int64)
+    for bx in range(len(contexts) * n_splits):
+        b, s = divmod(bx, n_splits)
+        ctx = contexts[b]
+        hi = min((s + 1) * span, ctx, keys)  # the horizon: query ctx - 1
+        assert -(-hi // ps) <= width  # the last page read is in the table
+        count[b] += _walked(s * span, (s + 1) * span, ctx - 1, 1,
+                            min(ctx, keys), keys)[0]
+    return count, span, n_splits
+
+
+@pytest.mark.parametrize("width,ps,n_kv,sms,span", [
+    (128, 16, 8, H100_SMS, 256),    # the engine's 2048-key tables
+    (512, 16, 8, H100_SMS, 960),    # 8192 keys: the spans widen
+    (20, 16, 2, H100_SMS, 256),     # two spans, the last one short
+    (20, 16, 2, 3, 320),            # a small card: one span
+    (5, 4, 2, H100_SMS, 256)])      # a table shorter than one span
+def test_decode_split_plan_walks_each_visible_key_once(width, ps, n_kv, sms,
+                                                       span):
+    """decode.cu's split plan over a [B, Pmax] table: each (row, visible
+    key) pair is walked by exactly one block; contexts 0, 1, 255, 256, 257,
+    full and one past full (cut at the table's end, as the kernel does)."""
+    keys = width * ps
+    contexts = [min(c, keys) for c in (0, 1, 255, 256, 257)] + [keys,
+                                                               keys + 5]
+    count, got, n_splits = _decode_blocks(width, ps, contexts, n_kv, sms)
+    assert got == span and n_splits == -(-keys // span)
+    assert len(contexts) * n_kv * n_splits <= max(
+        len(contexts) * n_kv, ca.SPLIT_BLOCKS_PER_SM * sms)
+    tok = np.arange(keys)[None]
+    visible = tok < np.minimum(np.array(contexts), keys)[:, None]
+    assert (count[visible] == 1).all() and (count[~visible] == 0).all()
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 3], ids=["h100", "small_card"])
+@pytest.mark.parametrize("quantized", [False, True],
+                         ids=["f32_pool", "int8_pool"])
+def test_split_merge_matches_plain_and_pallas_decode(quantized, sms):
+    """decode.cu's rows: the split-and-merge model with decode_q = 1 and
+    each query at ctx - 1, against the plain decode attention and the
+    Pallas decode kernel in interpret mode, the row at ctx 0 (exact zeros
+    in all three) included."""
+    h, n_kv, d, ps, width = 4, 2, 32, 16, 20  # 320 keys
+    rng = np.random.default_rng(37)
+    kp, vp = _pools(rng, quantized, 160, n_kv, d, ps)
+    ctx = [0, 1, 100, 255, 256, 257, width * ps]
+    table = np.zeros((len(ctx), width), np.int32)
+    perm = rng.permutation(159) + 1
+    used = 0
+    for r, n in enumerate(ctx):
+        k = -(-n // ps)
+        table[r, :k] = perm[used:used + k]
+        used += k
+    cl = np.array(ctx, np.int32)
+    q = rng.normal(size=(len(ctx), h, d)).astype(np.float32)
+    tq, tt, tc = torch.from_numpy(q), torch.from_numpy(table), \
+        torch.from_numpy(cl)
+    span, n_splits = ca.split_plan(width, ps, len(ctx), n_kv, sms)
+    assert (span, n_splits) == ((256, 2) if sms == H100_SMS else (320, 1))
+    o, m, l = _partials(tq, kp, vp, tt, tc, tc - 1, span, page_size=ps,
+                        num_kv_heads=n_kv, num_decode=len(ctx), decode_q=1)
+    assert o.shape == (n_splits, len(ctx), h, d)
+    out = _merge(o, m, l)
+    assert not out[0].any()  # context 0: exact zeros
+    ref = att.paged_attention_decode_ref(tq, kp, vp, tt, tc, page_size=ps,
+                                         num_kv_heads=n_kv)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **TOL)
+    pallas = pa.paged_attention_decode(
+        jnp.asarray(q), jnp.asarray(kp.numpy()), jnp.asarray(vp.numpy()),
+        jnp.asarray(table), jnp.asarray(cl), page_size=ps,
+        num_kv_heads=n_kv, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), **TOL)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("s", [48, 64, 256])
+def test_prefill_tiles_walk_each_visible_pair_once(s, group):
+    """prefill.cu's grid: query tiles of tile_positions(group) positions
+    per lane, each walking keys below min(its last position + 1, seq_len)
+    of its own lane. Each visible (query, key) pair, bucket-padding rows
+    past seq_len included (they see every key below seq_len, as the TPU
+    kernel computes them), is walked once; a lane at seq_len 0 walks
+    nothing; no tile reads past the lane's S rows."""
+    pos = ca.tile_positions(group, 128)
+    for seq_len in (s, 0, 1, s // 3, s - 1):
+        count = np.zeros((s, s), np.int64)
+        for i0 in range(0, s, pos):
+            n = min(pos, s - i0)
+            assert 1 <= n and n * group <= ca.TILE_ROWS
+            count[i0:i0 + n] += _walked(0, np.inf, i0, n, seq_len, s)
+        vis = _visible(0, s, seq_len, s)
+        assert (count[vis] == 1).all() and (count[~vis] == 0).all()
+        if seq_len:
+            assert vis[seq_len:].sum() == (s - seq_len) * seq_len
