@@ -47,27 +47,47 @@ on failure:
    the same forwards through the plain attention. q is scaled down before
    attention so that softmax is not one-hot (see forward_checks). Run on
    bf16 pools and again on int8 pools (an engine sharing the weights).
-5. The OpenAI server on 127.0.0.1:0 with the launch counts zeroed: four
-   concurrent greedy requests of 32 tokens (chat, chat streamed, a
-   completion, and a ~600-token prompt that takes the chunked path), then
-   one request twice, which must give identical tokens, then the
-   interference traffic (below); decode, prefill and chunk must have
-   launched. Then two engines sharing the weights, with
-   mixed_batch_tokens=256 on bf16 and on int8 pools, each serving the
-   interference traffic: the ~600-token prompt alone (the classic chunk
-   path), then a streamed chat and, after its first token, the same
-   prompt, which rides the mixed step. Each must count mixed steps, and
-   launch its ragged kernel 32 times (once per layer) per mixed step. The
-   streamed request's worst inter-token gap while the prompt prefills is
-   reported for the classic and the mixed engines side by side.
-6. Where a steady step's time goes (torch.profiler device time by kernel
-   family, kernels per step, idle share against the host clock): a decode
-   step of 8 slots on bf16 and on int8 pools, and a mixed step (7 decode
-   slots beside the chunks at 256, 512 and 768 of a 1024-token prompt) on
-   bf16 and on int8 pools.
-7. A `kernels` JSON line (launches from phase 5; `ms` and `library_ms`
-   device times, `call_ms` and `library_call_ms` call times, as phase 3
-   measures them), the card line, and last the {"ok": true, ...} line.
+5. The OpenAI server on 127.0.0.1:0 with the launch counts zeroed, on the
+   eager engines (1-step synchronous decode, no graphs): four concurrent
+   greedy requests of 32 tokens (chat, chat streamed, a completion, and a
+   ~600-token prompt that takes the chunked path), then one request twice,
+   which must give identical tokens, then the interference traffic
+   (below); decode, prefill and chunk must have launched. Then two engines
+   sharing the weights, with mixed_batch_tokens=256 on bf16 and on int8
+   pools, each serving the interference traffic: the ~600-token prompt
+   alone (the classic chunk path), then a streamed chat and, after its
+   first token, the same prompt, which rides the mixed step. Each must
+   count mixed steps, and launch its ragged kernel 32 times (once per
+   layer) per mixed step. The streamed request's worst inter-token gap
+   while the prompt prefills is reported for the classic and the mixed
+   engines side by side.
+6. Decode windows on CUDA graphs (engines sharing the weights, their
+   greedy graphs captured by `Engine.warmup()`):
+   - window parity: the JAX jetstream profile (8-step synchronous windows,
+     no chunking) and the same with async scheduling serve phase 5's four
+     greedy requests and two seeded sampled ones (temperature 0.8, top_p
+     0.9); every token and logprob must equal an eager 1-step engine's
+     (the same kernels on the same shapes: bit for bit). A difference is
+     reported at its first token with the top-5 logprobs of both.
+   - served windows: the OpenAI server on the jetstream engine, the four
+     concurrent requests of phase 5: TTFT, mean ITL, worst gap and tokens
+     per second of the streamed chat beside phase 5's eager numbers.
+   - prefix caching: the vllm_tpu profile (1-step async windows, chunks of
+     256, prefix caching) takes the ~600-token prompt, the same prompt
+     again, then a prompt sharing its first 512 tokens: the second and
+     third must hit the cache and launch the chunk kernel only for their
+     suffix (one chunk each), give the eager engine's greedy tokens (its
+     cache is off), and their TTFT is reported beside the first's.
+7. Where a steady step's time goes (torch.profiler device time by kernel
+   family, kernels per decode step, idle share against the host clock): a
+   decode step of 8 slots on bf16 and on int8 pools, eagerly and in 8-step
+   graph windows (with graph replays per window and capture time), and a
+   mixed step (7 decode slots beside the chunks at 256, 512 and 768 of a
+   1024-token prompt) on bf16 and on int8 pools.
+8. A `kernels` JSON line (launches summed over the served phases, graph
+   replays included; `ms` and `library_ms` device times, `call_ms` and
+   `library_call_ms` call times, as phase 3 measures them), the card line,
+   and last the {"ok": true, ...} line.
 """
 
 from __future__ import annotations
@@ -88,10 +108,12 @@ import torch.nn.functional as F
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.engine import Engine
 from dynamo_tpu_torch.engine.request import GenRequest
+from dynamo_tpu_torch.engine.tokenizer import get_tokenizer
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.ops import attention as att
 from dynamo_tpu_torch.ops import cuda_attention as ca
 from dynamo_tpu_torch.serving.api import ServingContext, make_server
+from dynamo_tpu_torch.serving.worker import BACKEND_PROFILES
 
 MODEL = "llama-3.1-8b-instruct"
 H, KV, D, PS = 32, 8, 128, 16
@@ -772,6 +794,15 @@ CHAT = dict(COMMON, messages=[{"role": "user",
 CHAT_STREAM = dict(CHAT, stream=True, logprobs=True,
                    stream_options={"include_usage": True})
 LONG_TEXT = ("The paged KV cache keeps page zero as trash. " * 14)[:596]
+# phase 5's four concurrent requests: (path, body, streamed)
+FOUR_JOBS = {
+    "chat": ("/v1/chat/completions", CHAT, False),
+    "chat_stream": ("/v1/chat/completions", CHAT_STREAM, True),
+    "completion": ("/v1/completions",
+                   dict(COMMON, prompt="Hopper has 132 SMs and", logprobs=1),
+                   False),
+    "long_prompt": ("/v1/completions", dict(COMMON, prompt=LONG_TEXT), False),
+}
 
 
 def summarize(name: str, result, stream: bool) -> dict:
@@ -795,7 +826,8 @@ def summarize(name: str, result, stream: bool) -> dict:
         tok = stamps[1:1 + MAX_TOKENS]
         gaps = [b - a for a, b in zip(tok, tok[1:])]
         out.update(ttft_s=tok[0], itl_mean_s=sum(gaps) / len(gaps),
-                   itl_max_s=max(gaps))
+                   itl_max_s=max(gaps),
+                   tokens_per_s=(len(tok) - 1) / (tok[-1] - tok[0]))
     return out
 
 
@@ -828,15 +860,7 @@ def stats(base: str) -> dict:
 
 def serve_checks(engine: Engine) -> dict:
     """Phase 5 on the classic engine: the classic kernels must launch."""
-    jobs = {  # (path, body, stream)
-        "chat": ("/v1/chat/completions", CHAT, False),
-        "chat_stream": ("/v1/chat/completions", CHAT_STREAM, True),
-        "completion": ("/v1/completions",
-                       dict(COMMON, prompt="Hopper has 132 SMs and",
-                            logprobs=1), False),
-        "long_prompt": ("/v1/completions", dict(COMMON, prompt=LONG_TEXT),
-                        False),
-    }
+    jobs = FOUR_JOBS
     results = {}
     with serving(engine) as base:
         ca.reset_launch_counts()
@@ -913,21 +937,24 @@ def kernel_family(name: str) -> str:
 
 
 def profile_steps(engine: Engine, steps: int, long_prompt: int = 0) -> dict:
-    """Where a steady step's time goes: `steps` steps timed on the host
-    clock, then the same steps again under torch.profiler for device time
-    by kernel family and the kernels launched per step. Each pass drives
-    the same traffic from an idle engine: with long_prompt 0, all 8 slots
-    decoding after 100-token prompts; otherwise (a mixed engine) 7 slots
-    decoding beside a long_prompt-token prompt whose chunks after the
-    first ride the measured mixed steps, and every measured step must be
-    one."""
+    """Where a steady decode step's time goes: `steps` engine steps timed
+    on the host clock, then the same steps again under torch.profiler for
+    device time by kernel family and the kernels launched, all per decode
+    step (an engine step runs a window of num_scheduler_steps decode
+    steps). Each pass drives the same traffic from an idle engine: with
+    long_prompt 0, all 8 slots decoding after 100-token prompts; otherwise
+    (a mixed engine) 7 slots decoding beside a long_prompt-token prompt
+    whose chunks after the first ride the measured mixed steps, and every
+    measured step must be one."""
     n_decode = MAX_SEQS - 1 if long_prompt else MAX_SEQS
+    k = engine.cfg.num_scheduler_steps
+    counted = {}
 
     def drive(tag: str, measured) -> float:
         for i in range(n_decode):
             engine.add_request(GenRequest(
                 f"profile-{tag}-{i}", list(range(1, 101)),
-                max_tokens=steps + 8, ignore_eos=True))
+                max_tokens=(steps + 2) * k + 8, ignore_eos=True))
         while engine.pending:
             engine.step()
         engine.step()
@@ -939,47 +966,228 @@ def profile_steps(engine: Engine, steps: int, long_prompt: int = 0) -> dict:
             engine.step()  # starts the chunked prefill
             engine.step()  # the first mixed step
         mixed0 = engine.metrics.mixed_count
+        decode0 = engine.metrics.decode_steps
+        win0 = engine.windows.stats()
         torch.cuda.synchronize()
         t0 = time.monotonic()
         with measured:
             for _ in range(steps):
                 engine.step()
             torch.cuda.synchronize()
-        wall = (time.monotonic() - t0) / steps * 1e3
+        wall = time.monotonic() - t0
         mixed = engine.metrics.mixed_count - mixed0
+        counted[tag] = engine.metrics.decode_steps - decode0
+        win = engine.windows.stats()
+        counted["windows"] = win["windows"] - win0["windows"]
+        counted["replays"] = win["replays"] - win0["replays"]
         while engine.has_work:
             engine.step()
         if mixed != (steps if long_prompt else 0):
             raise AssertionError(f"{mixed} of the {steps} measured steps "
                                  f"were mixed steps (long prompt "
                                  f"{long_prompt})")
-        return wall
+        if counted[tag] != steps * (1 if long_prompt else k):
+            raise AssertionError(f"{counted[tag]} decode steps in {steps} "
+                                 f"engine steps of {k}-step windows")
+        return wall / counted[tag] * 1e3
 
     from torch.profiler import ProfilerActivity, profile
 
     wall_ms = drive("timed", contextlib.nullcontext())
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     drive("profiled", prof)
+    n_steps = counted["profiled"]
     families, kernels, n_kernels = {}, {}, 0
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         n_kernels += 1
-        ms = ev.time_range.elapsed_us() / 1e3 / steps
+        ms = ev.time_range.elapsed_us() / 1e3 / n_steps
         fam = kernel_family(ev.name)
         families[fam] = families.get(fam, 0.0) + ms
         kernels[ev.name] = kernels.get(ev.name, 0.0) + ms
     busy = sum(families.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    graphs = engine.windows.stats()
     return {"kv_cache_dtype": engine.kv_spec.dtype,
             "step": "mixed" if long_prompt else "decode",
             "decode_slots": n_decode, "long_prompt": long_prompt,
-            "steps": steps, "wall_ms_per_step": wall_ms,
+            "window": 1 if long_prompt else k,
+            "cuda_graphs": not graphs["eager"],
+            "engine_steps": steps, "decode_steps": n_steps,
+            "wall_ms_per_step": wall_ms,
+            "tokens_per_s_per_slot": 1e3 / wall_ms,
             "device_busy_ms_per_step": busy if busy else "not measured",
             "idle_share": 1 - busy / wall_ms if busy else "not measured",
-            "device_kernels_per_step": n_kernels / steps,
+            "device_kernels_per_step": (n_kernels / n_steps if n_kernels
+                                        else "not measured: the profiler "
+                                             "saw no device kernel"),
+            "graph_replays_per_window": (counted["replays"]
+                                         / counted["windows"]
+                                         if not graphs["eager"] else 0),
+            "graphs_captured": graphs["graphs"],
+            "capture_s": graphs["capture_s"],
             "by_family_ms_per_step": families,
             "top_kernels_ms_per_step": [[n[:80], t] for n, t in top]}
+
+
+def parity_requests(tok) -> list:
+    """Phase 5's four greedy requests (its texts, the completion with
+    logprobs) and two seeded sampled ones, as fresh GenRequests."""
+    chat = "Port this kernel to Hopper."
+    greedy = [(chat, None), (chat, 5), ("Hopper has 132 SMs and", 1),
+              (LONG_TEXT, None)]
+    reqs = [GenRequest(f"greedy{i}", tok.encode(t), max_tokens=MAX_TOKENS,
+                       ignore_eos=True, logprobs=lp)
+            for i, (t, lp) in enumerate(greedy)]
+    for i, t in enumerate(("Sample a story about the trash page.",
+                           "Sample a poem about split keys.")):
+        reqs.append(GenRequest(f"sampled{i}", tok.encode(t),
+                               max_tokens=MAX_TOKENS, temperature=0.8,
+                               top_p=0.9, seed=100 + i, ignore_eos=True))
+    return reqs
+
+
+def run_to_end(engine: Engine, reqs) -> dict:
+    """Add `reqs` and step until idle: {rid: [(token, logprob, top)]}."""
+    for r in reqs:
+        engine.add_request(r)
+    out = {}
+    while engine.has_work:
+        for ev in engine.step():
+            if ev.token_id >= 0:
+                out.setdefault(ev.request_id, []).append(
+                    (ev.token_id, ev.logprob, ev.top_logprobs))
+    return out
+
+
+def first_difference(got: dict, want: dict):
+    """(rid, index, detail) of the first token where two runs differ, or
+    None."""
+    for rid in sorted(want):
+        a, b = got.get(rid, []), want[rid]
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                top = None
+                if x[2] and y[2]:
+                    top = max(abs(p - q) for (_, p), (_, q) in
+                              zip(x[2], y[2]))
+                return rid, i, {"got": x[:2], "want": y[:2],
+                                "top_logprob_max_abs_diff": top}
+        if len(a) != len(b):
+            return rid, min(len(a), len(b)), {"lengths": [len(a), len(b)]}
+    return None
+
+
+def window_parity(reference: Engine, engines: dict, tok) -> dict:
+    """Each engine's streams against the eager 1-step reference's."""
+    want = run_to_end(reference, parity_requests(tok))
+    row = {"reference": "eager 1-step synchronous", "requests": len(want),
+           "tokens": sum(map(len, want.values()))}
+    for name, eng in engines.items():
+        t0 = time.monotonic()
+        got = run_to_end(eng, parity_requests(tok))
+        diff = first_difference(got, want)
+        row[name] = {"equal": diff is None, "first_difference": diff,
+                     "seconds": time.monotonic() - t0,
+                     "graphs": eng.windows.stats(),
+                     "decode_steps": eng.metrics.decode_steps}
+        if diff is not None:
+            emit({"window_parity": row})
+            raise AssertionError(f"{name}: streams differ from the eager "
+                                 f"1-step engine's at {diff}")
+    emit({"window_parity": row})
+    return row
+
+
+def window_serve(engine: Engine) -> dict:
+    """Phase 5's four concurrent requests on a graph-window engine."""
+    jobs = FOUR_JOBS
+    results = {}
+    with serving(engine) as base:
+        ca.reset_launch_counts()
+        win0 = engine.windows.stats()
+
+        def run(name):
+            path, body, stream = jobs[name]
+            results[name] = post(base + path, body, stream)
+
+        threads = [threading.Thread(target=run, args=(n,)) for n in jobs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        launches = dict(ca.LAUNCHES)
+        worker = stats(base)
+    win = engine.windows.stats()
+    summary = {name: summarize(name, results[name], jobs[name][2])
+               for name in jobs}
+    replays = win["replays"] - win0["replays"]
+    missing = [k for k in ("decode", "prefill") if launches[k] == 0]
+    if missing or replays == 0 or win["graphs"] > win0["graphs"] + 1:
+        raise AssertionError(f"window engine: kernels never launched "
+                             f"{missing}, {replays} graph replays, graphs "
+                             f"{win0['graphs']} -> {win['graphs']} "
+                             f"({launches})")
+    return {"requests": summary, "launches": launches,
+            "graph_replays": replays, "windows": win["windows"]
+            - win0["windows"], "decode_graphs": worker["decode_graphs"],
+            "engine_metrics": worker["metrics"]}
+
+
+def prefix_checks(engine: Engine, cache_off: Engine, tok) -> dict:
+    """The ~600-token prompt, the same again, then a prompt sharing its
+    first 512 tokens, one after another on the prefix-caching engine:
+    TTFT (engine clock, add_request to the first token), chunk launches
+    and the tokens, against the cache-off engine's tokens."""
+    first = tok.encode(LONG_TEXT)
+    tail = tok.encode(" and the pages past the shared prefix are this "
+                      "prompt's own, filled by its suffix chunk.",
+                      add_bos=False)
+    prompts = {"first": first, "again": first, "shared": first[:512] + tail}
+    layers = engine.model_cfg.num_layers
+    rows, launches = {}, {}
+    for rid, prompt in prompts.items():
+        ca.reset_launch_counts()
+        cached0 = engine.prefix_cache.stats()["cached_tokens_served"]
+        t0 = time.monotonic()
+        engine.add_request(GenRequest(rid, prompt, max_tokens=MAX_TOKENS,
+                                      ignore_eos=True))
+        toks, ttft = [], None
+        while engine.has_work:
+            for ev in engine.step():
+                if ev.token_id >= 0:
+                    ttft = ttft or time.monotonic() - t0
+                    toks.append(ev.token_id)
+        cached = engine.prefix_cache.stats()["cached_tokens_served"] - cached0
+        chunks = -(-(len(prompt) - cached) // CHUNK)
+        rows[rid] = {"prompt_tokens": len(prompt), "cached_tokens": cached,
+                     "ttft_s": ttft, "tokens": toks,
+                     "chunk_launches": ca.LAUNCHES["chunk"],
+                     "expected_chunk_launches": layers * chunks}
+        for name, n in ca.LAUNCHES.items():
+            launches[name] = launches.get(name, 0) + n
+        if ca.LAUNCHES["chunk"] != layers * chunks or len(toks) != MAX_TOKENS:
+            raise AssertionError(f"prefix phase, {rid}: {rows[rid]}")
+    st = engine.prefix_cache.stats()
+    ref = run_to_end(cache_off, [GenRequest(rid, p, max_tokens=MAX_TOKENS,
+                                            ignore_eos=True)
+                                 for rid, p in prompts.items()])
+    equal = {rid: [t for t, _, _ in ref[rid]] == rows[rid]["tokens"]
+             for rid in prompts}
+    if st["hits"] < 2 or not (rows["again"]["cached_tokens"]
+                              and rows["shared"]["cached_tokens"] == 512):
+        raise AssertionError(f"prefix phase: no cache hits: {st} {rows}")
+    out = {"prefix_cache": st, "tokens_equal_cache_off": equal,
+           "ttft_s": {rid: r["ttft_s"] for rid, r in rows.items()},
+           "requests": {rid: {k: v for k, v in r.items() if k != "tokens"}
+                        for rid, r in rows.items()},
+           "launches": launches}
+    if not all(equal.values()):
+        emit({"phase": "prefix_cache", **out})
+        raise AssertionError(f"prefix-cached greedy tokens differ from the "
+                             f"cache-off engine's: {equal}")
+    return out
 
 
 def main() -> int:
@@ -1004,7 +1212,10 @@ def main() -> int:
                     max_num_seqs=MAX_SEQS, max_seq_len=MAX_SEQ_LEN,
                     prefill_chunk_tokens=CHUNK, enable_prefix_caching=False,
                     seed=0)
-    engine = Engine(EngineConfig(**base_cfg))
+    # phases 4, 5 and the eager profiles: 1-step synchronous decode, eager
+    eager_cfg = dict(base_cfg, num_scheduler_steps=1, async_scheduling=False,
+                     enforce_eager=True)
+    engine = Engine(EngineConfig(**eager_cfg))
     emit({"phase": "engine", "model": MODEL, "seconds": time.monotonic() - t0,
           "layers": engine.model_cfg.num_layers,
           "hidden": engine.model_cfg.hidden_size,
@@ -1012,9 +1223,9 @@ def main() -> int:
                              for p in engine.model.parameters()) / 2**30,
           "kv_pool_gib": engine.kv_spec.pool_bytes / 2**30})
     # the mixed engines share the weights; the int8 one also takes phase 4
-    mixed = Engine(EngineConfig(**base_cfg, mixed_batch_tokens=CHUNK),
+    mixed = Engine(EngineConfig(**eager_cfg, mixed_batch_tokens=CHUNK),
                    params=engine.model)
-    mixed8 = Engine(EngineConfig(**base_cfg, mixed_batch_tokens=CHUNK,
+    mixed8 = Engine(EngineConfig(**eager_cfg, mixed_batch_tokens=CHUNK,
                                  kv_cache_dtype="int8"), params=engine.model)
     emit({"phase": "engine_int8", "kv_pool_gib": mixed8.kv_spec.pool_bytes
           / 2**30, "lane_width": mixed8.kv_spec.lane_width})
@@ -1033,21 +1244,60 @@ def main() -> int:
           "classic": classic_itl,
           "mixed": served_mixed[""]["requests"]["stream"],
           "mixed_int8": served_mixed["_int8"]["requests"]["stream"]})
+
+    # decode windows on CUDA graphs: the worker profiles' scheduling
+    tok = get_tokenizer(MODEL)
+    jet_cfg = dict(base_cfg, **BACKEND_PROFILES["jetstream"])
+    vllm_cfg = dict(base_cfg, **BACKEND_PROFILES["vllm_tpu"])
+    graph_engines = {
+        "jetstream": Engine(EngineConfig(**jet_cfg), params=engine.model),
+        "jetstream_async": Engine(EngineConfig(**dict(
+            jet_cfg, async_scheduling=True)), params=engine.model),
+        "jetstream_int8": Engine(EngineConfig(**jet_cfg,
+                                              kv_cache_dtype="int8"),
+                                 params=engine.model),
+        "vllm_tpu": Engine(EngineConfig(**vllm_cfg), params=engine.model),
+    }
+    for name, eng in graph_engines.items():
+        t0 = time.monotonic()
+        eng.warmup()
+        emit({"phase": "warmup", "engine": name,
+              "seconds": time.monotonic() - t0, **eng.windows.stats()})
+    parity_ref = Engine(EngineConfig(**dict(eager_cfg,
+                                            prefill_chunk_tokens=0)),
+                        params=engine.model)
+    window_parity(parity_ref, {k: graph_engines[k] for k in
+                               ("jetstream", "jetstream_async")}, tok)
+    del parity_ref
+    served_windows = window_serve(graph_engines["jetstream"])
+    emit({"phase": "serve_windows", **served_windows})
+    emit({"phase": "itl_windows_vs_eager",
+          "eager_1_step": served["requests"]["chat_stream"],
+          "graph_windows_8_step":
+              served_windows["requests"]["chat_stream"]})
+    prefix = prefix_checks(graph_engines["vllm_tpu"], engine, tok)
+    emit({"phase": "prefix_cache", **prefix})
+
     with torch.inference_mode():
-        # decode steps on bf16 and int8 pools (the mixed engines decode as
-        # the classic one does while nothing prefills), then mixed steps
-        for eng, long_prompt, steps in ((engine, 0, 10), (mixed8, 0, 10),
-                                        (mixed, 4 * CHUNK, 3),
-                                        (mixed8, 4 * CHUNK, 3)):
+        # decode steps on bf16 and int8 pools, eager and in graph windows
+        # (the mixed engines decode as the classic one does while nothing
+        # prefills), then mixed steps
+        for eng, long_prompt, steps in (
+                (engine, 0, 10), (mixed8, 0, 10),
+                (graph_engines["jetstream"], 0, 4),
+                (graph_engines["jetstream_int8"], 0, 4),
+                (mixed, 4 * CHUNK, 3), (mixed8, 4 * CHUNK, 3)):
             emit({"phase": "profile",
                   **profile_steps(eng, steps, long_prompt)})
 
-    # launches from the served phase that runs each kernel: the classic
-    # engine for the classic kernels, each mixed engine for its own
-    launches = dict(served["launches"])
-    launches["ragged"] = served_mixed[""]["launches"]["ragged"]
-    for name in ("decode_int8", "chunk_int8", "ragged_int8"):
-        launches[name] = served_mixed["_int8"]["launches"][name]
+    # launches summed over the served phases, each counted from zero: the
+    # classic engine, the mixed engines, the graph-window engine and the
+    # prefix-caching one (graph replays included)
+    launches = dict.fromkeys(ca.LAUNCHES, 0)
+    for phase in (served, served_mixed[""], served_mixed["_int8"],
+                  served_windows, prefix):
+        for name, n in phase["launches"].items():
+            launches[name] += n
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         row = rows[name]

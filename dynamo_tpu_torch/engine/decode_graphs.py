@@ -1,0 +1,260 @@
+"""Decode windows on CUDA graphs: the GPU counterpart of the JAX engine's
+jitted decode window (`make_decode_window`, `dynamo_tpu/engine/engine.py`).
+
+The batch lives on the device in static buffers (`DeviceBatch`), allocated
+once and updated in place with `copy_`, so a captured graph's pointers stay
+valid: tokens, positions, context lengths and the active-slot step, the
+block tables, the sampling parameters, bias lanes and chain roots, the
+output-token counts, and the static [K, B] outputs. The engine rebuilds
+them from its host mirrors only when membership, pages or sampling change.
+
+One decode step's body (`DecodeWindows._body`): `llama.decode_step` over
+every slot, sampling (on-device Gumbel noise keyed by chain root and
+position, `engine/sampling.py`), the token_counts update, the carry update
+(tokens <- sampled, positions and contexts + step, where step is 1 for an
+active slot and 0 for an inactive one, which stays on the trash page at
+position 0 and context 1), and the step's token (with logprobs: the chosen
+token's logprob and the top 5) written into row `step_idx` of the
+outputs. A k-step window is k replays of ONE captured step: one capture
+serves every window length (the JAX package compiles a 1-step and a
+k-step program), so a key costs one capture's time and one step's graph
+memory, and a replay's host cost is microseconds against a step's
+milliseconds of device time.
+
+Graphs are keyed by (logprobs, sampling gates): the gates decide which
+sampling ops run. They are captured lazily, in one memory pool shared by
+all keys (every graph's temporaries are dead when it ends, and replays are
+serialised on one stream), after one warm-up pass of the body on the
+capture stream over an idle batch (every slot inactive: the pass writes
+the trash page and adds nothing to token_counts), so that lazily built
+state (the kernel library, cuBLAS workspaces, rope tables) exists before
+capture begins; the live carry is saved before and restored after.
+
+Launch counts: `cuda_attention.LAUNCHES` counts wrapper calls, which
+happen only while a graph is captured. The capture's counts are taken out
+of LAUNCHES and kept with the graph (`cuda_attention.counting_capture`),
+and every replay adds them back (`cuda_attention.count_replay`).
+
+On the CPU, and with `enforce_eager`, the same body runs eagerly. On CUDA
+a capture or replay that fails raises: nothing falls back to eager.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dynamo_tpu_torch.engine import sampling as smp
+from dynamo_tpu_torch.ops import cuda_attention
+
+NUM_TOP = 5  # logprobs alternatives the outputs hold per step
+
+# forward(tokens [B], positions [B], tables [B, Pmax], context_lens [B])
+# -> logits [B, V]
+Forward = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
+                   torch.Tensor]
+Gates = Tuple[bool, bool, bool, bool, bool]  # smp.gates()
+
+
+def upload(dst: torch.Tensor, arr) -> None:
+    """Copy host values into a static device buffer, in place. On the card
+    through pinned memory without blocking the host: the copy is ordered on
+    the stream after any window in flight."""
+    src = torch.from_numpy(np.ascontiguousarray(arr)).to(dst.dtype)
+    if dst.is_cuda:
+        dst.copy_(src.pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(src)
+
+
+class DeviceBatch:
+    """The decode batch's static device buffers."""
+
+    def __init__(self, b: int, pmax: int, vocab: int, k_max: int, device):
+        def z(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.tokens = z(b, dtype=torch.int64)
+        self.positions = z(b)
+        self.context_lens = torch.ones((b,), dtype=torch.int32, device=device)
+        self.step = z(b)  # 1 for an active slot, 0 for an inactive one
+        self.tables = z(b, pmax)
+        self.temperature = z(b, dtype=torch.float32)
+        self.top_p = torch.ones((b,), dtype=torch.float32, device=device)
+        self.top_k = z(b, dtype=torch.int64)
+        self.presence = z(b, dtype=torch.float32)
+        self.frequency = z(b, dtype=torch.float32)
+        self.min_p = z(b, dtype=torch.float32)
+        self.bias_ids = torch.full((b, smp.BIAS_K), -1, dtype=torch.int64,
+                                   device=device)
+        self.bias_vals = z(b, smp.BIAS_K, dtype=torch.float32)
+        self.slot_keys = z(b, dtype=torch.int64)  # chain roots
+        self.token_counts = z(b, vocab)  # output tokens per slot [B, V]
+        self.rows = torch.arange(b, device=device)
+        self.step_idx = z(1, dtype=torch.int64)  # output row of this step
+        n_top = min(NUM_TOP, vocab)
+        self.out_tokens = z(k_max, b, dtype=torch.int64)
+        self.out_chosen = z(k_max, b, dtype=torch.float32)
+        self.out_tids = z(k_max, b, n_top, dtype=torch.int64)
+        self.out_tvals = z(k_max, b, n_top, dtype=torch.float32)
+
+    def carry(self) -> Tuple[torch.Tensor, ...]:
+        """The buffers a step reads and advances (not token_counts)."""
+        return (self.tokens, self.positions, self.context_lens, self.step,
+                self.tables, self.step_idx)
+
+    def sampling_state(self, gates: Gates) -> smp.SamplingState:
+        return smp.SamplingState(
+            self.temperature, self.top_p, self.top_k, self.presence,
+            self.frequency, self.min_p, self.bias_ids, self.bias_vals,
+            *gates)
+
+    def outputs(self, want_lp: bool) -> Tuple[torch.Tensor, ...]:
+        if want_lp:
+            return (self.out_tokens, self.out_chosen, self.out_tids,
+                    self.out_tvals)
+        return (self.out_tokens,)
+
+
+class Readback:
+    """Host copies of a window's outputs: on the card, pinned buffers filled
+    by non-blocking copies and a CUDA event the host waits on; on the CPU,
+    plain copies."""
+
+    def __init__(self, batch: DeviceBatch):
+        self.batch = batch
+        self._cuda = batch.out_tokens.is_cuda
+        self._host = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                       pin_memory=self._cuda)
+                           for t in batch.outputs(True))
+        self._event = torch.cuda.Event() if self._cuda else None
+        self._k, self._n = 0, 0
+
+    def start(self, k: int, want_lp: bool) -> None:
+        """Queue the copies of the first k output rows (after the window on
+        the stream)."""
+        src = self.batch.outputs(want_lp)
+        self._k, self._n = k, len(src)
+        for host, dev in zip(self._host, src):
+            host[:k].copy_(dev[:k], non_blocking=self._cuda)
+        if self._event is not None:
+            self._event.record()
+
+    def wait(self) -> Tuple[np.ndarray, ...]:
+        """(tokens [k, B], and with logprobs chosen [k, B], top ids and
+        values [k, B, 5]) once the copies have landed."""
+        if self._event is not None:
+            self._event.synchronize()
+        return tuple(h[:self._k].numpy().copy() for h in self._host[:self._n])
+
+
+class CapturedStep:
+    """One captured decode step and the kernel launches it holds."""
+
+    def __init__(self, graph, launches: Dict[str, int]):
+        self.graph = graph
+        self.launches = launches
+
+    def replay(self) -> None:
+        self.graph.replay()
+        cuda_attention.count_replay(self.launches)
+
+
+class DecodeWindows:
+    """Runs decode windows over a DeviceBatch: k replays of a captured step
+    on the card, the same body eagerly on the CPU or with `eager`."""
+
+    def __init__(self, batch: DeviceBatch, decode_forward: Forward,
+                 eager: bool):
+        self.batch = batch
+        self.decode_forward = decode_forward
+        self.eager = eager
+        self.graphs: Dict[Tuple[bool, Gates], CapturedStep] = {}
+        self._pool = None
+        self._stream: Optional[torch.cuda.Stream] = None
+        self.capture_s = 0.0  # seconds spent warming up and capturing
+        self.replays = 0
+        self.windows = 0
+
+    def stats(self) -> dict:
+        return {"eager": self.eager, "graphs": len(self.graphs),
+                "capture_s": self.capture_s, "windows": self.windows,
+                "replays": self.replays}
+
+    def _body(self, forward: Forward, want_lp: bool, gates: Gates) -> None:
+        """One decode step over the batch buffers (see the module doc)."""
+        b = self.batch
+        logits = forward(b.tokens, b.positions, b.tables, b.context_lens)
+        state = b.sampling_state(gates)
+        keys = smp.fold_positions(b.slot_keys, b.positions)
+        if want_lp:
+            nxt, chosen, tids, tvals = smp.sample_with_logprobs(
+                logits, state, keys, b.token_counts, num_top=NUM_TOP)
+            b.out_chosen.index_copy_(0, b.step_idx, chosen[None])
+            b.out_tids.index_copy_(0, b.step_idx, tids[None])
+            b.out_tvals.index_copy_(0, b.step_idx, tvals[None])
+        else:
+            nxt = smp.sample(logits, state, keys, b.token_counts)
+        # only active slots count their emission
+        b.token_counts.index_put_((b.rows, nxt), b.step, accumulate=True)
+        b.out_tokens.index_copy_(0, b.step_idx, nxt[None])
+        b.tokens.copy_(nxt)
+        b.positions += b.step
+        b.context_lens += b.step
+        b.step_idx += 1
+
+    def run(self, k: int, want_lp: bool, gates: Gates) -> None:
+        """Queue a k-step decode window; its tokens land in rows 0..k-1 of
+        the outputs."""
+        self.batch.step_idx.zero_()
+        self.windows += 1
+        if self.eager:
+            for _ in range(k):
+                self._body(self.decode_forward, want_lp, gates)
+            return
+        step = self.graphs.get((want_lp, gates))
+        if step is None:
+            step = self.capture(want_lp, gates)
+        for _ in range(k):
+            step.replay()
+        self.replays += k
+
+    def run_eager(self, forward: Forward, want_lp: bool,
+                  gates: Gates) -> None:
+        """One step with another forward (the mixed step), always eager."""
+        self.batch.step_idx.zero_()
+        self._body(forward, want_lp, gates)
+
+    def capture(self, want_lp: bool, gates: Gates) -> CapturedStep:
+        """Warm up and capture the step for (want_lp, gates)."""
+        t0 = time.monotonic()
+        b = self.batch
+        if self._stream is None:
+            self._stream = torch.cuda.Stream()
+            self._pool = torch.cuda.graph_pool_handle()
+        saved = [t.clone() for t in b.carry()]
+        # an idle batch: every slot inactive on the trash page
+        b.tokens.zero_()
+        b.positions.zero_()
+        b.context_lens.fill_(1)
+        b.step.zero_()
+        b.tables.zero_()
+        self._stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self._stream):
+            b.step_idx.zero_()
+            self._body(self.decode_forward, want_lp, gates)
+        torch.cuda.current_stream().wait_stream(self._stream)
+        graph = torch.cuda.CUDAGraph()
+        with cuda_attention.counting_capture() as launches:
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._stream):
+                self._body(self.decode_forward, want_lp, gates)
+        for t, s in zip(b.carry(), saved):
+            t.copy_(s)
+        step = CapturedStep(graph, launches)
+        self.graphs[(want_lp, gates)] = step
+        self.capture_s += time.monotonic() - t0
+        return step

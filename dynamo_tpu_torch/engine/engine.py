@@ -1,21 +1,38 @@
-"""The PyTorch engine: paged KV cache, continuous batching, chunked prefill.
+"""The PyTorch engine: paged KV cache, continuous batching, chunked prefill,
+multi-step decode windows on CUDA graphs, async scheduling and automatic
+prefix caching.
 
 Port of the aggregated-serving core of `dynamo_tpu/engine/engine.py`:
 
 - Admission with power-of-two prefill buckets (`_next_bucket`), batched
   prefill of same-bucket prompts (up to `max_prefill_batch`) and the
   single-prompt prefill.
-- Chunked prefill for prompts longer than `prefill_chunk_tokens`, one chunk
-  per step, interleaved with decode, on a trash-padded page list
-  (`KVCacheSpec.page_table_width`).
-- A decode step over all `max_num_seqs` slots, inactive slots sitting on
-  the trash page at context 1, with sampling on the device and one token
-  read back per slot.
+- Chunked prefill, one chunk per step, interleaved with decode, on a
+  trash-padded page list (`KVCacheSpec.page_table_width`), for prompts
+  longer than `prefill_chunk_tokens`, for prefix-cache hits (the suffix
+  only) and, with `mixed_batch_tokens`, for every prompt that arrives
+  while streams decode.
+- Decode windows of up to `num_scheduler_steps` steps over all
+  `max_num_seqs` slots (`_window_steps`: k steps only when every live
+  sequence has k tokens of headroom and nothing is pending), with the
+  batch carried on the device (`engine/decode_graphs.py`: static buffers
+  rebuilt from the host mirrors only when membership, pages or sampling
+  change; inactive slots on the trash page at context 1) and each window
+  k replays of a CUDA-graph-captured step on the card. Tokens past a stop
+  are discarded when the window is read back (`_materialize_window`).
+- `async_scheduling`: window k+1 is dispatched before window k is read
+  back (a non-blocking copy into pinned memory and an event); admissions,
+  aborts, finishes, preemptions and mixed steps drain the pipeline, so the
+  streams are those of synchronous stepping.
 - The mixed step (`mixed_batch_tokens > 0`): while a chunked prefill is in
-  flight and decode slots are live, one forward (`llama.mixed_step`, one
-  ragged attention launch per layer) advances every slot by a token AND
-  the prefill by up to `mixed_batch_tokens`, so a long admission no longer
-  stalls the streams for whole chunks.
+  flight and decode slots are live, one eager forward (`llama.mixed_step`,
+  one ragged attention launch per layer) advances every slot by a token
+  AND the prefill by up to `mixed_batch_tokens`.
+- Automatic prefix caching (`enable_prefix_caching`, with chunked
+  prefill): `PrefixCache` lookup before the page gate, the cached pages
+  shared, the suffix prefilled, every completed prompt's full pages
+  published, and eviction of unshared cached pages as the pressure valve
+  (`_ensure_pages`).
 - int8 KV pools (`kv_cache_dtype="int8"`: packed values and per-head
   scales, about half the bf16 pool's bytes).
 - Stops (stop ids, model eos unless `ignore_eos`, `max_tokens`,
@@ -24,10 +41,11 @@ Port of the aggregated-serving core of `dynamo_tpu/engine/engine.py`:
 
 Runs on the card by default (`device=None` means CUDA and raises without
 it; the tests pass `device="cpu"`), in bf16 there and float32 on the CPU,
-the JAX engine's choice. PyTorch runs eagerly: there is no jit, donation or
-device-resident carry; the host mirrors are uploaded each step and the KV
-pools are updated in place. Settings this slice does not port are refused
-at construction with NotImplementedError naming the field.
+the JAX engine's choice. The prefills and the mixed step run eagerly, the
+decode windows on CUDA graphs (eagerly on the CPU and with
+`enforce_eager`), as the JAX engine's windows are its only fused programs.
+Settings this port does not serve yet are refused at construction with
+NotImplementedError naming the field.
 """
 
 from __future__ import annotations
@@ -44,10 +62,17 @@ import torch
 
 from dynamo_tpu_torch.engine import sampling as smp
 from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.engine.decode_graphs import (
+    DecodeWindows,
+    DeviceBatch,
+    Readback,
+    upload,
+)
 from dynamo_tpu_torch.engine.kv_cache import (
     KVCacheSpec,
     OutOfPages,
     PageAllocator,
+    PrefixCache,
     SeqState,
     alloc_kv_pages,
 )
@@ -70,9 +95,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 def unported_settings(cfg: EngineConfig) -> List[str]:
-    """EngineConfig fields set to something this slice does not serve."""
+    """EngineConfig fields set to something the port does not serve."""
     checks = [
-        ("enable_prefix_caching", cfg.enable_prefix_caching),
         ("speculative_mode", cfg.speculative_mode != "off"),
         ("lora_slots", cfg.lora_slots > 0),
         ("kvbm_host_blocks", cfg.kvbm_host_blocks > 0),
@@ -81,7 +105,6 @@ def unported_settings(cfg: EngineConfig) -> List[str]:
         ("data_parallel", cfg.data_parallel > 1),
         ("expert_parallel", cfg.expert_parallel > 1),
         ("sequence_parallel", cfg.sequence_parallel > 1),
-        ("num_scheduler_steps", cfg.num_scheduler_steps > 1),
         ("tenants", bool(cfg.tenants)),
         ("disaggregation_mode", cfg.disaggregation_mode != "agg"),
         ("model_path", cfg.model_path is not None),
@@ -236,10 +259,16 @@ class Engine:
                  cfg.page_size, self.kv_spec.lane_width,
                  self.kv_spec.pool_bytes)
         self.allocator = PageAllocator(cfg.num_pages)
+        # prefix hits re-enter as mid-prompt chunks, so the cache needs a
+        # chunked path (classic or mixed), as in the JAX engine
+        self.prefix_cache: Optional[PrefixCache] = None
+        if cfg.enable_prefix_caching and cfg.prefill_chunk_tokens > 0:
+            self.prefix_cache = PrefixCache(self.allocator, cfg.page_size)
 
         b, pmax = cfg.max_num_seqs, cfg.max_pages_per_seq
+        # host mirrors of the batch; the device copies in self.batch are
+        # rebuilt from them when marked stale (_ensure_dev_state)
         self.block_tables = np.zeros((b, pmax), dtype=np.int32)
-        self._dev_tables: Optional[torch.Tensor] = None
         self.temperature = np.zeros((b,), np.float32)
         self.top_p = np.ones((b,), np.float32)
         self.top_k = np.zeros((b,), np.int64)
@@ -248,10 +277,25 @@ class Engine:
         self.min_p = np.zeros((b,), np.float32)
         self.bias_ids = np.full((b, smp.BIAS_K), -1, np.int64)
         self.bias_vals = np.zeros((b, smp.BIAS_K), np.float32)
-        self.slot_keys = [0] * b  # per-slot sampling chain roots
+        self.slot_keys = np.zeros((b,), np.int64)  # sampling chain roots
+        self.batch = DeviceBatch(b, pmax, model_cfg.vocab_size,
+                                 max(1, cfg.num_scheduler_steps), self.device)
         # output-token counts for presence/frequency penalties [B, V]
-        self.token_counts = torch.zeros(
-            (b, model_cfg.vocab_size), dtype=torch.int32, device=self.device)
+        self.token_counts = self.batch.token_counts
+        self.windows = DecodeWindows(
+            self.batch, self._decode_forward,
+            eager=self.device.type != "cuda" or cfg.enforce_eager)
+        self._dev_state_ok = False  # tokens, positions, contexts, step
+        self._dev_tables_ok = False
+        self._dev_sampling_ok = False
+        self._gates = smp.gates(self.temperature, self.top_p, self.top_k,
+                                self.presence, self.frequency, self.min_p,
+                                self.bias_ids)
+        # dispatched but unread decode window (async scheduling): (window,
+        # readback, want_lp, dispatch seconds, slots at dispatch)
+        self._pending_win = None
+        self._readbacks = (Readback(self.batch), Readback(self.batch))
+        self._next_readback = 0
         self.seqs: Dict[int, SeqState] = {}
         self._free_slots = list(range(b - 1, -1, -1))
         # guarded_by: _lock (both)
@@ -263,12 +307,30 @@ class Engine:
     # ------------------------------------------------------------- intake --
 
     def warmup(self) -> None:
-        """Build the attention kernels before serving (CUDA only); the
-        eager forward has nothing else to compile."""
-        if self.device.type == "cuda":
-            from dynamo_tpu_torch.ops import cuda_attention
+        """Build the attention kernels and capture the greedy decode steps
+        (with and without logprobs) before serving, on the card; the eager
+        prefills have nothing to compile. Needs an idle engine."""
+        if self.device.type != "cuda":
+            return
+        if self.has_work:
+            raise RuntimeError("warmup() requires an idle engine")
+        from dynamo_tpu_torch.ops import cuda_attention
 
-            cuda_attention.build()
+        cuda_attention.build()
+        if self.windows.eager:
+            return
+        with self._exec_lock, torch.inference_mode():
+            self._ensure_dev_state()
+            greedy = smp.gates([0.0], [1.0], [0], [0.0], [0.0], [0.0], [-1])
+            for want_lp in (False, True):
+                if (want_lp, greedy) not in self.windows.graphs:
+                    self.windows.capture(want_lp, greedy)
+            torch.cuda.synchronize(self.device)
+
+    def _decode_forward(self, tokens, positions, tables, ctx):
+        return llama.decode_step(self.model, tokens, positions, tables, ctx,
+                                 self.k_pages, self.v_pages,
+                                 page_size=self.cfg.page_size)
 
     def validate_request(self, req: GenRequest) -> None:
         """Raise ValueError if the request can never be served here."""
@@ -334,8 +396,9 @@ class Engine:
         """One scheduler iteration: apply aborts, then either one mixed
         step (a chunked prefill in flight, decode slots live and
         mixed_batch_tokens set) or admit (prefill) or run one chunk,
-        followed by one decode step. Single consumer: one thread calls
-        step(); add_request/abort_request synchronise through _lock."""
+        followed by one decode window (pipelined under async_scheduling).
+        Single consumer: one thread calls step(); add_request and
+        abort_request synchronise through _lock."""
         with self._exec_lock, torch.inference_mode():
             events = self._apply_aborts()
             if self._mixed_eligible():
@@ -346,7 +409,10 @@ class Engine:
             else:
                 events.extend(self._admit())
             if self.seqs:
-                events.extend(self._decode_once())
+                if self.cfg.async_scheduling:
+                    events.extend(self._decode_async())
+                else:
+                    events.extend(self._decode_once())
             return events
 
     def generate(self, req: GenRequest) -> List[int]:
@@ -362,10 +428,14 @@ class Engine:
     def _apply_aborts(self) -> List[TokenEvent]:
         with self._lock:
             aborted, self._aborted = self._aborted, set()
-            if not aborted:
-                return []
-            events = [TokenEvent(r.request_id, -1, 0, True, "abort")
-                      for r in self.pending if r.request_id in aborted]
+        if not aborted:
+            return []
+        # finishing slots frees pages a window in flight still touches:
+        # drain the pipeline before any teardown
+        events = self._materialize_pending()
+        with self._lock:
+            events.extend(TokenEvent(r.request_id, -1, 0, True, "abort")
+                          for r in self.pending if r.request_id in aborted)
             self.pending = collections.deque(
                 r for r in self.pending if r.request_id not in aborted)
         inf = self._inflight
@@ -390,16 +460,33 @@ class Engine:
                 if not self.pending:
                     break
                 req = self.pending[0]
+            # prefix lookup BEFORE the page gate: only the suffix needs
+            # fresh pages, and gating on the whole prompt could evict this
+            # very request's cached prefix for pages it never allocates
+            cached_pages, n_cached = [], 0
+            if self.prefix_cache is not None:
+                cached_pages, n_cached = self.prefix_cache.lookup(
+                    req.prompt_token_ids)
             n_pages = max(1, -(-len(req.prompt_token_ids)
                                // self.cfg.page_size))
-            if not self.allocator.can_alloc(n_pages):
+            if not self._ensure_pages(n_pages - len(cached_pages)):
+                if cached_pages:
+                    self.allocator.free(cached_pages)  # drop our refs
                 break  # OutOfPages deferral: running sequences free pages
             with self._lock:
                 self.pending.popleft()
-            if chunk > 0 and len(req.prompt_token_ids) > chunk:
-                # long prompt: prefill in chunks across later step()s
-                # instead of stalling every active stream
-                self._start_inflight(req)
+            # installing a slot changes the batch: drain the window in
+            # flight first
+            events.extend(self._materialize_pending())
+            if chunk > 0 and (n_cached > 0
+                              or len(req.prompt_token_ids) > chunk
+                              or (self.cfg.mixed_batch_tokens > 0
+                                  and bool(self.seqs))):
+                # a long or partly cached prompt, or any prompt while
+                # streams decode in mixed mode: prefill the rest in chunks
+                # across later step()s (riding the mixed step when it
+                # serves) instead of stalling every active stream
+                self._start_inflight(req, cached_pages, n_cached)
                 break
             group = self._widen_group(req, chunk)
             if len(group) > 1:
@@ -419,7 +506,8 @@ class Engine:
     def _widen_group(self, req: GenRequest, chunk: int) -> List[GenRequest]:
         """Pull further pending same-bucket full-prefill requests into one
         batched admission (up to max_prefill_batch, bounded by free slots
-        and pages, counted cumulatively)."""
+        and pages, counted cumulatively). Requests for the chunked path
+        (long or cached prompts) stay queued for the normal loop."""
         cfg = self.cfg
         group = [req]
         if cfg.max_prefill_batch <= 1:
@@ -438,8 +526,11 @@ class Engine:
                 break  # chunked path
             if _next_bucket(plen, cfg.page_size, cfg.max_seq_len) != bucket:
                 break
+            if (self.prefix_cache is not None
+                    and self.prefix_cache.has_prefix(nxt.prompt_token_ids)):
+                break  # cached prefix: chunked path
             n_pg = max(1, -(-plen // cfg.page_size))
-            if not self.allocator.can_alloc(need + n_pg):
+            if not self._ensure_pages(need + n_pg):
                 break
             need += n_pg
             with self._lock:
@@ -540,7 +631,10 @@ class Engine:
     def _finalize_admission(self, req: GenRequest, pages, prompt_len: int,
                             first: int, req_key: int, lp,
                             slot: Optional[int] = None) -> TokenEvent:
-        """Install the slot, stop-check the first token, decorate logprobs."""
+        """Publish the prompt's full pages to the prefix cache, install the
+        slot, stop-check the first token, decorate logprobs."""
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(req.prompt_token_ids, pages)
         if slot is None:
             slot = self._free_slots.pop()
         seq = self._install_slot(req, slot, pages, prompt_len, first, req_key)
@@ -576,11 +670,16 @@ class Engine:
             req, pages, prompt_len, int(toks[0]), key,
             (float(chosen[0]), tids[0], tvals[0]))
 
-    def _start_inflight(self, req: GenRequest) -> None:
+    def _start_inflight(self, req: GenRequest, cached_pages=(),
+                        n_cached: int = 0) -> None:
+        """Reserve a slot and the prompt's pages (after the cached prefix's
+        shared pages) for a chunked prefill starting at token n_cached."""
         cfg = self.cfg
         prompt_len = len(req.prompt_token_ids)
         bucket = _next_bucket(prompt_len, cfg.page_size, cfg.max_seq_len)
-        pages = self.allocator.alloc(max(1, -(-prompt_len // cfg.page_size)))
+        total = max(1, -(-prompt_len // cfg.page_size))
+        pages = list(cached_pages)
+        pages += self.allocator.alloc(total - len(pages))
         # trailing TRASH slots: the final padded chunk's page slice (of a
         # classic chunk or of a mixed step, whichever is wider) lands on
         # page 0 instead of running off the list
@@ -591,6 +690,7 @@ class Engine:
         slot = self._free_slots.pop()
         self._inflight = InflightPrefill(req, pages, self._tensor(pages_arr),
                                          prompt_len, slot)
+        self._inflight.done = n_cached  # a cached prefix skips to the suffix
 
     def _advance_chunk(self) -> List[TokenEvent]:
         """Run ONE chunk of the inflight prefill; on the last chunk sample
@@ -610,12 +710,15 @@ class Engine:
         self.metrics.prefill_time_s += time.monotonic() - t0
         if inf.done < inf.prompt_len:
             return []
-        return [self._install_inflight(logits)]
+        # the last chunk installs a slot: drain the window in flight first
+        events = self._materialize_pending()
+        events.append(self._install_inflight(logits))
+        return events
 
     def _install_inflight(self, logits) -> TokenEvent:
         """The inflight prefill's last chunk ran: sample its first token
-        from the chunk's last-row logits [V] and install the sequence in
-        its reserved slot."""
+        from the chunk's last-row logits [V], publish the prompt's full
+        pages and install the sequence in its reserved slot."""
         inf = self._inflight
         self._inflight = None
         self.metrics.prompt_tokens += inf.prompt_len
@@ -642,8 +745,10 @@ class Engine:
         the first token comes from the same forward's last-row logits."""
         inf = self._inflight
         cfg = self.cfg
-        events: List[TokenEvent] = []
-        self._grow_pages(events)
+        # the mixed step extends the device carry like a 1-step window:
+        # drain the window in flight, then give every slot its page
+        events = self._materialize_pending()
+        self._grow_pages(1, events)
         if not self.seqs:
             # page pressure emptied the batch: the chunk still has its
             # reserved pages, so it advances on the classic path
@@ -665,7 +770,8 @@ class Engine:
             chunk_logits.append(last)
             return logits
 
-        events.extend(self._decode_rows(forward))
+        self._dispatch_window(1, forward=forward)
+        events.extend(self._materialize_pending())
         inf.done += take
         self.metrics.mixed_count += 1
         if inf.done < inf.prompt_len:
@@ -696,7 +802,7 @@ class Engine:
         self.seqs[slot] = seq
         self.block_tables[slot, :] = 0
         self.block_tables[slot, :len(pages)] = pages
-        self._dev_tables = None
+        self._invalidate_dev()  # new membership: rebuild the device batch
         self.temperature[slot] = req.temperature
         self.top_p[slot] = req.top_p
         self.top_k[slot] = req.top_k
@@ -726,22 +832,75 @@ class Engine:
 
     # ------------------------------------------------------------- decode --
 
-    def _grow_pages(self, events: List[TokenEvent]) -> None:
-        """Give every active sequence a page for its next token, preempting
-        (recompute) under pressure and finishing with kv_oom only when the
-        pool could never hold the sequence."""
+    def _ensure_pages(self, n: int) -> bool:
+        """can_alloc, with eviction of unshared prefix-cache pages as the
+        pressure valve."""
+        if self.allocator.can_alloc(n):
+            return True
+        if self.prefix_cache is None:
+            return False
+        self.prefix_cache.evict(n - self.allocator.free_pages)
+        return self.allocator.can_alloc(n)
+
+    def _window_steps(self, extra: int = 0) -> int:
+        """How many decode steps the next window may take (1 = classic).
+
+        k = num_scheduler_steps only when every live sequence has k tokens
+        of headroom (max_tokens, max_seq_len, block-table columns), so no
+        stop or table overflow can happen inside the window, and nothing
+        is pending (admission latency beats batching). `extra`: tokens of
+        a window in flight (async), which the headroom must cover too.
+        Returns 0 when not even one step fits on top of it (the caller
+        drains the pipeline and steps synchronously)."""
+        k = self.cfg.num_scheduler_steps
+        small = k <= 1 or self.pending or not self.seqs
+        pmax_tokens = self.cfg.max_pages_per_seq * self.cfg.page_size
+        want = 1 if small else k
+        for seq in self.seqs.values():
+            n_out = len(seq.output_tokens)
+            headroom = min(
+                seq.max_tokens - n_out,
+                self.cfg.max_seq_len - (seq.prompt_len + n_out),
+                pmax_tokens - seq.num_tokens,
+            ) - extra
+            if headroom < want:
+                want = 1 if headroom >= 1 else 0
+                if want == 0:
+                    return 0
+        return want
+
+    def _grow_pages(self, window: int, events: List[TokenEvent],
+                    offset: int = 0, allow_kill: bool = True) -> int:
+        """Give every active sequence the pages for its next `window`
+        tokens (positions num_tokens + offset onwards; `offset`: tokens of
+        a window in flight). Falls back to a 1-token window when the pool
+        cannot cover the whole one; preempts (recompute) under pressure and
+        finishes with kv_oom only when the pool could never hold the
+        sequence, unless allow_kill is False (a window is in flight over
+        those pages), where it returns 0 for the caller to drain first."""
         cfg = self.cfg
         pcap = cfg.max_pages_per_seq - 1
+        if window > 1:
+            need_total = 0
+            for seq in self.seqs.values():
+                last_page = min((seq.num_tokens + offset + window - 1)
+                                // cfg.page_size, pcap)
+                need_total += max(0, last_page + 1 - len(seq.pages))
+            if not self._ensure_pages(need_total):
+                window = 1
         for slot, seq in list(self.seqs.items()):
             if self.seqs.get(slot) is not seq:
                 continue  # preempted by an earlier iteration
-            last_page = min(seq.num_tokens // cfg.page_size, pcap)
+            last_page = min((seq.num_tokens + offset + window - 1)
+                            // cfg.page_size, pcap)
             need = max(0, last_page + 1 - len(seq.pages))
             if need == 0:
                 continue
-            if not self.allocator.can_alloc(need):
+            if not self._ensure_pages(need):
+                if not allow_kill:
+                    return 0
                 self._preempt_for(need, protect=slot)
-                if not self.allocator.can_alloc(need):
+                if not self._ensure_pages(need):
                     if (len(self.seqs) > 1 and len(seq.pages) + need
                             <= cfg.num_pages - 1):
                         self._preempt_slot(slot)
@@ -755,7 +914,8 @@ class Engine:
             for page in self.allocator.alloc(need):
                 seq.pages.append(page)
                 self.block_tables[slot, len(seq.pages) - 1] = page
-            self._dev_tables = None
+            self._dev_tables_ok = False
+        return window
 
     def _preempt_for(self, need: int, protect: int) -> None:
         """Free >= `need` pages by preempting victims (worst priority, then
@@ -796,77 +956,165 @@ class Engine:
             self._insert_pending(cont, requeue=True)
 
     def _decode_once(self) -> List[TokenEvent]:
-        """One decode step for every slot: write KV, attend, sample, read
-        the tokens back."""
+        """Synchronous decode: dispatch one window and read it back."""
         events: List[TokenEvent] = []
-        self._grow_pages(events)
+        window = self._grow_pages(self._window_steps(), events)
         if not self.seqs:
             return events
-
-        def forward(tokens, positions, tables, ctx):
-            return llama.decode_step(
-                self.model, tokens, positions, tables, ctx, self.k_pages,
-                self.v_pages, page_size=self.cfg.page_size)
-
-        events.extend(self._decode_rows(forward))
+        self._dispatch_window(window)
+        events.extend(self._materialize_pending())
         return events
 
-    def _decode_rows(self, forward) -> List[TokenEvent]:
-        """Advance every live slot by one token: build the batch inputs,
-        run `forward(tokens, positions, tables, ctx) -> logits [B, V]`,
-        sample, read the tokens back and stop-check them (counted as one
-        decode step)."""
+    def _decode_async(self) -> List[TokenEvent]:
+        """Pipelined decode: dispatch window k+1, THEN read window k back,
+        so the host's wait overlaps the new window's device work. A finish
+        read from window k drains the pipeline (window k+1's tokens for the
+        surviving sequences are processed in the same step, the finished
+        slot's discarded)."""
         events: List[TokenEvent] = []
+        prev = self._pending_win
+        lag = prev[0] if prev is not None else 0
+        window = self._window_steps(extra=lag)
+        if window > 0:
+            window = self._grow_pages(window, events, offset=lag,
+                                      allow_kill=prev is None)
+        if not self.seqs:
+            events.extend(self._materialize_pending())
+            return events
+        if window <= 0:
+            # no headroom or pages to run ahead of the window in flight:
+            # drain it and step synchronously
+            events.extend(self._materialize_pending())
+            if self.seqs:
+                events.extend(self._decode_once())
+            return events
+        self._dispatch_window(window, offset=lag)
+        if prev is not None:
+            events.extend(self._materialize_window(prev))
+            if any(ev.finished for ev in events):
+                # a finish frees pages the new window still touches: drain
+                # it before an admission can reuse them
+                events.extend(self._materialize_pending())
+        return events
+
+    def _invalidate_dev(self, tables_only: bool = False) -> None:
+        self._dev_tables_ok = False
+        if not tables_only:
+            self._dev_state_ok = False
+            self._dev_sampling_ok = False
+
+    def _ensure_dev_state(self) -> None:
+        """Rebuild the stale parts of the device batch from the host
+        mirrors, in place (a captured graph keeps its buffers)."""
+        b = self.batch
+        if not self._dev_state_ok:
+            n = self.cfg.max_num_seqs
+            tokens = np.zeros((n,), np.int64)
+            positions = np.zeros((n,), np.int32)
+            ctx = np.ones((n,), np.int32)  # inactive: trash page, context 1
+            step = np.zeros((n,), np.int32)
+            for slot in range(n):
+                seq = self.seqs.get(slot)
+                if seq is None:
+                    self.block_tables[slot, :] = 0
+                    continue
+                tokens[slot] = seq.output_tokens[-1]
+                positions[slot] = seq.num_tokens
+                ctx[slot] = seq.num_tokens + 1
+                step[slot] = 1
+            for dst, arr in ((b.tokens, tokens), (b.positions, positions),
+                             (b.context_lens, ctx), (b.step, step)):
+                upload(dst, arr)
+            self._dev_state_ok = True
+            self._dev_tables_ok = False
+        if not self._dev_tables_ok:
+            upload(b.tables, self.block_tables)
+            self._dev_tables_ok = True
+        if not self._dev_sampling_ok:
+            for dst, arr in ((b.temperature, self.temperature),
+                             (b.top_p, self.top_p), (b.top_k, self.top_k),
+                             (b.presence, self.presence),
+                             (b.frequency, self.frequency),
+                             (b.min_p, self.min_p),
+                             (b.bias_ids, self.bias_ids),
+                             (b.bias_vals, self.bias_vals),
+                             (b.slot_keys, self.slot_keys)):
+                upload(dst, arr)
+            self._gates = smp.gates(self.temperature, self.top_p, self.top_k,
+                                    self.presence, self.frequency,
+                                    self.min_p, self.bias_ids)
+            self._dev_sampling_ok = True
+
+    def _check_window_pages(self, window: int, offset: int) -> None:
+        """A window writes only pages its sequence owns alone: shared
+        (prefix-cached) pages hold full prompt pages before every write."""
+        ps = self.cfg.page_size
+        for seq in self.seqs.values():
+            first = seq.num_tokens + offset
+            for idx in range(first // ps, (first + window - 1) // ps + 1):
+                page = seq.pages[idx]
+                if self.allocator.refs(page) != 1:
+                    raise AssertionError(
+                        f"{seq.request_id}: a decode window would write "
+                        f"shared page {page} (refcount "
+                        f"{self.allocator.refs(page)})")
+
+    def _dispatch_window(self, window: int, offset: int = 0,
+                         forward=None) -> None:
+        """Queue a decode window (or, with `forward`, one eager step of the
+        mixed forward) and the copy of its outputs to the host."""
         t0 = time.monotonic()
-        cfg = self.cfg
-        b = cfg.max_num_seqs
-        tokens = np.zeros((b,), np.int64)
-        positions = np.zeros((b,), np.int32)
-        ctx = np.ones((b,), np.int32)  # inactive: trash page, context 1
-        active = np.zeros((b,), bool)
-        for slot, seq in self.seqs.items():
-            tokens[slot] = seq.output_tokens[-1]
-            positions[slot] = seq.num_tokens
-            ctx[slot] = seq.num_tokens + 1
-            active[slot] = True
-        if self._dev_tables is None:
-            self._dev_tables = self._tensor(self.block_tables)
-        logits = forward(self._tensor(tokens), self._tensor(positions),
-                         self._dev_tables, self._tensor(ctx))
-        state = smp.make_state(
-            self.temperature, self.top_p, self.top_k, self.presence,
-            self.frequency, self.min_p, self.bias_ids, self.bias_vals,
-            device=self.device)
-        seeds = smp.fold_positions(self.slot_keys, positions)
+        self._ensure_dev_state()
+        self._check_window_pages(window, offset)
         want_lp = any(s.logprobs is not None for s in self.seqs.values())
-        if want_lp:
-            nxt, chosen, tids, tvals = smp.sample_with_logprobs(
-                logits, state, seeds, self.token_counts)
-            chosen, tids, tvals = (chosen.cpu().numpy(), tids.cpu().numpy(),
-                                   tvals.cpu().numpy())
+        if forward is None:
+            self.windows.run(window, want_lp, self._gates)
         else:
-            nxt = smp.sample(logits, state, seeds, self.token_counts)
-        rows = torch.arange(b, device=self.device)
-        self.token_counts[rows, nxt] += self._tensor(active, torch.int32)
-        next_np = nxt.cpu().numpy()
-        dt = time.monotonic() - t0
-        self.metrics.decode_steps += 1
-        self.metrics.decode_time_s += dt
-        for slot in map(int, np.flatnonzero(active)):
-            seq = self.seqs[slot]
-            tok = int(next_np[slot])
-            seq.num_tokens += 1  # the attended token is now cached
-            seq.output_tokens.append(tok)
-            self.metrics.output_tokens += 1
-            finished, reason = self._check_stop(seq, tok)
-            ev = TokenEvent(seq.request_id, tok, len(seq.output_tokens) - 1,
-                            finished, reason)
-            if want_lp and seq.logprobs is not None:
-                self._decorate_lp(ev, seq, chosen[slot], tids[slot],
-                                  tvals[slot])
-            events.append(ev)
-            if finished:
-                self._finish_slot(slot, reason)
+            self.windows.run_eager(forward, want_lp, self._gates)
+        rb = self._readbacks[self._next_readback]
+        self._next_readback ^= 1
+        rb.start(window, want_lp)
+        # membership at dispatch: a slot installed later does not consume
+        # this window's rows
+        self._pending_win = (window, rb, want_lp, time.monotonic() - t0,
+                             list(self.seqs))
+
+    def _materialize_pending(self) -> List[TokenEvent]:
+        if self._pending_win is None:
+            return []
+        return self._materialize_window(self._pending_win)
+
+    def _materialize_window(self, pw) -> List[TokenEvent]:
+        """Read a dispatched window back and stop-check its tokens; a
+        slot's tokens after its stop are discarded."""
+        if self._pending_win is pw:
+            self._pending_win = None
+        window, rb, want_lp, dispatch_s, slots = pw
+        t_wait = time.monotonic()
+        out = rb.wait()
+        next_np = out[0]  # [window, B]
+        self.metrics.decode_steps += window
+        self.metrics.decode_time_s += dispatch_s + time.monotonic() - t_wait
+        events: List[TokenEvent] = []
+        for slot in slots:
+            seq = self.seqs.get(slot)
+            if seq is None:  # finished or aborted since dispatch
+                continue
+            for k in range(window):
+                tok = int(next_np[k, slot])
+                seq.num_tokens += 1  # the attended token is now cached
+                seq.output_tokens.append(tok)
+                self.metrics.output_tokens += 1
+                finished, reason = self._check_stop(seq, tok)
+                ev = TokenEvent(seq.request_id, tok,
+                                len(seq.output_tokens) - 1, finished, reason)
+                if want_lp and seq.logprobs is not None:
+                    self._decorate_lp(ev, seq, out[1][k, slot],
+                                      out[2][k, slot], out[3][k, slot])
+                events.append(ev)
+                if finished:
+                    self._finish_slot(slot, reason)
+                    break
         return events
 
     def _check_stop(self, seq: SeqState, token: int):
@@ -884,7 +1132,7 @@ class Engine:
             return
         self.allocator.free(seq.pages)
         self.block_tables[slot, :] = 0
-        self._dev_tables = None
+        self._invalidate_dev()
         # reset the slot's sampling mirrors so the host-side gates see an
         # all-greedy batch again once sampled requests leave
         self.temperature[slot] = 0.0

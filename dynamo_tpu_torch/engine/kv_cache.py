@@ -1,6 +1,7 @@
 """Paged KV cache: device page pools + host-side page allocator.
 
-Port of `dynamo_tpu/engine/kv_cache.py` without the prefix cache. The pools
+Port of `dynamo_tpu/engine/kv_cache.py`, automatic prefix caching
+(`PrefixCache`) included, without its KVBM host tier and KV event sink. The pools
 are [num_layers, num_pages, page_size, lane_width] for K and V, page-major:
 in the model dtype with the KV heads fused into the last axis (head h
 occupies lanes [h*D, (h+1)*D), lane_width = KV*D), or, with
@@ -13,8 +14,9 @@ so the full-batch decode step needs no masked writes.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -111,6 +113,16 @@ class PageAllocator:
             self._refs[p] = 1
         return pages
 
+    def ref(self, pages: List[int]) -> None:
+        """One more owner for each page (a prefix shared by sequences and
+        the prefix cache)."""
+        for p in pages:
+            assert self._refs[p] > 0
+            self._refs[p] += 1
+
+    def refs(self, page: int) -> int:
+        return int(self._refs[page])
+
     def free(self, pages: List[int]) -> None:
         for p in pages:
             if p == 0:
@@ -121,6 +133,111 @@ class PageAllocator:
 
     def can_alloc(self, n: int) -> bool:
         return n <= len(self._free)
+
+
+class PrefixCache:
+    """Automatic prefix caching over the paged KV pool (vLLM-style), the
+    JAX package's `PrefixCache` less its KVBM tier and event sink.
+
+    A fully prefilled prompt's FULL pages are published under a rolling
+    block-hash chain (sha256 from b"root" over int64 token blocks, byte for
+    byte the JAX package's); a new request reuses the longest cached prefix
+    (ref-counted pages shared across sequences) and prefills only the
+    suffix through the chunked path. Cached pages are immutable: only full
+    pages are published, `lookup` leaves at least one token uncached, so
+    decode and suffix writes always land on later pages. The cache holds
+    one reference per published page; eviction (LRU) takes only pages
+    nothing else references."""
+
+    def __init__(self, allocator: PageAllocator, page_size: int):
+        self.allocator = allocator
+        self.page_size = page_size
+        # block hash -> page id, in LRU order (oldest first)
+        self._map: Dict[bytes, int] = {}
+        self.hits = 0
+        self.misses = 0
+        self.cached_tokens_served = 0
+
+    @staticmethod
+    def _chain(prev: bytes, block) -> bytes:
+        h = hashlib.sha256(prev)
+        h.update(np.asarray(block, dtype=np.int64).tobytes())
+        return h.digest()
+
+    def _hashes(self, tokens, n_blocks: int) -> List[bytes]:
+        """The rolling hash of each of the first n_blocks full pages."""
+        out, h = [], b"root"
+        for i in range(n_blocks):
+            h = self._chain(h, tokens[i * self.page_size:
+                                      (i + 1) * self.page_size])
+            out.append(h)
+        return out
+
+    def lookup(self, prompt_tokens) -> Tuple[List[int], int]:
+        """Longest cached prefix: (page ids, tokens). The pages come back
+        ref'd for the caller. Leaves >= 1 token uncached so the last
+        token's logits are computed."""
+        limit = (len(prompt_tokens) - 1) // self.page_size
+        pages: List[int] = []
+        for h in self._hashes(prompt_tokens, limit):
+            page = self._map.get(h)
+            if page is None:
+                break
+            self._map[h] = self._map.pop(h)  # LRU bump
+            pages.append(page)
+        if pages:
+            self.allocator.ref(pages)
+            self.hits += 1
+            self.cached_tokens_served += len(pages) * self.page_size
+        else:
+            self.misses += 1
+        return pages, len(pages) * self.page_size
+
+    def has_prefix(self, prompt_tokens) -> bool:
+        """True when lookup() would hit, without taking references, bumping
+        the LRU order or counting (admission grouping peeks)."""
+        if len(prompt_tokens) <= self.page_size:
+            return False
+        return self._hashes(prompt_tokens, 1)[0] in self._map
+
+    def insert(self, prompt_tokens, pages: List[int]) -> None:
+        """Publish a fully prefilled prompt's full pages; each newly
+        published page gains a cache-owned reference."""
+        n_full = len(prompt_tokens) // self.page_size
+        for h, page in zip(self._hashes(prompt_tokens, n_full),
+                           pages[:n_full]):
+            if h in self._map:
+                continue
+            self.allocator.ref([page])
+            self._map[h] = page
+
+    def evictable(self) -> int:
+        """Pages reclaimable now (the cache is the sole owner)."""
+        return sum(1 for p in self._map.values()
+                   if self.allocator.refs(p) == 1)
+
+    def evict(self, n: int) -> int:
+        """Free up to n sole-owned pages, oldest first; returns how many."""
+        if n <= 0:
+            return 0
+        victims = []
+        for h, page in self._map.items():  # insertion order == LRU
+            if self.allocator.refs(page) == 1:
+                victims.append((h, page))
+                if len(victims) >= n:
+                    break
+        for h, page in victims:
+            del self._map[h]
+            self.allocator.free([page])
+        return len(victims)
+
+    def stats(self) -> dict:
+        return {
+            "entries": len(self._map),
+            "hits": self.hits,
+            "misses": self.misses,
+            "cached_tokens_served": self.cached_tokens_served,
+        }
 
 
 class SeqState:

@@ -5,26 +5,37 @@ Port of `dynamo_tpu/engine/sampling.py`. Every parameter is a per-slot
 tensor so one call serves a heterogeneous batch; which optional passes run
 is decided on the host from the same values (`SamplingState` carries the
 gates), so the common all-greedy batch is one argmax with no device sync.
+The gates are the only host input: a captured decode window
+(`engine/decode_graphs.py`) is keyed by them.
 
 Randomness: a request owns a 63-bit chain root (its `seed`, or a draw from
 the engine's generator), and the prediction made from position p samples
-with Gumbel noise from a `torch.Generator` seeded with `fold_in(root, p)`.
-Sampling is therefore deterministic per request whatever else is in the
-batch, and across preemption, as in the JAX package, whose `fold_in` over
-threefry keys it mirrors. The bits differ from JAX's: seeded streams match
-the JAX package's in distribution, not token for token.
+with Gumbel noise keyed by `fold_in(root, p)`. The noise is counter-based
+integer arithmetic on the device: the bits of vocabulary entry v are
+`_hash32` rounds over (row key, v), so a window that never reads its
+positions back to the host draws them, and the bits are the same on the
+CPU and the card (every intermediate stays below 2**59 in int64, where
+signed overflow would not be portable). Sampling is therefore
+deterministic per request whatever else is in the batch, whatever the
+window length, and across preemption, as in the JAX package, whose
+`fold_in` over threefry keys it mirrors. The bits differ from JAX's:
+seeded streams match the JAX package's in distribution, not token for
+token.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from dynamo_tpu_torch.engine.request import BIAS_K  # noqa: F401 (re-export)
 
-_MASK64 = (1 << 64) - 1
+_M32 = 0xFFFFFFFF
+_HASH_MUL = 0x45D9F3B  # < 2**27: a 32-bit value times it stays < 2**59
+_ROW_SALT = 0x2545F491
+Keys = Union[torch.Tensor, Sequence[int]]
 
 
 class SamplingState(NamedTuple):
@@ -36,13 +47,28 @@ class SamplingState(NamedTuple):
     min_p: torch.Tensor  # [B] float32 in [0, 1); 0 -> disabled
     bias_ids: torch.Tensor  # [B, BIAS_K] int64 token ids; -1 -> empty lane
     bias_vals: torch.Tensor  # [B, BIAS_K] float32 logit biases
-    # host-side gates over the same values
-    sampled_rows: Tuple[int, ...]  # slots with temperature > 0
+    # host-side gates over the same values (see gates())
     all_greedy: bool
     any_bias: bool
     any_penalty: bool
     any_topk_topp: bool
     any_min_p: bool
+
+
+def gates(temperature, top_p, top_k, presence, frequency, min_p,
+          bias_ids) -> Tuple[bool, bool, bool, bool, bool]:
+    """(all_greedy, any_bias, any_penalty, any_topk_topp, any_min_p) of
+    host arrays; an all-greedy batch runs no temperature pass, so its
+    top-k/top-p and min_p gates are off whatever the rows hold."""
+    temperature = np.asarray(temperature)
+    all_greedy = bool((temperature <= 0.0).all())
+    return (all_greedy,
+            bool((np.asarray(bias_ids) >= 0).any()),
+            bool(((np.asarray(presence) != 0.0)
+                  | (np.asarray(frequency) != 0.0)).any()),
+            not all_greedy and bool(((np.asarray(top_k) > 0)
+                                     | (np.asarray(top_p) < 1.0)).any()),
+            not all_greedy and bool((np.asarray(min_p) > 0.0).any()))
 
 
 def make_state(temperature, top_p, top_k, presence=None, frequency=None,
@@ -70,30 +96,55 @@ def make_state(temperature, top_p, top_k, presence=None, frequency=None,
     return SamplingState(
         dev(temperature), dev(top_p), dev(top_k), dev(presence),
         dev(frequency), dev(min_p), dev(bias_ids), dev(bias_vals),
-        sampled_rows=tuple(int(b) for b in np.flatnonzero(temperature > 0.0)),
-        all_greedy=bool((temperature <= 0.0).all()),
-        any_bias=bool((bias_ids >= 0).any()),
-        any_penalty=bool(((presence != 0.0) | (frequency != 0.0)).any()),
-        any_topk_topp=bool(((top_k > 0) | (top_p < 1.0)).any()),
-        any_min_p=bool((min_p > 0.0).any()),
-    )
+        *gates(temperature, top_p, top_k, presence, frequency, min_p,
+               bias_ids))
 
 
-def _splitmix64(x: int) -> int:
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
+def _hash32(x):
+    """A 32-bit integer hash (two multiply-xorshift rounds) of 32-bit
+    values, on Python ints or int64 tensors alike."""
+    x = ((x >> 16) ^ x) * _HASH_MUL & _M32
+    x = ((x >> 16) ^ x) * _HASH_MUL & _M32
+    return (x >> 16) ^ x
 
 
-def fold_in(key: int, data: int) -> int:
-    """Derive the step seed for position `data` of chain root `key`."""
-    return _splitmix64(int(key) ^ _splitmix64(int(data) & _MASK64)) >> 1
+def fold_in(key, data):
+    """The row key for position `data` of chain root `key` (< 2**63): 63
+    bits, from two 32-bit lanes. Python ints or int64 tensors."""
+    a = _hash32((key & _M32) ^ _hash32(data & _M32))
+    b = _hash32(((key >> 32) & _M32) ^ _hash32(a ^ _ROW_SALT))
+    return ((b & 0x7FFFFFFF) << 32) | a
 
 
-def fold_positions(keys: Sequence[int], positions: Sequence[int]):
-    """Per-slot step seeds: fold_in(key[b], position[b])."""
-    return [fold_in(k, p) for k, p in zip(keys, positions)]
+def fold_positions(keys: Keys, positions) -> Keys:
+    """Per-slot row keys fold_in(keys[b], positions[b]): a tensor for
+    tensors (on their device), else a list of ints."""
+    if isinstance(keys, torch.Tensor):
+        return fold_in(keys.long(), positions.to(keys.device, torch.int64))
+    return [fold_in(int(k), int(p)) for k, p in zip(keys, positions)]
+
+
+def uniform_bits(row_keys: torch.Tensor, vocab: int) -> torch.Tensor:
+    """[B, vocab] int64 random 32-bit values: entry v of row b hashes
+    (row_keys[b], v)."""
+    v = torch.arange(vocab, device=row_keys.device, dtype=torch.int64)
+    x = _hash32(v[None, :] ^ (row_keys & _M32)[:, None])
+    return _hash32(x ^ (row_keys >> 32)[:, None])
+
+
+def gumbel(row_keys: torch.Tensor, vocab: int) -> torch.Tensor:
+    """[B, vocab] float32 Gumbel noise from uniform_bits: the top 24 bits
+    as a uniform in (0, 1), exactly, then -log(-log(u))."""
+    u = ((uniform_bits(row_keys, vocab) >> 8).to(torch.float32) + 0.5) \
+        * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def _as_keys(keys: Keys, device) -> torch.Tensor:
+    if isinstance(keys, torch.Tensor):
+        return keys.to(device, torch.int64)
+    return torch.tensor([int(k) for k in keys], dtype=torch.int64,
+                        device=device)
 
 
 def _penalized(logits: torch.Tensor, state: SamplingState,
@@ -151,25 +202,11 @@ def _mask_topk_topp(scaled: torch.Tensor, state: SamplingState
     return scaled.masked_fill(scaled < thresh, float("-inf"))
 
 
-def _gumbel(seeds: Sequence[int], rows: Sequence[int], shape,
-            device) -> torch.Tensor:
-    """Gumbel noise [B, V]: row b from a generator seeded with seeds[b]
-    for b in `rows`, zeros elsewhere."""
-    noise = torch.zeros(shape, dtype=torch.float32, device=device)
-    tiny = torch.finfo(torch.float32).tiny
-    for b in rows:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(seeds[b]))
-        u = torch.rand(shape[1], generator=gen, device=device,
-                       dtype=torch.float32).clamp_min(tiny)
-        noise[b] = -torch.log(-torch.log(u))
-    return noise
-
-
-def sample(logits: torch.Tensor, state: SamplingState, seeds: Sequence[int],
+def sample(logits: torch.Tensor, state: SamplingState, keys: Keys,
            counts: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[B] sampled token ids (int64): Gumbel-max with per-slot step seeds
-    (see fold_in). An all-greedy batch is one argmax."""
+    """[B] sampled token ids (int64): Gumbel-max with per-slot row keys
+    `keys` (fold_positions; a tensor or ints). An all-greedy batch is one
+    argmax."""
     logits32, greedy = _penalized(logits, state, counts)
     if state.all_greedy:
         return greedy
@@ -178,19 +215,19 @@ def sample(logits: torch.Tensor, state: SamplingState, seeds: Sequence[int],
         scaled = _mask_topk_topp(scaled, state)
     if state.any_min_p:
         scaled = _mask_min_p(scaled, state)
-    noise = _gumbel(seeds, state.sampled_rows, scaled.shape, scaled.device)
+    noise = gumbel(_as_keys(keys, scaled.device), scaled.shape[1])
     sampled = (scaled + noise).argmax(dim=-1)
     return torch.where(state.temperature <= 0.0, greedy, sampled)
 
 
 def sample_with_logprobs(logits: torch.Tensor, state: SamplingState,
-                         seeds: Sequence[int],
+                         keys: Keys,
                          counts: Optional[torch.Tensor] = None,
                          num_top: int = 5):
     """sample() plus the chosen token's logprob and the top-`num_top`
     alternatives, from the UNPENALIZED distribution at temperature 1 (the
     OpenAI contract: logprobs describe the model, not the sampler)."""
-    tokens = sample(logits, state, seeds, counts)
+    tokens = sample(logits, state, keys, counts)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     chosen = logp.gather(1, tokens[:, None])[:, 0]
     top_vals, top_ids = logp.topk(min(num_top, logp.shape[-1]), dim=-1)

@@ -30,13 +30,17 @@ stream go over as `c_void_p`, each C entry point returns `cudaGetLastError()`
 and the wrapper raises when that is not 0.
 
 Wrappers check device, dtype, shape and contiguity, allocate their output
-with `torch.empty`, and count their launches in `LAUNCHES` (nothing else
-touches the counts). They take CUDA tensors only; the plain PyTorch versions
-of the same functions are in `dynamo_tpu_torch.ops.attention`.
+with `torch.empty`, and count their launches in `LAUNCHES`. They take CUDA
+tensors only; the plain PyTorch versions of the same functions are in
+`dynamo_tpu_torch.ops.attention`. Under a CUDA graph capture a wrapper call
+records its kernel instead of launching it: `counting_capture` takes such
+calls back out of `LAUNCHES` and keeps them with the graph, and
+`count_replay` adds them at every replay, so the counts stay launches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -45,7 +49,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -76,6 +80,28 @@ build_log = ""  # nvcc/ptxas output of the build of the loaded library
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def counting_capture() -> Iterator[Dict[str, int]]:
+    """Around a CUDA graph capture: yields a dict that holds, on exit, the
+    wrapper calls made inside by kernel name (the launches each replay of
+    the graph makes), and leaves LAUNCHES as it was before."""
+    before = dict(LAUNCHES)
+    recorded: Dict[str, int] = {}
+    try:
+        yield recorded
+    finally:
+        for name, n in before.items():
+            if LAUNCHES[name] != n:
+                recorded[name] = LAUNCHES[name] - n
+            LAUNCHES[name] = n
+
+
+def count_replay(recorded: Dict[str, int]) -> None:
+    """Count one replay of a graph whose capture recorded `recorded`."""
+    for name, n in recorded.items():
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:

@@ -253,7 +253,7 @@ class _Handler(JsonHTTPHandler):
                 time.time() - ctx.start_time, 1)})
         elif path == "/worker/stats":
             eng = ctx.engine
-            self._json(200, {
+            out = {
                 "model": ctx.served_model,
                 "device": str(eng.device),
                 "active_seqs": eng.num_active,
@@ -265,7 +265,11 @@ class _Handler(JsonHTTPHandler):
                              "lane_width": eng.kv_spec.lane_width,
                              "bytes": eng.kv_spec.pool_bytes},
                 "metrics": eng.metrics.snapshot(),
-            })
+                "decode_graphs": eng.windows.stats(),
+            }
+            if eng.prefix_cache is not None:
+                out["prefix_cache"] = eng.prefix_cache.stats()
+            self._json(200, out)
         else:
             self._error(404, f"no route {path}")
 

@@ -469,3 +469,89 @@ def test_mixed_int8_engine_launches_its_kernels(dev):
     assert ca.LAUNCHES["ragged_int8"] == 2 * eng.metrics.mixed_count
     for k in ("decode", "chunk", "ragged"):
         assert ca.LAUNCHES[k] == 0, ca.LAUNCHES
+
+
+def _window_engine(enforce_eager, params=None, **kw):
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import Engine
+
+    return Engine(EngineConfig(model="tiny-debug", page_size=16,
+                               num_pages=64, max_num_seqs=4, max_seq_len=512,
+                               prefill_chunk_tokens=32,
+                               enable_prefix_caching=False,
+                               num_scheduler_steps=4,
+                               enforce_eager=enforce_eager, **kw),
+                  params=params)
+
+
+def _window_run(eng):
+    """Greedy, seeded sampled and logprobs requests to the end: {rid:
+    [(token, logprob)]}."""
+    from dynamo_tpu_torch.engine.request import GenRequest
+
+    reqs = [GenRequest("g", list(range(1, 8)), max_tokens=13,
+                       ignore_eos=True),
+            GenRequest("s", list(range(5, 45)), max_tokens=11,
+                       temperature=0.8, top_p=0.9, seed=7, ignore_eos=True),
+            GenRequest("lp", [3, 1, 4, 1, 5], max_tokens=9, logprobs=3,
+                       ignore_eos=True)]
+    for r in reqs:
+        eng.add_request(r)
+    out = {}
+    while eng.has_work:
+        for ev in eng.step():
+            if ev.token_id >= 0:
+                out.setdefault(ev.request_id, []).append(
+                    (ev.token_id, ev.logprob, ev.top_logprobs))
+    return out
+
+
+@pytest.mark.parametrize("async_scheduling", [False, True],
+                         ids=["sync", "async"])
+def test_graph_windows_equal_eager_windows(dev, async_scheduling):
+    """4-step windows replayed from CUDA graphs give the eager body's
+    tokens and logprobs bit for bit (the same kernels on the same shapes),
+    and the launch counts add each replay's recorded launches: 2 layers x
+    (decode steps + one warm-up pass per captured graph)."""
+    eager = _window_engine(True, async_scheduling=async_scheduling)
+    graphs = _window_engine(False, params=eager.model,
+                            async_scheduling=async_scheduling)
+    want = _window_run(eager)
+    ca.reset_launch_counts()
+    got = _window_run(graphs)
+    assert got == want
+    st = graphs.windows.stats()
+    assert not st["eager"] and st["graphs"] >= 2 and st["replays"] > 0
+    layers = graphs.model_cfg.num_layers
+    assert ca.LAUNCHES["decode"] == layers * (graphs.metrics.decode_steps
+                                              + st["graphs"]), (ca.LAUNCHES,
+                                                                st)
+    assert graphs.metrics.decode_steps == st["replays"]
+
+
+def test_warmup_captures_the_greedy_graphs(dev):
+    eng = _window_engine(False)
+    eng.warmup()
+    assert eng.windows.stats()["graphs"] == 2
+    from dynamo_tpu_torch.engine.request import GenRequest
+
+    assert len(eng.generate(GenRequest("w", [1, 2, 3], max_tokens=10,
+                                       ignore_eos=True))) == 10
+    assert eng.windows.stats()["graphs"] == 2  # no capture while serving
+
+
+def test_noise_bits_on_the_card_are_the_cpu_ones(dev):
+    from dynamo_tpu_torch.engine import sampling as smp
+
+    keys = torch.tensor([7, 1234, (1 << 63) - 1], dtype=torch.int64)
+    pos = torch.tensor([3, 17, 4095], dtype=torch.int32)
+    rows_cpu = smp.fold_positions(keys, pos)
+    rows_dev = smp.fold_positions(keys.to(dev), pos.to(dev))
+    assert rows_dev.cpu().tolist() == rows_cpu.tolist()
+    bits = smp.uniform_bits(rows_dev, 128256)
+    assert torch.equal(bits.cpu(), smp.uniform_bits(rows_cpu, 128256))
+    pinned = smp.uniform_bits(torch.tensor([smp.fold_in(1234, 17)],
+                                           device=dev), 8)
+    assert pinned[0].tolist() == [3506449212, 1812485701, 505603136,
+                                  2319869864, 3651098138, 3592466632,
+                                  1436975056, 3455550514]

@@ -222,7 +222,6 @@ def test_port_server_refuses_with_400(port_server, body):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("enable_prefix_caching", True),
     ("speculative_mode", "ngram"),
     ("lora_slots", 2),
     ("kvbm_host_blocks", 8),
@@ -231,7 +230,6 @@ def test_port_server_refuses_with_400(port_server, body):
     ("data_parallel", 2),
     ("expert_parallel", 2),
     ("sequence_parallel", 2),
-    ("num_scheduler_steps", 4),
     ("tenants", '[{"name": "a"}]'),
     ("disaggregation_mode", "prefill"),
 ])
@@ -321,9 +319,10 @@ def _serve_worker(*extra):
 
 
 def test_jetstream_worker_serves_and_stops():
-    """`python -m dynamo_tpu_torch.jetstream` on the CPU: the profile's
-    defaults start (prefix caching off), one chat completion is served,
-    SIGTERM stops the process."""
+    """`python -m dynamo_tpu_torch.jetstream` on the CPU: the JAX package's
+    jetstream profile (8-step synchronous windows, no chunking, so no
+    prefix caching) starts, one chat completion is served, SIGTERM stops
+    the process."""
     stats = _serve_worker()
     assert stats["kv_cache"]["dtype"] == "float32"
     assert stats["metrics"]["mixed_count"] == 0
