@@ -78,13 +78,40 @@ on failure:
      third must hit the cache and launch the chunk kernel only for their
      suffix (one chunk each), give the eager engine's greedy tokens (its
      cache is off), and their TTFT is reported beside the first's.
-7. Where a steady step's time goes (torch.profiler device time by kernel
+7. int8 weights (`models.quant`): the 8B model's int8 weights drawn on the
+   card by the engine's own loader (`quantization="w8a8"`, no checkpoint:
+   `loader.random_quantized_params`), and a weight-only (`int8`) twin over
+   the same q and scale tensors; their GiB and build seconds. The int8
+   product (`quant.int_mm`: torch._int_mm, zero rows appended below 17) at
+   8, 1 and 256 rows for wo, w_gate, w_down and lm_head must equal the
+   exact integer product (f64 on the card, exact below 2^53) bit for bit;
+   each quantized matmul at 8 rows against the bf16 matmul over its
+   dequantized weight (relative L2 within QUANT_REL_L2), with both device
+   times.
+8. Quantized decode windows: a w8a8 engine on the jetstream profile
+   (8-step graph windows), warmed up, against an eager 1-step w8a8 engine
+   on phase 6's parity requests (tokens and logprobs bit for bit); then
+   the OpenAI server on it with phase 5's four concurrent requests.
+9. The trtllm_tpu profile (4-step async graph windows, chunks of 256,
+   prefix caching), its EngineConfig parsed by the worker's parser from an
+   engine-config file, on the w8a8 weights, warmed up: phase 6's prefix
+   traffic (cache hits, suffix-only chunk launches, the tokens of a
+   cache-off eager w8a8 engine).
+10. `model_path`: a bf16 checkpoint in the HF layout at the 8B widths with
+   2 layers (~2.9 GiB in two safetensors files, and its config.json),
+   written under a temporary directory that is deleted afterwards, loaded
+   by `Engine(EngineConfig(model_path=...))`: its ModelConfig must be the
+   preset's at 2 layers, every parameter must equal its source tensor
+   (transposed from HF's [out, in]) bit for bit; load seconds and GiB/s,
+   and one greedy chat request served from it.
+11. Where a steady step's time goes (torch.profiler device time by kernel
    family, kernels per decode step, idle share against the host clock): a
    decode step of 8 slots on bf16 and on int8 pools, eagerly and in 8-step
-   graph windows (with graph replays per window and capture time), and a
-   mixed step (7 decode slots beside the chunks at 256, 512 and 768 of a
-   1024-token prompt) on bf16 and on int8 pools.
-8. A `kernels` JSON line (launches summed over the served phases, graph
+   graph windows (with graph replays per window and capture time), the
+   same graph-window step with w8a8 and with weight-only int8 weights (bf16
+   pools), and a mixed step (7 decode slots beside the chunks at 256, 512
+   and 768 of a 1024-token prompt) on bf16 and on int8 pools.
+12. A `kernels` JSON line (launches summed over the served phases, graph
    replays included; `ms` and `library_ms` device times, `call_ms` and
    `library_call_ms` call times, as phase 3 measures them), the card line,
    and last the {"ok": true, ...} line.
@@ -93,11 +120,15 @@ on failure:
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -109,11 +140,11 @@ from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.engine import Engine
 from dynamo_tpu_torch.engine.request import GenRequest
 from dynamo_tpu_torch.engine.tokenizer import get_tokenizer
-from dynamo_tpu_torch.models import llama
+from dynamo_tpu_torch.models import llama, quant
 from dynamo_tpu_torch.ops import attention as att
 from dynamo_tpu_torch.ops import cuda_attention as ca
 from dynamo_tpu_torch.serving.api import ServingContext, make_server
-from dynamo_tpu_torch.serving.worker import BACKEND_PROFILES
+from dynamo_tpu_torch.serving.worker import BACKEND_PROFILES, build_parser
 
 MODEL = "llama-3.1-8b-instruct"
 H, KV, D, PS = 32, 8, 128, 16
@@ -124,6 +155,9 @@ TOL = 2e-2
 ROW_TOL = 5e-2  # max |error| of an output row over the plain row's RMS
 LOGIT_REL_TOL = 5e-2  # relative L2 of full-depth logits, kernels vs plain
 Q_SCALE = 2 ** -4  # q scaling of phase 4's forwards (exact in bf16)
+# relative L2 of a quantized matmul against the bf16 matmul over its
+# dequantized weight (w8a8 adds the per-token activation rounding)
+QUANT_REL_L2 = 2e-2
 MAX_TOKENS = 32
 INT8_W = att.kv_lane_width(KV, D, True)  # 1152 lanes per int8 pool row
 # bytes of an int8 row the kernels read: its values and scales (1040 of
@@ -1190,6 +1224,223 @@ def prefix_checks(engine: Engine, cache_off: Engine, tok) -> dict:
     return out
 
 
+def int_mm_checks(model) -> dict:
+    """quant.int_mm (torch._int_mm; zero rows appended below
+    quant.INT_MM_MIN_ROWS) on the model's own int8 weights at 8, 1 and 256
+    rows against the exact integer product: f64 on the card, exact since
+    every partial sum is an integer below 127 * 127 * 14336 < 2^53. Raises
+    unless every int32 accumulation equals it."""
+    dev = model.final_norm.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    rows = {}
+    for name, w in (("wo", model.layers[0].wo),
+                    ("w_gate", model.layers[0].w_gate),
+                    ("w_down", model.layers[-1].w_down),
+                    ("lm_head", model.lm_head)):
+        k, n = w.q.shape
+        for m in (8, 1, 256):
+            a = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                              dtype=torch.int8)
+            got = quant.int_mm(a, w.q)
+            equal = got.dtype == torch.int32 and got.shape == (m, n)
+            for c in range(0, n, 16384):  # f64 slices of at most 512 MiB
+                exact = (a.double() @ w.q[:, c:c + 16384].double()).long()
+                equal = equal and torch.equal(got[:, c:c + 16384].long(),
+                                              exact)
+            rows[f"{name}_{m}x{k}x{n}"] = bool(equal)
+    emit({"phase": "int_mm_exact", "rows": rows,
+          "min_rows": quant.INT_MM_MIN_ROWS})
+    if not all(rows.values()):
+        raise AssertionError(f"torch._int_mm differs from the exact integer "
+                             f"product: {rows}")
+    return rows
+
+
+def quant_matmul_checks(w8a8, int8) -> dict:
+    """Each quantized projection at 8 rows (a decode step's) against the
+    bf16 matmul over its dequantized weight (q * scale in f32, cast to
+    bf16): the relative L2 gap, within QUANT_REL_L2, and the device times
+    of both (one call each, median of three batches)."""
+    dev = w8a8.final_norm.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    out = {}
+    for name, pick in (("wq", lambda m: m.layers[0].wq),
+                       ("w_gate", lambda m: m.layers[0].w_gate),
+                       ("w_down", lambda m: m.layers[0].w_down),
+                       ("lm_head", lambda m: m.lm_head)):
+        row = {}
+        for mode, model in (("w8a8", w8a8), ("int8", int8)):
+            w = pick(model)
+            x = torch.randn((MAX_SEQS, w.q.shape[0]), generator=g,
+                            device=dev).to(torch.bfloat16)
+            deq = (w.q.float() * w.scale).to(torch.bfloat16)
+            got, ref = quant.matmul(x, w), x @ deq
+            torch.cuda.synchronize()
+            rel = float((got.float() - ref.float()).norm()
+                        / ref.float().norm())
+            row[mode] = {"rel_l2": rel,
+                         "finite": bool(torch.isfinite(got).all()),
+                         "ms": device_ms(lambda: quant.matmul(x, w), 20),
+                         "bf16_ms": device_ms(lambda: x @ deq, 20)}
+            del deq
+        out[f"{name}_{MAX_SEQS}x{w.q.shape[0]}x{w.q.shape[1]}"] = row
+    emit({"phase": "quant_matmul", "tolerance": f"rel_l2 < {QUANT_REL_L2}",
+          "rows": out})
+    bad = [(k, m) for k, row in out.items() for m, r in row.items()
+           if not (r["finite"] and r["rel_l2"] < QUANT_REL_L2)]
+    if bad:
+        raise AssertionError(f"quantized matmuls off the bf16 ones: {bad}")
+    return out
+
+
+def hf_config(cfg, layers: int) -> dict:
+    """An HF config.json for `cfg` cut to `layers` layers."""
+    factor, low, high, orig = cfg.rope_llama3_scaling
+    return {"architectures": ["LlamaForCausalLM"],
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim, "rope_theta": cfg.rope_theta,
+            "rms_norm_eps": cfg.rms_norm_eps,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "rope_scaling": {"rope_type": "llama3", "factor": factor,
+                             "low_freq_factor": low,
+                             "high_freq_factor": high,
+                             "original_max_position_embeddings": orig},
+            "tie_word_embeddings": cfg.tie_word_embeddings,
+            "eos_token_id": cfg.eos_token_id,
+            "bos_token_id": cfg.bos_token_id, "torch_dtype": "bfloat16"}
+
+
+def hf_tensors(cfg, layers: int, dev) -> dict:
+    """HF-named bf16 tensors ([out, in]) at cfg's widths, from seed 7."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    e, f = cfg.hidden_size, cfg.intermediate_size
+    hd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+
+    def w(*shape):
+        x = torch.randn(shape, generator=g, device=dev)
+        return x.mul_(shape[-1] ** -0.5).to(torch.bfloat16)
+
+    t = {"model.embed_tokens.weight": w(cfg.vocab_size, e),
+         "model.norm.weight": 1 + w(e), "lm_head.weight": w(cfg.vocab_size, e)}
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        t.update({p + "input_layernorm.weight": 1 + w(e),
+                  p + "post_attention_layernorm.weight": 1 + w(e),
+                  p + "self_attn.q_proj.weight": w(hd, e),
+                  p + "self_attn.k_proj.weight": w(kvd, e),
+                  p + "self_attn.v_proj.weight": w(kvd, e),
+                  p + "self_attn.o_proj.weight": w(e, hd),
+                  p + "mlp.gate_proj.weight": w(f, e),
+                  p + "mlp.up_proj.weight": w(f, e),
+                  p + "mlp.down_proj.weight": w(e, f)})
+    return t
+
+
+def checkpoint_equal(model, src: dict) -> dict:
+    """Every port parameter against its HF source tensor (transposed from
+    [out, in]), bit for bit: {port name: equal}."""
+    hf = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+          "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+          "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+          "w_down": "mlp.down_proj", "attn_norm": "input_layernorm",
+          "mlp_norm": "post_attention_layernorm"}
+    out = {"embed": torch.equal(model.embed,
+                                src["model.embed_tokens.weight"]),
+           "final_norm": torch.equal(model.final_norm,
+                                     src["model.norm.weight"]),
+           "lm_head": torch.equal(model.lm_head, src["lm_head.weight"].t())}
+    for i, layer in enumerate(model.layers):
+        for name, key in hf.items():
+            t = src[f"model.layers.{i}.{key}.weight"]
+            out[f"layers.{i}.{name}"] = torch.equal(
+                getattr(layer, name), t if t.dim() == 1 else t.t())
+    return out
+
+
+def model_path_checks(cfg_kw: dict, model_cfg, dev) -> dict:
+    """Phase 10: write a 2-layer checkpoint at the 8B widths, load it
+    through the engine, compare every parameter, serve one request."""
+    from safetensors.torch import save_file
+
+    layers = 2
+    src = hf_tensors(model_cfg, layers, dev)
+    nbytes = sum(t.numel() * t.element_size() for t in src.values())
+    path = tempfile.mkdtemp(prefix="dtt_ckpt_")
+    try:
+        t0 = time.monotonic()
+        names = sorted(src)
+        for s in range(2):
+            save_file({n: src[n].cpu() for n in names[s::2]},
+                      os.path.join(path, f"model-{s + 1:05d}-of-00002"
+                                         ".safetensors"))
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(hf_config(model_cfg, layers), f)
+        write_s = time.monotonic() - t0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        engine = Engine(EngineConfig(**dict(cfg_kw, model_path=path)))
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+        want_cfg = dataclasses.replace(model_cfg, name=path,
+                                       num_layers=layers)
+        equal = checkpoint_equal(engine.model, src)
+        del src
+        with serving(engine) as base:
+            ca.reset_launch_counts()
+            served = summarize("chat", post(base + "/v1/chat/completions",
+                                            CHAT, False), False)
+            launches = dict(ca.LAUNCHES)
+        row = {"layers": layers, "checkpoint_gib": nbytes / 2**30,
+               "files": 2, "write_s": write_s, "load_s": load_s,
+               "load_gib_per_s": nbytes / 2**30 / load_s,
+               "model_config_is_the_preset_at_2_layers":
+                   engine.model_cfg == want_cfg,
+               "parameters_checked": len(equal),
+               "parameters_equal": sum(equal.values()),
+               "served": served, "launches": launches}
+        emit({"phase": "model_path", **row})
+        if not row["model_config_is_the_preset_at_2_layers"]:
+            raise AssertionError(f"config.json mapped to {engine.model_cfg}")
+        if not all(equal.values()):
+            raise AssertionError(f"checkpoint parameters differ from their "
+                                 f"source: {[k for k, v in equal.items() if not v]}")
+        missing = [k for k in CLASSIC if k != "chunk" and launches[k] == 0]
+        if missing:
+            raise AssertionError(f"checkpoint engine: kernels never launched"
+                                 f" {missing} ({launches})")
+        del engine
+        return row
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def trtllm_engine(base_cfg: dict, model, tmp: str) -> Engine:
+    """An engine with the trtllm_tpu profile, its EngineConfig parsed by the
+    worker's parser from an engine-config file (the profile's required
+    flag) that holds this script's sizes and the w8a8 mode."""
+    path = os.path.join(tmp, "engine.json")
+    keys = ("page_size", "num_pages", "max_num_seqs", "max_seq_len", "seed")
+    with open(path, "w") as f:
+        json.dump({**{k: base_cfg[k] for k in keys},
+                   "quantization": "w8a8"}, f)
+    args = build_parser("trtllm_tpu").parse_args(
+        ["--model", MODEL, "--engine-config", path])
+    cfg = EngineConfig.from_cli_args(args)
+    profile = BACKEND_PROFILES["trtllm_tpu"]
+    if any(getattr(cfg, k) != v for k, v in profile.items()):
+        raise AssertionError(f"trtllm_tpu config {cfg} is not its profile "
+                             f"{profile}")
+    return Engine(cfg, params=model)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1278,24 +1529,80 @@ def main() -> int:
     prefix = prefix_checks(graph_engines["vllm_tpu"], engine, tok)
     emit({"phase": "prefix_cache", **prefix})
 
+    # int8 weights: the engine's loader draws them on the card (no
+    # checkpoint, above 2e9 parameters); the weight-only twin shares them
+    t0 = time.monotonic()
+    jet_w8a8 = Engine(EngineConfig(**jet_cfg, quantization="w8a8"))
+    torch.cuda.synchronize()
+    q8 = jet_w8a8.model
+    int8_weights = quant.with_mode(q8, "int8")
+    emit({"phase": "quant_weights", "seconds": time.monotonic() - t0,
+          "weights_gib": quant.param_bytes(q8) / 2**30,
+          "bf16_weights_gib": quant.param_bytes(engine.model) / 2**30,
+          "shared_with_weight_only": int8_weights.layers[0].wq.q.data_ptr()
+          == q8.layers[0].wq.q.data_ptr()})
+    with torch.inference_mode():
+        int_mm_checks(q8)
+        quant_matmul_checks(q8, int8_weights)
+
+    # w8a8 in graph windows against eager 1-step, then served
+    t0 = time.monotonic()
+    jet_w8a8.warmup()
+    emit({"phase": "warmup", "engine": "jetstream_w8a8",
+          "seconds": time.monotonic() - t0, **jet_w8a8.windows.stats()})
+    ref_w8a8 = Engine(EngineConfig(**dict(eager_cfg, prefill_chunk_tokens=0),
+                                   quantization="w8a8"), params=q8)
+    window_parity(ref_w8a8, {"jetstream_w8a8": jet_w8a8}, tok)
+    del ref_w8a8
+    served_w8a8 = window_serve(jet_w8a8)
+    emit({"phase": "serve_windows_w8a8", **served_w8a8})
+    emit({"phase": "itl_windows_w8a8_vs_bf16",
+          "bf16": served_windows["requests"]["chat_stream"],
+          "w8a8": served_w8a8["requests"]["chat_stream"]})
+
+    # the trtllm_tpu profile on the w8a8 weights: prefix traffic against a
+    # cache-off eager w8a8 engine
+    with tempfile.TemporaryDirectory(prefix="dtt_cfg_") as tmp:
+        trt = trtllm_engine(base_cfg, q8, tmp)
+    t0 = time.monotonic()
+    trt.warmup()
+    emit({"phase": "warmup", "engine": "trtllm_tpu_w8a8",
+          "seconds": time.monotonic() - t0, **trt.windows.stats()})
+    off_w8a8 = Engine(EngineConfig(**eager_cfg, quantization="w8a8"),
+                      params=q8)
+    prefix_trt = prefix_checks(trt, off_w8a8, tok)
+    emit({"phase": "trtllm_tpu_prefix_cache",
+          "profile": BACKEND_PROFILES["trtllm_tpu"],
+          "decode_graphs": trt.windows.stats(), **prefix_trt})
+    del off_w8a8, trt
+
+    # a checkpoint written here and loaded by model_path, freed afterwards
+    ckpt = model_path_checks(eager_cfg, engine.model_cfg, dev)
+
+    jet_int8 = Engine(EngineConfig(**jet_cfg, quantization="int8"),
+                      params=int8_weights)
+    jet_int8.warmup()
     with torch.inference_mode():
         # decode steps on bf16 and int8 pools, eager and in graph windows
         # (the mixed engines decode as the classic one does while nothing
-        # prefills), then mixed steps
+        # prefills), the graph-window step with w8a8 and weight-only int8
+        # weights, then mixed steps
         for eng, long_prompt, steps in (
                 (engine, 0, 10), (mixed8, 0, 10),
                 (graph_engines["jetstream"], 0, 4),
                 (graph_engines["jetstream_int8"], 0, 4),
+                (jet_w8a8, 0, 4), (jet_int8, 0, 4),
                 (mixed, 4 * CHUNK, 3), (mixed8, 4 * CHUNK, 3)):
-            emit({"phase": "profile",
+            emit({"phase": "profile", "weights": quant.mode_of(eng.model),
                   **profile_steps(eng, steps, long_prompt)})
 
     # launches summed over the served phases, each counted from zero: the
-    # classic engine, the mixed engines, the graph-window engine and the
-    # prefix-caching one (graph replays included)
+    # classic engine, the mixed engines, the graph-window engines (bf16
+    # and w8a8 weights), the prefix-caching ones (vllm_tpu, trtllm_tpu)
+    # and the checkpoint engine (graph replays included)
     launches = dict.fromkeys(ca.LAUNCHES, 0)
     for phase in (served, served_mixed[""], served_mixed["_int8"],
-                  served_windows, prefix):
+                  served_windows, prefix, served_w8a8, prefix_trt, ckpt):
         for name, n in phase["launches"].items():
             launches[name] += n
     kernels = []

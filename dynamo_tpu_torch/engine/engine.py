@@ -35,6 +35,9 @@ Port of the aggregated-serving core of `dynamo_tpu/engine/engine.py`:
   (`_ensure_pages`).
 - int8 KV pools (`kv_cache_dtype="int8"`: packed values and per-head
   scales, about half the bf16 pool's bytes).
+- Weights from a local safetensors checkpoint (`model_path`, whose
+  config.json also gives the ModelConfig) or seeded random init, float or
+  int8 (`quantization`: "int8" weight-only or "w8a8"; `models.quant`).
 - Stops (stop ids, model eos unless `ignore_eos`, `max_tokens`,
   `max_seq_len`), aborts, logprobs, OutOfPages deferral at admission and
   preemption by recompute when decode runs out of pages.
@@ -77,7 +80,7 @@ from dynamo_tpu_torch.engine.kv_cache import (
     alloc_kv_pages,
 )
 from dynamo_tpu_torch.engine.request import GenRequest, TokenEvent
-from dynamo_tpu_torch.models import llama, loader
+from dynamo_tpu_torch.models import llama, loader, quant
 from dynamo_tpu_torch.models.config import ModelConfig
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
@@ -100,14 +103,12 @@ def unported_settings(cfg: EngineConfig) -> List[str]:
         ("speculative_mode", cfg.speculative_mode != "off"),
         ("lora_slots", cfg.lora_slots > 0),
         ("kvbm_host_blocks", cfg.kvbm_host_blocks > 0),
-        ("quantization", cfg.quantization != "none"),
         ("tensor_parallel", cfg.tensor_parallel > 1),
         ("data_parallel", cfg.data_parallel > 1),
         ("expert_parallel", cfg.expert_parallel > 1),
         ("sequence_parallel", cfg.sequence_parallel > 1),
         ("tenants", bool(cfg.tenants)),
         ("disaggregation_mode", cfg.disaggregation_mode != "agg"),
-        ("model_path", cfg.model_path is not None),
     ]
     return [name for name, bad in checks if bad]
 
@@ -198,9 +199,12 @@ class Engine:
     def __init__(self, cfg: EngineConfig,
                  model_cfg: Optional[ModelConfig] = None, params=None,
                  device=None):
-        """`params`: None (random init from cfg.seed), a
-        `models.llama.Llama` on `device`, or a JAX parameter tree of numpy
-        arrays (carried across by `models.loader.from_jax_params`)."""
+        """`params`: None (the checkpoint under cfg.model_path, else random
+        init from cfg.seed; `models.loader.load_or_init`), a
+        `models.llama.Llama` on `device` whose quantization mode is
+        cfg.quantization's, or a JAX parameter tree of numpy arrays, float
+        or quantized (carried across by `models.loader.from_jax_params`,
+        which quantizes a float tree when cfg.quantization asks)."""
         bad = unported_settings(cfg)
         if bad:
             raise NotImplementedError(
@@ -212,7 +216,7 @@ class Engine:
         default_dtype = "float32" if self.device.type == "cpu" else "bfloat16"
         if model_cfg is None:
             model_cfg = ModelConfig.from_model_name(
-                cfg.model, dtype=cfg.dtype or default_dtype)
+                cfg.model_path or cfg.model, dtype=cfg.dtype or default_dtype)
         bad = unported_model_features(model_cfg)
         if bad:
             raise NotImplementedError(
@@ -241,16 +245,23 @@ class Engine:
         self._lock = threading.Lock()  # guards pending + _aborted
         self._exec_lock = threading.RLock()  # serialises step()
 
+        mode = quant.mode_name(cfg.quantization)
         if params is None:
-            self.model = loader.init_params(model_cfg, seed=cfg.seed,
-                                            device=self.device,
-                                            dtype=self.dtype)
+            self.model = loader.load_or_init(
+                model_cfg, cfg.model_path, seed=cfg.seed, quantization=mode,
+                device=self.device, dtype=self.dtype)
         elif isinstance(params, llama.Llama):
             self.model = params
         else:
             self.model = loader.from_jax_params(model_cfg, params,
                                                 device=self.device,
-                                                dtype=self.dtype)
+                                                dtype=self.dtype,
+                                                quantization=mode)
+        if quant.mode_of(self.model) != mode:
+            raise ValueError(f"the weights are {quant.mode_of(self.model)!r}"
+                             f" but quantization={cfg.quantization!r}")
+        log.info("weights: %s (quantization %s), %d bytes", model_cfg.name,
+                 mode, quant.param_bytes(self.model))
 
         self.k_pages, self.v_pages = alloc_kv_pages(self.kv_spec,
                                                     self.device)

@@ -17,7 +17,11 @@ untied head). Differences in idiom, not in arithmetic:
   plain versions on the CPU; `ops.attention.PLAIN` forces the plain ones).
 
 Projections and the LM head are plain matmuls, as the JAX package leaves
-them to XLA.
+them to XLA; a weight quantized by `models.quant` (a `QTensor`, weight-only
+or W8A8) goes through `quant.matmul` instead, and a quantized embedding
+through `quant.take_rows` and `quant.tied_head`. Which path a site takes
+is decided on the host from the weight's type, so a CUDA graph captures
+only tensor ops.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dynamo_tpu_torch.models import quant
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops import attention as att
 from dynamo_tpu_torch.ops.rope import rope_cos_sin, rotate
@@ -39,7 +44,8 @@ def _weight(shape, device, dtype) -> nn.Parameter:
 class LlamaLayer(nn.Module):
     """One decoder layer's weights, in the JAX layout with the head axes
     flattened: wq [E, H*D], wk/wv [E, KV*D], wo [H*D, E], w_gate/w_up
-    [E, F], w_down [F, E]."""
+    [E, F], w_down [F, E]. Each matmul weight is a tensor or, quantized, a
+    `quant.QTensor` of the same shape."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -58,11 +64,14 @@ class LlamaLayer(nn.Module):
 
 
 class Llama(nn.Module):
-    """Weights of a dense Llama model (uninitialised: see models.loader)."""
+    """Weights of a dense Llama model (uninitialised: see models.loader;
+    device "meta" builds the structure without memory, for a loader that
+    sets every weight)."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype  # of activations and unquantized weights
         e = cfg.hidden_size
         self.embed = _weight((cfg.vocab_size, e), device, dtype)
         self.layers = nn.ModuleList(
@@ -81,7 +90,7 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _embed_rows(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), model.embed)
+    return quant.take_rows(model.embed, tokens.long(), model.dtype)
 
 
 def _rope(cfg: ModelConfig, positions: torch.Tensor):
@@ -94,28 +103,34 @@ def _qkv(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor, rope):
     """x [T, E] -> q [T, H, D], k/v [T, KV, D] with rope (cos, sin)
     applied."""
     t = x.shape[0]
-    q = (x @ layer.wq).view(t, cfg.num_heads, cfg.head_dim)
-    k = (x @ layer.wk).view(t, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ layer.wv).view(t, cfg.num_kv_heads, cfg.head_dim)
+    act = quant.shared_activations(x, layer.wq)
+    q = quant.matmul(x, layer.wq, act).view(t, cfg.num_heads, cfg.head_dim)
+    k = quant.matmul(x, layer.wk, act).view(t, cfg.num_kv_heads,
+                                            cfg.head_dim)
+    v = quant.matmul(x, layer.wv, act).view(t, cfg.num_kv_heads,
+                                            cfg.head_dim)
     return rotate(q, *rope), rotate(k, *rope), v
 
 
 def _attn_out(layer: LlamaLayer, o: torch.Tensor) -> torch.Tensor:
     """Attention output [T, H, D] -> residual [T, E]."""
-    return o.reshape(o.shape[0], -1) @ layer.wo
+    return quant.matmul(o.reshape(o.shape[0], -1), layer.wo)
 
 
 def _mlp(layer: LlamaLayer, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP, x [T, E]."""
-    return (F.silu(x @ layer.w_gate) * (x @ layer.w_up)) @ layer.w_down
+    act = quant.shared_activations(x, layer.w_gate)
+    h = (F.silu(quant.matmul(x, layer.w_gate, act))
+         * quant.matmul(x, layer.w_up, act))
+    return quant.matmul(h, layer.w_down)
 
 
 def _logits(model: Llama, x: torch.Tensor) -> torch.Tensor:
     cfg = model.cfg
     x = rms_norm(x, model.final_norm, cfg.rms_norm_eps)
     if model.lm_head is None:  # tied head: x @ embed.T
-        return x @ model.embed.t()
-    return x @ model.lm_head
+        return quant.tied_head(x, model.embed)
+    return quant.matmul(x, model.lm_head)
 
 
 def _layer(cfg, layer, x, rope, attend):

@@ -1,29 +1,49 @@
-"""Weights for the port's Llama: random init from a seed, or the JAX
-package's parameter tree carried across array by array.
+"""Weights for the port's Llama: a local safetensors checkpoint, random init
+from a seed, or the JAX package's parameter tree carried across array by
+array; optionally int8 (`models.quant`).
 
 The JAX tree (`dynamo_tpu.models.llama.param_specs`) stacks every layer
 weight on a leading layer axis and keeps heads as axes: embed [V, E],
 wq [L, E, H, D], wk/wv [L, E, KV, D], wo [L, H, D, E], w_gate/w_up
 [L, E, F], w_down [L, F, E], attn_norm/mlp_norm [L, E], final_norm [E],
 lm_head [E, V] (untied models). `param_specs` below restates that contract
-for the dense models the port serves, so both functions build from it.
+for the dense models the port serves, so every builder follows it.
+
+`load_or_init` is the counterpart of the JAX package's
+`load_or_init_params`: every `*.safetensors` under `model_path`
+(`load_hf_safetensors`, HF tensor names), else seeded random init with a
+warning; then quantization if asked. Loading is strictly local: nothing is
+downloaded.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import contextlib
+import glob
+import logging
+import os
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
+from dynamo_tpu_torch.models import quant
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.llama import Llama
+
+log = logging.getLogger("dynamo_tpu_torch.loader")
 
 Spec = Tuple[Tuple[int, ...], str, float]
 
 # the per-layer weights, named as in the JAX tree
 _LAYER_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
                 "w_up", "w_down")
+
+# above this many parameters a quantized model with no checkpoint is drawn
+# as int8 directly instead of initialised and quantized (the JAX loader's
+# threshold)
+DIRECT_INT8_PARAMS = 2_000_000_000
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
@@ -55,15 +75,39 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
     return p
 
 
+def num_params(cfg: ModelConfig) -> int:
+    return sum(int(np.prod(shape)) for shape, _, _ in
+               param_specs(cfg).values())
+
+
 def _targets(model: Llama):
-    """(JAX name, layer index or None, port parameter) for every weight."""
-    yield "embed", None, model.embed
-    yield "final_norm", None, model.final_norm
+    """(JAX name, layer index or None, owner module) for every weight; the
+    port's attribute on the owner has the JAX name."""
+    yield "embed", None, model
+    yield "final_norm", None, model
     if model.lm_head is not None:
-        yield "lm_head", None, model.lm_head
+        yield "lm_head", None, model
     for l, layer in enumerate(model.layers):
         for name in _LAYER_NAMES:
-            yield name, l, getattr(layer, name)
+            yield name, l, layer
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _scale_shape(name: str, shape: Tuple[int, ...]) -> Tuple[int, int]:
+    """A QTensor's scale in the port's layout: embed's per row, the other
+    weights' per output column."""
+    return (shape[0], 1) if name == "embed" else (1, shape[1])
+
+
+def _check_filled(model: Llama) -> Llama:
+    left = [n for n, t in (*model.named_parameters(),
+                           *model.named_buffers()) if t.is_meta]
+    if left:
+        raise ValueError(f"weights never set: {left}")
+    return model
 
 
 @torch.no_grad()
@@ -76,7 +120,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     model = Llama(cfg, device, dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    for name, _, param in _targets(model):
+    for name, _, owner in _targets(model):
+        param = getattr(owner, name)
         _, kind, sigma = specs[name]
         if kind == "ones":
             param.fill_(1.0)
@@ -90,11 +135,52 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
 
 
 @torch.no_grad()
-def from_jax_params(cfg: ModelConfig, params: Mapping[str, np.ndarray],
-                    device="cuda", dtype: torch.dtype = torch.bfloat16
-                    ) -> Llama:
+def random_quantized_params(cfg: ModelConfig, seed: int = 0,
+                            mode: str = "int8", device="cuda",
+                            dtype: torch.dtype = torch.bfloat16) -> Llama:
+    """Seeded random int8 weights built directly as QTensors, the JAX
+    loader's `random_quantized_params`: int8 values uniform over
+    [-127, 127] from a `torch.Generator` on `device`, per-channel scales
+    sigma * 4.5 / 127 (dequantized weights near each spec's sigma), norms
+    ones; no float copy of the model is ever made."""
+    if mode not in quant.MODES:
+        raise ValueError(f"unknown quantization mode {mode!r}")
+    specs = param_specs(cfg)
+    model = Llama(cfg, "meta", dtype)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    for name, _, owner in _targets(model):
+        shape = tuple(getattr(owner, name).shape)
+        _, kind, sigma = specs[name]
+        if kind == "ones":
+            quant.set_weight(owner, name, _param(torch.ones(shape, device=device,
+                                                   dtype=dtype)))
+            continue
+        # matmul weights drawn as their [N, K] transposes: the operand
+        # layout (quant.operand_layout); embed row-major
+        draw = shape if name == "embed" else shape[::-1]
+        q = torch.randint(-127, 128, draw, generator=gen, device=device,
+                          dtype=torch.int8)
+        q = q if name == "embed" else q.t()
+        scale = torch.full(_scale_shape(name, shape), sigma * 4.5 / 127.0,
+                           device=device, dtype=torch.float32)
+        quant.set_weight(owner, name, quant.QTensor(q, scale, mode))
+    return _check_filled(model)
+
+
+@torch.no_grad()
+def from_jax_params(cfg: ModelConfig, params: Mapping[str, object],
+                    device="cuda", dtype: torch.dtype = torch.bfloat16,
+                    quantization: Optional[str] = "none") -> Llama:
     """Carry a JAX parameter tree (leaves as numpy arrays) into the port's
-    modules: per-layer slices of the stacked weights, head axes flattened."""
+    modules: per-layer slices of the stacked weights, head axes flattened.
+
+    A quantized leaf (anything with `.q` and `.scale`, such as the JAX
+    package's QTensor after `jax.tree.map(np.asarray, ...)`) carries its
+    int8 values and scales across as they are, and `quantization` names
+    their mode ("int8" or "w8a8"); a float tree with `quantization` set is
+    quantized in the port (`quant.quantize_params`)."""
+    mode = quant.mode_name(quantization)
     specs = param_specs(cfg)
     missing = set(specs) - set(params)
     extra = set(params) - set(specs)
@@ -102,14 +188,156 @@ def from_jax_params(cfg: ModelConfig, params: Mapping[str, np.ndarray],
         raise ValueError(f"parameter tree does not match {cfg.name}: "
                          f"missing {sorted(missing)}, unexpected "
                          f"{sorted(extra)}")
+
+    def is_q(leaf) -> bool:
+        return hasattr(leaf, "q") and hasattr(leaf, "scale")
+
     for name, (shape, _, _) in specs.items():
-        if tuple(np.shape(params[name])) != shape:
-            raise ValueError(f"{name}: expected {shape}, got "
-                             f"{tuple(np.shape(params[name]))}")
-    model = Llama(cfg, device, dtype)
-    stacked = {name: torch.from_numpy(np.array(arr, dtype=np.float32))
-               for name, arr in params.items()}  # writable f32 copies
-    for name, layer, param in _targets(model):
-        src = stacked[name] if layer is None else stacked[name][layer]
-        param.copy_(src.reshape(param.shape).to(device=device, dtype=dtype))
+        leaf = params[name]
+        got = tuple(np.shape(leaf.q if is_q(leaf) else leaf))
+        if got != shape:
+            raise ValueError(f"{name}: expected {shape}, got {got}")
+    carried = any(is_q(leaf) for leaf in params.values())
+    if carried and mode == "none":
+        raise ValueError("the parameter tree holds quantized weights: pass "
+                         "quantization='int8' or 'w8a8'")
+    model = Llama(cfg, "meta", dtype)
+
+    def tensor(arr, as_dtype=np.float32) -> torch.Tensor:
+        return torch.from_numpy(np.array(arr, dtype=as_dtype))
+
+    for name, layer, owner in _targets(model):
+        shape = tuple(getattr(owner, name).shape)
+        leaf = params[name]
+        if is_q(leaf):
+            q, s = tensor(leaf.q, np.int8), tensor(leaf.scale)
+            if layer is not None:
+                q, s = q[layer], s[layer]
+            q = q.reshape(shape).to(device)
+            if name != "embed":
+                q = quant.operand_layout(q)
+            s = s.reshape(_scale_shape(name, shape)).to(device)
+            quant.set_weight(owner, name, quant.QTensor(q, s, mode))
+            continue
+        src = tensor(leaf)
+        src = src if layer is None else src[layer]
+        quant.set_weight(owner, name, _param(src.reshape(shape).to(device=device,
+                                                          dtype=dtype)))
+    _check_filled(model)
+    if not carried and mode != "none":
+        quant.quantize_params(model, mode)
     return model
+
+
+def _read_safetensors(files: Sequence[str], stack: contextlib.ExitStack):
+    """name -> a function that reads that tensor (a CPU torch tensor) from
+    its file, for every `model.*` and `lm_head.*` tensor of `files`."""
+    from safetensors import safe_open
+
+    readers = {}
+    for path in files:
+        fh = stack.enter_context(safe_open(path, framework="pt"))
+        for name in fh.keys():
+            if name.startswith(("model.", "lm_head.")):
+                readers[name] = (lambda fh=fh, name=name:
+                                 fh.get_tensor(name))
+    return readers
+
+
+@torch.no_grad()
+def load_hf_safetensors(cfg: ModelConfig, files: Sequence[str],
+                        device="cuda",
+                        dtype: torch.dtype = torch.bfloat16) -> Llama:
+    """HF-layout tensors (`model.layers.{i}.self_attn.q_proj.weight`, ...)
+    into the port's layout, the JAX loader's `load_hf_safetensors` for the
+    dense Llama: separate q/k/v/o projections or Phi-3's fused `qkv_proj`
+    and `gate_up_proj`, the norms, and `lm_head` for untied models. Each
+    tensor is read once, cast to `dtype` and transposed from HF's [out, in]
+    to the port's [in, out] on `device`."""
+    unsupported = [name for name, bad in (
+        ("kv_lora_rank (MLA)", cfg.is_mla),
+        ("num_experts (MoE)", cfg.is_moe),
+        ("attention_bias", cfg.attention_bias),
+        ("qk_norm", cfg.qk_norm),
+        ("post_norms", cfg.post_norms)) if bad]
+    if unsupported:
+        raise NotImplementedError(
+            f"checkpoint layouts for {unsupported} are not ported to "
+            f"dynamo_tpu_torch yet")
+    h, kv, d, f = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                   cfg.intermediate_size)
+    model = Llama(cfg, "meta", dtype)
+
+    with contextlib.ExitStack() as stack:
+        readers = _read_safetensors(files, stack)
+
+        def get(name: str) -> torch.Tensor:
+            try:
+                read = readers.pop(name)
+            except KeyError:
+                raise ValueError(f"checkpoint has no tensor {name!r}") from None
+            return read().to(device=device, dtype=dtype)
+
+        def put(owner, name: str, t: torch.Tensor) -> None:
+            quant.set_weight(owner, name, _param(t.contiguous()))
+
+        put(model, "embed", get("model.embed_tokens.weight"))
+        put(model, "final_norm", get("model.norm.weight"))
+        fused_qkv = "model.layers.0.self_attn.qkv_proj.weight" in readers
+        fused_mlp = "model.layers.0.mlp.gate_up_proj.weight" in readers
+        for i, layer in enumerate(model.layers):
+            pre = f"model.layers.{i}."
+            put(layer, "attn_norm", get(pre + "input_layernorm.weight"))
+            put(layer, "mlp_norm",
+                get(pre + "post_attention_layernorm.weight"))
+            if fused_qkv:  # Phi-3: rows q, then k, then v
+                w = get(pre + "self_attn.qkv_proj.weight")
+                put(layer, "wq", w[:h * d].t())
+                put(layer, "wk", w[h * d:(h + kv) * d].t())
+                put(layer, "wv", w[(h + kv) * d:].t())
+            else:
+                for name, hf in (("wq", "q_proj"), ("wk", "k_proj"),
+                                 ("wv", "v_proj")):
+                    put(layer, name, get(pre + f"self_attn.{hf}.weight").t())
+            put(layer, "wo", get(pre + "self_attn.o_proj.weight").t())
+            if fused_mlp:  # Phi-3: rows gate, then up
+                w = get(pre + "mlp.gate_up_proj.weight")
+                put(layer, "w_gate", w[:f].t())
+                put(layer, "w_up", w[f:].t())
+            else:
+                put(layer, "w_gate", get(pre + "mlp.gate_proj.weight").t())
+                put(layer, "w_up", get(pre + "mlp.up_proj.weight").t())
+            put(layer, "w_down", get(pre + "mlp.down_proj.weight").t())
+        if not cfg.tie_word_embeddings:
+            put(model, "lm_head", get("lm_head.weight").t())
+    return _check_filled(model)
+
+
+def checkpoint_files(model_path: Optional[str]) -> list:
+    """The `*.safetensors` files directly under `model_path` (sorted; none
+    if it is not a directory)."""
+    if not (model_path and os.path.isdir(model_path)):
+        return []
+    return sorted(glob.glob(os.path.join(model_path, "*.safetensors")))
+
+
+def load_or_init(cfg: ModelConfig, model_path: Optional[str], seed: int = 0,
+                 quantization: Optional[str] = "none", device="cuda",
+                 dtype: torch.dtype = torch.bfloat16) -> Llama:
+    """The checkpoint under `model_path` if it holds `*.safetensors`, else
+    (with a warning when the directory exists) seeded random init; then
+    int8 for quantization "int8" or "w8a8". With no checkpoint and more
+    than DIRECT_INT8_PARAMS parameters, the int8 weights are drawn
+    directly (`random_quantized_params`); smaller models are initialised
+    and quantized, so that int8 stays comparable with the float model."""
+    mode = quant.mode_name(quantization)
+    files = checkpoint_files(model_path)
+    if model_path and os.path.isdir(model_path) and not files:
+        log.warning("no safetensors under %s; using random init", model_path)
+    if mode != "none" and not files and num_params(cfg) > DIRECT_INT8_PARAMS:
+        return random_quantized_params(cfg, seed, mode, device, dtype)
+    if files:
+        model = load_hf_safetensors(cfg, files, device, dtype)
+    else:
+        model = init_params(cfg, seed, device, dtype)
+    return quant.quantize_params(model, mode)

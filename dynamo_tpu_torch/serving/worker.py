@@ -14,22 +14,36 @@ entrypoint selects the JAX package's scheduling defaults for its profile
 - ``vllm_tpu`` — continuous batching: chunked prefill at 256 tokens
   interleaved with decode, automatic prefix caching, async (overlapped)
   scheduling.
+- ``trtllm_tpu`` — the compiled-engine profile: 4-step async windows,
+  chunks of 256, prefix caching; an `--engine-config FILE` (YAML or JSON
+  EngineConfig overrides) is required, and warmup always runs before the
+  server starts, even with `--no-warmup` or `warmup: false` in the file.
+  On the TPU its compiled programs persist in an engine cache; here what
+  persists is the kernel library, built once per source content into
+  `build/dynamo_tpu_torch` and loaded from there by later processes
+  (`ops/cuda_attention.py`). CUDA graphs cannot outlive their process, so
+  the forced warmup captures the decode graphs again at every start.
 
-Both leave `--mixed-batch-tokens` (the mixed ragged step: decode rows and a
-prefill chunk in one forward) and `--kv-cache-dtype` (`int8`: packed-scale
-KV pools) at their defaults, off, as the JAX profiles do; both are served
-when set. `--warmup` (on by default) builds the kernels and captures the
-greedy decode graphs before the server starts.
+All three leave `--mixed-batch-tokens` (the mixed ragged step: decode rows
+and a prefill chunk in one forward) and `--kv-cache-dtype` (`int8`:
+packed-scale KV pools) at their defaults, off, as the JAX profiles do; all
+serve them when set, and `--model-path DIR` (a local safetensors
+checkpoint) and `--quantization int8|w8a8` (int8 weights). `--warmup` (on
+by default) builds the kernels and captures the greedy decode graphs
+before the server starts.
 
     python -m dynamo_tpu_torch.jetstream --model llama-3.1-8b-instruct \
         --port 8000 [--mixed-batch-tokens 256] [--kv-cache-dtype int8]
     python -m dynamo_tpu_torch.vllm_tpu --model llama-3.1-8b-instruct \
-        --port 8000
+        --port 8000 [--model-path DIR] [--quantization w8a8]
+    python -m dynamo_tpu_torch.trtllm_tpu --engine-config engine.yaml \
+        --model llama-3.1-8b-instruct --port 8000
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import signal
@@ -56,6 +70,12 @@ BACKEND_PROFILES = {
         prefill_chunk_tokens=256,
         enable_prefix_caching=True,
     ),
+    "trtllm_tpu": dict(
+        num_scheduler_steps=4,
+        async_scheduling=True,
+        prefill_chunk_tokens=256,
+        enable_prefix_caching=True,
+    ),
 }
 
 
@@ -73,8 +93,16 @@ def build_parser(backend_name: str) -> argparse.ArgumentParser:
 
 def main(argv=None, backend_name: str = "jetstream") -> None:
     logging.basicConfig(level=os.environ.get("LOG_LEVEL", "INFO"))
-    args = build_parser(backend_name).parse_args(argv)
+    p = build_parser(backend_name)
+    args = p.parse_args(argv)
+    if backend_name == "trtllm_tpu" and not args.engine_config:
+        p.error("--engine-config FILE is required for the trtllm_tpu "
+                "backend (the TRT engine-build config analogue)")
     cfg = EngineConfig.from_cli_args(args)
+    if backend_name == "trtllm_tpu" and not cfg.warmup:
+        log.warning("trtllm_tpu ignores warmup=false: the compiled-engine "
+                    "profile always builds before serving")
+        cfg = dataclasses.replace(cfg, warmup=True)
     engine = Engine(cfg, device=args.device)
     if cfg.warmup:
         log.info("building the kernels and capturing the decode graphs "

@@ -555,3 +555,49 @@ def test_noise_bits_on_the_card_are_the_cpu_ones(dev):
     assert pinned[0].tolist() == [3506449212, 1812485701, 505603136,
                                   2319869864, 3651098138, 3592466632,
                                   1436975056, 3455550514]
+
+
+@pytest.mark.parametrize("rows", [1, 8, 17, 256])
+def test_int_mm_is_exact_at_few_rows(dev, rows):
+    """torch._int_mm refuses 16 rows or fewer on the card: quant.int_mm
+    pads with zero rows, and the int32 product equals the exact integer
+    one (f64 on the card: every partial sum is an integer below 2^53)."""
+    from dynamo_tpu_torch.models import quant
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(rows)
+    a = torch.randint(-127, 128, (rows, 4096), generator=g, device=dev,
+                      dtype=torch.int8)
+    b = quant.operand_layout(torch.randint(-127, 128, (4096, 1024),
+                                           generator=g, device=dev,
+                                           dtype=torch.int8))
+    got = quant.int_mm(a, b)
+    assert got.dtype == torch.int32 and got.shape == (rows, 1024)
+    assert torch.equal(got.long(), (a.double() @ b.double()).long())
+
+
+def test_w8a8_rows_do_not_depend_on_padding(dev):
+    """8 rows alone (padded to 17 inside int_mm) and inside a 64-row batch
+    give the same bits."""
+    from dynamo_tpu_torch.models import quant
+
+    x = _rnd(dev, 64, 512, seed=9)
+    w = quant.quantize_weight("w_up", _rnd(dev, 512, 256, seed=10), "w8a8")
+    assert torch.equal(quant.matmul(x[:8], w), quant.matmul(x, w)[:8])
+
+
+@pytest.mark.parametrize("mode", ["int8", "w8a8"])
+def test_quantized_graph_windows_equal_eager_windows(dev, mode):
+    """The quantized decode step (int8 GEMMs or dequantized weights, and
+    their temporaries from the graphs' pool) replayed in 4-step windows
+    gives the eager body's tokens and logprobs bit for bit."""
+    from dynamo_tpu_torch.models import quant
+
+    eager = _window_engine(True, quantization=mode)
+    graphs = _window_engine(False, params=eager.model, quantization=mode)
+    assert quant.mode_of(graphs.model) == mode
+    want = _window_run(eager)
+    got = _window_run(graphs)
+    assert got == want
+    st = graphs.windows.stats()
+    assert not st["eager"] and st["replays"] > 0

@@ -30,7 +30,7 @@ from dynamo_tpu.models import llama as jllama
 from dynamo_tpu.models.config import PRESETS as JPRESETS
 from dynamo_tpu.serving import api as japi
 from dynamo_tpu_torch.engine.config import EngineConfig
-from dynamo_tpu_torch.engine.engine import Engine
+from dynamo_tpu_torch.engine.engine import Engine, unported_settings
 from dynamo_tpu_torch.engine.request import GenRequest
 from dynamo_tpu_torch.serving import api
 
@@ -225,7 +225,6 @@ def test_port_server_refuses_with_400(port_server, body):
     ("speculative_mode", "ngram"),
     ("lora_slots", 2),
     ("kvbm_host_blocks", 8),
-    ("quantization", "int8"),
     ("tensor_parallel", 2),
     ("data_parallel", 2),
     ("expert_parallel", 2),
@@ -237,6 +236,26 @@ def test_unported_settings_are_refused(field, value):
     cfg = EngineConfig(**dict(BASE, **{field: value}))
     with pytest.raises(NotImplementedError, match=field):
         Engine(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("quantization", "int8"),
+    ("quantization", "w8a8"),
+    ("model_path", "tiny-debug"),
+])
+def test_settings_ported_since_are_served(tmp_path, field, value):
+    """Refused before the loader and int8 weights were ported. The
+    model_path here is an empty directory named after a preset: the
+    preset's config, and random init with a warning, as in the JAX
+    package."""
+    if field == "model_path":
+        value = str(tmp_path / value)
+        (tmp_path / "tiny-debug").mkdir()
+    cfg = EngineConfig(**dict(BASE, **{field: value}))
+    assert field not in unported_settings(cfg)
+    eng = Engine(cfg, device="cpu")
+    assert len(eng.generate(GenRequest("p", [1, 2, 3], max_tokens=3,
+                                       ignore_eos=True))) == 3
 
 
 @pytest.mark.parametrize("model,feature", [
