@@ -31,9 +31,13 @@ on failure:
    512-page table with one row at 8192 tokens, where the key spans widen
    past 256), prefill, chunk (the 256-token chunk at 512, and again at
    1792, the last chunk of a 2048-token prompt), ragged (8 decode rows and
-   a 256-token chunk; again with rows of 4 queries), and the int8
-   variants of decode, chunk and ragged. All run the same tensor-core
-   tile, so some rows must be bit-identical: ragged's chunk rows to
+   a 256-token chunk; again with rows of 5 queries, the speculative verify
+   windows of K = 4, with the chunk and without one, C = 0, as the verify
+   step launches it), the int8 variants of decode, chunk and ragged (the
+   verify windows too), and decode at head_dim 64 (`decode_hd64`: the
+   llama-3.2-1b-instruct draft model's B=1 step on its 129-page table).
+   All run the same tensor-core tile, so some rows must be bit-identical:
+   ragged's chunk rows to
    chunk.cu's, its decode rows to decode.cu's (the same split plan: the
    same table width and row count), and a prefill lane at seq_len = S to
    chunk.cu's chunk at start 0 over the same K/V in pages. Each row
@@ -41,9 +45,11 @@ on failure:
    output. This is the numerical check of the kernels on random inputs.
 4. The engine for llama-3.1-8b-instruct at full width and depth, random
    bf16 weights from seed 0: a full prefill, a decode step, a chunked
-   prefill and a mixed step (the decode row beside a 256-token chunk)
-   through the kernels, every attention call of every layer held against
-   the plain version on the same inputs, and the full-depth logits against
+   prefill, a mixed step (the decode row beside a 256-token chunk), a
+   verify step (that row's window of K+1 = 5 tokens) and a mixed verify
+   step (the window beside the chunk) through the kernels, every
+   attention call of every layer held against the plain version on the
+   same inputs, and the full-depth logits against
    the same forwards through the plain attention. q is scaled down before
    attention so that softmax is not one-hot (see forward_checks). Run on
    bf16 pools and again on int8 pools (an engine sharing the weights).
@@ -111,10 +117,56 @@ on failure:
    same graph-window step with w8a8 and with weight-only int8 weights (bf16
    pools), and a mixed step (7 decode slots beside the chunks at 256, 512
    and 768 of a 1024-token prompt) on bf16 and on int8 pools.
-12. A `kernels` JSON line (launches summed over the served phases, graph
-   replays included; `ms` and `library_ms` device times, `call_ms` and
-   `library_call_ms` call times, as phase 3 measures them), the card line,
-   and last the {"ok": true, ...} line.
+12. Speculative decoding (K = 4, n-gram drafts unless said otherwise),
+   each served phase counted from zero, on the 8B's random weights with
+   wq scaled by Q_SCALE (`soft_attention`). With wq as drawn, attention
+   scores have a deviation near 30 and softmax is close to one-hot, which
+   makes the bf16 forward chaotic: a decode step over 40 rows (the verify
+   step's 8 x 5) rounds its GEMMs otherwise than one over 8 rows, and the
+   logits then differ by whole units and the argmax at most positions, so
+   no stream of any speculating engine could match spec-off, nor any
+   drafter's proposals the verify step's (`batch_shape_noise` measures
+   both weight sets in every run: the logits of one state from an 8-row
+   and a 40-row decode step and the verify step's row 0). With wq scaled,
+   the scores' deviation is near 2 (as in phase 4) and the same
+   comparison differs by a bf16 unit or two of the logits.
+   (a) `spec_parity`: the jetstream profile (its greedy verify graph
+       captured by warmup) against an eager 1-step spec-off engine on
+       phase 6's parity requests, its two logprobs requests cut to 8
+       tokens (while one is live a step demotes to plain decode); every
+       stream must be equal, or differ first where the spec-off engine's
+       top-2 gap is under NEAR_TIE (a bf16 near-tie: the verify step's
+       40-row GEMMs round otherwise than the 8-row decode step's); the
+       gap is that of the reference's own decode logits (it serves every
+       request with 2 logprobs), or for a sampled request that of the
+       temperature-scaled, top-p and top-k masked logits plus its Gumbel
+       noise, from a chunked prefill of the prompt and the reference's
+       tokens before the difference.
+   (b) `serve_spec`: the OpenAI server on that engine with phase 5's four
+       concurrent requests, the streamed chat and the completion without
+       logprobs (they would demote every step), beside the graph-window
+       jetstream engine on the same requests: TTFT, mean ITL, worst gap,
+       tokens per second, acceptance and tokens per verify step. The
+       server decodes every token id to one character here
+       (`VisibleTokenizer`), so each token is its own SSE event.
+   (c) where a steady verify step's time goes (as phase 11), in its graph
+       and eagerly.
+   (d) the same parity on int8 pools, with `ragged_int8` verify launches.
+   (e) `mixed_batch_tokens=256` on bf16 and int8 pools: the ~600-token
+       prompt beside the streamed chat (no logprobs); mixed verify steps
+       must run, each one ragged launch per layer with the chunk.
+   (f) `--drafter model`: a self-draft engine (the 8B drafting for itself,
+       its weights shared) on the greedy parity requests, acceptance at
+       least SELF_DRAFT_ACCEPT of drafted tokens, streams as in (a); then
+       llama-3.2-1b-instruct (random weights from seed 1) drafting for the
+       8B on all parity requests: acceptance, draft steps and the draft
+       graph's device time per step against the eager step's.
+13. A `kernels` JSON line (launches summed over the served phases, graph
+   replays included; the verify windows, at decode_q = 5 with and without
+   a chunk, and decode at head_dim 64 counted as rows of their own; `ms`
+   and `library_ms` device times, `call_ms` and `library_call_ms` call
+   times, as phase 3 measures them), the card line, and last the
+   {"ok": true, ...} line.
 """
 
 from __future__ import annotations
@@ -138,12 +190,14 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.engine import Engine
+from dynamo_tpu_torch.engine import sampling as smp
 from dynamo_tpu_torch.engine.request import GenRequest
-from dynamo_tpu_torch.engine.tokenizer import get_tokenizer
+from dynamo_tpu_torch.engine.tokenizer import ByteTokenizer, get_tokenizer
 from dynamo_tpu_torch.models import llama, quant
 from dynamo_tpu_torch.ops import attention as att
 from dynamo_tpu_torch.ops import cuda_attention as ca
-from dynamo_tpu_torch.serving.api import ServingContext, make_server
+from dynamo_tpu_torch.serving.api import (ServingContext, make_server,
+                                          spec_stats)
 from dynamo_tpu_torch.serving.worker import BACKEND_PROFILES, build_parser
 
 MODEL = "llama-3.1-8b-instruct"
@@ -163,6 +217,11 @@ INT8_W = att.kv_lane_width(KV, D, True)  # 1152 lanes per int8 pool row
 # bytes of an int8 row the kernels read: its values and scales (1040 of
 # INT8_W; the zero pad is never read)
 INT8_ROW_BYTES = KV * D + 2 * KV
+SPEC_K = 4  # drafts per verify window: windows of K + 1 = 5 queries
+DRAFT_MODEL = "llama-3.2-1b-instruct"  # head_dim 64, the 8B's vocabulary
+DRAFT_D = 64
+NEAR_TIE = 0.05  # top-2 gap under which a first difference is a near-tie
+SELF_DRAFT_ACCEPT = 0.5  # accepted / drafted tokens of the self-draft
 SOURCES = {
     "decode": ("dynamo_tpu_torch/csrc/decode.cu",
                "dynamo_tpu/ops/pallas_attention.py:181 (_decode_kernel)"),
@@ -181,6 +240,34 @@ SOURCES = {
     "ragged_int8": ("dynamo_tpu_torch/csrc/ragged.cu",
                     "dynamo_tpu/ops/ragged_attention.py:73 (_ragged_kernel,"
                     " int8 pools)"),
+    "ragged_verify": ("dynamo_tpu_torch/csrc/ragged.cu",
+                      "dynamo_tpu/ops/ragged_attention.py:73 (_ragged_kernel,"
+                      " verify windows decode_q=5 beside a chunk)"),
+    "ragged_verify_only": ("dynamo_tpu_torch/csrc/ragged.cu",
+                           "dynamo_tpu/ops/ragged_attention.py:73 "
+                           "(_ragged_kernel, verify windows decode_q=5, no "
+                           "chunk)"),
+    "ragged_int8_verify": ("dynamo_tpu_torch/csrc/ragged.cu",
+                           "dynamo_tpu/ops/ragged_attention.py:73 "
+                           "(_ragged_kernel, int8 pools, verify windows "
+                           "decode_q=5 beside a chunk)"),
+    "ragged_int8_verify_only": ("dynamo_tpu_torch/csrc/ragged.cu",
+                                "dynamo_tpu/ops/ragged_attention.py:73 "
+                                "(_ragged_kernel, int8 pools, verify windows "
+                                "decode_q=5, no chunk)"),
+    "decode_hd64": ("dynamo_tpu_torch/csrc/decode.cu",
+                    "dynamo_tpu/ops/pallas_attention.py:181 (_decode_kernel,"
+                    " head_dim 64: the draft model's B=1 step)"),
+}
+# the kernels line's rows that count one variant of a kernel's launches
+# (cuda_attention.VARIANT_LAUNCHES)
+VARIANTS = {
+    "ragged_verify": f"ragged[decode_q={SPEC_K + 1},chunk]",
+    "ragged_verify_only": f"ragged[decode_q={SPEC_K + 1},no_chunk]",
+    "ragged_int8_verify": f"ragged_int8[decode_q={SPEC_K + 1},chunk]",
+    "ragged_int8_verify_only":
+        f"ragged_int8[decode_q={SPEC_K + 1},no_chunk]",
+    "decode_hd64": f"decode[head_dim={DRAFT_D}]",
 }
 CLASSIC = ("decode", "prefill", "chunk")
 
@@ -281,17 +368,17 @@ def ptxas_usage(log: str) -> dict:
     return usage
 
 
-def kernel_usage(name: str) -> dict:
+def kernel_usage(name: str, head_dim: int = D) -> dict:
     """ptxas registers and spills of the device kernels behind entry point
-    `name` at this script's head_dim: its source's kernels for its pool
-    kind, and any kernel there that takes no pool policy."""
+    `name` at `head_dim`: its source's kernels for its pool kind, and any
+    kernel there that takes no pool policy."""
     base = name.split("_")[0]
     src = SOURCES[base][0].rsplit("/", 1)[-1]
     pool = "Int8" if "int8" in name else "Bf16"
 
     def wanted(label: str) -> bool:
         args = label[label.index("<") + 1:-1].split(", ") if "<" in label else []
-        return (all(a == str(D) for a in args if a.isdigit())
+        return (all(a == str(head_dim) for a in args if a.isdigit())
                 and all(a.startswith(pool) for a in args if not a.isdigit()))
 
     return {k: v for k, v in ptxas_usage(ca.build_log).get(src, {}).items()
@@ -332,7 +419,8 @@ def disagreement(out: torch.Tensor, ref: torch.Tensor):
     return float(err.max()), max_rel, ok
 
 
-def check(name, kernel, plain, library, cost, shapes, extra=None) -> dict:
+def check(name, kernel, plain, library, cost, shapes, extra=None,
+          head_dim: int = D) -> dict:
     """Kernel vs plain on the same inputs; raises on disagreement."""
     out_k = kernel()
     out_p = plain()
@@ -345,7 +433,7 @@ def check(name, kernel, plain, library, cost, shapes, extra=None) -> dict:
            "library_ms": device_ms(library, 20),
            "kernel_call_ms": time_ms(kernel, 20),
            "library_call_ms": time_ms(library, 20), **cost,
-           "ptxas": kernel_usage(name), **(extra or {})}
+           "ptxas": kernel_usage(name, head_dim), **(extra or {})}
     emit({"kernel_check": row})
     if not ok:
         raise AssertionError(f"{name} kernel disagrees with its plain "
@@ -354,7 +442,8 @@ def check(name, kernel, plain, library, cost, shapes, extra=None) -> dict:
     return row
 
 
-def paged_cost(q_numel: int, rows, row_bytes: int, desc_ints: int) -> dict:
+def paged_cost(q_numel: int, rows, row_bytes: int, desc_ints: int,
+               head_dim: int = D) -> dict:
     """The bound of a paged-attention call from what its inputs need: q
     read and the output written once (bf16), each distinct K and V row
     below some query's horizon read once (`row_bytes` each: 2 * KV * D in
@@ -372,7 +461,7 @@ def paged_cost(q_numel: int, rows, row_bytes: int, desc_ints: int) -> dict:
                      for j in range(n_q))
     kv_rows = int(torch.unique(torch.cat(ids)).numel())
     return bound(2 * 2 * q_numel + 2 * kv_rows * row_bytes
-                 + 4 * (walked + desc_ints), 4 * pairs * H * D)
+                 + 4 * (walked + desc_ints), 4 * pairs * H * head_dim)
 
 
 def paged_library(q, kp, vp, tables, q_starts, kv_lens):
@@ -380,10 +469,10 @@ def paged_library(q, kp, vp, tables, q_starts, kv_lens):
     [N, Q, H, D], bf16 pools, tables [N, W]; query j of row n sees key tok
     iff tok <= q_starts[n] + j and tok < kv_lens[n] (keys past the longest
     kv_len are not gathered). The gather is not timed."""
-    n, nq = q.shape[:2]
+    n, nq, _, d = q.shape
     s = int(kv_lens.max())
-    kd = kp[tables.long()].reshape(n, -1, KV, D)[:, :s].permute(0, 2, 1, 3)
-    vd = vp[tables.long()].reshape(n, -1, KV, D)[:, :s].permute(0, 2, 1, 3)
+    kd = kp[tables.long()].reshape(n, -1, KV, d)[:, :s].permute(0, 2, 1, 3)
+    vd = vp[tables.long()].reshape(n, -1, KV, d)[:, :s].permute(0, 2, 1, 3)
     kd = kd.repeat_interleave(H // KV, 1).contiguous()
     vd = vd.repeat_interleave(H // KV, 1).contiguous()
     tok = torch.arange(s, device=q.device)
@@ -561,15 +650,15 @@ def kernel_checks(dev) -> dict:
 
     # ragged: the mixed step's shapes, 8 decode rows (slot 0 inactive: a
     # zero table row at context 1) beside the chunk above, descriptors
-    # built as the engine builds them; decode rows of 4 queries as well
-    # (the TPU kernel's verify windows)
+    # built as the engine builds them; decode rows of K+1 = 5 queries as
+    # well (the mixed verify step's windows)
     rctx = torch.tensor([1, 1, 17, 100, 255, 600, 1024, 2048],
                         dtype=torch.int32)
     rctx_d = rctx.to(dev)  # row 0 (context 0 above) has no pages
     desc = att.ragged_descriptors(table_d, rctx_d, pages_d,
                                   start, c)
     cpu_desc = [t.cpu() for t in desc]
-    for decode_q in (1, 4):
+    for decode_q in (1, SPEC_K + 1):
         qr = rnd(MAX_SEQS * decode_q + c, H, D)
         tabs, kv_lens, q_starts = desc
         if decode_q > 1:  # windows ending at each row's context
@@ -581,10 +670,7 @@ def kernel_checks(dev) -> dict:
                   decode_q if r < MAX_SEQS else c, int(kv_lens[r]))
                  for r in range(MAX_SEQS + 1)]
         for sfx, (k, v, kl, vl, row_bytes, n_kv) in pools.items():
-            if decode_q > 1 and sfx:
-                continue
-            name = "ragged" + sfx + ("" if decode_q == 1
-                                     else f"_decode_q{decode_q}")
+            name = "ragged" + sfx + ("" if decode_q == 1 else "_verify")
             kw = dict(page_size=PS, num_kv_heads=KV, num_decode=MAX_SEQS,
                       decode_q=decode_q)
 
@@ -638,6 +724,56 @@ def kernel_checks(dev) -> dict:
                     and extra.get("decode_rows_agree_with_decode_cu", True)):
                 raise AssertionError(f"{name}: its rows differ from "
                                      f"chunk.cu's or decode.cu's: {extra}")
+
+    # the verify step: 8 windows of K+1 queries without a chunk (C = 0),
+    # each ending at the context above, through verify_attention's
+    # descriptors (the chunk row on the trash page at kv_len 0)
+    k1 = SPEC_K + 1
+    vpos = torch.clamp(rctx - k1, min=0)
+    vpos_d = vpos.to(dev)
+    qv = rnd(MAX_SEQS, k1, H, D)
+    vdesc = att.ragged_verify_descriptors(table_d, vpos_d, k1)
+    vspans = [(table[b], int(vpos[b]), k1, int(vpos[b]) + k1)
+              for b in range(MAX_SEQS)]
+    for sfx, (k, v, kl, vl, row_bytes, n_kv) in pools.items():
+        name = "ragged" + sfx + "_verify_only"
+        rows[name] = check(
+            name,
+            lambda k=k, v=v: att.verify_attention(
+                qv, k, v, table_d, vpos_d, page_size=PS, num_kv_heads=KV),
+            lambda k=k, v=v: att.verify_attention_ref(
+                qv, k, v, table_d, vpos_d, page_size=PS, num_kv_heads=KV),
+            paged_library(qv, kl, vl, table_d, vpos_d, vpos_d + k1),
+            paged_cost(qv.numel(), vspans, row_bytes, 2 * (MAX_SEQS + 1)),
+            {"q": [MAX_SEQS, k1, H, D], "num_decode": MAX_SEQS,
+             "decode_q": k1, "chunk": 0, "positions": vpos.tolist(),
+             "tables": list(vdesc[0].shape), "pools": list(k.shape)})
+
+    # decode at head_dim 64: the draft model's B=1 step (llama-3.2-1b:
+    # H=32, KV=8) at a 600-token context on its max_pages_per_seq + 1 =
+    # 129-page table, over pools of the 1B's row width
+    wd = MAX_SEQ_LEN // PS + 1
+    kpd = rnd(256, PS, KV * DRAFT_D)
+    vpd = rnd(256, PS, KV * DRAFT_D)
+    dctx = torch.tensor([600], dtype=torch.int32)
+    dtable = torch.zeros((1, wd), dtype=torch.int32)
+    dtable[0, :-(-600 // PS)] = torch.randperm(
+        255, generator=torch.Generator().manual_seed(3))[:-(-600 // PS)] + 1
+    dtable_d, dctx_d = dtable.to(dev), dctx.to(dev)
+    qd = rnd(1, H, DRAFT_D)
+    rows["decode_hd64"] = check(
+        "decode_hd64",
+        lambda: ca.paged_attention_decode(qd, kpd, vpd, dtable_d, dctx_d,
+                                          page_size=PS),
+        lambda: att.paged_attention_decode_ref(qd, kpd, vpd, dtable_d,
+                                               dctx_d, page_size=PS),
+        paged_library(qd[:, None], kpd, vpd, dtable_d, dctx_d - 1, dctx_d),
+        paged_cost(qd.numel(), [(dtable[0], 599, 1, 600)],
+                   2 * KV * DRAFT_D, 1, head_dim=DRAFT_D),
+        {"q": [1, H, DRAFT_D], "pools": list(kpd.shape),
+         "block_table": list(dtable.shape), "context_lens": [600],
+         "split_keys": ca.split_keys(wd, PS, 1, KV, sms)},
+        head_dim=DRAFT_D)
     return rows
 
 
@@ -680,8 +816,10 @@ def q_scaled(fns: att.AttentionFns, factor: float) -> att.AttentionFns:
 def three_paths(engine: Engine, attn) -> dict:
     """Logits of a full prefill (100 tokens in a 128 bucket), one decode
     step after it (slot 0 live, seven slots on the trash page), a chunked
-    prefill (600 tokens in 256-token chunks) and a mixed step (that decode
-    row beside the prompt's second chunk again), with `attn`."""
+    prefill (600 tokens in 256-token chunks), a mixed step (that decode
+    row beside the prompt's second chunk again), a verify step (slot 0's
+    window of K+1 tokens at position 100, the other slots without room)
+    and a mixed verify step (that window beside the chunk), with `attn`."""
     model, dev, out = engine.model, engine.device, {}
     prompt = torch.randint(0, 256, (600,),
                            generator=torch.Generator().manual_seed(2))
@@ -718,6 +856,20 @@ def three_paths(engine: Engine, attn) -> dict:
             CHUNK, CHUNK, plist, engine.k_pages, engine.v_pages,
             page_size=PS, attn=attn)
         out["mixed_decode"] = out["mixed_decode"][0]
+        window = torch.zeros((MAX_SEQS, SPEC_K + 1), dtype=torch.long,
+                             device=dev)
+        window[0] = prompt[100:101 + SPEC_K].to(dev)
+        room = torch.zeros((MAX_SEQS,), dtype=torch.bool, device=dev)
+        room[0] = True
+        out["verify"] = llama.decode_verify(
+            model, window, pos, table, room, engine.k_pages, engine.v_pages,
+            page_size=PS, attn=attn)[0]
+        out["mixed_verify"], out["mixed_verify_chunk"] = \
+            llama.mixed_verify_step(
+                model, window, pos, table, room,
+                prompt[CHUNK:2 * CHUNK].to(dev), CHUNK, CHUNK, plist,
+                engine.k_pages, engine.v_pages, page_size=PS, attn=attn)
+        out["mixed_verify"] = out["mixed_verify"][0]
     finally:
         engine.allocator.free(pages)
     return out
@@ -763,8 +915,9 @@ def forward_checks(engine: Engine) -> dict:
            "logits_tolerance": f"rel_l2 < {LOGIT_REL_TOL}",
            "logits_rel_l2_without_softmax_scale": rel_l2(unscaled, plain)}
     emit({"forward_check": row})
-    # per layer: prefill, decode, the chunks, the mixed step
-    expected = len(engine.model.layers) * (3 + -(-600 // CHUNK))
+    # per layer: prefill, decode, the chunks, the mixed step, the verify
+    # step and the mixed verify step
+    expected = len(engine.model.layers) * (5 + -(-600 // CHUNK))
     if held.failed or held.calls != expected:
         raise AssertionError(f"attention calls in the forward disagree with "
                              f"the plain version: {held.failed[:5]} "
@@ -803,11 +956,24 @@ def post(url: str, body: dict, stream: bool,
         return r.status, events, stamps, time.monotonic() - t0
 
 
+class VisibleTokenizer(ByteTokenizer):
+    """The byte tokenizer, but every token id decodes to one character, so
+    that a streamed response carries one SSE event per token without
+    logprobs (random weights emit ids >= 256, which bytes decode to
+    nothing). The prompts encode as before."""
+
+    def decode(self, ids) -> str:
+        return "".join(chr(0x3400 + i % 0x5000) for i in ids)
+
+
 @contextlib.contextmanager
-def serving(engine: Engine):
-    """The OpenAI server for `engine` on 127.0.0.1:0; yields its base URL
-    and stops server and engine thread on exit."""
+def serving(engine: Engine, tokenizer=None):
+    """The OpenAI server for `engine` on 127.0.0.1:0 (with `tokenizer` in
+    place of the model's, if given); yields its base URL and stops server
+    and engine thread on exit."""
     ctx = ServingContext(engine, MODEL)
+    if tokenizer is not None:
+        ctx.tokenizer = tokenizer
     srv = make_server(ctx, host="127.0.0.1", port=0)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
@@ -865,16 +1031,16 @@ def summarize(name: str, result, stream: bool) -> dict:
     return out
 
 
-def interference(base: str) -> dict:
+def interference(base: str, stream_body: dict = CHAT_STREAM) -> dict:
     """The ~600-token prompt alone on the idle engine (the chunked path),
-    then a streamed chat and, once its first token is out, the same prompt
-    again, which prefills while the stream decodes."""
+    then a streamed chat (`stream_body`) and, once its first token is out,
+    the same prompt again, which prefills while the stream decodes."""
     long_job = (base + "/v1/completions", dict(COMMON, prompt=LONG_TEXT),
                 False)
     out = {"long_alone": summarize("long_alone", post(*long_job), False)}
     first, got = threading.Event(), {}
     stream = threading.Thread(target=lambda: got.update(stream=post(
-        base + "/v1/chat/completions", CHAT_STREAM, True, first)))
+        base + "/v1/chat/completions", stream_body, True, first)))
     stream.start()
     if not first.wait(timeout=600):
         raise AssertionError("the streamed request never produced a token")
@@ -979,16 +1145,22 @@ def profile_steps(engine: Engine, steps: int, long_prompt: int = 0) -> dict:
     long_prompt 0, all 8 slots decoding after 100-token prompts; otherwise
     (a mixed engine) 7 slots decoding beside a long_prompt-token prompt
     whose chunks after the first ride the measured mixed steps, and every
-    measured step must be one."""
+    measured step must be one. On a speculating engine every measured
+    step must be one verify step (a replay of its graph, or eager)."""
     n_decode = MAX_SEQS - 1 if long_prompt else MAX_SEQS
-    k = engine.cfg.num_scheduler_steps
+    spec = engine.verify is not None
+    # decode steps per engine step, and the graphs' books
+    k = 1 if spec else engine.cfg.num_scheduler_steps
+    graph_stats = engine.verify.stats if spec else engine.windows.stats
+    units = "steps" if spec else "windows"
+    tokens = (steps + 2) * (SPEC_K + 1 if spec else k) + 8
     counted = {}
 
     def drive(tag: str, measured) -> float:
         for i in range(n_decode):
             engine.add_request(GenRequest(
                 f"profile-{tag}-{i}", list(range(1, 101)),
-                max_tokens=(steps + 2) * k + 8, ignore_eos=True))
+                max_tokens=tokens, ignore_eos=True))
         while engine.pending:
             engine.step()
         engine.step()
@@ -1001,7 +1173,8 @@ def profile_steps(engine: Engine, steps: int, long_prompt: int = 0) -> dict:
             engine.step()  # the first mixed step
         mixed0 = engine.metrics.mixed_count
         decode0 = engine.metrics.decode_steps
-        win0 = engine.windows.stats()
+        verify0 = engine.metrics.spec_verify_steps
+        win0 = graph_stats()
         torch.cuda.synchronize()
         t0 = time.monotonic()
         with measured:
@@ -1011,8 +1184,9 @@ def profile_steps(engine: Engine, steps: int, long_prompt: int = 0) -> dict:
         wall = time.monotonic() - t0
         mixed = engine.metrics.mixed_count - mixed0
         counted[tag] = engine.metrics.decode_steps - decode0
-        win = engine.windows.stats()
-        counted["windows"] = win["windows"] - win0["windows"]
+        counted["verify"] = engine.metrics.spec_verify_steps - verify0
+        win = graph_stats()
+        counted["windows"] = win[units] - win0[units]
         counted["replays"] = win["replays"] - win0["replays"]
         while engine.has_work:
             engine.step()
@@ -1023,6 +1197,9 @@ def profile_steps(engine: Engine, steps: int, long_prompt: int = 0) -> dict:
         if counted[tag] != steps * (1 if long_prompt else k):
             raise AssertionError(f"{counted[tag]} decode steps in {steps} "
                                  f"engine steps of {k}-step windows")
+        if spec and counted["verify"] != steps:
+            raise AssertionError(f"{counted['verify']} verify steps in "
+                                 f"{steps} engine steps")
         return wall / counted[tag] * 1e3
 
     from torch.profiler import ProfilerActivity, profile
@@ -1042,9 +1219,10 @@ def profile_steps(engine: Engine, steps: int, long_prompt: int = 0) -> dict:
         kernels[ev.name] = kernels.get(ev.name, 0.0) + ms
     busy = sum(families.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    graphs = engine.windows.stats()
+    graphs = graph_stats()
     return {"kv_cache_dtype": engine.kv_spec.dtype,
-            "step": "mixed" if long_prompt else "decode",
+            "step": ("mixed" if long_prompt else
+                     f"verify (K={SPEC_K})" if spec else "decode"),
             "decode_slots": n_decode, "long_prompt": long_prompt,
             "window": 1 if long_prompt else k,
             "cuda_graphs": not graphs["eager"],
@@ -1441,6 +1619,440 @@ def trtllm_engine(base_cfg: dict, model, tmp: str) -> Engine:
     return Engine(cfg, params=model)
 
 
+# phase 5's four requests for a speculating engine: the streamed chat and
+# the completion without logprobs (a logprobs request demotes every step
+# it is live in); with VisibleTokenizer every token is still an SSE event
+CHAT_STREAM_PLAIN = dict(CHAT, stream=True,
+                         stream_options={"include_usage": True})
+SPEC_JOBS = dict(
+    FOUR_JOBS,
+    chat_stream=("/v1/chat/completions", CHAT_STREAM_PLAIN, True),
+    completion=("/v1/completions",
+                dict(COMMON, prompt="Hopper has 132 SMs and"), False))
+
+
+def spec_parity_requests(tok, greedy_only: bool = False) -> list:
+    """parity_requests with its two logprobs requests cut to 8 tokens (a
+    logprobs request demotes the steps it is live in); `greedy_only`
+    leaves out the two sampled ones."""
+    reqs = [dataclasses.replace(r, max_tokens=8) if r.logprobs is not None
+            else r for r in parity_requests(tok)]
+    return [r for r in reqs if not greedy_only or r.temperature == 0.0]
+
+
+def sampled_gap(engine: Engine, req: GenRequest, before: list) -> float:
+    """The spec-off top-2 gap where output token len(before) of the
+    sampled request `req` is drawn, in what its draw compares: the logits
+    scaled by the temperature, top-p and top-k masked, plus its Gumbel
+    noise at that position. The logits come from a chunked prefill of the
+    prompt and `before` through `engine` (its pool kind's chunk kernel,
+    which reads the K/V back from the pool as a decode step does; pages
+    from its allocator, freed after)."""
+    ids = list(req.prompt_token_ids) + list(before)
+    n = len(ids)
+    dev = engine.device
+    pages = engine.allocator.alloc(-(-n // PS))
+    try:
+        plist = torch.zeros((-(-n // CHUNK) * CHUNK // PS,),
+                            dtype=torch.int32)
+        plist[:len(pages)] = torch.tensor(pages)
+        plist = plist.to(dev)
+        for start in range(0, n, CHUNK):
+            take = min(CHUNK, n - start)
+            chunk = torch.zeros((CHUNK,), dtype=torch.long)
+            chunk[:take] = torch.tensor(ids[start:start + take])
+            logits = llama.prefill_chunk(
+                engine.model, chunk.to(dev), start, take, engine.k_pages,
+                engine.v_pages, plist, page_size=PS)
+    finally:
+        engine.allocator.free(pages)
+    state = smp.make_state([req.temperature], [req.top_p], [req.top_k],
+                           device=dev)
+    scaled = logits.float()[None] / req.temperature
+    if state.any_topk_topp:
+        scaled = smp._mask_topk_topp(scaled, state)
+    key = smp.fold_in(int(req.seed) & ((1 << 63) - 1), n - 1)
+    scaled = scaled + smp.gumbel(torch.tensor([key], device=dev),
+                                 scaled.shape[-1])
+    top = scaled[0].topk(2).values
+    return float(top[0] - top[1])
+
+
+def spec_summary(engine: Engine) -> dict:
+    """/worker/stats' spec section of `engine`, and its verify steps."""
+    return {**spec_stats(engine),
+            "verify_steps": engine.metrics.spec_verify_steps,
+            "decode_steps": engine.metrics.decode_steps,
+            "mixed_spec_steps": engine.metrics.mixed_spec_count}
+
+
+def spec_parity(reference: Engine, engines: dict, reqs, name: str) -> dict:
+    """Each speculating engine's streams against the spec-off reference's
+    (`reqs()` gives fresh requests), token for token; a stream that
+    differs must first differ at a near-tie: a spec-off top-2 gap under
+    NEAR_TIE there. The reference serves every request with 2 logprobs
+    (its tokens are the same either way), so a greedy stream's gap is
+    that of its own decode step's logits; a sampled one's is
+    sampled_gap's. Every engine must have run verify steps, and its
+    launches are kept."""
+    ref = run_to_end(reference, [
+        dataclasses.replace(r, logprobs=max(2, r.logprobs or 0))
+        for r in reqs()])
+    want = {rid: [t for t, _, _ in toks] for rid, toks in ref.items()}
+    by_rid = {r.request_id: r for r in reqs()}
+
+    def gap(rid: str, i: int) -> float:
+        req = by_rid[rid]
+        if i >= len(want[rid]):
+            return float("inf")
+        if req.temperature > 0:
+            return sampled_gap(reference, req, want[rid][:i])
+        top = ref[rid][i][2]
+        return top[0][1] - top[1][1]
+
+    row = {"reference": "eager 1-step, speculation off",
+           "requests": len(want), "tokens": sum(map(len, want.values()))}
+    for label, eng in engines.items():
+        ca.reset_launch_counts()
+        eng.metrics = type(eng.metrics)()
+        t0 = time.monotonic()
+        got = {rid: [t for t, _, _ in toks]
+               for rid, toks in run_to_end(eng, reqs()).items()}
+        entry = {"seconds": time.monotonic() - t0,
+                 "launches": dict(ca.LAUNCHES),
+                 "variants": dict(ca.VARIANT_LAUNCHES),
+                 "spec": spec_summary(eng)}
+        diffs = {}
+        for rid, toks in want.items():
+            mine = got.get(rid, [])
+            i = next((j for j, (a, b) in enumerate(zip(mine, toks))
+                      if a != b), min(len(mine), len(toks)))
+            if mine != toks:
+                diffs[rid] = {"index": i, "got": mine[i:i + 1],
+                              "want": toks[i:i + 1],
+                              "spec_off_top2_gap": gap(rid, i)}
+        entry.update(equal=not diffs, first_differences=diffs,
+                     near_tie_limit=NEAR_TIE)
+        row[label] = entry
+        if any(d["spec_off_top2_gap"] >= NEAR_TIE for d in diffs.values()):
+            emit({name: row})
+            raise AssertionError(f"{label}: streams differ from spec-off "
+                                 f"where it has no near-tie: {diffs}")
+        if eng.metrics.spec_verify_steps == 0:
+            emit({name: row})
+            raise AssertionError(f"{label}: no verify step ran")
+    emit({name: row})
+    return row
+
+
+def serve_spec(spec_engine: Engine, window_engine: Engine) -> dict:
+    """SPEC_JOBS, four concurrent requests, on the speculating engine and
+    on the graph-window engine, one after the other, each through the
+    server with VisibleTokenizer."""
+    out = {}
+    for label, eng in (("spec", spec_engine), ("graph_windows",
+                                               window_engine)):
+        eng.metrics = type(eng.metrics)()
+        results = {}
+        with serving(eng, VisibleTokenizer()) as base:
+            ca.reset_launch_counts()
+
+            def run(job):
+                path, body, stream = SPEC_JOBS[job]
+                results[job] = post(base + path, body, stream)
+
+            threads = [threading.Thread(target=run, args=(j,))
+                       for j in SPEC_JOBS]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            launches = dict(ca.LAUNCHES)
+            variants = dict(ca.VARIANT_LAUNCHES)
+            worker = stats(base)
+        out[label] = {"requests": {j: summarize(j, results[j],
+                                                SPEC_JOBS[j][2])
+                                   for j in SPEC_JOBS},
+                      "launches": launches, "variants": variants,
+                      "engine_metrics": worker["metrics"]}
+        if label == "spec":
+            out[label]["spec"] = worker["spec"]
+            m = spec_engine.metrics
+            out[label]["tokens_per_verify_step_per_slot"] = (
+                1 + m.spec_accept_sum / m.spec_accept_count
+                if m.spec_accept_count else "no speculating slot")
+            if worker["spec"]["verify_graphs"]["replays"] == 0:
+                raise AssertionError(f"serve_spec: no verify graph replay: "
+                                     f"{worker['spec']}")
+    return out
+
+
+def mixed_spec_serve(engine: Engine) -> dict:
+    """The interference traffic on a speculating mixed engine, the stream
+    without logprobs: the long prompt's chunks must ride mixed verify
+    steps, each one ragged launch per layer with the chunk."""
+    sfx = "_int8" if engine.kv_spec.quantized else ""
+    with serving(engine, VisibleTokenizer()) as base:
+        ca.reset_launch_counts()
+        traffic = interference(base, CHAT_STREAM_PLAIN)
+        launches = dict(ca.LAUNCHES)
+        variants = dict(ca.VARIANT_LAUNCHES)
+        worker = stats(base)
+    n = engine.metrics.mixed_spec_count
+    with_chunk = variants.get(
+        f"ragged{sfx}[decode_q={SPEC_K + 1},chunk]", 0)
+    layers = engine.model_cfg.num_layers
+    if n == 0 or with_chunk != layers * n:
+        raise AssertionError(f"mixed spec ({engine.kv_spec.dtype} pools): "
+                             f"{n} mixed verify steps, {with_chunk} ragged "
+                             f"launches with the chunk ({variants})")
+    return {"kv_cache": worker["kv_cache"], "mixed_spec_steps": n,
+            "requests": traffic, "spec": worker["spec"],
+            "launches": launches, "variants": variants}
+
+
+def draft_step_times(draft) -> dict:
+    """The draft model's B=1 step: device and call time of a replay of its
+    graph, call time of the eager step, over the trash page from position
+    0 (the capture's warm-up state; the engine is idle)."""
+
+    def reset():
+        draft.cursor.zero_()
+        draft.table.zero_()
+        draft.n_known.fill_(draft.feed.shape[0])
+
+    graph = draft._graph if draft._graph is not None else draft.capture()
+    reset()
+    dev_ms = device_ms(graph.graph.replay, 20)
+    reset()
+    call_ms = time_ms(graph.graph.replay, 20)
+    reset()
+    with torch.inference_mode():
+        eager_ms = time_ms(draft._body, 5)
+    reset()
+    return {"graph_device_ms": dev_ms, "graph_call_ms": call_ms,
+            "eager_call_ms": eager_ms,
+            "draft_layers": draft.model_cfg.num_layers,
+            "draft_head_dim": draft.model_cfg.head_dim}
+
+
+def soft_attention(model):
+    """`model`'s weights with wq scaled by Q_SCALE (exact in bf16), every
+    other tensor shared: attention scores of deviation near 2 instead of
+    30 (see phase 12 in the module doc)."""
+    twin = type(model)(model.cfg, "meta", model.dtype)
+    src = dict(model.named_modules())
+    for path, mod in twin.named_modules():
+        for name, p in src[path].named_parameters(recurse=False):
+            if name == "wq":
+                p = torch.nn.Parameter(p.detach() * Q_SCALE,
+                                       requires_grad=False)
+            setattr(mod, name, p)
+    return twin
+
+
+def batch_shape_noise(engine: Engine, models: dict,
+                      steps: int = 12) -> dict:
+    """Per weight set: a greedy chain of `steps` decode states after a
+    chat prompt (prefilled through `engine`'s pools, pages freed after),
+    each state's logits from an 8-row decode step (the chain's), a
+    40-row one and the verify step's row 0 (8 windows of K+1): the max
+    |difference| from the 8-row logits, how many states change their
+    argmax, and whether the verify row equals the 40-row step bit for
+    bit. The other rows sit on the trash page."""
+    dev, width = engine.device, MAX_SEQ_LEN // PS
+    prompt = get_tokenizer(MODEL).encode("Port this kernel to Hopper.")
+    out = {}
+    for label, model in models.items():
+        pages = engine.allocator.alloc(-(-(len(prompt) + steps) // PS))
+        try:
+            page_t = torch.tensor(pages, dtype=torch.int32, device=dev)
+            tokens = torch.zeros((-(-len(prompt) // PS) * PS,),
+                                 dtype=torch.long)
+            tokens[:len(prompt)] = torch.tensor(prompt)
+            t = int(llama.prefill(
+                model, tokens.to(dev), len(prompt), engine.k_pages,
+                engine.v_pages, page_t[:len(tokens) // PS],
+                page_size=PS).argmax())
+            row = {"max_abs_diff_40_rows": 0.0, "max_abs_diff_verify": 0.0,
+                   "argmax_changes_40_rows": 0,
+                   "verify_equals_40_rows": True, "logit_std": 0.0,
+                   "states": steps}
+            for i in range(steps):
+                pos = len(prompt) + i
+
+                def rows(b):
+                    tok = torch.zeros((b,), dtype=torch.long, device=dev)
+                    p = torch.zeros((b,), dtype=torch.int32, device=dev)
+                    tab = torch.zeros((b, width), dtype=torch.int32,
+                                      device=dev)
+                    tok[0], p[0] = t, pos
+                    tab[0, :len(pages)] = page_t
+                    return tok, p, tab
+
+                def decode(b):
+                    tok, p, tab = rows(b)
+                    return llama.decode_step(
+                        model, tok, p, tab, p + 1, engine.k_pages,
+                        engine.v_pages, page_size=PS)[0].float()
+
+                d40 = decode(40)
+                tok, p, tab = rows(MAX_SEQS)
+                window = torch.zeros((MAX_SEQS, SPEC_K + 1),
+                                     dtype=torch.long, device=dev)
+                window[0, 0] = t
+                ver = llama.decode_verify(
+                    model, window, p, tab,
+                    torch.zeros((MAX_SEQS,), dtype=torch.bool, device=dev),
+                    engine.k_pages, engine.v_pages,
+                    page_size=PS)[0, 0].float()
+                d8 = decode(MAX_SEQS)  # last: the chain's KV is its own
+                row["max_abs_diff_40_rows"] = max(
+                    row["max_abs_diff_40_rows"],
+                    float((d40 - d8).abs().max()))
+                row["max_abs_diff_verify"] = max(
+                    row["max_abs_diff_verify"], float((ver - d8).abs().max()))
+                row["argmax_changes_40_rows"] += int(d40.argmax()
+                                                     != d8.argmax())
+                row["verify_equals_40_rows"] &= torch.equal(ver, d40)
+                row["logit_std"] = max(row["logit_std"], float(d8.std()))
+                t = int(d8.argmax())
+        finally:
+            engine.allocator.free(pages)
+        out[label] = row
+    emit({"phase": "batch_shape_noise", **out})
+    return out
+
+
+def spec_phases(engine: Engine, eager_cfg: dict, jet_cfg: dict,
+                tok) -> dict:
+    """Phase 12 (see the module doc): -> {"launches": [each served phase's
+    LAUNCHES], "variants": [... VARIANT_LAUNCHES], "profiles": [...]}."""
+    spec = dict(speculative_mode="ngram", num_speculative_tokens=SPEC_K)
+    ref_cfg = dict(eager_cfg, prefill_chunk_tokens=0)
+    phases = []
+    model = soft_attention(engine.model)
+    with torch.inference_mode():
+        batch_shape_noise(engine, {"as_drawn": engine.model,
+                                   "wq_scaled": model})
+
+    def warm(name, eng):
+        t0 = time.monotonic()
+        eng.warmup()
+        emit({"phase": "warmup", "engine": name,
+              "seconds": time.monotonic() - t0,
+              "verify_graphs": eng.verify.stats(),
+              "draft": eng.draft.stats() if eng.draft is not None else None})
+
+    # (a), (b), (c) on bf16 pools
+    reference = Engine(EngineConfig(**ref_cfg), params=model)
+    jet_spec = Engine(EngineConfig(**jet_cfg, **spec), params=model)
+    warm("jetstream_spec", jet_spec)
+    row = spec_parity(reference, {"jetstream_spec": jet_spec},
+                      lambda: spec_parity_requests(tok), "spec_parity")
+    phases.append(row["jetstream_spec"])
+    st = row["jetstream_spec"]["spec"]
+    if not (st["demotions"].get("logprobs") and st["verify_graphs"]["replays"]
+            and row["jetstream_spec"]["variants"].get(
+                f"ragged[decode_q={SPEC_K + 1},no_chunk]")):
+        raise AssertionError(f"spec_parity: no logprobs demotion, graph "
+                             f"replay or verify launch: {row}")
+    window_engine = Engine(EngineConfig(**jet_cfg), params=model)
+    window_engine.warmup()
+    served = serve_spec(jet_spec, window_engine)
+    del window_engine
+    emit({"phase": "serve_spec", **served})
+    phases.append(served["spec"])
+    emit({"phase": "itl_spec_vs_graph_windows",
+          "spec": served["spec"]["requests"]["chat_stream"],
+          "graph_windows": served["graph_windows"]["requests"]["chat_stream"],
+          "acceptance_rate": served["spec"]["spec"]["acceptance_rate"],
+          "tokens_per_verify_step_per_slot":
+              served["spec"]["tokens_per_verify_step_per_slot"]})
+    eager_spec = Engine(EngineConfig(**ref_cfg, **spec), params=model)
+    profiles = []
+    with torch.inference_mode():
+        for eng, steps in ((jet_spec, 4), (eager_spec, 10)):
+            prof = profile_steps(eng, steps)
+            emit({"phase": "profile", "weights": "none", **prof})
+            profiles.append(prof)
+    del eager_spec, jet_spec
+    torch.cuda.empty_cache()
+
+    # (d) int8 pools
+    reference8 = Engine(EngineConfig(**ref_cfg, kv_cache_dtype="int8"),
+                        params=model)
+    jet_spec8 = Engine(EngineConfig(**jet_cfg, **spec, kv_cache_dtype="int8"),
+                       params=model)
+    warm("jetstream_spec_int8", jet_spec8)
+    row = spec_parity(reference8, {"jetstream_spec_int8": jet_spec8},
+                      lambda: spec_parity_requests(tok), "spec_parity_int8")
+    phases.append(row["jetstream_spec_int8"])
+    if not row["jetstream_spec_int8"]["variants"].get(
+            f"ragged_int8[decode_q={SPEC_K + 1},no_chunk]"):
+        raise AssertionError(f"spec_parity_int8: no ragged_int8 verify "
+                             f"launch: {row}")
+    del reference8, jet_spec8
+    torch.cuda.empty_cache()
+
+    # (e) the mixed verify step, bf16 and int8 pools
+    for kv in ("auto", "int8"):
+        eng = Engine(EngineConfig(**jet_cfg, **spec, kv_cache_dtype=kv,
+                                  mixed_batch_tokens=CHUNK),
+                     params=model)
+        warm(f"mixed_spec_{kv}", eng)
+        out = mixed_spec_serve(eng)
+        emit({"phase": "serve_mixed_spec", **out})
+        phases.append(out)
+        del eng
+        torch.cuda.empty_cache()
+
+    # (f) the model drafter: the 8B drafting for itself, then the 1B
+    selfd = Engine(EngineConfig(**jet_cfg, **spec, drafter="model",
+                                draft_model=MODEL),
+                   params=model, draft_params=model)
+    warm("self_draft", selfd)
+    row = spec_parity(reference, {"self_draft": selfd},
+                      lambda: spec_parity_requests(tok, greedy_only=True),
+                      "spec_parity_self_draft")
+    phases.append(row["self_draft"])
+    m = selfd.metrics
+    accept = m.spec_accepted_tokens / max(m.spec_draft_tokens, 1)
+    emit({"phase": "self_draft_acceptance", "acceptance_rate": accept,
+          "limit": SELF_DRAFT_ACCEPT, "drafted": m.spec_draft_tokens,
+          "accepted": m.spec_accepted_tokens,
+          "draft_engine": selfd.draft.stats()})
+    if accept < SELF_DRAFT_ACCEPT:
+        raise AssertionError(f"self-draft acceptance {accept} < "
+                             f"{SELF_DRAFT_ACCEPT}")
+    del selfd
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    small = Engine(EngineConfig(**jet_cfg, **spec, drafter="model",
+                                draft_model=DRAFT_MODEL),
+                   params=model)
+    emit({"phase": "draft_model", "model": DRAFT_MODEL,
+          "seconds": time.monotonic() - t0,
+          "weights_gib": quant.param_bytes(small.draft.model) / 2**30,
+          "pool_pages": small.draft.num_pages})
+    warm("draft_1b", small)
+    row = spec_parity(reference, {"draft_1b": small},
+                      lambda: spec_parity_requests(tok), "spec_parity_draft")
+    phases.append(row["draft_1b"])
+    if not row["draft_1b"]["variants"].get(f"decode[head_dim={DRAFT_D}]"):
+        raise AssertionError(f"the 1B drafter never launched decode at "
+                             f"head_dim {DRAFT_D}: {row}")
+    emit({"phase": "draft_step", "model": DRAFT_MODEL,
+          "draft_steps": small.draft.steps,
+          "acceptance_rate": row["draft_1b"]["spec"]["acceptance_rate"],
+          **draft_step_times(small.draft)})
+    del small, reference
+    torch.cuda.empty_cache()
+    return {"launches": [p["launches"] for p in phases],
+            "variants": [p["variants"] for p in phases],
+            "profiles": profiles}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1579,9 +2191,19 @@ def main() -> int:
     # a checkpoint written here and loaded by model_path, freed afterwards
     ckpt = model_path_checks(eager_cfg, engine.model_cfg, dev)
 
+    # speculative decoding on the bf16 weights (phase 12)
+    del graph_engines
+    torch.cuda.empty_cache()
+    spec = spec_phases(engine, eager_cfg, jet_cfg, tok)
+
     jet_int8 = Engine(EngineConfig(**jet_cfg, quantization="int8"),
                       params=int8_weights)
     jet_int8.warmup()
+    jet_profile = Engine(EngineConfig(**jet_cfg), params=engine.model)
+    jet_profile8 = Engine(EngineConfig(**jet_cfg, kv_cache_dtype="int8"),
+                          params=engine.model)
+    jet_profile.warmup()
+    jet_profile8.warmup()
     with torch.inference_mode():
         # decode steps on bf16 and int8 pools, eager and in graph windows
         # (the mixed engines decode as the classic one does while nothing
@@ -1589,8 +2211,7 @@ def main() -> int:
         # weights, then mixed steps
         for eng, long_prompt, steps in (
                 (engine, 0, 10), (mixed8, 0, 10),
-                (graph_engines["jetstream"], 0, 4),
-                (graph_engines["jetstream_int8"], 0, 4),
+                (jet_profile, 0, 4), (jet_profile8, 0, 4),
                 (jet_w8a8, 0, 4), (jet_int8, 0, 4),
                 (mixed, 4 * CHUNK, 3), (mixed8, 4 * CHUNK, 3)):
             emit({"phase": "profile", "weights": quant.mode_of(eng.model),
@@ -1598,13 +2219,19 @@ def main() -> int:
 
     # launches summed over the served phases, each counted from zero: the
     # classic engine, the mixed engines, the graph-window engines (bf16
-    # and w8a8 weights), the prefix-caching ones (vllm_tpu, trtllm_tpu)
-    # and the checkpoint engine (graph replays included)
+    # and w8a8 weights), the prefix-caching ones (vllm_tpu, trtllm_tpu),
+    # the checkpoint engine and the speculating engines (graph replays
+    # included); the verify windows and head_dim 64 from the speculating
+    # engines' variant counts
     launches = dict.fromkeys(ca.LAUNCHES, 0)
-    for phase in (served, served_mixed[""], served_mixed["_int8"],
-                  served_windows, prefix, served_w8a8, prefix_trt, ckpt):
-        for name, n in phase["launches"].items():
+    for counts in [phase["launches"] for phase in (
+            served, served_mixed[""], served_mixed["_int8"], served_windows,
+            prefix, served_w8a8, prefix_trt, ckpt)] + spec["launches"]:
+        for name, n in counts.items():
             launches[name] += n
+    for counts in spec["variants"]:
+        for name, variant in VARIANTS.items():
+            launches[name] = launches.get(name, 0) + counts.get(variant, 0)
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         row = rows[name]

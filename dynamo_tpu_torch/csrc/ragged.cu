@@ -3,8 +3,10 @@
 // Replaces the TPU kernel `_ragged_kernel` (dynamo_tpu/ops/ragged_attention.py,
 // wrapper `ragged_paged_attention`): ONE call serves a mixed batch of
 // num_decode rows of decode_q queries each (decode_q = 1 for the mixed step;
-// wider rows are the TPU kernel's speculative verify windows) plus one
-// prefill chunk of C queries, all over the same paged pool. Descriptors
+// wider rows are the speculative verify windows, decode_q = K + 1) plus one
+// prefill chunk of C >= 0 queries, all over the same paged pool. C = 0 is a
+// verify step without a chunk: the grid then holds decode blocks only, and
+// the chunk's descriptor row is never read. Descriptors
 // drive everything ragged: tables [R, W] (row r = sequence r's pages,
 // trash-padded; row num_decode is the chunk's), kv_lens [R] (the sequence's
 // horizon, including the tokens written this step) and q_starts [R] (the
@@ -77,7 +79,7 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
                   int split_keys, float scale, void* stream) {
   if (KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
   const int group = H / KV;
-  if (C < 1 || num_decode < 0 || decode_q < 1 || W < 1
+  if (C < 0 || num_decode < 0 || decode_q < 1 || W < 1
       || !tile_fits(group, D) || decode_q * group > kTileRows
       || positions != tile_positions(group)
       || (num_decode > 0 && (part_o == nullptr || part_ml == nullptr)))
@@ -90,6 +92,7 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
   const long long blocks =
       ((long long)num_decode * num_splits + (C + positions - 1) / positions) * KV;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return 0;  // no rows and no chunk: nothing to launch
   const Splits sp{(float*)part_o, (float*)part_ml,
                   (long long)num_decode * decode_q, num_splits, split_keys};
   return with_head_dim(D, [&](auto d) {

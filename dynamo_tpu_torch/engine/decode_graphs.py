@@ -35,8 +35,17 @@ happen only while a graph is captured. The capture's counts are taken out
 of LAUNCHES and kept with the graph (`cuda_attention.counting_capture`),
 and every replay adds them back (`cuda_attention.count_replay`).
 
-On the CPU, and with `enforce_eager`, the same body runs eagerly. On CUDA
-a capture or replay that fails raises: nothing falls back to eager.
+The speculative verify step (`VerifySteps`, the counterpart of the JAX
+engine's jitted `spec_fn`) is one more captured step over the same
+buffers and memory pool, keyed by the sampling gates alone (logprobs
+requests never speculate): `llama.decode_verify` over every slot's
+current token and its K drafts (`DeviceBatch.drafts`, `room`), the
+acceptance of `sampling.verify_accept`, the emitted tokens banked into
+token_counts, and the carry advanced by n_acc + 1 on active slots; its
+outputs are `out_emitted` [B, K1] and `out_nacc` [B].
+
+On the CPU, and with `enforce_eager`, the same bodies run eagerly. On
+CUDA a capture or replay that fails raises: nothing falls back to eager.
 """
 
 from __future__ import annotations
@@ -57,6 +66,10 @@ NUM_TOP = 5  # logprobs alternatives the outputs hold per step
 Forward = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
                    torch.Tensor]
 Gates = Tuple[bool, bool, bool, bool, bool]  # smp.gates()
+# verify_forward(tokens [B, K1], positions [B], tables [B, Pmax], room [B])
+# -> logits [B, K1, V]
+VerifyForward = Callable[[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor], torch.Tensor]
 
 
 def upload(dst: torch.Tensor, arr) -> None:
@@ -71,9 +84,12 @@ def upload(dst: torch.Tensor, arr) -> None:
 
 
 class DeviceBatch:
-    """The decode batch's static device buffers."""
+    """The decode batch's static device buffers; with spec_k > 0 also the
+    verify step's drafts [B, K] and room [B] inputs and its emitted
+    [B, K+1] and n_acc [B] outputs."""
 
-    def __init__(self, b: int, pmax: int, vocab: int, k_max: int, device):
+    def __init__(self, b: int, pmax: int, vocab: int, k_max: int, device,
+                 spec_k: int = 0):
         def z(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -100,11 +116,25 @@ class DeviceBatch:
         self.out_chosen = z(k_max, b, dtype=torch.float32)
         self.out_tids = z(k_max, b, n_top, dtype=torch.int64)
         self.out_tvals = z(k_max, b, n_top, dtype=torch.float32)
+        self.drafts = z(b, spec_k, dtype=torch.int64)
+        self.room = z(b, dtype=torch.bool)
+        self.out_emitted = z(b, spec_k + 1, dtype=torch.int64)
+        self.out_nacc = z(b, dtype=torch.int64)
 
     def carry(self) -> Tuple[torch.Tensor, ...]:
         """The buffers a step reads and advances (not token_counts)."""
         return (self.tokens, self.positions, self.context_lens, self.step,
-                self.tables, self.step_idx)
+                self.tables, self.step_idx, self.drafts, self.room)
+
+    def idle(self) -> None:
+        """Every slot inactive on the trash page, nothing drafted."""
+        self.tokens.zero_()
+        self.positions.zero_()
+        self.context_lens.fill_(1)
+        self.step.zero_()
+        self.tables.zero_()
+        self.drafts.zero_()
+        self.room.zero_()
 
     def sampling_state(self, gates: Gates) -> smp.SamplingState:
         return smp.SamplingState(
@@ -120,32 +150,32 @@ class DeviceBatch:
 
 
 class Readback:
-    """Host copies of a window's outputs: on the card, pinned buffers filled
-    by non-blocking copies and a CUDA event the host waits on; on the CPU,
-    plain copies."""
+    """Host copies of a step's outputs (device buffers `sources`): on the
+    card, pinned buffers filled by non-blocking copies and a CUDA event
+    the host waits on; on the CPU, plain copies."""
 
-    def __init__(self, batch: DeviceBatch):
-        self.batch = batch
-        self._cuda = batch.out_tokens.is_cuda
+    def __init__(self, sources: Tuple[torch.Tensor, ...]):
+        self._src = sources
+        self._cuda = sources[0].is_cuda
         self._host = tuple(torch.empty(t.shape, dtype=t.dtype,
                                        pin_memory=self._cuda)
-                           for t in batch.outputs(True))
+                           for t in sources)
         self._event = torch.cuda.Event() if self._cuda else None
         self._k, self._n = 0, 0
 
-    def start(self, k: int, want_lp: bool) -> None:
-        """Queue the copies of the first k output rows (after the window on
-        the stream)."""
-        src = self.batch.outputs(want_lp)
-        self._k, self._n = k, len(src)
-        for host, dev in zip(self._host, src):
+    def start(self, k: int, n: int) -> None:
+        """Queue the copies of the first k rows of the first n sources
+        (after the step on the stream)."""
+        self._k, self._n = k, n
+        for host, dev in zip(self._host[:n], self._src[:n]):
             host[:k].copy_(dev[:k], non_blocking=self._cuda)
         if self._event is not None:
             self._event.record()
 
     def wait(self) -> Tuple[np.ndarray, ...]:
-        """(tokens [k, B], and with logprobs chosen [k, B], top ids and
-        values [k, B, 5]) once the copies have landed."""
+        """The first k rows of the first n sources once the copies have
+        landed: a window's tokens [k, B], and with logprobs chosen [k, B],
+        top ids and values [k, B, 5]."""
         if self._event is not None:
             self._event.synchronize()
         return tuple(h[:self._k].numpy().copy() for h in self._host[:self._n])
@@ -231,30 +261,110 @@ class DecodeWindows:
     def capture(self, want_lp: bool, gates: Gates) -> CapturedStep:
         """Warm up and capture the step for (want_lp, gates)."""
         t0 = time.monotonic()
+        step = self.capture_body(
+            lambda: self._body(self.decode_forward, want_lp, gates))
+        self.graphs[(want_lp, gates)] = step
+        self.capture_s += time.monotonic() - t0
+        return step
+
+    def capture_body(self, body: Callable[[], None]) -> CapturedStep:
+        """Capture `body` (a step over the batch buffers) into a graph of
+        this batch's pool, after one warm-up pass of it on the capture
+        stream over an idle batch; the live carry is restored after."""
         b = self.batch
         if self._stream is None:
             self._stream = torch.cuda.Stream()
             self._pool = torch.cuda.graph_pool_handle()
         saved = [t.clone() for t in b.carry()]
-        # an idle batch: every slot inactive on the trash page
-        b.tokens.zero_()
-        b.positions.zero_()
-        b.context_lens.fill_(1)
-        b.step.zero_()
-        b.tables.zero_()
+        b.idle()
         self._stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(self._stream):
             b.step_idx.zero_()
-            self._body(self.decode_forward, want_lp, gates)
+            body()
         torch.cuda.current_stream().wait_stream(self._stream)
         graph = torch.cuda.CUDAGraph()
         with cuda_attention.counting_capture() as launches:
             with torch.cuda.graph(graph, pool=self._pool,
                                   stream=self._stream):
-                self._body(self.decode_forward, want_lp, gates)
+                body()
         for t, s in zip(b.carry(), saved):
             t.copy_(s)
-        step = CapturedStep(graph, launches)
-        self.graphs[(want_lp, gates)] = step
+        return CapturedStep(graph, launches)
+
+
+class VerifySteps:
+    """Runs speculative verify steps over a DeviceBatch: a replay of a
+    captured step per sampling-gate tuple on the card (in the decode
+    windows' memory pool), the same body eagerly on the CPU or with
+    `eager`."""
+
+    def __init__(self, windows: DecodeWindows, verify_forward: VerifyForward):
+        self.windows = windows
+        self.batch = windows.batch
+        self.verify_forward = verify_forward
+        self.eager = windows.eager
+        self.graphs: Dict[Gates, CapturedStep] = {}
+        self.capture_s = 0.0
+        self.steps = 0
+        self.replays = 0
+
+    def stats(self) -> dict:
+        return {"eager": self.eager, "graphs": len(self.graphs),
+                "capture_s": self.capture_s, "steps": self.steps,
+                "replays": self.replays}
+
+    def _body(self, forward: VerifyForward, gates: Gates) -> None:
+        """One verify step over the batch buffers (JAX `spec_fn` and its
+        `_spec_accept` tail)."""
+        b = self.batch
+        k1 = b.drafts.shape[1] + 1
+        tokens = torch.cat([b.tokens[:, None], b.drafts], dim=1)
+        logits = forward(tokens, b.positions, b.tables, b.room)
+        state = b.sampling_state(gates)
+        active = b.step > 0
+        eligible = ((b.presence == 0.0) & (b.frequency == 0.0) & b.room
+                    & active)
+        emitted, n_acc = smp.verify_accept(logits, b.drafts, state,
+                                           b.slot_keys, b.positions,
+                                           eligible, b.token_counts)
+        j = torch.arange(k1, device=n_acc.device)
+        emit = (j[None, :] <= n_acc[:, None]) & active[:, None]
+        b.token_counts.index_put_(
+            (b.rows.repeat_interleave(k1), emitted.reshape(-1)),
+            emit.reshape(-1).to(b.token_counts.dtype), accumulate=True)
+        last = emitted.gather(1, n_acc[:, None])[:, 0]
+        b.tokens.copy_(torch.where(active, last, b.tokens))
+        step = torch.where(active, n_acc + 1,
+                           torch.zeros_like(n_acc)).to(b.positions.dtype)
+        b.positions += step
+        b.context_lens += step
+        b.out_emitted.copy_(emitted)
+        b.out_nacc.copy_(n_acc)
+
+    def run(self, gates: Gates) -> None:
+        """Queue one verify step; its outputs land in out_emitted and
+        out_nacc."""
+        self.steps += 1
+        if self.eager:
+            self._body(self.verify_forward, gates)
+            return
+        step = self.graphs.get(gates)
+        if step is None:
+            step = self.capture(gates)
+        step.replay()
+        self.replays += 1
+
+    def run_eager(self, forward: VerifyForward, gates: Gates) -> None:
+        """One verify step with another forward (the mixed verify step),
+        always eager."""
+        self.steps += 1
+        self._body(forward, gates)
+
+    def capture(self, gates: Gates) -> CapturedStep:
+        """Warm up and capture the verify step for `gates`."""
+        t0 = time.monotonic()
+        step = self.windows.capture_body(
+            lambda: self._body(self.verify_forward, gates))
+        self.graphs[gates] = step
         self.capture_s += time.monotonic() - t0
         return step

@@ -38,6 +38,18 @@ Port of the aggregated-serving core of `dynamo_tpu/engine/engine.py`:
 - Weights from a local safetensors checkpoint (`model_path`, whose
   config.json also gives the ModelConfig) or seeded random init, float or
   int8 (`quantization`: "int8" weight-only or "w8a8"; `models.quant`).
+- Speculative decoding (`speculative_mode` "ngram" or "model"): each
+  decode step becomes one verify step (`llama.decode_verify`, a CUDA
+  graph on the card: `decode_graphs.VerifySteps`) over every slot's
+  current token and K drafts, from prompt lookup (`_propose_ngram`) or a
+  draft model (`speculation.DraftEngine`), with an optional per-slot
+  `AdaptiveK`; `sampling.verify_accept` keeps the longest prefix of drafts
+  the sampling chain draws, so each slot emits 1 to K+1 tokens and the
+  streams are those of spec-off decoding. With a chunk in flight in mixed
+  mode the verify windows ride the ragged step (`llama.mixed_verify_step`,
+  eager). Logprobs requests demote the step to plain decode; penalized
+  slots and slots without room for the window emit one token, each
+  demotion counted by reason.
 - Stops (stop ids, model eos unless `ignore_eos`, `max_tokens`,
   `max_seq_len`), aborts, logprobs, OutOfPages deferral at admission and
   preemption by recompute when decode runs out of pages.
@@ -69,6 +81,7 @@ from dynamo_tpu_torch.engine.decode_graphs import (
     DecodeWindows,
     DeviceBatch,
     Readback,
+    VerifySteps,
     upload,
 )
 from dynamo_tpu_torch.engine.kv_cache import (
@@ -82,6 +95,7 @@ from dynamo_tpu_torch.engine.kv_cache import (
 from dynamo_tpu_torch.engine.request import GenRequest, TokenEvent
 from dynamo_tpu_torch.models import llama, loader, quant
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.speculation import AdaptiveK, DraftEngine
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
 
@@ -100,7 +114,6 @@ def resolve_device(device=None) -> torch.device:
 def unported_settings(cfg: EngineConfig) -> List[str]:
     """EngineConfig fields set to something the port does not serve."""
     checks = [
-        ("speculative_mode", cfg.speculative_mode != "off"),
         ("lora_slots", cfg.lora_slots > 0),
         ("kvbm_host_blocks", cfg.kvbm_host_blocks > 0),
         ("tensor_parallel", cfg.tensor_parallel > 1),
@@ -151,6 +164,39 @@ def _pack_logit_bias(req: GenRequest):
     return ids, vals
 
 
+def check_spec_config(cfg: EngineConfig) -> None:
+    """The JAX engine's speculative-decoding gates, with its messages: K
+    bounds the verify window (K+1 queries must fit one KV page and one
+    ragged query block), the proposer needs a pattern token, and a draft
+    pool must hold one window."""
+    if cfg.speculative_mode == "off":
+        return
+    k = cfg.num_speculative_tokens
+    if k <= 0:
+        raise ValueError(
+            f"--num-speculative-tokens must be >= 1 when "
+            f"--speculative-mode is on (got {k})")
+    if k >= cfg.page_size:
+        raise ValueError(
+            f"--num-speculative-tokens ({k}) must be < --page-size "
+            f"({cfg.page_size}): the K+1-token verify window must "
+            f"fit one KV page / ragged query block")
+    if cfg.ngram_lookup < 1:
+        raise ValueError(
+            f"--ngram-lookup must be >= 1 (got {cfg.ngram_lookup})")
+    if cfg.drafter not in ("ngram", "model"):
+        raise ValueError(
+            f"--drafter must be 'ngram' or 'model' (got "
+            f"{cfg.drafter!r})")
+    if ("model" in (cfg.speculative_mode, cfg.drafter)
+            and cfg.resolved_draft_pages() < k + 1):
+        raise ValueError(
+            f"--draft-num-pages ({cfg.resolved_draft_pages()}) must "
+            f"be >= K+1 ({k + 1}): one verify window drafts K "
+            f"tokens plus the bonus position and must fit the "
+            f"draft pool even before its LRU arm can shed slots")
+
+
 def _next_bucket(n: int, page_size: int, max_len: int) -> int:
     """Smallest power-of-two multiple of page_size >= n (capped at max_len
     rounded up to a page multiple)."""
@@ -161,21 +207,103 @@ def _next_bucket(n: int, page_size: int, max_len: int) -> int:
     return min(b, cap)
 
 
+# accepted drafts per speculating slot per verify step: the JAX engine's
+# histogram edges (K < page_size keeps them small)
+SPEC_EDGES = (0, 1, 2, 3, 4, 6, 8)
+
+
+def _bucketize(buckets: List[int], n: int) -> None:
+    for i, edge in enumerate(SPEC_EDGES):
+        if n <= edge:
+            buckets[i] += 1
+            return
+    buckets[-1] += 1
+
+
 @dataclasses.dataclass
 class EngineMetrics:
     num_requests: int = 0
     num_finished: int = 0
     prompt_tokens: int = 0
     output_tokens: int = 0
-    decode_steps: int = 0
+    decode_steps: int = 0  # a verify step counts as one
     prefill_time_s: float = 0.0
     decode_time_s: float = 0.0
     kv_oom: int = 0
     num_preempted: int = 0
     mixed_count: int = 0  # mixed steps (each also counts as a decode step)
+    # speculative decoding, as the JAX engine books it: drafts offered and
+    # accepted (the bonus token counts in neither), accepted drafts per
+    # speculating slot per verify step (SPEC_EDGES buckets), the same per
+    # drafter, verify steps, those that rode the mixed step, and the
+    # demotions to one token per step by reason
+    spec_draft_tokens: int = 0
+    spec_accepted_tokens: int = 0
+    spec_accept_buckets: List[int] = dataclasses.field(
+        default_factory=lambda: [0] * (len(SPEC_EDGES) + 1))
+    spec_accept_sum: int = 0
+    spec_accept_count: int = 0
+    spec_draft_by: Dict[str, int] = dataclasses.field(default_factory=dict)
+    spec_accepted_by: Dict[str, int] = dataclasses.field(
+        default_factory=dict)
+    spec_hist_by: Dict[str, List[int]] = dataclasses.field(
+        default_factory=dict)
+    spec_sum_by: Dict[str, int] = dataclasses.field(default_factory=dict)
+    spec_count_by: Dict[str, int] = dataclasses.field(default_factory=dict)
+    spec_verify_steps: int = 0
+    mixed_spec_count: int = 0
+    spec_demotions: Dict[str, int] = dataclasses.field(default_factory=dict)
 
-    def snapshot(self) -> Dict[str, float]:
-        return dataclasses.asdict(self)
+    def observe_spec_accept(self, n_acc: int,
+                            drafter: Optional[str] = None) -> None:
+        """One speculating slot's accepted-draft count for one verify
+        step, also filed under its drafter."""
+        _bucketize(self.spec_accept_buckets, n_acc)
+        self.spec_accept_sum += n_acc
+        self.spec_accept_count += 1
+        if drafter is not None:
+            _bucketize(self.spec_hist_by.setdefault(
+                drafter, [0] * (len(SPEC_EDGES) + 1)), n_acc)
+            self.spec_sum_by[drafter] = (
+                self.spec_sum_by.get(drafter, 0) + n_acc)
+            self.spec_count_by[drafter] = (
+                self.spec_count_by.get(drafter, 0) + 1)
+
+    def add_spec_tokens(self, drafted: int, accepted: int,
+                        drafter: Optional[str] = None) -> None:
+        """One verify step's draft and accept totals."""
+        self.spec_draft_tokens += drafted
+        self.spec_accepted_tokens += accepted
+        if drafter is not None:
+            self.spec_draft_by[drafter] = (
+                self.spec_draft_by.get(drafter, 0) + drafted)
+            self.spec_accepted_by[drafter] = (
+                self.spec_accepted_by.get(drafter, 0) + accepted)
+
+    def demote(self, reason: str) -> None:
+        self.spec_demotions[reason] = self.spec_demotions.get(reason, 0) + 1
+
+    def snapshot(self) -> Dict[str, object]:
+        out = {k: v for k, v in dataclasses.asdict(self).items()
+               if k not in ("spec_accept_buckets", "spec_draft_by",
+                            "spec_accepted_by", "spec_hist_by",
+                            "spec_sum_by", "spec_count_by")}
+        out["spec_accept_mean"] = (
+            round(self.spec_accept_sum / self.spec_accept_count, 4)
+            if self.spec_accept_count else 0.0)
+        out["spec_by_drafter"] = {
+            d: {"draft_tokens": self.spec_draft_by.get(d, 0),
+                "accepted_tokens": self.spec_accepted_by.get(d, 0),
+                "acceptance_rate": (
+                    round(self.spec_accepted_by.get(d, 0)
+                          / self.spec_draft_by[d], 4)
+                    if self.spec_draft_by.get(d) else 0.0),
+                "accept_mean": (
+                    round(self.spec_sum_by.get(d, 0) / self.spec_count_by[d],
+                          4) if self.spec_count_by.get(d) else 0.0)}
+            for d in sorted(set(self.spec_draft_by)
+                            | set(self.spec_count_by))}
+        return out
 
 
 class InflightPrefill:
@@ -198,18 +326,21 @@ class Engine:
 
     def __init__(self, cfg: EngineConfig,
                  model_cfg: Optional[ModelConfig] = None, params=None,
-                 device=None):
+                 device=None, draft_params=None):
         """`params`: None (the checkpoint under cfg.model_path, else random
         init from cfg.seed; `models.loader.load_or_init`), a
         `models.llama.Llama` on `device` whose quantization mode is
         cfg.quantization's, or a JAX parameter tree of numpy arrays, float
         or quantized (carried across by `models.loader.from_jax_params`,
-        which quantizes a float tree when cfg.quantization asks)."""
+        which quantizes a float tree when cfg.quantization asks).
+        `draft_params`: the draft model's weights for the model drafter,
+        the same kinds (None: `speculation.DraftEngine` loads them)."""
         bad = unported_settings(cfg)
         if bad:
             raise NotImplementedError(
                 f"EngineConfig field(s) {bad} are not ported to "
                 f"dynamo_tpu_torch yet (see ROADMAP.md)")
+        check_spec_config(cfg)
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -289,13 +420,34 @@ class Engine:
         self.bias_ids = np.full((b, smp.BIAS_K), -1, np.int64)
         self.bias_vals = np.zeros((b, smp.BIAS_K), np.float32)
         self.slot_keys = np.zeros((b,), np.int64)  # sampling chain roots
+        spec_k = (cfg.num_speculative_tokens
+                  if cfg.speculative_mode != "off" else 0)
         self.batch = DeviceBatch(b, pmax, model_cfg.vocab_size,
-                                 max(1, cfg.num_scheduler_steps), self.device)
+                                 max(1, cfg.num_scheduler_steps), self.device,
+                                 spec_k=spec_k)
         # output-token counts for presence/frequency penalties [B, V]
         self.token_counts = self.batch.token_counts
         self.windows = DecodeWindows(
             self.batch, self._decode_forward,
             eager=self.device.type != "cuda" or cfg.enforce_eager)
+        # speculative decoding: the verify step, its readback, the
+        # proposer (drafter_name labels the spec metrics) and the adaptive
+        # window controller
+        self.verify: Optional[VerifySteps] = None
+        self.drafter_name: Optional[str] = None
+        self.draft = None
+        self._adaptive = None
+        if spec_k:
+            self.verify = VerifySteps(self.windows, self._verify_forward)
+            self._spec_readback = Readback((self.batch.out_emitted,
+                                            self.batch.out_nacc))
+            self.drafter_name = ("model" if "model" in (cfg.speculative_mode,
+                                                        cfg.drafter)
+                                 else "ngram")
+            if self.drafter_name == "model":
+                self.draft = DraftEngine(self, draft_params)
+            if cfg.spec_adaptive_k:
+                self._adaptive = AdaptiveK(spec_k)
         self._dev_state_ok = False  # tokens, positions, contexts, step
         self._dev_tables_ok = False
         self._dev_sampling_ok = False
@@ -305,7 +457,8 @@ class Engine:
         # dispatched but unread decode window (async scheduling): (window,
         # readback, want_lp, dispatch seconds, slots at dispatch)
         self._pending_win = None
-        self._readbacks = (Readback(self.batch), Readback(self.batch))
+        self._readbacks = (Readback(self.batch.outputs(True)),
+                           Readback(self.batch.outputs(True)))
         self._next_readback = 0
         self.seqs: Dict[int, SeqState] = {}
         self._free_slots = list(range(b - 1, -1, -1))
@@ -319,8 +472,10 @@ class Engine:
 
     def warmup(self) -> None:
         """Build the attention kernels and capture the greedy decode steps
-        (with and without logprobs) before serving, on the card; the eager
-        prefills have nothing to compile. Needs an idle engine."""
+        (with and without logprobs), and with speculation the greedy
+        verify step and the draft model's step, before serving, on the
+        card; the eager prefills have nothing to compile. Needs an idle
+        engine."""
         if self.device.type != "cuda":
             return
         if self.has_work:
@@ -336,12 +491,21 @@ class Engine:
             for want_lp in (False, True):
                 if (want_lp, greedy) not in self.windows.graphs:
                     self.windows.capture(want_lp, greedy)
+            if self.verify is not None and greedy not in self.verify.graphs:
+                self.verify.capture(greedy)
+            if self.draft is not None and self.draft._graph is None:
+                self.draft.capture()
             torch.cuda.synchronize(self.device)
 
     def _decode_forward(self, tokens, positions, tables, ctx):
         return llama.decode_step(self.model, tokens, positions, tables, ctx,
                                  self.k_pages, self.v_pages,
                                  page_size=self.cfg.page_size)
+
+    def _verify_forward(self, tokens, positions, tables, room):
+        return llama.decode_verify(self.model, tokens, positions, tables,
+                                   room, self.k_pages, self.v_pages,
+                                   page_size=self.cfg.page_size)
 
     def validate_request(self, req: GenRequest) -> None:
         """Raise ValueError if the request can never be served here."""
@@ -412,15 +576,25 @@ class Engine:
         abort_request synchronise through _lock."""
         with self._exec_lock, torch.inference_mode():
             events = self._apply_aborts()
+            spec = self.verify is not None
             if self._mixed_eligible():
-                events.extend(self._mixed_step())
+                # with speculation the verify windows ride the mixed step,
+                # unless a logprobs request demotes it to the plain one
+                if spec and not self._any_logprobs():
+                    events.extend(self._mixed_spec_step())
+                else:
+                    if spec:
+                        self.metrics.demote("logprobs")
+                    events.extend(self._mixed_step())
                 return events
             if self._inflight is not None:
                 events.extend(self._advance_chunk())
             else:
                 events.extend(self._admit())
             if self.seqs:
-                if self.cfg.async_scheduling:
+                if spec:
+                    events.extend(self._decode_spec())
+                elif self.cfg.async_scheduling:
                     events.extend(self._decode_async())
                 else:
                     events.extend(self._decode_once())
@@ -1056,13 +1230,17 @@ class Engine:
                                     self.min_p, self.bias_ids)
             self._dev_sampling_ok = True
 
-    def _check_window_pages(self, window: int, offset: int) -> None:
+    def _check_window_pages(self, window: int, offset: int,
+                            room=None) -> None:
         """A window writes only pages its sequence owns alone: shared
-        (prefix-cached) pages hold full prompt pages before every write."""
+        (prefix-cached) pages hold full prompt pages before every write.
+        With `room` [B] (a verify step), a slot without room writes one
+        token."""
         ps = self.cfg.page_size
-        for seq in self.seqs.values():
+        for slot, seq in self.seqs.items():
             first = seq.num_tokens + offset
-            for idx in range(first // ps, (first + window - 1) // ps + 1):
+            span = window if room is None or room[slot] else 1
+            for idx in range(first // ps, (first + span - 1) // ps + 1):
                 page = seq.pages[idx]
                 if self.allocator.refs(page) != 1:
                     raise AssertionError(
@@ -1084,7 +1262,7 @@ class Engine:
             self.windows.run_eager(forward, want_lp, self._gates)
         rb = self._readbacks[self._next_readback]
         self._next_readback ^= 1
-        rb.start(window, want_lp)
+        rb.start(window, 4 if want_lp else 1)
         # membership at dispatch: a slot installed later does not consume
         # this window's rows
         self._pending_win = (window, rb, want_lp, time.monotonic() - t0,
@@ -1112,21 +1290,25 @@ class Engine:
             if seq is None:  # finished or aborted since dispatch
                 continue
             for k in range(window):
-                tok = int(next_np[k, slot])
-                seq.num_tokens += 1  # the attended token is now cached
-                seq.output_tokens.append(tok)
-                self.metrics.output_tokens += 1
-                finished, reason = self._check_stop(seq, tok)
-                ev = TokenEvent(seq.request_id, tok,
-                                len(seq.output_tokens) - 1, finished, reason)
+                ev = self._emit_token(seq, int(next_np[k, slot]))
                 if want_lp and seq.logprobs is not None:
                     self._decorate_lp(ev, seq, out[1][k, slot],
                                       out[2][k, slot], out[3][k, slot])
                 events.append(ev)
-                if finished:
-                    self._finish_slot(slot, reason)
+                if ev.finished:
+                    self._finish_slot(slot, ev.finish_reason)
                     break
         return events
+
+    def _emit_token(self, seq: SeqState, tok: int) -> TokenEvent:
+        """A decoded token: the token it attended is now cached; append it
+        and stop-check it."""
+        seq.num_tokens += 1
+        seq.output_tokens.append(tok)
+        self.metrics.output_tokens += 1
+        finished, reason = self._check_stop(seq, tok)
+        return TokenEvent(seq.request_id, tok, len(seq.output_tokens) - 1,
+                          finished, reason)
 
     def _check_stop(self, seq: SeqState, token: int):
         if token in seq.stop_token_ids:
@@ -1154,5 +1336,208 @@ class Engine:
         self.min_p[slot] = 0.0
         self.bias_ids[slot] = -1
         self.bias_vals[slot] = 0.0
+        # the draft pool's pages and the adaptive window key on the decode
+        # slot: every way out clears them before the slot's next tenant
+        if self.draft is not None:
+            self.draft.release(slot)
+        if self._adaptive is not None:
+            self._adaptive.reset(slot)
         self._free_slots.append(slot)
         self.metrics.num_finished += 1
+
+    # -------------------------------------------------------- speculation --
+
+    def _any_logprobs(self) -> bool:
+        return any(s.logprobs is not None for s in self.seqs.values())
+
+    def _propose_ngram(self, seq: SeqState) -> List[int]:
+        """Prompt-lookup drafts: match the last `ngram_lookup` tokens of
+        the history (prompt + output) against earlier history and propose
+        the continuation of the most recent match, else repeat the last
+        token."""
+        cfg = self.cfg
+        k = cfg.num_speculative_tokens
+        hist = seq.prompt_ids + seq.output_tokens
+        n = max(1, cfg.ngram_lookup)
+        if len(hist) > n:
+            pat = hist[-n:]
+            for i in range(len(hist) - n - 1, -1, -1):
+                if hist[i:i + n] == pat:
+                    cont = hist[i + n:i + n + k]
+                    if cont:
+                        return (cont + [hist[-1]] * k)[:k]
+                    break
+        return [hist[-1] if hist else 0] * k
+
+    def _spec_demoted(self) -> bool:
+        """Batch-wide demotion of a verify step to the plain decode path,
+        counted: a logprobs request (per-position logprobs are not read
+        out of the verify step). Guided requests, the JAX engine's other
+        reason, are refused by validate_request."""
+        if self._any_logprobs():
+            self.metrics.demote("logprobs")
+            return True
+        return False
+
+    def _spec_drafts(self, got: int):
+        """Drafts for every slot whose acceptance can be nonzero: not
+        penalized (its counts would go stale mid-window), with pages and
+        limits for K+1 tokens ahead (`got` == K+1 from _grow_pages), and
+        served by the draft pool; each demotion counted by reason.
+        -> (drafts [B, K], room [B], nreal [B]): nreal real drafts per
+        slot (< K under adaptive K; the row is padded by repeating the
+        last real draft)."""
+        cfg = self.cfg
+        k = cfg.num_speculative_tokens
+        k1 = k + 1
+        limit = min(cfg.max_seq_len, cfg.max_pages_per_seq * cfg.page_size)
+        drafts = np.zeros((cfg.max_num_seqs, k), np.int64)
+        room = np.zeros((cfg.max_num_seqs,), np.bool_)
+        nreal = np.zeros((cfg.max_num_seqs,), np.int64)
+        for slot, seq in self.seqs.items():
+            if self.presence[slot] != 0.0 or self.frequency[slot] != 0.0:
+                self.metrics.demote("penalties")
+                continue
+            if not (got == k1 and seq.num_tokens + k1 <= limit
+                    and len(seq.pages) * cfg.page_size
+                    >= seq.num_tokens + k1):
+                self.metrics.demote("page_shortfall")
+                continue
+            k_s = (self._adaptive.k(slot) if self._adaptive is not None
+                   else k)
+            if self.draft is not None:
+                prop = self.draft.propose(seq, k_s)
+                if prop is None:
+                    self.metrics.demote("draft_pool")
+                    continue
+            else:
+                prop = self._propose_ngram(seq)[:k_s]
+            room[slot] = True
+            nreal[slot] = len(prop)
+            drafts[slot] = (prop + [prop[-1]] * k)[:k]
+        return drafts, room, nreal
+
+    def _spec_feedback(self, slots, room, nreal, nacc) -> None:
+        """Drafter-labelled draft and accept books, acceptance lengths and
+        the adaptive controller's feedback; acceptances are clamped to
+        each slot's real drafts."""
+        drafted = accepted = 0
+        for s in slots:
+            if not room[s]:
+                continue
+            n_real = int(nreal[s])
+            acc = min(int(nacc[s]), n_real)
+            drafted += n_real
+            accepted += acc
+            self.metrics.observe_spec_accept(acc, drafter=self.drafter_name)
+            if self._adaptive is not None:
+                self._adaptive.update(s, acc, n_real)
+        self.metrics.add_spec_tokens(drafted, accepted,
+                                     drafter=self.drafter_name)
+
+    def _run_verify(self, drafts, room, forward=None):
+        """Dispatch one verify step over the device batch (the captured
+        one, or with `forward` the mixed verify forward, eagerly) and read
+        back what it emitted: (emitted [B, K1], n_acc [B])."""
+        t0 = time.monotonic()
+        self._ensure_dev_state()
+        self._check_window_pages(self.cfg.num_speculative_tokens + 1, 0,
+                                 room)
+        upload(self.batch.drafts, drafts)
+        upload(self.batch.room, room)
+        if forward is None:
+            self.verify.run(self._gates)
+        else:
+            self.verify.run_eager(forward, self._gates)
+        rb = self._spec_readback
+        rb.start(self.cfg.max_num_seqs, 2)
+        emitted, nacc = rb.wait()
+        self.metrics.decode_steps += 1
+        self.metrics.spec_verify_steps += 1
+        self.metrics.decode_time_s += time.monotonic() - t0
+        return emitted, nacc
+
+    def _emit_verified(self, slots, emitted, nacc) -> List[TokenEvent]:
+        """Stop-check the tokens each slot emitted: a slot's tokens after
+        its stop are discarded (finishing the slot invalidates the
+        advanced device carry)."""
+        events: List[TokenEvent] = []
+        for slot in slots:
+            seq = self.seqs.get(slot)
+            if seq is None:
+                continue
+            for j in range(int(nacc[slot]) + 1):
+                ev = self._emit_token(seq, int(emitted[slot, j]))
+                events.append(ev)
+                if ev.finished:
+                    self._finish_slot(slot, ev.finish_reason)
+                    break
+        return events
+
+    def _decode_spec(self) -> List[TokenEvent]:
+        """One speculative decode step: a verify step emits 1..K+1 tokens
+        per speculating slot. A logprobs request demotes the step to the
+        plain decode path, and so does a batch where nothing drafted (the
+        verify forward would cost K+1 rows per slot for one token each)."""
+        if self._spec_demoted():
+            return self._decode_once()
+        # the verify step extends the device carry: drain a window in
+        # flight first
+        events = self._materialize_pending()
+        k1 = self.cfg.num_speculative_tokens + 1
+        got = self._grow_pages(k1, events)
+        if not self.seqs:
+            return events
+        drafts, room, nreal = self._spec_drafts(got)
+        if not room.any():
+            events.extend(self._decode_once())
+            return events
+        slots = list(self.seqs)
+        emitted, nacc = self._run_verify(drafts, room)
+        self._spec_feedback(slots, room, nreal, nacc)
+        events.extend(self._emit_verified(slots, emitted, nacc))
+        return events
+
+    def _mixed_spec_step(self) -> List[TokenEvent]:
+        """One mixed step with speculation: every decode slot runs its
+        verify window and the inflight prefill's next chunk rides the same
+        forward (`llama.mixed_verify_step`, eager like _mixed_step), run
+        even when no slot drafted; on the final chunk the first token
+        comes from the same forward's last-row logits."""
+        inf = self._inflight
+        cfg = self.cfg
+        events = self._materialize_pending()
+        got = self._grow_pages(cfg.num_speculative_tokens + 1, events)
+        if not self.seqs:
+            # page pressure emptied the batch: the chunk still has its
+            # reserved pages, so it advances on the classic path
+            events.extend(self._advance_chunk())
+            return events
+        drafts, room, nreal = self._spec_drafts(got)
+        c = cfg.mixed_batch_tokens
+        start = inf.done
+        take = min(c, inf.prompt_len - start)
+        chunk = np.zeros((c,), np.int64)
+        chunk[:take] = inf.req.prompt_token_ids[start:start + take]
+        chunk_dev = self._tensor(chunk)
+        chunk_logits = []
+
+        def forward(tokens, positions, tables, room_dev):
+            logits, last = llama.mixed_verify_step(
+                self.model, tokens, positions, tables, room_dev, chunk_dev,
+                start, take, inf.pages_dev, self.k_pages, self.v_pages,
+                page_size=cfg.page_size)
+            chunk_logits.append(last)
+            return logits
+
+        slots = list(self.seqs)
+        emitted, nacc = self._run_verify(drafts, room, forward)
+        self._spec_feedback(slots, room, nreal, nacc)
+        events.extend(self._emit_verified(slots, emitted, nacc))
+        inf.done += take
+        self.metrics.mixed_count += 1
+        self.metrics.mixed_spec_count += 1
+        if inf.done < inf.prompt_len:
+            return events
+        events.append(self._install_inflight(chunk_logits[0]))
+        return events

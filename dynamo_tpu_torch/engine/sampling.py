@@ -232,3 +232,40 @@ def sample_with_logprobs(logits: torch.Tensor, state: SamplingState,
     chosen = logp.gather(1, tokens[:, None])[:, 0]
     top_vals, top_ids = logp.topk(min(num_top, logp.shape[-1]), dim=-1)
     return tokens, chosen, top_ids, top_vals
+
+
+def verify_accept(logits: torch.Tensor, drafts: torch.Tensor,
+                  state: SamplingState, keys: torch.Tensor,
+                  positions: torch.Tensor, eligible: torch.Tensor,
+                  counts: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Longest-prefix draft acceptance that replays the sequential chain
+    (`dynamo_tpu.engine.sampling.verify_accept`). logits [B, K1, V] at
+    every window position, drafts [B, K], keys [B] chain roots (not row
+    keys), positions [B] of each window's first row, eligible [B] bool ->
+    (emitted [B, K1], n_acc [B]); `emitted[b, :n_acc[b] + 1]` are the
+    tokens slot b produces.
+
+    Row 0 is sampled with `counts`, exactly as a decode step samples its
+    token. Row j of slot b is sampled with the row key of position
+    positions[b] + j, the key a decode step at that position would use,
+    without counts (a counts snapshot goes stale as tokens are accepted,
+    so penalized slots must be ineligible). A draft is accepted iff the
+    chain draws it, so greedy and seeded streams are the same with
+    speculation on or off. Everything stays on the device: no host sync,
+    so it runs inside a captured graph."""
+    b, k1, v = logits.shape
+    keys = _as_keys(keys, logits.device)
+    positions = positions.to(logits.device, torch.int64)
+    t0 = sample(logits[:, 0], state, fold_positions(keys, positions), counts)
+    rep = SamplingState(*(f.repeat_interleave(k1, dim=0) for f in state[:8]),
+                        *state[8:])
+    pos_grid = (positions[:, None]
+                + torch.arange(k1, device=logits.device)[None, :]).reshape(-1)
+    grid_keys = fold_positions(keys.repeat_interleave(k1), pos_grid)
+    grid = sample(logits.reshape(b * k1, v), rep, grid_keys).reshape(b, k1)
+    emitted = torch.cat([t0[:, None], grid[:, 1:]], dim=1)
+    match = (drafts.to(emitted.dtype) == emitted[:, :-1]).to(torch.int64)
+    n_acc = torch.where(eligible, match.cumprod(dim=1).sum(dim=1),
+                        torch.zeros_like(match[:, 0]))
+    return emitted, n_acc

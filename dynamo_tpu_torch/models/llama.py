@@ -288,3 +288,99 @@ def mixed_step(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
         x = _layer(cfg, layer, x, rope, attend)
     logits = _logits(model, torch.cat([x[:b], x[b + chunk_len - 1][None]]))
     return logits[:b], logits[b]
+
+
+def _verify_rows(positions: torch.Tensor, block_tables: torch.Tensor,
+                 room: torch.Tensor, k1: int):
+    """The room contract of a verify window's KV writes (JAX
+    `decode_verify`): row j of slot b writes position positions[b] + j
+    through the slot's table, except that the draft rows (j >= 1) of a
+    slot without room go to the trash page at position 0. Room is what
+    keeps every write inside the block table: torch indexing past the
+    table raises, and inside a graph replay that device-side assert
+    poisons the CUDA context. -> (positions [B*K1] int64, tables
+    [B*K1, Pmax])."""
+    dev = positions.device
+    j = torch.arange(k1, device=dev)
+    pos = positions.long()[:, None] + j[None, :]
+    valid = ((j[None, :] == 0) | room.to(dev)[:, None]).reshape(-1)
+    pos = pos.reshape(-1)
+    pos = torch.where(valid, pos, torch.zeros_like(pos))
+    tables = torch.where(valid[:, None],
+                         block_tables.repeat_interleave(k1, dim=0),
+                         torch.zeros_like(block_tables[:1]))
+    return pos, tables
+
+
+def decode_verify(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
+                  block_tables: torch.Tensor, room: torch.Tensor,
+                  k_pages: torch.Tensor, v_pages: torch.Tensor, *,
+                  page_size: int, attn: att.AttentionFns = att.DISPATCH
+                  ) -> torch.Tensor:
+    """The speculative verify step (JAX `decode_verify`): tokens [B, K1],
+    each slot's current token and K drafts, at positions [B] + j, through
+    one forward -> logits [B, K1, V] at every window position. The K1
+    tokens' KV is written before attention (`_verify_rows`: a slot
+    without room [B] writes only its current token); rejected drafts
+    leave KV past the accepted context, which later steps mask and
+    overwrite."""
+    cfg = model.cfg
+    b, k1 = tokens.shape
+    flat_pos, flat_tables = _verify_rows(positions, block_tables, room, k1)
+    rope = _rope(cfg, flat_pos)
+    x = _embed_rows(model, tokens.reshape(b * k1))
+    for l, layer in enumerate(model.layers):
+        kp, vp = k_pages[l], v_pages[l]
+
+        def attend(q, k, v):
+            att.write_kv_token(kp, vp, k, v, flat_tables, flat_pos,
+                               page_size=page_size)
+            o = attn.verify(q.view(b, k1, *q.shape[1:]), kp, vp,
+                            block_tables, positions, page_size=page_size,
+                            num_kv_heads=cfg.cache_kv_heads)
+            return o.reshape(b * k1, *o.shape[2:])
+
+        x = _layer(cfg, layer, x, rope, attend)
+    return _logits(model, x).view(b, k1, -1)
+
+
+def mixed_verify_step(model: Llama, tokens: torch.Tensor,
+                      positions: torch.Tensor, block_tables: torch.Tensor,
+                      room: torch.Tensor, chunk_tokens: torch.Tensor,
+                      chunk_start: int, chunk_len: int,
+                      chunk_pages: torch.Tensor, k_pages: torch.Tensor,
+                      v_pages: torch.Tensor, *, page_size: int,
+                      attn: att.AttentionFns = att.DISPATCH):
+    """ONE ragged step where every decode slot runs its verify window and
+    one prefill chunk makes progress (JAX `mixed_verify_step`). The rows
+    are windows first, [B*K1 verify rows | C chunk rows]; the verify rows
+    are decode_verify's (its room contract), the chunk is mixed_step's,
+    and one ragged attention (decode_q = K1) serves both per layer.
+    -> (logits [B, K1, V], logits [V] at the chunk's last valid token)."""
+    cfg = model.cfg
+    b, k1 = tokens.shape
+    n, c = b * k1, chunk_tokens.shape[0]
+    dev = tokens.device
+    flat_pos, flat_tables = _verify_rows(positions, block_tables, room, k1)
+    rope = _rope(cfg, torch.cat([flat_pos,
+                                 chunk_start + torch.arange(c, device=dev)]))
+    first = chunk_start // page_size
+    write_pages = chunk_pages[first:first + c // page_size]
+    x = _embed_rows(model, torch.cat([tokens.reshape(n).long(),
+                                      chunk_tokens.long()]))
+    for l, layer in enumerate(model.layers):
+        kp, vp = k_pages[l], v_pages[l]
+
+        def attend(q, k, v):
+            att.write_kv_token(kp, vp, k[:n], v[:n], flat_tables, flat_pos,
+                               page_size=page_size)
+            att.write_kv_prefill(kp, vp, k[n:], v[n:], write_pages,
+                                 page_size=page_size)
+            return attn.ragged_verify(
+                q, kp, vp, block_tables, positions, chunk_pages, chunk_start,
+                page_size=page_size, num_kv_heads=cfg.cache_kv_heads,
+                num_verify=b, verify_width=k1)
+
+        x = _layer(cfg, layer, x, rope, attend)
+    logits = _logits(model, torch.cat([x[:n], x[n + chunk_len - 1][None]]))
+    return logits[:n].view(b, k1, -1), logits[n]

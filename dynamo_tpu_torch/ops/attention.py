@@ -287,6 +287,68 @@ def ragged_mixed_attention_ref(q, k_pages, v_pages, block_tables,
         num_kv_heads=num_kv_heads, num_decode=num_decode)
 
 
+def verify_attention_ref(q, k_pages, v_pages, block_table, positions, *,
+                         page_size: int, num_kv_heads: Optional[int] = None
+                         ) -> torch.Tensor:
+    """Plain speculative-verify attention (JAX `verify_attention`): q
+    [B, K1, H, D], the current token and K drafts of each sequence, whose
+    K/V are already written; query j of sequence b sits at positions[b] + j
+    and attends causally over the sequence's pages block_table [B, Pmax]
+    -> [B, K1, H, D]. Inactive slots (a zero table row at position 0) see
+    only the trash page."""
+    b, k1, h, d = q.shape
+    n_kv = pool_kv_heads(k_pages, d, num_kv_heads)
+    k = _paged_kv(k_pages, block_table, n_kv, d)  # [B, KV, S, D]
+    v = _paged_kv(v_pages, block_table, n_kv, d)
+    q32 = (q.float() * d ** -0.5).reshape(b, k1, n_kv, h // n_kv, d)
+    qpos = (positions.long()[:, None]
+            + torch.arange(k1, device=q.device)[None, :])  # [B, K1]
+    spos = torch.arange(k.shape[2], device=q.device)
+    mask = spos[None, None, :] <= qpos[:, :, None]  # [B, K1, S]
+    out = _attend(q32.permute(0, 2, 3, 1, 4), k, v, mask[:, None, None])
+    return out.permute(0, 3, 1, 2, 4).reshape(b, k1, h, d).to(q.dtype)
+
+
+def ragged_verify_descriptors(block_tables, positions, k1: int,
+                              p_pages=None, p_start: int = 0, c: int = 0):
+    """The ragged kernel's descriptors for B verify windows of K1 queries
+    plus one C-token chunk, JAX's unified ones
+    (`dynamo_tpu.ops.attention.ragged_verify_attention`): tables
+    [B+1, max(Pmax, Wp)] (zero-padded; the last row is the chunk's pages),
+    kv_lens [B+1] (positions + K1, so each window's horizon covers every
+    draft written this step, then p_start + C) and q_starts [B+1]
+    (positions, then p_start). Without a chunk (p_pages None, C = 0) the
+    last row is the trash page at kv_len 0, which the kernel never reads."""
+    b, pmax = block_tables.shape
+    wp = 0 if p_pages is None else p_pages.shape[0]
+    tabs = torch.zeros((b + 1, max(pmax, wp)), dtype=torch.int32,
+                       device=block_tables.device)
+    tabs[:b, :pmax] = block_tables
+    if wp:
+        tabs[b, :wp] = p_pages
+    ps = positions.to(torch.int32)
+    kv_lens = torch.cat([ps + k1, ps.new_full((1,), int(p_start) + c)])
+    q_starts = torch.cat([ps, ps.new_full((1,), int(p_start))])
+    return tabs, kv_lens, q_starts
+
+
+def ragged_verify_attention_ref(q, k_pages, v_pages, block_tables, positions,
+                                p_pages, p_start: int, *, page_size: int,
+                                num_kv_heads: Optional[int] = None,
+                                num_verify: int, verify_width: int
+                                ) -> torch.Tensor:
+    """Plain mixed verify attention: q [B*K1 + C, H, D], B verify windows
+    of K1 queries over their block tables, then one chunk over its page
+    list."""
+    c = q.shape[0] - num_verify * verify_width
+    desc = ragged_verify_descriptors(block_tables, positions, verify_width,
+                                     p_pages, p_start, c)
+    return ragged_paged_attention_ref(
+        q, k_pages, v_pages, *desc, page_size=page_size,
+        num_kv_heads=num_kv_heads, num_decode=num_verify,
+        decode_q=verify_width)
+
+
 # ----------------------------------------------------------- dispatch --
 
 
@@ -342,6 +404,45 @@ def ragged_mixed_attention(q, k_pages, v_pages, block_tables, context_lens,
                   num_kv_heads=num_kv_heads, num_decode=num_decode)
 
 
+def verify_attention(q, k_pages, v_pages, block_table, positions, *,
+                     page_size: int, num_kv_heads: Optional[int] = None
+                     ) -> torch.Tensor:
+    """Speculative-verify attention, q [B, K1, H, D] -> [B, K1, H, D]: on
+    the card the ragged kernel with B rows of K1 queries and no chunk
+    (C = 0), the same kernel the mixed verify step runs; on the CPU
+    verify_attention_ref."""
+    if not q.is_cuda:
+        return verify_attention_ref(q, k_pages, v_pages, block_table,
+                                    positions, page_size=page_size,
+                                    num_kv_heads=num_kv_heads)
+    b, k1, h, d = q.shape
+    desc = ragged_verify_descriptors(block_table, positions, k1)
+    out = cuda_attention.ragged_paged_attention(
+        q.reshape(b * k1, h, d), k_pages, v_pages, *desc,
+        page_size=page_size, num_kv_heads=num_kv_heads, num_decode=b,
+        decode_q=k1)
+    return out.view(b, k1, h, d)
+
+
+def ragged_verify_attention(q, k_pages, v_pages, block_tables, positions,
+                            p_pages, p_start: int, *, page_size: int,
+                            num_kv_heads: Optional[int] = None,
+                            num_verify: int, verify_width: int
+                            ) -> torch.Tensor:
+    """Mixed verify attention (the engine's mixed speculative step): q
+    [B*K1 + C, H, D], B verify windows of K1 queries (window b's query j at
+    positions[b] + j) then one C-token chunk at p_start, in one ragged
+    kernel launch on the card (decode_q = K1)."""
+    c = q.shape[0] - num_verify * verify_width
+    desc = ragged_verify_descriptors(block_tables, positions, verify_width,
+                                     p_pages, p_start, c)
+    ragged = (cuda_attention.ragged_paged_attention if q.is_cuda
+              else ragged_paged_attention_ref)
+    return ragged(q, k_pages, v_pages, *desc, page_size=page_size,
+                  num_kv_heads=num_kv_heads, num_decode=num_verify,
+                  decode_q=verify_width)
+
+
 class AttentionFns(NamedTuple):
     """The attention functions a forward pass calls."""
 
@@ -349,11 +450,15 @@ class AttentionFns(NamedTuple):
     prefill: Callable
     chunk: Callable
     ragged: Callable
+    verify: Callable
+    ragged_verify: Callable
 
 
 # the serving path: kernels on the card, plain versions on the CPU
 DISPATCH = AttentionFns(paged_attention_decode, prefill_attention,
-                        chunk_attention, ragged_mixed_attention)
+                        chunk_attention, ragged_mixed_attention,
+                        verify_attention, ragged_verify_attention)
 # the plain versions on any device (the card-side reference)
 PLAIN = AttentionFns(paged_attention_decode_ref, prefill_attention_ref,
-                     chunk_attention_ref, ragged_mixed_attention_ref)
+                     chunk_attention_ref, ragged_mixed_attention_ref,
+                     verify_attention_ref, ragged_verify_attention_ref)

@@ -3,7 +3,8 @@
 The four kernels of the serving path live in `dynamo_tpu_torch/csrc/`:
 `decode.cu` (paged decode), `prefill.cu` (causal prefill over padded
 prompts), `chunk.cu` (chunked prefill over the paged cache) and `ragged.cu`
-(the mixed step: decode rows and one chunk in one launch). They replace
+(the mixed step: decode rows and one chunk in one launch; the speculative
+verify steps: rows of K+1 queries, beside a chunk or alone). They replace
 `_decode_kernel`, `_prefill_kernel` and `_chunk_kernel` of
 `dynamo_tpu/ops/pallas_attention.py` and `_ragged_kernel` of
 `dynamo_tpu/ops/ragged_attention.py`; each source's header says what bounds
@@ -32,14 +33,20 @@ and the wrapper raises when that is not 0.
 Wrappers check device, dtype, shape and contiguity, allocate their output
 with `torch.empty`, and count their launches in `LAUNCHES`. They take CUDA
 tensors only; the plain PyTorch versions of the same functions are in
-`dynamo_tpu_torch.ops.attention`. Under a CUDA graph capture a wrapper call
-records its kernel instead of launching it: `counting_capture` takes such
-calls back out of `LAUNCHES` and keeps them with the graph, and
+`dynamo_tpu_torch.ops.attention`. Each launch also counts under its
+variant in `VARIANT_LAUNCHES` (`decode[head_dim=64]`,
+`ragged[decode_q=5,chunk]`, `ragged[decode_q=5,no_chunk]`, ...), so a run
+can show which shapes of a kernel its main path reached: the ragged
+kernel's verify windows (decode_q = K + 1, with a chunk or, C = 0, without
+one) and a draft model's head_dim. Under a CUDA graph capture a wrapper
+call records its kernel instead of launching it: `counting_capture` takes
+such calls back out of both counts and keeps them with the graph, and
 `count_replay` adds them at every replay, so the counts stay launches.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import functools
@@ -61,6 +68,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 LAUNCHES: Dict[str, int] = {
     "decode": 0, "prefill": 0, "chunk": 0, "ragged": 0,
     "decode_int8": 0, "chunk_int8": 0, "ragged_int8": 0}
+# the same launches by kernel and variant, e.g. "ragged[decode_q=5,chunk]"
+VARIANT_LAUNCHES: Dict[str, int] = collections.Counter()
 
 # The tensor-core tile of every kernel (attention_common.cuh: kTileRows,
 # tile_head_dim, kKeyTile, kSplitKeys, kSplitBlocksPerSm). The library
@@ -80,28 +89,40 @@ build_log = ""  # nvcc/ptxas output of the build of the loaded library
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    VARIANT_LAUNCHES.clear()
+
+
+def _count(name: str, variant: str) -> None:
+    """One launch of kernel `name` in its `variant`."""
+    LAUNCHES[name] += 1
+    VARIANT_LAUNCHES[f"{name}[{variant}]"] += 1
 
 
 @contextlib.contextmanager
 def counting_capture() -> Iterator[Dict[str, int]]:
     """Around a CUDA graph capture: yields a dict that holds, on exit, the
-    wrapper calls made inside by kernel name (the launches each replay of
-    the graph makes), and leaves LAUNCHES as it was before."""
+    wrapper calls made inside by kernel name and by variant (the launches
+    each replay of the graph makes), and leaves LAUNCHES and
+    VARIANT_LAUNCHES as they were before."""
     before = dict(LAUNCHES)
+    before_variants = dict(VARIANT_LAUNCHES)
     recorded: Dict[str, int] = {}
     try:
         yield recorded
     finally:
-        for name, n in before.items():
-            if LAUNCHES[name] != n:
-                recorded[name] = LAUNCHES[name] - n
-            LAUNCHES[name] = n
+        for counts, prior in ((LAUNCHES, before),
+                              (VARIANT_LAUNCHES, before_variants)):
+            for name in list(counts):
+                n = prior.get(name, 0)
+                if counts[name] != n:
+                    recorded[name] = counts[name] - n
+                counts[name] = n
 
 
 def count_replay(recorded: Dict[str, int]) -> None:
     """Count one replay of a graph whose capture recorded `recorded`."""
     for name, n in recorded.items():
-        LAUNCHES[name] += n
+        (LAUNCHES if name in LAUNCHES else VARIANT_LAUNCHES)[name] += n
 
 
 def _nvcc() -> str:
@@ -396,7 +417,7 @@ def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
     else:
         rc = lib.dtt_paged_decode(*args, *tail)
     _raise_on(lib, rc, name)
-    LAUNCHES[name] += 1
+    _count(name, f"head_dim={d}")
     return out
 
 
@@ -424,7 +445,7 @@ def prefill_attention(q, k, v, seq_lens) -> torch.Tensor:
         _ptr(q), _ptr(k), _ptr(v), _ptr(seq_lens), _ptr(out), n, s, h, n_kv,
         d, positions, d ** -0.5, _stream(q))
     _raise_on(lib, rc, "prefill")
-    LAUNCHES["prefill"] += 1
+    _count("prefill", f"head_dim={d}")
     return out
 
 
@@ -459,7 +480,7 @@ def chunk_prefill_attention(q, k_pages, v_pages, pages, start: int, *,
     else:
         rc = lib.dtt_chunk(*args, start, positions, d ** -0.5, _stream(q))
     _raise_on(lib, rc, name)
-    LAUNCHES[name] += 1
+    _count(name, f"head_dim={d}")
     return out
 
 
@@ -467,12 +488,12 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, kv_lens, q_starts, *,
                            page_size: int, num_kv_heads: Optional[int] = None,
                            num_decode: int, decode_q: int = 1
                            ) -> torch.Tensor:
-    """q [num_decode*decode_q + C, H, D] bf16 (C >= 1): num_decode rows of
+    """q [num_decode*decode_q + C, H, D] bf16 (C >= 0): num_decode rows of
     decode_q queries, then one chunk; pools [P, ps, W] bf16 or int8 packed
     (with num_kv_heads); tables [num_decode + 1, W] int32 (the last row is
-    the chunk's pages); kv_lens, q_starts [num_decode + 1] int32 -> like q.
-    Query j of row r sees key tok iff tok <= q_starts[r] + j and
-    tok < kv_lens[r]."""
+    the chunk's pages, unread when C = 0); kv_lens, q_starts
+    [num_decode + 1] int32 -> like q. Query j of row r sees key tok iff
+    tok <= q_starts[r] + j and tok < kv_lens[r]."""
     dev = q.device
     _expect(q, "q", torch.bfloat16, 3, dev)
     _expect(tables, "tables", torch.int32, 2, dev)
@@ -485,9 +506,9 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, kv_lens, q_starts, *,
     if num_decode < 0 or decode_q < 1:
         raise ValueError(f"num_decode {num_decode} / decode_q {decode_q}")
     c = total - num_decode * decode_q
-    if c < 1:
-        raise ValueError(f"the ragged batch needs a chunk: {total} queries "
-                         f"for {num_decode} rows of {decode_q}")
+    if c < 0:
+        raise ValueError(f"{total} queries are fewer than {num_decode} rows "
+                         f"of {decode_q}")
     rows = num_decode + 1
     if (tables.shape[0] != rows or kv_lens.shape[0] != rows
             or q_starts.shape[0] != rows):
@@ -500,6 +521,8 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, kv_lens, q_starts, *,
                                 _num_sms(dev))
     lib = build()
     out = torch.empty_like(q)
+    if total == 0:
+        return out
     # the decode rows' per-split partials, merged into `out` by the library
     part_o, part_ml, _part = _split_scratch(n_splits, num_decode * decode_q,
                                             h, d, dev)
@@ -513,5 +536,5 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, kv_lens, q_starts, *,
     else:
         rc = lib.dtt_ragged(*args, *tail)
     _raise_on(lib, rc, name)
-    LAUNCHES[name] += 1
+    _count(name, f"decode_q={decode_q},{'chunk' if c else 'no_chunk'}")
     return out

@@ -234,6 +234,37 @@ def run_choices(handles: List[GenerationHandle], emit_for) -> List[tuple]:
     return results  # type: ignore[return-value]
 
 
+def spec_stats(eng) -> dict:
+    """The `spec` section of /worker/stats, with the JAX worker's keys:
+    acceptance_rate is accepted / drafted tokens, mean_accept_len the
+    per-window histogram's mean, by_drafter the same per drafter (with its
+    mean); then the demotions by reason, the verify step's graphs and the
+    draft engine's books and the adaptive windows."""
+    m = eng.metrics
+    snap = m.snapshot()
+    out = {
+        "mode": eng.cfg.speculative_mode,
+        "drafter": eng.drafter_name,
+        "num_speculative_tokens": eng.cfg.num_speculative_tokens,
+        "ngram_lookup": eng.cfg.ngram_lookup,
+        "draft_tokens": m.spec_draft_tokens,
+        "accepted_tokens": m.spec_accepted_tokens,
+        "acceptance_rate": (
+            round(m.spec_accepted_tokens / m.spec_draft_tokens, 4)
+            if m.spec_draft_tokens else 0.0),
+        "mean_accept_len": snap["spec_accept_mean"],
+        "by_drafter": snap["spec_by_drafter"],
+        "demotions": snap["spec_demotions"],
+        "verify_graphs": eng.verify.stats(),
+    }
+    if eng.draft is not None:
+        out["draft_engine"] = eng.draft.stats()
+    if eng._adaptive is not None:
+        out["adaptive_k"] = {"k_max": eng._adaptive.k_max,
+                             "slots": eng._adaptive.snapshot()}
+    return out
+
+
 class _Handler(JsonHTTPHandler):
     ctx: ServingContext  # bound by make_server
 
@@ -269,6 +300,8 @@ class _Handler(JsonHTTPHandler):
             }
             if eng.prefix_cache is not None:
                 out["prefix_cache"] = eng.prefix_cache.stats()
+            if eng.verify is not None:
+                out["spec"] = spec_stats(eng)
             self._json(200, out)
         else:
             self._error(404, f"no route {path}")

@@ -431,10 +431,43 @@ def test_ragged_kernel_matches_plain(dev, int8, decode_q):
         dec = ca.paged_attention_decode(q[:8], kp, vp, args[0][:8],
                                         args[1][:8], **n_kw)
         assert torch.equal(out[:8], dec)
-    with pytest.raises(ValueError, match="chunk"):
-        ca.ragged_paged_attention(q[:8 * decode_q], kp, vp, *args,
+    with pytest.raises(ValueError, match="fewer than"):
+        ca.ragged_paged_attention(q[:8 * decode_q - 1], kp, vp, *args,
                                   page_size=ps, num_kv_heads=n_kv,
                                   num_decode=8, decode_q=decode_q)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_ragged_kernel_verify_only_matches_plain(dev, int8):
+    """Verify windows without a chunk (C = 0) at decode_q = K+1 = 5, the
+    8B's shapes (group 4: 20 of the tile's 64 rows), through
+    verify_attention's descriptors: windows at position 0, across a split
+    boundary, at a table's end, and an inactive slot on the trash page;
+    against verify_attention_ref, and counted under its variant."""
+    ps, n_kv, d, h, pmax, k1 = 16, 8, 128, 32, 64, 5
+    if int8:
+        kp, vp = _int8_pools(dev, 256, ps, n_kv, d, seed=31)
+    else:
+        kp = _rnd(dev, 256, ps, n_kv * d, seed=31)
+        vp = _rnd(dev, 256, ps, n_kv * d, seed=32)
+    positions = [0, 7, 250, 700, pmax * ps - k1, 0]
+    rng = np.random.default_rng(6)
+    tables = np.zeros((6, pmax), np.int32)
+    for r, p in enumerate(positions[:5]):
+        n = -(-(p + k1) // ps)
+        tables[r, :n] = rng.permutation(255)[:n] + 1
+    q = _rnd(dev, 6, k1, h, d, seed=33)
+    tab = torch.tensor(tables, device=dev)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    name = "ragged_int8" if int8 else "ragged"
+    ca.reset_launch_counts()
+    out = att.verify_attention(q, kp, vp, tab, pos, page_size=ps,
+                               num_kv_heads=n_kv)
+    ref = att.verify_attention_ref(q, kp, vp, tab, pos, page_size=ps,
+                                   num_kv_heads=n_kv)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    assert ca.LAUNCHES[name] == 1
+    assert ca.VARIANT_LAUNCHES[f"{name}[decode_q=5,no_chunk]"] == 1
 
 
 def test_mixed_int8_engine_launches_its_kernels(dev):
@@ -601,3 +634,87 @@ def test_quantized_graph_windows_equal_eager_windows(dev, mode):
     assert got == want
     st = graphs.windows.stats()
     assert not st["eager"] and st["replays"] > 0
+
+
+def _spec_engine(enforce_eager, params=None, draft_params=None, **kw):
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import Engine
+
+    return Engine(EngineConfig(model="tiny-debug", page_size=16,
+                               num_pages=64, max_num_seqs=4, max_seq_len=512,
+                               prefill_chunk_tokens=0,
+                               enable_prefix_caching=False,
+                               speculative_mode="ngram",
+                               num_speculative_tokens=4,
+                               enforce_eager=enforce_eager, **kw),
+                  params=params, draft_params=draft_params)
+
+
+def _spec_run(eng):
+    """A repetitive greedy prompt, another greedy one and a seeded sampled
+    one to the end: {rid: tokens}."""
+    from dynamo_tpu_torch.engine.request import GenRequest
+
+    reqs = [GenRequest("g", [5, 6, 7] * 4, max_tokens=20, ignore_eos=True),
+            GenRequest("h", list(range(1, 9)), max_tokens=14,
+                       ignore_eos=True),
+            GenRequest("s", list(range(5, 45)), max_tokens=11,
+                       temperature=0.8, top_p=0.9, seed=7, ignore_eos=True)]
+    for r in reqs:
+        eng.add_request(r)
+    out = {}
+    while eng.has_work:
+        for ev in eng.step():
+            if ev.token_id >= 0:
+                out.setdefault(ev.request_id, []).append(ev.token_id)
+    return out
+
+
+def test_verify_graph_equals_eager_verify(dev):
+    """The verify step replayed from its CUDA graph gives the eager
+    step's tokens (the same kernels on the same shapes), one replay per
+    verify step, and its ragged launches (C = 0, decode_q = 5) are
+    counted: 2 layers x (replays + one warm-up pass per graph)."""
+    eager = _spec_engine(True)
+    graphs = _spec_engine(False, params=eager.model)
+    want = _spec_run(eager)
+    ca.reset_launch_counts()
+    got = _spec_run(graphs)
+    assert got == want
+    st = graphs.verify.stats()
+    assert not st["eager"] and st["graphs"] >= 1
+    assert st["replays"] == st["steps"] == graphs.metrics.spec_verify_steps
+    assert graphs.metrics.spec_accepted_tokens > 0
+    layers = graphs.model_cfg.num_layers
+    assert ca.VARIANT_LAUNCHES["ragged[decode_q=5,no_chunk]"] == \
+        layers * (st["replays"] + st["graphs"]), ca.VARIANT_LAUNCHES
+
+
+def test_draft_graph_equals_eager_draft(dev):
+    """The model drafter's B=1 step replayed from its CUDA graph proposes
+    what the eager step proposes, so the streams, the draft books and the
+    acceptance are the same; a self-draft accepts nearly every greedy
+    draft."""
+    eager = _spec_engine(True, drafter="model", draft_model="tiny-debug")
+    graphs = _spec_engine(False, params=eager.model,
+                          draft_params=eager.draft.model,
+                          drafter="model", draft_model="tiny-debug")
+    graphs.warmup()
+    assert graphs.draft.stats()["graph"]["captured"]
+    want = _spec_run(eager)
+    got = _spec_run(graphs)
+    assert got == want
+    keys = ("draft_steps", "catchup_tokens", "rollbacks", "evictions")
+    assert {k: graphs.draft.stats()[k] for k in keys} == \
+        {k: eager.draft.stats()[k] for k in keys}
+    assert graphs.draft.replays == graphs.draft.steps > 0
+    assert graphs.metrics.spec_accepted_tokens == \
+        eager.metrics.spec_accepted_tokens
+    selfd = _spec_engine(False, params=eager.model, draft_params=eager.model,
+                         drafter="model", draft_model="tiny-debug")
+    from dynamo_tpu_torch.engine.request import GenRequest
+
+    selfd.generate(GenRequest("g", [5, 6, 7] * 4, max_tokens=20,
+                              ignore_eos=True))
+    m = selfd.metrics
+    assert m.spec_accepted_tokens >= 0.5 * m.spec_draft_tokens > 0

@@ -222,7 +222,6 @@ def test_port_server_refuses_with_400(port_server, body):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("speculative_mode", "ngram"),
     ("lora_slots", 2),
     ("kvbm_host_blocks", 8),
     ("tensor_parallel", 2),
@@ -242,12 +241,13 @@ def test_unported_settings_are_refused(field, value):
     ("quantization", "int8"),
     ("quantization", "w8a8"),
     ("model_path", "tiny-debug"),
+    ("speculative_mode", "ngram"),
 ])
 def test_settings_ported_since_are_served(tmp_path, field, value):
-    """Refused before the loader and int8 weights were ported. The
-    model_path here is an empty directory named after a preset: the
-    preset's config, and random init with a warning, as in the JAX
-    package."""
+    """Refused before the loader, int8 weights and speculative decoding
+    were ported. The model_path here is an empty directory named after a
+    preset: the preset's config, and random init with a warning, as in
+    the JAX package."""
     if field == "model_path":
         value = str(tmp_path / value)
         (tmp_path / "tiny-debug").mkdir()
