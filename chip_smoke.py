@@ -43,6 +43,11 @@ on failure:
    chunk.cu's chunk at start 0 over the same K/V in pages. Each row
    carries its kernels' registers and spills from the build's ptxas
    output. This is the numerical check of the kernels on random inputs.
+   Then the same inputs at the new families' shapes (FAMILY_SHAPES), each
+   row named `kernel[shape]`: gemma-7b-it's head_dim 256 at group 1 (every
+   entry point and pool kind, and the verify windows), gemma-2b-it's
+   head_dim 256 at group 8, and qwen2.5-7b-instruct's group 7 at head_dim
+   128 (a verify window of 5 x 7 = 35 tile rows).
 4. The engine for llama-3.1-8b-instruct at full width and depth, random
    bf16 weights from seed 0: a full prefill, a decode step, a chunked
    prefill, a mixed step (the decode row beside a 256-token chunk), a
@@ -161,18 +166,34 @@ on failure:
        llama-3.2-1b-instruct (random weights from seed 1) drafting for the
        8B on all parity requests: acceptance, draft steps and the draft
        graph's device time per step against the eager step's.
-13. A `kernels` JSON line (launches summed over the served phases, graph
+13. The new families (FAMILY_MODELS), once the 8B's engines and weights
+   are released, each at full width and depth with random bf16 weights
+   from seed 0: gemma-7b-it (GeGLU, 1 + w norms, scaled embeddings,
+   head_dim 256), qwen2.5-7b-instruct (attention biases, group 7) and
+   qwen3-0.6b (qk_norm, tied head). Phase 4's forwards on bf16 pools (and
+   int8 ones for gemma-7b-it), q scaled as there unless the model
+   normalizes q and k itself; the OpenAI server on a warmed-up jetstream
+   engine with phase 5's four concurrent requests; where a graph-window
+   decode step's time goes (as phase 11; gemma-7b-it and qwen2.5); and
+   engines with mixed_batch_tokens=256 serving phase 5's interference
+   traffic (gemma-7b-it on bf16 and int8 pools, qwen2.5 on bf16 pools),
+   so that every kernel and pool kind launches at head_dim 256 and every
+   kernel at group 7.
+14. A `kernels` JSON line (launches summed over the served phases, graph
    replays included; the verify windows, at decode_q = 5 with and without
-   a chunk, and decode at head_dim 64 counted as rows of their own; `ms`
-   and `library_ms` device times, `call_ms` and `library_call_ms` call
-   times, as phase 3 measures them), the card line, and last the
-   {"ok": true, ...} line.
+   a chunk, decode at head_dim 64, the kernels at head_dim 256 and at
+   group 7 counted as rows of their own: the head_dim 256 rows from the
+   served gemma-7b-it phases' variant counts, the group 7 rows from the
+   served qwen2.5 phases' launches; `ms` and `library_ms` device times,
+   `call_ms` and `library_call_ms` call times, as phase 3 measures them),
+   the card line, and last the {"ok": true, ...} line.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -193,7 +214,7 @@ from dynamo_tpu_torch.engine.engine import Engine
 from dynamo_tpu_torch.engine import sampling as smp
 from dynamo_tpu_torch.engine.request import GenRequest
 from dynamo_tpu_torch.engine.tokenizer import ByteTokenizer, get_tokenizer
-from dynamo_tpu_torch.models import llama, quant
+from dynamo_tpu_torch.models import llama, loader, quant
 from dynamo_tpu_torch.ops import attention as att
 from dynamo_tpu_torch.ops import cuda_attention as ca
 from dynamo_tpu_torch.serving.api import (ServingContext, make_server,
@@ -370,9 +391,10 @@ def ptxas_usage(log: str) -> dict:
 
 def kernel_usage(name: str, head_dim: int = D) -> dict:
     """ptxas registers and spills of the device kernels behind entry point
-    `name` at `head_dim`: its source's kernels for its pool kind, and any
-    kernel there that takes no pool policy."""
-    base = name.split("_")[0]
+    `name` (a row of phase 3, `decode_int8[head_dim=256]` for one of the
+    families' shapes) at `head_dim`: its source's kernels for its pool
+    kind, and any kernel there that takes no pool policy."""
+    base = name.split("[")[0].split("_")[0]
     src = SOURCES[base][0].rsplit("/", 1)[-1]
     pool = "Int8" if "int8" in name else "Bf16"
 
@@ -443,7 +465,7 @@ def check(name, kernel, plain, library, cost, shapes, extra=None,
 
 
 def paged_cost(q_numel: int, rows, row_bytes: int, desc_ints: int,
-               head_dim: int = D) -> dict:
+               head_dim: int = D, heads: int = H) -> dict:
     """The bound of a paged-attention call from what its inputs need: q
     read and the output written once (bf16), each distinct K and V row
     below some query's horizon read once (`row_bytes` each: 2 * KV * D in
@@ -461,20 +483,21 @@ def paged_cost(q_numel: int, rows, row_bytes: int, desc_ints: int,
                      for j in range(n_q))
     kv_rows = int(torch.unique(torch.cat(ids)).numel())
     return bound(2 * 2 * q_numel + 2 * kv_rows * row_bytes
-                 + 4 * (walked + desc_ints), 4 * pairs * H * head_dim)
+                 + 4 * (walked + desc_ints), 4 * pairs * heads * head_dim)
 
 
 def paged_library(q, kp, vp, tables, q_starts, kv_lens):
     """scaled_dot_product_attention over paged K/V gathered dense: q
-    [N, Q, H, D], bf16 pools, tables [N, W]; query j of row n sees key tok
-    iff tok <= q_starts[n] + j and tok < kv_lens[n] (keys past the longest
-    kv_len are not gathered). The gather is not timed."""
-    n, nq, _, d = q.shape
+    [N, Q, H, D], bf16 pools [P, ps, KV*D], tables [N, W]; query j of row
+    n sees key tok iff tok <= q_starts[n] + j and tok < kv_lens[n] (keys
+    past the longest kv_len are not gathered). The gather is not timed."""
+    n, nq, h, d = q.shape
+    kv = kp.shape[-1] // d
     s = int(kv_lens.max())
-    kd = kp[tables.long()].reshape(n, -1, KV, d)[:, :s].permute(0, 2, 1, 3)
-    vd = vp[tables.long()].reshape(n, -1, KV, d)[:, :s].permute(0, 2, 1, 3)
-    kd = kd.repeat_interleave(H // KV, 1).contiguous()
-    vd = vd.repeat_interleave(H // KV, 1).contiguous()
+    kd = kp[tables.long()].reshape(n, -1, kv, d)[:, :s].permute(0, 2, 1, 3)
+    vd = vp[tables.long()].reshape(n, -1, kv, d)[:, :s].permute(0, 2, 1, 3)
+    kd = kd.repeat_interleave(h // kv, 1).contiguous()
+    vd = vd.repeat_interleave(h // kv, 1).contiguous()
     tok = torch.arange(s, device=q.device)
     qpos = q_starts[:, None] + torch.arange(nq, device=q.device)[None]
     mask = ((tok[None, None] <= qpos[:, :, None])
@@ -483,10 +506,11 @@ def paged_library(q, kp, vp, tables, q_starts, kv_lens):
     return lambda: sdpa(qt, kd, vd, mask)
 
 
-def dequantized(pool: torch.Tensor) -> torch.Tensor:
+def dequantized(pool: torch.Tensor, kv: int = KV, d: int = D
+                ) -> torch.Tensor:
     """An int8 packed pool as a bf16 [P, ps, KV*D] pool."""
-    return att.unpack_kv_rows(pool, KV, D).reshape(
-        *pool.shape[:2], KV * D).to(torch.bfloat16)
+    return att.unpack_kv_rows(pool, kv, d).reshape(
+        *pool.shape[:2], kv * d).to(torch.bfloat16)
 
 
 def kernel_checks(dev) -> dict:
@@ -777,6 +801,166 @@ def kernel_checks(dev) -> dict:
     return rows
 
 
+# Phase 3's rows at the new families' shapes: (label, H, KV, D, rows).
+# gemma-7b-it (head_dim 256, group 1: every entry point and pool kind),
+# gemma-2b-it (head_dim 256, group 8) and qwen2.5-7b-instruct (group 7,
+# whose verify windows fill 5 x 7 = 35 of the tile's 64 rows).
+FAMILY_SHAPES = (
+    ("head_dim=256", 16, 16, 256,
+     ("decode", "decode_int8", "prefill", "chunk", "chunk_int8", "ragged",
+      "ragged_int8", "ragged_verify", "ragged_verify_only")),
+    ("head_dim=256,group=8", 8, 1, 256,
+     ("decode", "prefill", "chunk", "ragged", "ragged_verify_only")),
+    ("group=7", 28, 4, 128,
+     ("decode", "prefill", "chunk", "ragged", "ragged_verify",
+      "ragged_verify_only")),
+)
+
+
+def shape_kernel_checks(dev, label: str, h: int, kv: int, d: int,
+                        names) -> dict:
+    """Phase 3 at one family's shape (FAMILY_SHAPES): the 8B's inputs
+    (8 decode rows on 128-page tables, 4 prompts of a 256 bucket, the
+    256-token chunk at 512, the mixed step's and the verify steps'
+    descriptors) at H, KV and D, each row named `kernel[label]`, held
+    against its plain version with its bound and library time."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    int8_w = att.kv_lane_width(kv, d, True)
+    kp, vp = rnd(NUM_PAGES, PS, kv * d), rnd(NUM_PAGES, PS, kv * d)
+    kp8, vp8 = (att.pack_kv_rows(x.reshape(-1, kv, d), int8_w).reshape(
+        NUM_PAGES, PS, int8_w) for x in (kp, vp))
+    pools = {"": (kp, vp, kp, vp, 2 * kv * d),
+             "_int8": (kp8, vp8, dequantized(kp8, kv, d),
+                       dequantized(vp8, kv, d), kv * d + 2 * kv)}
+    perm = torch.randperm(NUM_PAGES - 1,
+                          generator=torch.Generator().manual_seed(1))
+    rows, shapes = {}, {"H": h, "KV": kv, "D": d}
+
+    def cost(q_numel, spans, row_bytes, desc):
+        return paged_cost(q_numel, spans, row_bytes, desc, head_dim=d,
+                          heads=h)
+
+    def run(name, kernel, plain, library, bound_row, extra):
+        if name in names:
+            rows[name] = check(f"{name}[{label}]", kernel, plain, library,
+                               bound_row, {**shapes, **extra}, head_dim=d)
+
+    pmax = MAX_SEQ_LEN // PS
+    ctx = [0, 1, 17, 100, 255, 600, 1024, 2048]
+    table = torch.zeros((MAX_SEQS, pmax), dtype=torch.int32)
+    used = 0
+    for b, c in enumerate(ctx):
+        n = -(-c // PS)
+        table[b, :n] = perm[used:used + n] + 1
+        used += n
+    table_d = table.to(dev)
+    ctx_d = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    q = rnd(MAX_SEQS, h, d)
+    for sfx, (k, v, kl, vl, row_bytes) in pools.items():
+        run("decode" + sfx,
+            lambda k=k, v=v: ca.paged_attention_decode(
+                q, k, v, table_d, ctx_d, page_size=PS, num_kv_heads=kv),
+            lambda k=k, v=v: att.paged_attention_decode_ref(
+                q, k, v, table_d, ctx_d, page_size=PS, num_kv_heads=kv),
+            paged_library(q[:, None], kl, vl, table_d, ctx_d - 1, ctx_d),
+            cost(q.numel(), [(table[b], c - 1, 1, c)
+                             for b, c in enumerate(ctx)], row_bytes,
+                 MAX_SEQS),
+            {"context_lens": ctx, "block_table": list(table.shape)})
+
+    n, s = 4, 256
+    lens = torch.tensor([256, 200, 37, 1], dtype=torch.int32, device=dev)
+    qp, kk, vv = rnd(n, s, h, d), rnd(n, s, kv, d), rnd(n, s, kv, d)
+    i = torch.arange(s, device=dev)
+    pmask = ((i[None, :] <= i[:, None])[None]
+             & (i[None, None, :] < lens[:, None, None]))[:, None]
+    qt = qp.transpose(1, 2).contiguous()
+    kt = kk.repeat_interleave(h // kv, 2).transpose(1, 2).contiguous()
+    vt = vv.repeat_interleave(h // kv, 2).transpose(1, 2).contiguous()
+    pairs = sum(min(r + 1, int(L)) for L in lens.tolist() for r in range(s))
+    run("prefill", lambda: ca.prefill_attention(qp, kk, vv, lens),
+        lambda: att.prefill_attention_ref(qp, kk, vv, lens),
+        lambda: sdpa(qt, kt, vt, pmask),
+        bound(2 * 2 * qp.numel() + 2 * int(lens.sum()) * kv * d * 2 + 4 * n,
+              4 * pairs * h * d),
+        {"q": [n, s, h, d], "seq_lens": lens.tolist()})
+
+    start, c = 512, CHUNK
+    width = 1024 // PS + CHUNK // PS - 1
+    pages = torch.zeros((width,), dtype=torch.int32)
+    pages[:-(-600 // PS)] = perm[:-(-600 // PS)] + 1
+    pages_d = pages.to(dev)
+    start_d = torch.tensor([start], device=dev)
+    qc = rnd(c, h, d)
+    for sfx, (k, v, kl, vl, row_bytes) in pools.items():
+        run("chunk" + sfx,
+            lambda k=k, v=v: ca.chunk_prefill_attention(
+                qc, k, v, pages_d, start, page_size=PS, num_kv_heads=kv),
+            lambda k=k, v=v: att.chunk_attention_ref(
+                qc, k, v, pages_d, start, page_size=PS, num_kv_heads=kv),
+            paged_library(qc[None], kl, vl, pages_d[None], start_d,
+                          start_d + c),
+            cost(qc.numel(), [(pages, start, c, start + c)], row_bytes, 0),
+            {"q": [c, h, d], "start": start})
+
+    rctx = torch.tensor([1] + ctx[1:], dtype=torch.int32, device=dev)
+    desc = att.ragged_descriptors(table_d, rctx, pages_d, start, c)
+    for decode_q in (1, SPEC_K + 1):
+        qr = rnd(MAX_SEQS * decode_q + c, h, d)
+        tabs, kv_lens, q_starts = desc
+        if decode_q > 1:  # windows ending at each row's context
+            q_starts = torch.clamp(kv_lens - decode_q, min=0)
+            q_starts[-1] = start
+            kv_lens = torch.maximum(kv_lens, q_starts + decode_q)
+            kv_lens[-1] = start + c
+        tabs_h = tabs.cpu()
+        spans = [(tabs_h[r], int(q_starts[r]),
+                  decode_q if r < MAX_SEQS else c, int(kv_lens[r]))
+                 for r in range(MAX_SEQS + 1)]
+        nd = MAX_SEQS * decode_q
+        for sfx, (k, v, kl, vl, row_bytes) in pools.items():
+            kw = dict(page_size=PS, num_kv_heads=kv, num_decode=MAX_SEQS,
+                      decode_q=decode_q)
+            dec_lib = paged_library(
+                qr[:nd].reshape(MAX_SEQS, decode_q, h, d), kl, vl,
+                tabs[:MAX_SEQS], q_starts[:MAX_SEQS], kv_lens[:MAX_SEQS])
+            chk_lib = paged_library(qr[nd:][None], kl, vl, tabs[-1:],
+                                    q_starts[-1:], kv_lens[-1:])
+            run("ragged" + sfx + ("" if decode_q == 1 else "_verify"),
+                lambda k=k, v=v, q_starts=q_starts, kv_lens=kv_lens, kw=kw:
+                    ca.ragged_paged_attention(qr, k, v, tabs, kv_lens,
+                                              q_starts, **kw),
+                lambda k=k, v=v, q_starts=q_starts, kv_lens=kv_lens, kw=kw:
+                    att.ragged_paged_attention_ref(qr, k, v, tabs, kv_lens,
+                                                   q_starts, **kw),
+                lambda dec_lib=dec_lib, chk_lib=chk_lib: (dec_lib(),
+                                                          chk_lib()),
+                cost(qr.numel(), spans, row_bytes, 2 * (MAX_SEQS + 1)),
+                {"num_decode": MAX_SEQS, "decode_q": decode_q,
+                 "chunk_start": start})
+
+    k1 = SPEC_K + 1
+    vpos = torch.clamp(rctx - k1, min=0)
+    qv = rnd(MAX_SEQS, k1, h, d)
+    vspans = [(table[b], int(vpos[b]), k1, int(vpos[b]) + k1)
+              for b in range(MAX_SEQS)]
+    for sfx, (k, v, kl, vl, row_bytes) in pools.items():
+        run("ragged" + sfx + "_verify_only",
+            lambda k=k, v=v: att.verify_attention(
+                qv, k, v, table_d, vpos, page_size=PS, num_kv_heads=kv),
+            lambda k=k, v=v: att.verify_attention_ref(
+                qv, k, v, table_d, vpos, page_size=PS, num_kv_heads=kv),
+            paged_library(qv, kl, vl, table_d, vpos, vpos + k1),
+            cost(qv.numel(), vspans, row_bytes, 2 * (MAX_SEQS + 1)),
+            {"num_decode": MAX_SEQS, "decode_q": k1, "chunk": 0})
+    return rows
+
+
 class HeldAgainstPlain:
     """Attention functions that launch the kernels and hold every call's
     output against the plain version on the same inputs (the layer's own
@@ -890,7 +1074,8 @@ def forward_checks(engine: Engine) -> dict:
     weighs keys wrongly from a right one. So every forward here scales q
     by Q_SCALE before attention (the same shapes, pools and wrappers),
     which brings the scores' deviation near 2 and spreads softmax over
-    many keys. Then:
+    many keys (a model with qk_norm normalizes q and k per head: its
+    scores' deviation is near 1 as drawn, and q is left as it is). Then:
     - every attention call of the kernel forward is held against the plain
       version on the same inputs (HeldAgainstPlain);
     - its logits must be within LOGIT_REL_TOL (relative L2) of the plain
@@ -899,10 +1084,14 @@ def forward_checks(engine: Engine) -> dict:
       Q_SCALE * sqrt(D)) must be farther than LOGIT_REL_TOL from it: the
       logits check can fail."""
     held = HeldAgainstPlain()
-    plain = three_paths(engine, q_scaled(att.PLAIN, Q_SCALE))
-    kernels = three_paths(engine, q_scaled(held.fns, Q_SCALE))
-    unscaled = three_paths(engine, q_scaled(att.PLAIN, Q_SCALE * D ** 0.5))
-    row = {"kv_cache_dtype": engine.kv_spec.dtype, "q_scale": Q_SCALE,
+    cfg = engine.model_cfg
+    q_scale = 1.0 if cfg.qk_norm else Q_SCALE
+    plain = three_paths(engine, q_scaled(att.PLAIN, q_scale))
+    kernels = three_paths(engine, q_scaled(held.fns, q_scale))
+    unscaled = three_paths(engine, q_scaled(att.PLAIN,
+                                            q_scale * cfg.head_dim ** 0.5))
+    row = {"model": cfg.name, "kv_cache_dtype": engine.kv_spec.dtype,
+           "q_scale": q_scale,
            "attention_calls_held": held.calls,
            "attention_max_abs_err": held.max_abs_err,
            "attention_max_row_rel_err": held.max_row_rel_err,
@@ -971,7 +1160,7 @@ def serving(engine: Engine, tokenizer=None):
     """The OpenAI server for `engine` on 127.0.0.1:0 (with `tokenizer` in
     place of the model's, if given); yields its base URL and stops server
     and engine thread on exit."""
-    ctx = ServingContext(engine, MODEL)
+    ctx = ServingContext(engine, engine.cfg.model)
     if tokenizer is not None:
         ctx.tokenizer = tokenizer
     srv = make_server(ctx, host="127.0.0.1", port=0)
@@ -1031,12 +1220,15 @@ def summarize(name: str, result, stream: bool) -> dict:
     return out
 
 
-def interference(base: str, stream_body: dict = CHAT_STREAM) -> dict:
+def interference(base: str, stream_body: dict = CHAT_STREAM,
+                 model: str = MODEL) -> dict:
     """The ~600-token prompt alone on the idle engine (the chunked path),
     then a streamed chat (`stream_body`) and, once its first token is out,
-    the same prompt again, which prefills while the stream decodes."""
-    long_job = (base + "/v1/completions", dict(COMMON, prompt=LONG_TEXT),
-                False)
+    the same prompt again, which prefills while the stream decodes; each
+    request addressed to `model`."""
+    long_job = (base + "/v1/completions",
+                dict(COMMON, prompt=LONG_TEXT, model=model), False)
+    stream_body = dict(stream_body, model=model)
     out = {"long_alone": summarize("long_alone", post(*long_job), False)}
     first, got = threading.Event(), {}
     stream = threading.Thread(target=lambda: got.update(stream=post(
@@ -1105,8 +1297,9 @@ def mixed_serve_checks(engine: Engine) -> dict:
     sfx = "_int8" if engine.kv_spec.quantized else ""
     with serving(engine) as base:
         ca.reset_launch_counts()
-        traffic = interference(base)
+        traffic = interference(base, model=engine.cfg.model)
         launches = dict(ca.LAUNCHES)
+        variants = dict(ca.VARIANT_LAUNCHES)
         worker = stats(base)
     mixed = worker["metrics"]["mixed_count"]
     want = ("prefill", "decode" + sfx, "chunk" + sfx, "ragged" + sfx)
@@ -1122,7 +1315,7 @@ def mixed_serve_checks(engine: Engine) -> dict:
                              f"layers")
     return {"kv_cache": worker["kv_cache"], "mixed_count": mixed,
             "requests": traffic, "engine_metrics": worker["metrics"],
-            "launches": launches}
+            "launches": launches, "variants": variants}
 
 
 def kernel_family(name: str) -> str:
@@ -1313,8 +1506,10 @@ def window_parity(reference: Engine, engines: dict, tok) -> dict:
 
 
 def window_serve(engine: Engine) -> dict:
-    """Phase 5's four concurrent requests on a graph-window engine."""
-    jobs = FOUR_JOBS
+    """Phase 5's four concurrent requests on a graph-window engine,
+    addressed to its model."""
+    jobs = {k: (path, dict(body, model=engine.cfg.model), stream)
+            for k, (path, body, stream) in FOUR_JOBS.items()}
     results = {}
     with serving(engine) as base:
         ca.reset_launch_counts()
@@ -1330,6 +1525,7 @@ def window_serve(engine: Engine) -> dict:
         for t in threads:
             t.join(timeout=600)
         launches = dict(ca.LAUNCHES)
+        variants = dict(ca.VARIANT_LAUNCHES)
         worker = stats(base)
     win = engine.windows.stats()
     summary = {name: summarize(name, results[name], jobs[name][2])
@@ -1341,7 +1537,7 @@ def window_serve(engine: Engine) -> dict:
                              f"{missing}, {replays} graph replays, graphs "
                              f"{win0['graphs']} -> {win['graphs']} "
                              f"({launches})")
-    return {"requests": summary, "launches": launches,
+    return {"requests": summary, "launches": launches, "variants": variants,
             "graph_replays": replays, "windows": win["windows"]
             - win0["windows"], "decode_graphs": worker["decode_graphs"],
             "engine_metrics": worker["metrics"]}
@@ -2053,6 +2249,93 @@ def spec_phases(engine: Engine, eager_cfg: dict, jet_cfg: dict,
             "profiles": profiles}
 
 
+# Phase 13: the new families at full width and depth, random bf16 weights
+# from seed 0, after the 8B's engines and weights are released: (model,
+# the pools of its int8 forward check and its mixed engines, whether its
+# graph-window decode step is profiled)
+FAMILY_MODELS = (
+    ("gemma-7b-it", ("auto", "int8"), True),
+    ("qwen2.5-7b-instruct", ("auto",), True),
+    ("qwen3-0.6b", (), False),
+)
+# the kernels line's rows at those shapes: (phase 3 label, kernel, the
+# model whose served phases count its launches, the launch count's key: a
+# variant, or at group 7 every launch of the kernel in qwen2.5's phases)
+FAMILY_ROWS = (
+    [("head_dim=256", k, "gemma-7b-it", f"{k}[head_dim=256]")
+     for k in ("decode", "decode_int8", "prefill", "chunk", "chunk_int8",
+               "ragged", "ragged_int8")]
+    + [("group=7", k, "qwen2.5-7b-instruct", k)
+       for k in ("decode", "prefill", "chunk", "ragged")])
+
+
+def release() -> None:
+    """Free what deleted engines held (an engine and its graphs reference
+    each other, so only the cycle collector frees them)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_phase(model: str, pools, profiled: bool, eager_cfg: dict,
+                 jet_cfg: dict) -> dict:
+    """Phase 13 for one model (see the module doc): -> {"launches": [each
+    served phase's LAUNCHES], "variants": [... VARIANT_LAUNCHES],
+    "peak_gib": the phase's peak device memory}."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    base = dict(eager_cfg, model=model)
+    engine = Engine(EngineConfig(**base))
+    torch.cuda.synchronize()
+    cfg = engine.model_cfg
+    emit({"phase": "family_engine", "model": model,
+          "seconds": time.monotonic() - t0, "layers": cfg.num_layers,
+          "hidden": cfg.hidden_size, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+          "features": {k: getattr(cfg, k) for k in (
+              "attention_bias", "qk_norm", "hidden_act",
+              "rms_norm_unit_offset", "embed_scale", "tie_word_embeddings")},
+          "params": loader.num_params(cfg),
+          "weights_gib": quant.param_bytes(engine.model) / 2**30,
+          "kv_pool_gib": engine.kv_spec.pool_bytes / 2**30})
+    with torch.inference_mode():
+        forward_checks(engine)
+        if "int8" in pools:
+            eng8 = Engine(EngineConfig(**base, kv_cache_dtype="int8"),
+                          params=engine.model)
+            forward_checks(eng8)
+            del eng8
+            release()
+    served = []
+    jet = Engine(EngineConfig(**dict(jet_cfg, model=model)),
+                 params=engine.model)
+    t0 = time.monotonic()
+    jet.warmup()
+    emit({"phase": "warmup", "engine": f"jetstream {model}",
+          "seconds": time.monotonic() - t0, **jet.windows.stats()})
+    row = window_serve(jet)
+    emit({"phase": "family_serve_windows", "model": model, **row})
+    served.append(row)
+    if profiled:
+        with torch.inference_mode():
+            emit({"phase": "profile", "model": model, "weights": "none",
+                  **profile_steps(jet, 4)})
+    del jet
+    release()
+    for kv in pools:
+        mixed = Engine(EngineConfig(**base, mixed_batch_tokens=CHUNK,
+                                    kv_cache_dtype=kv), params=engine.model)
+        row = mixed_serve_checks(mixed)
+        emit({"phase": "family_serve_mixed", "model": model, **row})
+        served.append(row)
+        del mixed
+        release()
+    del engine
+    release()
+    return {"launches": [r["launches"] for r in served],
+            "variants": [r["variants"] for r in served],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -2069,6 +2352,8 @@ def main() -> int:
           "ptxas": ptxas_usage(ca.build_log)})
 
     rows = kernel_checks(dev)
+    family_rows = {label: shape_kernel_checks(dev, label, h, kv, d, names)
+                   for label, h, kv, d, names in FAMILY_SHAPES}
 
     t0 = time.monotonic()
     base_cfg = dict(model=MODEL, page_size=PS, num_pages=NUM_PAGES,
@@ -2186,36 +2471,68 @@ def main() -> int:
     emit({"phase": "trtllm_tpu_prefix_cache",
           "profile": BACKEND_PROFILES["trtllm_tpu"],
           "decode_graphs": trt.windows.stats(), **prefix_trt})
-    del off_w8a8, trt
+    # the int8 weights are drawn again (same seed) for the profiles
+    del off_w8a8, trt, jet_w8a8, q8, int8_weights
+    release()
 
     # a checkpoint written here and loaded by model_path, freed afterwards
     ckpt = model_path_checks(eager_cfg, engine.model_cfg, dev)
 
-    # speculative decoding on the bf16 weights (phase 12)
-    del graph_engines
-    torch.cuda.empty_cache()
+    # speculative decoding on the bf16 weights (phase 12); `eng` is the
+    # warm-up loop's last graph engine
+    del graph_engines, eng
+    release()
     spec = spec_phases(engine, eager_cfg, jet_cfg, tok)
 
-    jet_int8 = Engine(EngineConfig(**jet_cfg, quantization="int8"),
-                      params=int8_weights)
-    jet_int8.warmup()
-    jet_profile = Engine(EngineConfig(**jet_cfg), params=engine.model)
-    jet_profile8 = Engine(EngineConfig(**jet_cfg, kv_cache_dtype="int8"),
-                          params=engine.model)
-    jet_profile.warmup()
-    jet_profile8.warmup()
-    with torch.inference_mode():
-        # decode steps on bf16 and int8 pools, eager and in graph windows
-        # (the mixed engines decode as the classic one does while nothing
-        # prefills), the graph-window step with w8a8 and weight-only int8
-        # weights, then mixed steps
-        for eng, long_prompt, steps in (
-                (engine, 0, 10), (mixed8, 0, 10),
-                (jet_profile, 0, 4), (jet_profile8, 0, 4),
-                (jet_w8a8, 0, 4), (jet_int8, 0, 4),
-                (mixed, 4 * CHUNK, 3), (mixed8, 4 * CHUNK, 3)):
+    # where a steady step's time goes (phase 11), last of the 8B's phases
+    # (the profiler leaves the host slower at launching kernels): decode
+    # steps on bf16 and int8 pools, eagerly (the mixed engines decode as
+    # the classic one does while nothing prefills), then in graph windows
+    # on both pool kinds and with w8a8 and weight-only int8 weights, each
+    # graph-window engine built, warmed up, profiled and collected in turn
+    # (its memory stays in PyTorch's cache: handed back to CUDA, the next
+    # engine's first steps would time the allocator); then mixed steps
+    def profile(eng, steps, long_prompt=0):
+        with torch.inference_mode():
             emit({"phase": "profile", "weights": quant.mode_of(eng.model),
                   **profile_steps(eng, steps, long_prompt)})
+
+    def profile_windows(eng):
+        eng.warmup()
+        profile(eng, 4)
+
+    profile(engine, 10)
+    profile(mixed8, 10)
+    profile_windows(Engine(EngineConfig(**jet_cfg), params=engine.model))
+    gc.collect()
+    profile_windows(Engine(EngineConfig(**jet_cfg, kv_cache_dtype="int8"),
+                           params=engine.model))
+    gc.collect()
+    jet_w8a8 = Engine(EngineConfig(**jet_cfg, quantization="w8a8"))
+    profile_windows(jet_w8a8)
+    int8_weights = quant.with_mode(jet_w8a8.model, "int8")
+    del jet_w8a8
+    gc.collect()
+    profile_windows(Engine(EngineConfig(**jet_cfg, quantization="int8"),
+                           params=int8_weights))
+    del int8_weights
+    gc.collect()
+    profile(mixed, 3, 4 * CHUNK)
+    profile(mixed8, 3, 4 * CHUNK)
+
+    # the new families (phase 13), once the 8B's engines and weights are
+    # released
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del engine, mixed, mixed8
+    release()
+    emit({"phase": "released_8b", "peak_gib": peak_gib,
+          "allocated_gib": torch.cuda.memory_allocated() / 2**30})
+    families = {model: family_phase(model, pools, profiled, eager_cfg,
+                                    jet_cfg)
+                for model, pools, profiled in FAMILY_MODELS}
+    emit({"phase": "family_memory",
+          "peak_gib": {m: f["peak_gib"] for m, f in families.items()}})
+    peak_gib = max([peak_gib] + [f["peak_gib"] for f in families.values()])
 
     # launches summed over the served phases, each counted from zero: the
     # classic engine, the mixed engines, the graph-window engines (bf16
@@ -2232,8 +2549,16 @@ def main() -> int:
     for counts in spec["variants"]:
         for name, variant in VARIANTS.items():
             launches[name] = launches.get(name, 0) + counts.get(variant, 0)
+    for label, kernel, model, key in FAMILY_ROWS:
+        name = f"{kernel}[{label}]"
+        rows[name] = family_rows[label][kernel]
+        launches[name] = sum(counts.get(key, 0) for counts in
+                             families[model]["launches"]
+                             + families[model]["variants"])
     kernels = []
-    for name, (source, replaces) in SOURCES.items():
+    for name in [*SOURCES, *(f"{k}[{label}]" for label, k, _, _ in
+                             FAMILY_ROWS)]:
+        source, replaces = SOURCES[name.split("[")[0]]
         row = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -2248,7 +2573,7 @@ def main() -> int:
                              f"{launches}")
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.monotonic() - t_all,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+          "peak_mem_gib": peak_gib})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -73,22 +73,31 @@ inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
 // tile, with its own (m, l, O); the halves merge through shared memory at
 // the end. A warp that owns none of the real rows skips the math.
 //
-//   - K/V tiles stream through a ring of kStages = 3 stages in shared
-//     memory, filled with 16-byte cp.async copies through the page list
-//     (four threads per key; a key's page id is loaded a tile ahead), so
-//     two tiles are in flight while one is multiplied, and one barrier per
-//     tile frees the oldest stage. Keys at or past hi are never addressed
-//     (the page list is never read past the horizon, hence never past its
-//     width) and are zero-filled in the tile: a zero row keeps the masked
-//     products finite (0 * garbage can be NaN).
+//   - K/V tiles stream through a ring of stages in shared memory
+//     (ring_stages: three, so two tiles are in flight while one is
+//     multiplied, or two where three do not fit the block's shared memory:
+//     bf16 pools at D = 256), filled with 16-byte cp.async copies through
+//     the page list (four threads per key; a key's page id is loaded a tile
+//     ahead), and one barrier per tile frees the oldest stage. Keys at or
+//     past hi are never addressed (the page list is never read past the
+//     horizon, hence never past its width) and are zero-filled in the
+//     tile: a zero row keeps the masked products finite (0 * garbage can
+//     be NaN).
 //   - S = Q K^T and O += P V are mma.sync.m16n8k16 bf16 products with f32
 //     accumulation; the fragments come from shared memory through ldmatrix
 //     (V transposed by ldmatrix.trans). Tile rows are padded from D to
 //     D + 8 bf16 values, which shifts consecutive rows by 16 bytes, so the
 //     eight rows of an ldmatrix phase hit disjoint banks for every D % 16.
-//     head_dim is a template parameter (with_head_dim: 32, 64 and 128, the
-//     port's servable presets), so the loops over D are straight-line code
-//     the compiler can schedule.
+//     head_dim is a template parameter (with_head_dim: 32, 64, 128 and
+//     256, the port's servable presets), so the loops over D are
+//     straight-line code the compiler can schedule.
+//   - Registers: a thread holds its rows' O accumulator, D / 2 f32 (128 at
+//     D = 256). Up to D = 128 it also keeps q's MMA fragments for the whole
+//     walk and loads a k16 step's V fragments for all of D before their
+//     MMAs; at D = 256 that would be 64 + 64 more registers, so there q's
+//     fragments are re-read from shared memory (where q stays) at every k16
+//     step of every tile, and V's fragments are loaded just ahead of their
+//     own MMAs.
 //   - q enters the MMA as the caller gives it (bf16) and the f32 scores are
 //     scaled by 1/sqrt(D), in log2 units so that the softmax uses exp2f.
 //     The online softmax (m, l) and O stay in registers; each thread holds
@@ -111,14 +120,17 @@ constexpr int kTileRows = 64;     // query rows per block: 4 warps x 16
 constexpr int kTileThreads = 256;  // two warpgroups, one per key half
 constexpr int kKeyTile = 64;      // keys per K/V tile: 4 pages of 16
 constexpr int kHalfKeys = kKeyTile / 2;  // keys of a tile per warpgroup
-constexpr int kStages = 3;        // the cp.async ring: two tiles in flight
-constexpr int kMaxTileDim = 128;  // largest head_dim
+constexpr int kMaxStages = 3;     // the cp.async ring: two tiles in flight
+constexpr int kMaxTileDim = 256;  // largest head_dim
+constexpr size_t kMaxBlockSmem = 232448;  // the H100's per-block limit
 constexpr int kSplitKeys = 256;   // least keys per split of a decode row
 constexpr int kSplitBlocksPerSm = 4;  // most decode blocks per SM, all splits
 
 // The head_dims the tile is compiled for (with_head_dim): those of the
 // port's servable presets.
-inline bool tile_head_dim(int d) { return d == 32 || d == 64 || d == 128; }
+inline bool tile_head_dim(int d) {
+  return d == 32 || d == 64 || d == 128 || d == 256;
+}
 
 inline bool tile_fits(int group, int d) {
   return group >= 1 && group <= kTileRows && tile_head_dim(d);
@@ -326,10 +338,30 @@ struct Int8Tiles {
   }
 };
 
+// shared memory of an attend_mma block with `stages` ring stages: q's
+// tile, the ring, the int8 work area
 template <typename KVTiles>
-inline size_t tile_smem_bytes(int d) {
+__host__ __device__ constexpr size_t tile_smem_with(int d, int stages) {
   return (size_t)kTileRows * (d + 8) * sizeof(__nv_bfloat16)
-         + kStages * KVTiles::stage_bytes(d) + KVTiles::work_bytes(d);
+         + stages * KVTiles::stage_bytes(d) + KVTiles::work_bytes(d);
+}
+
+// Stages of the K/V ring at head_dim kD: kMaxStages where the block's
+// shared memory holds them, else two (bf16 pools at D = 256: 33,792 bytes
+// of q and 3 x 67,584 of K/V would pass 232,448; two stages take 168,960,
+// and int8 pools keep three in 206,336).
+template <typename KVTiles, int kD>
+__host__ __device__ constexpr int ring_stages() {
+  return tile_smem_with<KVTiles>(kD, kMaxStages) <= kMaxBlockSmem
+             ? kMaxStages : 2;
+}
+
+template <typename KVTiles, int kD>
+inline size_t tile_smem_bytes() {
+  constexpr size_t bytes =
+      tile_smem_with<KVTiles>(kD, ring_stages<KVTiles, kD>());
+  static_assert(bytes <= kMaxBlockSmem, "attend_mma's shared memory");
+  return bytes;
 }
 
 // Runs fn(std::integral_constant<int, D>{}) for the head_dim d, one of
@@ -341,6 +373,7 @@ inline int with_head_dim(int d, Fn&& fn) {
     case 32: return fn(std::integral_constant<int, 32>{});
     case 64: return fn(std::integral_constant<int, 64>{});
     case 128: return fn(std::integral_constant<int, 128>{});
+    case 256: return fn(std::integral_constant<int, 256>{});
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -370,6 +403,13 @@ __device__ __forceinline__ void attend_mma(
   static_assert(kD % 16 == 0 && kD <= kMaxTileDim, "head_dim");
   constexpr int ld = kD + 8;  // padded tile row, in bf16 values
   constexpr int kSteps = kD / 16;  // k16 steps of Q K^T, n16 blocks of P V
+  constexpr int kStages = ring_stages<KVTiles, kD>();
+  // q's and V's fragments held for all of D (see Registers above)
+  constexpr bool kWide = kD <= 128;
+  // the halves' merge at the end reuses the ring
+  static_assert(kTileRows * ((kD + 4) + 2) * sizeof(float)
+                    <= kStages * KVTiles::stage_bytes(kD),
+                "the merge area must fit the ring");
   extern __shared__ __align__(16) char tile_smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, wrow = (warp & 3) * 16;  // key half, first row
@@ -433,7 +473,7 @@ __device__ __forceinline__ void attend_mma(
 #pragma unroll
   for (int h = 0; h < 2; ++h) qlim[h] = qpos0 + (wrow + quad + 8 * h) / group;
   const float sl2 = scale * 1.4426950408889634f;  // 1/sqrt(D) in log2 units
-  unsigned qf[kSteps][4];
+  unsigned qf[kWide ? kSteps : 1][4];
   float o[kD / 8][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
@@ -459,11 +499,13 @@ __device__ __forceinline__ void attend_mma(
     }
     const int k0 = lo + t * kKeyTile + wg * kHalfKeys;  // this warp's keys
     if (active && k0 < hi) {
-      if (t == 0) {
+      if constexpr (kWide) {
+        if (t == 0) {
 #pragma unroll
-        for (int kk = 0; kk < kSteps; ++kk)
-          ldsm_x4(qf[kk], qs + (wrow + (lane & 15)) * ld + kk * 16
-                              + ((lane >> 4) << 3));
+          for (int kk = 0; kk < kSteps; ++kk)
+            ldsm_x4(qf[kk], qs + (wrow + (lane & 15)) * ld + kk * 16
+                                + ((lane >> 4) << 3));
+        }
       }
       const __nv_bfloat16* kt = kv.ktile(stage, work, kD) + wg * kHalfKeys * ld;
       const __nv_bfloat16* vt = kv.vtile(stage, work, kD) + wg * kHalfKeys * ld;
@@ -479,6 +521,10 @@ __device__ __forceinline__ void attend_mma(
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kSteps; ++kk) {
+        const unsigned* a = qf[kWide ? kk : 0];
+        if constexpr (!kWide)
+          ldsm_x4(qf[0], qs + (wrow + (lane & 15)) * ld + kk * 16
+                             + ((lane >> 4) << 3));
         unsigned b[kHalfKeys / 16][4];
 #pragma unroll
         for (int nb = 0; nb < kHalfKeys / 16; ++nb)
@@ -486,8 +532,8 @@ __device__ __forceinline__ void attend_mma(
                              + kk * 16 + (((lane >> 3) & 1) << 3));
 #pragma unroll
         for (int nb = 0; nb < kHalfKeys / 16; ++nb) {
-          mma_bf16(s[2 * nb], qf[kk], b[nb][0], b[nb][1]);
-          mma_bf16(s[2 * nb + 1], qf[kk], b[nb][2], b[nb][3]);
+          mma_bf16(s[2 * nb], a, b[nb][0], b[nb][1]);
+          mma_bf16(s[2 * nb + 1], a, b[nb][2], b[nb][3]);
         }
       }
 
@@ -553,16 +599,27 @@ __device__ __forceinline__ void attend_mma(
         const unsigned a[4] = {
             pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
             pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
-        unsigned b[kSteps][4];
+        const __nv_bfloat16* vrow = vt + (kk * 16 + (lane & 7)
+                                          + (((lane >> 3) & 1) << 3)) * ld
+                                    + ((lane >> 4) << 3);
+        if constexpr (kWide) {
+          unsigned b[kSteps][4];
 #pragma unroll
-        for (int db = 0; db < kSteps; ++db)
-          ldsm_x4_trans(b[db], vt + (kk * 16 + (lane & 7)
-                                     + (((lane >> 3) & 1) << 3)) * ld
-                                   + db * 16 + ((lane >> 4) << 3));
+          for (int db = 0; db < kSteps; ++db)
+            ldsm_x4_trans(b[db], vrow + db * 16);
 #pragma unroll
-        for (int db = 0; db < kSteps; ++db) {
-          mma_bf16(o[2 * db], a, b[db][0], b[db][1]);
-          mma_bf16(o[2 * db + 1], a, b[db][2], b[db][3]);
+          for (int db = 0; db < kSteps; ++db) {
+            mma_bf16(o[2 * db], a, b[db][0], b[db][1]);
+            mma_bf16(o[2 * db + 1], a, b[db][2], b[db][3]);
+          }
+        } else {
+#pragma unroll
+          for (int db = 0; db < kSteps; ++db) {
+            unsigned b[4];
+            ldsm_x4_trans(b, vrow + db * 16);
+            mma_bf16(o[2 * db], a, b[0], b[1]);
+            mma_bf16(o[2 * db + 1], a, b[2], b[3]);
+          }
         }
       }
     }

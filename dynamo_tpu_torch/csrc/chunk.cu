@@ -19,7 +19,8 @@
 // x the GQA group of one KV head, so a K/V tile feeds the whole group; S and
 // P V on mma.sync with f32 accumulation, the online softmax and O in
 // registers, two warpgroups splitting each 64-key tile, and the K/V tiles
-// streamed through a three-stage cp.async ring. A 256-token chunk with
+// streamed through a cp.async ring (three stages; two for bf16 pools at
+// head_dim 256, where three do not fit). A 256-token chunk with
 // group 4 is 16 x 8 = 128 blocks: one wave on the 132 SMs. Each query tile
 // re-reads its causal prefix, 16 times per chunk, and mostly from the
 // 50 MB L2: the 3 MB of K/V are
@@ -60,10 +61,10 @@ int launch_chunk(const void* q, KVTiles kv, const void* pages, void* out,
   if (KV < 1 || H % KV || !tile_fits(H / KV, D)
       || positions != tile_positions(H / KV) || C < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = tile_smem_bytes<KVTiles>(D);
   const dim3 grid((C + positions - 1) / positions, KV);
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
+    const size_t smem = tile_smem_bytes<KVTiles, kD>();
     cudaError_t err = set_smem(chunk_kernel<kD, KVTiles>, smem);
     if (err != cudaSuccess) return (int)err;
     chunk_kernel<kD, KVTiles><<<grid, kTileThreads, smem,

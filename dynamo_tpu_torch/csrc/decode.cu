@@ -62,11 +62,11 @@ int launch_decode(const void* q, KVTiles kv, const void* block_table,
   if (plan != 0) return plan;
   const long long blocks = (long long)B * num_splits * KV;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  const size_t smem = tile_smem_bytes<KVTiles>(D);
   const cudaStream_t st = (cudaStream_t)stream;
   const Splits sp{(float*)part_o, (float*)part_ml, B, num_splits, split_keys};
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
+    const size_t smem = tile_smem_bytes<KVTiles, kD>();
     const cudaError_t set = set_smem(decode_kernel<kD, KVTiles>, smem);
     if (set != cudaSuccess) return (int)set;
     decode_kernel<kD, KVTiles><<<(unsigned)blocks, kTileThreads, smem, st>>>(

@@ -17,11 +17,11 @@
 // the tensor-core tile attend_mma (attention_common.cuh): 64 rows =
 // positions x the GQA group of one KV head, so a K/V tile feeds the whole
 // group; S and P V on mma.sync with f32 accumulation, K/V tiles of 64 keys
-// through the three-stage cp.async ring, walked only up to min(diagonal,
-// seq_len). Token t's K/V row of lane n starts at (n * S + t) * KV * D
-// (DenseRows), 16-byte aligned for every S since D is a multiple of 8. A
-// lane at seq_len = S is chunk.cu's chunk at start 0 under the same tiling,
-// and bit-identical to it.
+// through the cp.async ring (two stages at head_dim 256, three below),
+// walked only up to min(diagonal, seq_len). Token t's K/V row of lane n
+// starts at (n * S + t) * KV * D (DenseRows), 16-byte aligned for every S
+// since D is a multiple of 8. A lane at seq_len = S is chunk.cu's chunk at
+// start 0 under the same tiling, and bit-identical to it.
 #include <limits.h>
 
 #include "attention_common.cuh"
@@ -56,10 +56,10 @@ extern "C" int dtt_prefill(const void* q, const void* k, const void* v,
   if (N < 1 || S < 1 || KV < 1 || H % KV || !tile_fits(H / KV, D)
       || positions != tile_positions(H / KV) || N > 65535 || KV > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = tile_smem_bytes<Bf16Tiles>(D);
   const dim3 grid((S + positions - 1) / positions, KV, N);
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
+    const size_t smem = tile_smem_bytes<Bf16Tiles, kD>();
     const cudaError_t err = set_smem(prefill_kernel<kD>, smem);
     if (err != cudaSuccess) return (int)err;
     prefill_kernel<kD><<<grid, kTileThreads, smem, (cudaStream_t)stream>>>(

@@ -87,7 +87,6 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
   const int plan = check_split_plan((long long)W * page_size, num_decode, KV,
                                     split_keys, num_splits);
   if (plan != 0) return plan;
-  const size_t smem = tile_smem_bytes<KVTiles>(D);
   const cudaStream_t st = (cudaStream_t)stream;
   const long long blocks =
       ((long long)num_decode * num_splits + (C + positions - 1) / positions) * KV;
@@ -97,6 +96,7 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
                   (long long)num_decode * decode_q, num_splits, split_keys};
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
+    const size_t smem = tile_smem_bytes<KVTiles, kD>();
     const cudaError_t set = set_smem(ragged_kernel<kD, KVTiles>, smem);
     if (set != cudaSuccess) return (int)set;
     ragged_kernel<kD, KVTiles><<<(unsigned)blocks, kTileThreads, smem, st>>>(

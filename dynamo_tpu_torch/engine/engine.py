@@ -126,28 +126,6 @@ def unported_settings(cfg: EngineConfig) -> List[str]:
     return [name for name, bad in checks if bad]
 
 
-def unported_model_features(m: ModelConfig) -> List[str]:
-    """ModelConfig features the port's dense Llama does not implement."""
-    checks = [
-        ("num_experts", m.is_moe),
-        ("kv_lora_rank", m.is_mla),
-        ("sliding_window", m.sliding_window > 0),
-        ("attn_logit_softcapping", m.attn_logit_softcapping > 0),
-        ("final_logit_softcapping", m.final_logit_softcapping > 0),
-        ("qk_norm", m.qk_norm),
-        ("attention_bias", m.attention_bias),
-        ("hidden_act", m.hidden_act != "silu"),
-        ("rms_norm_unit_offset", m.rms_norm_unit_offset),
-        ("embed_scale", m.embed_scale),
-        ("post_norms", m.post_norms),
-        ("query_pre_attn_scalar", m.query_pre_attn_scalar > 0),
-        ("rope_local_theta", m.rope_local_theta > 0),
-        ("rope_yarn_scaling", m.rope_yarn_scaling is not None),
-        ("rope_longrope_scaling", m.rope_longrope_scaling is not None),
-    ]
-    return [name for name, bad in checks if bad]
-
-
 def _pack_logit_bias(req: GenRequest):
     """A request's {token_id: bias} map as fixed [BIAS_K] lanes (-1 =
     empty). Oversized maps raise rather than drop biases."""
@@ -348,7 +326,7 @@ class Engine:
         if model_cfg is None:
             model_cfg = ModelConfig.from_model_name(
                 cfg.model_path or cfg.model, dtype=cfg.dtype or default_dtype)
-        bad = unported_model_features(model_cfg)
+        bad = llama.unported_model_features(model_cfg)
         if bad:
             raise NotImplementedError(
                 f"ModelConfig feature(s) {bad} of {model_cfg.name} are not "

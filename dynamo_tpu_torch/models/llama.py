@@ -2,7 +2,13 @@
 
 Port of the dense path of `dynamo_tpu/models/llama.py` (Llama 3.x: SwiGLU,
 RMSNorm, rotary embeddings with optional llama3 scaling, GQA, tied or
-untied head). Differences in idiom, not in arithmetic:
+untied head), with the ModelConfig switches of three more dense families:
+Qwen2/2.5 (`attention_bias`: q/k/v biases), Qwen3 (`qk_norm`: a per-head
+RMSNorm of q and k over head_dim, before rope) and Gemma 1
+(`hidden_act="gelu_tanh"`: GeGLU; `rms_norm_unit_offset`: norms scale by
+1 + w; `embed_scale`: embeddings times sqrt(hidden_size)). What the port
+does not implement is refused by `unported_model_features`. Differences
+in idiom, not in arithmetic:
 
 - Weights live in an `nn.Module` (`Llama`, one `LlamaLayer` per layer)
   instead of a layer-stacked pytree, and the forward is a Python loop over
@@ -26,6 +32,8 @@ only tensor ops.
 
 from __future__ import annotations
 
+from typing import List
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -41,11 +49,34 @@ def _weight(shape, device, dtype) -> nn.Parameter:
                         requires_grad=False)
 
 
+def unported_model_features(m: ModelConfig) -> List[str]:
+    """ModelConfig features this model does not implement: MoE, MLA, the
+    Gemma-2/3 and Phi-3 attention variants, and rope scalings other than
+    llama3's."""
+    checks = [
+        ("num_experts", m.is_moe),
+        ("kv_lora_rank", m.is_mla),
+        ("sliding_window", m.sliding_window > 0),
+        ("attn_logit_softcapping", m.attn_logit_softcapping > 0),
+        ("final_logit_softcapping", m.final_logit_softcapping > 0),
+        ("hidden_act", m.hidden_act not in ("silu", "gelu_tanh")),
+        ("post_norms", m.post_norms),
+        ("query_pre_attn_scalar", m.query_pre_attn_scalar > 0),
+        ("rope_local_theta", m.rope_local_theta > 0),
+        ("rope_yarn_scaling", m.rope_yarn_scaling is not None),
+        ("rope_longrope_scaling", m.rope_longrope_scaling is not None),
+    ]
+    return [name for name, bad in checks if bad]
+
+
 class LlamaLayer(nn.Module):
     """One decoder layer's weights, in the JAX layout with the head axes
     flattened: wq [E, H*D], wk/wv [E, KV*D], wo [H*D, E], w_gate/w_up
-    [E, F], w_down [F, E]. Each matmul weight is a tensor or, quantized, a
-    `quant.QTensor` of the same shape."""
+    [E, F], w_down [F, E]; with `attention_bias`, bq [H*D] and bk/bv
+    [KV*D]; with `qk_norm`, q_norm/k_norm [D] (None where the config has
+    no such weight). Each matmul weight is a tensor or, quantized, a
+    `quant.QTensor` of the same shape; biases and norms stay in the model
+    dtype."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -61,6 +92,13 @@ class LlamaLayer(nn.Module):
         self.w_gate = _weight((e, f), device, dtype)
         self.w_up = _weight((e, f), device, dtype)
         self.w_down = _weight((f, e), device, dtype)
+        bias = cfg.attention_bias
+        self.bq = _weight((h * d,), device, dtype) if bias else None
+        self.bk = _weight((kv * d,), device, dtype) if bias else None
+        self.bv = _weight((kv * d,), device, dtype) if bias else None
+        norm = cfg.qk_norm
+        self.q_norm = _weight((d,), device, dtype) if norm else None
+        self.k_norm = _weight((d,), device, dtype) if norm else None
 
 
 class Llama(nn.Module):
@@ -81,16 +119,27 @@ class Llama(nn.Module):
                         else _weight((e, cfg.vocab_size), device, dtype))
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """Normalize in f32, cast back to x's dtype, then scale (the JAX
-    package's cast order)."""
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
+             unit_offset: bool = False) -> torch.Tensor:
+    """Normalize in f32, cast back to x's dtype, then scale by w, or by
+    1 + w (Gemma's norms: zero weights are the identity) rounded to w's
+    dtype first (the JAX package's cast order)."""
     x32 = x.to(torch.float32)
     var = (x32 * x32).mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+    normed = (x32 * torch.rsqrt(var + eps)).to(x.dtype)
+    return normed * (1 + w) if unit_offset else normed * w
+
+
+def _norm(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor
+          ) -> torch.Tensor:
+    return rms_norm(x, w, cfg.rms_norm_eps, cfg.rms_norm_unit_offset)
 
 
 def _embed_rows(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
-    return quant.take_rows(model.embed, tokens.long(), model.dtype)
+    x = quant.take_rows(model.embed, tokens.long(), model.dtype)
+    if model.cfg.embed_scale:  # Gemma: times sqrt(E) in f32, cast back
+        x = (x.to(torch.float32) * model.cfg.hidden_size ** 0.5).to(x.dtype)
+    return x
 
 
 def _rope(cfg: ModelConfig, positions: torch.Tensor):
@@ -100,15 +149,21 @@ def _rope(cfg: ModelConfig, positions: torch.Tensor):
 
 
 def _qkv(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor, rope):
-    """x [T, E] -> q [T, H, D], k/v [T, KV, D] with rope (cos, sin)
-    applied."""
+    """x [T, E] -> q [T, H, D], k/v [T, KV, D]: the projections, their
+    biases (`attention_bias`), the per-head norms of q and k
+    (`qk_norm`), then rope (cos, sin) on q and k, in the JAX order."""
     t = x.shape[0]
     act = quant.shared_activations(x, layer.wq)
-    q = quant.matmul(x, layer.wq, act).view(t, cfg.num_heads, cfg.head_dim)
-    k = quant.matmul(x, layer.wk, act).view(t, cfg.num_kv_heads,
-                                            cfg.head_dim)
-    v = quant.matmul(x, layer.wv, act).view(t, cfg.num_kv_heads,
-                                            cfg.head_dim)
+    q = quant.matmul(x, layer.wq, act)
+    k = quant.matmul(x, layer.wk, act)
+    v = quant.matmul(x, layer.wv, act)
+    if cfg.attention_bias:
+        q, k, v = q + layer.bq, k + layer.bk, v + layer.bv
+    q = q.view(t, cfg.num_heads, cfg.head_dim)
+    k = k.view(t, cfg.num_kv_heads, cfg.head_dim)
+    v = v.view(t, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q, k = _norm(cfg, q, layer.q_norm), _norm(cfg, k, layer.k_norm)
     return rotate(q, *rope), rotate(k, *rope), v
 
 
@@ -117,17 +172,19 @@ def _attn_out(layer: LlamaLayer, o: torch.Tensor) -> torch.Tensor:
     return quant.matmul(o.reshape(o.shape[0], -1), layer.wo)
 
 
-def _mlp(layer: LlamaLayer, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP, x [T, E]."""
+def _mlp(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor
+         ) -> torch.Tensor:
+    """Gated MLP, x [T, E]: SwiGLU, or GeGLU (tanh GELU) for
+    hidden_act "gelu_tanh"."""
     act = quant.shared_activations(x, layer.w_gate)
-    h = (F.silu(quant.matmul(x, layer.w_gate, act))
-         * quant.matmul(x, layer.w_up, act))
-    return quant.matmul(h, layer.w_down)
+    g = quant.matmul(x, layer.w_gate, act)
+    g = (F.gelu(g, approximate="tanh") if cfg.hidden_act == "gelu_tanh"
+         else F.silu(g))
+    return quant.matmul(g * quant.matmul(x, layer.w_up, act), layer.w_down)
 
 
 def _logits(model: Llama, x: torch.Tensor) -> torch.Tensor:
-    cfg = model.cfg
-    x = rms_norm(x, model.final_norm, cfg.rms_norm_eps)
+    x = _norm(model.cfg, x, model.final_norm)
     if model.lm_head is None:  # tied head: x @ embed.T
         return quant.tied_head(x, model.embed)
     return quant.matmul(x, model.lm_head)
@@ -136,11 +193,11 @@ def _logits(model: Llama, x: torch.Tensor) -> torch.Tensor:
 def _layer(cfg, layer, x, rope, attend):
     """One decoder layer around `attend(q, k, v) -> o`, which also owns
     the KV write (before or after attention, as the caller needs)."""
-    h = rms_norm(x, layer.attn_norm, cfg.rms_norm_eps)
+    h = _norm(cfg, x, layer.attn_norm)
     q, k, v = _qkv(cfg, layer, h, rope)
     x = x + _attn_out(layer, attend(q, k, v))
-    h = rms_norm(x, layer.mlp_norm, cfg.rms_norm_eps)
-    return x + _mlp(layer, h)
+    h = _norm(cfg, x, layer.mlp_norm)
+    return x + _mlp(cfg, layer, h)
 
 
 def prefill(model: Llama, tokens: torch.Tensor, seq_len: int,

@@ -6,8 +6,10 @@ The JAX tree (`dynamo_tpu.models.llama.param_specs`) stacks every layer
 weight on a leading layer axis and keeps heads as axes: embed [V, E],
 wq [L, E, H, D], wk/wv [L, E, KV, D], wo [L, H, D, E], w_gate/w_up
 [L, E, F], w_down [L, F, E], attn_norm/mlp_norm [L, E], final_norm [E],
-lm_head [E, V] (untied models). `param_specs` below restates that contract
-for the dense models the port serves, so every builder follows it.
+lm_head [E, V] (untied models); bq [L, H, D] and bk/bv [L, KV, D]
+(`attention_bias`), q_norm/k_norm [L, D] (`qk_norm`). `param_specs` below
+restates that contract for the dense models the port serves, and every
+function here that makes weights follows it.
 
 `load_or_init` is the counterpart of the JAX package's
 `load_or_init_params`: every `*.safetensors` under `model_path`
@@ -36,9 +38,18 @@ log = logging.getLogger("dynamo_tpu_torch.loader")
 
 Spec = Tuple[Tuple[int, ...], str, float]
 
-# the per-layer weights, named as in the JAX tree
+# the per-layer weights, named as in the JAX tree; the optional ones after
+# them, so that a config without them draws the same random weights
 _LAYER_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
                 "w_up", "w_down")
+_BIAS_NAMES = ("bq", "bk", "bv")  # attention_bias
+_QK_NORM_NAMES = ("q_norm", "k_norm")  # qk_norm
+
+
+def _layer_names(cfg: ModelConfig) -> Tuple[str, ...]:
+    return (_LAYER_NAMES + (_BIAS_NAMES if cfg.attention_bias else ())
+            + (_QK_NORM_NAMES if cfg.qk_norm else ()))
+
 
 # above this many parameters a quantized model with no checkpoint is drawn
 # as int8 directly instead of initialised and quantized (the JAX loader's
@@ -49,7 +60,9 @@ DIRECT_INT8_PARAMS = 2_000_000_000
 def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
     """name -> (JAX shape, kind, sigma) for a dense Llama; kind is
     "normal" (stddev sigma), "ones" or "zeros". Sigmas follow the JAX
-    package: 1/sqrt(last JAX axis), 0.02 for the embedding and head."""
+    package: 1/sqrt(last JAX axis), 0.02 for the embedding and head;
+    norms are zeros where they scale by 1 + w (`rms_norm_unit_offset`),
+    biases zeros."""
     e, h, kv, d, f, l = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim, cfg.intermediate_size, cfg.num_layers)
 
@@ -57,21 +70,29 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
         return (shape, "normal",
                 sigma if sigma is not None else 1.0 / shape[-1] ** 0.5)
 
+    nk = "zeros" if cfg.rms_norm_unit_offset else "ones"
     p = {
         "embed": w((cfg.vocab_size, e), 0.02),
-        "final_norm": ((e,), "ones", 0.0),
-        "attn_norm": ((l, e), "ones", 0.0),
+        "final_norm": ((e,), nk, 0.0),
+        "attn_norm": ((l, e), nk, 0.0),
         "wq": w((l, e, h, d)),
         "wk": w((l, e, kv, d)),
         "wv": w((l, e, kv, d)),
         "wo": w((l, h, d, e)),
-        "mlp_norm": ((l, e), "ones", 0.0),
+        "mlp_norm": ((l, e), nk, 0.0),
     }
     if not cfg.tie_word_embeddings:
         p["lm_head"] = w((e, cfg.vocab_size), 0.02)
     p["w_gate"] = w((l, e, f))
     p["w_up"] = w((l, e, f))
     p["w_down"] = w((l, f, e))
+    if cfg.attention_bias:
+        p["bq"] = ((l, h, d), "zeros", 0.0)
+        p["bk"] = ((l, kv, d), "zeros", 0.0)
+        p["bv"] = ((l, kv, d), "zeros", 0.0)
+    if cfg.qk_norm:
+        p["q_norm"] = ((l, d), nk, 0.0)
+        p["k_norm"] = ((l, d), nk, 0.0)
     return p
 
 
@@ -87,8 +108,9 @@ def _targets(model: Llama):
     yield "final_norm", None, model
     if model.lm_head is not None:
         yield "lm_head", None, model
+    names = _layer_names(model.cfg)
     for l, layer in enumerate(model.layers):
-        for name in _LAYER_NAMES:
+        for name in names:
             yield name, l, layer
 
 
@@ -142,7 +164,8 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0,
     loader's `random_quantized_params`: int8 values uniform over
     [-127, 127] from a `torch.Generator` on `device`, per-channel scales
     sigma * 4.5 / 127 (dequantized weights near each spec's sigma), norms
-    ones; no float copy of the model is ever made."""
+    and biases their constants in `dtype`; no float copy of the model is
+    ever made."""
     if mode not in quant.MODES:
         raise ValueError(f"unknown quantization mode {mode!r}")
     specs = param_specs(cfg)
@@ -152,9 +175,10 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0,
     for name, _, owner in _targets(model):
         shape = tuple(getattr(owner, name).shape)
         _, kind, sigma = specs[name]
-        if kind == "ones":
-            quant.set_weight(owner, name, _param(torch.ones(shape, device=device,
-                                                   dtype=dtype)))
+        if kind != "normal":
+            fill = torch.ones if kind == "ones" else torch.zeros
+            quant.set_weight(owner, name,
+                             _param(fill(shape, device=device, dtype=dtype)))
             continue
         # matmul weights drawn as their [N, K] transposes: the operand
         # layout (quant.operand_layout); embed row-major
@@ -251,14 +275,13 @@ def load_hf_safetensors(cfg: ModelConfig, files: Sequence[str],
     """HF-layout tensors (`model.layers.{i}.self_attn.q_proj.weight`, ...)
     into the port's layout, the JAX loader's `load_hf_safetensors` for the
     dense Llama: separate q/k/v/o projections or Phi-3's fused `qkv_proj`
-    and `gate_up_proj`, the norms, and `lm_head` for untied models. Each
-    tensor is read once, cast to `dtype` and transposed from HF's [out, in]
-    to the port's [in, out] on `device`."""
+    and `gate_up_proj`, the norms, `lm_head` for untied models, Qwen2's
+    `self_attn.{q,k,v}_proj.bias` and Qwen3's `self_attn.{q,k}_norm.weight`.
+    Each tensor is read once, cast to `dtype` and transposed from HF's
+    [out, in] to the port's [in, out] on `device` (vectors as they are)."""
     unsupported = [name for name, bad in (
         ("kv_lora_rank (MLA)", cfg.is_mla),
         ("num_experts (MoE)", cfg.is_moe),
-        ("attention_bias", cfg.attention_bias),
-        ("qk_norm", cfg.qk_norm),
         ("post_norms", cfg.post_norms)) if bad]
     if unsupported:
         raise NotImplementedError(
@@ -308,6 +331,13 @@ def load_hf_safetensors(cfg: ModelConfig, files: Sequence[str],
                 put(layer, "w_gate", get(pre + "mlp.gate_proj.weight").t())
                 put(layer, "w_up", get(pre + "mlp.up_proj.weight").t())
             put(layer, "w_down", get(pre + "mlp.down_proj.weight").t())
+            if cfg.attention_bias:
+                for name, hf in (("bq", "q_proj"), ("bk", "k_proj"),
+                                 ("bv", "v_proj")):
+                    put(layer, name, get(pre + f"self_attn.{hf}.bias"))
+            if cfg.qk_norm:
+                for name in _QK_NORM_NAMES:
+                    put(layer, name, get(pre + f"self_attn.{name}.weight"))
         if not cfg.tie_word_embeddings:
             put(model, "lm_head", get("lm_head.weight").t())
     return _check_filled(model)

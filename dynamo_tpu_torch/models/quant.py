@@ -146,8 +146,8 @@ def _weight_slots(model: nn.Module):
 @torch.no_grad()
 def quantize_params(model: nn.Module, mode: str = "int8") -> nn.Module:
     """Quantize every weight named in QUANT_AXES IN PLACE (each float
-    weight is released as its QTensor replaces it); norms stay in the
-    model dtype. Returns `model`."""
+    weight is released as its QTensor replaces it); norms and biases stay
+    in the model dtype. Returns `model`."""
     mode = mode_name(mode)
     if mode == "none":
         return model

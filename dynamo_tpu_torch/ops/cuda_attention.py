@@ -35,13 +35,14 @@ with `torch.empty`, and count their launches in `LAUNCHES`. They take CUDA
 tensors only; the plain PyTorch versions of the same functions are in
 `dynamo_tpu_torch.ops.attention`. Each launch also counts under its
 variant in `VARIANT_LAUNCHES` (`decode[head_dim=64]`,
-`ragged[decode_q=5,chunk]`, `ragged[decode_q=5,no_chunk]`, ...), so a run
-can show which shapes of a kernel its main path reached: the ragged
-kernel's verify windows (decode_q = K + 1, with a chunk or, C = 0, without
-one) and a draft model's head_dim. Under a CUDA graph capture a wrapper
-call records its kernel instead of launching it: `counting_capture` takes
-such calls back out of both counts and keeps them with the graph, and
-`count_replay` adds them at every replay, so the counts stay launches.
+`ragged[decode_q=5,chunk]`, `ragged[decode_q=5,no_chunk]`, ...; a ragged
+launch counts under its row shape and under its head_dim), so a run can
+show which shapes of a kernel its main path reached: the ragged kernel's
+verify windows (decode_q = K + 1, with a chunk or, C = 0, without one), a
+draft model's head_dim, Gemma's head_dim 256. Under a CUDA graph capture a
+wrapper call records its kernel instead of launching it: `counting_capture`
+takes such calls back out of both counts and keeps them with the graph,
+and `count_replay` adds them at every replay, so the counts stay launches.
 """
 
 from __future__ import annotations
@@ -76,7 +77,7 @@ VARIANT_LAUNCHES: Dict[str, int] = collections.Counter()
 # reports its own values (dtt_chunk_positions, dtt_decode_split_keys) and
 # its entry points refuse a launch that disagrees with them.
 TILE_ROWS = 64
-TILE_HEAD_DIMS = (32, 64, 128)  # the head_dims the tile is compiled for
+TILE_HEAD_DIMS = (32, 64, 128, 256)  # the head_dims the tile is compiled for
 KEY_TILE = 64
 SPLIT_KEYS = 256
 SPLIT_BLOCKS_PER_SM = 4
@@ -92,10 +93,11 @@ def reset_launch_counts() -> None:
     VARIANT_LAUNCHES.clear()
 
 
-def _count(name: str, variant: str) -> None:
-    """One launch of kernel `name` in its `variant`."""
+def _count(name: str, *variants: str) -> None:
+    """One launch of kernel `name`, counted under each of its `variants`."""
     LAUNCHES[name] += 1
-    VARIANT_LAUNCHES[f"{name}[{variant}]"] += 1
+    for variant in variants:
+        VARIANT_LAUNCHES[f"{name}[{variant}]"] += 1
 
 
 @contextlib.contextmanager
@@ -536,5 +538,6 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, kv_lens, q_starts, *,
     else:
         rc = lib.dtt_ragged(*args, *tail)
     _raise_on(lib, rc, name)
-    _count(name, f"decode_q={decode_q},{'chunk' if c else 'no_chunk'}")
+    _count(name, f"decode_q={decode_q},{'chunk' if c else 'no_chunk'}",
+           f"head_dim={d}")
     return out

@@ -104,6 +104,12 @@ class DraftEngine:
         default_dtype = "float32" if self.device.type == "cpu" else "bfloat16"
         self.model_cfg = ModelConfig.from_model_name(
             cfg.draft_model_path or name, dtype=cfg.dtype or default_dtype)
+        bad = llama.unported_model_features(self.model_cfg)
+        if bad:
+            raise NotImplementedError(
+                f"ModelConfig feature(s) {bad} of draft model "
+                f"{self.model_cfg.name} are not ported to dynamo_tpu_torch "
+                f"yet (see ROADMAP.md)")
         if self.model_cfg.vocab_size != engine.model_cfg.vocab_size:
             raise ValueError(
                 f"draft model {name!r} vocab_size "

@@ -74,8 +74,8 @@ def _decode_inputs(dev, int8, n_heads, n_kv, head_dim, ctx, pmax, pages=64,
             torch.tensor(ctx, dtype=torch.int32, device=dev))
 
 
-@pytest.mark.parametrize("head_dim", [32, 64, 128])
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
+@pytest.mark.parametrize("group", [1, 2, 4, 7, 8])
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_decode_kernel_groups_and_head_dims(dev, int8, group, head_dim):
     """Every GQA group and head_dim the tile takes, on both pools: rows at
@@ -125,8 +125,8 @@ def test_prefill_kernel_matches_plain(dev, s, lens, head_dim):
             assert not out[lane].any()
 
 
-@pytest.mark.parametrize("head_dim", [32, 64, 128])
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
+@pytest.mark.parametrize("group", [1, 2, 4, 7, 8])
 def test_prefill_kernel_groups_and_head_dims(dev, group, head_dim):
     """Every GQA group and head_dim the tile takes, at S = 48 (no multiple
     of the 64-key tile): a full lane, a lane at seq_len 0 and one whose
@@ -185,8 +185,8 @@ def test_chunk_kernel_matches_plain(dev, start, c):
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
 
 
-@pytest.mark.parametrize("head_dim", [32, 64, 128])
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
+@pytest.mark.parametrize("group", [1, 2, 4, 7, 8])
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_chunk_kernel_groups_and_head_dims(dev, int8, group, head_dim):
     """Every GQA group and head_dim the tile takes, on both pools, with a
@@ -208,8 +208,8 @@ def test_chunk_kernel_groups_and_head_dims(dev, int8, group, head_dim):
 
 def test_tile_limits_agree_with_the_library_and_are_refused(dev):
     lib = ca.build()
-    for group in (1, 2, 3, 4, 8, 64):
-        for d in (32, 64, 128):
+    for group in (1, 2, 3, 4, 7, 8, 64):
+        for d in (32, 64, 128, 256):
             assert lib.dtt_chunk_positions(group, d) == ca.tile_positions(
                 group, d)
     assert lib.dtt_chunk_positions(65, 64) == 0
@@ -226,7 +226,7 @@ def test_tile_limits_agree_with_the_library_and_are_refused(dev):
     lens = torch.tensor([3, 20], dtype=torch.int32, device=dev)
     for h, n_kv, d, match in ((8, 2, 40, "head_dim"),
                               (8, 2, 96, "head_dim"),
-                              (4, 1, 256, "head_dim"),
+                              (4, 1, 512, "head_dim"),
                               (128, 1, 32, "64-row")):
         q = _rnd(dev, 16 + 1, h, d)
         kp = _rnd(dev, 4, 16, n_kv * d)
@@ -470,6 +470,79 @@ def test_ragged_kernel_verify_only_matches_plain(dev, int8):
     assert ca.VARIANT_LAUNCHES[f"{name}[decode_q=5,no_chunk]"] == 1
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("n_heads,n_kv,d", [(16, 16, 256), (8, 1, 256),
+                                            (28, 4, 128)],
+                         ids=["gemma-7b", "gemma-2b", "qwen2.5-7b"])
+@pytest.mark.parametrize("decode_q,c", [(1, 256), (5, 256), (5, 0)],
+                         ids=["chunk_rows", "verify_rows", "verify_only"])
+def test_ragged_kernel_at_the_families_shapes(dev, int8, n_heads, n_kv, d,
+                                              decode_q, c):
+    """The ragged kernel at head_dim 256 (groups 1 and 8) and at group 7
+    (a verify row of 5 x 7 = 35 tile rows): eight rows (context 0 on the
+    trash page, rows across a split boundary, a full table) beside a
+    256-token chunk at 512, or alone (C = 0); counted under its head_dim."""
+    ps, pmax, nd = 16, 64, 8
+    if int8:
+        kp, vp = _int8_pools(dev, 256, ps, n_kv, d, seed=61)
+    else:
+        kp = _rnd(dev, 256, ps, n_kv * d, seed=61)
+        vp = _rnd(dev, 256, ps, n_kv * d, seed=62)
+    ctx = [0, 1, 17, 255, 256, 257, 700, pmax * ps]
+    rng = np.random.default_rng(7)
+    tables = np.zeros((nd + 1, pmax), np.int32)
+    for r, n in enumerate(ctx[1:], start=1):
+        tables[r, :-(-n // ps)] = rng.permutation(255)[:-(-n // ps)] + 1
+    if c:
+        tables[nd, :48] = np.arange(1, 49)
+    kv_lens = np.array(ctx + [512 + c if c else 0], np.int32)
+    q_starts = np.array([max(n - decode_q, 0) for n in ctx]
+                        + [512 if c else 0], np.int32)
+    kv_lens[1:nd] = np.maximum(kv_lens[1:nd], q_starts[1:nd] + decode_q)
+    q = _rnd(dev, nd * decode_q + c, n_heads, d, seed=63)
+    args = [torch.tensor(a, device=dev) for a in (tables, kv_lens, q_starts)]
+    kw = dict(page_size=ps, num_kv_heads=n_kv, num_decode=nd,
+              decode_q=decode_q)
+    name = "ragged_int8" if int8 else "ragged"
+    ca.reset_launch_counts()
+    out = ca.ragged_paged_attention(q, kp, vp, *args, **kw)
+    ref = att.ragged_paged_attention_ref(q, kp, vp, *args, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    assert not out[:decode_q].any()  # context 0: exact zeros
+    assert ca.VARIANT_LAUNCHES[f"{name}[head_dim={d}]"] == 1
+
+
+@pytest.mark.parametrize("family", ["gemma", "qwen2", "qwen3"])
+def test_family_graph_windows_equal_eager_windows(dev, family):
+    """The three families' tiny configs (tiny-gemma-debug at head_dim 256:
+    its decode and prefill reach the D = 256 kernels) in 4-step graph
+    windows against eager windows, bit for bit."""
+    import dataclasses
+
+    from dynamo_tpu_torch.models.config import PRESETS
+
+    cfg = {"gemma": dataclasses.replace(PRESETS["tiny-gemma-debug"],
+                                        head_dim=256),
+           "qwen2": dataclasses.replace(PRESETS["tiny-debug"],
+                                        attention_bias=True),
+           "qwen3": dataclasses.replace(PRESETS["tiny-debug"],
+                                        qk_norm=True)}[family]
+    eager = _window_engine(True, model_cfg=cfg)
+    with torch.no_grad():  # non-zero biases and norms
+        g = torch.Generator(device=dev)
+        g.manual_seed(5)
+        for name, p in eager.model.named_parameters():
+            if p.dim() == 1:
+                p.add_(0.3 * torch.randn(p.shape, generator=g, device=dev,
+                                         dtype=torch.float32).to(p.dtype))
+    graphs = _window_engine(False, params=eager.model, model_cfg=cfg)
+    want = _window_run(eager)
+    ca.reset_launch_counts()
+    assert _window_run(graphs) == want
+    assert graphs.windows.stats()["replays"] > 0
+    assert ca.VARIANT_LAUNCHES[f"decode[head_dim={cfg.head_dim}]"] > 0
+
+
 def test_mixed_int8_engine_launches_its_kernels(dev):
     """A mixed engine on int8 pools: a long prompt alone takes the classic
     chunk path, then a long prompt beside a live stream rides the mixed
@@ -504,7 +577,7 @@ def test_mixed_int8_engine_launches_its_kernels(dev):
         assert ca.LAUNCHES[k] == 0, ca.LAUNCHES
 
 
-def _window_engine(enforce_eager, params=None, **kw):
+def _window_engine(enforce_eager, params=None, model_cfg=None, **kw):
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import Engine
 
@@ -514,7 +587,7 @@ def _window_engine(enforce_eager, params=None, **kw):
                                enable_prefix_caching=False,
                                num_scheduler_steps=4,
                                enforce_eager=enforce_eager, **kw),
-                  params=params)
+                  model_cfg=model_cfg, params=params)
 
 
 def _window_run(eng):

@@ -80,10 +80,10 @@ def test_chunk_tiles_walk_each_visible_pair_once(c, group):
     assert (count[vis] == 1).all() and (count[~vis] == 0).all()
 
 
-@pytest.mark.parametrize("head_dim", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("head_dim", [16, 32, 48, 64, 80, 96, 128, 256])
 @pytest.mark.parametrize("group", [1, 2, 4, 8, 64])
 def test_tile_takes_only_the_head_dims_it_is_built_for(head_dim, group):
-    if head_dim in (32, 64, 128):
+    if head_dim in (32, 64, 128, 256):
         assert ca.tile_positions(group, head_dim) == 64 // group
         assert _chunk_tiles(64, group, head_dim)[0] == (0, 64 // group)
     else:
@@ -148,7 +148,7 @@ def test_ragged_splits_walk_each_visible_pair_once(kv_len, decode_q):
 
 @pytest.mark.parametrize("group,head_dim,match", [
     (4, 8, "head_dim"), (4, 40, "head_dim"), (4, 144, "head_dim"),
-    (4, 256, "head_dim"), (4, 0, "head_dim"),
+    (4, 512, "head_dim"), (4, 0, "head_dim"),
     (65, 64, "64-row"), (128, 128, "64-row"), (0, 64, "64-row")])
 def test_plans_refuse_what_the_tile_cannot_take(group, head_dim, match):
     with pytest.raises(ValueError, match=match):
