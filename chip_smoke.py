@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (`dynamo_tpu_torch`).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --kernels-only  # phases 1-3, then a summary
+
+(`--kernels-only` times the kernels of the package beside the script, so a
+copy of it in an older checkout compares kernels across trees.)
 
 Needs one NVIDIA GPU (Hopper: the kernels build for sm_90a) and runs from
 the root of a checkout; it exits non-zero, printing no result, without a
@@ -143,10 +147,13 @@ on failure:
        top-2 gap is under NEAR_TIE (a bf16 near-tie: the verify step's
        40-row GEMMs round otherwise than the 8-row decode step's); the
        gap is that of the reference's own decode logits (it serves every
-       request with 2 logprobs), or for a sampled request that of the
-       temperature-scaled, top-p and top-k masked logits plus its Gumbel
-       noise, from a chunked prefill of the prompt and the reference's
-       tokens before the difference.
+       request with 2 logprobs), or for a sampled request the least
+       change of its temperature-scaled logits that changes its draw (the
+       top-2 gap of the top-p and top-k masked logits plus its Gumbel
+       noise, or the distance of the winner, or of a left-out token that
+       would beat it, from the top-p set's edge: `sampled_gap`), from a
+       chunked prefill of the prompt and the reference's tokens before
+       the difference.
    (b) `serve_spec`: the OpenAI server on that engine with phase 5's four
        concurrent requests, the streamed chat and the completion without
        logprobs (they would demote every step), beside the graph-window
@@ -179,14 +186,54 @@ on failure:
    traffic (gemma-7b-it on bf16 and int8 pools, qwen2.5 on bf16 pools),
    so that every kernel and pool kind launches at head_dim 256 and every
    kernel at group 7.
-14. A `kernels` JSON line (launches summed over the served phases, graph
+14. JSON-guided decoding (after phase 11, on the 8B's weights). The
+   grammar kernel (`csrc/json_mask.cu`, both entry points) against its
+   plain version on the card: B = 8 rows over V = 128256 tokens of a
+   synthetic 16-byte-wide table made from the seed (pieces of 1-16 bytes,
+   mostly JSON's alphabet, and specials and stop ids), states of every
+   mode at depths 0, 1, 5 and 31 with random bits, some rows not guided;
+   json_mask's logits and json_advance's states must equal the plain
+   version's exactly; device and call ms, the plain version's call ms
+   (host-bound: hundreds of small ops), the bound from the bytes and the
+   transitions this run's data needs (operations at the card's INT32
+   lane rate). Then the jetstream engine, warmed up (the greedy guided
+   graphs too), serving four concurrent json_object chats at temperature
+   1.0 with distinct seeds and a greedy one: every choice's text,
+   whatever ended it, must fold through the grammar without a byte that
+   breaks it, and every choice that stops must json.loads to a dict; a
+   forced tool_choice must come back as a tool_calls choice whose
+   arguments fold and parse (random weights seldom close an object, so
+   its logit_bias favours the structural bytes); json_mask must launch
+   inside graph replays and on the guided first tokens' prefill logits
+   (more launches than json_advance). A guided 8-slot graph-window step
+   is profiled as in phase 11 beside the unguided step (both with '}'
+   banned by logit_bias, so that no object completes and the mask folds
+   every step).
+15. Multi-LoRA serving (lora_slots=4, lora_rank=16) on the 8B's weights:
+   two random adapters written here as adapter.npz and registered at boot,
+   a third as HF-PEFT safetensors registered through POST /v1/adapters;
+   the server takes base and adapter requests (`<base>:<adapter>`)
+   together in graph windows; base-slot greedy streams must equal a
+   lora_slots=0 engine's token for token over the same batch shapes, and
+   adapter streams must differ from the base; phase 4's forwards through
+   the kernels with an adapter slot against the plain attention (logits
+   within LOGIT_REL_TOL); greedy adapter streams with n-gram speculation
+   (K = 4) against spec-off, as phase 12 holds them (wq and the adapters'
+   q deltas scaled; equal or first different at a near-tie), at least one
+   of them equal; the graph-window step with three adapters live profiled
+   beside base-only traffic on the same lora_slots=4 engine (every step
+   computes the deltas once lora_slots > 0, as in the JAX engine) and
+   beside the lora_slots=0 engine's step.
+16. A `kernels` JSON line (launches summed over the served phases, graph
    replays included; the verify windows, at decode_q = 5 with and without
    a chunk, decode at head_dim 64, the kernels at head_dim 256 and at
    group 7 counted as rows of their own: the head_dim 256 rows from the
    served gemma-7b-it phases' variant counts, the group 7 rows from the
    served qwen2.5 phases' launches; `ms` and `library_ms` device times,
-   `call_ms` and `library_call_ms` call times, as phase 3 measures them),
-   the card line, and last the {"ok": true, ...} line.
+   `call_ms` and `library_call_ms` call times, as phase 3 measures them;
+   the grammar kernel's two rows from phase 14, their launches from its
+   served phase, and no library call), the card line, and last the
+   {"ok": true, ...} line.
 """
 
 from __future__ import annotations
@@ -206,6 +253,7 @@ import threading
 import time
 import urllib.request
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -214,9 +262,13 @@ from dynamo_tpu_torch.engine.engine import Engine
 from dynamo_tpu_torch.engine import sampling as smp
 from dynamo_tpu_torch.engine.request import GenRequest
 from dynamo_tpu_torch.engine.tokenizer import ByteTokenizer, get_tokenizer
+from dynamo_tpu_torch.lora import apply as lora_apply
+from dynamo_tpu_torch.lora import registry as lora_registry
 from dynamo_tpu_torch.models import llama, loader, quant
 from dynamo_tpu_torch.ops import attention as att
 from dynamo_tpu_torch.ops import cuda_attention as ca
+from dynamo_tpu_torch.ops import cuda_guide
+from dynamo_tpu_torch.ops import json_guide
 from dynamo_tpu_torch.serving.api import (ServingContext, make_server,
                                           spec_stats)
 from dynamo_tpu_torch.serving.worker import BACKEND_PROFILES, build_parser
@@ -243,6 +295,17 @@ DRAFT_MODEL = "llama-3.2-1b-instruct"  # head_dim 64, the 8B's vocabulary
 DRAFT_D = 64
 NEAR_TIE = 0.05  # top-2 gap under which a first difference is a near-tie
 SELF_DRAFT_ACCEPT = 0.5  # accepted / drafted tokens of the self-draft
+# the grammar kernel's bound: integer operations of one byte's transition
+# on the taken path of json_mask.cu's switch (compares of the mode and the
+# byte's classes, the selects, the DEAD test and the loop): an estimate
+# from the source, not counted from the kernel's SASS; and the card's rate
+# for them: the data sheet's 67 TFLOP/s float32 outside the tensor cores
+# is 128 float32 lanes an SM with an FMA counted as two, and an SM has 64
+# INT32 lanes, so 67e12 / 4 integer lane operations a second
+JSON_OPS_PER_BYTE = 12
+INT32_OPS_PER_S = 67e12 / 4
+LORA_SLOTS, LORA_RANK = 4, 16
+LORA_SCALE = 0.08  # random adapters' sigma: a delta near half of q's size
 SOURCES = {
     "decode": ("dynamo_tpu_torch/csrc/decode.cu",
                "dynamo_tpu/ops/pallas_attention.py:181 (_decode_kernel)"),
@@ -279,6 +342,12 @@ SOURCES = {
     "decode_hd64": ("dynamo_tpu_torch/csrc/decode.cu",
                     "dynamo_tpu/ops/pallas_attention.py:181 (_decode_kernel,"
                     " head_dim 64: the draft model's B=1 step)"),
+    "json_mask": ("dynamo_tpu_torch/csrc/json_mask.cu",
+                  "no TPU kernel: json_guide.token_mask inside the jitted "
+                  "decode window, dynamo_tpu/engine/engine.py:841"),
+    "json_advance": ("dynamo_tpu_torch/csrc/json_mask.cu",
+                     "no TPU kernel: json_guide.fold_bytes of the sampled "
+                     "token in the window, dynamo_tpu/engine/engine.py:861"),
 }
 # the kernels line's rows that count one variant of a kernel's launches
 # (cuda_attention.VARIANT_LAUNCHES)
@@ -370,11 +439,14 @@ def ptxas_usage(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m and src:
             mangled = m.group(1)
-            n = re.match(r"_ZN3dtt(\d+)", mangled)
+            n = re.match(r"_ZN3dtt(?:4json)?(\d+)", mangled)
             fn = (mangled[n.end():n.end() + int(n.group(1))] if n
                   else mangled)
             args = re.findall(r"ILi(\d+)E", mangled)  # head_dim, if any
             args += [p for p in ("Bf16Tiles", "Int8Tiles") if p in mangled]
+            # the grammar kernel's logits type
+            args += [t for p, t in (("I13__nv_bfloat16E", "bf16"),
+                                    ("IfE", "float")) if p in mangled]
             fn += f"<{', '.join(args)}>" if args else ""
             usage[src][fn] = {}
             continue
@@ -997,14 +1069,20 @@ def q_scaled(fns: att.AttentionFns, factor: float) -> att.AttentionFns:
     return att.AttentionFns(*(wrap(f) for f in fns))
 
 
-def three_paths(engine: Engine, attn) -> dict:
+def three_paths(engine: Engine, attn, adapter_slot: int = 0) -> dict:
     """Logits of a full prefill (100 tokens in a 128 bucket), one decode
     step after it (slot 0 live, seven slots on the trash page), a chunked
     prefill (600 tokens in 256-token chunks), a mixed step (that decode
     row beside the prompt's second chunk again), a verify step (slot 0's
     window of K+1 tokens at position 100, the other slots without room)
-    and a mixed verify step (that window beside the chunk), with `attn`."""
+    and a mixed verify step (that window beside the chunk), with `attn`;
+    on a LoRA engine every row of the sequence under `adapter_slot`."""
     model, dev, out = engine.model, engine.device, {}
+    rows = torch.zeros((MAX_SEQS,), dtype=torch.int32, device=dev)
+    rows[0] = adapter_slot
+    one = dict(lora=engine.lora_stacks, adapter_slots=adapter_slot)
+    batch = dict(lora=engine.lora_stacks, adapter_slots=rows)
+    mixed = dict(batch, chunk_adapter_slot=adapter_slot)
     prompt = torch.randint(0, 256, (600,),
                            generator=torch.Generator().manual_seed(2))
     pages = engine.allocator.alloc(600 // PS + 1)
@@ -1014,7 +1092,7 @@ def three_paths(engine: Engine, attn) -> dict:
         tokens[:100] = prompt[:100]
         out["prefill"] = llama.prefill(
             model, tokens.to(dev), 100, engine.k_pages, engine.v_pages,
-            page_t[:8], page_size=PS, attn=attn)
+            page_t[:8], page_size=PS, attn=attn, **one)
         tok = torch.zeros((MAX_SEQS,), dtype=torch.long, device=dev)
         pos = torch.zeros((MAX_SEQS,), dtype=torch.int32, device=dev)
         ctx = torch.ones((MAX_SEQS,), dtype=torch.int32, device=dev)
@@ -1024,7 +1102,7 @@ def three_paths(engine: Engine, attn) -> dict:
         table[0, :8] = page_t[:8]
         out["decode"] = llama.decode_step(
             model, tok, pos, table, ctx, engine.k_pages, engine.v_pages,
-            page_size=PS, attn=attn)[0]
+            page_size=PS, attn=attn, **batch)[0]
         width = 1024 // PS + CHUNK // PS - 1  # trash-padded page list
         plist = torch.zeros((width,), dtype=torch.int32, device=dev)
         plist[:len(pages)] = page_t
@@ -1034,11 +1112,11 @@ def three_paths(engine: Engine, attn) -> dict:
             chunk[:take] = prompt[start:start + take]
             out["chunked_prefill"] = llama.prefill_chunk(
                 model, chunk.to(dev), start, take, engine.k_pages,
-                engine.v_pages, plist, page_size=PS, attn=attn)
+                engine.v_pages, plist, page_size=PS, attn=attn, **one)
         out["mixed_decode"], out["mixed_chunk"] = llama.mixed_step(
             model, tok, pos, table, ctx, prompt[CHUNK:2 * CHUNK].to(dev),
             CHUNK, CHUNK, plist, engine.k_pages, engine.v_pages,
-            page_size=PS, attn=attn)
+            page_size=PS, attn=attn, **mixed)
         out["mixed_decode"] = out["mixed_decode"][0]
         window = torch.zeros((MAX_SEQS, SPEC_K + 1), dtype=torch.long,
                              device=dev)
@@ -1047,12 +1125,13 @@ def three_paths(engine: Engine, attn) -> dict:
         room[0] = True
         out["verify"] = llama.decode_verify(
             model, window, pos, table, room, engine.k_pages, engine.v_pages,
-            page_size=PS, attn=attn)[0]
+            page_size=PS, attn=attn, **batch)[0]
         out["mixed_verify"], out["mixed_verify_chunk"] = \
             llama.mixed_verify_step(
                 model, window, pos, table, room,
                 prompt[CHUNK:2 * CHUNK].to(dev), CHUNK, CHUNK, plist,
-                engine.k_pages, engine.v_pages, page_size=PS, attn=attn)
+                engine.k_pages, engine.v_pages, page_size=PS, attn=attn,
+                **mixed)
         out["mixed_verify"] = out["mixed_verify"][0]
     finally:
         engine.allocator.free(pages)
@@ -1064,7 +1143,7 @@ def rel_l2(got: dict, ref: dict) -> dict:
                         / ref[path].float().norm()) for path in ref}
 
 
-def forward_checks(engine: Engine) -> dict:
+def forward_checks(engine: Engine, adapter_slot: int = 0) -> dict:
     """The four forwards through the kernels against the plain attention,
     at full depth, on the engine's pools (bf16 or int8).
 
@@ -1082,16 +1161,18 @@ def forward_checks(engine: Engine) -> dict:
       forward's;
     - the plain forward with the 1/sqrt(D) scale left out (q scaled by
       Q_SCALE * sqrt(D)) must be farther than LOGIT_REL_TOL from it: the
-      logits check can fail."""
+      logits check can fail.
+    On a LoRA engine the sequence runs under `adapter_slot`."""
     held = HeldAgainstPlain()
     cfg = engine.model_cfg
     q_scale = 1.0 if cfg.qk_norm else Q_SCALE
-    plain = three_paths(engine, q_scaled(att.PLAIN, q_scale))
-    kernels = three_paths(engine, q_scaled(held.fns, q_scale))
+    plain = three_paths(engine, q_scaled(att.PLAIN, q_scale), adapter_slot)
+    kernels = three_paths(engine, q_scaled(held.fns, q_scale), adapter_slot)
     unscaled = three_paths(engine, q_scaled(att.PLAIN,
-                                            q_scale * cfg.head_dim ** 0.5))
+                                            q_scale * cfg.head_dim ** 0.5),
+                           adapter_slot)
     row = {"model": cfg.name, "kv_cache_dtype": engine.kv_spec.dtype,
-           "q_scale": q_scale,
+           "adapter_slot": adapter_slot, "q_scale": q_scale,
            "attention_calls_held": held.calls,
            "attention_max_abs_err": held.max_abs_err,
            "attention_max_row_rel_err": held.max_row_rel_err,
@@ -1320,6 +1401,8 @@ def mixed_serve_checks(engine: Engine) -> dict:
 
 def kernel_family(name: str) -> str:
     low = name.lower()
+    if "dtt::json" in name:
+        return "grammar mask (port kernel)"
     if "dtt::" in name:
         return "attention (port kernels)"
     if any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
@@ -1329,7 +1412,8 @@ def kernel_family(name: str) -> str:
     return "other (elementwise, norms, rope, sampling, KV writes)"
 
 
-def profile_steps(engine: Engine, steps: int, long_prompt: int = 0) -> dict:
+def profile_steps(engine: Engine, steps: int, long_prompt: int = 0,
+                  request_kw=None, label: str = "") -> dict:
     """Where a steady decode step's time goes: `steps` engine steps timed
     on the host clock, then the same steps again under torch.profiler for
     device time by kernel family and the kernels launched, all per decode
@@ -1339,7 +1423,9 @@ def profile_steps(engine: Engine, steps: int, long_prompt: int = 0) -> dict:
     (a mixed engine) 7 slots decoding beside a long_prompt-token prompt
     whose chunks after the first ride the measured mixed steps, and every
     measured step must be one. On a speculating engine every measured
-    step must be one verify step (a replay of its graph, or eager)."""
+    step must be one verify step (a replay of its graph, or eager).
+    `request_kw(i)`: more GenRequest fields of decode request i (guided,
+    an adapter, a logit_bias); `label` names the step in the result."""
     n_decode = MAX_SEQS - 1 if long_prompt else MAX_SEQS
     spec = engine.verify is not None
     # decode steps per engine step, and the graphs' books
@@ -1353,7 +1439,8 @@ def profile_steps(engine: Engine, steps: int, long_prompt: int = 0) -> dict:
         for i in range(n_decode):
             engine.add_request(GenRequest(
                 f"profile-{tag}-{i}", list(range(1, 101)),
-                max_tokens=tokens, ignore_eos=True))
+                max_tokens=tokens, ignore_eos=True,
+                **(request_kw(i) if request_kw else {})))
         while engine.pending:
             engine.step()
         engine.step()
@@ -1414,8 +1501,8 @@ def profile_steps(engine: Engine, steps: int, long_prompt: int = 0) -> dict:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     graphs = graph_stats()
     return {"kv_cache_dtype": engine.kv_spec.dtype,
-            "step": ("mixed" if long_prompt else
-                     f"verify (K={SPEC_K})" if spec else "decode"),
+            "step": label or ("mixed" if long_prompt else
+                              f"verify (K={SPEC_K})" if spec else "decode"),
             "decode_slots": n_decode, "long_prompt": long_prompt,
             "window": 1 if long_prompt else k,
             "cuda_graphs": not graphs["eager"],
@@ -1837,13 +1924,20 @@ def spec_parity_requests(tok, greedy_only: bool = False) -> list:
 
 
 def sampled_gap(engine: Engine, req: GenRequest, before: list) -> float:
-    """The spec-off top-2 gap where output token len(before) of the
-    sampled request `req` is drawn, in what its draw compares: the logits
-    scaled by the temperature, top-p and top-k masked, plus its Gumbel
-    noise at that position. The logits come from a chunked prefill of the
-    prompt and `before` through `engine` (its pool kind's chunk kernel,
-    which reads the K/V back from the pool as a decode step does; pages
-    from its allocator, freed after)."""
+    """The least change of the spec-off scaled logits (the logits over the
+    temperature) that changes the draw of output token len(before) of the
+    sampled request `req`: the draw takes the largest of the top-k and
+    top-p masked scaled logits plus its Gumbel noise at that position, so
+    it changes where the top-2 gap of those closes, where the winner
+    falls out of the top-p set (its distance above the set's least scaled
+    logit), or where a token left out of the set whose noisy score beats
+    the winner's comes in (its distance below it); the least of these.
+    (A flat distribution keeps tens of thousands of tokens in the top-p
+    set, thousands of them within a bf16 unit of its edge.) The logits
+    come from a chunked prefill of the prompt and `before` through
+    `engine` (its pool kind's chunk kernel, which reads the K/V back from
+    the pool as a decode step does; pages from its allocator, freed
+    after)."""
     ids = list(req.prompt_token_ids) + list(before)
     n = len(ids)
     dev = engine.device
@@ -1865,13 +1959,21 @@ def sampled_gap(engine: Engine, req: GenRequest, before: list) -> float:
     state = smp.make_state([req.temperature], [req.top_p], [req.top_k],
                            device=dev)
     scaled = logits.float()[None] / req.temperature
-    if state.any_topk_topp:
-        scaled = smp._mask_topk_topp(scaled, state)
+    masked = (smp._mask_topk_topp(scaled, state) if state.any_topk_topp
+              else scaled)
     key = smp.fold_in(int(req.seed) & ((1 << 63) - 1), n - 1)
-    scaled = scaled + smp.gumbel(torch.tensor([key], device=dev),
-                                 scaled.shape[-1])
-    top = scaled[0].topk(2).values
-    return float(top[0] - top[1])
+    noise = smp.gumbel(torch.tensor([key], device=dev), scaled.shape[-1])
+    top = (masked + noise)[0].topk(2)
+    gaps = [float(top.values[0] - top.values[1])]
+    kept = torch.isfinite(masked[0])
+    if not bool(kept.all()):
+        edge = scaled[0][kept].min()
+        win = int(top.indices[0])
+        gaps.append(float(scaled[0, win] - edge))
+        rivals = ~kept & ((scaled + noise)[0] > top.values[0])
+        if bool(rivals.any()):
+            gaps.append(float(edge - scaled[0][rivals].max()))
+    return min(gaps)
 
 
 def spec_summary(engine: Engine) -> dict:
@@ -2249,6 +2351,432 @@ def spec_phases(engine: Engine, eager_cfg: dict, jet_cfg: dict,
             "profiles": profiles}
 
 
+# ------------------------------------------------------------- phase 14 --
+
+
+def grammar_table(v: int, seed: int) -> json_guide.VocabTable:
+    """A synthetic 16-byte-wide vocab table made from `seed`: pieces of
+    1-16 bytes (most of 1-3), 85% drawn from JSON's alphabet and the rest
+    from any printable byte, 400 specials without bytes and 3 stop ids."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b'{}[]",:0123456789-.eE+tfnrulas \\/\n\t',
+                          np.uint8)
+    lens = rng.integers(1, 17, size=v)
+    lens = np.where(rng.random(v) < 0.7, np.minimum(lens, 3), lens)
+    json_bytes = alpha[rng.integers(0, len(alpha), size=(v, 16))]
+    any_bytes = rng.integers(32, 256, size=(v, 16))
+    tb = np.where(rng.random((v, 1)) < 0.85, json_bytes, any_bytes)
+    tb = np.where(np.arange(16)[None] < lens[:, None], tb, -1)
+    special = rng.choice(v, 403, replace=False)
+    lens[special] = 0
+    eos = np.zeros(v, bool)
+    eos[special[:3]] = True
+    return json_guide.VocabTable(tb.astype(np.int32), lens.astype(np.int32),
+                                 eos)
+
+
+def json_transitions(mode, depth, bits, active, table) -> int:
+    """Byte transitions json_mask's threads make on these rows: each
+    active row that is not complete folds each token with bytes that is
+    not a stop token, one transition per byte until its length or the
+    first that kills the automaton."""
+    done = (mode == json_guide.AFTER_VALUE) & (depth == 0)
+    rows = (active.bool() & ~done)[:, None]
+    alive = rows & (table.token_len > 0)[None] & (table.eos == 0)[None]
+    m, d, b = (t[:, None].expand(-1, table.vocab_size)
+               for t in (mode, depth, bits))
+    count = 0
+    for i in range(json_guide.TABLE_WIDTH):
+        run = alive & (i < table.token_len)[None]
+        count += int(run.sum())
+        m, d, b = json_guide.transition_torch(
+            m, d, b, table.token_bytes[:, i].to(torch.int32)[None])
+        alive = run & (m != json_guide.DEAD)
+    return count
+
+
+def grammar_kernel_checks(dev) -> dict:
+    """Phase 14's kernel rows (see the module doc): json_mask and
+    json_advance against their plain versions, exactly, on every mode at
+    depths 0, 1, 5 and 31, then timed on one mixed batch."""
+    b, v = MAX_SEQS, 128256
+    t0 = time.monotonic()
+    table = json_guide.DeviceTable(grammar_table(v, 0), dev)
+    build_s = time.monotonic() - t0
+    rng = np.random.default_rng(3)
+    n_modes = json_guide.DEAD + 1
+    states, checked = [], 0
+    for depth in (0, 1, 5, 31):
+        for m0 in range(0, n_modes, b):
+            modes = (np.arange(m0, m0 + b) % n_modes).astype(np.int32)
+            states.append((modes, np.full(b, depth, np.int32),
+                           rng.integers(-2**31, 2**31, b).astype(np.int32),
+                           rng.random(b) < 0.8))
+    for mode, depth, bits, active in states:
+        st = [torch.tensor(a, device=dev) for a in (mode, depth, bits)]
+        act = torch.tensor(active, device=dev)
+        logits = torch.randn(b, v, device=dev).to(torch.bfloat16)
+        got, want = logits.clone(), logits.clone()
+        cuda_guide.json_mask(got, *st, act, table)
+        json_guide.mask_logits(want, *st, act, table)
+        tokens = torch.tensor(rng.integers(0, v, b), device=dev)
+        got_st = [t.clone() for t in st]
+        want_st = [t.clone() for t in st]
+        cuda_guide.json_advance(tokens, *got_st, act, table)
+        json_guide.advance(tokens, *want_st, act, table)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and all(
+                torch.equal(x, y) for x, y in zip(got_st, want_st))):
+            raise AssertionError(f"the grammar kernel differs from its "
+                                 f"plain version at modes {mode}, depth "
+                                 f"{depth[0]}")
+        checked += 1
+    # a batch as a guided step sees it: the modes a JSON object passes
+    # through, inside one container, every row guided
+    mode = torch.tensor([json_guide.OBJ_KEY_OR_END, json_guide.STR_K,
+                         json_guide.AFTER_KEY, json_guide.VALUE,
+                         json_guide.STR_V, json_guide.NM_INT,
+                         json_guide.AFTER_VALUE, json_guide.ARR_VAL_OR_END],
+                        dtype=torch.int32, device=dev)
+    depth = torch.tensor([1, 1, 1, 1, 1, 2, 2, 2], dtype=torch.int32,
+                         device=dev)
+    bits = torch.tensor([0, 0, 0, 0, 0, 2, 2, 2], dtype=torch.int32,
+                        device=dev)
+    act = torch.ones(b, dtype=torch.bool, device=dev)
+    logits = torch.randn(b, v, device=dev).to(torch.bfloat16)
+    out = logits.clone()
+    cuda_guide.json_mask(out, mode, depth, bits, act, table)
+    masked = int((out != logits).sum())
+    trans = json_transitions(mode, depth, bits, act, table)
+    table_bytes = v * (json_guide.TABLE_WIDTH + 4 + 1)
+    tokens = torch.tensor(rng.integers(0, v, b), device=dev)
+    adv_len = int(table.token_len[tokens].sum())
+    usage = ptxas_usage(ca.build_log).get("json_mask.cu", {})
+
+    def row(name, kernel, plain, nbytes, ops, shapes):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / INT32_OPS_PER_S * 1e3
+        r = {"name": name, "shapes": shapes, "max_abs_err": 0.0,
+             "tolerance": "exact (integers and the -1e9 writes)",
+             "kernel_ms": device_ms(kernel, 20),
+             "kernel_call_ms": time_ms(kernel, 20),
+             "plain_ms": time_ms(plain, 1, 3),
+             "plain_timing": "call time (the plain version is hundreds of "
+                             "small ops, host-bound)",
+             "library_ms": None, "library_call_ms": None,
+             "bytes": nbytes, "int_ops": ops, "bytes_ms": t_bytes,
+             "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "ops_per_byte_transition": JSON_OPS_PER_BYTE,
+             "ops_per_byte_basis": "estimate from the source, not counted "
+                                   "from SASS",
+             "int32_ops_per_s": INT32_OPS_PER_S, "ptxas": usage}
+        emit({"kernel_check": r})
+        return r
+
+    st = (mode, depth, bits)
+    mask_row = row(
+        "json_mask", lambda: cuda_guide.json_mask(out, *st, act, table),
+        lambda: json_guide.mask_logits(out, *st, act, table),
+        table_bytes + b * 13 + 2 * masked, trans * JSON_OPS_PER_BYTE,
+        {"B": b, "V": v, "width": json_guide.TABLE_WIDTH,
+         "masked": masked, "transitions": trans,
+         "states_checked": checked * b, "table_build_s": build_s})
+    st_k = [t.clone() for t in st]
+    st_p = [t.clone() for t in st]
+    adv_row = row(
+        "json_advance",
+        lambda: cuda_guide.json_advance(tokens, *st_k, act, table),
+        lambda: json_guide.advance(tokens, *st_p, act, table),
+        b * (8 + 1 + 2 * 12) + b * (json_guide.TABLE_WIDTH + 4),
+        adv_len * JSON_OPS_PER_BYTE, {"B": b, "bytes_folded": adv_len})
+    return {"json_mask": mask_row, "json_advance": adv_row}
+
+
+GUIDED = {"response_format": {"type": "json_object"}}
+JSON_CHAT = dict(COMMON, max_tokens=64, temperature=1.0, ignore_eos=False,
+                 messages=[{"role": "user",
+                            "content": "Describe the H100 as JSON."}],
+                 **GUIDED)
+TOOLS = [{"type": "function", "function": {
+    "name": "lookup", "description": "Look a kernel up.",
+    "parameters": {"type": "object"}}}]
+# random weights seldom close an object: the forced call's logit_bias
+# favours '"' (34), ':' (58) and '}' (125), so the grammar writes a short
+# object, {"":""} with whitespace where the weights prefer it
+TOOL_CHAT = dict(COMMON, max_tokens=64, ignore_eos=False, tools=TOOLS,
+                 tool_choice={"type": "function",
+                              "function": {"name": "lookup"}},
+                 logit_bias={"34": 100, "58": 90, "125": 80},
+                 messages=[{"role": "user", "content": "Look up decode."}])
+# the profiled steps: '}' banned, so no object completes and every step
+# folds the full vocabulary
+NO_CLOSE = {"logit_bias": {125: -100.0}}
+
+
+def json_prefix_state(text: str) -> tuple:
+    """The grammar's state after `text`'s UTF-8 bytes from the start of an
+    object (DEAD once a byte breaks it): a guided choice's text, whatever
+    ended it, must never reach DEAD."""
+    state = (json_guide.START, 0, 0)
+    for c in text.encode("utf-8"):
+        state = json_guide.transition_scalar(*state, c)
+        if state[0] == json_guide.DEAD:
+            break
+    return state
+
+
+def guided_phases(engine: Engine, jet_cfg: dict) -> dict:
+    """Phase 14's serving and profiles on the 8B (see the module doc)."""
+    jet = Engine(EngineConfig(**jet_cfg), params=engine.model)
+    t0 = time.monotonic()
+    jet.warmup()
+    emit({"phase": "warmup", "engine": "jetstream_guided",
+          "seconds": time.monotonic() - t0, **jet.windows.stats()})
+    if jet.windows.stats()["graphs"] != 4:
+        raise AssertionError("warmup did not capture the guided graphs")
+    jobs = {f"json{i}": dict(JSON_CHAT, seed=100 + i) for i in range(4)}
+    jobs["json_greedy"] = dict(JSON_CHAT, temperature=0.0)
+    results = {}
+    with serving(jet) as base:
+        ca.reset_launch_counts()
+        win0 = jet.windows.stats()
+
+        def run(name):
+            results[name] = post(base + "/v1/chat/completions", jobs[name],
+                                 False)
+
+        threads = [threading.Thread(target=run, args=(n,)) for n in jobs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        tool = post(base + "/v1/chat/completions", TOOL_CHAT, False)
+        launches = dict(ca.LAUNCHES)
+        worker = stats(base)
+    replays = jet.windows.stats()["replays"] - win0["replays"]
+    choices = {}
+    for name, (status, payload, _, total) in results.items():
+        if status != 200:
+            raise AssertionError(f"{name}: HTTP {status}")
+        c = payload["choices"][0]
+        text, finish = c["message"]["content"], c["finish_reason"]
+        state = json_prefix_state(text)
+        if state[0] == json_guide.DEAD:
+            raise AssertionError(f"{name} ({finish}): {text!r} is no JSON "
+                                 f"object's prefix")
+        parsed = None
+        if finish == "stop":
+            parsed = json.loads(text)
+            if not isinstance(parsed, dict):
+                raise AssertionError(f"{name}: {text!r} is no JSON object")
+        choices[name] = {"finish_reason": finish, "text": text[:120],
+                         "completion_tokens":
+                             payload["usage"]["completion_tokens"],
+                         "parsed": parsed is not None,
+                         "prefix_state": state, "seconds": total}
+    status, payload, _, _ = tool
+    call = payload["choices"][0]
+    args = (call["message"]["tool_calls"][0]["function"]["arguments"]
+            if status == 200 and call["finish_reason"] == "tool_calls"
+            else None)
+    if (args is None or json_prefix_state(args)[0] == json_guide.DEAD
+            or not isinstance(json.loads(args), dict)):
+        raise AssertionError(f"forced tool call: {payload}")
+    # json_mask also masks each guided first token on the prefill logits
+    if launches["json_advance"] == 0 or replays == 0 \
+            or launches["json_mask"] <= launches["json_advance"] \
+            or launches["decode"] == 0:
+        raise AssertionError(f"guided serving: {replays} graph replays, "
+                             f"launches {launches}")
+    row = {"choices": choices,
+           "stopped": sum(c["finish_reason"] == "stop"
+                          for c in choices.values()),
+           "tool_call": call["message"]["tool_calls"][0]["function"],
+           "graph_replays": replays, "launches": launches,
+           "decode_graphs": worker["decode_graphs"],
+           "engine_metrics": worker["metrics"]}
+    emit({"phase": "serve_guided", **row})
+    with torch.inference_mode():
+        for label, kw in (("decode, guided", dict(NO_CLOSE,
+                                                  guided_json=True)),
+                          ("decode", NO_CLOSE)):
+            emit({"phase": "profile", "weights": "none",
+                  **profile_steps(jet, 4, request_kw=lambda i, kw=kw: kw,
+                                  label=label)})
+    del jet
+    release()
+    return row
+
+
+# ------------------------------------------------------------- phase 15 --
+
+
+def adapter_tensors(cfg, name: str) -> dict:
+    """The random rank-16 adapter `name` (ada, bob, cat: seeds 1-3)."""
+    return lora_apply.random_adapter(cfg, LORA_RANK,
+                                     seed=("ada", "bob", "cat").index(name)
+                                     + 1, scale=LORA_SCALE)
+
+
+def write_adapters(cfg, tmp: str) -> dict:
+    """The three adapters at the model's widths: two as adapter.npz, the
+    third as HF-PEFT safetensors -> {name: dir}."""
+    from safetensors.numpy import save_file
+
+    out = {}
+    for name in ("ada", "bob", "cat"):
+        tensors = adapter_tensors(cfg, name)
+        path = os.path.join(tmp, name)
+        if name != "cat":
+            lora_registry.save_adapter_npz(path, tensors, LORA_RANK)
+        else:
+            os.makedirs(path)
+            peft = {}
+            for t in lora_apply.TARGETS:
+                for li in range(cfg.num_layers):
+                    pre = f"base_model.model.model.layers.{li}.self_attn." \
+                          f"{t}_proj"
+                    peft[f"{pre}.lora_A.weight"] = np.ascontiguousarray(
+                        tensors[t + "a"][li].T)
+                    peft[f"{pre}.lora_B.weight"] = np.ascontiguousarray(
+                        tensors[t + "b"][li].T)
+            save_file(peft, os.path.join(path, "adapter_model.safetensors"))
+            with open(os.path.join(path, "adapter_config.json"), "w") as f:
+                json.dump({"r": LORA_RANK, "lora_alpha": LORA_RANK}, f)
+        out[name] = path
+    return out
+
+
+def lora_requests(tok, adapters) -> list:
+    """Greedy requests of 32 tokens, `lora<i>` under adapters[i] (None:
+    the base)."""
+    texts = ("Port this kernel to Hopper.", "Hopper has 132 SMs and",
+             "Sample a poem about split keys.", "The trash page is",
+             LONG_TEXT[:200], "Adapters share one base.")
+    return [GenRequest(f"lora{i}", tok.encode(texts[i]),
+                       max_tokens=MAX_TOKENS, ignore_eos=True, adapter=a)
+            for i, a in enumerate(adapters)]
+
+
+def lora_phases(engine: Engine, eager_cfg: dict, jet_cfg: dict,
+                tok) -> dict:
+    """Phase 15 (see the module doc) -> {"launches": [...]}."""
+    lcfg = dict(lora_slots=LORA_SLOTS, lora_rank=LORA_RANK)
+    phases = []
+    with tempfile.TemporaryDirectory(prefix="dtt_lora_") as tmp:
+        t0 = time.monotonic()
+        paths = write_adapters(engine.model_cfg, tmp)
+        boot = f"ada={paths['ada']},bob={paths['bob']}"
+        jet = Engine(EngineConfig(**jet_cfg, **lcfg, lora_adapters=boot),
+                     params=engine.model)
+        emit({"phase": "lora_engine", "seconds": time.monotonic() - t0,
+              "stack_bytes": jet.lora.stacks.nbytes,
+              "bytes_per_slot": jet.lora.stacks.nbytes // (LORA_SLOTS + 1),
+              "registered": jet.lora.names()})
+        t0 = time.monotonic()
+        jet.warmup()
+        emit({"phase": "warmup", "engine": "jetstream_lora",
+              "seconds": time.monotonic() - t0, **jet.windows.stats()})
+        models = [MODEL, f"{MODEL}:ada", f"{MODEL}:cat"] * 2
+        results = {}
+        with serving(jet) as base:
+            added = post(base + "/v1/adapters", {
+                "name": "cat", "path": paths["cat"], "load": True}, False)
+            listed = json.loads(urllib.request.urlopen(
+                base + "/v1/models", timeout=30).read())
+            ca.reset_launch_counts()
+            win0 = jet.windows.stats()
+
+            def run(i):
+                results[i] = post(base + "/v1/completions", dict(
+                    COMMON, model=models[i],
+                    prompt=f"Adapter {i} on the port:"), False)
+
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(len(models))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            launches = dict(ca.LAUNCHES)
+            worker = stats(base)
+        replays = jet.windows.stats()["replays"] - win0["replays"]
+        ids = {m["id"] for m in listed["data"]}
+        texts = {i: r[1]["choices"][0]["text"] for i, r in results.items()
+                 if r[0] == 200}
+        if (added[0] != 200 or not added[1]["resident"]
+                or ids != {MODEL, *(f"{MODEL}:{n}" for n in paths)}
+                or len(texts) != len(models)
+                or replays == 0
+                or any(launches[k] == 0 for k in ("decode", "prefill"))):
+            raise AssertionError(f"LoRA serving: {added[1]}, {ids}, "
+                                 f"{replays} replays, {launches}")
+        served = {"adapter_post": added[1], "models": sorted(ids),
+                  "requests": len(texts), "graph_replays": replays,
+                  "launches": launches, "lora": worker["lora"]}
+        emit({"phase": "serve_lora", **served})
+        phases.append(served)
+
+        # base-slot streams against lora_slots=0 over the same batch
+        # shapes (the adapters' rows there run as base rows)
+        adapters = [None, "ada", "cat", None, "bob", "ada"]
+        ca.reset_launch_counts()
+        got = run_to_end(jet, lora_requests(tok, adapters))
+        phases.append({"launches": dict(ca.LAUNCHES)})
+        base_eng = Engine(EngineConfig(**jet_cfg), params=engine.model)
+        base_eng.warmup()
+        want = run_to_end(base_eng, lora_requests(tok, [None] * 6))
+        same = {f"lora{i}": got[f"lora{i}"] == want[f"lora{i}"]
+                for i in range(len(adapters))}
+        bad = [rid for i, (rid, eq) in enumerate(same.items())
+               if (adapters[i] is None) != eq]
+        row = {"equal_to_lora_off": same, "adapters": adapters}
+        emit({"phase": "lora_base_slot_parity", **row})
+        if bad:
+            raise AssertionError(f"base streams must equal lora_slots=0 and "
+                                 f"adapter streams differ: {bad}")
+        with torch.inference_mode():
+            forward_checks(jet, adapter_slot=jet.lora.slot_of("ada"))
+            for label, eng, kw in (
+                    ("decode, 3 adapters", jet,
+                     lambda i: {"adapter": (None, "ada", "bob",
+                                            "cat")[i % 4]}),
+                    ("decode, base only, lora_slots=4", jet, None),
+                    ("decode, lora_slots=0", base_eng, None)):
+                emit({"phase": "profile", "weights": "none",
+                      **profile_steps(eng, 4, request_kw=kw, label=label)})
+        del jet, base_eng
+        release()
+
+        # an adapter's greedy stream with n-gram speculation, on phase
+        # 12's softened weights: wq and the adapters' q deltas (B of q)
+        # scaled by Q_SCALE, so that q is scaled as a whole
+        model = soft_attention(engine.model)
+        ref = Engine(EngineConfig(**dict(eager_cfg, prefill_chunk_tokens=0),
+                                  **lcfg), params=model)
+        spec = Engine(EngineConfig(**jet_cfg, **lcfg,
+                                   speculative_mode="ngram",
+                                   num_speculative_tokens=SPEC_K),
+                      params=model)
+        for name in ("ada", "bob"):
+            soft = adapter_tensors(engine.model_cfg, name)
+            soft["qb"] = soft["qb"] * Q_SCALE
+            for eng in (ref, spec):
+                eng.lora.register(name, tensors=soft, rank=LORA_RANK)
+        spec.warmup()
+        reqs = lambda: lora_requests(tok, ["ada", "bob", None])  # noqa
+        row = spec_parity(ref, {"lora_spec": spec}, reqs, "lora_spec_parity")
+        phases.append(row["lora_spec"])
+        if all(rid in row["lora_spec"]["first_differences"]
+               for rid in ("lora0", "lora1")):
+            raise AssertionError("no adapter's greedy stream is the same "
+                                 "with speculation as without it")
+        del ref, spec, model, eng
+        release()
+    return {"launches": [p["launches"] for p in phases]}
+
+
 # Phase 13: the new families at full width and depth, random bf16 weights
 # from seed 0, after the 8B's engines and weights are released: (model,
 # the pools of its int8 forward check and its mixed engines, whether its
@@ -2336,7 +2864,11 @@ def family_phase(model: str, pools, profiled: bool, eager_cfg: dict,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    if args not in ([], ["--kernels-only"]):
+        print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
@@ -2354,6 +2886,13 @@ def main() -> int:
     rows = kernel_checks(dev)
     family_rows = {label: shape_kernel_checks(dev, label, h, kv, d, names)
                    for label, h, kv, d, names in FAMILY_SHAPES}
+    if args:
+        emit({"phase": "kernels_only", "kernel_ms": {
+            **{name: row["kernel_ms"] for name, row in rows.items()},
+            **{f"{name}[{label}]": row["kernel_ms"]
+               for label, fam in family_rows.items()
+               for name, row in fam.items()}}})
+        return 0
 
     t0 = time.monotonic()
     base_cfg = dict(model=MODEL, page_size=PS, num_pages=NUM_PAGES,
@@ -2520,6 +3059,12 @@ def main() -> int:
     profile(mixed, 3, 4 * CHUNK)
     profile(mixed8, 3, 4 * CHUNK)
 
+    # JSON-guided decoding (phase 14) and multi-LoRA serving (phase 15),
+    # the last phases on the 8B's weights
+    rows.update(grammar_kernel_checks(dev))
+    guided = guided_phases(engine, jet_cfg)
+    lora = lora_phases(engine, eager_cfg, jet_cfg, tok)
+
     # the new families (phase 13), once the 8B's engines and weights are
     # released
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -2537,13 +3082,14 @@ def main() -> int:
     # launches summed over the served phases, each counted from zero: the
     # classic engine, the mixed engines, the graph-window engines (bf16
     # and w8a8 weights), the prefix-caching ones (vllm_tpu, trtllm_tpu),
-    # the checkpoint engine and the speculating engines (graph replays
-    # included); the verify windows and head_dim 64 from the speculating
-    # engines' variant counts
+    # the checkpoint engine, the speculating engines, the guided and the
+    # LoRA engines (graph replays included); the verify windows and
+    # head_dim 64 from the speculating engines' variant counts
     launches = dict.fromkeys(ca.LAUNCHES, 0)
     for counts in [phase["launches"] for phase in (
             served, served_mixed[""], served_mixed["_int8"], served_windows,
-            prefix, served_w8a8, prefix_trt, ckpt)] + spec["launches"]:
+            prefix, served_w8a8, prefix_trt, ckpt, guided)] + (
+                spec["launches"] + lora["launches"]):
         for name, n in counts.items():
             launches[name] += n
     for counts in spec["variants"]:

@@ -84,7 +84,14 @@ inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
 //     tile: a zero row keeps the masked products finite (0 * garbage can
 //     be NaN).
 //   - S = Q K^T and O += P V are mma.sync.m16n8k16 bf16 products with f32
-//     accumulation; the fragments come from shared memory through ldmatrix
+//     accumulation. P is not rounded to bf16: it goes in as two bf16 parts
+//     (split_bf16: the rounded P and the rounded remainder), two MMAs per V
+//     fragment, so P V keeps P to about 2^-16 as the TPU kernel's f32
+//     p . v does (`_flash_update`). With P rounded once, the error of a
+//     row grew with the row's RMS, and at the 8B's activations (rows of
+//     RMS near 5) small elements fell outside atol 2e-2 of the f32
+//     version (tests/test_torch_cuda.py, test_kernels_hold_at_large_values).
+//     The fragments come from shared memory through ldmatrix
 //     (V transposed by ldmatrix.trans). Tile rows are padded from D to
 //     D + 8 bf16 values, which shifts consecutive rows by 16 bytes, so the
 //     eight rows of an ldmatrix phase hit disjoint banks for every D % 16.
@@ -107,9 +114,10 @@ inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
 //     head's bf16 scale are copied as they are, widened to bf16 in shared
 //     memory (an int8 value is exact in bf16) once the stage arrives, and
 //     the scales are folded in f32: s_t = (q . k_t) * k_scale_t / sqrt(D),
-//     and P V takes p_t * v_scale_t (rounded to bf16, as P is in the bf16
-//     path) against the integer V; l sums the unscaled p_t. So the TPU's
-//     value * scale product is kept exact and no K value is rounded.
+//     and P V takes p_t * v_scale_t (split in two bf16 parts, as P is in
+//     the bf16 path) against the integer V; l sums the unscaled p_t. So
+//     the TPU's value * scale product is kept exact and no K value is
+//     rounded.
 //
 // Output: the normalized bf16 rows at the q addressing (TileOut::out), or
 // (out == nullptr) the unnormalized partial of the key range: O in f32 at
@@ -209,6 +217,17 @@ __device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// two f32 as two bf16 pairs, big + small = (lo, hi) to within 2^-16 of
+// each value: big is the pair rounded, small the rounded remainder, so that
+// two bf16 MMAs take an f32 operand nearly exactly
+__device__ __forceinline__ void split_bf16(float lo, float hi, unsigned& big,
+                                           unsigned& small) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  const float2 r = __bfloat1622float2(v);
+  big = *reinterpret_cast<const unsigned*>(&v);
+  small = pack_bf16(lo - r.x, hi - r.y);
 }
 
 // K/V tiles of bf16 pool rows: a stage holds the K tile then the V tile,
@@ -584,7 +603,8 @@ __device__ __forceinline__ void attend_mma(
       }
 
       // O += P V: P from the score registers (the m16n8 accumulator layout
-      // of two key blocks is the A layout of one k16 step)
+      // of two key blocks is the A layout of one k16 step), in two bf16
+      // parts, each multiplied into O
 #pragma unroll
       for (int kk = 0; kk < kHalfKeys / 16; ++kk) {
         float p[2][4];
@@ -596,9 +616,11 @@ __device__ __forceinline__ void attend_mma(
                 ? vsc[(2 * kk + hb) * 8 + pair + (e & 1)] : 1.f;
             p[hb][e] = s[2 * kk + hb][e] * vs;
           }
-        const unsigned a[4] = {
-            pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
-            pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+        unsigned a[4], a_lo[4];
+        split_bf16(p[0][0], p[0][1], a[0], a_lo[0]);
+        split_bf16(p[0][2], p[0][3], a[1], a_lo[1]);
+        split_bf16(p[1][0], p[1][1], a[2], a_lo[2]);
+        split_bf16(p[1][2], p[1][3], a[3], a_lo[3]);
         const __nv_bfloat16* vrow = vt + (kk * 16 + (lane & 7)
                                           + (((lane >> 3) & 1) << 3)) * ld
                                     + ((lane >> 4) << 3);
@@ -611,6 +633,8 @@ __device__ __forceinline__ void attend_mma(
           for (int db = 0; db < kSteps; ++db) {
             mma_bf16(o[2 * db], a, b[db][0], b[db][1]);
             mma_bf16(o[2 * db + 1], a, b[db][2], b[db][3]);
+            mma_bf16(o[2 * db], a_lo, b[db][0], b[db][1]);
+            mma_bf16(o[2 * db + 1], a_lo, b[db][2], b[db][3]);
           }
         } else {
 #pragma unroll
@@ -619,6 +643,8 @@ __device__ __forceinline__ void attend_mma(
             ldsm_x4_trans(b, vrow + db * 16);
             mma_bf16(o[2 * db], a, b[0], b[1]);
             mma_bf16(o[2 * db + 1], a, b[2], b[3]);
+            mma_bf16(o[2 * db], a_lo, b[0], b[1]);
+            mma_bf16(o[2 * db + 1], a_lo, b[2], b[3]);
           }
         }
       }

@@ -15,14 +15,22 @@ position, `engine/sampling.py`), the token_counts update, the carry update
 active slot and 0 for an inactive one, which stays on the trash page at
 position 0 and context 1), and the step's token (with logprobs: the chosen
 token's logprob and the top 5) written into row `step_idx` of the
-outputs. A k-step window is k replays of ONE captured step: one capture
+outputs. A JSON-guided step (any live sequence with `guided_json`) masks
+the logits before sampling and advances each guided slot's grammar state
+(`gmode`, `gdepth`, `gbits`, for the slots `gactive` marks) through its
+sampled token after, with the CUDA kernel of `ops/cuda_guide.py` (JAX:
+`json_guide.token_mask` and `fold_bytes` inside the window's scan); with
+LoRA the forward reads each slot's adapter slot from `adapters`. A k-step
+window is k replays of ONE captured step: one capture
 serves every window length (the JAX package compiles a 1-step and a
 k-step program), so a key costs one capture's time and one step's graph
 memory, and a replay's host cost is microseconds against a step's
 milliseconds of device time.
 
-Graphs are keyed by (logprobs, sampling gates): the gates decide which
-sampling ops run. They are captured lazily, in one memory pool shared by
+Graphs are keyed by (logprobs, guided, sampling gates): the gates decide
+which sampling ops run, `guided` whether the grammar kernel does (the JAX
+engine's four guided window variants are two here: one capture serves
+every window length). They are captured lazily, in one memory pool shared by
 all keys (every graph's temporaries are dead when it ends, and replays are
 serialised on one stream), after one warm-up pass of the body on the
 capture stream over an idle batch (every slot inactive: the pass writes
@@ -50,14 +58,16 @@ CUDA a capture or replay that fails raises: nothing falls back to eager.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dynamo_tpu_torch.engine import sampling as smp
-from dynamo_tpu_torch.ops import cuda_attention
+from dynamo_tpu_torch.ops import cuda_attention, cuda_guide
 
 NUM_TOP = 5  # logprobs alternatives the outputs hold per step
 
@@ -86,7 +96,10 @@ def upload(dst: torch.Tensor, arr) -> None:
 class DeviceBatch:
     """The decode batch's static device buffers; with spec_k > 0 also the
     verify step's drafts [B, K] and room [B] inputs and its emitted
-    [B, K+1] and n_acc [B] outputs."""
+    [B, K+1] and n_acc [B] outputs. gmode, gdepth, gbits [B] int32 and
+    gactive [B] bool are the guided slots' grammar state (a slot that is
+    not guided has gactive False); adapters [B] int32 each slot's LoRA
+    slot (0 = base)."""
 
     def __init__(self, b: int, pmax: int, vocab: int, k_max: int, device,
                  spec_k: int = 0):
@@ -120,14 +133,21 @@ class DeviceBatch:
         self.room = z(b, dtype=torch.bool)
         self.out_emitted = z(b, spec_k + 1, dtype=torch.int64)
         self.out_nacc = z(b, dtype=torch.int64)
+        self.gmode = z(b)
+        self.gdepth = z(b)
+        self.gbits = z(b)
+        self.gactive = z(b, dtype=torch.bool)
+        self.adapters = z(b)
 
     def carry(self) -> Tuple[torch.Tensor, ...]:
         """The buffers a step reads and advances (not token_counts)."""
         return (self.tokens, self.positions, self.context_lens, self.step,
-                self.tables, self.step_idx, self.drafts, self.room)
+                self.tables, self.step_idx, self.drafts, self.room,
+                self.gmode, self.gdepth, self.gbits, self.gactive)
 
     def idle(self) -> None:
-        """Every slot inactive on the trash page, nothing drafted."""
+        """Every slot inactive on the trash page, nothing drafted or
+        guided."""
         self.tokens.zero_()
         self.positions.zero_()
         self.context_lens.fill_(1)
@@ -135,6 +155,7 @@ class DeviceBatch:
         self.tables.zero_()
         self.drafts.zero_()
         self.room.zero_()
+        self.gactive.zero_()
 
     def sampling_state(self, gates: Gates) -> smp.SamplingState:
         return smp.SamplingState(
@@ -181,6 +202,26 @@ class Readback:
         return tuple(h[:self._k].numpy().copy() for h in self._host[:self._n])
 
 
+@contextlib.contextmanager
+def capturing(graph, stream, pool=None) -> Iterator[Dict[str, int]]:
+    """torch.cuda.graph(graph) on `stream` (in `pool`), yielding the
+    kernel launches the capture records (cuda_attention.counting_capture),
+    with the cycle collector off meanwhile (torch.cuda.graph collects just
+    before): a collection inside the capture can free an unreachable
+    engine's pinned buffers, whose events are then recorded on their
+    stream, which global capture mode forbids, and the capture is
+    invalidated (seen on the card after a fresh kernel build)."""
+    gc_on = gc.isenabled()
+    gc.disable()
+    try:
+        with cuda_attention.counting_capture() as launches:
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                yield launches
+    finally:
+        if gc_on:
+            gc.enable()
+
+
 class CapturedStep:
     """One captured decode step and the kernel launches it holds."""
 
@@ -202,7 +243,10 @@ class DecodeWindows:
         self.batch = batch
         self.decode_forward = decode_forward
         self.eager = eager
-        self.graphs: Dict[Tuple[bool, Gates], CapturedStep] = {}
+        # the vocab table of guided steps (json_guide.DeviceTable), set by
+        # the engine before the first one
+        self.guide = None
+        self.graphs: Dict[Tuple[bool, bool, Gates], CapturedStep] = {}
         self._pool = None
         self._stream: Optional[torch.cuda.Stream] = None
         self.capture_s = 0.0  # seconds spent warming up and capturing
@@ -214,10 +258,14 @@ class DecodeWindows:
                 "capture_s": self.capture_s, "windows": self.windows,
                 "replays": self.replays}
 
-    def _body(self, forward: Forward, want_lp: bool, gates: Gates) -> None:
+    def _body(self, forward: Forward, want_lp: bool, gates: Gates,
+              guided: bool = False) -> None:
         """One decode step over the batch buffers (see the module doc)."""
         b = self.batch
         logits = forward(b.tokens, b.positions, b.tables, b.context_lens)
+        if guided:
+            cuda_guide.json_mask(logits, b.gmode, b.gdepth, b.gbits,
+                                 b.gactive, self.guide)
         state = b.sampling_state(gates)
         keys = smp.fold_positions(b.slot_keys, b.positions)
         if want_lp:
@@ -230,24 +278,28 @@ class DecodeWindows:
             nxt = smp.sample(logits, state, keys, b.token_counts)
         # only active slots count their emission
         b.token_counts.index_put_((b.rows, nxt), b.step, accumulate=True)
+        if guided:
+            cuda_guide.json_advance(nxt, b.gmode, b.gdepth, b.gbits,
+                                    b.gactive, self.guide)
         b.out_tokens.index_copy_(0, b.step_idx, nxt[None])
         b.tokens.copy_(nxt)
         b.positions += b.step
         b.context_lens += b.step
         b.step_idx += 1
 
-    def run(self, k: int, want_lp: bool, gates: Gates) -> None:
-        """Queue a k-step decode window; its tokens land in rows 0..k-1 of
-        the outputs."""
+    def run(self, k: int, want_lp: bool, gates: Gates,
+            guided: bool = False) -> None:
+        """Queue a k-step decode window (JSON-guided with `guided`); its
+        tokens land in rows 0..k-1 of the outputs."""
         self.batch.step_idx.zero_()
         self.windows += 1
         if self.eager:
             for _ in range(k):
-                self._body(self.decode_forward, want_lp, gates)
+                self._body(self.decode_forward, want_lp, gates, guided)
             return
-        step = self.graphs.get((want_lp, gates))
+        step = self.graphs.get((want_lp, guided, gates))
         if step is None:
-            step = self.capture(want_lp, gates)
+            step = self.capture(want_lp, gates, guided)
         for _ in range(k):
             step.replay()
         self.replays += k
@@ -258,12 +310,13 @@ class DecodeWindows:
         self.batch.step_idx.zero_()
         self._body(forward, want_lp, gates)
 
-    def capture(self, want_lp: bool, gates: Gates) -> CapturedStep:
-        """Warm up and capture the step for (want_lp, gates)."""
+    def capture(self, want_lp: bool, gates: Gates,
+                guided: bool = False) -> CapturedStep:
+        """Warm up and capture the step for (want_lp, guided, gates)."""
         t0 = time.monotonic()
         step = self.capture_body(
-            lambda: self._body(self.decode_forward, want_lp, gates))
-        self.graphs[(want_lp, gates)] = step
+            lambda: self._body(self.decode_forward, want_lp, gates, guided))
+        self.graphs[(want_lp, guided, gates)] = step
         self.capture_s += time.monotonic() - t0
         return step
 
@@ -283,10 +336,8 @@ class DecodeWindows:
             body()
         torch.cuda.current_stream().wait_stream(self._stream)
         graph = torch.cuda.CUDAGraph()
-        with cuda_attention.counting_capture() as launches:
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._stream):
-                body()
+        with capturing(graph, self._stream, self._pool) as launches:
+            body()
         for t, s in zip(b.carry(), saved):
             t.copy_(s)
         return CapturedStep(graph, launches)

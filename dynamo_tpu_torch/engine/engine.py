@@ -50,6 +50,21 @@ Port of the aggregated-serving core of `dynamo_tpu/engine/engine.py`:
   eager). Logprobs requests demote the step to plain decode; penalized
   slots and slots without room for the window emit one token, each
   demotion counted by reason.
+- JSON-guided decoding (`guided_json`: OpenAI response_format
+  json_object and forced tool calls): the grammar kernel
+  (`ops/cuda_guide.py`) masks the prefill logits of a guided request's
+  first token, and every decode step of a batch with a guided sequence
+  masks the logits and advances the grammar state on the device (inside
+  the captured step), with a host mirror per sequence replayed at
+  admission and advanced at readback; guided sequences keep the classic
+  paths (no mixed step) and demote speculation (reason "guided"), as in
+  JAX.
+- Multi-LoRA serving (`lora_slots`, `lora_rank`, `lora_adapters`): a
+  `lora.registry.LoRARegistry` of device slots whose stacks every forward
+  reads with each sequence's slot (`DeviceBatch.adapters` in the captured
+  steps); admission acquires the adapter's slot (a request waits while
+  every slot serves live sequences) and the prefix cache keys pages by
+  adapter.
 - Stops (stop ids, model eos unless `ignore_eos`, `max_tokens`,
   `max_seq_len`), aborts, logprobs, OutOfPages deferral at admission and
   preemption by recompute when decode runs out of pages.
@@ -93,8 +108,12 @@ from dynamo_tpu_torch.engine.kv_cache import (
     alloc_kv_pages,
 )
 from dynamo_tpu_torch.engine.request import GenRequest, TokenEvent
+from dynamo_tpu_torch.engine.tokenizer import get_tokenizer
+from dynamo_tpu_torch.lora.registry import (LoRARegistry, NoFreeAdapterSlot,
+                                            parse_adapter_list)
 from dynamo_tpu_torch.models import llama, loader, quant
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.ops import cuda_guide, json_guide
 from dynamo_tpu_torch.speculation import AdaptiveK, DraftEngine
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
@@ -114,7 +133,6 @@ def resolve_device(device=None) -> torch.device:
 def unported_settings(cfg: EngineConfig) -> List[str]:
     """EngineConfig fields set to something the port does not serve."""
     checks = [
-        ("lora_slots", cfg.lora_slots > 0),
         ("kvbm_host_blocks", cfg.kvbm_host_blocks > 0),
         ("tensor_parallel", cfg.tensor_parallel > 1),
         ("data_parallel", cfg.data_parallel > 1),
@@ -287,16 +305,18 @@ class EngineMetrics:
 class InflightPrefill:
     """A long prompt being prefilled chunk by chunk between decode steps."""
 
-    __slots__ = ("req", "pages", "pages_dev", "prompt_len", "done", "slot")
+    __slots__ = ("req", "pages", "pages_dev", "prompt_len", "done", "slot",
+                 "aslot")
 
     def __init__(self, req: GenRequest, pages, pages_dev, prompt_len: int,
-                 slot: int):
+                 slot: int, aslot: int = 0):
         self.req = req
         self.pages = pages  # real page ids (allocator-owned)
         self.pages_dev = pages_dev  # trash-padded page list on the device
         self.prompt_len = prompt_len
         self.done = 0  # tokens whose KV is cached so far
         self.slot = slot  # decode slot reserved at admission
+        self.aslot = aslot  # LoRA slot (0 = base), pinned while in flight
 
 
 class Engine:
@@ -398,6 +418,7 @@ class Engine:
         self.bias_ids = np.full((b, smp.BIAS_K), -1, np.int64)
         self.bias_vals = np.zeros((b, smp.BIAS_K), np.float32)
         self.slot_keys = np.zeros((b,), np.int64)  # sampling chain roots
+        self.adapter_slots = np.zeros((b,), np.int32)  # LoRA slots, 0 = base
         spec_k = (cfg.num_speculative_tokens
                   if cfg.speculative_mode != "off" else 0)
         self.batch = DeviceBatch(b, pmax, model_cfg.vocab_size,
@@ -445,12 +466,27 @@ class Engine:
         self._aborted: set = set()
         self._inflight: Optional[InflightPrefill] = None
         self._rng = np.random.default_rng(cfg.seed)  # unseeded chain roots
+        # JSON-guided decoding: the vocab byte table (host; its device copy
+        # is windows.guide), built at first use
+        self._guide_table: Optional[json_guide.VocabTable] = None
+        # multi-LoRA serving: the adapter registry and its device stacks,
+        # with the boot adapters registered (loaded into slots at first use)
+        self.lora: Optional[LoRARegistry] = None
+        if cfg.lora_slots > 0:
+            self.lora = LoRARegistry(self)
+            for name, path in parse_adapter_list(cfg.lora_adapters or ""):
+                self.lora.register(name, path=path)
+            log.info("multi-LoRA serving: %d device slots x rank <= %d "
+                     "(%d bytes of stacks; boot adapters: %s)",
+                     cfg.lora_slots, cfg.lora_rank, self.lora.stacks.nbytes,
+                     self.lora.names() or "none")
 
     # ------------------------------------------------------------- intake --
 
     def warmup(self) -> None:
-        """Build the attention kernels and capture the greedy decode steps
-        (with and without logprobs), and with speculation the greedy
+        """Build the kernels and capture the greedy decode steps (with and
+        without logprobs, plain and JSON-guided: any request may ask for
+        response_format json_object), and with speculation the greedy
         verify step and the draft model's step, before serving, on the
         card; the eager prefills have nothing to compile. Needs an idle
         engine."""
@@ -465,34 +501,45 @@ class Engine:
             return
         with self._exec_lock, torch.inference_mode():
             self._ensure_dev_state()
+            self._ensure_guide_table()
             greedy = smp.gates([0.0], [1.0], [0], [0.0], [0.0], [0.0], [-1])
             for want_lp in (False, True):
-                if (want_lp, greedy) not in self.windows.graphs:
-                    self.windows.capture(want_lp, greedy)
+                for guided in (False, True):
+                    if (want_lp, guided, greedy) not in self.windows.graphs:
+                        self.windows.capture(want_lp, greedy, guided)
             if self.verify is not None and greedy not in self.verify.graphs:
                 self.verify.capture(greedy)
             if self.draft is not None and self.draft._graph is None:
                 self.draft.capture()
             torch.cuda.synchronize(self.device)
 
+    @property
+    def lora_stacks(self):
+        """The LoRA stacks every forward reads (None: no adapters)."""
+        return self.lora.stacks if self.lora is not None else None
+
     def _decode_forward(self, tokens, positions, tables, ctx):
         return llama.decode_step(self.model, tokens, positions, tables, ctx,
                                  self.k_pages, self.v_pages,
-                                 page_size=self.cfg.page_size)
+                                 page_size=self.cfg.page_size,
+                                 lora=self.lora_stacks,
+                                 adapter_slots=self.batch.adapters)
 
     def _verify_forward(self, tokens, positions, tables, room):
         return llama.decode_verify(self.model, tokens, positions, tables,
                                    room, self.k_pages, self.v_pages,
-                                   page_size=self.cfg.page_size)
+                                   page_size=self.cfg.page_size,
+                                   lora=self.lora_stacks,
+                                   adapter_slots=self.batch.adapters)
 
     def validate_request(self, req: GenRequest) -> None:
         """Raise ValueError if the request can never be served here."""
-        if req.guided_json:
-            raise ValueError("guided_json (response_format json_object) is "
-                             "not supported by dynamo_tpu_torch yet")
         if req.adapter:
-            raise ValueError("LoRA adapters are not supported by "
-                             "dynamo_tpu_torch yet")
+            if self.lora is None:
+                raise ValueError(
+                    "adapter requests need --lora-slots > 0 on this worker")
+            if not self.lora.known(req.adapter):
+                raise ValueError(f"unknown adapter {req.adapter!r}")
         if req.resume_key is not None:
             raise ValueError("resume_key continuations are not supported by "
                              "dynamo_tpu_torch yet")
@@ -623,13 +670,29 @@ class Engine:
                 if not self.pending:
                     break
                 req = self.pending[0]
+            if req.adapter:
+                # resolve (and lazily load) the adapter BEFORE any
+                # allocation: from here to installation nothing else can
+                # evict its slot (group widening only admits adapters
+                # that are already resident)
+                try:
+                    self._adapter_slot(req)
+                except NoFreeAdapterSlot:
+                    break  # every slot serves live sequences: wait
+                except KeyError:  # unregistered since it was submitted
+                    with self._lock:
+                        self.pending.remove(req)
+                    events.append(TokenEvent(req.request_id, -1, 0, True,
+                                             "abort"))
+                    continue
             # prefix lookup BEFORE the page gate: only the suffix needs
             # fresh pages, and gating on the whole prompt could evict this
             # very request's cached prefix for pages it never allocates
             cached_pages, n_cached = [], 0
             if self.prefix_cache is not None:
                 cached_pages, n_cached = self.prefix_cache.lookup(
-                    req.prompt_token_ids)
+                    req.prompt_token_ids,
+                    namespace=self._kv_namespace(req.adapter))
             n_pages = max(1, -(-len(req.prompt_token_ids)
                                // self.cfg.page_size))
             if not self._ensure_pages(n_pages - len(cached_pages)):
@@ -689,8 +752,16 @@ class Engine:
                 break  # chunked path
             if _next_bucket(plen, cfg.page_size, cfg.max_seq_len) != bucket:
                 break
+            if nxt.adapter and (self.lora is None
+                                or self.lora.slot_of(nxt.adapter) is None):
+                # a non-resident adapter loads on its own pass, so that
+                # the load (which may evict a slot an earlier member just
+                # resolved) never runs mid-group
+                break
             if (self.prefix_cache is not None
-                    and self.prefix_cache.has_prefix(nxt.prompt_token_ids)):
+                    and self.prefix_cache.has_prefix(
+                        nxt.prompt_token_ids,
+                        namespace=self._kv_namespace(nxt.adapter))):
                 break  # cached prefix: chunked path
             n_pg = max(1, -(-plen // cfg.page_size))
             if not self._ensure_pages(need + n_pg):
@@ -703,6 +774,19 @@ class Engine:
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+    def _adapter_slot(self, req: GenRequest) -> int:
+        """A request's LoRA slot, loading its adapter into one if it is
+        not resident (LRU-evicting an idle one). 0 = base."""
+        if self.lora is None or not req.adapter:
+            return 0
+        return self.lora.acquire_slot(req.adapter)
+
+    @staticmethod
+    def _kv_namespace(adapter: Optional[str]) -> str:
+        """The prefix cache's namespace of a request: its adapter, so an
+        adapter and the base never share a page."""
+        return adapter or ""
 
     def _prefill_group(self, reqs: List[GenRequest]
                        ) -> Optional[List[TokenEvent]]:
@@ -731,10 +815,14 @@ class Engine:
                 for r in reversed(reqs):
                     self._insert_pending(r, requeue=True)
             return None
+        # every lane's adapter is resident (_admit resolved the first,
+        # _widen_group pulls only resident ones): these are LRU bumps
+        aslots = [self._adapter_slot(r) for r in reqs]
         logits = llama.prefill_batch(
             self.model, self._tensor(tokens), self._tensor(seq_lens),
             self.k_pages, self.v_pages, self._tensor(pages_arr),
-            page_size=cfg.page_size)
+            page_size=cfg.page_size, lora=self.lora_stacks,
+            adapter_slots=self._tensor(aslots, torch.int32))
         keys = [self._request_key(r) for r in reqs]
         toks, chosen, tids, tvals = self._sample_first(
             logits, reqs, keys, [int(s) - 1 for s in seq_lens])
@@ -765,9 +853,48 @@ class Engine:
         return (req.presence_penalty * (row > 0).astype(np.float32)
                 + req.frequency_penalty * row)
 
+    def _ensure_guide_table(self) -> json_guide.VocabTable:
+        """The vocab byte table of JSON-guided decoding, built once per
+        engine and sized to the model vocab (JAX `_ensure_guide_table`): a
+        local HF tokenizer's pieces, else the byte vocab (ids < 256 are
+        bytes); its device copy goes to the decode windows."""
+        if self._guide_table is None:
+            mcfg = self.model_cfg
+            eos = [mcfg.eos_token_id, *mcfg.extra_stop_token_ids]
+            tok = get_tokenizer(self.cfg.model, self.cfg.model_path)
+            if hasattr(tok, "tok"):
+                table = json_guide.VocabTable.for_tokenizer(
+                    tok, eos, vocab_size=mcfg.vocab_size)
+            else:
+                table = json_guide.VocabTable.for_byte_vocab(
+                    mcfg.vocab_size, eos)
+            self.windows.guide = json_guide.DeviceTable(table, self.device)
+            self._guide_table = table
+        return self._guide_table
+
+    def _guide_first(self, logits, reqs) -> torch.Tensor:
+        """The prefill logits [N, V] as float32 with each guided request's
+        grammar mask applied on the logits' device (`cuda_guide.json_mask`:
+        -1e9 on disallowed tokens), from the state its prior output (a
+        preempted continuation's) replays to."""
+        t = self._ensure_guide_table()
+        states = [json_guide.replay_scalar(t, r.prior_output_token_ids)
+                  if r.guided_json else (json_guide.START, 0, 0)
+                  for r in reqs]
+        mode, depth, bits = (self._tensor([s[k] for s in states],
+                                          torch.int32) for k in range(3))
+        active = self._tensor([bool(r.guided_json) for r in reqs],
+                              torch.bool)
+        masked = logits.to(torch.float32, copy=True).contiguous()
+        return cuda_guide.json_mask(masked, mode, depth, bits, active,
+                                    self.windows.guide)
+
     def _sample_first(self, logits, reqs, keys, positions):
         """First tokens from prefill logits [N, V]: per-request sampling
-        params and chains; logprobs always computed (from raw logits)."""
+        params and chains, a guided request's grammar mask; logprobs
+        always computed, from the logits before penalties (a guided
+        request's masked by its grammar, as its decode steps' are, unless
+        it carries a penalty row: JAX `_first_token`)."""
         n = len(reqs)
         bias = [_pack_logit_bias(r) for r in reqs]
         state = smp.make_state(
@@ -776,16 +903,21 @@ class Engine:
             bias_ids=np.stack([b[0] for b in bias]),
             bias_vals=np.stack([b[1] for b in bias]), device=self.device)
         pen = [self._penalty_row(r) for r in reqs]
-        sample_logits = logits
+        sample_logits = lp_logits = logits
+        if any(r.guided_json for r in reqs):
+            sample_logits = lp_logits = self._guide_first(logits, reqs)
         if any(p is not None for p in pen):
             rows = np.zeros((n, self.model_cfg.vocab_size), np.float32)
             for i, p in enumerate(pen):
                 if p is not None:
                     rows[i] = p
-            sample_logits = logits.float() - self._tensor(rows)
+            has_pen = self._tensor([p is not None for p in pen], torch.bool)
+            lp_logits = torch.where(has_pen[:, None], logits.float(),
+                                    sample_logits.float())
+            sample_logits = sample_logits.float() - self._tensor(rows)
         toks = smp.sample(sample_logits, state,
                           smp.fold_positions(keys, positions))
-        logp = torch.log_softmax(logits.float(), dim=-1)
+        logp = torch.log_softmax(lp_logits.float(), dim=-1)
         chosen = logp.gather(1, toks[:, None])[:, 0]
         tvals, tids = logp.topk(min(5, logp.shape[-1]), dim=-1)
         return (toks.cpu().numpy(), chosen.cpu().numpy(),
@@ -797,7 +929,8 @@ class Engine:
         """Publish the prompt's full pages to the prefix cache, install the
         slot, stop-check the first token, decorate logprobs."""
         if self.prefix_cache is not None:
-            self.prefix_cache.insert(req.prompt_token_ids, pages)
+            self.prefix_cache.insert(req.prompt_token_ids, pages,
+                                     namespace=self._kv_namespace(req.adapter))
         if slot is None:
             slot = self._free_slots.pop()
         seq = self._install_slot(req, slot, pages, prompt_len, first, req_key)
@@ -823,7 +956,8 @@ class Engine:
         tokens[:prompt_len] = prompt
         logits = llama.prefill(
             self.model, self._tensor(tokens), prompt_len, self.k_pages,
-            self.v_pages, self._tensor(pages_arr), page_size=cfg.page_size)
+            self.v_pages, self._tensor(pages_arr), page_size=cfg.page_size,
+            lora=self.lora_stacks, adapter_slots=self._adapter_slot(req))
         key = self._request_key(req)
         toks, chosen, tids, tvals = self._sample_first(
             logits[None], [req], [key], [prompt_len - 1])
@@ -852,7 +986,8 @@ class Engine:
         pages_arr[:len(pages)] = pages
         slot = self._free_slots.pop()
         self._inflight = InflightPrefill(req, pages, self._tensor(pages_arr),
-                                         prompt_len, slot)
+                                         prompt_len, slot,
+                                         self._adapter_slot(req))
         self._inflight.done = n_cached  # a cached prefix skips to the suffix
 
     def _advance_chunk(self) -> List[TokenEvent]:
@@ -868,7 +1003,8 @@ class Engine:
         tokens[:take] = inf.req.prompt_token_ids[start:start + take]
         logits = llama.prefill_chunk(
             self.model, self._tensor(tokens), start, take, self.k_pages,
-            self.v_pages, inf.pages_dev, page_size=cfg.page_size)
+            self.v_pages, inf.pages_dev, page_size=cfg.page_size,
+            lora=self.lora_stacks, adapter_slots=inf.aslot)
         inf.done += take
         self.metrics.prefill_time_s += time.monotonic() - t0
         if inf.done < inf.prompt_len:
@@ -895,11 +1031,14 @@ class Engine:
 
     def _mixed_eligible(self) -> bool:
         """The mixed step serves this iteration iff a chunked prefill is in
-        flight AND decode slots are live; otherwise the classic paths
-        (full or batched prefill when idle, plain decode when nothing is
-        admitting) do the work."""
+        flight AND decode slots are live AND none of them is JSON-guided
+        (the mixed step carries no grammar; the inflight request's own
+        first token is masked all the same: `_guide_first`); otherwise the
+        classic paths (full or batched prefill when idle, plain decode
+        when nothing is admitting) do the work."""
         return (self.cfg.mixed_batch_tokens > 0
-                and self._inflight is not None and bool(self.seqs))
+                and self._inflight is not None and bool(self.seqs)
+                and not self._any_guided())
 
     def _mixed_step(self) -> List[TokenEvent]:
         """One mixed step: a single forward advances every decode slot by
@@ -929,7 +1068,9 @@ class Engine:
             logits, last = llama.mixed_step(
                 self.model, tokens, positions, tables, ctx, chunk_dev, start,
                 take, inf.pages_dev, self.k_pages, self.v_pages,
-                page_size=cfg.page_size)
+                page_size=cfg.page_size, lora=self.lora_stacks,
+                adapter_slots=self.batch.adapters,
+                chunk_adapter_slot=inf.aslot)
             chunk_logits.append(last)
             return logits
 
@@ -961,7 +1102,14 @@ class Engine:
                        logprobs=req.logprobs)
         seq.prompt_ids = list(req.prompt_token_ids)
         seq.req = req
+        seq.adapter_slot = self._adapter_slot(req)  # resident: an LRU bump
+        self.adapter_slots[slot] = seq.adapter_slot
         seq.output_tokens.append(first)
+        if req.guided_json:
+            # a preempted continuation resumes mid-object
+            seq.guide = json_guide.replay_scalar(
+                self._ensure_guide_table(),
+                [*req.prior_output_token_ids, first])
         self.seqs[slot] = seq
         self.block_tables[slot, :] = 0
         self.block_tables[slot, :len(pages)] = pages
@@ -1176,6 +1324,9 @@ class Engine:
             positions = np.zeros((n,), np.int32)
             ctx = np.ones((n,), np.int32)  # inactive: trash page, context 1
             step = np.zeros((n,), np.int32)
+            # the guided slots' grammar state from their host mirrors
+            guide = np.zeros((3, n), np.int32)
+            gactive = np.zeros((n,), np.bool_)
             for slot in range(n):
                 seq = self.seqs.get(slot)
                 if seq is None:
@@ -1185,8 +1336,14 @@ class Engine:
                 positions[slot] = seq.num_tokens
                 ctx[slot] = seq.num_tokens + 1
                 step[slot] = 1
+                if seq.guide is not None:
+                    guide[:, slot] = seq.guide
+                    gactive[slot] = True
             for dst, arr in ((b.tokens, tokens), (b.positions, positions),
-                             (b.context_lens, ctx), (b.step, step)):
+                             (b.context_lens, ctx), (b.step, step),
+                             (b.gmode, guide[0]), (b.gdepth, guide[1]),
+                             (b.gbits, guide[2]), (b.gactive, gactive),
+                             (b.adapters, self.adapter_slots)):
                 upload(dst, arr)
             self._dev_state_ok = True
             self._dev_tables_ok = False
@@ -1235,7 +1392,8 @@ class Engine:
         self._check_window_pages(window, offset)
         want_lp = any(s.logprobs is not None for s in self.seqs.values())
         if forward is None:
-            self.windows.run(window, want_lp, self._gates)
+            self.windows.run(window, want_lp, self._gates,
+                             self._any_guided())
         else:
             self.windows.run_eager(forward, want_lp, self._gates)
         rb = self._readbacks[self._next_readback]
@@ -1283,6 +1441,11 @@ class Engine:
         and stop-check it."""
         seq.num_tokens += 1
         seq.output_tokens.append(tok)
+        if seq.guide is not None:
+            # the host mirror keeps up with the device state, so a
+            # rebuild of the batch resumes mid-object
+            seq.guide = json_guide.advance_scalar(self._guide_table,
+                                                  seq.guide, tok)
         self.metrics.output_tokens += 1
         finished, reason = self._check_stop(seq, tok)
         return TokenEvent(seq.request_id, tok, len(seq.output_tokens) - 1,
@@ -1314,6 +1477,7 @@ class Engine:
         self.min_p[slot] = 0.0
         self.bias_ids[slot] = -1
         self.bias_vals[slot] = 0.0
+        self.adapter_slots[slot] = 0  # unpins the LoRA slot
         # the draft pool's pages and the adaptive window key on the decode
         # slot: every way out clears them before the slot's next tenant
         if self.draft is not None:
@@ -1327,6 +1491,9 @@ class Engine:
 
     def _any_logprobs(self) -> bool:
         return any(s.logprobs is not None for s in self.seqs.values())
+
+    def _any_guided(self) -> bool:
+        return any(s.guide is not None for s in self.seqs.values())
 
     def _propose_ngram(self, seq: SeqState) -> List[int]:
         """Prompt-lookup drafts: match the last `ngram_lookup` tokens of
@@ -1349,9 +1516,13 @@ class Engine:
 
     def _spec_demoted(self) -> bool:
         """Batch-wide demotion of a verify step to the plain decode path,
-        counted: a logprobs request (per-position logprobs are not read
-        out of the verify step). Guided requests, the JAX engine's other
-        reason, are refused by validate_request."""
+        counted by reason: a JSON-guided sequence (the verify step samples
+        unmasked logits, so drafts could escape the grammar) or a logprobs
+        request (per-position logprobs are not read out of the verify
+        step)."""
+        if self._any_guided():
+            self.metrics.demote("guided")
+            return True
         if self._any_logprobs():
             self.metrics.demote("logprobs")
             return True
@@ -1504,7 +1675,9 @@ class Engine:
             logits, last = llama.mixed_verify_step(
                 self.model, tokens, positions, tables, room_dev, chunk_dev,
                 start, take, inf.pages_dev, self.k_pages, self.v_pages,
-                page_size=cfg.page_size)
+                page_size=cfg.page_size, lora=self.lora_stacks,
+                adapter_slots=self.batch.adapters,
+                chunk_adapter_slot=inf.aslot)
             chunk_logits.append(last)
             return logits
 

@@ -164,22 +164,28 @@ class PrefixCache:
         h.update(np.asarray(block, dtype=np.int64).tobytes())
         return h.digest()
 
-    def _hashes(self, tokens, n_blocks: int) -> List[bytes]:
-        """The rolling hash of each of the first n_blocks full pages."""
-        out, h = [], b"root"
+    def _hashes(self, tokens, n_blocks: int,
+                namespace: str = "") -> List[bytes]:
+        """The rolling hash of each of the first n_blocks full pages. A
+        `namespace` (a LoRA adapter) seeds the chain's root, so two
+        adapters, or an adapter and the base model, never share a page
+        (JAX `PrefixCache._hashes`, byte for byte)."""
+        out, h = [], (b"root" if not namespace
+                      else b"root|" + namespace.encode("utf-8"))
         for i in range(n_blocks):
             h = self._chain(h, tokens[i * self.page_size:
                                       (i + 1) * self.page_size])
             out.append(h)
         return out
 
-    def lookup(self, prompt_tokens) -> Tuple[List[int], int]:
+    def lookup(self, prompt_tokens,
+               namespace: str = "") -> Tuple[List[int], int]:
         """Longest cached prefix: (page ids, tokens). The pages come back
         ref'd for the caller. Leaves >= 1 token uncached so the last
         token's logits are computed."""
         limit = (len(prompt_tokens) - 1) // self.page_size
         pages: List[int] = []
-        for h in self._hashes(prompt_tokens, limit):
+        for h in self._hashes(prompt_tokens, limit, namespace):
             page = self._map.get(h)
             if page is None:
                 break
@@ -193,18 +199,19 @@ class PrefixCache:
             self.misses += 1
         return pages, len(pages) * self.page_size
 
-    def has_prefix(self, prompt_tokens) -> bool:
+    def has_prefix(self, prompt_tokens, namespace: str = "") -> bool:
         """True when lookup() would hit, without taking references, bumping
         the LRU order or counting (admission grouping peeks)."""
         if len(prompt_tokens) <= self.page_size:
             return False
-        return self._hashes(prompt_tokens, 1)[0] in self._map
+        return self._hashes(prompt_tokens, 1, namespace)[0] in self._map
 
-    def insert(self, prompt_tokens, pages: List[int]) -> None:
+    def insert(self, prompt_tokens, pages: List[int],
+               namespace: str = "") -> None:
         """Publish a fully prefilled prompt's full pages; each newly
         published page gains a cache-owned reference."""
         n_full = len(prompt_tokens) // self.page_size
-        for h, page in zip(self._hashes(prompt_tokens, n_full),
+        for h, page in zip(self._hashes(prompt_tokens, n_full, namespace),
                            pages[:n_full]):
             if h in self._map:
                 continue
@@ -246,7 +253,8 @@ class SeqState:
     __slots__ = (
         "request_id", "slot", "pages", "num_tokens", "output_tokens",
         "max_tokens", "temperature", "top_p", "top_k", "stop_token_ids",
-        "prompt_len", "logprobs", "prompt_ids", "req",
+        "prompt_len", "logprobs", "prompt_ids", "req", "guide",
+        "adapter_slot",
     )
 
     def __init__(
@@ -276,3 +284,7 @@ class SeqState:
         self.logprobs = logprobs
         self.prompt_ids: List[int] = []
         self.req = None  # originating GenRequest (preemption continuation)
+        # JSON-guided: the grammar state (mode, depth, bits) after the
+        # output so far (the host mirror of the device state), else None
+        self.guide: Optional[tuple] = None
+        self.adapter_slot = 0  # LoRA slot (0 = base)

@@ -22,6 +22,15 @@ in idiom, not in arithmetic:
   (`ops.attention.DISPATCH` by default: the CUDA kernels on the card, the
   plain versions on the CPU; `ops.attention.PLAIN` forces the plain ones).
 
+Multi-LoRA (`dynamo_tpu_torch.lora`): every forward takes `lora`, the
+engine's `lora.apply.Stacks` (None: no adapters), and `adapter_slots`,
+each sequence's slot (0 = the all-zero base slot): an int for the
+single-prompt prefill and chunk, [N] for a batched prefill, [B] for the
+decode and verify steps (a verify window repeats its slot over K+1 rows),
+with `chunk_adapter_slot` for the chunk of a mixed step. q, k, v and o
+each add their row's `lora.apply.delta` (JAX `llama.py` `_qkv`,
+`_attn_out`).
+
 Projections and the LM head are plain matmuls, as the JAX package leaves
 them to XLA; a weight quantized by `models.quant` (a `QTensor`, weight-only
 or W8A8) goes through `quant.matmul` instead, and a quantized embedding
@@ -32,12 +41,13 @@ only tensor ops.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dynamo_tpu_torch.lora import apply as lora_apply
 from dynamo_tpu_torch.models import quant
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops import attention as att
@@ -148,15 +158,23 @@ def _rope(cfg: ModelConfig, positions: torch.Tensor):
                         llama3_scaling=cfg.rope_llama3_scaling)
 
 
-def _qkv(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor, rope):
+def _qkv(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor, rope,
+         lora=None):
     """x [T, E] -> q [T, H, D], k/v [T, KV, D]: the projections, their
-    biases (`attention_bias`), the per-head norms of q and k
-    (`qk_norm`), then rope (cos, sin) on q and k, in the JAX order."""
+    LoRA deltas (`lora`: this layer's {target: (A, B)} stacks and the
+    rows' `lora.apply.slot_rows` mask), their biases (`attention_bias`), the per-head norms
+    of q and k (`qk_norm`), then rope (cos, sin) on q and k, in the JAX
+    order."""
     t = x.shape[0]
     act = quant.shared_activations(x, layer.wq)
     q = quant.matmul(x, layer.wq, act)
     k = quant.matmul(x, layer.wk, act)
     v = quant.matmul(x, layer.wv, act)
+    if lora is not None:
+        stacks, rows = lora
+        q = q + lora_apply.delta_rows(x, *stacks["q"], rows)
+        k = k + lora_apply.delta_rows(x, *stacks["k"], rows)
+        v = v + lora_apply.delta_rows(x, *stacks["v"], rows)
     if cfg.attention_bias:
         q, k, v = q + layer.bq, k + layer.bk, v + layer.bv
     q = q.view(t, cfg.num_heads, cfg.head_dim)
@@ -167,9 +185,16 @@ def _qkv(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor, rope):
     return rotate(q, *rope), rotate(k, *rope), v
 
 
-def _attn_out(layer: LlamaLayer, o: torch.Tensor) -> torch.Tensor:
-    """Attention output [T, H, D] -> residual [T, E]."""
-    return quant.matmul(o.reshape(o.shape[0], -1), layer.wo)
+def _attn_out(layer: LlamaLayer, o: torch.Tensor, lora=None
+              ) -> torch.Tensor:
+    """Attention output [T, H, D] -> residual [T, E], plus the rows' o
+    deltas with `lora` (see _qkv)."""
+    o2 = o.reshape(o.shape[0], -1)
+    out = quant.matmul(o2, layer.wo)
+    if lora is not None:
+        stacks, rows = lora
+        out = out + lora_apply.delta_rows(o2, *stacks["o"], rows)
+    return out
 
 
 def _mlp(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor
@@ -190,20 +215,44 @@ def _logits(model: Llama, x: torch.Tensor) -> torch.Tensor:
     return quant.matmul(x, model.lm_head)
 
 
-def _layer(cfg, layer, x, rope, attend):
+def _row_slots(lora: Optional[lora_apply.Stacks], slots, n: int,
+               device) -> Optional[torch.Tensor]:
+    """Per-row adapter slots [n] of a forward: `slots` as a tensor (one
+    per row), or one int repeated (None: the base slot); None without
+    `lora`."""
+    if lora is None:
+        return None
+    if isinstance(slots, torch.Tensor):
+        return slots.to(device)
+    return torch.full((n,), int(slots or 0), dtype=torch.int32,
+                      device=device)
+
+
+def _slot_rows(lora: Optional[lora_apply.Stacks], slots, dtype):
+    """The slot_rows mask of per-row slots (None without `lora`)."""
+    if lora is None:
+        return None
+    return lora_apply.slot_rows(slots, lora.num_slots, dtype)
+
+
+def _layer(cfg, layer, x, rope, attend, lora=None, l=0, rows=None):
     """One decoder layer around `attend(q, k, v) -> o`, which also owns
-    the KV write (before or after attention, as the caller needs)."""
+    the KV write (before or after attention, as the caller needs); with
+    `lora` (Stacks) the projections add the deltas of the rows' slots
+    (`rows`: their slot_rows mask)."""
+    ll = None if lora is None else (lora.layer(l), rows)
     h = _norm(cfg, x, layer.attn_norm)
-    q, k, v = _qkv(cfg, layer, h, rope)
-    x = x + _attn_out(layer, attend(q, k, v))
+    q, k, v = _qkv(cfg, layer, h, rope, ll)
+    x = x + _attn_out(layer, attend(q, k, v), ll)
     h = _norm(cfg, x, layer.mlp_norm)
     return x + _mlp(cfg, layer, h)
 
 
 def prefill(model: Llama, tokens: torch.Tensor, seq_len: int,
             k_pages: torch.Tensor, v_pages: torch.Tensor, pages: torch.Tensor,
-            *, page_size: int, attn: att.AttentionFns = att.DISPATCH
-            ) -> torch.Tensor:
+            *, page_size: int, attn: att.AttentionFns = att.DISPATCH,
+            lora: Optional[lora_apply.Stacks] = None,
+            adapter_slots: int = 0) -> torch.Tensor:
     """One padded prompt tokens [S] (S a page multiple, seq_len true
     tokens) -> logits [V] at the last real token; writes the prompt's KV
     into `pages` [S // ps] of every layer's pool."""
@@ -211,7 +260,9 @@ def prefill(model: Llama, tokens: torch.Tensor, seq_len: int,
     s = tokens.shape[0]
     rope = _rope(cfg, torch.arange(s, device=tokens.device))
     lens = torch.tensor([seq_len], dtype=torch.int32).to(tokens.device)
+    slots = _row_slots(lora, adapter_slots, s, tokens.device)
     x = _embed_rows(model, tokens)
+    rows = _slot_rows(lora, slots, model.dtype)
     for l, layer in enumerate(model.layers):
         kp, vp = k_pages[l], v_pages[l]
 
@@ -220,15 +271,16 @@ def prefill(model: Llama, tokens: torch.Tensor, seq_len: int,
             att.write_kv_prefill(kp, vp, k, v, pages, page_size=page_size)
             return o
 
-        x = _layer(cfg, layer, x, rope, attend)
+        x = _layer(cfg, layer, x, rope, attend, lora, l, rows)
     return _logits(model, x[seq_len - 1][None])[0]
 
 
 def prefill_chunk(model: Llama, tokens: torch.Tensor, start: int,
                   chunk_len: int, k_pages: torch.Tensor,
                   v_pages: torch.Tensor, pages: torch.Tensor, *,
-                  page_size: int, attn: att.AttentionFns = att.DISPATCH
-                  ) -> torch.Tensor:
+                  page_size: int, attn: att.AttentionFns = att.DISPATCH,
+                  lora: Optional[lora_apply.Stacks] = None,
+                  adapter_slots: int = 0) -> torch.Tensor:
     """One chunk tokens [C] (page multiple, chunk_len valid) at absolute
     position `start` of a sequence whose pages are `pages` [W] (ALL of
     them, trash-padded): write the chunk's KV, attend prefix + chunk, and
@@ -239,7 +291,9 @@ def prefill_chunk(model: Llama, tokens: torch.Tensor, start: int,
     rope = _rope(cfg, start + torch.arange(c, device=tokens.device))
     first = start // page_size
     chunk_pages = pages[first:first + c // page_size]
+    slots = _row_slots(lora, adapter_slots, c, tokens.device)
     x = _embed_rows(model, tokens)
+    rows = _slot_rows(lora, slots, model.dtype)
     for l, layer in enumerate(model.layers):
         kp, vp = k_pages[l], v_pages[l]
 
@@ -249,14 +303,17 @@ def prefill_chunk(model: Llama, tokens: torch.Tensor, start: int,
             return attn.chunk(q, kp, vp, pages, start, page_size=page_size,
                               num_kv_heads=cfg.cache_kv_heads)
 
-        x = _layer(cfg, layer, x, rope, attend)
+        x = _layer(cfg, layer, x, rope, attend, lora, l, rows)
     return _logits(model, x[chunk_len - 1][None])[0]
 
 
 def prefill_batch(model: Llama, tokens: torch.Tensor, seq_lens: torch.Tensor,
                   k_pages: torch.Tensor, v_pages: torch.Tensor,
                   pages: torch.Tensor, *, page_size: int,
-                  attn: att.AttentionFns = att.DISPATCH) -> torch.Tensor:
+                  attn: att.AttentionFns = att.DISPATCH,
+                  lora: Optional[lora_apply.Stacks] = None,
+                  adapter_slots: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """N same-bucket prompts tokens [N, S] with true lengths seq_lens [N]
     (>= 1) in one pass -> logits [N, V]. Lane n writes its KV into pages
     [n] ([N, S // ps], trash 0 for padding); attention stays per lane."""
@@ -265,6 +322,12 @@ def prefill_batch(model: Llama, tokens: torch.Tensor, seq_lens: torch.Tensor,
     rope = _rope(cfg, torch.arange(s, device=tokens.device).repeat(n))
     x = _embed_rows(model, tokens.reshape(-1))
     flat_pages = pages.reshape(-1)
+    slots = None
+    if lora is not None:  # lane n's slot on each of its S rows
+        lanes = (adapter_slots if adapter_slots is not None
+                 else torch.zeros((n,), dtype=torch.int32))
+        slots = lanes.to(tokens.device).repeat_interleave(s)
+    rows = _slot_rows(lora, slots, model.dtype)
     for l, layer in enumerate(model.layers):
         kp, vp = k_pages[l], v_pages[l]
 
@@ -276,7 +339,7 @@ def prefill_batch(model: Llama, tokens: torch.Tensor, seq_lens: torch.Tensor,
                                  page_size=page_size)
             return o.reshape(n * s, *o.shape[2:])
 
-        x = _layer(cfg, layer, x, rope, attend)
+        x = _layer(cfg, layer, x, rope, attend, lora, l, rows)
     idx = torch.arange(n, device=x.device) * s + seq_lens.long() - 1
     return _logits(model, x[idx])
 
@@ -284,14 +347,18 @@ def prefill_batch(model: Llama, tokens: torch.Tensor, seq_lens: torch.Tensor,
 def decode_step(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
                 block_tables: torch.Tensor, context_lens: torch.Tensor,
                 k_pages: torch.Tensor, v_pages: torch.Tensor, *,
-                page_size: int, attn: att.AttentionFns = att.DISPATCH
+                page_size: int, attn: att.AttentionFns = att.DISPATCH,
+                lora: Optional[lora_apply.Stacks] = None,
+                adapter_slots: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
     """One decode step over every batch slot: tokens/positions [B],
     block_tables [B, Pmax], context_lens [B] INCLUDING the current token
     -> logits [B, V]. The token's KV is written before attention."""
     cfg = model.cfg
     rope = _rope(cfg, positions)
+    slots = _row_slots(lora, adapter_slots, tokens.shape[0], tokens.device)
     x = _embed_rows(model, tokens)
+    rows = _slot_rows(lora, slots, model.dtype)
     for l, layer in enumerate(model.layers):
         kp, vp = k_pages[l], v_pages[l]
 
@@ -302,7 +369,7 @@ def decode_step(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
                                page_size=page_size,
                                num_kv_heads=cfg.cache_kv_heads)
 
-        x = _layer(cfg, layer, x, rope, attend)
+        x = _layer(cfg, layer, x, rope, attend, lora, l, rows)
     return _logits(model, x)
 
 
@@ -311,7 +378,10 @@ def mixed_step(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
                chunk_tokens: torch.Tensor, chunk_start: int, chunk_len: int,
                chunk_pages: torch.Tensor, k_pages: torch.Tensor,
                v_pages: torch.Tensor, *, page_size: int,
-               attn: att.AttentionFns = att.DISPATCH):
+               attn: att.AttentionFns = att.DISPATCH,
+               lora: Optional[lora_apply.Stacks] = None,
+               adapter_slots: Optional[torch.Tensor] = None,
+               chunk_adapter_slot: int = 0):
     """ONE mixed step: every decode slot advances a token and one prefill
     chunk makes progress, in one forward. tokens/positions [B],
     block_tables [B, Pmax] and context_lens [B] (INCLUDING the current
@@ -330,6 +400,11 @@ def mixed_step(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
     first = chunk_start // page_size
     write_pages = chunk_pages[first:first + c // page_size]
     x = _embed_rows(model, torch.cat([tokens.long(), chunk_tokens.long()]))
+    slots = None
+    if lora is not None:
+        slots = torch.cat([_row_slots(lora, adapter_slots, b, dev),
+                           _row_slots(lora, chunk_adapter_slot, c, dev)])
+    rows = _slot_rows(lora, slots, model.dtype)
     for l, layer in enumerate(model.layers):
         kp, vp = k_pages[l], v_pages[l]
 
@@ -342,7 +417,7 @@ def mixed_step(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
                                chunk_pages, chunk_start, page_size=page_size,
                                num_kv_heads=cfg.cache_kv_heads, num_decode=b)
 
-        x = _layer(cfg, layer, x, rope, attend)
+        x = _layer(cfg, layer, x, rope, attend, lora, l, rows)
     logits = _logits(model, torch.cat([x[:b], x[b + chunk_len - 1][None]]))
     return logits[:b], logits[b]
 
@@ -372,7 +447,9 @@ def _verify_rows(positions: torch.Tensor, block_tables: torch.Tensor,
 def decode_verify(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
                   block_tables: torch.Tensor, room: torch.Tensor,
                   k_pages: torch.Tensor, v_pages: torch.Tensor, *,
-                  page_size: int, attn: att.AttentionFns = att.DISPATCH
+                  page_size: int, attn: att.AttentionFns = att.DISPATCH,
+                  lora: Optional[lora_apply.Stacks] = None,
+                  adapter_slots: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
     """The speculative verify step (JAX `decode_verify`): tokens [B, K1],
     each slot's current token and K drafts, at positions [B] + j, through
@@ -385,7 +462,12 @@ def decode_verify(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
     b, k1 = tokens.shape
     flat_pos, flat_tables = _verify_rows(positions, block_tables, room, k1)
     rope = _rope(cfg, flat_pos)
+    slots = None
+    if lora is not None:  # each window repeats its sequence's slot
+        slots = _row_slots(lora, adapter_slots, b,
+                           tokens.device).repeat_interleave(k1)
     x = _embed_rows(model, tokens.reshape(b * k1))
+    rows = _slot_rows(lora, slots, model.dtype)
     for l, layer in enumerate(model.layers):
         kp, vp = k_pages[l], v_pages[l]
 
@@ -397,7 +479,7 @@ def decode_verify(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
                             num_kv_heads=cfg.cache_kv_heads)
             return o.reshape(b * k1, *o.shape[2:])
 
-        x = _layer(cfg, layer, x, rope, attend)
+        x = _layer(cfg, layer, x, rope, attend, lora, l, rows)
     return _logits(model, x).view(b, k1, -1)
 
 
@@ -407,7 +489,10 @@ def mixed_verify_step(model: Llama, tokens: torch.Tensor,
                       chunk_start: int, chunk_len: int,
                       chunk_pages: torch.Tensor, k_pages: torch.Tensor,
                       v_pages: torch.Tensor, *, page_size: int,
-                      attn: att.AttentionFns = att.DISPATCH):
+                      attn: att.AttentionFns = att.DISPATCH,
+                      lora: Optional[lora_apply.Stacks] = None,
+                      adapter_slots: Optional[torch.Tensor] = None,
+                      chunk_adapter_slot: int = 0):
     """ONE ragged step where every decode slot runs its verify window and
     one prefill chunk makes progress (JAX `mixed_verify_step`). The rows
     are windows first, [B*K1 verify rows | C chunk rows]; the verify rows
@@ -425,6 +510,12 @@ def mixed_verify_step(model: Llama, tokens: torch.Tensor,
     write_pages = chunk_pages[first:first + c // page_size]
     x = _embed_rows(model, torch.cat([tokens.reshape(n).long(),
                                       chunk_tokens.long()]))
+    slots = None
+    if lora is not None:
+        slots = torch.cat([
+            _row_slots(lora, adapter_slots, b, dev).repeat_interleave(k1),
+            _row_slots(lora, chunk_adapter_slot, c, dev)])
+    rows = _slot_rows(lora, slots, model.dtype)
     for l, layer in enumerate(model.layers):
         kp, vp = k_pages[l], v_pages[l]
 
@@ -438,6 +529,6 @@ def mixed_verify_step(model: Llama, tokens: torch.Tensor,
                 page_size=page_size, num_kv_heads=cfg.cache_kv_heads,
                 num_verify=b, verify_width=k1)
 
-        x = _layer(cfg, layer, x, rope, attend)
+        x = _layer(cfg, layer, x, rope, attend, lora, l, rows)
     logits = _logits(model, torch.cat([x[:n], x[n + chunk_len - 1][None]]))
     return logits[:n].view(b, k1, -1), logits[n]

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from dynamo_tpu_torch.lora import apply as lora_apply
 from dynamo_tpu_torch.models import quant
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.llama import Llama
@@ -203,11 +204,15 @@ def from_jax_params(cfg: ModelConfig, params: Mapping[str, object],
     package's QTensor after `jax.tree.map(np.asarray, ...)`) carries its
     int8 values and scales across as they are, and `quantization` names
     their mode ("int8" or "w8a8"); a float tree with `quantization` set is
-    quantized in the port (`quant.quantize_params`)."""
+    quantized in the port (`quant.quantize_params`). The LoRA stacks of a
+    tree that has them (`lora_{t}{a,b}`) are accepted and not carried: an
+    engine's adapters live in its registry's stacks, and
+    `lora.apply.Stacks.from_arrays` builds a forward's `lora` argument
+    from such a tree."""
     mode = quant.mode_name(quantization)
     specs = param_specs(cfg)
     missing = set(specs) - set(params)
-    extra = set(params) - set(specs)
+    extra = set(params) - set(specs) - set(lora_apply.STACK_NAMES)
     if missing or extra:
         raise ValueError(f"parameter tree does not match {cfg.name}: "
                          f"missing {sorted(missing)}, unexpected "

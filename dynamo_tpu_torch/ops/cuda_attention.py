@@ -68,7 +68,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # launches of each kernel since the last reset (see reset_launch_counts)
 LAUNCHES: Dict[str, int] = {
     "decode": 0, "prefill": 0, "chunk": 0, "ragged": 0,
-    "decode_int8": 0, "chunk_int8": 0, "ragged_int8": 0}
+    "decode_int8": 0, "chunk_int8": 0, "ragged_int8": 0,
+    "json_mask": 0, "json_advance": 0}
 # the same launches by kernel and variant, e.g. "ragged[decode_q=5,chunk]"
 VARIANT_LAUNCHES: Dict[str, int] = collections.Counter()
 
@@ -211,9 +212,13 @@ def build() -> ctypes.CDLL:
                                        i, f, p]
         lib.dtt_ragged_int8.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
                                         i, i, i, i, i, i, i, i, i, f, p]
+        # the grammar kernel (csrc/json_mask.cu; ops/cuda_guide.py)
+        lib.dtt_json_mask.argtypes = [p, i, p, p, p, p, p, p, p, i, i, p]
+        lib.dtt_json_advance.argtypes = [p, p, p, p, p, p, p, i, i, p]
         for fn in (lib.dtt_paged_decode, lib.dtt_prefill, lib.dtt_chunk,
                    lib.dtt_ragged, lib.dtt_paged_decode_int8,
-                   lib.dtt_chunk_int8, lib.dtt_ragged_int8):
+                   lib.dtt_chunk_int8, lib.dtt_ragged_int8,
+                   lib.dtt_json_mask, lib.dtt_json_advance):
             fn.restype = ctypes.c_int
         lib.dtt_error_string.argtypes = [ctypes.c_int]
         lib.dtt_error_string.restype = ctypes.c_char_p

@@ -3,11 +3,14 @@
 Port of the serving core of `dynamo_tpu/serving/api.py`:
 `GET /v1/models`, `/v1/models/{id}`, `/health`, `/ready`, `/live`,
 `/worker/stats`; `POST /v1/chat/completions` and `/v1/completions`, each
-streamed (SSE) or not, with `usage`, `n` choices, stop strings, logprobs and
-auto tool calls. Request shaping is the copied `serving/protocol.py`, so the
-wire format is the JAX worker's. Not ported yet: JSON-guided decoding and
-forced tool calls (refused with 400), LoRA model ids, recovery journaling,
-tracing spans, metrics exposition, tenants, drain and disaggregation.
+streamed (SSE) or not, with `usage`, `n` choices, stop strings, logprobs,
+auto and forced tool calls and `response_format` json_object (JSON-guided
+decoding, on both routes); multi-LoRA model ids `<base>:<adapter>`, listed
+by `/v1/models`, and `GET`/`POST /v1/adapters` to register, load, unload
+and remove adapters. Request shaping is the copied `serving/protocol.py`,
+so the wire format is the JAX worker's. Not ported yet: recovery
+journaling, tracing spans, metrics exposition (and with it the LoRA
+counters), tenants, drain and disaggregation.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from dynamo_tpu_torch.engine.engine import Engine
 from dynamo_tpu_torch.engine.kv_cache import OutOfPages
 from dynamo_tpu_torch.engine.request import GenRequest
 from dynamo_tpu_torch.engine.tokenizer import get_tokenizer
+from dynamo_tpu_torch.lora.registry import NoFreeAdapterSlot
 from dynamo_tpu_torch.serving import protocol as proto
 from dynamo_tpu_torch.serving.engine_service import EngineService
 from dynamo_tpu_torch.serving.http_base import (JsonHTTPHandler,
@@ -118,8 +122,11 @@ class GenerationHandle:
             priority=params.get("priority", 0),
             guided_json=params.get("guided_json", False),
             stop_token_ids=list(params.get("stop_token_ids") or []),
+            adapter=params.get("adapter"),
         )
         self.queue = ctx.service.submit(self.req)  # raises ValueError early
+        if self.req.adapter and ctx.engine.lora is not None:
+            ctx.engine.lora.note_request(self.req.adapter)
         self.lp_entries: List[dict] = []
 
     def _lp_entry(self, ev) -> Optional[dict]:
@@ -268,17 +275,36 @@ def spec_stats(eng) -> dict:
 class _Handler(JsonHTTPHandler):
     ctx: ServingContext  # bound by make_server
 
+    def _model_ids(self) -> List[str]:
+        """Served model ids: the base plus one '<base>:<adapter>' entry per
+        registered adapter (multi-LoRA addressing)."""
+        ids = [self.ctx.served_model]
+        lora = self.ctx.engine.lora
+        if lora is not None:
+            ids += [f"{self.ctx.served_model}:{n}" for n in lora.names()]
+        return ids
+
     def do_GET(self):
         path = self.path.split("?")[0]
         ctx = self.ctx
         if path == "/v1/models":
-            self._json(200, proto.models_response([ctx.served_model]))
+            self._json(200, proto.models_response(self._model_ids()))
         elif path.startswith("/v1/models/"):
             mid = path[len("/v1/models/"):]
-            if mid == ctx.served_model:
+            if mid in self._model_ids():
                 self._json(200, proto.model_response(mid))
             else:
                 self._error(404, f"model {mid!r} not found", "not_found")
+        elif path == "/v1/adapters":
+            lora = ctx.engine.lora
+            if lora is None:
+                self._error(400, "this worker serves no adapters "
+                            "(--lora-slots is 0)")
+                return
+            st = lora.stats()
+            self._json(200, {"object": "list", "data": lora.describe(),
+                             "slots": {"total": st["slots_total"],
+                                       "free": st["slots_free"]}})
         elif path in ("/health", "/ready", "/live"):
             self._json(200, {"status": "ok", "uptime_s": round(
                 time.time() - ctx.start_time, 1)})
@@ -302,6 +328,8 @@ class _Handler(JsonHTTPHandler):
                 out["prefix_cache"] = eng.prefix_cache.stats()
             if eng.verify is not None:
                 out["spec"] = spec_stats(eng)
+            if eng.lora is not None:
+                out["lora"] = eng.lora.stats()
             self._json(200, out)
         else:
             self._error(404, f"no route {path}")
@@ -313,6 +341,8 @@ class _Handler(JsonHTTPHandler):
                 self._chat(self._read_json_body())
             elif path == "/v1/completions":
                 self._completion(self._read_json_body())
+            elif path == "/v1/adapters":
+                self._adapters_post(self._read_json_body())
             else:
                 self._error(404, f"no route {path}")
         except proto.BadRequest as e:
@@ -333,22 +363,77 @@ class _Handler(JsonHTTPHandler):
         else:
             self._error(code, msg, etype)
 
-    def _check_model(self, model: str) -> None:
-        if model not in (self.ctx.served_model, self.ctx.engine.cfg.model):
-            raise proto.BadRequest(f"model {model!r} not served (serving "
-                                   f"{self.ctx.served_model!r})")
+    def _adapters_post(self, body):
+        """Runtime adapter management (POST /v1/adapters):
+        {"name": n, "path": p}                 register (device lazily)
+        {"name": n, "path": p, "load": true}   register + load into a slot
+        {"name": n, "unload": true}            drop the device slot
+        {"name": n, "remove": true}            unregister entirely
+        """
+        lora = self.ctx.engine.lora
+        if lora is None:
+            raise proto.BadRequest(
+                "this worker serves no adapters (--lora-slots is 0)")
+        name = body.get("name")
+        if not isinstance(name, str) or not name:
+            raise proto.BadRequest("'name' is required")
+        try:
+            if body.get("remove"):
+                lora.unregister(name)
+                self._json(200, {"name": name, "removed": True})
+                return
+            if body.get("unload"):
+                was = lora.unload(name)
+                self._json(200, {"name": name, "unloaded": was})
+                return
+            if body.get("path"):
+                lora.register(name, path=str(body["path"]))
+            elif not lora.known(name):
+                raise proto.BadRequest(
+                    f"unknown adapter {name!r} (give 'path' to register)")
+            slot = None
+            if body.get("load"):
+                slot = lora.acquire_slot(name)
+        except NoFreeAdapterSlot as e:
+            self._error(503, str(e), "service_unavailable")
+            return
+        except (ValueError, KeyError) as e:
+            raise proto.BadRequest(str(e))
+        self._json(200, {"name": name, "registered": True,
+                         "resident": lora.slot_of(name) is not None,
+                         **({"slot": slot} if slot is not None else {})})
+
+    def _check_model(self, model: str) -> Optional[str]:
+        """Validate the request's model id; returns the adapter name when
+        the id uses '<base>:<adapter>' addressing (multi-LoRA), else
+        None."""
+        bases = (self.ctx.served_model, self.ctx.engine.cfg.model)
+        if model in bases:
+            return None
+        adapter = None
+        for b in bases:
+            if model.startswith(b + ":"):
+                adapter = model[len(b) + 1:]
+                break
+        lora = self.ctx.engine.lora
+        if adapter and lora is not None and lora.known(adapter):
+            return adapter
+        raise proto.BadRequest(
+            f"model {model!r} not served (serving {self.ctx.served_model!r}"
+            + (f" + adapters {lora.names()}" if lora is not None else "")
+            + ")")
 
     def _chat(self, body):
         p = proto.parse_chat_request(body)
-        self._check_model(p["model"])
-        if p["guided_json"]:
-            raise proto.BadRequest("response_format json_object is not "
-                                   "supported by this worker yet")
+        p["adapter"] = self._check_model(p["model"])
         tools, tc = p["tools"], p["tool_choice"]
-        if isinstance(tc, tuple):
-            raise proto.BadRequest("a forced tool_choice needs JSON-guided "
-                                   "decoding, not supported by this worker "
-                                   "yet")
+        if isinstance(tc, tuple):  # ("function", name)
+            if p["stream"]:
+                raise proto.BadRequest(
+                    "streaming is not supported with a forced tool_choice")
+            # the forced call's arguments are produced by the JSON-guided
+            # decoder: one complete JSON object
+            p["guided_json"] = True
         prompt_text = self.ctx.tokenizer.apply_chat_template(
             p["messages"], tools=tools if tc != "none" else None)
         prompt_ids = self.ctx.tokenizer.encode(prompt_text)
@@ -424,10 +509,7 @@ class _Handler(JsonHTTPHandler):
 
     def _completion(self, body):
         p = proto.parse_completion_request(body)
-        self._check_model(p["model"])
-        if p["guided_json"]:
-            raise proto.BadRequest("response_format json_object is not "
-                                   "supported by this worker yet")
+        p["adapter"] = self._check_model(p["model"])
         prompt_ids = self.ctx.tokenizer.encode(p["prompt"])
         rid = proto.new_id("cmpl")
         handles = self.ctx.start_choices(rid, prompt_ids, p)

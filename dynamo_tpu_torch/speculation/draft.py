@@ -44,13 +44,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from dynamo_tpu_torch.engine.decode_graphs import CapturedStep, upload
+from dynamo_tpu_torch.engine.decode_graphs import (CapturedStep, capturing,
+                                                   upload)
 from dynamo_tpu_torch.engine.kv_cache import (KVCacheSpec, PageAllocator,
                                               alloc_kv_pages)
 from dynamo_tpu_torch.engine.tokenizer import get_tokenizer
 from dynamo_tpu_torch.models import llama, loader
 from dynamo_tpu_torch.models.config import ModelConfig
-from dynamo_tpu_torch.ops import cuda_attention
 
 log = logging.getLogger("dynamo_tpu_torch.speculation")
 
@@ -264,9 +264,8 @@ class DraftEngine:
             self._body()
         torch.cuda.current_stream().wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        with cuda_attention.counting_capture() as launches:
-            with torch.cuda.graph(graph, stream=stream):
-                self._body()
+        with capturing(graph, stream) as launches:
+            self._body()
         for t, s in zip(bufs, saved):
             t.copy_(s)
         self._graph = CapturedStep(graph, launches)

@@ -23,6 +23,17 @@ pytestmark = pytest.mark.cuda
 TOL = dict(atol=2e-2, rtol=2e-2)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module: the parallel test workers share
+    the cores, and torch's default pool in each of them oversubscribes
+    them (the suite's tiny eager ops are as fast on one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -512,6 +523,72 @@ def test_ragged_kernel_at_the_families_shapes(dev, int8, n_heads, n_kv, d,
     assert ca.VARIANT_LAUNCHES[f"{name}[head_dim={d}]"] == 1
 
 
+@pytest.mark.parametrize("kernel", ["decode", "decode_int8", "prefill",
+                                    "chunk", "ragged_verify",
+                                    "ragged_verify_int8"])
+def test_kernels_hold_at_large_values(dev, kernel):
+    """V scaled by 40 (output rows of RMS near 5 over about 100 keys, as
+    the 8B's activations reach at depth): the error of P V grows with a
+    row's RMS, not with each element, so a small element of such a row
+    sees all of it. With P rounded to bf16 once, about 0.1% of the
+    elements of each case fell past atol 2e-2 of the f32 version; with P
+    in two bf16 parts (attention_common.cuh) only the output's own
+    rounding is left."""
+    ps, n_kv, d, h, big = 16, 8, 128, 32, 40.0
+    rng = np.random.default_rng(8)
+
+    def pools(seed, int8):
+        vals = [_rnd(dev, 128 * ps, n_kv, d, seed=seed).float(),
+                _rnd(dev, 128 * ps, n_kv, d, seed=seed + 1).float() * big]
+        if int8:
+            w = att.kv_lane_width(n_kv, d, True)
+            return [att.pack_kv_rows(x, w).reshape(128, ps, w) for x in vals]
+        return [x.to(torch.bfloat16).reshape(128, ps, n_kv * d)
+                for x in vals]
+
+    int8 = kernel.endswith("int8")
+    kw = dict(page_size=ps, num_kv_heads=n_kv)
+    if kernel == "prefill":
+        q = _rnd(dev, 2, 128, h, d, seed=71)
+        k = _rnd(dev, 2, 128, n_kv, d, seed=72)
+        v = (_rnd(dev, 2, 128, n_kv, d, seed=73).float() * big).bfloat16()
+        sl = torch.tensor([128, 100], dtype=torch.int32, device=dev)
+        out = ca.prefill_attention(q, k, v, sl)
+        ref = att.prefill_attention_ref(q, k, v, sl)
+    elif kernel == "chunk":
+        kp, vp = pools(74, False)
+        pages = _page_list(dev, 64 + 128, ps, 128, seed=9)
+        q = _rnd(dev, 128, h, d, seed=76)
+        out = ca.chunk_prefill_attention(q, kp, vp, pages, 64, page_size=ps)
+        ref = att.chunk_attention_ref(q, kp, vp, pages, 64, page_size=ps)
+    elif kernel.startswith("decode"):
+        kp, vp = pools(77, int8)
+        ctx = [17, 60, 100, 100, 150, 200, 300, 400]
+        q = _rnd(dev, 8, h, d, seed=79)
+        table = np.zeros((8, 32), np.int32)
+        for b, n in enumerate(ctx):
+            table[b, :-(-n // ps)] = rng.permutation(127)[:-(-n // ps)] + 1
+        args = (torch.tensor(table, device=dev),
+                torch.tensor(ctx, dtype=torch.int32, device=dev))
+        out = ca.paged_attention_decode(q, kp, vp, *args, **kw)
+        ref = att.paged_attention_decode_ref(q, kp, vp, *args, **kw)
+    else:
+        kp, vp = pools(80, int8)
+        positions = [12, 60, 95, 200, 300, 400, 0, 100]
+        table = np.zeros((8, 32), np.int32)
+        for b, p in enumerate(positions):
+            n = -(-(p + 5) // ps)
+            table[b, :n] = rng.permutation(127)[:n] + 1
+        q = _rnd(dev, 8, 5, h, d, seed=82)
+        args = (torch.tensor(table, device=dev),
+                torch.tensor(positions, dtype=torch.int32, device=dev))
+        out = att.verify_attention(q, kp, vp, *args, **kw)
+        ref = att.verify_attention_ref(q, kp, vp, *args, **kw)
+    rms = ref.float().pow(2).mean(-1).sqrt()
+    assert float(rms.median()) > 2.5  # the scale the test is about
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
 @pytest.mark.parametrize("family", ["gemma", "qwen2", "qwen3"])
 def test_family_graph_windows_equal_eager_windows(dev, family):
     """The three families' tiny configs (tiny-gemma-debug at head_dim 256:
@@ -636,14 +713,127 @@ def test_graph_windows_equal_eager_windows(dev, async_scheduling):
 
 
 def test_warmup_captures_the_greedy_graphs(dev):
+    """With and without logprobs, plain and JSON-guided: four graphs."""
     eng = _window_engine(False)
     eng.warmup()
-    assert eng.windows.stats()["graphs"] == 2
+    assert eng.windows.stats()["graphs"] == 4
     from dynamo_tpu_torch.engine.request import GenRequest
 
     assert len(eng.generate(GenRequest("w", [1, 2, 3], max_tokens=10,
                                        ignore_eos=True))) == 10
-    assert eng.windows.stats()["graphs"] == 2  # no capture while serving
+    assert len(eng.generate(GenRequest("g", [1, 2, 3], max_tokens=10,
+                                       guided_json=True))) > 0
+    assert eng.windows.stats()["graphs"] == 4  # no capture while serving
+
+
+def test_json_kernel_matches_plain(dev):
+    """json_mask and json_advance against their plain versions, exactly,
+    on every mode at depths 0, 1, 5 and 31 over a 16-byte-wide table with
+    specials and stop ids, bf16 and float32 logits; counted launches."""
+    from dynamo_tpu_torch.ops import cuda_guide
+    from dynamo_tpu_torch.ops import json_guide as jg
+
+    rng = np.random.default_rng(0)
+    v = 3000
+    alpha = np.frombuffer(b'{}[]",:0123456789-.eE+tfnrulas \\/\n', np.uint8)
+    lens = rng.integers(1, 17, size=v)
+    tb = np.where(rng.random((v, 16)) < 0.85,
+                  alpha[rng.integers(0, len(alpha), (v, 16))],
+                  rng.integers(0, 256, (v, 16)))
+    tb = np.where(np.arange(16)[None] < lens[:, None], tb, -1)
+    lens[:20] = 0
+    eos = np.zeros(v, bool)
+    eos[:3] = True
+    table = jg.DeviceTable(jg.VocabTable(tb.astype(np.int32),
+                                         lens.astype(np.int32), eos), dev)
+    modes = np.arange(jg.DEAD + 1, dtype=np.int32)
+    b = len(modes)
+    ca.reset_launch_counts()
+    for depth in (0, 1, 5, 31):
+        st = [torch.tensor(a, dtype=torch.int32, device=dev) for a in (
+            modes, np.full(b, depth), rng.integers(-2**31, 2**31, b))]
+        act = torch.tensor(rng.random(b) < 0.8, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            logits = torch.randn(b, v, device=dev).to(dtype)
+            got, want = logits.clone(), logits.clone()
+            cuda_guide.json_mask(got, *st, act, table)
+            jg.mask_logits(want, *st, act, table)
+            assert torch.equal(got, want)
+        tokens = torch.tensor(rng.integers(0, v, b), device=dev)
+        got_st = [t.clone() for t in st]
+        want_st = [t.clone() for t in st]
+        cuda_guide.json_advance(tokens, *got_st, act, table)
+        jg.advance(tokens, *want_st, act, table)
+        assert all(torch.equal(x, y) for x, y in zip(got_st, want_st))
+    assert ca.LAUNCHES["json_mask"] == 8 and ca.LAUNCHES["json_advance"] == 4
+    with pytest.raises(ValueError, match="must be"):
+        cuda_guide.json_mask(logits.to(torch.float16), *st, act, table)
+
+
+def _guided_run(eng):
+    from dynamo_tpu_torch.engine.request import GenRequest
+
+    reqs = [GenRequest("g", [1, 2, 3], max_tokens=40, guided_json=True),
+            GenRequest("s", list(range(5, 45)), max_tokens=40,
+                       temperature=1.0, seed=3, guided_json=True),
+            GenRequest("p", [3, 1, 4], max_tokens=9, ignore_eos=True)]
+    for r in reqs:
+        eng.add_request(r)
+    out = {}
+    while eng.has_work:
+        for ev in eng.step():
+            if ev.token_id >= 0:
+                out.setdefault(ev.request_id, []).append(ev.token_id)
+    return out
+
+
+def test_guided_graph_windows_equal_eager_windows(dev):
+    """Guided 4-step windows replayed from CUDA graphs give the eager
+    body's tokens; json_advance launches once per replayed step (the
+    capture's launches are kept with the graph), json_mask as often plus
+    once per prefill that samples a guided first token (one or two for
+    the two guided requests)."""
+    eager = _window_engine(True)
+    graphs = _window_engine(False, params=eager.model)
+    want = _guided_run(eager)
+    ca.reset_launch_counts()
+    assert _guided_run(graphs) == want
+    st = graphs.windows.stats()
+    assert st["replays"] > 0
+    steps = ca.LAUNCHES["json_advance"]
+    assert 0 < steps <= st["replays"] + st["graphs"]
+    assert steps + 1 <= ca.LAUNCHES["json_mask"] <= steps + 2
+
+
+def test_lora_graph_windows_equal_eager_windows(dev):
+    """Base and adapter rows together in graph windows: the eager body's
+    tokens; the base row's are those of lora_slots=0."""
+    from dynamo_tpu_torch.engine.request import GenRequest
+    from dynamo_tpu_torch.lora import apply as lora_apply
+
+    def run(eng, adapters=True):
+        if adapters:
+            for i, n in enumerate(("a", "b")):
+                eng.lora.register(n, tensors=lora_apply.random_adapter(
+                    eng.model_cfg, 4, seed=i + 1, scale=0.3), rank=4)
+        for i, a in enumerate((None, "a", "b")):
+            eng.add_request(GenRequest(f"r{i}", [5, 6, 7, 8 + i],
+                                       max_tokens=12, ignore_eos=True,
+                                       adapter=a if adapters else None))
+        out = {}
+        while eng.has_work:
+            for ev in eng.step():
+                if ev.token_id >= 0:
+                    out.setdefault(ev.request_id, []).append(ev.token_id)
+        return out
+
+    eager = _window_engine(True, lora_slots=2, lora_rank=4)
+    want = run(eager)
+    got = run(_window_engine(False, params=eager.model, lora_slots=2,
+                             lora_rank=4))
+    assert got == want
+    base = run(_window_engine(False, params=eager.model), adapters=False)
+    assert base["r0"] == got["r0"] and base["r1"] != got["r1"]
 
 
 def test_noise_bits_on_the_card_are_the_cpu_ones(dev):

@@ -40,6 +40,17 @@ BASE = dict(model="tiny-debug", page_size=16, num_pages=64, max_num_seqs=4,
             enable_prefix_caching=False)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module: the parallel test workers share
+    the cores, and torch's default pool in each of them oversubscribes
+    them (the suite's tiny eager ops are as fast on one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jparams():
     cfg = dataclasses.replace(JPRESETS["tiny-debug"], dtype="float32")
@@ -211,10 +222,11 @@ def test_port_server_models_and_health(port_server):
 
 
 @pytest.mark.parametrize("body", [
-    dict(CHAT, response_format={"type": "json_object"}),
+    dict(CHAT, response_format={"type": "json_schema"}),
     dict(CHAT, model="not-served"),
     dict(CHAT, tools=[{"type": "function", "function": {"name": "f"}}],
-         tool_choice={"type": "function", "function": {"name": "f"}}),
+         tool_choice={"type": "function", "function": {"name": "f"}},
+         stream=True),
 ])
 def test_port_server_refuses_with_400(port_server, body):
     with pytest.raises(urllib.error.HTTPError) as e:
@@ -223,7 +235,6 @@ def test_port_server_refuses_with_400(port_server, body):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("lora_slots", 2),
     ("kvbm_host_blocks", 8),
     ("tensor_parallel", 2),
     ("data_parallel", 2),
@@ -243,10 +254,11 @@ def test_unported_settings_are_refused(field, value):
     ("quantization", "w8a8"),
     ("model_path", "tiny-debug"),
     ("speculative_mode", "ngram"),
+    ("lora_slots", 2),
 ])
 def test_settings_ported_since_are_served(tmp_path, field, value):
-    """Refused before the loader, int8 weights and speculative decoding
-    were ported. The model_path here is an empty directory named after a
+    """Refused before the loader, int8 weights, speculative decoding and
+    multi-LoRA serving were ported. The model_path here is an empty directory named after a
     preset: the preset's config, and random init with a warning, as in
     the JAX package."""
     if field == "model_path":
@@ -295,12 +307,6 @@ def test_engine_without_device_needs_cuda():
         pytest.skip("a CUDA device is present: the default device works")
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(EngineConfig(**BASE))
-
-
-def test_guided_json_requests_are_refused():
-    eng = Engine(EngineConfig(**BASE), device="cpu")
-    with pytest.raises(ValueError, match="guided_json"):
-        eng.add_request(GenRequest("g", [1, 2, 3], guided_json=True))
 
 
 def test_abort_and_stop_tokens():

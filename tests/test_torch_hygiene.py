@@ -8,11 +8,23 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
     str(p.relative_to(ROOT))
     for p in (ROOT / "dynamo_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module: the parallel test workers share
+    the cores, and torch's default pool in each of them oversubscribes
+    them (the suite's tiny eager ops are as fast on one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _forbidden(name: str) -> bool:

@@ -38,6 +38,17 @@ E, H, KV, D, F_, V, L = (TINY.hidden_size, TINY.num_heads, TINY.num_kv_heads,
                          TINY.vocab_size, TINY.num_layers)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module: the parallel test workers share
+    the cores, and torch's default pool in each of them oversubscribes
+    them (the suite's tiny eager ops are as fast on one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def hf_config(tied: bool) -> dict:
     return {"architectures": ["LlamaForCausalLM"], "vocab_size": V,
             "hidden_size": E, "intermediate_size": F_,

@@ -28,6 +28,17 @@ LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 KV_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module: the parallel test workers share
+    the cores, and torch's default pool in each of them oversubscribes
+    them (the suite's tiny eager ops are as fast on one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def models():
     jcfg = dataclasses.replace(JPRESETS["tiny-debug"], dtype="float32")

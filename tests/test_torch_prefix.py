@@ -24,6 +24,7 @@ import urllib.request
 import jax
 import numpy as np
 import pytest
+import torch
 
 from dynamo_tpu.engine.config import EngineConfig as JEngineConfig
 from dynamo_tpu.engine.engine import Engine as JEngine
@@ -42,6 +43,17 @@ from dynamo_tpu_torch.serving.worker import BACKEND_PROFILES
 BASE = dict(model="tiny-debug", page_size=16, num_pages=64, max_num_seqs=4,
             max_seq_len=512, prefill_chunk_tokens=32,
             enable_prefix_caching=True)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module: the parallel test workers share
+    the cores, and torch's default pool in each of them oversubscribes
+    them (the suite's tiny eager ops are as fast on one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

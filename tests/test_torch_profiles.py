@@ -9,11 +9,23 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from dynamo_tpu.serving import worker as jworker
 from dynamo_tpu_torch.serving import worker
 
 ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module: the parallel test workers share
+    the cores, and torch's default pool in each of them oversubscribes
+    them (the suite's tiny eager ops are as fast on one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_profiles_equal_the_jax_profiles():

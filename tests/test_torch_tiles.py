@@ -39,6 +39,17 @@ LOG2E = 1.4426950408889634
 H100_SMS = 132
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module: the parallel test workers share
+    the cores, and torch's default pool in each of them oversubscribes
+    them (the suite's tiny eager ops are as fast on one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _chunk_tiles(c, group, head_dim):
     """(first query, query count) of each query tile of a C-query chunk:
     chunk.cu's blocks along x, and the chunk blocks of ragged.cu."""

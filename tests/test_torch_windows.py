@@ -36,6 +36,17 @@ BASE = dict(model="tiny-debug", page_size=16, num_pages=64, max_num_seqs=4,
             enable_prefix_caching=False, num_scheduler_steps=4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module: the parallel test workers share
+    the cores, and torch's default pool in each of them oversubscribes
+    them (the suite's tiny eager ops are as fast on one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jparams():
     cfg = dataclasses.replace(JPRESETS["tiny-debug"], dtype="float32")
