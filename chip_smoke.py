@@ -50,8 +50,9 @@ on failure:
    Then the same inputs at the new families' shapes (FAMILY_SHAPES), each
    row named `kernel[shape]`: gemma-7b-it's head_dim 256 at group 1 (every
    entry point and pool kind, and the verify windows), gemma-2b-it's
-   head_dim 256 at group 8, and qwen2.5-7b-instruct's group 7 at head_dim
-   128 (a verify window of 5 x 7 = 35 tile rows).
+   head_dim 256 at group 8, qwen2.5-7b-instruct's group 7 at head_dim
+   128 (a verify window of 5 x 7 = 35 tile rows) and qwen3-30b-a3b's
+   group 8 at head_dim 128 (32/4 heads: 5 x 8 = 40 tile rows).
 4. The engine for llama-3.1-8b-instruct at full width and depth, random
    bf16 weights from seed 0: a full prefill, a decode step, a chunked
    prefill, a mixed step (the decode row beside a 256-token chunk), a
@@ -185,7 +186,25 @@ on failure:
    engines with mixed_batch_tokens=256 serving phase 5's interference
    traffic (gemma-7b-it on bf16 and int8 pools, qwen2.5 on bf16 pools),
    so that every kernel and pool kind launches at head_dim 256 and every
-   kernel at group 7.
+   kernel at group 7. Then, once those are released, the two
+   mixture-of-experts models at full width and depth (MOE_MODELS):
+   qwen3-30b-a3b (128 experts, top 8, q/k norms, GQA group 8) with random
+   bf16 weights from seed 0, and mixtral-8x7b-instruct-v0.1 (8 experts,
+   top 2) with w8a8 weights drawn as int8 on the card by the engine's
+   loader; each on bf16 pools, printing its parameters, weight and pool
+   GiB and peak: phase 4's forwards, where the routing of the forward
+   through the kernels is compared with the plain forward's (the first
+   token and layer where a token's top-k experts differ, with the plain
+   forward's margin between its k-th and (k+1)-th router logit: logits
+   past LOGIT_REL_TOL are a fault unless that first difference is a
+   near-tie of at most one bf16 unit, see forward_checks); the OpenAI
+   server on a warmed-up jetstream engine with phase 5's four concurrent
+   requests; where its graph-window decode step's time goes (as phase
+   11), with the device time of the step's MoE blocks alone and the
+   bound of reading every weight once; and for qwen3-30b-a3b a
+   mixed_batch_tokens=256 engine serving the interference traffic and
+   the ~600-token prompt's TTFT as one prefill with moe_capacity_factor
+   0 and 1.25 (the prefill's capacity path).
 14. JSON-guided decoding (after phase 11, on the 8B's weights). The
    grammar kernel (`csrc/json_mask.cu`, both entry points) against its
    plain version on the card: B = 8 rows over V = 128256 tokens of a
@@ -226,10 +245,11 @@ on failure:
    beside the lora_slots=0 engine's step.
 16. A `kernels` JSON line (launches summed over the served phases, graph
    replays included; the verify windows, at decode_q = 5 with and without
-   a chunk, decode at head_dim 64, the kernels at head_dim 256 and at
-   group 7 counted as rows of their own: the head_dim 256 rows from the
-   served gemma-7b-it phases' variant counts, the group 7 rows from the
-   served qwen2.5 phases' launches; `ms` and `library_ms` device times,
+   a chunk, decode at head_dim 64, the kernels at head_dim 256, at group
+   7 and at group 8 counted as rows of their own: the head_dim 256 rows
+   from the served gemma-7b-it phases' variant counts, the group 7 rows
+   from the served qwen2.5 phases' launches, the group 8 rows from the
+   served qwen3-30b-a3b phases' launches; `ms` and `library_ms` device times,
    `call_ms` and `library_call_ms` call times, as phase 3 measures them;
    the grammar kernel's two rows from phase 14, their launches from its
    served phase, and no library call), the card line, and last the
@@ -242,6 +262,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -259,6 +280,7 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.engine import Engine
+from dynamo_tpu_torch.engine import decode_graphs
 from dynamo_tpu_torch.engine import sampling as smp
 from dynamo_tpu_torch.engine.request import GenRequest
 from dynamo_tpu_torch.engine.tokenizer import ByteTokenizer, get_tokenizer
@@ -269,6 +291,7 @@ from dynamo_tpu_torch.ops import attention as att
 from dynamo_tpu_torch.ops import cuda_attention as ca
 from dynamo_tpu_torch.ops import cuda_guide
 from dynamo_tpu_torch.ops import json_guide
+from dynamo_tpu_torch.ops import moe
 from dynamo_tpu_torch.serving.api import (ServingContext, make_server,
                                           spec_stats)
 from dynamo_tpu_torch.serving.worker import BACKEND_PROFILES, build_parser
@@ -875,8 +898,9 @@ def kernel_checks(dev) -> dict:
 
 # Phase 3's rows at the new families' shapes: (label, H, KV, D, rows).
 # gemma-7b-it (head_dim 256, group 1: every entry point and pool kind),
-# gemma-2b-it (head_dim 256, group 8) and qwen2.5-7b-instruct (group 7,
-# whose verify windows fill 5 x 7 = 35 of the tile's 64 rows).
+# gemma-2b-it (head_dim 256, group 8), qwen2.5-7b-instruct (group 7,
+# whose verify windows fill 5 x 7 = 35 of the tile's 64 rows) and
+# qwen3-30b-a3b (group 8 at head_dim 128: verify windows of 5 x 8 = 40).
 FAMILY_SHAPES = (
     ("head_dim=256", 16, 16, 256,
      ("decode", "decode_int8", "prefill", "chunk", "chunk_int8", "ragged",
@@ -884,6 +908,9 @@ FAMILY_SHAPES = (
     ("head_dim=256,group=8", 8, 1, 256,
      ("decode", "prefill", "chunk", "ragged", "ragged_verify_only")),
     ("group=7", 28, 4, 128,
+     ("decode", "prefill", "chunk", "ragged", "ragged_verify",
+      "ragged_verify_only")),
+    ("group=8", 32, 4, 128,
      ("decode", "prefill", "chunk", "ragged", "ragged_verify",
       "ragged_verify_only")),
 )
@@ -1060,6 +1087,17 @@ class HeldAgainstPlain:
         return fn
 
 
+def nudged(fns: att.AttentionFns) -> att.AttentionFns:
+    """`fns` with every output scaled by 1 + 2^-8 in its dtype: about half
+    of a bf16 output's elements move by one unit, the size of the
+    kernels' own rounding differences."""
+    def wrap(fn):
+        def out(*args, **kw):
+            return fn(*args, **kw) * (1 + 2 ** -8)
+        return out
+    return att.AttentionFns(*(wrap(f) for f in fns))
+
+
 def q_scaled(fns: att.AttentionFns, factor: float) -> att.AttentionFns:
     """`fns` with q multiplied by `factor` before attention."""
     def wrap(fn):
@@ -1138,6 +1176,95 @@ def three_paths(engine: Engine, attn, adapter_slot: int = 0) -> dict:
     return out
 
 
+# three_paths' MoE routing calls in order, `layers` per forward: (name,
+# the rows whose outputs reach its logits) of each forward, and the
+# forward whose routing each of its logits rests on last
+def routing_segments():
+    k1, n = SPEC_K + 1, MAX_SEQS * (SPEC_K + 1)
+    chunk = [CHUNK] * (600 // CHUNK) + [600 % CHUNK]
+    window = list(range(k1))
+    return ([("prefill", list(range(100))), ("decode", [0])]
+            + [(f"chunk{i}", list(range(c))) for i, c in enumerate(chunk)]
+            + [("mixed", [0] + list(range(MAX_SEQS, MAX_SEQS + CHUNK))),
+               ("verify", window),
+               ("mixed_verify", window + list(range(n, n + CHUNK)))])
+
+
+PATH_SEGMENT = {"prefill": "prefill", "decode": "decode",
+                "chunked_prefill": f"chunk{600 // CHUNK}",
+                "mixed_decode": "mixed", "mixed_chunk": "mixed",
+                "verify": "verify", "mixed_verify": "mixed_verify",
+                "mixed_verify_chunk": "mixed_verify"}
+
+
+@contextlib.contextmanager
+def routing_recorded(calls: list):
+    """Record the router logits [T, X] of every MoE block (f32, on the
+    host) while the block is active."""
+    orig = moe.topk_combine
+
+    def recorded(logits, *args, **kw):
+        calls.append(logits.detach().float().cpu())
+        return orig(logits, *args, **kw)
+
+    moe.topk_combine = recorded
+    try:
+        yield
+    finally:
+        moe.topk_combine = orig
+
+
+def bf16_unit(v: float) -> float:
+    """The spacing of bf16 values at |v| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(v))) - 7) if v else 2.0 ** -133
+
+
+def routing_divergence(plain: list, kernels: list, cfg):
+    """Where the routing of the forward through the kernels first selects
+    other experts than the plain forward's, over the rows that reach the
+    logits (routing_segments): its forward, layer and row, and in the
+    plain forward's router logits the margin between the k-th and the
+    (k+1)-th largest, in bf16 units of the k-th (the router's product is
+    bf16, so margins are whole units where the two share a binade); a
+    margin of at most one unit is a near-tie, which one rounding of the
+    layer's input can flip. None if the routing is identical."""
+    k, layers = cfg.num_experts_per_tok, cfg.num_layers
+    segments = routing_segments()
+    if len(plain) != len(kernels) or len(plain) != layers * len(segments):
+        raise AssertionError(f"{len(plain)} and {len(kernels)} routing "
+                             f"calls, expected {layers * len(segments)}")
+    for i, (a, b) in enumerate(zip(plain, kernels)):
+        name, rows = segments[i // layers]
+        sel_a = moe.top_k(a[rows], k)[1].sort(-1).values
+        sel_b = moe.top_k(b[rows], k)[1].sort(-1).values
+        differs = (sel_a != sel_b).any(-1)
+        if not differs.any():
+            continue
+        row = rows[int(differs.nonzero()[0, 0])]
+        top = torch.sort(a[row], descending=True).values
+        kth, nxt = float(top[k - 1]), float(top[k])
+        unit = bf16_unit(kth)
+        return {"forward": name, "segment": i // layers,
+                "layer": i % layers, "row": row,
+                "rows_differing": int(differs.sum()),
+                "plain_experts": sel_a[int(differs.nonzero()[0, 0])].tolist(),
+                "kernel_experts": sel_b[int(differs.nonzero()[0, 0])].tolist(),
+                "kth_logit": kth, "next_logit": nxt, "margin": kth - nxt,
+                "margin_bf16_units": (kth - nxt) / unit,
+                "near_tie": bool(kth - nxt <= unit)}
+    return None
+
+
+def near_tie_paths(routing) -> set:
+    """The logits that rest on routing from the first near-tie on: a
+    difference there is a flipped expert, not a kernel's error."""
+    if not routing or not routing["near_tie"]:
+        return set()
+    order = [name for name, _ in routing_segments()]
+    return {p for p, seg in PATH_SEGMENT.items()
+            if order.index(seg) >= routing["segment"]}
+
+
 def rel_l2(got: dict, ref: dict) -> dict:
     return {path: float((got[path].float() - ref[path].float()).norm()
                         / ref[path].float().norm()) for path in ref}
@@ -1162,12 +1289,23 @@ def forward_checks(engine: Engine, adapter_slot: int = 0) -> dict:
     - the plain forward with the 1/sqrt(D) scale left out (q scaled by
       Q_SCALE * sqrt(D)) must be farther than LOGIT_REL_TOL from it: the
       logits check can fail.
-    On a LoRA engine the sequence runs under `adapter_slot`."""
+    On a LoRA engine the sequence runs under `adapter_slot`. On an MoE
+    model the two forwards' routing is compared (routing_divergence): a
+    bf16 difference of attention can flip one of a token's top-k experts
+    where two router logits nearly tie, and the logits then differ by a
+    whole expert's share. Logits that miss LOGIT_REL_TOL are a fault,
+    unless the routing first differed at a near-tie (at most one bf16
+    unit) no later than the forward they come from."""
     held = HeldAgainstPlain()
     cfg = engine.model_cfg
     q_scale = 1.0 if cfg.qk_norm else Q_SCALE
-    plain = three_paths(engine, q_scaled(att.PLAIN, q_scale), adapter_slot)
-    kernels = three_paths(engine, q_scaled(held.fns, q_scale), adapter_slot)
+    routes_plain, routes_kernels = [], []
+    with routing_recorded(routes_plain):
+        plain = three_paths(engine, q_scaled(att.PLAIN, q_scale),
+                            adapter_slot)
+    with routing_recorded(routes_kernels):
+        kernels = three_paths(engine, q_scaled(held.fns, q_scale),
+                              adapter_slot)
     unscaled = three_paths(engine, q_scaled(att.PLAIN,
                                             q_scale * cfg.head_dim ** 0.5),
                            adapter_slot)
@@ -1184,6 +1322,23 @@ def forward_checks(engine: Engine, adapter_slot: int = 0) -> dict:
                                 for t in kernels.values()),
            "logits_tolerance": f"rel_l2 < {LOGIT_REL_TOL}",
            "logits_rel_l2_without_softmax_scale": rel_l2(unscaled, plain)}
+    routing = None
+    if cfg.is_moe:
+        routing = routing_divergence(routes_plain, routes_kernels, cfg)
+        row["routing_first_difference"] = routing or "none"
+        # the control: how far the plain forward moves from itself when
+        # its attention outputs move by about half a bf16 unit
+        routes_nudged = []
+        with routing_recorded(routes_nudged):
+            control = three_paths(engine, q_scaled(nudged(att.PLAIN),
+                                                   q_scale), adapter_slot)
+        row["control_plain_nudged"] = {
+            "logits_rel_l2": rel_l2(control, plain),
+            "routing_first_difference": routing_divergence(
+                routes_plain, routes_nudged, cfg) or "none"}
+    excused = near_tie_paths(routing)
+    row["logits_past_tolerance_after_near_tie"] = sorted(
+        p for p in excused if row["logits_rel_l2"][p] >= LOGIT_REL_TOL)
     emit({"forward_check": row})
     # per layer: prefill, decode, the chunks, the mixed step, the verify
     # step and the mixed verify step
@@ -1193,9 +1348,11 @@ def forward_checks(engine: Engine, adapter_slot: int = 0) -> dict:
                              f"the plain version: {held.failed[:5]} "
                              f"({held.calls} calls)")
     if not row["logits_finite"] or any(
-            e >= LOGIT_REL_TOL for e in row["logits_rel_l2"].values()):
+            e >= LOGIT_REL_TOL for p, e in row["logits_rel_l2"].items()
+            if p not in excused):
         raise AssertionError(f"logits through the kernels differ from the "
-                             f"plain forward: {row['logits_rel_l2']}")
+                             f"plain forward: {row['logits_rel_l2']}, "
+                             f"routing {routing}")
     if any(e < LOGIT_REL_TOL for e in
            row["logits_rel_l2_without_softmax_scale"].values()):
         raise AssertionError("the logits check cannot tell a wrong softmax "
@@ -2794,7 +2951,17 @@ FAMILY_ROWS = (
      for k in ("decode", "decode_int8", "prefill", "chunk", "chunk_int8",
                "ragged", "ragged_int8")]
     + [("group=7", k, "qwen2.5-7b-instruct", k)
+       for k in ("decode", "prefill", "chunk", "ragged")]
+    + [("group=8", k, "qwen3-30b-a3b", k)
        for k in ("decode", "prefill", "chunk", "ragged")])
+# Phase 13's mixture-of-experts models, after the families: (model, its
+# weights' quantization, whether a mixed engine serves it and its
+# prompt's TTFT is taken with the capacity path off and on)
+MOE_MODELS = (
+    ("qwen3-30b-a3b", "none", True),
+    ("mixtral-8x7b-instruct-v0.1", "w8a8", False),
+)
+MOE_CAPACITY = 1.25
 
 
 def release() -> None:
@@ -2856,6 +3023,136 @@ def family_phase(model: str, pools, profiled: bool, eager_cfg: dict,
         emit({"phase": "family_serve_mixed", "model": model, **row})
         served.append(row)
         del mixed
+        release()
+    del engine
+    release()
+    return {"launches": [r["launches"] for r in served],
+            "variants": [r["variants"] for r in served],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def moe_block_ms(engine: Engine) -> float:
+    """Device time of one decode step's MoE blocks: `_mlp` of every layer
+    on 8 rows (the routing, the dense dispatch over every expert, the
+    combine), captured as one CUDA graph (as the decode step is) and its
+    replays timed with CUDA events: the host launches ~15 kernels a layer,
+    more than the sleep of device_ms covers. The dense path's time does
+    not depend on the rows' values."""
+    model, cfg = engine.model, engine.model_cfg
+    g = torch.Generator(device=engine.device)
+    g.manual_seed(3)
+    h = torch.randn((MAX_SEQS, cfg.hidden_size), generator=g,
+                    device=engine.device).to(model.dtype)
+
+    def blocks():
+        for layer in model.layers:
+            llama._mlp(cfg, layer, h)
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        blocks()  # warm up: cuBLAS's workspaces, the allocator's blocks
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with decode_graphs.capturing(graph, stream):
+        blocks()
+    return time_ms(graph.replay, 5)
+
+
+def capacity_ttft(engine: Engine, eager_cfg: dict) -> dict:
+    """TTFT of the ~600-token prompt as one prefill (a 1024-token bucket)
+    on eager engines sharing the weights, moe_capacity_factor 0 (dense
+    dispatch over every expert) and MOE_CAPACITY (each expert gathers
+    its top-C tokens), in turns after one untimed prefill each: the
+    median of three, host clock around `generate(max_tokens=1)`."""
+    cfg = dict(eager_cfg, model=engine.cfg.model, prefill_chunk_tokens=0,
+               quantization=engine.cfg.quantization)
+    engines = {cf: Engine(EngineConfig(**cfg, moe_capacity_factor=cf),
+                          params=engine.model)
+               for cf in (0.0, MOE_CAPACITY)}
+    prompt = [1 + i % 200 for i in range(600)]
+    times = {cf: [] for cf in engines}
+    for rnd in range(4):
+        for cf in (engines if rnd % 2 else reversed(list(engines))):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = engines[cf].generate(GenRequest(
+                f"ttft-{cf}-{rnd}", prompt, max_tokens=1, ignore_eos=True))
+            torch.cuda.synchronize()
+            if len(out) != 1:
+                raise AssertionError(f"capacity {cf}: {out}")
+            if rnd:
+                times[cf].append(time.monotonic() - t0)
+    cap = moe.expert_capacity(1024, engine.model_cfg.num_experts,
+                              engine.model_cfg.num_experts_per_tok,
+                              MOE_CAPACITY)
+    return {"prompt_tokens": len(prompt), "bucket": 1024,
+            "capacity_rows_per_expert": cap,
+            "ttft_s": {str(cf): statistics.median(t)
+                       for cf, t in times.items()},
+            "ttft_s_runs": {str(cf): t for cf, t in times.items()}}
+
+
+def moe_phase(model: str, quantization: str, mixed: bool, eager_cfg: dict,
+              jet_cfg: dict) -> dict:
+    """Phase 13 for one mixture-of-experts model (see the module doc): ->
+    {"launches", "variants", "peak_gib"} as family_phase."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    base = dict(eager_cfg, model=model, quantization=quantization)
+    engine = Engine(EngineConfig(**base))
+    torch.cuda.synchronize()
+    cfg = engine.model_cfg
+    weight_bytes = quant.param_bytes(engine.model)
+    emit({"phase": "moe_engine", "model": model,
+          "seconds": time.monotonic() - t0, "layers": cfg.num_layers,
+          "hidden": cfg.hidden_size, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+          "experts": cfg.num_experts, "experts_per_token":
+              cfg.num_experts_per_tok, "expert_width": cfg.intermediate_size,
+          "quantization": quant.mode_of(engine.model),
+          "params": loader.num_params(cfg),
+          "weights_gib": weight_bytes / 2**30,
+          "kv_pool_gib": engine.kv_spec.pool_bytes / 2**30,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    with torch.inference_mode():
+        forward_checks(engine)
+    served = []
+    jet = Engine(EngineConfig(**dict(jet_cfg, model=model,
+                                     quantization=quantization)),
+                 params=engine.model)
+    t0 = time.monotonic()
+    jet.warmup()
+    emit({"phase": "warmup", "engine": f"jetstream {model}",
+          "seconds": time.monotonic() - t0, **jet.windows.stats()})
+    row = window_serve(jet)
+    emit({"phase": "moe_serve_windows", "model": model, **row})
+    served.append(row)
+    with torch.inference_mode():
+        prof = profile_steps(jet, 4)
+        moe_ms = moe_block_ms(jet)
+    busy = prof["device_busy_ms_per_step"]
+    emit({"phase": "profile", "model": model,
+          "weights": quant.mode_of(engine.model), **prof,
+          "moe_block_ms_per_step": moe_ms,
+          "moe_block_share": moe_ms / busy if busy != "not measured"
+          else "not measured",
+          "weight_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del jet
+    release()
+    if mixed:
+        eng = Engine(EngineConfig(**base, mixed_batch_tokens=CHUNK),
+                     params=engine.model)
+        row = mixed_serve_checks(eng)
+        emit({"phase": "moe_serve_mixed", "model": model, **row})
+        served.append(row)
+        del eng
+        release()
+        with torch.inference_mode():
+            emit({"phase": "moe_capacity_ttft", "model": model,
+                  **capacity_ttft(engine, eager_cfg)})
         release()
     del engine
     release()
@@ -3075,6 +3372,9 @@ def main(argv=None) -> int:
     families = {model: family_phase(model, pools, profiled, eager_cfg,
                                     jet_cfg)
                 for model, pools, profiled in FAMILY_MODELS}
+    # the mixture-of-experts models (phase 13), after the families
+    families.update({model: moe_phase(model, q, mixed, eager_cfg, jet_cfg)
+                     for model, q, mixed in MOE_MODELS})
     emit({"phase": "family_memory",
           "peak_gib": {m: f["peak_gib"] for m, f in families.items()}})
     peak_gib = max([peak_gib] + [f["peak_gib"] for f in families.values()])

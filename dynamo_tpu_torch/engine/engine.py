@@ -351,6 +351,10 @@ class Engine:
             raise NotImplementedError(
                 f"ModelConfig feature(s) {bad} of {model_cfg.name} are not "
                 f"ported to dynamo_tpu_torch yet (see ROADMAP.md)")
+        if cfg.moe_capacity_factor > 0:
+            # the prefills' MoE capacity path (models/llama.py `_mlp`)
+            model_cfg = dataclasses.replace(
+                model_cfg, moe_capacity_factor=cfg.moe_capacity_factor)
         self.model_cfg = model_cfg
         self.dtype = getattr(torch, model_cfg.dtype)
         self.kv_spec = KVCacheSpec.from_model(
@@ -389,6 +393,11 @@ class Engine:
         if quant.mode_of(self.model) != mode:
             raise ValueError(f"the weights are {quant.mode_of(self.model)!r}"
                              f" but quantization={cfg.quantization!r}")
+        cf = model_cfg.moe_capacity_factor
+        if self.model.cfg.moe_capacity_factor != cf:
+            # weights shared with an engine of another capacity factor
+            self.model = llama.with_config(self.model, dataclasses.replace(
+                self.model.cfg, moe_capacity_factor=cf))
         log.info("weights: %s (quantization %s), %d bytes", model_cfg.name,
                  mode, quant.param_bytes(self.model))
 

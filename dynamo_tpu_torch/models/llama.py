@@ -1,14 +1,17 @@
-"""Dense Llama decoder over the paged KV cache, in PyTorch.
+"""Llama decoder over the paged KV cache, in PyTorch.
 
-Port of the dense path of `dynamo_tpu/models/llama.py` (Llama 3.x: SwiGLU,
+Port of `dynamo_tpu/models/llama.py` without MLA (Llama 3.x: SwiGLU,
 RMSNorm, rotary embeddings with optional llama3 scaling, GQA, tied or
 untied head), with the ModelConfig switches of three more dense families:
 Qwen2/2.5 (`attention_bias`: q/k/v biases), Qwen3 (`qk_norm`: a per-head
 RMSNorm of q and k over head_dim, before rope) and Gemma 1
 (`hidden_act="gelu_tanh"`: GeGLU; `rms_norm_unit_offset`: norms scale by
-1 + w; `embed_scale`: embeddings times sqrt(hidden_size)). What the port
-does not implement is refused by `unported_model_features`. Differences
-in idiom, not in arithmetic:
+1 + w; `embed_scale`: embeddings times sqrt(hidden_size)), and the
+mixture-of-experts MLP (`num_experts`: Mixtral, Qwen3-MoE; with
+`num_shared_experts`, `norm_topk_prob` and `routed_scaling_factor`,
+DeepSeek's routing; `ops.moe`). What the port does not implement is
+refused by `unported_model_features`. Differences in idiom, not in
+arithmetic:
 
 - Weights live in an `nn.Module` (`Llama`, one `LlamaLayer` per layer)
   instead of a layer-stacked pytree, and the forward is a Python loop over
@@ -31,6 +34,15 @@ with `chunk_adapter_slot` for the chunk of a mixed step. q, k, v and o
 each add their row's `lora.apply.delta` (JAX `llama.py` `_qkv`,
 `_attn_out`).
 
+MoE (JAX `_mlp`): the router's logits [T, X] (the product in the model
+dtype, cast to f32), their top-k combine matrix, padding rows masked out
+of it before any capacity is counted, then the dense dispatch, or the
+capacity path where the forward allows it (the prefills, with
+`moe_capacity_factor` > 0 and a capacity below the token count). The
+decode, verify and mixed steps dispatch densely: their shapes do not
+depend on the routing, so the captured steps take them, and the mixed
+steps keep a sequence's tokens independent of what shares its step.
+
 Projections and the LM head are plain matmuls, as the JAX package leaves
 them to XLA; a weight quantized by `models.quant` (a `QTensor`, weight-only
 or W8A8) goes through `quant.matmul` instead, and a quantized embedding
@@ -41,6 +53,7 @@ only tensor ops.
 
 from __future__ import annotations
 
+import copy
 from typing import List, Optional
 
 import torch
@@ -51,6 +64,7 @@ from dynamo_tpu_torch.lora import apply as lora_apply
 from dynamo_tpu_torch.models import quant
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops import attention as att
+from dynamo_tpu_torch.ops import moe as moe_ops
 from dynamo_tpu_torch.ops.rope import rope_cos_sin, rotate
 
 
@@ -59,12 +73,20 @@ def _weight(shape, device, dtype) -> nn.Parameter:
                         requires_grad=False)
 
 
+def _expert_weight(shape, device, dtype) -> nn.Parameter:
+    """An expert stack [X, K, N] stored as each expert's [N, K]
+    (`quant.operand_layout`)."""
+    x, k, n = shape
+    return nn.Parameter(torch.empty((x, n, k), device=device,
+                                    dtype=dtype).transpose(1, 2),
+                        requires_grad=False)
+
+
 def unported_model_features(m: ModelConfig) -> List[str]:
-    """ModelConfig features this model does not implement: MoE, MLA, the
+    """ModelConfig features this model does not implement: MLA, the
     Gemma-2/3 and Phi-3 attention variants, and rope scalings other than
     llama3's."""
     checks = [
-        ("num_experts", m.is_moe),
         ("kv_lora_rank", m.is_mla),
         ("sliding_window", m.sliding_window > 0),
         ("attn_logit_softcapping", m.attn_logit_softcapping > 0),
@@ -83,10 +105,13 @@ class LlamaLayer(nn.Module):
     """One decoder layer's weights, in the JAX layout with the head axes
     flattened: wq [E, H*D], wk/wv [E, KV*D], wo [H*D, E], w_gate/w_up
     [E, F], w_down [F, E]; with `attention_bias`, bq [H*D] and bk/bv
-    [KV*D]; with `qk_norm`, q_norm/k_norm [D] (None where the config has
-    no such weight). Each matmul weight is a tensor or, quantized, a
-    `quant.QTensor` of the same shape; biases and norms stay in the model
-    dtype."""
+    [KV*D]; with `qk_norm`, q_norm/k_norm [D]; with `num_experts` X,
+    router [E, X], moe_w_gate/moe_w_up [X, E, F] and moe_w_down
+    [X, F, E] (stored as each expert's [out, in]), and w_gate/w_up/w_down
+    only for shared experts, at width num_shared_experts * F (None where
+    the config has no such weight). Each matmul weight is a tensor or,
+    quantized, a `quant.QTensor` of the same shape; biases, norms and the
+    router stay in the model dtype."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -99,9 +124,19 @@ class LlamaLayer(nn.Module):
         self.wv = _weight((e, kv * d), device, dtype)
         self.wo = _weight((h * d, e), device, dtype)
         self.mlp_norm = _weight((e,), device, dtype)
-        self.w_gate = _weight((e, f), device, dtype)
-        self.w_up = _weight((e, f), device, dtype)
-        self.w_down = _weight((f, e), device, dtype)
+        fd = cfg.num_shared_experts * f if cfg.is_moe else f
+        self.w_gate = _weight((e, fd), device, dtype) if fd else None
+        self.w_up = _weight((e, fd), device, dtype) if fd else None
+        self.w_down = _weight((fd, e), device, dtype) if fd else None
+        x = cfg.num_experts
+        moe = cfg.is_moe
+        self.router = _weight((e, x), device, dtype) if moe else None
+        self.moe_w_gate = (_expert_weight((x, e, f), device, dtype)
+                           if moe else None)
+        self.moe_w_up = (_expert_weight((x, e, f), device, dtype)
+                         if moe else None)
+        self.moe_w_down = (_expert_weight((x, f, e), device, dtype)
+                           if moe else None)
         bias = cfg.attention_bias
         self.bq = _weight((h * d,), device, dtype) if bias else None
         self.bk = _weight((kv * d,), device, dtype) if bias else None
@@ -127,6 +162,16 @@ class Llama(nn.Module):
         self.final_norm = _weight((e,), device, dtype)
         self.lm_head = (None if cfg.tie_word_embeddings
                         else _weight((e, cfg.vocab_size), device, dtype))
+
+
+def with_config(model: Llama, cfg: ModelConfig) -> Llama:
+    """The same weights under another ModelConfig of the same shapes (an
+    engine's own: the MoE capacity factor is a deployment's setting, not
+    the weights'), for the forwards, which read `model.cfg`: a shallow
+    copy sharing every parameter and layer."""
+    view = copy.copy(model)
+    view.cfg = cfg
+    return view
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
@@ -197,8 +242,8 @@ def _attn_out(layer: LlamaLayer, o: torch.Tensor, lora=None
     return out
 
 
-def _mlp(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor
-         ) -> torch.Tensor:
+def _dense_mlp(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor
+               ) -> torch.Tensor:
     """Gated MLP, x [T, E]: SwiGLU, or GeGLU (tanh GELU) for
     hidden_act "gelu_tanh"."""
     act = quant.shared_activations(x, layer.w_gate)
@@ -206,6 +251,47 @@ def _mlp(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor
     g = (F.gelu(g, approximate="tanh") if cfg.hidden_act == "gelu_tanh"
          else F.silu(g))
     return quant.matmul(g * quant.matmul(x, layer.w_up, act), layer.w_down)
+
+
+def _mlp(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor,
+         token_mask: Optional[torch.Tensor] = None,
+         allow_capacity: bool = False) -> torch.Tensor:
+    """The gated MLP or the MoE block (JAX `_mlp`). x [T, E]; token_mask
+    [T] bool, False for padding rows (prefill pads to a page multiple).
+    The capacity-gather MoE path is prefill-only (allow_capacity): decode
+    batches contain inactive slots with no mask to exclude them, and are
+    small enough that dense dispatch wins anyway."""
+    if not cfg.is_moe:
+        return _dense_mlp(cfg, layer, x)
+    # top-k routing into a dense [T, X] combine matrix, then one of two
+    # dispatch paths (ops.moe): exact dense-masked by default;
+    # capacity-based gather (T*k*cf expert-MLP rows instead of T*X) when
+    # the deployment opts in via moe_capacity_factor > 0
+    logits = (x @ layer.router).to(torch.float32)
+    combine = moe_ops.topk_combine(
+        logits, cfg.num_experts_per_tok, x.dtype,
+        renormalize=cfg.norm_topk_prob,
+        scaling_factor=cfg.routed_scaling_factor)
+    if token_mask is not None:
+        # padding rows must not claim expert capacity (nor compute)
+        combine = combine * token_mask.to(combine.dtype)[:, None]
+    experts = (layer.moe_w_gate, layer.moe_w_up, layer.moe_w_down)
+    out = None
+    if allow_capacity and cfg.moe_capacity_factor > 0:
+        t = x.shape[0]
+        cap = moe_ops.expert_capacity(t, cfg.num_experts,
+                                      cfg.num_experts_per_tok,
+                                      cfg.moe_capacity_factor)
+        if cap < t:  # gather only pays off when capacity actually cuts rows
+            out = moe_ops.moe_mlp_dropping(x, combine, *experts,
+                                           capacity=cap)
+    if out is None:
+        out = moe_ops.moe_mlp_dense(x, combine, *experts)
+    if cfg.num_shared_experts > 0:
+        # DeepSeek-style always-active shared experts: one fused dense
+        # SwiGLU of width shared*F alongside the routed top-k
+        return _dense_mlp(cfg, layer, x) + out
+    return out
 
 
 def _logits(model: Llama, x: torch.Tensor) -> torch.Tensor:
@@ -235,17 +321,38 @@ def _slot_rows(lora: Optional[lora_apply.Stacks], slots, dtype):
     return lora_apply.slot_rows(slots, lora.num_slots, dtype)
 
 
-def _layer(cfg, layer, x, rope, attend, lora=None, l=0, rows=None):
+def _token_mask(cfg: ModelConfig, n: int, valid, device,
+                lead: int = 0) -> Optional[torch.Tensor]:
+    """The MoE block's token mask [lead + n] of a forward: `lead` rows
+    that are all real (decode or verify rows), then n rows of which the
+    first `valid` are real (an int, or [N] lengths of N lanes of n rows
+    each, flattened); None for a dense model, which needs none."""
+    if not cfg.is_moe:
+        return None
+    i = torch.arange(n, device=device)
+    if isinstance(valid, torch.Tensor):
+        mask = (i[None, :] < valid.to(device)[:, None]).reshape(-1)
+    else:
+        mask = i < valid
+    if lead:
+        mask = torch.cat([torch.ones((lead,), dtype=torch.bool,
+                                     device=device), mask])
+    return mask
+
+
+def _layer(cfg, layer, x, rope, attend, lora=None, l=0, rows=None,
+           token_mask=None, allow_capacity=False):
     """One decoder layer around `attend(q, k, v) -> o`, which also owns
     the KV write (before or after attention, as the caller needs); with
     `lora` (Stacks) the projections add the deltas of the rows' slots
-    (`rows`: their slot_rows mask)."""
+    (`rows`: their slot_rows mask). `token_mask` and `allow_capacity` go
+    to the MoE block (`_mlp`)."""
     ll = None if lora is None else (lora.layer(l), rows)
     h = _norm(cfg, x, layer.attn_norm)
     q, k, v = _qkv(cfg, layer, h, rope, ll)
     x = x + _attn_out(layer, attend(q, k, v), ll)
     h = _norm(cfg, x, layer.mlp_norm)
-    return x + _mlp(cfg, layer, h)
+    return x + _mlp(cfg, layer, h, token_mask, allow_capacity)
 
 
 def prefill(model: Llama, tokens: torch.Tensor, seq_len: int,
@@ -261,6 +368,7 @@ def prefill(model: Llama, tokens: torch.Tensor, seq_len: int,
     rope = _rope(cfg, torch.arange(s, device=tokens.device))
     lens = torch.tensor([seq_len], dtype=torch.int32).to(tokens.device)
     slots = _row_slots(lora, adapter_slots, s, tokens.device)
+    mask = _token_mask(cfg, s, seq_len, tokens.device)
     x = _embed_rows(model, tokens)
     rows = _slot_rows(lora, slots, model.dtype)
     for l, layer in enumerate(model.layers):
@@ -271,7 +379,7 @@ def prefill(model: Llama, tokens: torch.Tensor, seq_len: int,
             att.write_kv_prefill(kp, vp, k, v, pages, page_size=page_size)
             return o
 
-        x = _layer(cfg, layer, x, rope, attend, lora, l, rows)
+        x = _layer(cfg, layer, x, rope, attend, lora, l, rows, mask, True)
     return _logits(model, x[seq_len - 1][None])[0]
 
 
@@ -292,6 +400,7 @@ def prefill_chunk(model: Llama, tokens: torch.Tensor, start: int,
     first = start // page_size
     chunk_pages = pages[first:first + c // page_size]
     slots = _row_slots(lora, adapter_slots, c, tokens.device)
+    mask = _token_mask(cfg, c, chunk_len, tokens.device)
     x = _embed_rows(model, tokens)
     rows = _slot_rows(lora, slots, model.dtype)
     for l, layer in enumerate(model.layers):
@@ -303,7 +412,7 @@ def prefill_chunk(model: Llama, tokens: torch.Tensor, start: int,
             return attn.chunk(q, kp, vp, pages, start, page_size=page_size,
                               num_kv_heads=cfg.cache_kv_heads)
 
-        x = _layer(cfg, layer, x, rope, attend, lora, l, rows)
+        x = _layer(cfg, layer, x, rope, attend, lora, l, rows, mask, True)
     return _logits(model, x[chunk_len - 1][None])[0]
 
 
@@ -328,6 +437,7 @@ def prefill_batch(model: Llama, tokens: torch.Tensor, seq_lens: torch.Tensor,
                  else torch.zeros((n,), dtype=torch.int32))
         slots = lanes.to(tokens.device).repeat_interleave(s)
     rows = _slot_rows(lora, slots, model.dtype)
+    mask = _token_mask(cfg, s, seq_lens, tokens.device)
     for l, layer in enumerate(model.layers):
         kp, vp = k_pages[l], v_pages[l]
 
@@ -339,7 +449,7 @@ def prefill_batch(model: Llama, tokens: torch.Tensor, seq_lens: torch.Tensor,
                                  page_size=page_size)
             return o.reshape(n * s, *o.shape[2:])
 
-        x = _layer(cfg, layer, x, rope, attend, lora, l, rows)
+        x = _layer(cfg, layer, x, rope, attend, lora, l, rows, mask, True)
     idx = torch.arange(n, device=x.device) * s + seq_lens.long() - 1
     return _logits(model, x[idx])
 
@@ -405,6 +515,7 @@ def mixed_step(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
         slots = torch.cat([_row_slots(lora, adapter_slots, b, dev),
                            _row_slots(lora, chunk_adapter_slot, c, dev)])
     rows = _slot_rows(lora, slots, model.dtype)
+    mask = _token_mask(cfg, c, chunk_len, dev, lead=b)
     for l, layer in enumerate(model.layers):
         kp, vp = k_pages[l], v_pages[l]
 
@@ -417,7 +528,7 @@ def mixed_step(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
                                chunk_pages, chunk_start, page_size=page_size,
                                num_kv_heads=cfg.cache_kv_heads, num_decode=b)
 
-        x = _layer(cfg, layer, x, rope, attend, lora, l, rows)
+        x = _layer(cfg, layer, x, rope, attend, lora, l, rows, mask)
     logits = _logits(model, torch.cat([x[:b], x[b + chunk_len - 1][None]]))
     return logits[:b], logits[b]
 
@@ -516,6 +627,7 @@ def mixed_verify_step(model: Llama, tokens: torch.Tensor,
             _row_slots(lora, adapter_slots, b, dev).repeat_interleave(k1),
             _row_slots(lora, chunk_adapter_slot, c, dev)])
     rows = _slot_rows(lora, slots, model.dtype)
+    mask = _token_mask(cfg, c, chunk_len, dev, lead=n)
     for l, layer in enumerate(model.layers):
         kp, vp = k_pages[l], v_pages[l]
 
@@ -529,6 +641,6 @@ def mixed_verify_step(model: Llama, tokens: torch.Tensor,
                 page_size=page_size, num_kv_heads=cfg.cache_kv_heads,
                 num_verify=b, verify_width=k1)
 
-        x = _layer(cfg, layer, x, rope, attend, lora, l, rows)
+        x = _layer(cfg, layer, x, rope, attend, lora, l, rows, mask)
     logits = _logits(model, torch.cat([x[:n], x[n + chunk_len - 1][None]]))
     return logits[:n].view(b, k1, -1), logits[n]

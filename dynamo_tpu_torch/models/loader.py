@@ -7,9 +7,12 @@ weight on a leading layer axis and keeps heads as axes: embed [V, E],
 wq [L, E, H, D], wk/wv [L, E, KV, D], wo [L, H, D, E], w_gate/w_up
 [L, E, F], w_down [L, F, E], attn_norm/mlp_norm [L, E], final_norm [E],
 lm_head [E, V] (untied models); bq [L, H, D] and bk/bv [L, KV, D]
-(`attention_bias`), q_norm/k_norm [L, D] (`qk_norm`). `param_specs` below
-restates that contract for the dense models the port serves, and every
-function here that makes weights follows it.
+(`attention_bias`), q_norm/k_norm [L, D] (`qk_norm`); for X experts
+(`num_experts`) router [L, E, X], moe_w_gate/moe_w_up [L, X, E, F] and
+moe_w_down [L, X, F, E], with w_gate/w_up/w_down only for shared experts
+at width num_shared_experts * F. `param_specs` below restates that
+contract for the models the port serves (MLA's leaves are not among
+them), and every function here that makes weights follows it.
 
 `load_or_init` is the counterpart of the JAX package's
 `load_or_init_params`: every `*.safetensors` under `model_path`
@@ -41,29 +44,35 @@ Spec = Tuple[Tuple[int, ...], str, float]
 
 # the per-layer weights, named as in the JAX tree; the optional ones after
 # them, so that a config without them draws the same random weights
-_LAYER_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
-                "w_up", "w_down")
+_ATTN_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm")
+_MLP_NAMES = ("w_gate", "w_up", "w_down")  # dense, or shared experts
 _BIAS_NAMES = ("bq", "bk", "bv")  # attention_bias
 _QK_NORM_NAMES = ("q_norm", "k_norm")  # qk_norm
+_MOE_NAMES = ("router",) + quant.EXPERT_NAMES  # num_experts
 
 
 def _layer_names(cfg: ModelConfig) -> Tuple[str, ...]:
-    return (_LAYER_NAMES + (_BIAS_NAMES if cfg.attention_bias else ())
-            + (_QK_NORM_NAMES if cfg.qk_norm else ()))
+    dense_mlp = not cfg.is_moe or cfg.num_shared_experts > 0
+    return (_ATTN_NAMES + (_MLP_NAMES if dense_mlp else ())
+            + (_BIAS_NAMES if cfg.attention_bias else ())
+            + (_QK_NORM_NAMES if cfg.qk_norm else ())
+            + (_MOE_NAMES if cfg.is_moe else ()))
 
 
 # above this many parameters a quantized model with no checkpoint is drawn
 # as int8 directly instead of initialised and quantized (the JAX loader's
 # threshold)
 DIRECT_INT8_PARAMS = 2_000_000_000
+# the standard deviation of int8 values uniform over [-127, 127]
+UNIFORM_INT8_STD = ((255 ** 2 - 1) / 12) ** 0.5
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
-    """name -> (JAX shape, kind, sigma) for a dense Llama; kind is
+    """name -> (JAX shape, kind, sigma) for a Llama without MLA; kind is
     "normal" (stddev sigma), "ones" or "zeros". Sigmas follow the JAX
-    package: 1/sqrt(last JAX axis), 0.02 for the embedding and head;
-    norms are zeros where they scale by 1 + w (`rms_norm_unit_offset`),
-    biases zeros."""
+    package: 1/sqrt(last JAX axis), 0.02 for the embedding, the head and
+    the router; norms are zeros where they scale by 1 + w
+    (`rms_norm_unit_offset`), biases zeros."""
     e, h, kv, d, f, l = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim, cfg.intermediate_size, cfg.num_layers)
 
@@ -84,9 +93,17 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
     }
     if not cfg.tie_word_embeddings:
         p["lm_head"] = w((e, cfg.vocab_size), 0.02)
-    p["w_gate"] = w((l, e, f))
-    p["w_up"] = w((l, e, f))
-    p["w_down"] = w((l, f, e))
+    if cfg.is_moe:
+        x = cfg.num_experts
+        p["router"] = w((l, e, x), 0.02)
+        p["moe_w_gate"] = w((l, x, e, f))
+        p["moe_w_up"] = w((l, x, e, f))
+        p["moe_w_down"] = w((l, x, f, e))
+        f = cfg.num_shared_experts * f  # the shared experts' width
+    if f:
+        p["w_gate"] = w((l, e, f))
+        p["w_up"] = w((l, e, f))
+        p["w_down"] = w((l, f, e))
     if cfg.attention_bias:
         p["bq"] = ((l, h, d), "zeros", 0.0)
         p["bk"] = ((l, kv, d), "zeros", 0.0)
@@ -98,6 +115,8 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
 
 
 def num_params(cfg: ModelConfig) -> int:
+    """Parameters of the model, counted from its specs (nothing is
+    allocated); every expert counts."""
     return sum(int(np.prod(shape)) for shape, _, _ in
                param_specs(cfg).values())
 
@@ -119,9 +138,12 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def _scale_shape(name: str, shape: Tuple[int, ...]) -> Tuple[int, int]:
-    """A QTensor's scale in the port's layout: embed's per row, the other
-    weights' per output column."""
+def _scale_shape(name: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """A QTensor's scale in the port's layout: embed's per row, an expert
+    stack's per expert and output column, the other weights' per output
+    column."""
+    if name in quant.EXPERT_NAMES:
+        return (shape[0], 1, shape[2])
     return (shape[0], 1) if name == "embed" else (1, shape[1])
 
 
@@ -164,9 +186,14 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0,
     """Seeded random int8 weights built directly as QTensors, the JAX
     loader's `random_quantized_params`: int8 values uniform over
     [-127, 127] from a `torch.Generator` on `device`, per-channel scales
-    sigma * 4.5 / 127 (dequantized weights near each spec's sigma), norms
-    and biases their constants in `dtype`; no float copy of the model is
-    ever made."""
+    sigma / UNIFORM_INT8_STD, so that the dequantized weights' standard
+    deviation is each spec's sigma (the JAX loader's sigma * 4.5 / 127
+    puts amax at 4.5 sigma, as a normal draw's, but a uniform draw's
+    standard deviation is then 2.6 sigma: products through several such
+    weights grow layer by layer, and attention scores saturate), norms
+    and biases their constants in `dtype`, the MoE router drawn normal in
+    `dtype` (it is not quantized); no float copy of the model is ever
+    made."""
     if mode not in quant.MODES:
         raise ValueError(f"unknown quantization mode {mode!r}")
     specs = param_specs(cfg)
@@ -181,14 +208,22 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0,
             quant.set_weight(owner, name,
                              _param(fill(shape, device=device, dtype=dtype)))
             continue
-        # matmul weights drawn as their [N, K] transposes: the operand
-        # layout (quant.operand_layout); embed row-major
-        draw = shape if name == "embed" else shape[::-1]
+        if name not in quant.QUANT_AXES:  # the router: small, stays float
+            draw = torch.randn(shape, generator=gen, device=device,
+                               dtype=torch.float32)
+            quant.set_weight(owner, name, _param(draw.mul_(sigma).to(dtype)))
+            continue
+        # matmul weights (each expert's) drawn as their [N, K]
+        # transposes: the operand layout (quant.operand_layout); embed
+        # row-major
+        draw = (shape if name == "embed"
+                else (*shape[:-2], shape[-1], shape[-2]))
         q = torch.randint(-127, 128, draw, generator=gen, device=device,
                           dtype=torch.int8)
-        q = q if name == "embed" else q.t()
-        scale = torch.full(_scale_shape(name, shape), sigma * 4.5 / 127.0,
-                           device=device, dtype=torch.float32)
+        q = q if name == "embed" else q.transpose(-2, -1)
+        scale = torch.full(_scale_shape(name, shape),
+                           sigma / UNIFORM_INT8_STD, device=device,
+                           dtype=torch.float32)
         quant.set_weight(owner, name, quant.QTensor(q, scale, mode))
     return _check_filled(model)
 
@@ -250,8 +285,10 @@ def from_jax_params(cfg: ModelConfig, params: Mapping[str, object],
             continue
         src = tensor(leaf)
         src = src if layer is None else src[layer]
-        quant.set_weight(owner, name, _param(src.reshape(shape).to(device=device,
-                                                          dtype=dtype)))
+        src = src.reshape(shape).to(device=device, dtype=dtype)
+        if name in quant.EXPERT_NAMES:
+            src = quant.operand_layout(src)
+        quant.set_weight(owner, name, _param(src))
     _check_filled(model)
     if not carried and mode != "none":
         quant.quantize_params(model, mode)
@@ -278,15 +315,19 @@ def load_hf_safetensors(cfg: ModelConfig, files: Sequence[str],
                         device="cuda",
                         dtype: torch.dtype = torch.bfloat16) -> Llama:
     """HF-layout tensors (`model.layers.{i}.self_attn.q_proj.weight`, ...)
-    into the port's layout, the JAX loader's `load_hf_safetensors` for the
-    dense Llama: separate q/k/v/o projections or Phi-3's fused `qkv_proj`
-    and `gate_up_proj`, the norms, `lm_head` for untied models, Qwen2's
-    `self_attn.{q,k,v}_proj.bias` and Qwen3's `self_attn.{q,k}_norm.weight`.
-    Each tensor is read once, cast to `dtype` and transposed from HF's
-    [out, in] to the port's [in, out] on `device` (vectors as they are)."""
+    into the port's layout, the JAX loader's `load_hf_safetensors` without
+    MLA: separate q/k/v/o projections or Phi-3's fused `qkv_proj` and
+    `gate_up_proj`, the norms, `lm_head` for untied models, Qwen2's
+    `self_attn.{q,k,v}_proj.bias`, Qwen3's `self_attn.{q,k}_norm.weight`,
+    and MoE layers in both upstream layouts: Mixtral's
+    `block_sparse_moe.gate` and `experts.{j}.w1/w3/w2`, Qwen3-MoE's
+    `mlp.gate` and `mlp.experts.{j}.gate_proj/up_proj/down_proj`, with
+    DeepSeek's `shared_experts` beside them. Each tensor is read once,
+    cast to `dtype` and transposed from HF's [out, in] to the port's
+    [in, out] on `device` (vectors as they are); an expert stack keeps
+    each expert's [out, in] as its storage (`quant.operand_layout`)."""
     unsupported = [name for name, bad in (
         ("kv_lora_rank (MLA)", cfg.is_mla),
-        ("num_experts (MoE)", cfg.is_moe),
         ("post_norms", cfg.post_norms)) if bad]
     if unsupported:
         raise NotImplementedError(
@@ -313,6 +354,8 @@ def load_hf_safetensors(cfg: ModelConfig, files: Sequence[str],
         put(model, "final_norm", get("model.norm.weight"))
         fused_qkv = "model.layers.0.self_attn.qkv_proj.weight" in readers
         fused_mlp = "model.layers.0.mlp.gate_up_proj.weight" in readers
+        if cfg.is_moe:
+            moe_base, expert_names = _moe_layout(readers)
         for i, layer in enumerate(model.layers):
             pre = f"model.layers.{i}."
             put(layer, "attn_norm", get(pre + "input_layernorm.weight"))
@@ -328,14 +371,30 @@ def load_hf_safetensors(cfg: ModelConfig, files: Sequence[str],
                                  ("wv", "v_proj")):
                     put(layer, name, get(pre + f"self_attn.{hf}.weight").t())
             put(layer, "wo", get(pre + "self_attn.o_proj.weight").t())
-            if fused_mlp:  # Phi-3: rows gate, then up
-                w = get(pre + "mlp.gate_up_proj.weight")
-                put(layer, "w_gate", w[:f].t())
-                put(layer, "w_up", w[f:].t())
+            if cfg.is_moe:
+                base = pre + moe_base + "."
+                put(layer, "router", get(base + "gate.weight").t())
+                for name, hf in zip(quant.EXPERT_NAMES, expert_names):
+                    stack = torch.stack([
+                        get(f"{base}experts.{j}.{hf}.weight")
+                        for j in range(cfg.num_experts)])  # [X, out, in]
+                    quant.set_weight(layer, name,
+                                     _param(stack.transpose(1, 2)))
+                if cfg.num_shared_experts > 0:
+                    for name, hf in zip(_MLP_NAMES, ("gate_proj", "up_proj",
+                                                     "down_proj")):
+                        put(layer, name, get(
+                            f"{base}shared_experts.{hf}.weight").t())
             else:
-                put(layer, "w_gate", get(pre + "mlp.gate_proj.weight").t())
-                put(layer, "w_up", get(pre + "mlp.up_proj.weight").t())
-            put(layer, "w_down", get(pre + "mlp.down_proj.weight").t())
+                if fused_mlp:  # Phi-3: rows gate, then up
+                    w = get(pre + "mlp.gate_up_proj.weight")
+                    put(layer, "w_gate", w[:f].t())
+                    put(layer, "w_up", w[f:].t())
+                else:
+                    put(layer, "w_gate",
+                        get(pre + "mlp.gate_proj.weight").t())
+                    put(layer, "w_up", get(pre + "mlp.up_proj.weight").t())
+                put(layer, "w_down", get(pre + "mlp.down_proj.weight").t())
             if cfg.attention_bias:
                 for name, hf in (("bq", "q_proj"), ("bk", "k_proj"),
                                  ("bv", "v_proj")):
@@ -346,6 +405,24 @@ def load_hf_safetensors(cfg: ModelConfig, files: Sequence[str],
         if not cfg.tie_word_embeddings:
             put(model, "lm_head", get("lm_head.weight").t())
     return _check_filled(model)
+
+
+def _moe_layout(readers) -> Tuple[str, Tuple[str, str, str]]:
+    """(the MoE block's name under a layer, the HF names of the gate, up
+    and down experts) of a checkpoint: Mixtral's `block_sparse_moe` with
+    w1/w3/w2, or Qwen3-MoE's `mlp` with gate/up/down_proj (the JAX
+    loader's two schemes)."""
+    if ("model.layers.0.mlp.gate_proj.weight" in readers
+            and "model.layers.0.mlp.gate.weight" not in readers):
+        # DeepSeek's first_k_dense_replace layout: layer 0 is a plain
+        # dense FFN while later layers are MoE, which one layer class
+        # cannot hold
+        raise ValueError(
+            "checkpoint has a dense first layer (first_k_dense_replace); "
+            "heterogeneous layer stacks are not supported yet")
+    if "model.layers.0.block_sparse_moe.gate.weight" in readers:
+        return "block_sparse_moe", ("w1", "w3", "w2")
+    return "mlp", ("gate_proj", "up_proj", "down_proj")
 
 
 def checkpoint_files(model_path: Optional[str]) -> list:

@@ -1,7 +1,7 @@
-"""Int8 weights for the port's dense Llama: weight-only (`int8`) and W8A8
+"""Int8 weights for the port's Llama: weight-only (`int8`) and W8A8
 (`w8a8`).
 
-Port of `dynamo_tpu/models/quant.py` for the dense models the port serves.
+Port of `dynamo_tpu/models/quant.py` for the models the port serves.
 The arithmetic is the JAX package's, in the same cast order:
 
 - `quantize`: symmetric int8 over the contraction axes, one f32 scale per
@@ -22,12 +22,28 @@ selects the path by the class, `QTensor` or `QTensorA8`):
     wo [H*D, E], scale [1, E]        w_gate, w_up [E, F], w_down [F, E]
     embed [V, E], scale [V, 1]       lm_head [E, V], scale [1, V]
 
-wo's scale is JAX's over the contraction axes (1, 2) of [L, H, D, E]. A
-matmul weight's q is stored column-major (the transpose of a contiguous
-[N, K]), the layout `torch._int_mm` takes as its second operand; embed
-stays row-major, and the tied head contracts over its transpose, which is
-column-major. The int8 product is cuBLAS's through `torch._int_mm`: the
-JAX package leaves it to XLA, outside any Pallas kernel.
+    moe_w_gate, moe_w_up [X, E, F], scale [X, 1, F]
+    moe_w_down [X, F, E], scale [X, 1, E]
+
+wo's scale is JAX's over the contraction axes (1, 2) of [L, H, D, E]; an
+expert stack's is JAX's over axis 2 of [L, X, E, F]: one per (expert,
+output channel). A matmul weight's q is stored column-major (the
+transpose of a contiguous [N, K]), the layout `torch._int_mm` takes as
+its second operand, and an expert stack's q (and a float expert stack)
+is stored as each expert's [N, K] the same way (`operand_layout`), so
+that the dense gate and up products over every expert are one matrix
+product; embed stays row-major, and the tied head contracts over its
+transpose, which is column-major. The int8 product is cuBLAS's through
+`torch._int_mm`: the JAX package leaves it to XLA, outside any Pallas
+kernel.
+
+The expert products (`expert_rows`, `expert_batch`) follow the JAX
+`quant.einsum` at the MoE call sites, W8A8 activation scales included:
+that einsum takes the activation's contracted axes to be every axis
+whose label the weight also has, so for "te,xef->txf" a token's scale
+spans E, but for "txf,xfe->txe" (and the capacity path's "xce,xef->xcf",
+"xcf,xfe->xce") it spans the expert axis as well, one scale per token
+(per capacity slot) over X and the contracted axis.
 """
 
 from __future__ import annotations
@@ -40,10 +56,11 @@ from torch import nn
 
 MODES = ("int8", "w8a8")
 
-# The dense entries of the JAX package's QUANT_AXES: parameter name ->
-# contraction axes of its STACKED tensor ([L, ...] for per-layer weights).
-# In the port's flattened per-layer layout every weight contracts over its
-# first axis, except embed, whose rows are the output channels.
+# The JAX package's QUANT_AXES for the weights the port has: parameter
+# name -> contraction axes of its STACKED tensor ([L, ...] for per-layer
+# weights). In the port's flattened per-layer layout every dense weight
+# contracts over its first axis, except embed, whose rows are the output
+# channels, and an expert stack [X, K, N] over its axis 1.
 QUANT_AXES: Dict[str, Tuple[int, ...]] = {
     "embed": (1,),  # [V, E]: per vocab row (also right for the tied head)
     "lm_head": (0,),  # [E, V]
@@ -54,7 +71,14 @@ QUANT_AXES: Dict[str, Tuple[int, ...]] = {
     "w_gate": (1,),  # [L, E, F]
     "w_up": (1,),
     "w_down": (1,),  # [L, F, E]
+    "moe_w_gate": (2,),  # [L, X, E, F]
+    "moe_w_up": (2,),
+    "moe_w_down": (2,),  # [L, X, F, E]
 }
+EXPERT_NAMES = ("moe_w_gate", "moe_w_up", "moe_w_down")
+# the contracted axes of an expert-major activation [X, T, K] as the JAX
+# einsum quantizes it (see the module doc)
+EXPERT_BATCH_DIMS = (0, 2)
 
 # torch._int_mm on CUDA refuses fewer rows than this; shorter operands get
 # zero rows appended (exact: a zero row gives a zero output row)
@@ -111,9 +135,10 @@ def quantize(w: torch.Tensor, axes: Tuple[int, ...],
 
 
 def operand_layout(q: torch.Tensor) -> torch.Tensor:
-    """q [K, N] as the transpose of a contiguous [N, K]: torch._int_mm's
-    second operand."""
-    return q.t().contiguous().t()
+    """q [..., K, N] as the transpose of a contiguous [..., N, K]:
+    torch._int_mm's second operand (for each expert of a stack, float or
+    int8)."""
+    return q.transpose(-2, -1).contiguous().transpose(-2, -1)
 
 
 def quantize_weight(name: str, w: torch.Tensor, mode: str) -> QTensor:
@@ -121,7 +146,7 @@ def quantize_weight(name: str, w: torch.Tensor, mode: str) -> QTensor:
     module doc), quantized over its contraction axis."""
     if name == "embed":
         return quantize(w, (1,), mode)
-    qt = quantize(w, (0,), mode)
+    qt = quantize(w, (1,) if name in EXPERT_NAMES else (0,), mode)
     return QTensor(operand_layout(qt.q), qt.scale, mode)
 
 
@@ -208,11 +233,13 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, b)
 
 
-def activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def activations(x: torch.Tensor, dims: Tuple[int, ...] = (-1,)
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [T, K] -> (int8 [T, K], f32 scale [T, 1]): per-token symmetric
-    int8 over the contracted (last) axis, as the JAX einsum's W8A8 path."""
+    int8 over the contracted axes `dims` (the last by default), scales
+    kept with size-1 axes, as the JAX einsum's W8A8 path."""
     x32 = x.to(torch.float32)
-    amax = x32.abs().amax(dim=-1, keepdim=True)
+    amax = x32.abs().amax(dim=dims, keepdim=True)
     xs = torch.where(amax > 0, amax / 127.0, 1.0)
     xq = torch.clamp(torch.round(x32 / xs), -127, 127).to(torch.int8)
     return xq, xs
@@ -221,12 +248,13 @@ def activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 Activations = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
-def shared_activations(x: torch.Tensor, w) -> Activations:
-    """The int8 activations of x if `w` is a W8A8 weight, else None: one
-    quantization serves every projection of the same input (q, k and v;
-    gate and up), which would each compute the same bits."""
+def shared_activations(x: torch.Tensor, w,
+                       dims: Tuple[int, ...] = (-1,)) -> Activations:
+    """The int8 activations of x over `dims` if `w` is a W8A8 weight, else
+    None: one quantization serves every projection of the same input (q, k
+    and v; gate and up), which would each compute the same bits."""
     if isinstance(w, QTensor) and w.a8:
-        return activations(x)
+        return activations(x, dims)
     return None
 
 
@@ -261,3 +289,47 @@ def tied_head(x: torch.Tensor, embed) -> torch.Tensor:
     if not isinstance(embed, QTensor):
         return x @ embed.t()
     return _qmatmul(x, embed.q.t(), embed.scale.t(), embed.a8, None)
+
+
+def _all_experts(w: torch.Tensor) -> torch.Tensor:
+    """An expert stack [X, K, N] as [K, X*N]: a view in `operand_layout`."""
+    x, k, n = w.shape
+    return w.permute(1, 0, 2).reshape(k, x * n)
+
+
+def expert_rows(x: torch.Tensor, w, act: Activations = None
+                ) -> torch.Tensor:
+    """x [T, K] through every expert of w [X, K, N] -> [T, X, N] (the JAX
+    "te,xef->txf"), as one matrix product over the experts side by side;
+    a W8A8 stack scales each token over K (`act`: x's shared
+    activations)."""
+    t = x.shape[0]
+    nx, _, n = w.shape
+    if not isinstance(w, QTensor):
+        return (x @ _all_experts(w)).view(t, nx, n)
+    scale = w.scale.transpose(0, 1)  # [1, X, N]
+    if w.a8:
+        xq, xs = act if act is not None else activations(x)
+        acc = int_mm(xq, _all_experts(w.q)).view(t, nx, n)
+        return (acc.to(torch.float32) * xs[:, :, None] * scale).to(x.dtype)
+    y = (x @ _all_experts(w.q).to(x.dtype)).view(t, nx, n)
+    return y * scale.to(y.dtype)
+
+
+def expert_batch(x: torch.Tensor, w, act: Activations = None
+                 ) -> torch.Tensor:
+    """Expert-major rows x [X, T, K] through their own experts w
+    [X, K, N] -> [X, T, N] (the JAX "xce,xef->xcf", and "txf,xfe->txe"
+    with the token axis second); a W8A8 stack scales each row over X and
+    K (EXPERT_BATCH_DIMS, see the module doc) and runs one int8 product
+    per expert (`torch._int_mm` is 2-D)."""
+    if not isinstance(w, QTensor):
+        return torch.bmm(x, w)
+    if w.a8:
+        xq, xs = act if act is not None else activations(
+            x, EXPERT_BATCH_DIMS)
+        xq = xq.contiguous()
+        acc = torch.stack([int_mm(xq[j], w.q[j])
+                           for j in range(w.q.shape[0])])
+        return (acc.to(torch.float32) * xs * w.scale).to(x.dtype)
+    return torch.bmm(x, w.q.to(x.dtype)) * w.scale.to(x.dtype)

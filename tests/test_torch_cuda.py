@@ -483,14 +483,16 @@ def test_ragged_kernel_verify_only_matches_plain(dev, int8):
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("n_heads,n_kv,d", [(16, 16, 256), (8, 1, 256),
-                                            (28, 4, 128)],
-                         ids=["gemma-7b", "gemma-2b", "qwen2.5-7b"])
+                                            (28, 4, 128), (32, 4, 128)],
+                         ids=["gemma-7b", "gemma-2b", "qwen2.5-7b",
+                              "qwen3-30b-a3b"])
 @pytest.mark.parametrize("decode_q,c", [(1, 256), (5, 256), (5, 0)],
                          ids=["chunk_rows", "verify_rows", "verify_only"])
 def test_ragged_kernel_at_the_families_shapes(dev, int8, n_heads, n_kv, d,
                                               decode_q, c):
-    """The ragged kernel at head_dim 256 (groups 1 and 8) and at group 7
-    (a verify row of 5 x 7 = 35 tile rows): eight rows (context 0 on the
+    """The ragged kernel at head_dim 256 (groups 1 and 8), at group 7 (a
+    verify row of 5 x 7 = 35 tile rows) and at group 8 with head_dim 128
+    (qwen3-30b-a3b: 5 x 8 = 40 tile rows): eight rows (context 0 on the
     trash page, rows across a split boundary, a full table) beside a
     256-token chunk at 512, or alone (C = 0); counted under its head_dim."""
     ps, pmax, nd = 16, 64, 8
@@ -654,11 +656,12 @@ def test_mixed_int8_engine_launches_its_kernels(dev):
         assert ca.LAUNCHES[k] == 0, ca.LAUNCHES
 
 
-def _window_engine(enforce_eager, params=None, model_cfg=None, **kw):
+def _window_engine(enforce_eager, params=None, model_cfg=None,
+                   model="tiny-debug", **kw):
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import Engine
 
-    return Engine(EngineConfig(model="tiny-debug", page_size=16,
+    return Engine(EngineConfig(model=model, page_size=16,
                                num_pages=64, max_num_seqs=4, max_seq_len=512,
                                prefill_chunk_tokens=32,
                                enable_prefix_caching=False,
@@ -880,6 +883,24 @@ def test_w8a8_rows_do_not_depend_on_padding(dev):
     x = _rnd(dev, 64, 512, seed=9)
     w = quant.quantize_weight("w_up", _rnd(dev, 512, 256, seed=10), "w8a8")
     assert torch.equal(quant.matmul(x[:8], w), quant.matmul(x, w)[:8])
+
+
+@pytest.mark.parametrize("mode", ["none", "w8a8"])
+def test_moe_graph_windows_equal_eager_windows(dev, mode):
+    """tiny-moe-debug (its MoE blocks: the router's top-k, the dense
+    dispatch over every expert, bf16 or w8a8 expert stacks) in 4-step
+    graph windows against eager windows, bit for bit; the step captures
+    (no host sync in the routing)."""
+    from dynamo_tpu_torch.models import quant
+
+    eager = _window_engine(True, quantization=mode, model="tiny-moe-debug")
+    graphs = _window_engine(False, params=eager.model, quantization=mode,
+                            model="tiny-moe-debug")
+    assert graphs.model_cfg.is_moe and quant.mode_of(graphs.model) == mode
+    want = _window_run(eager)
+    assert _window_run(graphs) == want
+    st = graphs.windows.stats()
+    assert not st["eager"] and st["replays"] > 0
 
 
 @pytest.mark.parametrize("mode", ["int8", "w8a8"])

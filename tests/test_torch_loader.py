@@ -180,7 +180,7 @@ def test_unknown_quantization_and_unported_layouts_raise(tmp_path):
                             dtype=torch.float32)
     write_checkpoint(tmp_path)
     files = loader.checkpoint_files(str(tmp_path))
-    for preset in ("tiny-moe-debug", "tiny-mla-debug"):
+    for preset in ("tiny-mla-debug",):
         with pytest.raises(NotImplementedError, match="not ported"):
             loader.load_hf_safetensors(PRESETS[preset], files, device="cpu")
     untied = dataclasses.replace(cfg, tie_word_embeddings=False)
@@ -213,7 +213,8 @@ def test_quantization_after_the_load_matches_jax(tmp_path, mode):
 def test_large_models_draw_int8_directly(monkeypatch):
     """With no checkpoint and more than DIRECT_INT8_PARAMS parameters, the
     int8 weights are drawn as such: seeded, within +-127, the operand
-    layout, scales sigma * 4.5 / 127, norms ones."""
+    layout, scales sigma / UNIFORM_INT8_STD (the dequantized weights'
+    standard deviation is the spec's sigma), norms ones."""
     monkeypatch.setattr(loader, "DIRECT_INT8_PARAMS", 0)
     cfg = dataclasses.replace(TINY, dtype="float32",
                               tie_word_embeddings=False)
@@ -228,8 +229,11 @@ def test_large_models_draw_int8_directly(monkeypatch):
     assert int(a["layers.1.w_down.q"].abs().max()) <= 127
     assert m.layers[0].w_gate.q.shape == (E, F_)
     assert m.layers[0].w_gate.q.stride() == (1, E)
+    sigma = 1.0 / F_ ** 0.5
     assert torch.equal(m.layers[0].w_gate.scale,
-                       torch.full((1, F_), 4.5 / 127 / F_ ** 0.5))
+                       torch.full((1, F_), sigma / loader.UNIFORM_INT8_STD))
+    w = m.layers[1].w_gate.q.float() * m.layers[1].w_gate.scale
+    assert abs(float(w.std()) / sigma - 1) < 0.05
     assert m.embed.scale.shape == (V, 1) and m.lm_head.scale.shape == (1, V)
     assert torch.equal(m.final_norm, torch.ones(E))
     assert quant.param_bytes(m) == (loader.num_params(cfg)

@@ -75,8 +75,23 @@ def _weight(shape, seed, zero_channel=True):
     return w
 
 
+def _stacked_shapes() -> dict:
+    """name -> stacked JAX shape of every leaf of an untied dense
+    tiny-debug and of tiny-moe-debug (the expert stacks)."""
+    shapes = {}
+    for cfg in (dataclasses.replace(CFG, tie_word_embeddings=False),
+                PRESETS["tiny-moe-debug"]):
+        for name, (shape, _, _) in loader.param_specs(cfg).items():
+            shapes.setdefault(name, shape)
+    return shapes
+
+
 def test_quant_axes_are_the_dense_jax_entries():
-    jspecs = jllama.param_specs(_jcfg(tie_word_embeddings=False))
+    """The JAX entries of the leaves the port has: the dense ones and,
+    since MoE was ported, the expert stacks (not MLA's)."""
+    jspecs = {**jllama.param_specs(_jcfg(tie_word_embeddings=False)),
+              **jllama.param_specs(dataclasses.replace(
+                  JPRESETS["tiny-moe-debug"], dtype="float32"))}
     assert quant.QUANT_AXES == {k: v for k, v in jquant.QUANT_AXES.items()
                                 if k in jspecs}
 
@@ -84,10 +99,10 @@ def test_quant_axes_are_the_dense_jax_entries():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", sorted(quant.QUANT_AXES))
 def test_quantize_matches_jax_bytes(name, dtype):
-    """Every dense QUANT_AXES entry at its stacked JAX shape: the int8
-    values and the f32 scales are the JAX package's, byte for byte."""
-    shape = loader.param_specs(dataclasses.replace(
-        CFG, tie_word_embeddings=False))[name][0]
+    """Every QUANT_AXES entry at its stacked JAX shape (the expert stacks
+    at tiny-moe-debug's): the int8 values and the f32 scales are the JAX
+    package's, byte for byte."""
+    shape = _stacked_shapes()[name]
     w = _weight(shape, seed=len(name))
     if name == "embed":
         w[3] = 0.0  # a zero vocab row
