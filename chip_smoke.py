@@ -51,15 +51,20 @@ on failure:
    row named `kernel[shape]`: gemma-7b-it's head_dim 256 at group 1 (every
    entry point and pool kind, and the verify windows), gemma-2b-it's
    head_dim 256 at group 8, qwen2.5-7b-instruct's group 7 at head_dim
-   128 (a verify window of 5 x 7 = 35 tile rows) and qwen3-30b-a3b's
-   group 8 at head_dim 128 (32/4 heads: 5 x 8 = 40 tile rows).
+   128 (a verify window of 5 x 7 = 35 tile rows), qwen3-30b-a3b's
+   group 8 at head_dim 128 (32/4 heads: 5 x 8 = 40 tile rows) and
+   deepseek-v2-lite's MLA latent row, head_dim 640 at group 16 (one KV
+   head for 16 query heads: attend_latent; every entry point, both pool
+   kinds, the verify windows of 5 x 16 = 80 rows), each row with the
+   backend PyTorch's dispatcher picks for its library call.
 4. The engine for llama-3.1-8b-instruct at full width and depth, random
    bf16 weights from seed 0: a full prefill, a decode step, a chunked
    prefill, a mixed step (the decode row beside a 256-token chunk), a
    verify step (that row's window of K+1 = 5 tokens) and a mixed verify
    step (the window beside the chunk) through the kernels, every
    attention call of every layer held against the plain version on the
-   same inputs, and the full-depth logits against
+   same inputs (its f32 output, before rounding: see HeldAgainstPlain),
+   and the full-depth logits against
    the same forwards through the plain attention. q is scaled down before
    attention so that softmax is not one-hot (see forward_checks). Run on
    bf16 pools and again on int8 pools (an engine sharing the weights).
@@ -204,7 +209,20 @@ on failure:
    bound of reading every weight once; and for qwen3-30b-a3b a
    mixed_batch_tokens=256 engine serving the interference traffic and
    the ~600-token prompt's TTFT as one prefill with moe_capacity_factor
-   0 and 1.25 (the prefill's capacity path).
+   0 and 1.25 (the prefill's capacity path), and two capacity-path
+   prefills of it, which must give the same bits. Last, once those are
+   released, deepseek-v2-lite (MLA_MODEL) at full width and depth (27
+   layers: MLA with YaRN, pools of one 640-lane latent row, 64 experts
+   of 1408, top 6, 2 shared) with random bf16 weights from seed 0: phase
+   4's forwards on bf16 and int8 pools (routing compared as for the MoE
+   models), the OpenAI server on a warmed-up jetstream engine with phase
+   5's four concurrent requests, its graph-window decode step profiled
+   (the MoE blocks' and the attention's shares, the bound of reading
+   every weight once), mixed_batch_tokens=256 engines on bf16 and int8
+   pools serving the interference traffic, the same with n-gram
+   speculation (K = 4) on graph-window engines (verify windows alone and
+   beside the chunks), and the capacity path's TTFT and bit identity; so
+   that every kernel launches at head_dim 640 when served.
 14. JSON-guided decoding (after phase 11, on the 8B's weights). The
    grammar kernel (`csrc/json_mask.cu`, both entry points) against its
    plain version on the card: B = 8 rows over V = 128256 tokens of a
@@ -249,7 +267,8 @@ on failure:
    7 and at group 8 counted as rows of their own: the head_dim 256 rows
    from the served gemma-7b-it phases' variant counts, the group 7 rows
    from the served qwen2.5 phases' launches, the group 8 rows from the
-   served qwen3-30b-a3b phases' launches; `ms` and `library_ms` device times,
+   served qwen3-30b-a3b phases' launches, the head_dim 640 rows from the
+   served deepseek-v2-lite phases' variant counts; `ms` and `library_ms` device times,
    `call_ms` and `library_call_ms` call times, as phase 3 measures them;
    the grammar kernel's two rows from phase 14, their launches from its
    served phase, and no library call), the card line, and last the
@@ -511,8 +530,18 @@ def bound(nbytes: float, flops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+SDPA_BACKEND = {"last": None}  # the backend the last sdpa call took
+
+
 def sdpa(q, k, v, mask) -> torch.Tensor:
-    """One library attention call over dense [N, H, Q|S, D] tensors."""
+    """One library attention call over dense [N, H, Q|S, D] tensors; the
+    backend PyTorch's dispatcher picks for them (its flash kernel stops at
+    head_dim 256) is kept in SDPA_BACKEND."""
+    try:
+        choice = torch._fused_sdp_choice(q, k, v, mask)
+        SDPA_BACKEND["last"] = torch.nn.attention.SDPBackend(choice).name
+    except (AttributeError, RuntimeError, ValueError) as e:
+        SDPA_BACKEND["last"] = f"unknown ({type(e).__name__})"
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
@@ -548,6 +577,7 @@ def check(name, kernel, plain, library, cost, shapes, extra=None,
            "tolerance": f"atol=rtol={TOL}, row max/RMS <= {ROW_TOL}",
            "kernel_ms": device_ms(kernel, 20), "plain_ms": device_ms(plain, 3),
            "library_ms": device_ms(library, 20),
+           "library_backend": SDPA_BACKEND["last"],
            "kernel_call_ms": time_ms(kernel, 20),
            "library_call_ms": time_ms(library, 20), **cost,
            "ptxas": kernel_usage(name, head_dim), **(extra or {})}
@@ -897,6 +927,12 @@ def kernel_checks(dev) -> dict:
 
 
 # Phase 3's rows at the new families' shapes: (label, H, KV, D, rows).
+# deepseek-v2-lite's MLA latent row (head_dim 640, one KV head for 16
+# query heads: attend_latent), every entry point and pool kind
+LATENT_KERNELS = ("decode", "decode_int8", "prefill", "chunk", "chunk_int8",
+                  "ragged", "ragged_int8", "ragged_verify",
+                  "ragged_verify_only", "ragged_int8_verify",
+                  "ragged_int8_verify_only")
 # gemma-7b-it (head_dim 256, group 1: every entry point and pool kind),
 # gemma-2b-it (head_dim 256, group 8), qwen2.5-7b-instruct (group 7,
 # whose verify windows fill 5 x 7 = 35 of the tile's 64 rows) and
@@ -913,6 +949,7 @@ FAMILY_SHAPES = (
     ("group=8", 32, 4, 128,
      ("decode", "prefill", "chunk", "ragged", "ragged_verify",
       "ragged_verify_only")),
+    ("head_dim=640,group=16", 16, 1, 640, LATENT_KERNELS),
 )
 
 
@@ -1064,7 +1101,14 @@ class HeldAgainstPlain:
     """Attention functions that launch the kernels and hold every call's
     output against the plain version on the same inputs (the layer's own
     q/k/v and pool state), so a forward through the kernels checks each of
-    its attention calls at every layer."""
+    its attention calls at every layer. The plain version's output is
+    taken in f32, before its rounding to bf16 (q passed as f32: the same
+    arithmetic, unrounded): two outputs rounded to bf16 apart can differ
+    by a whole unit where their f32 values straddle a rounding boundary,
+    and on MLA's 640-lane latent rows (normed c_kv lanes beside unnormed
+    rope lanes) an element 6.5 times its row's RMS then puts one bf16
+    unit past ROW_TOL of the RMS; against the f32 value the kernel's own
+    rounding is at most half a unit."""
 
     def __init__(self):
         self.calls, self.failed = 0, []
@@ -1075,9 +1119,10 @@ class HeldAgainstPlain:
               for name in att.AttentionFns._fields))
 
     def _wrap(self, name, kernel, plain):
-        def fn(*args, **kw):
-            out = kernel(*args, **kw)
-            max_abs, max_rel, ok = disagreement(out, plain(*args, **kw))
+        def fn(q, *args, **kw):
+            out = kernel(q, *args, **kw)
+            max_abs, max_rel, ok = disagreement(
+                out, plain(q.float(), *args, **kw))
             self.calls += 1
             self.max_abs_err = max(self.max_abs_err, max_abs)
             self.max_row_rel_err = max(self.max_row_rel_err, max_rel)
@@ -1306,9 +1351,8 @@ def forward_checks(engine: Engine, adapter_slot: int = 0) -> dict:
     with routing_recorded(routes_kernels):
         kernels = three_paths(engine, q_scaled(held.fns, q_scale),
                               adapter_slot)
-    unscaled = three_paths(engine, q_scaled(att.PLAIN,
-                                            q_scale * cfg.head_dim ** 0.5),
-                           adapter_slot)
+    unscaled = three_paths(engine, q_scaled(
+        att.PLAIN, q_scale * cfg.cache_head_dim ** 0.5), adapter_slot)
     row = {"model": cfg.name, "kv_cache_dtype": engine.kv_spec.dtype,
            "adapter_slot": adapter_slot, "q_scale": q_scale,
            "attention_calls_held": held.calls,
@@ -2249,7 +2293,8 @@ def mixed_spec_serve(engine: Engine) -> dict:
     sfx = "_int8" if engine.kv_spec.quantized else ""
     with serving(engine, VisibleTokenizer()) as base:
         ca.reset_launch_counts()
-        traffic = interference(base, CHAT_STREAM_PLAIN)
+        traffic = interference(base, CHAT_STREAM_PLAIN,
+                               model=engine.cfg.model)
         launches = dict(ca.LAUNCHES)
         variants = dict(ca.VARIANT_LAUNCHES)
         worker = stats(base)
@@ -2943,6 +2988,9 @@ FAMILY_MODELS = (
     ("qwen2.5-7b-instruct", ("auto",), True),
     ("qwen3-0.6b", (), False),
 )
+# Phase 13's MLA model, last: its pools hold one latent row of 640 lanes
+# (576 padded), so every kernel runs at head_dim 640 and group 16
+MLA_MODEL = "deepseek-v2-lite"
 # the kernels line's rows at those shapes: (phase 3 label, kernel, the
 # model whose served phases count its launches, the launch count's key: a
 # variant, or at group 7 every launch of the kernel in qwen2.5's phases)
@@ -2953,7 +3001,21 @@ FAMILY_ROWS = (
     + [("group=7", k, "qwen2.5-7b-instruct", k)
        for k in ("decode", "prefill", "chunk", "ragged")]
     + [("group=8", k, "qwen3-30b-a3b", k)
-       for k in ("decode", "prefill", "chunk", "ragged")])
+       for k in ("decode", "prefill", "chunk", "ragged")]
+    + [("head_dim=640,group=16", k, MLA_MODEL, key)
+       for k, key in (
+           ("decode", "decode[head_dim=640]"),
+           ("decode_int8", "decode_int8[head_dim=640]"),
+           ("prefill", "prefill[head_dim=640]"),
+           ("chunk", "chunk[head_dim=640]"),
+           ("chunk_int8", "chunk_int8[head_dim=640]"),
+           ("ragged", "ragged[decode_q=1,chunk]"),
+           ("ragged_int8", "ragged_int8[decode_q=1,chunk]"),
+           ("ragged_verify", VARIANTS["ragged_verify"]),
+           ("ragged_verify_only", VARIANTS["ragged_verify_only"]),
+           ("ragged_int8_verify", VARIANTS["ragged_int8_verify"]),
+           ("ragged_int8_verify_only",
+            VARIANTS["ragged_int8_verify_only"]))])
 # Phase 13's mixture-of-experts models, after the families: (model, its
 # weights' quantization, whether a mixed engine serves it and its
 # prompt's TTFT is taken with the capacity path off and on)
@@ -3087,11 +3149,52 @@ def capacity_ttft(engine: Engine, eager_cfg: dict) -> dict:
     cap = moe.expert_capacity(1024, engine.model_cfg.num_experts,
                               engine.model_cfg.num_experts_per_tok,
                               MOE_CAPACITY)
+    identical = capacity_prefill_identical(engines[MOE_CAPACITY], prompt)
     return {"prompt_tokens": len(prompt), "bucket": 1024,
             "capacity_rows_per_expert": cap,
+            "capacity_prefill_bit_identical": identical,
             "ttft_s": {str(cf): statistics.median(t)
                        for cf, t in times.items()},
             "ttft_s_runs": {str(cf): t for cf, t in times.items()}}
+
+
+def capacity_prefill_identical(engine: Engine, prompt) -> dict:
+    """Two prefills of `prompt` (a 1024-token bucket) on an engine with
+    moe_capacity_factor > 0, so that every layer's MoE block takes the
+    capacity path: the logits must be the same bits (its add-back sums
+    each token's experts in a fixed order; index_add_'s atomics did
+    not)."""
+    model, dev = engine.model, engine.device
+    tokens = torch.zeros((1024,), dtype=torch.long)
+    tokens[:len(prompt)] = torch.tensor(prompt)
+    calls = []
+    real = moe.moe_mlp_dropping
+
+    def counted(*args, **kw):
+        calls.append(kw["capacity"])
+        return real(*args, **kw)
+
+    pages = engine.allocator.alloc(1024 // PS)
+    moe.moe_mlp_dropping = counted
+    try:
+        page_t = torch.tensor(pages, dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            logits = [llama.prefill(model, tokens.to(dev), len(prompt),
+                                    engine.k_pages, engine.v_pages, page_t,
+                                    page_size=PS) for _ in range(2)]
+    finally:
+        moe.moe_mlp_dropping = real
+        engine.allocator.free(pages)
+    layers = engine.model_cfg.num_layers
+    if len(calls) != 2 * layers:
+        raise AssertionError(f"{len(calls)} capacity-path MoE blocks in two "
+                             f"prefills of {layers} layers")
+    if not torch.equal(logits[0], logits[1]):
+        raise AssertionError("two capacity-path prefills differ: max "
+                             + str(float((logits[0].float()
+                                          - logits[1].float()).abs().max())))
+    return {"prefills": 2, "capacity_blocks": len(calls),
+            "capacity_rows_per_expert": calls[0], "identical": True}
 
 
 def moe_phase(model: str, quantization: str, mixed: bool, eager_cfg: dict,
@@ -3154,6 +3257,113 @@ def moe_phase(model: str, quantization: str, mixed: bool, eager_cfg: dict,
             emit({"phase": "moe_capacity_ttft", "model": model,
                   **capacity_ttft(engine, eager_cfg)})
         release()
+    del engine
+    release()
+    return {"launches": [r["launches"] for r in served],
+            "variants": [r["variants"] for r in served],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def mla_phase(eager_cfg: dict, jet_cfg: dict) -> dict:
+    """Phase 13 for deepseek-v2-lite at full width and depth (MLA with
+    YaRN, 64 experts of which 6 and 2 shared; see the module doc): ->
+    {"launches", "variants", "peak_gib"} as family_phase."""
+    model = MLA_MODEL
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    base = dict(eager_cfg, model=model)
+    engine = Engine(EngineConfig(**base))
+    torch.cuda.synchronize()
+    cfg = engine.model_cfg
+    weight_bytes = quant.param_bytes(engine.model)
+    emit({"phase": "mla_engine", "model": model,
+          "seconds": time.monotonic() - t0, "layers": cfg.num_layers,
+          "hidden": cfg.hidden_size, "heads": cfg.num_heads,
+          "kv_lora_rank": cfg.kv_lora_rank,
+          "qk_nope_head_dim": cfg.qk_nope_head_dim,
+          "qk_rope_head_dim": cfg.qk_rope_head_dim,
+          "v_head_dim": cfg.v_head_dim,
+          "cache_head_dim": cfg.cache_head_dim,
+          "cache_kv_heads": cfg.cache_kv_heads,
+          "rope_yarn_scaling": cfg.rope_yarn_scaling,
+          "experts": cfg.num_experts,
+          "experts_per_token": cfg.num_experts_per_tok,
+          "shared_experts": cfg.num_shared_experts,
+          "params": loader.num_params(cfg),
+          "weights_gib": weight_bytes / 2**30,
+          "kv_pool_gib": engine.kv_spec.pool_bytes / 2**30,
+          "kv_lane_width": engine.kv_spec.lane_width,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    with torch.inference_mode():
+        forward_checks(engine)
+        eng8 = Engine(EngineConfig(**base, kv_cache_dtype="int8"),
+                      params=engine.model)
+        forward_checks(eng8)
+        del eng8
+        release()
+    served = []
+    jet = Engine(EngineConfig(**dict(jet_cfg, model=model)),
+                 params=engine.model)
+    t0 = time.monotonic()
+    jet.warmup()
+    emit({"phase": "warmup", "engine": f"jetstream {model}",
+          "seconds": time.monotonic() - t0, **jet.windows.stats()})
+    row = window_serve(jet)
+    emit({"phase": "mla_serve_windows", "model": model, **row})
+    served.append(row)
+    with torch.inference_mode():
+        prof = profile_steps(jet, 4)
+        moe_ms = moe_block_ms(jet)
+    busy = prof["device_busy_ms_per_step"]
+    measured = busy != "not measured"
+    attn_ms = prof["by_family_ms_per_step"].get("attention (port kernels)",
+                                                0.0)
+    # the step's bytes: every weight once (dense dispatch reads every
+    # expert), and the 8 slots' K and V rows, at most their 100-token
+    # prompts and the tokens profile_steps asks of them (under 0.2% of
+    # the weights)
+    ctx = 100 + (prof["engine_steps"] + 2) * prof["window"] + 8
+    kv_bytes = (2 * MAX_SEQS * ctx * engine.kv_spec.lane_width * 2
+                * cfg.num_layers)
+    emit({"phase": "profile", "model": model, "weights": "none", **prof,
+          "moe_block_ms_per_step": moe_ms,
+          "moe_block_share": moe_ms / busy if measured else "not measured",
+          "attention_ms_per_step": attn_ms,
+          "attention_share": attn_ms / busy if measured else "not measured",
+          "weight_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+          "bound_ms": (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del jet
+    release()
+    for kv in ("auto", "int8"):
+        eng = Engine(EngineConfig(**base, mixed_batch_tokens=CHUNK,
+                                  kv_cache_dtype=kv), params=engine.model)
+        row = mixed_serve_checks(eng)
+        emit({"phase": "mla_serve_mixed", "model": model, **row})
+        served.append(row)
+        del eng
+        release()
+    # n-gram speculation (K = 4) on mixed graph-window engines: verify
+    # windows of 5 x 16 rows alone and beside the long prompt's chunks
+    spec = dict(speculative_mode="ngram", num_speculative_tokens=SPEC_K)
+    for kv in ("auto", "int8"):
+        eng = Engine(EngineConfig(**dict(jet_cfg, model=model), **spec,
+                                  kv_cache_dtype=kv,
+                                  mixed_batch_tokens=CHUNK),
+                     params=engine.model)
+        t0 = time.monotonic()
+        eng.warmup()
+        emit({"phase": "warmup", "engine": f"mixed_spec_{kv} {model}",
+              "seconds": time.monotonic() - t0,
+              "verify_graphs": eng.verify.stats()})
+        row = mixed_spec_serve(eng)
+        emit({"phase": "mla_serve_mixed_spec", "model": model, **row})
+        served.append(row)
+        del eng
+        release()
+    emit({"phase": "moe_capacity_ttft", "model": model,
+          **capacity_ttft(engine, eager_cfg)})
+    release()
     del engine
     release()
     return {"launches": [r["launches"] for r in served],
@@ -3375,6 +3585,8 @@ def main(argv=None) -> int:
     # the mixture-of-experts models (phase 13), after the families
     families.update({model: moe_phase(model, q, mixed, eager_cfg, jet_cfg)
                      for model, q, mixed in MOE_MODELS})
+    # the MLA model, last (phase 13)
+    families[MLA_MODEL] = mla_phase(eager_cfg, jet_cfg)
     emit({"phase": "family_memory",
           "peak_gib": {m: f["peak_gib"] for m, f in families.items()}})
     peak_gib = max([peak_gib] + [f["peak_gib"] for f in families.values()])

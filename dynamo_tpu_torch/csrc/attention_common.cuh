@@ -133,11 +133,14 @@ constexpr int kMaxTileDim = 256;  // largest head_dim
 constexpr size_t kMaxBlockSmem = 232448;  // the H100's per-block limit
 constexpr int kSplitKeys = 256;   // least keys per split of a decode row
 constexpr int kSplitBlocksPerSm = 4;  // most decode blocks per SM, all splits
+// MLA's latent row (DeepSeek-V2: 512 + 64 lanes, padded to 640), run by
+// attend_latent below instead of attend_mma
+constexpr int kLatentDim = 640;
 
 // The head_dims the tile is compiled for (with_head_dim): those of the
 // port's servable presets.
 inline bool tile_head_dim(int d) {
-  return d == 32 || d == 64 || d == 128 || d == 256;
+  return d == 32 || d == 64 || d == 128 || d == 256 || d == kLatentDim;
 }
 
 inline bool tile_fits(int group, int d) {
@@ -270,6 +273,47 @@ struct Bf16Tiles {
   }
 };
 
+// Widens the int8 rows of an arrived stage into bf16 work tiles: kRows
+// raw rows [kRows][kD] int8 (the K rows, then the V rows) become
+// [kRows][kD + 8] bf16, and each row's 16-byte scale chunk (after the raw
+// rows) gives head kvh's scale as f32 at [kRows] after the bf16 rows. An
+// int8 value is exact in bf16; kThreads threads share the work.
+template <int kD, int kRows, int kThreads>
+__device__ __forceinline__ void widen_int8_rows(const char* stage, char* work,
+                                                int kvh, int tid) {
+  constexpr int n = kD / 16;  // 16-value chunks per row
+  __nv_bfloat16* wt = reinterpret_cast<__nv_bfloat16*>(work);
+#pragma unroll
+  for (int idx = tid; idx < kRows * n; idx += kThreads) {
+    const int row = idx / n, c = idx - row * n;
+    const uint4 raw = *reinterpret_cast<const uint4*>(stage + row * kD + c * 16);
+    const unsigned* w = reinterpret_cast<const unsigned*>(&raw);
+    unsigned out[8];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // x + 128 as a byte u: the float with bits 0x4B0000uu is 2^23 + u,
+      // so subtracting 2^23 + 128 gives x exactly (no I2F)
+      const unsigned u = w[e] ^ 0x80808080u;
+      float f[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        f[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | b))
+               - 8388736.f;
+      out[2 * e] = pack_bf16(f[0], f[1]);
+      out[2 * e + 1] = pack_bf16(f[2], f[3]);
+    }
+    uint4* dst = reinterpret_cast<uint4*>(wt + row * (kD + 8) + c * 16);
+    dst[0] = make_uint4(out[0], out[1], out[2], out[3]);
+    dst[1] = make_uint4(out[4], out[5], out[6], out[7]);
+  }
+  float* sc = reinterpret_cast<float*>(wt + kRows * (kD + 8));
+  for (int idx = tid; idx < kRows; idx += kThreads) {
+    const unsigned short bits = *reinterpret_cast<const unsigned short*>(
+        stage + kRows * kD + idx * 16 + 2 * (kvh % 8));
+    sc[idx] = __uint_as_float((unsigned)bits << 16);  // bf16 -> f32, exact
+  }
+}
+
 // K/V tiles of int8 packed rows [KV*D int8 | KV bf16 scales | pad]. A stage
 // holds the raw K values [kKeyTile][d], V values, then per key the 16-byte
 // chunk of K's and of V's scale lanes that holds head kvh's scale (byte
@@ -310,37 +354,7 @@ struct Int8Tiles {
   template <int kD>
   __device__ __forceinline__ void prepare(char* stage, char* work, int kvh,
                                           int tid) const {
-    constexpr int n = kD / 16;  // 16-value chunks per row
-    __nv_bfloat16* wt = reinterpret_cast<__nv_bfloat16*>(work);
-#pragma unroll
-    for (int idx = tid; idx < 2 * kKeyTile * n; idx += kTileThreads) {
-      const int row = idx / n, c = idx - row * n;  // row: K rows, then V's
-      const uint4 raw = *reinterpret_cast<const uint4*>(stage + row * kD + c * 16);
-      const unsigned* w = reinterpret_cast<const unsigned*>(&raw);
-      unsigned out[8];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // x + 128 as a byte u: the float with bits 0x4B0000uu is 2^23 + u,
-        // so subtracting 2^23 + 128 gives x exactly (no I2F)
-        const unsigned u = w[e] ^ 0x80808080u;
-        float f[4];
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          f[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | b))
-                 - 8388736.f;
-        out[2 * e] = pack_bf16(f[0], f[1]);
-        out[2 * e + 1] = pack_bf16(f[2], f[3]);
-      }
-      uint4* dst = reinterpret_cast<uint4*>(wt + row * (kD + 8) + c * 16);
-      dst[0] = make_uint4(out[0], out[1], out[2], out[3]);
-      dst[1] = make_uint4(out[4], out[5], out[6], out[7]);
-    }
-    float* sc = reinterpret_cast<float*>(wt + 2 * kKeyTile * (kD + 8));
-    for (int idx = tid; idx < 2 * kKeyTile; idx += kTileThreads) {
-      const unsigned short bits = *reinterpret_cast<const unsigned short*>(
-          stage + 2 * kKeyTile * kD + idx * 16 + 2 * (kvh % 8));
-      sc[idx] = __uint_as_float((unsigned)bits << 16);  // bf16 -> f32, exact
-    }
+    widen_int8_rows<kD, 2 * kKeyTile, kTileThreads>(stage, work, kvh, tid);
   }
   __device__ __forceinline__ const __nv_bfloat16* ktile(char*, char* work,
                                                         int) const {
@@ -375,12 +389,59 @@ __host__ __device__ constexpr int ring_stages() {
              ? kMaxStages : 2;
 }
 
+// The latent tile (attend_latent): 16 warps, K/V tiles of 16 keys, three
+// ring stages, and the four lane quarters' score partials in f32.
+constexpr int kLatentThreads = 512;
+constexpr int kLatentKeys = 16;
+constexpr int kLatentStages = 3;
+constexpr int kLatentQuarter = kLatentDim / 4;  // lanes of a warp's share
+constexpr int kLatentSld = kLatentKeys + 4;  // padded row of the partials
+
+template <typename KVTiles>
+__host__ __device__ constexpr size_t latent_stage_bytes() {
+  return KVTiles::kInt8
+             ? 2 * (size_t)kLatentKeys * kLatentDim + 2 * kLatentKeys * 16
+             : 2 * (size_t)kLatentKeys * (kLatentDim + 8)
+                   * sizeof(__nv_bfloat16);
+}
+
+template <typename KVTiles>
+__host__ __device__ constexpr size_t latent_work_bytes() {
+  return KVTiles::kInt8
+             ? 2 * (size_t)kLatentKeys * (kLatentDim + 8)
+                       * sizeof(__nv_bfloat16)
+                   + 2 * kLatentKeys * sizeof(float)
+             : 0;
+}
+
+// q's tile, the ring, the int8 work area, the score partials: 227,840
+// bytes for bf16 pools, 208,000 for int8 ones
+template <typename KVTiles>
+__host__ __device__ constexpr size_t latent_smem_bytes() {
+  return (size_t)kTileRows * (kLatentDim + 8) * sizeof(__nv_bfloat16)
+         + kLatentStages * latent_stage_bytes<KVTiles>()
+         + latent_work_bytes<KVTiles>()
+         + 4 * (size_t)kTileRows * kLatentSld * sizeof(float);
+}
+
+// threads of a block of the tile at head_dim kD
+template <int kD>
+__host__ __device__ constexpr int tile_threads() {
+  return kD == kLatentDim ? kLatentThreads : kTileThreads;
+}
+
 template <typename KVTiles, int kD>
 inline size_t tile_smem_bytes() {
-  constexpr size_t bytes =
-      tile_smem_with<KVTiles>(kD, ring_stages<KVTiles, kD>());
-  static_assert(bytes <= kMaxBlockSmem, "attend_mma's shared memory");
-  return bytes;
+  if constexpr (kD == kLatentDim) {
+    constexpr size_t bytes = latent_smem_bytes<KVTiles>();
+    static_assert(bytes <= kMaxBlockSmem, "attend_latent's shared memory");
+    return bytes;
+  } else {
+    constexpr size_t bytes =
+        tile_smem_with<KVTiles>(kD, ring_stages<KVTiles, kD>());
+    static_assert(bytes <= kMaxBlockSmem, "attend_mma's shared memory");
+    return bytes;
+  }
 }
 
 // Runs fn(std::integral_constant<int, D>{}) for the head_dim d, one of
@@ -393,6 +454,7 @@ inline int with_head_dim(int d, Fn&& fn) {
     case 64: return fn(std::integral_constant<int, 64>{});
     case 128: return fn(std::integral_constant<int, 128>{});
     case 256: return fn(std::integral_constant<int, 256>{});
+    case kLatentDim: return fn(std::integral_constant<int, kLatentDim>{});
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -720,6 +782,319 @@ __device__ __forceinline__ void attend_mma(
 }
 
 // ---------------------------------------------------------------------------
+// attend_latent: the query tile at head_dim 640, MLA's latent row.
+//
+// The same contract as attend_mma (rows r = i * group + g of one KV head,
+// the general mask, zeros for a row that sees no key, bf16 rows or the
+// split partial), for the one shape that attend_mma cannot hold: at
+// D = 640 a warp's 16 rows of f32 O are 320 registers a thread, and q's
+// tile plus one 64-key bf16 K/V stage (82,944 + 165,888 bytes) pass the
+// block's 232,448 bytes of shared memory. So the block has 16 warps
+// (kLatentThreads): warp w owns row block rb = w / 4 (rows 16 rb .. + 15)
+// and lane quarter dq = w % 4 (lanes 160 dq .. + 159), and walks the keys
+// in tiles of kLatentKeys = 16 through a three-stage cp.async ring (one
+// warp copies each key's K and V rows):
+//   - S: warp (rb, dq) multiplies its rows' q by the tile's K over its own
+//     160 lanes only (10 k16 steps, mma.sync m16n8k16, f32), and leaves the
+//     16 x 16 partial in shared memory; after a barrier each warp of row
+//     block rb sums the four quarters' partials in the same order, so the
+//     four hold the same scores, the same (m, l) and the same P;
+//   - the online softmax as attend_mma's (scale in log2 units, exp2f, a
+//     row's max and sum over the four lanes that share it; int8 scales
+//     folded in f32);
+//   - O += P V for the warp's own 160 lanes of V: 20 n8 blocks, 80 f32
+//     registers, P in two bf16 parts as in attend_mma.
+// No merge between warps is needed: every key of a row block passes
+// through all four of its warps. Each warp writes its quarter of its rows.
+// K and V are read from their own pools, as the plain versions do, though
+// an MLA pool pair holds the same row twice.
+template <typename KVTiles, typename Rows>
+__device__ __forceinline__ void attend_latent(
+    const __nv_bfloat16* __restrict__ q, long long q_off, int q_row_stride,
+    KVTiles kv, Rows rows, int kvh, int nq, int group, int qpos0, int kv_len,
+    int key_lo, int key_hi, float scale, TileOut dst) {
+  constexpr int kD = kLatentDim, ld = kD + 8, kK = kLatentKeys;
+  constexpr int kStages = kLatentStages, kQ = kLatentQuarter;
+  constexpr size_t kStage = latent_stage_bytes<KVTiles>();
+  extern __shared__ __align__(16) char tile_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wrow = (warp >> 2) * 16, dq = warp & 3, d0 = dq * kQ;
+  const int quad = lane >> 2, pair = (lane & 3) * 2;
+  const int n_rows = nq * group;
+  const int lo = key_lo;
+  const int hi = min(min(qpos0 + nq, kv_len), key_hi);
+
+  if (lo >= hi) {  // no key in range: zeros, or an empty partial
+    for (int idx = tid; idx < n_rows * kD; idx += kLatentThreads) {
+      const int r = idx / kD, dd = idx - r * kD, i = r / group, g = r - i * group;
+      if (dst.out) {
+        dst.out[q_off + (long long)i * q_row_stride + g * kD + dd] =
+            __float2bfloat16(0.f);
+      } else if (dd == 0) {
+        const long long p = (dst.part_q0 + i) * dst.heads + kvh * group + g;
+        dst.part_ml[2 * p] = -INFINITY;
+        dst.part_ml[2 * p + 1] = 0.f;
+      }
+    }
+    return;
+  }
+
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tile_smem);  // [64][ld]
+  char* ring = tile_smem + (size_t)kTileRows * ld * sizeof(__nv_bfloat16);
+  char* work = ring + kStages * kStage;
+  float* part = reinterpret_cast<float*>(work + latent_work_bytes<KVTiles>());
+  const int n_tiles = (hi - lo + kK - 1) / kK;
+
+  // Copies: warp `slot` copies key slot `slot` of a tile (K and V rows,
+  // 16 bytes a lane); a key at or past hi is zero-filled, never addressed.
+  const int slot = warp;
+  auto fetch = [&](int t) {
+    char* stage = ring + (t % kStages) * kStage;
+    const int tok = lo + t * kK + slot;
+    const long long row = tok < hi ? rows(tok) : -1;
+    const bool ok = row >= 0;
+    const long long off = row + (long long)kvh * kD;
+    if constexpr (KVTiles::kInt8) {
+      char* kd = stage + slot * kD;
+      char* vd = kd + kK * kD;
+      for (int c = lane; c < kD / 16; c += 32) {
+        cp_async16(kd + c * 16, ok ? kv.k + off + c * 16 : kv.k, ok);
+        cp_async16(vd + c * 16, ok ? kv.v + off + c * 16 : kv.v, ok);
+      }
+      if (lane < 2) {  // the chunks of K's and V's scales
+        const int8_t* src = lane ? kv.v : kv.k;
+        cp_async16(stage + 2 * kK * kD + (lane * kK + slot) * 16,
+                   ok ? src + row + kv.kvd + 16 * (kvh / 8) : src, ok);
+      }
+    } else {
+      __nv_bfloat16* kd = reinterpret_cast<__nv_bfloat16*>(stage) + slot * ld;
+      __nv_bfloat16* vd = kd + kK * ld;
+      for (int c = lane; c < kD / 8; c += 32) {
+        cp_async16(kd + c * 8, ok ? kv.k + off + c * 8 : kv.k, ok);
+        cp_async16(vd + c * 8, ok ? kv.v + off + c * 8 : kv.v, ok);
+      }
+    }
+  };
+
+  // q rows (zero rows past n_rows) join the first tile's group
+  for (int idx = tid; idx < kTileRows * (kD / 8); idx += kLatentThreads) {
+    const int r = idx / (kD / 8), c = idx - r * (kD / 8);
+    const int i = r / group, g = r - i * group;
+    const bool valid = r < n_rows;
+    const __nv_bfloat16* src =
+        valid ? q + q_off + (long long)i * q_row_stride + g * kD + c * 8 : q;
+    cp_async16(qs + r * ld + c * 8, src, valid);
+  }
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) fetch(t);
+    cp_async_commit();
+  }
+
+  const bool active = wrow < n_rows;
+  int qlim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) qlim[h] = qpos0 + (wrow + quad + 8 * h) / group;
+  const float sl2 = scale * 1.4426950408889634f;  // 1/sqrt(D) in log2 units
+  float o[kQ / 8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kQ / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t (and q) have landed
+    // every warp is past tile t - 1: its stage, the work area and the
+    // partials are free again
+    __syncthreads();
+    if (t + kStages - 1 < n_tiles) fetch(t + kStages - 1);
+    cp_async_commit();
+    char* stage = ring + (t % kStages) * kStage;
+    const __nv_bfloat16* kt;
+    const float* ksc = nullptr;
+    if constexpr (KVTiles::kInt8) {
+      widen_int8_rows<kD, 2 * kK, kLatentThreads>(stage, work, kvh, tid);
+      __syncthreads();
+      kt = reinterpret_cast<const __nv_bfloat16*>(work);
+      ksc = reinterpret_cast<const float*>(kt + 2 * kK * ld);
+    } else {
+      kt = reinterpret_cast<const __nv_bfloat16*>(stage);
+    }
+    const __nv_bfloat16* vt = kt + kK * ld;
+    const int k0 = lo + t * kK;
+
+    // this quarter's partial scores of the row block's 16 rows x 16 keys
+    if (active) {
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk) {
+        unsigned a[4], b[4];
+        ldsm_x4(a, qs + (wrow + (lane & 15)) * ld + d0 + kk * 16
+                       + ((lane >> 4) << 3));
+        ldsm_x4(b, kt + ((lane & 7) + ((lane >> 4) << 3)) * ld + d0
+                       + kk * 16 + (((lane >> 3) & 1) << 3));
+        mma_bf16(s[0], a, b[0], b[1]);
+        mma_bf16(s[1], a, b[2], b[3]);
+      }
+      float* pw = part + (dq * kTileRows + wrow) * kLatentSld;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(pw + (quad + 8 * h) * kLatentSld
+                                     + j * 8 + pair) =
+              make_float2(s[j][2 * h], s[j][2 * h + 1]);
+    }
+    __syncthreads();  // every quarter's partial is in
+    if (!active) continue;
+
+    // the full scores (the quarters summed in order), scaled and masked;
+    // s[j][2h + e] is row quad + 8h, key k0 + j * 8 + pair + e
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float2 x = make_float2(0.f, 0.f);
+#pragma unroll
+        for (int pq = 0; pq < 4; ++pq) {
+          const float2 y = *reinterpret_cast<const float2*>(
+              part + (pq * kTileRows + wrow + quad + 8 * h) * kLatentSld
+              + j * 8 + pair);
+          x.x += y.x;
+          x.y += y.y;
+        }
+        s[j][2 * h] = x.x;
+        s[j][2 * h + 1] = x.y;
+      }
+    const bool edge = k0 + kK > hi || k0 + kK - 1 > qpos0;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = j * 8 + pair + e, tok = k0 + key;
+        float f = sl2;
+        if constexpr (KVTiles::kInt8) f = sl2 * ksc[key];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float x = s[j][2 * h + e] * f;
+          if (edge && !(tok < hi && tok <= qlim[h])) x = -INFINITY;
+          s[j][2 * h + e] = x;
+          mx[h] = fmaxf(mx[h], x);
+        }
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      // never exp(-inf - -inf): a row that has seen nothing keeps 0s
+      const float base = m_new == -INFINITY ? 0.f : m_new;
+      alpha[h] = exp2f(m[h] - base);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(s[j][2 * h + e] - base);
+          s[j][2 * h + e] = p;
+          l[h] += p;
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < kQ / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // O += P V over this quarter's lanes: the tile's 16 keys are one k16
+    // step, P (times V's int8 scales) in two bf16 parts
+    float p[2][4];
+#pragma unroll
+    for (int hb = 0; hb < 2; ++hb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float vs = 1.f;
+        if constexpr (KVTiles::kInt8) vs = ksc[kK + hb * 8 + pair + (e & 1)];
+        p[hb][e] = s[hb][e] * vs;
+      }
+    unsigned a[4], a_lo[4];
+    split_bf16(p[0][0], p[0][1], a[0], a_lo[0]);
+    split_bf16(p[0][2], p[0][3], a[1], a_lo[1]);
+    split_bf16(p[1][0], p[1][1], a[2], a_lo[2]);
+    split_bf16(p[1][2], p[1][3], a[3], a_lo[3]);
+    const __nv_bfloat16* vrow =
+        vt + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + d0
+        + ((lane >> 4) << 3);
+#pragma unroll
+    for (int db = 0; db < kQ / 16; ++db) {
+      unsigned b[4];
+      ldsm_x4_trans(b, vrow + db * 16);
+      mma_bf16(o[2 * db], a, b[0], b[1]);
+      mma_bf16(o[2 * db + 1], a, b[2], b[3]);
+      mma_bf16(o[2 * db], a_lo, b[0], b[1]);
+      mma_bf16(o[2 * db + 1], a_lo, b[2], b[3]);
+    }
+  }
+  cp_async_wait<0>();
+
+  if (!active) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wrow + quad + 8 * h;
+    if (r >= n_rows) continue;
+    const int i = r / group, g = r - i * group;
+    if (dst.out) {
+      const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+      __nv_bfloat16* orow =
+          dst.out + q_off + (long long)i * q_row_stride + g * kD + d0;
+#pragma unroll
+      for (int j = 0; j < kQ / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + pair) =
+            __floats2bfloat162_rn(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
+    } else {
+      const long long pp = (dst.part_q0 + i) * dst.heads + kvh * group + g;
+      float* orow = dst.part_o + pp * kD + d0;
+#pragma unroll
+      for (int j = 0; j < kQ / 8; ++j)
+        *reinterpret_cast<float2*>(orow + j * 8 + pair) =
+            make_float2(o[j][2 * h], o[j][2 * h + 1]);
+      if (dq == 0 && pair == 0) {
+        dst.part_ml[2 * pp] = m[h];
+        dst.part_ml[2 * pp + 1] = l[h];
+      }
+    }
+  }
+}
+
+// The tile of head_dim kD: attend_latent at kLatentDim, attend_mma below.
+// A block runs tile_threads<kD>() threads and tile_smem_bytes of shared
+// memory.
+template <int kD, typename KVTiles, typename Rows>
+__device__ __forceinline__ void attend(
+    const __nv_bfloat16* __restrict__ q, long long q_off, int q_row_stride,
+    KVTiles kv, Rows rows, int kvh, int nq, int group, int qpos0, int kv_len,
+    int key_lo, int key_hi, float scale, TileOut dst) {
+  if constexpr (kD == kLatentDim)
+    attend_latent(q, q_off, q_row_stride, kv, rows, kvh, nq, group, qpos0,
+                  kv_len, key_lo, key_hi, scale, dst);
+  else
+    attend_mma<kD>(q, q_off, q_row_stride, kv, rows, kvh, nq, group, qpos0,
+                   kv_len, key_lo, key_hi, scale, dst);
+}
+
+// ---------------------------------------------------------------------------
 // Split decode rows (decode.cu, and the decode rows of ragged.cu).
 //
 // A decode row, decode_q queries of one sequence at qpos0 .. qpos0 +
@@ -760,13 +1135,19 @@ __device__ __forceinline__ void decode_split_block(
   const int kv_len = kv_lens[b];
   const int qpos0 = q_starts ? q_starts[b] : kv_len - 1;
   const PagedRows rows{tables + (long long)b * W, page_size, lane_width};
-  attend_mma<kD>(q, ((long long)b * decode_q * heads + kvh * group) * kD,
-                 heads * kD, kv, rows, kvh, decode_q, group, qpos0,
-                 min(kv_len, W * page_size), s * sp.split_keys,
-                 (s + 1) * sp.split_keys, scale,
-                 TileOut{nullptr, sp.part_o + s * sp.nd * heads * kD,
-                         sp.part_ml + s * sp.nd * heads * 2,
-                         (long long)b * decode_q, heads});
+  // the row's queries in passes of the tile's positions: one pass, except
+  // for the latent tile's verify windows (5 x 16 rows at group 16)
+  const int per = kTileRows / group;
+  for (int j0 = 0; j0 < decode_q; j0 += per) {
+    if (j0) __syncthreads();  // the last pass is done with shared memory
+    attend<kD>(q, ((long long)(b * decode_q + j0) * heads + kvh * group) * kD,
+               heads * kD, kv, rows, kvh, min(per, decode_q - j0), group,
+               qpos0 + j0, min(kv_len, W * page_size), s * sp.split_keys,
+               (s + 1) * sp.split_keys, scale,
+               TileOut{nullptr, sp.part_o + s * sp.nd * heads * kD,
+                       sp.part_ml + s * sp.nd * heads * 2,
+                       (long long)b * decode_q + j0, heads});
+  }
 }
 
 constexpr int kMergeThreads = 128;  // 4 warps, one (query, head) each

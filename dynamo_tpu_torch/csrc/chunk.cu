@@ -37,7 +37,7 @@
 namespace dtt {
 
 template <int kD, typename KVTiles>
-__global__ void __launch_bounds__(kTileThreads) chunk_kernel(
+__global__ void __launch_bounds__(tile_threads<kD>()) chunk_kernel(
     const __nv_bfloat16* __restrict__ q,  // [C, H, kD]
     KVTiles kv,                           // pools [P, ps, W]
     const int* __restrict__ pages,        // [W]
@@ -48,7 +48,7 @@ __global__ void __launch_bounds__(kTileThreads) chunk_kernel(
   const int group = H / KV;
   const int nq = min(positions, C - i0);
   const PagedRows rows{pages, page_size, lane_width};
-  attend_mma<kD>(q, ((long long)i0 * H + kvh * group) * kD, H * kD, kv, rows,
+  attend<kD>(q, ((long long)i0 * H + kvh * group) * kD, H * kD, kv, rows,
                  kvh, nq, group, /*qpos0=*/start + i0, /*kv_len=*/start + C,
                  /*key_lo=*/0, /*key_hi=*/INT_MAX, scale,
                  TileOut{out, nullptr, nullptr, 0, H});
@@ -67,7 +67,7 @@ int launch_chunk(const void* q, KVTiles kv, const void* pages, void* out,
     const size_t smem = tile_smem_bytes<KVTiles, kD>();
     cudaError_t err = set_smem(chunk_kernel<kD, KVTiles>, smem);
     if (err != cudaSuccess) return (int)err;
-    chunk_kernel<kD, KVTiles><<<grid, kTileThreads, smem,
+    chunk_kernel<kD, KVTiles><<<grid, tile_threads<kD>(), smem,
                                 (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)q, kv, (const int*)pages, (__nv_bfloat16*)out,
         C, H, KV, page_size, lane_width, start, positions, scale);

@@ -35,7 +35,7 @@
 namespace dtt {
 
 template <int kD, typename KVTiles>
-__global__ void __launch_bounds__(kTileThreads) decode_kernel(
+__global__ void __launch_bounds__(tile_threads<kD>()) decode_kernel(
     const __nv_bfloat16* __restrict__ q,  // [B, H, kD]
     KVTiles kv,                           // pools [P, ps, lane_width]
     const int* __restrict__ block_table,  // [B, pmax]
@@ -69,7 +69,8 @@ int launch_decode(const void* q, KVTiles kv, const void* block_table,
     const size_t smem = tile_smem_bytes<KVTiles, kD>();
     const cudaError_t set = set_smem(decode_kernel<kD, KVTiles>, smem);
     if (set != cudaSuccess) return (int)set;
-    decode_kernel<kD, KVTiles><<<(unsigned)blocks, kTileThreads, smem, st>>>(
+    decode_kernel<kD, KVTiles><<<(unsigned)blocks, tile_threads<kD>(), smem,
+                                 st>>>(
         (const __nv_bfloat16*)q, kv, (const int*)block_table,
         (const int*)context_lens, H, KV, page_size, pmax, lane_width, scale,
         sp);

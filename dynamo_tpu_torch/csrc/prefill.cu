@@ -29,7 +29,7 @@
 namespace dtt {
 
 template <int kD>
-__global__ void __launch_bounds__(kTileThreads) prefill_kernel(
+__global__ void __launch_bounds__(tile_threads<kD>()) prefill_kernel(
     const __nv_bfloat16* __restrict__ q,  // [N, S, H, kD]
     const __nv_bfloat16* __restrict__ k,  // [N, S, KV, kD]
     const __nv_bfloat16* __restrict__ v,
@@ -39,7 +39,7 @@ __global__ void __launch_bounds__(kTileThreads) prefill_kernel(
   const int i0 = blockIdx.x * positions, kvh = blockIdx.y, n = blockIdx.z;
   const int group = H / KV;
   const DenseRows rows{(long long)n * S * KV * kD, KV * kD};
-  attend_mma<kD>(q, (((long long)n * S + i0) * H + kvh * group) * kD, H * kD,
+  attend<kD>(q, (((long long)n * S + i0) * H + kvh * group) * kD, H * kD,
                  Bf16Tiles{k, v}, rows, kvh, min(positions, S - i0), group,
                  /*qpos0=*/i0, /*kv_len=*/min(seq_lens[n], S),
                  /*key_lo=*/0, /*key_hi=*/INT_MAX, scale,
@@ -62,7 +62,8 @@ extern "C" int dtt_prefill(const void* q, const void* k, const void* v,
     const size_t smem = tile_smem_bytes<Bf16Tiles, kD>();
     const cudaError_t err = set_smem(prefill_kernel<kD>, smem);
     if (err != cudaSuccess) return (int)err;
-    prefill_kernel<kD><<<grid, kTileThreads, smem, (cudaStream_t)stream>>>(
+    prefill_kernel<kD><<<grid, tile_threads<kD>(), smem,
+                         (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
         (const __nv_bfloat16*)v, (const int*)seq_lens, (__nv_bfloat16*)out, S,
         H, KV, positions, scale);

@@ -41,7 +41,7 @@
 namespace dtt {
 
 template <int kD, typename KVTiles>
-__global__ void __launch_bounds__(kTileThreads) ragged_kernel(
+__global__ void __launch_bounds__(tile_threads<kD>()) ragged_kernel(
     const __nv_bfloat16* __restrict__ q,  // [num_decode * decode_q + C, H, D]
     KVTiles kv,                           // pools [P, ps, lane_width]
     const int* __restrict__ tables,       // [num_decode + 1, W]
@@ -62,7 +62,7 @@ __global__ void __launch_bounds__(kTileThreads) ragged_kernel(
     const int first = num_decode * decode_q + offset;
     const PagedRows rows{tables + (long long)num_decode * W, page_size,
                          lane_width};
-    attend_mma<kD>(q, ((long long)first * H + kvh * group) * kD, H * kD, kv,
+    attend<kD>(q, ((long long)first * H + kvh * group) * kD, H * kD, kv,
                    rows, kvh, min(positions, C - offset), group,
                    /*qpos0=*/q_starts[num_decode] + offset,
                    /*kv_len=*/min(kv_lens[num_decode], W * page_size), 0,
@@ -80,7 +80,8 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
   if (KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
   const int group = H / KV;
   if (C < 0 || num_decode < 0 || decode_q < 1 || W < 1
-      || !tile_fits(group, D) || decode_q * group > kTileRows
+      || !tile_fits(group, D)
+      || (D != kLatentDim && decode_q * group > kTileRows)
       || positions != tile_positions(group)
       || (num_decode > 0 && (part_o == nullptr || part_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -99,7 +100,8 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
     const size_t smem = tile_smem_bytes<KVTiles, kD>();
     const cudaError_t set = set_smem(ragged_kernel<kD, KVTiles>, smem);
     if (set != cudaSuccess) return (int)set;
-    ragged_kernel<kD, KVTiles><<<(unsigned)blocks, kTileThreads, smem, st>>>(
+    ragged_kernel<kD, KVTiles><<<(unsigned)blocks, tile_threads<kD>(), smem,
+                                 st>>>(
         (const __nv_bfloat16*)q, kv, (const int*)tables, (const int*)kv_lens,
         (const int*)q_starts, (__nv_bfloat16*)out, num_decode, decode_q, C, H,
         KV, page_size, W, lane_width, positions, scale, sp);

@@ -384,7 +384,9 @@ class Engine:
                 model_cfg, cfg.model_path, seed=cfg.seed, quantization=mode,
                 device=self.device, dtype=self.dtype)
         elif isinstance(params, llama.Llama):
-            self.model = params
+            # the engine's ModelConfig, not the one the weights were made
+            # under (llama.with_config raises where the shapes differ)
+            self.model = llama.with_config(params, model_cfg)
         else:
             self.model = loader.from_jax_params(model_cfg, params,
                                                 device=self.device,
@@ -393,11 +395,6 @@ class Engine:
         if quant.mode_of(self.model) != mode:
             raise ValueError(f"the weights are {quant.mode_of(self.model)!r}"
                              f" but quantization={cfg.quantization!r}")
-        cf = model_cfg.moe_capacity_factor
-        if self.model.cfg.moe_capacity_factor != cf:
-            # weights shared with an engine of another capacity factor
-            self.model = llama.with_config(self.model, dataclasses.replace(
-                self.model.cfg, moe_capacity_factor=cf))
         log.info("weights: %s (quantization %s), %d bytes", model_cfg.name,
                  mode, quant.param_bytes(self.model))
 

@@ -1,8 +1,10 @@
 """Llama decoder over the paged KV cache, in PyTorch.
 
-Port of `dynamo_tpu/models/llama.py` without MLA (Llama 3.x: SwiGLU,
-RMSNorm, rotary embeddings with optional llama3 scaling, GQA, tied or
-untied head), with the ModelConfig switches of three more dense families:
+Port of `dynamo_tpu/models/llama.py` (Llama 3.x: SwiGLU, RMSNorm, rotary
+embeddings with optional llama3 or YaRN scaling, GQA, tied or untied
+head), with DeepSeek-V2's multi-head latent attention (`kv_lora_rank`:
+the absorbed form of `_qkv_mla`, one shared latent row per token in the
+pools) and the ModelConfig switches of three more dense families:
 Qwen2/2.5 (`attention_bias`: q/k/v biases), Qwen3 (`qk_norm`: a per-head
 RMSNorm of q and k over head_dim, before rope) and Gemma 1
 (`hidden_act="gelu_tanh"`: GeGLU; `rms_norm_unit_offset`: norms scale by
@@ -54,6 +56,7 @@ only tensor ops.
 from __future__ import annotations
 
 import copy
+import functools
 from typing import List, Optional
 
 import torch
@@ -65,7 +68,7 @@ from dynamo_tpu_torch.models import quant
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops import attention as att
 from dynamo_tpu_torch.ops import moe as moe_ops
-from dynamo_tpu_torch.ops.rope import rope_cos_sin, rotate
+from dynamo_tpu_torch.ops.rope import rope_cos_sin, rotate, yarn_get_mscale
 
 
 def _weight(shape, device, dtype) -> nn.Parameter:
@@ -83,11 +86,9 @@ def _expert_weight(shape, device, dtype) -> nn.Parameter:
 
 
 def unported_model_features(m: ModelConfig) -> List[str]:
-    """ModelConfig features this model does not implement: MLA, the
-    Gemma-2/3 and Phi-3 attention variants, and rope scalings other than
-    llama3's."""
+    """ModelConfig features this model does not implement: the Gemma-2/3
+    and Phi-3 attention variants, and Phi-3's longrope."""
     checks = [
-        ("kv_lora_rank", m.is_mla),
         ("sliding_window", m.sliding_window > 0),
         ("attn_logit_softcapping", m.attn_logit_softcapping > 0),
         ("final_logit_softcapping", m.final_logit_softcapping > 0),
@@ -95,7 +96,6 @@ def unported_model_features(m: ModelConfig) -> List[str]:
         ("post_norms", m.post_norms),
         ("query_pre_attn_scalar", m.query_pre_attn_scalar > 0),
         ("rope_local_theta", m.rope_local_theta > 0),
-        ("rope_yarn_scaling", m.rope_yarn_scaling is not None),
         ("rope_longrope_scaling", m.rope_longrope_scaling is not None),
     ]
     return [name for name, bad in checks if bad]
@@ -104,7 +104,10 @@ def unported_model_features(m: ModelConfig) -> List[str]:
 class LlamaLayer(nn.Module):
     """One decoder layer's weights, in the JAX layout with the head axes
     flattened: wq [E, H*D], wk/wv [E, KV*D], wo [H*D, E], w_gate/w_up
-    [E, F], w_down [F, E]; with `attention_bias`, bq [H*D] and bk/bv
+    [E, F], w_down [F, E]; with MLA (`kv_lora_rank` R, nope/rope head dims
+    N and P, value dim Dv) instead of wq/wk/wv: wq_mla [E, H*(N+P)],
+    w_kv_a [E, R+P], kv_a_norm [R], w_uk [H, N, R], w_uv [H, R, Dv] and
+    wo [H*Dv, E]; with `attention_bias`, bq [H*D] and bk/bv
     [KV*D]; with `qk_norm`, q_norm/k_norm [D]; with `num_experts` X,
     router [E, X], moe_w_gate/moe_w_up [X, E, F] and moe_w_down
     [X, F, E] (stored as each expert's [out, in]), and w_gate/w_up/w_down
@@ -119,10 +122,21 @@ class LlamaLayer(nn.Module):
                        cfg.head_dim)
         f = cfg.intermediate_size
         self.attn_norm = _weight((e,), device, dtype)
-        self.wq = _weight((e, h * d), device, dtype)
-        self.wk = _weight((e, kv * d), device, dtype)
-        self.wv = _weight((e, kv * d), device, dtype)
-        self.wo = _weight((h * d, e), device, dtype)
+        if cfg.is_mla:
+            nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+            r, vd = cfg.kv_lora_rank, cfg.v_head_dim
+            self.wq = self.wk = self.wv = None
+            self.wq_mla = _weight((e, h * (nope + rope)), device, dtype)
+            self.w_kv_a = _weight((e, r + rope), device, dtype)
+            self.kv_a_norm = _weight((r,), device, dtype)
+            self.w_uk = _weight((h, nope, r), device, dtype)
+            self.w_uv = _weight((h, r, vd), device, dtype)
+            self.wo = _weight((h * vd, e), device, dtype)
+        else:
+            self.wq = _weight((e, h * d), device, dtype)
+            self.wk = _weight((e, kv * d), device, dtype)
+            self.wv = _weight((e, kv * d), device, dtype)
+            self.wo = _weight((h * d, e), device, dtype)
         self.mlp_norm = _weight((e,), device, dtype)
         fd = cfg.num_shared_experts * f if cfg.is_moe else f
         self.w_gate = _weight((e, fd), device, dtype) if fd else None
@@ -164,11 +178,27 @@ class Llama(nn.Module):
                         else _weight((e, cfg.vocab_size), device, dtype))
 
 
+# the ModelConfig fields that fix the weights' shapes and names
+SHAPE_FIELDS = ("vocab_size", "hidden_size", "intermediate_size",
+                "num_layers", "num_heads", "num_kv_heads", "head_dim",
+                "tie_word_embeddings", "attention_bias", "qk_norm",
+                "num_experts", "num_shared_experts", "kv_lora_rank",
+                "qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim")
+
+
 def with_config(model: Llama, cfg: ModelConfig) -> Llama:
-    """The same weights under another ModelConfig of the same shapes (an
-    engine's own: the MoE capacity factor is a deployment's setting, not
-    the weights'), for the forwards, which read `model.cfg`: a shallow
-    copy sharing every parameter and layer."""
+    """The same weights under `cfg` (an engine's own ModelConfig: as the
+    JAX engine's parameter tree carries no config, its model_cfg decides
+    rope, norms, routing and the MoE capacity factor), for the forwards,
+    which read `model.cfg`: a shallow copy sharing every parameter and
+    layer. Raises ValueError where `cfg` gives the weights other shapes."""
+    differ = [f for f in SHAPE_FIELDS
+              if getattr(model.cfg, f) != getattr(cfg, f)]
+    if differ:
+        raise ValueError(f"the weights of {model.cfg.name} do not have the "
+                         f"shapes of {cfg.name}: {differ} differ")
+    if model.cfg == cfg:
+        return model
     view = copy.copy(model)
     view.cfg = cfg
     return view
@@ -198,9 +228,36 @@ def _embed_rows(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _rope(cfg: ModelConfig, positions: torch.Tensor):
-    """cos/sin of `positions`, shared by every layer of one forward."""
-    return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
-                        llama3_scaling=cfg.rope_llama3_scaling)
+    """cos/sin of `positions`, shared by every layer of one forward, at
+    the rotated width: head_dim, or MLA's qk_rope_head_dim."""
+    width = cfg.qk_rope_head_dim if cfg.is_mla else cfg.head_dim
+    return rope_cos_sin(positions, width, cfg.rope_theta,
+                        llama3_scaling=cfg.rope_llama3_scaling,
+                        yarn_scaling=cfg.rope_yarn_scaling)
+
+
+@functools.lru_cache(maxsize=None)
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype`, as a Python float: a product by it
+    rounds as JAX's product by `jnp.asarray(value, dtype)` (both compute
+    in f32 and round once), and no host tensor enters a captured step."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def _yarn_softmax_scale(cfg: ModelConfig, q: torch.Tensor) -> torch.Tensor:
+    """YaRN's attention-magnitude correction (JAX `_yarn_softmax_scale`):
+    the softmax scale gains yarn_get_mscale(factor, mscale_all_dim)^2,
+    folded into q; none where an explicit attention_factor rides on
+    cos/sin instead."""
+    if cfg.rope_yarn_scaling is None:
+        return q
+    factor, _, _, _, _, msad, af = cfg.rope_yarn_scaling
+    if af >= 0.0:
+        return q
+    m = yarn_get_mscale(factor, msad)
+    if m == 1.0:
+        return q
+    return q * _in_dtype(m * m, q.dtype)
 
 
 def _qkv(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor, rope,
@@ -227,13 +284,48 @@ def _qkv(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor, rope,
     v = v.view(t, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q, k = _norm(cfg, q, layer.q_norm), _norm(cfg, k, layer.k_norm)
-    return rotate(q, *rope), rotate(k, *rope), v
+    return _yarn_softmax_scale(cfg, rotate(q, *rope)), rotate(k, *rope), v
 
 
-def _attn_out(layer: LlamaLayer, o: torch.Tensor, lora=None
-              ) -> torch.Tensor:
+def _qkv_mla(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor, rope):
+    """Absorbed-form MLA projections (JAX `_qkv_mla`): x [T, E] ->
+    (q_eff [T, H, W], row [T, 1, W], row), W = cache_head_dim. The pools
+    store one [c_kv | k_rope] row per token, shared by every head, and
+    q_eff = [q_nope @ W_UK | q_rope] scores against it directly. In the
+    JAX order: q_rope rotated, c_kv normed, k_rope rotated, q_nope
+    through W_UK in f32 and cast back, the sqrt(W / (nope + rope))
+    correction of the ops' 1/sqrt(W) scale, YaRN's softmax mscale^2,
+    then zero lanes from R + rope up to W (DeepSeek-V2: 576 -> 640)."""
+    nope, rd, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    t = x.shape[0]
+    act = quant.shared_activations(x, layer.wq_mla)
+    q = quant.matmul(x, layer.wq_mla, act).view(t, cfg.num_heads, nope + rd)
+    q_rope = rotate(q[..., nope:], *rope)
+    kv = quant.matmul(x, layer.w_kv_a, act)  # [T, R + rope]
+    c_kv = _norm(cfg, kv[:, :r], layer.kv_a_norm)
+    k_rope = rotate(kv[:, None, r:], *rope)[:, 0]
+    q_lat = torch.einsum("thn,hnr->thr", q[..., :nope].to(torch.float32),
+                         layer.w_uk.to(torch.float32)).to(q.dtype)
+    width = cfg.cache_head_dim
+    fix = _in_dtype((width / (nope + rd)) ** 0.5, q.dtype)
+    q_eff = _yarn_softmax_scale(cfg, torch.cat([q_lat, q_rope], dim=-1) * fix)
+    row = torch.cat([c_kv, k_rope], dim=-1)[:, None, :]
+    pad = width - (r + rd)
+    if pad:
+        q_eff, row = F.pad(q_eff, (0, pad)), F.pad(row, (0, pad))
+    return q_eff, row, row
+
+
+def _attn_out(cfg: ModelConfig, layer: LlamaLayer, o: torch.Tensor,
+              lora=None) -> torch.Tensor:
     """Attention output [T, H, D] -> residual [T, E], plus the rows' o
-    deltas with `lora` (see _qkv)."""
+    deltas with `lora` (see _qkv). MLA: o's first kv_lora_rank lanes are
+    probs @ c_kv, expanded per head through W_UV in f32 (cast back)
+    before wo."""
+    if cfg.is_mla:
+        o = torch.einsum("thr,hrv->thv",
+                         o[..., :cfg.kv_lora_rank].to(torch.float32),
+                         layer.w_uv.to(torch.float32)).to(o.dtype)
     o2 = o.reshape(o.shape[0], -1)
     out = quant.matmul(o2, layer.wo)
     if lora is not None:
@@ -284,7 +376,8 @@ def _mlp(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor,
                                       cfg.moe_capacity_factor)
         if cap < t:  # gather only pays off when capacity actually cuts rows
             out = moe_ops.moe_mlp_dropping(x, combine, *experts,
-                                           capacity=cap)
+                                           capacity=cap,
+                                           k=cfg.num_experts_per_tok)
     if out is None:
         out = moe_ops.moe_mlp_dense(x, combine, *experts)
     if cfg.num_shared_experts > 0:
@@ -349,8 +442,11 @@ def _layer(cfg, layer, x, rope, attend, lora=None, l=0, rows=None,
     to the MoE block (`_mlp`)."""
     ll = None if lora is None else (lora.layer(l), rows)
     h = _norm(cfg, x, layer.attn_norm)
-    q, k, v = _qkv(cfg, layer, h, rope, ll)
-    x = x + _attn_out(layer, attend(q, k, v), ll)
+    if cfg.is_mla:  # the LoRA registry refuses MLA models, as JAX's does
+        q, k, v = _qkv_mla(cfg, layer, h, rope)
+    else:
+        q, k, v = _qkv(cfg, layer, h, rope, ll)
+    x = x + _attn_out(cfg, layer, attend(q, k, v), ll)
     h = _norm(cfg, x, layer.mlp_norm)
     return x + _mlp(cfg, layer, h, token_mask, allow_capacity)
 

@@ -10,9 +10,11 @@ lm_head [E, V] (untied models); bq [L, H, D] and bk/bv [L, KV, D]
 (`attention_bias`), q_norm/k_norm [L, D] (`qk_norm`); for X experts
 (`num_experts`) router [L, E, X], moe_w_gate/moe_w_up [L, X, E, F] and
 moe_w_down [L, X, F, E], with w_gate/w_up/w_down only for shared experts
-at width num_shared_experts * F. `param_specs` below restates that
-contract for the models the port serves (MLA's leaves are not among
-them), and every function here that makes weights follows it.
+at width num_shared_experts * F; an MLA model (`kv_lora_rank` R, nope and
+rope head dims N and P, value dim Dv) has wq_mla [L, E, H, N+P], w_kv_a
+[L, E, R+P], kv_a_norm [L, R], w_uk [L, H, N, R], w_uv [L, H, R, Dv] and
+wo [L, H, Dv, E] in place of wq/wk/wv/wo. `param_specs` below restates
+that contract, and every function here that makes weights follows it.
 
 `load_or_init` is the counterpart of the JAX package's
 `load_or_init_params`: every `*.safetensors` under `model_path`
@@ -45,6 +47,8 @@ Spec = Tuple[Tuple[int, ...], str, float]
 # the per-layer weights, named as in the JAX tree; the optional ones after
 # them, so that a config without them draws the same random weights
 _ATTN_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm")
+_MLA_NAMES = ("attn_norm", "wq_mla", "w_kv_a", "kv_a_norm", "w_uk", "w_uv",
+              "wo", "mlp_norm")  # kv_lora_rank, in place of _ATTN_NAMES
 _MLP_NAMES = ("w_gate", "w_up", "w_down")  # dense, or shared experts
 _BIAS_NAMES = ("bq", "bk", "bv")  # attention_bias
 _QK_NORM_NAMES = ("q_norm", "k_norm")  # qk_norm
@@ -53,7 +57,8 @@ _MOE_NAMES = ("router",) + quant.EXPERT_NAMES  # num_experts
 
 def _layer_names(cfg: ModelConfig) -> Tuple[str, ...]:
     dense_mlp = not cfg.is_moe or cfg.num_shared_experts > 0
-    return (_ATTN_NAMES + (_MLP_NAMES if dense_mlp else ())
+    attn = _MLA_NAMES if cfg.is_mla else _ATTN_NAMES
+    return (attn + (_MLP_NAMES if dense_mlp else ())
             + (_BIAS_NAMES if cfg.attention_bias else ())
             + (_QK_NORM_NAMES if cfg.qk_norm else ())
             + (_MOE_NAMES if cfg.is_moe else ()))
@@ -68,11 +73,11 @@ UNIFORM_INT8_STD = ((255 ** 2 - 1) / 12) ** 0.5
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
-    """name -> (JAX shape, kind, sigma) for a Llama without MLA; kind is
-    "normal" (stddev sigma), "ones" or "zeros". Sigmas follow the JAX
-    package: 1/sqrt(last JAX axis), 0.02 for the embedding, the head and
-    the router; norms are zeros where they scale by 1 + w
-    (`rms_norm_unit_offset`), biases zeros."""
+    """name -> (JAX shape, kind, sigma); kind is "normal" (stddev sigma),
+    "ones" or "zeros". Sigmas follow the JAX package: 1/sqrt(last JAX
+    axis), 0.02 for the embedding, the head and the router; norms are
+    zeros where they scale by 1 + w (`rms_norm_unit_offset`), biases
+    zeros. MLA's names stand where JAX puts them, in place of wq..wo."""
     e, h, kv, d, f, l = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim, cfg.intermediate_size, cfg.num_layers)
 
@@ -85,12 +90,22 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
         "embed": w((cfg.vocab_size, e), 0.02),
         "final_norm": ((e,), nk, 0.0),
         "attn_norm": ((l, e), nk, 0.0),
-        "wq": w((l, e, h, d)),
-        "wk": w((l, e, kv, d)),
-        "wv": w((l, e, kv, d)),
-        "wo": w((l, h, d, e)),
-        "mlp_norm": ((l, e), nk, 0.0),
     }
+    if cfg.is_mla:
+        nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        r, vd = cfg.kv_lora_rank, cfg.v_head_dim
+        p["wq_mla"] = w((l, e, h, nope + rope))
+        p["w_kv_a"] = w((l, e, r + rope))
+        p["kv_a_norm"] = ((l, r), "ones", 0.0)
+        p["w_uk"] = w((l, h, nope, r))
+        p["w_uv"] = w((l, h, r, vd))
+        p["wo"] = w((l, h, vd, e))
+    else:
+        p["wq"] = w((l, e, h, d))
+        p["wk"] = w((l, e, kv, d))
+        p["wv"] = w((l, e, kv, d))
+        p["wo"] = w((l, h, d, e))
+    p["mlp_norm"] = ((l, e), nk, 0.0)
     if not cfg.tie_word_embeddings:
         p["lm_head"] = w((e, cfg.vocab_size), 0.02)
     if cfg.is_moe:
@@ -315,8 +330,11 @@ def load_hf_safetensors(cfg: ModelConfig, files: Sequence[str],
                         device="cuda",
                         dtype: torch.dtype = torch.bfloat16) -> Llama:
     """HF-layout tensors (`model.layers.{i}.self_attn.q_proj.weight`, ...)
-    into the port's layout, the JAX loader's `load_hf_safetensors` without
-    MLA: separate q/k/v/o projections or Phi-3's fused `qkv_proj` and
+    into the port's layout, the JAX loader's `load_hf_safetensors`:
+    DeepSeek-V2's MLA projections (`q_proj` and `kv_a_proj_with_mqa` with
+    their interleaved rope lanes de-interleaved for the half-split rope,
+    `kv_a_layernorm`, `kv_b_proj` split per head into W_UK and W_UV,
+    `o_proj`), separate q/k/v/o projections or Phi-3's fused `qkv_proj` and
     `gate_up_proj`, the norms, `lm_head` for untied models, Qwen2's
     `self_attn.{q,k,v}_proj.bias`, Qwen3's `self_attn.{q,k}_norm.weight`,
     and MoE layers in both upstream layouts: Mixtral's
@@ -326,13 +344,10 @@ def load_hf_safetensors(cfg: ModelConfig, files: Sequence[str],
     cast to `dtype` and transposed from HF's [out, in] to the port's
     [in, out] on `device` (vectors as they are); an expert stack keeps
     each expert's [out, in] as its storage (`quant.operand_layout`)."""
-    unsupported = [name for name, bad in (
-        ("kv_lora_rank (MLA)", cfg.is_mla),
-        ("post_norms", cfg.post_norms)) if bad]
-    if unsupported:
+    if cfg.post_norms:
         raise NotImplementedError(
-            f"checkpoint layouts for {unsupported} are not ported to "
-            f"dynamo_tpu_torch yet")
+            "checkpoint layouts with post_norms (Gemma-2/3) are not ported "
+            "to dynamo_tpu_torch yet")
     h, kv, d, f = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                    cfg.intermediate_size)
     model = Llama(cfg, "meta", dtype)
@@ -361,7 +376,9 @@ def load_hf_safetensors(cfg: ModelConfig, files: Sequence[str],
             put(layer, "attn_norm", get(pre + "input_layernorm.weight"))
             put(layer, "mlp_norm",
                 get(pre + "post_attention_layernorm.weight"))
-            if fused_qkv:  # Phi-3: rows q, then k, then v
+            if cfg.is_mla:
+                _put_mla(cfg, layer, pre, get, put)
+            elif fused_qkv:  # Phi-3: rows q, then k, then v
                 w = get(pre + "self_attn.qkv_proj.weight")
                 put(layer, "wq", w[:h * d].t())
                 put(layer, "wk", w[h * d:(h + kv) * d].t())
@@ -370,7 +387,8 @@ def load_hf_safetensors(cfg: ModelConfig, files: Sequence[str],
                 for name, hf in (("wq", "q_proj"), ("wk", "k_proj"),
                                  ("wv", "v_proj")):
                     put(layer, name, get(pre + f"self_attn.{hf}.weight").t())
-            put(layer, "wo", get(pre + "self_attn.o_proj.weight").t())
+            if not cfg.is_mla:
+                put(layer, "wo", get(pre + "self_attn.o_proj.weight").t())
             if cfg.is_moe:
                 base = pre + moe_base + "."
                 put(layer, "router", get(base + "gate.weight").t())
@@ -405,6 +423,29 @@ def load_hf_safetensors(cfg: ModelConfig, files: Sequence[str],
         if not cfg.tie_word_embeddings:
             put(model, "lm_head", get("lm_head.weight").t())
     return _check_filled(model)
+
+
+def _put_mla(cfg: ModelConfig, layer, pre: str, get, put) -> None:
+    """One layer's DeepSeek-V2 attention tensors into the MLA weights (the
+    JAX loader's MLA branch). The checkpoint interleaves each rope part's
+    lanes (pair 2i, 2i + 1 rotates together); the port's rope is
+    half-split, so the rope rows of q_proj and kv_a_proj_with_mqa take
+    the de-interleaving order (evens, then odds) once, here. kv_b_proj
+    [H*(N+Dv), R] holds each head's W_UK^T rows, then its W_UV^T rows."""
+    e, h = cfg.hidden_size, cfg.num_heads
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    r, vd = cfg.kv_lora_rank, cfg.v_head_dim
+    deint = torch.cat([torch.arange(0, rope, 2), torch.arange(1, rope, 2)])
+    w = get(pre + "self_attn.q_proj.weight").view(h, nope + rope, e)
+    w = torch.cat([w[:, :nope], w[:, nope + deint.to(w.device)]], dim=1)
+    put(layer, "wq_mla", w.reshape(h * (nope + rope), e).t())
+    w = get(pre + "self_attn.kv_a_proj_with_mqa.weight")  # [R + P, E]
+    put(layer, "w_kv_a", torch.cat([w[:r], w[r + deint.to(w.device)]]).t())
+    put(layer, "kv_a_norm", get(pre + "self_attn.kv_a_layernorm.weight"))
+    b = get(pre + "self_attn.kv_b_proj.weight").view(h, nope + vd, r)
+    put(layer, "w_uk", b[:, :nope])
+    put(layer, "w_uv", b[:, nope:].transpose(1, 2))
+    put(layer, "wo", get(pre + "self_attn.o_proj.weight").t())
 
 
 def _moe_layout(readers) -> Tuple[str, Tuple[str, str, str]]:

@@ -68,6 +68,10 @@ QUANT_AXES: Dict[str, Tuple[int, ...]] = {
     "wk": (1,),
     "wv": (1,),
     "wo": (1, 2),  # [L, H, D, E]
+    # MLA's projections (W_UK and W_UV stay unquantized: they run in f32
+    # in the absorbed query and the output)
+    "wq_mla": (1,),  # [L, E, H, nope+rope]
+    "w_kv_a": (1,),  # [L, E, lora+rope]
     "w_gate": (1,),  # [L, E, F]
     "w_up": (1,),
     "w_down": (1,),  # [L, F, E]

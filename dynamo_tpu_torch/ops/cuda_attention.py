@@ -14,7 +14,10 @@ tiles on mma.sync, K/V tiles through a cp.async ring); decode and the
 ragged kernel's decode rows are split along their keys, one block per
 (row, span, KV head), and the spans merged by a second small kernel. The
 launch plans of the tile (`tile_positions`, `split_plan`) are pure
-functions of host-known sizes. The three pool-reading
+functions of host-known sizes. At head_dim 640 (MLA's latent row, one KV
+head shared by 16 query heads) every kernel runs `attend_latent` instead:
+the same 64-row tile and launch plans on 16 warps that split O's lanes in
+four, with K/V tiles of 16 keys. The three pool-reading
 kernels (decode, chunk, ragged) each have a bf16 and an int8 entry point,
 the latter for the packed rows of `kv_cache_dtype="int8"` pools; their
 wrappers take either pool and count the int8 launches under their own
@@ -78,7 +81,11 @@ VARIANT_LAUNCHES: Dict[str, int] = collections.Counter()
 # reports its own values (dtt_chunk_positions, dtt_decode_split_keys) and
 # its entry points refuse a launch that disagrees with them.
 TILE_ROWS = 64
-TILE_HEAD_DIMS = (32, 64, 128, 256)  # the head_dims the tile is compiled for
+# the head_dims the tile is compiled for; LATENT_DIM, MLA's latent row
+# (DeepSeek-V2's 576 lanes padded to 640), runs attention_common.cuh's
+# attend_latent, the other four attend_mma
+LATENT_DIM = 640
+TILE_HEAD_DIMS = (32, 64, 128, 256, LATENT_DIM)
 KEY_TILE = 64
 SPLIT_KEYS = 256
 SPLIT_BLOCKS_PER_SM = 4
@@ -320,9 +327,10 @@ def tile_positions(group: int, head_dim: int) -> int:
 def check_decode_rows(decode_q: int, group: int, head_dim: int) -> int:
     """tile_positions, also refusing decode rows (decode.cu's with
     decode_q = 1, ragged's) of decode_q queries x the group past the
-    tile's rows."""
+    tile's rows. The latent tile (head_dim LATENT_DIM) takes any decode_q:
+    its decode blocks walk a row's queries in passes of `positions`."""
     positions = tile_positions(group, head_dim)
-    if decode_q * group > TILE_ROWS:
+    if head_dim != LATENT_DIM and decode_q * group > TILE_ROWS:
         raise ValueError(f"decode_q x GQA group ({decode_q} x {group}) does "
                          f"not fit the ragged kernel's {TILE_ROWS}-row query "
                          f"tile")

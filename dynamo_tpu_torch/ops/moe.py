@@ -11,10 +11,15 @@ products on cuBLAS (bf16) or `torch._int_mm` (w8a8), through
   on the routing, so the captured decode and verify steps take it.
 - `moe_mlp_dropping`: capacity-based dispatch for prefill-sized token counts.
   Each expert gathers its top-C tokens by router weight (C = T*k/X * cf),
-  computes only those, and scatter-adds the weighted outputs. FLOPs drop from
-  T*X expert-MLPs to C*X ≈ T*k*cf — a 4x cut for Mixtral (X=8, k=2). Tokens
-  past an expert's capacity are dropped (standard capacity-factor
-  semantics); cf defaults to 1.25. Prefill-only and eager, as in JAX.
+  computes only those, and adds the weighted outputs back to their tokens.
+  FLOPs drop from T*X expert-MLPs to C*X ≈ T*k*cf — a 4x cut for Mixtral
+  (X=8, k=2). Tokens past an expert's capacity are dropped (standard
+  capacity-factor semantics); cf defaults to 1.25. Prefill-only and
+  eager, as in JAX. The add-back is ordered: each token sums its experts'
+  outputs in expert order, starting from zero, as XLA's scatter-add walks
+  the updates (expert 0's slots first); `index_add_` on the card adds
+  them with atomics in no fixed order, so two runs could differ by a
+  unit of the working dtype.
 
 The dense combine matrix [T, X] is the single interface between routing and
 dispatch, so both paths share the router code in models/llama.py.
@@ -31,7 +36,7 @@ experts and tokens in both packages.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -92,10 +97,14 @@ def expert_capacity(num_tokens: int, num_experts: int, k: int,
 
 
 def moe_mlp_dropping(x: torch.Tensor, combine: torch.Tensor, w_gate, w_up,
-                     w_down, *, capacity: int) -> torch.Tensor:
+                     w_down, *, capacity: int,
+                     k: Optional[int] = None) -> torch.Tensor:
     """Capacity-based dispatch: each expert computes only its top-C tokens.
-    x [T, E], combine [T, X] -> [T, E]."""
+    x [T, E], combine [T, X] -> [T, E]. `k`: the most experts a token is
+    routed to (num_experts_per_tok; None: every expert), so that the
+    ordered add-back gathers [T, k, E], not [T, X, E]."""
     t, e = x.shape
+    n_exp = combine.shape[1]
     # per-expert token selection by routing weight: [X, C] indices into T
     sel_w, sel_i = top_k(combine.t(), capacity)
     xg = x[sel_i]  # [X, C, E]
@@ -106,5 +115,22 @@ def moe_mlp_dropping(x: torch.Tensor, combine: torch.Tensor, w_gate, w_up,
     # weight by routing prob; zero-weight slots (capacity padding for experts
     # with fewer selected tokens) contribute nothing
     y = y * sel_w[..., None].to(y.dtype)
+    # slot [t, x]: the row of y holding expert x's output for token t
+    # (each expert selects a token at most once), else the zero row
+    # appended at X * C
+    ys = torch.cat([y.reshape(-1, e), y.new_zeros((1, e))])
+    slot = torch.full((t, n_exp), n_exp * capacity, dtype=torch.long,
+                      device=x.device)
+    experts = torch.arange(n_exp, device=x.device)[:, None].expand_as(sel_i)
+    slot[sel_i.reshape(-1), experts.reshape(-1)] = torch.arange(
+        n_exp * capacity, device=x.device)
+    # each token's routed experts in expert order (nonzero weights first,
+    # stably), then the sum over them in that order
+    kk = n_exp if k is None else min(k, n_exp)
+    routed = torch.sort((combine == 0).to(torch.uint8), dim=1,
+                        stable=True).indices[:, :kk]
+    parts = ys[slot.gather(1, routed)]  # [T, k, E]
     out = torch.zeros((t, e), dtype=y.dtype, device=x.device)
-    return out.index_add_(0, sel_i.reshape(-1), y.reshape(-1, e))
+    for j in range(kk):
+        out = out + parts[:, j]
+    return out

@@ -1,10 +1,12 @@
 """Rotary position embeddings (HF llama "rotate_half" convention).
 
-Port of `dynamo_tpu/ops/rope.py` for the dense Llama path: base frequencies
-and Llama-3.1 frequency scaling, angles in float32. YaRN and Phi-3 longrope
-are not ported yet and raise. The model computes cos/sin once per forward
-(`rope_cos_sin`) and rotates every layer's q and k with them (`rotate`);
-`apply_rope` is the two together, the JAX package's signature.
+Port of `dynamo_tpu/ops/rope.py`: base frequencies, Llama-3.1 frequency
+scaling and YaRN (DeepSeek-V2's: the frequency remap and the rotary
+magnitude on cos/sin; the softmax mscale^2 is the model's, on q), angles in
+float32. Phi-3 longrope is not ported yet and raises. The model computes
+cos/sin once per forward (`rope_cos_sin`) and rotates every layer's q and k
+with them (`rotate`); `apply_rope` is the two together, the JAX package's
+signature.
 """
 
 from __future__ import annotations
@@ -40,15 +42,59 @@ def llama3_scale_freqs(inv: torch.Tensor, factor: float,
     return torch.where(wavelen < high_wavelen, inv, out)
 
 
+def yarn_scale_freqs(inv: torch.Tensor, theta: float, head_dim: int,
+                     factor: float, beta_fast: float, beta_slow: float,
+                     original_max_pos: int) -> torch.Tensor:
+    """YaRN frequency remap (HF rope_type "yarn"; DeepSeek-V2's default):
+    dims rotating at least beta_fast times over the original context keep
+    their frequencies, dims rotating at most beta_slow times are divided
+    by `factor`, with a ramp linear in the dim between (HF's correction
+    dims; `high` clamps against the full rotary dim, as HF's does)."""
+
+    def corr_dim(n_rot: float) -> float:
+        return (head_dim * math.log(original_max_pos
+                                    / (n_rot * 2 * math.pi))
+                ) / (2 * math.log(theta))
+
+    low = max(math.floor(corr_dim(beta_fast)), 0)
+    high = min(math.ceil(corr_dim(beta_slow)), head_dim - 1)
+    idx = torch.arange(head_dim // 2, dtype=torch.float32, device=inv.device)
+    ramp = ((idx - low) / max(high - low, 1)).clamp(0.0, 1.0)
+    keep = 1.0 - ramp  # 1 on the fast-rotating (low) dims
+    return inv * keep + (inv / factor) * (1.0 - keep)
+
+
+def yarn_get_mscale(scale: float, mscale: float = 1.0) -> float:
+    """YaRN attention-magnitude correction (HF/DeepSeek formula)."""
+    if scale <= 1.0:
+        return 1.0
+    return 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_rotary_scale(yarn_scaling) -> float:
+    """The rotary magnitude that multiplies cos/sin under YaRN
+    (factor, beta_fast, beta_slow, original_max_pos, mscale,
+    mscale_all_dim, attention_factor): an explicit attention_factor >= 0
+    (generic HF yarn), else DeepSeek's mscale / mscale_all_dim ratio."""
+    factor, _, _, _, ms, msad, af = yarn_scaling
+    if af >= 0.0:
+        return af
+    return yarn_get_mscale(factor, ms) / yarn_get_mscale(factor, msad)
+
+
 @functools.lru_cache(maxsize=16)
-def _inv_freqs(head_dim: int, theta: float, llama3_scaling,
+def _inv_freqs(head_dim: int, theta: float, llama3_scaling, yarn_scaling,
                device: torch.device) -> torch.Tensor:
-    """Inverse frequencies, built once per (shape, scaling, device): a
+    """Inverse frequencies, built once per (shape, scalings, device): a
     fresh host-to-device copy of theta in every layer would stall the GPU
     stream."""
     inv = rope_freqs(head_dim, theta)
     if llama3_scaling is not None:
         inv = llama3_scale_freqs(inv, *llama3_scaling)
+    if yarn_scaling is not None:
+        factor, beta_fast, beta_slow, orig = yarn_scaling[:4]
+        inv = yarn_scale_freqs(inv, theta, head_dim, factor, beta_fast,
+                               beta_slow, orig)
     return inv.to(device)
 
 
@@ -56,16 +102,20 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
                  llama3_scaling=None, yarn_scaling=None,
                  longrope_scaling=None):
     """positions [T] -> (cos, sin), each [T, 1, D/2] float32, broadcasting
-    over heads."""
-    if yarn_scaling is not None:
-        raise NotImplementedError("yarn rope scaling is not ported yet")
+    over heads; under YaRN both carry its rotary magnitude."""
     if longrope_scaling is not None:
         raise NotImplementedError("longrope rope scaling is not ported yet")
+    yarn = None if yarn_scaling is None else tuple(yarn_scaling)
     inv = _inv_freqs(head_dim, float(theta),
                      None if llama3_scaling is None else tuple(llama3_scaling),
-                     positions.device)
+                     yarn, positions.device)
     angles = positions.to(torch.float32)[..., None] * inv  # [T, D/2]
-    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+    cos, sin = torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+    if yarn is not None:
+        ratio = yarn_rotary_scale(yarn)
+        if ratio != 1.0:
+            cos, sin = cos * ratio, sin * ratio
+    return cos, sin
 
 
 def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
@@ -83,7 +133,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     """x [T, heads, D] with positions [T] -> x rotated, same dtype.
 
     `llama3_scaling`: optional (factor, low_freq_factor, high_freq_factor,
-    original_max_pos)."""
+    original_max_pos); `yarn_scaling`: optional (factor, beta_fast,
+    beta_slow, original_max_pos, mscale, mscale_all_dim,
+    attention_factor)."""
     cos, sin = rope_cos_sin(positions, x.shape[-1], theta, llama3_scaling,
                             yarn_scaling, longrope_scaling)
     return rotate(x, cos, sin)

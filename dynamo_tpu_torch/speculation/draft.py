@@ -143,7 +143,10 @@ class DraftEngine:
             model = loader.load_or_init(
                 self.model_cfg, cfg.draft_model_path, seed=cfg.seed + 1,
                 device=self.device, dtype=dtype)
-        elif not isinstance(model, llama.Llama):
+        elif isinstance(model, llama.Llama):
+            # the draft model's ModelConfig, not the weights' own
+            model = llama.with_config(model, self.model_cfg)
+        else:
             model = loader.from_jax_params(self.model_cfg, model,
                                            device=self.device, dtype=dtype)
         self.model = model

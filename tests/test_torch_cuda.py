@@ -85,13 +85,14 @@ def _decode_inputs(dev, int8, n_heads, n_kv, head_dim, ctx, pmax, pages=64,
             torch.tensor(ctx, dtype=torch.int32, device=dev))
 
 
-@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 256, 640])
 @pytest.mark.parametrize("group", [1, 2, 4, 7, 8])
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_decode_kernel_groups_and_head_dims(dev, int8, group, head_dim):
     """Every GQA group and head_dim the tile takes, on both pools: rows at
     context 0, 1, on and one past a 256-key span boundary, and a full
-    table (two spans)."""
+    table (two spans). At head_dim 640 (attend_latent) a group of 7 puts
+    two positions' rows in one 16-row block."""
     n_kv, ps = 2, 16
     ctx = [0, 1, 256, 257, 300, 512]
     q, kp, vp, table, cl = _decode_inputs(dev, int8, group * n_kv, n_kv,
@@ -483,16 +484,19 @@ def test_ragged_kernel_verify_only_matches_plain(dev, int8):
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("n_heads,n_kv,d", [(16, 16, 256), (8, 1, 256),
-                                            (28, 4, 128), (32, 4, 128)],
+                                            (28, 4, 128), (32, 4, 128),
+                                            (16, 1, 640)],
                          ids=["gemma-7b", "gemma-2b", "qwen2.5-7b",
-                              "qwen3-30b-a3b"])
+                              "qwen3-30b-a3b", "deepseek-v2-lite"])
 @pytest.mark.parametrize("decode_q,c", [(1, 256), (5, 256), (5, 0)],
                          ids=["chunk_rows", "verify_rows", "verify_only"])
 def test_ragged_kernel_at_the_families_shapes(dev, int8, n_heads, n_kv, d,
                                               decode_q, c):
     """The ragged kernel at head_dim 256 (groups 1 and 8), at group 7 (a
-    verify row of 5 x 7 = 35 tile rows) and at group 8 with head_dim 128
-    (qwen3-30b-a3b: 5 x 8 = 40 tile rows): eight rows (context 0 on the
+    verify row of 5 x 7 = 35 tile rows), at group 8 with head_dim 128
+    (qwen3-30b-a3b: 5 x 8 = 40 tile rows) and at MLA's latent row
+    (head_dim 640, group 16: a verify row of 80 rows, two passes of the
+    latent tile): eight rows (context 0 on the
     trash page, rows across a split boundary, a full table) beside a
     256-token chunk at 512, or alone (C = 0); counted under its head_dim."""
     ps, pmax, nd = 16, 64, 8
@@ -901,6 +905,99 @@ def test_moe_graph_windows_equal_eager_windows(dev, mode):
     assert _window_run(graphs) == want
     st = graphs.windows.stats()
     assert not st["eager"] and st["replays"] > 0
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("start,c", [(0, 64), (48, 100), (512, 256)])
+def test_chunk_and_prefill_kernels_at_the_latent_row(dev, int8, start, c):
+    """chunk.cu at MLA's latent row (head_dim 640, one KV head for 16
+    query heads) on both pools, and prefill.cu on the same K/V (bf16:
+    two lanes, one cut at 37 tokens) at start 0."""
+    ps, d, h = 16, 640, 16
+    if int8:
+        kp, vp = _int8_pools(dev, 64, ps, 1, d, seed=71)
+    else:
+        kp, vp = _rnd(dev, 64, ps, d, seed=71), _rnd(dev, 64, ps, d, seed=72)
+    pages = torch.arange(1, 64, dtype=torch.int32, device=dev)[:48]
+    q = _rnd(dev, c, h, d, seed=73)
+    kw = dict(page_size=ps, num_kv_heads=1)
+    out = ca.chunk_prefill_attention(q, kp, vp, pages, start, **kw)
+    ref = att.chunk_attention_ref(q, kp, vp, pages, start, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    if int8 or start:
+        return
+    k = kp[pages.long()].reshape(-1, 1, d)[:c]
+    v = vp[pages.long()].reshape(-1, 1, d)[:c]
+    qs = torch.stack([q, q])
+    lens = torch.tensor([c, 37], dtype=torch.int32, device=dev)
+    outp = ca.prefill_attention(qs, torch.stack([k, k]), torch.stack([v, v]),
+                                lens)
+    refp = att.prefill_attention_ref(qs, torch.stack([k, k]),
+                                     torch.stack([v, v]), lens)
+    torch.testing.assert_close(outp.float(), refp.float(), **TOL)
+
+
+def test_latent_row_refuses_tiny_mla_pools(dev):
+    """tiny-mla-debug's 40-lane latent rows are not a width the tile is
+    built for: on a CUDA tensor the wrapper raises (its tests run the
+    plain versions on the CPU)."""
+    q = _rnd(dev, 2, 4, 40)
+    kp = _rnd(dev, 8, 16, 40, seed=1)
+    table = torch.ones((2, 1), dtype=torch.int32, device=dev)
+    ctx = torch.tensor([3, 5], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="built for head_dim"):
+        ca.paged_attention_decode(q, kp, kp, table, ctx, page_size=16)
+
+
+def _latent_cfg():
+    """A small MLA config with DeepSeek-V2's latent row (512 + 64 lanes,
+    pools of 640) and YaRN, 16 heads, 2 layers, every layer MoE."""
+    import dataclasses
+
+    from dynamo_tpu_torch.models.config import PRESETS
+
+    return dataclasses.replace(
+        PRESETS["deepseek-v2-lite"], name="tiny-latent", vocab_size=512,
+        hidden_size=256, intermediate_size=128, num_layers=2, num_experts=8,
+        num_experts_per_tok=2, num_shared_experts=1)
+
+
+def test_mla_graph_windows_equal_eager_windows(dev):
+    """The MLA model at the latent row's width in 4-step graph windows
+    against eager windows, bit for bit; its decode, prefill and chunk
+    launches run at head_dim 640."""
+    cfg = _latent_cfg()
+    eager = _window_engine(True, model_cfg=cfg)
+    assert eager.kv_spec.lane_width == 640
+    graphs = _window_engine(False, params=eager.model, model_cfg=cfg)
+    want = _window_run(eager)
+    ca.reset_launch_counts()
+    assert _window_run(graphs) == want
+    assert graphs.windows.stats()["replays"] > 0
+    for k in ("decode", "prefill", "chunk"):
+        assert ca.VARIANT_LAUNCHES[f"{k}[head_dim=640]"] > 0, k
+
+
+def test_capacity_prefill_is_bit_identical_across_runs(dev):
+    """The MoE capacity path at DeepSeek-V2-Lite's expert widths (64
+    experts of 1408, top 6, E = 2048) over a 1024-token prefill, twice:
+    the ordered add-back gives the same bits (index_add_'s atomics added
+    a token's experts in no fixed order)."""
+    from dynamo_tpu_torch.models import quant
+    from dynamo_tpu_torch.ops import moe
+
+    t, x, e, f, k = 1024, 64, 2048, 1408, 6
+    xs = _rnd(dev, t, e, seed=81)
+    stacks = [quant.operand_layout(_rnd(dev, x, *shape, seed=82 + i)
+                                   * shape[0] ** -0.5)
+              for i, shape in enumerate(((e, f), (e, f), (f, e)))]
+    logits = torch.randn((t, x), generator=torch.Generator(
+        device=dev).manual_seed(85), device=dev)
+    combine = moe.topk_combine(logits, k, torch.bfloat16, renormalize=False)
+    cap = moe.expert_capacity(t, x, k, 1.25)
+    a = moe.moe_mlp_dropping(xs, combine, *stacks, capacity=cap, k=k)
+    b = moe.moe_mlp_dropping(xs, combine, *stacks, capacity=cap, k=k)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("mode", ["int8", "w8a8"])

@@ -272,12 +272,12 @@ def test_settings_ported_since_are_served(tmp_path, field, value):
 
 
 @pytest.mark.parametrize("model,feature", [
-    ("tiny-mla-debug", "kv_lora_rank"),
+    ("gemma-3-1b-it", "rope_local_theta"),
     ("tiny-gemma2-debug", "sliding_window"),
     ("tiny-gemma3-debug", "post_norms"),
     ("gemma-2-2b-it", "attn_logit_softcapping"),
     ("phi-3-mini-4k-instruct", "sliding_window"),
-    ("deepseek-v2-lite", "rope_yarn_scaling"),
+    ("gemma-2-9b-it", "final_logit_softcapping"),
 ])
 def test_unported_models_are_refused(model, feature):
     with pytest.raises(NotImplementedError, match=feature):
@@ -289,11 +289,16 @@ def test_unported_models_are_refused(model, feature):
     ("tiny-debug", dict(qk_norm=True)),
     ("tiny-debug", dict(attention_bias=True)),
     ("tiny-moe-debug", {}),
-], ids=["gemma", "qwen3-qk_norm", "qwen2-attention_bias", "moe"])
+    ("tiny-mla-debug", {}),
+    ("tiny-mla-debug", dict(rope_yarn_scaling=(
+        40.0, 32.0, 1.0, 4096, 0.707, 0.707, -1.0))),
+], ids=["gemma", "qwen3-qk_norm", "qwen2-attention_bias", "moe", "mla",
+        "mla-yarn"])
 def test_models_ported_since_are_served(model, change):
-    """Refused before the Gemma-1, Qwen3, Qwen2 and MoE features were
-    ported; an activation the port does not implement still is (for an
-    MoE model the config itself refuses it: MoE is SwiGLU only)."""
+    """Refused before the Gemma-1, Qwen3, Qwen2, MoE, MLA and YaRN
+    features were ported; an activation the port does not implement still
+    is (for an MoE model the config itself refuses it: MoE is SwiGLU
+    only)."""
     cfg = dataclasses.replace(PRESETS[model], dtype="float32", **change)
     eng = Engine(EngineConfig(**BASE), model_cfg=cfg, device="cpu")
     assert len(eng.generate(GenRequest("p", [1, 2, 3], max_tokens=3,

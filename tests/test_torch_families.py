@@ -543,13 +543,14 @@ SPEC = dict(page_size=8, num_pages=128, max_num_seqs=2, max_seq_len=256,
 
 
 def test_draft_model_with_unported_features_is_refused():
-    """A tiny-debug target drafting with tiny-mla-debug: the port has no
-    MLA, so it must not build a draft model from the MLA config (its
-    vocabulary check would come after)."""
+    """A tiny-debug target drafting with tiny-gemma2-debug: the port has
+    no sliding window, so it must not build a draft model from that
+    config (its vocabulary check would come after)."""
     cfg = EngineConfig(model="tiny-debug", speculative_mode="model",
-                       draft_model="tiny-mla-debug", num_speculative_tokens=2,
-                       page_size=4, num_pages=64, max_num_seqs=2)
-    with pytest.raises(NotImplementedError, match="kv_lora_rank"):
+                       draft_model="tiny-gemma2-debug",
+                       num_speculative_tokens=2, page_size=4, num_pages=64,
+                       max_num_seqs=2)
+    with pytest.raises(NotImplementedError, match="sliding_window"):
         Engine(cfg, device="cpu")
 
 

@@ -155,6 +155,30 @@ def test_moe_dispatch_matches_jax(path, capacity):
         assert not torch.allclose(got, dense, **TOL)
 
 
+@pytest.mark.parametrize("k", [3, None], ids=["top3", "every_expert"])
+def test_capacity_combine_sums_like_jax(k):
+    """The capacity path's ordered add-back (each token's expert outputs
+    summed in expert order, as XLA's scatter-add walks the slots) against
+    `dynamo_tpu.ops.moe.moe_mlp_dropping`: 64 tokens over 8 experts, top
+    3, a capacity of 16 that drops tokens, within 1e-5 (float32); and the
+    same bits whether the sum gathers each token's k routed experts or
+    all X (the zero slots add exact zeros)."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(64, 32)).astype(np.float32)
+    wg, wu, wd = _experts(rng, x=8)
+    logits = rng.normal(size=(64, 8)).astype(np.float32)
+    combine = np.array(jmoe.topk_combine(jnp.asarray(logits), 3,
+                                         jnp.float32))
+    combine[-2:] = 0.0  # padding rows
+    ref = jmoe.moe_mlp_dropping(*[jnp.asarray(a) for a in (
+        x, combine, wg, wu, wd)], capacity=16)
+    targs = [_t(x), _t(combine)] + [_port_stack(w) for w in (wg, wu, wd)]
+    got = moe.moe_mlp_dropping(*targs, capacity=16, k=k)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    assert torch.equal(got, moe.moe_mlp_dropping(*targs, capacity=16))
+    assert not got[-2:].any()
+
+
 @pytest.mark.parametrize("t,x,k,cf", [(32, 4, 2, 1.25), (1024, 128, 8, 1.25),
                                       (1024, 8, 2, 1.25), (16, 4, 2, 1.25),
                                       (256, 128, 8, 0.5), (7, 8, 2, 1.0)])
@@ -594,6 +618,74 @@ def test_moe_engine_greedy_streams_match_jax(tiny_moe, mode, monkeypatch):
         assert 24 in dropping  # chunks of 32 rows (and whole prefills)
     else:
         assert not dropping
+
+
+# ---------------------------------------------- the engine's ModelConfig --
+
+DEBUG_ENGINE = dict(model="tiny-debug", page_size=4, num_pages=64,
+                    max_num_seqs=2)
+
+
+@pytest.fixture(scope="module")
+def debug_weights():
+    """tiny-debug's JAX weights and a config of the same shapes that
+    differs in rope_theta (500000): (base, other, JAX tree)."""
+    base = dataclasses.replace(JPRESETS["tiny-debug"], dtype="float32")
+    other = dataclasses.replace(base, rope_theta=500000.0)
+    return base, other, _np(jloader.load_or_init_params(base, None, seed=0))
+
+
+def test_engine_runs_its_own_model_config_on_given_weights(debug_weights):
+    """An Engine given a `llama.Llama` made under another ModelConfig of
+    the same shapes runs its own model_cfg, as the JAX engine does (its
+    parameter tree carries no config): a greedy 12-token request over
+    range(3, 40) under rope_theta 500000 gives the JAX engine's tokens
+    (the weights' own rope_theta gave [179, 248, 31, 490, ...]); weights
+    of other shapes are refused."""
+    base, other, tree = debug_weights
+    tbase = dataclasses.replace(PRESETS["tiny-debug"], dtype="float32")
+    tother = dataclasses.replace(tbase, rope_theta=500000.0)
+    reqs = [("r", list(range(3, 40)), 12, 0)]
+    ref = _drive(JEngine(JEngineConfig(**DEBUG_ENGINE), model_cfg=other,
+                         params=tree), JGenRequest, reqs)
+    model = loader.from_jax_params(tbase, tree, device="cpu",
+                                   dtype=torch.float32)
+    eng = Engine(EngineConfig(**DEBUG_ENGINE), model_cfg=tother,
+                 params=model, device="cpu")
+    assert eng.model.cfg.rope_theta == 500000.0
+    assert model.cfg.rope_theta == tbase.rope_theta  # shared, untouched
+    assert _drive(eng, GenRequest, reqs) == ref
+    wide = dataclasses.replace(tother, hidden_size=2 * tother.hidden_size)
+    with pytest.raises(ValueError, match="hidden_size"):
+        Engine(EngineConfig(**DEBUG_ENGINE), model_cfg=wide, params=model,
+               device="cpu")
+
+
+def test_draft_engine_runs_its_own_model_config(debug_weights):
+    """The DraftEngine twin: a drafter given weights made under another
+    ModelConfig of the same shapes runs the draft model's config, and
+    proposes what the drafter built from the same tree proposes."""
+    from dynamo_tpu_torch.engine.kv_cache import SeqState
+
+    base, _, tree = debug_weights
+    tbase = dataclasses.replace(PRESETS["tiny-debug"], dtype="float32")
+    odd = loader.from_jax_params(
+        dataclasses.replace(tbase, rope_theta=500000.0), tree, device="cpu",
+        dtype=torch.float32)
+    cfg = EngineConfig(**DEBUG_ENGINE, speculative_mode="model",
+                       draft_model="tiny-debug", num_speculative_tokens=2,
+                       prefill_chunk_tokens=0, enable_prefix_caching=False)
+    engines = [Engine(cfg, params=tree, device="cpu", draft_params=d)
+               for d in (odd, tree)]
+    assert engines[0].draft.model.cfg == engines[0].draft.model_cfg
+    assert engines[0].draft.model.cfg.rope_theta == tbase.rope_theta
+    props = []
+    for e in engines:
+        seq = SeqState("r", 0, [1], prompt_len=11, max_tokens=8)
+        seq.prompt_ids, seq.output_tokens = list(range(3, 14)), [3]
+        props.append(e.draft.propose(seq, 2))
+        e.draft.release(0)
+    assert props[0] == props[1]
 
 
 # ---------------------------------------------------------- checkpoints --

@@ -170,10 +170,9 @@ def test_rope_llama3_matches():
 
 
 def test_rope_refuses_unported_scalings():
+    """Phi-3's longrope is refused; YaRN is ported
+    (tests/test_torch_mla.py holds it against JAX)."""
     x = torch.zeros(2, 1, 8)
-    with pytest.raises(NotImplementedError):
-        trope.apply_rope(x, torch.arange(2), 1e4,
-                         yarn_scaling=(1.0,) * 7)
     with pytest.raises(NotImplementedError):
         trope.apply_rope(x, torch.arange(2), 1e4,
                          longrope_scaling=((1.0,), (1.0,), 4096, 1.0))

@@ -77,10 +77,11 @@ def _weight(shape, seed, zero_channel=True):
 
 def _stacked_shapes() -> dict:
     """name -> stacked JAX shape of every leaf of an untied dense
-    tiny-debug and of tiny-moe-debug (the expert stacks)."""
+    tiny-debug, of tiny-moe-debug (the expert stacks) and of
+    tiny-mla-debug (MLA's projections)."""
     shapes = {}
     for cfg in (dataclasses.replace(CFG, tie_word_embeddings=False),
-                PRESETS["tiny-moe-debug"]):
+                PRESETS["tiny-moe-debug"], PRESETS["tiny-mla-debug"]):
         for name, (shape, _, _) in loader.param_specs(cfg).items():
             shapes.setdefault(name, shape)
     return shapes
@@ -88,10 +89,13 @@ def _stacked_shapes() -> dict:
 
 def test_quant_axes_are_the_dense_jax_entries():
     """The JAX entries of the leaves the port has: the dense ones and,
-    since MoE was ported, the expert stacks (not MLA's)."""
+    since MoE and MLA were ported, the expert stacks and MLA's
+    projections."""
     jspecs = {**jllama.param_specs(_jcfg(tie_word_embeddings=False)),
               **jllama.param_specs(dataclasses.replace(
-                  JPRESETS["tiny-moe-debug"], dtype="float32"))}
+                  JPRESETS["tiny-moe-debug"], dtype="float32")),
+              **jllama.param_specs(dataclasses.replace(
+                  JPRESETS["tiny-mla-debug"], dtype="float32"))}
     assert quant.QUANT_AXES == {k: v for k, v in jquant.QUANT_AXES.items()
                                 if k in jspecs}
 
