@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (`dynamo_tpu_torch`).
 
-    python3 chip_smoke.py                 # every phase
-    python3 chip_smoke.py --kernels-only  # phases 1-3, then a summary
+    python3 chip_smoke.py                     # every phase
+    python3 chip_smoke.py --kernels-only      # phases 1-3, then a summary
+    python3 chip_smoke.py --mla-chunked-ttft  # phases 1-2, phase 13's
+                                              # chunked deepseek-v2-lite TTFT
 
-(`--kernels-only` times the kernels of the package beside the script, so a
-copy of it in an older checkout compares kernels across trees.)
+(`--kernels-only` and `--mla-chunked-ttft` time the package beside the
+script, so a copy of it in an older checkout compares trees.)
 
 Needs one NVIDIA GPU (Hopper: the kernels build for sm_90a) and runs from
 the root of a checkout; it exits non-zero, printing no result, without a
@@ -56,7 +58,17 @@ on failure:
    deepseek-v2-lite's MLA latent row, head_dim 640 at group 16 (one KV
    head for 16 query heads: attend_latent; every entry point, both pool
    kinds, the verify windows of 5 x 16 = 80 rows), each row with the
-   backend PyTorch's dispatcher picks for its library call.
+   backend PyTorch's dispatcher picks for its library call. The chunk rows
+   there run the latent chunk tile (each query tile's keys cut into spans,
+   one block each, merged by the query tile's cluster): each reports its
+   spans, blocks (those with keys to walk) and longest span, and the
+   merge's own time (each block's global-timer stamps at the end of its
+   key walk and at its exit; `latent_chunk`), and at phase 3's shape the
+   time of every span count from 1 to 8 beside the clusters of that size
+   the card holds at once; they are timed again at the served shapes,
+   the ~88-token tail of the 600-token prompt at 512 and a 256-token
+   chunk at 0 (`chunk[head_dim=640,group=16,C=88,start=512]`, ...), and
+   two launches must give equal bits.
 4. The engine for llama-3.1-8b-instruct at full width and depth, random
    bf16 weights from seed 0: a full prefill, a decode step, a chunked
    prefill, a mixed step (the decode row beside a 256-token chunk), a
@@ -221,8 +233,11 @@ on failure:
    every weight once), mixed_batch_tokens=256 engines on bf16 and int8
    pools serving the interference traffic, the same with n-gram
    speculation (K = 4) on graph-window engines (verify windows alone and
-   beside the chunks), and the capacity path's TTFT and bit identity; so
-   that every kernel launches at head_dim 640 when served.
+   beside the chunks), the capacity path's TTFT and bit identity, and the
+   TTFT of a 2048-token prompt prefilled in 256-token chunks (eight chunk
+   launches a layer, the last at 1792) on bf16 and int8 pools
+   (`mla_chunked_ttft`, also run alone by `--mla-chunked-ttft`); so that
+   every kernel launches at head_dim 640 when served.
 14. JSON-guided decoding (after phase 11, on the 8B's weights). The
    grammar kernel (`csrc/json_mask.cu`, both entry points) against its
    plain version on the card: B = 8 rows over V = 128256 tokens of a
@@ -514,8 +529,12 @@ def kernel_usage(name: str, head_dim: int = D) -> dict:
 
     def wanted(label: str) -> bool:
         args = label[label.index("<") + 1:-1].split(", ") if "<" in label else []
+        # chunk.cu's latent tile serves head_dim 640 only
+        latent = label.startswith("chunk_latent_kernel")
         return (all(a == str(head_dim) for a in args if a.isdigit())
-                and all(a.startswith(pool) for a in args if not a.isdigit()))
+                and all(a.startswith(pool) for a in args if not a.isdigit())
+                and (not latent or (base == "chunk"
+                                    and head_dim == ca.LATENT_DIM)))
 
     return {k: v for k, v in ptxas_usage(ca.build_log).get(src, {}).items()
             if wanted(k)}
@@ -1042,7 +1061,31 @@ def shape_kernel_checks(dev, label: str, h: int, kv: int, d: int,
             paged_library(qc[None], kl, vl, pages_d[None], start_d,
                           start_d + c),
             cost(qc.numel(), [(pages, start, c, start + c)], row_bytes, 0),
-            {"q": [c, h, d], "start": start})
+            {"q": [c, h, d], "start": start,
+             **latent_chunk_plan(qc, k, v, pages_d, start, kv, sweep=True)})
+    if d == ca.LATENT_DIM and "chunk" in names:
+        # the served shapes of the latent chunk tile: the ~88-token tail
+        # of the 600-token prompt at 512, a first chunk at 0
+        for c2, s2 in ((600 - 512, 512), (CHUNK, 0)):
+            q2 = rnd(c2, h, d)
+            s2_d = torch.tensor([s2], device=dev)
+            for sfx, (k, v, kl, vl, row_bytes) in pools.items():
+                name = f"chunk{sfx}[{label},C={c2},start={s2}]"
+                rows[name] = check(
+                    name,
+                    lambda k=k, v=v, q2=q2, s2=s2: ca.chunk_prefill_attention(
+                        q2, k, v, pages_d, s2, page_size=PS,
+                        num_kv_heads=kv),
+                    lambda k=k, v=v, q2=q2, s2=s2: att.chunk_attention_ref(
+                        q2, k, v, pages_d, s2, page_size=PS,
+                        num_kv_heads=kv),
+                    paged_library(q2[None], kl, vl, pages_d[None], s2_d,
+                                  s2_d + c2),
+                    cost(q2.numel(), [(pages, s2, c2, s2 + c2)], row_bytes,
+                         0),
+                    {**shapes, "q": [c2, h, d], "start": s2,
+                     **latent_chunk_plan(q2, k, v, pages_d, s2, kv)},
+                    head_dim=d)
 
     rctx = torch.tensor([1] + ctx[1:], dtype=torch.int32, device=dev)
     desc = att.ragged_descriptors(table_d, rctx, pages_d, start, c)
@@ -1095,6 +1138,61 @@ def shape_kernel_checks(dev, label: str, h: int, kv: int, d: int,
             cost(qv.numel(), vspans, row_bytes, 2 * (MAX_SEQS + 1)),
             {"num_decode": MAX_SEQS, "decode_q": k1, "chunk": 0})
     return rows
+
+
+def latent_chunk_plan(q, k_pages, v_pages, pages, start: int, n_kv: int,
+                      sweep: bool = False) -> dict:
+    """At head_dim 640, chunk.cu's launch: its spans a query tile, its
+    blocks (and those with keys to walk), its longest span, the merge's
+    own time per block (the global timer at the end of a block's key walk
+    and at its exit, mean and max over the blocks, µs), the launch's span
+    from the first walk's end to the last exit, and whether two launches
+    give equal bits (raises if not); with `sweep`, the device ms of every
+    span count from 1 to MAX_CHUNK_SPANS beside the clusters of that size
+    the card runs at once (the evidence for chunk_spans' rule). {} below
+    640, or where the package beside the script has no such plan (an
+    older tree)."""
+    c, h, d = q.shape
+    if d != ca.LATENT_DIM or not hasattr(ca, "chunk_span_keys"):
+        return {}
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    tiles = ca.chunk_span_keys(c, start, h // n_kv, d, n_kv, sms)
+    keys = [hi - lo for _, _, spans in tiles for lo, hi in spans]
+    kw = dict(page_size=PS, num_kv_heads=n_kv)
+    clocks = torch.zeros((2 * len(keys) * n_kv,), dtype=torch.int64,
+                         device=q.device)
+    a = ca.chunk_prefill_attention(q, k_pages, v_pages, pages, start,
+                                   clocks=clocks, **kw)
+    b = ca.chunk_prefill_attention(q, k_pages, v_pages, pages, start, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"chunk at C={c}, start={start}: two launches "
+                             f"differ")
+    stamps = clocks.reshape(-1, 2).double()
+    merge_us = (stamps[:, 1] - stamps[:, 0]) / 1e3
+    by_spans = {}
+    if sweep:
+        lib = ca.build()
+        for n in range(1, ca.MAX_CHUNK_SPANS + 1):
+            def call(n=n):
+                return ca.chunk_prefill_attention(q, k_pages, v_pages, pages,
+                                                  start, spans=n, **kw)
+            by_spans[n] = {
+                "ms": device_ms(call, 20),
+                "blocks": n * len(tiles) * n_kv,
+                "clusters_at_once": lib.dtt_chunk_max_clusters(
+                    n, int(k_pages.dtype == torch.int8)),
+                "equals_plan": torch.equal(call(), a)}
+    return {"latent_chunk": {
+        "spans": ca.chunk_spans(c, start, h // n_kv, d, n_kv, sms),
+        "blocks": len(keys) * n_kv,
+        "blocks_with_keys": sum(1 for x in keys if x > 0) * n_kv,
+        "longest_span_keys": max(keys), "sms": sms,
+        "merge_us_mean": float(merge_us.mean()),
+        "merge_us_max": float(merge_us.max()),
+        "walk_end_to_exit_ms": float(stamps[:, 1].max()
+                                     - stamps[:, 0].min()) / 1e6,
+        "two_launches_equal": True, "ms_by_spans": by_spans}}
 
 
 class HeldAgainstPlain:
@@ -3364,6 +3462,9 @@ def mla_phase(eager_cfg: dict, jet_cfg: dict) -> dict:
     emit({"phase": "moe_capacity_ttft", "model": model,
           **capacity_ttft(engine, eager_cfg)})
     release()
+    with torch.inference_mode():
+        emit({"phase": "mla_chunked_ttft", "model": model,
+              **mla_chunked_ttft(engine, eager_cfg)})
     del engine
     release()
     return {"launches": [r["launches"] for r in served],
@@ -3371,10 +3472,88 @@ def mla_phase(eager_cfg: dict, jet_cfg: dict) -> dict:
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
+def mla_chunked_ttft(engine: Engine, eager_cfg: dict) -> dict:
+    """TTFT of a 2048-token prompt prefilled in CHUNK-token chunks (eight
+    chunk launches a layer, the last at 1792) on eager engines sharing
+    `engine`'s weights (max_seq_len 4096, so that the prompt is admitted),
+    bf16 and int8 pools in turns after one untimed run each: the median
+    of three, host clock around `generate(max_tokens=1)`, and the chunk
+    launches of one run; then one more run of each under torch.profiler:
+    the device time of all its kernels and of the chunk kernel's, beside
+    that run's wall (the profiler slows the host)."""
+    cfg = dict(eager_cfg, model=engine.cfg.model, max_seq_len=2 * MAX_SEQ_LEN,
+               prefill_chunk_tokens=CHUNK)
+    engines = {kv: Engine(EngineConfig(**cfg, kv_cache_dtype=kv),
+                          params=engine.model) for kv in ("auto", "int8")}
+    prompt = [1 + i % 200 for i in range(MAX_SEQ_LEN)]
+    times = {kv: [] for kv in engines}
+    launches = {}
+    for rnd in range(4):
+        for kv in (engines if rnd % 2 else reversed(list(engines))):
+            ca.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = engines[kv].generate(GenRequest(
+                f"chunked-{kv}-{rnd}", prompt, max_tokens=1, ignore_eos=True))
+            torch.cuda.synchronize()
+            if len(out) != 1:
+                raise AssertionError(f"chunked TTFT {kv}: {out}")
+            if rnd:
+                times[kv].append(time.monotonic() - t0)
+            launches[kv] = dict(ca.VARIANT_LAUNCHES)
+    from torch.profiler import ProfilerActivity, profile
+
+    profiled = {}
+    for kv, eng in engines.items():
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with prof:
+            eng.generate(GenRequest(f"chunked-{kv}-profiled", prompt,
+                                    max_tokens=1, ignore_eos=True))
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        busy = chunk_ms = 0.0
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            ms = ev.time_range.elapsed_us() / 1e3
+            busy += ms
+            if "chunk_latent_kernel" in ev.name or "chunk_kernel" in ev.name:
+                chunk_ms += ms
+        profiled[kv] = {"wall_ms": wall * 1e3,
+                        "device_busy_ms": busy or "not measured",
+                        "chunk_kernel_ms": chunk_ms or "not measured"}
+    layers = engine.model_cfg.num_layers
+    for kv, name in (("auto", "chunk"), ("int8", "chunk_int8")):
+        got = launches[kv].get(f"{name}[head_dim={engine.kv_spec.head_dim}]",
+                               0)
+        if got != layers * (MAX_SEQ_LEN // CHUNK):
+            raise AssertionError(f"chunked TTFT {kv}: {got} {name} launches,"
+                                 f" not {MAX_SEQ_LEN // CHUNK} a layer")
+    del engines
+    release()
+    return {"prompt_tokens": MAX_SEQ_LEN, "chunk": CHUNK,
+            "chunk_launches_per_layer": MAX_SEQ_LEN // CHUNK,
+            "ttft_s": {kv: statistics.median(t) for kv, t in times.items()},
+            "ttft_s_runs": times, "profiled_run": profiled}
+
+
+def mla_ttft_only(eager_cfg: dict) -> None:
+    """`--mla-chunked-ttft`: deepseek-v2-lite's engine (random weights from
+    seed 0) and mla_chunked_ttft alone."""
+    engine = Engine(EngineConfig(**dict(eager_cfg, model=MLA_MODEL)))
+    with torch.inference_mode():
+        emit({"phase": "mla_chunked_ttft", "model": MLA_MODEL,
+              **mla_chunked_ttft(engine, eager_cfg)})
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    if args not in ([], ["--kernels-only"]):
-        print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
+    if args not in ([], ["--kernels-only"], ["--mla-chunked-ttft"]):
+        print("usage: chip_smoke.py [--kernels-only | --mla-chunked-ttft]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -3390,18 +3569,6 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.monotonic() - t0,
           "ptxas": ptxas_usage(ca.build_log)})
 
-    rows = kernel_checks(dev)
-    family_rows = {label: shape_kernel_checks(dev, label, h, kv, d, names)
-                   for label, h, kv, d, names in FAMILY_SHAPES}
-    if args:
-        emit({"phase": "kernels_only", "kernel_ms": {
-            **{name: row["kernel_ms"] for name, row in rows.items()},
-            **{f"{name}[{label}]": row["kernel_ms"]
-               for label, fam in family_rows.items()
-               for name, row in fam.items()}}})
-        return 0
-
-    t0 = time.monotonic()
     base_cfg = dict(model=MODEL, page_size=PS, num_pages=NUM_PAGES,
                     max_num_seqs=MAX_SEQS, max_seq_len=MAX_SEQ_LEN,
                     prefill_chunk_tokens=CHUNK, enable_prefix_caching=False,
@@ -3409,6 +3576,20 @@ def main(argv=None) -> int:
     # phases 4, 5 and the eager profiles: 1-step synchronous decode, eager
     eager_cfg = dict(base_cfg, num_scheduler_steps=1, async_scheduling=False,
                      enforce_eager=True)
+    if args == ["--mla-chunked-ttft"]:
+        mla_ttft_only(eager_cfg)
+        return 0
+    rows = kernel_checks(dev)
+    family_rows = {label: shape_kernel_checks(dev, label, h, kv, d, names)
+                   for label, h, kv, d, names in FAMILY_SHAPES}
+    if args:
+        emit({"phase": "kernels_only", "kernel_ms": {
+            row["name"]: row["kernel_ms"] for row in
+            [*rows.values(), *(r for fam in family_rows.values()
+                               for r in fam.values())]}})
+        return 0
+
+    t0 = time.monotonic()
     engine = Engine(EngineConfig(**eager_cfg))
     emit({"phase": "engine", "model": MODEL, "seconds": time.monotonic() - t0,
           "layers": engine.model_cfg.num_layers,

@@ -1,6 +1,8 @@
 // Shared device code of the port's attention kernels (decode.cu, prefill.cu,
 // chunk.cu, ragged.cu): `attend_mma`, the tensor-core query tile all four
-// run, its K/V policies, and the split decode rows of decode.cu and
+// run, its K/V policies, `attend_latent` (the tile at head_dim 640),
+// `chunk_latent_kernel` (chunk.cu's tile at head_dim 640: key spans merged
+// in a cluster, S on wgmma), and the split decode rows of decode.cu and
 // ragged.cu (`decode_split_block`, `merge_splits_kernel`).
 //
 // A block owns query positions x the `group` = H/KV query heads of ONE KV
@@ -1092,6 +1094,697 @@ __device__ __forceinline__ void attend(
   else
     attend_mma<kD>(q, q_off, q_row_stride, kv, rows, kvh, nq, group, qpos0,
                    kv_len, key_lo, key_hi, scale, dst);
+}
+
+// ---------------------------------------------------------------------------
+// The latent chunk tile: chunk.cu at head_dim 640 (chunk_latent_kernel).
+//
+// A query tile is attend_latent's (64 rows = positions x the GQA group of
+// one KV head), but its keys [0, horizon) are cut into `spans` equal spans
+// (chunk_spans: 1, 2, 4 or 8), one block each, and the blocks of a query
+// tile form one thread-block cluster that merges their partials through
+// distributed shared memory (no scratch in device memory). A block of
+// kChunkThreads = two warpgroups walks its span in tiles of kChunkKeys = 32
+// keys:
+//   - S = Q K^T with wgmma (m64n32k16, both operands in shared memory in the
+//     128-byte swizzle: q's 64 x 640 tile in 10 panels of 64 lanes, the K
+//     tile likewise), over all 640 lanes, by each warpgroup: the two compute
+//     the same scores, so no partial score crosses a warp; each thread holds
+//     two rows' scores (the m16n8 accumulator layout, warp w of a warpgroup
+//     owning rows 16w .. 16w + 15);
+//   - the online softmax as attend_mma's (log2 units, exp2f, int8 scales in
+//     f32);
+//   - O += P V with wgmma over the warpgroup's own 320 lanes of O (160 f32
+//     registers a thread, as m64n256k16 + m64n64k16): P from registers in
+//     two bf16 parts (attend_mma's split_bf16), V from shared memory read
+//     MN-major (its 64-lane panels, 8-key groups).
+// Copies: every thread copies its share of a tile with cp.async into the
+// swizzle (one key slot per 8 threads). Two barriers a tile: after K(t)
+// has landed (then V(t) and K(t + 1) are issued, V(t) landing under S(t),
+// K(t + 1) under S(t) and P V(t): bf16 pools keep two K tiles), and after
+// V(t) has landed (then P V). int8 pools copy their raw rows into a
+// staging area instead, and each thread widens the chunks it copied
+// itself (its own writes: no barrier) into the single bf16 K or V tile:
+// V(t) before the second barrier, K(t + 1) after P V(t). A thread fences
+// its writes to the async proxy (fence.proxy.async) before the barrier
+// that lets wgmma read them.
+// After the walk a block leaves its unnormalized partial (O in f32, m in
+// log2 units, l) in its own shared memory, the cluster synchronizes, and
+// each block merges a share of the query tile's output from all the
+// cluster's partials (merge_splits_kernel's formula, spans in order), so
+// two runs give equal bits. A span past the horizon (a short query tile
+// cut into more spans than it has keys) walks nothing and merges as empty.
+constexpr int kChunkThreads = 256;  // two warpgroups
+constexpr int kChunkKeys = 32;      // keys per K/V tile
+constexpr int kMaxChunkSpans = 8;   // spans of a query tile: a portable cluster
+constexpr int kSwizzleLanes = 64;   // bf16 lanes of one 128-byte swizzle panel
+constexpr int kLatentPanels = kLatentDim / kSwizzleLanes;  // 10
+constexpr int kChunkLanes = kLatentDim / 2;  // lanes of O per warpgroup
+constexpr int kDumpLd = kLatentDim + 4;      // padded f32 row of the dump
+
+// Shared memory of a chunk_latent_kernel block (offsets from a 1024-byte
+// aligned base, which the swizzle needs): q's tile, the K tiles (bf16: two,
+// int8: one), the V tile, for int8 pools the raw rows, their scale chunks
+// and the f32 scales; after the walk the same bytes hold the partial O
+// [64][kDumpLd], (m, l) [64][2] and the merge's weights [64][9]. bf16:
+// 204,800 bytes, int8: 206,080, plus the 1024 of alignment slack.
+template <typename KVTiles>
+struct ChunkSmem {
+  static constexpr size_t q_bytes = (size_t)kTileRows * kLatentDim * 2;
+  static constexpr size_t tile = (size_t)kChunkKeys * kLatentDim * 2;
+  static constexpr int k_tiles = KVTiles::kInt8 ? 1 : 2;
+  static constexpr size_t k_off = q_bytes;
+  static constexpr size_t v_off = k_off + k_tiles * tile;
+  static constexpr size_t raw_off = v_off + tile;
+  static constexpr size_t raw_bytes =
+      KVTiles::kInt8 ? 2 * (size_t)kChunkKeys * kLatentDim : 0;
+  static constexpr size_t scl_off = raw_off + raw_bytes;
+  static constexpr size_t f32_off =
+      scl_off + (KVTiles::kInt8 ? 2 * kChunkKeys * 16 : 0);
+  static constexpr size_t walk =
+      f32_off + (KVTiles::kInt8 ? 2 * kChunkKeys * 4 : 0);
+  static constexpr size_t dump = (size_t)kTileRows * kDumpLd * 4
+                                 + (size_t)kTileRows * 2 * 4
+                                 + (size_t)kTileRows * (kMaxChunkSpans + 1) * 4;
+  static constexpr size_t bytes = 1024 + (walk > dump ? walk : dump);
+  static_assert(bytes <= kMaxBlockSmem,
+                "the latent chunk tile's shared memory");
+};
+
+// Spans per query tile of chunk_latent_kernel for a C-query chunk at
+// `start` in query tiles of `positions` positions, with KV heads, on a card
+// of num_sms SMs: the largest power of two up to kMaxChunkSpans whose
+// blocks (spans x tiles x KV, one a SM) still run in one wave, and at most
+// the key tiles of the longest query tile's horizon (start + C). Clusters
+// of 2, 4 and 8 blocks fill an H100's GPCs (132, 120 and 120 of its SMs at
+// once); 3, 5 or 6 leave 15-30 SMs idle, and a second wave costs more
+// than the longer spans of fewer blocks (PERF.md, the span sweep).
+inline int chunk_spans(int C, int start, int positions, int KV, int num_sms) {
+  const long long tiles = (long long)((C + positions - 1) / positions) * KV;
+  const long long key_tiles =
+      ((long long)start + C + kChunkKeys - 1) / kChunkKeys;
+  int n = 1;
+  while (2 * n <= kMaxChunkSpans && 2 * n * tiles <= num_sms
+         && 2 * n <= key_tiles)
+    n *= 2;
+  return n;
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma's shared-memory matrix descriptor of a K-major tile in the 128-byte
+// swizzle: start address, leading offset 1 (unused by this layout), stride
+// 1024 bytes between groups of 8 rows, layout type 1 (128B swizzle)
+__device__ __forceinline__ unsigned long long gmma_desc(unsigned addr) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) | (1ull << 16)
+         | ((unsigned long long)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// s[16] (+)= A B^T over one k16 step: A 64 x 16 and B 32 x 16 (keys) from
+// their descriptors; accumulate = false overwrites s
+__device__ __forceinline__ void wgmma_m64n32k16(float* s,
+                                                unsigned long long a,
+                                                unsigned long long b,
+                                                bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(s[0]), "+f"(s[1]), "+f"(s[2]), "+f"(s[3]), "+f"(s[4]),
+        "+f"(s[5]), "+f"(s[6]), "+f"(s[7]), "+f"(s[8]), "+f"(s[9]),
+        "+f"(s[10]), "+f"(s[11]), "+f"(s[12]), "+f"(s[13]), "+f"(s[14]),
+        "+f"(s[15])
+      : "l"(a), "l"(b), "r"((int)accumulate));
+}
+
+// keeps the compiler from moving reads or writes of wgmma's accumulator
+// registers across the asynchronous product
+__device__ __forceinline__ void fence_regs16(float* s) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(s[i])::"memory");
+}
+
+// o[0 .. 31] += A B over one k16 step: A (16 rows of P a warp) in
+// registers (the m16n8k16 A layout), B (256 lanes of V, 16 keys) from shared
+// memory in the MN-major 128-byte swizzle
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (*o)[4],
+                                                 const unsigned* a,
+                                                 unsigned long long b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,%111,%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122,%123,%124,%125,%126,%127}, "
+      "{%128,%129,%130,%131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(o[0][0]), "+f"(o[0][1]), "+f"(o[0][2]), "+f"(o[0][3]),
+        "+f"(o[1][0]), "+f"(o[1][1]), "+f"(o[1][2]), "+f"(o[1][3]),
+        "+f"(o[2][0]), "+f"(o[2][1]), "+f"(o[2][2]), "+f"(o[2][3]),
+        "+f"(o[3][0]), "+f"(o[3][1]), "+f"(o[3][2]), "+f"(o[3][3]),
+        "+f"(o[4][0]), "+f"(o[4][1]), "+f"(o[4][2]), "+f"(o[4][3]),
+        "+f"(o[5][0]), "+f"(o[5][1]), "+f"(o[5][2]), "+f"(o[5][3]),
+        "+f"(o[6][0]), "+f"(o[6][1]), "+f"(o[6][2]), "+f"(o[6][3]),
+        "+f"(o[7][0]), "+f"(o[7][1]), "+f"(o[7][2]), "+f"(o[7][3]),
+        "+f"(o[8][0]), "+f"(o[8][1]), "+f"(o[8][2]), "+f"(o[8][3]),
+        "+f"(o[9][0]), "+f"(o[9][1]), "+f"(o[9][2]), "+f"(o[9][3]),
+        "+f"(o[10][0]), "+f"(o[10][1]), "+f"(o[10][2]), "+f"(o[10][3]),
+        "+f"(o[11][0]), "+f"(o[11][1]), "+f"(o[11][2]), "+f"(o[11][3]),
+        "+f"(o[12][0]), "+f"(o[12][1]), "+f"(o[12][2]), "+f"(o[12][3]),
+        "+f"(o[13][0]), "+f"(o[13][1]), "+f"(o[13][2]), "+f"(o[13][3]),
+        "+f"(o[14][0]), "+f"(o[14][1]), "+f"(o[14][2]), "+f"(o[14][3]),
+        "+f"(o[15][0]), "+f"(o[15][1]), "+f"(o[15][2]), "+f"(o[15][3]),
+        "+f"(o[16][0]), "+f"(o[16][1]), "+f"(o[16][2]), "+f"(o[16][3]),
+        "+f"(o[17][0]), "+f"(o[17][1]), "+f"(o[17][2]), "+f"(o[17][3]),
+        "+f"(o[18][0]), "+f"(o[18][1]), "+f"(o[18][2]), "+f"(o[18][3]),
+        "+f"(o[19][0]), "+f"(o[19][1]), "+f"(o[19][2]), "+f"(o[19][3]),
+        "+f"(o[20][0]), "+f"(o[20][1]), "+f"(o[20][2]), "+f"(o[20][3]),
+        "+f"(o[21][0]), "+f"(o[21][1]), "+f"(o[21][2]), "+f"(o[21][3]),
+        "+f"(o[22][0]), "+f"(o[22][1]), "+f"(o[22][2]), "+f"(o[22][3]),
+        "+f"(o[23][0]), "+f"(o[23][1]), "+f"(o[23][2]), "+f"(o[23][3]),
+        "+f"(o[24][0]), "+f"(o[24][1]), "+f"(o[24][2]), "+f"(o[24][3]),
+        "+f"(o[25][0]), "+f"(o[25][1]), "+f"(o[25][2]), "+f"(o[25][3]),
+        "+f"(o[26][0]), "+f"(o[26][1]), "+f"(o[26][2]), "+f"(o[26][3]),
+        "+f"(o[27][0]), "+f"(o[27][1]), "+f"(o[27][2]), "+f"(o[27][3]),
+        "+f"(o[28][0]), "+f"(o[28][1]), "+f"(o[28][2]), "+f"(o[28][3]),
+        "+f"(o[29][0]), "+f"(o[29][1]), "+f"(o[29][2]), "+f"(o[29][3]),
+        "+f"(o[30][0]), "+f"(o[30][1]), "+f"(o[30][2]), "+f"(o[30][3]),
+        "+f"(o[31][0]), "+f"(o[31][1]), "+f"(o[31][2]), "+f"(o[31][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// o[0 .. 7] += A B over one k16 step: A (16 rows of P a warp) in
+// registers (the m16n8k16 A layout), B (64 lanes of V, 16 keys) from shared
+// memory in the MN-major 128-byte swizzle
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (*o)[4],
+                                                 const unsigned* a,
+                                                 unsigned long long b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "{%32,%33,%34,%35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(o[0][0]), "+f"(o[0][1]), "+f"(o[0][2]), "+f"(o[0][3]),
+        "+f"(o[1][0]), "+f"(o[1][1]), "+f"(o[1][2]), "+f"(o[1][3]),
+        "+f"(o[2][0]), "+f"(o[2][1]), "+f"(o[2][2]), "+f"(o[2][3]),
+        "+f"(o[3][0]), "+f"(o[3][1]), "+f"(o[3][2]), "+f"(o[3][3]),
+        "+f"(o[4][0]), "+f"(o[4][1]), "+f"(o[4][2]), "+f"(o[4][3]),
+        "+f"(o[5][0]), "+f"(o[5][1]), "+f"(o[5][2]), "+f"(o[5][3]),
+        "+f"(o[6][0]), "+f"(o[6][1]), "+f"(o[6][2]), "+f"(o[6][3]),
+        "+f"(o[7][0]), "+f"(o[7][1]), "+f"(o[7][2]), "+f"(o[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// wgmma's descriptor of an MN-major tile in the 128-byte swizzle: atoms of
+// 64 lanes (128 bytes) x 8 keys, `lbo` bytes between atoms along the lanes,
+// `sbo` bytes between groups of 8 keys
+__device__ __forceinline__ unsigned long long gmma_desc_mn(unsigned addr,
+                                                           unsigned lbo,
+                                                           unsigned sbo) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4)
+         | ((unsigned long long)(lbo >> 4) << 16)
+         | ((unsigned long long)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// keeps the compiler from moving reads or writes of O's registers across
+// an asynchronous product
+__device__ __forceinline__ void fence_o(float (*o)[4]) {
+#pragma unroll
+  for (int j = 0; j < kChunkLanes / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(o[j][e])::"memory");
+}
+
+__device__ __forceinline__ unsigned cluster_rank_addr(unsigned addr,
+                                                      unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float2 ld_cluster_f2(unsigned addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0,%1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0,%1,%2,%3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr) : "memory");
+  return v;
+}
+
+// every thread of every block of the cluster; shared-memory writes before
+// it are visible to the cluster's reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// 16 int8 values -> 16 bf16 (exact) as two 16-byte chunks: out[0..3] the
+// first 8, out[4..7] the last 8 (widen_int8_rows's arithmetic)
+__device__ __forceinline__ void widen16(uint4 raw, unsigned* out) {
+  const unsigned* w = reinterpret_cast<const unsigned*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const unsigned u = w[e] ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | b))
+             - 8388736.f;
+    out[2 * e] = pack_bf16(f[0], f[1]);
+    out[2 * e + 1] = pack_bf16(f[2], f[3]);
+  }
+}
+
+// The share of cluster rank `span_idx` of a query tile's output: tasks of
+// (row, 8-lane chunk) in row order, each the sum over the n spans' f32
+// partials (dump [64][kDumpLd] in every rank's shared memory, at dump_a)
+// times the row's span weights, in span order, times 1 / sum w l (wts
+// [64][kMaxChunkSpans + 1] in this block's) -> bf16 rows at the q
+// addressing, for a cluster of kN spans. An empty span's partial is zeros
+// and its weight 0, so every load is issued without a test, and a thread
+// keeps two tasks' loads in flight.
+template <int kN>
+__device__ __forceinline__ void merge_spans(
+    int span_idx, int n_rows, const float* wts, unsigned dump_a,
+    __nv_bfloat16* __restrict__ out, long long q_off, int q_row_stride,
+    int group, int tid) {
+  constexpr int kChunks = kLatentDim / 8;  // 8-lane chunks of a row
+  constexpr int kW = kMaxChunkSpans + 1;
+  constexpr int kBatch = 2;
+  const int tasks = n_rows * kChunks;
+  const int per = (tasks + kN - 1) / kN;
+  const int t_end = min(tasks, (span_idx + 1) * per);
+  for (int t0 = span_idx * per + tid; t0 < t_end;
+       t0 += kBatch * kChunkThreads) {
+    float4 x[kBatch][kN][2];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int task = t0 + b * kChunkThreads;
+      const int r = task < t_end ? task / kChunks : 0;
+      const int c8 = task < t_end ? task - r * kChunks : 0;
+      const unsigned a = dump_a + 4 * (r * kDumpLd + 8 * c8);
+#pragma unroll
+      for (int u = 0; u < kN; ++u) {
+        const unsigned ra = cluster_rank_addr(a, u);
+        x[b][u][0] = ld_cluster_f4(ra);
+        x[b][u][1] = ld_cluster_f4(ra + 16);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int task = t0 + b * kChunkThreads;
+      if (task >= t_end) break;
+      const int r = task / kChunks, c8 = task - r * kChunks;
+      const float* wr = wts + r * kW;
+      float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int u = 0; u < kN; ++u) {
+        const float w = wr[u];
+        acc[0] += w * x[b][u][0].x;
+        acc[1] += w * x[b][u][0].y;
+        acc[2] += w * x[b][u][0].z;
+        acc[3] += w * x[b][u][0].w;
+        acc[4] += w * x[b][u][1].x;
+        acc[5] += w * x[b][u][1].y;
+        acc[6] += w * x[b][u][1].z;
+        acc[7] += w * x[b][u][1].w;
+      }
+      const float inv = wr[kMaxChunkSpans];
+      const int i = r / group, g = r - i * group;
+      *reinterpret_cast<uint4*>(out + q_off + (long long)i * q_row_stride
+                                + g * kLatentDim + 8 * c8) =
+          make_uint4(pack_bf16(acc[0] * inv, acc[1] * inv),
+                     pack_bf16(acc[2] * inv, acc[3] * inv),
+                     pack_bf16(acc[4] * inv, acc[5] * inv),
+                     pack_bf16(acc[6] * inv, acc[7] * inv));
+    }
+  }
+}
+
+// Block (span, query tile, KV head) of a C-query chunk at `start` over the
+// page list `pages` (rows r = i * group + g, positions start + i0 ..): the
+// walk of its span, then the cluster's merge into out's bf16 rows. With
+// `clocks`, thread 0 stamps the global timer when its walk ends and when
+// the block is done: clocks[2 * block + {0, 1}] (the merge's own time).
+template <typename KVTiles>
+__global__ void __launch_bounds__(kChunkThreads, 1) chunk_latent_kernel(
+    const __nv_bfloat16* __restrict__ q,  // [C, H, 640]
+    KVTiles kv,                           // pools [P, ps, lane_width]
+    const int* __restrict__ pages,        // [W]
+    __nv_bfloat16* __restrict__ out,      // [C, H, 640]
+    int C, int H, int KV, int page_size, int lane_width, int start,
+    int positions, float scale, unsigned long long* __restrict__ clocks) {
+  using L = ChunkSmem<KVTiles>;
+  constexpr int kD = kLatentDim, kK = kChunkKeys;
+  constexpr int kPanelQ = kTileRows * 128;  // bytes of one q panel
+  constexpr int kPanelK = kK * 128;         // of one K or V panel
+  extern __shared__ __align__(16) char chunk_smem[];
+  const unsigned smem0 = smem_u32(chunk_smem);
+  char* base = chunk_smem + (((smem0 + 1023) & ~1023u) - smem0);
+  const unsigned base_a = smem_u32(base);
+
+  const int span_idx = blockIdx.x, n_spans = gridDim.x;
+  const int i0 = blockIdx.y * positions, kvh = blockIdx.z;
+  const int group = H / KV;
+  const int nq = min(positions, C - i0), n_rows = nq * group;
+  const int qpos0 = start + i0;
+  const int horizon = qpos0 + nq;  // the tile's last query sees start + i0 + nq - 1
+  const int span = (horizon + n_spans - 1) / n_spans;
+  const int lo = span_idx * span, hi = min(lo + span, horizon);
+  const long long q_off = ((long long)i0 * H + kvh * group) * kD;
+  const int q_row_stride = H * kD;
+  const PagedRows rows{pages, page_size, lane_width};
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wrow = (warp & 3) * 16;
+  const int quad = lane >> 2, pair = (lane & 3) * 2;
+
+  float o[kChunkLanes / 8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kChunkLanes / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  if (lo < hi) {  // the same for every thread of the block
+    char* qs = base;
+    char* ks = base + L::k_off;     // the K tiles (bf16: two, int8: one)
+    char* vs = base + L::v_off;     // the V tile
+    char* raw = base + L::raw_off;  // int8: K rows [32][640], V rows
+    char* scl = base + L::scl_off;  // int8: K's, then V's scale chunks
+    float* ksc = reinterpret_cast<float*>(base + L::f32_off);
+    float* vsc = ksc + kK;
+    const int n_tiles = (hi - lo + kK - 1) / kK;
+    // copies: 8 threads per key slot, `part` taking 16-byte chunk `part` of
+    // every swizzle panel (bf16) or int8 chunks part, part + 8, ... (int8)
+    const int slot = tid >> 3, part = tid & 7, sw = slot & 7;
+    auto row_of = [&](int t) -> long long {
+      const int tok = lo + t * kK + slot;
+      return tok < hi ? rows(tok) : -1;  // -1: zero-filled, never addressed
+    };
+    auto copy_tile = [&](const void* src_pool, char* dst, int which,
+                         long long row) {
+      const bool ok = row >= 0;
+      const long long off = row + (long long)kvh * kD;
+      if constexpr (KVTiles::kInt8) {
+        const int8_t* src = static_cast<const int8_t*>(src_pool);
+        char* r = raw + which * (kK * kD) + slot * kD;
+#pragma unroll
+        for (int i = 0; i < kD / 16 / 8; ++i) {
+          const int c8 = part + 8 * i;
+          cp_async16(r + c8 * 16, ok ? src + off + c8 * 16 : src, ok);
+        }
+        if (part == which)  // the chunk holding head kvh's scale
+          cp_async16(scl + (which * kK + slot) * 16,
+                     ok ? src + row + kv.kvd + 16 * (kvh / 8) : src, ok);
+      } else {
+        const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(src_pool);
+        char* d = dst + slot * 128 + ((part ^ sw) << 4);
+#pragma unroll
+        for (int p = 0; p < kLatentPanels; ++p)
+          cp_async16(d + p * kPanelK,
+                     ok ? src + off + p * kSwizzleLanes + part * 8 : src, ok);
+      }
+    };
+    // int8: this thread's raw chunks of K (which 0) or V (1) -> the bf16
+    // tile at dst, and its key's scale -> f32
+    auto widen_own = [&](int which, char* dst, float* sc) {
+      if constexpr (KVTiles::kInt8) {
+        const char* r = raw + which * (kK * kD) + slot * kD;
+#pragma unroll
+        for (int i = 0; i < kD / 16 / 8; ++i) {
+          const int c8 = part + 8 * i;  // lanes 16 c8 .. + 15
+          unsigned w[8];
+          widen16(*reinterpret_cast<const uint4*>(r + c8 * 16), w);
+          const int j = (c8 & 3) * 2;   // bf16 chunk in the panel
+          char* d = dst + (c8 >> 2) * kPanelK + slot * 128;
+          *reinterpret_cast<uint4*>(d + ((j ^ sw) << 4)) =
+              make_uint4(w[0], w[1], w[2], w[3]);
+          *reinterpret_cast<uint4*>(d + (((j + 1) ^ sw) << 4)) =
+              make_uint4(w[4], w[5], w[6], w[7]);
+        }
+        if (part == which) {
+          const unsigned short bits = *reinterpret_cast<const unsigned short*>(
+              scl + (which * kK + slot) * 16 + 2 * (kvh % 8));
+          sc[slot] = __uint_as_float((unsigned)bits << 16);
+        }
+      }
+    };
+    auto ktile = [&](int t) -> unsigned {  // K(t)'s tile, as an offset
+      return (unsigned)L::k_off + (KVTiles::kInt8 ? 0 : (t & 1) * L::tile);
+    };
+
+    // q rows slot and slot + 32 (zero rows past n_rows), then K(0)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = slot + 32 * rr, i = r / group, g = r - i * group;
+      const bool valid = r < n_rows;
+      const __nv_bfloat16* src =
+          q + q_off + (long long)i * q_row_stride + g * kD + part * 8;
+      char* d = qs + r * 128 + ((part ^ (r & 7)) << 4);
+#pragma unroll
+      for (int p = 0; p < kLatentPanels; ++p)
+        cp_async16(d + p * kPanelQ, valid ? src + p * kSwizzleLanes : q,
+                   valid);
+    }
+    long long row = row_of(0);  // tile t's keys, this thread's slot
+    copy_tile(kv.k, base + ktile(0), 0, row);
+    cp_async_commit();
+    if constexpr (KVTiles::kInt8) {
+      cp_async_wait<0>();
+      widen_own(0, ks, ksc);
+    }
+
+    int qlim[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) qlim[h] = qpos0 + (wrow + quad + 8 * h) / group;
+    const float sl2 = scale * 1.4426950408889634f;  // 1/sqrt(D) in log2 units
+    const unsigned long long desc_q = gmma_desc(base_a);
+    const unsigned v_a = base_a + (unsigned)L::v_off + 5 * wg * kPanelK;
+
+    for (int t = 0; t < n_tiles; ++t) {
+      // K(t) has landed (int8: and this thread widened its chunks)
+      cp_async_wait<0>();
+      fence_proxy_async();
+      // K(t) is in for everyone, and everyone is past S and P V of t - 1:
+      // the V tile and the other K tile are free
+      __syncthreads();
+      copy_tile(kv.v, vs, 1, row);  // V(t) lands under S(t)
+      cp_async_commit();
+      row = t + 1 < n_tiles ? row_of(t + 1) : -1;
+      if (t + 1 < n_tiles)  // K(t + 1) lands under S(t) and P V(t)
+        copy_tile(kv.k, base + ktile(t + 1), 0, row);
+      cp_async_commit();
+
+      // S = Q K^T: 40 k16 steps over the swizzle panels, 32 bytes apart
+      // inside a panel
+      float s[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s[i] = 0.f;
+      const unsigned long long desc_k = gmma_desc(base_a + ktile(t));
+      fence_regs16(s);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_m64n32k16(
+            s, desc_q + (((kk >> 2) * kPanelQ + (kk & 3) * 32) >> 4),
+            desc_k + (((kk >> 2) * kPanelK + (kk & 3) * 32) >> 4), kk > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_regs16(s);
+
+      // scale, mask, online softmax; s[4j + 2h + e] is row wrow + quad +
+      // 8h, key k0 + 8j + pair + e
+      const int k0 = lo + t * kK;
+      const bool edge = k0 + kK > hi || k0 + kK - 1 > qpos0;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = j * 8 + pair + e, tok = k0 + key;
+          float f = sl2;
+          if constexpr (KVTiles::kInt8) f = sl2 * ksc[key];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float x = s[4 * j + 2 * h + e] * f;
+            if (edge && !(tok < hi && tok <= qlim[h])) x = -INFINITY;
+            s[4 * j + 2 * h + e] = x;
+            mx[h] = fmaxf(mx[h], x);
+          }
+        }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        // never exp(-inf - -inf): a row that has seen nothing keeps 0s
+        const float b = m_new == -INFINITY ? 0.f : m_new;
+        alpha[h] = exp2f(m[h] - b);
+        m[h] = m_new;
+        l[h] *= alpha[h];
+#pragma unroll
+        for (int j = 0; j < kK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(s[4 * j + 2 * h + e] - b);
+            s[4 * j + 2 * h + e] = p;
+            l[h] += p;
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < kChunkLanes / 8; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
+      }
+
+      cp_async_wait<1>();  // V(t) has landed (K(t + 1) may be in flight)
+      widen_own(1, vs, vsc);
+      fence_proxy_async();
+      __syncthreads();  // V(t) is in for everyone
+
+      // O += P V on wgmma: P (times V's int8 scales, in two bf16 parts)
+      // from registers, this warpgroup's 320 lanes of V as 256 + 64 from
+      // shared memory (MN-major: 64-lane panels 4096 bytes apart, groups
+      // of 8 keys 1024 bytes apart)
+      unsigned a[2][4], a_lo[2][4];
+#pragma unroll
+      for (int kk = 0; kk < kK / 16; ++kk) {
+        float p[2][4];
+#pragma unroll
+        for (int hb = 0; hb < 2; ++hb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float vsf = 1.f;
+            if constexpr (KVTiles::kInt8)
+              vsf = vsc[(2 * kk + hb) * 8 + pair + (e & 1)];
+            p[hb][e] = s[4 * (2 * kk + hb) + e] * vsf;
+          }
+        split_bf16(p[0][0], p[0][1], a[kk][0], a_lo[kk][0]);
+        split_bf16(p[0][2], p[0][3], a[kk][1], a_lo[kk][1]);
+        split_bf16(p[1][0], p[1][1], a[kk][2], a_lo[kk][2]);
+        split_bf16(p[1][2], p[1][3], a[kk][3], a_lo[kk][3]);
+      }
+      fence_o(o);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kK / 16; ++kk) {
+        const unsigned vb = v_a + kk * 16 * 128;
+        const unsigned long long d0 = gmma_desc_mn(vb, kPanelK, 1024);
+        const unsigned long long d1 = gmma_desc_mn(vb + 4 * kPanelK, kPanelK, 1024);
+        wgmma_m64n256k16_rs(o, a[kk], d0);
+        wgmma_m64n64k16_rs(o + 32, a[kk], d1);
+        wgmma_m64n256k16_rs(o, a_lo[kk], d0);
+        wgmma_m64n64k16_rs(o + 32, a_lo[kk], d1);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_o(o);
+      if constexpr (KVTiles::kInt8) {
+        // K(t + 1) into the K tile, which everyone is done with since the
+        // barrier above
+        if (t + 1 < n_tiles) {
+          cp_async_wait<0>();
+          widen_own(0, ks, ksc);
+        }
+      }
+    }
+    cp_async_wait<0>();
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+
+  // the partial into this block's shared memory (over the walk's tiles)
+  const long long block =
+      blockIdx.x + (long long)gridDim.x * (blockIdx.y + (long long)gridDim.y
+                                                            * blockIdx.z);
+  __syncthreads();  // every warp is done with the tiles
+  if (clocks && tid == 0) clocks[2 * block] = global_ns();
+  float* dump = reinterpret_cast<float*>(base);
+  float* ml = dump + kTileRows * kDumpLd;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wrow + quad + 8 * h;
+    float* dr = dump + r * kDumpLd + wg * kChunkLanes + pair;
+#pragma unroll
+    for (int j = 0; j < kChunkLanes / 8; ++j)
+      *reinterpret_cast<float2*>(dr + j * 8) =
+          make_float2(o[j][2 * h], o[j][2 * h + 1]);
+    if (wg == 0 && pair == 0) {
+      ml[2 * r] = m[h];
+      ml[2 * r + 1] = l[h];
+    }
+  }
+  cluster_sync();  // every span's partial is in
+
+  // merge (merge_splits_kernel's formula, spans in order): first each row's
+  // span weights w_u = 2^(m_u - max m), 0 for an empty span, and
+  // 1 / sum_u w_u l_u into this block's own shared memory; the loads of a
+  // row's spans are independent, so their latencies overlap
+  constexpr int kW = kMaxChunkSpans + 1;  // a row's weights, then 1 / sum
+  float* wts = ml + 2 * kTileRows;
+  const unsigned dump_a = smem_u32(dump), ml_a = smem_u32(ml);
+  if (tid < n_rows) {
+    float2 x[kMaxChunkSpans];
+#pragma unroll
+    for (int u = 0; u < kMaxChunkSpans; ++u)
+      x[u] = u < n_spans ? ld_cluster_f2(cluster_rank_addr(ml_a + 8 * tid, u))
+                         : make_float2(-INFINITY, 0.f);
+    float big = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < kMaxChunkSpans; ++u) big = fmaxf(big, x[u].x);
+    float denom = 0.f;
+#pragma unroll
+    for (int u = 0; u < kMaxChunkSpans; ++u) {
+      const float w = x[u].x == -INFINITY ? 0.f : exp2f(x[u].x - big);
+      wts[tid * kW + u] = w;
+      denom += w * x[u].y;
+    }
+    wts[tid * kW + kMaxChunkSpans] = denom > 0.f ? 1.f / denom : 0.f;
+  }
+  __syncthreads();
+  // then this block's share of the tile's (row, 8-lane chunk) tasks
+  auto merge = [&](auto n) {
+    merge_spans<decltype(n)::value>(span_idx, n_rows, wts, dump_a, out, q_off,
+                                    q_row_stride, group, tid);
+  };
+  static_assert(kMaxChunkSpans == 8, "a merge for every span count");
+  switch (n_spans) {
+    case 1: merge(std::integral_constant<int, 1>{}); break;
+    case 2: merge(std::integral_constant<int, 2>{}); break;
+    case 3: merge(std::integral_constant<int, 3>{}); break;
+    case 4: merge(std::integral_constant<int, 4>{}); break;
+    case 5: merge(std::integral_constant<int, 5>{}); break;
+    case 6: merge(std::integral_constant<int, 6>{}); break;
+    case 7: merge(std::integral_constant<int, 7>{}); break;
+    default: merge(std::integral_constant<int, 8>{});
+  }
+  cluster_sync();  // no block leaves while the cluster reads its partial
+  if (clocks && tid == 0) clocks[2 * block + 1] = global_ns();
 }
 
 // ---------------------------------------------------------------------------

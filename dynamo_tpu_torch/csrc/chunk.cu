@@ -30,6 +30,35 @@
 // dependent steps leave the MMAs idle most of the time. TMA copies from a
 // producer warp, and reading the prefix once for several query tiles (a
 // cluster sharing its tiles), are later work.
+//
+// At head_dim 640 (MLA's latent row: DeepSeek-V2's 16 query heads on one KV
+// head) the chunk runs chunk_latent_kernel (attention_common.cuh).
+// Bound: operations at the served shapes. A 256-token chunk at 512 does
+// 4 * C * (start + C / 2) * H * D = 6.7 GFLOP on ~2 MB of K/V (0.0068 ms of
+// tensor-core time against 0.0006 ms of bytes); a short chunk over a long
+// prefix moves towards bytes (C = 1 reads the whole prefix for 16 rows).
+// At group 16 a 64-row tile holds 4 positions, so a 256-token chunk has
+// only 64 query tiles, each walking up to 768 keys: one block per tile
+// left half the H100's 132 SMs idle and ran long serial walks. So:
+// - each query tile's keys are cut into chunk_spans equal spans, planned on
+//   the host from C, start, the group and the SM count: the largest power
+//   of two whose blocks run in one wave (2 at C = 256: 128 blocks; 4 for
+//   the ~88-token tail: 88). The spans of a query tile are one
+//   thread-block cluster; after their walks the blocks merge the partials
+//   (O in f32, m, l) through distributed shared memory, in span order
+//   (equal bits run to run; no scratch in device memory, where the f32
+//   partials of a 256-token chunk would be 2 x 10.5 MB). Clusters of 3, 5
+//   or 6 blocks leave 15-30 SMs of the card idle, and a second wave costs
+//   more than longer spans (PERF.md, the span sweep);
+// - a block walks 32-key tiles with S = Q K^T on wgmma over all 640
+//   lanes (q and K in the 128-byte swizzle, each warpgroup computing the
+//   same scores, so no partial score crosses warps) and P V on wgmma over
+//   each warpgroup's 320 lanes of O: two barriers per 32 keys, where
+//   attend_latent paid two or three per 16 keys plus a round trip of
+//   partial scores through shared memory;
+// - int8 pools are widened to bf16 by the thread that copied each chunk
+//   (no work area, no extra barrier).
+
 #include <limits.h>
 
 #include "attention_common.cuh"
@@ -54,24 +83,79 @@ __global__ void __launch_bounds__(tile_threads<kD>()) chunk_kernel(
                  TileOut{out, nullptr, nullptr, 0, H});
 }
 
+// The launch of chunk_latent_kernel: clusters of grid.x blocks (the spans
+// of one query tile), kChunkThreads a block.
+struct LatentLaunch {
+  cudaLaunchAttribute cluster[1];
+  cudaLaunchConfig_t cfg = {};
+  LatentLaunch(dim3 grid, size_t smem, cudaStream_t stream) {
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = grid.x;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kChunkThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <typename KVTiles>
+int launch_chunk_latent(const void* q, KVTiles kv, const void* pages,
+                        void* out, int C, int H, int KV, int page_size,
+                        int lane_width, int start, int positions, int spans,
+                        float scale, void* clocks, cudaStream_t stream) {
+  cudaError_t err;
+  const int tiles = (C + positions - 1) / positions;
+  // any span count is exact; the wrapper's plan is chunk_spans (also
+  // dtt_chunk_spans), and a measurement may ask for another
+  if (spans < 1 || spans > kMaxChunkSpans || tiles > 65535 || KV > 65535)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = chunk_latent_kernel<KVTiles>;
+  err = set_smem(kernel, ChunkSmem<KVTiles>::bytes);
+  if (err != cudaSuccess) return (int)err;
+  LatentLaunch launch(dim3(spans, tiles, KV), ChunkSmem<KVTiles>::bytes,
+                      stream);
+  err = cudaLaunchKernelEx(&launch.cfg, kernel,
+                           (const __nv_bfloat16*)q, kv, (const int*)pages,
+                           (__nv_bfloat16*)out, C, H, KV, page_size,
+                           lane_width, start, positions, scale,
+                           (unsigned long long*)clocks);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 template <typename KVTiles>
 int launch_chunk(const void* q, KVTiles kv, const void* pages, void* out,
                  int C, int H, int KV, int D, int page_size, int lane_width,
-                 int start, int positions, float scale, void* stream) {
+                 int start, int positions, int spans, float scale,
+                 void* clocks, void* stream) {
   if (KV < 1 || H % KV || !tile_fits(H / KV, D)
-      || positions != tile_positions(H / KV) || C < 1)
+      || positions != tile_positions(H / KV) || C < 1 || start < 0)
     return (int)cudaErrorInvalidValue;
+  if (D == kLatentDim)
+    return launch_chunk_latent(q, kv, pages, out, C, H, KV, page_size,
+                               lane_width, start, positions, spans, scale,
+                               clocks, (cudaStream_t)stream);
+  if (spans != 1 || clocks != nullptr) return (int)cudaErrorInvalidValue;
   const dim3 grid((C + positions - 1) / positions, KV);
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    const size_t smem = tile_smem_bytes<KVTiles, kD>();
-    cudaError_t err = set_smem(chunk_kernel<kD, KVTiles>, smem);
-    if (err != cudaSuccess) return (int)err;
-    chunk_kernel<kD, KVTiles><<<grid, tile_threads<kD>(), smem,
-                                (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)q, kv, (const int*)pages, (__nv_bfloat16*)out,
-        C, H, KV, page_size, lane_width, start, positions, scale);
-    return (int)cudaGetLastError();
+    if constexpr (kD == kLatentDim) {
+      return (int)cudaErrorInvalidValue;  // chunk_latent_kernel above
+    } else {
+      const size_t smem = tile_smem_bytes<KVTiles, kD>();
+      cudaError_t err = set_smem(chunk_kernel<kD, KVTiles>, smem);
+      if (err != cudaSuccess) return (int)err;
+      chunk_kernel<kD, KVTiles><<<grid, tile_threads<kD>(), smem,
+                                  (cudaStream_t)stream>>>(
+          (const __nv_bfloat16*)q, kv, (const int*)pages,
+          (__nv_bfloat16*)out, C, H, KV, page_size, lane_width, start,
+          positions, scale);
+      return (int)cudaGetLastError();
+    }
   });
 }
 
@@ -80,24 +164,27 @@ int launch_chunk(const void* q, KVTiles kv, const void* pages, void* out,
 extern "C" int dtt_chunk(const void* q, const void* k_pages,
                          const void* v_pages, const void* pages, void* out,
                          int C, int H, int KV, int D, int page_size, int start,
-                         int positions, float scale, void* stream) {
+                         int positions, int spans, float scale, void* clocks,
+                         void* stream) {
   const dtt::Bf16Tiles kv{(const __nv_bfloat16*)k_pages,
                           (const __nv_bfloat16*)v_pages};
   return dtt::launch_chunk(q, kv, pages, out, C, H, KV, D, page_size, KV * D,
-                           start, positions, scale, stream);
+                           start, positions, spans, scale, clocks, stream);
 }
 
 extern "C" int dtt_chunk_int8(const void* q, const void* k_pages,
                               const void* v_pages, const void* pages,
                               void* out, int C, int H, int KV, int D,
                               int page_size, int lane_width, int start,
-                              int positions, float scale, void* stream) {
+                              int positions, int spans, float scale,
+                              void* clocks, void* stream) {
   if (lane_width % 16 || lane_width < KV * (D + 2))
     return (int)cudaErrorInvalidValue;
   const dtt::Int8Tiles kv{(const int8_t*)k_pages, (const int8_t*)v_pages,
                           KV * D};
   return dtt::launch_chunk(q, kv, pages, out, C, H, KV, D, page_size,
-                           lane_width, start, positions, scale, stream);
+                           lane_width, start, positions, spans, scale, clocks,
+                           stream);
 }
 
 // Query positions per block of the tensor-core tile (chunk.cu, prefill.cu
@@ -105,4 +192,39 @@ extern "C" int dtt_chunk_int8(const void* q, const void* k_pages,
 // the tile refuses them.
 extern "C" int dtt_chunk_positions(int group, int D) {
   return dtt::tile_fits(group, D) ? dtt::tile_positions(group) : 0;
+}
+
+// Key spans per query tile of chunk.cu for a C-query chunk at `start`, GQA
+// group and head_dim, KV heads, on a card of num_sms SMs: chunk_spans at
+// head_dim 640 (chunk_latent_kernel's clusters), 1 below it; 0 where the
+// tile refuses the group or head_dim.
+extern "C" int dtt_chunk_spans(int C, int start, int group, int D, int KV,
+                               int num_sms) {
+  if (!dtt::tile_fits(group, D) || C < 1 || KV < 1) return 0;
+  return D == dtt::kLatentDim
+             ? dtt::chunk_spans(C, start, dtt::tile_positions(group), KV,
+                                num_sms)
+             : 1;
+}
+
+// Clusters of `spans` blocks of the latent chunk tile (bf16 pools, or int8
+// with int8 != 0) that the current device runs at once, or -1 where the
+// query fails (cudaOccupancyMaxActiveClusters): how far a cluster size
+// fills the card's GPCs.
+extern "C" int dtt_chunk_max_clusters(int spans, int int8) {
+  using namespace dtt;
+  if (spans < 1 || spans > kMaxChunkSpans) return -1;
+  int n = -1;
+  auto query = [&](auto kernel, size_t smem) {
+    if (set_smem(kernel, smem) != cudaSuccess) return;
+    const LatentLaunch launch(dim3(spans, 1, 1), smem, nullptr);
+    if (cudaOccupancyMaxActiveClusters(&n, kernel, &launch.cfg)
+        != cudaSuccess)
+      n = -1;
+  };
+  if (int8)
+    query(chunk_latent_kernel<Int8Tiles>, ChunkSmem<Int8Tiles>::bytes);
+  else
+    query(chunk_latent_kernel<Bf16Tiles>, ChunkSmem<Bf16Tiles>::bytes);
+  return n;
 }

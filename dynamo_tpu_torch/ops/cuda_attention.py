@@ -15,9 +15,13 @@ ragged kernel's decode rows are split along their keys, one block per
 (row, span, KV head), and the spans merged by a second small kernel. The
 launch plans of the tile (`tile_positions`, `split_plan`) are pure
 functions of host-known sizes. At head_dim 640 (MLA's latent row, one KV
-head shared by 16 query heads) every kernel runs `attend_latent` instead:
-the same 64-row tile and launch plans on 16 warps that split O's lanes in
-four, with K/V tiles of 16 keys. The three pool-reading
+head shared by 16 query heads) decode, prefill and ragged run
+`attend_latent` instead: the same 64-row tile and launch plans on 16 warps
+that split O's lanes in four, with K/V tiles of 16 keys; chunk.cu runs the
+latent chunk tile (`chunk_latent_kernel`): each query tile's keys cut into
+`chunk_spans` spans, one block each (S and P V on wgmma, 32-key tiles),
+the spans of a query tile one thread-block cluster that merges them in
+shared memory. The three pool-reading
 kernels (decode, chunk, ragged) each have a bf16 and an int8 entry point,
 the latter for the packed rows of `kv_cache_dtype="int8"` pools; their
 wrappers take either pool and count the int8 launches under their own
@@ -89,6 +93,11 @@ TILE_HEAD_DIMS = (32, 64, 128, 256, LATENT_DIM)
 KEY_TILE = 64
 SPLIT_KEYS = 256
 SPLIT_BLOCKS_PER_SM = 4
+# the latent chunk tile (attention_common.cuh: kChunkKeys, kMaxChunkSpans):
+# keys per K/V tile, and most spans (blocks of one cluster) a query tile
+# is cut into
+CHUNK_KEYS = 32
+MAX_CHUNK_SPANS = 8
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -210,13 +219,14 @@ def build() -> ctypes.CDLL:
         lib.dtt_paged_decode.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
                                          i, i, i, i, f, p]
         lib.dtt_prefill.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p]
-        lib.dtt_chunk.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, p]
+        lib.dtt_chunk.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f,
+                                  p, p]
         lib.dtt_ragged.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
                                    i, i, i, i, i, i, f, p]
         lib.dtt_paged_decode_int8.argtypes = [p, p, p, p, p, p, p, p, i, i,
                                               i, i, i, i, i, i, i, f, p]
         lib.dtt_chunk_int8.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                       i, f, p]
+                                       i, i, f, p, p]
         lib.dtt_ragged_int8.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
                                         i, i, i, i, i, i, i, i, i, f, p]
         # the grammar kernel (csrc/json_mask.cu; ops/cuda_guide.py)
@@ -231,6 +241,10 @@ def build() -> ctypes.CDLL:
         lib.dtt_error_string.restype = ctypes.c_char_p
         lib.dtt_chunk_positions.argtypes = [i, i]
         lib.dtt_chunk_positions.restype = ctypes.c_int
+        lib.dtt_chunk_spans.argtypes = [i, i, i, i, i, i]
+        lib.dtt_chunk_spans.restype = ctypes.c_int
+        lib.dtt_chunk_max_clusters.argtypes = [i, i]
+        lib.dtt_chunk_max_clusters.restype = ctypes.c_int
         lib.dtt_decode_split_keys.argtypes = [i, i, i, i, i]
         lib.dtt_decode_split_keys.restype = ctypes.c_longlong
         _lib = lib
@@ -372,13 +386,54 @@ def split_spans(width: int, page_size: int, num_decode: int, num_kv: int,
     return [(lo, min(lo + span, keys)) for lo in range(0, keys, span)]
 
 
+def chunk_spans(c: int, start: int, group: int, head_dim: int,
+                num_kv: int, num_sms: int) -> int:
+    """Key spans per query tile of chunk.cu for a c-query chunk at `start`
+    (a pure function of host sizes, the library's own plan too,
+    `dtt_chunk_spans`): 1 below LATENT_DIM; at LATENT_DIM the largest power of two up to
+    MAX_CHUNK_SPANS (one cluster) whose blocks, spans x query tiles x KV
+    heads, run in one wave on num_sms SMs, and at most the CHUNK_KEYS
+    tiles of the longest horizon, start + c. (Clusters of 2, 4 and 8
+    blocks fill an H100's GPCs; 3, 5 or 6 leave SMs idle.)"""
+    positions = tile_positions(group, head_dim)
+    if head_dim != LATENT_DIM:
+        return 1
+    tiles = -(-c // positions) * num_kv
+    key_tiles = -(-(start + c) // CHUNK_KEYS)
+    n = 1
+    while (2 * n <= MAX_CHUNK_SPANS and 2 * n * tiles <= num_sms
+           and 2 * n <= key_tiles):
+        n *= 2
+    return n
+
+
+def chunk_span_keys(c: int, start: int, group: int, head_dim: int,
+                    num_kv: int, num_sms: int
+                    ) -> List[Tuple[int, int, List[Tuple[int, int]]]]:
+    """(first query, query count, key spans [lo, hi)) of each query tile of
+    chunk.cu: the tile's horizon start + first + count (the keys its last
+    query sees) cut into chunk_spans equal spans of ceil(horizon / spans)
+    keys; a span at or past the horizon is empty (lo >= hi)."""
+    positions = tile_positions(group, head_dim)
+    n = chunk_spans(c, start, group, head_dim, num_kv, num_sms)
+    out = []
+    for first in range(0, c, positions):
+        count = min(positions, c - first)
+        horizon = start + first + count
+        span = -(-horizon // n)
+        out.append((first, count, [(s * span, min((s + 1) * span, horizon))
+                                   for s in range(n)]))
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _sms_of(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _num_sms(dev: torch.device) -> int:
-    """The SM count of `dev` (split_plan), looked up once per device."""
+    """The SM count of `dev` (split_plan, chunk_spans), looked up once per
+    device."""
     return _sms_of(torch.cuda.current_device() if dev.index is None
                    else dev.index)
 
@@ -466,18 +521,26 @@ def prefill_attention(q, k, v, seq_lens) -> torch.Tensor:
 
 def chunk_prefill_attention(q, k_pages, v_pages, pages, start: int, *,
                             page_size: int,
-                            num_kv_heads: Optional[int] = None
-                            ) -> torch.Tensor:
+                            num_kv_heads: Optional[int] = None,
+                            clocks: Optional[torch.Tensor] = None,
+                            spans: Optional[int] = None) -> torch.Tensor:
     """q [C, H, D] bf16 at absolute positions start..start+C-1; pools
     [P, ps, W] bf16 or int8 packed (with num_kv_heads); pages [W] int32
-    (trash-padded tail) -> [C, H, D]."""
+    (trash-padded tail) -> [C, H, D]. At LATENT_DIM each query tile's keys
+    are cut into chunk_spans spans (from C, start, the group and the SM
+    count). Measurement, LATENT_DIM only: `spans` runs another span count
+    (1 to MAX_CHUNK_SPANS; every count gives the same attention), and
+    `clocks`, an int64 CUDA tensor of 2 x the launch's blocks, takes each
+    block's global-timer stamps (ns) when its key walk ends and when its
+    merge is done."""
     dev = q.device
     _expect(q, "q", torch.bfloat16, 3, dev)
     _expect(pages, "pages", torch.int32, 1, dev)
     c, h, d = q.shape
     n_kv, width, int8 = _check_pools(k_pages, v_pages, page_size, d,
                                      num_kv_heads, dev)
-    positions = tile_positions(_gqa_group(h, n_kv), d)
+    group = _gqa_group(h, n_kv)
+    positions = tile_positions(group, d)
     lib = build()
     start = int(start)
     if start < 0 or start + c > pages.shape[0] * page_size:
@@ -486,14 +549,28 @@ def chunk_prefill_attention(q, k_pages, v_pages, pages, start: int, *,
     out = torch.empty_like(q)
     if c == 0:
         return out
+    plan = chunk_spans(c, start, group, d, n_kv, _num_sms(dev))
+    if spans is not None and (d != LATENT_DIM
+                              or not 1 <= spans <= MAX_CHUNK_SPANS):
+        raise ValueError(f"spans {spans} needs head_dim {LATENT_DIM} and "
+                         f"1 to {MAX_CHUNK_SPANS} spans")
+    spans = plan if spans is None else spans
+    clock_ptr = ctypes.c_void_p(None)
+    if clocks is not None:
+        blocks = spans * -(-c // positions) * n_kv
+        _expect(clocks, "clocks", torch.int64, 1, dev)
+        if d != LATENT_DIM or clocks.numel() < 2 * blocks:
+            raise ValueError(f"clocks needs head_dim {LATENT_DIM} and "
+                             f"{2 * blocks} entries")
+        clock_ptr = _ptr(clocks)
     args = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(pages), _ptr(out), c,
             h, n_kv, d, page_size]
+    tail = [start, positions, spans, d ** -0.5, clock_ptr, _stream(q)]
     name = "chunk_int8" if int8 else "chunk"
     if int8:
-        rc = lib.dtt_chunk_int8(*args, width, start, positions, d ** -0.5,
-                                _stream(q))
+        rc = lib.dtt_chunk_int8(*args, width, *tail)
     else:
-        rc = lib.dtt_chunk(*args, start, positions, d ** -0.5, _stream(q))
+        rc = lib.dtt_chunk(*args, *tail)
     _raise_on(lib, rc, name)
     _count(name, f"head_dim={d}")
     return out

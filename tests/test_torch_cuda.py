@@ -263,10 +263,20 @@ def test_tile_limits_agree_with_the_library_and_are_refused(dev):
     q = _rnd(dev, 16, 32, 128)
     kp = _rnd(dev, 4, 16, 8 * 128)
     out = torch.empty_like(q)
-    rc = lib.dtt_chunk(ca._ptr(q), ca._ptr(kp), ca._ptr(kp), ca._ptr(pages),
-                       ca._ptr(out), 16, 32, 8, 128, 16, 0, 8, 0.1,
-                       ca._stream(q))
-    assert rc != 0
+    for positions, spans in ((8, 1), (16, 2)):  # own: 16 positions, 1 span
+        rc = lib.dtt_chunk(ca._ptr(q), ca._ptr(kp), ca._ptr(kp),
+                           ca._ptr(pages), ca._ptr(out), 16, 32, 8, 128, 16, 0,
+                           positions, spans, 0.1, None, ca._stream(q))
+        assert rc != 0
+    # at head_dim 640 a cluster holds 1 to 8 spans
+    ql = _rnd(dev, 16, 16, 640)
+    kl = _rnd(dev, 4, 16, 640)
+    outl = torch.empty_like(ql)
+    for spans in (0, 9):
+        rc = lib.dtt_chunk(ca._ptr(ql), ca._ptr(kl), ca._ptr(kl),
+                           ca._ptr(pages), ca._ptr(outl), 16, 16, 1, 640, 16,
+                           0, 4, spans, 0.1, None, ca._stream(ql))
+        assert rc != 0
     qr = _rnd(dev, 1 + 16, 32, 128)
     part = torch.empty((1, 1, 32, 128), dtype=torch.float32, device=dev)
     for n_splits, span in ((1, 64), (2, 256)):  # own: one span of 256
@@ -531,7 +541,9 @@ def test_ragged_kernel_at_the_families_shapes(dev, int8, n_heads, n_kv, d,
 
 @pytest.mark.parametrize("kernel", ["decode", "decode_int8", "prefill",
                                     "chunk", "ragged_verify",
-                                    "ragged_verify_int8"])
+                                    "ragged_verify_int8",
+                                    "chunk[head_dim=640]",
+                                    "chunk_int8[head_dim=640]"])
 def test_kernels_hold_at_large_values(dev, kernel):
     """V scaled by 40 (output rows of RMS near 5 over about 100 keys, as
     the 8B's activations reach at depth): the error of P V grows with a
@@ -539,8 +551,13 @@ def test_kernels_hold_at_large_values(dev, kernel):
     sees all of it. With P rounded to bf16 once, about 0.1% of the
     elements of each case fell past atol 2e-2 of the f32 version; with P
     in two bf16 parts (attention_common.cuh) only the output's own
-    rounding is left."""
+    rounding is left. At head_dim 640 (the latent chunk tile, 16 heads on
+    one KV head) on both pools."""
     ps, n_kv, d, h, big = 16, 8, 128, 32, 40.0
+    latent = kernel.endswith("[head_dim=640]")
+    if latent:
+        n_kv, d, h = 1, 640, 16
+        kernel = kernel.split("[")[0]
     rng = np.random.default_rng(8)
 
     def pools(seed, int8):
@@ -554,6 +571,16 @@ def test_kernels_hold_at_large_values(dev, kernel):
 
     int8 = kernel.endswith("int8")
     kw = dict(page_size=ps, num_kv_heads=n_kv)
+    if latent:
+        kp, vp = pools(74, int8)
+        pages = _page_list(dev, 64 + 128, ps, 128, seed=9)
+        q = _rnd(dev, 128, h, d, seed=76)
+        out = ca.chunk_prefill_attention(q, kp, vp, pages, 64, **kw)
+        ref = att.chunk_attention_ref(q, kp, vp, pages, 64, **kw)
+        rms = ref.float().pow(2).mean(-1).sqrt()
+        assert float(rms.median()) > 2.5  # the scale the test is about
+        torch.testing.assert_close(out.float(), ref.float(), **TOL)
+        return
     if kernel == "prefill":
         q = _rnd(dev, 2, 128, h, d, seed=71)
         k = _rnd(dev, 2, 128, n_kv, d, seed=72)
@@ -908,19 +935,31 @@ def test_moe_graph_windows_equal_eager_windows(dev, mode):
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("start,c", [(0, 64), (48, 100), (512, 256)])
+@pytest.mark.parametrize("start,c", [(0, 64), (48, 100), (512, 256), (0, 1),
+                                     (512, 88), (37, 100), (1792, 256),
+                                     (100, 40)])
 def test_chunk_and_prefill_kernels_at_the_latent_row(dev, int8, start, c):
     """chunk.cu at MLA's latent row (head_dim 640, one KV head for 16
-    query heads) on both pools, and prefill.cu on the same K/V (bf16:
-    two lanes, one cut at 37 tokens) at start 0."""
+    query heads: the latent chunk tile, each query tile's keys in spans
+    merged by its cluster) on both pools: C = 1, the ~88-token tail at
+    512, a start off the page grid (37), the last chunk of a 2048-token
+    prompt (a 1792-token prefix), and span boundaries inside pages
+    (C = 40 at 100: 4 spans of 26-35 keys); and prefill.cu on the same
+    K/V (bf16: two lanes, one cut at 37 tokens) at start 0."""
     ps, d, h = 16, 640, 16
     if int8:
-        kp, vp = _int8_pools(dev, 64, ps, 1, d, seed=71)
+        kp, vp = _int8_pools(dev, 160, ps, 1, d, seed=71)
     else:
-        kp, vp = _rnd(dev, 64, ps, d, seed=71), _rnd(dev, 64, ps, d, seed=72)
-    pages = torch.arange(1, 64, dtype=torch.int32, device=dev)[:48]
+        kp, vp = _rnd(dev, 160, ps, d, seed=71), _rnd(dev, 160, ps, d,
+                                                        seed=72)
+    pages = torch.arange(1, 160, dtype=torch.int32, device=dev)[:136]
     q = _rnd(dev, c, h, d, seed=73)
     kw = dict(page_size=ps, num_kv_heads=1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    spans = ca.chunk_span_keys(c, start, 16, d, 1, sms)
+    if (start, c) == (100, 40):  # a span boundary falls inside a page
+        assert any(lo % ps for _, _, sp in spans for lo, hi in sp[1:]
+                   if lo < hi)
     out = ca.chunk_prefill_attention(q, kp, vp, pages, start, **kw)
     ref = att.chunk_attention_ref(q, kp, vp, pages, start, **kw)
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
@@ -935,6 +974,47 @@ def test_chunk_and_prefill_kernels_at_the_latent_row(dev, int8, start, c):
     refp = att.prefill_attention_ref(qs, torch.stack([k, k]),
                                      torch.stack([v, v]), lens)
     torch.testing.assert_close(outp.float(), refp.float(), **TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_latent_chunk_launches_give_equal_bits(dev, int8):
+    """The latent chunk tile at the phase-3 shape (C = 256 at 512: two
+    spans a query tile, 128 blocks) and the tail (C = 88 at 512: four
+    spans): its spans merge in a fixed order, so two launches on the same
+    inputs give the same bits, and every span count gives the plan's
+    output within the tolerance; the library's span plan is the
+    wrapper's, each cluster size fits the card, and a launch counts under
+    chunk[head_dim=640]."""
+    ps, d, h = 16, 640, 16
+    if int8:
+        kp, vp = _int8_pools(dev, 64, ps, 1, d, seed=81)
+    else:
+        kp, vp = _rnd(dev, 64, ps, d, seed=81), _rnd(dev, 64, ps, d, seed=82)
+    pages = _page_list(dev, 768, ps, 64, seed=83)
+    lib = ca.build()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for c, start in ((256, 512), (88, 512), (256, 0), (1, 700)):
+        for group, hd in ((16, 640), (4, 640), (4, 128)):
+            assert lib.dtt_chunk_spans(c, start, group, hd, 1, sms) == \
+                ca.chunk_spans(c, start, group, hd, 1, sms)
+        q = _rnd(dev, c, h, d, seed=84 + c)
+        name = "chunk_int8" if int8 else "chunk"
+        ca.reset_launch_counts()
+        a = ca.chunk_prefill_attention(q, kp, vp, pages, start, page_size=ps,
+                                       num_kv_heads=1)
+        b = ca.chunk_prefill_attention(q, kp, vp, pages, start, page_size=ps,
+                                       num_kv_heads=1)
+        assert torch.equal(a, b)
+        assert ca.VARIANT_LAUNCHES[f"{name}[head_dim=640]"] == 2
+        for n in (1, 3, 8):
+            other = ca.chunk_prefill_attention(q, kp, vp, pages, start,
+                                               page_size=ps, num_kv_heads=1,
+                                               spans=n)
+            torch.testing.assert_close(other.float(), a.float(), **TOL)
+    if sms == 132:  # an H100: two spans, 128 blocks in one wave
+        assert ca.chunk_spans(256, 512, 16, d, 1, sms) == 2
+    for n in range(1, ca.MAX_CHUNK_SPANS + 1):
+        assert lib.dtt_chunk_max_clusters(n, int(int8)) >= 1
 
 
 def test_latent_row_refuses_tiny_mla_pools(dev):

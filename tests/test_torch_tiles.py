@@ -22,6 +22,15 @@ the CPU.
   queries at ctx - 1). Rows: context 0, spans that see no key, rows ending
   on a split boundary (256) and one key past it (257), a full table.
   Tolerance 1e-5: all are f32, and only the order of the sums differs.
+- chunk.cu at head_dim 640 (`chunk_spans`, `chunk_span_keys`): each query
+  tile's keys cut into spans, one block each, merged in the query tile's
+  cluster. The plan walks every visible pair once for C in {1, 88, 256}
+  and starts 0, 48, 512 and 1792 on several SM counts, with a power of
+  two up to MAX_CHUNK_SPANS spans (one cluster) and its blocks in one
+  wave; the served shapes run on 88-128 of the H100's 132 SMs, with half
+  or a quarter of the keys a block. A plain f32 model of the
+  spans' partials and their merge equals the plain chunk attention and
+  the Pallas chunk kernel in interpret mode (tolerance 1e-5, as above).
 """
 
 import jax.numpy as jnp
@@ -399,3 +408,121 @@ def test_prefill_tiles_walk_each_visible_pair_once(s, group):
         assert (count[vis] == 1).all() and (count[~vis] == 0).all()
         if seq_len:
             assert vis[seq_len:].sum() == (s - seq_len) * seq_len
+
+
+# the latent chunk tile's partials stay in its cluster's shared memory: a
+# block's dump of O [64, 640 + 4] f32 and (m, l) [64, 2] fits its 232,448
+# bytes, so the launch needs no scratch in device memory
+LATENT_DUMP_BYTES = ca.TILE_ROWS * (ca.LATENT_DIM + 4) * 4 + ca.TILE_ROWS * 8
+BLOCK_SMEM = 232448
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 114, 16, 3])
+@pytest.mark.parametrize("start", [0, 48, 512, 1792])
+@pytest.mark.parametrize("c", [1, 88, 256])
+def test_latent_chunk_spans_walk_each_visible_pair_once(c, start, sms):
+    group, d, ps = 16, ca.LATENT_DIM, 16
+    width_keys = -(-(start + c) // ps) * ps
+    n = ca.chunk_spans(c, start, group, d, 1, sms)
+    tiles = ca.chunk_span_keys(c, start, group, d, 1, sms)
+    assert [(f, k) for f, k, _ in tiles] == _chunk_tiles(c, group, d)
+    assert n in (1, 2, 4, 8) and n <= ca.MAX_CHUNK_SPANS
+    assert n <= -(-(start + c) // ca.CHUNK_KEYS)  # a key tile per span
+    blocks = n * len(tiles)
+    assert blocks <= sms or n == 1  # one wave
+    if n < ca.MAX_CHUNK_SPANS and 2 * n <= -(-(start + c) // ca.CHUNK_KEYS):
+        assert 2 * blocks > sms  # the largest that fits
+    assert LATENT_DUMP_BYTES <= BLOCK_SMEM
+    count = np.zeros((c, width_keys), np.int64)
+    for first, k, spans in tiles:
+        assert len(spans) == n and spans[0][0] == 0
+        horizon = start + first + k
+        assert max(hi for _, hi in spans) == horizon
+        for lo, hi in spans:
+            if lo < hi:
+                count[first:first + k] += _walked(lo, hi, start + first, k,
+                                                  start + c, width_keys)
+    vis = _visible(start, c, start + c, width_keys)
+    assert (count[vis] == 1).all() and (count[~vis] == 0).all()
+
+
+@pytest.mark.parametrize("c,start,blocks,longest", [
+    (256, 0, 128, 128), (256, 256, 128, 256), (256, 512, 128, 384),
+    (88, 512, 88, 150)])
+def test_latent_chunk_spans_fill_one_wave_of_the_h100(c, start, blocks,
+                                                     longest):
+    """The served chunk shapes of deepseek-v2-lite (16 heads on one KV
+    head; 256-token chunks, the ~88-token tail of a 600-token prompt): 2
+    spans a query tile at C = 256 (128 blocks, one wave; at start 512 the
+    longest walks 384 of the 768 keys one block per query tile walked
+    before) and 4 for the tail (88 blocks), every block with keys to
+    walk."""
+    tiles = ca.chunk_span_keys(c, start, 16, ca.LATENT_DIM, 1, H100_SMS)
+    working = [hi - lo for _, _, spans in tiles for lo, hi in spans
+               if lo < hi]
+    assert len(working) == blocks == sum(len(sp) for _, _, sp in tiles)
+    assert max(working) == longest
+
+
+def _latent_chunk_model(q, kp, vp, pages, start, n_kv, sms):
+    """chunk.cu at head_dim 640 in plain f32: per query tile and span of
+    chunk_span_keys, the span's unnormalized partial (m in log2 units, l,
+    o as _partials), then _merge over the spans -> [C, H, D]."""
+    c, h, d = q.shape
+    g = h // n_kv
+    k = att._paged_kv(kp, pages, n_kv, d)  # [KV, T, D]
+    v = att._paged_kv(vp, pages, n_kv, d)
+    tok = torch.arange(k.shape[1])
+    out = []
+    for first, count, spans in ca.chunk_span_keys(c, start, g, d, n_kv, sms):
+        qt = q[first:first + count].float().reshape(count, n_kv, g, d)
+        s = torch.einsum("qkgd,ktd->qkgt", qt, k) * (d ** -0.5 * LOG2E)
+        qpos = start + first + torch.arange(count)
+        o_s, m_s, l_s = [], [], []
+        for lo, hi in spans:
+            mask = ((tok[None] <= qpos[:, None]) & (tok[None] >= lo)
+                    & (tok[None] < hi))[:, None, None]  # [Q, 1, 1, T]
+            sm = s.masked_fill(~mask, float("-inf"))
+            m = sm.amax(-1)
+            p = torch.exp2(sm - torch.where(torch.isfinite(m), m,
+                                            0.0)[..., None])
+            o_s.append(torch.einsum("qkgt,ktd->qkgd", p, v).reshape(
+                count, h, d))
+            m_s.append(m.reshape(count, h))
+            l_s.append(p.sum(-1).reshape(count, h))
+        out.append(_merge(torch.stack(o_s), torch.stack(m_s),
+                          torch.stack(l_s)))
+    return torch.cat(out)
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 3], ids=["h100", "small_card"])
+@pytest.mark.parametrize("c,start", [(20, 37), (8, 0), (12, 96)])
+@pytest.mark.parametrize("quantized", [False, True],
+                         ids=["f32_pool", "int8_pool"])
+def test_latent_chunk_split_merge_matches_plain_and_pallas(quantized, c,
+                                                           start, sms):
+    """The spans' partials and their merge at head_dim 640, 16 query heads
+    on one KV head (a start off the page grid, a chunk at 0, one at a page
+    boundary; up to 8 spans on the H100's plan, one on a 3-SM card), on
+    f32 and int8 pools, against the plain chunk attention and the Pallas
+    chunk kernel in interpret mode (tolerance 1e-5: f32 throughout)."""
+    h, n_kv, d, ps = 16, 1, ca.LATENT_DIM, 16
+    rng = np.random.default_rng(41)
+    kp, vp = _pools(rng, quantized, 24, n_kv, d, ps)
+    width = -(-(start + c) // ps) + 2  # a trash-padded tail
+    pages = np.zeros((width,), np.int32)
+    pages[:width - 2] = rng.permutation(23)[:width - 2] + 1
+    q = rng.normal(size=(c, h, d)).astype(np.float32)
+    tq, tp = torch.from_numpy(q), torch.from_numpy(pages)
+    n = ca.chunk_spans(c, start, h // n_kv, d, n_kv, sms)
+    assert n == (1 if sms == 3 else {(20, 37): 2, (8, 0): 1,
+                                     (12, 96): 4}[(c, start)])
+    out = _latent_chunk_model(tq, kp, vp, tp, start, n_kv, sms)
+    ref = att.chunk_attention_ref(tq, kp, vp, tp, start, page_size=ps,
+                                  num_kv_heads=n_kv)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **TOL)
+    pallas = pa.chunk_prefill_attention(
+        jnp.asarray(q), jnp.asarray(kp.numpy()), jnp.asarray(vp.numpy()),
+        jnp.asarray(pages), start, page_size=ps, num_kv_heads=n_kv,
+        interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), **TOL)
