@@ -5,9 +5,12 @@
     python3 chip_smoke.py --kernels-only      # phases 1-3, then a summary
     python3 chip_smoke.py --mla-chunked-ttft  # phases 1-2, phase 13's
                                               # chunked deepseek-v2-lite TTFT
+    python3 chip_smoke.py --mla-verify-profile  # phases 1-2, phase 13's
+                                                # captured verify steps
 
-(`--kernels-only` and `--mla-chunked-ttft` time the package beside the
-script, so a copy of it in an older checkout compares trees.)
+(`--kernels-only`, `--mla-chunked-ttft` and `--mla-verify-profile` time
+the package beside the script, so a copy of it in an older checkout
+compares trees.)
 
 Needs one NVIDIA GPU (Hopper: the kernels build for sm_90a) and runs from
 the root of a checkout; it exits non-zero, printing no result, without a
@@ -56,9 +59,15 @@ on failure:
    128 (a verify window of 5 x 7 = 35 tile rows), qwen3-30b-a3b's
    group 8 at head_dim 128 (32/4 heads: 5 x 8 = 40 tile rows) and
    deepseek-v2-lite's MLA latent row, head_dim 640 at group 16 (one KV
-   head for 16 query heads: attend_latent; every entry point, both pool
-   kinds, the verify windows of 5 x 16 = 80 rows), each row with the
-   backend PyTorch's dispatcher picks for its library call. The chunk rows
+   head for 16 query heads; every entry point, both pool kinds, the
+   verify windows of 5 x 16 = 80 rows), each row with the backend
+   PyTorch's dispatcher picks for its library call. The decode and ragged
+   rows there run the latent decode rows (each row's horizon cut into
+   spans, a block per span and query tile, merged by merge_latent_kernel):
+   each reports its spans, blocks (those with keys to walk), longest span
+   and the merge's own device time (`latent_decode`), and ragged's chunk
+   rows must equal chunk.cu's, its decode rows decode.cu's, bit for bit.
+   The chunk rows
    there run the latent chunk tile (each query tile's keys cut into spans,
    one block each, merged by the query tile's cluster): each reports its
    spans, blocks (those with keys to walk) and longest span, and the
@@ -233,11 +242,14 @@ on failure:
    every weight once), mixed_batch_tokens=256 engines on bf16 and int8
    pools serving the interference traffic, the same with n-gram
    speculation (K = 4) on graph-window engines (verify windows alone and
-   beside the chunks), the capacity path's TTFT and bit identity, and the
-   TTFT of a 2048-token prompt prefilled in 256-token chunks (eight chunk
-   launches a layer, the last at 1792) on bf16 and int8 pools
-   (`mla_chunked_ttft`, also run alone by `--mla-chunked-ttft`); so that
-   every kernel launches at head_dim 640 when served.
+   beside the chunks), each with one captured verify step profiled (its
+   device time and the attention's share, `mla_verify_profile`), the
+   capacity path's TTFT and bit identity, and the TTFT of a 2048-token
+   prompt prefilled in 256-token chunks (eight chunk launches a layer,
+   the last at 1792) on bf16 and int8 pools, with the host side of one
+   profiled prefill by op (`mla_chunked_ttft`, also run alone by
+   `--mla-chunked-ttft`); so that every kernel launches at head_dim 640
+   when served.
 14. JSON-guided decoding (after phase 11, on the 8B's weights). The
    grammar kernel (`csrc/json_mask.cu`, both entry points) against its
    plain version on the card: B = 8 rows over V = 128256 tokens of a
@@ -1026,7 +1038,8 @@ def shape_kernel_checks(dev, label: str, h: int, kv: int, d: int,
             cost(q.numel(), [(table[b], c - 1, 1, c)
                              for b, c in enumerate(ctx)], row_bytes,
                  MAX_SEQS),
-            {"context_lens": ctx, "block_table": list(table.shape)})
+            {"context_lens": ctx, "block_table": list(table.shape),
+             **latent_decode_plan(q, pmax, ctx, None, 1, kv)})
 
     n, s = 4, 256
     lens = torch.tensor([256, 200, 37, 1], dtype=torch.int32, device=dev)
@@ -1102,9 +1115,23 @@ def shape_kernel_checks(dev, label: str, h: int, kv: int, d: int,
                   decode_q if r < MAX_SEQS else c, int(kv_lens[r]))
                  for r in range(MAX_SEQS + 1)]
         nd = MAX_SEQS * decode_q
+        plan = latent_decode_plan(qr, tabs.shape[1],
+                                  kv_lens[:MAX_SEQS].tolist(),
+                                  q_starts[:MAX_SEQS].tolist(), decode_q, kv)
         for sfx, (k, v, kl, vl, row_bytes) in pools.items():
             kw = dict(page_size=PS, num_kv_heads=kv, num_decode=MAX_SEQS,
                       decode_q=decode_q)
+            same = latent_identities(
+                lambda k=k, v=v, q_starts=q_starts, kv_lens=kv_lens, kw=kw:
+                    ca.ragged_paged_attention(qr, k, v, tabs, kv_lens,
+                                              q_starts, **kw),
+                lambda k=k, v=v: ca.chunk_prefill_attention(
+                    qr[nd:], k, v, pages_d, start, page_size=PS,
+                    num_kv_heads=kv),
+                (lambda k=k, v=v: ca.paged_attention_decode(
+                    qr[:nd], k, v, table_d, rctx, page_size=PS,
+                    num_kv_heads=kv)) if decode_q == 1 else None,
+                nd, d)
             dec_lib = paged_library(
                 qr[:nd].reshape(MAX_SEQS, decode_q, h, d), kl, vl,
                 tabs[:MAX_SEQS], q_starts[:MAX_SEQS], kv_lens[:MAX_SEQS])
@@ -1121,13 +1148,15 @@ def shape_kernel_checks(dev, label: str, h: int, kv: int, d: int,
                                                           chk_lib()),
                 cost(qr.numel(), spans, row_bytes, 2 * (MAX_SEQS + 1)),
                 {"num_decode": MAX_SEQS, "decode_q": decode_q,
-                 "chunk_start": start})
+                 "chunk_start": start, **plan, **same})
 
     k1 = SPEC_K + 1
     vpos = torch.clamp(rctx - k1, min=0)
     qv = rnd(MAX_SEQS, k1, h, d)
     vspans = [(table[b], int(vpos[b]), k1, int(vpos[b]) + k1)
               for b in range(MAX_SEQS)]
+    vplan = latent_decode_plan(qv.reshape(-1, h, d), pmax,
+                               (vpos + k1).tolist(), vpos.tolist(), k1, kv)
     for sfx, (k, v, kl, vl, row_bytes) in pools.items():
         run("ragged" + sfx + "_verify_only",
             lambda k=k, v=v: att.verify_attention(
@@ -1136,8 +1165,83 @@ def shape_kernel_checks(dev, label: str, h: int, kv: int, d: int,
                 qv, k, v, table_d, vpos, page_size=PS, num_kv_heads=kv),
             paged_library(qv, kl, vl, table_d, vpos, vpos + k1),
             cost(qv.numel(), vspans, row_bytes, 2 * (MAX_SEQS + 1)),
-            {"num_decode": MAX_SEQS, "decode_q": k1, "chunk": 0})
+            {"num_decode": MAX_SEQS, "decode_q": k1, "chunk": 0, **vplan})
     return rows
+
+
+def latent_decode_plan(q, width: int, kv_lens, q_starts, decode_q: int,
+                       n_kv: int) -> dict:
+    """At head_dim 640, the launch of the latent decode rows (decode.cu,
+    ragged.cu's decode and verify rows) of q [rows * decode_q (+ C), H, D]
+    over tables of `width` pages, from the descriptors (q_starts None:
+    decode.cu): its spans a row on average, its blocks and those with keys
+    to walk, the longest span, each row's span count, and the merge's own
+    device time (merge_latent_kernel alone,
+    `dtt_latent_merge`, over partials in the launch's layout with every
+    span seen, µs). {} below 640, or where the package beside the script
+    has no such plan (an older tree)."""
+    h, d = q.shape[-2], q.shape[-1]
+    if d != ca.LATENT_DIM or not hasattr(ca, "latent_decode_blocks"):
+        return {}
+    group, rows = h // n_kv, len(kv_lens)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n = ca.latent_decode_spans(width, PS, rows, decode_q, group, n_kv, sms)
+    blocks = ca.latent_decode_blocks(width, PS, kv_lens, q_starts, decode_q,
+                                     group, n_kv, sms)
+    keys = [hi - lo for *_, lo, hi in blocks]
+    q_tiles = -(-decode_q // ca.tile_positions(group, d))
+    out = {"spans_per_row": n, "blocks": n * rows * q_tiles * n_kv,
+           "blocks_with_keys": sum(1 for x in keys if x > 0) * n_kv,
+           "longest_span_keys": max(keys), "sms": sms,
+           "spans_by_row": [b[2] for b in blocks
+                            if b[1] == 0 and b[3] == 0],
+           "query_tiles_per_row": q_tiles}
+    if n == 1:
+        out["merge_us"] = "no merge: one span a row writes the rows"
+        return {"latent_decode": out}
+    n_rows = ca.latent_scratch_rows(rows, decode_q, group, n_kv, n)
+    g = torch.Generator(device=q.device)
+    g.manual_seed(5)
+    part_o = torch.randn((n_rows, d), generator=g, device=q.device)
+    part_ml = torch.zeros((n_rows, 2), device=q.device)
+    part_ml[:, 1] = 1.0
+    merged = torch.empty((rows * decode_q, h, d), dtype=torch.bfloat16,
+                         device=q.device)
+    spans = out["spans_by_row"]  # (first span, spans) of each row
+    row_plan = torch.tensor([[sum(spans[:r]), k] for r, k in
+                             enumerate(spans)], dtype=torch.int32,
+                            device=q.device)
+    lib = ca.build()
+
+    def merge():
+        rc = lib.dtt_latent_merge(
+            ca._ptr(part_o), ca._ptr(part_ml), ca._ptr(row_plan),
+            ca._ptr(merged), rows, decode_q, h, n_kv, ca._stream(merged))
+        if rc:
+            raise AssertionError(f"dtt_latent_merge failed: {rc}")
+
+    out["merge_us"] = device_ms(merge, 50) * 1e3
+    out["partials_mb"] = (part_o.numel() + part_ml.numel()) * 4 / 1e6
+    return {"latent_decode": out}
+
+
+def latent_identities(ragged, chunk_cu, decode_cu, nd: int, d: int) -> dict:
+    """At head_dim 640, ragged's chunk rows against chunk.cu's output and,
+    with decode_cu (decode_q = 1), its decode rows against decode.cu's on
+    the same inputs: the same blocks under the same plans, so equal bits
+    (raises if not). {} below 640, or in an older tree (before the latent
+    decode rows)."""
+    if d != ca.LATENT_DIM or not hasattr(ca, "latent_decode_blocks"):
+        return {}
+    out = ragged()
+    got = {"chunk_rows_equal_chunk_cu": torch.equal(out[nd:], chunk_cu())}
+    if decode_cu is not None:
+        got["decode_rows_equal_decode_cu"] = torch.equal(out[:nd],
+                                                         decode_cu())
+    if not all(got.values()):
+        raise AssertionError(f"ragged at head_dim 640: rows differ from "
+                             f"chunk.cu's or decode.cu's: {got}")
+    return got
 
 
 def latent_chunk_plan(q, k_pages, v_pages, pages, start: int, n_kv: int,
@@ -3457,6 +3561,7 @@ def mla_phase(eager_cfg: dict, jet_cfg: dict) -> dict:
         row = mixed_spec_serve(eng)
         emit({"phase": "mla_serve_mixed_spec", "model": model, **row})
         served.append(row)
+        mla_verify_profile(eng)
         del eng
         release()
     emit({"phase": "moe_capacity_ttft", "model": model,
@@ -3472,6 +3577,39 @@ def mla_phase(eager_cfg: dict, jet_cfg: dict) -> dict:
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
+def mla_verify_profile(eng: Engine) -> None:
+    """One captured verify step of deepseek-v2-lite on `eng` (a warmed-up
+    n-gram spec engine; 8 windows of K + 1 after 100-token prompts): its
+    device time and the attention kernels' share, as phase 11 profiles a
+    step."""
+    with torch.inference_mode():
+        prof = profile_steps(eng, 4)
+    busy = prof["device_busy_ms_per_step"]
+    attn_ms = prof["by_family_ms_per_step"].get("attention (port kernels)",
+                                                0.0)
+    emit({"phase": "mla_verify_profile", "model": MLA_MODEL,
+          "weights": "none", **prof, "attention_ms_per_step": attn_ms,
+          "attention_share": (attn_ms / busy if busy != "not measured"
+                              else "not measured")})
+
+
+def mla_verify_only(jet_cfg: dict) -> None:
+    """`--mla-verify-profile`: deepseek-v2-lite's weights (random, seed 0)
+    and, on bf16 and int8 pools, phase 13's mixed n-gram spec engine,
+    warmed up, with mla_verify_profile alone."""
+    base = Engine(EngineConfig(**dict(jet_cfg, model=MLA_MODEL)))
+    spec = dict(speculative_mode="ngram", num_speculative_tokens=SPEC_K)
+    for kv in ("auto", "int8"):
+        eng = Engine(EngineConfig(**dict(jet_cfg, model=MLA_MODEL), **spec,
+                                  kv_cache_dtype=kv,
+                                  mixed_batch_tokens=CHUNK),
+                     params=base.model)
+        eng.warmup()
+        mla_verify_profile(eng)
+        del eng
+        release()
+
+
 def mla_chunked_ttft(engine: Engine, eager_cfg: dict) -> dict:
     """TTFT of a 2048-token prompt prefilled in CHUNK-token chunks (eight
     chunk launches a layer, the last at 1792) on eager engines sharing
@@ -3480,7 +3618,8 @@ def mla_chunked_ttft(engine: Engine, eager_cfg: dict) -> dict:
     of three, host clock around `generate(max_tokens=1)`, and the chunk
     launches of one run; then one more run of each under torch.profiler:
     the device time of all its kernels and of the chunk kernel's, beside
-    that run's wall (the profiler slows the host)."""
+    that run's wall (the profiler slows the host), and the host side of
+    that run: its ops and CUDA runtime calls by self CPU time."""
     cfg = dict(eager_cfg, model=engine.cfg.model, max_seq_len=2 * MAX_SEQ_LEN,
                prefill_chunk_tokens=CHUNK)
     engines = {kv: Engine(EngineConfig(**cfg, kv_cache_dtype=kv),
@@ -3522,9 +3661,18 @@ def mla_chunked_ttft(engine: Engine, eager_cfg: dict) -> dict:
             busy += ms
             if "chunk_latent_kernel" in ev.name or "chunk_kernel" in ev.name:
                 chunk_ms += ms
+        # the host side of the same run: its ops and CUDA runtime calls by
+        # self time (where a slower TTFT with less device time must show)
+        host = sorted(((ev.key, ev.self_cpu_time_total / 1e3, ev.count)
+                       for ev in prof.key_averages()
+                       if ev.self_cpu_time_total > 0),
+                      key=lambda x: -x[1])
         profiled[kv] = {"wall_ms": wall * 1e3,
                         "device_busy_ms": busy or "not measured",
-                        "chunk_kernel_ms": chunk_ms or "not measured"}
+                        "chunk_kernel_ms": chunk_ms or "not measured",
+                        "host_self_ms": sum(x[1] for x in host),
+                        "host_top_self_ms": [[k[:70], ms, n]
+                                             for k, ms, n in host[:25]]}
     layers = engine.model_cfg.num_layers
     for kv, name in (("auto", "chunk"), ("int8", "chunk_int8")):
         got = launches[kv].get(f"{name}[head_dim={engine.kv_spec.head_dim}]",
@@ -3551,9 +3699,10 @@ def mla_ttft_only(eager_cfg: dict) -> None:
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    if args not in ([], ["--kernels-only"], ["--mla-chunked-ttft"]):
-        print("usage: chip_smoke.py [--kernels-only | --mla-chunked-ttft]",
-              file=sys.stderr)
+    if args not in ([], ["--kernels-only"], ["--mla-chunked-ttft"],
+                    ["--mla-verify-profile"]):
+        print("usage: chip_smoke.py [--kernels-only | --mla-chunked-ttft | "
+              "--mla-verify-profile]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -3578,6 +3727,9 @@ def main(argv=None) -> int:
                      enforce_eager=True)
     if args == ["--mla-chunked-ttft"]:
         mla_ttft_only(eager_cfg)
+        return 0
+    if args == ["--mla-verify-profile"]:
+        mla_verify_only(dict(base_cfg, **BACKEND_PROFILES["jetstream"]))
         return 0
     rows = kernel_checks(dev)
     family_rows = {label: shape_kernel_checks(dev, label, h, kv, d, names)

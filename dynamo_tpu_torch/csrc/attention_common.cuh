@@ -1,9 +1,13 @@
 // Shared device code of the port's attention kernels (decode.cu, prefill.cu,
 // chunk.cu, ragged.cu): `attend_mma`, the tensor-core query tile all four
-// run, its K/V policies, `attend_latent` (the tile at head_dim 640),
-// `chunk_latent_kernel` (chunk.cu's tile at head_dim 640: key spans merged
-// in a cluster, S on wgmma), and the split decode rows of decode.cu and
-// ragged.cu (`decode_split_block`, `merge_splits_kernel`).
+// run below head_dim 640, its K/V policies, `attend_latent` (prefill.cu's
+// tile at head_dim 640), the latent tile's walk `latent_walk` (32-key tiles,
+// S and P V on wgmma) run by `chunk_latent_kernel` (chunk.cu and ragged.cu's
+// chunk rows at 640: key spans merged in a cluster) and by
+// `decode_latent_kernel` (decode.cu and ragged.cu's decode rows at 640: key
+// spans merged by `merge_latent_kernel`), and the split decode rows of
+// decode.cu and ragged.cu below 640 (`decode_split_block`,
+// `merge_splits_kernel`).
 //
 // A block owns query positions x the `group` = H/KV query heads of ONE KV
 // head (rows r = i * group + g, query head kvh * group + g reads KV head
@@ -28,6 +32,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -136,7 +141,7 @@ constexpr size_t kMaxBlockSmem = 232448;  // the H100's per-block limit
 constexpr int kSplitKeys = 256;   // least keys per split of a decode row
 constexpr int kSplitBlocksPerSm = 4;  // most decode blocks per SM, all splits
 // MLA's latent row (DeepSeek-V2: 512 + 64 lanes, padded to 640), run by
-// attend_latent below instead of attend_mma
+// the latent tiles below instead of attend_mma
 constexpr int kLatentDim = 640;
 
 // The head_dims the tile is compiled for (with_head_dim): those of the
@@ -784,11 +789,12 @@ __device__ __forceinline__ void attend_mma(
 }
 
 // ---------------------------------------------------------------------------
-// attend_latent: the query tile at head_dim 640, MLA's latent row.
+// attend_latent: prefill.cu's query tile at head_dim 640, MLA's latent row.
 //
-// The same contract as attend_mma (rows r = i * group + g of one KV head,
-// the general mask, zeros for a row that sees no key, bf16 rows or the
-// split partial), for the one shape that attend_mma cannot hold: at
+// The contract of attend_mma (rows r = i * group + g of one KV head, the
+// general mask, zeros for a row that sees no key) with bf16 rows out (the
+// decode rows at 640 run decode_latent_kernel), for the one shape that
+// attend_mma cannot hold: at
 // D = 640 a warp's 16 rows of f32 O are 320 registers a thread, and q's
 // tile plus one 64-key bf16 K/V stage (82,944 + 165,888 bytes) pass the
 // block's 232,448 bytes of shared memory. So the block has 16 warps
@@ -826,17 +832,11 @@ __device__ __forceinline__ void attend_latent(
   const int lo = key_lo;
   const int hi = min(min(qpos0 + nq, kv_len), key_hi);
 
-  if (lo >= hi) {  // no key in range: zeros, or an empty partial
+  if (lo >= hi) {  // no key in range: zeros
     for (int idx = tid; idx < n_rows * kD; idx += kLatentThreads) {
       const int r = idx / kD, dd = idx - r * kD, i = r / group, g = r - i * group;
-      if (dst.out) {
-        dst.out[q_off + (long long)i * q_row_stride + g * kD + dd] =
-            __float2bfloat16(0.f);
-      } else if (dd == 0) {
-        const long long p = (dst.part_q0 + i) * dst.heads + kvh * group + g;
-        dst.part_ml[2 * p] = -INFINITY;
-        dst.part_ml[2 * p + 1] = 0.f;
-      }
+      dst.out[q_off + (long long)i * q_row_stride + g * kD + dd] =
+          __float2bfloat16(0.f);
     }
     return;
   }
@@ -1057,26 +1057,13 @@ __device__ __forceinline__ void attend_latent(
     const int r = wrow + quad + 8 * h;
     if (r >= n_rows) continue;
     const int i = r / group, g = r - i * group;
-    if (dst.out) {
-      const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
-      __nv_bfloat16* orow =
-          dst.out + q_off + (long long)i * q_row_stride + g * kD + d0;
+    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+    __nv_bfloat16* orow =
+        dst.out + q_off + (long long)i * q_row_stride + g * kD + d0;
 #pragma unroll
-      for (int j = 0; j < kQ / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + pair) =
-            __floats2bfloat162_rn(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
-    } else {
-      const long long pp = (dst.part_q0 + i) * dst.heads + kvh * group + g;
-      float* orow = dst.part_o + pp * kD + d0;
-#pragma unroll
-      for (int j = 0; j < kQ / 8; ++j)
-        *reinterpret_cast<float2*>(orow + j * 8 + pair) =
-            make_float2(o[j][2 * h], o[j][2 * h + 1]);
-      if (dq == 0 && pair == 0) {
-        dst.part_ml[2 * pp] = m[h];
-        dst.part_ml[2 * pp + 1] = l[h];
-      }
-    }
+    for (int j = 0; j < kQ / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + pair) =
+          __floats2bfloat162_rn(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
   }
 }
 
@@ -1120,14 +1107,17 @@ __device__ __forceinline__ void attend(
 //     MN-major (its 64-lane panels, 8-key groups).
 // Copies: every thread copies its share of a tile with cp.async into the
 // swizzle (one key slot per 8 threads). Two barriers a tile: after K(t)
-// has landed (then V(t) and K(t + 1) are issued, V(t) landing under S(t),
-// K(t + 1) under S(t) and P V(t): bf16 pools keep two K tiles), and after
-// V(t) has landed (then P V). int8 pools copy their raw rows into a
-// staging area instead, and each thread widens the chunks it copied
-// itself (its own writes: no barrier) into the single bf16 K or V tile:
-// V(t) before the second barrier, K(t + 1) after P V(t). A thread fences
-// its writes to the async proxy (fence.proxy.async) before the barrier
-// that lets wgmma read them.
+// has landed (then S), and after V(t) has landed (then P V). bf16 pools
+// rotate K and V through three tiles: K(t + 1) is issued at the first
+// barrier (into V(t - 1)'s tile: it lands under S(t) and P V(t)), V(t + 1)
+// at the second (into K(t)'s: under P V(t) and S(t + 1)), and V(0) goes
+// with q and K(0). int8 pools copy their raw rows into a staging area
+// instead, and each thread widens the chunks it copied itself (its own
+// writes: no barrier) into the single bf16 K or V tile, V(t) before the
+// second barrier and K(t + 1) after P V(t), and copies the next raw rows
+// of the same kind as soon as its own are widened. A thread fences its
+// writes to the async proxy (fence.proxy.async) before the barrier that
+// lets wgmma read them.
 // After the walk a block leaves its unnormalized partial (O in f32, m in
 // log2 units, l) in its own shared memory, the cluster synchronizes, and
 // each block merges a share of the query tile's output from all the
@@ -1144,7 +1134,8 @@ constexpr int kDumpLd = kLatentDim + 4;      // padded f32 row of the dump
 
 // Shared memory of a chunk_latent_kernel block (offsets from a 1024-byte
 // aligned base, which the swizzle needs): q's tile, the K tiles (bf16: two,
-// int8: one), the V tile, for int8 pools the raw rows, their scale chunks
+// int8: one), the V tile (bf16: the three K and V tiles rotate), for int8
+// pools the raw rows, their scale chunks
 // and the f32 scales; after the walk the same bytes hold the partial O
 // [64][kDumpLd], (m, l) [64][2] and the merge's weights [64][9]. bf16:
 // 204,800 bytes, int8: 206,080, plus the 1024 of alignment slack.
@@ -1439,46 +1430,36 @@ __device__ __forceinline__ void merge_spans(
   }
 }
 
-// Block (span, query tile, KV head) of a C-query chunk at `start` over the
-// page list `pages` (rows r = i * group + g, positions start + i0 ..): the
-// walk of its span, then the cluster's merge into out's bf16 rows. With
-// `clocks`, thread 0 stamps the global timer when its walk ends and when
-// the block is done: clocks[2 * block + {0, 1}] (the merge's own time).
+// The walk of one block of the latent tile (chunk_latent_kernel, and the
+// latent decode rows below) over its keys [lo, hi): q rows r = i * group +
+// g (n_rows of them real, the rest zero) of KV head kvh, query i at qpos0 +
+// i seeing key tok iff tok <= qpos0 + i and tok < hi (the caller puts hi at
+// or below the horizon kv_len). Leaves this thread's unnormalized (O, m, l)
+// in o, m and l (m in log2 units, l summed over the row's four lanes): O
+// lanes wg * kChunkLanes + 8 j + pair + e of rows wrow + quad + 8 h, as
+// chunk_latent_kernel's header describes. An empty range leaves O = 0,
+// m = -inf, l = 0. Every thread of the block calls it with the same range;
+// `base` is the 1024-byte aligned shared memory of ChunkSmem.
 template <typename KVTiles>
-__global__ void __launch_bounds__(kChunkThreads, 1) chunk_latent_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [C, H, 640]
-    KVTiles kv,                           // pools [P, ps, lane_width]
-    const int* __restrict__ pages,        // [W]
-    __nv_bfloat16* __restrict__ out,      // [C, H, 640]
-    int C, int H, int KV, int page_size, int lane_width, int start,
-    int positions, float scale, unsigned long long* __restrict__ clocks) {
+__device__ __forceinline__ void latent_walk(
+    char* base, const __nv_bfloat16* __restrict__ q, long long q_off,
+    int q_row_stride, KVTiles kv, PagedRows rows, int kvh, int n_rows,
+    int group, int qpos0, int lo, int hi, float scale,
+    float (&o)[kChunkLanes / 8][4], float (&m)[2], float (&l)[2]) {
   using L = ChunkSmem<KVTiles>;
   constexpr int kD = kLatentDim, kK = kChunkKeys;
   constexpr int kPanelQ = kTileRows * 128;  // bytes of one q panel
   constexpr int kPanelK = kK * 128;         // of one K or V panel
-  extern __shared__ __align__(16) char chunk_smem[];
-  const unsigned smem0 = smem_u32(chunk_smem);
-  char* base = chunk_smem + (((smem0 + 1023) & ~1023u) - smem0);
   const unsigned base_a = smem_u32(base);
-
-  const int span_idx = blockIdx.x, n_spans = gridDim.x;
-  const int i0 = blockIdx.y * positions, kvh = blockIdx.z;
-  const int group = H / KV;
-  const int nq = min(positions, C - i0), n_rows = nq * group;
-  const int qpos0 = start + i0;
-  const int horizon = qpos0 + nq;  // the tile's last query sees start + i0 + nq - 1
-  const int span = (horizon + n_spans - 1) / n_spans;
-  const int lo = span_idx * span, hi = min(lo + span, horizon);
-  const long long q_off = ((long long)i0 * H + kvh * group) * kD;
-  const int q_row_stride = H * kD;
-  const PagedRows rows{pages, page_size, lane_width};
-
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, wrow = (warp & 3) * 16;
   const int quad = lane >> 2, pair = (lane & 3) * 2;
 
-  float o[kChunkLanes / 8][4];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m[h] = -INFINITY;
+    l[h] = 0.f;
+  }
 #pragma unroll
   for (int j = 0; j < kChunkLanes / 8; ++j)
 #pragma unroll
@@ -1486,8 +1467,8 @@ __global__ void __launch_bounds__(kChunkThreads, 1) chunk_latent_kernel(
 
   if (lo < hi) {  // the same for every thread of the block
     char* qs = base;
-    char* ks = base + L::k_off;     // the K tiles (bf16: two, int8: one)
-    char* vs = base + L::v_off;     // the V tile
+    char* ks = base + L::k_off;     // int8: the K tile
+    char* vs = base + L::v_off;     // int8: the V tile
     char* raw = base + L::raw_off;  // int8: K rows [32][640], V rows
     char* scl = base + L::scl_off;  // int8: K's, then V's scale chunks
     float* ksc = reinterpret_cast<float*>(base + L::f32_off);
@@ -1548,8 +1529,16 @@ __global__ void __launch_bounds__(kChunkThreads, 1) chunk_latent_kernel(
         }
       }
     };
-    auto ktile = [&](int t) -> unsigned {  // K(t)'s tile, as an offset
-      return (unsigned)L::k_off + (KVTiles::kInt8 ? 0 : (t & 1) * L::tile);
+    // the tiles of K(t) and V(t), as offsets: bf16 pools rotate the two
+    // through three tiles (halves 2t and 2t + 1 of the walk); int8 pools
+    // widen into one K and one V tile
+    auto ktile = [&](int t) -> unsigned {
+      return KVTiles::kInt8 ? (unsigned)L::k_off
+                            : (unsigned)(L::k_off + (2 * t) % 3 * L::tile);
+    };
+    auto vtile = [&](int t) -> unsigned {
+      return KVTiles::kInt8 ? (unsigned)L::v_off
+                            : (unsigned)(L::k_off + (2 * t + 1) % 3 * L::tile);
     };
 
     // q rows slot and slot + 32 (zero rows past n_rows), then K(0)
@@ -1565,12 +1554,23 @@ __global__ void __launch_bounds__(kChunkThreads, 1) chunk_latent_kernel(
         cp_async16(d + p * kPanelQ, valid ? src + p * kSwizzleLanes : q,
                    valid);
     }
-    long long row = row_of(0);  // tile t's keys, this thread's slot
+    // Copies, one commit group each, in the order K(0), V(0), K(1), V(1),
+    // ...: so at each wait below only the last group may still be in
+    // flight. bf16: K(t + 1) is issued at the barrier that frees V(t - 1)'s
+    // tile, V(t + 1) at the one that frees K(t)'s. int8: each thread copies
+    // the next raw K or V rows as soon as it has widened its own chunks of
+    // the last ones.
+    long long row = row_of(0);  // this thread's key slot of the next tile
     copy_tile(kv.k, base + ktile(0), 0, row);
     cp_async_commit();
+    copy_tile(kv.v, base + vtile(0), 1, row);
+    cp_async_commit();
+    row = n_tiles > 1 ? row_of(1) : -1;
     if constexpr (KVTiles::kInt8) {
-      cp_async_wait<0>();
+      cp_async_wait<1>();
       widen_own(0, ks, ksc);
+      if (n_tiles > 1) copy_tile(kv.k, nullptr, 0, row);
+      cp_async_commit();
     }
 
     int qlim[2];
@@ -1578,21 +1578,21 @@ __global__ void __launch_bounds__(kChunkThreads, 1) chunk_latent_kernel(
     for (int h = 0; h < 2; ++h) qlim[h] = qpos0 + (wrow + quad + 8 * h) / group;
     const float sl2 = scale * 1.4426950408889634f;  // 1/sqrt(D) in log2 units
     const unsigned long long desc_q = gmma_desc(base_a);
-    const unsigned v_a = base_a + (unsigned)L::v_off + 5 * wg * kPanelK;
 
     for (int t = 0; t < n_tiles; ++t) {
-      // K(t) has landed (int8: and this thread widened its chunks)
-      cp_async_wait<0>();
+      // K(t) has landed (V(t) may be in flight; int8: this thread widened
+      // its chunks of K(t) before)
+      if constexpr (!KVTiles::kInt8) cp_async_wait<1>();
       fence_proxy_async();
-      // K(t) is in for everyone, and everyone is past S and P V of t - 1:
-      // the V tile and the other K tile are free
+      // K(t) is in for everyone, and everyone is past S and P V of t - 1
       __syncthreads();
-      copy_tile(kv.v, vs, 1, row);  // V(t) lands under S(t)
-      cp_async_commit();
-      row = t + 1 < n_tiles ? row_of(t + 1) : -1;
-      if (t + 1 < n_tiles)  // K(t + 1) lands under S(t) and P V(t)
-        copy_tile(kv.k, base + ktile(t + 1), 0, row);
-      cp_async_commit();
+      if constexpr (!KVTiles::kInt8) {
+        // K(t + 1) into V(t - 1)'s tile; it lands under S(t) and P V(t)
+        if (t + 1 < n_tiles) copy_tile(kv.k, base + ktile(t + 1), 0, row);
+        cp_async_commit();
+      }
+      // this thread's key slot of tile t + 2, a page id loaded early
+      const long long row2 = t + 2 < n_tiles ? row_of(t + 2) : -1;
 
       // S = Q K^T: 40 k16 steps over the swizzle panels, 32 bytes apart
       // inside a panel
@@ -1660,9 +1660,20 @@ __global__ void __launch_bounds__(kChunkThreads, 1) chunk_latent_kernel(
       }
 
       cp_async_wait<1>();  // V(t) has landed (K(t + 1) may be in flight)
-      widen_own(1, vs, vsc);
+      if constexpr (KVTiles::kInt8) {
+        widen_own(1, vs, vsc);
+        if (t + 1 < n_tiles) copy_tile(kv.v, nullptr, 1, row);
+        cp_async_commit();
+      }
       fence_proxy_async();
-      __syncthreads();  // V(t) is in for everyone
+      // V(t) is in for everyone, and everyone is past S(t)
+      __syncthreads();
+      if constexpr (!KVTiles::kInt8) {
+        // V(t + 1) into K(t)'s tile; it lands under P V(t) and S(t + 1)
+        if (t + 1 < n_tiles) copy_tile(kv.v, base + vtile(t + 1), 1, row);
+        cp_async_commit();
+      }
+      const unsigned v_a = base_a + vtile(t) + 5 * wg * kPanelK;
 
       // O += P V on wgmma: P (times V's int8 scales, in two bf16 parts)
       // from registers, this warpgroup's 320 lanes of V as 256 + 64 from
@@ -1703,12 +1714,15 @@ __global__ void __launch_bounds__(kChunkThreads, 1) chunk_latent_kernel(
       fence_o(o);
       if constexpr (KVTiles::kInt8) {
         // K(t + 1) into the K tile, which everyone is done with since the
-        // barrier above
+        // barrier above, then K(t + 2)'s raw rows
         if (t + 1 < n_tiles) {
-          cp_async_wait<0>();
+          cp_async_wait<1>();
           widen_own(0, ks, ksc);
+          if (t + 2 < n_tiles) copy_tile(kv.k, nullptr, 0, row2);
+          cp_async_commit();
         }
       }
+      row = row2;
     }
     cp_async_wait<0>();
   }
@@ -1717,6 +1731,58 @@ __global__ void __launch_bounds__(kChunkThreads, 1) chunk_latent_kernel(
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
   }
+}
+
+// Block (span, query tile, KV head) of a C-query chunk at `start` over the
+// page list `pages` (rows r = i * group + g, positions start + i0 ..): the
+// walk of its span, then the cluster's merge into out's bf16 rows. The
+// query tile's horizon is min(start + i0 + nq, kv_len) with kv_len =
+// start + C (chunk.cu), or, with `desc_start` (ragged.cu's chunk rows),
+// start = *desc_start and kv_len = min(*desc_kv_len, max_keys) read on the
+// card: the same blocks and spans, so equal inputs give chunk.cu's bits.
+// With `clocks`, thread 0 stamps the global timer when its walk ends and
+// when the block is done: clocks[2 * block + {0, 1}] (the merge's own
+// time).
+template <typename KVTiles>
+__global__ void __launch_bounds__(kChunkThreads, 1) chunk_latent_kernel(
+    const __nv_bfloat16* __restrict__ q,  // [C, H, 640]
+    KVTiles kv,                           // pools [P, ps, lane_width]
+    const int* __restrict__ pages,        // [W]
+    __nv_bfloat16* __restrict__ out,      // [C, H, 640]
+    int C, int H, int KV, int page_size, int lane_width, int start,
+    int positions, float scale, unsigned long long* __restrict__ clocks,
+    const int* __restrict__ desc_start, const int* __restrict__ desc_kv_len,
+    int max_keys) {
+  constexpr int kD = kLatentDim;
+  extern __shared__ __align__(16) char chunk_smem[];
+  const unsigned smem0 = smem_u32(chunk_smem);
+  char* base = chunk_smem + (((smem0 + 1023) & ~1023u) - smem0);
+
+  const int span_idx = blockIdx.x, n_spans = gridDim.x;
+  const int i0 = blockIdx.y * positions, kvh = blockIdx.z;
+  const int group = H / KV;
+  const int nq = min(positions, C - i0), n_rows = nq * group;
+  int kv_len = start + C;
+  if (desc_start) {
+    start = *desc_start;
+    kv_len = min(*desc_kv_len, max_keys);
+  }
+  const int qpos0 = start + i0;
+  // the tile's last query sees start + i0 + nq - 1
+  const int horizon = max(0, min(qpos0 + nq, kv_len));
+  const int span = (horizon + n_spans - 1) / n_spans;
+  const int lo = span_idx * span, hi = min(lo + span, horizon);
+  const long long q_off = ((long long)i0 * H + kvh * group) * kD;
+  const int q_row_stride = H * kD;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wrow = (warp & 3) * 16;
+  const int quad = lane >> 2, pair = (lane & 3) * 2;
+
+  float o[kChunkLanes / 8][4], m[2], l[2];
+  latent_walk(base, q, q_off, q_row_stride, kv,
+              PagedRows{pages, page_size, lane_width}, kvh, n_rows, group,
+              qpos0, lo, hi, scale, o, m, l);
 
   // the partial into this block's shared memory (over the walk's tiles)
   const long long block =
@@ -1787,8 +1853,61 @@ __global__ void __launch_bounds__(kChunkThreads, 1) chunk_latent_kernel(
   if (clocks && tid == 0) clocks[2 * block + 1] = global_ns();
 }
 
+// The launch of chunk_latent_kernel: clusters of grid.x blocks (the spans
+// of one query tile), kChunkThreads a block.
+struct LatentLaunch {
+  cudaLaunchAttribute cluster[1];
+  cudaLaunchConfig_t cfg = {};
+  LatentLaunch(dim3 grid, size_t smem, cudaStream_t stream) {
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = grid.x;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kChunkThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+  }
+};
+
+// chunk_latent_kernel over a C-query chunk in `spans` spans a query tile:
+// chunk.cu's (start given, desc_start == nullptr), or ragged.cu's chunk
+// rows (start and kv_len read from desc_start, desc_kv_len on the card, cut
+// at max_keys). q, out and pages start at the chunk's.
+template <typename KVTiles>
+int launch_chunk_latent(const void* q, KVTiles kv, const void* pages,
+                        void* out, int C, int H, int KV, int page_size,
+                        int lane_width, int start, int positions, int spans,
+                        float scale, void* clocks, cudaStream_t stream,
+                        const int* desc_start = nullptr,
+                        const int* desc_kv_len = nullptr,
+                        int max_keys = 0) {
+  cudaError_t err;
+  const int tiles = (C + positions - 1) / positions;
+  // any span count is exact; the wrapper's plan is chunk_spans (also
+  // dtt_chunk_spans), and a measurement may ask for another
+  if (spans < 1 || spans > kMaxChunkSpans || tiles > 65535 || KV > 65535)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = chunk_latent_kernel<KVTiles>;
+  err = set_smem(kernel, ChunkSmem<KVTiles>::bytes);
+  if (err != cudaSuccess) return (int)err;
+  LatentLaunch launch(dim3(spans, tiles, KV), ChunkSmem<KVTiles>::bytes,
+                      stream);
+  err = cudaLaunchKernelEx(&launch.cfg, kernel,
+                           (const __nv_bfloat16*)q, kv, (const int*)pages,
+                           (__nv_bfloat16*)out, C, H, KV, page_size,
+                           lane_width, start, positions, scale,
+                           (unsigned long long*)clocks, desc_start,
+                           desc_kv_len, max_keys);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
-// Split decode rows (decode.cu, and the decode rows of ragged.cu).
+// Split decode rows below head_dim 640 (decode.cu, and the decode rows of
+// ragged.cu).
 //
 // A decode row, decode_q queries of one sequence at qpos0 .. qpos0 +
 // decode_q - 1 over its page list of W pages, is split along its keys into
@@ -1801,6 +1920,7 @@ __global__ void __launch_bounds__(kChunkThreads, 1) chunk_latent_kernel(
 // rows. So a 2048-token row runs on 8 SMs instead of serially on one. The
 // block runs the 64-row tile with decode_q x group real rows: the rows are
 // bound by bytes, and the MMA lanes the padding wastes cost no bytes.
+// Head_dim 640 runs the latent decode rows further below.
 
 // The partials' scratch: split s of decode query n (of nd in all), head h
 // at part_o[((s * nd + n) * heads + h) * D ..] and part_ml[.. * 2 + {0, 1}].
@@ -1824,22 +1944,27 @@ __device__ __forceinline__ void decode_split_block(
     const int* __restrict__ tables, int W, int page_size, int lane_width,
     const int* __restrict__ kv_lens, const int* __restrict__ q_starts,
     int decode_q, int group, int heads, float scale, Splits sp) {
+  static_assert(kD != kLatentDim, "head_dim 640: decode_latent_kernel");
   const int b = bx / sp.num_splits, s = bx - b * sp.num_splits;
   const int kv_len = kv_lens[b];
   const int qpos0 = q_starts ? q_starts[b] : kv_len - 1;
   const PagedRows rows{tables + (long long)b * W, page_size, lane_width};
-  // the row's queries in passes of the tile's positions: one pass, except
-  // for the latent tile's verify windows (5 x 16 rows at group 16)
+  // The host keeps decode_q x group within the tile's rows, so this loop
+  // over the row's query tiles runs once. It stays a loop: so written,
+  // ptxas spills 36 / 40 bytes at head_dim 256 (a tile at 255 registers),
+  // and 100 / 156 for the same call made once (on an H100, 0.054 against
+  // 0.052 ms at phase 3's head_dim 256 decode rows).
   const int per = kTileRows / group;
   for (int j0 = 0; j0 < decode_q; j0 += per) {
-    if (j0) __syncthreads();  // the last pass is done with shared memory
-    attend<kD>(q, ((long long)(b * decode_q + j0) * heads + kvh * group) * kD,
-               heads * kD, kv, rows, kvh, min(per, decode_q - j0), group,
-               qpos0 + j0, min(kv_len, W * page_size), s * sp.split_keys,
-               (s + 1) * sp.split_keys, scale,
-               TileOut{nullptr, sp.part_o + s * sp.nd * heads * kD,
-                       sp.part_ml + s * sp.nd * heads * 2,
-                       (long long)b * decode_q + j0, heads});
+    if (j0) __syncthreads();  // the last tile is done with shared memory
+    attend_mma<kD>(
+        q, ((long long)(b * decode_q + j0) * heads + kvh * group) * kD,
+        heads * kD, kv, rows, kvh, min(per, decode_q - j0), group,
+        qpos0 + j0, min(kv_len, W * page_size), s * sp.split_keys,
+        (s + 1) * sp.split_keys, scale,
+        TileOut{nullptr, sp.part_o + s * sp.nd * heads * kD,
+                sp.part_ml + s * sp.nd * heads * 2,
+                (long long)b * decode_q + j0, heads});
   }
 }
 
@@ -1879,17 +2004,24 @@ __global__ void __launch_bounds__(kMergeThreads) merge_splits_kernel(
     out[(long long)pair * kD + lane + 32 * c] = __float2bfloat16(acc[c] * inv);
 }
 
+// The current device's SM count into num_sms: 0, or the CUDA error.
+inline int num_sms_of_device(int* num_sms) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(num_sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  return (int)err;
+}
+
 // 0 where (split_keys, num_splits) is the plan of num_decode rows of kv
 // heads over max_tok-key page lists on the current device, else the error
 // to return: the entry points refuse a plan other than their own.
 inline int check_split_plan(long long max_tok, int num_decode, int kv,
                             long long split_keys, int num_splits) {
-  int device = 0, num_sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  if (err != cudaSuccess) return (int)err;
+  int num_sms = 0;
+  const int err = num_sms_of_device(&num_sms);
+  if (err != 0) return err;
   return split_keys == decode_split_keys(max_tok, num_decode, kv, num_sms)
                  && num_splits == decode_splits(max_tok, split_keys)
              ? 0
@@ -1905,6 +2037,393 @@ inline int launch_merge(const Splits& sp, __nv_bfloat16* out, int n_pairs,
                             kMergeThreads, 0, stream>>>(
       sp.part_o, sp.part_ml, out, n_pairs, sp.num_splits);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The latent decode rows: decode.cu, and the decode and verify rows of
+// ragged.cu, at head_dim 640 (decode_latent_kernel, merge_latent_kernel).
+//
+// Bound: bytes. A decode row reads each of its latent K and V rows once
+// (2 x 1280 bytes a key in bf16, 2 x 768 in int8) and does ~1 FLOP per
+// byte per query head. What the first latent tile (attend_latent) lost:
+// spans of 256 keys sized for head_dim 128 left 45 of a phase-3 launch's
+// 64 blocks without a key, 16-key tiles paid two or three barriers each
+// and summed lane-quarter partial scores through shared memory, 12 of its
+// 16 warps did no math on a decode row, and a verify window of 5 x 16 =
+// 80 rows walked its span twice, one pass after the other. So:
+// - a block is the latent tile's walk (latent_walk: 32-key tiles, S on
+//   wgmma over all 640 lanes, P V on wgmma, two barriers a tile, int8
+//   widened by the copying thread) over one query tile of a row (up to
+//   64 / group positions, so a verify window of 5 x 16 rows is two query
+//   tiles, 4 and 1 positions, whose blocks walk the same keys side by
+//   side: the second read comes from L2) and one span of its keys;
+// - the launch is planned on the host from host sizes only
+//   (latent_decode_spans: n spans a row on average, as many as one wave
+//   of blocks holds), so a captured decode or verify step replays at any
+//   contexts; the spans are cut on the card from the rows' horizons
+//   (min(q_start + decode_q, kv_len, W * page_size)): the n x rows spans
+//   are shared out in proportion to the rows' keys (latent_span_keys: a
+//   span of at most L keys, L a multiple of the 32-key tile chosen so
+//   that every row's spans fit the budget), each row's horizon cut into
+//   equal spans, so the longest block walks about its share of all the
+//   keys, not a long row's 1/n (phase 3: 64 keys a block, not 128);
+// - a row of one span writes its bf16 rows from the walk; the spans of a
+//   longer row leave their unnormalized partials (O in f32, m, l) in
+//   device scratch, and merge_latent_kernel folds each row's spans in a
+//   fixed order (equal bits run to run; 8 or 4 threads per (query, head,
+//   8 lanes), each folding every 8th or 4th span online, then combined).
+//   A cluster could merge in distributed shared memory, as the chunk tile
+//   does, but a cluster holds 8 blocks (16 at most), a 2048-key row needs
+//   16 spans to keep its blocks within 128 keys, and the H100 holds 15
+//   clusters of 8 at once (PERF.md), fewer of 16: 8 such rows would not
+//   run in one wave.
+constexpr int kLatentSpanKeys = 64;  // least keys a span, at the table's width
+constexpr int kLatentMergeThreads = 128;
+constexpr int kMaxSmThreads = 2048;  // resident threads an H100 SM holds
+
+// Spans a row of num_decode latent decode rows of decode_q queries (query
+// tiles of tile_positions(group) positions), KV heads, over page lists of
+// max_keys keys, on num_sms SMs, on average: one wave of blocks (n x query
+// tiles x rows x KV <= num_sms, at least one), and at most one span per
+// kLatentSpanKeys keys of the table. The launch holds n x num_decode work
+// items (spans) per query tile and KV head.
+inline int latent_decode_spans(int num_decode, int decode_q, int group,
+                               int KV, long long max_keys, int num_sms) {
+  const int positions = tile_positions(group);
+  const long long tiles = std::max(
+      1LL, (long long)num_decode * ((decode_q + positions - 1) / positions)
+               * KV);
+  const long long most =
+      std::max(1LL, (max_keys + kLatentSpanKeys - 1) / kLatentSpanKeys);
+  return (int)std::max(1LL, std::min((long long)num_sms / tiles, most));
+}
+
+// The descriptors of the latent decode rows: row b's queries at q_start =
+// q_starts[b] .. (or, without q_starts, decode.cu's one query at
+// kv_lens[b] - 1) see keys below min(kv_lens[b], max_keys).
+struct LatentRows {
+  const int* __restrict__ kv_lens;
+  const int* __restrict__ q_starts;
+  int rows, decode_q, max_keys;
+  __device__ __forceinline__ int q_start(int b) const {
+    return q_starts ? q_starts[b] : kv_lens[b] - 1;
+  }
+  // the keys the row's last query sees
+  __device__ __forceinline__ int horizon(int b) const {
+    return max(0, min(q_start(b) + decode_q, min(kv_lens[b], max_keys)));
+  }
+};
+
+// Keys a span may hold when `budget` spans are shared out over `rows` rows
+// of `total` keys: a multiple of the 32-key tile with ceil(h / L) spans for
+// a row of h keys (one for a row with none) within the budget, since
+// sum ceil(h / L) <= total / L + rows; or every row one span where the
+// budget is one a row.
+__device__ __forceinline__ int latent_span_keys(long long total, int rows,
+                                                int budget) {
+  if (budget <= rows) return INT_MAX;
+  const long long per = (total + budget - rows - 1) / (budget - rows);
+  return (int)min((long long)INT_MAX,
+                  max((long long)kChunkKeys,
+                      (per + kChunkKeys - 1) / kChunkKeys * kChunkKeys));
+}
+
+__device__ __forceinline__ int latent_row_spans(int h, int span_keys) {
+  return h == 0 || span_keys == INT_MAX ? 1 : (h + span_keys - 1) / span_keys;
+}
+
+// Where work item (span) w of the latent decode rows lies: its row b
+// (-1 past the last item), its span s and the row's span count n, as every
+// lane of a warp computes it from the descriptors (the same in every warp,
+// so no barrier): the rows' horizons (the first 32 read once) summed, then
+// the running count of their spans.
+__device__ __forceinline__ void latent_item(const LatentRows& d, int budget,
+                                            int w, int& b, int& s, int& n) {
+  const int lane = threadIdx.x & 31;
+  long long total = 0;
+  const int h0 = lane < d.rows ? d.horizon(lane) : 0;
+  for (int r0 = 0; r0 < d.rows; r0 += 32) {
+    int h = r0 ? (r0 + lane < d.rows ? d.horizon(r0 + lane) : 0) : h0;
+#pragma unroll
+    for (int o = 16; o; o >>= 1) h += __shfl_xor_sync(0xffffffffu, h, o);
+    total += h;
+  }
+  const int span_keys = latent_span_keys(total, d.rows, budget);
+  b = -1;
+  s = n = 0;
+  int base = 0;
+  for (int r0 = 0; r0 < d.rows; r0 += 32) {
+    const int r = r0 + lane;
+    const int h = r0 ? (r < d.rows ? d.horizon(r) : 0) : h0;
+    const int k = r < d.rows ? latent_row_spans(h, span_keys) : 0;
+    int incl = k;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += x;
+    }
+    const int first = base + incl - k;
+    const unsigned hit =
+        __ballot_sync(0xffffffffu, k > 0 && w >= first && w < first + k);
+    if (hit) {  // the same in every lane
+      const int src = __ffs(hit) - 1;
+      b = r0 + src;
+      s = w - __shfl_sync(0xffffffffu, first, src);
+      n = __shfl_sync(0xffffffffu, k, src);
+    }
+    base += __shfl_sync(0xffffffffu, incl, 31);
+  }
+}
+
+// Block bx of the latent decode rows: query tile qt = bx % q_tiles of KV
+// head kvh of work item w (bx = (w * KV + kvh) * q_tiles + qt), which is
+// span s of row b's n (latent_item); a block past the last item exits.
+// Queries and the output as in ragged_kernel (query j of row b, head h at
+// ((b * decode_q + j) * H + h) * 640). A row of one span writes its bf16
+// rows; otherwise the block writes its partial to slot bx of the scratch
+// (slot_rows rows of 640 f32 at part_o, (m, l) at part_ml, row i * group +
+// g for query j0 + i, head kvh * group + g), and the row's first block
+// leaves (first item, spans) at row_plan[b] for the merge.
+template <typename KVTiles>
+__global__ void __launch_bounds__(kChunkThreads, 1) decode_latent_kernel(
+    const __nv_bfloat16* __restrict__ q, KVTiles kv,
+    const int* __restrict__ tables,  // [num_decode (+ 1), W]
+    LatentRows d, int budget, __nv_bfloat16* __restrict__ out, int H,
+    int KV, int page_size, int W, int lane_width, int positions, float scale,
+    float* __restrict__ part_o, float* __restrict__ part_ml,
+    int2* __restrict__ row_plan, int slot_rows) {
+  constexpr int kD = kLatentDim;
+  extern __shared__ __align__(16) char chunk_smem[];
+  const unsigned smem0 = smem_u32(chunk_smem);
+  char* base = chunk_smem + (((smem0 + 1023) & ~1023u) - smem0);
+  const int q_tiles = (d.decode_q + positions - 1) / positions;
+  const int qt = blockIdx.x % q_tiles;
+  const int kvh = (blockIdx.x / q_tiles) % KV;
+  const int w = blockIdx.x / q_tiles / KV;
+  int b, s, n;
+  latent_item(d, budget, w, b, s, n);
+  if (b < 0) return;  // past the last span (the same for the whole block)
+  if (row_plan && s == 0 && qt == 0 && kvh == 0 && threadIdx.x == 0)
+    row_plan[b] = make_int2(w, n);
+  const int group = H / KV;
+  const int horizon = d.horizon(b);
+  const int span = (horizon + n - 1) / n;
+  const int lo = s * span, hi = min(lo + span, horizon);
+  const int j0 = qt * positions, nq = min(positions, d.decode_q - j0);
+  const int n_rows = nq * group;
+  const long long first = (long long)b * d.decode_q + j0;  // its first query
+
+  float o[kChunkLanes / 8][4], m[2], l[2];
+  latent_walk(base, q, (first * H + kvh * group) * kD, H * kD, kv,
+              PagedRows{tables + (long long)b * W, page_size, lane_width},
+              kvh, n_rows, group, d.q_start(b) + j0, lo, hi, scale, o, m, l);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wrow = (warp & 3) * 16;
+  const int quad = lane >> 2, pair = (lane & 3) * 2;
+  const int d0 = wg * kChunkLanes + pair;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wrow + quad + 8 * h;
+    if (r >= n_rows) continue;
+    if (n == 1) {  // the row's only span: its bf16 rows (zeros if empty)
+      const int i = r / group, g = r - i * group;
+      const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+      __nv_bfloat16* orow = out + ((first + i) * H + kvh * group + g) * kD + d0;
+#pragma unroll
+      for (int j = 0; j < kChunkLanes / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+            __floats2bfloat162_rn(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
+    } else {
+      const long long p = (long long)blockIdx.x * slot_rows + r;
+      float* orow = part_o + p * kD + d0;
+#pragma unroll
+      for (int j = 0; j < kChunkLanes / 8; ++j)
+        *reinterpret_cast<float2*>(orow + j * 8) =
+            make_float2(o[j][2 * h], o[j][2 * h + 1]);
+      if (wg == 0 && pair == 0)
+        *reinterpret_cast<float2*>(part_ml + 2 * p) = make_float2(m[h], l[h]);
+    }
+  }
+}
+
+// Rows of a partial slot of the latent decode rows: a query tile's rows.
+inline int latent_slot_rows(int decode_q, int group) {
+  return std::min(decode_q, tile_positions(group)) * group;
+}
+
+// (m, l, O over 8 lanes) of spans folded online: weights relative to the
+// largest m so far; -inf m is a span that saw nothing
+struct MergeAcc {
+  float big = -INFINITY, denom = 0.f, acc[8] = {0.f, 0.f, 0.f, 0.f,
+                                                  0.f, 0.f, 0.f, 0.f};
+  __device__ __forceinline__ void add(float m, float l, const float* x) {
+    if (m == -INFINITY) return;
+    const float nb = fmaxf(big, m);
+    const float a = exp2f(big - nb), wgt = exp2f(m - nb);  // a = 0 at first
+    denom = denom * a + l * wgt;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = acc[e] * a + x[e] * wgt;
+    big = nb;
+  }
+  // folds in the lane `lane_xor` away among the lanes of `lanes`
+  // (commutative: both lanes get the same bits)
+  __device__ __forceinline__ void combine(unsigned lanes, int lane_xor) {
+    const float ob = __shfl_xor_sync(lanes, big, lane_xor);
+    const float od = __shfl_xor_sync(lanes, denom, lane_xor);
+    float ox[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      ox[e] = __shfl_xor_sync(lanes, acc[e], lane_xor);
+    const float nb = fmaxf(big, ob);
+    if (nb == -INFINITY) return;
+    const float a = big == -INFINITY ? 0.f : exp2f(big - nb);
+    const float oa = ob == -INFINITY ? 0.f : exp2f(ob - nb);
+    denom = denom * a + od * oa;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = acc[e] * a + ox[e] * oa;
+    big = nb;
+  }
+};
+
+// The rows of more than one span: for each (decode query, head, 8 lanes)
+// `lanes` threads (adjacent lanes, 4 or 8) fold every lanes-th of the
+// row's spans' partials online, in span order, then combine in a fixed
+// pattern, and the first writes the bf16 lanes: merge_splits_kernel's formula up to the
+// order of its sums, equal bits run to run. Row b's spans are items
+// row_plan[b].x .. + row_plan[b].y of the walk; rows of one span were
+// written by their block. (static: every source that includes this header
+// keeps its own copy, as the templates' instances are kept.)
+static __global__ void __launch_bounds__(kLatentMergeThreads)
+merge_latent_kernel(const float* __restrict__ part_o,
+                    const float* __restrict__ part_ml,
+                    const int2* __restrict__ row_plan,
+                    __nv_bfloat16* __restrict__ out, int n_pairs,
+                    int decode_q, int H, int KV, int positions,
+                    int slot_rows, int lanes) {
+  constexpr int kChunks = kLatentDim / 8;
+  const long long task =
+      (long long)blockIdx.x * kLatentMergeThreads + threadIdx.x;
+  // the lanes of a (query, head, 8 lanes) leave or stay together
+  if (task >= (long long)n_pairs * kChunks * lanes) return;
+  const int part = (int)(task % lanes);
+  const int c8 = (int)((task / lanes) % kChunks);
+  const int pair = (int)(task / lanes / kChunks);  // query * H + head
+  const int query = pair / H, head = pair - query * H;
+  const int b = query / decode_q, j = query - b * decode_q;
+  const int2 plan = __ldg(row_plan + b);
+  if (plan.y == 1) return;
+  const unsigned group_mask = ((1u << lanes) - 1) << (threadIdx.x & (32 - lanes));
+  const int group = H / KV, kvh = head / group, g = head - kvh * group;
+  const int q_tiles = (decode_q + positions - 1) / positions;
+  const int qt = j / positions, r = (j - qt * positions) * group + g;
+  MergeAcc acc;
+#pragma unroll 4
+  for (int s = part; s < plan.y; s += lanes) {
+    const long long p =
+        (((long long)(plan.x + s) * KV + kvh) * q_tiles + qt) * slot_rows + r;
+    const float2 ml = __ldg(reinterpret_cast<const float2*>(part_ml + 2 * p));
+    const float4* src =
+        reinterpret_cast<const float4*>(part_o + p * kLatentDim + 8 * c8);
+    const float4 x0 = __ldg(src), x1 = __ldg(src + 1);
+    const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    acc.add(ml.x, ml.y, x);
+  }
+  for (int x = 1; x < lanes; x <<= 1) acc.combine(group_mask, x);
+  if (part) return;
+  const float inv = acc.denom > 0.f ? 1.f / acc.denom : 0.f;
+  *reinterpret_cast<uint4*>(out + (long long)pair * kLatentDim + 8 * c8) =
+      make_uint4(pack_bf16(acc.acc[0] * inv, acc.acc[1] * inv),
+                 pack_bf16(acc.acc[2] * inv, acc.acc[3] * inv),
+                 pack_bf16(acc.acc[4] * inv, acc.acc[5] * inv),
+                 pack_bf16(acc.acc[6] * inv, acc.acc[7] * inv));
+}
+
+// merge_latent_kernel over num_decode rows of decode_q queries (see
+// there) on a card of num_sms SMs: 8 threads per (query, head, 8 lanes)
+// where they fit the card at once (the merge then waits on the loads of a
+// long row's spans: phase 3's decode rows on an H100, 4.8 µs against 6.1
+// with 4), 4 where 8 would not (it then waits on its instructions: phase
+// 3's verify windows, 640 (query, head) pairs, 7.9 µs against 9.2 with 8).
+inline int launch_latent_merge(const float* part_o, const float* part_ml,
+                               const int2* row_plan, __nv_bfloat16* out,
+                               int num_decode, int decode_q, int H, int KV,
+                               int num_sms, cudaStream_t stream) {
+  const int group = H / KV;
+  const long long pairs = (long long)num_decode * decode_q * H;
+  const long long tasks = pairs * (kLatentDim / 8);
+  const int lanes = tasks * 8 <= (long long)num_sms * kMaxSmThreads ? 8 : 4;
+  const long long blocks =
+      (tasks * lanes + kLatentMergeThreads - 1) / kLatentMergeThreads;
+  if (num_decode < 1 || pairs > INT_MAX || blocks > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  merge_latent_kernel<<<(unsigned)blocks, kLatentMergeThreads, 0, stream>>>(
+      part_o, part_ml, row_plan, out, (int)pairs, decode_q, H, KV,
+      tile_positions(group), latent_slot_rows(decode_q, group), lanes);
+  return (int)cudaGetLastError();
+}
+
+// 0 where (num_splits, split_keys) is the plan of num_decode latent decode
+// rows of decode_q queries, GQA group, KV heads over max_keys-key tables
+// on the current device (latent_decode_spans, split_keys 0), else the
+// error to return: the entry points refuse a plan other than their own.
+inline int check_latent_plan(int num_decode, int decode_q, int group, int KV,
+                             long long max_keys, int num_splits,
+                             long long split_keys) {
+  int num_sms = 0;
+  const int err = num_sms_of_device(&num_sms);
+  if (err != 0) return err;
+  return split_keys == 0
+                 && num_splits == latent_decode_spans(num_decode, decode_q,
+                                                      group, KV, max_keys,
+                                                      num_sms)
+             ? 0
+             : (int)cudaErrorInvalidValue;
+}
+
+// The latent decode rows of decode.cu (q_starts == nullptr, decode_q = 1)
+// and ragged.cu under a plan check_latent_plan accepted: decode_latent_kernel
+// and, with more than one span a row, merge_latent_kernel, on one stream.
+// q, out and tables start at row 0; the scratch holds num_splits x
+// num_decode x KV x query tiles slots of latent_slot_rows rows (part_o),
+// their (m, l) (part_ml), then the rows' plan (num_decode int2).
+template <typename KVTiles>
+int launch_latent_rows(const void* q, KVTiles kv, const void* tables,
+                       const void* kv_lens, const void* q_starts, void* out,
+                       void* part_o, void* part_ml, int num_decode,
+                       int decode_q, int H, int KV, int page_size, int W,
+                       int lane_width, int num_splits, float scale,
+                       cudaStream_t stream) {
+  const int group = H / KV, positions = tile_positions(group);
+  if (num_splits > 1 && (part_o == nullptr || part_ml == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const long long budget = (long long)num_splits * num_decode;
+  const long long blocks =
+      budget * KV * ((decode_q + positions - 1) / positions);
+  if (blocks > INT_MAX || (long long)W * page_size > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const LatentRows d{(const int*)kv_lens, (const int*)q_starts, num_decode,
+                     decode_q, W * page_size};
+  const int slot_rows = latent_slot_rows(decode_q, group);
+  int2* row_plan = num_splits > 1
+      ? reinterpret_cast<int2*>((float*)part_ml + 2 * blocks * slot_rows)
+      : nullptr;
+  auto kernel = decode_latent_kernel<KVTiles>;
+  cudaError_t set = set_smem(kernel, ChunkSmem<KVTiles>::bytes);
+  if (set != cudaSuccess) return (int)set;
+  kernel<<<(unsigned)blocks, kChunkThreads, ChunkSmem<KVTiles>::bytes,
+           stream>>>((const __nv_bfloat16*)q, kv, (const int*)tables, d,
+                     (int)budget, (__nv_bfloat16*)out, H, KV, page_size, W,
+                     lane_width, positions, scale, (float*)part_o,
+                     (float*)part_ml, row_plan, slot_rows);
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0 || num_splits == 1) return rc;
+  int num_sms = 0;
+  const int err = num_sms_of_device(&num_sms);
+  if (err != 0) return err;
+  return launch_latent_merge((const float*)part_o, (const float*)part_ml,
+                             row_plan, (__nv_bfloat16*)out, num_decode,
+                             decode_q, H, KV, num_sms, stream);
 }
 
 }  // namespace dtt

@@ -83,50 +83,6 @@ __global__ void __launch_bounds__(tile_threads<kD>()) chunk_kernel(
                  TileOut{out, nullptr, nullptr, 0, H});
 }
 
-// The launch of chunk_latent_kernel: clusters of grid.x blocks (the spans
-// of one query tile), kChunkThreads a block.
-struct LatentLaunch {
-  cudaLaunchAttribute cluster[1];
-  cudaLaunchConfig_t cfg = {};
-  LatentLaunch(dim3 grid, size_t smem, cudaStream_t stream) {
-    cluster[0].id = cudaLaunchAttributeClusterDimension;
-    cluster[0].val.clusterDim.x = grid.x;
-    cluster[0].val.clusterDim.y = 1;
-    cluster[0].val.clusterDim.z = 1;
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(kChunkThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cfg.attrs = cluster;
-    cfg.numAttrs = 1;
-  }
-};
-
-template <typename KVTiles>
-int launch_chunk_latent(const void* q, KVTiles kv, const void* pages,
-                        void* out, int C, int H, int KV, int page_size,
-                        int lane_width, int start, int positions, int spans,
-                        float scale, void* clocks, cudaStream_t stream) {
-  cudaError_t err;
-  const int tiles = (C + positions - 1) / positions;
-  // any span count is exact; the wrapper's plan is chunk_spans (also
-  // dtt_chunk_spans), and a measurement may ask for another
-  if (spans < 1 || spans > kMaxChunkSpans || tiles > 65535 || KV > 65535)
-    return (int)cudaErrorInvalidValue;
-  auto kernel = chunk_latent_kernel<KVTiles>;
-  err = set_smem(kernel, ChunkSmem<KVTiles>::bytes);
-  if (err != cudaSuccess) return (int)err;
-  LatentLaunch launch(dim3(spans, tiles, KV), ChunkSmem<KVTiles>::bytes,
-                      stream);
-  err = cudaLaunchKernelEx(&launch.cfg, kernel,
-                           (const __nv_bfloat16*)q, kv, (const int*)pages,
-                           (__nv_bfloat16*)out, C, H, KV, page_size,
-                           lane_width, start, positions, scale,
-                           (unsigned long long*)clocks);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 template <typename KVTiles>
 int launch_chunk(const void* q, KVTiles kv, const void* pages, void* out,
                  int C, int H, int KV, int D, int page_size, int lane_width,

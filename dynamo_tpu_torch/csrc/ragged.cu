@@ -18,7 +18,8 @@
 // Bound on the H100: bytes for the decode rows (each reads its context
 // once, ~1 FLOP per byte per query), operations for the chunk (chunk.cu).
 //
-// Design: two kernels on one stream, counted as one call.
+// Design below head_dim 640: two kernels on one stream, counted as one
+// call.
 // - ragged_kernel, a 1-D grid of (block, KV head) pairs, KV head fastest:
 //   the chunk tiles first, so the longest blocks start first and the short
 //   decode blocks fill the SMs behind them. The chunk tiles are chunk.cu's
@@ -31,9 +32,25 @@
 //   spans of 16k keys, not 512.
 // - merge_splits_kernel (attention_common.cuh), one warp per (decode
 //   query, query head), folds the spans' partials into the bf16 rows.
+// At head_dim 640 (MLA's latent row) two or three kernels on one stream,
+// counted as one call:
+// - the chunk rows run chunk_latent_kernel (chunk.cu's latent tile: query
+//   tiles whose keys are cut into spans merged in a cluster) with the
+//   chunk's start and horizon read from q_starts[num_decode] and
+//   kv_lens[num_decode] on the card; its spans are planned from C and the
+//   table's W * page_size keys (chunk_spans at start W * page_size - C),
+//   so at the same span count a chunk row equals chunk.cu's bit for bit;
+// - the decode and verify rows run decode_latent_kernel and
+//   merge_latent_kernel (attention_common.cuh): latent_decode_spans x
+//   num_decode spans shared out over the rows by their horizons on the
+//   card, each row's horizon cut into equal spans, the query tiles of a
+//   verify window (4 and 1 positions of 16 heads for 5 x 16 rows) walking
+//   the same span side by side, never one after the other; decode.cu's
+//   blocks, so at decode_q = 1 and the same plan a decode row equals
+//   decode.cu's bit for bit.
 // The TPU kernel's sequential grid, which carried one DMA pipeline across
 // the decode and chunk rows, becomes blocks that run in parallel, each
-// with its own cp.async ring.
+// with its own copies in flight.
 #include <limits.h>
 
 #include "attention_common.cuh"
@@ -41,7 +58,7 @@
 namespace dtt {
 
 template <int kD, typename KVTiles>
-__global__ void __launch_bounds__(tile_threads<kD>()) ragged_kernel(
+__global__ void __launch_bounds__(kTileThreads) ragged_kernel(
     const __nv_bfloat16* __restrict__ q,  // [num_decode * decode_q + C, H, D]
     KVTiles kv,                           // pools [P, ps, lane_width]
     const int* __restrict__ tables,       // [num_decode + 1, W]
@@ -62,12 +79,48 @@ __global__ void __launch_bounds__(tile_threads<kD>()) ragged_kernel(
     const int first = num_decode * decode_q + offset;
     const PagedRows rows{tables + (long long)num_decode * W, page_size,
                          lane_width};
-    attend<kD>(q, ((long long)first * H + kvh * group) * kD, H * kD, kv,
+    attend_mma<kD>(q, ((long long)first * H + kvh * group) * kD, H * kD, kv,
                    rows, kvh, min(positions, C - offset), group,
                    /*qpos0=*/q_starts[num_decode] + offset,
                    /*kv_len=*/min(kv_lens[num_decode], W * page_size), 0,
                    INT_MAX, scale, TileOut{out, nullptr, nullptr, 0, H});
   }
+}
+
+// The latent rows (head_dim 640): the chunk on chunk_latent_kernel, then
+// the decode rows on decode_latent_kernel and merge_latent_kernel.
+template <typename KVTiles>
+int launch_ragged_latent(const void* q, KVTiles kv, const void* tables,
+                         const void* kv_lens, const void* q_starts, void* out,
+                         void* part_o, void* part_ml, int num_decode,
+                         int decode_q, int C, int H, int KV, int page_size,
+                         int W, int lane_width, int positions, int num_splits,
+                         int split_keys, float scale, cudaStream_t stream) {
+  const long long max_keys = (long long)W * page_size;
+  const int plan = check_latent_plan(num_decode, decode_q, H / KV, KV,
+                                     max_keys, num_splits, split_keys);
+  if (plan != 0) return plan;
+  if (C > 0) {
+    int num_sms = 0;
+    const int err = num_sms_of_device(&num_sms);
+    if (err != 0) return err;
+    const long long first = (long long)num_decode * decode_q;  // its query 0
+    const int spans = chunk_spans(
+        C, (int)std::min((long long)INT_MAX, std::max(0LL, max_keys - C)),
+        positions, KV, num_sms);
+    const int rc = launch_chunk_latent(
+        (const __nv_bfloat16*)q + first * H * kLatentDim, kv,
+        (const int*)tables + (long long)num_decode * W,
+        (__nv_bfloat16*)out + first * H * kLatentDim, C, H, KV, page_size,
+        lane_width, /*start=*/0, positions, spans, scale, nullptr, stream,
+        (const int*)q_starts + num_decode, (const int*)kv_lens + num_decode,
+        (int)std::min((long long)INT_MAX, max_keys));
+    if (rc != 0) return rc;
+  }
+  if (num_decode == 0) return 0;
+  return launch_latent_rows(q, kv, tables, kv_lens, q_starts, out, part_o,
+                            part_ml, num_decode, decode_q, H, KV, page_size,
+                            W, lane_width, num_splits, scale, stream);
 }
 
 template <typename KVTiles>
@@ -82,13 +135,19 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
   if (C < 0 || num_decode < 0 || decode_q < 1 || W < 1
       || !tile_fits(group, D)
       || (D != kLatentDim && decode_q * group > kTileRows)
-      || positions != tile_positions(group)
-      || (num_decode > 0 && (part_o == nullptr || part_ml == nullptr)))
+      || positions != tile_positions(group))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (D == kLatentDim)
+    return launch_ragged_latent(q, kv, tables, kv_lens, q_starts, out,
+                                part_o, part_ml, num_decode, decode_q, C, H,
+                                KV, page_size, W, lane_width, positions,
+                                num_splits, split_keys, scale, st);
+  if (num_decode > 0 && (part_o == nullptr || part_ml == nullptr))
     return (int)cudaErrorInvalidValue;
   const int plan = check_split_plan((long long)W * page_size, num_decode, KV,
                                     split_keys, num_splits);
   if (plan != 0) return plan;
-  const cudaStream_t st = (cudaStream_t)stream;
   const long long blocks =
       ((long long)num_decode * num_splits + (C + positions - 1) / positions) * KV;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
@@ -97,18 +156,23 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
                   (long long)num_decode * decode_q, num_splits, split_keys};
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    const size_t smem = tile_smem_bytes<KVTiles, kD>();
-    const cudaError_t set = set_smem(ragged_kernel<kD, KVTiles>, smem);
-    if (set != cudaSuccess) return (int)set;
-    ragged_kernel<kD, KVTiles><<<(unsigned)blocks, tile_threads<kD>(), smem,
-                                 st>>>(
-        (const __nv_bfloat16*)q, kv, (const int*)tables, (const int*)kv_lens,
-        (const int*)q_starts, (__nv_bfloat16*)out, num_decode, decode_q, C, H,
-        KV, page_size, W, lane_width, positions, scale, sp);
-    const int rc = (int)cudaGetLastError();
-    if (rc != 0 || num_decode == 0) return rc;
-    return launch_merge<kD>(sp, (__nv_bfloat16*)out, num_decode * decode_q * H,
-                            st);
+    if constexpr (kD == kLatentDim) {
+      return (int)cudaErrorInvalidValue;  // launch_ragged_latent above
+    } else {
+      const size_t smem = tile_smem_bytes<KVTiles, kD>();
+      const cudaError_t set = set_smem(ragged_kernel<kD, KVTiles>, smem);
+      if (set != cudaSuccess) return (int)set;
+      ragged_kernel<kD, KVTiles><<<(unsigned)blocks, kTileThreads, smem,
+                                   st>>>(
+          (const __nv_bfloat16*)q, kv, (const int*)tables,
+          (const int*)kv_lens, (const int*)q_starts, (__nv_bfloat16*)out,
+          num_decode, decode_q, C, H, KV, page_size, W, lane_width,
+          positions, scale, sp);
+      const int rc = (int)cudaGetLastError();
+      if (rc != 0 || num_decode == 0) return rc;
+      return launch_merge<kD>(sp, (__nv_bfloat16*)out,
+                              num_decode * decode_q * H, st);
+    }
   });
 }
 

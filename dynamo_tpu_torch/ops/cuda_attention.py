@@ -15,13 +15,16 @@ ragged kernel's decode rows are split along their keys, one block per
 (row, span, KV head), and the spans merged by a second small kernel. The
 launch plans of the tile (`tile_positions`, `split_plan`) are pure
 functions of host-known sizes. At head_dim 640 (MLA's latent row, one KV
-head shared by 16 query heads) decode, prefill and ragged run
-`attend_latent` instead: the same 64-row tile and launch plans on 16 warps
-that split O's lanes in four, with K/V tiles of 16 keys; chunk.cu runs the
-latent chunk tile (`chunk_latent_kernel`): each query tile's keys cut into
-`chunk_spans` spans, one block each (S and P V on wgmma, 32-key tiles),
-the spans of a query tile one thread-block cluster that merges them in
-shared memory. The three pool-reading
+head shared by 16 query heads) every kernel but prefill runs the latent
+tile's walk (`latent_walk`: 32-key tiles, S and P V on wgmma): chunk.cu
+and ragged's chunk rows as `chunk_latent_kernel`, each query tile's keys
+cut into `chunk_spans` spans, one block each, the spans of a query tile
+one thread-block cluster that merges them in shared memory; decode.cu and
+ragged's decode and verify rows as `decode_latent_kernel`, each row's
+horizon cut into `latent_decode_spans` spans (a verify window's query
+tiles walking the same span side by side), merged by
+`merge_latent_kernel`; prefill.cu runs `attend_latent` (16 warps that
+split O's lanes in four, 16-key tiles). The three pool-reading
 kernels (decode, chunk, ragged) each have a bf16 and an int8 entry point,
 the latter for the packed rows of `kv_cache_dtype="int8"` pools; their
 wrappers take either pool and count the int8 launches under their own
@@ -98,6 +101,9 @@ SPLIT_BLOCKS_PER_SM = 4
 # is cut into
 CHUNK_KEYS = 32
 MAX_CHUNK_SPANS = 8
+# the latent decode rows (attention_common.cuh: kLatentSpanKeys): at most
+# one span per LATENT_SPAN_KEYS keys of the table's width
+LATENT_SPAN_KEYS = 64
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -247,6 +253,10 @@ def build() -> ctypes.CDLL:
         lib.dtt_chunk_max_clusters.restype = ctypes.c_int
         lib.dtt_decode_split_keys.argtypes = [i, i, i, i, i]
         lib.dtt_decode_split_keys.restype = ctypes.c_longlong
+        lib.dtt_latent_decode_spans.argtypes = [i, i, i, i, i, i, i]
+        lib.dtt_latent_decode_spans.restype = ctypes.c_int
+        lib.dtt_latent_merge.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.dtt_latent_merge.restype = ctypes.c_int
         _lib = lib
         return lib
 
@@ -341,8 +351,11 @@ def tile_positions(group: int, head_dim: int) -> int:
 def check_decode_rows(decode_q: int, group: int, head_dim: int) -> int:
     """tile_positions, also refusing decode rows (decode.cu's with
     decode_q = 1, ragged's) of decode_q queries x the group past the
-    tile's rows. The latent tile (head_dim LATENT_DIM) takes any decode_q:
-    its decode blocks walk a row's queries in passes of `positions`."""
+    tile's rows. At head_dim LATENT_DIM any decode_q is taken: a row's
+    queries are cut into query tiles of `positions` positions (a verify
+    window of 5 x 16 rows into 4 and 1), one block each per key span, and
+    the query tiles of a span walk its keys side by side
+    (latent_decode_blocks)."""
     positions = tile_positions(group, head_dim)
     if head_dim != LATENT_DIM and decode_q * group > TILE_ROWS:
         raise ValueError(f"decode_q x GQA group ({decode_q} x {group}) does "
@@ -384,6 +397,99 @@ def split_spans(width: int, page_size: int, num_decode: int, num_kv: int,
     keys = width * page_size
     span = split_keys(width, page_size, num_decode, num_kv, num_sms)
     return [(lo, min(lo + span, keys)) for lo in range(0, keys, span)]
+
+
+def latent_decode_spans(width: int, page_size: int, num_decode: int,
+                        decode_q: int, group: int, num_kv: int,
+                        num_sms: int) -> int:
+    """Key spans a row of the latent decode rows (decode.cu and ragged.cu's
+    decode and verify rows at LATENT_DIM) on average, from host-known
+    sizes only (the library's own plan too, `dtt_latent_decode_spans`):
+    as many as one wave of blocks holds (spans x query tiles x rows x KV
+    heads <= num_sms; at least one), and at most one per LATENT_SPAN_KEYS
+    keys of the table's width * page_size. The launch holds this many
+    times num_decode spans per query tile and KV head; the context
+    lengths live on the card and are never read back: the card shares
+    the spans out over the rows (latent_decode_blocks)."""
+    positions = tile_positions(group, LATENT_DIM)
+    tiles = max(1, num_decode * -(-decode_q // positions) * num_kv)
+    most = max(1, -(-(width * page_size) // LATENT_SPAN_KEYS))
+    return max(1, min(num_sms // tiles, most))
+
+
+def latent_span_keys(total: int, rows: int, budget: int) -> Optional[int]:
+    """Keys a span of the latent decode rows may hold when `budget` spans
+    are shared out over `rows` rows of `total` keys (attention_common.cuh
+    latent_span_keys): the least multiple of CHUNK_KEYS with ceil(h / L)
+    spans for a row of h keys (one for a row with none) within the budget;
+    None (a span a row) where the budget is one a row."""
+    if budget <= rows:
+        return None
+    per = -(-total // (budget - rows))
+    return max(CHUNK_KEYS, -(-per // CHUNK_KEYS) * CHUNK_KEYS)
+
+
+def latent_decode_blocks(width: int, page_size: int, kv_lens, q_starts,
+                         decode_q: int, group: int, num_kv: int,
+                         num_sms: int) -> List[Tuple[int, int, int, int,
+                                                     int, int, int]]:
+    """(row, span, the row's spans, first query, query count, lo, hi) of
+    each block of the latent decode rows for one KV head that has a span
+    to walk, as decode_latent_kernel computes them on the card from the
+    descriptors (q_starts None: decode.cu, a query at kv_len - 1): row r's
+    horizon min(q_start + decode_q, kv_len, width * page_size); the
+    latent_decode_spans x rows spans of the launch shared out by
+    latent_span_keys, a row of h keys cut into ceil(h / L) equal spans
+    (one, walking nothing, for a row with none), each walked by every
+    query tile of `positions` queries. The launch's other blocks, past
+    the last span, exit at once."""
+    positions = tile_positions(group, LATENT_DIM)
+    n = latent_decode_spans(width, page_size, len(kv_lens), decode_q, group,
+                            num_kv, num_sms)
+    horizons = [max(0, min((kv - 1 if q_starts is None else q_starts[r])
+                           + decode_q, kv, width * page_size))
+                for r, kv in enumerate(kv_lens)]
+    span_keys = latent_span_keys(sum(horizons), len(kv_lens),
+                                 n * len(kv_lens))
+    out = []
+    for r, h in enumerate(horizons):
+        k = 1 if h == 0 or span_keys is None else -(-h // span_keys)
+        span = -(-h // k)
+        for s in range(k):
+            for first in range(0, decode_q, positions):
+                out.append((r, s, k, first, min(positions, decode_q - first),
+                            s * span, min((s + 1) * span, h)))
+    return out
+
+
+def latent_scratch_rows(num_decode: int, decode_q: int, group: int,
+                        num_kv: int, spans: int) -> int:
+    """Partial rows (640 f32 lanes, then (m, l)) of the latent decode rows'
+    scratch: a slot of a query tile's rows per block of the launch."""
+    positions = tile_positions(group, LATENT_DIM)
+    return (spans * num_decode * num_kv * -(-decode_q // positions)
+            * min(decode_q, positions) * group)
+
+
+def decode_plan(width: int, page_size: int, num_decode: int, decode_q: int,
+                group: int, num_kv: int, head_dim: int,
+                num_sms: int) -> Tuple[int, int]:
+    """(split_keys, splits) the decode entry points take: split_plan below
+    LATENT_DIM, (0, latent_decode_spans) at it."""
+    if head_dim == LATENT_DIM:
+        return 0, latent_decode_spans(width, page_size, num_decode,
+                                      decode_q, group, num_kv, num_sms)
+    return split_plan(width, page_size, num_decode, num_kv, num_sms)
+
+
+def ragged_chunk_spans(c: int, width: int, page_size: int, group: int,
+                       num_kv: int, num_sms: int) -> int:
+    """Key spans a query tile of ragged.cu's chunk rows at LATENT_DIM: the
+    chunk's start lives on the card, so chunk_spans is planned at the
+    table's end, start = width * page_size - c (the same count as
+    chunk.cu's wherever the key tiles do not bind, as at C = 256)."""
+    return chunk_spans(c, max(0, width * page_size - c), group, LATENT_DIM,
+                       num_kv, num_sms)
 
 
 def chunk_spans(c: int, start: int, group: int, head_dim: int,
@@ -438,15 +544,28 @@ def _num_sms(dev: torch.device) -> int:
                    else dev.index)
 
 
-def _split_scratch(n_splits: int, nd: int, h: int, d: int,
+def _scratch_shape(n_splits: int, num_decode: int, decode_q: int,
+                   group: int, n_kv: int, h: int, d: int
+                   ) -> Tuple[int, int, int, int, int]:
+    """_split_scratch's (n_splits, nd, h, d, extra) for a decode plan:
+    [splits, decode queries, heads] rows below LATENT_DIM;
+    latent_scratch_rows at it, then the rows' plan (an int32 pair a row)."""
+    if d == LATENT_DIM:
+        return (1, latent_scratch_rows(num_decode, decode_q, group, n_kv,
+                                       n_splits), 1, d, 2 * num_decode)
+    return n_splits, num_decode * decode_q, h, d, 0
+
+
+def _split_scratch(n_splits: int, nd: int, h: int, d: int, extra: int,
                    dev: torch.device) -> Tuple[ctypes.c_void_p,
                                                ctypes.c_void_p, torch.Tensor]:
     """The split decode rows' partials, part_o [n_splits, nd, h, d] then
-    part_ml [n_splits, nd, h, 2] f32, in one allocation: (part_o pointer,
-    part_ml pointer, the tensor that owns both)."""
+    part_ml [n_splits, nd, h, 2] f32 and `extra` 4-byte words, in one
+    allocation: (part_o pointer, part_ml pointer, the tensor that owns
+    them)."""
     n_o = n_splits * nd * h * d
-    part = torch.empty((n_o + n_splits * nd * h * 2,), dtype=torch.float32,
-                       device=dev)
+    part = torch.empty((n_o + n_splits * nd * h * 2 + extra,),
+                       dtype=torch.float32, device=dev)
     return (ctypes.c_void_p(part.data_ptr()),
             ctypes.c_void_p(part.data_ptr() + 4 * n_o), part)
 
@@ -457,7 +576,8 @@ def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
     """q [B, H, D] bf16; pools [P, ps, W] bf16 (W = KV*D) or int8 packed
     (with num_kv_heads); block_table [B, Pmax] int32; context_lens [B]
     int32 (incl. the current token) -> [B, H, D]. Each row is split along
-    its keys (split_plan, from B, Pmax and the SM count) and merged."""
+    its keys (decode_plan, from B, Pmax, the group and the SM count) and
+    merged."""
     dev = q.device
     _expect(q, "q", torch.bfloat16, 3, dev)
     _expect(block_table, "block_table", torch.int32, 2, dev)
@@ -465,7 +585,8 @@ def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
     b, h, d = q.shape
     n_kv, width, int8 = _check_pools(k_pages, v_pages, page_size, d,
                                      num_kv_heads, dev)
-    check_decode_rows(1, _gqa_group(h, n_kv), d)
+    group = _gqa_group(h, n_kv)
+    check_decode_rows(1, group, d)
     if block_table.shape[0] != b or context_lens.shape[0] != b:
         raise ValueError("block_table / context_lens batch does not match q")
     pmax = block_table.shape[1]
@@ -475,8 +596,10 @@ def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    span, n_splits = split_plan(pmax, page_size, b, n_kv, _num_sms(dev))
-    part_o, part_ml, _part = _split_scratch(n_splits, b, h, d, dev)
+    span, n_splits = decode_plan(pmax, page_size, b, 1, group, n_kv, d,
+                                 _num_sms(dev))
+    part_o, part_ml, _part = _split_scratch(
+        *_scratch_shape(n_splits, b, 1, group, n_kv, h, d), dev)
     args = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_table),
             _ptr(context_lens), _ptr(out), part_o, part_ml, b, h, n_kv, d,
             page_size, pmax]
@@ -609,15 +732,16 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, kv_lens, q_starts, *,
                          f"do not have num_decode + 1 = {rows} rows")
     positions = check_decode_rows(decode_q, group, d)
     width_pages = tables.shape[1]
-    span, n_splits = split_plan(width_pages, page_size, num_decode, n_kv,
-                                _num_sms(dev))
+    span, n_splits = decode_plan(width_pages, page_size, num_decode,
+                                 decode_q, group, n_kv, d, _num_sms(dev))
     lib = build()
     out = torch.empty_like(q)
     if total == 0:
         return out
     # the decode rows' per-split partials, merged into `out` by the library
-    part_o, part_ml, _part = _split_scratch(n_splits, num_decode * decode_q,
-                                            h, d, dev)
+    part_o, part_ml, _part = _split_scratch(
+        *_scratch_shape(n_splits, num_decode, decode_q, group, n_kv, h, d),
+        dev)
     args = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(tables),
             _ptr(kv_lens), _ptr(q_starts), _ptr(out), part_o, part_ml,
             num_decode, decode_q, c, h, n_kv, d, page_size, width_pages]

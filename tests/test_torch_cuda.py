@@ -505,8 +505,9 @@ def test_ragged_kernel_at_the_families_shapes(dev, int8, n_heads, n_kv, d,
     """The ragged kernel at head_dim 256 (groups 1 and 8), at group 7 (a
     verify row of 5 x 7 = 35 tile rows), at group 8 with head_dim 128
     (qwen3-30b-a3b: 5 x 8 = 40 tile rows) and at MLA's latent row
-    (head_dim 640, group 16: a verify row of 80 rows, two passes of the
-    latent tile): eight rows (context 0 on the
+    (head_dim 640, group 16: a verify row of 80 rows, two query tiles of
+    the latent decode rows walking each span side by side): eight rows
+    (context 0 on the
     trash page, rows across a split boundary, a full table) beside a
     256-token chunk at 512, or alone (C = 0); counted under its head_dim."""
     ps, pmax, nd = 16, 64, 8
@@ -543,7 +544,11 @@ def test_ragged_kernel_at_the_families_shapes(dev, int8, n_heads, n_kv, d,
                                     "chunk", "ragged_verify",
                                     "ragged_verify_int8",
                                     "chunk[head_dim=640]",
-                                    "chunk_int8[head_dim=640]"])
+                                    "chunk_int8[head_dim=640]",
+                                    "decode[head_dim=640]",
+                                    "decode_int8[head_dim=640]",
+                                    "ragged_verify[head_dim=640]",
+                                    "ragged_verify_int8[head_dim=640]"])
 def test_kernels_hold_at_large_values(dev, kernel):
     """V scaled by 40 (output rows of RMS near 5 over about 100 keys, as
     the 8B's activations reach at depth): the error of P V grows with a
@@ -551,8 +556,9 @@ def test_kernels_hold_at_large_values(dev, kernel):
     sees all of it. With P rounded to bf16 once, about 0.1% of the
     elements of each case fell past atol 2e-2 of the f32 version; with P
     in two bf16 parts (attention_common.cuh) only the output's own
-    rounding is left. At head_dim 640 (the latent chunk tile, 16 heads on
-    one KV head) on both pools."""
+    rounding is left. At head_dim 640 (16 heads on one KV head: the
+    latent chunk tile, the latent decode rows and verify windows) on both
+    pools."""
     ps, n_kv, d, h, big = 16, 8, 128, 32, 40.0
     latent = kernel.endswith("[head_dim=640]")
     if latent:
@@ -571,7 +577,7 @@ def test_kernels_hold_at_large_values(dev, kernel):
 
     int8 = kernel.endswith("int8")
     kw = dict(page_size=ps, num_kv_heads=n_kv)
-    if latent:
+    if latent and kernel.startswith("chunk"):
         kp, vp = pools(74, int8)
         pages = _page_list(dev, 64 + 128, ps, 128, seed=9)
         q = _rnd(dev, 128, h, d, seed=76)
@@ -1015,6 +1021,117 @@ def test_latent_chunk_launches_give_equal_bits(dev, int8):
         assert ca.chunk_spans(256, 512, 16, d, 1, sms) == 2
     for n in range(1, ca.MAX_CHUNK_SPANS + 1):
         assert lib.dtt_chunk_max_clusters(n, int(int8)) >= 1
+
+
+def _latent_rows(dev, int8, decode_q, c, seed):
+    """Phase 3's latent shapes (16 heads on one KV head, head_dim 640):
+    pools, 8 decode rows at contexts 0, 1, 17, 100, 255, 600, 1024 and
+    2048 on 128-page tables (verify windows ending there, the row at
+    context 0 on the trash page), and with c > 0 a c-query chunk at 512
+    whose pages are the table's last row -> (q, kp, vp, tables, kv_lens,
+    q_starts, the decode rows' contexts)."""
+    ps, d, h, pmax = 16, 640, 16, 128
+    if int8:
+        kp, vp = _int8_pools(dev, 512, ps, 1, d, seed=seed)
+    else:
+        kp, vp = _rnd(dev, 512, ps, d, seed=seed), _rnd(dev, 512, ps, d,
+                                                          seed=seed + 1)
+    ctx = [0, 1, 17, 100, 255, 600, 1024, 2048]
+    perm = np.random.default_rng(seed).permutation(511) + 1
+    tables = np.zeros((9, pmax), np.int32)
+    used = 0
+    for r, n in enumerate(ctx):
+        tables[r, :-(-n // ps)] = perm[used:used + -(-n // ps)]
+        used += -(-n // ps)
+    tables[8, :-(-(512 + c) // ps)] = perm[:-(-(512 + c) // ps)]
+    q_starts = [max(n - decode_q, 0) for n in ctx] + [512 if c else 0]
+    kv_lens = [n and max(n, s + decode_q) for n, s in zip(ctx, q_starts)]
+    kv_lens += [512 + c if c else 0]
+    q = _rnd(dev, 8 * decode_q + c, h, d, seed=seed + 2)
+    args = [torch.tensor(a, dtype=torch.int32, device=dev)
+            for a in (tables, kv_lens, q_starts)]
+    return (q, kp, vp, *args, ctx)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("decode_q,c", [(1, 0), (1, 256), (5, 0), (5, 256)],
+                         ids=["decode_rows", "mixed", "verify_only",
+                              "verify_rows"])
+def test_latent_decode_rows_at_the_phase3_shapes(dev, int8, decode_q, c):
+    """The latent decode rows (decode_latent_kernel, merge_latent_kernel)
+    at phase 3's shapes on both pools: ragged with decode_q 1 and 5, with
+    and without a 256-token chunk at 512, against its plain version; two
+    launches give equal bits; its decode rows equal decode.cu's at
+    decode_q = 1 (the same blocks under the same plan: 16 spans of at most
+    128 keys on the H100), and its chunk rows equal chunk.cu's (the same
+    cluster blocks at the same span count); decode.cu itself against its
+    plain version; a row at context 0 gives exact zeros."""
+    q, kp, vp, tables, kv_lens, q_starts, ctx = _latent_rows(
+        dev, int8, decode_q, c, seed=91)
+    kw = dict(page_size=16, num_kv_heads=1)
+    rk = dict(kw, num_decode=8, decode_q=decode_q)
+    name = "ragged_int8" if int8 else "ragged"
+    ca.reset_launch_counts()
+    out = ca.ragged_paged_attention(q, kp, vp, tables, kv_lens, q_starts,
+                                    **rk)
+    again = ca.ragged_paged_attention(q, kp, vp, tables, kv_lens, q_starts,
+                                      **rk)
+    ref = att.ragged_paged_attention_ref(q, kp, vp, tables, kv_lens,
+                                         q_starts, **rk)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    assert torch.equal(out, again)
+    assert not out[:decode_q].any()  # context 0: exact zeros
+    assert ca.VARIANT_LAUNCHES[f"{name}[head_dim=640]"] == 2
+    nd = 8 * decode_q
+    if c:
+        chunk = ca.chunk_prefill_attention(q[nd:], kp, vp, tables[8], 512,
+                                           **kw)
+        assert torch.equal(out[nd:], chunk)
+    if decode_q == 1:
+        cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+        dec = ca.paged_attention_decode(q[:nd], kp, vp, tables[:8], cl, **kw)
+        assert torch.equal(out[:nd], dec)
+        ref = att.paged_attention_decode_ref(q[:nd], kp, vp, tables[:8], cl,
+                                             **kw)
+        torch.testing.assert_close(dec.float(), ref.float(), **TOL)
+        assert torch.equal(dec, ca.paged_attention_decode(
+            q[:nd], kp, vp, tables[:8], cl, **kw))
+
+
+def test_latent_decode_plan_agrees_with_the_library_and_is_refused(dev):
+    """The library's latent decode plan (dtt_latent_decode_spans) is the
+    wrapper's (latent_decode_spans), and decode.cu and ragged.cu at head
+    dim 640 refuse any other: another span count, or split keys."""
+    lib = ca.build()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for width, ps, nd, dq, group, n_kv in ((128, 16, 8, 1, 16, 1),
+                                           (128, 16, 8, 5, 16, 1),
+                                           (128, 16, 1, 1, 16, 1),
+                                           (32, 16, 6, 1, 7, 2),
+                                           (1, 16, 300, 5, 16, 1)):
+        assert lib.dtt_latent_decode_spans(width, ps, nd, dq, group, n_kv,
+                                           sms) == \
+            ca.latent_decode_spans(width, ps, nd, dq, group, n_kv, sms)
+    q = _rnd(dev, 8 + 16, 16, 640)
+    kp = _rnd(dev, 8, 16, 640)
+    tables = torch.ones((9, 128), dtype=torch.int32, device=dev)
+    lens = torch.full((9,), 20, dtype=torch.int32, device=dev)
+    out = torch.empty_like(q)
+    n = ca.latent_decode_spans(128, 16, 8, 1, 16, 1, sms)
+    part = torch.empty((n + 1) * 8 * 16 * 642, dtype=torch.float32,
+                       device=dev)
+    for n_splits, span in ((n + 1, 0), (n, 256)):
+        args = [ca._ptr(q), ca._ptr(kp), ca._ptr(kp), ca._ptr(tables),
+                ca._ptr(lens), ca._ptr(out), ca._ptr(part), ca._ptr(part), 8,
+                16, 1, 640, 16, 128]
+        assert lib.dtt_paged_decode(*args, n_splits, span, 0.1,
+                                    ca._stream(q)) != 0
+        rc = lib.dtt_ragged(
+            ca._ptr(q), ca._ptr(kp), ca._ptr(kp), ca._ptr(tables),
+            ca._ptr(lens), ca._ptr(lens), ca._ptr(out), ca._ptr(part),
+            ca._ptr(part), 8, 1, 16, 16, 1, 640, 16, 128, 4, n_splits, span,
+            0.1, ca._stream(q))
+        assert rc != 0
 
 
 def test_latent_row_refuses_tiny_mla_pools(dev):

@@ -526,13 +526,16 @@ def test_latent_pools_and_plans():
     """The pool geometry the kernels see: 640 lanes, 768 in int8 (640
     values, one bf16 scale, padded to 128); the tile's plan takes head_dim
     640 at group 16 (4 positions a block), and its decode rows take a
-    verify window of 5 x 16 = 80 rows in passes."""
+    verify window of 5 x 16 = 80 rows as two query tiles that walk the
+    same key spans side by side (8 spans a row for 8 windows on 128-page
+    tables on an H100)."""
     cfg = PRESETS["deepseek-v2-lite"]
     assert (cfg.cache_head_dim, cfg.cache_kv_heads) == (D, 1)
     assert att.kv_lane_width(1, D, True) == jatt.kv_lane_width(1, D, True)
     assert att.kv_lane_width(1, D, True) == 768
     assert ca.tile_positions(H, D) == 4
     assert ca.check_decode_rows(K + 1, H, D) == 4
+    assert ca.latent_decode_spans(128, 16, 8, K + 1, H, 1, 132) == 8
     with pytest.raises(ValueError, match="built for head_dim"):
         ca.tile_positions(H, 40)  # tiny-mla-debug's rows: the plain path
 

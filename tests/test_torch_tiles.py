@@ -526,3 +526,219 @@ def test_latent_chunk_split_merge_matches_plain_and_pallas(quantized, c,
         jnp.asarray(pages), start, page_size=ps, num_kv_heads=n_kv,
         interpret=True)
     np.testing.assert_allclose(out.numpy(), np.asarray(pallas), **TOL)
+
+
+# The latent decode rows (decode.cu and ragged.cu's decode and verify rows
+# at head_dim 640): phase 3's decode shape, 8 rows on 128-page tables
+PHASE3_CONTEXTS = [0, 1, 17, 100, 255, 600, 1024, 2048]
+
+
+def _latent_descriptors(contexts, decode_q):
+    """(kv_lens, q_starts) of decode rows at `contexts`: decode.cu's
+    (q_starts None, a query at ctx - 1) at decode_q = 1, else verify
+    windows ending at each context (as phase 3 builds them), a row at
+    context 0 seeing no key."""
+    if decode_q == 1:
+        return list(contexts), None
+    q_starts = [max(c - decode_q, 0) for c in contexts]
+    return [c and max(c, s + decode_q) for c, s in zip(contexts, q_starts)], \
+        q_starts
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 3], ids=["h100", "small_card"])
+@pytest.mark.parametrize("decode_q", [1, 5])
+def test_latent_decode_plan_walks_each_visible_triple_once(decode_q, sms):
+    """Each visible (row, query, key) triple of the latent decode rows is
+    walked by exactly one block: the launch's spans shared out over the
+    rows by their horizons, each row's horizon cut into equal spans, the
+    query tiles of a verify window (5 x 16 rows: 4 and 1 positions) each
+    walking every span of its row; no block reads past the table, the
+    spans fit the launch (one wave, or a block a query tile), and at
+    phase 3's decode shape on the H100 no block walks more than 128 keys
+    (64: 66 of the 128 blocks with keys, against 19 of 64 blocks on
+    256-key spans before)."""
+    width, ps, group = 128, 16, 16
+    keys = width * ps
+    kv_lens, q_starts = _latent_descriptors(PHASE3_CONTEXTS, decode_q)
+    blocks = ca.latent_decode_blocks(width, ps, kv_lens, q_starts, decode_q,
+                                     group, 1, sms)
+    n = ca.latent_decode_spans(width, ps, len(kv_lens), decode_q, group, 1,
+                               sms)
+    q_tiles = -(-decode_q // ca.tile_positions(group, 640))
+    launched = n * len(kv_lens) * q_tiles
+    assert len(blocks) <= launched <= max(sms, len(kv_lens) * q_tiles)
+    count = np.zeros((len(kv_lens), decode_q, keys), np.int64)
+    for r, s, k, first, nq, lo, hi in blocks:
+        assert 0 <= s < k and 1 <= nq and nq * group <= ca.TILE_ROWS
+        assert hi <= keys  # the page list is never read past its width
+        q0 = kv_lens[r] - 1 if q_starts is None else q_starts[r]
+        assert k == 1 or lo < hi  # a row of many spans: every one has keys
+        count[r, first:first + nq] += _walked(lo, hi, q0 + first, nq,
+                                              kv_lens[r], keys)
+    for r, kv_len in enumerate(kv_lens):
+        q0 = kv_len - 1 if q_starts is None else q_starts[r]
+        vis = _visible(q0, decode_q, kv_len, keys)
+        assert (count[r][vis] == 1).all() and (count[r][~vis] == 0).all()
+        spans = {b[1] for b in blocks if b[0] == r}
+        assert spans == set(range(blocks[[b[0] for b in blocks].index(r)][2]))
+    walks = [hi - lo for *_, lo, hi in blocks if lo < hi]
+    if sms == H100_SMS:
+        if decode_q == 1:
+            assert (n, launched, len(walks), max(walks)) == (16, 128, 66, 64)
+        else:  # two query tiles a window walking the same spans
+            assert (n, launched, len(walks), max(walks)) == (8, 128, 94, 94)
+            by_span = {}
+            for r, s, k, first, nq, lo, hi in blocks:
+                by_span.setdefault((r, s), set()).add((lo, hi))
+            assert all(len(v) == 1 for v in by_span.values())
+    else:  # one span a row: each row's whole horizon
+        q0 = [c - 1 for c in kv_lens] if q_starts is None else q_starts
+        assert n == 1 and max(walks) == max(
+            min(s + decode_q, c, keys) for c, s in zip(kv_lens, q0))
+
+
+@pytest.mark.parametrize("width,ps,num_decode,decode_q,sms,want", [
+    (128, 16, 8, 1, H100_SMS, 16),   # phase 3's decode: 128 blocks
+    (128, 16, 8, 5, H100_SMS, 8),    # its verify windows: two query tiles
+    (128, 16, 1, 1, H100_SMS, 32),   # one row: a span per 64 keys at most
+    (128, 16, 64, 1, H100_SMS, 2),
+    (128, 16, 256, 5, H100_SMS, 1),  # the rows alone fill the card
+    (1, 16, 8, 1, H100_SMS, 1),      # a table of one page
+    (128, 16, 8, 1, 3, 1)])          # a small card
+def test_latent_decode_plan_reads_only_host_sizes(width, ps, num_decode,
+                                                  decode_q, sms, want):
+    """latent_decode_spans takes the table's width, page_size, the rows,
+    decode_q, the group, the KV heads and the SM count, nothing read from
+    the card, and the launch is that many spans a row: any contexts give
+    the same grid (so a captured decode window or verify step replays at
+    any contexts), and the card's share-out of the spans always fits it."""
+    import inspect
+
+    assert list(inspect.signature(ca.latent_decode_spans).parameters) == [
+        "width", "page_size", "num_decode", "decode_q", "group", "num_kv",
+        "num_sms"]
+    n = ca.latent_decode_spans(width, ps, num_decode, decode_q, 16, 1, sms)
+    assert n == want
+    assert ca.decode_plan(width, ps, num_decode, decode_q, 16, 1,
+                          ca.LATENT_DIM, sms) == (0, n)
+    rng = np.random.default_rng(num_decode + decode_q)
+    for contexts in ([0] * num_decode, [width * ps] * num_decode,
+                     rng.integers(0, width * ps + 1, num_decode).tolist()):
+        kv_lens, q_starts = _latent_descriptors(contexts, decode_q)
+        blocks = ca.latent_decode_blocks(width, ps, kv_lens, q_starts,
+                                         decode_q, 16, 1, sms)
+        items = {(b[0], b[1]) for b in blocks}
+        assert len(items) <= n * num_decode  # the launch's spans suffice
+
+
+def test_ragged_chunk_spans_are_chunk_cu_spans_at_the_mixed_shape():
+    """ragged.cu's chunk rows at head_dim 640 plan their spans from C and
+    the table's keys (the start lives on the card): at phase 3's mixed
+    shape (C = 256 at 512, 128-page tables) and the served chunks they are
+    chunk.cu's spans, so the rows can equal chunk.cu's bit for bit."""
+    for c, start in ((256, 512), (256, 0), (256, 1792), (88, 512)):
+        assert ca.ragged_chunk_spans(c, 128, 16, 16, 1, H100_SMS) == \
+            ca.chunk_spans(c, start, 16, ca.LATENT_DIM, 1, H100_SMS)
+    assert ca.ragged_chunk_spans(256, 128, 16, 16, 1, H100_SMS) == 2
+
+
+def _latent_decode_model(q, kp, vp, tables, kv_lens, q_starts, decode_q, ps,
+                         sms):
+    """The latent decode rows in plain f32: per block of
+    latent_decode_blocks (a query tile against a span of its row's
+    horizon) the unnormalized partial (m in log2 units, l, o as
+    _partials), then _merge over each row's spans -> [rows * decode_q,
+    H, D]."""
+    h, d = q.shape[1], q.shape[2]
+    nrow, width = len(kv_lens), tables.shape[1]
+    k = att._paged_kv(kp, tables[:nrow], 1, d)[:, 0]  # [N, T, D]
+    v = att._paged_kv(vp, tables[:nrow], 1, d)[:, 0]
+    tok = torch.arange(k.shape[1])
+    blocks = ca.latent_decode_blocks(width, ps, kv_lens, q_starts, decode_q,
+                                     h, 1, sms)
+    out = torch.zeros((nrow * decode_q, h, d))
+    for r in range(nrow):
+        n = blocks[[b[0] for b in blocks].index(r)][2]
+        rows = slice(r * decode_q, (r + 1) * decode_q)
+        o = torch.zeros((n, decode_q, h, d))
+        m = torch.full((n, decode_q, h), float("-inf"))
+        l = torch.zeros((n, decode_q, h))
+        q0 = kv_lens[r] - 1 if q_starts is None else q_starts[r]
+        for _, s, _, first, count, lo, hi in (b for b in blocks
+                                              if b[0] == r):
+            if lo >= hi:
+                continue
+            qs = slice(first, first + count)
+            sc = torch.einsum("qhd,td->qht", q[rows][qs].float(), k[r]) * (
+                d ** -0.5 * LOG2E)
+            qpos = q0 + first + torch.arange(count)
+            mask = ((tok[None] >= lo) & (tok[None] < hi)
+                    & (tok[None] <= qpos[:, None]))[:, None]
+            sc = sc.masked_fill(~mask, float("-inf"))
+            mb = sc.amax(-1)
+            p = torch.exp2(sc - torch.where(torch.isfinite(mb), mb,
+                                            0.0)[..., None])
+            o[s, qs], m[s, qs], l[s, qs] = p @ v[r], mb, p.sum(-1)
+        out[rows] = _merge(o, m, l)
+    return out
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 3], ids=["h100", "small_card"])
+@pytest.mark.parametrize("decode_q", [1, 5])
+@pytest.mark.parametrize("quantized", [False, True],
+                         ids=["f32_pool", "int8_pool"])
+def test_latent_decode_split_merge_matches_plain_and_pallas(quantized,
+                                                            decode_q, sms):
+    """The latent decode rows' spans and their merge at head_dim 640, 16
+    query heads on one KV head, on f32 and int8 pools: against the plain
+    ragged attention and the Pallas ragged kernel in interpret mode
+    (ragged.cu's decode and verify rows, beside a 16-token chunk), and at
+    decode_q = 1 against the plain decode attention and the Pallas decode
+    kernel (decode.cu's rows). Rows at context 0, 1, 17, 100, a span
+    boundary inside a page, and a full 20-page table; tolerance 1e-5 (f32
+    throughout)."""
+    h, n_kv, d, ps, width = 16, 1, ca.LATENT_DIM, 16, 20
+    rng = np.random.default_rng(43 + decode_q)
+    kp, vp = _pools(rng, quantized, 64, n_kv, d, ps)
+    ctx = [0, 1, 17, 100, 203, width * ps]
+    nrow = len(ctx)
+    tables = np.zeros((nrow + 1, width), np.int32)
+    perm = rng.permutation(63) + 1
+    used = 0
+    for r, n in enumerate(ctx):
+        k = -(-n // ps)
+        tables[r, :k] = perm[used:used + k]
+        used += k
+    tables[nrow, :1] = perm[used]
+    kv_lens, q_starts = _latent_descriptors(ctx, decode_q)
+    q = rng.normal(size=(nrow * decode_q + 16, h, d)).astype(np.float32)
+    tq, tt = torch.from_numpy(q), torch.from_numpy(tables)
+    out = _latent_decode_model(tq, kp, vp, tt, kv_lens, q_starts, decode_q,
+                               ps, sms)
+    nd = nrow * decode_q
+    assert not out[:decode_q].any()  # context 0: exact zeros
+    rq = [c - 1 for c in kv_lens] if q_starts is None else q_starts
+    desc = [np.array(kv_lens + [16], np.int32), np.array(rq + [0], np.int32)]
+    kw = dict(page_size=ps, num_kv_heads=n_kv, num_decode=nrow,
+              decode_q=decode_q)
+    ref = att.ragged_paged_attention_ref(tq, kp, vp, tt,
+                                         *map(torch.from_numpy, desc), **kw)
+    np.testing.assert_allclose(out.numpy(), ref[:nd].numpy(), **TOL)
+    pallas = ra.ragged_paged_attention(
+        jnp.asarray(q), jnp.asarray(kp.numpy()), jnp.asarray(vp.numpy()),
+        jnp.asarray(tables), *map(jnp.asarray, desc), interpret=True, **kw)
+    # the Pallas kernel leaves a decode row at context 0 NaN (ROADMAP
+    # queue 3, [reference]); every other row agrees
+    np.testing.assert_allclose(out[decode_q:].numpy(),
+                               np.asarray(pallas)[decode_q:nd], **TOL)
+    if decode_q == 1:
+        cl = np.array(ctx, np.int32)
+        ref = att.paged_attention_decode_ref(
+            tq[:nrow], kp, vp, tt[:nrow], torch.from_numpy(cl), page_size=ps,
+            num_kv_heads=n_kv)
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), **TOL)
+        pallas = pa.paged_attention_decode(
+            jnp.asarray(q[:nrow]), jnp.asarray(kp.numpy()),
+            jnp.asarray(vp.numpy()), jnp.asarray(tables[:nrow]),
+            jnp.asarray(cl), page_size=ps, num_kv_heads=n_kv, interpret=True)
+        np.testing.assert_allclose(out.numpy(), np.asarray(pallas), **TOL)
