@@ -7,10 +7,11 @@
                                               # chunked deepseek-v2-lite TTFT
     python3 chip_smoke.py --mla-verify-profile  # phases 1-2, phase 13's
                                                 # captured verify steps
+    python3 chip_smoke.py --mla-prefill-profile  # phases 1-2, phase 13's
+                                                 # profiled full prefill
 
-(`--kernels-only`, `--mla-chunked-ttft` and `--mla-verify-profile` time
-the package beside the script, so a copy of it in an older checkout
-compares trees.)
+(`--kernels-only` and the `--mla-*` options time the package beside the
+script, so a copy of it in an older checkout compares trees.)
 
 Needs one NVIDIA GPU (Hopper: the kernels build for sm_90a) and runs from
 the root of a checkout; it exits non-zero, printing no result, without a
@@ -77,7 +78,14 @@ on failure:
    the card holds at once; they are timed again at the served shapes,
    the ~88-token tail of the 600-token prompt at 512 and a 256-token
    chunk at 0 (`chunk[head_dim=640,group=16,C=88,start=512]`, ...), and
-   two launches must give equal bits.
+   two launches must give equal bits. The prefill rows there run the
+   same clusters over each lane's query tiles (K passed as V, as the
+   model passes MLA's latent rows): each reports the same plan fields
+   (`latent_prefill`) and the time of every span count; they are timed
+   again at the served one-lane buckets
+   (`prefill[head_dim=640,group=16,S=128,lens=100]` and `S=256,lens=256`);
+   two launches must give the same bits, and the 256-token lane those of
+   chunk.cu's chunk at start 0.
 4. The engine for llama-3.1-8b-instruct at full width and depth, random
    bf16 weights from seed 0: a full prefill, a decode step, a chunked
    prefill, a mixed step (the decode row beside a 256-token chunk), a
@@ -244,7 +252,10 @@ on failure:
    speculation (K = 4) on graph-window engines (verify windows alone and
    beside the chunks), each with one captured verify step profiled (its
    device time and the attention's share, `mla_verify_profile`), the
-   capacity path's TTFT and bit identity, and the TTFT of a 2048-token
+   capacity path's TTFT and bit identity, one profiled eager full
+   prefill of a 256-token prompt (the device time of its kernels and of
+   its 27 prefill launches, `mla_prefill_profile`, also run alone by
+   `--mla-prefill-profile`), and the TTFT of a 2048-token
    prompt prefilled in 256-token chunks (eight chunk launches a layer,
    the last at 1792) on bf16 and int8 pools, with the host side of one
    profiled prefill by op (`mla_chunked_ttft`, also run alone by
@@ -541,11 +552,12 @@ def kernel_usage(name: str, head_dim: int = D) -> dict:
 
     def wanted(label: str) -> bool:
         args = label[label.index("<") + 1:-1].split(", ") if "<" in label else []
-        # chunk.cu's latent tile serves head_dim 640 only
-        latent = label.startswith("chunk_latent_kernel")
+        # chunk.cu's and prefill.cu's latent tiles serve head_dim 640 only
+        latent = label.startswith(("chunk_latent_kernel",
+                                   "prefill_latent_kernel"))
         return (all(a == str(head_dim) for a in args if a.isdigit())
                 and all(a.startswith(pool) for a in args if not a.isdigit())
-                and (not latent or (base == "chunk"
+                and (not latent or (base in ("chunk", "prefill")
                                     and head_dim == ca.LATENT_DIM)))
 
     return {k: v for k, v in ptxas_usage(ca.build_log).get(src, {}).items()
@@ -959,7 +971,7 @@ def kernel_checks(dev) -> dict:
 
 # Phase 3's rows at the new families' shapes: (label, H, KV, D, rows).
 # deepseek-v2-lite's MLA latent row (head_dim 640, one KV head for 16
-# query heads: attend_latent), every entry point and pool kind
+# query heads: the latent tile), every entry point and pool kind
 LATENT_KERNELS = ("decode", "decode_int8", "prefill", "chunk", "chunk_int8",
                   "ragged", "ragged_int8", "ragged_verify",
                   "ragged_verify_only", "ragged_int8_verify",
@@ -1044,19 +1056,13 @@ def shape_kernel_checks(dev, label: str, h: int, kv: int, d: int,
     n, s = 4, 256
     lens = torch.tensor([256, 200, 37, 1], dtype=torch.int32, device=dev)
     qp, kk, vv = rnd(n, s, h, d), rnd(n, s, kv, d), rnd(n, s, kv, d)
-    i = torch.arange(s, device=dev)
-    pmask = ((i[None, :] <= i[:, None])[None]
-             & (i[None, None, :] < lens[:, None, None]))[:, None]
-    qt = qp.transpose(1, 2).contiguous()
-    kt = kk.repeat_interleave(h // kv, 2).transpose(1, 2).contiguous()
-    vt = vv.repeat_interleave(h // kv, 2).transpose(1, 2).contiguous()
-    pairs = sum(min(r + 1, int(L)) for L in lens.tolist() for r in range(s))
+    if d == ca.LATENT_DIM:
+        vv = kk  # MLA's prefill passes the latent rows as K and as V
     run("prefill", lambda: ca.prefill_attention(qp, kk, vv, lens),
         lambda: att.prefill_attention_ref(qp, kk, vv, lens),
-        lambda: sdpa(qt, kt, vt, pmask),
-        bound(2 * 2 * qp.numel() + 2 * int(lens.sum()) * kv * d * 2 + 4 * n,
-              4 * pairs * h * d),
-        {"q": [n, s, h, d], "seq_lens": lens.tolist()})
+        prefill_library(qp, kk, vv, lens), prefill_cost(qp, kk, vv, lens),
+        {"q": [n, s, h, d], "seq_lens": lens.tolist(), "k_is_v": vv is kk,
+         **latent_prefill_plan(qp, kk, vv, lens, kv)})
 
     start, c = 512, CHUNK
     width = 1024 // PS + CHUNK // PS - 1
@@ -1166,7 +1172,117 @@ def shape_kernel_checks(dev, label: str, h: int, kv: int, d: int,
             paged_library(qv, kl, vl, table_d, vpos, vpos + k1),
             cost(qv.numel(), vspans, row_bytes, 2 * (MAX_SEQS + 1)),
             {"num_decode": MAX_SEQS, "decode_q": k1, "chunk": 0, **vplan})
+
+    if d == ca.LATENT_DIM and "prefill" in names:
+        # the served one-lane prefills of deepseek-v2-lite: the 128 bucket
+        # of phase 13's ~100-token prompts, and a full 256-token bucket
+        for s2, len2 in ((128, 100), (256, 256)):
+            q2, k2 = rnd(1, s2, h, d), rnd(1, s2, kv, d)
+            l2 = torch.tensor([len2], dtype=torch.int32, device=dev)
+            name = f"prefill[{label},S={s2},lens={len2}]"
+            rows[name] = check(
+                name,
+                lambda q2=q2, k2=k2, l2=l2: ca.prefill_attention(q2, k2, k2,
+                                                                 l2),
+                lambda q2=q2, k2=k2, l2=l2: att.prefill_attention_ref(
+                    q2, k2, k2, l2),
+                prefill_library(q2, k2, k2, l2),
+                prefill_cost(q2, k2, k2, l2),
+                {**shapes, "q": [1, s2, h, d], "seq_lens": [len2],
+                 "k_is_v": True,
+                 **latent_prefill_plan(q2, k2, k2, l2, kv)},
+                head_dim=d)
     return rows
+
+
+def prefill_library(q, k, v, lens):
+    """scaled_dot_product_attention over the prefill's q [N, S, H, D] and
+    k/v [N, S, KV, D] (K/V repeated to every head; not timed) with its
+    causal and seq_len mask."""
+    n, s, h, _ = q.shape
+    kv = k.shape[2]
+    i = torch.arange(s, device=q.device)
+    mask = ((i[None, :] <= i[:, None])[None]
+            & (i[None, None, :] < lens[:, None, None]))[:, None]
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(h // kv, 2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(h // kv, 2).transpose(1, 2).contiguous()
+    return lambda: sdpa(qt, kt, vt, mask)
+
+
+def prefill_cost(q, k, v, lens) -> dict:
+    """The bound of a prefill call: q read and the output written in full
+    (padding rows are part of the output), K and V rows only below
+    seq_len (once where K is V: one tensor), the seq_lens; 4 * H * D
+    FLOPs per visible (query, key) pair."""
+    n, s, h, d = q.shape
+    kv = k.shape[2]
+    pairs = sum(min(r + 1, int(L)) for L in lens.tolist() for r in range(s))
+    kv_tensors = 1 if v is k else 2
+    return bound(2 * 2 * q.numel()
+                 + kv_tensors * int(lens.sum()) * kv * d * 2 + 4 * n,
+                 4 * pairs * h * d)
+
+
+def latent_prefill_plan(q, k, v, lens, n_kv: int) -> dict:
+    """At head_dim 640, prefill.cu's launch: its spans a query tile, its
+    blocks (and those with keys to walk), its longest span, the merge's
+    own time per block (the global timer at the end of a block's key walk
+    and at its exit, mean and max, µs; with one span, the time to write
+    its rows), the launch's span from the first walk's end to the last
+    exit; whether two launches give equal bits and,
+    for one lane at seq_len = S, whether it equals chunk.cu's chunk at
+    start 0 over the same K/V in pages (raises if either differs); and
+    the device ms of every span count from 1 to MAX_CHUNK_SPANS (the
+    evidence for latent_prefill_spans' rule). {} below 640, or
+    where the package beside the script has no such plan (an older
+    tree)."""
+    n, s, h, d = q.shape
+    if d != ca.LATENT_DIM or not hasattr(ca, "latent_prefill_spans"):
+        return {}
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    lens_h = lens.tolist()
+    tiles = ca.prefill_span_keys(s, lens_h, h // n_kv, n_kv, sms)
+    keys = [hi - lo for *_, spans in tiles for lo, hi in spans]
+    clocks = torch.zeros((2 * len(keys) * n_kv,), dtype=torch.int64,
+                         device=q.device)
+    a = ca.prefill_attention(q, k, v, lens, clocks=clocks)
+    got = {"two_launches_equal":
+               torch.equal(ca.prefill_attention(q, k, v, lens), a)}
+    if n == 1 and lens_h[0] == s and s % PS == 0:
+        pk = torch.zeros((s // PS + 1, PS, n_kv * d), dtype=torch.bfloat16,
+                         device=q.device)
+        pv = torch.zeros_like(pk)
+        pk[1:] = k[0].reshape(s // PS, PS, n_kv * d)
+        pv[1:] = v[0].reshape(s // PS, PS, n_kv * d)
+        pages = torch.arange(1, s // PS + 1, dtype=torch.int32,
+                             device=q.device)
+        got["lane_equals_chunk_cu"] = torch.equal(
+            a[0], ca.chunk_prefill_attention(q[0], pk, pv, pages, 0,
+                                             page_size=PS,
+                                             num_kv_heads=n_kv))
+    torch.cuda.synchronize()
+    if not all(got.values()):
+        raise AssertionError(f"prefill at S={s}, lens={lens_h}: {got}")
+    stamps = clocks.reshape(-1, 2).double()
+    merge_us = (stamps[:, 1] - stamps[:, 0]) / 1e3
+    by_spans = {}
+    for sp in range(1, ca.MAX_CHUNK_SPANS + 1):
+        def call(sp=sp):
+            return ca.prefill_attention(q, k, v, lens, spans=sp)
+        by_spans[sp] = {"ms": device_ms(call, 20),
+                        "blocks": sp * len(tiles) * n_kv,
+                        "equals_plan": torch.equal(call(), a)}
+    return {"latent_prefill": {
+        "spans": ca.latent_prefill_spans(n, s, h // n_kv, n_kv, sms),
+        "blocks": len(keys) * n_kv,
+        "blocks_with_keys": sum(1 for x in keys if x > 0) * n_kv,
+        "longest_span_keys": max(keys), "sms": sms,
+        "merge_us_mean": float(merge_us.mean()),
+        "merge_us_max": float(merge_us.max()),
+        "walk_end_to_exit_ms": float(stamps[:, 1].max()
+                                     - stamps[:, 0].min()) / 1e6,
+        **got, "ms_by_spans": by_spans}}
 
 
 def latent_decode_plan(q, width: int, kv_lens, q_starts, decode_q: int,
@@ -3568,6 +3684,8 @@ def mla_phase(eager_cfg: dict, jet_cfg: dict) -> dict:
           **capacity_ttft(engine, eager_cfg)})
     release()
     with torch.inference_mode():
+        emit({"phase": "mla_prefill_profile", "model": model,
+              **mla_prefill_profile(engine)})
         emit({"phase": "mla_chunked_ttft", "model": model,
               **mla_chunked_ttft(engine, eager_cfg)})
     del engine
@@ -3688,6 +3806,63 @@ def mla_chunked_ttft(engine: Engine, eager_cfg: dict) -> dict:
             "ttft_s_runs": times, "profiled_run": profiled}
 
 
+def mla_prefill_profile(engine: Engine) -> dict:
+    """One eager full prefill of a CHUNK-token prompt (its own bucket, one
+    lane: the full-prefill path, not chunked) on `engine` (eager, the
+    MLA model), after an unprofiled one: under torch.profiler, the device
+    time of all its kernels and of the prefill kernel's launches (one a
+    layer), beside the run's wall (the profiler slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prompt = [1 + i % 200 for i in range(CHUNK)]
+    engine.generate(GenRequest("prefill-warm", prompt, max_tokens=1,
+                               ignore_eos=True))
+    ca.reset_launch_counts()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with prof:
+        engine.generate(GenRequest("prefill-profiled", prompt, max_tokens=1,
+                                   ignore_eos=True))
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    busy = prefill_ms = 0.0
+    prefill_kernels = 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = ev.time_range.elapsed_us() / 1e3
+        busy += ms
+        if "prefill_latent_kernel" in ev.name or "prefill_kernel" in ev.name:
+            prefill_ms += ms
+            prefill_kernels += 1
+    layers = engine.model_cfg.num_layers
+    launches = ca.VARIANT_LAUNCHES.get(
+        f"prefill[head_dim={engine.kv_spec.head_dim}]", 0)
+    if launches != layers or prefill_kernels not in (0, layers):
+        raise AssertionError(f"MLA prefill profile: {launches} prefill "
+                             f"launches, {prefill_kernels} traced, not "
+                             f"{layers}")
+    return {"prompt_tokens": CHUNK, "prefill_launches": launches,
+            "wall_ms": wall * 1e3,
+            "device_busy_ms": busy or "not measured",
+            "prefill_kernel_ms": prefill_ms or "not measured",
+            "prefill_kernel_ms_per_launch": (prefill_ms / prefill_kernels
+                                             if prefill_kernels
+                                             else "not measured"),
+            "prefill_share": (prefill_ms / busy if busy
+                              else "not measured")}
+
+
+def mla_prefill_only(eager_cfg: dict) -> None:
+    """`--mla-prefill-profile`: deepseek-v2-lite's engine (random weights
+    from seed 0) and mla_prefill_profile alone."""
+    engine = Engine(EngineConfig(**dict(eager_cfg, model=MLA_MODEL)))
+    with torch.inference_mode():
+        emit({"phase": "mla_prefill_profile", "model": MLA_MODEL,
+              **mla_prefill_profile(engine)})
+
+
 def mla_ttft_only(eager_cfg: dict) -> None:
     """`--mla-chunked-ttft`: deepseek-v2-lite's engine (random weights from
     seed 0) and mla_chunked_ttft alone."""
@@ -3700,9 +3875,10 @@ def mla_ttft_only(eager_cfg: dict) -> None:
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if args not in ([], ["--kernels-only"], ["--mla-chunked-ttft"],
-                    ["--mla-verify-profile"]):
+                    ["--mla-verify-profile"], ["--mla-prefill-profile"]):
         print("usage: chip_smoke.py [--kernels-only | --mla-chunked-ttft | "
-              "--mla-verify-profile]", file=sys.stderr)
+              "--mla-verify-profile | --mla-prefill-profile]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -3730,6 +3906,9 @@ def main(argv=None) -> int:
         return 0
     if args == ["--mla-verify-profile"]:
         mla_verify_only(dict(base_cfg, **BACKEND_PROFILES["jetstream"]))
+        return 0
+    if args == ["--mla-prefill-profile"]:
+        mla_prefill_only(eager_cfg)
         return 0
     rows = kernel_checks(dev)
     family_rows = {label: shape_kernel_checks(dev, label, h, kv, d, names)

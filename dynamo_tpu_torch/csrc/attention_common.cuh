@@ -1,11 +1,12 @@
 // Shared device code of the port's attention kernels (decode.cu, prefill.cu,
 // chunk.cu, ragged.cu): `attend_mma`, the tensor-core query tile all four
-// run below head_dim 640, its K/V policies, `attend_latent` (prefill.cu's
-// tile at head_dim 640), the latent tile's walk `latent_walk` (32-key tiles,
-// S and P V on wgmma) run by `chunk_latent_kernel` (chunk.cu and ragged.cu's
-// chunk rows at 640: key spans merged in a cluster) and by
-// `decode_latent_kernel` (decode.cu and ragged.cu's decode rows at 640: key
-// spans merged by `merge_latent_kernel`), and the split decode rows of
+// run below head_dim 640, its K/V policies, the latent tile's walk
+// `latent_walk` (32-key tiles, S and P V on wgmma) and its cluster block
+// `latent_span_block` (key spans of a query tile merged in a thread-block
+// cluster) run by `chunk_latent_kernel` (chunk.cu and ragged.cu's chunk
+// rows at 640) and by prefill.cu's `prefill_latent_kernel`, the walk run
+// by `decode_latent_kernel` (decode.cu and ragged.cu's decode rows at 640:
+// key spans merged by `merge_latent_kernel`), and the split decode rows of
 // decode.cu and ragged.cu below 640 (`decode_split_block`,
 // `merge_splits_kernel`).
 //
@@ -141,11 +142,11 @@ constexpr size_t kMaxBlockSmem = 232448;  // the H100's per-block limit
 constexpr int kSplitKeys = 256;   // least keys per split of a decode row
 constexpr int kSplitBlocksPerSm = 4;  // most decode blocks per SM, all splits
 // MLA's latent row (DeepSeek-V2: 512 + 64 lanes, padded to 640), run by
-// the latent tiles below instead of attend_mma
+// the latent tile's walk below instead of attend_mma
 constexpr int kLatentDim = 640;
 
-// The head_dims the tile is compiled for (with_head_dim): those of the
-// port's servable presets.
+// The head_dims the kernels take: attend_mma's (with_head_dim) and the
+// latent row, those of the port's servable presets.
 inline bool tile_head_dim(int d) {
   return d == 32 || d == 64 || d == 128 || d == 256 || d == kLatentDim;
 }
@@ -396,64 +397,19 @@ __host__ __device__ constexpr int ring_stages() {
              ? kMaxStages : 2;
 }
 
-// The latent tile (attend_latent): 16 warps, K/V tiles of 16 keys, three
-// ring stages, and the four lane quarters' score partials in f32.
-constexpr int kLatentThreads = 512;
-constexpr int kLatentKeys = 16;
-constexpr int kLatentStages = 3;
-constexpr int kLatentQuarter = kLatentDim / 4;  // lanes of a warp's share
-constexpr int kLatentSld = kLatentKeys + 4;  // padded row of the partials
-
-template <typename KVTiles>
-__host__ __device__ constexpr size_t latent_stage_bytes() {
-  return KVTiles::kInt8
-             ? 2 * (size_t)kLatentKeys * kLatentDim + 2 * kLatentKeys * 16
-             : 2 * (size_t)kLatentKeys * (kLatentDim + 8)
-                   * sizeof(__nv_bfloat16);
-}
-
-template <typename KVTiles>
-__host__ __device__ constexpr size_t latent_work_bytes() {
-  return KVTiles::kInt8
-             ? 2 * (size_t)kLatentKeys * (kLatentDim + 8)
-                       * sizeof(__nv_bfloat16)
-                   + 2 * kLatentKeys * sizeof(float)
-             : 0;
-}
-
-// q's tile, the ring, the int8 work area, the score partials: 227,840
-// bytes for bf16 pools, 208,000 for int8 ones
-template <typename KVTiles>
-__host__ __device__ constexpr size_t latent_smem_bytes() {
-  return (size_t)kTileRows * (kLatentDim + 8) * sizeof(__nv_bfloat16)
-         + kLatentStages * latent_stage_bytes<KVTiles>()
-         + latent_work_bytes<KVTiles>()
-         + 4 * (size_t)kTileRows * kLatentSld * sizeof(float);
-}
-
-// threads of a block of the tile at head_dim kD
-template <int kD>
-__host__ __device__ constexpr int tile_threads() {
-  return kD == kLatentDim ? kLatentThreads : kTileThreads;
-}
-
+// shared memory of an attend_mma block at head_dim kD
 template <typename KVTiles, int kD>
 inline size_t tile_smem_bytes() {
-  if constexpr (kD == kLatentDim) {
-    constexpr size_t bytes = latent_smem_bytes<KVTiles>();
-    static_assert(bytes <= kMaxBlockSmem, "attend_latent's shared memory");
-    return bytes;
-  } else {
-    constexpr size_t bytes =
-        tile_smem_with<KVTiles>(kD, ring_stages<KVTiles, kD>());
-    static_assert(bytes <= kMaxBlockSmem, "attend_mma's shared memory");
-    return bytes;
-  }
+  constexpr size_t bytes =
+      tile_smem_with<KVTiles>(kD, ring_stages<KVTiles, kD>());
+  static_assert(bytes <= kMaxBlockSmem, "attend_mma's shared memory");
+  return bytes;
 }
 
 // Runs fn(std::integral_constant<int, D>{}) for the head_dim d, one of
-// tile_head_dim's: the tile is compiled for each, so its loops over D are
-// straight-line code. Refuses any other d.
+// attend_mma's (32, 64, 128, 256): the tile is compiled for each, so its
+// loops over D are straight-line code. Refuses any other d (the latent
+// row runs its own kernels).
 template <typename Fn>
 inline int with_head_dim(int d, Fn&& fn) {
   switch (d) {
@@ -461,7 +417,6 @@ inline int with_head_dim(int d, Fn&& fn) {
     case 64: return fn(std::integral_constant<int, 64>{});
     case 128: return fn(std::integral_constant<int, 128>{});
     case 256: return fn(std::integral_constant<int, 256>{});
-    case kLatentDim: return fn(std::integral_constant<int, kLatentDim>{});
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -789,308 +744,15 @@ __device__ __forceinline__ void attend_mma(
 }
 
 // ---------------------------------------------------------------------------
-// attend_latent: prefill.cu's query tile at head_dim 640, MLA's latent row.
+// The latent tile: chunk.cu and prefill.cu at head_dim 640
+// (chunk_latent_kernel, prefill.cu's prefill_latent_kernel).
 //
-// The contract of attend_mma (rows r = i * group + g of one KV head, the
-// general mask, zeros for a row that sees no key) with bf16 rows out (the
-// decode rows at 640 run decode_latent_kernel), for the one shape that
-// attend_mma cannot hold: at
-// D = 640 a warp's 16 rows of f32 O are 320 registers a thread, and q's
-// tile plus one 64-key bf16 K/V stage (82,944 + 165,888 bytes) pass the
-// block's 232,448 bytes of shared memory. So the block has 16 warps
-// (kLatentThreads): warp w owns row block rb = w / 4 (rows 16 rb .. + 15)
-// and lane quarter dq = w % 4 (lanes 160 dq .. + 159), and walks the keys
-// in tiles of kLatentKeys = 16 through a three-stage cp.async ring (one
-// warp copies each key's K and V rows):
-//   - S: warp (rb, dq) multiplies its rows' q by the tile's K over its own
-//     160 lanes only (10 k16 steps, mma.sync m16n8k16, f32), and leaves the
-//     16 x 16 partial in shared memory; after a barrier each warp of row
-//     block rb sums the four quarters' partials in the same order, so the
-//     four hold the same scores, the same (m, l) and the same P;
-//   - the online softmax as attend_mma's (scale in log2 units, exp2f, a
-//     row's max and sum over the four lanes that share it; int8 scales
-//     folded in f32);
-//   - O += P V for the warp's own 160 lanes of V: 20 n8 blocks, 80 f32
-//     registers, P in two bf16 parts as in attend_mma.
-// No merge between warps is needed: every key of a row block passes
-// through all four of its warps. Each warp writes its quarter of its rows.
-// K and V are read from their own pools, as the plain versions do, though
-// an MLA pool pair holds the same row twice.
-template <typename KVTiles, typename Rows>
-__device__ __forceinline__ void attend_latent(
-    const __nv_bfloat16* __restrict__ q, long long q_off, int q_row_stride,
-    KVTiles kv, Rows rows, int kvh, int nq, int group, int qpos0, int kv_len,
-    int key_lo, int key_hi, float scale, TileOut dst) {
-  constexpr int kD = kLatentDim, ld = kD + 8, kK = kLatentKeys;
-  constexpr int kStages = kLatentStages, kQ = kLatentQuarter;
-  constexpr size_t kStage = latent_stage_bytes<KVTiles>();
-  extern __shared__ __align__(16) char tile_smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wrow = (warp >> 2) * 16, dq = warp & 3, d0 = dq * kQ;
-  const int quad = lane >> 2, pair = (lane & 3) * 2;
-  const int n_rows = nq * group;
-  const int lo = key_lo;
-  const int hi = min(min(qpos0 + nq, kv_len), key_hi);
-
-  if (lo >= hi) {  // no key in range: zeros
-    for (int idx = tid; idx < n_rows * kD; idx += kLatentThreads) {
-      const int r = idx / kD, dd = idx - r * kD, i = r / group, g = r - i * group;
-      dst.out[q_off + (long long)i * q_row_stride + g * kD + dd] =
-          __float2bfloat16(0.f);
-    }
-    return;
-  }
-
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tile_smem);  // [64][ld]
-  char* ring = tile_smem + (size_t)kTileRows * ld * sizeof(__nv_bfloat16);
-  char* work = ring + kStages * kStage;
-  float* part = reinterpret_cast<float*>(work + latent_work_bytes<KVTiles>());
-  const int n_tiles = (hi - lo + kK - 1) / kK;
-
-  // Copies: warp `slot` copies key slot `slot` of a tile (K and V rows,
-  // 16 bytes a lane); a key at or past hi is zero-filled, never addressed.
-  const int slot = warp;
-  auto fetch = [&](int t) {
-    char* stage = ring + (t % kStages) * kStage;
-    const int tok = lo + t * kK + slot;
-    const long long row = tok < hi ? rows(tok) : -1;
-    const bool ok = row >= 0;
-    const long long off = row + (long long)kvh * kD;
-    if constexpr (KVTiles::kInt8) {
-      char* kd = stage + slot * kD;
-      char* vd = kd + kK * kD;
-      for (int c = lane; c < kD / 16; c += 32) {
-        cp_async16(kd + c * 16, ok ? kv.k + off + c * 16 : kv.k, ok);
-        cp_async16(vd + c * 16, ok ? kv.v + off + c * 16 : kv.v, ok);
-      }
-      if (lane < 2) {  // the chunks of K's and V's scales
-        const int8_t* src = lane ? kv.v : kv.k;
-        cp_async16(stage + 2 * kK * kD + (lane * kK + slot) * 16,
-                   ok ? src + row + kv.kvd + 16 * (kvh / 8) : src, ok);
-      }
-    } else {
-      __nv_bfloat16* kd = reinterpret_cast<__nv_bfloat16*>(stage) + slot * ld;
-      __nv_bfloat16* vd = kd + kK * ld;
-      for (int c = lane; c < kD / 8; c += 32) {
-        cp_async16(kd + c * 8, ok ? kv.k + off + c * 8 : kv.k, ok);
-        cp_async16(vd + c * 8, ok ? kv.v + off + c * 8 : kv.v, ok);
-      }
-    }
-  };
-
-  // q rows (zero rows past n_rows) join the first tile's group
-  for (int idx = tid; idx < kTileRows * (kD / 8); idx += kLatentThreads) {
-    const int r = idx / (kD / 8), c = idx - r * (kD / 8);
-    const int i = r / group, g = r - i * group;
-    const bool valid = r < n_rows;
-    const __nv_bfloat16* src =
-        valid ? q + q_off + (long long)i * q_row_stride + g * kD + c * 8 : q;
-    cp_async16(qs + r * ld + c * 8, src, valid);
-  }
-#pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
-    if (t < n_tiles) fetch(t);
-    cp_async_commit();
-  }
-
-  const bool active = wrow < n_rows;
-  int qlim[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) qlim[h] = qpos0 + (wrow + quad + 8 * h) / group;
-  const float sl2 = scale * 1.4426950408889634f;  // 1/sqrt(D) in log2 units
-  float o[kQ / 8][4];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < kQ / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<kStages - 2>();  // tile t (and q) have landed
-    // every warp is past tile t - 1: its stage, the work area and the
-    // partials are free again
-    __syncthreads();
-    if (t + kStages - 1 < n_tiles) fetch(t + kStages - 1);
-    cp_async_commit();
-    char* stage = ring + (t % kStages) * kStage;
-    const __nv_bfloat16* kt;
-    const float* ksc = nullptr;
-    if constexpr (KVTiles::kInt8) {
-      widen_int8_rows<kD, 2 * kK, kLatentThreads>(stage, work, kvh, tid);
-      __syncthreads();
-      kt = reinterpret_cast<const __nv_bfloat16*>(work);
-      ksc = reinterpret_cast<const float*>(kt + 2 * kK * ld);
-    } else {
-      kt = reinterpret_cast<const __nv_bfloat16*>(stage);
-    }
-    const __nv_bfloat16* vt = kt + kK * ld;
-    const int k0 = lo + t * kK;
-
-    // this quarter's partial scores of the row block's 16 rows x 16 keys
-    if (active) {
-      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int kk = 0; kk < kQ / 16; ++kk) {
-        unsigned a[4], b[4];
-        ldsm_x4(a, qs + (wrow + (lane & 15)) * ld + d0 + kk * 16
-                       + ((lane >> 4) << 3));
-        ldsm_x4(b, kt + ((lane & 7) + ((lane >> 4) << 3)) * ld + d0
-                       + kk * 16 + (((lane >> 3) & 1) << 3));
-        mma_bf16(s[0], a, b[0], b[1]);
-        mma_bf16(s[1], a, b[2], b[3]);
-      }
-      float* pw = part + (dq * kTileRows + wrow) * kLatentSld;
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<float2*>(pw + (quad + 8 * h) * kLatentSld
-                                     + j * 8 + pair) =
-              make_float2(s[j][2 * h], s[j][2 * h + 1]);
-    }
-    __syncthreads();  // every quarter's partial is in
-    if (!active) continue;
-
-    // the full scores (the quarters summed in order), scaled and masked;
-    // s[j][2h + e] is row quad + 8h, key k0 + j * 8 + pair + e
-    float s[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float2 x = make_float2(0.f, 0.f);
-#pragma unroll
-        for (int pq = 0; pq < 4; ++pq) {
-          const float2 y = *reinterpret_cast<const float2*>(
-              part + (pq * kTileRows + wrow + quad + 8 * h) * kLatentSld
-              + j * 8 + pair);
-          x.x += y.x;
-          x.y += y.y;
-        }
-        s[j][2 * h] = x.x;
-        s[j][2 * h + 1] = x.y;
-      }
-    const bool edge = k0 + kK > hi || k0 + kK - 1 > qpos0;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = j * 8 + pair + e, tok = k0 + key;
-        float f = sl2;
-        if constexpr (KVTiles::kInt8) f = sl2 * ksc[key];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float x = s[j][2 * h + e] * f;
-          if (edge && !(tok < hi && tok <= qlim[h])) x = -INFINITY;
-          s[j][2 * h + e] = x;
-          mx[h] = fmaxf(mx[h], x);
-        }
-      }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);
-      // never exp(-inf - -inf): a row that has seen nothing keeps 0s
-      const float base = m_new == -INFINITY ? 0.f : m_new;
-      alpha[h] = exp2f(m[h] - base);
-      m[h] = m_new;
-      l[h] *= alpha[h];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = exp2f(s[j][2 * h + e] - base);
-          s[j][2 * h + e] = p;
-          l[h] += p;
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < kQ / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-
-    // O += P V over this quarter's lanes: the tile's 16 keys are one k16
-    // step, P (times V's int8 scales) in two bf16 parts
-    float p[2][4];
-#pragma unroll
-    for (int hb = 0; hb < 2; ++hb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float vs = 1.f;
-        if constexpr (KVTiles::kInt8) vs = ksc[kK + hb * 8 + pair + (e & 1)];
-        p[hb][e] = s[hb][e] * vs;
-      }
-    unsigned a[4], a_lo[4];
-    split_bf16(p[0][0], p[0][1], a[0], a_lo[0]);
-    split_bf16(p[0][2], p[0][3], a[1], a_lo[1]);
-    split_bf16(p[1][0], p[1][1], a[2], a_lo[2]);
-    split_bf16(p[1][2], p[1][3], a[3], a_lo[3]);
-    const __nv_bfloat16* vrow =
-        vt + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + d0
-        + ((lane >> 4) << 3);
-#pragma unroll
-    for (int db = 0; db < kQ / 16; ++db) {
-      unsigned b[4];
-      ldsm_x4_trans(b, vrow + db * 16);
-      mma_bf16(o[2 * db], a, b[0], b[1]);
-      mma_bf16(o[2 * db + 1], a, b[2], b[3]);
-      mma_bf16(o[2 * db], a_lo, b[0], b[1]);
-      mma_bf16(o[2 * db + 1], a_lo, b[2], b[3]);
-    }
-  }
-  cp_async_wait<0>();
-
-  if (!active) return;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = wrow + quad + 8 * h;
-    if (r >= n_rows) continue;
-    const int i = r / group, g = r - i * group;
-    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
-    __nv_bfloat16* orow =
-        dst.out + q_off + (long long)i * q_row_stride + g * kD + d0;
-#pragma unroll
-    for (int j = 0; j < kQ / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + pair) =
-          __floats2bfloat162_rn(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
-  }
-}
-
-// The tile of head_dim kD: attend_latent at kLatentDim, attend_mma below.
-// A block runs tile_threads<kD>() threads and tile_smem_bytes of shared
-// memory.
-template <int kD, typename KVTiles, typename Rows>
-__device__ __forceinline__ void attend(
-    const __nv_bfloat16* __restrict__ q, long long q_off, int q_row_stride,
-    KVTiles kv, Rows rows, int kvh, int nq, int group, int qpos0, int kv_len,
-    int key_lo, int key_hi, float scale, TileOut dst) {
-  if constexpr (kD == kLatentDim)
-    attend_latent(q, q_off, q_row_stride, kv, rows, kvh, nq, group, qpos0,
-                  kv_len, key_lo, key_hi, scale, dst);
-  else
-    attend_mma<kD>(q, q_off, q_row_stride, kv, rows, kvh, nq, group, qpos0,
-                   kv_len, key_lo, key_hi, scale, dst);
-}
-
-// ---------------------------------------------------------------------------
-// The latent chunk tile: chunk.cu at head_dim 640 (chunk_latent_kernel).
-//
-// A query tile is attend_latent's (64 rows = positions x the GQA group of
-// one KV head), but its keys [0, horizon) are cut into `spans` equal spans
-// (chunk_spans: 1, 2, 4 or 8), one block each, and the blocks of a query
-// tile form one thread-block cluster that merges their partials through
-// distributed shared memory (no scratch in device memory). A block of
+// A query tile is attend_mma's (64 rows = positions x the GQA group of one
+// KV head), but its keys [0, horizon) are cut into `spans` equal spans
+// (chunk_spans, latent_prefill_spans: 1, 2, 4 or 8), one block each, and
+// the blocks of a query tile form one thread-block cluster that merges
+// their partials through distributed shared memory (no scratch in device
+// memory; latent_span_block). A block of
 // kChunkThreads = two warpgroups walks its span in tiles of kChunkKeys = 32
 // keys:
 //   - S = Q K^T with wgmma (m64n32k16, both operands in shared memory in the
@@ -1162,23 +824,45 @@ struct ChunkSmem {
                 "the latent chunk tile's shared memory");
 };
 
-// Spans per query tile of chunk_latent_kernel for a C-query chunk at
-// `start` in query tiles of `positions` positions, with KV heads, on a card
-// of num_sms SMs: the largest power of two up to kMaxChunkSpans whose
-// blocks (spans x tiles x KV, one a SM) still run in one wave, and at most
-// the key tiles of the longest query tile's horizon (start + C). Clusters
-// of 2, 4 and 8 blocks fill an H100's GPCs (132, 120 and 120 of its SMs at
-// once); 3, 5 or 6 leave 15-30 SMs idle, and a second wave costs more
-// than the longer spans of fewer blocks (PERF.md, the span sweep).
-inline int chunk_spans(int C, int start, int positions, int KV, int num_sms) {
-  const long long tiles = (long long)((C + positions - 1) / positions) * KV;
-  const long long key_tiles =
-      ((long long)start + C + kChunkKeys - 1) / kChunkKeys;
+// SMs of a card of num_sms that clusters of n blocks fill at once: all
+// for n <= 2; 10/11 of them for larger clusters, which must fit a GPC (an
+// H100 holds 30 clusters of 4 and 15 of 8: 120 of its 132 SMs; PERF.md)
+inline long long cluster_sms(int n, int num_sms) {
+  return n <= 2 ? num_sms : (long long)num_sms * 10 / 11;
+}
+
+// Spans per query tile of a latent-tile launch of `tiles` query tiles (of
+// every KV head and lane) whose longest horizon holds `keys` keys, on a
+// card of num_sms SMs: the largest power of two up to kMaxChunkSpans whose
+// blocks (spans x tiles, one a SM) still run in one wave (cluster_sms),
+// and at most the 32-key tiles of the longest horizon. Clusters of 3, 5 or
+// 6 blocks leave 15-30 SMs idle, and a second wave costs more than the
+// longer spans of fewer blocks (PERF.md, the span sweep).
+inline int cluster_spans(long long tiles, long long keys, int num_sms) {
+  const long long key_tiles = (keys + kChunkKeys - 1) / kChunkKeys;
   int n = 1;
-  while (2 * n <= kMaxChunkSpans && 2 * n * tiles <= num_sms
+  while (2 * n <= kMaxChunkSpans
+         && 2 * n * tiles <= cluster_sms(2 * n, num_sms)
          && 2 * n <= key_tiles)
     n *= 2;
   return n;
+}
+
+// chunk_latent_kernel's spans for a C-query chunk at `start` in query
+// tiles of `positions` positions, with KV heads
+inline int chunk_spans(int C, int start, int positions, int KV, int num_sms) {
+  return cluster_spans((long long)((C + positions - 1) / positions) * KV,
+                       (long long)start + C, num_sms);
+}
+
+// prefill_latent_kernel's spans for N lanes of S positions in query tiles
+// of `positions` positions, with KV heads: chunk_spans over every lane's
+// query tiles, so one lane is chunk.cu's chunk of S queries at start 0.
+// From host sizes only: the lanes' seq_lens stay on the card.
+inline int latent_prefill_spans(int N, int S, int positions, int KV,
+                                int num_sms) {
+  return cluster_spans(
+      (long long)N * ((S + positions - 1) / positions) * KV, S, num_sms);
 }
 
 __device__ __forceinline__ void fence_proxy_async() {
@@ -1430,20 +1114,20 @@ __device__ __forceinline__ void merge_spans(
   }
 }
 
-// The walk of one block of the latent tile (chunk_latent_kernel, and the
+// The walk of one block of the latent tile (latent_span_block, and the
 // latent decode rows below) over its keys [lo, hi): q rows r = i * group +
 // g (n_rows of them real, the rest zero) of KV head kvh, query i at qpos0 +
 // i seeing key tok iff tok <= qpos0 + i and tok < hi (the caller puts hi at
 // or below the horizon kv_len). Leaves this thread's unnormalized (O, m, l)
 // in o, m and l (m in log2 units, l summed over the row's four lanes): O
 // lanes wg * kChunkLanes + 8 j + pair + e of rows wrow + quad + 8 h, as
-// chunk_latent_kernel's header describes. An empty range leaves O = 0,
+// the latent tile's header describes. An empty range leaves O = 0,
 // m = -inf, l = 0. Every thread of the block calls it with the same range;
 // `base` is the 1024-byte aligned shared memory of ChunkSmem.
-template <typename KVTiles>
+template <typename KVTiles, typename Rows>
 __device__ __forceinline__ void latent_walk(
     char* base, const __nv_bfloat16* __restrict__ q, long long q_off,
-    int q_row_stride, KVTiles kv, PagedRows rows, int kvh, int n_rows,
+    int q_row_stride, KVTiles kv, Rows rows, int kvh, int n_rows,
     int group, int qpos0, int lo, int hi, float scale,
     float (&o)[kChunkLanes / 8][4], float (&m)[2], float (&l)[2]) {
   using L = ChunkSmem<KVTiles>;
@@ -1733,61 +1417,66 @@ __device__ __forceinline__ void latent_walk(
   }
 }
 
-// Block (span, query tile, KV head) of a C-query chunk at `start` over the
-// page list `pages` (rows r = i * group + g, positions start + i0 ..): the
-// walk of its span, then the cluster's merge into out's bf16 rows. The
-// query tile's horizon is min(start + i0 + nq, kv_len) with kv_len =
-// start + C (chunk.cu), or, with `desc_start` (ragged.cu's chunk rows),
-// start = *desc_start and kv_len = min(*desc_kv_len, max_keys) read on the
-// card: the same blocks and spans, so equal inputs give chunk.cu's bits.
-// With `clocks`, thread 0 stamps the global timer when its walk ends and
-// when the block is done: clocks[2 * block + {0, 1}] (the merge's own
-// time).
-template <typename KVTiles>
-__global__ void __launch_bounds__(kChunkThreads, 1) chunk_latent_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [C, H, 640]
-    KVTiles kv,                           // pools [P, ps, lane_width]
-    const int* __restrict__ pages,        // [W]
-    __nv_bfloat16* __restrict__ out,      // [C, H, 640]
-    int C, int H, int KV, int page_size, int lane_width, int start,
-    int positions, float scale, unsigned long long* __restrict__ clocks,
-    const int* __restrict__ desc_start, const int* __restrict__ desc_kv_len,
-    int max_keys) {
-  constexpr int kD = kLatentDim;
-  extern __shared__ __align__(16) char chunk_smem[];
-  const unsigned smem0 = smem_u32(chunk_smem);
-  char* base = chunk_smem + (((smem0 + 1023) & ~1023u) - smem0);
+// This thread's lanes of one output row from the walk's unnormalized O
+// (its row h) and l: O / l in bf16 at orow (the row's start plus this
+// thread's first lane), zeros where l = 0 (a row that saw no key)
+__device__ __forceinline__ void store_latent_row(
+    const float (&o)[kChunkLanes / 8][4], int h, float l,
+    __nv_bfloat16* __restrict__ orow) {
+  const float inv = l > 0.f ? 1.f / l : 0.f;
+#pragma unroll
+  for (int j = 0; j < kChunkLanes / 8; ++j)
+    *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+        __floats2bfloat162_rn(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
+}
 
+// One block of a latent-tile launch whose grid's x runs over the key spans
+// of a query tile (a thread-block cluster of gridDim.x blocks): the walk of
+// span blockIdx.x of the query tile's keys [0, horizon), then the
+// cluster's merge into out's bf16 rows at the q addressing (q_off,
+// q_row_stride); a query tile of one span writes its rows from the walk's
+// registers (the merge's formula for one span: weight 1, then 1 / l, so
+// the same bits). `smem` is the kernel's dynamic shared memory
+// (ChunkSmem's bytes). With `clocks`, thread 0 stamps the global timer
+// when its walk ends and when the block is done: clocks[2 * block + {0,
+// 1}] with block the block's linear index (the merge's own time).
+template <typename KVTiles, typename Rows>
+__device__ __forceinline__ void latent_span_block(
+    char* smem, const __nv_bfloat16* __restrict__ q, long long q_off,
+    int q_row_stride, KVTiles kv, Rows rows, int kvh, int n_rows, int group,
+    int qpos0, int horizon, float scale, __nv_bfloat16* __restrict__ out,
+    unsigned long long* __restrict__ clocks) {
+  const unsigned smem0 = smem_u32(smem);
+  char* base = smem + (((smem0 + 1023) & ~1023u) - smem0);
   const int span_idx = blockIdx.x, n_spans = gridDim.x;
-  const int i0 = blockIdx.y * positions, kvh = blockIdx.z;
-  const int group = H / KV;
-  const int nq = min(positions, C - i0), n_rows = nq * group;
-  int kv_len = start + C;
-  if (desc_start) {
-    start = *desc_start;
-    kv_len = min(*desc_kv_len, max_keys);
-  }
-  const int qpos0 = start + i0;
-  // the tile's last query sees start + i0 + nq - 1
-  const int horizon = max(0, min(qpos0 + nq, kv_len));
   const int span = (horizon + n_spans - 1) / n_spans;
   const int lo = span_idx * span, hi = min(lo + span, horizon);
-  const long long q_off = ((long long)i0 * H + kvh * group) * kD;
-  const int q_row_stride = H * kD;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, wrow = (warp & 3) * 16;
   const int quad = lane >> 2, pair = (lane & 3) * 2;
 
   float o[kChunkLanes / 8][4], m[2], l[2];
-  latent_walk(base, q, q_off, q_row_stride, kv,
-              PagedRows{pages, page_size, lane_width}, kvh, n_rows, group,
+  latent_walk(base, q, q_off, q_row_stride, kv, rows, kvh, n_rows, group,
               qpos0, lo, hi, scale, o, m, l);
 
-  // the partial into this block's shared memory (over the walk's tiles)
   const long long block =
       blockIdx.x + (long long)gridDim.x * (blockIdx.y + (long long)gridDim.y
                                                             * blockIdx.z);
+  if (n_spans == 1) {
+    if (clocks && tid == 0) clocks[2 * block] = global_ns();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wrow + quad + 8 * h, i = r / group, g = r - i * group;
+      if (r < n_rows)
+        store_latent_row(o, h, l[h],
+                         out + q_off + (long long)i * q_row_stride
+                             + g * kLatentDim + wg * kChunkLanes + pair);
+    }
+    if (clocks && tid == 0) clocks[2 * block + 1] = global_ns();
+    return;
+  }
+  // the partial into this block's shared memory (over the walk's tiles)
   __syncthreads();  // every warp is done with the tiles
   if (clocks && tid == 0) clocks[2 * block] = global_ns();
   float* dump = reinterpret_cast<float*>(base);
@@ -1853,8 +1542,46 @@ __global__ void __launch_bounds__(kChunkThreads, 1) chunk_latent_kernel(
   if (clocks && tid == 0) clocks[2 * block + 1] = global_ns();
 }
 
-// The launch of chunk_latent_kernel: clusters of grid.x blocks (the spans
-// of one query tile), kChunkThreads a block.
+// Block (span, query tile, KV head) of a C-query chunk at `start` over the
+// page list `pages` (rows r = i * group + g, positions start + i0 ..): the
+// walk of its span, then the cluster's merge into out's bf16 rows
+// (latent_span_block, `clocks` as there). The query tile's horizon is
+// min(start + i0 + nq, kv_len) with kv_len = start + C (chunk.cu), or,
+// with `desc_start` (ragged.cu's chunk rows), start = *desc_start and
+// kv_len = min(*desc_kv_len, max_keys) read on the card: the same blocks
+// and spans, so equal inputs give chunk.cu's bits.
+template <typename KVTiles>
+__global__ void __launch_bounds__(kChunkThreads, 1) chunk_latent_kernel(
+    const __nv_bfloat16* __restrict__ q,  // [C, H, 640]
+    KVTiles kv,                           // pools [P, ps, lane_width]
+    const int* __restrict__ pages,        // [W]
+    __nv_bfloat16* __restrict__ out,      // [C, H, 640]
+    int C, int H, int KV, int page_size, int lane_width, int start,
+    int positions, float scale, unsigned long long* __restrict__ clocks,
+    const int* __restrict__ desc_start, const int* __restrict__ desc_kv_len,
+    int max_keys) {
+  extern __shared__ __align__(16) char chunk_smem[];
+  const int i0 = blockIdx.y * positions, kvh = blockIdx.z;
+  const int group = H / KV;
+  const int nq = min(positions, C - i0);
+  int kv_len = start + C;
+  if (desc_start) {
+    start = *desc_start;
+    kv_len = min(*desc_kv_len, max_keys);
+  }
+  const int qpos0 = start + i0;
+  // the tile's last query sees start + i0 + nq - 1
+  const int horizon = max(0, min(qpos0 + nq, kv_len));
+  latent_span_block(chunk_smem, q,
+                    ((long long)i0 * H + kvh * group) * kLatentDim,
+                    H * kLatentDim, kv,
+                    PagedRows{pages, page_size, lane_width}, kvh, nq * group,
+                    group, qpos0, horizon, scale, out, clocks);
+}
+
+// The launch of a latent-tile kernel (chunk_latent_kernel,
+// prefill_latent_kernel): clusters of grid.x blocks (the spans of one
+// query tile), kChunkThreads a block.
 struct LatentLaunch {
   cudaLaunchAttribute cluster[1];
   cudaLaunchConfig_t cfg = {};
@@ -2045,7 +1772,8 @@ inline int launch_merge(const Splits& sp, __nv_bfloat16* out, int n_pairs,
 //
 // Bound: bytes. A decode row reads each of its latent K and V rows once
 // (2 x 1280 bytes a key in bf16, 2 x 768 in int8) and does ~1 FLOP per
-// byte per query head. What the first latent tile (attend_latent) lost:
+// byte per query head. What the first latent tile (16 warps each holding
+// a quarter of the lanes, 16-key tiles, since replaced) lost:
 // spans of 256 keys sized for head_dim 128 left 45 of a phase-3 launch's
 // 64 blocks without a key, 16-key tiles paid two or three barriers each
 // and summed lane-quarter partial scores through shared memory, 12 of its
@@ -2228,12 +1956,8 @@ __global__ void __launch_bounds__(kChunkThreads, 1) decode_latent_kernel(
     if (r >= n_rows) continue;
     if (n == 1) {  // the row's only span: its bf16 rows (zeros if empty)
       const int i = r / group, g = r - i * group;
-      const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
-      __nv_bfloat16* orow = out + ((first + i) * H + kvh * group + g) * kD + d0;
-#pragma unroll
-      for (int j = 0; j < kChunkLanes / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-            __floats2bfloat162_rn(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
+      store_latent_row(o, h, l[h],
+                       out + ((first + i) * H + kvh * group + g) * kD + d0);
     } else {
       const long long p = (long long)blockIdx.x * slot_rows + r;
       float* orow = part_o + p * kD + d0;

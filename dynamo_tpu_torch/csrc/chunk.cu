@@ -53,9 +53,10 @@
 // - a block walks 32-key tiles with S = Q K^T on wgmma over all 640
 //   lanes (q and K in the 128-byte swizzle, each warpgroup computing the
 //   same scores, so no partial score crosses warps) and P V on wgmma over
-//   each warpgroup's 320 lanes of O: two barriers per 32 keys, where
-//   attend_latent paid two or three per 16 keys plus a round trip of
-//   partial scores through shared memory;
+//   each warpgroup's 320 lanes of O: two barriers per 32 keys, where the
+//   first latent tile (16 warps, each a quarter of the lanes) paid two or
+//   three per 16 keys plus a round trip of partial scores through shared
+//   memory;
 // - int8 pools are widened to bf16 by the thread that copied each chunk
 //   (no work area, no extra barrier).
 
@@ -66,7 +67,7 @@
 namespace dtt {
 
 template <int kD, typename KVTiles>
-__global__ void __launch_bounds__(tile_threads<kD>()) chunk_kernel(
+__global__ void __launch_bounds__(kTileThreads) chunk_kernel(
     const __nv_bfloat16* __restrict__ q,  // [C, H, kD]
     KVTiles kv,                           // pools [P, ps, W]
     const int* __restrict__ pages,        // [W]
@@ -77,10 +78,10 @@ __global__ void __launch_bounds__(tile_threads<kD>()) chunk_kernel(
   const int group = H / KV;
   const int nq = min(positions, C - i0);
   const PagedRows rows{pages, page_size, lane_width};
-  attend<kD>(q, ((long long)i0 * H + kvh * group) * kD, H * kD, kv, rows,
-                 kvh, nq, group, /*qpos0=*/start + i0, /*kv_len=*/start + C,
-                 /*key_lo=*/0, /*key_hi=*/INT_MAX, scale,
-                 TileOut{out, nullptr, nullptr, 0, H});
+  attend_mma<kD>(q, ((long long)i0 * H + kvh * group) * kD, H * kD, kv,
+                 rows, kvh, nq, group, /*qpos0=*/start + i0,
+                 /*kv_len=*/start + C, /*key_lo=*/0, /*key_hi=*/INT_MAX,
+                 scale, TileOut{out, nullptr, nullptr, 0, H});
 }
 
 template <typename KVTiles>
@@ -99,19 +100,14 @@ int launch_chunk(const void* q, KVTiles kv, const void* pages, void* out,
   const dim3 grid((C + positions - 1) / positions, KV);
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    if constexpr (kD == kLatentDim) {
-      return (int)cudaErrorInvalidValue;  // chunk_latent_kernel above
-    } else {
-      const size_t smem = tile_smem_bytes<KVTiles, kD>();
-      cudaError_t err = set_smem(chunk_kernel<kD, KVTiles>, smem);
-      if (err != cudaSuccess) return (int)err;
-      chunk_kernel<kD, KVTiles><<<grid, tile_threads<kD>(), smem,
-                                  (cudaStream_t)stream>>>(
-          (const __nv_bfloat16*)q, kv, (const int*)pages,
-          (__nv_bfloat16*)out, C, H, KV, page_size, lane_width, start,
-          positions, scale);
-      return (int)cudaGetLastError();
-    }
+    const size_t smem = tile_smem_bytes<KVTiles, kD>();
+    cudaError_t err = set_smem(chunk_kernel<kD, KVTiles>, smem);
+    if (err != cudaSuccess) return (int)err;
+    chunk_kernel<kD, KVTiles><<<grid, kTileThreads, smem,
+                                (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)q, kv, (const int*)pages, (__nv_bfloat16*)out,
+        C, H, KV, page_size, lane_width, start, positions, scale);
+    return (int)cudaGetLastError();
   });
 }
 

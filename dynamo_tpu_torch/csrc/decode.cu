@@ -93,21 +93,16 @@ int launch_decode(const void* q, KVTiles kv, const void* block_table,
   const Splits sp{(float*)part_o, (float*)part_ml, B, num_splits, split_keys};
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    if constexpr (kD == kLatentDim) {
-      return (int)cudaErrorInvalidValue;  // launch_latent_rows above
-    } else {
-      const size_t smem = tile_smem_bytes<KVTiles, kD>();
-      const cudaError_t set = set_smem(decode_kernel<kD, KVTiles>, smem);
-      if (set != cudaSuccess) return (int)set;
-      decode_kernel<kD, KVTiles><<<(unsigned)blocks, kTileThreads, smem,
-                                   st>>>(
-          (const __nv_bfloat16*)q, kv, (const int*)block_table,
-          (const int*)context_lens, H, KV, page_size, pmax, lane_width,
-          scale, sp);
-      const int rc = (int)cudaGetLastError();
-      if (rc != 0) return rc;
-      return launch_merge<kD>(sp, (__nv_bfloat16*)out, B * H, st);
-    }
+    const size_t smem = tile_smem_bytes<KVTiles, kD>();
+    const cudaError_t set = set_smem(decode_kernel<kD, KVTiles>, smem);
+    if (set != cudaSuccess) return (int)set;
+    decode_kernel<kD, KVTiles><<<(unsigned)blocks, kTileThreads, smem, st>>>(
+        (const __nv_bfloat16*)q, kv, (const int*)block_table,
+        (const int*)context_lens, H, KV, page_size, pmax, lane_width, scale,
+        sp);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+    return launch_merge<kD>(sp, (__nv_bfloat16*)out, B * H, st);
   });
 }
 

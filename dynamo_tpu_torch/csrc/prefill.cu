@@ -22,6 +22,38 @@
 // starts at (n * S + t) * KV * D (DenseRows), 16-byte aligned for every S
 // since D is a multiple of 8. A lane at seq_len = S is chunk.cu's chunk at
 // start 0 under the same tiling, and bit-identical to it.
+//
+// At head_dim 640 (MLA's latent row: DeepSeek-V2's 16 query heads on one
+// KV head, and K and V the same latent rows) the prefill runs
+// prefill_latent_kernel below. Bound: bytes at the served shapes. q is
+// read and the output written in full, 16 heads x 640 lanes a token (40 KB
+// a token, padding rows included), against one 1280-byte latent row of
+// K/V a token and 4 * H * D FLOPs per visible (query, key) pair: a
+// 256-token prompt moves 10.5 MB (3.1 µs at 3.35 TB/s) for 1.35 GFLOP
+// (1.4 µs at 989 TFLOP/s). At group 16 a 64-row query tile holds 4
+// positions, so a 256-token prompt is 64 query tiles, and under the
+// causal mask tile i walks 4 (i + 1) keys: one block per tile left half
+// of the 132 SMs idle and the last tile walking all 256 keys alone. So
+// the kernel is chunk.cu's latent tile over a dense block:
+// - each query tile's causal horizon, min(i0 + nq, seq_len) with seq_len
+//   read on the card, is cut into latent_prefill_spans equal spans (a pure
+//   function of N, S, the group, KV and the SM count: the largest power
+//   of two whose blocks run in one wave, so 2 for a one-lane 128 or 256
+//   bucket, 1 for four 256-token lanes; at N = 1 chunk_spans(S, 0)), one
+//   block each (a query tile of one span writes its rows directly); the
+//   spans of a query tile are one thread-block cluster that merges their
+//   partials in distributed shared memory, in span order (equal bits run
+//   to run, no scratch in device memory); a span past the horizon walks
+//   nothing and merges as empty, so a lane at seq_len 0 writes zeros;
+// - each block runs the latent walk (32-key tiles, S = Q K^T on wgmma
+//   over all 640 lanes, P V on wgmma over each warpgroup's 320 lanes).
+// K and V are the same tensor on the served path (the model passes its
+// latent rows as both). Copying each 32-key tile once for both, with one
+// barrier a tile, ran 4% faster than reading them as two tensors at
+// phase 3's shape (PERF.md): under the 5% that would pay for a second
+// walk, so K and V are read as two tensors.
+// A lane at seq_len = S of a one-lane launch runs the blocks of chunk.cu's
+// chunk of S queries at start 0, and is bit-identical to it.
 #include <limits.h>
 
 #include "attention_common.cuh"
@@ -29,7 +61,7 @@
 namespace dtt {
 
 template <int kD>
-__global__ void __launch_bounds__(tile_threads<kD>()) prefill_kernel(
+__global__ void __launch_bounds__(kTileThreads) prefill_kernel(
     const __nv_bfloat16* __restrict__ q,  // [N, S, H, kD]
     const __nv_bfloat16* __restrict__ k,  // [N, S, KV, kD]
     const __nv_bfloat16* __restrict__ v,
@@ -39,34 +71,98 @@ __global__ void __launch_bounds__(tile_threads<kD>()) prefill_kernel(
   const int i0 = blockIdx.x * positions, kvh = blockIdx.y, n = blockIdx.z;
   const int group = H / KV;
   const DenseRows rows{(long long)n * S * KV * kD, KV * kD};
-  attend<kD>(q, (((long long)n * S + i0) * H + kvh * group) * kD, H * kD,
+  attend_mma<kD>(q, (((long long)n * S + i0) * H + kvh * group) * kD, H * kD,
                  Bf16Tiles{k, v}, rows, kvh, min(positions, S - i0), group,
                  /*qpos0=*/i0, /*kv_len=*/min(seq_lens[n], S),
                  /*key_lo=*/0, /*key_hi=*/INT_MAX, scale,
                  TileOut{out, nullptr, nullptr, 0, H});
 }
 
+// Block (span, query tile, lane x KV head) of the latent prefill: query
+// tile blockIdx.y of lane n = blockIdx.z / KV, KV head blockIdx.z % KV,
+// horizon min(i0 + nq, seq_lens[n]) cut into gridDim.x spans
+// (latent_span_block, `clocks` as there).
+__global__ void __launch_bounds__(kChunkThreads, 1) prefill_latent_kernel(
+    const __nv_bfloat16* __restrict__ q,  // [N, S, H, 640]
+    const __nv_bfloat16* __restrict__ k,  // [N, S, KV, 640]
+    const __nv_bfloat16* __restrict__ v,
+    const int* __restrict__ seq_lens,     // [N]
+    __nv_bfloat16* __restrict__ out,      // [N, S, H, 640]
+    int S, int H, int KV, int positions, float scale,
+    unsigned long long* __restrict__ clocks) {
+  constexpr int kD = kLatentDim;
+  extern __shared__ __align__(16) char latent_smem[];
+  const int i0 = blockIdx.y * positions;
+  const int n = blockIdx.z / KV, kvh = blockIdx.z - n * KV;
+  const int group = H / KV, nq = min(positions, S - i0);
+  const int horizon = max(0, min(i0 + nq, min(seq_lens[n], S)));
+  latent_span_block(
+      latent_smem, q, (((long long)n * S + i0) * H + kvh * group) * kD,
+      H * kD, Bf16Tiles{k, v}, DenseRows{(long long)n * S * KV * kD, KV * kD},
+      kvh, nq * group, group, /*qpos0=*/i0, horizon, scale, out, clocks);
+}
+
+// prefill_latent_kernel in `spans` spans a query tile (the wrapper's plan
+// is latent_prefill_spans, also dtt_latent_prefill_spans; a measurement
+// may ask for any other count from 1 to kMaxChunkSpans: all are exact).
+int launch_prefill_latent(const void* q, const void* k, const void* v,
+                          const void* seq_lens, void* out, int N, int S,
+                          int H, int KV, int positions, int spans,
+                          float scale, void* clocks, cudaStream_t stream) {
+  const int tiles = (S + positions - 1) / positions;
+  if (spans < 1 || spans > kMaxChunkSpans || tiles > 65535
+      || (long long)N * KV > 65535)
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = ChunkSmem<Bf16Tiles>::bytes;
+  cudaError_t err = set_smem(prefill_latent_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  LatentLaunch launch(dim3(spans, tiles, N * KV), smem, stream);
+  err = cudaLaunchKernelEx(&launch.cfg, prefill_latent_kernel,
+                           (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                           (const __nv_bfloat16*)v, (const int*)seq_lens,
+                           (__nv_bfloat16*)out, S, H, KV, positions, scale,
+                           (unsigned long long*)clocks);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace dtt
 
 extern "C" int dtt_prefill(const void* q, const void* k, const void* v,
                            const void* seq_lens, void* out, int N, int S,
-                           int H, int KV, int D, int positions, float scale,
-                           void* stream) {
+                           int H, int KV, int D, int positions, int spans,
+                           float scale, void* clocks, void* stream) {
   using namespace dtt;
   if (N < 1 || S < 1 || KV < 1 || H % KV || !tile_fits(H / KV, D)
       || positions != tile_positions(H / KV) || N > 65535 || KV > 65535)
     return (int)cudaErrorInvalidValue;
+  if (D == kLatentDim)
+    return launch_prefill_latent(q, k, v, seq_lens, out, N, S, H, KV,
+                                 positions, spans, scale, clocks,
+                                 (cudaStream_t)stream);
+  if (spans != 1 || clocks != nullptr) return (int)cudaErrorInvalidValue;
   const dim3 grid((S + positions - 1) / positions, KV, N);
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     const size_t smem = tile_smem_bytes<Bf16Tiles, kD>();
     const cudaError_t err = set_smem(prefill_kernel<kD>, smem);
     if (err != cudaSuccess) return (int)err;
-    prefill_kernel<kD><<<grid, tile_threads<kD>(), smem,
-                         (cudaStream_t)stream>>>(
+    prefill_kernel<kD><<<grid, kTileThreads, smem, (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
         (const __nv_bfloat16*)v, (const int*)seq_lens, (__nv_bfloat16*)out, S,
         H, KV, positions, scale);
     return (int)cudaGetLastError();
   });
+}
+
+// Key spans per query tile of prefill.cu for N lanes of S positions, GQA
+// group, KV heads, on a card of num_sms SMs: latent_prefill_spans
+// (prefill_latent_kernel's clusters); 0 where the latent row refuses the
+// group.
+extern "C" int dtt_latent_prefill_spans(int N, int S, int group, int KV,
+                                        int num_sms) {
+  if (!dtt::tile_fits(group, dtt::kLatentDim) || N < 1 || S < 1 || KV < 1)
+    return 0;
+  return dtt::latent_prefill_spans(N, S, dtt::tile_positions(group), KV,
+                                   num_sms);
 }

@@ -156,23 +156,18 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
                   (long long)num_decode * decode_q, num_splits, split_keys};
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    if constexpr (kD == kLatentDim) {
-      return (int)cudaErrorInvalidValue;  // launch_ragged_latent above
-    } else {
-      const size_t smem = tile_smem_bytes<KVTiles, kD>();
-      const cudaError_t set = set_smem(ragged_kernel<kD, KVTiles>, smem);
-      if (set != cudaSuccess) return (int)set;
-      ragged_kernel<kD, KVTiles><<<(unsigned)blocks, kTileThreads, smem,
-                                   st>>>(
-          (const __nv_bfloat16*)q, kv, (const int*)tables,
-          (const int*)kv_lens, (const int*)q_starts, (__nv_bfloat16*)out,
-          num_decode, decode_q, C, H, KV, page_size, W, lane_width,
-          positions, scale, sp);
-      const int rc = (int)cudaGetLastError();
-      if (rc != 0 || num_decode == 0) return rc;
-      return launch_merge<kD>(sp, (__nv_bfloat16*)out,
-                              num_decode * decode_q * H, st);
-    }
+    const size_t smem = tile_smem_bytes<KVTiles, kD>();
+    const cudaError_t set = set_smem(ragged_kernel<kD, KVTiles>, smem);
+    if (set != cudaSuccess) return (int)set;
+    ragged_kernel<kD, KVTiles><<<(unsigned)blocks, kTileThreads, smem,
+                                 st>>>(
+        (const __nv_bfloat16*)q, kv, (const int*)tables, (const int*)kv_lens,
+        (const int*)q_starts, (__nv_bfloat16*)out, num_decode, decode_q, C,
+        H, KV, page_size, W, lane_width, positions, scale, sp);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0 || num_decode == 0) return rc;
+    return launch_merge<kD>(sp, (__nv_bfloat16*)out,
+                            num_decode * decode_q * H, st);
   });
 }
 

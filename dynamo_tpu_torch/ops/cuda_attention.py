@@ -15,20 +15,20 @@ ragged kernel's decode rows are split along their keys, one block per
 (row, span, KV head), and the spans merged by a second small kernel. The
 launch plans of the tile (`tile_positions`, `split_plan`) are pure
 functions of host-known sizes. At head_dim 640 (MLA's latent row, one KV
-head shared by 16 query heads) every kernel but prefill runs the latent
-tile's walk (`latent_walk`: 32-key tiles, S and P V on wgmma): chunk.cu
-and ragged's chunk rows as `chunk_latent_kernel`, each query tile's keys
-cut into `chunk_spans` spans, one block each, the spans of a query tile
-one thread-block cluster that merges them in shared memory; decode.cu and
-ragged's decode and verify rows as `decode_latent_kernel`, each row's
-horizon cut into `latent_decode_spans` spans (a verify window's query
-tiles walking the same span side by side), merged by
-`merge_latent_kernel`; prefill.cu runs `attend_latent` (16 warps that
-split O's lanes in four, 16-key tiles). The three pool-reading
-kernels (decode, chunk, ragged) each have a bf16 and an int8 entry point,
-the latter for the packed rows of `kv_cache_dtype="int8"` pools; their
-wrappers take either pool and count the int8 launches under their own
-`*_int8` names.
+head shared by 16 query heads) every kernel runs the latent tile's walk
+(`latent_walk`: 32-key tiles, S and P V on wgmma): chunk.cu and ragged's
+chunk rows as `chunk_latent_kernel`, each query tile's keys cut into
+`chunk_spans` spans, one block each, the spans of a query tile one
+thread-block cluster that merges them in shared memory; prefill.cu as
+`prefill_latent_kernel`, the same clusters over each lane's query tiles
+(`latent_prefill_spans`); decode.cu and ragged's decode and verify rows
+as `decode_latent_kernel`, each row's horizon cut into
+`latent_decode_spans` spans (a verify window's query tiles walking the
+same span side by side), merged by `merge_latent_kernel`. The three
+pool-reading kernels (decode, chunk, ragged) each have a bf16 and an
+int8 entry point, the latter for the packed rows of
+`kv_cache_dtype="int8"` pools; their wrappers take either pool and count
+the int8 launches under their own `*_int8` names.
 
 Build: the first call compiles every `csrc/*.cu` with
 `nvcc -gencode arch=compute_90a,code=sm_90a` (one nvcc per source, started
@@ -88,9 +88,9 @@ VARIANT_LAUNCHES: Dict[str, int] = collections.Counter()
 # reports its own values (dtt_chunk_positions, dtt_decode_split_keys) and
 # its entry points refuse a launch that disagrees with them.
 TILE_ROWS = 64
-# the head_dims the tile is compiled for; LATENT_DIM, MLA's latent row
+# the head_dims the kernels take; LATENT_DIM, MLA's latent row
 # (DeepSeek-V2's 576 lanes padded to 640), runs attention_common.cuh's
-# attend_latent, the other four attend_mma
+# latent tile, the other four attend_mma
 LATENT_DIM = 640
 TILE_HEAD_DIMS = (32, 64, 128, 256, LATENT_DIM)
 KEY_TILE = 64
@@ -224,7 +224,8 @@ def build() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dtt_paged_decode.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
                                          i, i, i, i, f, p]
-        lib.dtt_prefill.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p]
+        lib.dtt_prefill.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f,
+                                    p, p]
         lib.dtt_chunk.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f,
                                   p, p]
         lib.dtt_ragged.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
@@ -249,6 +250,8 @@ def build() -> ctypes.CDLL:
         lib.dtt_chunk_positions.restype = ctypes.c_int
         lib.dtt_chunk_spans.argtypes = [i, i, i, i, i, i]
         lib.dtt_chunk_spans.restype = ctypes.c_int
+        lib.dtt_latent_prefill_spans.argtypes = [i, i, i, i, i]
+        lib.dtt_latent_prefill_spans.restype = ctypes.c_int
         lib.dtt_chunk_max_clusters.argtypes = [i, i]
         lib.dtt_chunk_max_clusters.restype = ctypes.c_int
         lib.dtt_decode_split_keys.argtypes = [i, i, i, i, i]
@@ -498,19 +501,70 @@ def chunk_spans(c: int, start: int, group: int, head_dim: int,
     (a pure function of host sizes, the library's own plan too,
     `dtt_chunk_spans`): 1 below LATENT_DIM; at LATENT_DIM the largest power of two up to
     MAX_CHUNK_SPANS (one cluster) whose blocks, spans x query tiles x KV
-    heads, run in one wave on num_sms SMs, and at most the CHUNK_KEYS
-    tiles of the longest horizon, start + c. (Clusters of 2, 4 and 8
-    blocks fill an H100's GPCs; 3, 5 or 6 leave SMs idle.)"""
+    heads, run in one wave on num_sms SMs (cluster_sms), and at most the
+    CHUNK_KEYS tiles of the longest horizon, start + c. (Clusters of 3, 5
+    or 6 blocks leave SMs idle.)"""
     positions = tile_positions(group, head_dim)
     if head_dim != LATENT_DIM:
         return 1
-    tiles = -(-c // positions) * num_kv
-    key_tiles = -(-(start + c) // CHUNK_KEYS)
+    return _cluster_spans(-(-c // positions) * num_kv, start + c, num_sms)
+
+
+def _cluster_spans(tiles: int, keys: int, num_sms: int) -> int:
+    """Spans per query tile of a latent-tile launch of `tiles` query tiles
+    whose longest horizon holds `keys` keys (attention_common.cuh
+    cluster_spans): the largest power of two up to MAX_CHUNK_SPANS whose
+    blocks run in one wave on num_sms SMs (cluster_sms), and at most the
+    CHUNK_KEYS tiles of that horizon."""
+    key_tiles = -(-keys // CHUNK_KEYS)
     n = 1
-    while (2 * n <= MAX_CHUNK_SPANS and 2 * n * tiles <= num_sms
+    while (2 * n <= MAX_CHUNK_SPANS
+           and 2 * n * tiles <= cluster_sms(2 * n, num_sms)
            and 2 * n <= key_tiles):
         n *= 2
     return n
+
+
+def cluster_sms(n: int, num_sms: int) -> int:
+    """SMs of a card of num_sms that clusters of n blocks fill at once
+    (attention_common.cuh cluster_sms): all for n <= 2, 10/11 of them for
+    larger clusters, which must fit a GPC (an H100 holds 30 clusters of
+    4 and 15 of 8: 120 of its 132 SMs)."""
+    return num_sms if n <= 2 else num_sms * 10 // 11
+
+
+def latent_prefill_spans(n: int, s: int, group: int, num_kv: int,
+                         num_sms: int) -> int:
+    """Key spans per query tile of prefill.cu at LATENT_DIM for n lanes of
+    s positions (a pure function of host sizes, the library's own plan
+    too, `dtt_latent_prefill_spans`; the lanes' seq_lens stay on the
+    card): chunk_spans over every lane's query tiles, so at n = 1 it is
+    chunk_spans(s, 0): one lane is chunk.cu's chunk at start 0."""
+    positions = tile_positions(group, LATENT_DIM)
+    return _cluster_spans(n * -(-s // positions) * num_kv, s, num_sms)
+
+
+def prefill_span_keys(s: int, seq_lens, group: int, num_kv: int,
+                      num_sms: int
+                      ) -> List[Tuple[int, int, int, List[Tuple[int, int]]]]:
+    """(lane, first query, query count, key spans [lo, hi)) of each query
+    tile of prefill.cu at LATENT_DIM, as prefill_latent_kernel computes
+    them on the card: the tile's horizon min(first + count, seq_len) cut
+    into latent_prefill_spans equal spans of ceil(horizon / spans) keys; a
+    span at or past the horizon is empty (lo >= hi). One KV head's
+    blocks."""
+    positions = tile_positions(group, LATENT_DIM)
+    n = latent_prefill_spans(len(seq_lens), s, group, num_kv, num_sms)
+    out = []
+    for lane, seq_len in enumerate(seq_lens):
+        for first in range(0, s, positions):
+            count = min(positions, s - first)
+            horizon = max(0, min(first + count, seq_len, s))
+            span = -(-horizon // n)
+            out.append((lane, first, count,
+                        [(j * span, min((j + 1) * span, horizon))
+                         for j in range(n)]))
+    return out
 
 
 def chunk_span_keys(c: int, start: int, group: int, head_dim: int,
@@ -614,9 +668,35 @@ def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
     return out
 
 
-def prefill_attention(q, k, v, seq_lens) -> torch.Tensor:
+def _span_args(plan: int, spans: Optional[int],
+               clocks: Optional[torch.Tensor], blocks_per_span: int, d: int,
+               dev: torch.device) -> Tuple[int, ctypes.c_void_p]:
+    """(spans, clocks pointer) of a latent-tile launch: the plan, or the
+    measurement's `spans` (LATENT_DIM only, 1 to MAX_CHUNK_SPANS), and
+    `clocks` checked to hold two stamps for each of the launch's blocks
+    (NULL without)."""
+    if spans is not None and (d != LATENT_DIM
+                              or not 1 <= spans <= MAX_CHUNK_SPANS):
+        raise ValueError(f"spans {spans} needs head_dim {LATENT_DIM} and "
+                         f"1 to {MAX_CHUNK_SPANS} spans")
+    spans = plan if spans is None else spans
+    if clocks is None:
+        return spans, ctypes.c_void_p(None)
+    _expect(clocks, "clocks", torch.int64, 1, dev)
+    if d != LATENT_DIM or clocks.numel() < 2 * spans * blocks_per_span:
+        raise ValueError(f"clocks needs head_dim {LATENT_DIM} and "
+                         f"{2 * spans * blocks_per_span} entries")
+    return spans, _ptr(clocks)
+
+
+def prefill_attention(q, k, v, seq_lens, *,
+                      clocks: Optional[torch.Tensor] = None,
+                      spans: Optional[int] = None) -> torch.Tensor:
     """q [N, S, H, D], k/v [N, S, KV, D] bf16; seq_lens [N] int32 (true
-    lengths) -> [N, S, H, D]. Causal within each lane."""
+    lengths) -> [N, S, H, D]. Causal within each lane. At LATENT_DIM each
+    query tile's keys are cut into latent_prefill_spans spans (from N, S,
+    the group, KV and the SM count). Measurement, LATENT_DIM only:
+    `spans` and `clocks` as in chunk_prefill_attention."""
     dev = q.device
     _expect(q, "q", torch.bfloat16, 4, dev)
     _expect(k, "k", torch.bfloat16, 4, dev)
@@ -629,14 +709,19 @@ def prefill_attention(q, k, v, seq_lens) -> torch.Tensor:
     if seq_lens.shape[0] != n:
         raise ValueError("seq_lens does not match the lane count")
     n_kv = k.shape[2]
-    positions = tile_positions(_gqa_group(h, n_kv), d)
+    group = _gqa_group(h, n_kv)
+    positions = tile_positions(group, d)
     lib = build()
     out = torch.empty_like(q)
     if n == 0 or s == 0:
         return out
+    plan = (latent_prefill_spans(n, s, group, n_kv, _num_sms(dev))
+            if d == LATENT_DIM else 1)
+    spans, clock_ptr = _span_args(plan, spans, clocks,
+                                  n * -(-s // positions) * n_kv, d, dev)
     rc = lib.dtt_prefill(
         _ptr(q), _ptr(k), _ptr(v), _ptr(seq_lens), _ptr(out), n, s, h, n_kv,
-        d, positions, d ** -0.5, _stream(q))
+        d, positions, spans, d ** -0.5, clock_ptr, _stream(q))
     _raise_on(lib, rc, "prefill")
     _count("prefill", f"head_dim={d}")
     return out
@@ -672,20 +757,9 @@ def chunk_prefill_attention(q, k_pages, v_pages, pages, start: int, *,
     out = torch.empty_like(q)
     if c == 0:
         return out
-    plan = chunk_spans(c, start, group, d, n_kv, _num_sms(dev))
-    if spans is not None and (d != LATENT_DIM
-                              or not 1 <= spans <= MAX_CHUNK_SPANS):
-        raise ValueError(f"spans {spans} needs head_dim {LATENT_DIM} and "
-                         f"1 to {MAX_CHUNK_SPANS} spans")
-    spans = plan if spans is None else spans
-    clock_ptr = ctypes.c_void_p(None)
-    if clocks is not None:
-        blocks = spans * -(-c // positions) * n_kv
-        _expect(clocks, "clocks", torch.int64, 1, dev)
-        if d != LATENT_DIM or clocks.numel() < 2 * blocks:
-            raise ValueError(f"clocks needs head_dim {LATENT_DIM} and "
-                             f"{2 * blocks} entries")
-        clock_ptr = _ptr(clocks)
+    spans, clock_ptr = _span_args(
+        chunk_spans(c, start, group, d, n_kv, _num_sms(dev)), spans, clocks,
+        -(-c // positions) * n_kv, d, dev)
     args = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(pages), _ptr(out), c,
             h, n_kv, d, page_size]
     tail = [start, positions, spans, d ** -0.5, clock_ptr, _stream(q)]

@@ -91,8 +91,9 @@ def _decode_inputs(dev, int8, n_heads, n_kv, head_dim, ctx, pmax, pages=64,
 def test_decode_kernel_groups_and_head_dims(dev, int8, group, head_dim):
     """Every GQA group and head_dim the tile takes, on both pools: rows at
     context 0, 1, on and one past a 256-key span boundary, and a full
-    table (two spans). At head_dim 640 (attend_latent) a group of 7 puts
-    two positions' rows in one 16-row block."""
+    table (two spans). At head_dim 640 (the latent decode rows) a group
+    of 7 puts two positions' rows in one 16-row block of the 64-row
+    tile."""
     n_kv, ps = 2, 16
     ctx = [0, 1, 256, 257, 300, 512]
     q, kp, vp, table, cl = _decode_inputs(dev, int8, group * n_kv, n_kv,
@@ -137,12 +138,12 @@ def test_prefill_kernel_matches_plain(dev, s, lens, head_dim):
             assert not out[lane].any()
 
 
-@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
-@pytest.mark.parametrize("group", [1, 2, 4, 7, 8])
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 256, 640])
+@pytest.mark.parametrize("group", [1, 2, 4, 7, 8, 16])
 def test_prefill_kernel_groups_and_head_dims(dev, group, head_dim):
     """Every GQA group and head_dim the tile takes, at S = 48 (no multiple
-    of the 64-key tile): a full lane, a lane at seq_len 0 and one whose
-    bucket padding starts mid-tile."""
+    of the 64-key tile, nor of the latent tile's 32): a full lane, a lane
+    at seq_len 0 and one whose bucket padding starts mid-tile."""
     n_kv, s, lens = 2, 48, [48, 0, 17]
     q = _rnd(dev, 3, s, group * n_kv, head_dim, seed=44)
     k = _rnd(dev, 3, s, n_kv, head_dim, seed=45)
@@ -154,15 +155,18 @@ def test_prefill_kernel_groups_and_head_dims(dev, group, head_dim):
     assert not out[1].any()
 
 
-@pytest.mark.parametrize("s", [48, 256])
-def test_prefill_lane_equals_chunk_at_start_0(dev, s):
+@pytest.mark.parametrize("s,d", [(48, 128), (256, 128), (48, 640),
+                                 (256, 640)])
+def test_prefill_lane_equals_chunk_at_start_0(dev, s, d):
     """A lane at seq_len = S runs the blocks of chunk.cu's chunk at start 0
-    over the same K/V written to pages: bit-identical outputs."""
-    ps, n_kv, d = 16, 8, 128
-    q = _rnd(dev, 2, s, 32, d, seed=47)
-    k = _rnd(dev, 2, s, n_kv, d, seed=48)
-    v = _rnd(dev, 2, s, n_kv, d, seed=49)
-    sl = torch.tensor([s, s // 3], dtype=torch.int32, device=dev)
+    over the same K/V written to pages: bit-identical outputs. At head_dim
+    640 (16 heads on one KV head) with one lane: the latent prefill's span
+    plan is then chunk.cu's."""
+    ps, n_kv, h, lanes = (16, 8, 32, 2) if d == 128 else (16, 1, 16, 1)
+    q = _rnd(dev, lanes, s, h, d, seed=47)
+    k = _rnd(dev, lanes, s, n_kv, d, seed=48)
+    v = _rnd(dev, lanes, s, n_kv, d, seed=49)
+    sl = torch.tensor([s, s // 3][:lanes], dtype=torch.int32, device=dev)
     pk = torch.zeros((s // ps + 1, ps, n_kv * d), dtype=torch.bfloat16,
                      device=dev)
     pv = torch.zeros_like(pk)
@@ -297,7 +301,7 @@ def test_tile_limits_agree_with_the_library_and_are_refused(dev):
     kd = _rnd(dev, 1, 16, 8, 128)
     rc = lib.dtt_prefill(ca._ptr(q), ca._ptr(kd), ca._ptr(kd),
                          ca._ptr(lens), ca._ptr(out), 1, 16, 32, 8, 128, 8,
-                         0.1, ca._stream(q))
+                         1, 0.1, None, ca._stream(q))
     assert rc != 0
 
 
@@ -1021,6 +1025,52 @@ def test_latent_chunk_launches_give_equal_bits(dev, int8):
         assert ca.chunk_spans(256, 512, 16, d, 1, sms) == 2
     for n in range(1, ca.MAX_CHUNK_SPANS + 1):
         assert lib.dtt_chunk_max_clusters(n, int(int8)) >= 1
+
+
+
+@pytest.mark.parametrize("s,lens", [(256, [256, 200, 37, 1]), (128, [100]),
+                                    (256, [256])],
+                         ids=["phase3", "served_128", "served_256"])
+def test_latent_prefill_launches_give_equal_bits(dev, s, lens):
+    """prefill.cu at head_dim 640 (16 heads on one KV head) at phase 3's
+    shape and the served one-lane buckets: two launches give the same
+    bits, K passed as the same tensor as V (as MLA's prefill passes its
+    latent rows) gives the bits of a separate copy of V, every span count
+    from 1 to 8 gives the plan's output within the tolerance and the
+    plain version's,
+    the library's span plan is the wrapper's, the clocks are stamped for
+    every block, and a launch counts under prefill[head_dim=640]."""
+    h, d, n = 16, 640, len(lens)
+    q = _rnd(dev, n, s, h, d, seed=91)
+    k = _rnd(dev, n, s, 1, d, seed=92)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    lib = ca.build()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for nn, ss in ((n, s), (1, 48), (1, 1), (4, 256), (8, 1024), (2, 100)):
+        for group, n_kv in ((16, 1), (4, 1), (7, 2)):
+            assert lib.dtt_latent_prefill_spans(nn, ss, group, n_kv, sms) == \
+                ca.latent_prefill_spans(nn, ss, group, n_kv, sms)
+    ca.reset_launch_counts()
+    a = ca.prefill_attention(q, k, k, sl)
+    b = ca.prefill_attention(q, k, k, sl)
+    assert torch.equal(a, b)
+    assert ca.VARIANT_LAUNCHES["prefill[head_dim=640]"] == 2
+    assert torch.equal(ca.prefill_attention(q, k, k.clone(), sl), a)
+    ref = att.prefill_attention_ref(q, k, k, sl)
+    torch.testing.assert_close(a.float(), ref.float(), **TOL)
+    plan = ca.latent_prefill_spans(n, s, h, 1, sms)
+    blocks = plan * n * -(-s // ca.tile_positions(h, d))
+    clocks = torch.zeros((2 * blocks,), dtype=torch.int64, device=dev)
+    assert torch.equal(ca.prefill_attention(q, k, k, sl, clocks=clocks), a)
+    torch.cuda.synchronize()
+    stamps = clocks.reshape(-1, 2)
+    assert (stamps[:, 0] > 0).all() and (stamps[:, 1] >= stamps[:, 0]).all()
+    for spans in range(1, ca.MAX_CHUNK_SPANS + 1):
+        other = ca.prefill_attention(q, k, k, sl, spans=spans)
+        torch.testing.assert_close(other.float(), a.float(), **TOL)
+        torch.testing.assert_close(other.float(), ref.float(), **TOL)
+    with pytest.raises(ValueError, match="spans"):
+        ca.prefill_attention(q, k, k, sl, spans=ca.MAX_CHUNK_SPANS + 1)
 
 
 def _latent_rows(dev, int8, decode_q, c, seed):

@@ -31,6 +31,14 @@ the CPU.
   or a quarter of the keys a block. A plain f32 model of the
   spans' partials and their merge equals the plain chunk attention and
   the Pallas chunk kernel in interpret mode (tolerance 1e-5, as above).
+- prefill.cu at head_dim 640 (`latent_prefill_spans`,
+  `prefill_span_keys`): each lane's query tiles cut the same way, from
+  host sizes only (the seq_lens stay on the card); one lane's plan is
+  chunk.cu's at start 0. The plan walks every visible pair once, padding
+  rows included, and a plain f32 model of the spans and their merge over
+  lanes at seq_len 0, 1, S and mid-tile equals the plain prefill
+  attention and the Pallas prefill kernel in interpret mode, with
+  distinct K and V and with K the same tensor as V (tolerance 1e-5).
 """
 
 import jax.numpy as jnp
@@ -431,7 +439,7 @@ def test_latent_chunk_spans_walk_each_visible_pair_once(c, start, sms):
     blocks = n * len(tiles)
     assert blocks <= sms or n == 1  # one wave
     if n < ca.MAX_CHUNK_SPANS and 2 * n <= -(-(start + c) // ca.CHUNK_KEYS):
-        assert 2 * blocks > sms  # the largest that fits
+        assert 2 * blocks > ca.cluster_sms(2 * n, sms)  # the largest that fits
     assert LATENT_DUMP_BYTES <= BLOCK_SMEM
     count = np.zeros((c, width_keys), np.int64)
     for first, k, spans in tiles:
@@ -742,3 +750,137 @@ def test_latent_decode_split_merge_matches_plain_and_pallas(quantized,
             jnp.asarray(vp.numpy()), jnp.asarray(tables[:nrow]),
             jnp.asarray(cl), page_size=ps, num_kv_heads=n_kv, interpret=True)
         np.testing.assert_allclose(out.numpy(), np.asarray(pallas), **TOL)
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 114, 16, 3])
+def test_latent_prefill_spans_are_chunk_spans_per_lane(sms):
+    """latent_prefill_spans is a pure function of N, S, the group, KV and
+    the SM count: at N = 1 it is chunk.cu's plan at start 0, and more
+    lanes take chunk_spans over all their query tiles (one wave: spans x
+    lanes x query tiles x KV within the card, or one span)."""
+    for s in (1, 16, 31, 32, 33, 48, 100, 128, 200, 256, 512, 1024):
+        for group, n_kv in ((16, 1), (4, 1), (8, 2), (1, 4)):
+            want = ca.chunk_spans(s, 0, group, ca.LATENT_DIM, n_kv, sms)
+            assert ca.latent_prefill_spans(1, s, group, n_kv, sms) == want
+            for n in (2, 3, 4, 8):
+                got = ca.latent_prefill_spans(n, s, group, n_kv, sms)
+                tiles = n * -(-s // ca.tile_positions(group, ca.LATENT_DIM))
+                assert got in (1, 2, 4, 8) and got <= want
+                assert got * tiles * n_kv <= sms or got == 1
+
+
+@pytest.mark.parametrize("n,s,sms,spans,blocks", [
+    (4, 256, H100_SMS, 1, 256), (1, 128, H100_SMS, 2, 64),
+    (1, 256, H100_SMS, 2, 128), (4, 256, 3, 1, 256), (1, 128, 3, 1, 32),
+    (1, 256, 3, 1, 64)],
+    ids=["phase3", "served_128", "served_256", "phase3_small_card",
+         "served_128_small_card", "served_256_small_card"])
+def test_latent_prefill_spans_at_the_served_shapes(n, s, sms, spans, blocks):
+    """deepseek-v2-lite's prefills (16 heads on one KV head): phase 3's
+    four lanes of the 256 bucket run one span a query tile (256 blocks:
+    two waves), the served one-lane prompts of the 128 and 256 buckets 2
+    spans (64 and 128 blocks, one wave of the H100's 132 SMs; 4 spans of
+    the 128 bucket would be 32 clusters of 4, and the card holds 30); a
+    3-SM card runs one span."""
+    assert ca.latent_prefill_spans(n, s, 16, 1, sms) == spans
+    tiles = ca.prefill_span_keys(s, [s] * n, 16, 1, sms)
+    assert sum(len(sp) for *_, sp in tiles) == blocks
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 3])
+@pytest.mark.parametrize("s,lens", [(256, [256, 200, 37, 1]), (48, [48, 0]),
+                                    (40, [40, 0, 1, 21]), (128, [100]),
+                                    (256, [256])])
+def test_latent_prefill_spans_walk_each_visible_pair_once(s, lens, sms):
+    """prefill.cu's blocks at head_dim 640: each lane's query tiles (4
+    positions at group 16), each tile's horizon min(its last position + 1,
+    seq_len) cut into the plan's spans. Every visible (query, key) pair of
+    every lane, bucket-padding rows past seq_len included (they see every
+    key below seq_len), is walked once; a lane at seq_len 0 walks nothing;
+    no block reads past its lane's S rows."""
+    tiles = ca.prefill_span_keys(s, lens, 16, 1, sms)
+    n = ca.latent_prefill_spans(len(lens), s, 16, 1, sms)
+    for lane, seq_len in enumerate(lens):
+        count = np.zeros((s, s), np.int64)
+        for ln, first, k, spans in tiles:
+            if ln != lane:
+                continue
+            assert len(spans) == n and spans[0][0] == 0
+            assert max(hi for _, hi in spans) == min(first + k, seq_len)
+            for lo, hi in spans:
+                if lo < hi:
+                    count[first:first + k] += _walked(lo, hi, first, k,
+                                                      seq_len, s)
+        vis = _visible(0, s, seq_len, s)
+        assert (count[vis] == 1).all() and (count[~vis] == 0).all()
+
+
+def _latent_prefill_model(q, k, v, seq_lens, sms):
+    """prefill.cu at head_dim 640 in plain f32: per lane, query tile and
+    span of prefill_span_keys, the span's unnormalized partial (m in log2
+    units, l, o as _partials), then _merge over the spans -> [N, S, H,
+    D]."""
+    n, s, h, d = q.shape
+    n_kv = k.shape[2]
+    g = h // n_kv
+    tok = torch.arange(s)
+    out = torch.zeros((n, s, h, d))
+    for lane, first, count, spans in ca.prefill_span_keys(
+            s, seq_lens, g, n_kv, sms):
+        qt = q[lane, first:first + count].float().reshape(count, n_kv, g, d)
+        sc = torch.einsum("qkgd,tkd->qkgt", qt, k[lane].float()) * (
+            d ** -0.5 * LOG2E)
+        qpos = first + torch.arange(count)
+        o_s, m_s, l_s = [], [], []
+        for lo, hi in spans:
+            mask = ((tok[None] >= lo) & (tok[None] < hi)
+                    & (tok[None] <= qpos[:, None]))[:, None, None]
+            sm = sc.masked_fill(~mask, float("-inf"))
+            m = sm.amax(-1)
+            p = torch.exp2(sm - torch.where(torch.isfinite(m), m,
+                                            0.0)[..., None])
+            o_s.append(torch.einsum("qkgt,tkd->qkgd", p,
+                                    v[lane].float()).reshape(count, h, d))
+            m_s.append(m.reshape(count, h))
+            l_s.append(p.sum(-1).reshape(count, h))
+        out[lane, first:first + count] = _merge(
+            torch.stack(o_s), torch.stack(m_s), torch.stack(l_s))
+    return out
+
+
+@pytest.mark.parametrize("one_kv", [False, True], ids=["distinct_kv",
+                                                       "k_is_v"])
+@pytest.mark.parametrize("s,lens,sms,spans", [
+    (40, [40, 0, 1, 21], H100_SMS, 2), (40, [40, 0, 1, 21], 3, 1),
+    (136, [130], 4096, 4)], ids=["h100", "small_card", "four_spans"])
+def test_latent_prefill_split_merge_matches_plain_and_pallas(s, lens, sms,
+                                                             spans, one_kv):
+    """The spans' partials and their merge at head_dim 640, 16 query heads
+    on one KV head, over lanes at seq_len S (no multiple of the 32-key
+    tile), 0 (exact zeros), 1, and 21 (a length inside a 4-position query
+    tile), each with bucket-padding rows; and one 136-position lane of
+    130 tokens in 4 spans (span edges inside key tiles): against the
+    plain prefill attention and the Pallas prefill kernel in interpret
+    mode, with distinct K and V and with K the same tensor as V (MLA's
+    prefill). Tolerance 1e-5: f32 throughout."""
+    h, n_kv, d = 16, 1, ca.LATENT_DIM
+    rng = np.random.default_rng(53 + s)
+    n = len(lens)
+    q = rng.normal(size=(n, s, h, d)).astype(np.float32)
+    k = rng.normal(size=(n, s, n_kv, d)).astype(np.float32)
+    v = k if one_kv else rng.normal(size=(n, s, n_kv, d)).astype(np.float32)
+    tq, tk = torch.from_numpy(q), torch.from_numpy(k)
+    tv = tk if one_kv else torch.from_numpy(v)
+    assert ca.latent_prefill_spans(n, s, h, n_kv, sms) == spans
+    out = _latent_prefill_model(tq, tk, tv, lens, sms)
+    for lane, seq_len in enumerate(lens):
+        if seq_len == 0:
+            assert not out[lane].any()  # seq_len 0: exact zeros
+    ref = att.prefill_attention_ref(tq, tk, tv, torch.tensor(lens))
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **TOL)
+    for lane, seq_len in enumerate(lens):
+        pallas = pa.prefill_attention(
+            jnp.asarray(q[lane]), jnp.asarray(k[lane]), jnp.asarray(v[lane]),
+            seq_len, interpret=True)
+        np.testing.assert_allclose(out[lane].numpy(), np.asarray(pallas),
+                                   **TOL)
