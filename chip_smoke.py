@@ -9,9 +9,15 @@
                                                 # captured verify steps
     python3 chip_smoke.py --mla-prefill-profile  # phases 1-2, phase 13's
                                                  # profiled full prefill
+    python3 chip_smoke.py --window-profile    # phases 1-2, phase 11's
+                                              # bf16 graph-window step
+    python3 chip_smoke.py --observability     # phases 1-2 and 16
+    python3 chip_smoke.py --trace-stress      # phases 1-2, then repeated
+                                              # /debug/trace under load
 
-(`--kernels-only` and the `--mla-*` options time the package beside the
-script, so a copy of it in an older checkout compares trees.)
+(`--kernels-only`, `--window-profile` and the `--mla-*` options time the
+package beside the script, so a copy of it in an older checkout compares
+trees.)
 
 Needs one NVIDIA GPU (Hopper: the kernels build for sm_90a) and runs from
 the root of a checkout; it exits non-zero, printing no result, without a
@@ -299,7 +305,36 @@ on failure:
    beside base-only traffic on the same lora_slots=4 engine (every step
    computes the deltas once lora_slots > 0, as in the JAX engine) and
    beside the lora_slots=0 engine's step.
-16. A `kernels` JSON line (launches summed over the served phases, graph
+16. The worker's observability plane, last on the 8B's weights, after a
+   profiler run that starts CUPTI (its first start takes seconds and
+   leaves launches slower, so every run serves in that state): four
+   jetstream graph-window engines in turn, each warmed up, behind the
+   worker with VisibleTokenizer, serving phase 5's four concurrent
+   requests and OBS_STREAMS (16) streamed chats of 128 tokens,
+   OBS_CONCURRENT (4) at a time, with `/metrics` scraped before and
+   after; the plane's switches (DYNAMO_TPU_TRACE, DYNAMO_TPU_TIMELINE,
+   DYNAMO_TPU_FLIGHT_RECORDS, read when an engine is built) off, on, off
+   and on, TTFT, mean ITL and tokens per second of the streams and the
+   live MFU/MBU printed for each (`observability_cost`). The first run
+   with the plane on is checked (`observability`), and fails unless: the
+   scrapes parse, their buckets are cumulative with +Inf equal to _count
+   (this script's own check) and the OpenMetrics one carries exemplars
+   and ends with # EOF; the server's TTFT count equals the client's
+   requests, its ITL count the sum of their tokens less one each, its ISL
+   and OSL sums the client's usage; MFU and MBU lie in (0, 1], and MBU
+   within MBU_REL_TOL (10%) of this script's own reckoning from the
+   loaded weights' and the pools' `nbytes` over the same counters; the
+   device-memory gauge within 1% of torch.cuda.memory_allocated(); the
+   device KV books sum to the pools' `nbytes` exactly; and a 1 s
+   /debug/trace, taken on one more wave after the second scrape, holds
+   decode.cu's `decode_kernel` by name. Every served phase before it
+   (the OpenAI server of phases 5, 6, 8, 10, 12, 13, 14 and 15) prints
+   its model's live MFU and MBU from one scrape (`utilization`). With
+   `--trace-stress` (not in a full run): TRACE_STRESS_WAVES (24) waves of
+   phase 16's four streams on one such engine, a 1 s /debug/trace in
+   three of every four, each wave's seconds (`trace_stress`); a wave
+   that outlasts OBS_WAVE_S (120 s) fails, as in phase 16.
+17. A `kernels` JSON line (launches summed over the served phases, graph
    replays included; the verify windows, at decode_q = 5 with and without
    a chunk, decode at head_dim 64, the kernels at head_dim 256, at group
    7 and at group 8 counted as rows of their own: the head_dim 256 rows
@@ -317,12 +352,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import faulthandler
 import gc
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -442,8 +479,20 @@ VARIANTS = {
 CLASSIC = ("decode", "prefill", "chunk")
 
 
+_T0 = time.monotonic()
+# a run that has not ended by then dumps every thread's stack to stderr and
+# exits 1 (as it does on SIGTERM): a run stopped from outside at its time
+# limit would not say where it was
+WATCHDOG_S = 1140
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+    # progress on stderr: the phase and the seconds since the start
+    tag = obj.get("phase", "kernels" if "kernels" in obj else "")
+    print(f"chip_smoke: {time.monotonic() - _T0:.1f} s {tag} "
+          f"{obj.get('engine', obj.get('model', ''))}".rstrip(),
+          file=sys.stderr, flush=True)
 
 
 def card_line() -> str:
@@ -1756,18 +1805,29 @@ class VisibleTokenizer(ByteTokenizer):
 
 
 @contextlib.contextmanager
-def serving(engine: Engine, tokenizer=None):
+def serving(engine: Engine, tokenizer=None, utilization: bool = True):
     """The OpenAI server for `engine` on 127.0.0.1:0 (with `tokenizer` in
-    place of the model's, if given); yields its base URL and stops server
-    and engine thread on exit."""
+    place of the model's, if given); yields its base URL, then (with
+    `utilization`) scrapes its /metrics once and prints the model's live
+    dynamo_engine_mfu and dynamo_engine_mbu (over all the engine's decode
+    work so far), and stops server and engine thread on exit."""
     ctx = ServingContext(engine, engine.cfg.model)
     if tokenizer is not None:
         ctx.tokenizer = tokenizer
     srv = make_server(ctx, host="127.0.0.1", port=0)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
     try:
-        yield f"http://127.0.0.1:{srv.server_address[1]}"
+        yield base
+        if not utilization:
+            return
+        values = samples(scrape(base))
+        emit({"phase": "utilization", "model": engine.cfg.model,
+              "kv_cache_dtype": engine.kv_spec.dtype,
+              "quantization": quant.mode_of(engine.model),
+              "mfu": values[("dynamo_engine_mfu", ())],
+              "mbu": values[("dynamo_engine_mbu", ())]})
     finally:
         srv.shutdown()
         ctx.close()
@@ -3872,12 +3932,382 @@ def mla_ttft_only(eager_cfg: dict) -> None:
               **mla_chunked_ttft(engine, eager_cfg)})
 
 
+# ------------------------------------------------------------- phase 16 --
+
+# phase 16's streamed requests: 128 tokens, every token its own SSE event
+# (the server runs VisibleTokenizer)
+OBS_STREAM = dict(CHAT, stream=True, max_tokens=128,
+                  stream_options={"include_usage": True})
+OBS_STREAMS, OBS_CONCURRENT = 16, 4
+OBS_WAVE_S = 120  # a wave takes 1-2 s, 8-16 s with a 1 s trace in it
+TRACE_STRESS_WAVES = 24
+# the plane's switches, read when an engine (flight recorder, timeline) is
+# built and at every span (tracing)
+OBS_SWITCHES = ("DYNAMO_TPU_TRACE", "DYNAMO_TPU_TIMELINE",
+                "DYNAMO_TPU_FLIGHT_RECORDS")
+MBU_REL_TOL = 0.10  # the gauge against chip_smoke's own reckoning
+DEVICE_BYTES_REL_TOL = 0.01  # the device gauge against memory_allocated
+_SAMPLE_RE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)'
+                        r'(?: # .*)?$')
+_LABEL_RE = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def scrape(base: str, accept: str = None) -> str:
+    req = urllib.request.Request(base + "/metrics",
+                                 headers={"Accept": accept} if accept
+                                 else {})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.read().decode()
+
+
+def samples(page: str) -> dict:
+    """{(name, ((label, value), ...)): value} of a /metrics page; raises
+    on a line that is neither a comment nor a sample."""
+    out = {}
+    for line in page.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(line)
+        if m is None:
+            raise AssertionError(f"unparseable /metrics line: {line!r}")
+        labels = tuple(sorted(_LABEL_RE.findall(m.group(2) or "")))
+        out[(m.group(1), labels)] = float(m.group(3))
+    return out
+
+
+def exposition_errors(page: str) -> list:
+    """chip_smoke's own check of a /metrics page: every line parses, and
+    each histogram's buckets are cumulative with +Inf equal to _count."""
+    values = samples(page)
+    buckets = {}
+    for (name, labels), v in values.items():
+        if name.endswith("_bucket"):
+            le = dict(labels)["le"]
+            rest = tuple(kv for kv in labels if kv[0] != "le")
+            buckets.setdefault((name[:-len("_bucket")], rest), []).append(
+                (float("inf") if le == "+Inf" else float(le), v))
+    errors = []
+    for (name, rest), rows in buckets.items():
+        rows.sort()
+        counts = [c for _, c in rows]
+        if counts != sorted(counts):
+            errors.append(f"{name}{dict(rest)}: buckets not cumulative")
+        if rows[-1][0] != float("inf") or \
+                values.get((name + "_count", rest)) != counts[-1]:
+            errors.append(f"{name}{dict(rest)}: +Inf != _count")
+    return errors
+
+
+def obs_stream_summary(result) -> dict:
+    """Usage, TTFT, mean ITL and tokens per second of one 128-token
+    stream (one SSE event per token)."""
+    status, payload, stamps, _ = result
+    if status != 200 or payload[-1] != "[DONE]":
+        raise AssertionError(f"stream: HTTP {status}, {payload[-2:]}")
+    usage = json.loads(payload[-2])["usage"]
+    n = usage["completion_tokens"]
+    if n != OBS_STREAM["max_tokens"]:
+        raise AssertionError(f"stream: usage {usage}")
+    tok = stamps[1:1 + n]
+    return {"prompt_tokens": usage["prompt_tokens"],
+            "completion_tokens": n, "ttft_s": tok[0],
+            "itl_mean_s": (tok[-1] - tok[0]) / (n - 1),
+            "tokens_per_s": (n - 1) / (tok[-1] - tok[0])}
+
+
+def obs_wave(base: str, capture: bool = False) -> tuple:
+    """OBS_CONCURRENT streamed chats of 128 tokens at once; with
+    `capture`, a 1 s /debug/trace requested as they start (they last
+    longer than the capture). -> (their summaries, the wave's seconds,
+    the trace's bytes and client-side window or None)."""
+    t0 = time.monotonic()
+    out, got = [None] * OBS_CONCURRENT, {}
+
+    def one(i):
+        out[i] = post(base + "/v1/chat/completions", OBS_STREAM, True)
+
+    def trace():
+        t_req = time.monotonic() - t0
+        with urllib.request.urlopen(base + "/debug/trace?duration_s=1",
+                                    timeout=120) as r:
+            got["zip"] = r.read()
+        got["window_s"] = [t_req, time.monotonic() - t0]
+
+    ts = [threading.Thread(target=one, args=(i,), daemon=True)
+          for i in range(OBS_CONCURRENT)]
+    if capture:
+        ts.insert(0, threading.Thread(target=trace, daemon=True))
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=OBS_WAVE_S - (time.monotonic() - t0))
+    if any(t.is_alive() for t in ts):
+        raise AssertionError(f"phase 16: a wave (capture {capture}) did "
+                             f"not end within {OBS_WAVE_S} s")
+    return ([obs_stream_summary(r) for r in out], time.monotonic() - t0,
+            got or None)
+
+
+def obs_traffic(base: str) -> dict:
+    """Phase 5's four concurrent requests, then OBS_STREAMS streamed chats
+    of 128 tokens, OBS_CONCURRENT at a time. -> the client's usage sums
+    and the streams' TTFT, mean ITL and tokens per second."""
+    jobs = FOUR_JOBS
+    results = {}
+
+    def run(name):
+        path, body, stream = jobs[name]
+        results[name] = post(base + path, body, stream)
+
+    threads = [threading.Thread(target=run, args=(n,)) for n in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    usage = [summarize(n, results[n], jobs[n][2]) for n in jobs]
+    streams, wall = [], 0.0
+    for _ in range(OBS_STREAMS // OBS_CONCURRENT):
+        wave, seconds, _ = obs_wave(base)
+        streams += wave
+        wall += seconds
+    usage += streams
+    return {"requests": len(usage),
+            "prompt_tokens": sum(u["prompt_tokens"] for u in usage),
+            "completion_tokens": sum(u["completion_tokens"] for u in usage),
+            "itl_observations": sum(u["completion_tokens"] - 1
+                                    for u in usage),
+            "streams": {
+                "ttft_mean_s": statistics.mean(u["ttft_s"] for u in streams),
+                "itl_mean_s": statistics.mean(u["itl_mean_s"]
+                                              for u in streams),
+                "tokens_per_s": sum(u["completion_tokens"] for u in streams)
+                / wall}}
+
+
+def trace_kernels(data: bytes) -> tuple:
+    """Device kernels of a /debug/trace zip's chrome trace, by name, and
+    its events by category."""
+    import io
+    import zipfile
+
+    with zipfile.ZipFile(io.BytesIO(data)) as z:
+        events = json.loads(z.read("trace.json"))["traceEvents"]
+    names, cats = {}, {}
+    for ev in events:
+        cats[str(ev.get("cat"))] = cats.get(str(ev.get("cat")), 0) + 1
+        if ev.get("cat") == "kernel":
+            names[ev["name"]] = names.get(ev["name"], 0) + 1
+    return names, cats
+
+
+def mbu_reckoning(engine: Engine, d_tok: int, d_time: float,
+                  d_steps: int) -> float:
+    """The decode phase's memory-bandwidth share from the loaded weights'
+    and the pools' bytes on the card (not the roofline's counts) over the
+    engine's counters: each step streams every weight once and each live
+    row's KV; the context is the gauge's own fallback for an idle engine
+    (half of max_seq_len)."""
+    if engine.seqs:
+        raise AssertionError("phase 16 scrapes an idle engine")
+    w_bytes = sum(p.numel() * p.element_size()
+                  for p in engine.model.parameters())
+    kv_token = ((engine.k_pages.nbytes + engine.v_pages.nbytes)
+                / (engine.cfg.num_pages * engine.cfg.page_size))
+    tok_s = d_tok / d_time
+    batch = max(d_tok / d_steps, 1.0)
+    ctx = engine.cfg.max_seq_len / 2.0
+    return (tok_s / batch) * (w_bytes + batch * kv_token * ctx) \
+        / HBM_BYTES_PER_S
+
+
+def obs_serve(engine: Engine, checked: bool) -> dict:
+    """Phase 16's traffic on `engine` behind the worker, /metrics scraped
+    before and after; `checked`: every check of the plane (see the module
+    doc), the trace taken on one more wave after the second scrape."""
+    m = engine.metrics
+    with serving(engine, VisibleTokenizer(), utilization=False) as base:
+        before_page = scrape(base)
+        c0 = (m.output_tokens, m.decode_time_s, m.decode_steps)
+        client = obs_traffic(base)
+        page = scrape(base)
+        allocated = torch.cuda.memory_allocated()
+        c1 = (m.output_tokens, m.decode_time_s, m.decode_steps)
+        om = scrape(base, "application/openmetrics-text")
+        timeline = json.loads(urllib.request.urlopen(
+            base + "/debug/timeline?format=summary", timeout=60).read())
+        gap = engine.timeline.gap_digest
+        host_gap = {"p50": gap.quantile_ms(0.5), "p99": gap.quantile_ms(0.99),
+                    "count": gap.count}
+        if checked:
+            _, wave_s, trace = obs_wave(base, capture=True)
+    now = samples(page)
+    out = {"client": client, "host_gap_ms": host_gap,
+           "mfu": now[("dynamo_engine_mfu", ())],
+           "mbu": now[("dynamo_engine_mbu", ())],
+           "timeline_phase_share": {k: v["share"] for k, v in
+                                    timeline.get("phases", {}).items()}}
+    if not checked:
+        return out
+    errors = exposition_errors(before_page) + exposition_errors(page) + [
+        f"openmetrics: {e}" for e in exposition_errors(om)]
+    if not om.endswith("# EOF\n") or " # {trace_id=" not in om:
+        errors.append("openmetrics: no # EOF or no exemplar")
+    was = samples(before_page)
+    lbl = (("model", MODEL),)
+
+    def delta(name):
+        return now.get((name, lbl), 0.0) - was.get((name, lbl), 0.0)
+
+    counts = {
+        "ttft": (delta("dynamo_frontend_time_to_first_token_seconds_count"),
+                 client["requests"]),
+        "itl": (delta("dynamo_frontend_inter_token_latency_seconds_count"),
+                client["itl_observations"]),
+        "isl_sum": (delta("dynamo_frontend_input_sequence_tokens_sum"),
+                    client["prompt_tokens"]),
+        "osl_sum": (delta("dynamo_frontend_output_sequence_tokens_sum"),
+                    client["completion_tokens"]),
+        "requests": (delta("dynamo_frontend_requests_total"),
+                     client["requests"]),
+    }
+    for k, (got, want) in counts.items():
+        if got != want:
+            errors.append(f"{k}: server {got} != client {want}")
+    mfu, mbu = out["mfu"], out["mbu"]
+    if not (0.0 < mfu <= 1.0 and 0.0 < mbu <= 1.0):
+        errors.append(f"mfu {mfu}, mbu {mbu} outside (0, 1]")
+    d_tok, d_time, d_steps = (c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2])
+    mbu_own = mbu_reckoning(engine, d_tok, d_time, d_steps)
+    if abs(mbu - mbu_own) > MBU_REL_TOL * mbu_own:
+        errors.append(f"mbu {mbu} vs reckoned {mbu_own}")
+    in_use = now[("dynamo_memory_device_bytes",
+                  (("device", "cuda:0"), ("kind", "in_use")))]
+    if abs(in_use - allocated) > DEVICE_BYTES_REL_TOL * allocated:
+        errors.append(f"device bytes {in_use} vs memory_allocated "
+                      f"{allocated}")
+    books = {dict(k[1])["tenant"]: v for k, v in now.items()
+             if k[0] == "dynamo_memory_kv_pool_bytes"
+             and dict(k[1]).get("tier") == "device"}
+    pools = engine.k_pages.nbytes + engine.v_pages.nbytes
+    if sum(books.values()) != pools:
+        errors.append(f"KV books {books} sum to {sum(books.values())}, "
+                      f"pools hold {pools}")
+    kernels, cats = trace_kernels(trace["zip"])
+    decode = {k: n for k, n in kernels.items() if "decode_kernel" in k}
+    if not decode:
+        errors.append(f"the trace holds no decode kernel: "
+                      f"{sorted(kernels)[:10]}, events by category {cats},"
+                      f" window {trace['window_s']}, wave {wave_s}")
+    from dynamo_tpu_torch.profiler import roofline
+
+    out.update(
+        counts={k: {"server": g, "client": w}
+                for k, (g, w) in counts.items()},
+        mbu_reckoned=mbu_own,
+        decode_counters={"tokens": d_tok, "seconds": d_time,
+                         "steps": d_steps},
+        device_bytes={"gauge": in_use, "memory_allocated": allocated},
+        kv_books=books, kv_pools_nbytes=pools,
+        roofline_vs_card={
+            "param_count_bytes": roofline.param_count(engine.model_cfg)
+            * roofline.BYTES,
+            "weights_nbytes": sum(p.numel() * p.element_size()
+                                  for p in engine.model.parameters()),
+            "kv_bytes_per_token": roofline.kv_bytes_per_token(
+                engine.model_cfg, engine.cfg.kv_cache_dtype),
+            "pools_bytes_per_token": pools / (engine.cfg.num_pages
+                                              * engine.cfg.page_size)},
+        trace={"bytes": len(trace["zip"]), "decode_kernels": decode,
+               "kernel_names": len(kernels), "events": cats,
+               "window_s": trace["window_s"], "wave_s": wave_s},
+        graphs=now[("dynamo_engine_jit_programs", ())],
+        warmup_s=now[("dynamo_engine_warmup_seconds", ())])
+    if errors:
+        raise AssertionError(f"phase 16: {errors}")
+    return out
+
+
+def observability_phase(engine: Engine, jet_cfg: dict) -> dict:
+    """Phase 16 (see the module doc): the same traffic with the plane's
+    switches off, then on and checked, then off and on again, for the
+    plane's served cost; each run on a fresh graph-window engine over the
+    8B's weights."""
+    from torch.profiler import ProfilerActivity, profile
+
+    # the profiler's first start in a process takes seconds (CUPTI's
+    # initialization) and leaves kernel launches slower after it: start it
+    # once here, so that every run serves in the same state
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        pass
+    emit({"phase": "profiler_init", "seconds": time.monotonic() - t0})
+    runs = []
+    for plane in ("off", "on", "off", "on"):
+        checked = len(runs) == 1  # the first run with the plane on
+        saved = {k: os.environ.get(k) for k in OBS_SWITCHES}
+        if plane == "off":
+            os.environ.update({k: "0" for k in OBS_SWITCHES})
+        try:
+            eng = Engine(EngineConfig(**jet_cfg), params=engine.model)
+            eng.warmup()
+            if plane == "off" and (eng.flight.enabled or
+                                   eng.timeline.enabled):
+                raise AssertionError("phase 16: the switches were not read")
+            runs.append((plane, obs_serve(eng, checked)))
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        del eng
+        release()
+    emit({"phase": "observability", **runs[1][1]})
+    emit({"phase": "observability_cost", "model": MODEL,
+          "runs": [{"plane": plane, **r["client"]["streams"],
+                    "mfu": r["mfu"], "mbu": r["mbu"]}
+                   for plane, r in runs]})
+    return dict(runs)
+
+def trace_stress(jet_cfg: dict) -> None:
+    """`--trace-stress`: TRACE_STRESS_WAVES waves of OBS_CONCURRENT
+    128-token streams on the 8B's graph-window engine behind the worker,
+    a 1 s /debug/trace in three of every four; each wave's seconds. The
+    profiler's stop beside a CUDA graph replay on the scheduler thread
+    hung both threads, one capture in three, before the worker took the
+    profiler's start and stop between two engine steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        pass  # CUPTI's first start, as in phase 16
+    eng = Engine(EngineConfig(**jet_cfg))
+    eng.warmup()
+    waves = []
+    with serving(eng, VisibleTokenizer(), utilization=False) as base:
+        for i in range(TRACE_STRESS_WAVES):
+            capture = i % 4 != 3
+            streams, seconds, got = obs_wave(base, capture)
+            waves.append({"capture": capture, "seconds": seconds,
+                          "trace_bytes": len(got["zip"]) if got else None,
+                          "tokens_per_s": sum(s["tokens_per_s"]
+                                              for s in streams)})
+            emit({"phase": "trace_stress_wave", "wave": i, **waves[-1]})
+    emit({"phase": "trace_stress", "waves": len(waves), "captures": sum(
+        w["capture"] for w in waves), **{
+        k: [min(w["seconds"] for w in waves if w["capture"] == c),
+            max(w["seconds"] for w in waves if w["capture"] == c)]
+        for k, c in (("capture_wave_s", True), ("plain_wave_s", False))}})
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if args not in ([], ["--kernels-only"], ["--mla-chunked-ttft"],
-                    ["--mla-verify-profile"], ["--mla-prefill-profile"]):
+                    ["--mla-verify-profile"], ["--mla-prefill-profile"],
+                    ["--window-profile"], ["--observability"],
+                    ["--trace-stress"]):
         print("usage: chip_smoke.py [--kernels-only | --mla-chunked-ttft | "
-              "--mla-verify-profile | --mla-prefill-profile]",
+              "--mla-verify-profile | --mla-prefill-profile | "
+              "--window-profile | --observability | --trace-stress]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3885,6 +4315,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    faulthandler.register(signal.SIGTERM, all_threads=True, chain=True)
     t_all = time.monotonic()
     card = card_line()
     emit({"phase": "card", "nvidia_smi": card})
@@ -3909,6 +4341,24 @@ def main(argv=None) -> int:
         return 0
     if args == ["--mla-prefill-profile"]:
         mla_prefill_only(eager_cfg)
+        return 0
+    jet_cfg = dict(base_cfg, **BACKEND_PROFILES["jetstream"])
+    if args == ["--window-profile"]:
+        # phase 11's 8-step graph-window decode step on bf16 pools alone,
+        # twice: the first pass in a fresh process is its warm-up
+        eng = Engine(EngineConfig(**jet_cfg))
+        eng.warmup()
+        with torch.inference_mode():
+            for n in (1, 2):
+                emit({"phase": "profile", "pass": n,
+                      "weights": quant.mode_of(eng.model),
+                      **profile_steps(eng, 4)})
+        return 0
+    if args == ["--observability"]:
+        observability_phase(Engine(EngineConfig(**eager_cfg)), jet_cfg)
+        return 0
+    if args == ["--trace-stress"]:
+        trace_stress(jet_cfg)
         return 0
     rows = kernel_checks(dev)
     family_rows = {label: shape_kernel_checks(dev, label, h, kv, d, names)
@@ -3953,7 +4403,6 @@ def main(argv=None) -> int:
 
     # decode windows on CUDA graphs: the worker profiles' scheduling
     tok = get_tokenizer(MODEL)
-    jet_cfg = dict(base_cfg, **BACKEND_PROFILES["jetstream"])
     vllm_cfg = dict(base_cfg, **BACKEND_PROFILES["vllm_tpu"])
     graph_engines = {
         "jetstream": Engine(EngineConfig(**jet_cfg), params=engine.model),
@@ -4083,6 +4532,8 @@ def main(argv=None) -> int:
     rows.update(grammar_kernel_checks(dev))
     guided = guided_phases(engine, jet_cfg)
     lora = lora_phases(engine, eager_cfg, jet_cfg, tok)
+    # the worker's observability plane (phase 16), last on the 8B
+    observability_phase(engine, jet_cfg)
 
     # the new families (phase 13), once the 8B's engines and weights are
     # released

@@ -81,11 +81,12 @@ NotImplementedError naming the field.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import ClassVar, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -113,6 +114,9 @@ from dynamo_tpu_torch.lora.registry import (LoRARegistry, NoFreeAdapterSlot,
                                             parse_adapter_list)
 from dynamo_tpu_torch.models import llama, loader, quant
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.observability.cost import CostLedger
+from dynamo_tpu_torch.observability.flight import FlightRecorder
+from dynamo_tpu_torch.observability.timeline import StepTimeline
 from dynamo_tpu_torch.ops import cuda_guide, json_guide
 from dynamo_tpu_torch.speculation import AdaptiveK, DraftEngine
 
@@ -206,18 +210,93 @@ def _next_bucket(n: int, page_size: int, max_len: int) -> int:
 # accepted drafts per speculating slot per verify step: the JAX engine's
 # histogram edges (K < page_size keeps them small)
 SPEC_EDGES = (0, 1, 2, 3, 4, 6, 8)
+# decode-window batch occupancy (active slots / max_num_seqs) and the mixed
+# step's prefill-token fraction share these edges, as in the JAX engine
+OCC_EDGES = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
+# the JAX engine's phase timers
+PHASES = ("prefill", "prefill_chunk", "decode_window", "decode_step",
+          "mixed_step")
 
 
-def _bucketize(buckets: List[int], n: int) -> None:
-    for i, edge in enumerate(SPEC_EDGES):
+def _bucketize(buckets: List[int], n, edges=SPEC_EDGES) -> None:
+    for i, edge in enumerate(edges):
         if n <= edge:
             buckets[i] += 1
             return
     buckets[-1] += 1
 
 
+class PhaseTimer:
+    """Bucketed per-phase latency histogram (quarter-octave log buckets,
+    0.25ms..8s), the JAX engine's: cheap enough to run always-on in the
+    hot loop, and bridged onto /metrics as
+    `dynamo_engine_phase_seconds` (observability/engine_metrics.py)."""
+
+    _EDGES_MS = [0.25 * 2 ** (i / 4) for i in range(61)]  # 0.25ms .. ~8.2s
+
+    def __init__(self):
+        self.count = 0
+        self.sum_s = 0.0
+        self.max_s = 0.0
+        self.buckets = [0] * (len(self._EDGES_MS) + 1)
+
+    def observe(self, seconds: float, weight: int = 1) -> None:
+        """Record `weight` observations of `seconds` (a window's per-step
+        time counts once PER STEP, so a tail of 1-step windows cannot
+        outvote the steady-state windows in the quantiles)."""
+        self.count += weight
+        self.sum_s += seconds * weight
+        if seconds > self.max_s:
+            self.max_s = seconds
+        ms = seconds * 1e3
+        lo, hi = 0, len(self._EDGES_MS)
+        while lo < hi:  # first edge >= ms (binary search; 61 edges)
+            mid = (lo + hi) // 2
+            if ms <= self._EDGES_MS[mid]:
+                hi = mid
+            else:
+                lo = mid + 1
+        self.buckets[lo] += weight
+
+    def quantile_ms(self, q: float) -> float:
+        """Geometric-midpoint estimate of the q-quantile from the buckets."""
+        if self.count == 0:
+            return 0.0
+        target = q * self.count
+        seen = 0
+        for i, n in enumerate(self.buckets):
+            seen += n
+            if seen >= target:
+                if i >= len(self._EDGES_MS):
+                    # overflow bucket: the top edge is a LOWER bound here
+                    return self._EDGES_MS[-1]
+                hi = self._EDGES_MS[i]
+                lo_edge = self._EDGES_MS[i - 1] if i > 0 else hi / 2 ** 0.25
+                return (lo_edge * hi) ** 0.5
+        return self._EDGES_MS[-1]
+
+    def snapshot(self) -> Dict[str, float]:
+        return {
+            "count": self.count,
+            "sum_s": round(self.sum_s, 6),
+            "mean_ms": round(1e3 * self.sum_s / self.count, 3)
+            if self.count else 0.0,
+            "p50_ms": round(self.quantile_ms(0.5), 3),
+            "p95_ms": round(self.quantile_ms(0.95), 3),
+            "max_ms": round(self.max_s * 1e3, 3),
+        }
+
+
+def _zeros(n: int):
+    return dataclasses.field(default_factory=lambda: [0] * n)
+
+
 @dataclasses.dataclass
 class EngineMetrics:
+    # the edges the /metrics bridge reads (the JAX engine's class names)
+    _OCC_EDGES: ClassVar[Tuple[float, ...]] = OCC_EDGES
+    _SPEC_EDGES: ClassVar[Tuple[int, ...]] = SPEC_EDGES
+
     num_requests: int = 0
     num_finished: int = 0
     prompt_tokens: int = 0
@@ -235,8 +314,7 @@ class EngineMetrics:
     # demotions to one token per step by reason
     spec_draft_tokens: int = 0
     spec_accepted_tokens: int = 0
-    spec_accept_buckets: List[int] = dataclasses.field(
-        default_factory=lambda: [0] * (len(SPEC_EDGES) + 1))
+    spec_accept_buckets: List[int] = _zeros(len(SPEC_EDGES) + 1)
     spec_accept_sum: int = 0
     spec_accept_count: int = 0
     spec_draft_by: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -249,6 +327,36 @@ class EngineMetrics:
     spec_verify_steps: int = 0
     mixed_spec_count: int = 0
     spec_demotions: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # decode-window batch occupancy and the mixed steps' prefill-token
+    # fraction (OCC_EDGES buckets), and the per-phase timers
+    occupancy_buckets: List[int] = _zeros(len(OCC_EDGES) + 1)
+    occupancy_sum: float = 0.0
+    occupancy_count: int = 0
+    mixed_buckets: List[int] = _zeros(len(OCC_EDGES) + 1)
+    mixed_sum: float = 0.0
+    mixed_prefill_tokens: int = 0
+    phases: Dict[str, PhaseTimer] = dataclasses.field(
+        default_factory=lambda: {p: PhaseTimer() for p in PHASES})
+
+    def observe_phase(self, phase: str, seconds: float,
+                      weight: int = 1) -> None:
+        self.phases[phase].observe(seconds, weight)
+
+    def observe_occupancy(self, active: int, capacity: int) -> None:
+        """One decode window's batch occupancy fraction."""
+        frac = active / max(capacity, 1)
+        _bucketize(self.occupancy_buckets, frac, OCC_EDGES)
+        self.occupancy_sum += frac
+        self.occupancy_count += 1
+
+    def observe_mixed(self, prefill_tokens: int, decode_rows: int) -> None:
+        """One mixed step's composition: the prefill-token fraction of its
+        rows."""
+        frac = prefill_tokens / max(prefill_tokens + decode_rows, 1)
+        _bucketize(self.mixed_buckets, frac, OCC_EDGES)
+        self.mixed_sum += frac
+        self.mixed_count += 1
+        self.mixed_prefill_tokens += prefill_tokens
 
     def observe_spec_accept(self, n_acc: int,
                             drafter: Optional[str] = None) -> None:
@@ -280,10 +388,15 @@ class EngineMetrics:
         self.spec_demotions[reason] = self.spec_demotions.get(reason, 0) + 1
 
     def snapshot(self) -> Dict[str, object]:
-        out = {k: v for k, v in dataclasses.asdict(self).items()
-               if k not in ("spec_accept_buckets", "spec_draft_by",
-                            "spec_accepted_by", "spec_hist_by",
-                            "spec_sum_by", "spec_count_by")}
+        """/worker/stats' `metrics`: the counters, the phase timers'
+        digests and the histograms' means (the buckets ride /metrics)."""
+        skip = ("spec_accept_buckets", "spec_draft_by", "spec_accepted_by",
+                "spec_hist_by", "spec_sum_by", "spec_count_by",
+                "occupancy_buckets", "mixed_buckets", "phases")
+        out = {f.name: getattr(self, f.name)
+               for f in dataclasses.fields(self) if f.name not in skip}
+        out["spec_demotions"] = dict(self.spec_demotions)
+        out["phases"] = {p: t.snapshot() for p, t in self.phases.items()}
         out["spec_accept_mean"] = (
             round(self.spec_accept_sum / self.spec_accept_count, 4)
             if self.spec_accept_count else 0.0)
@@ -299,6 +412,12 @@ class EngineMetrics:
                           4) if self.spec_count_by.get(d) else 0.0)}
             for d in sorted(set(self.spec_draft_by)
                             | set(self.spec_count_by))}
+        out["occupancy_mean"] = (
+            round(self.occupancy_sum / self.occupancy_count, 4)
+            if self.occupancy_count else 0.0)
+        out["mixed_frac_mean"] = (
+            round(self.mixed_sum / self.mixed_count, 4)
+            if self.mixed_count else 0.0)
         return out
 
 
@@ -306,7 +425,7 @@ class InflightPrefill:
     """A long prompt being prefilled chunk by chunk between decode steps."""
 
     __slots__ = ("req", "pages", "pages_dev", "prompt_len", "done", "slot",
-                 "aslot")
+                 "aslot", "t_start")
 
     def __init__(self, req: GenRequest, pages, pages_dev, prompt_len: int,
                  slot: int, aslot: int = 0):
@@ -317,6 +436,7 @@ class InflightPrefill:
         self.done = 0  # tokens whose KV is cached so far
         self.slot = slot  # decode slot reserved at admission
         self.aslot = aslot  # LoRA slot (0 = base), pinned while in flight
+        self.t_start = time.monotonic()  # admission (TTFT accounting)
 
 
 class Engine:
@@ -377,6 +497,15 @@ class Engine:
         self.metrics = EngineMetrics()
         self._lock = threading.Lock()  # guards pending + _aborted
         self._exec_lock = threading.RLock()  # serialises step()
+        # the observability plane, as in the JAX engine: one flight record
+        # per step (DYNAMO_TPU_FLIGHT_RECORDS, 0 disables), one cost-ledger
+        # entry per executed segment, the step timeline's phase intervals
+        # and host gaps (DYNAMO_TPU_TIMELINE); all read their switches here
+        self.flight = FlightRecorder()
+        self.cost = CostLedger()
+        self.timeline = StepTimeline()
+        # Engine.warmup's kernel build and captures (the warmup gauge)
+        self.warmup_info: Optional[Dict[str, float]] = None
 
         mode = quant.mode_name(cfg.quantization)
         if params is None:
@@ -405,6 +534,7 @@ class Engine:
                  cfg.page_size, self.kv_spec.lane_width,
                  self.kv_spec.pool_bytes)
         self.allocator = PageAllocator(cfg.num_pages)
+        self._page_nbytes = self.kv_spec.bytes_per_token() * cfg.page_size
         # prefix hits re-enter as mid-prompt chunks, so the cache needs a
         # chunked path (classic or mixed), as in the JAX engine
         self.prefix_cache: Optional[PrefixCache] = None
@@ -495,29 +625,59 @@ class Engine:
         response_format json_object), and with speculation the greedy
         verify step and the draft model's step, before serving, on the
         card; the eager prefills have nothing to compile. Needs an idle
-        engine."""
+        engine. `warmup_info` keeps the graphs captured and the seconds
+        outside the captures (the kernel build), which the warmup gauge
+        adds to every capture's time."""
         if self.device.type != "cuda":
             return
         if self.has_work:
             raise RuntimeError("warmup() requires an idle engine")
         from dynamo_tpu_torch.ops import cuda_attention
 
+        t0 = time.monotonic()
+        captured = self.capture_seconds()
         cuda_attention.build()
-        if self.windows.eager:
-            return
-        with self._exec_lock, torch.inference_mode():
-            self._ensure_dev_state()
-            self._ensure_guide_table()
-            greedy = smp.gates([0.0], [1.0], [0], [0.0], [0.0], [0.0], [-1])
-            for want_lp in (False, True):
-                for guided in (False, True):
-                    if (want_lp, guided, greedy) not in self.windows.graphs:
-                        self.windows.capture(want_lp, greedy, guided)
-            if self.verify is not None and greedy not in self.verify.graphs:
-                self.verify.capture(greedy)
-            if self.draft is not None and self.draft._graph is None:
-                self.draft.capture()
-            torch.cuda.synchronize(self.device)
+        if not self.windows.eager:
+            with self._exec_lock, torch.inference_mode():
+                self._ensure_dev_state()
+                self._ensure_guide_table()
+                greedy = smp.gates([0.0], [1.0], [0], [0.0], [0.0], [0.0],
+                                   [-1])
+                for want_lp in (False, True):
+                    for guided in (False, True):
+                        if (want_lp, guided, greedy) not in \
+                                self.windows.graphs:
+                            self.windows.capture(want_lp, greedy, guided)
+                if (self.verify is not None
+                        and greedy not in self.verify.graphs):
+                    self.verify.capture(greedy)
+                if self.draft is not None and self.draft._graph is None:
+                    self.draft.capture()
+                torch.cuda.synchronize(self.device)
+        wall = time.monotonic() - t0
+        self.warmup_info = {
+            "programs": self.compiled_program_count(),
+            "seconds": wall - (self.capture_seconds() - captured)}
+        log.info("warmup complete: %s", self.warmup_info)
+
+    def compiled_program_count(self) -> int:
+        """CUDA graphs captured so far: decode windows, verify steps and
+        the draft model's step (the JAX engine counts its jit caches)."""
+        n = len(self.windows.graphs)
+        if self.verify is not None:
+            n += len(self.verify.graphs)
+        if self.draft is not None and self.draft._graph is not None:
+            n += 1
+        return n
+
+    def capture_seconds(self) -> float:
+        """Seconds spent capturing CUDA graphs so far."""
+        s = self.windows.capture_s
+        if self.verify is not None:
+            s += self.verify.capture_s
+        if self.draft is not None:
+            s += self.draft.capture_s
+        return s
 
     @property
     def lora_stacks(self):
@@ -581,11 +741,52 @@ class Engine:
         with self._lock:
             self._insert_pending(req)
             self.metrics.num_requests += 1
+        if req.prior_output_token_ids:
+            # a continuation of a preempted request: the flight ring ties
+            # it back to the preemption
+            self.flight.note(
+                "resume", rid=req.request_id, tenant=self._tenant_of(req),
+                n_prior=len(req.prior_output_token_ids), seeded=False)
+
+    @contextlib.contextmanager
+    def between_steps(self):
+        """Hold the scheduler between two steps: no step, and so no CUDA
+        graph launch, runs on another thread until the block ends. The
+        profiler's start and stop need it (`ServingContext.capture_trace`):
+        its stop, run beside a graph replay on the scheduler thread, hung
+        both threads on the card."""
+        with self._exec_lock:
+            yield
 
     def abort_request(self, request_id: str) -> None:
         """Mark a request aborted; step() applies it."""
         with self._lock:
             self._aborted.add(request_id)
+
+    def abort_all(self) -> List[str]:
+        """Tear down every pending and running request (a failed step's
+        recovery), releasing slots and KV pages, and dump the flight ring
+        to the log. Returns the affected request ids."""
+        with self._exec_lock:
+            with self._lock:
+                ids = [r.request_id for r in self.pending]
+                self.pending.clear()
+                self._aborted.clear()
+            self._pending_win = None  # unread tokens die with their slots
+            inf, self._inflight = self._inflight, None
+            if inf is not None:
+                ids.append(inf.req.request_id)
+                self.allocator.free(inf.pages)
+                self._free_slots.append(inf.slot)
+            for slot, seq in list(self.seqs.items()):
+                ids.append(seq.request_id)
+                self._finish_slot(slot, "abort")
+            self.flight.dump("abort_all", rids=ids)
+        return ids
+
+    @staticmethod
+    def _tenant_of(req: GenRequest) -> str:
+        return req.tenant or "default"
 
     @property
     def num_active(self) -> int:
@@ -606,30 +807,108 @@ class Engine:
         Single consumer: one thread calls step(); add_request and
         abort_request synchronise through _lock."""
         with self._exec_lock, torch.inference_mode():
+            # one flight record and one timeline record per step: the
+            # segments executed fill their phases, decisions attach as
+            # events, and the commit stamps the closing batch; a step
+            # that did nothing commits nothing
+            self.flight.begin()
+            self.timeline.begin_step()
+            try:
+                return self._step_locked()
+            finally:
+                if self.flight.enabled:
+                    self.flight.commit(
+                        active=len(self.seqs), pending=len(self.pending),
+                        free_pages=self.allocator.free_pages,
+                        batch=self._flight_batch())
+                self.timeline.commit_step(
+                    active=len(self.seqs), pending=len(self.pending))
+
+    def _step_locked(self) -> List[TokenEvent]:
+        # the JAX engine's step phases less "bank": the port keeps no
+        # per-tenant budgets to bank at the end of a step
+        with self.timeline.phase("admit"):
             events = self._apply_aborts()
-            spec = self.verify is not None
-            if self._mixed_eligible():
-                # with speculation the verify windows ride the mixed step,
-                # unless a logprobs request demotes it to the plain one
-                if spec and not self._any_logprobs():
-                    events.extend(self._mixed_spec_step())
-                else:
-                    if spec:
-                        self.metrics.demote("logprobs")
-                    events.extend(self._mixed_step())
-                return events
-            if self._inflight is not None:
-                events.extend(self._advance_chunk())
+        spec = self.verify is not None
+        if self._mixed_eligible():
+            # with speculation the verify windows ride the mixed step,
+            # unless a logprobs request demotes it to the plain one
+            if spec and not self._any_logprobs():
+                events.extend(self._mixed_spec_step())
             else:
-                events.extend(self._admit())
-            if self.seqs:
                 if spec:
-                    events.extend(self._decode_spec())
-                elif self.cfg.async_scheduling:
-                    events.extend(self._decode_async())
-                else:
-                    events.extend(self._decode_once())
+                    self._demote("logprobs")
+                events.extend(self._mixed_step())
             return events
+        if self._inflight is not None:
+            events.extend(self._advance_chunk())
+        else:
+            with self.timeline.phase("admit"):
+                events.extend(self._admit())
+        if self.seqs:
+            if spec:
+                events.extend(self._decode_spec())
+            elif self.cfg.async_scheduling:
+                events.extend(self._decode_async())
+            else:
+                events.extend(self._decode_once())
+        return events
+
+    # ------------------------------------------------- flight/cost hooks --
+
+    def _flight_batch(self) -> List[dict]:
+        """Batch composition stamped on each flight record: who holds the
+        decode slots (and the inflight chunk) as the step closes."""
+        out: List[dict] = []
+        for slot in sorted(self.seqs):
+            seq = self.seqs.get(slot)
+            if seq is None:
+                continue
+            req = seq.req
+            out.append({
+                "slot": slot, "rid": seq.request_id,
+                "tenant": self._tenant_of(req),
+                "adapter": req.adapter or "",
+                "n_out": len(seq.output_tokens)})
+        inf = self._inflight
+        if inf is not None:
+            out.append({
+                "slot": inf.slot, "rid": inf.req.request_id,
+                "tenant": self._tenant_of(inf.req),
+                "adapter": inf.req.adapter or "",
+                "chunk_done": inf.done, "prompt_len": inf.prompt_len})
+        return out
+
+    def _step_obs(self, kind: str, dur_s: float, take: int = 0,
+                  shares: Optional[Dict[str, float]] = None) -> None:
+        """Record one executed segment (a dispatch) in the flight draft and
+        attribute its wall time and KV residency to tenants: `shares`
+        (tenant -> work units), else one unit per decode slot and `take`
+        (the chunk's tokens this segment) for the inflight prefill; the
+        holdings (KV bytes on the device) from the live holders."""
+        pb = self._page_nbytes
+        holdings: Dict[str, float] = {}
+        computed: Dict[str, float] = {}
+        for seq in list(self.seqs.values()):
+            t = self._tenant_of(seq.req)
+            computed[t] = computed.get(t, 0.0) + 1.0
+            holdings[t] = holdings.get(t, 0.0) + len(seq.pages) * pb
+        inf = self._inflight
+        if inf is not None:
+            t = self._tenant_of(inf.req)
+            if take > 0:
+                computed[t] = computed.get(t, 0.0) + float(take)
+            holdings[t] = holdings.get(t, 0.0) + len(inf.pages) * pb
+        self.cost.account(dur_s, shares if shares is not None else computed,
+                          holdings)
+        if self.flight.enabled:
+            self.flight.phase(kind, dur_s, **({"take": take} if take else {}))
+
+    def _demote(self, reason: str) -> None:
+        """A speculative step (or one slot's window) demoted to plain
+        decode: counted by reason, and noted in the flight record."""
+        self.metrics.demote(reason)
+        self.flight.note("spec_demote", reason=reason)
 
     def generate(self, req: GenRequest) -> List[int]:
         """Blocking single-request generation (tests, CLI)."""
@@ -650,16 +929,26 @@ class Engine:
         # drain the pipeline before any teardown
         events = self._materialize_pending()
         with self._lock:
-            events.extend(TokenEvent(r.request_id, -1, 0, True, "abort")
-                          for r in self.pending if r.request_id in aborted)
-            self.pending = collections.deque(
-                r for r in self.pending if r.request_id not in aborted)
+            kept = collections.deque()
+            for r in self.pending:
+                if r.request_id in aborted:
+                    events.append(TokenEvent(r.request_id, -1, 0, True,
+                                             "abort"))
+                    self.flight.note("abort", rid=r.request_id,
+                                     tenant=self._tenant_of(r),
+                                     where="queued")
+                else:
+                    kept.append(r)
+            self.pending = kept
         inf = self._inflight
         if inf is not None and inf.req.request_id in aborted:
             self.allocator.free(inf.pages)
             self._free_slots.append(inf.slot)
             self._inflight = None
             events.append(TokenEvent(inf.req.request_id, -1, 0, True, "abort"))
+            self.flight.note("abort", rid=inf.req.request_id,
+                             tenant=self._tenant_of(inf.req), where="chunk",
+                             slot=inf.slot)
         for slot, seq in list(self.seqs.items()):
             if seq.request_id in aborted:
                 events.append(TokenEvent(seq.request_id, -1,
@@ -684,12 +973,20 @@ class Engine:
                 try:
                     self._adapter_slot(req)
                 except NoFreeAdapterSlot:
+                    self.flight.note("defer", rid=req.request_id,
+                                     tenant=self._tenant_of(req),
+                                     reason="no_adapter_slot",
+                                     adapter=req.adapter)
                     break  # every slot serves live sequences: wait
                 except KeyError:  # unregistered since it was submitted
                     with self._lock:
                         self.pending.remove(req)
                     events.append(TokenEvent(req.request_id, -1, 0, True,
                                              "abort"))
+                    self.flight.note("abort", rid=req.request_id,
+                                     tenant=self._tenant_of(req),
+                                     reason="unknown_adapter",
+                                     adapter=req.adapter)
                     continue
             # prefix lookup BEFORE the page gate: only the suffix needs
             # fresh pages, and gating on the whole prompt could evict this
@@ -704,6 +1001,11 @@ class Engine:
             if not self._ensure_pages(n_pages - len(cached_pages)):
                 if cached_pages:
                     self.allocator.free(cached_pages)  # drop our refs
+                self.flight.note("defer", rid=req.request_id,
+                                 tenant=self._tenant_of(req),
+                                 reason="no_pages",
+                                 need_pages=n_pages - len(cached_pages),
+                                 free_pages=self.allocator.free_pages)
                 break  # OutOfPages deferral: running sequences free pages
             with self._lock:
                 self.pending.popleft()
@@ -733,6 +1035,9 @@ class Engine:
                 self.metrics.kv_oom += 1
                 events.append(TokenEvent(req.request_id, -1, 0, True,
                                          "kv_oom"))
+                self.flight.note("kv_oom", rid=req.request_id,
+                                 tenant=self._tenant_of(req),
+                                 where="prefill")
         return events
 
     def _widen_group(self, req: GenRequest, chunk: int) -> List[GenRequest]:
@@ -824,22 +1129,30 @@ class Engine:
         # every lane's adapter is resident (_admit resolved the first,
         # _widen_group pulls only resident ones): these are LRU bumps
         aslots = [self._adapter_slot(r) for r in reqs]
-        logits = llama.prefill_batch(
-            self.model, self._tensor(tokens), self._tensor(seq_lens),
-            self.k_pages, self.v_pages, self._tensor(pages_arr),
-            page_size=cfg.page_size, lora=self.lora_stacks,
-            adapter_slots=self._tensor(aslots, torch.int32))
+        with self.timeline.phase("dispatch"):
+            logits = llama.prefill_batch(
+                self.model, self._tensor(tokens), self._tensor(seq_lens),
+                self.k_pages, self.v_pages, self._tensor(pages_arr),
+                page_size=cfg.page_size, lora=self.lora_stacks,
+                adapter_slots=self._tensor(aslots, torch.int32))
         keys = [self._request_key(r) for r in reqs]
-        toks, chosen, tids, tvals = self._sample_first(
-            logits, reqs, keys, [int(s) - 1 for s in seq_lens])
+        with self.timeline.phase("device_wait"):
+            toks, chosen, tids, tvals = self._sample_first(
+                logits, reqs, keys, [int(s) - 1 for s in seq_lens])
         dt = time.monotonic() - t0
         self.metrics.prefill_time_s += dt
+        self.metrics.observe_phase("prefill", dt, weight=len(reqs))
+        shares: Dict[str, float] = {}
+        for i, r in enumerate(reqs):
+            t = self._tenant_of(r)
+            shares[t] = shares.get(t, 0.0) + float(seq_lens[i])
+        self._step_obs("prefill", dt, shares=shares)
         events = []
         for i, r in enumerate(reqs):
             self.metrics.prompt_tokens += int(seq_lens[i])
             events.append(self._finalize_admission(
                 r, page_lists[i], int(seq_lens[i]), int(toks[i]), keys[i],
-                (float(chosen[i]), tids[i], tvals[i])))
+                (float(chosen[i]), tids[i], tvals[i]), t_prefill_start=t0))
         return events
 
     def _request_key(self, req: GenRequest) -> int:
@@ -931,9 +1244,14 @@ class Engine:
 
     def _finalize_admission(self, req: GenRequest, pages, prompt_len: int,
                             first: int, req_key: int, lp,
-                            slot: Optional[int] = None) -> TokenEvent:
+                            slot: Optional[int] = None,
+                            t_prefill_start: Optional[float] = None
+                            ) -> TokenEvent:
         """Publish the prompt's full pages to the prefix cache, install the
-        slot, stop-check the first token, decorate logprobs."""
+        slot, stop-check the first token, decorate logprobs. With
+        `t_prefill_start` (monotonic) the event's `phase` splits admission
+        to first token into queue and prefill seconds (the serving layer's
+        worker.queue and worker.prefill spans)."""
         if self.prefix_cache is not None:
             self.prefix_cache.insert(req.prompt_token_ids, pages,
                                      namespace=self._kv_namespace(req.adapter))
@@ -942,6 +1260,11 @@ class Engine:
         seq = self._install_slot(req, slot, pages, prompt_len, first, req_key)
         finished, reason = self._check_stop(seq, first)
         ev = TokenEvent(req.request_id, first, 0, finished, reason)
+        if t_prefill_start is not None:
+            ev.phase = {
+                "queue_s": max(0.0, t_prefill_start - req.arrival_time),
+                "prefill_s": max(0.0, time.monotonic() - t_prefill_start),
+            }
         if req.logprobs is not None:
             self._decorate_lp(ev, seq, *lp)
         if finished:
@@ -960,18 +1283,25 @@ class Engine:
         pages_arr[:len(pages)] = pages
         tokens = np.zeros((bucket,), np.int64)
         tokens[:prompt_len] = prompt
-        logits = llama.prefill(
-            self.model, self._tensor(tokens), prompt_len, self.k_pages,
-            self.v_pages, self._tensor(pages_arr), page_size=cfg.page_size,
-            lora=self.lora_stacks, adapter_slots=self._adapter_slot(req))
+        with self.timeline.phase("dispatch"):
+            logits = llama.prefill(
+                self.model, self._tensor(tokens), prompt_len, self.k_pages,
+                self.v_pages, self._tensor(pages_arr),
+                page_size=cfg.page_size, lora=self.lora_stacks,
+                adapter_slots=self._adapter_slot(req))
         key = self._request_key(req)
-        toks, chosen, tids, tvals = self._sample_first(
-            logits[None], [req], [key], [prompt_len - 1])
-        self.metrics.prefill_time_s += time.monotonic() - t0
+        with self.timeline.phase("device_wait"):
+            toks, chosen, tids, tvals = self._sample_first(
+                logits[None], [req], [key], [prompt_len - 1])
+        dt = time.monotonic() - t0
+        self.metrics.prefill_time_s += dt
+        self.metrics.observe_phase("prefill", dt)
         self.metrics.prompt_tokens += prompt_len
+        self._step_obs("prefill", dt,
+                       shares={self._tenant_of(req): float(prompt_len)})
         return self._finalize_admission(
             req, pages, prompt_len, int(toks[0]), key,
-            (float(chosen[0]), tids[0], tvals[0]))
+            (float(chosen[0]), tids[0], tvals[0]), t_prefill_start=t0)
 
     def _start_inflight(self, req: GenRequest, cached_pages=(),
                         n_cached: int = 0) -> None:
@@ -995,6 +1325,10 @@ class Engine:
                                          prompt_len, slot,
                                          self._adapter_slot(req))
         self._inflight.done = n_cached  # a cached prefix skips to the suffix
+        self.flight.note("chunk_start", rid=req.request_id, slot=slot,
+                         tenant=self._tenant_of(req),
+                         adapter=req.adapter or "", prompt_len=prompt_len,
+                         cached_tokens=n_cached)
 
     def _advance_chunk(self) -> List[TokenEvent]:
         """Run ONE chunk of the inflight prefill; on the last chunk sample
@@ -1007,12 +1341,18 @@ class Engine:
         take = min(c, inf.prompt_len - start)
         tokens = np.zeros((c,), np.int64)
         tokens[:take] = inf.req.prompt_token_ids[start:start + take]
-        logits = llama.prefill_chunk(
-            self.model, self._tensor(tokens), start, take, self.k_pages,
-            self.v_pages, inf.pages_dev, page_size=cfg.page_size,
-            lora=self.lora_stacks, adapter_slots=inf.aslot)
+        with self.timeline.phase("dispatch"):
+            logits = llama.prefill_chunk(
+                self.model, self._tensor(tokens), start, take, self.k_pages,
+                self.v_pages, inf.pages_dev, page_size=cfg.page_size,
+                lora=self.lora_stacks, adapter_slots=inf.aslot)
         inf.done += take
-        self.metrics.prefill_time_s += time.monotonic() - t0
+        dt = time.monotonic() - t0
+        self.metrics.prefill_time_s += dt
+        self.metrics.observe_phase("prefill_chunk", dt)
+        # this dispatch ran the chunk alone: its tenant owns the segment
+        self._step_obs("prefill_chunk", dt, take=take,
+                       shares={self._tenant_of(inf.req): float(take)})
         if inf.done < inf.prompt_len:
             return []
         # the last chunk installs a slot: drain the window in flight first
@@ -1029,11 +1369,17 @@ class Engine:
         self.metrics.prompt_tokens += inf.prompt_len
         req = inf.req
         key = self._request_key(req)
-        toks, chosen, tids, tvals = self._sample_first(
-            logits[None], [req], [key], [inf.prompt_len - 1])
-        return self._finalize_admission(
+        with self.timeline.phase("device_wait"):
+            toks, chosen, tids, tvals = self._sample_first(
+                logits[None], [req], [key], [inf.prompt_len - 1])
+        ev = self._finalize_admission(
             req, inf.pages, inf.prompt_len, int(toks[0]), key,
-            (float(chosen[0]), tids[0], tvals[0]), slot=inf.slot)
+            (float(chosen[0]), tids[0], tvals[0]), slot=inf.slot,
+            t_prefill_start=inf.t_start)
+        # "prefill" times admission to first token on both paths (the
+        # TTFT phase); the chunks' own times are "prefill_chunk"
+        self.metrics.observe_phase("prefill", ev.phase["prefill_s"])
+        return ev
 
     def _mixed_eligible(self) -> bool:
         """The mixed step serves this iteration iff a chunked prefill is in
@@ -1056,7 +1402,8 @@ class Engine:
         # the mixed step extends the device carry like a 1-step window:
         # drain the window in flight, then give every slot its page
         events = self._materialize_pending()
-        self._grow_pages(1, events)
+        with self.timeline.phase("page_alloc"):
+            self._grow_pages(1, events)
         if not self.seqs:
             # page pressure emptied the batch: the chunk still has its
             # reserved pages, so it advances on the classic path
@@ -1081,9 +1428,9 @@ class Engine:
             return logits
 
         self._dispatch_window(1, forward=forward)
-        events.extend(self._materialize_pending())
+        events.extend(self._materialize_window(self._pending_win, "mixed",
+                                               take))
         inf.done += take
-        self.metrics.mixed_count += 1
         if inf.done < inf.prompt_len:
             return events
         events.append(self._install_inflight(chunk_logits[0]))
@@ -1138,6 +1485,10 @@ class Engine:
                                       np.int64), 1)
             self.token_counts[slot] += self._tensor(row)
         self.metrics.output_tokens += 1
+        self.flight.note("admit", rid=req.request_id, slot=slot,
+                         tenant=self._tenant_of(req),
+                         adapter=req.adapter or "", prompt_len=prompt_len,
+                         pages=len(pages))
         return seq
 
     @staticmethod
@@ -1154,10 +1505,13 @@ class Engine:
         pressure valve."""
         if self.allocator.can_alloc(n):
             return True
-        if self.prefix_cache is None:
-            return False
-        self.prefix_cache.evict(n - self.allocator.free_pages)
-        return self.allocator.can_alloc(n)
+        # only the pressure path is timeline-worthy: eviction walks the
+        # prefix cache, the happy path above is one compare
+        with self.timeline.phase("page_alloc"):
+            if self.prefix_cache is None:
+                return False
+            self.prefix_cache.evict(n - self.allocator.free_pages)
+            return self.allocator.can_alloc(n)
 
     def _window_steps(self, extra: int = 0) -> int:
         """How many decode steps the next window may take (1 = classic).
@@ -1226,6 +1580,10 @@ class Engine:
                     events.append(TokenEvent(seq.request_id, -1,
                                              len(seq.output_tokens), True,
                                              "kv_oom"))
+                    self.flight.note("kv_oom", rid=seq.request_id,
+                                     slot=slot,
+                                     tenant=self._tenant_of(seq.req),
+                                     where="decode", need_pages=need)
                     self._finish_slot(slot, "kv_oom")
                     continue
             for page in self.allocator.alloc(need):
@@ -1266,6 +1624,10 @@ class Engine:
         )
         log.info("preempting %s under page pressure (%d output tokens "
                  "recompute)", seq.request_id, len(seq.output_tokens))
+        self.flight.note("preempt", rid=seq.request_id, slot=slot,
+                         tenant=self._tenant_of(old),
+                         n_out=len(seq.output_tokens),
+                         pages_freed=len(seq.pages))
         self._finish_slot(slot, None)
         self.metrics.num_finished -= 1  # preempted, not finished
         self.metrics.num_preempted += 1
@@ -1275,7 +1637,8 @@ class Engine:
     def _decode_once(self) -> List[TokenEvent]:
         """Synchronous decode: dispatch one window and read it back."""
         events: List[TokenEvent] = []
-        window = self._grow_pages(self._window_steps(), events)
+        with self.timeline.phase("page_alloc"):
+            window = self._grow_pages(self._window_steps(), events)
         if not self.seqs:
             return events
         self._dispatch_window(window)
@@ -1293,8 +1656,9 @@ class Engine:
         lag = prev[0] if prev is not None else 0
         window = self._window_steps(extra=lag)
         if window > 0:
-            window = self._grow_pages(window, events, offset=lag,
-                                      allow_kill=prev is None)
+            with self.timeline.phase("page_alloc"):
+                window = self._grow_pages(window, events, offset=lag,
+                                          allow_kill=prev is None)
         if not self.seqs:
             events.extend(self._materialize_pending())
             return events
@@ -1394,17 +1758,19 @@ class Engine:
         """Queue a decode window (or, with `forward`, one eager step of the
         mixed forward) and the copy of its outputs to the host."""
         t0 = time.monotonic()
-        self._ensure_dev_state()
-        self._check_window_pages(window, offset)
-        want_lp = any(s.logprobs is not None for s in self.seqs.values())
-        if forward is None:
-            self.windows.run(window, want_lp, self._gates,
-                             self._any_guided())
-        else:
-            self.windows.run_eager(forward, want_lp, self._gates)
-        rb = self._readbacks[self._next_readback]
-        self._next_readback ^= 1
-        rb.start(window, 4 if want_lp else 1)
+        with self.timeline.phase("dispatch"):
+            self._ensure_dev_state()
+            self._check_window_pages(window, offset)
+            want_lp = any(s.logprobs is not None
+                          for s in self.seqs.values())
+            if forward is None:
+                self.windows.run(window, want_lp, self._gates,
+                                 self._any_guided())
+            else:
+                self.windows.run_eager(forward, want_lp, self._gates)
+            rb = self._readbacks[self._next_readback]
+            self._next_readback ^= 1
+            rb.start(window, 4 if want_lp else 1)
         # membership at dispatch: a slot installed later does not consume
         # this window's rows
         self._pending_win = (window, rb, want_lp, time.monotonic() - t0,
@@ -1415,31 +1781,46 @@ class Engine:
             return []
         return self._materialize_window(self._pending_win)
 
-    def _materialize_window(self, pw) -> List[TokenEvent]:
+    def _materialize_window(self, pw, kind: str = "decode",
+                            take: int = 0) -> List[TokenEvent]:
         """Read a dispatched window back and stop-check its tokens; a
-        slot's tokens after its stop are discarded."""
+        slot's tokens after its stop are discarded. The window's time is
+        its host dispatch plus the wait for its readback (work between
+        the two, as under async scheduling, is not counted). `kind`
+        "mixed": the mixed step's one step beside `take` chunk tokens."""
         if self._pending_win is pw:
             self._pending_win = None
         window, rb, want_lp, dispatch_s, slots = pw
         t_wait = time.monotonic()
-        out = rb.wait()
+        with self.timeline.phase("device_wait"):
+            out = rb.wait()
         next_np = out[0]  # [window, B]
-        self.metrics.decode_steps += window
-        self.metrics.decode_time_s += dispatch_s + time.monotonic() - t_wait
+        dt = dispatch_s + time.monotonic() - t_wait
+        m = self.metrics
+        m.decode_steps += window
+        m.decode_time_s += dt
+        if kind == "mixed":
+            m.observe_phase("mixed_step", dt)
+            m.observe_mixed(take, len(slots))
+        m.observe_phase("decode_window", dt)
+        m.observe_phase("decode_step", dt / window, weight=window)
+        m.observe_occupancy(len(slots), self.cfg.max_num_seqs)
+        self._step_obs(kind, dt, take=take)
         events: List[TokenEvent] = []
-        for slot in slots:
-            seq = self.seqs.get(slot)
-            if seq is None:  # finished or aborted since dispatch
-                continue
-            for k in range(window):
-                ev = self._emit_token(seq, int(next_np[k, slot]))
-                if want_lp and seq.logprobs is not None:
-                    self._decorate_lp(ev, seq, out[1][k, slot],
-                                      out[2][k, slot], out[3][k, slot])
-                events.append(ev)
-                if ev.finished:
-                    self._finish_slot(slot, ev.finish_reason)
-                    break
+        with self.timeline.phase("detok"):
+            for slot in slots:
+                seq = self.seqs.get(slot)
+                if seq is None:  # finished or aborted since dispatch
+                    continue
+                for k in range(window):
+                    ev = self._emit_token(seq, int(next_np[k, slot]))
+                    if want_lp and seq.logprobs is not None:
+                        self._decorate_lp(ev, seq, out[1][k, slot],
+                                          out[2][k, slot], out[3][k, slot])
+                    events.append(ev)
+                    if ev.finished:
+                        self._finish_slot(slot, ev.finish_reason)
+                        break
         return events
 
     def _emit_token(self, seq: SeqState, tok: int) -> TokenEvent:
@@ -1470,6 +1851,10 @@ class Engine:
         seq = self.seqs.pop(slot, None)
         if seq is None:
             return
+        if reason is not None:  # None: a preemption, noted by its caller
+            self.flight.note("finish", rid=seq.request_id, slot=slot,
+                             tenant=self._tenant_of(seq.req), reason=reason,
+                             n_out=len(seq.output_tokens))
         self.allocator.free(seq.pages)
         self.block_tables[slot, :] = 0
         self._invalidate_dev()
@@ -1527,10 +1912,10 @@ class Engine:
         request (per-position logprobs are not read out of the verify
         step)."""
         if self._any_guided():
-            self.metrics.demote("guided")
+            self._demote("guided")
             return True
         if self._any_logprobs():
-            self.metrics.demote("logprobs")
+            self._demote("logprobs")
             return True
         return False
 
@@ -1551,19 +1936,19 @@ class Engine:
         nreal = np.zeros((cfg.max_num_seqs,), np.int64)
         for slot, seq in self.seqs.items():
             if self.presence[slot] != 0.0 or self.frequency[slot] != 0.0:
-                self.metrics.demote("penalties")
+                self._demote("penalties")
                 continue
             if not (got == k1 and seq.num_tokens + k1 <= limit
                     and len(seq.pages) * cfg.page_size
                     >= seq.num_tokens + k1):
-                self.metrics.demote("page_shortfall")
+                self._demote("page_shortfall")
                 continue
             k_s = (self._adaptive.k(slot) if self._adaptive is not None
                    else k)
             if self.draft is not None:
                 prop = self.draft.propose(seq, k_s)
                 if prop is None:
-                    self.metrics.demote("draft_pool")
+                    self._demote("draft_pool")
                     continue
             else:
                 prop = self._propose_ngram(seq)[:k_s]
@@ -1589,27 +1974,48 @@ class Engine:
                 self._adaptive.update(s, acc, n_real)
         self.metrics.add_spec_tokens(drafted, accepted,
                                      drafter=self.drafter_name)
+        if drafted:
+            self.flight.note("spec_verify", drafter=self.drafter_name,
+                             windows=int(room[slots].sum()),
+                             drafted=drafted, accepted=accepted)
 
-    def _run_verify(self, drafts, room, forward=None):
+    def _run_verify(self, drafts, room, slots, forward=None, take: int = 0):
         """Dispatch one verify step over the device batch (the captured
-        one, or with `forward` the mixed verify forward, eagerly) and read
-        back what it emitted: (emitted [B, K1], n_acc [B])."""
+        one, or with `forward` the mixed verify forward, eagerly, beside
+        `take` chunk tokens) and read back what it emitted: (emitted
+        [B, K1], n_acc [B]). `slots`: the live slots at dispatch."""
         t0 = time.monotonic()
-        self._ensure_dev_state()
-        self._check_window_pages(self.cfg.num_speculative_tokens + 1, 0,
-                                 room)
-        upload(self.batch.drafts, drafts)
-        upload(self.batch.room, room)
-        if forward is None:
-            self.verify.run(self._gates)
-        else:
-            self.verify.run_eager(forward, self._gates)
-        rb = self._spec_readback
-        rb.start(self.cfg.max_num_seqs, 2)
-        emitted, nacc = rb.wait()
-        self.metrics.decode_steps += 1
-        self.metrics.spec_verify_steps += 1
-        self.metrics.decode_time_s += time.monotonic() - t0
+        with self.timeline.phase("dispatch"):
+            self._ensure_dev_state()
+            self._check_window_pages(self.cfg.num_speculative_tokens + 1, 0,
+                                     room)
+            upload(self.batch.drafts, drafts)
+            upload(self.batch.room, room)
+            if forward is None:
+                self.verify.run(self._gates)
+            else:
+                self.verify.run_eager(forward, self._gates)
+            rb = self._spec_readback
+            rb.start(self.cfg.max_num_seqs, 2)
+        with self.timeline.phase("device_wait"):
+            emitted, nacc = rb.wait()
+        dt = time.monotonic() - t0
+        m = self.metrics
+        m.decode_steps += 1
+        m.spec_verify_steps += 1
+        m.decode_time_s += dt
+        if forward is not None:
+            m.observe_phase("mixed_step", dt)
+            m.observe_mixed(take, len(slots))
+        m.observe_phase("decode_window", dt)
+        m.observe_occupancy(len(slots), self.cfg.max_num_seqs)
+        # weighted by the steps this verify advanced (tokens per slot), so
+        # verify steps and windows carry proportional votes
+        total = sum(int(nacc[s]) + 1 for s in slots)
+        eff_steps = max(1, -(-total // max(len(slots), 1)))
+        m.observe_phase("decode_step", dt / eff_steps, weight=eff_steps)
+        self._step_obs("decode_spec" if forward is None else "mixed_spec",
+                       dt, take=take)
         return emitted, nacc
 
     def _emit_verified(self, slots, emitted, nacc) -> List[TokenEvent]:
@@ -1640,7 +2046,8 @@ class Engine:
         # flight first
         events = self._materialize_pending()
         k1 = self.cfg.num_speculative_tokens + 1
-        got = self._grow_pages(k1, events)
+        with self.timeline.phase("page_alloc"):
+            got = self._grow_pages(k1, events)
         if not self.seqs:
             return events
         drafts, room, nreal = self._spec_drafts(got)
@@ -1648,9 +2055,10 @@ class Engine:
             events.extend(self._decode_once())
             return events
         slots = list(self.seqs)
-        emitted, nacc = self._run_verify(drafts, room)
+        emitted, nacc = self._run_verify(drafts, room, slots)
         self._spec_feedback(slots, room, nreal, nacc)
-        events.extend(self._emit_verified(slots, emitted, nacc))
+        with self.timeline.phase("detok"):
+            events.extend(self._emit_verified(slots, emitted, nacc))
         return events
 
     def _mixed_spec_step(self) -> List[TokenEvent]:
@@ -1662,7 +2070,8 @@ class Engine:
         inf = self._inflight
         cfg = self.cfg
         events = self._materialize_pending()
-        got = self._grow_pages(cfg.num_speculative_tokens + 1, events)
+        with self.timeline.phase("page_alloc"):
+            got = self._grow_pages(cfg.num_speculative_tokens + 1, events)
         if not self.seqs:
             # page pressure emptied the batch: the chunk still has its
             # reserved pages, so it advances on the classic path
@@ -1688,11 +2097,11 @@ class Engine:
             return logits
 
         slots = list(self.seqs)
-        emitted, nacc = self._run_verify(drafts, room, forward)
+        emitted, nacc = self._run_verify(drafts, room, slots, forward, take)
         self._spec_feedback(slots, room, nreal, nacc)
-        events.extend(self._emit_verified(slots, emitted, nacc))
+        with self.timeline.phase("detok"):
+            events.extend(self._emit_verified(slots, emitted, nacc))
         inf.done += take
-        self.metrics.mixed_count += 1
         self.metrics.mixed_spec_count += 1
         if inf.done < inf.prompt_len:
             return events

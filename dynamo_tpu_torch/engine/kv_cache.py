@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-import math
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -66,7 +65,13 @@ class KVCacheSpec:
     @property
     def pool_bytes(self) -> int:
         """Bytes of the K and V pools together."""
-        return 2 * math.prod(self.shape) * getattr(torch, self.dtype).itemsize
+        return self.num_pages * self.page_size * self.bytes_per_token()
+
+    def bytes_per_token(self) -> int:
+        """K and V bytes of one token over every layer (JAX
+        `KVCacheSpec.bytes_per_token`)."""
+        itemsize = getattr(torch, self.dtype).itemsize
+        return 2 * self.num_layers * self.lane_width * itemsize
 
     @property
     def shape(self):
@@ -152,8 +157,10 @@ class PrefixCache:
     def __init__(self, allocator: PageAllocator, page_size: int):
         self.allocator = allocator
         self.page_size = page_size
-        # block hash -> page id, in LRU order (oldest first)
+        # block hash -> page id, in LRU order (oldest first), and each
+        # hash's namespace (the memory books' per-adapter split)
         self._map: Dict[bytes, int] = {}
+        self._ns: Dict[bytes, str] = {}
         self.hits = 0
         self.misses = 0
         self.cached_tokens_served = 0
@@ -217,6 +224,7 @@ class PrefixCache:
                 continue
             self.allocator.ref([page])
             self._map[h] = page
+            self._ns[h] = namespace
 
     def evictable(self) -> int:
         """Pages reclaimable now (the cache is the sole owner)."""
@@ -235,8 +243,17 @@ class PrefixCache:
                     break
         for h, page in victims:
             del self._map[h]
+            del self._ns[h]
             self.allocator.free([page])
         return len(victims)
+
+    def pages_by_namespace(self) -> Dict[str, List[int]]:
+        """Device pages the cache holds, grouped by namespace ("" = the
+        base model): the memory books' per-adapter split."""
+        out: Dict[str, List[int]] = {}
+        for h, page in list(self._map.items()):
+            out.setdefault(self._ns.get(h, ""), []).append(page)
+        return out
 
     def stats(self) -> dict:
         return {

@@ -1,0 +1,352 @@
+"""Engine-phase exposition: bridge in-engine timings onto worker /metrics.
+
+The engine's PhaseTimer histograms (engine.EngineMetrics — per-phase
+step-time distributions recorded always-on in the hot loop) were only
+visible via `/worker/stats` JSON; this module serves them as real
+Prometheus series so Grafana/alerting see per-phase latency without a
+second observation path:
+
+- `dynamo_engine_phase_seconds{phase}` — prefill / prefill_chunk /
+  decode_window / decode_step / mixed_step histograms (PhaseTimer's
+  quarter-octave buckets downsampled to octaves: 0.25ms..8.2s, 16 edges),
+  plus the step-timeline self-time phases (admit / page_alloc / dispatch /
+  device_wait / detok / bank) from observability/timeline.py riding the
+  same series as additional label values;
+- `dynamo_engine_host_gap_seconds` — inter-dispatch host gap sampled by
+  the step timeline at every device-program launch (the zero-bubble
+  roadmap item's acceptance number);
+- `dynamo_engine_batch_occupancy` — decode-window batch occupancy
+  (active slots / max_num_seqs) histogram;
+- `dynamo_engine_mixed_prefill_fraction` — unified ragged step
+  composition: the prefill-token fraction of each mixed window's rows
+  (docs/perf.md "Unified ragged step"; persistently high fractions mean
+  --mixed-batch-tokens crowds decode, near-zero means the budget is
+  slack);
+- `dynamo_engine_spec_draft_tokens_total{drafter}` /
+  `dynamo_engine_spec_accepted_tokens_total{drafter}` /
+  `dynamo_engine_spec_accept_length{drafter}` — speculative decoding
+  health, one series per drafter (ngram | model) so the proposers'
+  acceptance is separable on one scrape: accepted/draft is the live
+  acceptance rate, and the acceptance-length histogram (0..K integer
+  buckets) shows whether --num-speculative-tokens is tuned to the
+  workload (docs/perf.md "Speculative decoding v2" / "Speculation v3");
+- `dynamo_pallas_fallback_total{op,reason}` — registered for the JAX
+  worker's series set and never incremented: every attention call of the
+  port runs its CUDA kernel on the card (or its plain version on the
+  CPU), with no demotion to another path;
+- `dynamo_engine_jit_programs` — the engine's captured CUDA graphs
+  (decode windows, verify steps, the draft model's step; growth after
+  warmup = graphs captured while serving) + `dynamo_engine_warmup_seconds`
+  (`Engine.warmup`'s kernel build plus every graph capture so far);
+- `dynamo_engine_mfu` / `dynamo_engine_mbu` — LIVE roofline utilization:
+  decode token throughput over the scrape window against the card's
+  datasheet peaks, the JAX package's formulas over the port's
+  `output_tokens`, `decode_time_s` and `decode_steps`
+  (profiler/roofline.py). The card is identified from the engine's CUDA
+  device name (profiler.systems.chip_for_device_kind) or forced with
+  `DYNAMO_TPU_CHIP=h100-sxm`; with no identifiable card (the CPU, an
+  unlisted GPU) both gauges read 0 — never a fabricated utilization.
+
+Everything reads engine counters at scrape time; nothing new rides the
+decode loop.
+
+The port's counterpart of `dynamo_tpu/observability/engine_metrics.py`
+(it imports nothing of the JAX package): the series, buckets and
+formulas are the JAX module's; the device seams (the card, the program
+count, the fallback counts) are the port's.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+
+import torch
+
+from dynamo_tpu_torch.serving.metrics import (
+    CallbackCounter,
+    CallbackCounterVec,
+    CallbackHistogram,
+    Gauge,
+    Registry,
+)
+
+log = logging.getLogger("dynamo_tpu_torch.engine_metrics")
+
+# downsample PhaseTimer's 61 quarter-octave edges to octaves: every 4th
+# edge, 0.25ms..8.2s — 16 buckets per phase keeps the scrape compact while
+# preserving ~2x quantile resolution
+_OCTAVE_STRIDE = 4
+
+
+def _downsample_cum(buckets, raw_count, idxs):
+    """Cumulative octave buckets from a quarter-octave histogram (shared
+    by PhaseTimer and timeline.PhaseDigest — same edge scheme)."""
+    cum = []
+    running = 0
+    j = 0
+    for i in idxs:
+        while j <= i:
+            running += buckets[j]
+            j += 1
+        cum.append(running)
+    # single count read AFTER the bucket reads, used for both the
+    # +Inf bucket and _count: a concurrent observe can only make the
+    # tail larger, never break +Inf == _count or monotonicity
+    count = max(raw_count, running)
+    cum.append(count)  # +Inf
+    return cum, count
+
+
+def _phase_series(engine):
+    from dynamo_tpu_torch.engine.engine import PhaseTimer
+
+    edges_ms = PhaseTimer._EDGES_MS
+    idxs = list(range(0, len(edges_ms), _OCTAVE_STRIDE))
+    edges_s = [round(edges_ms[i] / 1e3, 8) for i in idxs]
+    out = []
+    for phase, timer in engine.metrics.phases.items():
+        cum, count = _downsample_cum(timer.buckets, timer.count, idxs)
+        out.append(({"phase": phase}, edges_s, cum,
+                    round(timer.sum_s, 6), count))
+    # step-timeline phase digests (admit/page_alloc/dispatch/device_wait/
+    # detok/bank) ride the same series as additional `phase` label values:
+    # PhaseDigest replicates PhaseTimer's bucket scheme by construction,
+    # and the two name sets are disjoint
+    for phase, dg in engine.timeline.digests.items():
+        if not dg.count:
+            continue
+        cum, count = _downsample_cum(dg.buckets, dg.count, idxs)
+        out.append(({"phase": phase}, edges_s, cum,
+                    round(dg.sum_s, 6), count))
+    return out
+
+
+def _host_gap_series(engine):
+    """Inter-dispatch host-gap distribution from the step timeline — the
+    zero-bubble roadmap item's acceptance number."""
+    from dynamo_tpu_torch.observability.timeline import PhaseDigest
+
+    edges_ms = PhaseDigest._EDGES_MS
+    idxs = list(range(0, len(edges_ms), _OCTAVE_STRIDE))
+    edges_s = [round(edges_ms[i] / 1e3, 8) for i in idxs]
+    gd = engine.timeline.gap_digest
+    cum, count = _downsample_cum(gd.buckets, gd.count, idxs)
+    return [({}, edges_s, cum, round(gd.sum_s, 6), count)]
+
+
+def _occupancy_series(engine):
+    m = engine.metrics
+    edges = list(m._OCC_EDGES)
+    cum = []
+    running = 0
+    for c in m.occupancy_buckets[:-1]:
+        running += c
+        cum.append(running)
+    # derived total serves as BOTH +Inf and _count (observe_occupancy
+    # bumps buckets before count, so the two fields could disagree for a
+    # concurrent scrape if read separately)
+    total = running + m.occupancy_buckets[-1]
+    cum.append(total)  # +Inf
+    return [({}, edges, cum, round(m.occupancy_sum, 6), total)]
+
+
+def _mixed_series(engine):
+    """Ragged-batch composition (EngineMetrics.observe_mixed): prefill-
+    token fraction per unified mixed window, same cumulative-bucket
+    scheme as occupancy."""
+    m = engine.metrics
+    edges = list(m._OCC_EDGES)
+    cum = []
+    running = 0
+    for c in m.mixed_buckets[:-1]:
+        running += c
+        cum.append(running)
+    total = running + m.mixed_buckets[-1]
+    cum.append(total)  # +Inf
+    return [({}, edges, cum, round(m.mixed_sum, 6), total)]
+
+
+def _spec_series(engine):
+    """Speculative acceptance length per verify window
+    (EngineMetrics.observe_spec_accept): how many of the K drafted tokens
+    the target chain accepted, integer edges 0..K, one labeled series per
+    drafter (ngram | model) so the n-gram vs draft-model histograms are
+    separable on one scrape. Same cumulative-bucket scheme as occupancy;
+    mean acceptance = _sum / _count. No observations yet -> no series (a
+    phantom unlabeled sample would break the drafter split)."""
+    m = engine.metrics
+    edges = list(m._SPEC_EDGES)
+    out = []
+    for drafter, buckets in sorted(m.spec_hist_by.items()):
+        cum = []
+        running = 0
+        for c in buckets[:-1]:
+            running += c
+            cum.append(running)
+        total = running + buckets[-1]
+        cum.append(total)  # +Inf
+        out.append(({"drafter": drafter}, edges, cum,
+                    float(m.spec_sum_by.get(drafter, 0)), total))
+    return out
+
+
+def resolve_chip(device):
+    """The card live utilization is judged against: env override first
+    (`DYNAMO_TPU_CHIP`), else the name of the engine's CUDA device; None
+    on the CPU."""
+    from dynamo_tpu_torch.profiler import systems
+
+    forced = os.environ.get("DYNAMO_TPU_CHIP")
+    if forced:
+        chip = systems.CHIPS.get(forced.strip().lower())
+        if chip is not None:
+            return chip
+        log.warning("unknown DYNAMO_TPU_CHIP=%r (known: %s)", forced,
+                    sorted(systems.CHIPS))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return systems.chip_for_device_kind(torch.cuda.get_device_name(device))
+
+
+class EngineMetricsBridge:
+    """Registers the dynamo_engine_* series against a worker registry and
+    refreshes the MFU/MBU gauges at scrape time."""
+
+    def __init__(self, registry: Registry, engine, clock=time.monotonic):
+        self.engine = engine
+        self.clock = clock
+        self.chip = resolve_chip(engine.device)
+        CallbackHistogram(
+            "dynamo_engine_phase_seconds",
+            "Engine phase step-time distribution (PhaseTimer bridge)",
+            registry, lambda: _phase_series(self.engine))
+        CallbackHistogram(
+            "dynamo_engine_host_gap_seconds",
+            "Inter-dispatch host gap: wall time between a device program "
+            "returning control and the next program launching (step "
+            "timeline; the zero-bubble target)",
+            registry, lambda: _host_gap_series(self.engine))
+        CallbackHistogram(
+            "dynamo_engine_batch_occupancy",
+            "Decode-window batch occupancy (active slots / max_num_seqs)",
+            registry, lambda: _occupancy_series(self.engine))
+        CallbackHistogram(
+            "dynamo_engine_mixed_prefill_fraction",
+            "Unified ragged step composition: prefill-token fraction of "
+            "each mixed window's rows",
+            registry, lambda: _mixed_series(self.engine))
+        CallbackHistogram(
+            "dynamo_engine_spec_accept_length",
+            "Accepted draft tokens per speculative verify window (0..K), "
+            "per drafter (ngram | model); mean acceptance length = "
+            "_sum / _count",
+            registry, lambda: _spec_series(self.engine))
+        CallbackCounterVec(
+            "dynamo_engine_spec_draft_tokens_total",
+            "Draft tokens proposed to speculative verify windows, per "
+            "drafter (ngram | model)",
+            registry, lambda: {(("drafter", d),): v for d, v in
+                               self.engine.metrics.spec_draft_by.items()},
+            labelnames=("drafter",))
+        CallbackCounterVec(
+            "dynamo_engine_spec_accepted_tokens_total",
+            "Draft tokens the target chain accepted, per drafter "
+            "(acceptance rate = accepted / draft)",
+            registry, lambda: {(("drafter", d),): v for d, v in
+                               self.engine.metrics.spec_accepted_by.items()},
+            labelnames=("drafter",))
+        CallbackCounterVec(
+            "dynamo_pallas_fallback_total",
+            "Attention kernels demoted to another path: always empty in "
+            "the PyTorch/CUDA port, whose attention calls run their CUDA "
+            "kernels on the card with no fallback",
+            registry, dict, labelnames=("op", "reason"))
+        CallbackCounter(
+            "dynamo_engine_jit_programs",
+            "CUDA graphs the engine captured (decode windows, verify "
+            "steps, the draft step; growth after warmup = captures while "
+            "serving)",
+            registry, self._program_count)
+        self.warmup_gauge = Gauge(
+            "dynamo_engine_warmup_seconds",
+            "Wall time of the warmup before /ready: the kernel build plus "
+            "every CUDA graph capture so far",
+            registry)
+        self.mfu_gauge = Gauge(
+            "dynamo_engine_mfu",
+            "Model FLOPs utilization of the decode phase over the scrape "
+            "window (vs datasheet peak; 0 when no chip is identified)",
+            registry)
+        self.mbu_gauge = Gauge(
+            "dynamo_engine_mbu",
+            "Model bandwidth utilization of the decode phase over the "
+            "scrape window (weights + KV stream vs datasheet HBM bw)",
+            registry)
+        # utilization deltas: (output_tokens, decode_time_s, decode_steps)
+        self._prev = (0, 0.0, 0)
+
+    def _program_count(self) -> int:
+        try:
+            return self.engine.compiled_program_count()
+        except Exception:
+            return 0
+
+    # ---------------------------------------------------------- refresh ----
+    def refresh(self) -> None:
+        """Scrape-time update of the warmup + MFU/MBU gauges. Utilization
+        covers decode activity since the PREVIOUS scrape, measured against
+        decode-busy time (kernel efficiency — independent of idle gaps)."""
+        eng = self.engine
+        info = eng.warmup_info
+        if info:
+            self.warmup_gauge.set(float(info["seconds"])
+                                  + eng.capture_seconds())
+        m = eng.metrics
+        cur = (m.output_tokens, m.decode_time_s, m.decode_steps)
+        prev, self._prev = self._prev, cur
+        d_tok = cur[0] - prev[0]
+        d_time = cur[1] - prev[1]
+        d_steps = cur[2] - prev[2]
+        if d_tok <= 0 or d_time <= 0 or d_steps <= 0:
+            # reset_metrics() (bench boundaries) or an idle window: report
+            # zero utilization rather than a stale or negative number
+            self.mfu_gauge.set(0.0)
+            self.mbu_gauge.set(0.0)
+            return
+        mfu, mbu = self._utilization(d_tok, d_time, d_steps)
+        self.mfu_gauge.set(mfu)
+        self.mbu_gauge.set(mbu)
+
+    def _utilization(self, d_tok: int, d_time: float, d_steps: int):
+        if self.chip is None:
+            return 0.0, 0.0
+        from dynamo_tpu_torch.profiler import roofline
+
+        eng = self.engine
+        cfg, mcfg = eng.cfg, eng.model_cfg
+        tok_s = d_tok / d_time
+        # mean live batch over the window: tokens emitted per decode step
+        batch = max(d_tok / d_steps, 1.0)
+        # mean context length of the live batch (roofline KV-stream term);
+        # an empty engine at scrape time falls back to half the max context
+        seqs = list(eng.seqs.values())
+        avg_ctx = (sum(s.num_tokens for s in seqs) / len(seqs)
+                   if seqs else cfg.max_seq_len / 2.0)
+        tp = max(cfg.tensor_parallel, 1)
+        wb = roofline.weight_bytes(cfg.quantization)
+        kvb = roofline.kv_bytes_per_token(mcfg, cfg.kv_cache_dtype, tp=tp)
+        active = roofline.active_param_count(mcfg)
+        stream = (roofline.param_count(mcfg) * wb / tp
+                  + batch * kvb * avg_ctx)
+        mfu = tok_s * 2.0 * active / (tp * self.chip.bf16_flops)
+        mbu = (tok_s / batch) * stream / (tp * self.chip.hbm_bw)
+        # 4 significant digits, not 4 decimals: a tiny debug model on CPU
+        # legitimately runs at ~1e-7 utilization and must not read as 0
+        return float(f"{mfu:.4g}"), float(f"{mbu:.4g}")
+
+
+def attach_engine_metrics(registry: Registry, engine) -> EngineMetricsBridge:
+    return EngineMetricsBridge(registry, engine)

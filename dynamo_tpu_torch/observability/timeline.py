@@ -1,0 +1,565 @@
+"""Stepline: unified per-step timeline, host-bubble accounting, Perfetto
+export.
+
+The ROADMAP's zero-bubble engine-loop item is gated on measurement:
+"acceptance = phase accounting shows inter-dispatch host gap near zero".
+This module is that measurement substrate — an always-on, low-overhead
+per-step timeline the engine's `step()` feeds with precise monotonic
+phase intervals:
+
+- ``admit``       — scheduling/admission host work (aborts, queue picks,
+                    adapter resolution, prefix lookups, slot install);
+- ``page_alloc``  — KV page provisioning (allocator, eviction, preempt);
+- ``dispatch``    — host time launching device programs (arg staging,
+                    jit call until control returns);
+- ``device_wait`` — blocking readback of device results (np.asarray on
+                    program outputs, first-token sampling sync);
+- ``detok``       — token-event production: stop checks, host mirrors,
+                    logprob decoration, slot teardown;
+- ``bank``        — end-of-step accounting (QoS budgets, flight commit).
+
+Phases nest with *pause* semantics: entering an inner phase closes the
+outer phase's open segment and reopens it on exit, so every recorded
+interval is exclusive self-time and the per-step segments are disjoint
+by construction.  Conservation therefore holds exactly:
+``sum(phase self-times) + gap = step wall time``, where ``gap`` is the
+host time no instrumented phase claimed.
+
+Separately, each ``dispatch`` entry samples the **inter-dispatch host
+gap** — wall time between device program N returning control and
+program N+1 launching (clamped at 0: async scheduling legitimately
+dispatches window N+1 before materializing window N).  This is the
+number the zero-bubble PR must drive to ~0; it exports as
+``dynamo_engine_host_gap_seconds`` and the per-phase digests ride the
+existing ``dynamo_engine_phase_seconds{phase}`` histogram as additional
+label values (observability/engine_metrics.py).
+
+Record keeping follows the flight recorder's single-writer draft
+pattern: `Engine.step()` runs under `_exec_lock` on one scheduler
+thread, so the draft and phase stack are touched lock-free; the only
+lock is a tiny mutex around ring append/snapshot.  Exact interval
+records keep BOTH a monotonic anchor (interval math) and a
+``time.time_ns`` wall anchor, so the Perfetto export shares a clock
+domain with the request spans in observability/tracing.py (which are
+``time_ns`` natively) — one Chrome Trace Event JSON file shows a
+request end-to-end through the engine.
+
+Exposure:
+
+- ``GET /debug/timeline?steps=N&format=perfetto|summary|json`` on every
+  worker (`timeline_debug_payload`);
+- ``StepTimeline.summary()`` rides `/worker/stats` and the worker
+  heartbeat, so frontends roll the bubble attribution up fleet-wide
+  (`merge_summaries`) without scrape fan-out — same pattern as the
+  per-tenant cost ledger;
+- `scripts/dynamo_top.py` renders the per-worker phase/bubble panel.
+
+Knobs: ``DYNAMO_TPU_TIMELINE`` (0/false/off/no disables; default on),
+``DYNAMO_TPU_TIMELINE_RECORDS`` (ring depth; 0 keeps the streaming
+digests but drops the exact-interval ring; unset = 256).
+
+The port's own copy of `dynamo_tpu/observability/timeline.py`
+(it imports nothing of the JAX package); keep the two in step.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+log = logging.getLogger("dynamo_tpu_torch.timeline")
+
+DEFAULT_CAPACITY = 256
+CAPACITY_ENV = "DYNAMO_TPU_TIMELINE_RECORDS"
+ENABLE_ENV = "DYNAMO_TPU_TIMELINE"
+
+# instrumented phase names, in pipeline order
+PHASES = ("admit", "page_alloc", "dispatch", "device_wait", "detok", "bank")
+# phases during which the DEVICE is (or may be) busy on our behalf; the
+# rest are pure host work — the candidates that "eat" the dispatch gap
+DEVICE_PHASES = frozenset(("dispatch", "device_wait"))
+
+
+def _env_capacity() -> int:
+    raw = os.environ.get(CAPACITY_ENV, "")
+    try:
+        return int(raw) if raw.strip() else DEFAULT_CAPACITY
+    except ValueError:
+        log.warning("bad %s=%r; using default %d", CAPACITY_ENV, raw,
+                    DEFAULT_CAPACITY)
+        return DEFAULT_CAPACITY
+
+
+def _env_enabled() -> bool:
+    raw = os.environ.get(ENABLE_ENV, "").strip().lower()
+    return raw not in ("0", "false", "off", "no")
+
+
+class PhaseDigest:
+    """Streaming duration histogram: quarter-octave log buckets
+    0.25ms..~8.2s — the engine PhaseTimer's exact bucket scheme, so the
+    exposition bridge serves both under one
+    ``dynamo_engine_phase_seconds`` series without a second edge set."""
+
+    _EDGES_MS = [0.25 * 2 ** (i / 4) for i in range(61)]  # 0.25ms .. ~8.2s
+
+    __slots__ = ("count", "sum_s", "buckets")
+
+    def __init__(self):
+        self.count = 0
+        self.sum_s = 0.0
+        self.buckets = [0] * (len(self._EDGES_MS) + 1)
+
+    def observe(self, seconds: float) -> None:
+        self.count += 1
+        self.sum_s += seconds
+        ms = seconds * 1e3
+        lo, hi = 0, len(self._EDGES_MS)
+        while lo < hi:  # first edge >= ms (binary search; 61 edges)
+            mid = (lo + hi) // 2
+            if ms <= self._EDGES_MS[mid]:
+                hi = mid
+            else:
+                lo = mid + 1
+        self.buckets[lo] += 1
+
+    def quantile_ms(self, q: float) -> float:
+        """Geometric-midpoint estimate of the q-quantile (PhaseTimer's
+        scheme; worst-case error ~9%)."""
+        if self.count == 0:
+            return 0.0
+        target = q * self.count
+        seen = 0
+        for i, n in enumerate(self.buckets):
+            seen += n
+            if seen >= target:
+                if i >= len(self._EDGES_MS):
+                    return self._EDGES_MS[-1]
+                hi = self._EDGES_MS[i]
+                lo_edge = self._EDGES_MS[i - 1] if i > 0 else hi / 2 ** 0.25
+                return (lo_edge * hi) ** 0.5
+        return self._EDGES_MS[-1]
+
+
+class _Phase:
+    """Reusable-shape context manager for one instrumented phase; kept
+    allocation-light because several open per engine step."""
+
+    __slots__ = ("_tl", "_name", "_watched")
+
+    def __init__(self, tl: "StepTimeline", name: str):
+        self._tl = tl
+        self._name = name
+        self._watched = False
+
+    def __enter__(self) -> "_Phase":
+        # device seams feed the engine watchdog even when the timeline
+        # draft is closed (disabled timeline, disagg prefill outside
+        # step()) — hang detection must not depend on record keeping
+        watch = self._tl.watch
+        if watch is not None and self._name in DEVICE_PHASES:
+            self._watched = watch
+            watch.device_enter(self._name)
+        self._tl._enter(self._name)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._tl._exit()
+        watch, self._watched = self._watched, False
+        if watch:
+            watch.device_exit(self._name)
+        return False
+
+
+class StepTimeline:
+    """Bounded ring of exact per-step phase intervals + streaming
+    per-phase digests + inter-dispatch host-gap accounting."""
+
+    def __init__(self, capacity: Optional[int] = None,
+                 enabled: Optional[bool] = None):
+        if capacity is None:
+            capacity = _env_capacity()
+        if enabled is None:
+            enabled = _env_enabled()
+        self.capacity = max(0, int(capacity))
+        self.enabled = bool(enabled)
+        self._ring: "collections.deque[Dict[str, Any]]" = collections.deque(  # guarded_by: _lock
+            maxlen=max(1, self.capacity))
+        self._lock = threading.Lock()
+        self._seq = 0  # guarded_by: _lock — monotonic id, survives wrap
+        self.steps_total = 0
+        self.dropped_total = 0
+        # lifetime streaming digests (scheduler-thread writes; scrape
+        # reads are monotonic-safe the same way PhaseTimer's are)
+        self.digests: Dict[str, PhaseDigest] = {p: PhaseDigest()
+                                                for p in PHASES}
+        self.gap_digest = PhaseDigest()  # inter-dispatch host-gap samples
+        self.phase_totals: Dict[str, float] = {p: 0.0 for p in PHASES}
+        self.host_gap_total_s = 0.0
+        self.wall_total_s = 0.0
+        # open per-step draft + phase stack; engine scheduler thread only
+        self._draft: Optional[Dict[str, Any]] = None
+        self._stack: List[List[Any]] = []  # [name, segment_open_monotonic]
+        self._last_return: Optional[float] = None  # device ctrl-return mark
+        # optional EngineWatchdog: device-phase enter/exit mirror — hang
+        # detection coverage tracks stepline instrumentation exactly
+        self.watch: Optional[Any] = None
+
+    # ------------------------------------------------------ engine thread --
+    def reset(self) -> None:
+        """Zero the streaming digests and drop the ring (engine
+        reset_metrics: post-warmup / bench phase boundaries, so bubble
+        baselines exclude compile-time outliers).  Any open draft is
+        discarded; `seq` keeps counting so record ids stay unique."""
+        with self._lock:
+            self._ring.clear()
+        self.steps_total = 0
+        self.dropped_total = 0
+        self.digests = {p: PhaseDigest() for p in PHASES}
+        self.gap_digest = PhaseDigest()
+        self.phase_totals = {p: 0.0 for p in PHASES}
+        self.host_gap_total_s = 0.0
+        self.wall_total_s = 0.0
+        self._draft = None
+        self._stack = []
+        self._last_return = None
+
+    def begin_step(self) -> None:
+        """Open the draft for one `Engine.step()`.  A draft still open
+        from a previous begin means that step unwound past commit
+        (exception): finalize what it measured, flagged, never lose it."""
+        if not self.enabled:
+            return
+        if self._draft is not None:
+            self._finalize(aborted=True)
+        self._draft = {"t0": time.monotonic(), "t0_unix_ns": time.time_ns(),
+                       "segs": [], "gaps": []}
+        self._stack = []
+
+    def phase(self, name: str) -> _Phase:
+        """Context manager for one instrumented phase of the open step.
+        No-op outside an open draft (disabled timeline, or engine paths
+        like the disagg prefill role that run outside step())."""
+        return _Phase(self, name)
+
+    def _enter(self, name: str) -> None:
+        d = self._draft
+        if d is None:
+            return
+        now = time.monotonic()
+        stack = self._stack
+        if stack:
+            # nested phase: PAUSE the outer one — close its open segment
+            # so recorded intervals are exclusive self-time, disjoint by
+            # construction (the conservation invariant rests on this)
+            outer = stack[-1]
+            if now > outer[1]:
+                d["segs"].append((outer[0], outer[1] - d["t0"],
+                                  now - d["t0"]))
+        if name == "dispatch" and self._last_return is not None:
+            # inter-dispatch host gap: device program N returned control
+            # at _last_return; program N+1 launches now. Clamped — async
+            # scheduling dispatches N+1 before materializing N.
+            d["gaps"].append(max(0.0, now - self._last_return))
+        stack.append([name, now])
+
+    def _exit(self) -> None:
+        d = self._draft
+        stack = self._stack
+        if d is None or not stack:
+            return
+        now = time.monotonic()
+        top = stack.pop()
+        if now > top[1]:
+            d["segs"].append((top[0], top[1] - d["t0"], now - d["t0"]))
+        if top[0] in DEVICE_PHASES:
+            self._last_return = now
+        if stack:
+            stack[-1][1] = now  # resume the paused outer phase
+
+    def commit_step(self, **fields: Any) -> None:
+        """Finalize the open step record.  Steps that measured nothing
+        (no phase ran) are dropped — an idle engine tick must not wash
+        real history out of the ring."""
+        if not self.enabled:
+            return
+        self._finalize(aborted=False, **fields)
+
+    def _finalize(self, aborted: bool, **fields: Any) -> None:
+        d, self._draft = self._draft, None
+        if d is None:
+            return
+        now = time.monotonic()
+        # an exception may unwind past open phases: close them newest-
+        # first so the segments stay disjoint
+        while self._stack:
+            top = self._stack.pop()
+            if now > top[1]:
+                d["segs"].append((top[0], top[1] - d["t0"], now - d["t0"]))
+            if self._stack:
+                self._stack[-1][1] = now
+        if not d["segs"]:
+            return
+        wall = now - d["t0"]
+        sums: Dict[str, float] = {}
+        for name, s0, s1 in d["segs"]:
+            sums[name] = sums.get(name, 0.0) + (s1 - s0)
+        # conservation residue: host time inside the step no instrumented
+        # phase claimed (>= 0 by construction — segments are disjoint and
+        # within [t0, now])
+        gap = max(0.0, wall - sum(sums.values()))
+        for name, tot in sums.items():
+            dg = self.digests.get(name)
+            if dg is not None:
+                dg.observe(tot)
+                self.phase_totals[name] += tot
+        for g in d["gaps"]:
+            self.gap_digest.observe(g)
+            self.host_gap_total_s += g
+        self.wall_total_s += wall
+        self.steps_total += 1
+        rec: Dict[str, Any] = {
+            "t0_unix_ns": d["t0_unix_ns"],
+            "wall_s": wall,
+            "phases": {k: round(v, 9) for k, v in sums.items()},
+            "segs": [(n, round(s0, 9), round(s1, 9))
+                     for n, s0, s1 in d["segs"]],
+            "gap_s": gap,
+            "host_gap": [round(g, 9) for g in d["gaps"]],
+        }
+        if aborted:
+            rec["aborted"] = True
+        rec.update(fields)
+        if self.capacity > 0:
+            self._append(rec)
+
+    # --------------------------------------------------------- internals ---
+    def _append(self, rec: Dict[str, Any]) -> None:
+        with self._lock:
+            rec["seq"] = self._seq
+            self._seq += 1
+            if len(self._ring) == self._ring.maxlen:
+                self.dropped_total += 1
+            self._ring.append(rec)
+
+    def records(self, n: Optional[int] = None) -> List[Dict[str, Any]]:
+        with self._lock:
+            out = list(self._ring)
+        if n is not None and n > 0:
+            out = out[-n:]
+        return out
+
+    # ----------------------------------------------------------- summary ---
+    def summary(self) -> Dict[str, Any]:
+        """Bubble-attribution rollup: per-phase p50/p95 + share of step
+        wall time, the inter-dispatch host-gap distribution, and which
+        host phase eats the gap.  Rides /worker/stats and the heartbeat
+        (fleet rollup via merge_summaries)."""
+        wall = self.wall_total_s
+        phases: Dict[str, Any] = {}
+        for name in PHASES:
+            dg = self.digests[name]
+            if not dg.count:
+                continue
+            phases[name] = {
+                "count": dg.count,
+                "total_s": round(self.phase_totals[name], 6),
+                "p50_ms": round(dg.quantile_ms(0.5), 3),
+                "p95_ms": round(dg.quantile_ms(0.95), 3),
+                "share": round(self.phase_totals[name] / wall, 4)
+                if wall else 0.0,
+            }
+        tracked = sum(self.phase_totals.values())
+        gd = self.gap_digest
+        out: Dict[str, Any] = {
+            "enabled": self.enabled,
+            "steps": self.steps_total,
+            "wall_s": round(wall, 6),
+            "phases": phases,
+            "host_gap": {
+                "count": gd.count,
+                "total_s": round(self.host_gap_total_s, 6),
+                "p50_ms": round(gd.quantile_ms(0.5), 3),
+                "p95_ms": round(gd.quantile_ms(0.95), 3),
+                "share": round(self.host_gap_total_s / wall, 4)
+                if wall else 0.0,
+            },
+            "untracked_s": round(max(0.0, wall - tracked), 6),
+        }
+        bubble = _bubble_attribution(
+            {n: self.phase_totals[n] for n in PHASES},
+            max(0.0, wall - tracked), wall)
+        if bubble is not None:
+            out["bubble"] = bubble
+        return out
+
+
+def _bubble_attribution(phase_totals: Dict[str, float], untracked: float,
+                        wall: float) -> Optional[Dict[str, Any]]:
+    """Which HOST phase eats the inter-dispatch gap: rank the non-device
+    phases (plus the untracked residue) by their share of step wall."""
+    eaters = {n: t for n, t in phase_totals.items()
+              if n not in DEVICE_PHASES and t > 0}
+    if untracked > 0:
+        eaters["untracked"] = untracked
+    if not eaters or wall <= 0:
+        return None
+    ranked = sorted(eaters.items(), key=lambda kv: -kv[1])
+    return {
+        "gap_eater": ranked[0][0],
+        "host_shares": {n: round(t / wall, 4) for n, t in ranked},
+    }
+
+
+def merge_summaries(summaries: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Fleet-wide rollup of per-worker `summary()` payloads (heartbeat
+    aggregation on the frontend).  Totals and shares merge exactly;
+    quantiles don't survive summarization, so the merged view reports
+    worst-worker p95 per phase instead."""
+    agg: Dict[str, Any] = {
+        "steps": 0, "wall_s": 0.0, "untracked_s": 0.0,
+        "phases": {},
+        "host_gap": {"count": 0, "total_s": 0.0, "p95_ms_max": 0.0},
+    }
+    for s in summaries:
+        if not s:
+            continue
+        agg["steps"] += s.get("steps", 0)
+        agg["wall_s"] += s.get("wall_s", 0.0)
+        agg["untracked_s"] += s.get("untracked_s", 0.0)
+        hg = s.get("host_gap") or {}
+        agg["host_gap"]["count"] += hg.get("count", 0)
+        agg["host_gap"]["total_s"] += hg.get("total_s", 0.0)
+        agg["host_gap"]["p95_ms_max"] = max(
+            agg["host_gap"]["p95_ms_max"], hg.get("p95_ms", 0.0))
+        for name, ph in (s.get("phases") or {}).items():
+            t = agg["phases"].setdefault(
+                name, {"count": 0, "total_s": 0.0, "p95_ms_max": 0.0})
+            t["count"] += ph.get("count", 0)
+            t["total_s"] += ph.get("total_s", 0.0)
+            t["p95_ms_max"] = max(t["p95_ms_max"], ph.get("p95_ms", 0.0))
+    wall = agg["wall_s"]
+    if wall > 0:
+        for ph in agg["phases"].values():
+            ph["share"] = round(ph["total_s"] / wall, 4)
+        agg["host_gap"]["share"] = round(
+            agg["host_gap"]["total_s"] / wall, 4)
+    agg["wall_s"] = round(agg["wall_s"], 6)
+    agg["untracked_s"] = round(agg["untracked_s"], 6)
+    agg["host_gap"]["total_s"] = round(agg["host_gap"]["total_s"], 6)
+    for ph in agg["phases"].values():
+        ph["total_s"] = round(ph["total_s"], 6)
+    bubble = _bubble_attribution(
+        {n: p["total_s"] for n, p in agg["phases"].items()},
+        agg["untracked_s"], wall)
+    if bubble is not None:
+        agg["bubble"] = bubble
+    return agg
+
+
+# ------------------------------------------------------- Perfetto export ---
+
+_ENGINE_PID = 1
+_SPAN_PID = 2
+
+
+def _arg_value(v: Any) -> Any:
+    return v if isinstance(v, (str, int, float, bool)) or v is None \
+        else str(v)
+
+
+def perfetto_trace(timeline: "StepTimeline", collector=None,
+                   steps: int = 128,
+                   trace_id: Optional[str] = None) -> Dict[str, Any]:
+    """Chrome Trace Event JSON (the array format Perfetto/chrome://tracing
+    ingest): engine step phases + step-boundary markers on one track,
+    request spans on per-service tracks, all on the unix-epoch clock in
+    microseconds — step records anchor ``time.time_ns`` at begin, and
+    tracing spans are ``time_ns`` natively, so a request's spans line up
+    with the engine steps that served it."""
+    events: List[Dict[str, Any]] = [
+        {"name": "process_name", "ph": "M", "pid": _ENGINE_PID,
+         "args": {"name": "engine"}},
+        {"name": "thread_name", "ph": "M", "pid": _ENGINE_PID, "tid": 1,
+         "args": {"name": "engine.step"}},
+    ]
+    for rec in timeline.records(steps):
+        base_us = rec["t0_unix_ns"] / 1e3
+        events.append({
+            "name": "step", "ph": "i", "s": "t", "cat": "engine",
+            "ts": round(base_us, 3), "pid": _ENGINE_PID, "tid": 1,
+            "args": {"seq": rec.get("seq"),
+                     "wall_ms": round(rec["wall_s"] * 1e3, 3),
+                     "gap_ms": round(rec["gap_s"] * 1e3, 3),
+                     "host_gap_ms": [round(g * 1e3, 3)
+                                     for g in rec.get("host_gap", [])]},
+        })
+        for name, s0, s1 in rec["segs"]:
+            events.append({
+                "name": name, "ph": "X", "cat": "engine",
+                "ts": round(base_us + s0 * 1e6, 3),
+                "dur": round((s1 - s0) * 1e6, 3),
+                "pid": _ENGINE_PID, "tid": 1,
+                "args": {"step": rec.get("seq")},
+            })
+    if collector is not None:
+        tids: Dict[str, int] = {}
+        for sp in collector.snapshot(trace_id=trace_id):
+            if sp.end_ns is None:
+                continue
+            tid = tids.setdefault(sp.service, len(tids) + 1)
+            events.append({
+                "name": sp.name, "ph": "X", "cat": "request",
+                "ts": round(sp.start_ns / 1e3, 3),
+                "dur": round((sp.end_ns - sp.start_ns) / 1e3, 3),
+                "pid": _SPAN_PID, "tid": tid,
+                "args": {"trace_id": sp.trace_id, "span_id": sp.span_id,
+                         **{k: _arg_value(v)
+                            for k, v in sp.attributes.items()}},
+            })
+        if tids:
+            events.append({"name": "process_name", "ph": "M",
+                           "pid": _SPAN_PID, "args": {"name": "requests"}})
+            for service, tid in tids.items():
+                events.append({"name": "thread_name", "ph": "M",
+                               "pid": _SPAN_PID, "tid": tid,
+                               "args": {"name": service}})
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def timeline_debug_payload(timeline: "StepTimeline",
+                           qs: Dict[str, List[str]],
+                           collector=None) -> Dict[str, Any]:
+    """Build the `GET /debug/timeline` response from parsed query params.
+
+    ``steps`` bounds the records considered (default 128);
+    ``format=perfetto`` emits Chrome Trace Event JSON (optionally
+    filtered to one request via ``trace_id=``), ``format=summary`` the
+    bubble-attribution rollup, anything else the raw interval records."""
+    def one(key: str) -> Optional[str]:
+        vals = qs.get(key) or []
+        return vals[0] if vals and vals[0] != "" else None
+
+    try:
+        n = int(one("steps") or 128)
+    except ValueError:
+        n = 128
+    fmt = (one("format") or "json").lower()
+    if fmt == "perfetto":
+        return perfetto_trace(timeline, collector, steps=n,
+                              trace_id=one("trace_id"))
+    if fmt == "summary":
+        return timeline.summary()
+    return {
+        "enabled": timeline.enabled,
+        "capacity": timeline.capacity,
+        "size": len(timeline.records()),
+        "steps_total": timeline.steps_total,
+        "dropped_total": timeline.dropped_total,
+        "records": timeline.records(n),
+        "summary": timeline.summary(),
+    }

@@ -3,7 +3,9 @@ HTTP handlers via per-request event queues.
 
 Port of `dynamo_tpu/serving/engine_service.py` without the fault-injection
 and watchdog seams: HTTP threads enqueue GenRequests; one scheduler thread
-drives Engine.step() and fans TokenEvents out to the stream queues.
+drives Engine.step() and fans TokenEvents out to the stream queues. A
+failed step is noted in the flight recorder and ends every request
+(`Engine.abort_all`, which dumps the ring to the log).
 """
 
 from __future__ import annotations
@@ -88,14 +90,16 @@ class EngineService:
                 continue
             try:
                 events = self.engine.step()
-            except Exception:
-                # a failed step must not strand its streams: end every one
+            except Exception as e:
+                # a failed step must not strand its streams: tear down
+                # every request (abort_all dumps the flight ring after
+                # this note) and end every stream
                 log.exception("engine step failed; aborting in-flight "
                               "requests")
+                self.engine.flight.note("fatal_step", error=repr(e))
+                self.engine.abort_all()
                 with self._lock:
                     queues, self._queues = self._queues, {}
-                for rid in queues:
-                    self.engine.abort_request(rid)
                 for rid, q in queues.items():
                     q.put(TokenEvent(rid, -1, 0, True, "abort"))
                 time.sleep(0.5)

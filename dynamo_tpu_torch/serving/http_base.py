@@ -28,29 +28,51 @@ class JsonHTTPHandler(BaseHTTPRequestHandler):
     def handle_one_request(self):
         # keep-alive reuses the handler: reset per-request state
         self.sse_started = False
+        self._x_request_id = None
         super().handle_one_request()
+
+    def set_request_id(self, rid: str) -> None:
+        """The id the response's X-Request-Id carries (a request's trace
+        id when the client sent none); the first one set wins."""
+        if not getattr(self, "_x_request_id", None):
+            self._x_request_id = rid
 
     def end_headers(self):
         inbound = self.headers.get("x-request-id") if self.headers else None
         self.send_header("X-Request-Id",
-                         (inbound or "").strip() or uuid.uuid4().hex)
+                         (inbound or "").strip()
+                         or getattr(self, "_x_request_id", None)
+                         or uuid.uuid4().hex)
         super().end_headers()
 
-    def _json(self, code: int, obj: Dict[str, Any]):
+    def _json(self, code: int, obj: Dict[str, Any], headers=None):
         data = json.dumps(obj).encode()
         try:
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(data)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(data)
         except (BrokenPipeError, ConnectionResetError, socket.error):
             self.close_connection = True  # the client hung up first
 
     def _error(self, code: int, msg: str,
-               etype: str = "invalid_request_error"):
+               etype: str = "invalid_request_error", headers=None):
         self._json(code, {"error": {"message": msg, "type": etype,
-                                    "code": code}})
+                                    "code": code}}, headers)
+
+    def _raw(self, code: int, body: bytes, content_type: str):
+        """A non-JSON body (the /metrics page, a trace zip)."""
+        try:
+            self.send_response(code)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+        except (BrokenPipeError, ConnectionResetError, socket.error):
+            self.close_connection = True  # the client hung up first
 
     def _read_json_body(self) -> Dict[str, Any]:
         length = int(self.headers.get("Content-Length", 0))

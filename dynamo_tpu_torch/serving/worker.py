@@ -30,7 +30,11 @@ packed-scale KV pools) at their defaults, off, as the JAX profiles do; all
 serve them when set, and `--model-path DIR` (a local safetensors
 checkpoint) and `--quantization int8|w8a8` (int8 weights). `--warmup` (on
 by default) builds the kernels and captures the greedy decode graphs
-before the server starts.
+before the server starts. Every worker serves the JAX worker's
+observability plane (`serving/api.py`): `/metrics`, `/debug` and its
+routes, request spans; the JAX package's `DYNAMO_TPU_TRACE`,
+`DYNAMO_TPU_TIMELINE`, `DYNAMO_TPU_FLIGHT_RECORDS`,
+`DYNAMO_TPU_SLO_TARGETS` and `DYNAMO_TPU_CHIP` configure it.
 
     python -m dynamo_tpu_torch.jetstream --model llama-3.1-8b-instruct \
         --port 8000 [--mixed-batch-tokens 256] [--kv-cache-dtype int8]

@@ -181,6 +181,34 @@ class DraftEngine:
     def page_bytes(self) -> int:
         return self.spec.pool_bytes // self.num_pages
 
+    def partition_bytes(self) -> Dict[str, int]:
+        """The draft tier's `dynamo_memory_kv_pool_bytes` rows: per-tenant
+        draft residency + free + trash, summing EXACTLY to the pool's
+        capacity by the same first-claim/forced-remainder construction as
+        the device tier (observability/memory.py; JAX
+        `DraftEngine.partition_bytes`)."""
+        eng = self.eng
+        pb = self.page_bytes
+        total = self.num_pages
+        by_tenant: Dict[str, int] = {}
+        claimed = 0
+        for slot, ds in sorted(self.slots.items()):
+            if not ds.pages:
+                continue
+            seq = eng.seqs.get(slot)
+            req = getattr(seq, "req", None) if seq is not None else None
+            tenant = eng._tenant_of(req) if req is not None else "default"
+            by_tenant[tenant] = by_tenant.get(tenant, 0) + len(ds.pages)
+            claimed += len(ds.pages)
+        free = min(self.allocator.free_pages, max(0, total - 1 - claimed))
+        other = max(0, total - 1 - free - claimed)
+        out = {t: n * pb for t, n in sorted(by_tenant.items())}
+        if other:
+            out["other"] = other * pb
+        out["free"] = free * pb
+        out["trash"] = pb  # page 0, never allocated
+        return out
+
     def stats(self) -> Dict[str, object]:
         return {
             "model": self.eng.cfg.draft_model or self.eng.cfg.draft_model_path,
