@@ -14,6 +14,8 @@
     python3 chip_smoke.py --observability     # phases 1-2 and 16
     python3 chip_smoke.py --trace-stress      # phases 1-2, then repeated
                                               # /debug/trace under load
+    python3 chip_smoke.py --gemma             # phases 1-2, phase 3's Gemma
+                                              # rows and the Gemma models
 
 (`--kernels-only`, `--window-profile` and the `--mla-*` options time the
 package beside the script, so a copy of it in an older checkout compares
@@ -91,7 +93,16 @@ on failure:
    again at the served one-lane buckets
    (`prefill[head_dim=640,group=16,S=128,lens=100]` and `S=256,lens=256`);
    two launches must give the same bits, and the 256-token lane those of
-   chunk.cu's chunk at start 0.
+   chunk.cu's chunk at start 0. Last, the seven entry points at
+   Gemma-2-9B's local layers (GEMMA_LABEL: 16/8 heads, head_dim 256, a
+   4096-key sliding window and the tanh cap at 50, q scaled so that the
+   cap bends; `gemma_kernel_checks`): decode rows at contexts up to 8192
+   (with the same call's time without the window beside it), two prefill
+   lanes of 6000 and 4500 tokens, a 256-token chunk at 4864, the mixed
+   step's descriptors, on bf16 and int8 pools, each bound counting only
+   the keys inside the window, each library call flex_attention under
+   torch.compile with the window as its block mask and the cap as its
+   score_mod (the compiles untimed; a row whose call fails says why).
 4. The engine for llama-3.1-8b-instruct at full width and depth, random
    bf16 weights from seed 0: a full prefill, a decode step, a chunked
    prefill, a mixed step (the decode row beside a 256-token chunk), a
@@ -266,7 +277,21 @@ on failure:
    the last at 1792) on bf16 and int8 pools, with the host side of one
    profiled prefill by op (`mla_chunked_ttft`, also run alone by
    `--mla-chunked-ttft`); so that every kernel launches at head_dim 640
-   when served.
+   when served. Between the families and the MoE models, Gemma-2 and
+   Gemma-3 (GEMMA_MODELS, `gemma_phase`): gemma-2-9b-it (42 layers, 21 of
+   them local with a 4096-key window, caps 50 and 30) and gemma-3-1b-it
+   (26 layers, 22 local with 512 keys, per-layer rope) at full width and
+   depth, random bf16 weights from seed 0, 8 slots on 2560 pages of an
+   8192 max length: phase 4's forwards past the window on both pool
+   kinds; four greedy streams of 64 tokens from prompts of 4500-6000
+   (1000-2000) tokens on a classic eager engine, the jetstream
+   graph-window engine (token for token equal), a mixed engine and a
+   mixed engine with n-gram speculation (equal, or first different at a
+   near-tie), and on int8 pools a jetstream engine and a mixed engine
+   held to it; TTFT, mean ITL and tokens per second of each, one
+   prompt's TTFT alone (whole, and in 256-token chunks), and for
+   gemma-2-9b-it a graph-window decode step profiled at 8 slots of
+   4600-token prompts; every entry point must launch with the window.
 14. JSON-guided decoding (after phase 11, on the 8B's weights). The
    grammar kernel (`csrc/json_mask.cu`, both entry points) against its
    plain version on the card: B = 8 rows over V = 128256 tokens of a
@@ -341,7 +366,9 @@ on failure:
    from the served gemma-7b-it phases' variant counts, the group 7 rows
    from the served qwen2.5 phases' launches, the group 8 rows from the
    served qwen3-30b-a3b phases' launches, the head_dim 640 rows from the
-   served deepseek-v2-lite phases' variant counts; `ms` and `library_ms` device times,
+   served deepseek-v2-lite phases' variant counts, the Gemma rows from
+   the served gemma-2-9b-it phase's windowed launches (`kernel[window]`);
+   `ms` and `library_ms` device times,
    `call_ms` and `library_call_ms` call times, as phase 3 measures them;
    the grammar kernel's two rows from phase 14, their launches from its
    served phase, and no library call), the card line, and last the
@@ -658,20 +685,24 @@ def disagreement(out: torch.Tensor, ref: torch.Tensor):
 
 
 def check(name, kernel, plain, library, cost, shapes, extra=None,
-          head_dim: int = D) -> dict:
-    """Kernel vs plain on the same inputs; raises on disagreement."""
+          head_dim: int = D, library_backend: str = None) -> dict:
+    """Kernel vs plain on the same inputs; raises on disagreement. A row
+    whose library call could not be made (library None) says why in
+    `library_backend` and has no library times."""
     out_k = kernel()
     out_p = plain()
     torch.cuda.synchronize()
     max_abs, max_rel, ok = disagreement(out_k, out_p)
+    lib = library is not None
     row = {"name": name, "shapes": shapes, "max_abs_err": max_abs,
            "max_row_rel_err": max_rel,
            "tolerance": f"atol=rtol={TOL}, row max/RMS <= {ROW_TOL}",
            "kernel_ms": device_ms(kernel, 20), "plain_ms": device_ms(plain, 3),
-           "library_ms": device_ms(library, 20),
-           "library_backend": SDPA_BACKEND["last"],
+           "library_ms": device_ms(library, 20) if lib else None,
+           "library_backend": library_backend or SDPA_BACKEND["last"],
            "kernel_call_ms": time_ms(kernel, 20),
-           "library_call_ms": time_ms(library, 20), **cost,
+           "library_call_ms": time_ms(library, 20) if lib else None,
+           **cost,
            "ptxas": kernel_usage(name, head_dim), **(extra or {})}
     emit({"kernel_check": row})
     if not ok:
@@ -681,22 +712,31 @@ def check(name, kernel, plain, library, cost, shapes, extra=None,
     return row
 
 
+def visible(qpos: int, kv_len: int, window: int = 0) -> int:
+    """Keys a query at qpos sees: tok <= qpos, tok < kv_len and, under a
+    sliding window, qpos - window < tok."""
+    lo = max(0, qpos - window + 1) if window else 0
+    return max(min(qpos + 1, kv_len) - lo, 0)
+
+
 def paged_cost(q_numel: int, rows, row_bytes: int, desc_ints: int,
-               head_dim: int = D, heads: int = H) -> dict:
+               head_dim: int = D, heads: int = H, window: int = 0) -> dict:
     """The bound of a paged-attention call from what its inputs need: q
     read and the output written once (bf16), each distinct K and V row
-    below some query's horizon read once (`row_bytes` each: 2 * KV * D in
-    bf16, KV * D values and 2 * KV scale bytes in int8), one int32 page id
-    per page walked and `desc_ints` int32 descriptors; 4 * H * D FLOPs per
+    below some query's horizon (and, under a sliding window, inside some
+    query's window) read once (`row_bytes` each: 2 * KV * D in bf16,
+    KV * D values and 2 * KV scale bytes in int8), one int32 page id per
+    page walked and `desc_ints` int32 descriptors; 4 * H * D FLOPs per
     visible (query, key) pair. rows: (page ids [W] on the CPU, first query
     position, queries, kv_len) per sequence."""
     ids, walked, pairs = [], 0, 0
     for pages, q_start, n_q, kv_len in rows:
         horizon = max(min(q_start + n_q, kv_len), 0)
-        tok = torch.arange(horizon)
+        lo = min(max(0, q_start - window + 1) if window else 0, horizon)
+        tok = torch.arange(lo, horizon)
         ids.append(pages[tok // PS].long() * PS + tok % PS)
-        walked += -(-horizon // PS)
-        pairs += sum(max(min(q_start + j + 1, kv_len), 0)
+        walked += -(-horizon // PS) - lo // PS
+        pairs += sum(visible(q_start + j, kv_len, window)
                      for j in range(n_q))
     kv_rows = int(torch.unique(torch.cat(ids)).numel())
     return bound(2 * 2 * q_numel + 2 * kv_rows * row_bytes
@@ -1259,14 +1299,16 @@ def prefill_library(q, k, v, lens):
     return lambda: sdpa(qt, kt, vt, mask)
 
 
-def prefill_cost(q, k, v, lens) -> dict:
+def prefill_cost(q, k, v, lens, window: int = 0) -> dict:
     """The bound of a prefill call: q read and the output written in full
     (padding rows are part of the output), K and V rows only below
     seq_len (once where K is V: one tensor), the seq_lens; 4 * H * D
-    FLOPs per visible (query, key) pair."""
+    FLOPs per visible (query, key) pair (under a sliding window, the
+    keys inside it)."""
     n, s, h, d = q.shape
     kv = k.shape[2]
-    pairs = sum(min(r + 1, int(L)) for L in lens.tolist() for r in range(s))
+    pairs = sum(visible(r, int(L), window) for L in lens.tolist()
+                for r in range(s))
     kv_tensors = 1 if v is k else 2
     return bound(2 * 2 * q.numel()
                  + kv_tensors * int(lens.sum()) * kv * d * 2 + 4 * n,
@@ -1519,58 +1561,67 @@ def q_scaled(fns: att.AttentionFns, factor: float) -> att.AttentionFns:
     return att.AttentionFns(*(wrap(f) for f in fns))
 
 
-def three_paths(engine: Engine, attn, adapter_slot: int = 0) -> dict:
-    """Logits of a full prefill (100 tokens in a 128 bucket), one decode
-    step after it (slot 0 live, seven slots on the trash page), a chunked
-    prefill (600 tokens in 256-token chunks), a mixed step (that decode
-    row beside the prompt's second chunk again), a verify step (slot 0's
-    window of K+1 tokens at position 100, the other slots without room)
-    and a mixed verify step (that window beside the chunk), with `attn`;
-    on a LoRA engine every row of the sequence under `adapter_slot`."""
+def three_paths(engine: Engine, attn, adapter_slot: int = 0,
+                n_prefill: int = 100, n_prompt: int = 600) -> dict:
+    """Logits of a full prefill (n_prefill = 100 tokens in a 128 bucket,
+    or past 128 in a bucket of a multiple of 256), one decode step after
+    it (slot 0 live, seven slots on the trash page), a chunked prefill
+    (n_prompt = 600 tokens in 256-token chunks), a mixed step (that
+    decode row beside the prompt's last whole chunk again: its second at
+    600), a verify step (slot 0's window of K+1 tokens at position
+    n_prefill, the other slots without room) and a mixed verify step
+    (that window beside the chunk), with `attn`; on a LoRA engine every
+    row of the sequence under `adapter_slot`. Gemma's phase runs it past
+    the model's sliding window."""
     model, dev, out = engine.model, engine.device, {}
     rows = torch.zeros((MAX_SEQS,), dtype=torch.int32, device=dev)
     rows[0] = adapter_slot
     one = dict(lora=engine.lora_stacks, adapter_slots=adapter_slot)
     batch = dict(lora=engine.lora_stacks, adapter_slots=rows)
     mixed = dict(batch, chunk_adapter_slot=adapter_slot)
-    prompt = torch.randint(0, 256, (600,),
+    prompt = torch.randint(0, 256, (n_prompt,),
                            generator=torch.Generator().manual_seed(2))
-    pages = engine.allocator.alloc(600 // PS + 1)
+    bucket = 128 if n_prefill <= 128 else -(-n_prefill // 256) * 256
+    pages = engine.allocator.alloc(max(n_prompt, bucket) // PS + 1)
+    mixed_at = (n_prompt // CHUNK - 1) * CHUNK  # the last whole chunk
     try:
         page_t = torch.tensor(pages, dtype=torch.int32, device=dev)
-        tokens = torch.zeros((128,), dtype=torch.long)
-        tokens[:100] = prompt[:100]
+        tokens = torch.zeros((bucket,), dtype=torch.long)
+        tokens[:n_prefill] = prompt[:n_prefill]
         out["prefill"] = llama.prefill(
-            model, tokens.to(dev), 100, engine.k_pages, engine.v_pages,
-            page_t[:8], page_size=PS, attn=attn, **one)
+            model, tokens.to(dev), n_prefill, engine.k_pages, engine.v_pages,
+            page_t[:bucket // PS], page_size=PS, attn=attn, **one)
         tok = torch.zeros((MAX_SEQS,), dtype=torch.long, device=dev)
         pos = torch.zeros((MAX_SEQS,), dtype=torch.int32, device=dev)
         ctx = torch.ones((MAX_SEQS,), dtype=torch.int32, device=dev)
-        table = torch.zeros((MAX_SEQS, MAX_SEQ_LEN // PS), dtype=torch.int32,
-                            device=dev)
-        tok[0], pos[0], ctx[0] = int(prompt[100]), 100, 101
-        table[0, :8] = page_t[:8]
+        table = torch.zeros((MAX_SEQS, engine.cfg.max_seq_len // PS),
+                            dtype=torch.int32, device=dev)
+        tok[0], pos[0] = int(prompt[n_prefill]), n_prefill
+        ctx[0] = n_prefill + 1
+        table[0, :bucket // PS] = page_t[:bucket // PS]
         out["decode"] = llama.decode_step(
             model, tok, pos, table, ctx, engine.k_pages, engine.v_pages,
             page_size=PS, attn=attn, **batch)[0]
-        width = 1024 // PS + CHUNK // PS - 1  # trash-padded page list
+        # a trash-padded page list
+        width = -(-n_prompt // 1024) * 1024 // PS + CHUNK // PS - 1
         plist = torch.zeros((width,), dtype=torch.int32, device=dev)
         plist[:len(pages)] = page_t
-        for start in range(0, 600, CHUNK):
-            take = min(CHUNK, 600 - start)
+        for start in range(0, n_prompt, CHUNK):
+            take = min(CHUNK, n_prompt - start)
             chunk = torch.zeros((CHUNK,), dtype=torch.long)
             chunk[:take] = prompt[start:start + take]
             out["chunked_prefill"] = llama.prefill_chunk(
                 model, chunk.to(dev), start, take, engine.k_pages,
                 engine.v_pages, plist, page_size=PS, attn=attn, **one)
+        again = prompt[mixed_at:mixed_at + CHUNK].to(dev)
         out["mixed_decode"], out["mixed_chunk"] = llama.mixed_step(
-            model, tok, pos, table, ctx, prompt[CHUNK:2 * CHUNK].to(dev),
-            CHUNK, CHUNK, plist, engine.k_pages, engine.v_pages,
-            page_size=PS, attn=attn, **mixed)
+            model, tok, pos, table, ctx, again, mixed_at, CHUNK, plist,
+            engine.k_pages, engine.v_pages, page_size=PS, attn=attn,
+            **mixed)
         out["mixed_decode"] = out["mixed_decode"][0]
         window = torch.zeros((MAX_SEQS, SPEC_K + 1), dtype=torch.long,
                              device=dev)
-        window[0] = prompt[100:101 + SPEC_K].to(dev)
+        window[0] = prompt[n_prefill:n_prefill + 1 + SPEC_K].to(dev)
         room = torch.zeros((MAX_SEQS,), dtype=torch.bool, device=dev)
         room[0] = True
         out["verify"] = llama.decode_verify(
@@ -1578,10 +1629,9 @@ def three_paths(engine: Engine, attn, adapter_slot: int = 0) -> dict:
             page_size=PS, attn=attn, **batch)[0]
         out["mixed_verify"], out["mixed_verify_chunk"] = \
             llama.mixed_verify_step(
-                model, window, pos, table, room,
-                prompt[CHUNK:2 * CHUNK].to(dev), CHUNK, CHUNK, plist,
-                engine.k_pages, engine.v_pages, page_size=PS, attn=attn,
-                **mixed)
+                model, window, pos, table, room, again, mixed_at, CHUNK,
+                plist, engine.k_pages, engine.v_pages, page_size=PS,
+                attn=attn, **mixed)
         out["mixed_verify"] = out["mixed_verify"][0]
     finally:
         engine.allocator.free(pages)
@@ -1682,7 +1732,8 @@ def rel_l2(got: dict, ref: dict) -> dict:
                         / ref[path].float().norm()) for path in ref}
 
 
-def forward_checks(engine: Engine, adapter_slot: int = 0) -> dict:
+def forward_checks(engine: Engine, adapter_slot: int = 0,
+                   n_prefill: int = 100, n_prompt: int = 600) -> dict:
     """The four forwards through the kernels against the plain attention,
     at full depth, on the engine's pools (bf16 or int8).
 
@@ -1707,21 +1758,24 @@ def forward_checks(engine: Engine, adapter_slot: int = 0) -> dict:
     where two router logits nearly tie, and the logits then differ by a
     whole expert's share. Logits that miss LOGIT_REL_TOL are a fault,
     unless the routing first differed at a near-tie (at most one bf16
-    unit) no later than the forward they come from."""
+    unit) no later than the forward they come from. n_prefill and
+    n_prompt size the forwards (three_paths)."""
     held = HeldAgainstPlain()
+    sizes = dict(n_prefill=n_prefill, n_prompt=n_prompt)
     cfg = engine.model_cfg
     q_scale = 1.0 if cfg.qk_norm else Q_SCALE
     routes_plain, routes_kernels = [], []
     with routing_recorded(routes_plain):
         plain = three_paths(engine, q_scaled(att.PLAIN, q_scale),
-                            adapter_slot)
+                            adapter_slot, **sizes)
     with routing_recorded(routes_kernels):
         kernels = three_paths(engine, q_scaled(held.fns, q_scale),
-                              adapter_slot)
+                              adapter_slot, **sizes)
     unscaled = three_paths(engine, q_scaled(
-        att.PLAIN, q_scale * cfg.cache_head_dim ** 0.5), adapter_slot)
+        att.PLAIN, q_scale * cfg.cache_head_dim ** 0.5), adapter_slot,
+        **sizes)
     row = {"model": cfg.name, "kv_cache_dtype": engine.kv_spec.dtype,
-           "adapter_slot": adapter_slot, "q_scale": q_scale,
+           "adapter_slot": adapter_slot, "q_scale": q_scale, **sizes,
            "attention_calls_held": held.calls,
            "attention_max_abs_err": held.max_abs_err,
            "attention_max_row_rel_err": held.max_row_rel_err,
@@ -1753,7 +1807,7 @@ def forward_checks(engine: Engine, adapter_slot: int = 0) -> dict:
     emit({"forward_check": row})
     # per layer: prefill, decode, the chunks, the mixed step, the verify
     # step and the mixed verify step
-    expected = len(engine.model.layers) * (5 + -(-600 // CHUNK))
+    expected = len(engine.model.layers) * (5 + -(-n_prompt // CHUNK))
     if held.failed or held.calls != expected:
         raise AssertionError(f"attention calls in the forward disagree with "
                              f"the plain version: {held.failed[:5]} "
@@ -1992,13 +2046,15 @@ def kernel_family(name: str) -> str:
 
 
 def profile_steps(engine: Engine, steps: int, long_prompt: int = 0,
-                  request_kw=None, label: str = "") -> dict:
+                  request_kw=None, label: str = "",
+                  prompt_len: int = 100) -> dict:
     """Where a steady decode step's time goes: `steps` engine steps timed
     on the host clock, then the same steps again under torch.profiler for
     device time by kernel family and the kernels launched, all per decode
     step (an engine step runs a window of num_scheduler_steps decode
     steps). Each pass drives the same traffic from an idle engine: with
-    long_prompt 0, all 8 slots decoding after 100-token prompts; otherwise
+    long_prompt 0, all 8 slots decoding after prompt_len-token prompts
+    (100: Gemma's phase decodes past its window); otherwise
     (a mixed engine) 7 slots decoding beside a long_prompt-token prompt
     whose chunks after the first ride the measured mixed steps, and every
     measured step must be one. On a speculating engine every measured
@@ -2017,7 +2073,8 @@ def profile_steps(engine: Engine, steps: int, long_prompt: int = 0,
     def drive(tag: str, measured) -> float:
         for i in range(n_decode):
             engine.add_request(GenRequest(
-                f"profile-{tag}-{i}", list(range(1, 101)),
+                f"profile-{tag}-{i}", [1 + j % 200 for j in
+                                       range(prompt_len)],
                 max_tokens=tokens, ignore_eos=True,
                 **(request_kw(i) if request_kw else {})))
         while engine.pending:
@@ -2083,6 +2140,7 @@ def profile_steps(engine: Engine, steps: int, long_prompt: int = 0,
             "step": label or ("mixed" if long_prompt else
                               f"verify (K={SPEC_K})" if spec else "decode"),
             "decode_slots": n_decode, "long_prompt": long_prompt,
+            "prompt_len": prompt_len,
             "window": 1 if long_prompt else k,
             "cuda_graphs": not graphs["eager"],
             "engine_steps": steps, "decode_steps": n_steps,
@@ -3932,6 +3990,457 @@ def mla_ttft_only(eager_cfg: dict) -> None:
               **mla_chunked_ttft(engine, eager_cfg)})
 
 
+# ---------------------------------------------------- Gemma-2 and Gemma-3 --
+
+# Gemma-2-9B's attention on its local layers (16 query heads on 8 KV heads
+# of 256 lanes): a 4096-key sliding window and the tanh cap at 50
+GEMMA_H, GEMMA_KV, GEMMA_D = 16, 8, 256
+GEMMA_WINDOW, GEMMA_CAP = 4096, 50.0
+GEMMA_LABEL = f"head_dim=256,group=2,window={GEMMA_WINDOW},cap=50"
+# q's scale in phase 3's Gemma rows: scores of tens, which the cap bends
+GEMMA_Q_SCALE = 6.0
+GEMMA_KERNELS = ("decode", "decode_int8", "prefill", "chunk", "chunk_int8",
+                 "ragged", "ragged_int8")
+# the served Gemma models, after the families (model, the forward checks'
+# prompt length, the served prompts' shortest and longest, profiled):
+# every served prompt is longer than the model's window (4096; 512)
+GEMMA_MODELS = (("gemma-2-9b-it", 4600, (4500, 6000), True),
+                ("gemma-3-1b-it", 1200, (1000, 2000), False))
+GEMMA_STREAMS, GEMMA_TOKENS = 4, 64
+# 8 slots (the profile's) of 4600-token prompts fit the pool's pages
+GEMMA_MAX_SEQ_LEN, GEMMA_PAGES = 8192, 2560
+# phase 3's Gemma inputs: decode contexts (8 rows on 512-page tables),
+# prefill lanes (an 8192 bucket), the chunk's start, pool pages
+GEMMA_DECODE_CTX = (1, 100, 4000, 4097, 5000, 6000, 7000, 8192)
+GEMMA_PREFILL_LENS = (6000, 4500)
+GEMMA_CHUNK_START = 4864
+GEMMA_POOL_PAGES = 2560
+# the library call's compiled function (torch.compile of flex_attention)
+# and the seconds its compiles took
+FLEX = {"fn": None, "compile_s": 0.0}
+
+
+def flex_score_mod(score, b, h, q_idx, kv_idx):
+    """Gemma's tanh cap on a scaled score (flex_attention's score_mod)."""
+    return GEMMA_CAP * torch.tanh(score / GEMMA_CAP)
+
+
+def flex_library(q, k, v, qpos, kv_lens):
+    """(call, what it is) of one torch.nn.attention.flex_attention call,
+    compiled with torch.compile, over dense q [N, Q, H, D] and k/v
+    [N, S, KV, D] (GQA left to flex_attention): query j of row n at
+    qpos[n, j] sees key t iff t <= qpos[n, j], t < kv_lens[n] and
+    qpos[n, j] - GEMMA_WINDOW < t (the block mask's mask_mod), each scaled
+    score capped by flex_score_mod; or (None, why) where it does not
+    compile or run. A yardstick the port never calls; the compile is
+    not timed (FLEX["compile_s"])."""
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        if FLEX["fn"] is None:
+            FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+        n, nq = q.shape[:2]
+        s = k.shape[1]
+
+        def mask_mod(b, h, q_idx, kv_idx):
+            p = qpos[b, q_idx]
+            return ((kv_idx <= p) & (kv_idx < kv_lens[b])
+                    & (kv_idx > p - GEMMA_WINDOW))
+
+        block = create_block_mask(mask_mod, n, None, nq, s, device=q.device)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def call():
+            return FLEX["fn"](qt, kt, vt, score_mod=flex_score_mod,
+                              block_mask=block, enable_gqa=True)
+
+        t0 = time.monotonic()
+        call()
+        torch.cuda.synchronize()
+        FLEX["compile_s"] += time.monotonic() - t0
+        return call, "flex_attention (torch.compile)"
+    except Exception as e:  # the row says why it has no library time
+        return None, f"none: flex_attention failed ({type(e).__name__}: " \
+                     f"{str(e).splitlines()[0][:200] if str(e) else ''})"
+
+
+def flex_paged(q, kp, vp, tables, q_starts, kv_lens):
+    """flex_library over paged K/V gathered dense (bf16 pools
+    [P, ps, KV*D], tables [N, W], q [N, Q, H, D]); the gather is not
+    timed."""
+    n, nq, h, d = q.shape
+    kv = kp.shape[-1] // d
+    s = int(kv_lens.max())
+    kd = kp[tables.long()].reshape(n, -1, kv, d)[:, :s]
+    vd = vp[tables.long()].reshape(n, -1, kv, d)[:, :s]
+    qpos = (q_starts[:, None]
+            + torch.arange(nq, device=q.device)[None]).int()
+    return flex_library(q, kd, vd, qpos, kv_lens.int())
+
+
+def both(*calls):
+    """One library row of calls made back to back (None if any is)."""
+    if any(c is None for c in calls):
+        return None
+    return lambda: [c() for c in calls]
+
+
+def gemma_kernel_checks(dev) -> dict:
+    """Phase 3 at Gemma-2-9B's local layers (16 query heads on 8 KV heads,
+    head_dim 256, a 4096-key window, scores capped at 50; q scaled by
+    GEMMA_Q_SCALE so that the cap bends): 8 decode rows at contexts 1 to
+    8192 on 512-page tables, two prefill lanes of 6000 and 4500 tokens in
+    an 8192 bucket (the served prompts'), a 256-token chunk at 4864 (the
+    window masks its first 768 keys), the mixed step's descriptors (the
+    decode rows beside that chunk), on bf16 and int8 pools; each row
+    named `kernel[GEMMA_LABEL]`, held against its plain version, its
+    bound counting only the keys inside the window, its library call
+    flex_attention with the window as its mask and the cap as its
+    score_mod (flex_library)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(20)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(torch.bfloat16)
+
+    h, kv, d, w = GEMMA_H, GEMMA_KV, GEMMA_D, GEMMA_WINDOW
+    mods = dict(window=w, logit_cap=GEMMA_CAP)
+    n_pages = GEMMA_POOL_PAGES
+    int8_w = att.kv_lane_width(kv, d, True)
+    kp, vp = rnd(n_pages, PS, kv * d), rnd(n_pages, PS, kv * d)
+    kp8, vp8 = (att.pack_kv_rows(x.reshape(-1, kv, d), int8_w).reshape(
+        n_pages, PS, int8_w) for x in (kp, vp))
+    pools = {"": (kp, vp, kp, vp, 2 * kv * d),
+             "_int8": (kp8, vp8, dequantized(kp8, kv, d),
+                       dequantized(vp8, kv, d), kv * d + 2 * kv)}
+    perm = torch.randperm(n_pages - 1,
+                          generator=torch.Generator().manual_seed(3))
+    rows = {}
+    shapes = {"H": h, "KV": kv, "D": d, "window": w, "logit_cap": GEMMA_CAP,
+              "q_scale": GEMMA_Q_SCALE}
+
+    def cost(q_numel, spans, row_bytes, desc):
+        return paged_cost(q_numel, spans, row_bytes, desc, head_dim=d,
+                          heads=h, window=w)
+
+    def run(name, kernel, plain, library, bound_row, extra):
+        call, what = library
+        rows[name] = check(f"{name}[{GEMMA_LABEL}]", kernel, plain, call,
+                           bound_row, {**shapes, **extra}, head_dim=d,
+                           library_backend=what)
+
+    pmax = GEMMA_MAX_SEQ_LEN // PS
+    ctx = list(GEMMA_DECODE_CTX)
+    table = torch.zeros((MAX_SEQS, pmax), dtype=torch.int32)
+    used = 0
+    for b, c in enumerate(ctx):
+        n = -(-c // PS)
+        table[b, :n] = perm[used:used + n] + 1
+        used += n
+    table_d = table.to(dev)
+    ctx_d = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    q = rnd(MAX_SEQS, h, d, scale=GEMMA_Q_SCALE)
+    for sfx, (k, v, kl, vl, row_bytes) in pools.items():
+        run("decode" + sfx,
+            lambda k=k, v=v: ca.paged_attention_decode(
+                q, k, v, table_d, ctx_d, page_size=PS, num_kv_heads=kv,
+                **mods),
+            lambda k=k, v=v: att.paged_attention_decode_ref(
+                q, k, v, table_d, ctx_d, page_size=PS, num_kv_heads=kv,
+                **mods),
+            flex_paged(q[:, None], kl, vl, table_d, ctx_d - 1, ctx_d),
+            cost(q.numel(), [(table[b], c - 1, 1, c)
+                             for b, c in enumerate(ctx)], row_bytes,
+                 MAX_SEQS),
+            {"context_lens": ctx, "block_table": list(table.shape),
+             "split_plan": ca.split_plan(pmax, PS, MAX_SEQS, kv,
+                                         ca._num_sms(dev)),
+             # the same call without the window: a global layer's
+             "global_layer_ms": device_ms(
+                 lambda k=k, v=v: ca.paged_attention_decode(
+                     q, k, v, table_d, ctx_d, page_size=PS,
+                     num_kv_heads=kv, logit_cap=GEMMA_CAP), 20)})
+
+    n, s = 2, GEMMA_MAX_SEQ_LEN
+    lens = torch.tensor(GEMMA_PREFILL_LENS, dtype=torch.int32, device=dev)
+    qp = rnd(n, s, h, d, scale=GEMMA_Q_SCALE)
+    kk, vv = rnd(n, s, kv, d), rnd(n, s, kv, d)
+    qpos = torch.arange(s, device=dev, dtype=torch.int32)[None].repeat(n, 1)
+    run("prefill", lambda: ca.prefill_attention(qp, kk, vv, lens, **mods),
+        lambda: att.prefill_attention_ref(qp, kk, vv, lens, **mods),
+        flex_library(qp, kk, vv, qpos, lens),
+        prefill_cost(qp, kk, vv, lens, window=w),
+        {"q": [n, s, h, d], "seq_lens": lens.tolist()})
+
+    start, c = GEMMA_CHUNK_START, CHUNK
+    width = (start + c) // PS + CHUNK // PS - 1
+    pages = torch.zeros((width,), dtype=torch.int32)
+    pages[:(start + c) // PS] = perm[used:used + (start + c) // PS] + 1
+    pages_d = pages.to(dev)
+    start_d = torch.tensor([start], device=dev)
+    qc = rnd(c, h, d, scale=GEMMA_Q_SCALE)
+    for sfx, (k, v, kl, vl, row_bytes) in pools.items():
+        run("chunk" + sfx,
+            lambda k=k, v=v: ca.chunk_prefill_attention(
+                qc, k, v, pages_d, start, page_size=PS, num_kv_heads=kv,
+                **mods),
+            lambda k=k, v=v: att.chunk_attention_ref(
+                qc, k, v, pages_d, start, page_size=PS, num_kv_heads=kv,
+                **mods),
+            flex_paged(qc[None], kl, vl, pages_d[None], start_d,
+                       start_d + c),
+            cost(qc.numel(), [(pages, start, c, start + c)], row_bytes, 0),
+            {"q": [c, h, d], "start": start})
+
+    desc = att.ragged_descriptors(table_d, ctx_d, pages_d, start, c)
+    tabs, kv_lens, q_starts = desc
+    tabs_h = tabs.cpu()
+    qr = rnd(MAX_SEQS + c, h, d, scale=GEMMA_Q_SCALE)
+    spans = [(tabs_h[r], int(q_starts[r]), 1 if r < MAX_SEQS else c,
+              int(kv_lens[r])) for r in range(MAX_SEQS + 1)]
+    for sfx, (k, v, kl, vl, row_bytes) in pools.items():
+        kw = dict(page_size=PS, num_kv_heads=kv, num_decode=MAX_SEQS)
+        dec_lib = flex_paged(qr[:MAX_SEQS, None], kl, vl, tabs[:MAX_SEQS],
+                             q_starts[:MAX_SEQS], kv_lens[:MAX_SEQS])
+        chk_lib = flex_paged(qr[MAX_SEQS:][None], kl, vl, tabs[-1:],
+                             q_starts[-1:], kv_lens[-1:])
+        run("ragged" + sfx,
+            lambda k=k, v=v, kw=kw: ca.ragged_paged_attention(
+                qr, k, v, tabs, kv_lens, q_starts, **kw, **mods),
+            lambda k=k, v=v, kw=kw: att.ragged_paged_attention_ref(
+                qr, k, v, tabs, kv_lens, q_starts, **kw, **mods),
+            (both(dec_lib[0], chk_lib[0]), dec_lib[1]),
+            cost(qr.numel(), spans, row_bytes, 2 * (MAX_SEQS + 1)),
+            {"num_decode": MAX_SEQS, "decode_q": 1, "chunk_start": start})
+    emit({"phase": "gemma_library", "flex_compile_s": FLEX["compile_s"]})
+    return rows
+
+
+def gemma_prompts(lo: int, hi: int, seed: int) -> list:
+    """GEMMA_STREAMS random prompts of lo to hi tokens."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(3, 256, size=int(n)).tolist()
+            for n in rng.integers(lo, hi + 1, size=GEMMA_STREAMS)]
+
+
+def timed_run(engine: Engine, prompts, logprobs=None) -> tuple:
+    """The prompts as greedy requests of GEMMA_TOKENS tokens, added
+    together, stepped until idle: ({rid: [(token, logprob, top)]},
+    timing: TTFT of each stream, mean ITL (its last token's time less its
+    first over the tokens between), tokens per second over the run)."""
+    t0 = time.monotonic()
+    for i, p in enumerate(prompts):
+        engine.add_request(GenRequest(f"g{i}", p, max_tokens=GEMMA_TOKENS,
+                                      ignore_eos=True, logprobs=logprobs))
+    out, first, last = {}, {}, {}
+    while engine.has_work:
+        for ev in engine.step():
+            if ev.token_id >= 0:
+                now = time.monotonic()
+                out.setdefault(ev.request_id, []).append(
+                    (ev.token_id, ev.logprob, ev.top_logprobs))
+                first.setdefault(ev.request_id, now)
+                last[ev.request_id] = now
+    wall = time.monotonic() - t0
+    n_tok = sum(map(len, out.values()))
+    return out, {
+        "ttft_ms": [(first[r] - t0) * 1e3 for r in sorted(first)],
+        "itl_ms_mean": [(last[r] - first[r]) * 1e3 / (len(out[r]) - 1)
+                        for r in sorted(out)],
+        "tokens": n_tok, "seconds": wall, "tokens_per_s": n_tok / wall}
+
+
+def stream_agreement(got: dict, ref: dict) -> dict:
+    """got's greedy tokens against ref's (run with 2 logprobs): equal, or
+    the first difference with ref's top-2 logprob gap there (a near-tie
+    where under NEAR_TIE)."""
+    for rid in sorted(ref):
+        a, b = [t[0] for t in got.get(rid, [])], [t[0] for t in ref[rid]]
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                top = ref[rid][i][2] or []
+                gap = top[0][1] - top[1][1] if len(top) > 1 else None
+                return {"equal": False, "rid": rid, "index": i,
+                        "ref_top2_gap": gap,
+                        "near_tie": gap is not None and gap < NEAR_TIE}
+        if len(a) != len(b):
+            return {"equal": False, "rid": rid, "lengths": [len(a), len(b)],
+                    "near_tie": False}
+    return {"equal": True}
+
+
+def ttft_alone(engine: Engine, prompt) -> float:
+    """ms from add_request to the first token of one request on an idle
+    engine."""
+    t0 = time.monotonic()
+    engine.add_request(GenRequest("ttft", prompt, max_tokens=1,
+                                  ignore_eos=True))
+    ms = None
+    while engine.has_work:
+        for ev in engine.step():
+            if ev.token_id >= 0 and ms is None:
+                ms = (time.monotonic() - t0) * 1e3
+    return ms
+
+
+def gemma_phase(model: str, n_check: int, lengths, profiled: bool,
+                eager_cfg: dict, jet_cfg: dict) -> dict:
+    """Gemma-2/3 at full width and depth, random bf16 weights from seed 0,
+    every served prompt longer than its window:
+    - phase 4's forwards (three_paths) at an n_check-token prefill (then
+      its decode and verify rows) and an n_check + 100-token chunked
+      prompt on bf16 and int8 pools, every attention call held against the
+      plain version and the logits within LOGIT_REL_TOL;
+    - GEMMA_STREAMS greedy streams of GEMMA_TOKENS tokens from prompts of
+      `lengths` tokens on: a classic eager engine (whole-prompt prefill,
+      its 2 logprobs the reference), the jetstream graph-window engine
+      (must equal it token for token: the same kernels), a
+      mixed_batch_tokens=256 engine (chunks and mixed steps: equal, or
+      first different at a near-tie) and the mixed engine with n-gram
+      speculation (verify windows beside the chunks); on int8 pools the
+      jetstream engine (its 2 logprobs the int8 reference) and a mixed
+      engine held to it the same way; TTFT, mean ITL and tokens per
+      second of each;
+    - one prompt's TTFT alone, whole and in 256-token chunks;
+    - with `profiled`, where a graph-window decode step's time goes at 8
+      slots past the window (n_check-token prompts).
+    -> {"launches", "variants", "peak_gib"} as family_phase."""
+    torch.cuda.reset_peak_memory_stats()
+    # every engine has the same slots: a decode step's shapes, so its bits
+    size = dict(max_seq_len=GEMMA_MAX_SEQ_LEN, num_pages=GEMMA_PAGES,
+                max_num_seqs=MAX_SEQS)
+    classic_cfg = dict(eager_cfg, model=model, prefill_chunk_tokens=0,
+                       **size)
+    mixed_cfg = dict(eager_cfg, model=model, mixed_batch_tokens=CHUNK,
+                     **size)
+    t0 = time.monotonic()
+    engine = Engine(EngineConfig(**classic_cfg))
+    torch.cuda.synchronize()
+    cfg = engine.model_cfg
+    windows = [llama._attn_kwargs(cfg, l).get("window", 0)
+               for l in range(cfg.num_layers)]
+    emit({"phase": "gemma_engine", "model": model,
+          "seconds": time.monotonic() - t0, "layers": cfg.num_layers,
+          "hidden": cfg.hidden_size, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+          "vocab": cfg.vocab_size,
+          "features": {k: getattr(cfg, k) for k in (
+              "sliding_window", "sliding_window_pattern",
+              "attn_logit_softcapping", "final_logit_softcapping",
+              "query_pre_attn_scalar", "post_norms", "rope_theta",
+              "rope_local_theta", "rope_scaling_factor", "qk_norm")},
+          "local_layers": sum(1 for x in windows if x),
+          "params": loader.num_params(cfg),
+          "weights_gib": quant.param_bytes(engine.model) / 2**30,
+          "kv_pool_gib": engine.kv_spec.pool_bytes / 2**30})
+    # the decode and verify rows read past the prefill: a longer prompt
+    sizes = dict(n_prefill=n_check, n_prompt=n_check + 100)
+    with torch.inference_mode():
+        forward_checks(engine, **sizes)
+        eng8 = Engine(EngineConfig(**classic_cfg, kv_cache_dtype="int8"),
+                      params=engine.model)
+        forward_checks(eng8, **sizes)
+    del eng8
+    release()
+
+    prompts = gemma_prompts(*lengths, seed=31)
+    served, row = [], {"model": model,
+                       "prompt_tokens": [len(p) for p in prompts]}
+
+    def serve(name, eng, logprobs=None):
+        ca.reset_launch_counts()
+        out, timing = timed_run(eng, prompts, logprobs)
+        served.append({"launches": dict(ca.LAUNCHES),
+                       "variants": dict(ca.VARIANT_LAUNCHES)})
+        row[name] = {**timing, "launches": served[-1]["launches"]}
+        return out
+
+    ref = serve("classic", engine, logprobs=2)
+    refs = {"": ref}
+    for sfx in ("", "_int8"):
+        jet = Engine(EngineConfig(**dict(jet_cfg, model=model, **size),
+                                  kv_cache_dtype=sfx[1:] or "auto"),
+                     params=engine.model)
+        t0 = time.monotonic()
+        jet.warmup()
+        emit({"phase": "warmup", "engine": f"jetstream{sfx} {model}",
+              "seconds": time.monotonic() - t0, **jet.windows.stats()})
+        got = serve("jetstream_run" + sfx, jet, logprobs=2 if sfx else None)
+        row["jetstream" + sfx] = {"graphs": jet.windows.stats()}
+        if sfx:
+            refs[sfx] = got
+        else:
+            row["jetstream"]["agreement"] = stream_agreement(got, ref)
+        if profiled and not sfx:
+            with torch.inference_mode():
+                emit({"phase": "profile", "model": model, "weights": "none",
+                      **profile_steps(jet, 4, prompt_len=n_check)})
+        del jet
+        release()
+    for name, kw in (("mixed", {}), ("mixed_int8",
+                                     dict(kv_cache_dtype="int8")),
+                     ("mixed_ngram", dict(speculative_mode="ngram",
+                                          num_speculative_tokens=SPEC_K))):
+        eng = Engine(EngineConfig(**mixed_cfg, **kw), params=engine.model)
+        got = serve(name, eng)
+        pool = "_int8" if "int8" in name else ""
+        row[name].update(agreement=stream_agreement(got, refs[pool]),
+                         mixed_count=eng.metrics.mixed_count,
+                         mixed_spec_count=eng.metrics.mixed_spec_count,
+                         spec_verify_steps=eng.metrics.spec_verify_steps)
+        if name == "mixed":
+            row["ttft_alone_ms"] = {"whole_prompt": ttft_alone(
+                engine, prompts[0]), "chunks_of_256": ttft_alone(
+                eng, prompts[0]), "prompt_tokens": len(prompts[0])}
+        del eng
+        release()
+    emit({"phase": "gemma_serve", **row})
+    if row["jetstream"]["agreement"] != {"equal": True}:
+        raise AssertionError(f"{model}: graph windows differ from the eager "
+                             f"engine: {row['jetstream']['agreement']}")
+    bad = [k for k in ("mixed", "mixed_int8", "mixed_ngram")
+           if not (row[k]["agreement"]["equal"]
+                   or row[k]["agreement"]["near_tie"])]
+    if bad:
+        raise AssertionError(f"{model}: {bad} streams first differ from the "
+                             f"classic engine's past a near-tie: {row}")
+    if (row["mixed"]["mixed_count"] == 0
+            or row["mixed_int8"]["mixed_count"] == 0
+            or row["mixed_ngram"]["spec_verify_steps"] == 0):
+        raise AssertionError(f"{model}: no mixed or verify steps ran: {row}")
+    counts = {}
+    for run in served:
+        for k, n in run["variants"].items():
+            counts[k] = counts.get(k, 0) + n
+    missing = [k for k in GEMMA_KERNELS if not counts.get(f"{k}[window]")]
+    if missing:
+        raise AssertionError(f"{model}: windowed kernels never launched: "
+                             f"{missing} ({counts})")
+    out = {"launches": [s["launches"] for s in served],
+           "variants": [s["variants"] for s in served],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del engine
+    release()
+    return out
+
+
+# the kernels line's rows at Gemma-2-9B's shape, their launches the served
+# gemma-2-9b-it phase's windowed launches
+FAMILY_ROWS += [(GEMMA_LABEL, k, "gemma-2-9b-it", f"{k}[window]")
+                for k in GEMMA_KERNELS]
+
+
+def gemma_only(eager_cfg: dict, jet_cfg: dict) -> None:
+    """`--gemma`: phase 3's Gemma rows, then the Gemma models' phase."""
+    dev = torch.device("cuda")
+    rows = gemma_kernel_checks(dev)
+    for model, n_check, lengths, profiled in GEMMA_MODELS:
+        gemma_phase(model, n_check, lengths, profiled, eager_cfg, jet_cfg)
+    emit({"phase": "gemma_only", "kernel_ms": {
+        r["name"]: r["kernel_ms"] for r in rows.values()}})
+
+
 # ------------------------------------------------------------- phase 16 --
 
 # phase 16's streamed requests: 128 tokens, every token its own SSE event
@@ -4304,11 +4813,11 @@ def main(argv=None) -> int:
     if args not in ([], ["--kernels-only"], ["--mla-chunked-ttft"],
                     ["--mla-verify-profile"], ["--mla-prefill-profile"],
                     ["--window-profile"], ["--observability"],
-                    ["--trace-stress"]):
+                    ["--trace-stress"], ["--gemma"]):
         print("usage: chip_smoke.py [--kernels-only | --mla-chunked-ttft | "
               "--mla-verify-profile | --mla-prefill-profile | "
-              "--window-profile | --observability | --trace-stress]",
-              file=sys.stderr)
+              "--window-profile | --observability | --trace-stress | "
+              "--gemma]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -4360,9 +4869,13 @@ def main(argv=None) -> int:
     if args == ["--trace-stress"]:
         trace_stress(jet_cfg)
         return 0
+    if args == ["--gemma"]:
+        gemma_only(eager_cfg, jet_cfg)
+        return 0
     rows = kernel_checks(dev)
     family_rows = {label: shape_kernel_checks(dev, label, h, kv, d, names)
                    for label, h, kv, d, names in FAMILY_SHAPES}
+    family_rows[GEMMA_LABEL] = gemma_kernel_checks(dev)
     if args:
         emit({"phase": "kernels_only", "kernel_ms": {
             row["name"]: row["kernel_ms"] for row in
@@ -4545,6 +5058,10 @@ def main(argv=None) -> int:
     families = {model: family_phase(model, pools, profiled, eager_cfg,
                                     jet_cfg)
                 for model, pools, profiled in FAMILY_MODELS}
+    # Gemma-2 and Gemma-3, after the families (their phase, see above)
+    families.update({model: gemma_phase(model, n_check, lengths, profiled,
+                                        eager_cfg, jet_cfg)
+                     for model, n_check, lengths, profiled in GEMMA_MODELS})
     # the mixture-of-experts models (phase 13), after the families
     families.update({model: moe_phase(model, q, mixed, eager_cfg, jet_cfg)
                      for model, q, mixed in MOE_MODELS})

@@ -27,6 +27,13 @@
 // no key at all (decode ctx 0, prefill seq_len 0) writes exact zeros, as
 // the TPU kernels do.
 //
+// Below head_dim 640 the tile also takes Gemma-2/3's two score modifiers
+// (ScoreMods, one value per launch, i.e. per layer): a sliding window, under
+// which query i sees key tok only where qpos0 + i - window < tok, and a tanh
+// cap on the scaled score. A windowed tile starts its walk at the key tile
+// that holds its first query's lower bound, so keys below every row's window
+// are never read.
+//
 // `Rows` says where token tok's K/V row starts: PagedRows through a page
 // list (decode, chunk, ragged), DenseRows in a dense block (prefill).
 #pragma once
@@ -61,6 +68,16 @@ struct DenseRows {
   __device__ __forceinline__ long long operator()(int tok) const {
     return base + (long long)tok * row_stride;
   }
+};
+
+// Gemma-2/3's score modifiers of one launch (one layer; the JAX package's
+// `window=` and `logit_cap=`): key tok is visible to a query at position p
+// only where p - window < tok (window 0: no lower bound, a global layer's),
+// and a scaled score s becomes cap * tanh(s / cap) before the mask (cap 0:
+// none). The latent tile (head_dim 640) takes neither.
+struct ScoreMods {
+  int window;
+  float cap;
 };
 
 // Dynamic shared memory above 48 KB must be opted into per kernel.
@@ -115,6 +132,16 @@ inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
 //     own MMAs.
 //   - q enters the MMA as the caller gives it (bf16) and the f32 scores are
 //     scaled by 1/sqrt(D), in log2 units so that the softmax uses exp2f.
+//     A tanh cap (ScoreMods::cap) is applied in natural units, after the
+//     scale (and an int8 key's scale) and before the log2 factor:
+//     s2 = log2(e) * cap * tanhf(s / cap), with the accurate tanhf (the
+//     approximate tanh's ~2^-11 relative error is ~0.02 on a score of 50).
+//   - A sliding window (ScoreMods::window) bounds each row from below at
+//     its own position - window + 1, so the 64 rows of a tile (positions x
+//     the group) have different bounds: the walk starts at the key tile
+//     that holds the smallest (the first position's), and a key half is
+//     masked element by element where it straddles any row's bound as
+//     well as where it straddles the horizon.
 //     The online softmax (m, l) and O stay in registers; each thread holds
 //     two rows (lane / 4 and lane / 4 + 8 of its warp's 16) and reduces a
 //     row's max and sum over the four lanes that share it.
@@ -434,7 +461,8 @@ struct TileOut {
 
 // q element (i, g, dd) is q[q_off + i * q_row_stride + g * kD + dd]; kvh is
 // the KV head the block reads; queries i = 0 .. nq - 1 sit at qpos0 + i and
-// see key tok iff tok <= qpos0 + i, tok < kv_len and key_lo <= tok < key_hi.
+// see key tok iff tok <= qpos0 + i, tok < kv_len and key_lo <= tok < key_hi
+// (and, with mods.window > 0, qpos0 + i - mods.window < tok).
 // Block of kTileThreads: warp w of warpgroup wg = w / 4 owns rows
 // 16 (w % 4) .. + 15 and keys wg * 32 .. + 31 of every tile; the two
 // warpgroups' (O, m, l) merge through shared memory at the end.
@@ -442,7 +470,7 @@ template <int kD, typename KVTiles, typename Rows>
 __device__ __forceinline__ void attend_mma(
     const __nv_bfloat16* __restrict__ q, long long q_off, int q_row_stride,
     KVTiles kv, Rows rows, int kvh, int nq, int group, int qpos0, int kv_len,
-    int key_lo, int key_hi, float scale, TileOut dst) {
+    int key_lo, int key_hi, float scale, ScoreMods mods, TileOut dst) {
   static_assert(kD % 16 == 0 && kD <= kMaxTileDim, "head_dim");
   constexpr int ld = kD + 8;  // padded tile row, in bf16 values
   constexpr int kSteps = kD / 16;  // k16 steps of Q K^T, n16 blocks of P V
@@ -458,7 +486,11 @@ __device__ __forceinline__ void attend_mma(
   const int wg = warp >> 2, wrow = (warp & 3) * 16;  // key half, first row
   const int quad = lane >> 2, pair = (lane & 3) * 2;  // fragment row, column
   const int n_rows = nq * group;
-  const int lo = key_lo;
+  const bool windowed = mods.window > 0;
+  // a window starts the walk at the key tile of the first query's bound
+  const int lo = windowed
+      ? max(key_lo, max(0, qpos0 - mods.window + 1) / kKeyTile * kKeyTile)
+      : key_lo;
   const int hi = min(min(qpos0 + nq, kv_len), key_hi);
 
   if (lo >= hi) {  // no key in range: zeros, or an empty partial
@@ -512,10 +544,19 @@ __device__ __forceinline__ void attend_mma(
 
   const bool active = wrow < n_rows;
   // positions of this thread's two rows (a padding row's is past the range)
-  int qlim[2];
+  // and the keys at or below which their windows end (INT_MIN: no window)
+  int qlim[2], wlim[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) qlim[h] = qpos0 + (wrow + quad + 8 * h) / group;
+  for (int h = 0; h < 2; ++h) {
+    qlim[h] = qpos0 + (wrow + quad + 8 * h) / group;
+    wlim[h] = windowed ? qlim[h] - mods.window : INT_MIN;
+  }
+  // a key half starting at or below this straddles some row's window
+  const int wedge = windowed ? qpos0 + nq - 1 - mods.window : INT_MIN;
   const float sl2 = scale * 1.4426950408889634f;  // 1/sqrt(D) in log2 units
+  const bool capped = mods.cap > 0.f;
+  const float cap_l2 = mods.cap * 1.4426950408889634f;  // cap in log2 units
+  const float inv_cap = capped ? 1.f / mods.cap : 0.f;
   unsigned qf[kWide ? kSteps : 1][4];
   float o[kD / 8][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -582,7 +623,8 @@ __device__ __forceinline__ void attend_mma(
 
       // scale, mask, online softmax; s[j][2h + e] is row quad + 8h, key
       // k0 + j * 8 + pair + e
-      const bool edge = k0 + kHalfKeys > hi || k0 + kHalfKeys - 1 > qpos0;
+      const bool edge = k0 + kHalfKeys > hi || k0 + kHalfKeys - 1 > qpos0
+                        || k0 <= wedge;
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int j = 0; j < kHalfKeys / 8; ++j)
@@ -590,10 +632,14 @@ __device__ __forceinline__ void attend_mma(
         for (int e = 0; e < 2; ++e) {
           const int key = j * 8 + pair + e, tok = k0 + key;
           const float f = KVTiles::kInt8 ? sl2 * ksc[key] : sl2;
+          // the cap's natural-unit scale: 1/sqrt(D), times an int8 key's
+          const float fn = KVTiles::kInt8 ? scale * ksc[key] : scale;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            float x = s[j][2 * h + e] * f;
-            if (edge && !(tok < hi && tok <= qlim[h])) x = -INFINITY;
+            float x = capped ? cap_l2 * tanhf(s[j][2 * h + e] * fn * inv_cap)
+                             : s[j][2 * h + e] * f;
+            if (edge && !(tok < hi && tok <= qlim[h] && tok > wlim[h]))
+              x = -INFINITY;
             s[j][2 * h + e] = x;
             mx[h] = fmaxf(mx[h], x);
           }
@@ -1642,10 +1688,12 @@ int launch_chunk_latent(const void* q, KVTiles kv, const void* pages,
 // width, the row count and the SM count on the host; the kv_lens live on
 // the card and are never read back). One block per (row, span, KV head)
 // runs attend_mma over the span's keys and writes its unnormalized partial
-// (O, m, l) in f32; a span at or past its row's horizon writes m = -inf,
-// l = 0 and exits. merge_splits_kernel then folds the spans into the bf16
-// rows. So a 2048-token row runs on 8 SMs instead of serially on one. The
-// block runs the 64-row tile with decode_q x group real rows: the rows are
+// (O, m, l) in f32; a span at or past its row's horizon, or wholly below
+// the key tile of its first query's window, writes m = -inf, l = 0 and
+// exits (the plan is the table width's, so under a window such spans are
+// many). merge_splits_kernel then folds the spans into the bf16 rows. So
+// a 2048-token row runs on 8 SMs instead of serially on one. The block
+// runs the 64-row tile with decode_q x group real rows: the rows are
 // bound by bytes, and the MMA lanes the padding wastes cost no bytes.
 // Head_dim 640 runs the latent decode rows further below.
 
@@ -1670,7 +1718,8 @@ __device__ __forceinline__ void decode_split_block(
     int bx, int kvh, const __nv_bfloat16* __restrict__ q, KVTiles kv,
     const int* __restrict__ tables, int W, int page_size, int lane_width,
     const int* __restrict__ kv_lens, const int* __restrict__ q_starts,
-    int decode_q, int group, int heads, float scale, Splits sp) {
+    int decode_q, int group, int heads, float scale, ScoreMods mods,
+    Splits sp) {
   static_assert(kD != kLatentDim, "head_dim 640: decode_latent_kernel");
   const int b = bx / sp.num_splits, s = bx - b * sp.num_splits;
   const int kv_len = kv_lens[b];
@@ -1688,7 +1737,7 @@ __device__ __forceinline__ void decode_split_block(
         q, ((long long)(b * decode_q + j0) * heads + kvh * group) * kD,
         heads * kD, kv, rows, kvh, min(per, decode_q - j0), group,
         qpos0 + j0, min(kv_len, W * page_size), s * sp.split_keys,
-        (s + 1) * sp.split_keys, scale,
+        (s + 1) * sp.split_keys, scale, mods,
         TileOut{nullptr, sp.part_o + s * sp.nd * heads * kD,
                 sp.part_ml + s * sp.nd * heads * 2,
                 (long long)b * decode_q + j0, heads});

@@ -59,6 +59,11 @@
 //   memory;
 // - int8 pools are widened to bf16 by the thread that copied each chunk
 //   (no work area, no extra barrier).
+//
+// Below head_dim 640 a launch also takes one layer's sliding window and
+// tanh logit cap (Gemma-2/3: `window`, `logit_cap`, 0 for none; ScoreMods in
+// attention_common.cuh): a query tile's walk starts at the key tile of its
+// first query's window. The latent tile refuses both.
 
 #include <limits.h>
 
@@ -73,7 +78,7 @@ __global__ void __launch_bounds__(kTileThreads) chunk_kernel(
     const int* __restrict__ pages,        // [W]
     __nv_bfloat16* __restrict__ out,      // [C, H, kD]
     int C, int H, int KV, int page_size, int lane_width, int start,
-    int positions, float scale) {
+    int positions, float scale, ScoreMods mods) {
   const int i0 = blockIdx.x * positions, kvh = blockIdx.y;
   const int group = H / KV;
   const int nq = min(positions, C - i0);
@@ -81,16 +86,18 @@ __global__ void __launch_bounds__(kTileThreads) chunk_kernel(
   attend_mma<kD>(q, ((long long)i0 * H + kvh * group) * kD, H * kD, kv,
                  rows, kvh, nq, group, /*qpos0=*/start + i0,
                  /*kv_len=*/start + C, /*key_lo=*/0, /*key_hi=*/INT_MAX,
-                 scale, TileOut{out, nullptr, nullptr, 0, H});
+                 scale, mods, TileOut{out, nullptr, nullptr, 0, H});
 }
 
 template <typename KVTiles>
 int launch_chunk(const void* q, KVTiles kv, const void* pages, void* out,
                  int C, int H, int KV, int D, int page_size, int lane_width,
                  int start, int positions, int spans, float scale,
-                 void* clocks, void* stream) {
+                 ScoreMods mods, void* clocks, void* stream) {
   if (KV < 1 || H % KV || !tile_fits(H / KV, D)
-      || positions != tile_positions(H / KV) || C < 1 || start < 0)
+      || positions != tile_positions(H / KV) || C < 1 || start < 0
+      || mods.window < 0 || !(mods.cap >= 0.f)
+      || (D == kLatentDim && (mods.window || mods.cap > 0.f)))
     return (int)cudaErrorInvalidValue;
   if (D == kLatentDim)
     return launch_chunk_latent(q, kv, pages, out, C, H, KV, page_size,
@@ -106,7 +113,7 @@ int launch_chunk(const void* q, KVTiles kv, const void* pages, void* out,
     chunk_kernel<kD, KVTiles><<<grid, kTileThreads, smem,
                                 (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)q, kv, (const int*)pages, (__nv_bfloat16*)out,
-        C, H, KV, page_size, lane_width, start, positions, scale);
+        C, H, KV, page_size, lane_width, start, positions, scale, mods);
     return (int)cudaGetLastError();
   });
 }
@@ -116,12 +123,13 @@ int launch_chunk(const void* q, KVTiles kv, const void* pages, void* out,
 extern "C" int dtt_chunk(const void* q, const void* k_pages,
                          const void* v_pages, const void* pages, void* out,
                          int C, int H, int KV, int D, int page_size, int start,
-                         int positions, int spans, float scale, void* clocks,
-                         void* stream) {
+                         int positions, int spans, float scale, int window,
+                         float logit_cap, void* clocks, void* stream) {
   const dtt::Bf16Tiles kv{(const __nv_bfloat16*)k_pages,
                           (const __nv_bfloat16*)v_pages};
   return dtt::launch_chunk(q, kv, pages, out, C, H, KV, D, page_size, KV * D,
-                           start, positions, spans, scale, clocks, stream);
+                           start, positions, spans, scale,
+                           dtt::ScoreMods{window, logit_cap}, clocks, stream);
 }
 
 extern "C" int dtt_chunk_int8(const void* q, const void* k_pages,
@@ -129,14 +137,15 @@ extern "C" int dtt_chunk_int8(const void* q, const void* k_pages,
                               void* out, int C, int H, int KV, int D,
                               int page_size, int lane_width, int start,
                               int positions, int spans, float scale,
-                              void* clocks, void* stream) {
+                              int window, float logit_cap, void* clocks,
+                              void* stream) {
   if (lane_width % 16 || lane_width < KV * (D + 2))
     return (int)cudaErrorInvalidValue;
   const dtt::Int8Tiles kv{(const int8_t*)k_pages, (const int8_t*)v_pages,
                           KV * D};
   return dtt::launch_chunk(q, kv, pages, out, C, H, KV, D, page_size,
-                           lane_width, start, positions, spans, scale, clocks,
-                           stream);
+                           lane_width, start, positions, spans, scale,
+                           dtt::ScoreMods{window, logit_cap}, clocks, stream);
 }
 
 // Query positions per block of the tensor-core tile (chunk.cu, prefill.cu

@@ -7,7 +7,11 @@
 // the trash page: bf16 rows (W = KV*D, dtt_paged_decode) or the int8 packed
 // rows of kv_cache_dtype="int8" (dtt_paged_decode_int8), whose scales fold
 // into the scores and probabilities as the TPU kernel's int8 branch
-// dequantizes (attention_common.cuh).
+// dequantizes (attention_common.cuh). Below head_dim 640 a launch also
+// takes one layer's sliding window and tanh logit cap (Gemma-2/3:
+// `window`, `logit_cap`, 0 for none; ScoreMods in attention_common.cuh): a
+// windowed row reads only the key tiles from its window's start on, and a
+// span of the plan wholly below that leaves an empty partial.
 //
 // Bound on the H100: bytes. Each step reads every valid K and V row of every
 // sequence once (2 * sum(ctx) * KV * D * 2 bytes in bf16, 2 * sum(ctx) *
@@ -57,11 +61,11 @@ __global__ void __launch_bounds__(kTileThreads) decode_kernel(
     const int* __restrict__ block_table,  // [B, pmax]
     const int* __restrict__ context_lens, // [B]
     int H, int KV, int page_size, int pmax, int lane_width, float scale,
-    Splits sp) {
+    ScoreMods mods, Splits sp) {
   const int bx = blockIdx.x / KV, kvh = blockIdx.x - bx * KV;
   decode_split_block<kD>(bx, kvh, q, kv, block_table, pmax, page_size,
                          lane_width, context_lens, /*q_starts=*/nullptr,
-                         /*decode_q=*/1, H / KV, H, scale, sp);
+                         /*decode_q=*/1, H / KV, H, scale, mods, sp);
 }
 
 template <typename KVTiles>
@@ -69,11 +73,13 @@ int launch_decode(const void* q, KVTiles kv, const void* block_table,
                   const void* context_lens, void* out, void* part_o,
                   void* part_ml, int B, int H, int KV, int D, int page_size,
                   int pmax, int lane_width, int num_splits, int split_keys,
-                  float scale, void* stream) {
-  if (B < 1 || KV < 1 || H % KV || pmax < 1 || !tile_fits(H / KV, D))
+                  float scale, ScoreMods mods, void* stream) {
+  if (B < 1 || KV < 1 || H % KV || pmax < 1 || !tile_fits(H / KV, D)
+      || mods.window < 0 || !(mods.cap >= 0.f))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (D == kLatentDim) {
+    if (mods.window || mods.cap > 0.f) return (int)cudaErrorInvalidValue;
     const int plan = check_latent_plan(B, 1, H / KV, KV,
                                        (long long)pmax * page_size,
                                        num_splits, split_keys);
@@ -99,7 +105,7 @@ int launch_decode(const void* q, KVTiles kv, const void* block_table,
     decode_kernel<kD, KVTiles><<<(unsigned)blocks, kTileThreads, smem, st>>>(
         (const __nv_bfloat16*)q, kv, (const int*)block_table,
         (const int*)context_lens, H, KV, page_size, pmax, lane_width, scale,
-        sp);
+        mods, sp);
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
     return launch_merge<kD>(sp, (__nv_bfloat16*)out, B * H, st);
@@ -114,12 +120,13 @@ extern "C" int dtt_paged_decode(const void* q, const void* k_pages,
                                 void* part_o, void* part_ml, int B, int H,
                                 int KV, int D, int page_size, int pmax,
                                 int num_splits, int split_keys, float scale,
-                                void* stream) {
+                                int window, float logit_cap, void* stream) {
   const dtt::Bf16Tiles kv{(const __nv_bfloat16*)k_pages,
                           (const __nv_bfloat16*)v_pages};
   return dtt::launch_decode(q, kv, block_table, context_lens, out, part_o,
                             part_ml, B, H, KV, D, page_size, pmax, KV * D,
-                            num_splits, split_keys, scale, stream);
+                            num_splits, split_keys, scale,
+                            dtt::ScoreMods{window, logit_cap}, stream);
 }
 
 extern "C" int dtt_paged_decode_int8(const void* q, const void* k_pages,
@@ -129,15 +136,16 @@ extern "C" int dtt_paged_decode_int8(const void* q, const void* k_pages,
                                      void* part_o, void* part_ml, int B,
                                      int H, int KV, int D, int page_size,
                                      int pmax, int lane_width, int num_splits,
-                                     int split_keys, float scale,
-                                     void* stream) {
+                                     int split_keys, float scale, int window,
+                                     float logit_cap, void* stream) {
   if (lane_width % 16 || lane_width < KV * (D + 2))
     return (int)cudaErrorInvalidValue;
   const dtt::Int8Tiles kv{(const int8_t*)k_pages, (const int8_t*)v_pages,
                           KV * D};
   return dtt::launch_decode(q, kv, block_table, context_lens, out, part_o,
                             part_ml, B, H, KV, D, page_size, pmax, lane_width,
-                            num_splits, split_keys, scale, stream);
+                            num_splits, split_keys, scale,
+                            dtt::ScoreMods{window, logit_cap}, stream);
 }
 
 // Keys per split of a decode row (decode.cu, ragged.cu) whose table holds

@@ -54,6 +54,12 @@
 // walk, so K and V are read as two tensors.
 // A lane at seq_len = S of a one-lane launch runs the blocks of chunk.cu's
 // chunk of S queries at start 0, and is bit-identical to it.
+//
+// Below head_dim 640 a launch also takes one layer's sliding window and
+// tanh logit cap (Gemma-2/3: `window`, `logit_cap`, 0 for none; ScoreMods in
+// attention_common.cuh): a query tile's walk starts at the key tile of its
+// first query's window, so a windowed prompt of S tokens reads ~window keys
+// per query tile, not up to S. The latent row refuses both.
 #include <limits.h>
 
 #include "attention_common.cuh"
@@ -67,14 +73,14 @@ __global__ void __launch_bounds__(kTileThreads) prefill_kernel(
     const __nv_bfloat16* __restrict__ v,
     const int* __restrict__ seq_lens,     // [N]
     __nv_bfloat16* __restrict__ out,      // [N, S, H, kD]
-    int S, int H, int KV, int positions, float scale) {
+    int S, int H, int KV, int positions, float scale, ScoreMods mods) {
   const int i0 = blockIdx.x * positions, kvh = blockIdx.y, n = blockIdx.z;
   const int group = H / KV;
   const DenseRows rows{(long long)n * S * KV * kD, KV * kD};
   attend_mma<kD>(q, (((long long)n * S + i0) * H + kvh * group) * kD, H * kD,
                  Bf16Tiles{k, v}, rows, kvh, min(positions, S - i0), group,
                  /*qpos0=*/i0, /*kv_len=*/min(seq_lens[n], S),
-                 /*key_lo=*/0, /*key_hi=*/INT_MAX, scale,
+                 /*key_lo=*/0, /*key_hi=*/INT_MAX, scale, mods,
                  TileOut{out, nullptr, nullptr, 0, H});
 }
 
@@ -131,10 +137,13 @@ int launch_prefill_latent(const void* q, const void* k, const void* v,
 extern "C" int dtt_prefill(const void* q, const void* k, const void* v,
                            const void* seq_lens, void* out, int N, int S,
                            int H, int KV, int D, int positions, int spans,
-                           float scale, void* clocks, void* stream) {
+                           float scale, int window, float logit_cap,
+                           void* clocks, void* stream) {
   using namespace dtt;
   if (N < 1 || S < 1 || KV < 1 || H % KV || !tile_fits(H / KV, D)
-      || positions != tile_positions(H / KV) || N > 65535 || KV > 65535)
+      || positions != tile_positions(H / KV) || N > 65535 || KV > 65535
+      || window < 0 || !(logit_cap >= 0.f)
+      || (D == kLatentDim && (window || logit_cap > 0.f)))
     return (int)cudaErrorInvalidValue;
   if (D == kLatentDim)
     return launch_prefill_latent(q, k, v, seq_lens, out, N, S, H, KV,
@@ -150,7 +159,7 @@ extern "C" int dtt_prefill(const void* q, const void* k, const void* v,
     prefill_kernel<kD><<<grid, kTileThreads, smem, (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
         (const __nv_bfloat16*)v, (const int*)seq_lens, (__nv_bfloat16*)out, S,
-        H, KV, positions, scale);
+        H, KV, positions, scale, ScoreMods{window, logit_cap});
     return (int)cudaGetLastError();
   });
 }

@@ -14,6 +14,10 @@
 // tok <= q_starts[r] + j and tok < kv_lens[r]; a horizon past the table's
 // W * page_size keys is cut there, where the TPU kernel clamps its page
 // index. bf16 pools (dtt_ragged) or int8 packed pools (dtt_ragged_int8).
+// Below head_dim 640 a launch also takes one layer's sliding window and
+// tanh logit cap (Gemma-2/3: `window`, `logit_cap`, 0 for none; ScoreMods in
+// attention_common.cuh), one scalar for all its rows, each row bounded at
+// its own query positions; the latent rows refuse both.
 //
 // Bound on the H100: bytes for the decode rows (each reads its context
 // once, ~1 FLOP per byte per query), operations for the chunk (chunk.cu).
@@ -66,14 +70,14 @@ __global__ void __launch_bounds__(kTileThreads) ragged_kernel(
     const int* __restrict__ q_starts,     // [num_decode + 1]
     __nv_bfloat16* __restrict__ out,      // like q
     int num_decode, int decode_q, int C, int H, int KV, int page_size, int W,
-    int lane_width, int positions, float scale, Splits sp) {
+    int lane_width, int positions, float scale, ScoreMods mods, Splits sp) {
   const int bx = blockIdx.x / KV, kvh = blockIdx.x - bx * KV;
   const int group = H / KV;
   const int tiles = (C + positions - 1) / positions;
   if (bx >= tiles) {  // a decode block
     decode_split_block<kD>(bx - tiles, kvh, q, kv, tables, W, page_size,
                            lane_width, kv_lens, q_starts, decode_q, group, H,
-                           scale, sp);
+                           scale, mods, sp);
   } else {  // a chunk tile
     const int offset = bx * positions;
     const int first = num_decode * decode_q + offset;
@@ -83,7 +87,7 @@ __global__ void __launch_bounds__(kTileThreads) ragged_kernel(
                    rows, kvh, min(positions, C - offset), group,
                    /*qpos0=*/q_starts[num_decode] + offset,
                    /*kv_len=*/min(kv_lens[num_decode], W * page_size), 0,
-                   INT_MAX, scale, TileOut{out, nullptr, nullptr, 0, H});
+                   INT_MAX, scale, mods, TileOut{out, nullptr, nullptr, 0, H});
   }
 }
 
@@ -129,8 +133,10 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
                   void* part_o, void* part_ml, int num_decode, int decode_q,
                   int C, int H, int KV, int D, int page_size, int W,
                   int lane_width, int positions, int num_splits,
-                  int split_keys, float scale, void* stream) {
-  if (KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
+                  int split_keys, float scale, ScoreMods mods, void* stream) {
+  if (KV < 1 || H % KV || mods.window < 0 || !(mods.cap >= 0.f)
+      || (D == kLatentDim && (mods.window || mods.cap > 0.f)))
+    return (int)cudaErrorInvalidValue;
   const int group = H / KV;
   if (C < 0 || num_decode < 0 || decode_q < 1 || W < 1
       || !tile_fits(group, D)
@@ -163,7 +169,7 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
                                  st>>>(
         (const __nv_bfloat16*)q, kv, (const int*)tables, (const int*)kv_lens,
         (const int*)q_starts, (__nv_bfloat16*)out, num_decode, decode_q, C,
-        H, KV, page_size, W, lane_width, positions, scale, sp);
+        H, KV, page_size, W, lane_width, positions, scale, mods, sp);
     const int rc = (int)cudaGetLastError();
     if (rc != 0 || num_decode == 0) return rc;
     return launch_merge<kD>(sp, (__nv_bfloat16*)out,
@@ -179,13 +185,15 @@ extern "C" int dtt_ragged(const void* q, const void* k_pages,
                           void* part_o, void* part_ml, int num_decode,
                           int decode_q, int C, int H, int KV, int D,
                           int page_size, int W, int positions, int num_splits,
-                          int split_keys, float scale, void* stream) {
+                          int split_keys, float scale, int window,
+                          float logit_cap, void* stream) {
   const dtt::Bf16Tiles kv{(const __nv_bfloat16*)k_pages,
                           (const __nv_bfloat16*)v_pages};
   return dtt::launch_ragged(q, kv, tables, kv_lens, q_starts, out, part_o,
                             part_ml, num_decode, decode_q, C, H, KV, D,
                             page_size, W, KV * D, positions, num_splits,
-                            split_keys, scale, stream);
+                            split_keys, scale,
+                            dtt::ScoreMods{window, logit_cap}, stream);
 }
 
 extern "C" int dtt_ragged_int8(const void* q, const void* k_pages,
@@ -195,7 +203,8 @@ extern "C" int dtt_ragged_int8(const void* q, const void* k_pages,
                                int num_decode, int decode_q, int C, int H,
                                int KV, int D, int page_size, int W,
                                int lane_width, int positions, int num_splits,
-                               int split_keys, float scale, void* stream) {
+                               int split_keys, float scale, int window,
+                               float logit_cap, void* stream) {
   if (lane_width % 16 || lane_width < KV * (D + 2))
     return (int)cudaErrorInvalidValue;
   const dtt::Int8Tiles kv{(const int8_t*)k_pages, (const int8_t*)v_pages,
@@ -203,5 +212,6 @@ extern "C" int dtt_ragged_int8(const void* q, const void* k_pages,
   return dtt::launch_ragged(q, kv, tables, kv_lens, q_starts, out, part_o,
                             part_ml, num_decode, decode_q, C, H, KV, D,
                             page_size, W, lane_width, positions, num_splits,
-                            split_keys, scale, stream);
+                            split_keys, scale,
+                            dtt::ScoreMods{window, logit_cap}, stream);
 }

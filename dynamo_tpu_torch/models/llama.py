@@ -8,12 +8,27 @@ pools) and the ModelConfig switches of three more dense families:
 Qwen2/2.5 (`attention_bias`: q/k/v biases), Qwen3 (`qk_norm`: a per-head
 RMSNorm of q and k over head_dim, before rope) and Gemma 1
 (`hidden_act="gelu_tanh"`: GeGLU; `rms_norm_unit_offset`: norms scale by
-1 + w; `embed_scale`: embeddings times sqrt(hidden_size)), and the
-mixture-of-experts MLP (`num_experts`: Mixtral, Qwen3-MoE; with
-`num_shared_experts`, `norm_topk_prob` and `routed_scaling_factor`,
-DeepSeek's routing; `ops.moe`). What the port does not implement is
-refused by `unported_model_features`. Differences in idiom, not in
-arithmetic:
+1 + w; `embed_scale`: embeddings times sqrt(hidden_size)), Gemma-2 and
+Gemma-3 (below), and the mixture-of-experts MLP (`num_experts`: Mixtral,
+Qwen3-MoE; with `num_shared_experts`, `norm_topk_prob` and
+`routed_scaling_factor`, DeepSeek's routing; `ops.moe`). What the port
+does not implement is refused by `unported_model_features`.
+
+Gemma-2/3 (JAX `_attn_kwargs`, `_is_global_layer`, `_layer_rope`, `_post`):
+layer l is global where (l + 1) % sliding_window_pattern == 0 (never with
+pattern 0), else local; a local layer's attention sees only the last
+`sliding_window` positions (the ops' `window`, 0 on a global layer), every
+layer's scores are capped by `attn_logit_softcapping` and the final logits
+by `final_logit_softcapping` (cap * tanh(x / cap)), q is pre-scaled by
+sqrt(head_dim / query_pre_attn_scalar) so that the ops' 1/sqrt(head_dim)
+becomes 1/sqrt(query_pre_attn_scalar), the branch outputs of attention and
+MLP pass their own norms (`post_norms`), and Gemma-3's local layers rotate
+with `rope_local_theta` while its global layers rotate positions divided by
+`rope_scaling_factor`. One predicate (`_is_global_layer`) decides both the
+window and the rope, and both are host values per layer, so a captured
+decode step holds each layer's window as a constant of its launch.
+
+Differences in idiom, not in arithmetic:
 
 - Weights live in an `nn.Module` (`Llama`, one `LlamaLayer` per layer)
   instead of a layer-stacked pytree, and the forward is a Python loop over
@@ -67,6 +82,7 @@ from dynamo_tpu_torch.lora import apply as lora_apply
 from dynamo_tpu_torch.models import quant
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops import attention as att
+from dynamo_tpu_torch.ops import cuda_attention
 from dynamo_tpu_torch.ops import moe as moe_ops
 from dynamo_tpu_torch.ops.rope import rope_cos_sin, rotate, yarn_get_mscale
 
@@ -86,16 +102,15 @@ def _expert_weight(shape, device, dtype) -> nn.Parameter:
 
 
 def unported_model_features(m: ModelConfig) -> List[str]:
-    """ModelConfig features this model does not implement: the Gemma-2/3
-    and Phi-3 attention variants, and Phi-3's longrope."""
+    """ModelConfig features this model does not implement: an activation
+    other than SwiGLU or GeGLU, a head_dim the attention kernels are not
+    built for (Phi-3's 96; an MLA model's rows are its latent row, which
+    the kernels take at 640 and the plain versions at any width), and
+    Phi-3's longrope."""
     checks = [
-        ("sliding_window", m.sliding_window > 0),
-        ("attn_logit_softcapping", m.attn_logit_softcapping > 0),
-        ("final_logit_softcapping", m.final_logit_softcapping > 0),
         ("hidden_act", m.hidden_act not in ("silu", "gelu_tanh")),
-        ("post_norms", m.post_norms),
-        ("query_pre_attn_scalar", m.query_pre_attn_scalar > 0),
-        ("rope_local_theta", m.rope_local_theta > 0),
+        ("head_dim", not m.is_mla
+         and m.head_dim not in cuda_attention.TILE_HEAD_DIMS),
         ("rope_longrope_scaling", m.rope_longrope_scaling is not None),
     ]
     return [name for name, bad in checks if bad]
@@ -110,7 +125,8 @@ class LlamaLayer(nn.Module):
     wo [H*Dv, E]; with `attention_bias`, bq [H*D] and bk/bv
     [KV*D]; with `qk_norm`, q_norm/k_norm [D]; with `num_experts` X,
     router [E, X], moe_w_gate/moe_w_up [X, E, F] and moe_w_down
-    [X, F, E] (stored as each expert's [out, in]), and w_gate/w_up/w_down
+    [X, F, E] (stored as each expert's [out, in]); with `post_norms`
+    (Gemma-2/3), post_attn_norm/post_mlp_norm [E]; and w_gate/w_up/w_down
     only for shared experts, at width num_shared_experts * F (None where
     the config has no such weight). Each matmul weight is a tensor or,
     quantized, a `quant.QTensor` of the same shape; biases, norms and the
@@ -158,6 +174,9 @@ class LlamaLayer(nn.Module):
         norm = cfg.qk_norm
         self.q_norm = _weight((d,), device, dtype) if norm else None
         self.k_norm = _weight((d,), device, dtype) if norm else None
+        post = cfg.post_norms
+        self.post_attn_norm = _weight((e,), device, dtype) if post else None
+        self.post_mlp_norm = _weight((e,), device, dtype) if post else None
 
 
 class Llama(nn.Module):
@@ -183,7 +202,8 @@ SHAPE_FIELDS = ("vocab_size", "hidden_size", "intermediate_size",
                 "num_layers", "num_heads", "num_kv_heads", "head_dim",
                 "tie_word_embeddings", "attention_bias", "qk_norm",
                 "num_experts", "num_shared_experts", "kv_lora_rank",
-                "qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim")
+                "qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim",
+                "post_norms")
 
 
 def with_config(model: Llama, cfg: ModelConfig) -> Llama:
@@ -227,13 +247,53 @@ def _embed_rows(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _rope(cfg: ModelConfig, positions: torch.Tensor):
-    """cos/sin of `positions`, shared by every layer of one forward, at
-    the rotated width: head_dim, or MLA's qk_rope_head_dim."""
+def _is_global_layer(cfg: ModelConfig, l: int) -> bool:
+    """THE local/global predicate (JAX `_is_global_layer`): layer l is
+    global where (l + 1) % sliding_window_pattern == 0; pattern <= 0 means
+    every layer is local (a uniform sliding window). The window and the
+    per-layer rope both read it, so the two cannot disagree."""
+    p = cfg.sliding_window_pattern
+    return p > 0 and (l + 1) % p == 0
+
+
+def _attn_kwargs(cfg: ModelConfig, l: int) -> dict:
+    """Layer l's score modifiers for the attention ops (JAX
+    `_attn_kwargs`): `logit_cap` where the model caps its scores, `window`
+    where it has sliding layers (0 on a global layer); {} for every other
+    model, whose calls stay as they were."""
+    kw = {}
+    if cfg.attn_logit_softcapping > 0.0:
+        kw["logit_cap"] = cfg.attn_logit_softcapping
+    if cfg.sliding_window > 0:
+        kw["window"] = 0 if _is_global_layer(cfg, l) else cfg.sliding_window
+    return kw
+
+
+def _rope(cfg: ModelConfig, positions: torch.Tensor,
+          theta: Optional[float] = None, position_scale: float = 1.0):
+    """cos/sin of `positions` at the rotated width (head_dim, or MLA's
+    qk_rope_head_dim), at rope_theta unless `theta` is given, positions
+    divided by `position_scale`."""
     width = cfg.qk_rope_head_dim if cfg.is_mla else cfg.head_dim
-    return rope_cos_sin(positions, width, cfg.rope_theta,
+    return rope_cos_sin(positions, width,
+                        cfg.rope_theta if theta is None else theta,
                         llama3_scaling=cfg.rope_llama3_scaling,
-                        yarn_scaling=cfg.rope_yarn_scaling)
+                        yarn_scaling=cfg.rope_yarn_scaling,
+                        position_scale=position_scale)
+
+
+def _ropes(cfg: ModelConfig, positions: torch.Tensor) -> list:
+    """Each layer's cos/sin of one forward, computed once per distinct
+    rope and shared: one for every layer, or with Gemma-3's
+    `rope_local_theta` (JAX `_layer_rope`) local layers at
+    rope_local_theta and global layers at rope_theta over positions /
+    rope_scaling_factor."""
+    if cfg.rope_local_theta <= 0:
+        return [_rope(cfg, positions)] * cfg.num_layers
+    local = _rope(cfg, positions, cfg.rope_local_theta)
+    glob = _rope(cfg, positions, cfg.rope_theta, cfg.rope_scaling_factor)
+    return [glob if _is_global_layer(cfg, l) else local
+            for l in range(cfg.num_layers)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -265,8 +325,8 @@ def _qkv(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor, rope,
     """x [T, E] -> q [T, H, D], k/v [T, KV, D]: the projections, their
     LoRA deltas (`lora`: this layer's {target: (A, B)} stacks and the
     rows' `lora.apply.slot_rows` mask), their biases (`attention_bias`), the per-head norms
-    of q and k (`qk_norm`), then rope (cos, sin) on q and k, in the JAX
-    order."""
+    of q and k (`qk_norm`), then rope (cos, sin) on q and k, then q's
+    YaRN and query_pre_attn_scalar scales, in the JAX order."""
     t = x.shape[0]
     act = quant.shared_activations(x, layer.wq)
     q = quant.matmul(x, layer.wq, act)
@@ -284,7 +344,13 @@ def _qkv(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor, rope,
     v = v.view(t, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q, k = _norm(cfg, q, layer.q_norm), _norm(cfg, k, layer.k_norm)
-    return _yarn_softmax_scale(cfg, rotate(q, *rope)), rotate(k, *rope), v
+    q = _yarn_softmax_scale(cfg, rotate(q, *rope))
+    if cfg.query_pre_attn_scalar > 0:
+        # the ops scale scores by head_dim^-0.5; Gemma-2/3 want
+        # query_pre_attn_scalar^-0.5: q is pre-scaled by the ratio
+        q = q * _in_dtype((cfg.head_dim / cfg.query_pre_attn_scalar) ** 0.5,
+                          q.dtype)
+    return q, rotate(k, *rope), v
 
 
 def _qkv_mla(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor, rope):
@@ -388,10 +454,17 @@ def _mlp(cfg: ModelConfig, layer: LlamaLayer, x: torch.Tensor,
 
 
 def _logits(model: Llama, x: torch.Tensor) -> torch.Tensor:
+    """The head's logits, capped by final_logit_softcapping (Gemma-2)
+    before the engine samples or masks them, in the JAX order."""
     x = _norm(model.cfg, x, model.final_norm)
     if model.lm_head is None:  # tied head: x @ embed.T
-        return quant.tied_head(x, model.embed)
-    return quant.matmul(x, model.lm_head)
+        out = quant.tied_head(x, model.embed)
+    else:
+        out = quant.matmul(x, model.lm_head)
+    cap = model.cfg.final_logit_softcapping
+    if cap > 0.0:
+        out = cap * torch.tanh(out / cap)
+    return out
 
 
 def _row_slots(lora: Optional[lora_apply.Stacks], slots, n: int,
@@ -433,22 +506,32 @@ def _token_mask(cfg: ModelConfig, n: int, valid, device,
     return mask
 
 
+def _post(cfg: ModelConfig, w: Optional[torch.Tensor], y: torch.Tensor
+          ) -> torch.Tensor:
+    """Gemma-2/3's sandwich norm on a branch output (post_attn_norm,
+    post_mlp_norm; JAX `_post`); y itself for every other family."""
+    return _norm(cfg, y, w) if cfg.post_norms else y
+
+
 def _layer(cfg, layer, x, rope, attend, lora=None, l=0, rows=None,
            token_mask=None, allow_capacity=False):
-    """One decoder layer around `attend(q, k, v) -> o`, which also owns
-    the KV write (before or after attention, as the caller needs); with
-    `lora` (Stacks) the projections add the deltas of the rows' slots
-    (`rows`: their slot_rows mask). `token_mask` and `allow_capacity` go
-    to the MoE block (`_mlp`)."""
+    """Decoder layer l around `attend(q, k, v, **score_mods) -> o`, which
+    also owns the KV write (before or after attention, as the caller
+    needs) and takes the layer's `_attn_kwargs`; `rope` is the forward's
+    per-layer list (`_ropes`). With `lora` (Stacks) the projections add the
+    deltas of the rows' slots (`rows`: their slot_rows mask).
+    `token_mask` and `allow_capacity` go to the MoE block (`_mlp`)."""
     ll = None if lora is None else (lora.layer(l), rows)
     h = _norm(cfg, x, layer.attn_norm)
     if cfg.is_mla:  # the LoRA registry refuses MLA models, as JAX's does
-        q, k, v = _qkv_mla(cfg, layer, h, rope)
+        q, k, v = _qkv_mla(cfg, layer, h, rope[l])
     else:
-        q, k, v = _qkv(cfg, layer, h, rope, ll)
-    x = x + _attn_out(cfg, layer, attend(q, k, v), ll)
+        q, k, v = _qkv(cfg, layer, h, rope[l], ll)
+    o = attend(q, k, v, **_attn_kwargs(cfg, l))
+    x = x + _post(cfg, layer.post_attn_norm, _attn_out(cfg, layer, o, ll))
     h = _norm(cfg, x, layer.mlp_norm)
-    return x + _mlp(cfg, layer, h, token_mask, allow_capacity)
+    return x + _post(cfg, layer.post_mlp_norm,
+                     _mlp(cfg, layer, h, token_mask, allow_capacity))
 
 
 def prefill(model: Llama, tokens: torch.Tensor, seq_len: int,
@@ -461,7 +544,7 @@ def prefill(model: Llama, tokens: torch.Tensor, seq_len: int,
     into `pages` [S // ps] of every layer's pool."""
     cfg = model.cfg
     s = tokens.shape[0]
-    rope = _rope(cfg, torch.arange(s, device=tokens.device))
+    rope = _ropes(cfg, torch.arange(s, device=tokens.device))
     lens = torch.tensor([seq_len], dtype=torch.int32).to(tokens.device)
     slots = _row_slots(lora, adapter_slots, s, tokens.device)
     mask = _token_mask(cfg, s, seq_len, tokens.device)
@@ -470,8 +553,8 @@ def prefill(model: Llama, tokens: torch.Tensor, seq_len: int,
     for l, layer in enumerate(model.layers):
         kp, vp = k_pages[l], v_pages[l]
 
-        def attend(q, k, v):
-            o = attn.prefill(q, k, v, lens)
+        def attend(q, k, v, **mods):
+            o = attn.prefill(q, k, v, lens, **mods)
             att.write_kv_prefill(kp, vp, k, v, pages, page_size=page_size)
             return o
 
@@ -492,7 +575,7 @@ def prefill_chunk(model: Llama, tokens: torch.Tensor, start: int,
     the final chunk)."""
     cfg = model.cfg
     c = tokens.shape[0]
-    rope = _rope(cfg, start + torch.arange(c, device=tokens.device))
+    rope = _ropes(cfg, start + torch.arange(c, device=tokens.device))
     first = start // page_size
     chunk_pages = pages[first:first + c // page_size]
     slots = _row_slots(lora, adapter_slots, c, tokens.device)
@@ -502,11 +585,11 @@ def prefill_chunk(model: Llama, tokens: torch.Tensor, start: int,
     for l, layer in enumerate(model.layers):
         kp, vp = k_pages[l], v_pages[l]
 
-        def attend(q, k, v):
+        def attend(q, k, v, **mods):
             att.write_kv_prefill(kp, vp, k, v, chunk_pages,
                                  page_size=page_size)
             return attn.chunk(q, kp, vp, pages, start, page_size=page_size,
-                              num_kv_heads=cfg.cache_kv_heads)
+                              num_kv_heads=cfg.cache_kv_heads, **mods)
 
         x = _layer(cfg, layer, x, rope, attend, lora, l, rows, mask, True)
     return _logits(model, x[chunk_len - 1][None])[0]
@@ -524,7 +607,7 @@ def prefill_batch(model: Llama, tokens: torch.Tensor, seq_lens: torch.Tensor,
     [n] ([N, S // ps], trash 0 for padding); attention stays per lane."""
     cfg = model.cfg
     n, s = tokens.shape
-    rope = _rope(cfg, torch.arange(s, device=tokens.device).repeat(n))
+    rope = _ropes(cfg, torch.arange(s, device=tokens.device).repeat(n))
     x = _embed_rows(model, tokens.reshape(-1))
     flat_pages = pages.reshape(-1)
     slots = None
@@ -537,10 +620,10 @@ def prefill_batch(model: Llama, tokens: torch.Tensor, seq_lens: torch.Tensor,
     for l, layer in enumerate(model.layers):
         kp, vp = k_pages[l], v_pages[l]
 
-        def attend(q, k, v):
+        def attend(q, k, v, **mods):
             o = attn.prefill(q.view(n, s, *q.shape[1:]),
                              k.view(n, s, *k.shape[1:]),
-                             v.view(n, s, *v.shape[1:]), seq_lens)
+                             v.view(n, s, *v.shape[1:]), seq_lens, **mods)
             att.write_kv_prefill(kp, vp, k, v, flat_pages,
                                  page_size=page_size)
             return o.reshape(n * s, *o.shape[2:])
@@ -561,19 +644,19 @@ def decode_step(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
     block_tables [B, Pmax], context_lens [B] INCLUDING the current token
     -> logits [B, V]. The token's KV is written before attention."""
     cfg = model.cfg
-    rope = _rope(cfg, positions)
+    rope = _ropes(cfg, positions)
     slots = _row_slots(lora, adapter_slots, tokens.shape[0], tokens.device)
     x = _embed_rows(model, tokens)
     rows = _slot_rows(lora, slots, model.dtype)
     for l, layer in enumerate(model.layers):
         kp, vp = k_pages[l], v_pages[l]
 
-        def attend(q, k, v):
+        def attend(q, k, v, **mods):
             att.write_kv_token(kp, vp, k, v, block_tables, positions,
                                page_size=page_size)
             return attn.decode(q, kp, vp, block_tables, context_lens,
                                page_size=page_size,
-                               num_kv_heads=cfg.cache_kv_heads)
+                               num_kv_heads=cfg.cache_kv_heads, **mods)
 
         x = _layer(cfg, layer, x, rope, attend, lora, l, rows)
     return _logits(model, x)
@@ -601,8 +684,8 @@ def mixed_step(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
     cfg = model.cfg
     b, c = tokens.shape[0], chunk_tokens.shape[0]
     dev = tokens.device
-    rope = _rope(cfg, torch.cat([positions.to(dev).long(),
-                                 chunk_start + torch.arange(c, device=dev)]))
+    rope = _ropes(cfg, torch.cat([positions.to(dev).long(),
+                                  chunk_start + torch.arange(c, device=dev)]))
     first = chunk_start // page_size
     write_pages = chunk_pages[first:first + c // page_size]
     x = _embed_rows(model, torch.cat([tokens.long(), chunk_tokens.long()]))
@@ -615,14 +698,15 @@ def mixed_step(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
     for l, layer in enumerate(model.layers):
         kp, vp = k_pages[l], v_pages[l]
 
-        def attend(q, k, v):
+        def attend(q, k, v, **mods):
             att.write_kv_token(kp, vp, k[:b], v[:b], block_tables, positions,
                                page_size=page_size)
             att.write_kv_prefill(kp, vp, k[b:], v[b:], write_pages,
                                  page_size=page_size)
             return attn.ragged(q, kp, vp, block_tables, context_lens,
                                chunk_pages, chunk_start, page_size=page_size,
-                               num_kv_heads=cfg.cache_kv_heads, num_decode=b)
+                               num_kv_heads=cfg.cache_kv_heads, num_decode=b,
+                               **mods)
 
         x = _layer(cfg, layer, x, rope, attend, lora, l, rows, mask)
     logits = _logits(model, torch.cat([x[:b], x[b + chunk_len - 1][None]]))
@@ -668,7 +752,7 @@ def decode_verify(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
     cfg = model.cfg
     b, k1 = tokens.shape
     flat_pos, flat_tables = _verify_rows(positions, block_tables, room, k1)
-    rope = _rope(cfg, flat_pos)
+    rope = _ropes(cfg, flat_pos)
     slots = None
     if lora is not None:  # each window repeats its sequence's slot
         slots = _row_slots(lora, adapter_slots, b,
@@ -678,12 +762,12 @@ def decode_verify(model: Llama, tokens: torch.Tensor, positions: torch.Tensor,
     for l, layer in enumerate(model.layers):
         kp, vp = k_pages[l], v_pages[l]
 
-        def attend(q, k, v):
+        def attend(q, k, v, **mods):
             att.write_kv_token(kp, vp, k, v, flat_tables, flat_pos,
                                page_size=page_size)
             o = attn.verify(q.view(b, k1, *q.shape[1:]), kp, vp,
                             block_tables, positions, page_size=page_size,
-                            num_kv_heads=cfg.cache_kv_heads)
+                            num_kv_heads=cfg.cache_kv_heads, **mods)
             return o.reshape(b * k1, *o.shape[2:])
 
         x = _layer(cfg, layer, x, rope, attend, lora, l, rows)
@@ -711,8 +795,8 @@ def mixed_verify_step(model: Llama, tokens: torch.Tensor,
     n, c = b * k1, chunk_tokens.shape[0]
     dev = tokens.device
     flat_pos, flat_tables = _verify_rows(positions, block_tables, room, k1)
-    rope = _rope(cfg, torch.cat([flat_pos,
-                                 chunk_start + torch.arange(c, device=dev)]))
+    rope = _ropes(cfg, torch.cat([flat_pos,
+                                  chunk_start + torch.arange(c, device=dev)]))
     first = chunk_start // page_size
     write_pages = chunk_pages[first:first + c // page_size]
     x = _embed_rows(model, torch.cat([tokens.reshape(n).long(),
@@ -727,7 +811,7 @@ def mixed_verify_step(model: Llama, tokens: torch.Tensor,
     for l, layer in enumerate(model.layers):
         kp, vp = k_pages[l], v_pages[l]
 
-        def attend(q, k, v):
+        def attend(q, k, v, **mods):
             att.write_kv_token(kp, vp, k[:n], v[:n], flat_tables, flat_pos,
                                page_size=page_size)
             att.write_kv_prefill(kp, vp, k[n:], v[n:], write_pages,
@@ -735,7 +819,7 @@ def mixed_verify_step(model: Llama, tokens: torch.Tensor,
             return attn.ragged_verify(
                 q, kp, vp, block_tables, positions, chunk_pages, chunk_start,
                 page_size=page_size, num_kv_heads=cfg.cache_kv_heads,
-                num_verify=b, verify_width=k1)
+                num_verify=b, verify_width=k1, **mods)
 
         x = _layer(cfg, layer, x, rope, attend, lora, l, rows, mask)
     logits = _logits(model, torch.cat([x[:n], x[n + chunk_len - 1][None]]))

@@ -7,7 +7,8 @@ weight on a leading layer axis and keeps heads as axes: embed [V, E],
 wq [L, E, H, D], wk/wv [L, E, KV, D], wo [L, H, D, E], w_gate/w_up
 [L, E, F], w_down [L, F, E], attn_norm/mlp_norm [L, E], final_norm [E],
 lm_head [E, V] (untied models); bq [L, H, D] and bk/bv [L, KV, D]
-(`attention_bias`), q_norm/k_norm [L, D] (`qk_norm`); for X experts
+(`attention_bias`), q_norm/k_norm [L, D] (`qk_norm`), post_attn_norm and
+post_mlp_norm [L, E] (`post_norms`: Gemma-2/3's sandwich norms); for X experts
 (`num_experts`) router [L, E, X], moe_w_gate/moe_w_up [L, X, E, F] and
 moe_w_down [L, X, F, E], with w_gate/w_up/w_down only for shared experts
 at width num_shared_experts * F; an MLA model (`kv_lora_rank` R, nope and
@@ -52,6 +53,7 @@ _MLA_NAMES = ("attn_norm", "wq_mla", "w_kv_a", "kv_a_norm", "w_uk", "w_uv",
 _MLP_NAMES = ("w_gate", "w_up", "w_down")  # dense, or shared experts
 _BIAS_NAMES = ("bq", "bk", "bv")  # attention_bias
 _QK_NORM_NAMES = ("q_norm", "k_norm")  # qk_norm
+_POST_NORM_NAMES = ("post_attn_norm", "post_mlp_norm")  # post_norms
 _MOE_NAMES = ("router",) + quant.EXPERT_NAMES  # num_experts
 
 
@@ -61,7 +63,8 @@ def _layer_names(cfg: ModelConfig) -> Tuple[str, ...]:
     return (attn + (_MLP_NAMES if dense_mlp else ())
             + (_BIAS_NAMES if cfg.attention_bias else ())
             + (_QK_NORM_NAMES if cfg.qk_norm else ())
-            + (_MOE_NAMES if cfg.is_moe else ()))
+            + (_MOE_NAMES if cfg.is_moe else ())
+            + (_POST_NORM_NAMES if cfg.post_norms else ()))
 
 
 # above this many parameters a quantized model with no checkpoint is drawn
@@ -106,6 +109,9 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
         p["wv"] = w((l, e, kv, d))
         p["wo"] = w((l, h, d, e))
     p["mlp_norm"] = ((l, e), nk, 0.0)
+    if cfg.post_norms:
+        p["post_attn_norm"] = ((l, e), nk, 0.0)
+        p["post_mlp_norm"] = ((l, e), nk, 0.0)
     if not cfg.tie_word_embeddings:
         p["lm_head"] = w((e, cfg.vocab_size), 0.02)
     if cfg.is_moe:
@@ -331,6 +337,10 @@ def load_hf_safetensors(cfg: ModelConfig, files: Sequence[str],
                         dtype: torch.dtype = torch.bfloat16) -> Llama:
     """HF-layout tensors (`model.layers.{i}.self_attn.q_proj.weight`, ...)
     into the port's layout, the JAX loader's `load_hf_safetensors`:
+    Gemma-2/3's four norms (`input_layernorm`, then, where HF's
+    `post_attention_layernorm` is really post-attention,
+    `pre_feedforward_layernorm` as the pre-MLP norm and
+    `post_{attention,feedforward}_layernorm` as the branch outputs' norms),
     DeepSeek-V2's MLA projections (`q_proj` and `kv_a_proj_with_mqa` with
     their interleaved rope lanes de-interleaved for the half-split rope,
     `kv_a_layernorm`, `kv_b_proj` split per head into W_UK and W_UV,
@@ -344,10 +354,6 @@ def load_hf_safetensors(cfg: ModelConfig, files: Sequence[str],
     cast to `dtype` and transposed from HF's [out, in] to the port's
     [in, out] on `device` (vectors as they are); an expert stack keeps
     each expert's [out, in] as its storage (`quant.operand_layout`)."""
-    if cfg.post_norms:
-        raise NotImplementedError(
-            "checkpoint layouts with post_norms (Gemma-2/3) are not ported "
-            "to dynamo_tpu_torch yet")
     h, kv, d, f = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                    cfg.intermediate_size)
     model = Llama(cfg, "meta", dtype)
@@ -374,8 +380,16 @@ def load_hf_safetensors(cfg: ModelConfig, files: Sequence[str],
         for i, layer in enumerate(model.layers):
             pre = f"model.layers.{i}."
             put(layer, "attn_norm", get(pre + "input_layernorm.weight"))
-            put(layer, "mlp_norm",
-                get(pre + "post_attention_layernorm.weight"))
+            if cfg.post_norms:  # Gemma-2/3: the sandwich norms
+                put(layer, "mlp_norm",
+                    get(pre + "pre_feedforward_layernorm.weight"))
+                put(layer, "post_attn_norm",
+                    get(pre + "post_attention_layernorm.weight"))
+                put(layer, "post_mlp_norm",
+                    get(pre + "post_feedforward_layernorm.weight"))
+            else:  # llama's post_attention_layernorm is the pre-MLP norm
+                put(layer, "mlp_norm",
+                    get(pre + "post_attention_layernorm.weight"))
             if cfg.is_mla:
                 _put_mla(cfg, layer, pre, get, put)
             elif fused_qkv:  # Phi-3: rows q, then k, then v

@@ -27,7 +27,14 @@ functions returned new arrays.
 The plain versions (`*_ref`) compute what the TPU kernels compute: scale
 1/sqrt(D) applied to q in f32, K/V read (or dequantized) into f32, f32
 softmax and products, the kernels' masks, and exact zeros for a row that
-sees no valid token (decode ctx 0, prefill seq_len 0). The dispatch
+sees no valid token (decode ctx 0, prefill seq_len 0). Every function
+also takes Gemma-2/3's two score modifiers, as the JAX package's XLA
+references do (`dynamo_tpu/ops/attention.py`, `window=` and
+`logit_cap=`): `window` > 0 lets a query at position p see key k only
+where p - window < k (the window counts the query's own position; 0 is
+no lower bound, a global layer's), and `logit_cap` > 0 caps each scaled
+score s to cap * tanh(s / cap) before the mask (0 is no cap). Both are
+host numbers, one per layer. The dispatch
 functions send a CPU tensor to the plain version and a CUDA tensor to the
 hand-written kernel in `dynamo_tpu_torch.ops.cuda_attention`; there is no
 fallback between them.
@@ -144,11 +151,14 @@ def write_kv_prefill(k_pages, v_pages, k_new, v_new, pages, *,
 
 
 def _attend(q32: torch.Tensor, k32: torch.Tensor, v32: torch.Tensor,
-            mask: torch.Tensor) -> torch.Tensor:
+            mask: torch.Tensor, logit_cap: float = 0.0) -> torch.Tensor:
     """q32 [..., KV, G, Q, D] (already scaled), k32/v32 [..., KV, S, D],
     mask broadcastable to [..., KV, G, Q, S] -> f32 [..., KV, G, Q, D] with
-    all-masked rows zero."""
+    all-masked rows zero; scores capped to cap * tanh(s / cap) first where
+    logit_cap > 0."""
     scores = torch.einsum("...kgqd,...ksd->...kgqs", q32, k32)
+    if logit_cap > 0:
+        scores = logit_cap * torch.tanh(scores / logit_cap)
     scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("...kgqs,...ksd->...kgqd", probs, v32)
@@ -156,26 +166,39 @@ def _attend(q32: torch.Tensor, k32: torch.Tensor, v32: torch.Tensor,
     return torch.where(seen, out, torch.zeros((), device=out.device))
 
 
+def _in_window(kpos: torch.Tensor, qpos: torch.Tensor, window: int
+               ) -> torch.Tensor:
+    """Keys kpos a query at qpos sees under a sliding window (broadcast):
+    qpos - window < kpos, or every key for window 0."""
+    if window > 0:
+        return kpos > qpos - window
+    return torch.ones((), dtype=torch.bool, device=kpos.device)
+
+
 def paged_attention_decode_ref(q, k_pages, v_pages, block_table, context_lens,
                                *, page_size: int,
-                               num_kv_heads: Optional[int] = None
+                               num_kv_heads: Optional[int] = None,
+                               window: int = 0, logit_cap: float = 0.0
                                ) -> torch.Tensor:
     """Plain paged decode: q [B, H, D] over the pages of each row's block
-    table, mask tok < ctx -> [B, H, D]."""
+    table, mask tok < ctx (and ctx - 1 - window < tok) -> [B, H, D]."""
     b, h, d = q.shape
     n_kv = pool_kv_heads(k_pages, d, num_kv_heads)
     k = _paged_kv(k_pages, block_table, n_kv, d)  # [B, KV, S, D]
     v = _paged_kv(v_pages, block_table, n_kv, d)
     q32 = (q.float() * d ** -0.5).reshape(b, n_kv, h // n_kv, 1, d)
-    span = torch.arange(k.shape[2], device=q.device)
-    mask = span[None, :] < context_lens.long()[:, None]  # [B, S]
-    out = _attend(q32, k, v, mask[:, None, None, None, :])
+    span = torch.arange(k.shape[2], device=q.device)[None, :]
+    ctx = context_lens.long()[:, None]
+    mask = (span < ctx) & _in_window(span, ctx - 1, window)  # [B, S]
+    out = _attend(q32, k, v, mask[:, None, None, None, :], logit_cap)
     return out.reshape(b, h, d).to(q.dtype)
 
 
-def prefill_attention_ref(q, k, v, seq_lens: SeqLens) -> torch.Tensor:
+def prefill_attention_ref(q, k, v, seq_lens: SeqLens, *, window: int = 0,
+                          logit_cap: float = 0.0) -> torch.Tensor:
     """Plain causal prefill: q [N, S, H, D], k/v [N, S, KV, D], seq_lens [N]
-    (or q [S, H, D] with an int seq_len), mask ki <= qi and ki < seq_len."""
+    (or q [S, H, D] with an int seq_len), mask ki <= qi and ki < seq_len
+    (and qi - window < ki)."""
     single = q.dim() == 3
     if single:
         q, k, v = q[None], k[None], v[None]
@@ -188,18 +211,22 @@ def prefill_attention_ref(q, k, v, seq_lens: SeqLens) -> torch.Tensor:
     v32 = v.float().permute(0, 2, 1, 3)
     qi = torch.arange(s, device=q.device)[:, None]
     ki = torch.arange(s, device=q.device)[None, :]
-    mask = (ki <= qi)[None] & (ki[None] < lens[:, None, None])  # [N, S, S]
-    out = _attend(q32, k32, v32, mask[:, None, None])  # [N, KV, G, S, D]
+    mask = ((ki <= qi) & _in_window(ki, qi, window))[None] \
+        & (ki[None] < lens[:, None, None])  # [N, S, S]
+    out = _attend(q32, k32, v32, mask[:, None, None],
+                  logit_cap)  # [N, KV, G, S, D]
     out = out.permute(0, 3, 1, 2, 4).reshape(n, s, h, d).to(q.dtype)
     return out[0] if single else out
 
 
 def chunk_attention_ref(q, k_pages, v_pages, pages, start: int, *,
-                        page_size: int, num_kv_heads: Optional[int] = None
+                        page_size: int, num_kv_heads: Optional[int] = None,
+                        window: int = 0, logit_cap: float = 0.0
                         ) -> torch.Tensor:
     """Plain chunked-prefill attention: C queries at absolute positions
     start..start+C-1 over the sequence's pages [W] (prefix plus the chunk,
-    already written), mask tok <= start + i -> [C, H, D]."""
+    already written), mask tok <= start + i (and start + i - window < tok)
+    -> [C, H, D]."""
     c, h, d = q.shape
     n_kv = pool_kv_heads(k_pages, d, num_kv_heads)
     k = _paged_kv(k_pages, pages, n_kv, d)  # [KV, S, D]
@@ -208,20 +235,23 @@ def chunk_attention_ref(q, k_pages, v_pages, pages, start: int, *,
     q32 = q32.permute(1, 2, 0, 3)  # [KV, G, C, D]
     qpos = int(start) + torch.arange(c, device=q.device)[:, None]
     kpos = torch.arange(k.shape[1], device=q.device)[None, :]
-    out = _attend(q32, k, v, (kpos <= qpos)[None, None])
+    mask = (kpos <= qpos) & _in_window(kpos, qpos, window)
+    out = _attend(q32, k, v, mask[None, None], logit_cap)
     return out.permute(2, 0, 1, 3).reshape(c, h, d).to(q.dtype)
 
 
 def ragged_paged_attention_ref(q, k_pages, v_pages, tables, kv_lens,
                                q_starts, *, page_size: int,
                                num_kv_heads: Optional[int], num_decode: int,
-                               decode_q: int = 1) -> torch.Tensor:
+                               decode_q: int = 1, window: int = 0,
+                               logit_cap: float = 0.0) -> torch.Tensor:
     """Plain ragged attention, the TPU ragged kernel's contract read from
     the descriptors: q [num_decode*decode_q + C, H, D] holds num_decode
     rows of decode_q queries, then one chunk of C; row r (r = num_decode
     for the chunk) reads pages tables[r] [W], and its query j sits at
     q_starts[r] + j and sees key tok iff tok <= q_starts[r] + j and
-    tok < kv_lens[r] -> [num_decode*decode_q + C, H, D]."""
+    tok < kv_lens[r] (and q_starts[r] + j - window < tok)
+    -> [num_decode*decode_q + C, H, D]."""
     total, h, d = q.shape
     nd = num_decode * decode_q
     c = total - nd
@@ -236,10 +266,11 @@ def ragged_paged_attention_ref(q, k_pages, v_pages, tables, kv_lens,
         # qr [N, Q, H, D] -> [N, Q, H, D]; qpos [N, Q]; kv_len [N]
         n, nq = qr.shape[:2]
         q32 = (qr.float() * d ** -0.5).reshape(n, nq, n_kv, g, d)
-        mask = ((tok[None, None] <= qpos[:, :, None])
-                & (tok[None, None] < kv_len[:, None, None]))  # [N, Q, S]
+        kpos, at = tok[None, None], qpos[:, :, None]
+        mask = ((kpos <= at) & _in_window(kpos, at, window)
+                & (kpos < kv_len[:, None, None]))  # [N, Q, S]
         out = _attend(q32.permute(0, 2, 3, 1, 4), kr, vr,
-                      mask[:, None, None])  # [N, KV, G, Q, D]
+                      mask[:, None, None], logit_cap)  # [N, KV, G, Q, D]
         return out.permute(0, 3, 1, 2, 4).reshape(n, nq, h, d)
 
     j = torch.arange(decode_q, device=q.device)
@@ -277,18 +308,21 @@ def ragged_mixed_attention_ref(q, k_pages, v_pages, block_tables,
                                context_lens, p_pages, p_start: int, *,
                                page_size: int,
                                num_kv_heads: Optional[int] = None,
-                               num_decode: int) -> torch.Tensor:
+                               num_decode: int, window: int = 0,
+                               logit_cap: float = 0.0) -> torch.Tensor:
     """Plain mixed-batch attention: q [B + C, H, D], B decode rows over
     their block tables then one chunk over its page list."""
     desc = ragged_descriptors(block_tables, context_lens, p_pages, p_start,
                               q.shape[0] - num_decode)
     return ragged_paged_attention_ref(
         q, k_pages, v_pages, *desc, page_size=page_size,
-        num_kv_heads=num_kv_heads, num_decode=num_decode)
+        num_kv_heads=num_kv_heads, num_decode=num_decode, window=window,
+        logit_cap=logit_cap)
 
 
 def verify_attention_ref(q, k_pages, v_pages, block_table, positions, *,
-                         page_size: int, num_kv_heads: Optional[int] = None
+                         page_size: int, num_kv_heads: Optional[int] = None,
+                         window: int = 0, logit_cap: float = 0.0
                          ) -> torch.Tensor:
     """Plain speculative-verify attention (JAX `verify_attention`): q
     [B, K1, H, D], the current token and K drafts of each sequence, whose
@@ -303,9 +337,11 @@ def verify_attention_ref(q, k_pages, v_pages, block_table, positions, *,
     q32 = (q.float() * d ** -0.5).reshape(b, k1, n_kv, h // n_kv, d)
     qpos = (positions.long()[:, None]
             + torch.arange(k1, device=q.device)[None, :])  # [B, K1]
-    spos = torch.arange(k.shape[2], device=q.device)
-    mask = spos[None, None, :] <= qpos[:, :, None]  # [B, K1, S]
-    out = _attend(q32.permute(0, 2, 3, 1, 4), k, v, mask[:, None, None])
+    spos = torch.arange(k.shape[2], device=q.device)[None, None, :]
+    at = qpos[:, :, None]
+    mask = (spos <= at) & _in_window(spos, at, window)  # [B, K1, S]
+    out = _attend(q32.permute(0, 2, 3, 1, 4), k, v, mask[:, None, None],
+                  logit_cap)
     return out.permute(0, 3, 1, 2, 4).reshape(b, k1, h, d).to(q.dtype)
 
 
@@ -335,7 +371,8 @@ def ragged_verify_descriptors(block_tables, positions, k1: int,
 def ragged_verify_attention_ref(q, k_pages, v_pages, block_tables, positions,
                                 p_pages, p_start: int, *, page_size: int,
                                 num_kv_heads: Optional[int] = None,
-                                num_verify: int, verify_width: int
+                                num_verify: int, verify_width: int,
+                                window: int = 0, logit_cap: float = 0.0
                                 ) -> torch.Tensor:
     """Plain mixed verify attention: q [B*K1 + C, H, D], B verify windows
     of K1 queries over their block tables, then one chunk over its page
@@ -346,25 +383,25 @@ def ragged_verify_attention_ref(q, k_pages, v_pages, block_tables, positions,
     return ragged_paged_attention_ref(
         q, k_pages, v_pages, *desc, page_size=page_size,
         num_kv_heads=num_kv_heads, num_decode=num_verify,
-        decode_q=verify_width)
+        decode_q=verify_width, window=window, logit_cap=logit_cap)
 
 
 # ----------------------------------------------------------- dispatch --
 
 
 def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
-                           page_size: int, num_kv_heads: Optional[int] = None
+                           page_size: int, num_kv_heads: Optional[int] = None,
+                           window: int = 0, logit_cap: float = 0.0
                            ) -> torch.Tensor:
-    if q.is_cuda:
-        return cuda_attention.paged_attention_decode(
-            q, k_pages, v_pages, block_table, context_lens,
-            page_size=page_size, num_kv_heads=num_kv_heads)
-    return paged_attention_decode_ref(q, k_pages, v_pages, block_table,
-                                      context_lens, page_size=page_size,
-                                      num_kv_heads=num_kv_heads)
+    fn = (cuda_attention.paged_attention_decode if q.is_cuda
+          else paged_attention_decode_ref)
+    return fn(q, k_pages, v_pages, block_table, context_lens,
+              page_size=page_size, num_kv_heads=num_kv_heads, window=window,
+              logit_cap=logit_cap)
 
 
-def prefill_attention(q, k, v, seq_lens: SeqLens) -> torch.Tensor:
+def prefill_attention(q, k, v, seq_lens: SeqLens, *, window: int = 0,
+                      logit_cap: float = 0.0) -> torch.Tensor:
     if q.is_cuda:
         single = q.dim() == 3
         lens = seq_lens
@@ -373,26 +410,28 @@ def prefill_attention(q, k, v, seq_lens: SeqLens) -> torch.Tensor:
         lens = lens.to(device=q.device, dtype=torch.int32).reshape(-1)
         if single:
             return cuda_attention.prefill_attention(
-                q[None], k[None], v[None], lens)[0]
-        return cuda_attention.prefill_attention(q, k, v, lens)
-    return prefill_attention_ref(q, k, v, seq_lens)
+                q[None], k[None], v[None], lens, window=window,
+                logit_cap=logit_cap)[0]
+        return cuda_attention.prefill_attention(q, k, v, lens, window=window,
+                                                logit_cap=logit_cap)
+    return prefill_attention_ref(q, k, v, seq_lens, window=window,
+                                 logit_cap=logit_cap)
 
 
 def chunk_attention(q, k_pages, v_pages, pages, start: int, *,
-                    page_size: int, num_kv_heads: Optional[int] = None
-                    ) -> torch.Tensor:
-    if q.is_cuda:
-        return cuda_attention.chunk_prefill_attention(
-            q, k_pages, v_pages, pages, start, page_size=page_size,
-            num_kv_heads=num_kv_heads)
-    return chunk_attention_ref(q, k_pages, v_pages, pages, start,
-                               page_size=page_size, num_kv_heads=num_kv_heads)
+                    page_size: int, num_kv_heads: Optional[int] = None,
+                    window: int = 0, logit_cap: float = 0.0) -> torch.Tensor:
+    fn = (cuda_attention.chunk_prefill_attention if q.is_cuda
+          else chunk_attention_ref)
+    return fn(q, k_pages, v_pages, pages, start, page_size=page_size,
+              num_kv_heads=num_kv_heads, window=window, logit_cap=logit_cap)
 
 
 def ragged_mixed_attention(q, k_pages, v_pages, block_tables, context_lens,
                            p_pages, p_start: int, *, page_size: int,
                            num_kv_heads: Optional[int] = None,
-                           num_decode: int) -> torch.Tensor:
+                           num_decode: int, window: int = 0,
+                           logit_cap: float = 0.0) -> torch.Tensor:
     """Mixed-batch attention (the engine's mixed step): q [B + C, H, D],
     B decode rows then one C-token chunk at p_start, in one ragged
     kernel launch on the card."""
@@ -401,11 +440,13 @@ def ragged_mixed_attention(q, k_pages, v_pages, block_tables, context_lens,
     ragged = (cuda_attention.ragged_paged_attention if q.is_cuda
               else ragged_paged_attention_ref)
     return ragged(q, k_pages, v_pages, *desc, page_size=page_size,
-                  num_kv_heads=num_kv_heads, num_decode=num_decode)
+                  num_kv_heads=num_kv_heads, num_decode=num_decode,
+                  window=window, logit_cap=logit_cap)
 
 
 def verify_attention(q, k_pages, v_pages, block_table, positions, *,
-                     page_size: int, num_kv_heads: Optional[int] = None
+                     page_size: int, num_kv_heads: Optional[int] = None,
+                     window: int = 0, logit_cap: float = 0.0
                      ) -> torch.Tensor:
     """Speculative-verify attention, q [B, K1, H, D] -> [B, K1, H, D]: on
     the card the ragged kernel with B rows of K1 queries and no chunk
@@ -414,20 +455,22 @@ def verify_attention(q, k_pages, v_pages, block_table, positions, *,
     if not q.is_cuda:
         return verify_attention_ref(q, k_pages, v_pages, block_table,
                                     positions, page_size=page_size,
-                                    num_kv_heads=num_kv_heads)
+                                    num_kv_heads=num_kv_heads, window=window,
+                                    logit_cap=logit_cap)
     b, k1, h, d = q.shape
     desc = ragged_verify_descriptors(block_table, positions, k1)
     out = cuda_attention.ragged_paged_attention(
         q.reshape(b * k1, h, d), k_pages, v_pages, *desc,
         page_size=page_size, num_kv_heads=num_kv_heads, num_decode=b,
-        decode_q=k1)
+        decode_q=k1, window=window, logit_cap=logit_cap)
     return out.view(b, k1, h, d)
 
 
 def ragged_verify_attention(q, k_pages, v_pages, block_tables, positions,
                             p_pages, p_start: int, *, page_size: int,
                             num_kv_heads: Optional[int] = None,
-                            num_verify: int, verify_width: int
+                            num_verify: int, verify_width: int,
+                            window: int = 0, logit_cap: float = 0.0
                             ) -> torch.Tensor:
     """Mixed verify attention (the engine's mixed speculative step): q
     [B*K1 + C, H, D], B verify windows of K1 queries (window b's query j at
@@ -440,7 +483,7 @@ def ragged_verify_attention(q, k_pages, v_pages, block_tables, positions,
               else ragged_paged_attention_ref)
     return ragged(q, k_pages, v_pages, *desc, page_size=page_size,
                   num_kv_heads=num_kv_heads, num_decode=num_verify,
-                  decode_q=verify_width)
+                  decode_q=verify_width, window=window, logit_cap=logit_cap)
 
 
 class AttentionFns(NamedTuple):

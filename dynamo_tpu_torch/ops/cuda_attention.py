@@ -28,7 +28,9 @@ same span side by side), merged by `merge_latent_kernel`. The three
 pool-reading kernels (decode, chunk, ragged) each have a bf16 and an
 int8 entry point, the latter for the packed rows of
 `kv_cache_dtype="int8"` pools; their wrappers take either pool and count
-the int8 launches under their own `*_int8` names.
+the int8 launches under their own `*_int8` names. Below LATENT_DIM every
+kernel also takes one layer's sliding window and tanh logit cap
+(Gemma-2/3; `score_mods`).
 
 Build: the first call compiles every `csrc/*.cu` with
 `nvcc -gencode arch=compute_90a,code=sm_90a` (one nvcc per source, started
@@ -49,10 +51,12 @@ variant in `VARIANT_LAUNCHES` (`decode[head_dim=64]`,
 launch counts under its row shape and under its head_dim), so a run can
 show which shapes of a kernel its main path reached: the ragged kernel's
 verify windows (decode_q = K + 1, with a chunk or, C = 0, without one), a
-draft model's head_dim, Gemma's head_dim 256. Under a CUDA graph capture a
-wrapper call records its kernel instead of launching it: `counting_capture`
-takes such calls back out of both counts and keeps them with the graph,
-and `count_replay` adds them at every replay, so the counts stay launches.
+draft model's head_dim, Gemma's head_dim 256, and the launches of a layer
+with a sliding window (`decode[window]`) or a logit cap (`decode[cap]`).
+Under a CUDA graph capture a wrapper call records its kernel instead of
+launching it: `counting_capture` takes such calls back out of both counts
+and keeps them with the graph, and `count_replay` adds them at every
+replay, so the counts stay launches.
 """
 
 from __future__ import annotations
@@ -222,20 +226,23 @@ def build() -> ctypes.CDLL:
             build_log = log.read_text() if log.exists() else ""
         lib = ctypes.CDLL(str(so))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # each attention entry point's scale is followed by the layer's
+        # sliding window (int) and logit cap (float)
         lib.dtt_paged_decode.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
-                                         i, i, i, i, f, p]
+                                         i, i, i, i, f, i, f, p]
         lib.dtt_prefill.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f,
-                                    p, p]
+                                    i, f, p, p]
         lib.dtt_chunk.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f,
-                                  p, p]
+                                  i, f, p, p]
         lib.dtt_ragged.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                   i, i, i, i, i, i, f, p]
+                                   i, i, i, i, i, i, f, i, f, p]
         lib.dtt_paged_decode_int8.argtypes = [p, p, p, p, p, p, p, p, i, i,
-                                              i, i, i, i, i, i, i, f, p]
+                                              i, i, i, i, i, i, i, f, i, f, p]
         lib.dtt_chunk_int8.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                       i, i, f, p, p]
+                                       i, i, f, i, f, p, p]
         lib.dtt_ragged_int8.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
-                                        i, i, i, i, i, i, i, i, i, f, p]
+                                        i, i, i, i, i, i, i, i, i, f, i, f,
+                                        p]
         # the grammar kernel (csrc/json_mask.cu; ops/cuda_guide.py)
         lib.dtt_json_mask.argtypes = [p, i, p, p, p, p, p, p, p, i, i, p]
         lib.dtt_json_advance.argtypes = [p, p, p, p, p, p, p, i, i, p]
@@ -335,6 +342,23 @@ def _check_pools(k_pages, v_pages, page_size: int, head_dim: int,
                          f"{n_kv} heads of {head_dim} values and "
                          f"their scales in 16-byte aligned rows")
     return n_kv, width, True
+
+
+def score_mods(window, logit_cap, head_dim: int) -> Tuple[int, float,
+                                                         List[str]]:
+    """(window, cap, variants) of a launch's score modifiers: Gemma-2/3's
+    sliding window (a query at p sees key k only where p - window < k; 0
+    none) and tanh logit cap (0 none), one per layer, checked, with the
+    variants they count under (`window`, `cap`). The tensor-core tile
+    takes both; the latent tile (LATENT_DIM) neither, since no MLA model
+    has them."""
+    window, cap = int(window), float(logit_cap)
+    if window < 0 or not cap >= 0.0:
+        raise ValueError(f"window {window} and logit_cap {cap} must be >= 0")
+    if head_dim == LATENT_DIM and (window or cap):
+        raise ValueError(f"the latent tile (head_dim {LATENT_DIM}) takes no "
+                         f"sliding window or logit cap")
+    return window, cap, ["window"] * bool(window) + ["cap"] * bool(cap)
 
 
 def tile_positions(group: int, head_dim: int) -> int:
@@ -625,13 +649,14 @@ def _split_scratch(n_splits: int, nd: int, h: int, d: int, extra: int,
 
 
 def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
-                           page_size: int, num_kv_heads: Optional[int] = None
+                           page_size: int, num_kv_heads: Optional[int] = None,
+                           window: int = 0, logit_cap: float = 0.0
                            ) -> torch.Tensor:
     """q [B, H, D] bf16; pools [P, ps, W] bf16 (W = KV*D) or int8 packed
     (with num_kv_heads); block_table [B, Pmax] int32; context_lens [B]
     int32 (incl. the current token) -> [B, H, D]. Each row is split along
     its keys (decode_plan, from B, Pmax, the group and the SM count) and
-    merged."""
+    merged. `window` and `logit_cap` as in score_mods."""
     dev = q.device
     _expect(q, "q", torch.bfloat16, 3, dev)
     _expect(block_table, "block_table", torch.int32, 2, dev)
@@ -641,6 +666,7 @@ def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
                                      num_kv_heads, dev)
     group = _gqa_group(h, n_kv)
     check_decode_rows(1, group, d)
+    window, cap, mods = score_mods(window, logit_cap, d)
     if block_table.shape[0] != b or context_lens.shape[0] != b:
         raise ValueError("block_table / context_lens batch does not match q")
     pmax = block_table.shape[1]
@@ -657,14 +683,14 @@ def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
     args = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_table),
             _ptr(context_lens), _ptr(out), part_o, part_ml, b, h, n_kv, d,
             page_size, pmax]
-    tail = [n_splits, span, d ** -0.5, _stream(q)]
+    tail = [n_splits, span, d ** -0.5, window, cap, _stream(q)]
     name = "decode_int8" if int8 else "decode"
     if int8:
         rc = lib.dtt_paged_decode_int8(*args, width, *tail)
     else:
         rc = lib.dtt_paged_decode(*args, *tail)
     _raise_on(lib, rc, name)
-    _count(name, f"head_dim={d}")
+    _count(name, f"head_dim={d}", *mods)
     return out
 
 
@@ -689,11 +715,13 @@ def _span_args(plan: int, spans: Optional[int],
     return spans, _ptr(clocks)
 
 
-def prefill_attention(q, k, v, seq_lens, *,
+def prefill_attention(q, k, v, seq_lens, *, window: int = 0,
+                      logit_cap: float = 0.0,
                       clocks: Optional[torch.Tensor] = None,
                       spans: Optional[int] = None) -> torch.Tensor:
     """q [N, S, H, D], k/v [N, S, KV, D] bf16; seq_lens [N] int32 (true
-    lengths) -> [N, S, H, D]. Causal within each lane. At LATENT_DIM each
+    lengths) -> [N, S, H, D]. Causal within each lane; `window` and
+    `logit_cap` as in score_mods. At LATENT_DIM each
     query tile's keys are cut into latent_prefill_spans spans (from N, S,
     the group, KV and the SM count). Measurement, LATENT_DIM only:
     `spans` and `clocks` as in chunk_prefill_attention."""
@@ -711,6 +739,7 @@ def prefill_attention(q, k, v, seq_lens, *,
     n_kv = k.shape[2]
     group = _gqa_group(h, n_kv)
     positions = tile_positions(group, d)
+    window, cap, mods = score_mods(window, logit_cap, d)
     lib = build()
     out = torch.empty_like(q)
     if n == 0 or s == 0:
@@ -721,20 +750,22 @@ def prefill_attention(q, k, v, seq_lens, *,
                                   n * -(-s // positions) * n_kv, d, dev)
     rc = lib.dtt_prefill(
         _ptr(q), _ptr(k), _ptr(v), _ptr(seq_lens), _ptr(out), n, s, h, n_kv,
-        d, positions, spans, d ** -0.5, clock_ptr, _stream(q))
+        d, positions, spans, d ** -0.5, window, cap, clock_ptr, _stream(q))
     _raise_on(lib, rc, "prefill")
-    _count("prefill", f"head_dim={d}")
+    _count("prefill", f"head_dim={d}", *mods)
     return out
 
 
 def chunk_prefill_attention(q, k_pages, v_pages, pages, start: int, *,
                             page_size: int,
                             num_kv_heads: Optional[int] = None,
+                            window: int = 0, logit_cap: float = 0.0,
                             clocks: Optional[torch.Tensor] = None,
                             spans: Optional[int] = None) -> torch.Tensor:
     """q [C, H, D] bf16 at absolute positions start..start+C-1; pools
     [P, ps, W] bf16 or int8 packed (with num_kv_heads); pages [W] int32
-    (trash-padded tail) -> [C, H, D]. At LATENT_DIM each query tile's keys
+    (trash-padded tail) -> [C, H, D]; `window` and `logit_cap` as in
+    score_mods. At LATENT_DIM each query tile's keys
     are cut into chunk_spans spans (from C, start, the group and the SM
     count). Measurement, LATENT_DIM only: `spans` runs another span count
     (1 to MAX_CHUNK_SPANS; every count gives the same attention), and
@@ -749,6 +780,7 @@ def chunk_prefill_attention(q, k_pages, v_pages, pages, start: int, *,
                                      num_kv_heads, dev)
     group = _gqa_group(h, n_kv)
     positions = tile_positions(group, d)
+    window, cap, mods = score_mods(window, logit_cap, d)
     lib = build()
     start = int(start)
     if start < 0 or start + c > pages.shape[0] * page_size:
@@ -762,27 +794,30 @@ def chunk_prefill_attention(q, k_pages, v_pages, pages, start: int, *,
         -(-c // positions) * n_kv, d, dev)
     args = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(pages), _ptr(out), c,
             h, n_kv, d, page_size]
-    tail = [start, positions, spans, d ** -0.5, clock_ptr, _stream(q)]
+    tail = [start, positions, spans, d ** -0.5, window, cap, clock_ptr,
+            _stream(q)]
     name = "chunk_int8" if int8 else "chunk"
     if int8:
         rc = lib.dtt_chunk_int8(*args, width, *tail)
     else:
         rc = lib.dtt_chunk(*args, *tail)
     _raise_on(lib, rc, name)
-    _count(name, f"head_dim={d}")
+    _count(name, f"head_dim={d}", *mods)
     return out
 
 
 def ragged_paged_attention(q, k_pages, v_pages, tables, kv_lens, q_starts, *,
                            page_size: int, num_kv_heads: Optional[int] = None,
-                           num_decode: int, decode_q: int = 1
+                           num_decode: int, decode_q: int = 1,
+                           window: int = 0, logit_cap: float = 0.0
                            ) -> torch.Tensor:
     """q [num_decode*decode_q + C, H, D] bf16 (C >= 0): num_decode rows of
     decode_q queries, then one chunk; pools [P, ps, W] bf16 or int8 packed
     (with num_kv_heads); tables [num_decode + 1, W] int32 (the last row is
     the chunk's pages, unread when C = 0); kv_lens, q_starts
     [num_decode + 1] int32 -> like q. Query j of row r sees key tok iff
-    tok <= q_starts[r] + j and tok < kv_lens[r]."""
+    tok <= q_starts[r] + j and tok < kv_lens[r] (and, under `window`,
+    q_starts[r] + j - window < tok; `logit_cap` as in score_mods)."""
     dev = q.device
     _expect(q, "q", torch.bfloat16, 3, dev)
     _expect(tables, "tables", torch.int32, 2, dev)
@@ -805,6 +840,7 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, kv_lens, q_starts, *,
                          f"{tuple(kv_lens.shape)}, {tuple(q_starts.shape)} "
                          f"do not have num_decode + 1 = {rows} rows")
     positions = check_decode_rows(decode_q, group, d)
+    window, cap, mods = score_mods(window, logit_cap, d)
     width_pages = tables.shape[1]
     span, n_splits = decode_plan(width_pages, page_size, num_decode,
                                  decode_q, group, n_kv, d, _num_sms(dev))
@@ -819,7 +855,7 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, kv_lens, q_starts, *,
     args = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(tables),
             _ptr(kv_lens), _ptr(q_starts), _ptr(out), part_o, part_ml,
             num_decode, decode_q, c, h, n_kv, d, page_size, width_pages]
-    tail = [positions, n_splits, span, d ** -0.5, _stream(q)]
+    tail = [positions, n_splits, span, d ** -0.5, window, cap, _stream(q)]
     name = "ragged_int8" if int8 else "ragged"
     if int8:
         rc = lib.dtt_ragged_int8(*args, width, *tail)
@@ -827,5 +863,5 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, kv_lens, q_starts, *,
         rc = lib.dtt_ragged(*args, *tail)
     _raise_on(lib, rc, name)
     _count(name, f"decode_q={decode_q},{'chunk' if c else 'no_chunk'}",
-           f"head_dim={d}")
+           f"head_dim={d}", *mods)
     return out

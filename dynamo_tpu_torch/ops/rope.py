@@ -3,10 +3,12 @@
 Port of `dynamo_tpu/ops/rope.py`: base frequencies, Llama-3.1 frequency
 scaling and YaRN (DeepSeek-V2's: the frequency remap and the rotary
 magnitude on cos/sin; the softmax mscale^2 is the model's, on q), angles in
-float32. Phi-3 longrope is not ported yet and raises. The model computes
-cos/sin once per forward (`rope_cos_sin`) and rotates every layer's q and k
-with them (`rotate`); `apply_rope` is the two together, the JAX package's
-signature.
+float32, and Gemma-3's linear position scaling (float positions divided
+by a per-layer factor, `position_scale`; the model picks each layer's
+theta and factor). Phi-3 longrope is not ported yet and raises. The
+model computes cos/sin once per forward and distinct rope (`rope_cos_sin`)
+and rotates every layer's q and k with them (`rotate`); `apply_rope` is
+the two together, the JAX package's signature.
 """
 
 from __future__ import annotations
@@ -100,16 +102,21 @@ def _inv_freqs(head_dim: int, theta: float, llama3_scaling, yarn_scaling,
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
                  llama3_scaling=None, yarn_scaling=None,
-                 longrope_scaling=None):
+                 longrope_scaling=None, position_scale: float = 1.0):
     """positions [T] -> (cos, sin), each [T, 1, D/2] float32, broadcasting
-    over heads; under YaRN both carry its rotary magnitude."""
+    over heads; under YaRN both carry its rotary magnitude. With
+    `position_scale` != 1 the float32 positions are divided by it first
+    (HF linear rope scaling: Gemma-3's global layers, JAX `_layer_rope`)."""
     if longrope_scaling is not None:
         raise NotImplementedError("longrope rope scaling is not ported yet")
     yarn = None if yarn_scaling is None else tuple(yarn_scaling)
     inv = _inv_freqs(head_dim, float(theta),
                      None if llama3_scaling is None else tuple(llama3_scaling),
                      yarn, positions.device)
-    angles = positions.to(torch.float32)[..., None] * inv  # [T, D/2]
+    pos = positions.to(torch.float32)
+    if position_scale != 1.0:
+        pos = pos / position_scale
+    angles = pos[..., None] * inv  # [T, D/2]
     cos, sin = torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
     if yarn is not None:
         ratio = yarn_rotary_scale(yarn)
@@ -129,13 +136,14 @@ def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                llama3_scaling=None, yarn_scaling=None,
-               longrope_scaling=None) -> torch.Tensor:
+               longrope_scaling=None, position_scale: float = 1.0
+               ) -> torch.Tensor:
     """x [T, heads, D] with positions [T] -> x rotated, same dtype.
 
     `llama3_scaling`: optional (factor, low_freq_factor, high_freq_factor,
     original_max_pos); `yarn_scaling`: optional (factor, beta_fast,
     beta_slow, original_max_pos, mscale, mscale_all_dim,
-    attention_factor)."""
+    attention_factor); `position_scale` as in rope_cos_sin."""
     cos, sin = rope_cos_sin(positions, x.shape[-1], theta, llama3_scaling,
-                            yarn_scaling, longrope_scaling)
+                            yarn_scaling, longrope_scaling, position_scale)
     return rotate(x, cos, sin)

@@ -270,7 +270,8 @@ def test_tile_limits_agree_with_the_library_and_are_refused(dev):
     for positions, spans in ((8, 1), (16, 2)):  # own: 16 positions, 1 span
         rc = lib.dtt_chunk(ca._ptr(q), ca._ptr(kp), ca._ptr(kp),
                            ca._ptr(pages), ca._ptr(out), 16, 32, 8, 128, 16, 0,
-                           positions, spans, 0.1, None, ca._stream(q))
+                           positions, spans, 0.1, 0, 0.0, None,
+                           ca._stream(q))
         assert rc != 0
     # at head_dim 640 a cluster holds 1 to 8 spans
     ql = _rnd(dev, 16, 16, 640)
@@ -279,7 +280,7 @@ def test_tile_limits_agree_with_the_library_and_are_refused(dev):
     for spans in (0, 9):
         rc = lib.dtt_chunk(ca._ptr(ql), ca._ptr(kl), ca._ptr(kl),
                            ca._ptr(pages), ca._ptr(outl), 16, 16, 1, 640, 16,
-                           0, 4, spans, 0.1, None, ca._stream(ql))
+                           0, 4, spans, 0.1, 0, 0.0, None, ca._stream(ql))
         assert rc != 0
     qr = _rnd(dev, 1 + 16, 32, 128)
     part = torch.empty((1, 1, 32, 128), dtype=torch.float32, device=dev)
@@ -288,20 +289,21 @@ def test_tile_limits_agree_with_the_library_and_are_refused(dev):
             ca._ptr(qr), ca._ptr(kp), ca._ptr(kp), ca._ptr(tables),
             ca._ptr(lens), ca._ptr(lens), ca._ptr(qr), ca._ptr(part),
             ca._ptr(part), 1, 1, 16, 32, 8, 128, 16, 4, 16, n_splits, span,
-            0.1, ca._stream(qr))
+            0.1, 0, 0.0, ca._stream(qr))
         assert rc != 0
         args = [ca._ptr(qr), ca._ptr(kp), ca._ptr(kp), ca._ptr(tables),
                 ca._ptr(lens), ca._ptr(qr), ca._ptr(part), ca._ptr(part), 2,
                 32, 8, 128, 16, 4]
-        assert lib.dtt_paged_decode(*args, n_splits, span, 0.1,
+        assert lib.dtt_paged_decode(*args, n_splits, span, 0.1, 0, 0.0,
                                     ca._stream(qr)) != 0
         assert lib.dtt_paged_decode_int8(*args, 8 * 128 + 16 * 8, n_splits,
-                                         span, 0.1, ca._stream(qr)) != 0
+                                         span, 0.1, 0, 0.0,
+                                         ca._stream(qr)) != 0
     # prefill refuses a tiling other than the tile's 64 / group positions
     kd = _rnd(dev, 1, 16, 8, 128)
     rc = lib.dtt_prefill(ca._ptr(q), ca._ptr(kd), ca._ptr(kd),
                          ca._ptr(lens), ca._ptr(out), 1, 16, 32, 8, 128, 8,
-                         1, 0.1, None, ca._stream(q))
+                         1, 0.1, 0, 0.0, None, ca._stream(q))
     assert rc != 0
 
 
@@ -337,7 +339,8 @@ def test_wrappers_count_launches_and_refuse_bad_inputs(dev):
     rc = lib.dtt_paged_decode(
         ca._ptr(wide_q), ca._ptr(kp1), ca._ptr(kp1), ca._ptr(table[:1]),
         ca._ptr(ctx[:1]), ca._ptr(out), ca._ptr(part), ca._ptr(part), 1,
-        wide_q.shape[1], 1, 64, 16, 2, 1, 256, 0.125, ca._stream(wide_q))
+        wide_q.shape[1], 1, 64, 16, 2, 1, 256, 0.125, 0, 0.0,
+        ca._stream(wide_q))
     assert rc != 0
 
 
@@ -552,7 +555,11 @@ def test_ragged_kernel_at_the_families_shapes(dev, int8, n_heads, n_kv, d,
                                     "decode[head_dim=640]",
                                     "decode_int8[head_dim=640]",
                                     "ragged_verify[head_dim=640]",
-                                    "ragged_verify_int8[head_dim=640]"])
+                                    "ragged_verify_int8[head_dim=640]",
+                                    "decode[cap=50]", "decode_int8[cap=50]",
+                                    "prefill[cap=50]", "chunk[cap=50]",
+                                    "ragged_verify[cap=50]",
+                                    "ragged_verify_int8[cap=50]"])
 def test_kernels_hold_at_large_values(dev, kernel):
     """V scaled by 40 (output rows of RMS near 5 over about 100 keys, as
     the 8B's activations reach at depth): the error of P V grows with a
@@ -562,12 +569,15 @@ def test_kernels_hold_at_large_values(dev, kernel):
     in two bf16 parts (attention_common.cuh) only the output's own
     rounding is left. At head_dim 640 (16 heads on one KV head: the
     latent chunk tile, the latent decode rows and verify windows) on both
-    pools."""
+    pools. With Gemma-2's tanh cap at 50 (`[cap=50]`) q is scaled by 6,
+    so that scores of tens reach the bend of the cap."""
     ps, n_kv, d, h, big = 16, 8, 128, 32, 40.0
     latent = kernel.endswith("[head_dim=640]")
+    cap = 50.0 if kernel.endswith("[cap=50]") else 0.0
     if latent:
         n_kv, d, h = 1, 640, 16
-        kernel = kernel.split("[")[0]
+    kernel = kernel.split("[")[0]
+    qs = 6.0 if cap else 1.0
     rng = np.random.default_rng(8)
 
     def pools(seed, int8):
@@ -591,30 +601,33 @@ def test_kernels_hold_at_large_values(dev, kernel):
         assert float(rms.median()) > 2.5  # the scale the test is about
         torch.testing.assert_close(out.float(), ref.float(), **TOL)
         return
+    mods = dict(logit_cap=cap) if cap else {}
     if kernel == "prefill":
-        q = _rnd(dev, 2, 128, h, d, seed=71)
+        q = (_rnd(dev, 2, 128, h, d, seed=71).float() * qs).bfloat16()
         k = _rnd(dev, 2, 128, n_kv, d, seed=72)
         v = (_rnd(dev, 2, 128, n_kv, d, seed=73).float() * big).bfloat16()
         sl = torch.tensor([128, 100], dtype=torch.int32, device=dev)
-        out = ca.prefill_attention(q, k, v, sl)
-        ref = att.prefill_attention_ref(q, k, v, sl)
+        out = ca.prefill_attention(q, k, v, sl, **mods)
+        ref = att.prefill_attention_ref(q, k, v, sl, **mods)
     elif kernel == "chunk":
         kp, vp = pools(74, False)
         pages = _page_list(dev, 64 + 128, ps, 128, seed=9)
-        q = _rnd(dev, 128, h, d, seed=76)
-        out = ca.chunk_prefill_attention(q, kp, vp, pages, 64, page_size=ps)
-        ref = att.chunk_attention_ref(q, kp, vp, pages, 64, page_size=ps)
+        q = (_rnd(dev, 128, h, d, seed=76).float() * qs).bfloat16()
+        out = ca.chunk_prefill_attention(q, kp, vp, pages, 64, page_size=ps,
+                                         **mods)
+        ref = att.chunk_attention_ref(q, kp, vp, pages, 64, page_size=ps,
+                                      **mods)
     elif kernel.startswith("decode"):
         kp, vp = pools(77, int8)
         ctx = [17, 60, 100, 100, 150, 200, 300, 400]
-        q = _rnd(dev, 8, h, d, seed=79)
+        q = (_rnd(dev, 8, h, d, seed=79).float() * qs).bfloat16()
         table = np.zeros((8, 32), np.int32)
         for b, n in enumerate(ctx):
             table[b, :-(-n // ps)] = rng.permutation(127)[:-(-n // ps)] + 1
         args = (torch.tensor(table, device=dev),
                 torch.tensor(ctx, dtype=torch.int32, device=dev))
-        out = ca.paged_attention_decode(q, kp, vp, *args, **kw)
-        ref = att.paged_attention_decode_ref(q, kp, vp, *args, **kw)
+        out = ca.paged_attention_decode(q, kp, vp, *args, **kw, **mods)
+        ref = att.paged_attention_decode_ref(q, kp, vp, *args, **kw, **mods)
     else:
         kp, vp = pools(80, int8)
         positions = [12, 60, 95, 200, 300, 400, 0, 100]
@@ -622,27 +635,148 @@ def test_kernels_hold_at_large_values(dev, kernel):
         for b, p in enumerate(positions):
             n = -(-(p + 5) // ps)
             table[b, :n] = rng.permutation(127)[:n] + 1
-        q = _rnd(dev, 8, 5, h, d, seed=82)
+        q = (_rnd(dev, 8, 5, h, d, seed=82).float() * qs).bfloat16()
         args = (torch.tensor(table, device=dev),
                 torch.tensor(positions, dtype=torch.int32, device=dev))
-        out = att.verify_attention(q, kp, vp, *args, **kw)
-        ref = att.verify_attention_ref(q, kp, vp, *args, **kw)
+        out = att.verify_attention(q, kp, vp, *args, **kw, **mods)
+        ref = att.verify_attention_ref(q, kp, vp, *args, **kw, **mods)
     rms = ref.float().pow(2).mean(-1).sqrt()
     assert float(rms.median()) > 2.5  # the scale the test is about
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
 
 
-@pytest.mark.parametrize("family", ["gemma", "qwen2", "qwen3"])
+# (window, cap) of a Gemma-2/3 layer: no window, a window of one key, of
+# 37 and 100 keys (row bounds inside a 64-key tile, a tile's rows with
+# different bounds, spans of the decode plan wholly below the window) and
+# one wider than every context
+SCORE_MODS = [(0, 50.0), (1, 0.0), (37, 0.0), (100, 50.0), (4096, 50.0)]
+
+
+@pytest.mark.parametrize("window,cap", SCORE_MODS,
+                         ids=[f"w{w}-cap{int(c)}" for w, c in SCORE_MODS])
+@pytest.mark.parametrize("kernel", ["decode", "decode_int8", "prefill",
+                                    "chunk", "chunk_int8", "ragged",
+                                    "ragged_int8", "verify", "verify_int8"])
+def test_window_and_cap_match_plain(dev, kernel, window, cap):
+    """The four kernels under a sliding window and a tanh logit cap at
+    Gemma-2-9B's heads (16 on 8, head_dim 256) against their plain
+    versions: decode rows at contexts 0 to 1024 over a 1024-key table
+    (spans of 256 keys, the early ones wholly below a 100-key window),
+    two prefill lanes of 256 positions (32 a query tile), a 100-token
+    chunk at 700, eight decode rows beside a 256-token chunk at 512, and
+    verify windows of 5 without a chunk; q scaled by 4 so that the cap
+    bends. Counted under the `window` and `cap` variants."""
+    ps, n_kv, h, d, pmax = 16, 8, 16, 256, 64
+    int8 = kernel.endswith("_int8")
+    base = kernel.split("_")[0]
+    mods = dict(window=window, logit_cap=cap)
+    kw = dict(page_size=ps, num_kv_heads=n_kv)
+
+    def big(x):
+        return (x.float() * 4.0).bfloat16()
+
+    def pools(seed):
+        if int8:
+            return _int8_pools(dev, 256, ps, n_kv, d, seed=seed)
+        return (_rnd(dev, 256, ps, n_kv * d, seed=seed),
+                _rnd(dev, 256, ps, n_kv * d, seed=seed + 1))
+
+    ca.reset_launch_counts()
+    if base == "decode":
+        ctx = [0, 1, 37, 100, 257, 700, 1000, 1024]
+        q, kp, vp, table, cl = _decode_inputs(dev, int8, h, n_kv, d, ctx,
+                                              pmax, pages=256, seed=90)
+        q = big(q)
+        out = ca.paged_attention_decode(q, kp, vp, table, cl, **kw, **mods)
+        ref = att.paged_attention_decode_ref(q, kp, vp, table, cl, **kw,
+                                             **mods)
+        assert not out[0].any()  # ctx 0 -> exact zeros
+    elif base == "prefill":
+        q = big(_rnd(dev, 2, 256, h, d, seed=91))
+        k = _rnd(dev, 2, 256, n_kv, d, seed=92)
+        v = _rnd(dev, 2, 256, n_kv, d, seed=93)
+        sl = torch.tensor([256, 200], dtype=torch.int32, device=dev)
+        out = ca.prefill_attention(q, k, v, sl, **mods)
+        ref = att.prefill_attention_ref(q, k, v, sl, **mods)
+    elif base == "chunk":
+        kp, vp = pools(94)
+        pages = _page_list(dev, 700 + 100, ps, 256, seed=95)
+        q = big(_rnd(dev, 100, h, d, seed=96))
+        out = ca.chunk_prefill_attention(q, kp, vp, pages, 700, **kw, **mods)
+        ref = att.chunk_attention_ref(q, kp, vp, pages, 700, **kw, **mods)
+    elif base == "ragged":
+        kp, vp = pools(97)
+        ctx = [0, 1, 17, 255, 256, 257, 700, pmax * ps]
+        rng = np.random.default_rng(98)
+        tables = np.zeros((9, pmax), np.int32)
+        for r, n in enumerate(ctx[1:], start=1):
+            tables[r, :-(-n // ps)] = rng.permutation(255)[:-(-n // ps)] + 1
+        tables[8, :48] = np.arange(1, 49)
+        kv_lens = np.array(ctx + [512 + 256], np.int32)
+        q_starts = np.array([max(n - 1, 0) for n in ctx] + [512], np.int32)
+        args = [torch.tensor(a, device=dev)
+                for a in (tables, kv_lens, q_starts)]
+        q = big(_rnd(dev, 8 + 256, h, d, seed=99))
+        rkw = dict(kw, num_decode=8)
+        out = ca.ragged_paged_attention(q, kp, vp, *args, **rkw, **mods)
+        ref = att.ragged_paged_attention_ref(q, kp, vp, *args, **rkw, **mods)
+        # the chunk rows are chunk.cu's, the decode rows decode.cu's
+        assert torch.equal(out[8:], ca.chunk_prefill_attention(
+            q[8:], kp, vp, args[0][8], 512, **kw, **mods))
+        assert torch.equal(out[:8], ca.paged_attention_decode(
+            q[:8], kp, vp, args[0][:8], args[1][:8], **kw, **mods))
+    else:
+        kp, vp = pools(100)
+        k1 = 5
+        positions = [0, 7, 250, 700, pmax * ps - k1, 0]
+        rng = np.random.default_rng(101)
+        tables = np.zeros((6, pmax), np.int32)
+        for r, p in enumerate(positions[:5]):
+            n = -(-(p + k1) // ps)
+            tables[r, :n] = rng.permutation(255)[:n] + 1
+        q = big(_rnd(dev, 6, k1, h, d, seed=102))
+        args = (torch.tensor(tables, device=dev),
+                torch.tensor(positions, dtype=torch.int32, device=dev))
+        out = att.verify_attention(q, kp, vp, *args, **kw, **mods)
+        ref = att.verify_attention_ref(q, kp, vp, *args, **kw, **mods)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    name = ("ragged" if base == "verify" else base) + ("_int8" if int8
+                                                        else "")
+    assert ca.VARIANT_LAUNCHES[f"{name}[window]"] >= bool(window)
+    assert ca.VARIANT_LAUNCHES[f"{name}[cap]"] >= bool(cap)
+    assert (f"{name}[window]" in ca.VARIANT_LAUNCHES) == bool(window)
+
+
+def test_latent_kernels_refuse_window_and_cap(dev):
+    """The latent tile (head_dim 640) takes no window or cap: the
+    wrappers refuse both before any launch."""
+    kp = _rnd(dev, 8, 16, 640, seed=1)
+    q = _rnd(dev, 2, 16, 640, seed=2)
+    table = torch.ones((2, 4), dtype=torch.int32, device=dev)
+    ctx = torch.tensor([5, 9], dtype=torch.int32, device=dev)
+    for mods in (dict(window=8), dict(logit_cap=50.0)):
+        with pytest.raises(ValueError, match="latent"):
+            ca.paged_attention_decode(q, kp, kp, table, ctx, page_size=16,
+                                      **mods)
+
+
+@pytest.mark.parametrize("family", ["gemma", "qwen2", "qwen3", "gemma2",
+                                    "gemma3"])
 def test_family_graph_windows_equal_eager_windows(dev, family):
-    """The three families' tiny configs (tiny-gemma-debug at head_dim 256:
-    its decode and prefill reach the D = 256 kernels) in 4-step graph
-    windows against eager windows, bit for bit."""
+    """The families' tiny configs (tiny-gemma-debug, tiny-gemma2-debug and
+    tiny-gemma3-debug at head_dim 256: their decode and prefill reach the
+    D = 256 kernels, Gemma-2/3's with each layer's window captured in the
+    graph) in 4-step graph windows against eager windows, bit for bit."""
     import dataclasses
 
     from dynamo_tpu_torch.models.config import PRESETS
 
     cfg = {"gemma": dataclasses.replace(PRESETS["tiny-gemma-debug"],
                                         head_dim=256),
+           "gemma2": dataclasses.replace(PRESETS["tiny-gemma2-debug"],
+                                         head_dim=256),
+           "gemma3": dataclasses.replace(PRESETS["tiny-gemma3-debug"],
+                                         head_dim=256),
            "qwen2": dataclasses.replace(PRESETS["tiny-debug"],
                                         attention_bias=True),
            "qwen3": dataclasses.replace(PRESETS["tiny-debug"],
@@ -661,6 +795,8 @@ def test_family_graph_windows_equal_eager_windows(dev, family):
     assert _window_run(graphs) == want
     assert graphs.windows.stats()["replays"] > 0
     assert ca.VARIANT_LAUNCHES[f"decode[head_dim={cfg.head_dim}]"] > 0
+    if cfg.sliding_window:
+        assert ca.VARIANT_LAUNCHES["decode[window]"] > 0
 
 
 def test_mixed_int8_engine_launches_its_kernels(dev):
@@ -1151,7 +1287,8 @@ def test_latent_decode_rows_at_the_phase3_shapes(dev, int8, decode_q, c):
 def test_latent_decode_plan_agrees_with_the_library_and_is_refused(dev):
     """The library's latent decode plan (dtt_latent_decode_spans) is the
     wrapper's (latent_decode_spans), and decode.cu and ragged.cu at head
-    dim 640 refuse any other: another span count, or split keys."""
+    dim 640 refuse any other: another span count, or split keys; and a
+    sliding window or a logit cap."""
     lib = ca.build()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for width, ps, nd, dq, group, n_kv in ((128, 16, 8, 1, 16, 1),
@@ -1174,14 +1311,19 @@ def test_latent_decode_plan_agrees_with_the_library_and_is_refused(dev):
         args = [ca._ptr(q), ca._ptr(kp), ca._ptr(kp), ca._ptr(tables),
                 ca._ptr(lens), ca._ptr(out), ca._ptr(part), ca._ptr(part), 8,
                 16, 1, 640, 16, 128]
-        assert lib.dtt_paged_decode(*args, n_splits, span, 0.1,
+        assert lib.dtt_paged_decode(*args, n_splits, span, 0.1, 0, 0.0,
                                     ca._stream(q)) != 0
         rc = lib.dtt_ragged(
             ca._ptr(q), ca._ptr(kp), ca._ptr(kp), ca._ptr(tables),
             ca._ptr(lens), ca._ptr(lens), ca._ptr(out), ca._ptr(part),
             ca._ptr(part), 8, 1, 16, 16, 1, 640, 16, 128, 4, n_splits, span,
-            0.1, ca._stream(q))
+            0.1, 0, 0.0, ca._stream(q))
         assert rc != 0
+    # the latent row takes no sliding window or logit cap, even under its
+    # own plan, and no entry point takes a negative window
+    for window, cap in ((8, 0.0), (0, 50.0), (-1, 0.0)):
+        assert lib.dtt_paged_decode(*args, n, 0, 0.1, window, cap,
+                                    ca._stream(q)) != 0
 
 
 def test_latent_row_refuses_tiny_mla_pools(dev):

@@ -272,16 +272,17 @@ def test_settings_ported_since_are_served(tmp_path, field, value):
 
 
 @pytest.mark.parametrize("model,feature", [
-    ("gemma-3-1b-it", "rope_local_theta"),
-    ("tiny-gemma2-debug", "sliding_window"),
-    ("tiny-gemma3-debug", "post_norms"),
-    ("gemma-2-2b-it", "attn_logit_softcapping"),
-    ("phi-3-mini-4k-instruct", "sliding_window"),
-    ("gemma-2-9b-it", "final_logit_softcapping"),
+    ("phi-3-mini-4k-instruct", "head_dim"),
 ])
 def test_unported_models_are_refused(model, feature):
     with pytest.raises(NotImplementedError, match=feature):
         Engine(EngineConfig(**dict(BASE, model=model)), device="cpu")
+
+
+# a full-size preset's switches at tiny-debug's widths (its layer count
+# kept where it is small enough to reach a global layer)
+TINY_WIDTHS = dict(vocab_size=512, hidden_size=128, intermediate_size=256,
+                   num_heads=4, num_kv_heads=2, head_dim=32)
 
 
 @pytest.mark.parametrize("model,change", [
@@ -292,13 +293,20 @@ def test_unported_models_are_refused(model, feature):
     ("tiny-mla-debug", {}),
     ("tiny-mla-debug", dict(rope_yarn_scaling=(
         40.0, 32.0, 1.0, 4096, 0.707, 0.707, -1.0))),
+    ("gemma-3-1b-it", dict(TINY_WIDTHS, num_layers=6, sliding_window=4)),
+    ("tiny-gemma2-debug", {}),
+    ("tiny-gemma3-debug", {}),
+    ("gemma-2-2b-it", dict(TINY_WIDTHS, num_layers=2, sliding_window=4)),
+    ("gemma-2-9b-it", dict(TINY_WIDTHS, num_layers=2, sliding_window=4)),
 ], ids=["gemma", "qwen3-qk_norm", "qwen2-attention_bias", "moe", "mla",
-        "mla-yarn"])
+        "mla-yarn", "gemma3-1b-switches", "gemma2-tiny", "gemma3-tiny",
+        "gemma2-2b-switches", "gemma2-9b-switches"])
 def test_models_ported_since_are_served(model, change):
-    """Refused before the Gemma-1, Qwen3, Qwen2, MoE, MLA and YaRN
-    features were ported; an activation the port does not implement still
-    is (for an MoE model the config itself refuses it: MoE is SwiGLU
-    only)."""
+    """Refused before the Gemma-1, Qwen3, Qwen2, MoE, MLA, YaRN and
+    Gemma-2/3 (sliding window, logit caps, sandwich norms,
+    query_pre_attn_scalar, per-layer rope) features were ported; an
+    activation the port does not implement still is (for an MoE model the
+    config itself refuses it: MoE is SwiGLU only)."""
     cfg = dataclasses.replace(PRESETS[model], dtype="float32", **change)
     eng = Engine(EngineConfig(**BASE), model_cfg=cfg, device="cpu")
     assert len(eng.generate(GenRequest("p", [1, 2, 3], max_tokens=3,

@@ -20,8 +20,8 @@ package, and the attention kernels' head_dim 256 (Gemma's).
   streams equal to the JAX engine's token for token, classic and with
   mixed steps and n-gram speculation.
 - The model drafter refuses a draft ModelConfig the port does not
-  implement, as the engine does for its target; a tiny-gemma-debug
-  drafter proposes what the JAX DraftEngine proposes.
+  implement, as the engine does for its target; tiny-gemma-debug and
+  tiny-gemma2-debug drafters propose what the JAX DraftEngine proposes.
 - Checkpoints: tiny Qwen2-, Qwen3- and Gemma-shaped HF safetensors (with
   their config.json) load in both packages to equal parameters; w8a8 on
   the Qwen2 one keeps biases and norms unquantized and serves the JAX
@@ -543,15 +543,39 @@ SPEC = dict(page_size=8, num_pages=128, max_num_seqs=2, max_seq_len=256,
 
 
 def test_draft_model_with_unported_features_is_refused():
-    """A tiny-debug target drafting with tiny-gemma2-debug: the port has
-    no sliding window, so it must not build a draft model from that
-    config (its vocabulary check would come after)."""
-    cfg = EngineConfig(model="tiny-debug", speculative_mode="model",
-                       draft_model="tiny-gemma2-debug",
+    """Once refused for its sliding window, tiny-gemma2-debug now drafts
+    (window 8 on its local layer, caps 50 and 30) for itself as a separate
+    model (the JAX draft engine's params, seed + 1, carried across): the
+    same proposals as the JAX DraftEngine for a history past the window,
+    then the same greedy streams. A draft config the port does not
+    implement is still refused."""
+    jcfg = dataclasses.replace(JPRESETS["tiny-gemma2-debug"],
+                               dtype="float32")
+    jparams = jax_params(jcfg)
+    cfg = dict(SPEC, model="tiny-gemma2-debug",
+               draft_model="tiny-gemma2-debug")
+    jeng = JEngine(JEngineConfig(**cfg), params=jparams)
+    draft = {k: np.asarray(v) for k, v in jeng.draft.params.items()}
+    eng = Engine(EngineConfig(**cfg), params={k: np.asarray(v) for k, v in
+                                               jparams.items()},
+                 device="cpu", draft_params=draft)
+    assert eng.draft.model_cfg.sliding_window == 8
+    props = []
+    prompt = [5, 6, 7, 9, 5, 6, 7, 9, 5, 6, 7, 9, 5, 6]
+    for e, cls in ((eng, SeqState), (jeng, JSeqState)):
+        seq = cls("r", 0, [1], prompt_len=len(prompt), max_tokens=8)
+        seq.prompt_ids, seq.output_tokens = list(prompt), [3]
+        props.append([e.draft.propose(seq, K), e.draft.propose(seq, 2)])
+        e.draft.release(0)
+    assert props[0] == props[1]
+    reqs = [("a", [5, 6, 7] * 5, 12, 0), ("b", list(range(30, 48)), 10, 0)]
+    assert _drive(eng, GenRequest, reqs) == _drive(jeng, JGenRequest, reqs)
+    bad = EngineConfig(model="tiny-debug", speculative_mode="model",
+                       draft_model="phi-3-mini-4k-instruct",
                        num_speculative_tokens=2, page_size=4, num_pages=64,
                        max_num_seqs=2)
-    with pytest.raises(NotImplementedError, match="sliding_window"):
-        Engine(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        Engine(bad, device="cpu")
 
 
 def test_gemma_drafter_proposes_what_jax_proposes():

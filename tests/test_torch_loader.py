@@ -173,16 +173,74 @@ def test_empty_directory_gives_random_init_with_a_warning(tmp_path, caplog):
         assert torch.equal(a, b), n
 
 
+def write_gemma_checkpoint(path, arch: str, seed: int = 0) -> dict:
+    """A tiny Gemma-2 or Gemma-3 HF checkpoint (`arch` the config's
+    architecture) at tiny-debug's widths: input_layernorm, then HF's
+    post_attention_layernorm (after attention here, not before the MLP),
+    pre_feedforward_layernorm and post_feedforward_layernorm, with
+    Gemma-3's q/k norms. Returns the HF-named tensors."""
+    path.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    t = hf_tensors("separate", tied=True, seed=seed)
+    for i in range(L):
+        p = f"model.layers.{i}."
+        for name in ("pre_feedforward_layernorm",
+                     "post_feedforward_layernorm"):
+            t[p + name + ".weight"] = rng.standard_normal(E).astype(
+                np.float32)
+        if arch.startswith("Gemma3"):
+            for name in ("q_norm", "k_norm"):
+                t[p + f"self_attn.{name}.weight"] = rng.standard_normal(
+                    D).astype(np.float32)
+    save_file(t, str(path / "model.safetensors"))
+    cfg = dict(hf_config(tied=True), architectures=[arch],
+               hidden_activation="gelu_pytorch_tanh", sliding_window=8,
+               query_pre_attn_scalar=64)
+    if arch.startswith("Gemma2"):
+        cfg.update(attn_logit_softcapping=50.0, final_logit_softcapping=30.0)
+    else:
+        cfg.update(sliding_window_pattern=2, rope_local_base_freq=10000.0,
+                   rope_theta=1e6, rope_scaling={"rope_type": "linear",
+                                                 "factor": 8.0})
+    (path / "config.json").write_text(json.dumps(cfg))
+    return t
+
+
 def test_unknown_quantization_and_unported_layouts_raise(tmp_path):
+    """Bad settings raise, and the Gemma-2/3 layouts, once refused, load:
+    a Gemma-2 and a Gemma-3 checkpoint written here load in both packages
+    to equal arrays, the sandwich norms named as HF names them."""
     cfg = dataclasses.replace(TINY, dtype="float32")
     with pytest.raises(ValueError, match="unknown quantization 'fp4'"):
         loader.load_or_init(cfg, None, quantization="fp4", device="cpu",
                             dtype=torch.float32)
     write_checkpoint(tmp_path)
     files = loader.checkpoint_files(str(tmp_path))
-    for preset in ("tiny-gemma2-debug",):  # post_norms
-        with pytest.raises(NotImplementedError, match="not ported"):
-            loader.load_hf_safetensors(PRESETS[preset], files, device="cpu")
+    for arch in ("Gemma2ForCausalLM", "Gemma3ForCausalLM"):
+        path = tmp_path / arch
+        src = write_gemma_checkpoint(path, arch)
+        gcfg = ModelConfig.from_model_name(str(path), dtype="float32")
+        assert gcfg.post_norms and gcfg.sliding_window == 8
+        gfiles = loader.checkpoint_files(str(path))
+        jtree = jloader.load_hf_safetensors(
+            JModelConfig.from_model_name(str(path), dtype="float32"), gfiles)
+        model = loader.load_hf_safetensors(gcfg, gfiles, device="cpu",
+                                           dtype=torch.float32)
+        names = set()
+        for name, layer, owner in loader._targets(model):
+            got = getattr(owner, name)
+            assert torch.equal(got, _port_value(jtree, name, layer,
+                                                got.shape)), (name, layer)
+            names.add(name)
+        assert names == set(jtree)
+        assert {"post_attn_norm", "post_mlp_norm"} <= names
+        layer = model.layers[1]
+        pre = "model.layers.1."
+        for name, hf in (("mlp_norm", "pre_feedforward_layernorm"),
+                         ("post_attn_norm", "post_attention_layernorm"),
+                         ("post_mlp_norm", "post_feedforward_layernorm")):
+            assert torch.equal(getattr(layer, name),
+                               torch.from_numpy(src[pre + hf + ".weight"]))
     untied = dataclasses.replace(cfg, tie_word_embeddings=False)
     with pytest.raises(ValueError, match="no tensor 'lm_head.weight'"):
         loader.load_hf_safetensors(untied, files, device="cpu",
