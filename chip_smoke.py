@@ -16,6 +16,8 @@
                                               # /debug/trace under load
     python3 chip_smoke.py --gemma             # phases 1-2, phase 3's Gemma
                                               # rows and the Gemma models
+    python3 chip_smoke.py --phi3              # phases 1-2, phase 3's Phi-3
+                                              # rows and the Phi-3 phase
 
 (`--kernels-only`, `--window-profile` and the `--mla-*` options time the
 package beside the script, so a copy of it in an older checkout compares
@@ -93,16 +95,21 @@ on failure:
    again at the served one-lane buckets
    (`prefill[head_dim=640,group=16,S=128,lens=100]` and `S=256,lens=256`);
    two launches must give the same bits, and the 256-token lane those of
-   chunk.cu's chunk at start 0. Last, the seven entry points at
-   Gemma-2-9B's local layers (GEMMA_LABEL: 16/8 heads, head_dim 256, a
-   4096-key sliding window and the tanh cap at 50, q scaled so that the
-   cap bends; `gemma_kernel_checks`): decode rows at contexts up to 8192
-   (with the same call's time without the window beside it), two prefill
-   lanes of 6000 and 4500 tokens, a 256-token chunk at 4864, the mixed
-   step's descriptors, on bf16 and int8 pools, each bound counting only
-   the keys inside the window, each library call flex_attention under
-   torch.compile with the window as its block mask and the cap as its
-   score_mod (the compiles untimed; a row whose call fails says why).
+   chunk.cu's chunk at start 0. Last, the seven entry points at two
+   windowed shapes (`windowed_kernel_checks`): Gemma-2-9B's local layers
+   (GEMMA_SHAPE: 16/8 heads, head_dim 256, a 4096-key sliding window and
+   the tanh cap at 50, q scaled so that the cap bends): decode rows at
+   contexts up to 8192 (with the same call's time without the window
+   beside it), two prefill lanes of 6000 and 4500 tokens, a 256-token
+   chunk at 4864, the mixed step's descriptors; and Phi-3-mini's
+   (PHI3_SHAPE: 32/32 heads, head_dim 96, group 1, a 2047-key window, no
+   cap): decode rows at contexts up to 4096, two prefill lanes of 3800
+   and 2600 tokens in the 4096 bucket, a 256-token chunk at 3008, the
+   mixed step's descriptors; on bf16 and int8 pools, each bound counting
+   only the keys inside the window, each library call flex_attention
+   under torch.compile with the window as its block mask and the cap, if
+   any, as its score_mod (the compiles untimed; a row whose call fails
+   says why).
 4. The engine for llama-3.1-8b-instruct at full width and depth, random
    bf16 weights from seed 0: a full prefill, a decode step, a chunked
    prefill, a mixed step (the decode row beside a 256-token chunk), a
@@ -292,6 +299,23 @@ on failure:
    prompt's TTFT alone (whole, and in 256-token chunks), and for
    gemma-2-9b-it a graph-window decode step profiled at 8 slots of
    4600-token prompts; every entry point must launch with the window.
+   After them Phi-3 (PHI3_MODEL, `phi3_phase`): phi-3-mini-4k-instruct
+   (32 layers, head_dim 96, 32/32 heads, a 2047-key window on every
+   layer) at full width and depth, random bf16 weights from seed 0, 8
+   slots on 2048 pages of its 4096 context: the same forwards on both
+   pool kinds at 3000 tokens; four greedy streams of 2500-3800-token
+   prompts on the classic eager engine, an eager engine prefilling in
+   256-token chunks, the jetstream graph-window engine (token for token
+   equal), mixed engines on bf16 and int8 pools and the int8 jetstream
+   engine, held as for Gemma; the OpenAI server on the jetstream engine
+   with phase 5's four concurrent requests; a graph-window decode step
+   profiled at 8 slots of 3000-token prompts; then the same weights
+   under longrope (`phi3_longrope_config`: from_hf_config of a 128k
+   config.json dict written here, 48 short and 48 long factors from
+   seed 0, original_max_pos 4096, a window wider than any context) at an
+   8192 max length: the forwards at 6000 tokens on bf16 pools and two
+   ~6000-token prompts on classic, graph-window and mixed engines
+   (positions past 4096 in the prefill, the chunks and decode).
 14. JSON-guided decoding (after phase 11, on the 8B's weights). The
    grammar kernel (`csrc/json_mask.cu`, both entry points) against its
    plain version on the card: B = 8 rows over V = 128256 tokens of a
@@ -367,7 +391,9 @@ on failure:
    from the served qwen2.5 phases' launches, the group 8 rows from the
    served qwen3-30b-a3b phases' launches, the head_dim 640 rows from the
    served deepseek-v2-lite phases' variant counts, the Gemma rows from
-   the served gemma-2-9b-it phase's windowed launches (`kernel[window]`);
+   the served gemma-2-9b-it phase's windowed launches (`kernel[window]`),
+   the Phi-3 rows from the served Phi-3 phase's launches at head_dim 96
+   (`kernel[head_dim=96]`, the longrope runs included);
    `ms` and `library_ms` device times,
    `call_ms` and `library_call_ms` call times, as phase 3 measures them;
    the grammar kernel's two rows from phase 14, their launches from its
@@ -408,6 +434,7 @@ from dynamo_tpu_torch.engine.tokenizer import ByteTokenizer, get_tokenizer
 from dynamo_tpu_torch.lora import apply as lora_apply
 from dynamo_tpu_torch.lora import registry as lora_registry
 from dynamo_tpu_torch.models import llama, loader, quant
+from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops import attention as att
 from dynamo_tpu_torch.ops import cuda_attention as ca
 from dynamo_tpu_torch.ops import cuda_guide
@@ -628,13 +655,14 @@ def kernel_usage(name: str, head_dim: int = D) -> dict:
 
     def wanted(label: str) -> bool:
         args = label[label.index("<") + 1:-1].split(", ") if "<" in label else []
-        # chunk.cu's and prefill.cu's latent tiles serve head_dim 640 only
-        latent = label.startswith(("chunk_latent_kernel",
-                                   "prefill_latent_kernel"))
+        # the latent tile's kernels serve head_dim 640 only, and chunk.cu's
+        # and prefill.cu's latent tiles only their own entry points
+        own = label.startswith(("chunk_latent_kernel",
+                                "prefill_latent_kernel"))
         return (all(a == str(head_dim) for a in args if a.isdigit())
                 and all(a.startswith(pool) for a in args if not a.isdigit())
-                and (not latent or (base in ("chunk", "prefill")
-                                    and head_dim == ca.LATENT_DIM)))
+                and ("latent" not in label or head_dim == ca.LATENT_DIM)
+                and (not own or base in ("chunk", "prefill")))
 
     return {k: v for k, v in ptxas_usage(ca.build_log).get(src, {}).items()
             if wanted(k)}
@@ -3990,17 +4018,38 @@ def mla_ttft_only(eager_cfg: dict) -> None:
               **mla_chunked_ttft(engine, eager_cfg)})
 
 
-# ---------------------------------------------------- Gemma-2 and Gemma-3 --
+# --------------------------------------- Gemma-2, Gemma-3 and Phi-3 --
 
-# Gemma-2-9B's attention on its local layers (16 query heads on 8 KV heads
-# of 256 lanes): a 4096-key sliding window and the tanh cap at 50
-GEMMA_H, GEMMA_KV, GEMMA_D = 16, 8, 256
+# Phase 3's windowed rows, one set per model shape: the heads, a sliding
+# window and a tanh cap (0: none), q's scale (Gemma: scores of tens, which
+# the cap bends), decode contexts (8 rows), prefill lanes of one bucket
+# of max_seq_len, a 256-token chunk's start, the pools' pages and the
+# inputs' seed.
+# Gemma-2-9B's local layers: 16 query heads on 8 KV heads of 256 lanes, a
+# 4096-key window and the cap at 50.
 GEMMA_WINDOW, GEMMA_CAP = 4096, 50.0
-GEMMA_LABEL = f"head_dim=256,group=2,window={GEMMA_WINDOW},cap=50"
-# q's scale in phase 3's Gemma rows: scores of tens, which the cap bends
-GEMMA_Q_SCALE = 6.0
-GEMMA_KERNELS = ("decode", "decode_int8", "prefill", "chunk", "chunk_int8",
-                 "ragged", "ragged_int8")
+GEMMA_SHAPE = dict(
+    label=f"head_dim=256,group=2,window={GEMMA_WINDOW},cap=50", h=16, kv=8,
+    d=256, window=GEMMA_WINDOW, cap=GEMMA_CAP, q_scale=6.0,
+    decode_ctx=(1, 100, 4000, 4097, 5000, 6000, 7000, 8192),
+    prefill_lens=(6000, 4500), chunk_start=4864, pool_pages=2560,
+    max_seq_len=8192, seed=20)
+GEMMA_LABEL = GEMMA_SHAPE["label"]
+# Phi-3-mini: 32 query heads on 32 KV heads of 96 lanes (group 1: a
+# tile's 64 rows are 64 positions with 64 window bounds) and a 2047-key
+# window on every layer, no cap: decode rows up to the 4096 context,
+# prefill lanes past the window in the 4096 bucket, the chunk at 3008
+PHI3_MODEL = "phi-3-mini-4k-instruct"
+PHI3_WINDOW = 2047
+PHI3_SHAPE = dict(
+    label=f"head_dim=96,group=1,window={PHI3_WINDOW}", h=32, kv=32, d=96,
+    window=PHI3_WINDOW, cap=0.0, q_scale=1.0,
+    decode_ctx=(1, 100, 1000, 2047, 2048, 3000, 3500, 4096),
+    prefill_lens=(3800, 2600), chunk_start=3008, pool_pages=1536,
+    max_seq_len=4096, seed=21)
+PHI3_LABEL = PHI3_SHAPE["label"]
+WINDOWED_KERNELS = ("decode", "decode_int8", "prefill", "chunk",
+                    "chunk_int8", "ragged", "ragged_int8")
 # the served Gemma models, after the families (model, the forward checks'
 # prompt length, the served prompts' shortest and longest, profiled):
 # every served prompt is longer than the model's window (4096; 512)
@@ -4008,13 +4057,35 @@ GEMMA_MODELS = (("gemma-2-9b-it", 4600, (4500, 6000), True),
                 ("gemma-3-1b-it", 1200, (1000, 2000), False))
 GEMMA_STREAMS, GEMMA_TOKENS = 4, 64
 # 8 slots (the profile's) of 4600-token prompts fit the pool's pages
-GEMMA_MAX_SEQ_LEN, GEMMA_PAGES = 8192, 2560
-# phase 3's Gemma inputs: decode contexts (8 rows on 512-page tables),
-# prefill lanes (an 8192 bucket), the chunk's start, pool pages
-GEMMA_DECODE_CTX = (1, 100, 4000, 4097, 5000, 6000, 7000, 8192)
-GEMMA_PREFILL_LENS = (6000, 4500)
-GEMMA_CHUNK_START = 4864
-GEMMA_POOL_PAGES = 2560
+GEMMA_SIZE = dict(max_seq_len=8192, num_pages=2560, max_num_seqs=MAX_SEQS)
+# the engines a windowed model's streams are served on: EngineConfig
+# fields over the classic eager engine's (whole-prompt prefills), graph
+# windows (the jetstream profile) for the jetstream runs
+GEMMA_RUNS = ("classic", "jetstream", "jetstream_int8", "mixed",
+              "mixed_int8", "mixed_ngram")
+MIXED = dict(prefill_chunk_tokens=CHUNK, mixed_batch_tokens=CHUNK)
+WINDOWED_RUN_CFG = {
+    "chunked": dict(prefill_chunk_tokens=CHUNK),
+    "mixed": MIXED,
+    "mixed_int8": dict(MIXED, kv_cache_dtype="int8"),
+    "mixed_ngram": dict(MIXED, speculative_mode="ngram",
+                        num_speculative_tokens=SPEC_K),
+}
+# Phi-3 served after Gemma: the preset at its 4096 context (8 slots of
+# 256 pages), four streams of 2500-3800-token prompts past the window,
+# the forward checks and the profile at 3000-token prompts; then the same
+# weights under longrope (phi3_longrope_config) at an 8192 max length, two
+# ~6000-token prompts (on the mixed engine the second rides mixed steps
+# beside the first's decode), so that positions cross original_max_pos
+# (4096) in the prefill, the chunks and decode
+PHI3_SIZE = dict(max_seq_len=4096, num_pages=2048, max_num_seqs=MAX_SEQS)
+PHI3_RUNS = ("classic", "chunked", "jetstream", "jetstream_int8", "mixed",
+             "mixed_int8")
+PHI3_N_CHECK, PHI3_LENGTHS = 3000, (2500, 3800)
+LONGROPE_SIZE = dict(max_seq_len=8192, num_pages=1024, max_num_seqs=MAX_SEQS)
+LONGROPE_RUNS = ("classic", "jetstream", "mixed")
+LONGROPE_N_CHECK, LONGROPE_LENGTHS = 6000, (5800, 6200)
+LONGROPE_ORIGINAL = 4096
 # the library call's compiled function (torch.compile of flex_attention)
 # and the seconds its compiles took
 FLEX = {"fn": None, "compile_s": 0.0}
@@ -4025,15 +4096,15 @@ def flex_score_mod(score, b, h, q_idx, kv_idx):
     return GEMMA_CAP * torch.tanh(score / GEMMA_CAP)
 
 
-def flex_library(q, k, v, qpos, kv_lens):
+def flex_library(q, k, v, qpos, kv_lens, window: int, score_mod=None):
     """(call, what it is) of one torch.nn.attention.flex_attention call,
     compiled with torch.compile, over dense q [N, Q, H, D] and k/v
     [N, S, KV, D] (GQA left to flex_attention): query j of row n at
     qpos[n, j] sees key t iff t <= qpos[n, j], t < kv_lens[n] and
-    qpos[n, j] - GEMMA_WINDOW < t (the block mask's mask_mod), each scaled
-    score capped by flex_score_mod; or (None, why) where it does not
-    compile or run. A yardstick the port never calls; the compile is
-    not timed (FLEX["compile_s"])."""
+    qpos[n, j] - window < t (the block mask's mask_mod), each scaled
+    score passed through `score_mod` (flex_score_mod: Gemma's cap); or
+    (None, why) where it does not compile or run. A yardstick the port
+    never calls; the compile is not timed (FLEX["compile_s"])."""
     try:
         from torch.nn.attention.flex_attention import (create_block_mask,
                                                        flex_attention)
@@ -4045,13 +4116,13 @@ def flex_library(q, k, v, qpos, kv_lens):
         def mask_mod(b, h, q_idx, kv_idx):
             p = qpos[b, q_idx]
             return ((kv_idx <= p) & (kv_idx < kv_lens[b])
-                    & (kv_idx > p - GEMMA_WINDOW))
+                    & (kv_idx > p - window))
 
         block = create_block_mask(mask_mod, n, None, nq, s, device=q.device)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
 
         def call():
-            return FLEX["fn"](qt, kt, vt, score_mod=flex_score_mod,
+            return FLEX["fn"](qt, kt, vt, score_mod=score_mod,
                               block_mask=block, enable_gqa=True)
 
         t0 = time.monotonic()
@@ -4064,7 +4135,7 @@ def flex_library(q, k, v, qpos, kv_lens):
                      f"{str(e).splitlines()[0][:200] if str(e) else ''})"
 
 
-def flex_paged(q, kp, vp, tables, q_starts, kv_lens):
+def flex_paged(q, kp, vp, tables, q_starts, kv_lens, **kw):
     """flex_library over paged K/V gathered dense (bf16 pools
     [P, ps, KV*D], tables [N, W], q [N, Q, H, D]); the gather is not
     timed."""
@@ -4075,7 +4146,7 @@ def flex_paged(q, kp, vp, tables, q_starts, kv_lens):
     vd = vp[tables.long()].reshape(n, -1, kv, d)[:, :s]
     qpos = (q_starts[:, None]
             + torch.arange(nq, device=q.device)[None]).int()
-    return flex_library(q, kd, vd, qpos, kv_lens.int())
+    return flex_library(q, kd, vd, qpos, kv_lens.int(), **kw)
 
 
 def both(*calls):
@@ -4085,28 +4156,30 @@ def both(*calls):
     return lambda: [c() for c in calls]
 
 
-def gemma_kernel_checks(dev) -> dict:
-    """Phase 3 at Gemma-2-9B's local layers (16 query heads on 8 KV heads,
-    head_dim 256, a 4096-key window, scores capped at 50; q scaled by
-    GEMMA_Q_SCALE so that the cap bends): 8 decode rows at contexts 1 to
-    8192 on 512-page tables, two prefill lanes of 6000 and 4500 tokens in
-    an 8192 bucket (the served prompts'), a 256-token chunk at 4864 (the
-    window masks its first 768 keys), the mixed step's descriptors (the
-    decode rows beside that chunk), on bf16 and int8 pools; each row
-    named `kernel[GEMMA_LABEL]`, held against its plain version, its
-    bound counting only the keys inside the window, its library call
-    flex_attention with the window as its mask and the cap as its
-    score_mod (flex_library)."""
+def windowed_kernel_checks(dev, shape: dict) -> dict:
+    """Phase 3 at a windowed model's attention (`shape`: GEMMA_SHAPE,
+    PHI3_SHAPE; q scaled by its q_scale): 8 decode rows at its contexts
+    on tables of max_seq_len keys (with the same call's time without the
+    window beside it), two prefill lanes of its lengths in one
+    max_seq_len bucket, a 256-token chunk at its start (the window masks
+    its first keys), the mixed step's descriptors (the decode rows beside
+    that chunk), on bf16 and int8 pools; each row named
+    `kernel[label]`, held against its plain version, its bound counting
+    only the keys inside the window, its library call flex_attention with
+    the window as its mask and the cap, if any, as its score_mod
+    (flex_library)."""
     g = torch.Generator(device=dev)
-    g.manual_seed(20)
+    g.manual_seed(shape["seed"])
 
-    def rnd(*shape, scale=1.0):
-        return (torch.randn(shape, generator=g, device=dev)
+    def rnd(*dims, scale=1.0):
+        return (torch.randn(dims, generator=g, device=dev)
                 * scale).to(torch.bfloat16)
 
-    h, kv, d, w = GEMMA_H, GEMMA_KV, GEMMA_D, GEMMA_WINDOW
-    mods = dict(window=w, logit_cap=GEMMA_CAP)
-    n_pages = GEMMA_POOL_PAGES
+    h, kv, d, w = shape["h"], shape["kv"], shape["d"], shape["window"]
+    cap, qs, label = shape["cap"], shape["q_scale"], shape["label"]
+    mods = dict(window=w, logit_cap=cap)
+    lib_kw = dict(window=w, score_mod=flex_score_mod if cap else None)
+    n_pages = shape["pool_pages"]
     int8_w = att.kv_lane_width(kv, d, True)
     kp, vp = rnd(n_pages, PS, kv * d), rnd(n_pages, PS, kv * d)
     kp8, vp8 = (att.pack_kv_rows(x.reshape(-1, kv, d), int8_w).reshape(
@@ -4117,8 +4190,8 @@ def gemma_kernel_checks(dev) -> dict:
     perm = torch.randperm(n_pages - 1,
                           generator=torch.Generator().manual_seed(3))
     rows = {}
-    shapes = {"H": h, "KV": kv, "D": d, "window": w, "logit_cap": GEMMA_CAP,
-              "q_scale": GEMMA_Q_SCALE}
+    shapes = {"H": h, "KV": kv, "D": d, "window": w, "logit_cap": cap,
+              "q_scale": qs}
 
     def cost(q_numel, spans, row_bytes, desc):
         return paged_cost(q_numel, spans, row_bytes, desc, head_dim=d,
@@ -4126,12 +4199,12 @@ def gemma_kernel_checks(dev) -> dict:
 
     def run(name, kernel, plain, library, bound_row, extra):
         call, what = library
-        rows[name] = check(f"{name}[{GEMMA_LABEL}]", kernel, plain, call,
+        rows[name] = check(f"{name}[{label}]", kernel, plain, call,
                            bound_row, {**shapes, **extra}, head_dim=d,
                            library_backend=what)
 
-    pmax = GEMMA_MAX_SEQ_LEN // PS
-    ctx = list(GEMMA_DECODE_CTX)
+    pmax = shape["max_seq_len"] // PS
+    ctx = list(shape["decode_ctx"])
     table = torch.zeros((MAX_SEQS, pmax), dtype=torch.int32)
     used = 0
     for b, c in enumerate(ctx):
@@ -4140,7 +4213,7 @@ def gemma_kernel_checks(dev) -> dict:
         used += n
     table_d = table.to(dev)
     ctx_d = torch.tensor(ctx, dtype=torch.int32, device=dev)
-    q = rnd(MAX_SEQS, h, d, scale=GEMMA_Q_SCALE)
+    q = rnd(MAX_SEQS, h, d, scale=qs)
     for sfx, (k, v, kl, vl, row_bytes) in pools.items():
         run("decode" + sfx,
             lambda k=k, v=v: ca.paged_attention_decode(
@@ -4149,37 +4222,39 @@ def gemma_kernel_checks(dev) -> dict:
             lambda k=k, v=v: att.paged_attention_decode_ref(
                 q, k, v, table_d, ctx_d, page_size=PS, num_kv_heads=kv,
                 **mods),
-            flex_paged(q[:, None], kl, vl, table_d, ctx_d - 1, ctx_d),
+            flex_paged(q[:, None], kl, vl, table_d, ctx_d - 1, ctx_d,
+                       **lib_kw),
             cost(q.numel(), [(table[b], c - 1, 1, c)
                              for b, c in enumerate(ctx)], row_bytes,
                  MAX_SEQS),
             {"context_lens": ctx, "block_table": list(table.shape),
              "split_plan": ca.split_plan(pmax, PS, MAX_SEQS, kv,
                                          ca._num_sms(dev)),
-             # the same call without the window: a global layer's
-             "global_layer_ms": device_ms(
+             # the same call without the window (Gemma: a global layer's)
+             "no_window_ms": device_ms(
                  lambda k=k, v=v: ca.paged_attention_decode(
                      q, k, v, table_d, ctx_d, page_size=PS,
-                     num_kv_heads=kv, logit_cap=GEMMA_CAP), 20)})
+                     num_kv_heads=kv, logit_cap=cap), 20)})
 
-    n, s = 2, GEMMA_MAX_SEQ_LEN
-    lens = torch.tensor(GEMMA_PREFILL_LENS, dtype=torch.int32, device=dev)
-    qp = rnd(n, s, h, d, scale=GEMMA_Q_SCALE)
+    n, s = 2, shape["max_seq_len"]
+    lens = torch.tensor(shape["prefill_lens"], dtype=torch.int32,
+                        device=dev)
+    qp = rnd(n, s, h, d, scale=qs)
     kk, vv = rnd(n, s, kv, d), rnd(n, s, kv, d)
     qpos = torch.arange(s, device=dev, dtype=torch.int32)[None].repeat(n, 1)
     run("prefill", lambda: ca.prefill_attention(qp, kk, vv, lens, **mods),
         lambda: att.prefill_attention_ref(qp, kk, vv, lens, **mods),
-        flex_library(qp, kk, vv, qpos, lens),
+        flex_library(qp, kk, vv, qpos, lens, **lib_kw),
         prefill_cost(qp, kk, vv, lens, window=w),
         {"q": [n, s, h, d], "seq_lens": lens.tolist()})
 
-    start, c = GEMMA_CHUNK_START, CHUNK
+    start, c = shape["chunk_start"], CHUNK
     width = (start + c) // PS + CHUNK // PS - 1
     pages = torch.zeros((width,), dtype=torch.int32)
     pages[:(start + c) // PS] = perm[used:used + (start + c) // PS] + 1
     pages_d = pages.to(dev)
     start_d = torch.tensor([start], device=dev)
-    qc = rnd(c, h, d, scale=GEMMA_Q_SCALE)
+    qc = rnd(c, h, d, scale=qs)
     for sfx, (k, v, kl, vl, row_bytes) in pools.items():
         run("chunk" + sfx,
             lambda k=k, v=v: ca.chunk_prefill_attention(
@@ -4189,22 +4264,23 @@ def gemma_kernel_checks(dev) -> dict:
                 qc, k, v, pages_d, start, page_size=PS, num_kv_heads=kv,
                 **mods),
             flex_paged(qc[None], kl, vl, pages_d[None], start_d,
-                       start_d + c),
+                       start_d + c, **lib_kw),
             cost(qc.numel(), [(pages, start, c, start + c)], row_bytes, 0),
             {"q": [c, h, d], "start": start})
 
     desc = att.ragged_descriptors(table_d, ctx_d, pages_d, start, c)
     tabs, kv_lens, q_starts = desc
     tabs_h = tabs.cpu()
-    qr = rnd(MAX_SEQS + c, h, d, scale=GEMMA_Q_SCALE)
+    qr = rnd(MAX_SEQS + c, h, d, scale=qs)
     spans = [(tabs_h[r], int(q_starts[r]), 1 if r < MAX_SEQS else c,
               int(kv_lens[r])) for r in range(MAX_SEQS + 1)]
     for sfx, (k, v, kl, vl, row_bytes) in pools.items():
         kw = dict(page_size=PS, num_kv_heads=kv, num_decode=MAX_SEQS)
         dec_lib = flex_paged(qr[:MAX_SEQS, None], kl, vl, tabs[:MAX_SEQS],
-                             q_starts[:MAX_SEQS], kv_lens[:MAX_SEQS])
+                             q_starts[:MAX_SEQS], kv_lens[:MAX_SEQS],
+                             **lib_kw)
         chk_lib = flex_paged(qr[MAX_SEQS:][None], kl, vl, tabs[-1:],
-                             q_starts[-1:], kv_lens[-1:])
+                             q_starts[-1:], kv_lens[-1:], **lib_kw)
         run("ragged" + sfx,
             lambda k=k, v=v, kw=kw: ca.ragged_paged_attention(
                 qr, k, v, tabs, kv_lens, q_starts, **kw, **mods),
@@ -4213,15 +4289,17 @@ def gemma_kernel_checks(dev) -> dict:
             (both(dec_lib[0], chk_lib[0]), dec_lib[1]),
             cost(qr.numel(), spans, row_bytes, 2 * (MAX_SEQS + 1)),
             {"num_decode": MAX_SEQS, "decode_q": 1, "chunk_start": start})
-    emit({"phase": "gemma_library", "flex_compile_s": FLEX["compile_s"]})
+    emit({"phase": "windowed_library", "label": label,
+          "flex_compile_s": FLEX["compile_s"]})
     return rows
 
 
-def gemma_prompts(lo: int, hi: int, seed: int) -> list:
-    """GEMMA_STREAMS random prompts of lo to hi tokens."""
+def gemma_prompts(lo: int, hi: int, seed: int,
+                  n: int = GEMMA_STREAMS) -> list:
+    """n random prompts of lo to hi tokens."""
     rng = np.random.default_rng(seed)
-    return [rng.integers(3, 256, size=int(n)).tolist()
-            for n in rng.integers(lo, hi + 1, size=GEMMA_STREAMS)]
+    return [rng.integers(3, 256, size=int(k)).tolist()
+            for k in rng.integers(lo, hi + 1, size=n)]
 
 
 def timed_run(engine: Engine, prompts, logprobs=None) -> tuple:
@@ -4284,68 +4362,81 @@ def ttft_alone(engine: Engine, prompt) -> float:
     return ms
 
 
-def gemma_phase(model: str, n_check: int, lengths, profiled: bool,
-                eager_cfg: dict, jet_cfg: dict) -> dict:
-    """Gemma-2/3 at full width and depth, random bf16 weights from seed 0,
-    every served prompt longer than its window:
+def windowed_phase(model: str, n_check: int, lengths, eager_cfg: dict,
+                   jet_cfg: dict, *, size: dict, runs, kernels,
+                   profiled: bool = False, model_cfg=None, params=None,
+                   int8_checks: bool = True, n_streams: int = GEMMA_STREAMS,
+                   http: bool = False) -> dict:
+    """A windowed model (Gemma-2/3, Phi-3) at full width and depth, every
+    served prompt longer than its window, all engines at `size` (the same
+    slots: a decode step's shapes fix its bits), on `model_cfg` (None: the
+    preset's) and `params` (None: random bf16 weights from seed 0):
     - phase 4's forwards (three_paths) at an n_check-token prefill (then
       its decode and verify rows) and an n_check + 100-token chunked
-      prompt on bf16 and int8 pools, every attention call held against the
-      plain version and the logits within LOGIT_REL_TOL;
-    - GEMMA_STREAMS greedy streams of GEMMA_TOKENS tokens from prompts of
-      `lengths` tokens on: a classic eager engine (whole-prompt prefill,
-      its 2 logprobs the reference), the jetstream graph-window engine
-      (must equal it token for token: the same kernels), a
-      mixed_batch_tokens=256 engine (chunks and mixed steps: equal, or
-      first different at a near-tie) and the mixed engine with n-gram
-      speculation (verify windows beside the chunks); on int8 pools the
-      jetstream engine (its 2 logprobs the int8 reference) and a mixed
-      engine held to it the same way; TTFT, mean ITL and tokens per
-      second of each;
-    - one prompt's TTFT alone, whole and in 256-token chunks;
+      prompt on bf16 pools and, with int8_checks, int8 pools, every
+      attention call held against the plain version and the logits
+      within LOGIT_REL_TOL;
+    - n_streams greedy streams of GEMMA_TOKENS tokens from prompts of
+      `lengths` tokens on each of `runs`: `classic`, an eager engine
+      prefilling whole prompts (its 2 logprobs the reference), `chunked`
+      (its 256-token chunks), the `jetstream` graph-window engine (must
+      equal classic token for token: the same kernels on the same
+      shapes), `jetstream_int8` (its 2 logprobs the int8 reference),
+      `mixed` and `mixed_int8` (mixed_batch_tokens=256: chunks and mixed
+      steps) and `mixed_ngram` (n-gram speculation beside them); every
+      other run equal to its pool's reference or first different at a
+      near-tie; TTFT, mean ITL and tokens per second of each; with
+      `http`, the OpenAI server on the jetstream engine with phase 5's
+      four concurrent requests (window_serve);
+    - with a mixed run, one prompt's TTFT alone, whole and in 256-token
+      chunks;
     - with `profiled`, where a graph-window decode step's time goes at 8
-      slots past the window (n_check-token prompts).
-    -> {"launches", "variants", "peak_gib"} as family_phase."""
-    torch.cuda.reset_peak_memory_stats()
-    # every engine has the same slots: a decode step's shapes, so its bits
-    size = dict(max_seq_len=GEMMA_MAX_SEQ_LEN, num_pages=GEMMA_PAGES,
-                max_num_seqs=MAX_SEQS)
+      slots past the window (n_check-token prompts);
+    every kernel of `kernels` must launch with the window.
+    -> {"launches", "variants", "row"}: each served run's counts, and
+    the served runs' numbers."""
     classic_cfg = dict(eager_cfg, model=model, prefill_chunk_tokens=0,
                        **size)
-    mixed_cfg = dict(eager_cfg, model=model, mixed_batch_tokens=CHUNK,
-                     **size)
     t0 = time.monotonic()
-    engine = Engine(EngineConfig(**classic_cfg))
+    engine = Engine(EngineConfig(**classic_cfg), model_cfg=model_cfg,
+                    params=params)
     torch.cuda.synchronize()
     cfg = engine.model_cfg
+    weights = engine.model
     windows = [llama._attn_kwargs(cfg, l).get("window", 0)
                for l in range(cfg.num_layers)]
-    emit({"phase": "gemma_engine", "model": model,
+    longrope = cfg.rope_longrope_scaling
+    emit({"phase": "windowed_engine", "model": cfg.name,
           "seconds": time.monotonic() - t0, "layers": cfg.num_layers,
           "hidden": cfg.hidden_size, "heads": cfg.num_heads,
           "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
-          "vocab": cfg.vocab_size,
+          "vocab": cfg.vocab_size, "max_seq_len": size["max_seq_len"],
           "features": {k: getattr(cfg, k) for k in (
               "sliding_window", "sliding_window_pattern",
               "attn_logit_softcapping", "final_logit_softcapping",
               "query_pre_attn_scalar", "post_norms", "rope_theta",
-              "rope_local_theta", "rope_scaling_factor", "qk_norm")},
+              "rope_local_theta", "rope_scaling_factor", "qk_norm",
+              "max_position_embeddings")},
+          "longrope": None if longrope is None else {
+              "original_max_pos": longrope[2], "factors": len(longrope[0]),
+              "attention_factor": llama._longrope_args(cfg)[3]},
           "local_layers": sum(1 for x in windows if x),
           "params": loader.num_params(cfg),
-          "weights_gib": quant.param_bytes(engine.model) / 2**30,
+          "weights_gib": quant.param_bytes(weights) / 2**30,
           "kv_pool_gib": engine.kv_spec.pool_bytes / 2**30})
     # the decode and verify rows read past the prefill: a longer prompt
     sizes = dict(n_prefill=n_check, n_prompt=n_check + 100)
     with torch.inference_mode():
         forward_checks(engine, **sizes)
-        eng8 = Engine(EngineConfig(**classic_cfg, kv_cache_dtype="int8"),
-                      params=engine.model)
-        forward_checks(eng8, **sizes)
-    del eng8
-    release()
+        if int8_checks:
+            eng8 = Engine(EngineConfig(**classic_cfg, kv_cache_dtype="int8"),
+                          model_cfg=model_cfg, params=weights)
+            forward_checks(eng8, **sizes)
+            del eng8
+            release()
 
-    prompts = gemma_prompts(*lengths, seed=31)
-    served, row = [], {"model": model,
+    prompts = gemma_prompts(*lengths, seed=31, n=n_streams)
+    served, row = [], {"model": cfg.name,
                        "prompt_tokens": [len(p) for p in prompts]}
 
     def serve(name, eng, logprobs=None):
@@ -4356,88 +4447,187 @@ def gemma_phase(model: str, n_check: int, lengths, profiled: bool,
         row[name] = {**timing, "launches": served[-1]["launches"]}
         return out
 
-    ref = serve("classic", engine, logprobs=2)
-    refs = {"": ref}
-    for sfx in ("", "_int8"):
-        jet = Engine(EngineConfig(**dict(jet_cfg, model=model, **size),
-                                  kv_cache_dtype=sfx[1:] or "auto"),
-                     params=engine.model)
-        t0 = time.monotonic()
-        jet.warmup()
-        emit({"phase": "warmup", "engine": f"jetstream{sfx} {model}",
-              "seconds": time.monotonic() - t0, **jet.windows.stats()})
-        got = serve("jetstream_run" + sfx, jet, logprobs=2 if sfx else None)
-        row["jetstream" + sfx] = {"graphs": jet.windows.stats()}
-        if sfx:
-            refs[sfx] = got
-        else:
-            row["jetstream"]["agreement"] = stream_agreement(got, ref)
-        if profiled and not sfx:
-            with torch.inference_mode():
-                emit({"phase": "profile", "model": model, "weights": "none",
-                      **profile_steps(jet, 4, prompt_len=n_check)})
-        del jet
-        release()
-    for name, kw in (("mixed", {}), ("mixed_int8",
-                                     dict(kv_cache_dtype="int8")),
-                     ("mixed_ngram", dict(speculative_mode="ngram",
-                                          num_speculative_tokens=SPEC_K))):
-        eng = Engine(EngineConfig(**mixed_cfg, **kw), params=engine.model)
-        got = serve(name, eng)
+    refs = {"": serve("classic", engine, logprobs=2)}
+    for name in runs:
+        if name == "classic":
+            continue
         pool = "_int8" if "int8" in name else ""
-        row[name].update(agreement=stream_agreement(got, refs[pool]),
-                         mixed_count=eng.metrics.mixed_count,
-                         mixed_spec_count=eng.metrics.mixed_spec_count,
-                         spec_verify_steps=eng.metrics.spec_verify_steps)
-        if name == "mixed":
-            row["ttft_alone_ms"] = {"whole_prompt": ttft_alone(
-                engine, prompts[0]), "chunks_of_256": ttft_alone(
-                eng, prompts[0]), "prompt_tokens": len(prompts[0])}
+        if name.startswith("jetstream"):
+            eng = Engine(EngineConfig(**dict(jet_cfg, model=model, **size),
+                                      kv_cache_dtype=pool[1:] or "auto"),
+                         model_cfg=model_cfg, params=weights)
+            t0 = time.monotonic()
+            eng.warmup()
+            emit({"phase": "warmup", "engine": f"{name} {cfg.name}",
+                  "seconds": time.monotonic() - t0, **eng.windows.stats()})
+            got = serve(name + "_run", eng, logprobs=2 if pool else None)
+            row[name] = {"graphs": eng.windows.stats()}
+            if pool:
+                refs[pool] = got
+            else:
+                row[name]["agreement"] = stream_agreement(got, refs[""])
+                if http:
+                    row["jetstream_http"] = window_serve(eng)
+                    served.append({k: row["jetstream_http"][k]
+                                   for k in ("launches", "variants")})
+                if profiled:
+                    with torch.inference_mode():
+                        emit({"phase": "profile", "model": cfg.name,
+                              "weights": "none",
+                              **profile_steps(eng, 4, prompt_len=n_check)})
+        else:
+            eng = Engine(EngineConfig(**dict(classic_cfg,
+                                             **WINDOWED_RUN_CFG[name])),
+                         model_cfg=model_cfg, params=weights)
+            got = serve(name, eng)
+            row[name].update(agreement=stream_agreement(got, refs[pool]),
+                             mixed_count=eng.metrics.mixed_count,
+                             mixed_spec_count=eng.metrics.mixed_spec_count,
+                             spec_verify_steps=eng.metrics.spec_verify_steps)
+            if name == "mixed":
+                row["ttft_alone_ms"] = {"whole_prompt": ttft_alone(
+                    engine, prompts[0]), "chunks_of_256": ttft_alone(
+                    eng, prompts[0]), "prompt_tokens": len(prompts[0])}
         del eng
         release()
-    emit({"phase": "gemma_serve", **row})
-    if row["jetstream"]["agreement"] != {"equal": True}:
-        raise AssertionError(f"{model}: graph windows differ from the eager "
-                             f"engine: {row['jetstream']['agreement']}")
-    bad = [k for k in ("mixed", "mixed_int8", "mixed_ngram")
-           if not (row[k]["agreement"]["equal"]
-                   or row[k]["agreement"]["near_tie"])]
+    emit({"phase": "windowed_serve", **row})
+    if "jetstream" in runs and row["jetstream"]["agreement"] != {
+            "equal": True}:
+        raise AssertionError(f"{cfg.name}: graph windows differ from the "
+                             f"eager engine: {row['jetstream']['agreement']}")
+    held = [k for k in runs if k in WINDOWED_RUN_CFG]
+    bad = [k for k in held if not (row[k]["agreement"]["equal"]
+                                   or row[k]["agreement"]["near_tie"])]
     if bad:
-        raise AssertionError(f"{model}: {bad} streams first differ from the "
-                             f"classic engine's past a near-tie: {row}")
-    if (row["mixed"]["mixed_count"] == 0
-            or row["mixed_int8"]["mixed_count"] == 0
-            or row["mixed_ngram"]["spec_verify_steps"] == 0):
-        raise AssertionError(f"{model}: no mixed or verify steps ran: {row}")
+        raise AssertionError(f"{cfg.name}: {bad} streams first differ from "
+                             f"their reference past a near-tie: {row}")
+    if (any(row[k]["mixed_count"] == 0 for k in held if "mixed" in k)
+            or any(row[k]["spec_verify_steps"] == 0
+                   for k in held if "ngram" in k)):
+        raise AssertionError(f"{cfg.name}: no mixed or verify steps ran: "
+                             f"{row}")
     counts = {}
     for run in served:
         for k, n in run["variants"].items():
             counts[k] = counts.get(k, 0) + n
-    missing = [k for k in GEMMA_KERNELS if not counts.get(f"{k}[window]")]
+    missing = [k for k in kernels if not counts.get(f"{k}[window]")]
     if missing:
-        raise AssertionError(f"{model}: windowed kernels never launched: "
+        raise AssertionError(f"{cfg.name}: windowed kernels never launched: "
                              f"{missing} ({counts})")
-    out = {"launches": [s["launches"] for s in served],
-           "variants": [s["variants"] for s in served],
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    del engine
+    del engine, weights
     release()
-    return out
+    return {"launches": [s["launches"] for s in served],
+            "variants": [s["variants"] for s in served], "row": row}
+
+
+def gemma_phase(model: str, n_check: int, lengths, profiled: bool,
+                eager_cfg: dict, jet_cfg: dict) -> dict:
+    """One Gemma model's windowed_phase: 8 slots on GEMMA_SIZE's pages of
+    an 8192 max length, every run of GEMMA_RUNS, the forwards on both pool
+    kinds. -> {"launches", "variants", "peak_gib"} as family_phase."""
+    torch.cuda.reset_peak_memory_stats()
+    out = windowed_phase(model, n_check, lengths, eager_cfg, jet_cfg,
+                         size=GEMMA_SIZE, runs=GEMMA_RUNS,
+                         kernels=WINDOWED_KERNELS, profiled=profiled)
+    return {"launches": out["launches"], "variants": out["variants"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phi3_longrope_config():
+    """Phi-3-mini's widths under longrope, through the port's
+    from_hf_config from the config.json dict of a 128k checkpoint written
+    here: 48 short and 48 long factors from seed 0 (near 1, and 1 to 8;
+    the real arrays are checkpoint data), original_max_pos 4096 of
+    131072 positions, and a sliding window wider than any context of the
+    phase (a window on every layer, as Phi-3's)."""
+    p = ModelConfig.from_model_name(PHI3_MODEL)
+    rng = np.random.default_rng(0)
+    half = p.head_dim // 2
+    hf = {"architectures": ["Phi3ForCausalLM"], "model_type": "phi3",
+          "vocab_size": p.vocab_size, "hidden_size": p.hidden_size,
+          "intermediate_size": p.intermediate_size,
+          "num_hidden_layers": p.num_layers,
+          "num_attention_heads": p.num_heads,
+          "num_key_value_heads": p.num_kv_heads, "hidden_act": "silu",
+          "rms_norm_eps": p.rms_norm_eps, "rope_theta": p.rope_theta,
+          "max_position_embeddings": 131072,
+          "original_max_position_embeddings": LONGROPE_ORIGINAL,
+          "sliding_window": 262144, "tie_word_embeddings": False,
+          "eos_token_id": p.eos_token_id, "bos_token_id": p.bos_token_id,
+          "rope_scaling": {
+              "type": "longrope",
+              "short_factor": rng.uniform(1.0, 1.3, half).tolist(),
+              "long_factor": rng.uniform(1.0, 8.0, half).tolist()}}
+    cfg = ModelConfig.from_hf_config(hf, name=f"{PHI3_MODEL}-longrope")
+    if (llama.unported_model_features(cfg)
+            or cfg.rope_longrope_scaling[2] != LONGROPE_ORIGINAL
+            or cfg.head_dim != p.head_dim):
+        raise AssertionError(f"the longrope config is not Phi-3's: {cfg}")
+    return cfg
+
+
+def phi3_phase(eager_cfg: dict, jet_cfg: dict) -> dict:
+    """Phi-3-mini (PHI3_MODEL: 32 layers, head_dim 96, 32/32 heads, a
+    2047-key window on every layer) at full width and depth, random bf16
+    weights from seed 0 (the engine's own loader): windowed_phase at
+    PHI3_SIZE with PHI3_RUNS, the forwards on both pool kinds, the
+    OpenAI server on its jetstream engine, the graph-window step
+    profiled; then the same weights under longrope
+    (phi3_longrope_config) at LONGROPE_SIZE: the forwards on bf16 pools
+    and two ~6000-token prompts on LONGROPE_RUNS, past original_max_pos.
+    -> {"launches", "variants", "peak_gib"} as family_phase, over both."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ModelConfig.from_model_name(PHI3_MODEL, dtype="bfloat16")
+    weights = loader.load_or_init(cfg, None, seed=0, quantization="none",
+                                  device=torch.device("cuda"),
+                                  dtype=torch.bfloat16)
+    four_k = windowed_phase(PHI3_MODEL, PHI3_N_CHECK, PHI3_LENGTHS,
+                            eager_cfg, jet_cfg, size=PHI3_SIZE,
+                            runs=PHI3_RUNS, kernels=WINDOWED_KERNELS,
+                            profiled=True, params=weights, http=True)
+    longrope = windowed_phase(
+        PHI3_MODEL, LONGROPE_N_CHECK, LONGROPE_LENGTHS, eager_cfg, jet_cfg,
+        size=LONGROPE_SIZE, runs=LONGROPE_RUNS,
+        kernels=("decode", "prefill", "chunk", "ragged"),
+        model_cfg=phi3_longrope_config(), params=weights, int8_checks=False,
+        n_streams=2)
+    emit({"phase": "phi3_serve", "ttft_ms": {
+        "phi3": four_k["row"]["jetstream_run"]["ttft_ms"],
+        "phi3_longrope": longrope["row"]["classic"]["ttft_ms"]},
+        "tokens_per_s": four_k["row"]["jetstream_run"]["tokens_per_s"],
+        "itl_ms_mean": four_k["row"]["jetstream_run"]["itl_ms_mean"]})
+    del weights
+    release()
+    return {"launches": four_k["launches"] + longrope["launches"],
+            "variants": four_k["variants"] + longrope["variants"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
 # the kernels line's rows at Gemma-2-9B's shape, their launches the served
-# gemma-2-9b-it phase's windowed launches
+# gemma-2-9b-it phase's windowed launches, and at Phi-3's, the served
+# Phi-3 phase's launches at head_dim 96
 FAMILY_ROWS += [(GEMMA_LABEL, k, "gemma-2-9b-it", f"{k}[window]")
-                for k in GEMMA_KERNELS]
+                for k in WINDOWED_KERNELS]
+FAMILY_ROWS += [(PHI3_LABEL, k, PHI3_MODEL, f"{k}[head_dim=96]")
+                for k in WINDOWED_KERNELS]
 
 
 def gemma_only(eager_cfg: dict, jet_cfg: dict) -> None:
     """`--gemma`: phase 3's Gemma rows, then the Gemma models' phase."""
     dev = torch.device("cuda")
-    rows = gemma_kernel_checks(dev)
+    rows = windowed_kernel_checks(dev, GEMMA_SHAPE)
     for model, n_check, lengths, profiled in GEMMA_MODELS:
         gemma_phase(model, n_check, lengths, profiled, eager_cfg, jet_cfg)
     emit({"phase": "gemma_only", "kernel_ms": {
+        r["name"]: r["kernel_ms"] for r in rows.values()}})
+
+
+def phi3_only(eager_cfg: dict, jet_cfg: dict) -> None:
+    """`--phi3`: phase 3's Phi-3 rows, then the Phi-3 phase."""
+    dev = torch.device("cuda")
+    rows = windowed_kernel_checks(dev, PHI3_SHAPE)
+    out = phi3_phase(eager_cfg, jet_cfg)
+    emit({"phase": "phi3_only", "peak_gib": out["peak_gib"], "kernel_ms": {
         r["name"]: r["kernel_ms"] for r in rows.values()}})
 
 
@@ -4813,11 +5003,11 @@ def main(argv=None) -> int:
     if args not in ([], ["--kernels-only"], ["--mla-chunked-ttft"],
                     ["--mla-verify-profile"], ["--mla-prefill-profile"],
                     ["--window-profile"], ["--observability"],
-                    ["--trace-stress"], ["--gemma"]):
+                    ["--trace-stress"], ["--gemma"], ["--phi3"]):
         print("usage: chip_smoke.py [--kernels-only | --mla-chunked-ttft | "
               "--mla-verify-profile | --mla-prefill-profile | "
               "--window-profile | --observability | --trace-stress | "
-              "--gemma]", file=sys.stderr)
+              "--gemma | --phi3]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -4831,8 +5021,9 @@ def main(argv=None) -> int:
     emit({"phase": "card", "nvidia_smi": card})
 
     t0 = time.monotonic()
-    ca.build()
+    lib = ca.build()
     emit({"phase": "build", "seconds": time.monotonic() - t0,
+          "library_bytes": os.path.getsize(lib._name),
           "ptxas": ptxas_usage(ca.build_log)})
 
     base_cfg = dict(model=MODEL, page_size=PS, num_pages=NUM_PAGES,
@@ -4872,10 +5063,14 @@ def main(argv=None) -> int:
     if args == ["--gemma"]:
         gemma_only(eager_cfg, jet_cfg)
         return 0
+    if args == ["--phi3"]:
+        phi3_only(eager_cfg, jet_cfg)
+        return 0
     rows = kernel_checks(dev)
     family_rows = {label: shape_kernel_checks(dev, label, h, kv, d, names)
                    for label, h, kv, d, names in FAMILY_SHAPES}
-    family_rows[GEMMA_LABEL] = gemma_kernel_checks(dev)
+    family_rows.update({shape["label"]: windowed_kernel_checks(dev, shape)
+                        for shape in (GEMMA_SHAPE, PHI3_SHAPE)})
     if args:
         emit({"phase": "kernels_only", "kernel_ms": {
             row["name"]: row["kernel_ms"] for row in
@@ -5058,10 +5253,12 @@ def main(argv=None) -> int:
     families = {model: family_phase(model, pools, profiled, eager_cfg,
                                     jet_cfg)
                 for model, pools, profiled in FAMILY_MODELS}
-    # Gemma-2 and Gemma-3, after the families (their phase, see above)
+    # Gemma-2 and Gemma-3, then Phi-3, after the families (their phases,
+    # see above)
     families.update({model: gemma_phase(model, n_check, lengths, profiled,
                                         eager_cfg, jet_cfg)
                      for model, n_check, lengths, profiled in GEMMA_MODELS})
+    families[PHI3_MODEL] = phi3_phase(eager_cfg, jet_cfg)
     # the mixture-of-experts models (phase 13), after the families
     families.update({model: moe_phase(model, q, mixed, eager_cfg, jet_cfg)
                      for model, q, mixed in MOE_MODELS})

@@ -120,9 +120,12 @@ inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
 //     (V transposed by ldmatrix.trans). Tile rows are padded from D to
 //     D + 8 bf16 values, which shifts consecutive rows by 16 bytes, so the
 //     eight rows of an ldmatrix phase hit disjoint banks for every D % 16.
-//     head_dim is a template parameter (with_head_dim: 32, 64, 128 and
-//     256, the port's servable presets), so the loops over D are
-//     straight-line code the compiler can schedule.
+//     head_dim is a template parameter (with_head_dim: 32, 64, 96, 128
+//     and 256, the head_dims of the port's servable presets below the
+//     latent row; 96 is Phi-3's), so the loops over D are straight-line
+//     code the compiler can schedule. At D = 96 a padded row is 208
+//     bytes, so the eight rows of an ldmatrix phase start at bytes
+//     0, 80, 32, 112, 64, 16, 96, 48 (mod 128): disjoint banks still.
 //   - Registers: a thread holds its rows' O accumulator, D / 2 f32 (128 at
 //     D = 256). Up to D = 128 it also keeps q's MMA fragments for the whole
 //     walk and loads a k16 step's V fragments for all of D before their
@@ -175,7 +178,8 @@ constexpr int kLatentDim = 640;
 // The head_dims the kernels take: attend_mma's (with_head_dim) and the
 // latent row, those of the port's servable presets.
 inline bool tile_head_dim(int d) {
-  return d == 32 || d == 64 || d == 128 || d == 256 || d == kLatentDim;
+  return d == 32 || d == 64 || d == 96 || d == 128 || d == 256
+         || d == kLatentDim;
 }
 
 inline bool tile_fits(int group, int d) {
@@ -368,7 +372,10 @@ struct Int8Tiles {
     return 2 * (size_t)kKeyTile * (d + 8) * sizeof(__nv_bfloat16)
            + 2 * (size_t)kKeyTile * sizeof(float);
   }
-  // as Bf16Tiles::copy_key; part 0 also copies K's scale chunk, part 1 V's
+  // as Bf16Tiles::copy_key; part 0 also copies K's scale chunk, part 1 V's.
+  // A row's D / 16 chunks need not split evenly over the four parts (6 at
+  // D = 96: parts 2 and 3 copy one fewer); each thread waits for its own
+  // copies and the barrier after the wait covers the rest.
   template <int kD>
   __device__ __forceinline__ void copy_key(char* stage, int t, int part,
                                            long long row, int kvh) const {
@@ -434,7 +441,7 @@ inline size_t tile_smem_bytes() {
 }
 
 // Runs fn(std::integral_constant<int, D>{}) for the head_dim d, one of
-// attend_mma's (32, 64, 128, 256): the tile is compiled for each, so its
+// attend_mma's (32, 64, 96, 128, 256): the tile is compiled for each, so its
 // loops over D are straight-line code. Refuses any other d (the latent
 // row runs its own kernels).
 template <typename Fn>
@@ -442,6 +449,7 @@ inline int with_head_dim(int d, Fn&& fn) {
   switch (d) {
     case 32: return fn(std::integral_constant<int, 32>{});
     case 64: return fn(std::integral_constant<int, 64>{});
+    case 96: return fn(std::integral_constant<int, 96>{});
     case 128: return fn(std::integral_constant<int, 128>{});
     case 256: return fn(std::integral_constant<int, 256>{});
   }

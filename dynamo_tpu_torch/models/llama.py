@@ -1,10 +1,11 @@
 """Llama decoder over the paged KV cache, in PyTorch.
 
 Port of `dynamo_tpu/models/llama.py` (Llama 3.x: SwiGLU, RMSNorm, rotary
-embeddings with optional llama3 or YaRN scaling, GQA, tied or untied
-head), with DeepSeek-V2's multi-head latent attention (`kv_lora_rank`:
-the absorbed form of `_qkv_mla`, one shared latent row per token in the
-pools) and the ModelConfig switches of three more dense families:
+embeddings with optional llama3, YaRN or Phi-3's longrope scaling, GQA,
+tied or untied head), with DeepSeek-V2's multi-head latent attention
+(`kv_lora_rank`: the absorbed form of `_qkv_mla`, one shared latent row
+per token in the pools) and the ModelConfig switches of three more dense
+families:
 Qwen2/2.5 (`attention_bias`: q/k/v biases), Qwen3 (`qk_norm`: a per-head
 RMSNorm of q and k over head_dim, before rope) and Gemma 1
 (`hidden_act="gelu_tanh"`: GeGLU; `rms_norm_unit_offset`: norms scale by
@@ -84,7 +85,8 @@ from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops import attention as att
 from dynamo_tpu_torch.ops import cuda_attention
 from dynamo_tpu_torch.ops import moe as moe_ops
-from dynamo_tpu_torch.ops.rope import rope_cos_sin, rotate, yarn_get_mscale
+from dynamo_tpu_torch.ops.rope import (longrope_attention_factor,
+                                       rope_cos_sin, rotate, yarn_get_mscale)
 
 
 def _weight(shape, device, dtype) -> nn.Parameter:
@@ -103,15 +105,15 @@ def _expert_weight(shape, device, dtype) -> nn.Parameter:
 
 def unported_model_features(m: ModelConfig) -> List[str]:
     """ModelConfig features this model does not implement: an activation
-    other than SwiGLU or GeGLU, a head_dim the attention kernels are not
-    built for (Phi-3's 96; an MLA model's rows are its latent row, which
-    the kernels take at 640 and the plain versions at any width), and
-    Phi-3's longrope."""
+    other than SwiGLU or GeGLU, and a head_dim the attention kernels are
+    not built for (one outside `cuda_attention.TILE_HEAD_DIMS`, such as 80
+    or 112; an MLA model's rows are its latent row, which the kernels take
+    at 640 and the plain versions at any width). Every rope scaling of
+    `ModelConfig` is served, Phi-3's longrope among them."""
     checks = [
         ("hidden_act", m.hidden_act not in ("silu", "gelu_tanh")),
         ("head_dim", not m.is_mla
          and m.head_dim not in cuda_attention.TILE_HEAD_DIMS),
-        ("rope_longrope_scaling", m.rope_longrope_scaling is not None),
     ]
     return [name for name, bad in checks if bad]
 
@@ -269,16 +271,28 @@ def _attn_kwargs(cfg: ModelConfig, l: int) -> dict:
     return kw
 
 
+def _longrope_args(cfg: ModelConfig):
+    """Phi-3's longrope argument of rope_cos_sin (JAX `_longrope_args`):
+    (short factors, long factors, original_max_pos, attention factor over
+    the checkpoint's context extension), or None."""
+    if cfg.rope_longrope_scaling is None:
+        return None
+    short, long, orig = cfg.rope_longrope_scaling
+    return short, long, orig, longrope_attention_factor(
+        cfg.max_position_embeddings, orig)
+
+
 def _rope(cfg: ModelConfig, positions: torch.Tensor,
           theta: Optional[float] = None, position_scale: float = 1.0):
     """cos/sin of `positions` at the rotated width (head_dim, or MLA's
     qk_rope_head_dim), at rope_theta unless `theta` is given, positions
-    divided by `position_scale`."""
+    divided by `position_scale`, with the config's rope scaling."""
     width = cfg.qk_rope_head_dim if cfg.is_mla else cfg.head_dim
     return rope_cos_sin(positions, width,
                         cfg.rope_theta if theta is None else theta,
                         llama3_scaling=cfg.rope_llama3_scaling,
                         yarn_scaling=cfg.rope_yarn_scaling,
+                        longrope_scaling=_longrope_args(cfg),
                         position_scale=position_scale)
 
 

@@ -51,8 +51,9 @@ variant in `VARIANT_LAUNCHES` (`decode[head_dim=64]`,
 launch counts under its row shape and under its head_dim), so a run can
 show which shapes of a kernel its main path reached: the ragged kernel's
 verify windows (decode_q = K + 1, with a chunk or, C = 0, without one), a
-draft model's head_dim, Gemma's head_dim 256, and the launches of a layer
-with a sliding window (`decode[window]`) or a logit cap (`decode[cap]`).
+draft model's head_dim, Gemma's head_dim 256, Phi-3's 96, and the launches
+of a layer with a sliding window (`decode[window]`) or a logit cap
+(`decode[cap]`).
 Under a CUDA graph capture a wrapper call records its kernel instead of
 launching it: `counting_capture` takes such calls back out of both counts
 and keeps them with the graph, and `count_replay` adds them at every
@@ -92,11 +93,11 @@ VARIANT_LAUNCHES: Dict[str, int] = collections.Counter()
 # reports its own values (dtt_chunk_positions, dtt_decode_split_keys) and
 # its entry points refuse a launch that disagrees with them.
 TILE_ROWS = 64
-# the head_dims the kernels take; LATENT_DIM, MLA's latent row
-# (DeepSeek-V2's 576 lanes padded to 640), runs attention_common.cuh's
-# latent tile, the other four attend_mma
+# the head_dims the kernels take (96 is Phi-3's); LATENT_DIM, MLA's latent
+# row (DeepSeek-V2's 576 lanes padded to 640), runs attention_common.cuh's
+# latent tile, the other five attend_mma
 LATENT_DIM = 640
-TILE_HEAD_DIMS = (32, 64, 128, 256, LATENT_DIM)
+TILE_HEAD_DIMS = (32, 64, 96, 128, 256, LATENT_DIM)
 KEY_TILE = 64
 SPLIT_KEYS = 256
 SPLIT_BLOCKS_PER_SM = 4

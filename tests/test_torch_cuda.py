@@ -85,7 +85,7 @@ def _decode_inputs(dev, int8, n_heads, n_kv, head_dim, ctx, pmax, pages=64,
             torch.tensor(ctx, dtype=torch.int32, device=dev))
 
 
-@pytest.mark.parametrize("head_dim", [32, 64, 128, 256, 640])
+@pytest.mark.parametrize("head_dim", [32, 64, 96, 128, 256, 640])
 @pytest.mark.parametrize("group", [1, 2, 4, 7, 8])
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_decode_kernel_groups_and_head_dims(dev, int8, group, head_dim):
@@ -138,7 +138,7 @@ def test_prefill_kernel_matches_plain(dev, s, lens, head_dim):
             assert not out[lane].any()
 
 
-@pytest.mark.parametrize("head_dim", [32, 64, 128, 256, 640])
+@pytest.mark.parametrize("head_dim", [32, 64, 96, 128, 256, 640])
 @pytest.mark.parametrize("group", [1, 2, 4, 7, 8, 16])
 def test_prefill_kernel_groups_and_head_dims(dev, group, head_dim):
     """Every GQA group and head_dim the tile takes, at S = 48 (no multiple
@@ -201,7 +201,7 @@ def test_chunk_kernel_matches_plain(dev, start, c):
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
 
 
-@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
+@pytest.mark.parametrize("head_dim", [32, 64, 96, 128, 256])
 @pytest.mark.parametrize("group", [1, 2, 4, 7, 8])
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_chunk_kernel_groups_and_head_dims(dev, int8, group, head_dim):
@@ -225,11 +225,11 @@ def test_chunk_kernel_groups_and_head_dims(dev, int8, group, head_dim):
 def test_tile_limits_agree_with_the_library_and_are_refused(dev):
     lib = ca.build()
     for group in (1, 2, 3, 4, 7, 8, 64):
-        for d in (32, 64, 128, 256):
+        for d in (32, 64, 96, 128, 256):
             assert lib.dtt_chunk_positions(group, d) == ca.tile_positions(
                 group, d)
     assert lib.dtt_chunk_positions(65, 64) == 0
-    for d in (16, 40, 96, 144):
+    for d in (16, 40, 80, 144):
         assert lib.dtt_chunk_positions(4, d) == 0
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for width, ps, n_dec, n_kv in ((1, 16, 1, 8), (128, 16, 8, 8),
@@ -241,7 +241,7 @@ def test_tile_limits_agree_with_the_library_and_are_refused(dev):
     tables = torch.ones((2, 4), dtype=torch.int32, device=dev)
     lens = torch.tensor([3, 20], dtype=torch.int32, device=dev)
     for h, n_kv, d, match in ((8, 2, 40, "head_dim"),
-                              (8, 2, 96, "head_dim"),
+                              (8, 2, 80, "head_dim"),
                               (4, 1, 512, "head_dim"),
                               (128, 1, 32, "64-row")):
         q = _rnd(dev, 16 + 1, h, d)
@@ -502,9 +502,10 @@ def test_ragged_kernel_verify_only_matches_plain(dev, int8):
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("n_heads,n_kv,d", [(16, 16, 256), (8, 1, 256),
                                             (28, 4, 128), (32, 4, 128),
-                                            (16, 1, 640)],
+                                            (16, 1, 640), (32, 32, 96)],
                          ids=["gemma-7b", "gemma-2b", "qwen2.5-7b",
-                              "qwen3-30b-a3b", "deepseek-v2-lite"])
+                              "qwen3-30b-a3b", "deepseek-v2-lite",
+                              "phi-3-mini"])
 @pytest.mark.parametrize("decode_q,c", [(1, 256), (5, 256), (5, 0)],
                          ids=["chunk_rows", "verify_rows", "verify_only"])
 def test_ragged_kernel_at_the_families_shapes(dev, int8, n_heads, n_kv, d,
@@ -513,7 +514,8 @@ def test_ragged_kernel_at_the_families_shapes(dev, int8, n_heads, n_kv, d,
     verify row of 5 x 7 = 35 tile rows), at group 8 with head_dim 128
     (qwen3-30b-a3b: 5 x 8 = 40 tile rows) and at MLA's latent row
     (head_dim 640, group 16: a verify row of 80 rows, two query tiles of
-    the latent decode rows walking each span side by side): eight rows
+    the latent decode rows walking each span side by side) and at
+    Phi-3's head_dim 96 (group 1, 32 KV heads): eight rows
     (context 0 on the
     trash page, rows across a split boundary, a full table) beside a
     256-token chunk at 512, or alone (C = 0); counted under its head_dim."""
@@ -559,7 +561,13 @@ def test_ragged_kernel_at_the_families_shapes(dev, int8, n_heads, n_kv, d,
                                     "decode[cap=50]", "decode_int8[cap=50]",
                                     "prefill[cap=50]", "chunk[cap=50]",
                                     "ragged_verify[cap=50]",
-                                    "ragged_verify_int8[cap=50]"])
+                                    "ragged_verify_int8[cap=50]",
+                                    "decode[head_dim=96]",
+                                    "decode_int8[head_dim=96]",
+                                    "prefill[head_dim=96]",
+                                    "chunk[head_dim=96]",
+                                    "ragged_verify[head_dim=96]",
+                                    "ragged_verify_int8[head_dim=96]"])
 def test_kernels_hold_at_large_values(dev, kernel):
     """V scaled by 40 (output rows of RMS near 5 over about 100 keys, as
     the 8B's activations reach at depth): the error of P V grows with a
@@ -570,12 +578,15 @@ def test_kernels_hold_at_large_values(dev, kernel):
     rounding is left. At head_dim 640 (16 heads on one KV head: the
     latent chunk tile, the latent decode rows and verify windows) on both
     pools. With Gemma-2's tanh cap at 50 (`[cap=50]`) q is scaled by 6,
-    so that scores of tens reach the bend of the cap."""
+    so that scores of tens reach the bend of the cap. At Phi-3's head_dim
+    96 (`[head_dim=96]`: 32 heads on 32 KV heads, group 1)."""
     ps, n_kv, d, h, big = 16, 8, 128, 32, 40.0
     latent = kernel.endswith("[head_dim=640]")
     cap = 50.0 if kernel.endswith("[cap=50]") else 0.0
     if latent:
         n_kv, d, h = 1, 640, 16
+    if kernel.endswith("[head_dim=96]"):
+        n_kv, d, h = 32, 96, 32
     kernel = kernel.split("[")[0]
     qs = 6.0 if cap else 1.0
     rng = np.random.default_rng(8)
@@ -747,6 +758,104 @@ def test_window_and_cap_match_plain(dev, kernel, window, cap):
     assert (f"{name}[window]" in ca.VARIANT_LAUNCHES) == bool(window)
 
 
+# Phi-3's windows: 37 and 100 keys (bounds inside a 64-key tile, whose 64
+# rows at group 1 are 64 positions with 64 different bounds) and its own
+# 2047, wider than every context here but the decode table's
+PHI3_WINDOWS = [37, 100, 2047]
+
+
+@pytest.mark.parametrize("window", PHI3_WINDOWS,
+                         ids=[f"w{w}" for w in PHI3_WINDOWS])
+@pytest.mark.parametrize("kernel", ["decode", "decode_int8", "prefill",
+                                    "chunk", "chunk_int8", "ragged",
+                                    "ragged_int8", "verify", "verify_int8"])
+def test_phi3_window_matches_plain(dev, kernel, window):
+    """The four kernels at Phi-3's head shape (32 query heads on 32 KV
+    heads of 96 lanes: group 1, and an int8 row's 64 scale bytes in four
+    16-byte chunks) under a sliding window, against their plain
+    versions: decode rows at contexts 0 to 4096 over a 4096-key table, a
+    prefill lane of 256 positions beside one of 200 (64 a query tile), a
+    100-token chunk at 700, eight decode rows beside a 256-token chunk at
+    512, and verify windows of 5 without a chunk; counted under the
+    `window` and `head_dim=96` variants."""
+    ps, n_kv, h, d = 16, 32, 32, 96
+    int8 = kernel.endswith("_int8")
+    base = kernel.split("_")[0]
+    mods = dict(window=window)
+    kw = dict(page_size=ps, num_kv_heads=n_kv)
+
+    def pools(seed):
+        if int8:
+            return _int8_pools(dev, 320, ps, n_kv, d, seed=seed)
+        return (_rnd(dev, 320, ps, n_kv * d, seed=seed),
+                _rnd(dev, 320, ps, n_kv * d, seed=seed + 1))
+
+    ca.reset_launch_counts()
+    if base == "decode":
+        ctx = [0, 1, 37, 100, 700, 2047, 2048, 4096]
+        q, kp, vp, table, cl = _decode_inputs(dev, int8, h, n_kv, d, ctx,
+                                              4096 // ps, pages=720,
+                                              seed=110)
+        out = ca.paged_attention_decode(q, kp, vp, table, cl, **kw, **mods)
+        ref = att.paged_attention_decode_ref(q, kp, vp, table, cl, **kw,
+                                             **mods)
+        assert not out[0].any()  # ctx 0 -> exact zeros
+    elif base == "prefill":
+        q = _rnd(dev, 2, 256, h, d, seed=111)
+        k = _rnd(dev, 2, 256, n_kv, d, seed=112)
+        v = _rnd(dev, 2, 256, n_kv, d, seed=113)
+        sl = torch.tensor([256, 200], dtype=torch.int32, device=dev)
+        out = ca.prefill_attention(q, k, v, sl, **mods)
+        ref = att.prefill_attention_ref(q, k, v, sl, **mods)
+    elif base == "chunk":
+        kp, vp = pools(114)
+        pages = _page_list(dev, 700 + 100, ps, 320, seed=115)
+        q = _rnd(dev, 100, h, d, seed=116)
+        out = ca.chunk_prefill_attention(q, kp, vp, pages, 700, **kw, **mods)
+        ref = att.chunk_attention_ref(q, kp, vp, pages, 700, **kw, **mods)
+    elif base == "ragged":
+        kp, vp = pools(117)
+        pmax = 64
+        ctx = [0, 1, 17, 255, 256, 257, 700, pmax * ps]
+        rng = np.random.default_rng(118)
+        tables = np.zeros((9, pmax), np.int32)
+        for r, n in enumerate(ctx[1:], start=1):
+            tables[r, :-(-n // ps)] = rng.permutation(319)[:-(-n // ps)] + 1
+        tables[8, :48] = np.arange(1, 49)
+        kv_lens = np.array(ctx + [512 + 256], np.int32)
+        q_starts = np.array([max(n - 1, 0) for n in ctx] + [512], np.int32)
+        args = [torch.tensor(a, device=dev)
+                for a in (tables, kv_lens, q_starts)]
+        q = _rnd(dev, 8 + 256, h, d, seed=119)
+        rkw = dict(kw, num_decode=8)
+        out = ca.ragged_paged_attention(q, kp, vp, *args, **rkw, **mods)
+        ref = att.ragged_paged_attention_ref(q, kp, vp, *args, **rkw, **mods)
+        # the chunk rows are chunk.cu's, the decode rows decode.cu's
+        assert torch.equal(out[8:], ca.chunk_prefill_attention(
+            q[8:], kp, vp, args[0][8], 512, **kw, **mods))
+        assert torch.equal(out[:8], ca.paged_attention_decode(
+            q[:8], kp, vp, args[0][:8], args[1][:8], **kw, **mods))
+    else:
+        kp, vp = pools(120)
+        pmax, k1 = 64, 5
+        positions = [0, 7, 250, 700, pmax * ps - k1, 0]
+        rng = np.random.default_rng(121)
+        tables = np.zeros((6, pmax), np.int32)
+        for r, p in enumerate(positions[:5]):
+            n = -(-(p + k1) // ps)
+            tables[r, :n] = rng.permutation(319)[:n] + 1
+        q = _rnd(dev, 6, k1, h, d, seed=122)
+        args = (torch.tensor(tables, device=dev),
+                torch.tensor(positions, dtype=torch.int32, device=dev))
+        out = att.verify_attention(q, kp, vp, *args, **kw, **mods)
+        ref = att.verify_attention_ref(q, kp, vp, *args, **kw, **mods)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    name = ("ragged" if base == "verify" else base) + ("_int8" if int8
+                                                        else "")
+    assert ca.VARIANT_LAUNCHES[f"{name}[window]"] >= 1
+    assert ca.VARIANT_LAUNCHES[f"{name}[head_dim=96]"] >= 1
+
+
 def test_latent_kernels_refuse_window_and_cap(dev):
     """The latent tile (head_dim 640) takes no window or cap: the
     wrappers refuse both before any launch."""
@@ -761,17 +870,29 @@ def test_latent_kernels_refuse_window_and_cap(dev):
 
 
 @pytest.mark.parametrize("family", ["gemma", "qwen2", "qwen3", "gemma2",
-                                    "gemma3"])
+                                    "gemma3", "phi3", "phi3_longrope"])
 def test_family_graph_windows_equal_eager_windows(dev, family):
     """The families' tiny configs (tiny-gemma-debug, tiny-gemma2-debug and
     tiny-gemma3-debug at head_dim 256: their decode and prefill reach the
     D = 256 kernels, Gemma-2/3's with each layer's window captured in the
-    graph) in 4-step graph windows against eager windows, bit for bit."""
+    graph; Phi-3's switches at head_dim 96 with a window of 8 on every
+    layer, and with longrope over a 16-token original context, whose
+    factors each captured step picks from the positions on the card) in
+    4-step graph windows against eager windows, bit for bit."""
     import dataclasses
 
     from dynamo_tpu_torch.models.config import PRESETS
 
-    cfg = {"gemma": dataclasses.replace(PRESETS["tiny-gemma-debug"],
+    phi3 = dataclasses.replace(
+        PRESETS["phi-3-mini-4k-instruct"], vocab_size=512, hidden_size=192,
+        intermediate_size=256, num_layers=2, num_heads=2, num_kv_heads=2,
+        sliding_window=8, eos_token_id=2, extra_stop_token_ids=())
+    cfg = {"phi3": phi3,
+           "phi3_longrope": dataclasses.replace(
+               phi3, max_position_embeddings=128, rope_longrope_scaling=(
+                   tuple(1.0 + i / 96 for i in range(48)),
+                   tuple(1.0 + i / 8 for i in range(48)), 16)),
+           "gemma": dataclasses.replace(PRESETS["tiny-gemma-debug"],
                                         head_dim=256),
            "gemma2": dataclasses.replace(PRESETS["tiny-gemma2-debug"],
                                          head_dim=256),

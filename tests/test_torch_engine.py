@@ -275,14 +275,27 @@ def test_settings_ported_since_are_served(tmp_path, field, value):
     ("phi-3-mini-4k-instruct", "head_dim"),
 ])
 def test_unported_models_are_refused(model, feature):
+    """Every preset is served since Phi-3's head_dim 96 and longrope were
+    ported; a head_dim the kernels are not built for (80) is still
+    refused, by name, before any weight is made."""
+    cfg = dataclasses.replace(PRESETS[model], head_dim=80)
     with pytest.raises(NotImplementedError, match=feature):
-        Engine(EngineConfig(**dict(BASE, model=model)), device="cpu")
+        Engine(EngineConfig(**dict(BASE, model=model)), model_cfg=cfg,
+               device="cpu")
 
 
 # a full-size preset's switches at tiny-debug's widths (its layer count
 # kept where it is small enough to reach a global layer)
 TINY_WIDTHS = dict(vocab_size=512, hidden_size=128, intermediate_size=256,
                    num_heads=4, num_kv_heads=2, head_dim=32)
+# Phi-3's head_dim 96 (MHA) at tiny widths, a window past its prompts,
+# and longrope over a 16-token original context (48 factors a set)
+PHI3_TINY = dict(TINY_WIDTHS, hidden_size=192, num_heads=2, num_kv_heads=2,
+                 head_dim=96, num_layers=2, sliding_window=4)
+PHI3_LONGROPE = dict(
+    max_position_embeddings=128,
+    rope_longrope_scaling=(tuple(1.0 + i / 96 for i in range(48)),
+                           tuple(1.0 + i / 8 for i in range(48)), 16))
 
 
 @pytest.mark.parametrize("model,change", [
@@ -298,13 +311,17 @@ TINY_WIDTHS = dict(vocab_size=512, hidden_size=128, intermediate_size=256,
     ("tiny-gemma3-debug", {}),
     ("gemma-2-2b-it", dict(TINY_WIDTHS, num_layers=2, sliding_window=4)),
     ("gemma-2-9b-it", dict(TINY_WIDTHS, num_layers=2, sliding_window=4)),
+    ("phi-3-mini-4k-instruct", PHI3_TINY),
+    ("phi-3-mini-4k-instruct", dict(PHI3_TINY, **PHI3_LONGROPE)),
 ], ids=["gemma", "qwen3-qk_norm", "qwen2-attention_bias", "moe", "mla",
         "mla-yarn", "gemma3-1b-switches", "gemma2-tiny", "gemma3-tiny",
-        "gemma2-2b-switches", "gemma2-9b-switches"])
+        "gemma2-2b-switches", "gemma2-9b-switches", "phi3-switches",
+        "phi3-longrope"])
 def test_models_ported_since_are_served(model, change):
-    """Refused before the Gemma-1, Qwen3, Qwen2, MoE, MLA, YaRN and
+    """Refused before the Gemma-1, Qwen3, Qwen2, MoE, MLA, YaRN,
     Gemma-2/3 (sliding window, logit caps, sandwich norms,
-    query_pre_attn_scalar, per-layer rope) features were ported; an
+    query_pre_attn_scalar, per-layer rope) and Phi-3 (head_dim 96,
+    longrope) features were ported; an
     activation the port does not implement still is (for an MoE model the
     config itself refuses it: MoE is SwiGLU only)."""
     cfg = dataclasses.replace(PRESETS[model], dtype="float32", **change)

@@ -230,8 +230,9 @@ def test_tile_takes_head_dim_256_at_every_group(group):
     else:
         with pytest.raises(ValueError, match="does not fit"):
             ca.check_decode_rows(K + 1, group, 128)
+    assert ca.tile_positions(group, 96) == 64 // group  # Phi-3's
     with pytest.raises(ValueError, match="built for head_dim"):
-        ca.tile_positions(group, 96)  # Phi-3's: never a quiet plain path
+        ca.tile_positions(group, 80)  # no kernel: never a quiet plain path
     with pytest.raises(ValueError, match="built for head_dim"):
         ca.tile_positions(group, 512)
 
@@ -542,13 +543,15 @@ SPEC = dict(page_size=8, num_pages=128, max_num_seqs=2, max_seq_len=256,
             enable_prefix_caching=False, speculative_mode="model")
 
 
-def test_draft_model_with_unported_features_is_refused():
+def test_draft_model_with_unported_features_is_refused(tmp_path):
     """Once refused for its sliding window, tiny-gemma2-debug now drafts
     (window 8 on its local layer, caps 50 and 30) for itself as a separate
     model (the JAX draft engine's params, seed + 1, carried across): the
     same proposals as the JAX DraftEngine for a history past the window,
     then the same greedy streams. A draft config the port does not
-    implement is still refused."""
+    implement is still refused: a Phi-3 checkpoint whose config.json sets
+    a head_dim the kernels are not built for (80; the preset's 96 is
+    served since it was ported)."""
     jcfg = dataclasses.replace(JPRESETS["tiny-gemma2-debug"],
                                dtype="float32")
     jparams = jax_params(jcfg)
@@ -570,8 +573,14 @@ def test_draft_model_with_unported_features_is_refused():
     assert props[0] == props[1]
     reqs = [("a", [5, 6, 7] * 5, 12, 0), ("b", list(range(30, 48)), 10, 0)]
     assert _drive(eng, GenRequest, reqs) == _drive(jeng, JGenRequest, reqs)
+    (tmp_path / "config.json").write_text(json.dumps({
+        "architectures": ["Phi3ForCausalLM"], "vocab_size": 512,
+        "hidden_size": 160, "intermediate_size": 256,
+        "num_hidden_layers": 2, "num_attention_heads": 2,
+        "num_key_value_heads": 2, "head_dim": 80, "sliding_window": 16}))
     bad = EngineConfig(model="tiny-debug", speculative_mode="model",
                        draft_model="phi-3-mini-4k-instruct",
+                       draft_model_path=str(tmp_path),
                        num_speculative_tokens=2, page_size=4, num_pages=64,
                        max_num_seqs=2)
     with pytest.raises(NotImplementedError, match="head_dim"):

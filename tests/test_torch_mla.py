@@ -187,15 +187,17 @@ def test_qkv_mla_and_attn_out_match_jax(variant):
 
 def test_mla_is_served_and_its_shapes_are_checked():
     """DeepSeek-V2-Lite passes the feature gate (MLA and YaRN are ported)
-    (its head_dim is the latent row's 640) while Phi-3 is still refused
-    for its head_dim; weights made under another ModelConfig of the same
+    (its head_dim is the latent row's 640), as Phi-3 (head_dim 96) does
+    since it was ported, while a head_dim the kernels are not built for
+    (80) is refused; weights made under another ModelConfig of the same
     shapes run the engine's config, and weights of other shapes are
     refused."""
     for name in ("deepseek-v2-lite", "deepseek-v2-lite-chat",
-                 "tiny-mla-debug"):
+                 "tiny-mla-debug", "phi-3-mini-4k-instruct"):
         assert tllama.unported_model_features(PRESETS[name]) == []
     for name in ("phi-3-mini-4k-instruct",):
-        assert "head_dim" in tllama.unported_model_features(PRESETS[name])
+        assert "head_dim" in tllama.unported_model_features(
+            dataclasses.replace(PRESETS[name], head_dim=80))
     _, tcfg = mla_cfgs("plain")
     model = loader.init_params(tcfg, seed=0, device="cpu",
                                dtype=torch.float32)

@@ -170,12 +170,22 @@ def test_rope_llama3_matches():
 
 
 def test_rope_refuses_unported_scalings():
-    """Phi-3's longrope is refused; YaRN is ported
-    (tests/test_torch_mla.py holds it against JAX)."""
-    x = torch.zeros(2, 1, 8)
-    with pytest.raises(NotImplementedError):
-        trope.apply_rope(x, torch.arange(2), 1e4,
-                         longrope_scaling=((1.0,), (1.0,), 4096, 1.0))
+    """Phi-3's longrope is served since it was ported
+    (tests/test_torch_phi3.py holds it against JAX), as YaRN is
+    (tests/test_torch_mla.py); factor arrays that do not give each of
+    the D/2 rotary frequencies one factor are refused, by name."""
+    x = torch.ones(2, 1, 8)
+    scaling = ((1.0,) * 4, (2.0,) * 4, 1, 1.0)
+    out = trope.apply_rope(x, torch.arange(2), 1e4, longrope_scaling=scaling)
+    # position 0 is unrotated, position 1 (past the original 1) rotates
+    # at the long factors' halved frequencies
+    torch.testing.assert_close(out[0], x[0])
+    torch.testing.assert_close(out[1:], trope.apply_rope(
+        x[1:], torch.tensor([0.5]), 1e4))
+    for bad in (((1.0,) * 3, (2.0,) * 4), ((1.0,) * 4, (2.0,) * 8)):
+        with pytest.raises(ValueError, match="longrope"):
+            trope.apply_rope(x, torch.arange(2), 1e4,
+                             longrope_scaling=(*bad, 4096, 1.0))
 
 
 def test_rms_norm_matches():
