@@ -30,7 +30,11 @@ on failure:
 
 1. The card's name and power limit (nvidia-smi).
 2. Build the attention kernels from dynamo_tpu_torch/csrc (nvcc, one per
-   source in parallel).
+   source in parallel), with its seconds, and the pair tile's kernels
+   (prefill.cu's and chunk.cu's below head_dim 640 but for 96) with their
+   ptxas registers and spills and the HGMMA (wgmma) and HMMA (mma.sync)
+   instructions of their SASS (`cuobjdump -sass`): it raises unless each
+   holds HGMMA and no HMMA.
 3. Each kernel at the shapes the main path gives it for Llama-3.1-8B
    (bf16, H=32, KV=8, D=128, page size 16; int8 pools of 1152-lane rows)
    against its plain PyTorch version on the same inputs (computed in f32,
@@ -56,8 +60,8 @@ on failure:
    step launches it), the int8 variants of decode, chunk and ragged (the
    verify windows too), and decode at head_dim 64 (`decode_hd64`: the
    llama-3.2-1b-instruct draft model's B=1 step on its 129-page table).
-   All run the same tensor-core tile, so some rows must be bit-identical:
-   ragged's chunk rows to
+   Rows that run the same blocks must be bit-identical: ragged's chunk rows
+   (chunk.cu's pair tile, launched by ragged.cu) to
    chunk.cu's, its decode rows to decode.cu's (the same split plan: the
    same table width and row count), and a prefill lane at seq_len = S to
    chunk.cu's chunk at start 0 over the same K/V in pages. Each row
@@ -109,7 +113,10 @@ on failure:
    only the keys inside the window, each library call flex_attention
    under torch.compile with the window as its block mask and the cap, if
    any, as its score_mod (the compiles untimed; a row whose call fails
-   says why).
+   says why); the chunk rows on the pair tile (not Phi-3's: head_dim 96
+   keeps attend_mma) carry its span sweep (`pair_spans`: the plan, one
+   span, and the time of every span count a measurement may ask for,
+   each output within the tolerance of the plan's).
 4. The engine for llama-3.1-8b-instruct at full width and depth, random
    bf16 weights from seed 0: a full prefill, a decode step, a chunked
    prefill, a mixed step (the decode row beside a 256-token chunk), a
@@ -608,11 +615,23 @@ def device_ms(fn, iters: int, batches: int = 3) -> float:
     return statistics.median(times)
 
 
+def kernel_label(mangled: str) -> str:
+    """`name<head_dim, policy>` (what it has of them) of a kernel from its
+    mangled dtt:: name."""
+    n = re.match(r"_ZN3dtt(?:4json)?(\d+)", mangled)
+    fn = mangled[n.end():n.end() + int(n.group(1))] if n else mangled
+    args = re.findall(r"ILi(\d+)E", mangled)  # head_dim, if any
+    args += [p for p in ("Bf16Tiles", "Int8Tiles") if p in mangled]
+    # the grammar kernel's logits type
+    args += [t for p, t in (("I13__nv_bfloat16E", "bf16"),
+                            ("IfE", "float")) if p in mangled]
+    return fn + (f"<{', '.join(args)}>" if args else "")
+
+
 def ptxas_usage(log: str) -> dict:
     """{source file: {kernel: {"registers", "spill_stores", "spill_loads"}}}
-    from the `nvcc -Xptxas -v` output of the build; a kernel is named
-    `name<head_dim, policy>` (what it has of them) from its mangled dtt::
-    name."""
+    from the `nvcc -Xptxas -v` output of the build, kernels named by
+    kernel_label."""
     usage, src, fn = {}, None, None
     for ln in log.splitlines():
         if ln.startswith("== "):
@@ -621,16 +640,7 @@ def ptxas_usage(log: str) -> dict:
             continue
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m and src:
-            mangled = m.group(1)
-            n = re.match(r"_ZN3dtt(?:4json)?(\d+)", mangled)
-            fn = (mangled[n.end():n.end() + int(n.group(1))] if n
-                  else mangled)
-            args = re.findall(r"ILi(\d+)E", mangled)  # head_dim, if any
-            args += [p for p in ("Bf16Tiles", "Int8Tiles") if p in mangled]
-            # the grammar kernel's logits type
-            args += [t for p, t in (("I13__nv_bfloat16E", "bf16"),
-                                    ("IfE", "float")) if p in mangled]
-            fn += f"<{', '.join(args)}>" if args else ""
+            fn = kernel_label(m.group(1))
             usage[src][fn] = {}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -642,6 +652,47 @@ def ptxas_usage(log: str) -> dict:
         if m and fn:
             usage[src][fn]["registers"] = int(m.group(1))
     return usage
+
+
+# the pair tile's kernels (prefill.cu and chunk.cu below head_dim 640 but
+# for 96), whose S and P V must run on wgmma (HGMMA in their SASS, no HMMA)
+PAIR_KERNELS = ("chunk_pair_kernel", "prefill_pair_kernel")
+
+
+def sass_mma(lib_path: str) -> dict:
+    """{kernel: {"hgmma": n, "hmma": n}}: the wgmma (HGMMA) and mma.sync
+    (HMMA) instructions in each kernel's SASS in the built library
+    (`cuobjdump -sass`), kernels named by kernel_label."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, check=True).stdout
+    counts, fn = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\w+)", ln)
+        if m:
+            fn = kernel_label(m.group(1))
+            counts[fn] = {"hgmma": 0, "hmma": 0}
+        elif fn and re.search(r"\bHGMMA\.", ln):
+            counts[fn]["hgmma"] += 1
+        elif fn and re.search(r"\bHMMA\.", ln):
+            counts[fn]["hmma"] += 1
+    return counts
+
+
+def pair_tile_build(lib_path: str) -> dict:
+    """The build line's record of the pair tile's kernels: ptxas registers
+    and spills, and HGMMA / HMMA counts of their SASS; raises unless
+    every one of them holds HGMMA and no HMMA."""
+    usage = {k: v for src in ptxas_usage(ca.build_log).values()
+             for k, v in src.items() if k.startswith(PAIR_KERNELS)}
+    mma = {k: v for k, v in sass_mma(lib_path).items()
+           if k.startswith(PAIR_KERNELS)}
+    if not mma or any(v["hgmma"] == 0 or v["hmma"] for v in mma.values()):
+        raise AssertionError(f"the pair tile's kernels must run on wgmma "
+                             f"alone: {mma}")
+    return {k: {**usage.get(k, {}), **mma[k]} for k in sorted(mma)}
 
 
 def kernel_usage(name: str, head_dim: int = D) -> dict:
@@ -664,8 +715,13 @@ def kernel_usage(name: str, head_dim: int = D) -> dict:
                 and ("latent" not in label or head_dim == ca.LATENT_DIM)
                 and (not own or base in ("chunk", "prefill")))
 
-    return {k: v for k, v in ptxas_usage(ca.build_log).get(src, {}).items()
-            if wanted(k)}
+    usage = ptxas_usage(ca.build_log)
+    got = {k: v for k, v in usage.get(src, {}).items() if wanted(k)}
+    if base == "ragged" and ca.pair_tile_takes(head_dim):
+        # its chunk rows run chunk.cu's pair tile
+        got.update({k: v for k, v in usage.get("chunk.cu", {}).items()
+                    if k.startswith("chunk_pair_kernel") and wanted(k)})
+    return got
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -4156,6 +4212,22 @@ def both(*calls):
     return lambda: [c() for c in calls]
 
 
+def pair_span_sweep(call, plan: int, most: int) -> dict:
+    """The pair tile's span sweep of a launch: its plan and the device ms
+    of every span count from 1 to `most` (pair_max_spans), each output
+    within TOL of the plan's."""
+    want = call(plan)
+    ms = {}
+    for n in range(1, most + 1):
+        got = call(n)
+        torch.cuda.synchronize()
+        if not torch.allclose(got.float(), want.float(), atol=TOL, rtol=TOL):
+            raise AssertionError(f"{n} spans disagree with the plan's "
+                                 f"{plan}")
+        ms[n] = device_ms(lambda n=n: call(n), 20)
+    return {"plan": plan, "ms": ms}
+
+
 def windowed_kernel_checks(dev, shape: dict) -> dict:
     """Phase 3 at a windowed model's attention (`shape`: GEMMA_SHAPE,
     PHI3_SHAPE; q scaled by its q_scale): 8 decode rows at its contexts
@@ -4266,7 +4338,16 @@ def windowed_kernel_checks(dev, shape: dict) -> dict:
             flex_paged(qc[None], kl, vl, pages_d[None], start_d,
                        start_d + c, **lib_kw),
             cost(qc.numel(), [(pages, start, c, start + c)], row_bytes, 0),
-            {"q": [c, h, d], "start": start})
+            {"q": [c, h, d], "start": start, **({
+                "pair_spans": pair_span_sweep(
+                    lambda n, k=k, v=v: ca.chunk_prefill_attention(
+                        qc, k, v, pages_d, start, page_size=PS,
+                        num_kv_heads=kv, spans=n, **mods),
+                    ca.chunk_spans(c, start, h // kv, d, kv,
+                                   ca._num_sms(dev)),
+                    ca.pair_max_spans(start + c, w,
+                                      ca.tile_positions(h // kv, d), d))}
+                if ca.pair_tile_takes(d) else {})})
 
     desc = att.ragged_descriptors(table_d, ctx_d, pages_d, start, c)
     tabs, kv_lens, q_starts = desc
@@ -5022,9 +5103,11 @@ def main(argv=None) -> int:
 
     t0 = time.monotonic()
     lib = ca.build()
-    emit({"phase": "build", "seconds": time.monotonic() - t0,
+    build_s = time.monotonic() - t0
+    emit({"phase": "build", "seconds": build_s,
           "library_bytes": os.path.getsize(lib._name),
-          "ptxas": ptxas_usage(ca.build_log)})
+          "ptxas": ptxas_usage(ca.build_log),
+          "pair_tile": pair_tile_build(lib._name)})
 
     base_cfg = dict(model=MODEL, page_size=PS, num_pages=NUM_PAGES,
                     max_num_seqs=MAX_SEQS, max_seq_len=MAX_SEQ_LEN,

@@ -1,14 +1,21 @@
 // Shared device code of the port's attention kernels (decode.cu, prefill.cu,
-// chunk.cu, ragged.cu): `attend_mma`, the tensor-core query tile all four
-// run below head_dim 640, its K/V policies, the latent tile's walk
-// `latent_walk` (32-key tiles, S and P V on wgmma) and its cluster block
-// `latent_span_block` (key spans of a query tile merged in a thread-block
-// cluster) run by `chunk_latent_kernel` (chunk.cu and ragged.cu's chunk
-// rows at 640) and by prefill.cu's `prefill_latent_kernel`, the walk run
-// by `decode_latent_kernel` (decode.cu and ragged.cu's decode rows at 640:
-// key spans merged by `merge_latent_kernel`), and the split decode rows of
-// decode.cu and ragged.cu below 640 (`decode_split_block`,
-// `merge_splits_kernel`).
+// chunk.cu, ragged.cu): `attend_mma`, the tensor-core query tile that
+// decode.cu and ragged.cu's decode and verify rows run below head_dim 640
+// (the split decode rows, `decode_split_block`, `merge_splits_kernel`),
+// and prefill.cu, chunk.cu and ragged.cu's chunk rows at head_dim 96, its
+// K/V policies; the pair tile (`pair_span_block`, two query tiles of a KV
+// head a block, S and P V on wgmma, a producer warpgroup's copies, key
+// spans merged in a thread-block cluster) that prefill.cu and chunk.cu
+// (and ragged.cu's chunk rows, through chunk.cu) run at the other head_dims
+// below 640 (`prefill_pair_kernel`, `chunk_pair_kernel`); and at head_dim
+// 640 the
+// latent tile's walk `latent_walk` (32-key tiles, S and P V on wgmma) and
+// its cluster block `latent_span_block` (key spans of a query tile merged
+// in a thread-block cluster) run by `chunk_latent_kernel` (chunk.cu and
+// ragged.cu's chunk rows at 640) and by prefill.cu's
+// `prefill_latent_kernel`, the walk run by `decode_latent_kernel`
+// (decode.cu and ragged.cu's decode rows at 640: key spans merged by
+// `merge_latent_kernel`).
 //
 // A block owns query positions x the `group` = H/KV query heads of ONE KV
 // head (rows r = i * group + g, query head kvh * group + g reads KV head
@@ -923,109 +930,216 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// keeps the compiler from moving reads or writes of an accumulator's
+// registers across an asynchronous product
+template <int kN>
+__device__ __forceinline__ void fence_acc(float* x) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+// wgmma with an f32 accumulator of N lanes: `ss`, A and B from shared
+// memory (S = Q K^T over a key tile of N keys), `rs`, A from registers
+// and B MN-major from shared memory (P V over N = head_dim lanes)
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  // s[16] (+)= A B^T over one k16 step: A 64 x 16 (q) and B 32 x 16 (keys),
+  // both K-major in shared memory; accumulate = false overwrites s
+  static __device__ __forceinline__ void ss(float* s, unsigned long long a,
+                                            unsigned long long b,
+                                            bool accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(s[0]), "+f"(s[1]), "+f"(s[2]), "+f"(s[3]),
+          "+f"(s[4]), "+f"(s[5]), "+f"(s[6]), "+f"(s[7]),
+          "+f"(s[8]), "+f"(s[9]), "+f"(s[10]), "+f"(s[11]),
+          "+f"(s[12]), "+f"(s[13]), "+f"(s[14]), "+f"(s[15])
+        : "l"(a), "l"(b), "r"((int)accumulate));
+  }
+
+  // o[0 .. 3] += A B over one k16 step: A (16 rows of P a warp) in
+  // registers (the m16n8k16 A layout), B (32 lanes of V, 16 keys) MN-major
+  // in shared memory
+  static __device__ __forceinline__ void rs(float (*o)[4], const unsigned* a,
+                                            unsigned long long b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+        "{%16,%17,%18,%19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(o[0][0]), "+f"(o[0][1]), "+f"(o[0][2]), "+f"(o[0][3]),
+          "+f"(o[1][0]), "+f"(o[1][1]), "+f"(o[1][2]), "+f"(o[1][3]),
+          "+f"(o[2][0]), "+f"(o[2][1]), "+f"(o[2][2]), "+f"(o[2][3]),
+          "+f"(o[3][0]), "+f"(o[3][1]), "+f"(o[3][2]), "+f"(o[3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // s[32] (+)= A B^T over one k16 step: A 64 x 16 (q) and B 64 x 16 (keys),
+  // both K-major in shared memory; accumulate = false overwrites s
+  static __device__ __forceinline__ void ss(float* s, unsigned long long a,
+                                            unsigned long long b,
+                                            bool accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(s[0]), "+f"(s[1]), "+f"(s[2]), "+f"(s[3]),
+          "+f"(s[4]), "+f"(s[5]), "+f"(s[6]), "+f"(s[7]),
+          "+f"(s[8]), "+f"(s[9]), "+f"(s[10]), "+f"(s[11]),
+          "+f"(s[12]), "+f"(s[13]), "+f"(s[14]), "+f"(s[15]),
+          "+f"(s[16]), "+f"(s[17]), "+f"(s[18]), "+f"(s[19]),
+          "+f"(s[20]), "+f"(s[21]), "+f"(s[22]), "+f"(s[23]),
+          "+f"(s[24]), "+f"(s[25]), "+f"(s[26]), "+f"(s[27]),
+          "+f"(s[28]), "+f"(s[29]), "+f"(s[30]), "+f"(s[31])
+        : "l"(a), "l"(b), "r"((int)accumulate));
+  }
+
+  // o[0 .. 7] += A B over one k16 step: A (16 rows of P a warp) in
+  // registers (the m16n8k16 A layout), B (64 lanes of V, 16 keys) MN-major
+  // in shared memory
+  static __device__ __forceinline__ void rs(float (*o)[4], const unsigned* a,
+                                            unsigned long long b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+        "{%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(o[0][0]), "+f"(o[0][1]), "+f"(o[0][2]), "+f"(o[0][3]),
+          "+f"(o[1][0]), "+f"(o[1][1]), "+f"(o[1][2]), "+f"(o[1][3]),
+          "+f"(o[2][0]), "+f"(o[2][1]), "+f"(o[2][2]), "+f"(o[2][3]),
+          "+f"(o[3][0]), "+f"(o[3][1]), "+f"(o[3][2]), "+f"(o[3][3]),
+          "+f"(o[4][0]), "+f"(o[4][1]), "+f"(o[4][2]), "+f"(o[4][3]),
+          "+f"(o[5][0]), "+f"(o[5][1]), "+f"(o[5][2]), "+f"(o[5][3]),
+          "+f"(o[6][0]), "+f"(o[6][1]), "+f"(o[6][2]), "+f"(o[6][3]),
+          "+f"(o[7][0]), "+f"(o[7][1]), "+f"(o[7][2]), "+f"(o[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<96> {
+  // o[0 .. 11] += A B over one k16 step: A (16 rows of P a warp) in
+  // registers (the m16n8k16 A layout), B (96 lanes of V, 16 keys) MN-major
+  // in shared memory
+  static __device__ __forceinline__ void rs(float (*o)[4], const unsigned* a,
+                                            unsigned long long b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47}, "
+        "{%48,%49,%50,%51}, %52, p, 1, 1, 1;\n}\n"
+        : "+f"(o[0][0]), "+f"(o[0][1]), "+f"(o[0][2]), "+f"(o[0][3]),
+          "+f"(o[1][0]), "+f"(o[1][1]), "+f"(o[1][2]), "+f"(o[1][3]),
+          "+f"(o[2][0]), "+f"(o[2][1]), "+f"(o[2][2]), "+f"(o[2][3]),
+          "+f"(o[3][0]), "+f"(o[3][1]), "+f"(o[3][2]), "+f"(o[3][3]),
+          "+f"(o[4][0]), "+f"(o[4][1]), "+f"(o[4][2]), "+f"(o[4][3]),
+          "+f"(o[5][0]), "+f"(o[5][1]), "+f"(o[5][2]), "+f"(o[5][3]),
+          "+f"(o[6][0]), "+f"(o[6][1]), "+f"(o[6][2]), "+f"(o[6][3]),
+          "+f"(o[7][0]), "+f"(o[7][1]), "+f"(o[7][2]), "+f"(o[7][3]),
+          "+f"(o[8][0]), "+f"(o[8][1]), "+f"(o[8][2]), "+f"(o[8][3]),
+          "+f"(o[9][0]), "+f"(o[9][1]), "+f"(o[9][2]), "+f"(o[9][3]),
+          "+f"(o[10][0]), "+f"(o[10][1]), "+f"(o[10][2]), "+f"(o[10][3]),
+          "+f"(o[11][0]), "+f"(o[11][1]), "+f"(o[11][2]), "+f"(o[11][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // o[0 .. 15] += A B over one k16 step: A (16 rows of P a warp) in
+  // registers (the m16n8k16 A layout), B (128 lanes of V, 16 keys) MN-major
+  // in shared memory
+  static __device__ __forceinline__ void rs(float (*o)[4], const unsigned* a,
+                                            unsigned long long b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+        "{%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(o[0][0]), "+f"(o[0][1]), "+f"(o[0][2]), "+f"(o[0][3]),
+          "+f"(o[1][0]), "+f"(o[1][1]), "+f"(o[1][2]), "+f"(o[1][3]),
+          "+f"(o[2][0]), "+f"(o[2][1]), "+f"(o[2][2]), "+f"(o[2][3]),
+          "+f"(o[3][0]), "+f"(o[3][1]), "+f"(o[3][2]), "+f"(o[3][3]),
+          "+f"(o[4][0]), "+f"(o[4][1]), "+f"(o[4][2]), "+f"(o[4][3]),
+          "+f"(o[5][0]), "+f"(o[5][1]), "+f"(o[5][2]), "+f"(o[5][3]),
+          "+f"(o[6][0]), "+f"(o[6][1]), "+f"(o[6][2]), "+f"(o[6][3]),
+          "+f"(o[7][0]), "+f"(o[7][1]), "+f"(o[7][2]), "+f"(o[7][3]),
+          "+f"(o[8][0]), "+f"(o[8][1]), "+f"(o[8][2]), "+f"(o[8][3]),
+          "+f"(o[9][0]), "+f"(o[9][1]), "+f"(o[9][2]), "+f"(o[9][3]),
+          "+f"(o[10][0]), "+f"(o[10][1]), "+f"(o[10][2]), "+f"(o[10][3]),
+          "+f"(o[11][0]), "+f"(o[11][1]), "+f"(o[11][2]), "+f"(o[11][3]),
+          "+f"(o[12][0]), "+f"(o[12][1]), "+f"(o[12][2]), "+f"(o[12][3]),
+          "+f"(o[13][0]), "+f"(o[13][1]), "+f"(o[13][2]), "+f"(o[13][3]),
+          "+f"(o[14][0]), "+f"(o[14][1]), "+f"(o[14][2]), "+f"(o[14][3]),
+          "+f"(o[15][0]), "+f"(o[15][1]), "+f"(o[15][2]), "+f"(o[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  // o[0 .. 31] += A B over one k16 step: A (16 rows of P a warp) in
+  // registers (the m16n8k16 A layout), B (256 lanes of V, 16 keys) MN-major
+  // in shared memory
+  static __device__ __forceinline__ void rs(float (*o)[4], const unsigned* a,
+                                            unsigned long long b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,%111,%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122,%123,%124,%125,%126,%127}, "
+        "{%128,%129,%130,%131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(o[0][0]), "+f"(o[0][1]), "+f"(o[0][2]), "+f"(o[0][3]),
+          "+f"(o[1][0]), "+f"(o[1][1]), "+f"(o[1][2]), "+f"(o[1][3]),
+          "+f"(o[2][0]), "+f"(o[2][1]), "+f"(o[2][2]), "+f"(o[2][3]),
+          "+f"(o[3][0]), "+f"(o[3][1]), "+f"(o[3][2]), "+f"(o[3][3]),
+          "+f"(o[4][0]), "+f"(o[4][1]), "+f"(o[4][2]), "+f"(o[4][3]),
+          "+f"(o[5][0]), "+f"(o[5][1]), "+f"(o[5][2]), "+f"(o[5][3]),
+          "+f"(o[6][0]), "+f"(o[6][1]), "+f"(o[6][2]), "+f"(o[6][3]),
+          "+f"(o[7][0]), "+f"(o[7][1]), "+f"(o[7][2]), "+f"(o[7][3]),
+          "+f"(o[8][0]), "+f"(o[8][1]), "+f"(o[8][2]), "+f"(o[8][3]),
+          "+f"(o[9][0]), "+f"(o[9][1]), "+f"(o[9][2]), "+f"(o[9][3]),
+          "+f"(o[10][0]), "+f"(o[10][1]), "+f"(o[10][2]), "+f"(o[10][3]),
+          "+f"(o[11][0]), "+f"(o[11][1]), "+f"(o[11][2]), "+f"(o[11][3]),
+          "+f"(o[12][0]), "+f"(o[12][1]), "+f"(o[12][2]), "+f"(o[12][3]),
+          "+f"(o[13][0]), "+f"(o[13][1]), "+f"(o[13][2]), "+f"(o[13][3]),
+          "+f"(o[14][0]), "+f"(o[14][1]), "+f"(o[14][2]), "+f"(o[14][3]),
+          "+f"(o[15][0]), "+f"(o[15][1]), "+f"(o[15][2]), "+f"(o[15][3]),
+          "+f"(o[16][0]), "+f"(o[16][1]), "+f"(o[16][2]), "+f"(o[16][3]),
+          "+f"(o[17][0]), "+f"(o[17][1]), "+f"(o[17][2]), "+f"(o[17][3]),
+          "+f"(o[18][0]), "+f"(o[18][1]), "+f"(o[18][2]), "+f"(o[18][3]),
+          "+f"(o[19][0]), "+f"(o[19][1]), "+f"(o[19][2]), "+f"(o[19][3]),
+          "+f"(o[20][0]), "+f"(o[20][1]), "+f"(o[20][2]), "+f"(o[20][3]),
+          "+f"(o[21][0]), "+f"(o[21][1]), "+f"(o[21][2]), "+f"(o[21][3]),
+          "+f"(o[22][0]), "+f"(o[22][1]), "+f"(o[22][2]), "+f"(o[22][3]),
+          "+f"(o[23][0]), "+f"(o[23][1]), "+f"(o[23][2]), "+f"(o[23][3]),
+          "+f"(o[24][0]), "+f"(o[24][1]), "+f"(o[24][2]), "+f"(o[24][3]),
+          "+f"(o[25][0]), "+f"(o[25][1]), "+f"(o[25][2]), "+f"(o[25][3]),
+          "+f"(o[26][0]), "+f"(o[26][1]), "+f"(o[26][2]), "+f"(o[26][3]),
+          "+f"(o[27][0]), "+f"(o[27][1]), "+f"(o[27][2]), "+f"(o[27][3]),
+          "+f"(o[28][0]), "+f"(o[28][1]), "+f"(o[28][2]), "+f"(o[28][3]),
+          "+f"(o[29][0]), "+f"(o[29][1]), "+f"(o[29][2]), "+f"(o[29][3]),
+          "+f"(o[30][0]), "+f"(o[30][1]), "+f"(o[30][2]), "+f"(o[30][3]),
+          "+f"(o[31][0]), "+f"(o[31][1]), "+f"(o[31][2]), "+f"(o[31][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
 // wgmma's shared-memory matrix descriptor of a K-major tile in the 128-byte
 // swizzle: start address, leading offset 1 (unused by this layout), stride
 // 1024 bytes between groups of 8 rows, layout type 1 (128B swizzle)
 __device__ __forceinline__ unsigned long long gmma_desc(unsigned addr) {
   return (unsigned long long)((addr & 0x3FFFF) >> 4) | (1ull << 16)
          | ((unsigned long long)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// s[16] (+)= A B^T over one k16 step: A 64 x 16 and B 32 x 16 (keys) from
-// their descriptors; accumulate = false overwrites s
-__device__ __forceinline__ void wgmma_m64n32k16(float* s,
-                                                unsigned long long a,
-                                                unsigned long long b,
-                                                bool accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(s[0]), "+f"(s[1]), "+f"(s[2]), "+f"(s[3]), "+f"(s[4]),
-        "+f"(s[5]), "+f"(s[6]), "+f"(s[7]), "+f"(s[8]), "+f"(s[9]),
-        "+f"(s[10]), "+f"(s[11]), "+f"(s[12]), "+f"(s[13]), "+f"(s[14]),
-        "+f"(s[15])
-      : "l"(a), "l"(b), "r"((int)accumulate));
-}
-
-// keeps the compiler from moving reads or writes of wgmma's accumulator
-// registers across the asynchronous product
-__device__ __forceinline__ void fence_regs16(float* s) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(s[i])::"memory");
-}
-
-// o[0 .. 31] += A B over one k16 step: A (16 rows of P a warp) in
-// registers (the m16n8k16 A layout), B (256 lanes of V, 16 keys) from shared
-// memory in the MN-major 128-byte swizzle
-__device__ __forceinline__ void wgmma_m64n256k16_rs(float (*o)[4],
-                                                 const unsigned* a,
-                                                 unsigned long long b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,%111,%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122,%123,%124,%125,%126,%127}, "
-      "{%128,%129,%130,%131}, %132, p, 1, 1, 1;\n"
-      "}\n"
-      :
-        "+f"(o[0][0]), "+f"(o[0][1]), "+f"(o[0][2]), "+f"(o[0][3]),
-        "+f"(o[1][0]), "+f"(o[1][1]), "+f"(o[1][2]), "+f"(o[1][3]),
-        "+f"(o[2][0]), "+f"(o[2][1]), "+f"(o[2][2]), "+f"(o[2][3]),
-        "+f"(o[3][0]), "+f"(o[3][1]), "+f"(o[3][2]), "+f"(o[3][3]),
-        "+f"(o[4][0]), "+f"(o[4][1]), "+f"(o[4][2]), "+f"(o[4][3]),
-        "+f"(o[5][0]), "+f"(o[5][1]), "+f"(o[5][2]), "+f"(o[5][3]),
-        "+f"(o[6][0]), "+f"(o[6][1]), "+f"(o[6][2]), "+f"(o[6][3]),
-        "+f"(o[7][0]), "+f"(o[7][1]), "+f"(o[7][2]), "+f"(o[7][3]),
-        "+f"(o[8][0]), "+f"(o[8][1]), "+f"(o[8][2]), "+f"(o[8][3]),
-        "+f"(o[9][0]), "+f"(o[9][1]), "+f"(o[9][2]), "+f"(o[9][3]),
-        "+f"(o[10][0]), "+f"(o[10][1]), "+f"(o[10][2]), "+f"(o[10][3]),
-        "+f"(o[11][0]), "+f"(o[11][1]), "+f"(o[11][2]), "+f"(o[11][3]),
-        "+f"(o[12][0]), "+f"(o[12][1]), "+f"(o[12][2]), "+f"(o[12][3]),
-        "+f"(o[13][0]), "+f"(o[13][1]), "+f"(o[13][2]), "+f"(o[13][3]),
-        "+f"(o[14][0]), "+f"(o[14][1]), "+f"(o[14][2]), "+f"(o[14][3]),
-        "+f"(o[15][0]), "+f"(o[15][1]), "+f"(o[15][2]), "+f"(o[15][3]),
-        "+f"(o[16][0]), "+f"(o[16][1]), "+f"(o[16][2]), "+f"(o[16][3]),
-        "+f"(o[17][0]), "+f"(o[17][1]), "+f"(o[17][2]), "+f"(o[17][3]),
-        "+f"(o[18][0]), "+f"(o[18][1]), "+f"(o[18][2]), "+f"(o[18][3]),
-        "+f"(o[19][0]), "+f"(o[19][1]), "+f"(o[19][2]), "+f"(o[19][3]),
-        "+f"(o[20][0]), "+f"(o[20][1]), "+f"(o[20][2]), "+f"(o[20][3]),
-        "+f"(o[21][0]), "+f"(o[21][1]), "+f"(o[21][2]), "+f"(o[21][3]),
-        "+f"(o[22][0]), "+f"(o[22][1]), "+f"(o[22][2]), "+f"(o[22][3]),
-        "+f"(o[23][0]), "+f"(o[23][1]), "+f"(o[23][2]), "+f"(o[23][3]),
-        "+f"(o[24][0]), "+f"(o[24][1]), "+f"(o[24][2]), "+f"(o[24][3]),
-        "+f"(o[25][0]), "+f"(o[25][1]), "+f"(o[25][2]), "+f"(o[25][3]),
-        "+f"(o[26][0]), "+f"(o[26][1]), "+f"(o[26][2]), "+f"(o[26][3]),
-        "+f"(o[27][0]), "+f"(o[27][1]), "+f"(o[27][2]), "+f"(o[27][3]),
-        "+f"(o[28][0]), "+f"(o[28][1]), "+f"(o[28][2]), "+f"(o[28][3]),
-        "+f"(o[29][0]), "+f"(o[29][1]), "+f"(o[29][2]), "+f"(o[29][3]),
-        "+f"(o[30][0]), "+f"(o[30][1]), "+f"(o[30][2]), "+f"(o[30][3]),
-        "+f"(o[31][0]), "+f"(o[31][1]), "+f"(o[31][2]), "+f"(o[31][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// o[0 .. 7] += A B over one k16 step: A (16 rows of P a warp) in
-// registers (the m16n8k16 A layout), B (64 lanes of V, 16 keys) from shared
-// memory in the MN-major 128-byte swizzle
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (*o)[4],
-                                                 const unsigned* a,
-                                                 unsigned long long b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
-      "{%32,%33,%34,%35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      :
-        "+f"(o[0][0]), "+f"(o[0][1]), "+f"(o[0][2]), "+f"(o[0][3]),
-        "+f"(o[1][0]), "+f"(o[1][1]), "+f"(o[1][2]), "+f"(o[1][3]),
-        "+f"(o[2][0]), "+f"(o[2][1]), "+f"(o[2][2]), "+f"(o[2][3]),
-        "+f"(o[3][0]), "+f"(o[3][1]), "+f"(o[3][2]), "+f"(o[3][3]),
-        "+f"(o[4][0]), "+f"(o[4][1]), "+f"(o[4][2]), "+f"(o[4][3]),
-        "+f"(o[5][0]), "+f"(o[5][1]), "+f"(o[5][2]), "+f"(o[5][3]),
-        "+f"(o[6][0]), "+f"(o[6][1]), "+f"(o[6][2]), "+f"(o[6][3]),
-        "+f"(o[7][0]), "+f"(o[7][1]), "+f"(o[7][2]), "+f"(o[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // wgmma's descriptor of an MN-major tile in the 128-byte swizzle: atoms of
@@ -1037,15 +1151,6 @@ __device__ __forceinline__ unsigned long long gmma_desc_mn(unsigned addr,
   return (unsigned long long)((addr & 0x3FFFF) >> 4)
          | ((unsigned long long)(lbo >> 4) << 16)
          | ((unsigned long long)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// keeps the compiler from moving reads or writes of O's registers across
-// an asynchronous product
-__device__ __forceinline__ void fence_o(float (*o)[4]) {
-#pragma unroll
-  for (int j = 0; j < kChunkLanes / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(o[j][e])::"memory");
 }
 
 __device__ __forceinline__ unsigned cluster_rank_addr(unsigned addr,
@@ -1338,16 +1443,16 @@ __device__ __forceinline__ void latent_walk(
 #pragma unroll
       for (int i = 0; i < 16; ++i) s[i] = 0.f;
       const unsigned long long desc_k = gmma_desc(base_a + ktile(t));
-      fence_regs16(s);
+      fence_acc<16>(s);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk)
-        wgmma_m64n32k16(
+        Wgmma<32>::ss(
             s, desc_q + (((kk >> 2) * kPanelQ + (kk & 3) * 32) >> 4),
             desc_k + (((kk >> 2) * kPanelK + (kk & 3) * 32) >> 4), kk > 0);
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      fence_regs16(s);
+      fence_acc<16>(s);
 
       // scale, mask, online softmax; s[4j + 2h + e] is row wrow + quad +
       // 8h, key k0 + 8j + pair + e
@@ -1435,21 +1540,21 @@ __device__ __forceinline__ void latent_walk(
         split_bf16(p[1][0], p[1][1], a[kk][2], a_lo[kk][2]);
         split_bf16(p[1][2], p[1][3], a[kk][3], a_lo[kk][3]);
       }
-      fence_o(o);
+      fence_acc<kChunkLanes / 2>(&o[0][0]);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int kk = 0; kk < kK / 16; ++kk) {
         const unsigned vb = v_a + kk * 16 * 128;
         const unsigned long long d0 = gmma_desc_mn(vb, kPanelK, 1024);
         const unsigned long long d1 = gmma_desc_mn(vb + 4 * kPanelK, kPanelK, 1024);
-        wgmma_m64n256k16_rs(o, a[kk], d0);
-        wgmma_m64n64k16_rs(o + 32, a[kk], d1);
-        wgmma_m64n256k16_rs(o, a_lo[kk], d0);
-        wgmma_m64n64k16_rs(o + 32, a_lo[kk], d1);
+        Wgmma<256>::rs(o, a[kk], d0);
+        Wgmma<64>::rs(o + 32, a[kk], d1);
+        Wgmma<256>::rs(o, a_lo[kk], d0);
+        Wgmma<64>::rs(o + 32, a_lo[kk], d1);
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      fence_o(o);
+      fence_acc<kChunkLanes / 2>(&o[0][0]);
       if constexpr (KVTiles::kInt8) {
         // K(t + 1) into the K tile, which everyone is done with since the
         // barrier above, then K(t + 2)'s raw rows
@@ -1633,19 +1738,21 @@ __global__ void __launch_bounds__(kChunkThreads, 1) chunk_latent_kernel(
                     group, qpos0, horizon, scale, out, clocks);
 }
 
-// The launch of a latent-tile kernel (chunk_latent_kernel,
-// prefill_latent_kernel): clusters of grid.x blocks (the spans of one
-// query tile), kChunkThreads a block.
+// The launch of a kernel whose key spans form clusters (chunk_latent_kernel,
+// prefill_latent_kernel, and the pair tile's chunk_pair_kernel and
+// prefill_pair_kernel): clusters of grid.x blocks (the spans of one query
+// tile or pair), `threads` a block.
 struct LatentLaunch {
   cudaLaunchAttribute cluster[1];
   cudaLaunchConfig_t cfg = {};
-  LatentLaunch(dim3 grid, size_t smem, cudaStream_t stream) {
+  LatentLaunch(dim3 grid, size_t smem, cudaStream_t stream,
+               unsigned threads = kChunkThreads) {
     cluster[0].id = cudaLaunchAttributeClusterDimension;
     cluster[0].val.clusterDim.x = grid.x;
     cluster[0].val.clusterDim.y = 1;
     cluster[0].val.clusterDim.z = 1;
     cfg.gridDim = grid;
-    cfg.blockDim = dim3(kChunkThreads);
+    cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cfg.attrs = cluster;
@@ -2206,5 +2313,762 @@ int launch_latent_rows(const void* q, KVTiles kv, const void* tables,
                              row_plan, (__nv_bfloat16*)out, num_decode,
                              decode_q, H, KV, num_sms, stream);
 }
+
+// ---------------------------------------------------------------------------
+// The pair tile: prefill.cu and chunk.cu below head_dim 640 (prefill_pair_kernel,
+// chunk_pair_kernel; ragged.cu's chunk rows launch chunk.cu's kernel).
+//
+// Bound: operations for a long prompt or chunk (a Phi-3 prompt of 3.8k
+// tokens under its 2047-key window does ~140 GFLOP on ~50 MB of K/V), bytes
+// for a short chunk over a long prefix. What held attend_mma back on these
+// rows: S and P V on mma.sync (the card's full tensor-core rate is wgmma's),
+// one 64-row query tile a block with the math warps issuing the copies and
+// passing a barrier or two a tile, 165 registers x 256 threads (one block an
+// SM), and chunks of few query tiles (Phi-3's 256-token chunk: 128 blocks)
+// each walking a whole window serially. So a block of kPairThreads:
+// - two consumer warpgroups, each owning one 64-row query tile (rows r =
+//   i * group + g, attend_mma's), the two tiles of consecutive positions of
+//   the same KV head (a pair), so that every K/V tile a block loads feeds
+//   128 query rows: half the tile fills per query row;
+// - a producer warpgroup (setmaxnreg: kProducerRegs registers, the
+//   consumers kConsumerRegs) that walks the pair's keys and keeps K/V tiles
+//   in flight through a ring of stages with mbarrier full/empty pairs: 16-
+//   byte cp.async copies into the 64-byte swizzle (bf16), or the raw int8
+//   rows and their 16-byte scale chunks into a raw ring, widened to bf16
+//   into the stage by the thread that copied each chunk; a stage is marked
+//   full after the producer's wait on its own copies and a
+//   fence.proxy.async (so wgmma, an async-proxy reader, sees them). The
+//   copies stay cp.async, not TMA: a paged pool's 64-key tile is four pages
+//   of 16 rows through the page list, each of them a box, and an int8 row
+//   needs its scale chunk beside its values and the widening, and one path
+//   serves the dense prompt, the paged pools and both kinds of rows;
+// - S = Q K^T on wgmma (m64nNk16 with N the key tile, q and K K-major in
+//   shared memory), P V on wgmma (m64nDk16, P from registers in two bf16
+//   parts, attend_mma's split_bf16, V read MN-major). Every operand is laid
+//   out in panels of 32 lanes in the 64-byte swizzle (64-byte rows: row r's
+//   16-byte chunk c at r * 64 + ((c ^ (r >> 1 & 3)) << 4)), so one layout
+//   serves 32, 64, 128 and 256 (head_dim 96 keeps attend_mma:
+//   pair_tile_takes);
+// - key tiles of pair_keys(D) keys (64; 32 at D = 256, where O is 128
+//   registers a thread and two q tiles take 64 KB).
+// Windows and the causal mask: each query tile's keys [lo_w, hi_w) are
+// its first query's window start (0 without a window) to its horizon
+// min(last query + 1, kv_len); the pair's keys are their union, from the
+// key tile that holds its start. The union can be cut into key spans
+// (whole key tiles), one block each, and the spans of a pair form one
+// thread-block cluster that merges their partials (O in f32, m, l) through
+// distributed shared memory, in span order (so two launches give equal
+// bits); a pair of one span writes its rows from registers. Every launch
+// of the port takes one span (kPairSpans): a span count planned from a
+// launch's blocks cut a prompt's keys in other places whole than in
+// chunks or in a mixed step, and so gave its rows other bits there. With
+// one span a row's walk is its own keys' tiles in key order (a tile a
+// row cannot see adds exact zeros), whichever pair holds it. A
+// measurement may ask for more (pair_max_spans). The producer loads every
+// key tile of the block's span; a
+// warpgroup multiplies only the tiles that meet its own rows' keys (the
+// other's wait and release it alone), and masks element by element only on
+// an edge tile (one some of its rows cannot see whole). The cap, the int8
+// scales and the online softmax are attend_mma's (log2 units, the accurate
+// tanhf, scales folded in f32); a row that sees no key writes zeros. The
+// softmax is the walk's cost at small head_dims (a 64-key tile of D = 96
+// is 2.4 MFLOP a query tile against 32 scores a thread): its steps are
+// loops under branches that hold for the whole tile (the cap, the edge),
+// so the common tile is max, one FMA, exp2 and a sum a score (bf16 scores
+// take 1/sqrt(D) in the exponent's FMA), and O is rescaled only where a
+// row of the warp has a new max (PERF.md: 15% at Phi-3's prefill).
+// Tried and measured slower (PERF.md): S(j + 1) issued before P V(j) in a
+// software pipeline, 128-key tiles at D <= 96, the two query tiles taking
+// turns at the tensor cores (ping-pong); q in registers for S was 4%
+// faster at D = 96 but failed the card tests at D = 64, not understood.
+constexpr int kPairThreads = 384;        // two consumer warpgroups, a producer
+constexpr int kPairRows = 2 * kTileRows;  // two query tiles a block
+constexpr int kPanelLanes = 32;           // bf16 lanes of a 64-byte panel row
+constexpr int kPanelRow = 64;             // bytes of a panel row
+constexpr int kProducerRegs = 56;         // setmaxnreg: the producer's
+constexpr int kConsumerRegs = 224;        // and each consumer's registers
+constexpr int kMaxPairStages = 4;         // K/V ring stages at most
+constexpr size_t kPairBars = 512;         // the mbarriers' corner
+
+// keys per K/V tile of the pair tile at head_dim d
+__host__ __device__ constexpr int pair_keys(int d) { return d == 256 ? 32 : 64; }
+
+// Shared memory of a pair-tile block at head_dim kD (offsets from a
+// 512-byte aligned base, which the swizzle needs): the mbarriers, the two
+// query tiles (kD / 32 panels of 64 rows each), the ring of K/V stages (a
+// stage: K's panels, V's panels, and for int8 pools the keys' f32 scales),
+// for int8 pools the raw ring (values of K then V, then their scale
+// chunks); after the walk the same bytes (past the mbarriers) hold the
+// partial O [128][kD + 4], (m, l) [128][2] and the merge's weights [128][9].
+template <typename KVTiles, int kD>
+struct PairSmem {
+  static constexpr int kN = pair_keys(kD);
+  static constexpr size_t q_tile = (size_t)kTileRows * kD * 2;
+  static constexpr size_t q_panel = (size_t)kTileRows * kPanelRow;
+  static constexpr size_t panel = (size_t)kN * kPanelRow;
+  static constexpr size_t kv_tile = panel * (kD / kPanelLanes);
+  static constexpr size_t stage =
+      (2 * kv_tile + (KVTiles::kInt8 ? 2 * kN * 4 : 0) + 511) / 512 * 512;
+  static constexpr size_t raw =
+      KVTiles::kInt8 ? 2 * (size_t)kN * kD + 2 * (size_t)kN * 16 : 0;
+  static constexpr size_t avail = kMaxBlockSmem - 512 - kPairBars - 2 * q_tile;
+  // int8: three raw slots (two tiles of raw rows in flight) where they fit
+  // beside two stages, else two
+  static constexpr int raw_slots =
+      !KVTiles::kInt8 ? 0 : (2 * stage + 3 * raw <= avail ? 3 : 2);
+  static constexpr int stages =
+      (avail - raw_slots * raw) / stage < kMaxPairStages
+          ? (int)((avail - raw_slots * raw) / stage) : kMaxPairStages;
+  static constexpr size_t ring_off = 2 * q_tile;
+  static constexpr size_t raw_off = ring_off + stages * stage;
+  static constexpr size_t walk = raw_off + raw_slots * raw;
+  static constexpr size_t dump = (size_t)kPairRows * (kD + 4) * 4
+                                 + (size_t)kPairRows * 2 * 4
+                                 + (size_t)kPairRows * (kMaxChunkSpans + 1) * 4;
+  static constexpr size_t bytes = 512 + kPairBars + (walk > dump ? walk : dump);
+  static_assert(stages >= (KVTiles::kInt8 ? 2 : 3), "the pair tile's ring");
+  static_assert(bytes <= kMaxBlockSmem, "the pair tile's shared memory");
+};
+
+// Keys of a query-tile pair's union that pair_max_spans counts: the horizon,
+// or under a window at most window - 1 + 2 * positions keys from the start
+// of the key tile that holds the union's first key.
+inline long long pair_union_keys(long long horizon, int window, int positions,
+                                 int key_tile) {
+  return window ? std::min(horizon, (long long)window - 1 + 2LL * positions
+                                        + key_tile - 1)
+                : horizon;
+}
+
+// The spans of every pair-tile launch the port makes (prefill.cu,
+// chunk.cu, ragged.cu's chunk rows): one. A plan from the launch's blocks
+// (the most spans that run in one wave) halved Phi-3's windowed chunk
+// (0.0589 -> 0.0376 ms in two spans) but cut a prompt's keys in other
+// places whole (one span) than in 256-token chunks (two or three), so its
+// rows got other bits and phi-3-mini's chunked stream left the whole
+// prompt's; spans at key tiles fixed for every launch kept the bits but
+// slowed the whole-prompt prefill 1.5-1.8x (PERF.md). A span count that
+// keeps the bits and fills the card needs the whole prompt's block to walk
+// its fixed spans in turn and merge them as the cluster does (ROADMAP).
+constexpr int kPairSpans = 1;
+
+// query-tile pairs of n query positions in tiles of `positions`
+inline long long pair_count(long long n, int positions) {
+  return ((n + positions - 1) / positions + 1) / 2;
+}
+
+// Whether prefill.cu and chunk.cu (and ragged.cu's chunk rows) run the pair
+// tile at head_dim d (below 640): every head_dim but 96, where they keep
+// attend_mma. At 96 the pair tile halved Phi-3's prefill and chunk
+// (1.2200 -> 0.6307 ms, 0.0744 -> 0.0377), but phi-3-mini's served mixed
+// and mixed_int8 streams then first left their whole-prompt references
+// past a near-tie, as they leave them at near-ties on attend_mma's bits:
+// those paths differ from the reference by more than rounding (a mixed
+// step's batch shapes, an int8 pool against the prompt's bf16 K/V), and
+// the random 32-layer model swings its logits by 0.1-0.4 on any such
+// difference (PERF.md).
+inline bool pair_tile_takes(int d) { return d != 96 && d != kLatentDim; }
+
+// with_head_dim over the pair tile's head_dims (pair_tile_takes), so that
+// its kernels are compiled at those only
+template <typename Fn>
+inline int with_pair_head_dim(int d, Fn&& fn) {
+  switch (d) {
+    case 32: return fn(std::integral_constant<int, 32>{});
+    case 64: return fn(std::integral_constant<int, 64>{});
+    case 128: return fn(std::integral_constant<int, 128>{});
+    case 256: return fn(std::integral_constant<int, 256>{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// the most spans a measurement may ask a launch for: kMaxChunkSpans, and at
+// most the key tiles of its longest union
+inline int pair_max_spans(long long horizon, int window, int positions,
+                          int d) {
+  const int kn = pair_keys(d);
+  const long long tiles =
+      (pair_union_keys(horizon, window, positions, kn) + kn - 1) / kn;
+  return (int)std::max(1LL, std::min((long long)kMaxChunkSpans, tiles));
+}
+
+// byte offset of 16-byte chunk c (0 .. 3) of row r of a panel of 64-byte
+// rows in the 64-byte swizzle (the panel 512-byte aligned)
+__device__ __forceinline__ unsigned sw64(int r, int c) {
+  return r * kPanelRow + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+// wgmma's descriptor of a K-major tile of 64-byte rows in the 64-byte
+// swizzle: leading offset unused, 512 bytes between groups of 8 rows,
+// layout type 2
+__device__ __forceinline__ unsigned long long gmma_desc64(unsigned addr) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) | (1ull << 16)
+         | ((unsigned long long)(512 >> 4) << 32) | (2ull << 62);
+}
+
+// the same for an MN-major tile (V: keys of 64-byte rows of 32 lanes):
+// `lbo` bytes between 32-lane panels, 512 between groups of 8 keys
+__device__ __forceinline__ unsigned long long gmma_desc64_mn(unsigned addr,
+                                                             unsigned lbo) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4)
+         | ((unsigned long long)(lbo >> 4) << 16)
+         | ((unsigned long long)(512 >> 4) << 32) | (2ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned addr, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(addr),
+               "r"(count) : "memory");
+}
+
+// `count` arrivals on the mbarrier (release)
+__device__ __forceinline__ void mbar_arrive(unsigned addr, unsigned count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(addr),
+               "r"(count) : "memory");
+}
+
+// waits until the mbarrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(unsigned addr, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(addr),
+      "r"(parity) : "memory");
+}
+
+// the `n` threads of named barrier `id`
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// The rows of a block of the pair tile: row R of the two query tiles (tile R
+// / 64, row r = R % 64 = i * group + g) is query position w * positions + i
+// of the pair, head g; n_rows[w] of each tile's rows are real.
+struct PairRows {
+  long long q_off;  // element offset of the pair's first query, head g = 0
+  int q_row_stride, positions, group, n_rows[2];
+  __device__ __forceinline__ bool real(int R) const {
+    return (R & (kTileRows - 1)) < n_rows[R >> 6];
+  }
+  __device__ __forceinline__ long long offset(int R, int d) const {
+    const int r = R & (kTileRows - 1), i = r / group, g = r - i * group;
+    return q_off + (long long)((R >> 6) * positions + i) * q_row_stride
+           + g * d;
+  }
+};
+
+// One block of a pair-tile launch whose grid's x runs over the key spans of
+// a query-tile pair (a thread-block cluster of gridDim.x blocks): query
+// tiles of nq0 and nq1 positions (nq1 0: no second tile) at qpos0 and qpos0
+// + positions of KV head kvh, seeing key tok iff tok <= their position, tok
+// < kv_len and, under mods.window, position - window < tok; q and out at
+// the PairRows addressing. The walk of span blockIdx.x of the pair's keys,
+// then the cluster's merge (or, with one span, each tile's rows written
+// from its warpgroup's registers). With `clocks`, thread 0 stamps the
+// global timer when both tiles' walks are done and when the block is done:
+// clocks[2 * block + {0, 1}], block the block's linear index.
+template <int kD, typename KVTiles, typename Rows>
+__device__ __forceinline__ void pair_span_block(
+    char* smem, const __nv_bfloat16* __restrict__ q, KVTiles kv, Rows rows,
+    int kvh, int nq0, int nq1, const PairRows& pr, int qpos0, int kv_len,
+    float scale, ScoreMods mods, __nv_bfloat16* __restrict__ out,
+    unsigned long long* __restrict__ clocks) {
+  using L = PairSmem<KVTiles, kD>;
+  constexpr int kN = L::kN, kS = L::stages;
+  const unsigned smem0 = smem_u32(smem);
+  char* base = smem + (((smem0 + 511) & ~511u) - smem0);
+  char* data = base + kPairBars;
+  const unsigned base_a = smem_u32(base);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int span_idx = blockIdx.x, n_spans = gridDim.x;
+  const bool windowed = mods.window > 0;
+  const int positions = pr.positions;
+
+  // each tile's keys [lo_w[w], hi_w[w]) (empty where lo >= hi), their union
+  // [lo, hi) from the key tile of its start, and this span's key tiles
+  int lo_w[2], hi_w[2], lo = INT_MAX, hi = 0;
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    const int nq = w ? nq1 : nq0, qp = qpos0 + w * positions;
+    hi_w[w] = nq > 0 ? min(qp + nq, kv_len) : 0;
+    lo_w[w] = windowed ? max(0, qp - mods.window + 1) : 0;
+    if (lo_w[w] < hi_w[w]) {
+      lo = min(lo, lo_w[w]);
+      hi = max(hi, hi_w[w]);
+    }
+  }
+  const int lo_al = lo < hi ? lo / kN * kN : 0;
+  const int n_tiles = lo < hi ? (hi - lo_al + kN - 1) / kN : 0;
+  const int t_first = span_idx * n_tiles / n_spans;
+  const int nt = (span_idx + 1) * n_tiles / n_spans - t_first;
+  const int key0 = lo_al + t_first * kN;  // the span's first key
+  // the span's tiles [tlo[w], thi[w]) that meet tile w's keys
+  int tlo[2], thi[2];
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    tlo[w] = lo_w[w] > key0 ? (lo_w[w] - key0) / kN : 0;
+    thi[w] = lo_w[w] < hi_w[w] && hi_w[w] > key0
+                 ? min(nt, (hi_w[w] - key0 + kN - 1) / kN) : 0;
+  }
+
+  char* ring = data + L::ring_off;
+  auto full_a = [&](int s) { return base_a + 8 * s; };
+  auto empty_a = [&](int s) { return base_a + 64 + 8 * s; };
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full_a(s), kTileThreads / 2);     // the producer's threads
+      mbar_init(empty_a(s), kTileThreads / 32);  // the consumers' warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ---- the producer warpgroup: K/V tiles of the span into the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int ptid = tid - kTileThreads;
+    constexpr int kTpk = 128 / kN;  // threads per key slot
+    const int slot = ptid / kTpk, part = ptid - slot * kTpk;
+    auto row_of = [&](int j) -> long long {
+      const int tok = key0 + j * kN + slot;
+      return tok < hi ? rows(tok) : -1;  // -1: zero-filled, never addressed
+    };
+    long long row = nt > 0 ? row_of(0) : -1;
+    if constexpr (!KVTiles::kInt8) {
+      // tile j is marked full kLead tiles later, after the wait on its copies
+      constexpr int kLead = kS - 2;
+      for (int j = 0; j < nt + kLead; ++j) {
+        if (j < nt) {
+          const int s = j % kS;
+          if (j >= kS) mbar_wait(empty_a(s), (j / kS - 1) & 1);
+          char* st = ring + s * L::stage;
+          const bool ok = row >= 0;
+          const long long off = row + (long long)kvh * kD;
+#pragma unroll
+          for (int c = part; c < kD / 8; c += kTpk) {
+            const unsigned d = (c >> 2) * L::panel + sw64(slot, c & 3);
+            cp_async16(st + d, ok ? kv.k + off + c * 8 : kv.k, ok);
+            cp_async16(st + L::kv_tile + d, ok ? kv.v + off + c * 8 : kv.v, ok);
+          }
+          if (j + 1 < nt) row = row_of(j + 1);
+        }
+        cp_async_commit();
+        if (j >= kLead) {
+          cp_async_wait<kLead>();
+          fence_proxy_async();
+          mbar_arrive(full_a((j - kLead) % kS), 1);
+        }
+      }
+    } else {
+      // raw rows of tile j land in raw slot j % kR; kLead tiles later this
+      // thread widens its own chunks of them into the stage
+      constexpr int kR = L::raw_slots, kLead = kR - 1, kC = kD / 16;
+      char* raw = data + L::raw_off;
+      for (int j = 0; j < nt + kLead; ++j) {
+        if (j < nt) {
+          char* rw = raw + (j % kR) * L::raw;
+          const bool ok = row >= 0;
+          const long long off = row + (long long)kvh * kD;
+#pragma unroll
+          for (int c = part; c < kC; c += kTpk) {
+            cp_async16(rw + slot * kD + c * 16, ok ? kv.k + off + c * 16 : kv.k,
+                       ok);
+            cp_async16(rw + kN * kD + slot * kD + c * 16,
+                       ok ? kv.v + off + c * 16 : kv.v, ok);
+          }
+          if (part < 2) {  // the chunk holding head kvh's scale, K's then V's
+            const int8_t* src = part ? kv.v : kv.k;
+            cp_async16(rw + 2 * kN * kD + (part * kN + slot) * 16,
+                       ok ? src + row + kv.kvd + 16 * (kvh / 8) : src, ok);
+          }
+          if (j + 1 < nt) row = row_of(j + 1);
+        }
+        cp_async_commit();
+        if (j >= kLead) {
+          const int jt = j - kLead, s = jt % kS;
+          cp_async_wait<kLead>();
+          if (jt >= kS) mbar_wait(empty_a(s), (jt / kS - 1) & 1);
+          const char* rw = raw + (jt % kR) * L::raw;
+          char* st = ring + s * L::stage;
+#pragma unroll
+          for (int c = part; c < kC; c += kTpk) {
+#pragma unroll
+            for (int which = 0; which < 2; ++which) {
+              unsigned w8[8];
+              widen16(*reinterpret_cast<const uint4*>(
+                          rw + which * kN * kD + slot * kD + c * 16), w8);
+              // lanes 16 c .. + 15: bf16 chunks 2c and 2c + 1 of the row
+              char* dst = st + which * L::kv_tile + (c >> 1) * L::panel;
+              *reinterpret_cast<uint4*>(dst + sw64(slot, (2 * c) & 3)) =
+                  make_uint4(w8[0], w8[1], w8[2], w8[3]);
+              *reinterpret_cast<uint4*>(dst + sw64(slot, (2 * c + 1) & 3)) =
+                  make_uint4(w8[4], w8[5], w8[6], w8[7]);
+            }
+          }
+          if (part < 2) {
+            const unsigned short bits = *reinterpret_cast<const unsigned short*>(
+                rw + 2 * kN * kD + (part * kN + slot) * 16 + 2 * (kvh % 8));
+            reinterpret_cast<float*>(st + 2 * L::kv_tile)[part * kN + slot] =
+                __uint_as_float((unsigned)bits << 16);  // bf16 -> f32, exact
+          }
+          fence_proxy_async();
+          mbar_arrive(full_a(s), 1);
+        }
+      }
+    }
+    if (n_spans > 1) {  // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+  } else {
+    // ---- a consumer warpgroup: query tile w
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int w = warp >> 2, wrow = (warp & 3) * 16;
+    const int quad = lane >> 2, pair = (lane & 3) * 2;
+    const int nq = w ? nq1 : nq0, qp = qpos0 + w * positions;
+    const int n_rows = pr.n_rows[w];
+    char* qs = data + w * L::q_tile;
+    const bool mine = tlo[w] < thi[w];
+
+    float o[kD / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+    if (mine) {
+      // q's rows (zeros past n_rows) into the panels
+      const int tw = tid & 127;
+      for (int idx = tw; idx < kTileRows * (kD / 8); idx += 128) {
+        const int r = idx / (kD / 8), c = idx - r * (kD / 8);
+        const bool valid = r < n_rows;
+        const __nv_bfloat16* src =
+            valid ? q + pr.offset(w * kTileRows + r, kD) + c * 8 : q;
+        cp_async16(qs + (c >> 2) * L::q_panel + sw64(r, c & 3), src, valid);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_proxy_async();
+      bar_sync(1 + w, 128);
+
+      int qlim[2], wlim[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        qlim[h] = qp + (wrow + quad + 8 * h) / pr.group;
+        wlim[h] = windowed ? qlim[h] - mods.window : INT_MIN;
+      }
+      // a key tile starting at or below this straddles some row's window
+      const int wedge = windowed ? qp + nq - 1 - mods.window : INT_MIN;
+      const float sl2 = scale * 1.4426950408889634f;
+      const bool capped = mods.cap > 0.f;
+      const float cap_l2 = mods.cap * 1.4426950408889634f;
+      const float inv_cap = capped ? 1.f / mods.cap : 0.f;
+      const unsigned q_a = smem_u32(qs);
+      const int o_w = 1 - w;
+
+      for (int j = tlo[w]; j < thi[w]; ++j) {
+        const int s = j % kS;
+        mbar_wait(full_a(s), (j / kS) & 1);
+        const unsigned st_a = smem_u32(ring + s * L::stage);
+        const float* ksc =
+            reinterpret_cast<const float*>(ring + s * L::stage + 2 * L::kv_tile);
+        const float* vsc = ksc + kN;
+        const int k0 = key0 + j * kN;
+
+        // S = Q K^T: kD / 16 k16 steps, two a 32-lane panel
+        float sc[kN / 2];
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) sc[i] = 0.f;
+        fence_acc<kN / 2>(sc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk)
+          Wgmma<kN>::ss(sc,
+                        gmma_desc64(q_a + (kk >> 1) * L::q_panel + (kk & 1) * 32),
+                        gmma_desc64(st_a + (kk >> 1) * L::panel + (kk & 1) * 32),
+                        kk > 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_acc<kN / 2>(sc);
+
+        // scale, cap, mask, online softmax; sc[4 jb + 2 h + e] is row wrow
+        // + quad + 8 h, key k0 + 8 jb + pair + e. Each step is one loop
+        // under a branch that is the same for the whole tile (the cap, the
+        // edge), so the common tile (no cap, inside every row's keys) is
+        // max, one FMA, exp2 and a sum an element. bf16 scores stay raw
+        // and take 1/sqrt(D) in log2 units in the exponent's FMA; capped
+        // and int8 scores are brought to log2 units first.
+        const bool edge =
+            k0 + kN > kv_len || k0 + kN - 1 > qp || k0 <= wedge;
+        float fs = sl2;  // the factor left for the exponent
+        if (capped) {
+#pragma unroll
+          for (int i = 0; i < kN / 2; ++i) {
+            const int key = (i >> 2) * 8 + pair + (i & 1);
+            const float fn = KVTiles::kInt8 ? scale * ksc[key] : scale;
+            sc[i] = cap_l2 * tanhf(sc[i] * fn * inv_cap);
+          }
+          fs = 1.f;
+        } else if constexpr (KVTiles::kInt8) {
+#pragma unroll
+          for (int i = 0; i < kN / 2; ++i)
+            sc[i] *= sl2 * ksc[(i >> 2) * 8 + pair + (i & 1)];
+          fs = 1.f;
+        }
+        if (edge) {
+#pragma unroll
+          for (int i = 0; i < kN / 2; ++i) {
+            const int tok = k0 + (i >> 2) * 8 + pair + (i & 1);
+            const int h = (i >> 1) & 1;
+            if (!(tok < kv_len && tok <= qlim[h] && tok > wlim[h]))
+              sc[i] = -INFINITY;
+          }
+        }
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i)
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+        float alpha[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const float m_new = fmaxf(m[h], mx[h] * fs);  // log2 units
+          // never exp(-inf - -inf): a row that has seen nothing keeps 0s
+          const float b = m_new == -INFINITY ? 0.f : m_new;
+          alpha[h] = exp2f(m[h] - b);
+          m[h] = m_new;
+          l[h] *= alpha[h];
+#pragma unroll
+          for (int jb = 0; jb < kN / 8; ++jb)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float p = exp2f(fmaf(sc[4 * jb + 2 * h + e], fs, -b));
+              sc[4 * jb + 2 * h + e] = p;
+              l[h] += p;
+            }
+        }
+        // O's rescale, skipped where no row of the warp has a new max
+        if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+          for (int jd = 0; jd < kD / 8; ++jd) {
+            o[jd][0] *= alpha[0];
+            o[jd][1] *= alpha[0];
+            o[jd][2] *= alpha[1];
+            o[jd][3] *= alpha[1];
+          }
+        }
+
+        // O += P V: P (times V's int8 scales) in two bf16 parts from
+        // registers, V's kD lanes MN-major (32-lane panels L::panel bytes
+        // apart, 8-key groups 512 apart)
+        unsigned a[kN / 16][4], a_lo[kN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kN / 16; ++kk) {
+          float p[2][4];
+#pragma unroll
+          for (int hb = 0; hb < 2; ++hb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float vs = KVTiles::kInt8
+                  ? vsc[(2 * kk + hb) * 8 + pair + (e & 1)] : 1.f;
+              p[hb][e] = sc[4 * (2 * kk + hb) + e] * vs;
+            }
+          split_bf16(p[0][0], p[0][1], a[kk][0], a_lo[kk][0]);
+          split_bf16(p[0][2], p[0][3], a[kk][1], a_lo[kk][1]);
+          split_bf16(p[1][0], p[1][1], a[kk][2], a_lo[kk][2]);
+          split_bf16(p[1][2], p[1][3], a[kk][3], a_lo[kk][3]);
+        }
+        fence_acc<kD / 2>(&o[0][0]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < kN / 16; ++kk) {
+          const unsigned long long dv =
+              gmma_desc64_mn(st_a + L::kv_tile + kk * 16 * kPanelRow, L::panel);
+          Wgmma<kD>::rs(o, a[kk], dv);
+          Wgmma<kD>::rs(o, a_lo[kk], dv);
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_acc<kD / 2>(&o[0][0]);
+
+        // the stage is free for the producer once both tiles that meet it
+        // are done with it (8 warps' arrivals)
+        __syncwarp();
+        if (lane == 0)
+          mbar_arrive(empty_a(s), j >= tlo[o_w] && j < thi[o_w] ? 1 : 2);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      }
+    }
+
+    const long long block =
+        blockIdx.x + (long long)gridDim.x * (blockIdx.y + (long long)gridDim.y
+                                                              * blockIdx.z);
+    if (n_spans == 1) {
+      if (clocks) {
+        bar_sync(3, kTileThreads);
+        if (tid == 0) clocks[2 * block] = global_ns();
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int R = w * kTileRows + wrow + quad + 8 * h;
+        if (!pr.real(R)) continue;
+        const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+        __nv_bfloat16* orow = out + pr.offset(R, kD) + pair;
+#pragma unroll
+        for (int jd = 0; jd < kD / 8; ++jd)
+          *reinterpret_cast<__nv_bfloat162*>(orow + jd * 8) =
+              __floats2bfloat162_rn(o[jd][2 * h] * inv, o[jd][2 * h + 1] * inv);
+      }
+      if (clocks) {
+        bar_sync(3, kTileThreads);
+        if (tid == 0) clocks[2 * block + 1] = global_ns();
+      }
+    } else {
+      // both tiles are done with the ring (and the producer's copies all
+      // landed before the last stage it marked full): the partial into this
+      // block's shared memory
+      constexpr int kLd = kD + 4;  // padded f32 row of the dump
+      constexpr int kW = kMaxChunkSpans + 1;
+      bar_sync(3, kTileThreads);
+      if (clocks && tid == 0) clocks[2 * block] = global_ns();
+      float* dump = reinterpret_cast<float*>(data);
+      float* ml = dump + kPairRows * kLd;
+      float* wts = ml + 2 * kPairRows;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int R = w * kTileRows + wrow + quad + 8 * h;
+        float* dr = dump + R * kLd + pair;
+#pragma unroll
+        for (int jd = 0; jd < kD / 8; ++jd)
+          *reinterpret_cast<float2*>(dr + jd * 8) =
+              make_float2(o[jd][2 * h], o[jd][2 * h + 1]);
+        if (pair == 0) {
+          ml[2 * R] = m[h];
+          ml[2 * R + 1] = l[h];
+        }
+      }
+      cluster_sync();  // every span's partial is in
+
+      // each row's span weights w_u = 2^(m_u - max m) (0 for an empty
+      // span) and 1 / sum_u w_u l_u, then this block's share of the
+      // (row, 8-lane chunk) tasks, spans folded in order
+      const unsigned dump_a = smem_u32(dump), ml_a = smem_u32(ml);
+      if (tid < kPairRows) {
+        float2 x[kMaxChunkSpans];
+#pragma unroll
+        for (int u = 0; u < kMaxChunkSpans; ++u)
+          x[u] = u < n_spans
+              ? ld_cluster_f2(cluster_rank_addr(ml_a + 8 * tid, u))
+              : make_float2(-INFINITY, 0.f);
+        float big = -INFINITY;
+#pragma unroll
+        for (int u = 0; u < kMaxChunkSpans; ++u) big = fmaxf(big, x[u].x);
+        float denom = 0.f;
+#pragma unroll
+        for (int u = 0; u < kMaxChunkSpans; ++u) {
+          const float wt = x[u].x == -INFINITY ? 0.f : exp2f(x[u].x - big);
+          wts[tid * kW + u] = wt;
+          denom += wt * x[u].y;
+        }
+        wts[tid * kW + kMaxChunkSpans] = denom > 0.f ? 1.f / denom : 0.f;
+      }
+      bar_sync(3, kTileThreads);
+      constexpr int kChunks = kD / 8;
+      const int tasks = kPairRows * kChunks;
+      const int t_end = (span_idx + 1) * tasks / n_spans;
+      for (int task = span_idx * tasks / n_spans + tid; task < t_end;
+           task += kTileThreads) {
+        const int R = task / kChunks, c8 = task - R * kChunks;
+        if (!pr.real(R)) continue;
+        const float* wr = wts + R * kW;
+        const unsigned a = dump_a + 4 * (R * kLd + 8 * c8);
+        float4 x[kMaxChunkSpans][2];
+#pragma unroll
+        for (int u = 0; u < kMaxChunkSpans; ++u)
+          if (u < n_spans) {
+            const unsigned ra = cluster_rank_addr(a, u);
+            x[u][0] = ld_cluster_f4(ra);
+            x[u][1] = ld_cluster_f4(ra + 16);
+          }
+        float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int u = 0; u < kMaxChunkSpans; ++u)
+          if (u < n_spans) {
+            const float wt = wr[u];
+            acc[0] += wt * x[u][0].x;
+            acc[1] += wt * x[u][0].y;
+            acc[2] += wt * x[u][0].z;
+            acc[3] += wt * x[u][0].w;
+            acc[4] += wt * x[u][1].x;
+            acc[5] += wt * x[u][1].y;
+            acc[6] += wt * x[u][1].z;
+            acc[7] += wt * x[u][1].w;
+          }
+        const float inv = wr[kMaxChunkSpans];
+        *reinterpret_cast<uint4*>(out + pr.offset(R, kD) + 8 * c8) =
+            make_uint4(pack_bf16(acc[0] * inv, acc[1] * inv),
+                       pack_bf16(acc[2] * inv, acc[3] * inv),
+                       pack_bf16(acc[4] * inv, acc[5] * inv),
+                       pack_bf16(acc[6] * inv, acc[7] * inv));
+      }
+      cluster_sync();  // no block leaves while the cluster reads its partial
+      if (clocks && tid == 0) clocks[2 * block + 1] = global_ns();
+    }
+  }
+}
+
+// Block (span, pair, KV head) of a C-query chunk at `start` over the page
+// list `pages`: pairs run from the chunk's end (blockIdx.y 0 is the last
+// pair, the longest under the causal mask), each pair's tiles at positions
+// start + i0 .. and start + i0 + positions ..; the walk of its span and the
+// cluster's merge (pair_span_block). kv_len = start + C (chunk.cu), or, with
+// `desc_start` (ragged.cu's chunk rows), start = *desc_start and kv_len =
+// min(*desc_kv_len, max_keys) read on the card: the same blocks and spans,
+// so equal inputs give chunk.cu's bits.
+template <int kD, typename KVTiles>
+__global__ void __launch_bounds__(kPairThreads, 1) chunk_pair_kernel(
+    const __nv_bfloat16* __restrict__ q,  // [C, H, kD]
+    KVTiles kv,                           // pools [P, ps, lane_width]
+    const int* __restrict__ pages,        // [W]
+    __nv_bfloat16* __restrict__ out,      // [C, H, kD]
+    int C, int H, int KV, int page_size, int lane_width, int start,
+    int positions, float scale, ScoreMods mods,
+    unsigned long long* __restrict__ clocks,
+    const int* __restrict__ desc_start, const int* __restrict__ desc_kv_len,
+    int max_keys) {
+  extern __shared__ __align__(16) char pair_smem[];
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * 2 * positions;
+  const int kvh = blockIdx.z, group = H / KV;
+  const int nq0 = min(positions, C - i0);
+  const int nq1 = max(0, min(positions, C - i0 - positions));
+  int kv_len = start + C;
+  if (desc_start) {
+    start = *desc_start;
+    kv_len = min(*desc_kv_len, max_keys);
+  }
+  const PairRows pr{((long long)i0 * H + kvh * group) * kD, H * kD, positions,
+                    group, {nq0 * group, nq1 * group}};
+  pair_span_block<kD>(pair_smem, q, kv, PagedRows{pages, page_size, lane_width},
+                      kvh, nq0, nq1, pr, start + i0, kv_len, scale, mods, out,
+                      clocks);
+}
+
+// chunk_pair_kernel over a C-query chunk in `spans` spans a pair (the
+// port's kPairSpans, or a measurement's count up to pair_max_spans):
+// chunk.cu's (start given, desc_start == nullptr) or ragged.cu's chunk rows
+// (start and kv_len read on the card, cut at max_keys). q, out and pages
+// start at the chunk's. Defined in chunk.cu for both pool kinds.
+template <typename KVTiles>
+int launch_chunk_pair(const void* q, KVTiles kv, const void* pages, void* out,
+                      int C, int H, int KV, int D, int page_size,
+                      int lane_width, int start, int positions, int spans,
+                      float scale, ScoreMods mods, void* clocks,
+                      cudaStream_t stream, const int* desc_start = nullptr,
+                      const int* desc_kv_len = nullptr, int max_keys = 0);
 
 }  // namespace dtt

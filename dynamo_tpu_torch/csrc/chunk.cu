@@ -14,22 +14,39 @@
 // FLOP per byte, three times the ~295 where the tensor cores start to bind;
 // a short chunk over a long prefix moves towards bytes.
 //
-// Design: one block per (query tile of 64 / group positions, KV head), the
-// tensor-core tile `attend_mma` (attention_common.cuh): 64 rows = positions
-// x the GQA group of one KV head, so a K/V tile feeds the whole group; S and
-// P V on mma.sync with f32 accumulation, the online softmax and O in
-// registers, two warpgroups splitting each 64-key tile, and the K/V tiles
-// streamed through a cp.async ring (three stages; two for bf16 pools at
-// head_dim 256, where three do not fit). A 256-token chunk with
-// group 4 is 16 x 8 = 128 blocks: one wave on the 132 SMs. Each query tile
-// re-reads its causal prefix, 16 times per chunk, and mostly from the
-// 50 MB L2: the 3 MB of K/V are
-// read from device memory about once. What holds the tile back is latency,
-// not the tensor cores: with one block per SM, the 16-byte copies (2048 per
-// tile, made by the math warps), the barriers and the softmax's
-// dependent steps leave the MMAs idle most of the time. TMA copies from a
-// producer warp, and reading the prefix once for several query tiles (a
-// cluster sharing its tiles), are later work.
+// Design below head_dim 640, but for 96: the pair tile (attention_common.cuh,
+// pair_span_block; chunk_pair_kernel). What held the previous tile
+// (attend_mma: one query tile a block, S and P V on mma.sync, the math
+// warps issuing the 16-byte copies and passing a barrier or two a tile)
+// back was latency, and at group 1 few blocks: Phi-3's 256-token chunk was
+// 128 blocks each walking a 2047-key window serially. So:
+// - a block holds two query tiles of the same KV head (a pair: two
+//   consumer warpgroups of 64 rows) that share every K/V tile, so a K/V
+//   tile is filled once for 128 query rows;
+// - a producer warpgroup (setmaxnreg: 56 registers, the consumers 224)
+//   copies the K/V tiles through the page list into a ring of stages
+//   (cp.async into the 64-byte swizzle; int8 rows and their scale chunks
+//   into a raw ring, widened to bf16 by the copying thread) with mbarrier
+//   full/empty pairs, so the math warps issue no copies;
+// - S = Q K^T and O += P V run on wgmma (q and K in shared memory, P from
+//   registers in two bf16 parts, V read MN-major), 64-key tiles (32 at
+//   head_dim 256);
+// - a pair's keys (from the key tile of its first query's window to its
+//   horizon) are walked by one block (kPairSpans): a chunk row then takes
+//   the bits its prompt's whole prefill gives it (prefill.cu's blocks at
+//   start 0). The kernel can cut them into spans, one block each, merged
+//   in the pair's cluster through distributed shared memory in span order
+//   (a measurement's `spans`): two spans halve Phi-3's windowed chunk, but
+//   a count planned per launch gave a prompt's rows other bits chunked
+//   than whole (attention_common.cuh, PERF.md).
+// A query tile multiplies only the key tiles that meet its own rows'
+// keys, and masks element by element only on an edge tile.
+//
+// At head_dim 96 (Phi-3) the chunk keeps chunk_kernel: one block per
+// (query tile of 64 / group positions, KV head) runs attend_mma
+// (attention_common.cuh; S and P V on mma.sync, the math warps copying K/V
+// through a cp.async ring). The pair tile halved that row, but Phi-3's
+// served streams hold to its bits (attention_common.cuh, pair_tile_takes).
 //
 // At head_dim 640 (MLA's latent row: DeepSeek-V2's 16 query heads on one KV
 // head) the chunk runs chunk_latent_kernel (attention_common.cuh).
@@ -62,8 +79,8 @@
 //
 // Below head_dim 640 a launch also takes one layer's sliding window and
 // tanh logit cap (Gemma-2/3: `window`, `logit_cap`, 0 for none; ScoreMods in
-// attention_common.cuh): a query tile's walk starts at the key tile of its
-// first query's window. The latent tile refuses both.
+// attention_common.cuh): a pair's keys start at the key tile of its first
+// query's window. The latent tile refuses both.
 
 #include <limits.h>
 
@@ -71,6 +88,9 @@
 
 namespace dtt {
 
+// Block (query tile, KV head) of the chunk at head_dim 96: attend_mma over
+// the query tile's causal keys (the tile starts at its first query's
+// window)
 template <int kD, typename KVTiles>
 __global__ void __launch_bounds__(kTileThreads) chunk_kernel(
     const __nv_bfloat16* __restrict__ q,  // [C, H, kD]
@@ -90,6 +110,49 @@ __global__ void __launch_bounds__(kTileThreads) chunk_kernel(
 }
 
 template <typename KVTiles>
+int launch_chunk_pair(const void* q, KVTiles kv, const void* pages, void* out,
+                      int C, int H, int KV, int D, int page_size,
+                      int lane_width, int start, int positions, int spans,
+                      float scale, ScoreMods mods, void* clocks,
+                      cudaStream_t stream, const int* desc_start,
+                      const int* desc_kv_len, int max_keys) {
+  const long long pairs = pair_count(C, positions);
+  // the longest horizon: the chunk's end, or ragged.cu's table end
+  const long long horizon = desc_start ? max_keys : (long long)start + C;
+  if (spans < 1 || spans > pair_max_spans(horizon, mods.window, positions, D)
+      || pairs > 65535 || KV > 65535)
+    return (int)cudaErrorInvalidValue;
+  return with_pair_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    constexpr size_t smem = PairSmem<KVTiles, kD>::bytes;
+    auto kernel = chunk_pair_kernel<kD, KVTiles>;
+    cudaError_t err = set_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    LatentLaunch launch(dim3(spans, (unsigned)pairs, KV), smem, stream,
+                        kPairThreads);
+    err = cudaLaunchKernelEx(&launch.cfg, kernel, (const __nv_bfloat16*)q, kv,
+                             (const int*)pages, (__nv_bfloat16*)out, C, H, KV,
+                             page_size, lane_width, start, positions, scale,
+                             mods, (unsigned long long*)clocks, desc_start,
+                             desc_kv_len, max_keys);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  });
+}
+
+// the instances ragged.cu's chunk rows launch
+template int launch_chunk_pair<Bf16Tiles>(const void*, Bf16Tiles, const void*,
+                                          void*, int, int, int, int, int, int,
+                                          int, int, int, float, ScoreMods,
+                                          void*, cudaStream_t, const int*,
+                                          const int*, int);
+template int launch_chunk_pair<Int8Tiles>(const void*, Int8Tiles, const void*,
+                                          void*, int, int, int, int, int, int,
+                                          int, int, int, float, ScoreMods,
+                                          void*, cudaStream_t, const int*,
+                                          const int*, int);
+
+template <typename KVTiles>
 int launch_chunk(const void* q, KVTiles kv, const void* pages, void* out,
                  int C, int H, int KV, int D, int page_size, int lane_width,
                  int start, int positions, int spans, float scale,
@@ -103,19 +166,21 @@ int launch_chunk(const void* q, KVTiles kv, const void* pages, void* out,
     return launch_chunk_latent(q, kv, pages, out, C, H, KV, page_size,
                                lane_width, start, positions, spans, scale,
                                clocks, (cudaStream_t)stream);
-  if (spans != 1 || clocks != nullptr) return (int)cudaErrorInvalidValue;
-  const dim3 grid((C + positions - 1) / positions, KV);
-  return with_head_dim(D, [&](auto d) {
-    constexpr int kD = decltype(d)::value;
+  if (!pair_tile_takes(D)) {  // head_dim 96: chunk_kernel
+    if (spans != 1 || clocks != nullptr) return (int)cudaErrorInvalidValue;
+    constexpr int kD = 96;
     const size_t smem = tile_smem_bytes<KVTiles, kD>();
-    cudaError_t err = set_smem(chunk_kernel<kD, KVTiles>, smem);
+    const cudaError_t err = set_smem(chunk_kernel<kD, KVTiles>, smem);
     if (err != cudaSuccess) return (int)err;
-    chunk_kernel<kD, KVTiles><<<grid, kTileThreads, smem,
-                                (cudaStream_t)stream>>>(
+    chunk_kernel<kD, KVTiles><<<dim3((C + positions - 1) / positions, KV),
+                                kTileThreads, smem, (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)q, kv, (const int*)pages, (__nv_bfloat16*)out,
         C, H, KV, page_size, lane_width, start, positions, scale, mods);
     return (int)cudaGetLastError();
-  });
+  }
+  return launch_chunk_pair(q, kv, pages, out, C, H, KV, D, page_size,
+                           lane_width, start, positions, spans, scale, mods,
+                           clocks, (cudaStream_t)stream);
 }
 
 }  // namespace dtt
@@ -155,17 +220,18 @@ extern "C" int dtt_chunk_positions(int group, int D) {
   return dtt::tile_fits(group, D) ? dtt::tile_positions(group) : 0;
 }
 
-// Key spans per query tile of chunk.cu for a C-query chunk at `start`, GQA
-// group and head_dim, KV heads, on a card of num_sms SMs: chunk_spans at
-// head_dim 640 (chunk_latent_kernel's clusters), 1 below it; 0 where the
+// Key spans per query tile (at head_dim 640) or query-tile pair (below it)
+// of chunk.cu for a C-query chunk at `start`, GQA group and head_dim, KV
+// heads, on a card of num_sms SMs: chunk_spans at head_dim 640
+// (chunk_latent_kernel's clusters), kPairSpans (1) below it; 0 where the
 // tile refuses the group or head_dim.
 extern "C" int dtt_chunk_spans(int C, int start, int group, int D, int KV,
                                int num_sms) {
-  if (!dtt::tile_fits(group, D) || C < 1 || KV < 1) return 0;
-  return D == dtt::kLatentDim
-             ? dtt::chunk_spans(C, start, dtt::tile_positions(group), KV,
-                                num_sms)
-             : 1;
+  using namespace dtt;
+  if (!tile_fits(group, D) || C < 1 || KV < 1) return 0;
+  return D == kLatentDim
+             ? chunk_spans(C, start, tile_positions(group), KV, num_sms)
+             : kPairSpans;
 }
 
 // Clusters of `spans` blocks of the latent chunk tile (bf16 pools, or int8
@@ -189,3 +255,4 @@ extern "C" int dtt_chunk_max_clusters(int spans, int int8) {
     query(chunk_latent_kernel<Bf16Tiles>, ChunkSmem<Bf16Tiles>::bytes);
   return n;
 }
+

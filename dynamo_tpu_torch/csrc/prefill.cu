@@ -7,21 +7,34 @@
 // seq_len (the bucket padding) are computed like the TPU kernel computes them
 // (they see every key below seq_len) and are discarded by the caller.
 //
-// Bound on the H100: for the prompts this slice prefills (<= 256 tokens per
-// full prefill) the kernel reads ~2 * S * KV * D * 2 bytes of K/V and does
-// 2 * S^2 * H * D FLOPs (causal half), so it sits near the ridge; a long
-// prompt is FLOP-bound and wants the tensor cores.
+// Bound on the H100: operations for a long prompt (Phi-3's two lanes of
+// 3800 and 2600 tokens in a 4096 bucket under its 2047-key window do 140
+// GFLOP of S and P V on ~50 MB of K/V), bytes for the short buckets (four
+// 256-token lanes of the 8B: 19 MB for 1.2 GFLOP).
 //
-// Design: chunk.cu's blocks over a dense K/V block instead of a page list.
-// One block per (query tile of 64 / group positions, KV head, lane) runs
-// the tensor-core tile attend_mma (attention_common.cuh): 64 rows =
-// positions x the GQA group of one KV head, so a K/V tile feeds the whole
-// group; S and P V on mma.sync with f32 accumulation, K/V tiles of 64 keys
-// through the cp.async ring (two stages at head_dim 256, three below),
-// walked only up to min(diagonal, seq_len). Token t's K/V row of lane n
-// starts at (n * S + t) * KV * D (DenseRows), 16-byte aligned for every S
-// since D is a multiple of 8. A lane at seq_len = S is chunk.cu's chunk at
-// start 0 under the same tiling, and bit-identical to it.
+// Design below head_dim 640, but for 96: the pair tile (attention_common.cuh,
+// pair_span_block), chunk.cu's kernel over a dense K/V block instead of a
+// page list. A block holds two query tiles of 64 / group positions (a
+// pair: two consumer warpgroups, 64 rows each = positions x the GQA group
+// of one KV head, so each K/V tile feeds 128 rows) and a producer
+// warpgroup that copies the K/V tiles of the pair's keys through a ring of
+// stages (cp.async, mbarrier full/empty pairs); S and P V run on wgmma
+// (P in two bf16 parts), the online softmax in registers. Token t's K/V
+// row of lane n starts at (n * S + t) * KV * D (DenseRows), 16-byte
+// aligned for every S since D is a multiple of 8. Each pair's keys (the
+// union of its tiles' windows, up to min(last position + 1, seq_len)) are
+// walked by one block (kPairSpans; a measurement may cut them into spans
+// merged in a cluster, as chunk.cu). Pairs run from the bucket's end, the
+// longest walks first. A lane at seq_len S is chunk.cu's chunk of S
+// queries at start 0, block for block, and a row's walk is its own keys'
+// tiles in key order in either, so a prompt's rows take the same bits
+// whole and in chunks.
+//
+// At head_dim 96 (Phi-3) the prefill keeps prefill_kernel: one block per
+// (query tile of 64 / group positions, KV head, lane) runs attend_mma
+// (attention_common.cuh), chunk.cu's chunk_kernel over the dense K/V, so
+// a lane at seq_len S is that kernel's chunk at start 0 bit for bit
+// (attention_common.cuh, pair_tile_takes, says why 96 keeps it).
 //
 // At head_dim 640 (MLA's latent row: DeepSeek-V2's 16 query heads on one
 // KV head, and K and V the same latent rows) the prefill runs
@@ -57,15 +70,18 @@
 //
 // Below head_dim 640 a launch also takes one layer's sliding window and
 // tanh logit cap (Gemma-2/3: `window`, `logit_cap`, 0 for none; ScoreMods in
-// attention_common.cuh): a query tile's walk starts at the key tile of its
-// first query's window, so a windowed prompt of S tokens reads ~window keys
-// per query tile, not up to S. The latent row refuses both.
+// attention_common.cuh): a pair's keys start at the key tile of its first
+// query's window, and a query tile walks only the key tiles that meet its
+// own rows' windows, so a windowed prompt of S tokens reads ~window keys
+// per pair, not up to S. The latent row refuses both.
 #include <limits.h>
 
 #include "attention_common.cuh"
 
 namespace dtt {
 
+// Block (query tile, KV head, lane) of the prefill at head_dim 96:
+// attend_mma over the lane's dense K/V with kv_len = min(seq_lens[n], S)
 template <int kD>
 __global__ void __launch_bounds__(kTileThreads) prefill_kernel(
     const __nv_bfloat16* __restrict__ q,  // [N, S, H, kD]
@@ -82,6 +98,34 @@ __global__ void __launch_bounds__(kTileThreads) prefill_kernel(
                  /*qpos0=*/i0, /*kv_len=*/min(seq_lens[n], S),
                  /*key_lo=*/0, /*key_hi=*/INT_MAX, scale, mods,
                  TileOut{out, nullptr, nullptr, 0, H});
+}
+
+// Block (span, pair, lane x KV head) of the prefill below head_dim 640:
+// pairs of query tiles run from the prompt's end (blockIdx.y 0 is the last
+// pair), lane n = blockIdx.z / KV, KV head blockIdx.z % KV, over the lane's
+// dense K/V with kv_len = min(seq_lens[n], S) (pair_span_block, `clocks` as
+// there): chunk_pair_kernel's blocks at start 0.
+template <int kD>
+__global__ void __launch_bounds__(kPairThreads, 1) prefill_pair_kernel(
+    const __nv_bfloat16* __restrict__ q,  // [N, S, H, kD]
+    const __nv_bfloat16* __restrict__ k,  // [N, S, KV, kD]
+    const __nv_bfloat16* __restrict__ v,
+    const int* __restrict__ seq_lens,     // [N]
+    __nv_bfloat16* __restrict__ out,      // [N, S, H, kD]
+    int S, int H, int KV, int positions, float scale, ScoreMods mods,
+    unsigned long long* __restrict__ clocks) {
+  extern __shared__ __align__(16) char pair_smem[];
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * 2 * positions;
+  const int n = blockIdx.z / KV, kvh = blockIdx.z - n * KV;
+  const int group = H / KV;
+  const int nq0 = min(positions, S - i0);
+  const int nq1 = max(0, min(positions, S - i0 - positions));
+  const PairRows pr{(((long long)n * S + i0) * H + kvh * group) * kD, H * kD,
+                    positions, group, {nq0 * group, nq1 * group}};
+  pair_span_block<kD>(pair_smem, q, Bf16Tiles{k, v},
+                      DenseRows{(long long)n * S * KV * kD, KV * kD}, kvh, nq0,
+                      nq1, pr, /*qpos0=*/i0, min(seq_lens[n], S), scale, mods,
+                      out, clocks);
 }
 
 // Block (span, query tile, lane x KV head) of the latent prefill: query
@@ -149,17 +193,37 @@ extern "C" int dtt_prefill(const void* q, const void* k, const void* v,
     return launch_prefill_latent(q, k, v, seq_lens, out, N, S, H, KV,
                                  positions, spans, scale, clocks,
                                  (cudaStream_t)stream);
-  if (spans != 1 || clocks != nullptr) return (int)cudaErrorInvalidValue;
-  const dim3 grid((S + positions - 1) / positions, KV, N);
-  return with_head_dim(D, [&](auto d) {
-    constexpr int kD = decltype(d)::value;
+  if (!pair_tile_takes(D)) {  // head_dim 96: prefill_kernel
+    if (spans != 1 || clocks != nullptr) return (int)cudaErrorInvalidValue;
+    constexpr int kD = 96;
     const size_t smem = tile_smem_bytes<Bf16Tiles, kD>();
     const cudaError_t err = set_smem(prefill_kernel<kD>, smem);
     if (err != cudaSuccess) return (int)err;
-    prefill_kernel<kD><<<grid, kTileThreads, smem, (cudaStream_t)stream>>>(
+    prefill_kernel<kD><<<dim3((S + positions - 1) / positions, KV, N),
+                         kTileThreads, smem, (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
         (const __nv_bfloat16*)v, (const int*)seq_lens, (__nv_bfloat16*)out, S,
         H, KV, positions, scale, ScoreMods{window, logit_cap});
+    return (int)cudaGetLastError();
+  }
+  const long long pairs = pair_count(S, positions);
+  if (spans < 1 || spans > pair_max_spans(S, window, positions, D)
+      || pairs > 65535 || (long long)N * KV > 65535)
+    return (int)cudaErrorInvalidValue;
+  return with_pair_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    constexpr size_t smem = PairSmem<Bf16Tiles, kD>::bytes;
+    cudaError_t err = set_smem(prefill_pair_kernel<kD>, smem);
+    if (err != cudaSuccess) return (int)err;
+    LatentLaunch launch(dim3(spans, (unsigned)pairs, N * KV), smem,
+                        (cudaStream_t)stream, kPairThreads);
+    err = cudaLaunchKernelEx(&launch.cfg, prefill_pair_kernel<kD>,
+                             (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                             (const __nv_bfloat16*)v, (const int*)seq_lens,
+                             (__nv_bfloat16*)out, S, H, KV, positions, scale,
+                             ScoreMods{window, logit_cap},
+                             (unsigned long long*)clocks);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   });
 }

@@ -22,18 +22,24 @@
 // Bound on the H100: bytes for the decode rows (each reads its context
 // once, ~1 FLOP per byte per query), operations for the chunk (chunk.cu).
 //
-// Design below head_dim 640: two kernels on one stream, counted as one
-// call.
+// Design below head_dim 640: up to three kernels on one stream, counted as
+// one call.
+// - the chunk rows, first (the longest blocks): chunk.cu's chunk_pair_kernel
+//   (launch_chunk_pair: the pair tile of attention_common.cuh, S and P V on
+//   wgmma, a producer warpgroup's copies) with the chunk's start and
+//   horizon read from q_starts[num_decode] and kv_lens[num_decode] on the
+//   card, in one span a pair as chunk.cu's own launches (kPairSpans, no
+//   plan from the start), so a chunk row equals chunk.cu's bit for bit;
+//   at head_dim 96 they are instead the first blocks of ragged_kernel's
+//   grid, chunk.cu's chunk_kernel tiles (the same attend_mma call with the
+//   same tiling, so again chunk.cu's bits);
 // - ragged_kernel, a 1-D grid of (block, KV head) pairs, KV head fastest:
-//   the chunk tiles first, so the longest blocks start first and the short
-//   decode blocks fill the SMs behind them. The chunk tiles are chunk.cu's
-//   blocks: the same attend_mma call with the same tiling, so a chunk row
-//   is bit-identical to chunk.cu's. The decode rows are split along their
-//   keys, one block per (row, span, KV head): decode.cu's blocks
+//   the chunk tiles at head_dim 96, then the decode rows split along their
+//   keys, one block per (row, span, KV head), decode.cu's blocks
 //   (decode_split_block, attention_common.cuh), so with decode.cu's plan
 //   (the same table width and row count) and decode_q = 1 a decode row is
 //   bit-identical to decode.cu's. A 128k-token table of 8 rows gets 8
-//   spans of 16k keys, not 512.
+//   spans of 16k keys, not 512;
 // - merge_splits_kernel (attention_common.cuh), one warp per (decode
 //   query, query head), folds the spans' partials into the bf16 rows.
 // At head_dim 640 (MLA's latent row) two or three kernels on one stream,
@@ -61,6 +67,10 @@
 
 namespace dtt {
 
+// Block bx / KV of the rows below head_dim 640, KV head bx % KV: the
+// chunk's query tiles first (attend_mma, chunk.cu's chunk_kernel at head_dim
+// 96; `C` is 0 where chunk.cu's pair tile runs the chunk rows), then the
+// decode rows' (row, span) blocks (decode_split_block).
 template <int kD, typename KVTiles>
 __global__ void __launch_bounds__(kTileThreads) ragged_kernel(
     const __nv_bfloat16* __restrict__ q,  // [num_decode * decode_q + C, H, D]
@@ -154,10 +164,25 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
   const int plan = check_split_plan((long long)W * page_size, num_decode, KV,
                                     split_keys, num_splits);
   if (plan != 0) return plan;
-  const long long blocks =
-      ((long long)num_decode * num_splits + (C + positions - 1) / positions) * KV;
+  if ((long long)W * page_size > INT_MAX) return (int)cudaErrorInvalidValue;
+  // the chunk rows: chunk.cu's pair tile (one span, start read on the
+  // card), or at head_dim 96 ragged_kernel's first blocks
+  const bool pair = C > 0 && pair_tile_takes(D);
+  if (pair) {
+    const long long first = (long long)num_decode * decode_q;  // its query 0
+    const int rc = launch_chunk_pair(
+        (const __nv_bfloat16*)q + first * H * D, kv,
+        (const int*)tables + (long long)num_decode * W,
+        (__nv_bfloat16*)out + first * H * D, C, H, KV, D, page_size,
+        lane_width, /*start=*/0, positions, kPairSpans, scale, mods, nullptr,
+        st, (const int*)q_starts + num_decode,
+        (const int*)kv_lens + num_decode, W * page_size);
+    if (rc != 0) return rc;
+  }
+  const int tiles = pair ? 0 : (C + positions - 1) / positions;
+  const long long blocks = ((long long)num_decode * num_splits + tiles) * KV;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  if (blocks == 0) return 0;  // no rows and no chunk: nothing to launch
+  if (blocks == 0) return 0;  // no decode rows and no chunk tiles
   const Splits sp{(float*)part_o, (float*)part_ml,
                   (long long)num_decode * decode_q, num_splits, split_keys};
   return with_head_dim(D, [&](auto d) {
@@ -168,8 +193,9 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
     ragged_kernel<kD, KVTiles><<<(unsigned)blocks, kTileThreads, smem,
                                  st>>>(
         (const __nv_bfloat16*)q, kv, (const int*)tables, (const int*)kv_lens,
-        (const int*)q_starts, (__nv_bfloat16*)out, num_decode, decode_q, C,
-        H, KV, page_size, W, lane_width, positions, scale, mods, sp);
+        (const int*)q_starts, (__nv_bfloat16*)out, num_decode, decode_q,
+        pair ? 0 : C, H, KV, page_size, W, lane_width, positions, scale, mods,
+        sp);
     const int rc = (int)cudaGetLastError();
     if (rc != 0 || num_decode == 0) return rc;
     return launch_merge<kD>(sp, (__nv_bfloat16*)out,

@@ -8,12 +8,18 @@ verify steps: rows of K+1 queries, beside a chunk or alone). They replace
 `_decode_kernel`, `_prefill_kernel` and `_chunk_kernel` of
 `dynamo_tpu/ops/pallas_attention.py` and `_ragged_kernel` of
 `dynamo_tpu/ops/ragged_attention.py`; each source's header says what bounds
-it on the H100 and how its design answers that. All four run the
-tensor-core tile (`attend_mma` in `attention_common.cuh`: 64-row query
-tiles on mma.sync, K/V tiles through a cp.async ring); decode and the
-ragged kernel's decode rows are split along their keys, one block per
-(row, span, KV head), and the spans merged by a second small kernel. The
-launch plans of the tile (`tile_positions`, `split_plan`) are pure
+it on the H100 and how its design answers that. Below head_dim 640,
+decode and the ragged kernel's decode and verify rows run the tensor-core
+tile (`attend_mma` in `attention_common.cuh`: 64-row query tiles on
+mma.sync, K/V tiles through a cp.async ring), split along their keys, one
+block per (row, span, KV head), the spans merged by a second small
+kernel; prefill, chunk and the ragged kernel's chunk rows (a launch of
+chunk.cu's kernel) run the pair tile (`pair_span_block`: two query tiles
+of a KV head a block, S and P V on wgmma, a producer warpgroup copying
+the K/V tiles; one block walks a pair's keys, so a prompt's rows take the
+same bits whole, in chunks and in a mixed step), except at head_dim 96
+(`pair_tile_takes`), where they run attend_mma as decode does. The
+launch plans (`tile_positions`, `split_plan`, the span plans) are pure
 functions of host-known sizes. At head_dim 640 (MLA's latent row, one KV
 head shared by 16 query heads) every kernel runs the latent tile's walk
 (`latent_walk`: 32-key tiles, S and P V on wgmma): chunk.cu and ragged's
@@ -535,6 +541,44 @@ def chunk_spans(c: int, start: int, group: int, head_dim: int,
     return _cluster_spans(-(-c // positions) * num_kv, start + c, num_sms)
 
 
+def pair_tile_takes(head_dim: int) -> bool:
+    """Whether prefill.cu and chunk.cu (and ragged.cu's chunk rows) run
+    the pair tile at head_dim (attention_common.cuh pair_tile_takes):
+    below LATENT_DIM, but for 96, which keeps attend_mma."""
+    return head_dim not in (96, LATENT_DIM)
+
+
+def pair_keys(head_dim: int) -> int:
+    """Keys per K/V tile of the pair tile (attention_common.cuh
+    pair_keys): 64, or 32 at head_dim 256."""
+    return 32 if head_dim == 256 else 64
+
+
+def pair_count(n: int, positions: int) -> int:
+    """Query-tile pairs of n query positions in tiles of `positions`."""
+    return (-(-n // positions) + 1) // 2
+
+
+def pair_union_keys(horizon: int, window: int, positions: int,
+                    key_tile: int) -> int:
+    """Keys of a query-tile pair's union that pair_max_spans counts: the
+    horizon, or under a window at most window - 1 + 2 * positions keys
+    from the start of the key tile of the union's first key."""
+    if window:
+        return min(horizon, window - 1 + 2 * positions + key_tile - 1)
+    return horizon
+
+
+def pair_max_spans(horizon: int, window: int, positions: int,
+                   head_dim: int) -> int:
+    """The most spans a measurement may ask a pair-tile launch for (the
+    port's own launches take one): MAX_CHUNK_SPANS, and at most the key
+    tiles of the longest pair's union."""
+    kn = pair_keys(head_dim)
+    tiles = -(-pair_union_keys(horizon, window, positions, kn) // kn)
+    return max(1, min(MAX_CHUNK_SPANS, tiles))
+
+
 def _cluster_spans(tiles: int, keys: int, num_sms: int) -> int:
     """Spans per query tile of a latent-tile launch of `tiles` query tiles
     whose longest horizon holds `keys` keys (attention_common.cuh
@@ -696,23 +740,24 @@ def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
 
 
 def _span_args(plan: int, spans: Optional[int],
-               clocks: Optional[torch.Tensor], blocks_per_span: int, d: int,
-               dev: torch.device) -> Tuple[int, ctypes.c_void_p]:
-    """(spans, clocks pointer) of a latent-tile launch: the plan, or the
-    measurement's `spans` (LATENT_DIM only, 1 to MAX_CHUNK_SPANS), and
-    `clocks` checked to hold two stamps for each of the launch's blocks
-    (NULL without)."""
-    if spans is not None and (d != LATENT_DIM
-                              or not 1 <= spans <= MAX_CHUNK_SPANS):
-        raise ValueError(f"spans {spans} needs head_dim {LATENT_DIM} and "
-                         f"1 to {MAX_CHUNK_SPANS} spans")
+               clocks: Optional[torch.Tensor], blocks_per_span: int,
+               most: int, dev: torch.device) -> Tuple[int, ctypes.c_void_p]:
+    """(spans, clocks pointer) of a launch whose key spans form clusters:
+    the plan, or the measurement's `spans` (1 to `most`: MAX_CHUNK_SPANS
+    at LATENT_DIM, pair_max_spans on the pair tile, 0 where the tile takes
+    no measurement: attend_mma at head_dim 96), and `clocks` checked to
+    hold two stamps for each of the launch's blocks (NULL without)."""
+    if spans is not None and not 1 <= spans <= max(most, 1):
+        raise ValueError(f"spans {spans} must be 1 to {max(most, 1)}")
     spans = plan if spans is None else spans
     if clocks is None:
         return spans, ctypes.c_void_p(None)
     _expect(clocks, "clocks", torch.int64, 1, dev)
-    if d != LATENT_DIM or clocks.numel() < 2 * spans * blocks_per_span:
-        raise ValueError(f"clocks needs head_dim {LATENT_DIM} and "
-                         f"{2 * spans * blocks_per_span} entries")
+    if most == 0:
+        raise ValueError("clocks needs the pair or the latent tile")
+    if clocks.numel() < 2 * spans * blocks_per_span:
+        raise ValueError(f"clocks needs {2 * spans * blocks_per_span} "
+                         f"entries")
     return spans, _ptr(clocks)
 
 
@@ -722,10 +767,11 @@ def prefill_attention(q, k, v, seq_lens, *, window: int = 0,
                       spans: Optional[int] = None) -> torch.Tensor:
     """q [N, S, H, D], k/v [N, S, KV, D] bf16; seq_lens [N] int32 (true
     lengths) -> [N, S, H, D]. Causal within each lane; `window` and
-    `logit_cap` as in score_mods. At LATENT_DIM each
-    query tile's keys are cut into latent_prefill_spans spans (from N, S,
-    the group, KV and the SM count). Measurement, LATENT_DIM only:
-    `spans` and `clocks` as in chunk_prefill_attention."""
+    `logit_cap` as in score_mods. At LATENT_DIM each query tile's keys
+    are cut into latent_prefill_spans spans (from N, S, the group, KV and
+    the SM count); below it one block walks each pair of query tiles'
+    keys. Measurement: `spans` and `clocks` as in
+    chunk_prefill_attention."""
     dev = q.device
     _expect(q, "q", torch.bfloat16, 4, dev)
     _expect(k, "k", torch.bfloat16, 4, dev)
@@ -745,10 +791,14 @@ def prefill_attention(q, k, v, seq_lens, *, window: int = 0,
     out = torch.empty_like(q)
     if n == 0 or s == 0:
         return out
-    plan = (latent_prefill_spans(n, s, group, n_kv, _num_sms(dev))
-            if d == LATENT_DIM else 1)
-    spans, clock_ptr = _span_args(plan, spans, clocks,
-                                  n * -(-s // positions) * n_kv, d, dev)
+    if d == LATENT_DIM:
+        plan = latent_prefill_spans(n, s, group, n_kv, _num_sms(dev))
+        per_span, most = n * -(-s // positions) * n_kv, MAX_CHUNK_SPANS
+    else:
+        plan, per_span = 1, n * pair_count(s, positions) * n_kv
+        most = (pair_max_spans(s, window, positions, d)
+                if pair_tile_takes(d) else 0)
+    spans, clock_ptr = _span_args(plan, spans, clocks, per_span, most, dev)
     rc = lib.dtt_prefill(
         _ptr(q), _ptr(k), _ptr(v), _ptr(seq_lens), _ptr(out), n, s, h, n_kv,
         d, positions, spans, d ** -0.5, window, cap, clock_ptr, _stream(q))
@@ -766,13 +816,15 @@ def chunk_prefill_attention(q, k_pages, v_pages, pages, start: int, *,
     """q [C, H, D] bf16 at absolute positions start..start+C-1; pools
     [P, ps, W] bf16 or int8 packed (with num_kv_heads); pages [W] int32
     (trash-padded tail) -> [C, H, D]; `window` and `logit_cap` as in
-    score_mods. At LATENT_DIM each query tile's keys
-    are cut into chunk_spans spans (from C, start, the group and the SM
-    count). Measurement, LATENT_DIM only: `spans` runs another span count
-    (1 to MAX_CHUNK_SPANS; every count gives the same attention), and
-    `clocks`, an int64 CUDA tensor of 2 x the launch's blocks, takes each
-    block's global-timer stamps (ns) when its key walk ends and when its
-    merge is done."""
+    score_mods. At LATENT_DIM each query tile's keys are cut into
+    chunk_spans spans (from C, start, the group, KV and the SM count);
+    below it one block walks each pair of query tiles' keys, so a row
+    takes the bits prefill_attention gives it. Measurement: `spans` runs
+    another span count (1 to MAX_CHUNK_SPANS, on the pair tile to
+    pair_max_spans; every count gives the same attention within
+    rounding), and `clocks`, an int64 CUDA tensor of 2 x the launch's
+    blocks, takes each block's global-timer stamps (ns) when its key walk
+    ends and when its merge is done."""
     dev = q.device
     _expect(q, "q", torch.bfloat16, 3, dev)
     _expect(pages, "pages", torch.int32, 1, dev)
@@ -790,9 +842,14 @@ def chunk_prefill_attention(q, k_pages, v_pages, pages, start: int, *,
     out = torch.empty_like(q)
     if c == 0:
         return out
-    spans, clock_ptr = _span_args(
-        chunk_spans(c, start, group, d, n_kv, _num_sms(dev)), spans, clocks,
-        -(-c // positions) * n_kv, d, dev)
+    plan = chunk_spans(c, start, group, d, n_kv, _num_sms(dev))
+    if d == LATENT_DIM:
+        per_span, most = -(-c // positions) * n_kv, MAX_CHUNK_SPANS
+    else:
+        per_span = pair_count(c, positions) * n_kv
+        most = (pair_max_spans(start + c, window, positions, d)
+                if pair_tile_takes(d) else 0)
+    spans, clock_ptr = _span_args(plan, spans, clocks, per_span, most, dev)
     args = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(pages), _ptr(out), c,
             h, n_kv, d, page_size]
     tail = [start, positions, spans, d ** -0.5, window, cap, clock_ptr,

@@ -1609,3 +1609,172 @@ def test_draft_graph_equals_eager_draft(dev):
                               ignore_eos=True))
     m = selfd.metrics
     assert m.spec_accepted_tokens >= 0.5 * m.spec_draft_tokens > 0
+
+
+# prefill.cu and chunk.cu below head_dim 640 (the pair tile, attend_mma at
+# head_dim 96): a window inside a key tile, one across tiles with Gemma-2's
+# cap, and none
+PAIR_MODS = [(0, 0.0), (37, 0.0), (100, 50.0)]
+
+
+@pytest.mark.parametrize("window,cap", PAIR_MODS,
+                         ids=[f"w{w}-cap{int(c)}" for w, c in PAIR_MODS])
+@pytest.mark.parametrize("head_dim", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("kernel", ["prefill", "chunk", "chunk_int8"])
+def test_pair_tile_at_every_head_dim(dev, kernel, head_dim, window, cap):
+    """prefill.cu and chunk.cu (bf16 and int8 pools) at every head_dim
+    below 640 (the pair tile; attend_mma at 96), groups 1 and 4, with and
+    without a window and the cap (q scaled by 4 so that the cap bends),
+    against their plain versions: two prefill lanes of 200 positions (one
+    at 130: padding rows past seq_len), a 100-token chunk at 300. The
+    pair kernels' SASS runs S and P V on wgmma: chip_smoke.py's build
+    phase holds that."""
+    ps = 16
+    mods = dict(window=window, logit_cap=cap)
+    for group, n_kv in ((1, 4), (4, 2)):
+        h = group * n_kv
+        if kernel == "prefill":
+            q = (_rnd(dev, 2, 200, h, head_dim, seed=130).float()
+                 * 4.0).bfloat16()
+            k = _rnd(dev, 2, 200, n_kv, head_dim, seed=131)
+            v = _rnd(dev, 2, 200, n_kv, head_dim, seed=132)
+            sl = torch.tensor([200, 130], dtype=torch.int32, device=dev)
+            out = ca.prefill_attention(q, k, v, sl, **mods)
+            ref = att.prefill_attention_ref(q, k, v, sl, **mods)
+        else:
+            if kernel == "chunk_int8":
+                kp, vp = _int8_pools(dev, 40, ps, n_kv, head_dim, seed=133)
+            else:
+                kp = _rnd(dev, 40, ps, n_kv * head_dim, seed=133)
+                vp = _rnd(dev, 40, ps, n_kv * head_dim, seed=134)
+            pages = _page_list(dev, 400, ps, 40, seed=135)
+            q = (_rnd(dev, 100, h, head_dim, seed=136).float()
+                 * 4.0).bfloat16()
+            kw = dict(page_size=ps, num_kv_heads=n_kv, **mods)
+            out = ca.chunk_prefill_attention(q, kp, vp, pages, 300, **kw)
+            ref = att.chunk_attention_ref(q, kp, vp, pages, 300, **kw)
+        torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("label,h,n_kv,d,window,cap,start", [
+    ("group1", 32, 32, 64, 2047, 0.0, 3008),
+    ("gemma2", 16, 8, 256, 4096, 50.0, 4864),
+    ("llama8b", 32, 8, 128, 0, 0.0, 512)])
+def test_pair_tile_launches_give_equal_bits(dev, int8, label, h, n_kv, d,
+                                            window, cap, start):
+    """The pair tile at served chunk shapes (a 256-token chunk, one span
+    a pair) and a prefill of two lanes: two launches give the same bits,
+    every span count a measurement may ask for gives the plan's output
+    within the tolerance (the spans merge in a fixed order: equal bits run
+    to run), the library's plan is the wrapper's, the clocks are stamped
+    for every block, and a launch counts under its head_dim."""
+    ps, c = 16, 256
+    group = h // n_kv
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = ca.build()
+    positions = ca.tile_positions(group, d)
+    pool_pages = (start + c) // ps + 8
+    if int8:
+        kp, vp = _int8_pools(dev, pool_pages, ps, n_kv, d, seed=140)
+    else:
+        kp = _rnd(dev, pool_pages, ps, n_kv * d, seed=140)
+        vp = _rnd(dev, pool_pages, ps, n_kv * d, seed=141)
+    pages = _page_list(dev, start + c, ps, pool_pages, seed=142)
+    q = _rnd(dev, c, h, d, seed=143)
+    kw = dict(page_size=ps, num_kv_heads=n_kv, window=window, logit_cap=cap)
+    name = "chunk_int8" if int8 else "chunk"
+    plan = ca.chunk_spans(c, start, group, d, n_kv, sms)
+    assert lib.dtt_chunk_spans(c, start, group, d, n_kv, sms) == plan == 1
+    ca.reset_launch_counts()
+    a = ca.chunk_prefill_attention(q, kp, vp, pages, start, **kw)
+    b = ca.chunk_prefill_attention(q, kp, vp, pages, start, **kw)
+    assert torch.equal(a, b)
+    assert ca.VARIANT_LAUNCHES[f"{name}[head_dim={d}]"] == 2
+    ref = att.chunk_attention_ref(q, kp, vp, pages, start, **kw)
+    torch.testing.assert_close(a.float(), ref.float(), **TOL)
+    most = ca.pair_max_spans(start + c, window, positions, d)
+    for n in sorted({1, 2, 3, 4, 8, most}):
+        if n > most:
+            continue
+        other = ca.chunk_prefill_attention(q, kp, vp, pages, start,
+                                           spans=n, **kw)
+        assert torch.equal(other, ca.chunk_prefill_attention(
+            q, kp, vp, pages, start, spans=n, **kw))
+        torch.testing.assert_close(other.float(), a.float(), **TOL)
+    with pytest.raises(ValueError, match="spans"):
+        ca.chunk_prefill_attention(q, kp, vp, pages, start, spans=most + 1,
+                                   **kw)
+    blocks = plan * ca.pair_count(c, positions) * n_kv
+    clocks = torch.zeros((2 * blocks,), dtype=torch.int64, device=dev)
+    assert torch.equal(ca.chunk_prefill_attention(q, kp, vp, pages, start,
+                                                  clocks=clocks, **kw), a)
+    torch.cuda.synchronize()
+    stamps = clocks.reshape(-1, 2)
+    assert (stamps[:, 0] > 0).all() and (stamps[:, 1] >= stamps[:, 0]).all()
+    if int8:
+        return
+    # prefill: two lanes of 512 positions, one at 300
+    s = 512
+    qp = _rnd(dev, 2, s, h, d, seed=144)
+    k = _rnd(dev, 2, s, n_kv, d, seed=145)
+    v = _rnd(dev, 2, s, n_kv, d, seed=146)
+    sl = torch.tensor([s, 300], dtype=torch.int32, device=dev)
+    mods = dict(window=window, logit_cap=cap)
+    pa_ = ca.prefill_attention(qp, k, v, sl, **mods)
+    assert torch.equal(ca.prefill_attention(qp, k, v, sl, **mods), pa_)
+    pref = att.prefill_attention_ref(qp, k, v, sl, **mods)
+    torch.testing.assert_close(pa_.float(), pref.float(), **TOL)
+    for n in (1, 2, 4):
+        if n <= ca.pair_max_spans(s, window, positions, d):
+            other = ca.prefill_attention(qp, k, v, sl, spans=n, **mods)
+            torch.testing.assert_close(other.float(), pref.float(), **TOL)
+
+
+@pytest.mark.parametrize("label,h,n_kv,d,window,cap", [
+    ("group1", 32, 32, 64, 2047, 0.0),
+    ("gemma2", 16, 8, 256, 4096, 50.0),
+    ("gemma3", 4, 1, 256, 512, 0.0),
+    ("llama8b", 32, 8, 128, 0, 0.0)])
+def test_pair_tile_rows_equal_whole_chunked_and_mixed(dev, label, h, n_kv, d,
+                                                      window, cap):
+    """A 600-token prompt's rows take the same bits whole (prefill.cu), in
+    chunks of 256 and of 88 (chunk.cu at aligned and unaligned starts) and
+    as a mixed step's chunk rows (ragged.cu, which launches chunk.cu's
+    kernel with the start read on the card): a chunk at start 0 in a table
+    far wider than it, and one at 264 beside a decode row. Every launch
+    takes one span a pair, so a row walks its own key tiles in key order
+    in each."""
+    ps, s = 16, 600
+    q = _rnd(dev, 1, s, h, d, seed=150)
+    k = _rnd(dev, 1, s, n_kv, d, seed=151)
+    v = _rnd(dev, 1, s, n_kv, d, seed=152)
+    mods = dict(window=window, logit_cap=cap)
+    sl = torch.tensor([s], dtype=torch.int32, device=dev)
+    whole = ca.prefill_attention(q, k, v, sl, **mods)[0]
+    n_pages, spare = -(-s // ps), 64
+    pk = torch.zeros((n_pages + 1, ps, n_kv, d), dtype=torch.bfloat16,
+                     device=dev)
+    pv = torch.zeros_like(pk)
+    pk.view(-1, n_kv, d)[ps:ps + s] = k[0]
+    pv.view(-1, n_kv, d)[ps:ps + s] = v[0]
+    pk, pv = pk.reshape(n_pages + 1, ps, -1), pv.reshape(n_pages + 1, ps, -1)
+    pages = torch.zeros((n_pages + spare,), dtype=torch.int32, device=dev)
+    pages[:n_pages] = torch.arange(1, n_pages + 1, dtype=torch.int32,
+                                   device=dev)
+    kw = dict(page_size=ps, num_kv_heads=n_kv, **mods)
+    for size in (256, 88):
+        for start in range(0, s, size):
+            c = min(size, s - start)
+            out = ca.chunk_prefill_attention(q[0, start:start + c], pk, pv,
+                                             pages, start, **kw)
+            assert torch.equal(out, whole[start:start + c]), (size, start)
+    tables = torch.stack([pages, pages])
+    for start, c in ((0, 256), (264, 88)):
+        qr = torch.cat([q[0, 99:100], q[0, start:start + c]])
+        kv_lens = torch.tensor([100, start + c], dtype=torch.int32,
+                               device=dev)
+        q_starts = torch.tensor([99, start], dtype=torch.int32, device=dev)
+        out = ca.ragged_paged_attention(qr, pk, pv, tables, kv_lens,
+                                        q_starts, num_decode=1, **kw)
+        assert torch.equal(out[1:], whole[start:start + c]), start
