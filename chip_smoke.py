@@ -7,8 +7,8 @@
                                               # chunked deepseek-v2-lite TTFT
     python3 chip_smoke.py --mla-verify-profile  # phases 1-2, phase 13's
                                                 # captured verify steps
-    python3 chip_smoke.py --mla-prefill-profile  # phases 1-2, phase 13's
-                                                 # profiled full prefill
+    python3 chip_smoke.py --mla-prefill-profile [N]  # phases 1-2, phase
+                                 # 13's profiled full prefill, N times
     python3 chip_smoke.py --window-profile    # phases 1-2, phase 11's
                                               # bf16 graph-window step
     python3 chip_smoke.py --observability     # phases 1-2 and 16
@@ -18,6 +18,9 @@
                                               # rows and the Gemma models
     python3 chip_smoke.py --phi3              # phases 1-2, phase 3's Phi-3
                                               # rows and the Phi-3 phase
+    python3 chip_smoke.py --profile-lead      # phase 1, then profiler
+                                              # sessions with and without
+                                              # `traced`'s opening kernels
 
 (`--kernels-only`, `--window-profile` and the `--mla-*` options time the
 package beside the script, so a copy of it in an older checkout compares
@@ -31,7 +34,7 @@ on failure:
 1. The card's name and power limit (nvidia-smi).
 2. Build the attention kernels from dynamo_tpu_torch/csrc (nvcc, one per
    source in parallel), with its seconds, and the pair tile's kernels
-   (prefill.cu's and chunk.cu's below head_dim 640 but for 96) with their
+   (prefill.cu's and chunk.cu's below head_dim 640) with their
    ptxas registers and spills and the HGMMA (wgmma) and HMMA (mma.sync)
    instructions of their SASS (`cuobjdump -sass`): it raises unless each
    holds HGMMA and no HMMA.
@@ -113,10 +116,10 @@ on failure:
    only the keys inside the window, each library call flex_attention
    under torch.compile with the window as its block mask and the cap, if
    any, as its score_mod (the compiles untimed; a row whose call fails
-   says why); the chunk rows on the pair tile (not Phi-3's: head_dim 96
-   keeps attend_mma) carry its span sweep (`pair_spans`: the plan, one
-   span, and the time of every span count a measurement may ask for,
-   each output within the tolerance of the plan's).
+   says why); the chunk rows (the pair tile) carry its span sweep
+   (`pair_spans`: the plan, one span, and the time of every span count a
+   measurement may ask for, each output within the tolerance of the
+   plan's).
 4. The engine for llama-3.1-8b-instruct at full width and depth, random
    bf16 weights from seed 0: a full prefill, a decode step, a chunked
    prefill, a mixed step (the decode row beside a 256-token chunk), a
@@ -285,36 +288,56 @@ on failure:
    device time and the attention's share, `mla_verify_profile`), the
    capacity path's TTFT and bit identity, one profiled eager full
    prefill of a 256-token prompt (the device time of its kernels and of
-   its 27 prefill launches, `mla_prefill_profile`, also run alone by
-   `--mla-prefill-profile`), and the TTFT of a 2048-token
+   its 27 prefill launches, `mla_prefill_profile`, also run alone, N
+   times back to back, by `--mla-prefill-profile [N]`: a trace that lost
+   a prefill kernel fails, with `profile_drops`' account of where; the
+   session opens with `traced`'s throwaway kernels, since kineto drops
+   the first device records of a session, more as the process ages,
+   which `--profile-lead` shows), and
+   the TTFT of a 2048-token
    prompt prefilled in 256-token chunks (eight chunk launches a layer,
    the last at 1792) on bf16 and int8 pools, with the host side of one
    profiled prefill by op (`mla_chunked_ttft`, also run alone by
    `--mla-chunked-ttft`); so that every kernel launches at head_dim 640
    when served. Between the families and the MoE models, Gemma-2 and
-   Gemma-3 (GEMMA_MODELS, `gemma_phase`): gemma-2-9b-it (42 layers, 21 of
-   them local with a 4096-key window, caps 50 and 30) and gemma-3-1b-it
-   (26 layers, 22 local with 512 keys, per-layer rope) at full width and
-   depth, random bf16 weights from seed 0, 8 slots on 2560 pages of an
+   Gemma-3 (GEMMA_MODELS, `gemma_phase`): gemma-2-9b-it (11 of its 42
+   layers, 6 of them local with a 4096-key window, caps 50 and 30) and
+   gemma-3-1b-it (7 of its 26 layers, 6 local with 512 keys, per-layer
+   rope) at full width, random bf16 weights from seed 0 (gemma-2-9b-it's
+   wq scaled by 2^-4: WINDOWED_WQ_SCALE), 8 slots on 2560 pages of an
    8192 max length: phase 4's forwards past the window on both pool
    kinds; four greedy streams of 64 tokens from prompts of 4500-6000
    (1000-2000) tokens on a classic eager engine, the jetstream
-   graph-window engine (token for token equal), a mixed engine and a
-   mixed engine with n-gram speculation (equal, or first different at a
-   near-tie), and on int8 pools a jetstream engine and a mixed engine
-   held to it; TTFT, mean ITL and tokens per second of each, one
+   graph-window engine (token for token equal), a mixed engine, and on
+   int8 pools an eager engine prefilling in 256-token chunks, a jetstream
+   engine and a mixed engine, each held against a reference run of its
+   pool kind (HELD, REFERENCE: the classic engine, or the int8 chunked
+   one): the two runs' logprobs of either's 5 top tokens, on every
+   state both saw (up to and including a stream's first difference),
+   within BOUND_FACTOR times the same quantity between the same two paths
+   through the plain attention (path_bounds: the largest over 16
+   teacher-forced decode states of as many random prompts as the served
+   streams, `path_states`); a mixed engine with
+   n-gram speculation (no logprobs: they would demote it) equal to the
+   classic one, or first different at a near-tie; TTFT, mean ITL and
+   tokens per second of each, one
    prompt's TTFT alone (whole, and in 256-token chunks), and for
    gemma-2-9b-it a graph-window decode step profiled at 8 slots of
    4600-token prompts; every entry point must launch with the window.
    After them Phi-3 (PHI3_MODEL, `phi3_phase`): phi-3-mini-4k-instruct
    (32 layers, head_dim 96, 32/32 heads, a 2047-key window on every
-   layer) at full width and depth, random bf16 weights from seed 0, 8
-   slots on 2048 pages of its 4096 context: the same forwards on both
-   pool kinds at 3000 tokens; four greedy streams of 2500-3800-token
-   prompts on the classic eager engine, an eager engine prefilling in
-   256-token chunks, the jetstream graph-window engine (token for token
-   equal), mixed engines on bf16 and int8 pools and the int8 jetstream
-   engine, held as for Gemma; the OpenAI server on the jetstream engine
+   layer) at full width and depth, random bf16 weights from seed 0 (wq
+   scaled by 2^-4), 8 slots on 2048 pages of its 4096 context: the same
+   forwards on both pool kinds at 3000 tokens; four greedy streams of
+   2500-3800-token prompts on the classic eager engine, eager engines
+   prefilling in 256-token chunks on both pool kinds, the jetstream
+   graph-window engine
+   (token for token equal), mixed engines on bf16 and int8 pools and the
+   int8 jetstream engine, held as for Gemma, and the check's controls: the
+   mixed engine again with each planted fault of PLANTED_FAULTS in its
+   mixed steps' ragged call, which the check must fail (but the one key
+   short of UNSEEN_FAULTS, recorded); the
+   OpenAI server on the jetstream engine
    with phase 5's four concurrent requests; a graph-window decode step
    profiled at 8 slots of 3000-token prompts; then the same weights
    under longrope (`phi3_longrope_config`: from_hf_config of a 128k
@@ -403,7 +426,10 @@ on failure:
    (`kernel[head_dim=96]`, the longrope runs included);
    `ms` and `library_ms` device times,
    `call_ms` and `library_call_ms` call times, as phase 3 measures them;
-   the grammar kernel's two rows from phase 14, their launches from its
+   `device_kernels`, the device kernels of the row's source that serve
+   its head_dim and pool kind (ptxas' names: at head_dim 96 the prefill
+   and chunk rows' are prefill_pair_kernel and chunk_pair_kernel); the
+   grammar kernel's two rows from phase 14, their launches from its
    served phase, and no library call), the card line, and last the
    {"ok": true, ...} line.
 """
@@ -544,7 +570,7 @@ _T0 = time.monotonic()
 # a run that has not ended by then dumps every thread's stack to stderr and
 # exits 1 (as it does on SIGTERM): a run stopped from outside at its time
 # limit would not say where it was
-WATCHDOG_S = 1140
+WATCHDOG_S = 1170
 
 
 def emit(obj) -> None:
@@ -654,8 +680,8 @@ def ptxas_usage(log: str) -> dict:
     return usage
 
 
-# the pair tile's kernels (prefill.cu and chunk.cu below head_dim 640 but
-# for 96), whose S and P V must run on wgmma (HGMMA in their SASS, no HMMA)
+# the pair tile's kernels (prefill.cu and chunk.cu below head_dim 640),
+# whose S and P V must run on wgmma (HGMMA in their SASS, no HMMA)
 PAIR_KERNELS = ("chunk_pair_kernel", "prefill_pair_kernel")
 
 
@@ -1817,7 +1843,8 @@ def rel_l2(got: dict, ref: dict) -> dict:
 
 
 def forward_checks(engine: Engine, adapter_slot: int = 0,
-                   n_prefill: int = 100, n_prompt: int = 600) -> dict:
+                   n_prefill: int = 100, n_prompt: int = 600,
+                   q_scale: float = None) -> dict:
     """The four forwards through the kernels against the plain attention,
     at full depth, on the engine's pools (bf16 or int8).
 
@@ -1843,11 +1870,14 @@ def forward_checks(engine: Engine, adapter_slot: int = 0,
     whole expert's share. Logits that miss LOGIT_REL_TOL are a fault,
     unless the routing first differed at a near-tie (at most one bf16
     unit) no later than the forward they come from. n_prefill and
-    n_prompt size the forwards (three_paths)."""
+    n_prompt size the forwards (three_paths); `q_scale` (None: as above)
+    is the q scaling, 1 where the weights' wq already carries Q_SCALE
+    (phi3_phase)."""
     held = HeldAgainstPlain()
     sizes = dict(n_prefill=n_prefill, n_prompt=n_prompt)
     cfg = engine.model_cfg
-    q_scale = 1.0 if cfg.qk_norm else Q_SCALE
+    if q_scale is None:
+        q_scale = 1.0 if cfg.qk_norm else Q_SCALE
     routes_plain, routes_kernels = [], []
     with routing_recorded(routes_plain):
         plain = three_paths(engine, q_scaled(att.PLAIN, q_scale),
@@ -2206,12 +2236,10 @@ def profile_steps(engine: Engine, steps: int, long_prompt: int = 0,
 
     wall_ms = drive("timed", contextlib.nullcontext())
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    drive("profiled", prof)
+    drive("profiled", traced(prof))
     n_steps = counted["profiled"]
     families, kernels, n_kernels = {}, {}, 0
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for ev in device_events(prof):
         n_kernels += 1
         ms = ev.time_range.elapsed_us() / 1e3 / n_steps
         fam = kernel_family(ev.name)
@@ -2240,6 +2268,7 @@ def profile_steps(engine: Engine, steps: int, long_prompt: int = 0,
                                          if not graphs["eager"] else 0),
             "graphs_captured": graphs["graphs"],
             "capture_s": graphs["capture_s"],
+            "lead_lost": lead_lost(prof),
             "by_family_ms_per_step": families,
             "top_kernels_ms_per_step": [[n[:80], t] for n, t in top]}
 
@@ -4008,12 +4037,109 @@ def mla_chunked_ttft(engine: Engine, eager_cfg: dict) -> dict:
             "ttft_s_runs": times, "profiled_run": profiled}
 
 
-def mla_prefill_profile(engine: Engine) -> dict:
+# Kineto drops, as out of its window, the first device records of a
+# profiler session, more as the process ages: none in a fresh process,
+# tens after some minutes, alike for kernels back to back or 1 ms apart
+# (`--profile-lead` shows it; kineto's log counts them "Out-of-range").
+# A session that must see every kernel opens with PROFILE_LEAD throwaway
+# kernels (LEAD_KERNEL, ~30 ms of launches) for those records to be, and
+# leaves them out of its account.
+PROFILE_LEAD = 1024
+LEAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's
+
+
+@contextlib.contextmanager
+def traced(prof):
+    """`prof` running, its session opened by PROFILE_LEAD sleep kernels
+    of 100 cycles each (on the card; a CPU trace has no device records),
+    synchronized before the caller's work starts."""
+    with prof:
+        if torch.cuda.is_available():
+            for _ in range(PROFILE_LEAD):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+        yield prof
+
+
+def lead_lost(prof) -> int:
+    """How many of the session's PROFILE_LEAD opening kernels its trace
+    lost (0 on a CPU trace)."""
+    if not torch.cuda.is_available():
+        return 0
+    return PROFILE_LEAD - sum(LEAD_KERNEL in ev.name for ev in prof.events()
+                              if ev.device_type
+                              == torch.autograd.DeviceType.CUDA)
+
+
+def device_events(prof):
+    """The session's device events, its opening kernels left out."""
+    return [ev for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and LEAD_KERNEL not in ev.name]
+
+
+# `--profile-lead`: sessions of LEAD_PROBE_KERNELS small kernels, 0.3 ms
+# apart, after each spell (busy: GEMMs back to back; idle: the card
+# waits), one with no lead and one opened by `traced`
+LEAD_PROBE_KERNELS = 300
+LEAD_PROBE_SPELLS = (("busy", 0), ("idle", 25), ("busy", 25), ("idle", 35),
+                     ("busy", 35), ("idle", 45), ("busy", 45))
+
+
+def profile_lead_probe() -> int:
+    """`--profile-lead`: what `traced` is for, over ~4 minutes of the
+    process's age. Per session: the measured kernels its trace lost and
+    where their launches fall among the session's (profile_drops), and
+    the opening kernels lost. -> 1 if a session opened by the lead lost a
+    measured kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tile = torch.randn(256, 256, device="cuda")
+    big = torch.randn(4096, 4096, device="cuda")
+    t_proc = time.monotonic()
+    failed = 0
+    for kind, seconds in LEAD_PROBE_SPELLS:
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < seconds:
+            if kind == "busy":
+                for _ in range(20):
+                    big @ big
+                torch.cuda.synchronize()
+            else:
+                time.sleep(0.1)
+        for lead in (False, True):
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            with traced(prof) if lead else prof:
+                x = tile
+                for _ in range(LEAD_PROBE_KERNELS):
+                    x = torch.tanh(x)
+                    time.sleep(0.0003)
+                torch.cuda.synchronize()
+            seen = sum("tanh" in ev.name for ev in device_events(prof))
+            drops = profile_drops(prof, "tanh")
+            row = {"phase": "profile_lead", "age_s": time.monotonic() - t_proc,
+                   "after": f"{kind} {seconds} s", "lead": PROFILE_LEAD * lead,
+                   "lead_lost": lead_lost(prof) if lead else 0,
+                   "lost": LEAD_PROBE_KERNELS - seen,
+                   "unanswered_launches": drops.get(
+                       "kineto_unanswered_launches", "not read"),
+                   "unanswered_at": drops.get("kineto_unanswered_at",
+                                              "not read")}
+            emit(row)
+            failed += lead and row["lost"] > 0
+    return 1 if failed else 0
+
+
+def mla_prefill_profile(engine: Engine, raise_short: bool = True) -> dict:
     """One eager full prefill of a CHUNK-token prompt (its own bucket, one
     lane: the full-prefill path, not chunked) on `engine` (eager, the
-    MLA model), after an unprofiled one: under torch.profiler, the device
-    time of all its kernels and of the prefill kernel's launches (one a
-    layer), beside the run's wall (the profiler slows the host)."""
+    MLA model), after an unprofiled one: under torch.profiler (opened by
+    `traced`), the device time of all its kernels and of the prefill
+    kernel's launches (one a layer), beside the run's wall (the profiler
+    slows the host) and how many opening kernels the trace lost. Where the
+    trace holds other than one prefill kernel a layer, raises (unless not
+    `raise_short`) with profile_drops' account of the trace."""
     from torch.profiler import ProfilerActivity, profile
 
     prompt = [1 + i % 200 for i in range(CHUNK)]
@@ -4022,17 +4148,15 @@ def mla_prefill_profile(engine: Engine) -> dict:
     ca.reset_launch_counts()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     torch.cuda.synchronize()
-    t0 = time.monotonic()
-    with prof:
+    with traced(prof):
+        t0 = time.monotonic()
         engine.generate(GenRequest("prefill-profiled", prompt, max_tokens=1,
                                    ignore_eos=True))
         torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+        wall = time.monotonic() - t0
     busy = prefill_ms = 0.0
     prefill_kernels = 0
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for ev in device_events(prof):
         ms = ev.time_range.elapsed_us() / 1e3
         busy += ms
         if "prefill_latent_kernel" in ev.name or "prefill_kernel" in ev.name:
@@ -4041,28 +4165,93 @@ def mla_prefill_profile(engine: Engine) -> dict:
     layers = engine.model_cfg.num_layers
     launches = ca.VARIANT_LAUNCHES.get(
         f"prefill[head_dim={engine.kv_spec.head_dim}]", 0)
+    row = {"prompt_tokens": CHUNK, "prefill_launches": launches,
+           "prefill_traced": prefill_kernels, "wall_ms": wall * 1e3,
+           "device_busy_ms": busy or "not measured",
+           "prefill_kernel_ms": prefill_ms or "not measured",
+           "prefill_kernel_ms_per_launch": (prefill_ms / prefill_kernels
+                                            if prefill_kernels
+                                            else "not measured"),
+           "prefill_share": (prefill_ms / busy if busy
+                             else "not measured"),
+           "lead_lost": lead_lost(prof)}
     if launches != layers or prefill_kernels not in (0, layers):
-        raise AssertionError(f"MLA prefill profile: {launches} prefill "
-                             f"launches, {prefill_kernels} traced, not "
-                             f"{layers}")
-    return {"prompt_tokens": CHUNK, "prefill_launches": launches,
-            "wall_ms": wall * 1e3,
-            "device_busy_ms": busy or "not measured",
-            "prefill_kernel_ms": prefill_ms or "not measured",
-            "prefill_kernel_ms_per_launch": (prefill_ms / prefill_kernels
-                                             if prefill_kernels
-                                             else "not measured"),
-            "prefill_share": (prefill_ms / busy if busy
-                              else "not measured")}
+        row["drops"] = profile_drops(prof, "prefill_latent_kernel")
+        if raise_short:
+            raise AssertionError(f"MLA prefill profile: {launches} prefill "
+                                 f"launches, {prefill_kernels} traced, not "
+                                 f"{layers}: {row}")
+    return row
 
 
-def mla_prefill_only(eager_cfg: dict) -> None:
-    """`--mla-prefill-profile`: deepseek-v2-lite's engine (random weights
-    from seed 0) and mla_prefill_profile alone."""
+def profile_drops(prof, kernel: str) -> dict:
+    """Where a trace lost kernels: the device events and the CPU-side
+    launch calls (cudaLaunchKernel, cuLaunchKernel, cudaLaunchKernelExC)
+    in prof.events() and in the profiler's own kineto result before
+    PyTorch parses it; in the kineto result, the launch calls that no
+    device record answers (their correlation ids), by their place among
+    the session's launches in time (the opening kernels of `traced` are
+    the first PROFILE_LEAD); the traced `kernel` events' starts (us from
+    the first device event) and the gaps between them."""
+    def count(events, device, name, start):
+        n, launch, starts = 0, 0, []
+        for ev in events:
+            if device(ev):
+                n += 1
+                if kernel in name(ev):
+                    starts.append(start(ev))
+            elif "LaunchKernel" in name(ev):
+                launch += 1
+        return n, launch, sorted(starts)
+
+    cuda = torch.autograd.DeviceType.CUDA
+    n, launch, starts = count(
+        prof.events(), lambda e: e.device_type == cuda, lambda e: e.name,
+        lambda e: e.time_range.start)
+    out = {"device_events": n, "launch_calls": launch}
+    try:
+        raw = prof.profiler.kineto_results.events()
+        rn, rlaunch, _ = count(raw, lambda e: e.device_type() == cuda,
+                               lambda e: e.name(), lambda e: e.start_ns())
+        answered = set()
+        for e in raw:
+            if e.device_type() == cuda:
+                answered |= {e.correlation_id(), e.linked_correlation_id()}
+        calls = sorted((e for e in raw if e.device_type() != cuda
+                        and "LaunchKernel" in e.name()),
+                       key=lambda e: e.start_ns())
+        lost = [i for i, e in enumerate(calls)
+                if e.correlation_id() not in answered]
+        out.update(kineto_device_events=rn, kineto_launch_calls=rlaunch,
+                   kineto_unanswered_launches=len(lost),
+                   kineto_unanswered_at=lost[:16])
+    except AttributeError as e:  # another torch version's result API
+        out["kineto"] = f"not read: {e}"
+    if starts:
+        first = min(e.time_range.start for e in prof.events()
+                    if e.device_type == cuda)
+        out["kernel_starts_us"] = [t - first for t in starts]
+        out["kernel_gaps_us"] = [b - a for a, b in zip(starts, starts[1:])]
+    return out
+
+
+def mla_prefill_only(eager_cfg: dict, repeats: int = 1) -> int:
+    """`--mla-prefill-profile [N]`: deepseek-v2-lite's engine (random
+    weights from seed 0) and mla_prefill_profile alone, N times back to
+    back (each a profiler session right after the last); every run's row,
+    then the count of runs whose trace lost prefill kernels. -> 1 if any
+    did."""
     engine = Engine(EngineConfig(**dict(eager_cfg, model=MLA_MODEL)))
+    short = 0
     with torch.inference_mode():
-        emit({"phase": "mla_prefill_profile", "model": MLA_MODEL,
-              **mla_prefill_profile(engine)})
+        for i in range(repeats):
+            row = mla_prefill_profile(engine, raise_short=False)
+            short += "drops" in row
+            emit({"phase": "mla_prefill_profile", "model": MLA_MODEL,
+                  "run": i, **row})
+    emit({"phase": "mla_prefill_repeats", "runs": repeats,
+          "short_traces": short})
+    return 1 if short else 0
 
 
 def mla_ttft_only(eager_cfg: dict) -> None:
@@ -4106,27 +4295,67 @@ PHI3_SHAPE = dict(
 PHI3_LABEL = PHI3_SHAPE["label"]
 WINDOWED_KERNELS = ("decode", "decode_int8", "prefill", "chunk",
                     "chunk_int8", "ragged", "ragged_int8")
-# the served Gemma models, after the families (model, the forward checks'
-# prompt length, the served prompts' shortest and longest, profiled):
-# every served prompt is longer than the model's window (4096; 512)
-GEMMA_MODELS = (("gemma-2-9b-it", 4600, (4500, 6000), True),
-                ("gemma-3-1b-it", 1200, (1000, 2000), False))
+# the served Gemma models, after the families (model, its layers, the
+# forward checks' prompt length, the served prompts' shortest and longest,
+# profiled): every served prompt is longer than the model's window (4096;
+# 512); each at about a quarter of its depth (42 and 26 layers; local and
+# global layers in the preset's pattern: 6 local of 11, 6 of 7), so that
+# the whole script stays under ~900 s on a slower host (1131 s at half
+# depth on one) beside the windowed phases' int8 chunked runs
+GEMMA_MODELS = (("gemma-2-9b-it", 11, 4600, (4500, 6000), True),
+                ("gemma-3-1b-it", 7, 1200, (1000, 2000), False))
 GEMMA_STREAMS, GEMMA_TOKENS = 4, 64
 # 8 slots (the profile's) of 4600-token prompts fit the pool's pages
 GEMMA_SIZE = dict(max_seq_len=8192, num_pages=2560, max_num_seqs=MAX_SEQS)
 # the engines a windowed model's streams are served on: EngineConfig
 # fields over the classic eager engine's (whole-prompt prefills), graph
 # windows (the jetstream profile) for the jetstream runs
-GEMMA_RUNS = ("classic", "jetstream", "jetstream_int8", "mixed",
-              "mixed_int8", "mixed_ngram")
+GEMMA_RUNS = ("classic", "chunked_int8", "jetstream", "jetstream_int8",
+              "mixed", "mixed_int8", "mixed_ngram")
 MIXED = dict(prefill_chunk_tokens=CHUNK, mixed_batch_tokens=CHUNK)
 WINDOWED_RUN_CFG = {
     "chunked": dict(prefill_chunk_tokens=CHUNK),
+    "chunked_int8": dict(prefill_chunk_tokens=CHUNK, kv_cache_dtype="int8"),
     "mixed": MIXED,
     "mixed_int8": dict(MIXED, kv_cache_dtype="int8"),
     "mixed_ngram": dict(MIXED, speculative_mode="ngram",
                         num_speculative_tokens=SPEC_K),
 }
+# The served runs held against a reference run of their own pool kind:
+# `classic` on bf16 pools (it prefills whole prompts, as `jetstream`, which
+# must equal it token for token) and `chunked_int8` on int8 pools (it
+# prefills in 256-token chunks). Two paths cannot give equal bits where
+# their shapes differ (a decode row in a mixed step beside a chunk, cuBLAS
+# at other row counts, int8 K/V against the prompt's bf16 K/V), and the
+# random models' top logprobs then part by a bf16 unit or more, so their
+# argmax streams part, at near-ties or past them: a run of
+# RUN_PATH and its reference serve with TOP_LOGPROBS logprobs, and the two
+# runs' logprobs of either's top tokens are bounded by the same two paths'
+# through the plain attention (path_bounds); a run outside it
+# (`mixed_ngram`: logprobs would demote its speculation) must give the
+# reference's tokens or first differ at a near-tie.
+REFERENCE = {"bf16": "classic", "int8": "chunked_int8"}
+HELD = ("chunked", "mixed", "mixed_ngram", "jetstream_int8", "mixed_int8")
+# each served run's path in path_states: its prompt's K/V from a whole
+# prefill or from 256-token chunks, its decode rows in decode steps or, the
+# mixed engines' beside a chunk, in mixed steps
+RUN_PATH = {"classic": "whole", "jetstream": "whole",
+            "jetstream_int8": "whole", "chunked": "chunks",
+            "chunked_int8": "chunks", "mixed": "mixed",
+            "mixed_int8": "mixed"}
+# a held run's logprob difference may reach this many times its paths'
+# plain one (path_bounds: the largest over BOUND_STEPS teacher-forced
+# decode states of each served stream's count of slots; the served one is
+# the largest over up to GEMMA_TOKENS states a stream)
+BOUND_FACTOR = 2.0
+BOUND_STEPS = 16
+# path_states' mixed steps: their chunks walk a prompt of this many chunks
+# of its own (its K/V on pages of its own), chunk i at (i % it) * CHUNK
+BOUND_CHUNKS = 4
+# the top logprobs a held run and its reference serve with (the engine's
+# most): where the streams first differ the two runs' top tokens part,
+# and a token only one run lists counts from the other's least listed
+TOP_LOGPROBS = 5
 # Phi-3 served after Gemma: the preset at its 4096 context (8 slots of
 # 256 pages), four streams of 2500-3800-token prompts past the window,
 # the forward checks and the profile at 3000-token prompts; then the same
@@ -4135,9 +4364,20 @@ WINDOWED_RUN_CFG = {
 # beside the first's decode), so that positions cross original_max_pos
 # (4096) in the prefill, the chunks and decode
 PHI3_SIZE = dict(max_seq_len=4096, num_pages=2048, max_num_seqs=MAX_SEQS)
-PHI3_RUNS = ("classic", "chunked", "jetstream", "jetstream_int8", "mixed",
-             "mixed_int8")
+PHI3_RUNS = ("classic", "chunked", "chunked_int8", "jetstream",
+             "jetstream_int8", "mixed", "mixed_int8")
 PHI3_N_CHECK, PHI3_LENGTHS = 3000, (2500, 3800)
+# The served windowed models without q/k norms (Phi-3, Gemma-2) carry wq
+# scaled by Q_SCALE (their scores' deviation near 2, as phase 4's forwards
+# give q; served_weights). As the loader draws them the scores' deviation
+# is near 30: softmax is one-hot (Gemma-2's cap at 50 softens it), a bf16
+# unit anywhere flips a head's key, and two paths, the plain ones too,
+# part by whole nats (on the H100, Phi-3's plain decode row against the
+# same row in a mixed step: 3.8 median over 64 states), more than a
+# served run with zeroed attention rows moves from its reference: no
+# bound from the plain paths could fail it. Scaled, the plain paths part
+# by a bf16 unit or two of a logprob and such a fault by tenths.
+WINDOWED_WQ_SCALE = Q_SCALE
 LONGROPE_SIZE = dict(max_seq_len=8192, num_pages=1024, max_num_seqs=MAX_SEQS)
 LONGROPE_RUNS = ("classic", "jetstream", "mixed")
 LONGROPE_N_CHECK, LONGROPE_LENGTHS = 6000, (5800, 6200)
@@ -4338,16 +4578,14 @@ def windowed_kernel_checks(dev, shape: dict) -> dict:
             flex_paged(qc[None], kl, vl, pages_d[None], start_d,
                        start_d + c, **lib_kw),
             cost(qc.numel(), [(pages, start, c, start + c)], row_bytes, 0),
-            {"q": [c, h, d], "start": start, **({
-                "pair_spans": pair_span_sweep(
-                    lambda n, k=k, v=v: ca.chunk_prefill_attention(
-                        qc, k, v, pages_d, start, page_size=PS,
-                        num_kv_heads=kv, spans=n, **mods),
-                    ca.chunk_spans(c, start, h // kv, d, kv,
-                                   ca._num_sms(dev)),
-                    ca.pair_max_spans(start + c, w,
-                                      ca.tile_positions(h // kv, d), d))}
-                if ca.pair_tile_takes(d) else {})})
+            {"q": [c, h, d], "start": start,
+             "pair_spans": pair_span_sweep(
+                 lambda n, k=k, v=v: ca.chunk_prefill_attention(
+                     qc, k, v, pages_d, start, page_size=PS,
+                     num_kv_heads=kv, spans=n, **mods),
+                 ca.chunk_spans(c, start, h // kv, d, kv, ca._num_sms(dev)),
+                 ca.pair_max_spans(start + c, w,
+                                   ca.tile_positions(h // kv, d), d))})
 
     desc = att.ragged_descriptors(table_d, ctx_d, pages_d, start, c)
     tabs, kv_lens, q_starts = desc
@@ -4410,23 +4648,281 @@ def timed_run(engine: Engine, prompts, logprobs=None) -> tuple:
         "tokens": n_tok, "seconds": wall, "tokens_per_s": n_tok / wall}
 
 
-def stream_agreement(got: dict, ref: dict) -> dict:
-    """got's greedy tokens against ref's (run with 2 logprobs): equal, or
-    the first difference with ref's top-2 logprob gap there (a near-tie
-    where under NEAR_TIE)."""
+def stream_agreement(got: dict, ref: dict, bound: float = None) -> dict:
+    """got's greedy streams against ref's ({rid: [(token, logprob, top)]},
+    ref served with TOP_LOGPROBS logprobs). Up to and including a
+    stream's first difference both runs saw the same tokens; on each of
+    those shared states the two runs' logprobs of both runs' top tokens
+    are compared (top_difference), the largest |difference| the state's.
+    With `bound` (got served with TOP_LOGPROBS logprobs too), the largest
+    over the states must be within BOUND_FACTOR * bound, whether or not
+    the streams differ; without, the streams must be equal or first
+    differ at a near-tie (ref's top-2 gap there under NEAR_TIE). Streams
+    of other lengths fail either way. -> {"ok", "equal",
+    "first_difference" (rid, index, lengths), "ref_top2_gap" and
+    "near_tie" there, "bound", "limit", "max_shared_diff" (and by stream),
+    "shared_diff_spread", "shared_states", "lower_bounded"}"""
+    first, gap, lower, by_rid, diffs = None, None, 0, {}, []
     for rid in sorted(ref):
-        a, b = [t[0] for t in got.get(rid, [])], [t[0] for t in ref[rid]]
-        for i, (x, y) in enumerate(zip(a, b)):
-            if x != y:
-                top = ref[rid][i][2] or []
-                gap = top[0][1] - top[1][1] if len(top) > 1 else None
-                return {"equal": False, "rid": rid, "index": i,
-                        "ref_top2_gap": gap,
-                        "near_tie": gap is not None and gap < NEAR_TIE}
-        if len(a) != len(b):
-            return {"equal": False, "rid": rid, "lengths": [len(a), len(b)],
-                    "near_tie": False}
-    return {"equal": True}
+        a, b = got.get(rid, []), ref[rid]
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x[0] != y[0]),
+                 None)
+        if first is None and (i is not None or len(a) != len(b)):
+            first = {"rid": rid, "index": min(len(a), len(b)) if i is None
+                     else i, "lengths": [len(a), len(b)]}
+            top = b[i][2] if i is not None else None
+            if top and len(top) > 1:
+                gap = top[0][1] - top[1][1]
+        if bound is None:
+            continue
+        worst = 0.0
+        for j in range(min(len(a), len(b)) if i is None else i + 1):
+            if len(a[j][2] or ()) < 2:
+                raise ValueError(f"{rid}: the run held to a bound was not "
+                                 f"served with logprobs")
+            d, n = top_difference(dict(a[j][2]), dict(b[j][2]))
+            diffs.append(d)
+            lower += n
+            worst = max(worst, d)
+        by_rid[rid] = worst
+    lengths_ok = first is None or first["lengths"][0] == first["lengths"][1]
+    near_tie = gap is not None and gap < NEAR_TIE
+    row = {"equal": first is None, "first_difference": first,
+           "ref_top2_gap": gap, "near_tie": near_tie, "bound": bound}
+    if bound is None:
+        return {**row, "ok": first is None or (lengths_ok and near_tie)}
+    limit, worst = BOUND_FACTOR * bound, max(by_rid.values(), default=0.0)
+    return {**row, "limit": limit, "max_shared_diff": worst,
+            "max_shared_diff_by_stream": by_rid,
+            "shared_diff_spread": spread(diffs),
+            "shared_states": len(diffs), "lower_bounded": lower,
+            "ok": lengths_ok and worst <= limit}
+
+
+def top_difference(mine: dict, theirs: dict) -> tuple:
+    """Two runs' top logprobs at one state ({token: logprob}, as many
+    each): the largest |difference| of their logprobs over the tokens of
+    either. A token only one run lists has at most the other's least
+    listed logprob there, and counts from that: a lower bound. ->
+    (difference, tokens lower-bounded)."""
+    d, lower = 0.0, 0
+    for x, y in ((mine, theirs), (theirs, mine)):
+        cap = min(y.values())
+        for tok, lp in x.items():
+            if tok in y:
+                d = max(d, abs(lp - y[tok]))
+            else:
+                d = max(d, lp - cap)
+                lower += 1
+    return d, lower
+
+
+def spread(values) -> dict:
+    """The median, 90th percentile, mean and largest of some values (0
+    for none)."""
+    v = np.sort(np.asarray(values, dtype=np.float64)) if len(values) else (
+        np.zeros(1))
+    return {"q50": float(np.quantile(v, 0.5)),
+            "q90": float(np.quantile(v, 0.9)), "mean": float(v.mean()),
+            "max": float(v[-1])}
+
+
+def pool_of(run: str) -> str:
+    """The pool kind a served run's engine holds its K/V in."""
+    return "int8" if "int8" in run else "bf16"
+
+
+def reference_of(run: str) -> str:
+    """The run a served run is held against: its pool kind's REFERENCE."""
+    return REFERENCE[pool_of(run)]
+
+
+def bound_pair(run: str):
+    """The paths whose plain difference bounds a held run's: '<the
+    reference's path>_vs_<the run's>', or None for a run outside
+    RUN_PATH."""
+    if run not in RUN_PATH:
+        return None
+    return f"{RUN_PATH[reference_of(run)]}_vs_{RUN_PATH[run]}"
+
+
+def held_agreement(run: str, outs: dict, bounds: dict) -> dict:
+    """stream_agreement of served run `run` against its reference's
+    streams (outs: {run: streams}) under the bound of its pair of paths
+    on its pool kind (bounds: {pool kind: path_bounds})."""
+    ref, pair = reference_of(run), bound_pair(run)
+    bound = None if pair is None else bounds[pool_of(run)]["top"][pair]
+    return {"reference": ref, "paths": pair,
+            **stream_agreement(outs[run], outs[ref], bound)}
+
+
+def served_logprobs(run: str):
+    """The logprobs a windowed run serves with: TOP_LOGPROBS for a
+    reference and for a held run of RUN_PATH, none for `jetstream` (held
+    to equal tokens) and `mixed_ngram` (logprobs would demote its
+    speculation)."""
+    held = run in HELD and bound_pair(run) is not None
+    return TOP_LOGPROBS if run in REFERENCE.values() or held else None
+
+
+def path_states(engine: Engine, n_check: int, slots: int, steps: int,
+                attn=att.PLAIN) -> dict:
+    """Logits [steps, slots, V] (f32) of `slots` decode rows of random
+    n_check-token prompts (seed 3), teacher-forced through `steps` steps
+    (step i feeds each prompt's token n_check + i at that position) in
+    the engine's MAX_SEQS-row batch, with `attn`, on each path of
+    RUN_PATH: `whole` after whole prefills and in decode steps, `chunks`
+    after CHUNK-token chunked prefills and in decode steps, `mixed` after
+    the same chunks and in mixed steps, each beside a CHUNK-token chunk of
+    another prompt (BOUND_CHUNKS chunks on pages of its own)."""
+    model, dev = engine.model, engine.device
+    gen = torch.Generator().manual_seed(3)
+    prompts = torch.randint(0, 256, (slots, n_check + steps), generator=gen)
+    other = torch.randint(0, 256, (BOUND_CHUNKS * CHUNK,), generator=gen)
+    bucket = 128 if n_check <= 128 else -(-n_check // 256) * 256
+    per = max(n_check + steps, bucket) // PS + 1
+
+    def page_list(pages, tokens):  # trash-padded, as three_paths'
+        width = -(-tokens // 1024) * 1024 // PS + CHUNK // PS - 1
+        plist = torch.zeros((width,), dtype=torch.int32, device=dev)
+        plist[:len(pages)] = torch.tensor(pages, dtype=torch.int32,
+                                          device=dev)
+        return plist
+
+    one = dict(lora=engine.lora_stacks, adapter_slots=0)
+    batch = dict(lora=engine.lora_stacks,
+                 adapter_slots=torch.zeros((MAX_SEQS,), dtype=torch.int32,
+                                           device=dev))
+    kv = (engine.k_pages, engine.v_pages)
+    pages = [engine.allocator.alloc(per) for _ in range(slots)]
+    other_pages = engine.allocator.alloc(BOUND_CHUNKS * CHUNK // PS)
+    out = {}
+    try:
+        lists = [page_list(p, per * PS) for p in pages]
+        other_list = page_list(other_pages, BOUND_CHUNKS * CHUNK)
+        width = engine.cfg.max_seq_len // PS
+        table = torch.zeros((MAX_SEQS, width), dtype=torch.int32, device=dev)
+        for s in range(slots):
+            n = min(width, len(lists[s]))
+            table[s, :n] = lists[s][:n]
+        for path in ("whole", "chunks", "mixed"):
+            for s in range(slots):  # `mixed` decodes on `chunks`' K/V
+                if path == "whole":
+                    tokens = torch.zeros((bucket,), dtype=torch.long)
+                    tokens[:n_check] = prompts[s, :n_check]
+                    llama.prefill(model, tokens.to(dev), n_check, *kv,
+                                  lists[s][:bucket // PS], page_size=PS,
+                                  attn=attn, **one)
+                elif path == "chunks":
+                    for start in range(0, n_check, CHUNK):
+                        take = min(CHUNK, n_check - start)
+                        chunk = torch.zeros((CHUNK,), dtype=torch.long)
+                        chunk[:take] = prompts[s, start:start + take]
+                        llama.prefill_chunk(model, chunk.to(dev), start,
+                                            take, *kv, lists[s],
+                                            page_size=PS, attn=attn, **one)
+            tok = torch.zeros((MAX_SEQS,), dtype=torch.long, device=dev)
+            pos = torch.zeros((MAX_SEQS,), dtype=torch.int32, device=dev)
+            ctx = torch.ones((MAX_SEQS,), dtype=torch.int32, device=dev)
+            rows = []
+            for i in range(steps):
+                tok[:slots] = prompts[:, n_check + i].to(dev)
+                pos[:slots], ctx[:slots] = n_check + i, n_check + i + 1
+                if path == "mixed":
+                    at = i % BOUND_CHUNKS * CHUNK
+                    logits = llama.mixed_step(
+                        model, tok, pos, table, ctx,
+                        other[at:at + CHUNK].to(dev), at, CHUNK, other_list,
+                        *kv, page_size=PS, attn=attn,
+                        **dict(batch, chunk_adapter_slot=0))[0]
+                else:
+                    logits = llama.decode_step(model, tok, pos, table, ctx,
+                                               *kv, page_size=PS, attn=attn,
+                                               **batch)
+                rows.append(logits[:slots].float())
+            out[path] = torch.stack(rows)
+    finally:
+        for p in pages + [other_pages]:
+            engine.allocator.free(p)
+    return out
+
+
+def path_bounds(engine: Engine, n_check: int, slots: int) -> dict:
+    """The bounds of the held runs on `engine`'s pool kind: path_states
+    through the plain attention (att.PLAIN) at BOUND_STEPS steps of
+    `slots` rows; for each held run's pair of paths (bound_pair), the
+    largest |difference| of the two paths' logprobs (log_softmax in f32,
+    as the engine's) of either path's TOP_LOGPROBS top tokens over those
+    states, the quantity stream_agreement bounds ("top"; its median, 90th
+    percentile and mean beside it), and the largest over the whole
+    vocabulary ("vocabulary"). Where the plain
+    paths give equal bits (0), their served runs must too."""
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        lp = {k: torch.log_softmax(v, -1) for k, v in path_states(
+            engine, n_check, slots, BOUND_STEPS).items()}
+    pairs = sorted({bound_pair(r) for r in HELD if bound_pair(r)})
+    out = {"states": BOUND_STEPS * slots, "seconds": time.monotonic() - t0,
+           "top": {}, "vocabulary": {}, "top_spread": {}}
+    for pair in pairs:
+        ref, run = (lp[k] for k in pair.split("_vs_"))
+        top = torch.cat([ref.topk(TOP_LOGPROBS, -1).indices,
+                         run.topk(TOP_LOGPROBS, -1).indices], -1)
+        d = (ref.gather(-1, top) - run.gather(-1, top)).abs().amax(-1)
+        out["top"][pair] = float(d.max())
+        out["top_spread"][pair] = spread(d.flatten().tolist())
+        out["vocabulary"][pair] = float((ref - run).abs().max())
+    return out
+
+
+# the served check's controls: faults planted in the ragged call of every
+# mixed step the engine takes, each as a served-path bug would be; the
+# check must fail each but key_short, whose run shows what it cannot see
+# (one key of a window of thousands moves a logprob by under a bf16 unit)
+PLANTED_FAULTS = {
+    "key_short": "decode rows read one key short (a context off by one)",
+    "rows_rolled": "decode rows take the next row's output (a descriptor "
+                   "off by one)",
+    "chunk_shifted": "the chunk's rows read as if one page past its start",
+    "rows_zero": "decode rows' outputs zero (garbage rows)",
+}
+UNSEEN_FAULTS = ("key_short",)
+
+
+@contextlib.contextmanager
+def planted_fault(kind: str):
+    """While active, every llama.mixed_step runs the ragged kernel with
+    fault `kind` of PLANTED_FAULTS planted around it."""
+    if kind not in PLANTED_FAULTS:
+        raise ValueError(f"no planted fault {kind!r}")
+    orig = llama.mixed_step
+    ragged = att.DISPATCH.ragged
+
+    def faulty_ragged(q, k_pages, v_pages, block_tables, context_lens,
+                      p_pages, p_start, **kw):
+        b = kw["num_decode"]
+        if kind == "key_short":
+            context_lens = torch.where(context_lens > 1, context_lens - 1,
+                                       context_lens)
+        elif kind == "chunk_shifted":
+            p_start += PS
+        out = ragged(q, k_pages, v_pages, block_tables, context_lens,
+                     p_pages, p_start, **kw)
+        if kind == "rows_rolled":
+            out = torch.cat([out[:b].roll(-1, 0), out[b:]])
+        elif kind == "rows_zero":
+            out = torch.cat([torch.zeros_like(out[:b]), out[b:]])
+        return out
+
+    def faulty(*args, **kw):
+        return orig(*args, **dict(kw, attn=att.DISPATCH._replace(
+            ragged=faulty_ragged)))
+
+    llama.mixed_step = faulty
+    try:
+        yield
+    finally:
+        llama.mixed_step = orig
 
 
 def ttft_alone(engine: Engine, prompt) -> float:
@@ -4443,11 +4939,36 @@ def ttft_alone(engine: Engine, prompt) -> float:
     return ms
 
 
+def planted_fault_control(mixed: Engine, serve, outs: dict, bounds: dict,
+                          kind: str) -> dict:
+    """The served check's control: a fresh engine of `mixed`'s config and
+    weights serves the streams again (serve: engine -> streams) under
+    planted_fault(kind), and is held as `mixed` (held_agreement against
+    classic in outs, bounds as windowed_phase's). -> {"fault", "agreement",
+    "vocabulary_limit": the limit a bound over the whole vocabulary
+    (path_bounds' "vocabulary") would set}; its launches are no served
+    run's."""
+    eng = Engine(mixed.cfg, model_cfg=mixed.model_cfg, params=mixed.model,
+                 device=mixed.device)
+    with planted_fault(kind):
+        streams = serve(eng)
+    steps = eng.metrics.mixed_count
+    del eng
+    release()
+    if steps == 0:
+        raise AssertionError("the control took no mixed step")
+    row = held_agreement("mixed", dict(outs, mixed=streams), bounds)
+    return {"fault": PLANTED_FAULTS[kind], "mixed_count": steps,
+            "agreement": row, "vocabulary_limit": BOUND_FACTOR
+            * bounds["bf16"]["vocabulary"][row["paths"]]}
+
+
 def windowed_phase(model: str, n_check: int, lengths, eager_cfg: dict,
                    jet_cfg: dict, *, size: dict, runs, kernels,
                    profiled: bool = False, model_cfg=None, params=None,
                    int8_checks: bool = True, n_streams: int = GEMMA_STREAMS,
-                   http: bool = False) -> dict:
+                   http: bool = False, controls=(),
+                   q_scale: float = None) -> dict:
     """A windowed model (Gemma-2/3, Phi-3) at full width and depth, every
     served prompt longer than its window, all engines at `size` (the same
     slots: a decode step's shapes fix its bits), on `model_cfg` (None: the
@@ -4456,17 +4977,22 @@ def windowed_phase(model: str, n_check: int, lengths, eager_cfg: dict,
       its decode and verify rows) and an n_check + 100-token chunked
       prompt on bf16 pools and, with int8_checks, int8 pools, every
       attention call held against the plain version and the logits
-      within LOGIT_REL_TOL;
+      within LOGIT_REL_TOL (q scaled by `q_scale`: forward_checks');
+    - path_bounds on each pool kind checked, at n_streams slots: the
+      held runs' bounds;
     - n_streams greedy streams of GEMMA_TOKENS tokens from prompts of
       `lengths` tokens on each of `runs`: `classic`, an eager engine
-      prefilling whole prompts (its 2 logprobs the reference), `chunked`
-      (its 256-token chunks), the `jetstream` graph-window engine (must
-      equal classic token for token: the same kernels on the same
-      shapes), `jetstream_int8` (its 2 logprobs the int8 reference),
-      `mixed` and `mixed_int8` (mixed_batch_tokens=256: chunks and mixed
-      steps) and `mixed_ngram` (n-gram speculation beside them); every
-      other run equal to its pool's reference or first different at a
-      near-tie; TTFT, mean ITL and tokens per second of each; with
+      prefilling whole prompts, `chunked` and `chunked_int8` (its 256-token
+      chunks, on bf16 and int8 pools), the `jetstream` graph-window engine
+      (must equal classic token for token: the same kernels on the same
+      shapes), `jetstream_int8`, `mixed` and `mixed_int8`
+      (mixed_batch_tokens=256: chunks and mixed steps) and `mixed_ngram`
+      (n-gram speculation beside them); each run of HELD held against its
+      reference (held_agreement; served_logprobs says which serve with 2
+      logprobs); TTFT, mean ITL and tokens per second of each; with
+      `controls`, the mixed engine again with each planted fault of
+      them (planted_fault_control), held as `mixed`: the check must fail
+      every one but UNSEEN_FAULTS'; with
       `http`, the OpenAI server on the jetstream engine with phase 5's
       four concurrent requests (window_serve);
     - with a mixed run, one prompt's TTFT alone, whole and in 256-token
@@ -4508,17 +5034,20 @@ def windowed_phase(model: str, n_check: int, lengths, eager_cfg: dict,
     # the decode and verify rows read past the prefill: a longer prompt
     sizes = dict(n_prefill=n_check, n_prompt=n_check + 100)
     with torch.inference_mode():
-        forward_checks(engine, **sizes)
+        forward_checks(engine, **sizes, q_scale=q_scale)
+        bounds = {"bf16": path_bounds(engine, n_check, n_streams)}
         if int8_checks:
             eng8 = Engine(EngineConfig(**classic_cfg, kv_cache_dtype="int8"),
                           model_cfg=model_cfg, params=weights)
-            forward_checks(eng8, **sizes)
+            forward_checks(eng8, **sizes, q_scale=q_scale)
+            bounds["int8"] = path_bounds(eng8, n_check, n_streams)
             del eng8
             release()
 
     prompts = gemma_prompts(*lengths, seed=31, n=n_streams)
     served, row = [], {"model": cfg.name,
-                       "prompt_tokens": [len(p) for p in prompts]}
+                       "prompt_tokens": [len(p) for p in prompts],
+                       "path_bounds": bounds, "bound_factor": BOUND_FACTOR}
 
     def serve(name, eng, logprobs=None):
         ca.reset_launch_counts()
@@ -4528,25 +5057,26 @@ def windowed_phase(model: str, n_check: int, lengths, eager_cfg: dict,
         row[name] = {**timing, "launches": served[-1]["launches"]}
         return out
 
-    refs = {"": serve("classic", engine, logprobs=2)}
+    outs = {"classic": serve("classic", engine,
+                             logprobs=served_logprobs("classic"))}
     for name in runs:
         if name == "classic":
             continue
-        pool = "_int8" if "int8" in name else ""
         if name.startswith("jetstream"):
-            eng = Engine(EngineConfig(**dict(jet_cfg, model=model, **size),
-                                      kv_cache_dtype=pool[1:] or "auto"),
-                         model_cfg=model_cfg, params=weights)
+            eng = Engine(EngineConfig(
+                **dict(jet_cfg, model=model, **size),
+                kv_cache_dtype="int8" if pool_of(name) == "int8" else "auto"),
+                model_cfg=model_cfg, params=weights)
             t0 = time.monotonic()
             eng.warmup()
             emit({"phase": "warmup", "engine": f"{name} {cfg.name}",
                   "seconds": time.monotonic() - t0, **eng.windows.stats()})
-            got = serve(name + "_run", eng, logprobs=2 if pool else None)
+            outs[name] = serve(name + "_run", eng,
+                               logprobs=served_logprobs(name))
             row[name] = {"graphs": eng.windows.stats()}
-            if pool:
-                refs[pool] = got
-            else:
-                row[name]["agreement"] = stream_agreement(got, refs[""])
+            if name == "jetstream":
+                row[name]["agreement"] = stream_agreement(outs[name],
+                                                          outs["classic"])
                 if http:
                     row["jetstream_http"] = window_serve(eng)
                     served.append({k: row["jetstream_http"][k]
@@ -4560,31 +5090,41 @@ def windowed_phase(model: str, n_check: int, lengths, eager_cfg: dict,
             eng = Engine(EngineConfig(**dict(classic_cfg,
                                              **WINDOWED_RUN_CFG[name])),
                          model_cfg=model_cfg, params=weights)
-            got = serve(name, eng)
-            row[name].update(agreement=stream_agreement(got, refs[pool]),
-                             mixed_count=eng.metrics.mixed_count,
+            outs[name] = serve(name, eng, logprobs=served_logprobs(name))
+            row[name].update(mixed_count=eng.metrics.mixed_count,
                              mixed_spec_count=eng.metrics.mixed_spec_count,
                              spec_verify_steps=eng.metrics.spec_verify_steps)
             if name == "mixed":
                 row["ttft_alone_ms"] = {"whole_prompt": ttft_alone(
                     engine, prompts[0]), "chunks_of_256": ttft_alone(
                     eng, prompts[0]), "prompt_tokens": len(prompts[0])}
+            if name == "mixed":
+                row["controls"] = {k: planted_fault_control(
+                    eng, lambda e: timed_run(e, prompts, TOP_LOGPROBS)[0],
+                    outs,
+                    bounds, k) for k in controls}
+        if name in HELD:
+            row[name]["agreement"] = held_agreement(name, outs, bounds)
         del eng
         release()
     emit({"phase": "windowed_serve", **row})
-    if "jetstream" in runs and row["jetstream"]["agreement"] != {
-            "equal": True}:
+    passed = {k: c for k, c in row.get("controls", {}).items()
+              if c["agreement"]["ok"] and k not in UNSEEN_FAULTS}
+    if passed:
+        raise AssertionError(f"{cfg.name}: the served check passed "
+                             f"planted faults: {passed}")
+    if "jetstream" in runs and not row["jetstream"]["agreement"]["equal"]:
         raise AssertionError(f"{cfg.name}: graph windows differ from the "
                              f"eager engine: {row['jetstream']['agreement']}")
-    held = [k for k in runs if k in WINDOWED_RUN_CFG]
-    bad = [k for k in held if not (row[k]["agreement"]["equal"]
-                                   or row[k]["agreement"]["near_tie"])]
+    bad = [k for k in runs if k in HELD and not row[k]["agreement"]["ok"]]
     if bad:
-        raise AssertionError(f"{cfg.name}: {bad} streams first differ from "
-                             f"their reference past a near-tie: {row}")
-    if (any(row[k]["mixed_count"] == 0 for k in held if "mixed" in k)
+        raise AssertionError(f"{cfg.name}: {bad} streams leave their "
+                             f"reference's past the bound or a near-tie: "
+                             f"{ {k: row[k]['agreement'] for k in bad} }")
+    eager = [k for k in runs if k in WINDOWED_RUN_CFG]
+    if (any(row[k]["mixed_count"] == 0 for k in eager if "mixed" in k)
             or any(row[k]["spec_verify_steps"] == 0
-                   for k in held if "ngram" in k)):
+                   for k in eager if "ngram" in k)):
         raise AssertionError(f"{cfg.name}: no mixed or verify steps ran: "
                              f"{row}")
     counts = {}
@@ -4601,17 +5141,38 @@ def windowed_phase(model: str, n_check: int, lengths, eager_cfg: dict,
             "variants": [s["variants"] for s in served], "row": row}
 
 
-def gemma_phase(model: str, n_check: int, lengths, profiled: bool,
-                eager_cfg: dict, jet_cfg: dict) -> dict:
-    """One Gemma model's windowed_phase: 8 slots on GEMMA_SIZE's pages of
-    an 8192 max length, every run of GEMMA_RUNS, the forwards on both pool
-    kinds. -> {"launches", "variants", "peak_gib"} as family_phase."""
+def gemma_phase(model: str, layers: int, n_check: int, lengths,
+                profiled: bool, eager_cfg: dict, jet_cfg: dict) -> dict:
+    """One Gemma model's windowed_phase at `layers` of its layers and
+    served_weights: 8 slots on GEMMA_SIZE's pages of an 8192 max length,
+    every run of GEMMA_RUNS, the forwards on both pool kinds (q as the
+    weights give it). -> {"launches", "variants", "peak_gib"} as
+    family_phase."""
     torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(
+        ModelConfig.from_model_name(model, dtype="bfloat16"),
+        num_layers=layers)
     out = windowed_phase(model, n_check, lengths, eager_cfg, jet_cfg,
                          size=GEMMA_SIZE, runs=GEMMA_RUNS,
-                         kernels=WINDOWED_KERNELS, profiled=profiled)
+                         kernels=WINDOWED_KERNELS, profiled=profiled,
+                         model_cfg=cfg, params=served_weights(cfg),
+                         q_scale=1.0)
     return {"launches": out["launches"], "variants": out["variants"],
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def served_weights(cfg):
+    """A windowed model's served weights: random bf16 weights from seed 0
+    (the engine's own loader), wq scaled by WINDOWED_WQ_SCALE where the
+    model has no q/k norm (with one, q's scale does not reach the
+    scores)."""
+    weights = loader.load_or_init(cfg, None, seed=0, quantization="none",
+                                  device=torch.device("cuda"),
+                                  dtype=torch.bfloat16)
+    if not cfg.qk_norm:
+        for layer in weights.layers:
+            layer.wq.mul_(WINDOWED_WQ_SCALE)  # a power of 2: exact in bf16
+    return weights
 
 
 def phi3_longrope_config():
@@ -4649,29 +5210,30 @@ def phi3_longrope_config():
 
 def phi3_phase(eager_cfg: dict, jet_cfg: dict) -> dict:
     """Phi-3-mini (PHI3_MODEL: 32 layers, head_dim 96, 32/32 heads, a
-    2047-key window on every layer) at full width and depth, random bf16
-    weights from seed 0 (the engine's own loader): windowed_phase at
-    PHI3_SIZE with PHI3_RUNS, the forwards on both pool kinds, the
-    OpenAI server on its jetstream engine, the graph-window step
-    profiled; then the same weights under longrope
+    2047-key window on every layer) at full width and depth,
+    served_weights (WINDOWED_WQ_SCALE says why): windowed_phase at
+    PHI3_SIZE with PHI3_RUNS and the served check's controls, the
+    forwards on both pool kinds (q as the weights give it), the OpenAI
+    server on its jetstream
+    engine, the graph-window step profiled; then the same weights under
+    longrope
     (phi3_longrope_config) at LONGROPE_SIZE: the forwards on bf16 pools
     and two ~6000-token prompts on LONGROPE_RUNS, past original_max_pos.
     -> {"launches", "variants", "peak_gib"} as family_phase, over both."""
     torch.cuda.reset_peak_memory_stats()
-    cfg = ModelConfig.from_model_name(PHI3_MODEL, dtype="bfloat16")
-    weights = loader.load_or_init(cfg, None, seed=0, quantization="none",
-                                  device=torch.device("cuda"),
-                                  dtype=torch.bfloat16)
+    weights = served_weights(
+        ModelConfig.from_model_name(PHI3_MODEL, dtype="bfloat16"))
     four_k = windowed_phase(PHI3_MODEL, PHI3_N_CHECK, PHI3_LENGTHS,
                             eager_cfg, jet_cfg, size=PHI3_SIZE,
                             runs=PHI3_RUNS, kernels=WINDOWED_KERNELS,
-                            profiled=True, params=weights, http=True)
+                            profiled=True, params=weights, http=True,
+                            controls=tuple(PLANTED_FAULTS), q_scale=1.0)
     longrope = windowed_phase(
         PHI3_MODEL, LONGROPE_N_CHECK, LONGROPE_LENGTHS, eager_cfg, jet_cfg,
         size=LONGROPE_SIZE, runs=LONGROPE_RUNS,
         kernels=("decode", "prefill", "chunk", "ragged"),
         model_cfg=phi3_longrope_config(), params=weights, int8_checks=False,
-        n_streams=2)
+        n_streams=2, q_scale=1.0)
     emit({"phase": "phi3_serve", "ttft_ms": {
         "phi3": four_k["row"]["jetstream_run"]["ttft_ms"],
         "phi3_longrope": longrope["row"]["classic"]["ttft_ms"]},
@@ -4697,8 +5259,9 @@ def gemma_only(eager_cfg: dict, jet_cfg: dict) -> None:
     """`--gemma`: phase 3's Gemma rows, then the Gemma models' phase."""
     dev = torch.device("cuda")
     rows = windowed_kernel_checks(dev, GEMMA_SHAPE)
-    for model, n_check, lengths, profiled in GEMMA_MODELS:
-        gemma_phase(model, n_check, lengths, profiled, eager_cfg, jet_cfg)
+    for model, layers, n_check, lengths, profiled in GEMMA_MODELS:
+        gemma_phase(model, layers, n_check, lengths, profiled, eager_cfg,
+                    jet_cfg)
     emit({"phase": "gemma_only", "kernel_ms": {
         r["name"]: r["kernel_ms"] for r in rows.values()}})
 
@@ -5084,11 +5647,14 @@ def main(argv=None) -> int:
     if args not in ([], ["--kernels-only"], ["--mla-chunked-ttft"],
                     ["--mla-verify-profile"], ["--mla-prefill-profile"],
                     ["--window-profile"], ["--observability"],
-                    ["--trace-stress"], ["--gemma"], ["--phi3"]):
+                    ["--trace-stress"], ["--gemma"], ["--phi3"],
+                    ["--profile-lead"]) and not (
+                        len(args) == 2 and args[0] == "--mla-prefill-profile"
+                        and args[1].isdigit()):
         print("usage: chip_smoke.py [--kernels-only | --mla-chunked-ttft | "
-              "--mla-verify-profile | --mla-prefill-profile | "
+              "--mla-verify-profile | --mla-prefill-profile [N] | "
               "--window-profile | --observability | --trace-stress | "
-              "--gemma | --phi3]", file=sys.stderr)
+              "--gemma | --phi3 | --profile-lead]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -5100,6 +5666,8 @@ def main(argv=None) -> int:
     t_all = time.monotonic()
     card = card_line()
     emit({"phase": "card", "nvidia_smi": card})
+    if args == ["--profile-lead"]:
+        return profile_lead_probe()
 
     t0 = time.monotonic()
     lib = ca.build()
@@ -5122,9 +5690,8 @@ def main(argv=None) -> int:
     if args == ["--mla-verify-profile"]:
         mla_verify_only(dict(base_cfg, **BACKEND_PROFILES["jetstream"]))
         return 0
-    if args == ["--mla-prefill-profile"]:
-        mla_prefill_only(eager_cfg)
-        return 0
+    if args[:1] == ["--mla-prefill-profile"]:
+        return mla_prefill_only(eager_cfg, int((args + ["1"])[1]))
     jet_cfg = dict(base_cfg, **BACKEND_PROFILES["jetstream"])
     if args == ["--window-profile"]:
         # phase 11's 8-step graph-window decode step on bf16 pools alone,
@@ -5338,9 +5905,10 @@ def main(argv=None) -> int:
                 for model, pools, profiled in FAMILY_MODELS}
     # Gemma-2 and Gemma-3, then Phi-3, after the families (their phases,
     # see above)
-    families.update({model: gemma_phase(model, n_check, lengths, profiled,
-                                        eager_cfg, jet_cfg)
-                     for model, n_check, lengths, profiled in GEMMA_MODELS})
+    families.update({model: gemma_phase(model, layers, n_check, lengths,
+                                        profiled, eager_cfg, jet_cfg)
+                     for model, layers, n_check, lengths, profiled
+                     in GEMMA_MODELS})
     families[PHI3_MODEL] = phi3_phase(eager_cfg, jet_cfg)
     # the mixture-of-experts models (phase 13), after the families
     families.update({model: moe_phase(model, q, mixed, eager_cfg, jet_cfg)
@@ -5385,7 +5953,8 @@ def main(argv=None) -> int:
             "call_ms": row["kernel_call_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            "library_call_ms": row["library_call_ms"]})
+            "library_call_ms": row["library_call_ms"],
+            "device_kernels": sorted(row["ptxas"])})
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel never launched when served: "
                              f"{launches}")

@@ -2,17 +2,15 @@
 // chunk.cu, ragged.cu): `attend_mma`, the tensor-core query tile that
 // decode.cu and ragged.cu's decode and verify rows run below head_dim 640
 // (the split decode rows, `decode_split_block`, `merge_splits_kernel`),
-// and prefill.cu, chunk.cu and ragged.cu's chunk rows at head_dim 96, its
-// K/V policies; the pair tile (`pair_span_block`, two query tiles of a KV
-// head a block, S and P V on wgmma, a producer warpgroup's copies, key
-// spans merged in a thread-block cluster) that prefill.cu and chunk.cu
-// (and ragged.cu's chunk rows, through chunk.cu) run at the other head_dims
+// and its K/V policies; the pair tile (`pair_span_block`, two query tiles
+// of a KV head a block, S and P V on wgmma, a producer warpgroup's copies,
+// key spans merged in a thread-block cluster) that prefill.cu and chunk.cu
+// (and ragged.cu's chunk rows, through chunk.cu) run at every head_dim
 // below 640 (`prefill_pair_kernel`, `chunk_pair_kernel`); and at head_dim
-// 640 the
-// latent tile's walk `latent_walk` (32-key tiles, S and P V on wgmma) and
-// its cluster block `latent_span_block` (key spans of a query tile merged
-// in a thread-block cluster) run by `chunk_latent_kernel` (chunk.cu and
-// ragged.cu's chunk rows at 640) and by prefill.cu's
+// 640 the latent tile's walk `latent_walk` (32-key tiles, S and P V on
+// wgmma) and its cluster block `latent_span_block` (key spans of a query
+// tile merged in a thread-block cluster) run by `chunk_latent_kernel`
+// (chunk.cu and ragged.cu's chunk rows at 640) and by prefill.cu's
 // `prefill_latent_kernel`, the walk run by `decode_latent_kernel`
 // (decode.cu and ragged.cu's decode rows at 640: key spans merged by
 // `merge_latent_kernel`).
@@ -164,11 +162,9 @@ inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
 //     the TPU's value * scale product is kept exact and no K value is
 //     rounded.
 //
-// Output: the normalized bf16 rows at the q addressing (TileOut::out), or
-// (out == nullptr) the unnormalized partial of the key range: O in f32 at
-// part_o and (m, l) at part_ml, m in log2 units, for a later merge (the
-// split decode rows below). A row that sees no key writes exact zeros, or
-// m = -inf, l = 0.
+// Output: the unnormalized partial of the key range, O in f32 at part_o
+// and (m, l) at part_ml, m in log2 units, for a later merge (the split
+// decode rows below). A row that sees no key writes m = -inf, l = 0.
 constexpr int kTileRows = 64;     // query rows per block: 4 warps x 16
 constexpr int kTileThreads = 256;  // two warpgroups, one per key half
 constexpr int kKeyTile = 64;      // keys per K/V tile: 4 pages of 16
@@ -463,11 +459,9 @@ inline int with_head_dim(int d, Fn&& fn) {
   return (int)cudaErrorInvalidValue;
 }
 
-// Where attend_mma writes: bf16 rows at the q addressing (out), or, with
-// out == nullptr, the partial (O, m, l) of query part_q0 + i, head h at
-// part_o[((part_q0 + i) * heads + h) * d ..] and part_ml[.. * 2 + {0, 1}].
+// Where attend_mma writes the partial (O, m, l) of query part_q0 + i, head
+// h: part_o[((part_q0 + i) * heads + h) * d ..] and part_ml[.. * 2 + {0, 1}].
 struct TileOut {
-  __nv_bfloat16* out;
   float* part_o;
   float* part_ml;
   long long part_q0;
@@ -508,17 +502,12 @@ __device__ __forceinline__ void attend_mma(
       : key_lo;
   const int hi = min(min(qpos0 + nq, kv_len), key_hi);
 
-  if (lo >= hi) {  // no key in range: zeros, or an empty partial
-    for (int idx = tid; idx < n_rows * kD; idx += kTileThreads) {
-      const int r = idx / kD, dd = idx - r * kD, i = r / group, g = r - i * group;
-      if (dst.out) {
-        dst.out[q_off + (long long)i * q_row_stride + g * kD + dd] =
-            __float2bfloat16(0.f);
-      } else if (dd == 0) {
-        const long long p = (dst.part_q0 + i) * dst.heads + kvh * group + g;
-        dst.part_ml[2 * p] = -INFINITY;
-        dst.part_ml[2 * p + 1] = 0.f;
-      }
+  if (lo >= hi) {  // no key in range: an empty partial
+    for (int r = tid; r < n_rows; r += kTileThreads) {
+      const int i = r / group, g = r - i * group;
+      const long long p = (dst.part_q0 + i) * dst.heads + kvh * group + g;
+      dst.part_ml[2 * p] = -INFINITY;
+      dst.part_ml[2 * p + 1] = 0.f;
     }
     return;
   }
@@ -776,30 +765,18 @@ __device__ __forceinline__ void attend_mma(
     const float lm = l[h] * a0 + l1 * a1;
     const float* xr = xo + r * xld;
     const int i = r / group, g = r - i * group;
-    if (dst.out) {
-      const float inv = lm > 0.f ? 1.f / lm : 0.f;
-      __nv_bfloat16* orow = dst.out + q_off + (long long)i * q_row_stride + g * kD;
+    const long long p = (dst.part_q0 + i) * dst.heads + kvh * group + g;
+    float* orow = dst.part_o + p * kD;
 #pragma unroll
-      for (int j = 0; j < kD / 8; ++j) {
-        const float2 x = *reinterpret_cast<const float2*>(xr + j * 8 + pair);
-        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + pair) =
-            __floats2bfloat162_rn((o[j][2 * h] * a0 + x.x * a1) * inv,
-                                  (o[j][2 * h + 1] * a0 + x.y * a1) * inv);
-      }
-    } else {
-      const long long p = (dst.part_q0 + i) * dst.heads + kvh * group + g;
-      float* orow = dst.part_o + p * kD;
-#pragma unroll
-      for (int j = 0; j < kD / 8; ++j) {
-        const float2 x = *reinterpret_cast<const float2*>(xr + j * 8 + pair);
-        *reinterpret_cast<float2*>(orow + j * 8 + pair) =
-            make_float2(o[j][2 * h] * a0 + x.x * a1,
-                        o[j][2 * h + 1] * a0 + x.y * a1);
-      }
-      if (pair == 0) {
-        dst.part_ml[2 * p] = mm;
-        dst.part_ml[2 * p + 1] = lm;
-      }
+    for (int j = 0; j < kD / 8; ++j) {
+      const float2 x = *reinterpret_cast<const float2*>(xr + j * 8 + pair);
+      *reinterpret_cast<float2*>(orow + j * 8 + pair) =
+          make_float2(o[j][2 * h] * a0 + x.x * a1,
+                      o[j][2 * h + 1] * a0 + x.y * a1);
+    }
+    if (pair == 0) {
+      dst.part_ml[2 * p] = mm;
+      dst.part_ml[2 * p + 1] = lm;
     }
   }
 }
@@ -1853,7 +1830,7 @@ __device__ __forceinline__ void decode_split_block(
         heads * kD, kv, rows, kvh, min(per, decode_q - j0), group,
         qpos0 + j0, min(kv_len, W * page_size), s * sp.split_keys,
         (s + 1) * sp.split_keys, scale, mods,
-        TileOut{nullptr, sp.part_o + s * sp.nd * heads * kD,
+        TileOut{sp.part_o + s * sp.nd * heads * kD,
                 sp.part_ml + s * sp.nd * heads * 2,
                 (long long)b * decode_q + j0, heads});
   }
@@ -2329,7 +2306,11 @@ int launch_latent_rows(const void* q, KVTiles kv, const void* tables,
 // - two consumer warpgroups, each owning one 64-row query tile (rows r =
 //   i * group + g, attend_mma's), the two tiles of consecutive positions of
 //   the same KV head (a pair), so that every K/V tile a block loads feeds
-//   128 query rows: half the tile fills per query row;
+//   128 query rows: half the tile fills per query row; a launch whose
+//   pairs would leave more than half the SMs idle (a short chunk at a
+//   small group: Phi-3's 256-token chunk is 64 blocks of pairs) holds one
+//   query tile a block instead (pair_query_tiles), its second consumer
+//   warpgroup idle, so that twice the SMs walk the keys;
 // - a producer warpgroup (setmaxnreg: kProducerRegs registers, the
 //   consumers kConsumerRegs) that walks the pair's keys and keeps K/V tiles
 //   in flight through a ring of stages with mbarrier full/empty pairs: 16-
@@ -2347,8 +2328,8 @@ int launch_latent_rows(const void* q, KVTiles kv, const void* tables,
 //   parts, attend_mma's split_bf16, V read MN-major). Every operand is laid
 //   out in panels of 32 lanes in the 64-byte swizzle (64-byte rows: row r's
 //   16-byte chunk c at r * 64 + ((c ^ (r >> 1 & 3)) << 4)), so one layout
-//   serves 32, 64, 128 and 256 (head_dim 96 keeps attend_mma:
-//   pair_tile_takes);
+//   serves 32, 64, 96, 128 and 256 (96, Phi-3's, is three panels and no
+//   whole number of 128-byte ones);
 // - key tiles of pair_keys(D) keys (64; 32 at D = 256, where O is 128
 //   registers a thread and two q tiles take 64 KB).
 // Windows and the causal mask: each query tile's keys [lo_w, hi_w) are
@@ -2457,30 +2438,28 @@ inline long long pair_count(long long n, int positions) {
   return ((n + positions - 1) / positions + 1) / 2;
 }
 
-// Whether prefill.cu and chunk.cu (and ragged.cu's chunk rows) run the pair
-// tile at head_dim d (below 640): every head_dim but 96, where they keep
-// attend_mma. At 96 the pair tile halved Phi-3's prefill and chunk
-// (1.2200 -> 0.6307 ms, 0.0744 -> 0.0377), but phi-3-mini's served mixed
-// and mixed_int8 streams then first left their whole-prompt references
-// past a near-tie, as they leave them at near-ties on attend_mma's bits:
-// those paths differ from the reference by more than rounding (a mixed
-// step's batch shapes, an int8 pool against the prompt's bf16 K/V), and
-// the random 32-layer model swings its logits by 0.1-0.4 on any such
-// difference (PERF.md).
-inline bool pair_tile_takes(int d) { return d != 96 && d != kLatentDim; }
-
-// with_head_dim over the pair tile's head_dims (pair_tile_takes), so that
-// its kernels are compiled at those only
-template <typename Fn>
-inline int with_pair_head_dim(int d, Fn&& fn) {
-  switch (d) {
-    case 32: return fn(std::integral_constant<int, 32>{});
-    case 64: return fn(std::integral_constant<int, 64>{});
-    case 128: return fn(std::integral_constant<int, 128>{});
-    case 256: return fn(std::integral_constant<int, 256>{});
-  }
-  return (int)cudaErrorInvalidValue;
+// Query tiles a block of the pair tile holds: two (a pair, sharing every
+// K/V tile), or one where `pair_blocks` blocks of pairs would leave more
+// than half of the card's num_sms SMs idle: then twice the SMs walk the
+// keys, and a block's second consumer warpgroup idles. Phi-3's 256-token
+// chunk is 64 blocks of pairs (group 1, 32 KV heads), Gemma-2-9B's 32. A
+// row walks its own key tiles in key order either way, so its bits do not
+// depend on the choice.
+inline int pair_query_tiles(long long pair_blocks, int num_sms) {
+  return 2 * pair_blocks <= num_sms ? 1 : 2;
 }
+
+// blocks along a pair-tile launch's query axis: the pairs of n positions,
+// or with tiles = 1 their query tiles
+inline long long pair_blocks_y(long long n, int positions, int tiles) {
+  return tiles == 2 ? pair_count(n, positions)
+                    : (n + positions - 1) / positions;
+}
+
+// Whether prefill.cu and chunk.cu (and ragged.cu's chunk rows) run the pair
+// tile at head_dim d: at every head_dim below 640 (with_head_dim's); the
+// latent tile runs 640.
+inline bool pair_tile_takes(int d) { return d != kLatentDim; }
 
 // the most spans a measurement may ask a launch for: kMaxChunkSpans, and at
 // most the key tiles of its longest union
@@ -3025,11 +3004,12 @@ __device__ __forceinline__ void pair_span_block(
 // Block (span, pair, KV head) of a C-query chunk at `start` over the page
 // list `pages`: pairs run from the chunk's end (blockIdx.y 0 is the last
 // pair, the longest under the causal mask), each pair's tiles at positions
-// start + i0 .. and start + i0 + positions ..; the walk of its span and the
-// cluster's merge (pair_span_block). kv_len = start + C (chunk.cu), or, with
-// `desc_start` (ragged.cu's chunk rows), start = *desc_start and kv_len =
-// min(*desc_kv_len, max_keys) read on the card: the same blocks and spans,
-// so equal inputs give chunk.cu's bits.
+// start + i0 .. and start + i0 + positions .. (with tiles = 1, blocks of
+// one query tile at start + i0 ..: pair_query_tiles); the walk of its span
+// and the cluster's merge (pair_span_block). kv_len = start + C
+// (chunk.cu), or, with `desc_start` (ragged.cu's chunk rows), start =
+// *desc_start and kv_len = min(*desc_kv_len, max_keys) read on the card:
+// the same blocks and spans, so equal inputs give chunk.cu's bits.
 template <int kD, typename KVTiles>
 __global__ void __launch_bounds__(kPairThreads, 1) chunk_pair_kernel(
     const __nv_bfloat16* __restrict__ q,  // [C, H, kD]
@@ -3037,15 +3017,16 @@ __global__ void __launch_bounds__(kPairThreads, 1) chunk_pair_kernel(
     const int* __restrict__ pages,        // [W]
     __nv_bfloat16* __restrict__ out,      // [C, H, kD]
     int C, int H, int KV, int page_size, int lane_width, int start,
-    int positions, float scale, ScoreMods mods,
+    int positions, int tiles, float scale, ScoreMods mods,
     unsigned long long* __restrict__ clocks,
     const int* __restrict__ desc_start, const int* __restrict__ desc_kv_len,
     int max_keys) {
   extern __shared__ __align__(16) char pair_smem[];
-  const int i0 = (gridDim.y - 1 - blockIdx.y) * 2 * positions;
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * tiles * positions;
   const int kvh = blockIdx.z, group = H / KV;
   const int nq0 = min(positions, C - i0);
-  const int nq1 = max(0, min(positions, C - i0 - positions));
+  const int nq1 =
+      tiles == 2 ? max(0, min(positions, C - i0 - positions)) : 0;
   int kv_len = start + C;
   if (desc_start) {
     start = *desc_start;

@@ -14,7 +14,7 @@
 // FLOP per byte, three times the ~295 where the tensor cores start to bind;
 // a short chunk over a long prefix moves towards bytes.
 //
-// Design below head_dim 640, but for 96: the pair tile (attention_common.cuh,
+// Design below head_dim 640: the pair tile (attention_common.cuh,
 // pair_span_block; chunk_pair_kernel). What held the previous tile
 // (attend_mma: one query tile a block, S and P V on mma.sync, the math
 // warps issuing the 16-byte copies and passing a barrier or two a tile)
@@ -42,11 +42,12 @@
 // A query tile multiplies only the key tiles that meet its own rows'
 // keys, and masks element by element only on an edge tile.
 //
-// At head_dim 96 (Phi-3) the chunk keeps chunk_kernel: one block per
-// (query tile of 64 / group positions, KV head) runs attend_mma
-// (attention_common.cuh; S and P V on mma.sync, the math warps copying K/V
-// through a cp.async ring). The pair tile halved that row, but Phi-3's
-// served streams hold to its bits (attention_common.cuh, pair_tile_takes).
+// At head_dim 96 (Phi-3: group 1, a 2047-key window on every layer) a
+// 256-token chunk is two pairs a KV head, 64 blocks of pairs each walking
+// ~2200 keys in one span: half the card. Such a launch takes blocks of one
+// query tile instead (pair_query_tiles: 128 blocks), which leaves every
+// row's walk, and so its bits, as they were; two spans would also halve
+// it, but give a row other bits chunked than whole (PERF.md).
 //
 // At head_dim 640 (MLA's latent row: DeepSeek-V2's 16 query heads on one KV
 // head) the chunk runs chunk_latent_kernel (attention_common.cuh).
@@ -82,32 +83,9 @@
 // attention_common.cuh): a pair's keys start at the key tile of its first
 // query's window. The latent tile refuses both.
 
-#include <limits.h>
-
 #include "attention_common.cuh"
 
 namespace dtt {
-
-// Block (query tile, KV head) of the chunk at head_dim 96: attend_mma over
-// the query tile's causal keys (the tile starts at its first query's
-// window)
-template <int kD, typename KVTiles>
-__global__ void __launch_bounds__(kTileThreads) chunk_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [C, H, kD]
-    KVTiles kv,                           // pools [P, ps, W]
-    const int* __restrict__ pages,        // [W]
-    __nv_bfloat16* __restrict__ out,      // [C, H, kD]
-    int C, int H, int KV, int page_size, int lane_width, int start,
-    int positions, float scale, ScoreMods mods) {
-  const int i0 = blockIdx.x * positions, kvh = blockIdx.y;
-  const int group = H / KV;
-  const int nq = min(positions, C - i0);
-  const PagedRows rows{pages, page_size, lane_width};
-  attend_mma<kD>(q, ((long long)i0 * H + kvh * group) * kD, H * kD, kv,
-                 rows, kvh, nq, group, /*qpos0=*/start + i0,
-                 /*kv_len=*/start + C, /*key_lo=*/0, /*key_hi=*/INT_MAX,
-                 scale, mods, TileOut{out, nullptr, nullptr, 0, H});
-}
 
 template <typename KVTiles>
 int launch_chunk_pair(const void* q, KVTiles kv, const void* pages, void* out,
@@ -116,25 +94,29 @@ int launch_chunk_pair(const void* q, KVTiles kv, const void* pages, void* out,
                       float scale, ScoreMods mods, void* clocks,
                       cudaStream_t stream, const int* desc_start,
                       const int* desc_kv_len, int max_keys) {
-  const long long pairs = pair_count(C, positions);
+  int num_sms = 0;
+  const int rc = num_sms_of_device(&num_sms);
+  if (rc != 0) return rc;
+  const int tiles = pair_query_tiles(pair_count(C, positions) * KV, num_sms);
+  const long long blocks_y = pair_blocks_y(C, positions, tiles);
   // the longest horizon: the chunk's end, or ragged.cu's table end
   const long long horizon = desc_start ? max_keys : (long long)start + C;
   if (spans < 1 || spans > pair_max_spans(horizon, mods.window, positions, D)
-      || pairs > 65535 || KV > 65535)
+      || blocks_y > 65535 || KV > 65535)
     return (int)cudaErrorInvalidValue;
-  return with_pair_head_dim(D, [&](auto d) {
+  return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     constexpr size_t smem = PairSmem<KVTiles, kD>::bytes;
     auto kernel = chunk_pair_kernel<kD, KVTiles>;
     cudaError_t err = set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    LatentLaunch launch(dim3(spans, (unsigned)pairs, KV), smem, stream,
+    LatentLaunch launch(dim3(spans, (unsigned)blocks_y, KV), smem, stream,
                         kPairThreads);
     err = cudaLaunchKernelEx(&launch.cfg, kernel, (const __nv_bfloat16*)q, kv,
                              (const int*)pages, (__nv_bfloat16*)out, C, H, KV,
-                             page_size, lane_width, start, positions, scale,
-                             mods, (unsigned long long*)clocks, desc_start,
-                             desc_kv_len, max_keys);
+                             page_size, lane_width, start, positions, tiles,
+                             scale, mods, (unsigned long long*)clocks,
+                             desc_start, desc_kv_len, max_keys);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   });
@@ -162,22 +144,10 @@ int launch_chunk(const void* q, KVTiles kv, const void* pages, void* out,
       || mods.window < 0 || !(mods.cap >= 0.f)
       || (D == kLatentDim && (mods.window || mods.cap > 0.f)))
     return (int)cudaErrorInvalidValue;
-  if (D == kLatentDim)
+  if (!pair_tile_takes(D))
     return launch_chunk_latent(q, kv, pages, out, C, H, KV, page_size,
                                lane_width, start, positions, spans, scale,
                                clocks, (cudaStream_t)stream);
-  if (!pair_tile_takes(D)) {  // head_dim 96: chunk_kernel
-    if (spans != 1 || clocks != nullptr) return (int)cudaErrorInvalidValue;
-    constexpr int kD = 96;
-    const size_t smem = tile_smem_bytes<KVTiles, kD>();
-    const cudaError_t err = set_smem(chunk_kernel<kD, KVTiles>, smem);
-    if (err != cudaSuccess) return (int)err;
-    chunk_kernel<kD, KVTiles><<<dim3((C + positions - 1) / positions, KV),
-                                kTileThreads, smem, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)q, kv, (const int*)pages, (__nv_bfloat16*)out,
-        C, H, KV, page_size, lane_width, start, positions, scale, mods);
-    return (int)cudaGetLastError();
-  }
   return launch_chunk_pair(q, kv, pages, out, C, H, KV, D, page_size,
                            lane_width, start, positions, spans, scale, mods,
                            clocks, (cudaStream_t)stream);
@@ -232,6 +202,13 @@ extern "C" int dtt_chunk_spans(int C, int start, int group, int D, int KV,
   return D == kLatentDim
              ? chunk_spans(C, start, tile_positions(group), KV, num_sms)
              : kPairSpans;
+}
+
+// Query tiles a block of the pair tile holds for a launch of `pair_blocks`
+// blocks of pairs on a card of num_sms SMs (pair_query_tiles): 2, or 1
+// where blocks of single tiles still run in one wave.
+extern "C" int dtt_pair_query_tiles(long long pair_blocks, int num_sms) {
+  return dtt::pair_query_tiles(pair_blocks, num_sms);
 }
 
 // Clusters of `spans` blocks of the latent chunk tile (bf16 pools, or int8

@@ -12,7 +12,7 @@
 // GFLOP of S and P V on ~50 MB of K/V), bytes for the short buckets (four
 // 256-token lanes of the 8B: 19 MB for 1.2 GFLOP).
 //
-// Design below head_dim 640, but for 96: the pair tile (attention_common.cuh,
+// Design below head_dim 640: the pair tile (attention_common.cuh,
 // pair_span_block), chunk.cu's kernel over a dense K/V block instead of a
 // page list. A block holds two query tiles of 64 / group positions (a
 // pair: two consumer warpgroups, 64 rows each = positions x the GQA group
@@ -30,11 +30,9 @@
 // tiles in key order in either, so a prompt's rows take the same bits
 // whole and in chunks.
 //
-// At head_dim 96 (Phi-3) the prefill keeps prefill_kernel: one block per
-// (query tile of 64 / group positions, KV head, lane) runs attend_mma
-// (attention_common.cuh), chunk.cu's chunk_kernel over the dense K/V, so
-// a lane at seq_len S is that kernel's chunk at start 0 bit for bit
-// (attention_common.cuh, pair_tile_takes, says why 96 keeps it).
+// At head_dim 96 (Phi-3: 32 KV heads of group 1, a 2047-key window) the
+// tile's operands are three 32-lane panels, S is m64n64k16 and P V
+// m64n96k16, and a 3800-token lane's pairs each walk about 2047 + 128 keys.
 //
 // At head_dim 640 (MLA's latent row: DeepSeek-V2's 16 query heads on one
 // KV head, and K and V the same latent rows) the prefill runs
@@ -74,37 +72,16 @@
 // query's window, and a query tile walks only the key tiles that meet its
 // own rows' windows, so a windowed prompt of S tokens reads ~window keys
 // per pair, not up to S. The latent row refuses both.
-#include <limits.h>
-
 #include "attention_common.cuh"
 
 namespace dtt {
 
-// Block (query tile, KV head, lane) of the prefill at head_dim 96:
-// attend_mma over the lane's dense K/V with kv_len = min(seq_lens[n], S)
-template <int kD>
-__global__ void __launch_bounds__(kTileThreads) prefill_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [N, S, H, kD]
-    const __nv_bfloat16* __restrict__ k,  // [N, S, KV, kD]
-    const __nv_bfloat16* __restrict__ v,
-    const int* __restrict__ seq_lens,     // [N]
-    __nv_bfloat16* __restrict__ out,      // [N, S, H, kD]
-    int S, int H, int KV, int positions, float scale, ScoreMods mods) {
-  const int i0 = blockIdx.x * positions, kvh = blockIdx.y, n = blockIdx.z;
-  const int group = H / KV;
-  const DenseRows rows{(long long)n * S * KV * kD, KV * kD};
-  attend_mma<kD>(q, (((long long)n * S + i0) * H + kvh * group) * kD, H * kD,
-                 Bf16Tiles{k, v}, rows, kvh, min(positions, S - i0), group,
-                 /*qpos0=*/i0, /*kv_len=*/min(seq_lens[n], S),
-                 /*key_lo=*/0, /*key_hi=*/INT_MAX, scale, mods,
-                 TileOut{out, nullptr, nullptr, 0, H});
-}
-
 // Block (span, pair, lane x KV head) of the prefill below head_dim 640:
 // pairs of query tiles run from the prompt's end (blockIdx.y 0 is the last
-// pair), lane n = blockIdx.z / KV, KV head blockIdx.z % KV, over the lane's
-// dense K/V with kv_len = min(seq_lens[n], S) (pair_span_block, `clocks` as
-// there): chunk_pair_kernel's blocks at start 0.
+// pair; with tiles = 1, blocks of one query tile: pair_query_tiles), lane
+// n = blockIdx.z / KV, KV head blockIdx.z % KV, over the lane's dense K/V
+// with kv_len = min(seq_lens[n], S) (pair_span_block, `clocks` as there):
+// chunk_pair_kernel's blocks at start 0.
 template <int kD>
 __global__ void __launch_bounds__(kPairThreads, 1) prefill_pair_kernel(
     const __nv_bfloat16* __restrict__ q,  // [N, S, H, kD]
@@ -112,14 +89,15 @@ __global__ void __launch_bounds__(kPairThreads, 1) prefill_pair_kernel(
     const __nv_bfloat16* __restrict__ v,
     const int* __restrict__ seq_lens,     // [N]
     __nv_bfloat16* __restrict__ out,      // [N, S, H, kD]
-    int S, int H, int KV, int positions, float scale, ScoreMods mods,
-    unsigned long long* __restrict__ clocks) {
+    int S, int H, int KV, int positions, int tiles, float scale,
+    ScoreMods mods, unsigned long long* __restrict__ clocks) {
   extern __shared__ __align__(16) char pair_smem[];
-  const int i0 = (gridDim.y - 1 - blockIdx.y) * 2 * positions;
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * tiles * positions;
   const int n = blockIdx.z / KV, kvh = blockIdx.z - n * KV;
   const int group = H / KV;
   const int nq0 = min(positions, S - i0);
-  const int nq1 = max(0, min(positions, S - i0 - positions));
+  const int nq1 =
+      tiles == 2 ? max(0, min(positions, S - i0 - positions)) : 0;
   const PairRows pr{(((long long)n * S + i0) * H + kvh * group) * kD, H * kD,
                     positions, group, {nq0 * group, nq1 * group}};
   pair_span_block<kD>(pair_smem, q, Bf16Tiles{k, v},
@@ -189,39 +167,31 @@ extern "C" int dtt_prefill(const void* q, const void* k, const void* v,
       || window < 0 || !(logit_cap >= 0.f)
       || (D == kLatentDim && (window || logit_cap > 0.f)))
     return (int)cudaErrorInvalidValue;
-  if (D == kLatentDim)
+  if (!pair_tile_takes(D))
     return launch_prefill_latent(q, k, v, seq_lens, out, N, S, H, KV,
                                  positions, spans, scale, clocks,
                                  (cudaStream_t)stream);
-  if (!pair_tile_takes(D)) {  // head_dim 96: prefill_kernel
-    if (spans != 1 || clocks != nullptr) return (int)cudaErrorInvalidValue;
-    constexpr int kD = 96;
-    const size_t smem = tile_smem_bytes<Bf16Tiles, kD>();
-    const cudaError_t err = set_smem(prefill_kernel<kD>, smem);
-    if (err != cudaSuccess) return (int)err;
-    prefill_kernel<kD><<<dim3((S + positions - 1) / positions, KV, N),
-                         kTileThreads, smem, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (const int*)seq_lens, (__nv_bfloat16*)out, S,
-        H, KV, positions, scale, ScoreMods{window, logit_cap});
-    return (int)cudaGetLastError();
-  }
-  const long long pairs = pair_count(S, positions);
+  int num_sms = 0;
+  const int rc = num_sms_of_device(&num_sms);
+  if (rc != 0) return rc;
+  const int tiles =
+      pair_query_tiles(pair_count(S, positions) * N * KV, num_sms);
+  const long long blocks_y = pair_blocks_y(S, positions, tiles);
   if (spans < 1 || spans > pair_max_spans(S, window, positions, D)
-      || pairs > 65535 || (long long)N * KV > 65535)
+      || blocks_y > 65535 || (long long)N * KV > 65535)
     return (int)cudaErrorInvalidValue;
-  return with_pair_head_dim(D, [&](auto d) {
+  return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     constexpr size_t smem = PairSmem<Bf16Tiles, kD>::bytes;
     cudaError_t err = set_smem(prefill_pair_kernel<kD>, smem);
     if (err != cudaSuccess) return (int)err;
-    LatentLaunch launch(dim3(spans, (unsigned)pairs, N * KV), smem,
+    LatentLaunch launch(dim3(spans, (unsigned)blocks_y, N * KV), smem,
                         (cudaStream_t)stream, kPairThreads);
     err = cudaLaunchKernelEx(&launch.cfg, prefill_pair_kernel<kD>,
                              (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
                              (const __nv_bfloat16*)v, (const int*)seq_lens,
-                             (__nv_bfloat16*)out, S, H, KV, positions, scale,
-                             ScoreMods{window, logit_cap},
+                             (__nv_bfloat16*)out, S, H, KV, positions, tiles,
+                             scale, ScoreMods{window, logit_cap},
                              (unsigned long long*)clocks);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();

@@ -30,16 +30,12 @@
 //   horizon read from q_starts[num_decode] and kv_lens[num_decode] on the
 //   card, in one span a pair as chunk.cu's own launches (kPairSpans, no
 //   plan from the start), so a chunk row equals chunk.cu's bit for bit;
-//   at head_dim 96 they are instead the first blocks of ragged_kernel's
-//   grid, chunk.cu's chunk_kernel tiles (the same attend_mma call with the
-//   same tiling, so again chunk.cu's bits);
 // - ragged_kernel, a 1-D grid of (block, KV head) pairs, KV head fastest:
-//   the chunk tiles at head_dim 96, then the decode rows split along their
-//   keys, one block per (row, span, KV head), decode.cu's blocks
-//   (decode_split_block, attention_common.cuh), so with decode.cu's plan
-//   (the same table width and row count) and decode_q = 1 a decode row is
-//   bit-identical to decode.cu's. A 128k-token table of 8 rows gets 8
-//   spans of 16k keys, not 512;
+//   the decode rows split along their keys, one block per (row, span, KV
+//   head), decode.cu's blocks (decode_split_block, attention_common.cuh),
+//   so with decode.cu's plan (the same table width and row count) and
+//   decode_q = 1 a decode row is bit-identical to decode.cu's. A
+//   128k-token table of 8 rows gets 8 spans of 16k keys, not 512;
 // - merge_splits_kernel (attention_common.cuh), one warp per (decode
 //   query, query head), folds the spans' partials into the bf16 rows.
 // At head_dim 640 (MLA's latent row) two or three kernels on one stream,
@@ -67,38 +63,22 @@
 
 namespace dtt {
 
-// Block bx / KV of the rows below head_dim 640, KV head bx % KV: the
-// chunk's query tiles first (attend_mma, chunk.cu's chunk_kernel at head_dim
-// 96; `C` is 0 where chunk.cu's pair tile runs the chunk rows), then the
-// decode rows' (row, span) blocks (decode_split_block).
+// Block bx / KV of the decode rows below head_dim 640, KV head bx % KV:
+// the (row, span) block bx (decode_split_block). The partials go to `sp`;
+// merge_splits_kernel writes the rows.
 template <int kD, typename KVTiles>
 __global__ void __launch_bounds__(kTileThreads) ragged_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [num_decode * decode_q + C, H, D]
+    const __nv_bfloat16* __restrict__ q,  // decode rows first, [.., H, D]
     KVTiles kv,                           // pools [P, ps, lane_width]
     const int* __restrict__ tables,       // [num_decode + 1, W]
     const int* __restrict__ kv_lens,      // [num_decode + 1]
     const int* __restrict__ q_starts,     // [num_decode + 1]
-    __nv_bfloat16* __restrict__ out,      // like q
-    int num_decode, int decode_q, int C, int H, int KV, int page_size, int W,
-    int lane_width, int positions, float scale, ScoreMods mods, Splits sp) {
+    int decode_q, int H, int KV, int page_size, int W, int lane_width,
+    float scale, ScoreMods mods, Splits sp) {
   const int bx = blockIdx.x / KV, kvh = blockIdx.x - bx * KV;
-  const int group = H / KV;
-  const int tiles = (C + positions - 1) / positions;
-  if (bx >= tiles) {  // a decode block
-    decode_split_block<kD>(bx - tiles, kvh, q, kv, tables, W, page_size,
-                           lane_width, kv_lens, q_starts, decode_q, group, H,
-                           scale, mods, sp);
-  } else {  // a chunk tile
-    const int offset = bx * positions;
-    const int first = num_decode * decode_q + offset;
-    const PagedRows rows{tables + (long long)num_decode * W, page_size,
-                         lane_width};
-    attend_mma<kD>(q, ((long long)first * H + kvh * group) * kD, H * kD, kv,
-                   rows, kvh, min(positions, C - offset), group,
-                   /*qpos0=*/q_starts[num_decode] + offset,
-                   /*kv_len=*/min(kv_lens[num_decode], W * page_size), 0,
-                   INT_MAX, scale, mods, TileOut{out, nullptr, nullptr, 0, H});
-  }
+  decode_split_block<kD>(bx, kvh, q, kv, tables, W, page_size, lane_width,
+                         kv_lens, q_starts, decode_q, H / KV, H, scale, mods,
+                         sp);
 }
 
 // The latent rows (head_dim 640): the chunk on chunk_latent_kernel, then
@@ -166,9 +146,8 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
   if (plan != 0) return plan;
   if ((long long)W * page_size > INT_MAX) return (int)cudaErrorInvalidValue;
   // the chunk rows: chunk.cu's pair tile (one span, start read on the
-  // card), or at head_dim 96 ragged_kernel's first blocks
-  const bool pair = C > 0 && pair_tile_takes(D);
-  if (pair) {
+  // card)
+  if (C > 0) {
     const long long first = (long long)num_decode * decode_q;  // its query 0
     const int rc = launch_chunk_pair(
         (const __nv_bfloat16*)q + first * H * D, kv,
@@ -179,10 +158,9 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
         (const int*)kv_lens + num_decode, W * page_size);
     if (rc != 0) return rc;
   }
-  const int tiles = pair ? 0 : (C + positions - 1) / positions;
-  const long long blocks = ((long long)num_decode * num_splits + tiles) * KV;
+  const long long blocks = (long long)num_decode * num_splits * KV;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  if (blocks == 0) return 0;  // no decode rows and no chunk tiles
+  if (blocks == 0) return 0;  // no decode rows
   const Splits sp{(float*)part_o, (float*)part_ml,
                   (long long)num_decode * decode_q, num_splits, split_keys};
   return with_head_dim(D, [&](auto d) {
@@ -193,11 +171,10 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
     ragged_kernel<kD, KVTiles><<<(unsigned)blocks, kTileThreads, smem,
                                  st>>>(
         (const __nv_bfloat16*)q, kv, (const int*)tables, (const int*)kv_lens,
-        (const int*)q_starts, (__nv_bfloat16*)out, num_decode, decode_q,
-        pair ? 0 : C, H, KV, page_size, W, lane_width, positions, scale, mods,
-        sp);
+        (const int*)q_starts, decode_q, H, KV, page_size, W, lane_width,
+        scale, mods, sp);
     const int rc = (int)cudaGetLastError();
-    if (rc != 0 || num_decode == 0) return rc;
+    if (rc != 0) return rc;
     return launch_merge<kD>(sp, (__nv_bfloat16*)out,
                             num_decode * decode_q * H, st);
   });

@@ -16,10 +16,10 @@ block per (row, span, KV head), the spans merged by a second small
 kernel; prefill, chunk and the ragged kernel's chunk rows (a launch of
 chunk.cu's kernel) run the pair tile (`pair_span_block`: two query tiles
 of a KV head a block, S and P V on wgmma, a producer warpgroup copying
-the K/V tiles; one block walks a pair's keys, so a prompt's rows take the
-same bits whole, in chunks and in a mixed step), except at head_dim 96
-(`pair_tile_takes`), where they run attend_mma as decode does. The
-launch plans (`tile_positions`, `split_plan`, the span plans) are pure
+the K/V tiles, or one query tile a block where pairs would leave half the
+card idle; one block walks a tile's keys, so a prompt's rows take the
+same bits whole, in chunks and in a mixed step). The launch plans
+(`tile_positions`, `split_plan`, the span plans, `pair_blocks`) are pure
 functions of host-known sizes. At head_dim 640 (MLA's latent row, one KV
 head shared by 16 query heads) every kernel runs the latent tile's walk
 (`latent_walk`: 32-key tiles, S and P V on wgmma): chunk.cu and ragged's
@@ -101,7 +101,8 @@ VARIANT_LAUNCHES: Dict[str, int] = collections.Counter()
 TILE_ROWS = 64
 # the head_dims the kernels take (96 is Phi-3's); LATENT_DIM, MLA's latent
 # row (DeepSeek-V2's 576 lanes padded to 640), runs attention_common.cuh's
-# latent tile, the other five attend_mma
+# latent tile, the other five attend_mma (decode rows) and the pair tile
+# (prefill and chunk rows)
 LATENT_DIM = 640
 TILE_HEAD_DIMS = (32, 64, 96, 128, 256, LATENT_DIM)
 KEY_TILE = 64
@@ -266,6 +267,8 @@ def build() -> ctypes.CDLL:
         lib.dtt_chunk_spans.restype = ctypes.c_int
         lib.dtt_latent_prefill_spans.argtypes = [i, i, i, i, i]
         lib.dtt_latent_prefill_spans.restype = ctypes.c_int
+        lib.dtt_pair_query_tiles.argtypes = [ctypes.c_longlong, i]
+        lib.dtt_pair_query_tiles.restype = ctypes.c_int
         lib.dtt_chunk_max_clusters.argtypes = [i, i]
         lib.dtt_chunk_max_clusters.restype = ctypes.c_int
         lib.dtt_decode_split_keys.argtypes = [i, i, i, i, i]
@@ -544,8 +547,8 @@ def chunk_spans(c: int, start: int, group: int, head_dim: int,
 def pair_tile_takes(head_dim: int) -> bool:
     """Whether prefill.cu and chunk.cu (and ragged.cu's chunk rows) run
     the pair tile at head_dim (attention_common.cuh pair_tile_takes):
-    below LATENT_DIM, but for 96, which keeps attend_mma."""
-    return head_dim not in (96, LATENT_DIM)
+    every head_dim below LATENT_DIM, where the latent tile takes over."""
+    return head_dim != LATENT_DIM
 
 
 def pair_keys(head_dim: int) -> int:
@@ -557,6 +560,25 @@ def pair_keys(head_dim: int) -> int:
 def pair_count(n: int, positions: int) -> int:
     """Query-tile pairs of n query positions in tiles of `positions`."""
     return (-(-n // positions) + 1) // 2
+
+
+def pair_query_tiles(pair_blocks: int, num_sms: int) -> int:
+    """Query tiles a block of the pair tile holds (attention_common.cuh
+    pair_query_tiles, the library's own plan, `dtt_pair_query_tiles`):
+    two, or one where `pair_blocks` blocks of pairs would leave more than
+    half of num_sms SMs idle. A row's bits do not depend on it: it walks
+    its own key tiles in key order either way."""
+    return 1 if 2 * pair_blocks <= num_sms else 2
+
+
+def pair_blocks(n: int, positions: int, lanes: int, num_sms: int) -> int:
+    """Blocks a span of a pair-tile launch over n query positions of each
+    of `lanes` (lanes x KV heads) holds: its pairs, or its query tiles
+    where pair_query_tiles takes one a block."""
+    pairs = pair_count(n, positions) * lanes
+    if pair_query_tiles(pairs, num_sms) == 2:
+        return pairs
+    return -(-n // positions) * lanes
 
 
 def pair_union_keys(horizon: int, window: int, positions: int,
@@ -744,17 +766,14 @@ def _span_args(plan: int, spans: Optional[int],
                most: int, dev: torch.device) -> Tuple[int, ctypes.c_void_p]:
     """(spans, clocks pointer) of a launch whose key spans form clusters:
     the plan, or the measurement's `spans` (1 to `most`: MAX_CHUNK_SPANS
-    at LATENT_DIM, pair_max_spans on the pair tile, 0 where the tile takes
-    no measurement: attend_mma at head_dim 96), and `clocks` checked to
-    hold two stamps for each of the launch's blocks (NULL without)."""
-    if spans is not None and not 1 <= spans <= max(most, 1):
-        raise ValueError(f"spans {spans} must be 1 to {max(most, 1)}")
+    at LATENT_DIM, pair_max_spans on the pair tile), and `clocks` checked
+    to hold two stamps for each of the launch's blocks (NULL without)."""
+    if spans is not None and not 1 <= spans <= most:
+        raise ValueError(f"spans {spans} must be 1 to {most}")
     spans = plan if spans is None else spans
     if clocks is None:
         return spans, ctypes.c_void_p(None)
     _expect(clocks, "clocks", torch.int64, 1, dev)
-    if most == 0:
-        raise ValueError("clocks needs the pair or the latent tile")
     if clocks.numel() < 2 * spans * blocks_per_span:
         raise ValueError(f"clocks needs {2 * spans * blocks_per_span} "
                          f"entries")
@@ -770,8 +789,8 @@ def prefill_attention(q, k, v, seq_lens, *, window: int = 0,
     `logit_cap` as in score_mods. At LATENT_DIM each query tile's keys
     are cut into latent_prefill_spans spans (from N, S, the group, KV and
     the SM count); below it one block walks each pair of query tiles'
-    keys. Measurement: `spans` and `clocks` as in
-    chunk_prefill_attention."""
+    keys (or each query tile's: pair_blocks). Measurement: `spans` and
+    `clocks` as in chunk_prefill_attention."""
     dev = q.device
     _expect(q, "q", torch.bfloat16, 4, dev)
     _expect(k, "k", torch.bfloat16, 4, dev)
@@ -795,9 +814,9 @@ def prefill_attention(q, k, v, seq_lens, *, window: int = 0,
         plan = latent_prefill_spans(n, s, group, n_kv, _num_sms(dev))
         per_span, most = n * -(-s // positions) * n_kv, MAX_CHUNK_SPANS
     else:
-        plan, per_span = 1, n * pair_count(s, positions) * n_kv
-        most = (pair_max_spans(s, window, positions, d)
-                if pair_tile_takes(d) else 0)
+        plan = 1
+        per_span = pair_blocks(s, positions, n * n_kv, _num_sms(dev))
+        most = pair_max_spans(s, window, positions, d)
     spans, clock_ptr = _span_args(plan, spans, clocks, per_span, most, dev)
     rc = lib.dtt_prefill(
         _ptr(q), _ptr(k), _ptr(v), _ptr(seq_lens), _ptr(out), n, s, h, n_kv,
@@ -818,13 +837,14 @@ def chunk_prefill_attention(q, k_pages, v_pages, pages, start: int, *,
     (trash-padded tail) -> [C, H, D]; `window` and `logit_cap` as in
     score_mods. At LATENT_DIM each query tile's keys are cut into
     chunk_spans spans (from C, start, the group, KV and the SM count);
-    below it one block walks each pair of query tiles' keys, so a row
-    takes the bits prefill_attention gives it. Measurement: `spans` runs
-    another span count (1 to MAX_CHUNK_SPANS, on the pair tile to
-    pair_max_spans; every count gives the same attention within
-    rounding), and `clocks`, an int64 CUDA tensor of 2 x the launch's
-    blocks, takes each block's global-timer stamps (ns) when its key walk
-    ends and when its merge is done."""
+    below it one block walks each pair of query tiles' keys (or each
+    query tile's: pair_blocks), so a row takes the bits prefill_attention
+    gives it. Measurement: `spans` runs another span count (1 to
+    MAX_CHUNK_SPANS, on the pair tile to pair_max_spans; every count
+    gives the same attention within rounding), and `clocks`, an int64
+    CUDA tensor of 2 x the launch's blocks, takes each block's
+    global-timer stamps (ns) when its key walk ends and when its merge is
+    done."""
     dev = q.device
     _expect(q, "q", torch.bfloat16, 3, dev)
     _expect(pages, "pages", torch.int32, 1, dev)
@@ -846,9 +866,8 @@ def chunk_prefill_attention(q, k_pages, v_pages, pages, start: int, *,
     if d == LATENT_DIM:
         per_span, most = -(-c // positions) * n_kv, MAX_CHUNK_SPANS
     else:
-        per_span = pair_count(c, positions) * n_kv
-        most = (pair_max_spans(start + c, window, positions, d)
-                if pair_tile_takes(d) else 0)
+        per_span = pair_blocks(c, positions, n_kv, _num_sms(dev))
+        most = pair_max_spans(start + c, window, positions, d)
     spans, clock_ptr = _span_args(plan, spans, clocks, per_span, most, dev)
     args = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(pages), _ptr(out), c,
             h, n_kv, d, page_size]

@@ -1611,9 +1611,9 @@ def test_draft_graph_equals_eager_draft(dev):
     assert m.spec_accepted_tokens >= 0.5 * m.spec_draft_tokens > 0
 
 
-# prefill.cu and chunk.cu below head_dim 640 (the pair tile, attend_mma at
-# head_dim 96): a window inside a key tile, one across tiles with Gemma-2's
-# cap, and none
+# prefill.cu and chunk.cu below head_dim 640 (the pair tile at every
+# head_dim, Phi-3's 96 included): a window inside a key tile, one across
+# tiles with Gemma-2's cap, and none
 PAIR_MODS = [(0, 0.0), (37, 0.0), (100, 50.0)]
 
 
@@ -1623,7 +1623,7 @@ PAIR_MODS = [(0, 0.0), (37, 0.0), (100, 50.0)]
 @pytest.mark.parametrize("kernel", ["prefill", "chunk", "chunk_int8"])
 def test_pair_tile_at_every_head_dim(dev, kernel, head_dim, window, cap):
     """prefill.cu and chunk.cu (bf16 and int8 pools) at every head_dim
-    below 640 (the pair tile; attend_mma at 96), groups 1 and 4, with and
+    below 640 (the pair tile), groups 1 and 4, with and
     without a window and the cap (q scaled by 4 so that the cap bends),
     against their plain versions: two prefill lanes of 200 positions (one
     at 130: padding rows past seq_len), a 100-token chunk at 300. The
@@ -1659,6 +1659,7 @@ def test_pair_tile_at_every_head_dim(dev, kernel, head_dim, window, cap):
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("label,h,n_kv,d,window,cap,start", [
     ("group1", 32, 32, 64, 2047, 0.0, 3008),
+    ("phi3", 32, 32, 96, 2047, 0.0, 3008),
     ("gemma2", 16, 8, 256, 4096, 50.0, 4864),
     ("llama8b", 32, 8, 128, 0, 0.0, 512)])
 def test_pair_tile_launches_give_equal_bits(dev, int8, label, h, n_kv, d,
@@ -1667,8 +1668,9 @@ def test_pair_tile_launches_give_equal_bits(dev, int8, label, h, n_kv, d,
     a pair) and a prefill of two lanes: two launches give the same bits,
     every span count a measurement may ask for gives the plan's output
     within the tolerance (the spans merge in a fixed order: equal bits run
-    to run), the library's plan is the wrapper's, the clocks are stamped
-    for every block, and a launch counts under its head_dim."""
+    to run), the library's plans (spans, query tiles a block) are the
+    wrapper's, the clocks are stamped for every block, and a launch counts
+    under its head_dim."""
     ps, c = 16, 256
     group = h // n_kv
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1705,7 +1707,11 @@ def test_pair_tile_launches_give_equal_bits(dev, int8, label, h, n_kv, d,
     with pytest.raises(ValueError, match="spans"):
         ca.chunk_prefill_attention(q, kp, vp, pages, start, spans=most + 1,
                                    **kw)
-    blocks = plan * ca.pair_count(c, positions) * n_kv
+    # the library's plan of query tiles a block is the wrapper's
+    for pair_blocks in (1, sms // 2, sms // 2 + 1, sms, 4096):
+        assert (lib.dtt_pair_query_tiles(pair_blocks, sms)
+                == ca.pair_query_tiles(pair_blocks, sms))
+    blocks = plan * ca.pair_blocks(c, positions, n_kv, sms)
     clocks = torch.zeros((2 * blocks,), dtype=torch.int64, device=dev)
     assert torch.equal(ca.chunk_prefill_attention(q, kp, vp, pages, start,
                                                   clocks=clocks, **kw), a)
@@ -1733,6 +1739,7 @@ def test_pair_tile_launches_give_equal_bits(dev, int8, label, h, n_kv, d,
 
 @pytest.mark.parametrize("label,h,n_kv,d,window,cap", [
     ("group1", 32, 32, 64, 2047, 0.0),
+    ("phi3", 32, 32, 96, 2047, 0.0),
     ("gemma2", 16, 8, 256, 4096, 50.0),
     ("gemma3", 4, 1, 256, 512, 0.0),
     ("llama8b", 32, 8, 128, 0, 0.0)])
@@ -1744,7 +1751,8 @@ def test_pair_tile_rows_equal_whole_chunked_and_mixed(dev, label, h, n_kv, d,
     kernel with the start read on the card): a chunk at start 0 in a table
     far wider than it, and one at 264 beside a decode row. Every launch
     takes one span a pair, so a row walks its own key tiles in key order
-    in each."""
+    in each, whether its launch holds two query tiles a block or one
+    (pair_query_tiles: the short launches here take one)."""
     ps, s = 16, 600
     q = _rnd(dev, 1, s, h, d, seed=150)
     k = _rnd(dev, 1, s, n_kv, d, seed=151)

@@ -1,7 +1,7 @@
 """The pair tile's launch plan below head_dim 640 on the CPU: prefill.cu's
 and chunk.cu's kernels (and ragged.cu's chunk rows, which launch
-chunk.cu's) at every head_dim but 96, whose blocks hold two query tiles (a
-pair) of one KV head and walk one key span of the pair's keys each.
+chunk.cu's) at every head_dim below 640, whose blocks hold two query tiles
+(a pair) of one KV head and walk one key span of the pair's keys each.
 
 - The plan (`cuda_attention.chunk_spans`, `pair_tile_takes`,
   `pair_max_spans`): every launch of the port takes one span a pair,
@@ -21,11 +21,12 @@ pair) of one KV head and walk one key span of the pair's keys each.
 - A plain f32 model of the spans' partials (m in log2 units, l, O) and
   their merge, masking element by element only on edge tiles, equals the
   JAX package's prefill_attention_xla and chunk_attention_xla (with the
-  window and the tanh cap, `_softcap`) and, without a window or cap, the
-  Pallas _prefill_kernel and _chunk_kernel in interpret mode. Tolerance
-  1e-5: f32 throughout, only the order of the sums differs. Rows that see
-  no key are left out of the XLA comparison: the XLA references give the
-  mean of V there (their finfo.min mask), the port exact zeros.
+  window and the tanh cap, `_softcap`; also at Phi-3-mini's shape: group
+  1, 32 KV heads, head_dim 96, its 2047-key window) and, without a window
+  or cap, the Pallas _prefill_kernel and _chunk_kernel in interpret mode.
+  Tolerance 1e-5: f32 throughout, only the order of the sums differs. Rows
+  that see no key are left out of the XLA comparison: the XLA references
+  give the mean of V there (their finfo.min mask), the port exact zeros.
 """
 
 import jax.numpy as jnp
@@ -72,13 +73,16 @@ def _visible(pos, tok, kv_len, window):
     return vis
 
 
-def _pair_walk(c, start, kv_len, group, head_dim, window, spans):
+def _pair_walk(c, start, kv_len, group, head_dim, window, spans,
+               per_block=2):
     """The blocks of one KV head of a pair-tile launch over c queries at
     positions start .. (chunk.cu: kv_len = start + c; prefill.cu: start
     0, kv_len = min(seq_len, S)) in `spans` spans a pair, as
     pair_span_block computes them on the card: (first query of the pair,
     (queries of tile 0, of tile 1), span, [(key tile start, (walked by
-    tile 0, by tile 1), (edge for tile 0, for tile 1))]). Each tile's keys
+    tile 0, by tile 1), (edge for tile 0, for tile 1))]); with per_block
+    = 1 (pair_query_tiles), blocks of one query tile, tile 1 empty. Each
+    tile's keys
     are [lo_w, hi_w): its first query's window start (0 without a window)
     to min(last position + 1, kv_len); their union from the start of the
     key tile that holds it is cut into `spans` runs of whole key tiles
@@ -88,9 +92,10 @@ def _pair_walk(c, start, kv_len, group, head_dim, window, spans):
     positions = ca.tile_positions(group, head_dim)
     kn = ca.pair_keys(head_dim)
     out = []
-    for first in range(0, c, 2 * positions):
+    for first in range(0, c, per_block * positions):
         nq = (min(positions, c - first),
-              max(0, min(positions, c - first - positions)))
+              max(0, min(positions, c - first - positions))
+              if per_block == 2 else 0)
         lo_w, hi_w = [], []
         for w in range(2):
             qp = start + first + w * positions
@@ -126,6 +131,14 @@ def _launch(kind, c, x):
     return c, 0, min(x, c)
 
 
+def _per_block(kind, c, group, d, n_kv):
+    """Query tiles a block of the launch holds (pair_query_tiles): a chunk
+    is one lane, a prefill PREFILL_LANES."""
+    lanes = n_kv * (1 if kind == "chunk" else PREFILL_LANES)
+    pairs = ca.pair_count(c, ca.tile_positions(group, d)) * lanes
+    return ca.pair_query_tiles(pairs, H100_SMS)
+
+
 @pytest.mark.parametrize("spans", [1, 2, 3], ids=["s1", "s2", "s3"])
 @pytest.mark.parametrize("case", CASES,
                          ids=[f"{k}{c}-{x}" for k, c, x in CASES])
@@ -146,10 +159,13 @@ def test_pair_walk_covers_each_visible_pair_once(window, shape, case, spans):
     n = min(spans, ca.pair_max_spans(start + c, window, positions, d))
     width = max(kv_len, 1)
     count = np.zeros((c, width), np.int64)
-    blocks = _pair_walk(c, start, kv_len, group, d, window, n)
-    assert len(blocks) == n * ca.pair_count(c, positions)
+    per = _per_block(kind, c, group, d, n_kv)
+    blocks = _pair_walk(c, start, kv_len, group, d, window, n, per)
+    lanes = n_kv * (1 if kind == "chunk" else PREFILL_LANES)
+    assert len(blocks) * lanes == n * ca.pair_blocks(c, positions, lanes,
+                                                     H100_SMS)
     for first, nq, span, tiles in blocks:
-        assert span < n and nq[0] >= 1 and sum(nq) == min(2 * positions,
+        assert span < n and nq[0] >= 1 and sum(nq) == min(per * positions,
                                                           c - first)
         for k0, walk, edge in tiles:
             assert k0 % kn == 0 and 0 <= k0 < kv_len
@@ -170,15 +186,15 @@ def test_pair_walk_covers_each_visible_pair_once(window, shape, case, spans):
     assert (count[want] == 1).all() and (count[~want] == 0).all()
 
 
-def _row_walks(c, start, kv_len, group, d, window):
+def _row_walks(c, start, kv_len, group, d, window, per_block):
     """{absolute query position: [(span, key tile start)] of the tiles its
     query tile walks that hold a key it sees, in walk order} of one KV
-    head of a one-span launch."""
+    head of a one-span launch of per_block query tiles a block."""
     positions = ca.tile_positions(group, d)
     kn = ca.pair_keys(d)
     rows = {}
     for first, nq, span, tiles in _pair_walk(c, start, kv_len, group, d,
-                                             window, 1):
+                                             window, 1, per_block):
         for w in (0, 1):
             for i in range(nq[w]):
                 pos = start + first + w * positions + i
@@ -196,19 +212,24 @@ def test_a_rows_walk_does_not_depend_on_the_launch(window, shape):
     """A 600-token prompt's rows walk the same key tiles, in the same
     order and in the same span, whole (prefill.cu at start 0) and in
     chunks of 256 (chunk.cu), of 88 at unaligned starts, and of 16 (a
-    mixed step's ragged chunk rows launch chunk.cu's kernel): so they take
-    the same bits, as the whole prompt's tiles a row cannot see add exact
-    zeros."""
+    mixed step's ragged chunk rows launch chunk.cu's kernel), in pairs or
+    one query tile a block (pair_query_tiles; the whole prompt's launch
+    in pairs too): so they take the same bits, as the whole prompt's
+    tiles a row cannot see add exact zeros."""
     group, n_kv, d = shape
     s = 600
-    whole = _row_walks(s, 0, s, group, d, window)
+    wholes = [_row_walks(s, 0, s, group, d, window, per)
+              for per in (_per_block("prefill", s, group, d, n_kv), 2)]
     for size in (256, 88, 16):
         for start in range(0, s, size):
             c = min(size, s - start)
             assert ca.chunk_spans(c, start, group, d, n_kv, H100_SMS) == 1
-            part = _row_walks(c, start, start + c, group, d, window)
-            for pos, walk in part.items():
-                assert walk == whole[pos], (size, start, pos)
+            for per in (_per_block("chunk", c, group, d, n_kv), 1, 2):
+                part = _row_walks(c, start, start + c, group, d, window,
+                                  per)
+                for whole in wholes:
+                    for pos, walk in part.items():
+                        assert walk == whole[pos], (size, start, per, pos)
 
 
 @pytest.mark.parametrize("sms", [H100_SMS, 114, 16, 3])
@@ -223,20 +244,44 @@ def test_every_launch_takes_one_span(sms):
                 assert ca.chunk_spans(c, start, group, d, n_kv, sms) == 1
 
 
-def test_head_dim_96_keeps_attend_mma():
-    """prefill.cu and chunk.cu run the pair tile at 32, 64, 128 and 256,
-    attend_mma at 96 (Phi-3) and the latent tile at LATENT_DIM."""
-    assert [d for d in (32, 64, 96, 128, 256, ca.LATENT_DIM)
-            if ca.pair_tile_takes(d)] == [32, 64, 128, 256]
+def test_pair_tile_takes_every_head_dim_below_640():
+    """prefill.cu and chunk.cu run the pair tile at 32, 64, 96 (Phi-3),
+    128 and 256, and the latent tile at LATENT_DIM."""
+    assert [d for d in ca.TILE_HEAD_DIMS
+            if ca.pair_tile_takes(d)] == [32, 64, 96, 128, 256]
+    assert not ca.pair_tile_takes(ca.LATENT_DIM)
     assert ca.pair_keys(128) == 64 and ca.pair_keys(256) == 32
     # a measurement's spans: at most the key tiles of the longest union
     assert ca.pair_max_spans(256 + 3008, 2047, 64, 128) == 8
     assert ca.pair_max_spans(150, 0, 32, 32) == 3
 
 
-def _pair_model(q, k, v, start, kv_len, group, window, cap, spans):
+def test_a_launch_that_pairs_would_half_fill_takes_single_tiles():
+    """pair_query_tiles: blocks of one query tile where the pairs' blocks
+    would leave more than half the SMs idle (their single tiles then still
+    run in one wave), pairs otherwise; pair_blocks counts a launch's
+    blocks (a span's: the clocks' and the grid's)."""
+    assert ca.pair_query_tiles(66, H100_SMS) == 1
+    assert ca.pair_query_tiles(67, H100_SMS) == 2
+    # (n, group, KV heads, head_dim, lanes) -> blocks on an H100: Phi-3's
+    # 256-token chunk, Gemma-2-9B's, the 8B's, and prefills of two
+    # 4096-position Phi-3 lanes and four 256-position 8B lanes
+    cases = {(256, 1, 32, 96, 1): 128, (256, 2, 8, 256, 1): 64,
+             (256, 4, 8, 128, 1): 128, (4096, 1, 32, 96, 2): 2048,
+             (256, 4, 8, 128, 4): 256}
+    for (n, group, n_kv, d, lanes), blocks in cases.items():
+        positions = ca.tile_positions(group, d)
+        assert ca.pair_blocks(n, positions, lanes * n_kv,
+                              H100_SMS) == blocks, (n, group, d)
+    # a card of 114 SMs takes Phi-3's chunk in pairs
+    assert ca.pair_blocks(256, 64, 32, 114) == 64
+
+
+def _pair_model(q, k, v, start, kv_len, group, window, cap, spans,
+                per_block=2):
     """prefill.cu's and chunk.cu's pair tile in plain f32: q [C, H, D], K
-    and V by position [T, KV, D] -> [C, H, D]. Per block of _pair_walk, each
+    and V by position [T, KV, D] -> [C, H, D]. Per block of _pair_walk
+    (per_block query tiles a block), each
     query tile's unnormalized partial over the key tiles it walks in the
     span (the element mask only on edge tiles, the cap as
     cap * tanh(s / cap) before it), m in log2 units, then the merge of the
@@ -248,7 +293,7 @@ def _pair_model(q, k, v, start, kv_len, group, window, cap, spans):
     t = k.shape[0]
     parts = {}  # (pair first, w) -> [(o, m, l) per span]
     for first, nq, span, tiles in _pair_walk(c, start, kv_len, group, d,
-                                             window, spans):
+                                             window, spans, per_block):
         for w in (0, 1):
             if not nq[w]:
                 continue
@@ -354,6 +399,48 @@ def test_chunk_pair_model_matches_xla_and_pallas(group, n_kv, d, window,
             jnp.asarray(pages), start, page_size=ps, num_kv_heads=n_kv,
             interpret=True)
         np.testing.assert_allclose(out, np.asarray(pallas), **TOL)
+
+
+# Phi-3-mini's attention (group 1, 32 KV heads, head_dim 96, a 2047-key
+# window on every layer): its served 256-token chunk at 3008 and a tail
+PHI3_CHUNKS = [(256, 3008), (88, 2100)]
+
+
+@pytest.mark.parametrize("per_block", [1, 2], ids=["tile", "pair"])
+@pytest.mark.parametrize("spans", [None, 2], ids=["plan", "s2"])
+@pytest.mark.parametrize("c,start", PHI3_CHUNKS,
+                         ids=[f"c{c}-at{s}" for c, s in PHI3_CHUNKS])
+def test_chunk_pair_model_matches_xla_at_phi3_shape(c, start, spans,
+                                                    per_block):
+    """A chunk at Phi-3-mini's shape, past its window, over a trash-padded
+    page list of f32 pools, in the plan's one span a pair and in two (a
+    measurement's), in blocks of one query tile (the plan's on the H100:
+    the pairs would fill half of it) and of two: the walk from the key
+    tile of each block's first window, against the XLA reference with the
+    window."""
+    group, n_kv, d, window, ps = 1, 32, 96, 2047, 16
+    rng = np.random.default_rng(start + c)
+    n_used = -(-(start + c) // ps)
+    n_pool = n_used + 4
+    kp = rng.normal(size=(n_pool, ps, n_kv * d)).astype(np.float32)
+    vp = rng.normal(size=(n_pool, ps, n_kv * d)).astype(np.float32)
+    pages = np.zeros((n_used + 2,), np.int32)
+    pages[:n_used] = rng.permutation(n_pool - 1)[:n_used] + 1
+    q = rng.normal(size=(c, group * n_kv, d)).astype(np.float32)
+    k = kp[pages].reshape(-1, n_kv, d)
+    v = vp[pages].reshape(-1, n_kv, d)
+    plan = ca.chunk_spans(c, start, group, d, n_kv, H100_SMS)
+    n = spans or plan
+    assert plan == 1 and n <= ca.pair_max_spans(
+        start + c, window, ca.tile_positions(group, d), d)
+    assert _per_block("chunk", c, group, d, n_kv) == 1
+    out = _pair_model(torch.from_numpy(q), torch.from_numpy(k),
+                      torch.from_numpy(v), start, start + c, group, window,
+                      0.0, n, per_block).numpy()
+    ref = np.asarray(jatt.chunk_attention_xla(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(pages),
+        start, page_size=ps, num_kv_heads=n_kv, window=window))
+    np.testing.assert_allclose(out, ref, **TOL)
 
 
 @pytest.mark.parametrize("spans", [None, 1, 2], ids=["plan", "s1", "s2"])
