@@ -648,6 +648,9 @@ def kernel_label(mangled: str) -> str:
     fn = mangled[n.end():n.end() + int(n.group(1))] if n else mangled
     args = re.findall(r"ILi(\d+)E", mangled)  # head_dim, if any
     args += [p for p in ("Bf16Tiles", "Int8Tiles") if p in mangled]
+    # the decode blocks' tile: attend_narrow (16 rows) or attend_mma
+    args += [t for p, t in (("Lb1E", "narrow"), ("Lb0E", "wide"))
+             if p in mangled]
     # the grammar kernel's logits type
     args += [t for p, t in (("I13__nv_bfloat16E", "bf16"),
                             ("IfE", "float")) if p in mangled]
@@ -737,7 +740,8 @@ def kernel_usage(name: str, head_dim: int = D) -> dict:
         own = label.startswith(("chunk_latent_kernel",
                                 "prefill_latent_kernel"))
         return (all(a == str(head_dim) for a in args if a.isdigit())
-                and all(a.startswith(pool) for a in args if not a.isdigit())
+                and all(a.startswith(pool) for a in args
+                        if not a.isdigit() and a not in ("narrow", "wide"))
                 and ("latent" not in label or head_dim == ca.LATENT_DIM)
                 and (not own or base in ("chunk", "prefill")))
 
@@ -4468,6 +4472,34 @@ def pair_span_sweep(call, plan: int, most: int) -> dict:
     return {"plan": plan, "ms": ms}
 
 
+def windowed_decode_plan(width: int, ctx, kv: int, d: int, window: int,
+                         sms: int) -> dict:
+    """The split plan of phase 3's windowed decode rows (decode.cu's, and
+    ragged.cu's decode rows beside the chunk: the same plan) at contexts
+    `ctx` on `width`-page tables, with the plan the table alone gave
+    before windows had their own (window 0): per row the keys each span's
+    block walks and its 64-key tiles, and the longest block's tiles, the
+    key tiles in series that bound the launch."""
+    def per_row(w):
+        span, n = ca.split_plan(width, PS, len(ctx), kv, sms, w, 1, d)
+        rows = []
+        for c in ctx:
+            spans = ca.decode_row_spans(width, PS, len(ctx), kv, sms, c - 1,
+                                        c, w, 1, d)
+            # the walk starts at the key tile of the window's first key
+            first = max(0, c - window) // ca.KEY_TILE * ca.KEY_TILE
+            tiles = [-(-(hi - max(lo, first)) // ca.KEY_TILE)
+                     if hi > max(lo, first) else 0 for lo, hi in spans]
+            rows.append({"context": c, "spans": spans, "key_tiles": tiles})
+        return {"split_keys": span, "splits": n, "rows": rows,
+                "longest_block_key_tiles": max(max(r["key_tiles"])
+                                               for r in rows)}
+
+    return {"window": window, "plan": per_row(window),
+            "table_plan": per_row(0) | {"note": "the table's plan walked "
+                                        "under the window, for comparison"}}
+
+
 def windowed_kernel_checks(dev, shape: dict) -> dict:
     """Phase 3 at a windowed model's attention (`shape`: GEMMA_SHAPE,
     PHI3_SHAPE; q scaled by its q_scale): 8 decode rows at its contexts
@@ -4517,6 +4549,8 @@ def windowed_kernel_checks(dev, shape: dict) -> dict:
 
     pmax = shape["max_seq_len"] // PS
     ctx = list(shape["decode_ctx"])
+    emit({"phase": "windowed_decode_plan", "label": label,
+          **windowed_decode_plan(pmax, ctx, kv, d, w, ca._num_sms(dev))})
     table = torch.zeros((MAX_SEQS, pmax), dtype=torch.int32)
     used = 0
     for b, c in enumerate(ctx):
@@ -4541,7 +4575,7 @@ def windowed_kernel_checks(dev, shape: dict) -> dict:
                  MAX_SEQS),
             {"context_lens": ctx, "block_table": list(table.shape),
              "split_plan": ca.split_plan(pmax, PS, MAX_SEQS, kv,
-                                         ca._num_sms(dev)),
+                                         ca._num_sms(dev), w, 1, d),
              # the same call without the window (Gemma: a global layer's)
              "no_window_ms": device_ms(
                  lambda k=k, v=v: ca.paged_attention_decode(

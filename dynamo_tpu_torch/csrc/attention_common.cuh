@@ -1,8 +1,9 @@
 // Shared device code of the port's attention kernels (decode.cu, prefill.cu,
-// chunk.cu, ragged.cu): `attend_mma`, the tensor-core query tile that
-// decode.cu and ragged.cu's decode and verify rows run below head_dim 640
-// (the split decode rows, `decode_split_block`, `merge_splits_kernel`),
-// and its K/V policies; the pair tile (`pair_span_block`, two query tiles
+// chunk.cu, ragged.cu): the split decode rows below head_dim 640
+// (`decode_split_block`, `merge_splits_kernel`) of decode.cu and ragged.cu,
+// which run `attend_narrow`, the 16-row decode tile, or for verify windows
+// of more than 16 rows `attend_mma`, the 64-row tensor-core tile, and
+// their K/V policies; the pair tile (`pair_span_block`, two query tiles
 // of a KV head a block, S and P V on wgmma, a producer warpgroup's copies,
 // key spans merged in a thread-block cluster) that prefill.cu and chunk.cu
 // (and ragged.cu's chunk rows, through chunk.cu) run at every head_dim
@@ -92,8 +93,12 @@ inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// attend_mma: the tensor-core query tile.
+// attend_mma: the 64-row tensor-core query tile.
 //
+// It runs the decode blocks' rows wider than attend_narrow's 16: verify
+// windows of K + 1 queries at groups where (K + 1) x group > 16 (the 8B's
+// 5 x 4). The copies, the int8 widening and the math below are also
+// attend_narrow's; only the split of the work between the warps differs.
 // A block owns kTileRows = 64 query rows of ONE KV head, rows r = i * group
 // + g (i a position, g the head in the GQA group). Rows past
 // nq * group are zero queries whose outputs are not written. The block
@@ -173,7 +178,8 @@ constexpr int kMaxStages = 3;     // the cp.async ring: two tiles in flight
 constexpr int kMaxTileDim = 256;  // largest head_dim
 constexpr size_t kMaxBlockSmem = 232448;  // the H100's per-block limit
 constexpr int kSplitKeys = 256;   // least keys per split of a decode row
-constexpr int kSplitBlocksPerSm = 4;  // most decode blocks per SM, all splits
+// most decode blocks per SM, all splits (split_blocks_per_sm)
+constexpr int kSplitBlocksPerSm = 4;
 // MLA's latent row (DeepSeek-V2: 512 + 64 lanes, padded to 640), run by
 // the latent tile's walk below instead of attend_mma
 constexpr int kLatentDim = 640;
@@ -192,16 +198,42 @@ inline bool tile_fits(int group, int d) {
 // query positions per attend_mma block
 inline int tile_positions(int group) { return kTileRows / group; }
 
-// Keys per split of a decode row whose page list holds max_tok keys, with
-// num_decode rows x kv heads on num_sms SMs: kSplitKeys, or more where
-// kSplitKeys would give the rows more than kSplitBlocksPerSm blocks per SM
-// in all, rounded up to whole key tiles. So the decode blocks and the
-// partials' scratch stay bounded by the card, not by the table's width.
+// Keys a decode row's split plan covers, from its block's base on: a
+// page list of table_keys keys without a window; under a window at most
+// the window + decode_q - 1 keys a row of decode_q queries can see, plus
+// one key tile less a key for the base's alignment (the key tile of the
+// row's first visible key), and never more than the table. So a windowed
+// layer's spans are cut from what its rows can see, not from the table.
+inline long long decode_plan_keys(long long table_keys, int window,
+                                  int decode_q) {
+  if (window <= 0) return table_keys;
+  return std::min(table_keys,
+                  (long long)window + decode_q - 1 + kKeyTile - 1);
+}
+
+// Most decode blocks per SM a split plan makes: kSplitBlocksPerSm, the
+// table's plan, kept for layers without a window; a windowed layer's rows
+// at head_dim <= 128 twice that. What sets it is the narrow tile's
+// residency: at head_dim <= 128 two of its blocks share an SM (83 KB of
+// shared memory and 120-128 registers a thread at 96), at 256 one fills it
+// (211 KB). Twice the blocks of half the keys took Phi-3's decode rows
+// from 0.078 to 0.071 ms and Gemma-2's (head_dim 256) from 0.115 to
+// 0.122 on an H100 (PERF.md).
+inline int split_blocks_per_sm(int window, int d) {
+  return window > 0 && d <= 128 ? 2 * kSplitBlocksPerSm : kSplitBlocksPerSm;
+}
+
+// Keys per split of a decode row whose plan covers max_tok keys
+// (decode_plan_keys), with num_decode rows x kv heads on num_sms SMs:
+// kSplitKeys, or more where kSplitKeys would give the rows more than
+// blocks_per_sm blocks per SM in all (split_blocks_per_sm), rounded up to
+// whole key tiles. So the decode blocks and the partials' scratch stay
+// bounded by the card, not by the table's width.
 inline long long decode_split_keys(long long max_tok, int num_decode, int kv,
-                                   int num_sms) {
+                                   int num_sms, int blocks_per_sm) {
   const long long pairs = std::max(1LL, (long long)num_decode * kv);
   const long long cap =
-      std::max(1LL, (long long)kSplitBlocksPerSm * num_sms / pairs);
+      std::max(1LL, (long long)blocks_per_sm * num_sms / pairs);
   const long long n =
       std::min(std::max(1LL, (max_tok + kSplitKeys - 1) / kSplitKeys), cap);
   const long long span = (max_tok + n - 1) / n;
@@ -776,6 +808,378 @@ __device__ __forceinline__ void attend_mma(
     }
     if (pair == 0) {
       dst.part_ml[2 * p] = mm;
+      dst.part_ml[2 * p + 1] = lm;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// attend_narrow: the decode tile of 16 query rows.
+//
+// A decode row holds decode_q x group real rows: 1 at Phi-3, 2 at Gemma-2,
+// 4 at the 8B. In attend_mma's 64-row tile only the two warps that own row
+// 0 would compute, while every thread pays for the copies and the
+// barriers. Where decode_q x group <= kNarrowRows = 16 (every decode row of
+// every preset below 640) the decode blocks run this tile instead: the
+// same K/V ring, copies and int8 widening as attend_mma (64-key tiles of
+// 4 pages, cp.async through the page list, one barrier a tile), but the
+// eight warps split each key tile's work between them:
+//   - warp w owns key slice ks = w % 4 (keys 16 ks .. 16 ks + 15 of every
+//     tile) and lane half dh = w / 4 (lanes dh D/2 .. of O). The two warps
+//     of a key slice both compute its 16 x 16 scores over all of D (the
+//     same instructions on the same operands, so the same bits) and its
+//     online softmax, and each multiplies P into its own half of O: per
+//     tile and warp 2 D/16 MMAs for S and D/8 for P V in its two bf16
+//     parts (24 at D = 96; attend_mma's two working warps run 72 each);
+//   - O takes D/4 f32 registers a thread (64 at D = 256, attend_mma's 128);
+//   - q is 16 rows in shared memory (3.3 KB at D = 96, not 13), so a block
+//     at D = 96 takes 83 KB (bf16 pools) or 73 KB (int8) and, at 120-128
+//     registers a thread, two share an SM (ptxas on an H100 build: no
+//     spill at 96; 4-12 bytes at 128 and bf16 256).
+// The math is attend_mma's: scores in log2 units at 1/sqrt(D), the cap in
+// natural units with the accurate tanhf, the window and the causal mask
+// per row, int8 scales folded in f32, P into P V in two bf16 parts. At the
+// end the four key slices of each lane half merge through shared memory
+// (the ring, free by then) in slice order, so two runs give equal bits,
+// and the slice-0 warps write the span's partial (O, m, l) as attend_mma
+// does. A span with no key writes m = -inf, l = 0.
+constexpr int kNarrowRows = 16;   // query rows of the narrow tile
+constexpr int kKeySlice = 16;     // keys of a tile per key-slice warp
+constexpr int kKeySlices = kKeyTile / kKeySlice;  // 4
+
+// shared memory of an attend_narrow block with `stages` ring stages
+template <typename KVTiles>
+__host__ __device__ constexpr size_t narrow_smem_with(int d, int stages) {
+  return (size_t)kNarrowRows * (d + 8) * sizeof(__nv_bfloat16)
+         + stages * KVTiles::stage_bytes(d) + KVTiles::work_bytes(d);
+}
+
+template <typename KVTiles, int kD>
+__host__ __device__ constexpr int narrow_stages() {
+  return narrow_smem_with<KVTiles>(kD, kMaxStages) <= kMaxBlockSmem
+             ? kMaxStages : 2;
+}
+
+template <typename KVTiles, int kD>
+inline size_t narrow_smem_bytes() {
+  constexpr size_t bytes =
+      narrow_smem_with<KVTiles>(kD, narrow_stages<KVTiles, kD>());
+  static_assert(bytes <= kMaxBlockSmem, "attend_narrow's shared memory");
+  return bytes;
+}
+
+// Whether a decode row of decode_q queries x group runs attend_narrow.
+inline bool narrow_rows(int decode_q, int group) {
+  return (long long)decode_q * group <= kNarrowRows;
+}
+
+// attend_mma's contract for nq * group <= kNarrowRows rows.
+template <int kD, typename KVTiles, typename Rows>
+__device__ __forceinline__ void attend_narrow(
+    const __nv_bfloat16* __restrict__ q, long long q_off, int q_row_stride,
+    KVTiles kv, Rows rows, int kvh, int nq, int group, int qpos0, int kv_len,
+    int key_lo, int key_hi, float scale, ScoreMods mods, TileOut dst) {
+  static_assert(kD % 32 == 0 && kD <= kMaxTileDim, "head_dim");
+  constexpr int ld = kD + 8;  // padded tile row, in bf16 values
+  constexpr int kSteps = kD / 16;  // k16 steps of Q K^T
+  constexpr int kHalf = kD / 2;    // lanes of O a warp owns
+  constexpr int kHalfSteps = kHalf / 16;  // n16 blocks of its P V
+  constexpr int kStages = narrow_stages<KVTiles, kD>();
+  constexpr bool kWide = kD <= 128;  // q's fragments held for the walk
+  // the merge: slices 1-3's O per lane half [3][2][16][kHalf + 4] and
+  // every slice's (m, l) [4][16][2], in the ring
+  constexpr int xld = kHalf + 4;
+  static_assert((3 * 2 * kNarrowRows * xld + kKeySlices * kNarrowRows * 2)
+                        * sizeof(float)
+                    <= kStages * KVTiles::stage_bytes(kD),
+                "the merge area must fit the ring");
+  extern __shared__ __align__(16) char tile_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ks = warp & (kKeySlices - 1), dh = warp >> 2;
+  const int quad = lane >> 2, pair = (lane & 3) * 2;
+  const int n_rows = nq * group;
+  const bool windowed = mods.window > 0;
+  const int lo = windowed
+      ? max(key_lo, max(0, qpos0 - mods.window + 1) / kKeyTile * kKeyTile)
+      : key_lo;
+  const int hi = min(min(qpos0 + nq, kv_len), key_hi);
+
+  if (lo >= hi) {  // no key in range: an empty partial
+    for (int r = tid; r < n_rows; r += kTileThreads) {
+      const int i = r / group, g = r - i * group;
+      const long long p = (dst.part_q0 + i) * dst.heads + kvh * group + g;
+      dst.part_ml[2 * p] = -INFINITY;
+      dst.part_ml[2 * p + 1] = 0.f;
+    }
+    return;
+  }
+
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tile_smem);  // [16][ld]
+  char* ring = tile_smem + (size_t)kNarrowRows * ld * sizeof(__nv_bfloat16);
+  char* work = ring + kStages * KVTiles::stage_bytes(kD);
+  const int n_tiles = (hi - lo + kKeyTile - 1) / kKeyTile;
+
+  // copies as attend_mma's: four threads per key slot, a key's row offset
+  // fetched a tile ahead, -1 for a key at or past hi
+  const int slot = tid >> 2, part = tid & 3;
+  auto row_of = [&](int t) -> long long {
+    const int tok = lo + t * kKeyTile + slot;
+    return tok < hi ? rows(tok) : -1;
+  };
+  auto fetch = [&](int t, long long row) {
+    kv.template copy_key<kD>(ring + (t % kStages) * KVTiles::stage_bytes(kD),
+                             slot, part, row, kvh);
+  };
+  for (int idx = tid; idx < kNarrowRows * (kD / 8); idx += kTileThreads) {
+    const int r = idx / (kD / 8), c = idx - r * (kD / 8);
+    const int i = r / group, g = r - i * group;
+    const bool valid = r < n_rows;
+    const __nv_bfloat16* src =
+        valid ? q + q_off + (long long)i * q_row_stride + g * kD + c * 8 : q;
+    cp_async16(qs + r * ld + c * 8, src, valid);
+  }
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) fetch(t, row_of(t));
+    cp_async_commit();
+  }
+  long long next_row = kStages - 1 < n_tiles ? row_of(kStages - 1) : -1;
+
+  // positions of this thread's two rows (a padding row's is past the
+  // range) and the keys at or below which their windows end
+  int qlim[2], wlim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qlim[h] = qpos0 + (quad + 8 * h) / group;
+    wlim[h] = windowed ? qlim[h] - mods.window : INT_MIN;
+  }
+  const int wedge = windowed ? qpos0 + nq - 1 - mods.window : INT_MIN;
+  const float sl2 = scale * 1.4426950408889634f;
+  const bool capped = mods.cap > 0.f;
+  const float cap_l2 = mods.cap * 1.4426950408889634f;
+  const float inv_cap = capped ? 1.f / mods.cap : 0.f;
+  unsigned qf[kWide ? kSteps : 1][4];
+  float o[kHalf / 8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kHalf / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t (and q) have landed
+    __syncthreads();  // every warp is past tile t - 1: its stage is free
+    const int tn = t + kStages - 1;
+    if (tn < n_tiles) {
+      fetch(tn, next_row);
+      if (tn + 1 < n_tiles) next_row = row_of(tn + 1);
+    }
+    cp_async_commit();
+    char* stage = ring + (t % kStages) * KVTiles::stage_bytes(kD);
+    if (KVTiles::kInt8) {
+      kv.template prepare<kD>(stage, work, kvh, tid);
+      __syncthreads();
+    }
+    const int k0 = lo + t * kKeyTile + ks * kKeySlice;  // this warp's keys
+    if (k0 >= hi) continue;  // so for every later tile too
+    if constexpr (kWide) {
+      if (t == 0) {
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk)
+          ldsm_x4(qf[kk], qs + (lane & 15) * ld + kk * 16
+                              + ((lane >> 4) << 3));
+      }
+    }
+    const __nv_bfloat16* kt = kv.ktile(stage, work, kD) + ks * kKeySlice * ld;
+    const __nv_bfloat16* vt = kv.vtile(stage, work, kD) + ks * kKeySlice * ld;
+    const float* ksc = kv.scales(work, kD) + ks * kKeySlice;
+    const float* vsc = ksc + kKeyTile;
+
+    // S = Q K^T over the slice's 16 keys: two key blocks of 8 per k16
+    // step, the even and odd steps in accumulators of their own (four
+    // chains of MMAs in flight, not two), added at the end
+    float s[2][4], s_odd[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = s_odd[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const unsigned* a = qf[kWide ? kk : 0];
+      if constexpr (!kWide)
+        ldsm_x4(qf[0], qs + (lane & 15) * ld + kk * 16 + ((lane >> 4) << 3));
+      unsigned b[4];
+      ldsm_x4(b, kt + ((lane & 7) + ((lane >> 4) << 3)) * ld + kk * 16
+                     + (((lane >> 3) & 1) << 3));
+      if (kk & 1) {
+        mma_bf16(s_odd[0], a, b[0], b[1]);
+        mma_bf16(s_odd[1], a, b[2], b[3]);
+      } else {
+        mma_bf16(s[0], a, b[0], b[1]);
+        mma_bf16(s[1], a, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += s_odd[j][e];
+
+    // scale, mask, online softmax; s[j][2h + e] is row quad + 8h, key
+    // k0 + j * 8 + pair + e
+    const bool edge = k0 + kKeySlice > hi || k0 + kKeySlice - 1 > qpos0
+                      || k0 <= wedge;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = j * 8 + pair + e, tok = k0 + key;
+        const float f = KVTiles::kInt8 ? sl2 * ksc[key] : sl2;
+        const float fn = KVTiles::kInt8 ? scale * ksc[key] : scale;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float x = capped ? cap_l2 * tanhf(s[j][2 * h + e] * fn * inv_cap)
+                           : s[j][2 * h + e] * f;
+          if (edge && !(tok < hi && tok <= qlim[h] && tok > wlim[h]))
+            x = -INFINITY;
+          s[j][2 * h + e] = x;
+          mx[h] = fmaxf(mx[h], x);
+        }
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      const float base = m_new == -INFINITY ? 0.f : m_new;
+      alpha[h] = exp2f(m[h] - base);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(s[j][2 * h + e] - base);
+          s[j][2 * h + e] = p;
+          l[h] += p;
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < kHalf / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // O[:, half] += P V[:, half]: P (the two key blocks' accumulators are
+    // the A layout of one k16 step) in two bf16 parts
+    unsigned a[4], a_lo[4];
+    {
+      float p[2][4];
+#pragma unroll
+      for (int hb = 0; hb < 2; ++hb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float vs =
+              KVTiles::kInt8 ? vsc[hb * 8 + pair + (e & 1)] : 1.f;
+          p[hb][e] = s[hb][e] * vs;
+        }
+      split_bf16(p[0][0], p[0][1], a[0], a_lo[0]);
+      split_bf16(p[0][2], p[0][3], a[1], a_lo[1]);
+      split_bf16(p[1][0], p[1][1], a[2], a_lo[2]);
+      split_bf16(p[1][2], p[1][3], a[3], a_lo[3]);
+    }
+    const __nv_bfloat16* vrow =
+        vt + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld
+        + ((lane >> 4) << 3) + dh * kHalf;
+    unsigned b[kHalfSteps][4];
+#pragma unroll
+    for (int db = 0; db < kHalfSteps; ++db)
+      ldsm_x4_trans(b[db], vrow + db * 16);
+#pragma unroll
+    for (int db = 0; db < kHalfSteps; ++db) {
+      mma_bf16(o[2 * db], a, b[db][0], b[db][1]);
+      mma_bf16(o[2 * db + 1], a, b[db][2], b[db][3]);
+      mma_bf16(o[2 * db], a_lo, b[db][0], b[db][1]);
+      mma_bf16(o[2 * db + 1], a_lo, b[db][2], b[db][3]);
+    }
+  }
+
+  // merge the key slices of each lane half in slice order
+  float* xo = reinterpret_cast<float*>(ring);  // [3][2][16][xld]
+  float* xml = xo + 3 * 2 * kNarrowRows * xld;  // [4][16][2]
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  if (dh == 0 && pair == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = quad + 8 * h;
+      xml[2 * (ks * kNarrowRows + r)] = m[h];
+      xml[2 * (ks * kNarrowRows + r) + 1] = l[h];
+    }
+  }
+  __syncthreads();
+  // the row's max over the slices (top) and each slice's weight
+  // 2^(m - top) (0 for a slice that saw nothing)
+  float top[2], big[2], own[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = quad + 8 * h;
+    top[h] = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kKeySlices; ++w)
+      top[h] = fmaxf(top[h], xml[2 * (w * kNarrowRows + r)]);
+    big[h] = top[h] == -INFINITY ? 0.f : top[h];
+    own[h] = exp2f(m[h] - big[h]);
+  }
+  if (ks > 0) {
+    float* mine = xo + ((ks - 1) * 2 + dh) * kNarrowRows * xld;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = quad + 8 * h;
+      if (r >= n_rows) continue;
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j)
+        *reinterpret_cast<float2*>(mine + r * xld + j * 8 + pair) =
+            make_float2(o[j][2 * h] * own[h], o[j][2 * h + 1] * own[h]);
+    }
+  }
+  __syncthreads();
+  if (ks > 0) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = quad + 8 * h;
+    if (r >= n_rows) continue;
+    float lm = 0.f;
+#pragma unroll
+    for (int w = 0; w < kKeySlices; ++w)
+      lm += xml[2 * (w * kNarrowRows + r) + 1]
+            * exp2f(xml[2 * (w * kNarrowRows + r)] - big[h]);
+    const int i = r / group, g = r - i * group;
+    const long long p = (dst.part_q0 + i) * dst.heads + kvh * group + g;
+    float* orow = dst.part_o + p * kD + dh * kHalf;
+#pragma unroll
+    for (int j = 0; j < kHalf / 8; ++j) {
+      float2 x = make_float2(o[j][2 * h] * own[h], o[j][2 * h + 1] * own[h]);
+#pragma unroll
+      for (int w = 1; w < kKeySlices; ++w) {
+        const float2 y = *reinterpret_cast<const float2*>(
+            xo + ((w - 1) * 2 + dh) * kNarrowRows * xld + r * xld + j * 8
+            + pair);
+        x.x += y.x;
+        x.y += y.y;
+      }
+      *reinterpret_cast<float2*>(orow + j * 8 + pair) = x;
+    }
+    if (dh == 0 && pair == 0) {
+      dst.part_ml[2 * p] = top[h];
       dst.part_ml[2 * p + 1] = lm;
     }
   }
@@ -1776,18 +2180,28 @@ int launch_chunk_latent(const void* q, KVTiles kv, const void* pages,
 //
 // A decode row, decode_q queries of one sequence at qpos0 .. qpos0 +
 // decode_q - 1 over its page list of W pages, is split along its keys into
-// num_splits spans of split_keys keys (decode_split_keys: from the list's
-// width, the row count and the SM count on the host; the kv_lens live on
-// the card and are never read back). One block per (row, span, KV head)
-// runs attend_mma over the span's keys and writes its unnormalized partial
-// (O, m, l) in f32; a span at or past its row's horizon, or wholly below
-// the key tile of its first query's window, writes m = -inf, l = 0 and
-// exits (the plan is the table width's, so under a window such spans are
-// many). merge_splits_kernel then folds the spans into the bf16 rows. So
-// a 2048-token row runs on 8 SMs instead of serially on one. The block
-// runs the 64-row tile with decode_q x group real rows: the rows are
-// bound by bytes, and the MMA lanes the padding wastes cost no bytes.
-// Head_dim 640 runs the latent decode rows further below.
+// num_splits spans of split_keys keys, one block per (row, span, KV head).
+// The plan (decode_plan_keys, decode_split_keys) is made on the host from
+// the list's width, the row count, decode_q, the layer's window and the SM
+// count; the kv_lens live on the card and are never read back, so a
+// captured CUDA graph replays it at any context. Each block places its
+// span on the card, from its own row's descriptors:
+//   - without a window the spans cut [0, W * page_size): span s walks keys
+//     [s * split_keys, (s + 1) * split_keys) below the row's horizon;
+//   - under a window they cut what the row can see, from its base, the key
+//     tile of its first query's first visible key, max(0, qpos0 - window
+//     + 1) rounded down to kKeyTile: span s walks [base + s * split_keys,
+//     base + (s + 1) * split_keys) below the horizon. The plan covers
+//     window + decode_q - 1 keys and the base's alignment, so every key a
+//     row sees lies in a span, wherever its context lies, and no span
+//     lies wholly below the window: a row's window is spread over all the
+//     plan's blocks, not left to the one or two table spans it falls in.
+// A span at or past its row's horizon writes m = -inf, l = 0 and exits.
+// The block runs attend_narrow where decode_q x group fits its 16 rows
+// (every decode row below 640), else attend_mma (verify windows of wider
+// groups), and writes the span's unnormalized partial (O, m, l) in f32;
+// merge_splits_kernel then folds the spans into the bf16 rows. Head_dim
+// 640 runs the latent decode rows further below.
 
 // The partials' scratch: split s of decode query n (of nd in all), head h
 // at part_o[((s * nd + n) * heads + h) * D ..] and part_ml[.. * 2 + {0, 1}].
@@ -1804,8 +2218,9 @@ struct Splits {
 // min(kv_lens[b], W * page_size) keys; its queries sit at q_starts[b] ..,
 // or without q_starts (decode.cu: one query per row) at kv_lens[b] - 1.
 // q and its rows as in ragged_kernel: query j of row b, head h at
-// q[((b * decode_q + j) * heads + h) * kD ..].
-template <int kD, typename KVTiles>
+// q[((b * decode_q + j) * heads + h) * kD ..]. kNarrow: attend_narrow
+// (the host keeps decode_q x group within its 16 rows), else attend_mma.
+template <int kD, typename KVTiles, bool kNarrow>
 __device__ __forceinline__ void decode_split_block(
     int bx, int kvh, const __nv_bfloat16* __restrict__ q, KVTiles kv,
     const int* __restrict__ tables, int W, int page_size, int lane_width,
@@ -1817,23 +2232,45 @@ __device__ __forceinline__ void decode_split_block(
   const int kv_len = kv_lens[b];
   const int qpos0 = q_starts ? q_starts[b] : kv_len - 1;
   const PagedRows rows{tables + (long long)b * W, page_size, lane_width};
-  // The host keeps decode_q x group within the tile's rows, so this loop
-  // over the row's query tiles runs once. It stays a loop: so written,
-  // ptxas spills 36 / 40 bytes at head_dim 256 (a tile at 255 registers),
-  // and 100 / 156 for the same call made once (on an H100, 0.054 against
-  // 0.052 ms at phase 3's head_dim 256 decode rows).
-  const int per = kTileRows / group;
-  for (int j0 = 0; j0 < decode_q; j0 += per) {
-    if (j0) __syncthreads();  // the last tile is done with shared memory
-    attend_mma<kD>(
-        q, ((long long)(b * decode_q + j0) * heads + kvh * group) * kD,
-        heads * kD, kv, rows, kvh, min(per, decode_q - j0), group,
-        qpos0 + j0, min(kv_len, W * page_size), s * sp.split_keys,
-        (s + 1) * sp.split_keys, scale, mods,
+  // the spans' base: the key tile of the row's first visible key under a
+  // window, else the table's start
+  const int base = mods.window > 0
+      ? max(0, qpos0 - mods.window + 1) / kKeyTile * kKeyTile : 0;
+  const int key_lo = base + s * sp.split_keys;
+  const int horizon = min(kv_len, W * page_size);
+  if constexpr (kNarrow) {
+    attend_narrow<kD>(
+        q, ((long long)b * decode_q * heads + kvh * group) * kD, heads * kD,
+        kv, rows, kvh, decode_q, group, qpos0, horizon, key_lo,
+        key_lo + sp.split_keys, scale, mods,
         TileOut{sp.part_o + s * sp.nd * heads * kD,
-                sp.part_ml + s * sp.nd * heads * 2,
-                (long long)b * decode_q + j0, heads});
+                sp.part_ml + s * sp.nd * heads * 2, (long long)b * decode_q,
+                heads});
+  } else {
+    // The host keeps decode_q x group within the tile's rows, so this loop
+    // over the row's query tiles runs once. It stays a loop: so written,
+    // ptxas spills 36 / 40 bytes at head_dim 256 (a tile at 255 registers),
+    // and 100 / 156 for the same call made once (on an H100, 0.054 against
+    // 0.052 ms at phase 3's head_dim 256 decode rows).
+    const int per = kTileRows / group;
+    for (int j0 = 0; j0 < decode_q; j0 += per) {
+      if (j0) __syncthreads();  // the last tile is done with shared memory
+      attend_mma<kD>(
+          q, ((long long)(b * decode_q + j0) * heads + kvh * group) * kD,
+          heads * kD, kv, rows, kvh, min(per, decode_q - j0), group,
+          qpos0 + j0, horizon, key_lo, key_lo + sp.split_keys, scale, mods,
+          TileOut{sp.part_o + s * sp.nd * heads * kD,
+                  sp.part_ml + s * sp.nd * heads * 2,
+                  (long long)b * decode_q + j0, heads});
+    }
   }
+}
+
+// shared memory of a decode block (decode_split_block's tile)
+template <typename KVTiles, int kD, bool kNarrow>
+inline size_t decode_smem_bytes() {
+  return kNarrow ? narrow_smem_bytes<KVTiles, kD>()
+                 : tile_smem_bytes<KVTiles, kD>();
 }
 
 constexpr int kMergeThreads = 128;  // 4 warps, one (query, head) each
@@ -1882,16 +2319,20 @@ inline int num_sms_of_device(int* num_sms) {
   return (int)err;
 }
 
-// 0 where (split_keys, num_splits) is the plan of num_decode rows of kv
-// heads over max_tok-key page lists on the current device, else the error
-// to return: the entry points refuse a plan other than their own.
-inline int check_split_plan(long long max_tok, int num_decode, int kv,
+// 0 where (split_keys, num_splits) is the plan of num_decode rows of
+// decode_q queries and kv heads of head_dim d over table_keys-key page
+// lists under `window` on the current device, else the error to return:
+// the entry points refuse a plan other than their own.
+inline int check_split_plan(long long table_keys, int num_decode,
+                            int decode_q, int kv, int d, int window,
                             long long split_keys, int num_splits) {
   int num_sms = 0;
   const int err = num_sms_of_device(&num_sms);
   if (err != 0) return err;
-  return split_keys == decode_split_keys(max_tok, num_decode, kv, num_sms)
-                 && num_splits == decode_splits(max_tok, split_keys)
+  const long long keys = decode_plan_keys(table_keys, window, decode_q);
+  return split_keys == decode_split_keys(keys, num_decode, kv, num_sms,
+                                         split_blocks_per_sm(window, d))
+                 && num_splits == decode_splits(keys, split_keys)
              ? 0
              : (int)cudaErrorInvalidValue;
 }

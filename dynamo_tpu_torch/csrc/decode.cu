@@ -10,8 +10,8 @@
 // dequantizes (attention_common.cuh). Below head_dim 640 a launch also
 // takes one layer's sliding window and tanh logit cap (Gemma-2/3:
 // `window`, `logit_cap`, 0 for none; ScoreMods in attention_common.cuh): a
-// windowed row reads only the key tiles from its window's start on, and a
-// span of the plan wholly below that leaves an empty partial.
+// windowed row reads only the key tiles from its window's start on, in
+// spans cut from there.
 //
 // Bound on the H100: bytes. Each step reads every valid K and V row of every
 // sequence once (2 * sum(ctx) * KV * D * 2 bytes in bf16, 2 * sum(ctx) *
@@ -20,17 +20,25 @@
 //
 // Design below head_dim 640: the split decode rows of attention_common.cuh,
 // two kernels on one stream counted as one call. decode_kernel runs one
-// block per (sequence, key span, KV head): the tensor-core tile attend_mma
-// over the span's keys with the group = H/KV query heads that share the KV
-// head as its real rows (so each K/V byte is read once per step, not once
-// per query head), K/V through the cp.async ring, writing the span's f32
-// partial; spans of decode_split_keys keys (256, widened so that the
-// blocks stay within 4 per SM), planned on the host from the table's
-// width, the batch and the SM count, never from context_lens.
-// merge_splits_kernel folds the spans into the bf16 rows. So a 2048-token
-// context runs on 8 SMs, not serially on one; the blocks are ragged.cu's
-// decode blocks, and a row here is bit-identical to the same row there
-// under the same plan.
+// block per (sequence, key span, KV head) over the group = H/KV query heads
+// that share the KV head (so each K/V byte is read once per step, not once
+// per query head), writing the span's f32 partial; merge_splits_kernel
+// folds the spans into the bf16 rows. The spans are planned on the host
+// from the table's width, the batch, the layer's window and the SM count
+// (decode_plan_keys, decode_split_keys: spans of 256 keys or more, at most
+// 4 blocks an SM, 8 for windowed rows at head_dim <= 128), never from
+// context_lens: without a window they cut the
+// table, under one the keys a row can see, each block placing its span
+// from its own row's window start on the card, so a windowed row's keys
+// spread over every span of the plan (Phi-3: four spans of 576 keys for
+// its 2047-key window on 4096-key tables, not one of 2048 in a span of
+// its own). A block is the narrow tile attend_narrow: 16 query rows, the
+// row's group (1 at Phi-3, 2 at Gemma-2, 4 at the 8B), every one of its
+// eight warps computing, each on a 16-key slice of every 64-key tile and
+// half of the head's lanes, K/V through the cp.async ring; a group
+// above 16 (no preset) runs attend_mma's 64-row tile. The blocks are
+// ragged.cu's decode blocks, and a row here is bit-identical to the same
+// row there under the same plan.
 //
 // At head_dim 640 (MLA's latent row: DeepSeek-V2's 16 query heads on one
 // KV head) the rows run the latent decode rows of attention_common.cuh
@@ -54,7 +62,7 @@
 
 namespace dtt {
 
-template <int kD, typename KVTiles>
+template <int kD, typename KVTiles, bool kNarrow>
 __global__ void __launch_bounds__(kTileThreads) decode_kernel(
     const __nv_bfloat16* __restrict__ q,  // [B, H, kD]
     KVTiles kv,                           // pools [P, ps, lane_width]
@@ -63,9 +71,9 @@ __global__ void __launch_bounds__(kTileThreads) decode_kernel(
     int H, int KV, int page_size, int pmax, int lane_width, float scale,
     ScoreMods mods, Splits sp) {
   const int bx = blockIdx.x / KV, kvh = blockIdx.x - bx * KV;
-  decode_split_block<kD>(bx, kvh, q, kv, block_table, pmax, page_size,
-                         lane_width, context_lens, /*q_starts=*/nullptr,
-                         /*decode_q=*/1, H / KV, H, scale, mods, sp);
+  decode_split_block<kD, KVTiles, kNarrow>(
+      bx, kvh, q, kv, block_table, pmax, page_size, lane_width, context_lens,
+      /*q_starts=*/nullptr, /*decode_q=*/1, H / KV, H, scale, mods, sp);
 }
 
 template <typename KVTiles>
@@ -91,24 +99,31 @@ int launch_decode(const void* q, KVTiles kv, const void* block_table,
   }
   if (part_o == nullptr || part_ml == nullptr)
     return (int)cudaErrorInvalidValue;
-  const int plan = check_split_plan((long long)pmax * page_size, B, KV,
+  const int plan = check_split_plan((long long)pmax * page_size, B,
+                                    /*decode_q=*/1, KV, D, mods.window,
                                     split_keys, num_splits);
   if (plan != 0) return plan;
   const long long blocks = (long long)B * num_splits * KV;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   const Splits sp{(float*)part_o, (float*)part_ml, B, num_splits, split_keys};
+  const bool narrow = narrow_rows(1, H / KV);
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    const size_t smem = tile_smem_bytes<KVTiles, kD>();
-    const cudaError_t set = set_smem(decode_kernel<kD, KVTiles>, smem);
-    if (set != cudaSuccess) return (int)set;
-    decode_kernel<kD, KVTiles><<<(unsigned)blocks, kTileThreads, smem, st>>>(
-        (const __nv_bfloat16*)q, kv, (const int*)block_table,
-        (const int*)context_lens, H, KV, page_size, pmax, lane_width, scale,
-        mods, sp);
-    const int rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
-    return launch_merge<kD>(sp, (__nv_bfloat16*)out, B * H, st);
+    auto launch = [&](auto narrow_tile) {
+      constexpr bool kNarrow = decltype(narrow_tile)::value;
+      const size_t smem = decode_smem_bytes<KVTiles, kD, kNarrow>();
+      auto kernel = decode_kernel<kD, KVTiles, kNarrow>;
+      const cudaError_t set = set_smem(kernel, smem);
+      if (set != cudaSuccess) return (int)set;
+      kernel<<<(unsigned)blocks, kTileThreads, smem, st>>>(
+          (const __nv_bfloat16*)q, kv, (const int*)block_table,
+          (const int*)context_lens, H, KV, page_size, pmax, lane_width,
+          scale, mods, sp);
+      const int rc = (int)cudaGetLastError();
+      if (rc != 0) return rc;
+      return launch_merge<kD>(sp, (__nv_bfloat16*)out, B * H, st);
+    };
+    return narrow ? launch(std::true_type{}) : launch(std::false_type{});
   });
 }
 
@@ -149,13 +164,15 @@ extern "C" int dtt_paged_decode_int8(const void* q, const void* k_pages,
 }
 
 // Keys per split of a decode row (decode.cu, ragged.cu) whose table holds
-// W pages of page_size, for num_decode rows of KV heads on a card of
-// num_sms SMs.
+// W pages of page_size, for num_decode rows of decode_q queries, KV heads
+// of head_dim D and a layer's window (0: none) on a card of num_sms SMs.
 extern "C" long long dtt_decode_split_keys(int W, int page_size,
-                                           int num_decode, int KV,
+                                           int num_decode, int decode_q,
+                                           int KV, int D, int window,
                                            int num_sms) {
-  return dtt::decode_split_keys((long long)W * page_size, num_decode, KV,
-                                num_sms);
+  return dtt::decode_split_keys(
+      dtt::decode_plan_keys((long long)W * page_size, window, decode_q),
+      num_decode, KV, num_sms, dtt::split_blocks_per_sm(window, D));
 }
 
 // Spans per query tile of num_decode latent decode rows (decode.cu,

@@ -33,9 +33,16 @@
 // - ragged_kernel, a 1-D grid of (block, KV head) pairs, KV head fastest:
 //   the decode rows split along their keys, one block per (row, span, KV
 //   head), decode.cu's blocks (decode_split_block, attention_common.cuh),
-//   so with decode.cu's plan (the same table width and row count) and
-//   decode_q = 1 a decode row is bit-identical to decode.cu's. A
-//   128k-token table of 8 rows gets 8 spans of 16k keys, not 512;
+//   so with decode.cu's plan (the same table width, row count and window)
+//   and decode_q = 1 a decode row is bit-identical to decode.cu's. The
+//   plan cuts the table without a window (a 128k-token table of 8 rows
+//   gets 8 spans of 16k keys, not 512) and, under one, the window +
+//   decode_q - 1 keys a row can see, each block placing its span from its
+//   row's window start (read from q_starts on the card). Rows of
+//   decode_q x group <= 16 (decode rows, and verify windows of small
+//   groups: 5 x 2 at Gemma-2) run the narrow tile attend_narrow, every
+//   warp on its own key slice and lane half; wider verify windows (5 x 4
+//   at the 8B) attend_mma's 64-row tile;
 // - merge_splits_kernel (attention_common.cuh), one warp per (decode
 //   query, query head), folds the spans' partials into the bf16 rows.
 // At head_dim 640 (MLA's latent row) two or three kernels on one stream,
@@ -66,7 +73,7 @@ namespace dtt {
 // Block bx / KV of the decode rows below head_dim 640, KV head bx % KV:
 // the (row, span) block bx (decode_split_block). The partials go to `sp`;
 // merge_splits_kernel writes the rows.
-template <int kD, typename KVTiles>
+template <int kD, typename KVTiles, bool kNarrow>
 __global__ void __launch_bounds__(kTileThreads) ragged_kernel(
     const __nv_bfloat16* __restrict__ q,  // decode rows first, [.., H, D]
     KVTiles kv,                           // pools [P, ps, lane_width]
@@ -76,9 +83,9 @@ __global__ void __launch_bounds__(kTileThreads) ragged_kernel(
     int decode_q, int H, int KV, int page_size, int W, int lane_width,
     float scale, ScoreMods mods, Splits sp) {
   const int bx = blockIdx.x / KV, kvh = blockIdx.x - bx * KV;
-  decode_split_block<kD>(bx, kvh, q, kv, tables, W, page_size, lane_width,
-                         kv_lens, q_starts, decode_q, H / KV, H, scale, mods,
-                         sp);
+  decode_split_block<kD, KVTiles, kNarrow>(
+      bx, kvh, q, kv, tables, W, page_size, lane_width, kv_lens, q_starts,
+      decode_q, H / KV, H, scale, mods, sp);
 }
 
 // The latent rows (head_dim 640): the chunk on chunk_latent_kernel, then
@@ -141,8 +148,9 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
                                 num_splits, split_keys, scale, st);
   if (num_decode > 0 && (part_o == nullptr || part_ml == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int plan = check_split_plan((long long)W * page_size, num_decode, KV,
-                                    split_keys, num_splits);
+  const int plan = check_split_plan((long long)W * page_size, num_decode,
+                                    decode_q, KV, D, mods.window, split_keys,
+                                    num_splits);
   if (plan != 0) return plan;
   if ((long long)W * page_size > INT_MAX) return (int)cudaErrorInvalidValue;
   // the chunk rows: chunk.cu's pair tile (one span, start read on the
@@ -163,20 +171,25 @@ int launch_ragged(const void* q, KVTiles kv, const void* tables,
   if (blocks == 0) return 0;  // no decode rows
   const Splits sp{(float*)part_o, (float*)part_ml,
                   (long long)num_decode * decode_q, num_splits, split_keys};
+  const bool narrow = narrow_rows(decode_q, group);
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    const size_t smem = tile_smem_bytes<KVTiles, kD>();
-    const cudaError_t set = set_smem(ragged_kernel<kD, KVTiles>, smem);
-    if (set != cudaSuccess) return (int)set;
-    ragged_kernel<kD, KVTiles><<<(unsigned)blocks, kTileThreads, smem,
-                                 st>>>(
-        (const __nv_bfloat16*)q, kv, (const int*)tables, (const int*)kv_lens,
-        (const int*)q_starts, decode_q, H, KV, page_size, W, lane_width,
-        scale, mods, sp);
-    const int rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
-    return launch_merge<kD>(sp, (__nv_bfloat16*)out,
-                            num_decode * decode_q * H, st);
+    auto launch = [&](auto narrow_tile) {
+      constexpr bool kNarrow = decltype(narrow_tile)::value;
+      const size_t smem = decode_smem_bytes<KVTiles, kD, kNarrow>();
+      auto kernel = ragged_kernel<kD, KVTiles, kNarrow>;
+      const cudaError_t set = set_smem(kernel, smem);
+      if (set != cudaSuccess) return (int)set;
+      kernel<<<(unsigned)blocks, kTileThreads, smem, st>>>(
+          (const __nv_bfloat16*)q, kv, (const int*)tables,
+          (const int*)kv_lens, (const int*)q_starts, decode_q, H, KV,
+          page_size, W, lane_width, scale, mods, sp);
+      const int rc = (int)cudaGetLastError();
+      if (rc != 0) return rc;
+      return launch_merge<kD>(sp, (__nv_bfloat16*)out,
+                              num_decode * decode_q * H, st);
+    };
+    return narrow ? launch(std::true_type{}) : launch(std::false_type{});
   });
 }
 

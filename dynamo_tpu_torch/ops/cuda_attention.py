@@ -9,11 +9,16 @@ verify steps: rows of K+1 queries, beside a chunk or alone). They replace
 `dynamo_tpu/ops/pallas_attention.py` and `_ragged_kernel` of
 `dynamo_tpu/ops/ragged_attention.py`; each source's header says what bounds
 it on the H100 and how its design answers that. Below head_dim 640,
-decode and the ragged kernel's decode and verify rows run the tensor-core
-tile (`attend_mma` in `attention_common.cuh`: 64-row query tiles on
-mma.sync, K/V tiles through a cp.async ring), split along their keys, one
-block per (row, span, KV head), the spans merged by a second small
-kernel; prefill, chunk and the ragged kernel's chunk rows (a launch of
+decode and the ragged kernel's decode and verify rows are split along
+their keys, one block per (row, span, KV head), the spans merged by a
+second small kernel; a windowed layer's spans cut the keys its rows can
+see, from each row's window start (`split_plan`, `decode_row_spans`).
+Rows of at most NARROW_ROWS = 16 (decode_q x the group: every decode row)
+run the narrow tile (`attend_narrow` in `attention_common.cuh`: 16 query
+rows on mma.sync, each of its eight warps on a 16-key slice of every
+K/V tile and half of the head's lanes, the tiles through a cp.async
+ring), wider verify windows the 64-row tile (`attend_mma`); prefill,
+chunk and the ragged kernel's chunk rows (a launch of
 chunk.cu's kernel) run the pair tile (`pair_span_block`: two query tiles
 of a KV head a block, S and P V on wgmma, a producer warpgroup copying
 the K/V tiles, or one query tile a block where pairs would leave half the
@@ -95,10 +100,14 @@ LAUNCHES: Dict[str, int] = {
 VARIANT_LAUNCHES: Dict[str, int] = collections.Counter()
 
 # The tensor-core tile of every kernel (attention_common.cuh: kTileRows,
-# tile_head_dim, kKeyTile, kSplitKeys, kSplitBlocksPerSm). The library
-# reports its own values (dtt_chunk_positions, dtt_decode_split_keys) and
-# its entry points refuse a launch that disagrees with them.
+# kNarrowRows, tile_head_dim, kKeyTile, kSplitKeys, kSplitBlocksPerSm).
+# The library reports its own values (dtt_chunk_positions,
+# dtt_decode_split_keys) and its entry points refuse a launch that
+# disagrees with them.
 TILE_ROWS = 64
+# query rows of the narrow decode tile (attend_narrow): decode rows of at
+# most this many rows (decode_q x the GQA group) run it
+NARROW_ROWS = 16
 # the head_dims the kernels take (96 is Phi-3's); LATENT_DIM, MLA's latent
 # row (DeepSeek-V2's 576 lanes padded to 640), runs attention_common.cuh's
 # latent tile, the other five attend_mma (decode rows) and the pair tile
@@ -107,7 +116,7 @@ LATENT_DIM = 640
 TILE_HEAD_DIMS = (32, 64, 96, 128, 256, LATENT_DIM)
 KEY_TILE = 64
 SPLIT_KEYS = 256
-SPLIT_BLOCKS_PER_SM = 4
+SPLIT_BLOCKS_PER_SM = 4  # twice that for windowed rows at head_dim <= 128
 # the latent chunk tile (attention_common.cuh: kChunkKeys, kMaxChunkSpans):
 # keys per K/V tile, and most spans (blocks of one cluster) a query tile
 # is cut into
@@ -271,7 +280,7 @@ def build() -> ctypes.CDLL:
         lib.dtt_pair_query_tiles.restype = ctypes.c_int
         lib.dtt_chunk_max_clusters.argtypes = [i, i]
         lib.dtt_chunk_max_clusters.restype = ctypes.c_int
-        lib.dtt_decode_split_keys.argtypes = [i, i, i, i, i]
+        lib.dtt_decode_split_keys.argtypes = [i, i, i, i, i, i, i, i]
         lib.dtt_decode_split_keys.restype = ctypes.c_longlong
         lib.dtt_latent_decode_spans.argtypes = [i, i, i, i, i, i, i]
         lib.dtt_latent_decode_spans.restype = ctypes.c_int
@@ -401,39 +410,104 @@ def check_decode_rows(decode_q: int, group: int, head_dim: int) -> int:
     return positions
 
 
+def narrow_rows(decode_q: int, group: int, head_dim: int) -> bool:
+    """Whether decode rows of decode_q queries x the GQA group run the
+    narrow tile (attention_common.cuh narrow_rows): below LATENT_DIM, at
+    most NARROW_ROWS rows (every decode row of every preset, and verify
+    windows of small groups); wider rows run the 64-row tile."""
+    return head_dim != LATENT_DIM and decode_q * group <= NARROW_ROWS
+
+
+def plan_keys(width: int, page_size: int, window: int = 0,
+              decode_q: int = 1) -> int:
+    """Keys a decode row's split plan covers from its spans' base
+    (attention_common.cuh decode_plan_keys): the table's width *
+    page_size without a window; under one at most the window + decode_q
+    - 1 keys a row of decode_q queries sees, plus KEY_TILE - 1 for its
+    base's alignment to a key tile, and never more than the table."""
+    keys = width * page_size
+    if window > 0:
+        return min(keys, window + decode_q - 1 + KEY_TILE - 1)
+    return keys
+
+
+def split_blocks_per_sm(window: int, head_dim: int) -> int:
+    """Most decode blocks per SM a split plan makes (attention_common.cuh
+    split_blocks_per_sm): SPLIT_BLOCKS_PER_SM, the table's plan, for a
+    layer without a window; twice that for windowed rows at head_dim <=
+    128, where two narrow-tile blocks share an SM (one fills it at 256)."""
+    if window > 0 and not head_dim:
+        raise ValueError("a windowed decode plan needs the head_dim")
+    if window > 0 and head_dim <= 128:
+        return 2 * SPLIT_BLOCKS_PER_SM
+    return SPLIT_BLOCKS_PER_SM
+
+
 def split_keys(width: int, page_size: int, num_decode: int, num_kv: int,
-               num_sms: int) -> int:
+               num_sms: int, window: int = 0, decode_q: int = 1,
+               head_dim: int = 0) -> int:
     """Keys per split of a decode row (decode.cu, ragged.cu) whose page
     list has `width` pages, from host-known sizes only (the context
     lengths live on the card and are never read back): SPLIT_KEYS, or
     more where that would give num_decode rows x num_kv heads more than
-    SPLIT_BLOCKS_PER_SM decode blocks per SM in all, rounded up to whole
-    KEY_TILEs. So the blocks and the partials' scratch grow with the rows
-    and the card, not with the table's width * page_size keys."""
-    keys = width * page_size
-    cap = max(1, SPLIT_BLOCKS_PER_SM * num_sms // max(1, num_decode * num_kv))
+    split_blocks_per_sm decode blocks per SM in all, rounded up to whole
+    KEY_TILEs, over the plan's plan_keys keys (a windowed layer's: what
+    its rows can see; it needs the head_dim). So the blocks and the
+    partials' scratch grow with the rows and the card, not with the
+    table's width * page_size keys."""
+    keys = plan_keys(width, page_size, window, decode_q)
+    cap = max(1, split_blocks_per_sm(window, head_dim) * num_sms
+              // max(1, num_decode * num_kv))
     n = min(max(1, -(-keys // SPLIT_KEYS)), cap)
     span = -(-keys // n)
     return max(SPLIT_KEYS, -(-span // KEY_TILE) * KEY_TILE)
 
 
 def split_plan(width: int, page_size: int, num_decode: int, num_kv: int,
-               num_sms: int) -> Tuple[int, int]:
-    """(keys per split, splits) of num_decode decode rows over page lists
-    of `width` pages: the plan the library's entry points take."""
-    span = split_keys(width, page_size, num_decode, num_kv, num_sms)
-    return span, -(-(width * page_size) // span)
+               num_sms: int, window: int = 0, decode_q: int = 1,
+               head_dim: int = 0) -> Tuple[int, int]:
+    """(keys per split, splits) of num_decode decode rows of decode_q
+    queries over page lists of `width` pages under `window` (0: none):
+    the plan the library's entry points take. It reads no context
+    length."""
+    span = split_keys(width, page_size, num_decode, num_kv, num_sms, window,
+                      decode_q, head_dim)
+    return span, -(-plan_keys(width, page_size, window, decode_q) // span)
 
 
 def split_spans(width: int, page_size: int, num_decode: int, num_kv: int,
                 num_sms: int) -> List[Tuple[int, int]]:
-    """Key spans [lo, hi) of a decode row's splits: spans of split_keys
-    keys over the table's width * page_size keys, the last cut at the
-    table's end. A split walks its span below its row's horizon (none at
-    all when the span starts past it)."""
+    """Key spans [lo, hi) of an unwindowed decode row's splits: spans of
+    split_keys keys over the table's width * page_size keys, the last cut
+    at the table's end. A split walks its span below its row's horizon
+    (none at all when the span starts past it); decode_row_spans places
+    a windowed row's."""
     keys = width * page_size
     span = split_keys(width, page_size, num_decode, num_kv, num_sms)
     return [(lo, min(lo + span, keys)) for lo in range(0, keys, span)]
+
+
+def decode_row_spans(width: int, page_size: int, num_decode: int,
+                     num_kv: int, num_sms: int, q_start: int, kv_len: int,
+                     window: int = 0, decode_q: int = 1,
+                     head_dim: int = 0) -> List[Tuple[int, int]]:
+    """The keys [lo, hi) each split of one decode row walks, as
+    decode_split_block places them on the card from the row's
+    descriptors (its first query at q_start; decode.cu: kv_len - 1): the
+    base is 0, or under a window the key tile of the first query's first
+    visible key, max(0, q_start - window + 1) rounded down to KEY_TILE;
+    split s covers [base + s * span, base + (s + 1) * span) below the
+    horizon min(q_start + decode_q, kv_len, width * page_size), and from
+    the window's key tile on (attend_narrow's and attend_mma's walk
+    start). A split with no key is (lo, lo)."""
+    span, n = split_plan(width, page_size, num_decode, num_kv, num_sms,
+                         window, decode_q, head_dim)
+    first = max(0, q_start - window + 1) // KEY_TILE * KEY_TILE \
+        if window > 0 else 0
+    horizon = max(0, min(q_start + decode_q, kv_len, width * page_size))
+    return [(first + s * span,
+             max(first + s * span, min(first + (s + 1) * span, horizon)))
+            for s in range(n)]
 
 
 def latent_decode_spans(width: int, page_size: int, num_decode: int,
@@ -509,14 +583,16 @@ def latent_scratch_rows(num_decode: int, decode_q: int, group: int,
 
 
 def decode_plan(width: int, page_size: int, num_decode: int, decode_q: int,
-                group: int, num_kv: int, head_dim: int,
-                num_sms: int) -> Tuple[int, int]:
+                group: int, num_kv: int, head_dim: int, num_sms: int,
+                window: int = 0) -> Tuple[int, int]:
     """(split_keys, splits) the decode entry points take: split_plan below
-    LATENT_DIM, (0, latent_decode_spans) at it."""
+    LATENT_DIM (under the layer's window), (0, latent_decode_spans) at
+    it."""
     if head_dim == LATENT_DIM:
         return 0, latent_decode_spans(width, page_size, num_decode,
                                       decode_q, group, num_kv, num_sms)
-    return split_plan(width, page_size, num_decode, num_kv, num_sms)
+    return split_plan(width, page_size, num_decode, num_kv, num_sms, window,
+                      decode_q, head_dim)
 
 
 def ragged_chunk_spans(c: int, width: int, page_size: int, group: int,
@@ -744,7 +820,7 @@ def paged_attention_decode(q, k_pages, v_pages, block_table, context_lens, *,
     if b == 0:
         return out
     span, n_splits = decode_plan(pmax, page_size, b, 1, group, n_kv, d,
-                                 _num_sms(dev))
+                                 _num_sms(dev), window)
     part_o, part_ml, _part = _split_scratch(
         *_scratch_shape(n_splits, b, 1, group, n_kv, h, d), dev)
     args = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_table),
@@ -920,7 +996,8 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, kv_lens, q_starts, *,
     window, cap, mods = score_mods(window, logit_cap, d)
     width_pages = tables.shape[1]
     span, n_splits = decode_plan(width_pages, page_size, num_decode,
-                                 decode_q, group, n_kv, d, _num_sms(dev))
+                                 decode_q, group, n_kv, d, _num_sms(dev),
+                                 window)
     lib = build()
     out = torch.empty_like(q)
     if total == 0:

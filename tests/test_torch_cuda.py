@@ -234,9 +234,17 @@ def test_tile_limits_agree_with_the_library_and_are_refused(dev):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for width, ps, n_dec, n_kv in ((1, 16, 1, 8), (128, 16, 8, 8),
                                    (143, 16, 3, 2), (7, 4, 1, 1),
-                                   (8192, 16, 8, 8), (2048, 16, 256, 8)):
-        assert lib.dtt_decode_split_keys(width, ps, n_dec, n_kv, sms) == \
-            ca.split_keys(width, ps, n_dec, n_kv, sms)
+                                   (8192, 16, 8, 8), (2048, 16, 256, 8),
+                                   (256, 16, 8, 32), (512, 16, 8, 8)):
+        # windowed layers too: Phi-3's 2047, Gemma-2's 4096 (and its verify
+        # windows of 5), a window of one key, one wider than the table, at
+        # every head_dim below 640
+        for window, dq in ((0, 1), (0, 5), (2047, 1), (4096, 1), (4096, 5),
+                           (1, 1), (100, 4), (1 << 20, 1)):
+            for d in (32, 64, 96, 128, 256):
+                assert lib.dtt_decode_split_keys(width, ps, n_dec, dq, n_kv,
+                                                 d, window, sms) == \
+                    ca.split_keys(width, ps, n_dec, n_kv, sms, window, dq, d)
     pages = torch.ones((4,), dtype=torch.int32, device=dev)
     tables = torch.ones((2, 4), dtype=torch.int32, device=dev)
     lens = torch.tensor([3, 20], dtype=torch.int32, device=dev)
@@ -567,7 +575,15 @@ def test_ragged_kernel_at_the_families_shapes(dev, int8, n_heads, n_kv, d,
                                     "prefill[head_dim=96]",
                                     "chunk[head_dim=96]",
                                     "ragged_verify[head_dim=96]",
-                                    "ragged_verify_int8[head_dim=96]"])
+                                    "ragged_verify_int8[head_dim=96]",
+                                    "decode[window=2047]",
+                                    "decode_int8[window=2047]",
+                                    "ragged_verify[window=2047]",
+                                    "ragged_verify_int8[window=2047]",
+                                    "decode[window=4096,cap=50]",
+                                    "decode_int8[window=4096,cap=50]",
+                                    "ragged_verify[window=4096,cap=50]",
+                                    "ragged_verify_int8[window=4096,cap=50]"])
 def test_kernels_hold_at_large_values(dev, kernel):
     """V scaled by 40 (output rows of RMS near 5 over about 100 keys, as
     the 8B's activations reach at depth): the error of P V grows with a
@@ -579,25 +595,40 @@ def test_kernels_hold_at_large_values(dev, kernel):
     latent chunk tile, the latent decode rows and verify windows) on both
     pools. With Gemma-2's tanh cap at 50 (`[cap=50]`) q is scaled by 6,
     so that scores of tens reach the bend of the cap. At Phi-3's head_dim
-    96 (`[head_dim=96]`: 32 heads on 32 KV heads, group 1)."""
+    96 (`[head_dim=96]`: 32 heads on 32 KV heads, group 1). Under the
+    windowed decode plan (`[window=2047]`: Phi-3's heads and window, q
+    scaled by 2 so that 2047 keys still give rows of RMS near 5;
+    `[window=4096,cap=50]`: Gemma-2-9B's local layers, 16 heads on 8 of
+    256 lanes), at contexts past the window on 4096- and 8192-key
+    tables."""
     ps, n_kv, d, h, big = 16, 8, 128, 32, 40.0
     latent = kernel.endswith("[head_dim=640]")
-    cap = 50.0 if kernel.endswith("[cap=50]") else 0.0
+    cap = 50.0 if kernel.endswith("cap=50]") else 0.0
+    window = 0
+    pool_pages, width, scale_q = 128, 32, 1.0
     if latent:
         n_kv, d, h = 1, 640, 16
     if kernel.endswith("[head_dim=96]"):
         n_kv, d, h = 32, 96, 32
+    if kernel.endswith("[window=2047]"):
+        n_kv, d, h, window, scale_q = 32, 96, 32, 2047, 2.0
+        pool_pages, width = 320, 256
+    if kernel.endswith("[window=4096,cap=50]"):
+        n_kv, d, h, window = 8, 256, 16, 4096
+        pool_pages, width = 520, 512
     kernel = kernel.split("[")[0]
-    qs = 6.0 if cap else 1.0
+    qs = 6.0 if cap else scale_q
     rng = np.random.default_rng(8)
 
     def pools(seed, int8):
-        vals = [_rnd(dev, 128 * ps, n_kv, d, seed=seed).float(),
-                _rnd(dev, 128 * ps, n_kv, d, seed=seed + 1).float() * big]
+        n = pool_pages * ps
+        vals = [_rnd(dev, n, n_kv, d, seed=seed).float(),
+                _rnd(dev, n, n_kv, d, seed=seed + 1).float() * big]
         if int8:
             w = att.kv_lane_width(n_kv, d, True)
-            return [att.pack_kv_rows(x, w).reshape(128, ps, w) for x in vals]
-        return [x.to(torch.bfloat16).reshape(128, ps, n_kv * d)
+            return [att.pack_kv_rows(x, w).reshape(pool_pages, ps, w)
+                    for x in vals]
+        return [x.to(torch.bfloat16).reshape(pool_pages, ps, n_kv * d)
                 for x in vals]
 
     int8 = kernel.endswith("int8")
@@ -613,6 +644,8 @@ def test_kernels_hold_at_large_values(dev, kernel):
         torch.testing.assert_close(out.float(), ref.float(), **TOL)
         return
     mods = dict(logit_cap=cap) if cap else {}
+    if window:
+        mods["window"] = window
     if kernel == "prefill":
         q = (_rnd(dev, 2, 128, h, d, seed=71).float() * qs).bfloat16()
         k = _rnd(dev, 2, 128, n_kv, d, seed=72)
@@ -631,10 +664,14 @@ def test_kernels_hold_at_large_values(dev, kernel):
     elif kernel.startswith("decode"):
         kp, vp = pools(77, int8)
         ctx = [17, 60, 100, 100, 150, 200, 300, 400]
+        if window:  # below, at and past the window, to the table's end
+            ctx = [100, window - 1, window, window + 1, window + 64,
+                   window + 700, width * ps - 1, width * ps]
         q = (_rnd(dev, 8, h, d, seed=79).float() * qs).bfloat16()
-        table = np.zeros((8, 32), np.int32)
+        table = np.zeros((8, width), np.int32)
         for b, n in enumerate(ctx):
-            table[b, :-(-n // ps)] = rng.permutation(127)[:-(-n // ps)] + 1
+            table[b, :-(-n // ps)] = rng.permutation(
+                pool_pages - 1)[:-(-n // ps)] + 1
         args = (torch.tensor(table, device=dev),
                 torch.tensor(ctx, dtype=torch.int32, device=dev))
         out = ca.paged_attention_decode(q, kp, vp, *args, **kw, **mods)
@@ -642,10 +679,13 @@ def test_kernels_hold_at_large_values(dev, kernel):
     else:
         kp, vp = pools(80, int8)
         positions = [12, 60, 95, 200, 300, 400, 0, 100]
-        table = np.zeros((8, 32), np.int32)
+        if window:
+            positions = [0, 100, window - 3, window, window + 61,
+                         window + 700, width * ps - 6, width * ps - 5]
+        table = np.zeros((8, width), np.int32)
         for b, p in enumerate(positions):
             n = -(-(p + 5) // ps)
-            table[b, :n] = rng.permutation(127)[:n] + 1
+            table[b, :n] = rng.permutation(pool_pages - 1)[:n] + 1
         q = (_rnd(dev, 8, 5, h, d, seed=82).float() * qs).bfloat16()
         args = (torch.tensor(table, device=dev),
                 torch.tensor(positions, dtype=torch.int32, device=dev))
@@ -854,6 +894,64 @@ def test_phi3_window_matches_plain(dev, kernel, window):
                                                         else "")
     assert ca.VARIANT_LAUNCHES[f"{name}[window]"] >= 1
     assert ca.VARIANT_LAUNCHES[f"{name}[head_dim=96]"] >= 1
+
+
+# the windowed decode rows' shapes: Phi-3 (32 heads on 32 KV heads of 96
+# lanes, window 2047, 4096-key tables) and Gemma-2-9B's local layers (16 on
+# 8 of 256, window 4096, cap 50, 8192-key tables)
+WINDOWED_SHAPES = {"phi3": (32, 32, 96, 2047, 0.0, 256),
+                   "gemma2": (16, 8, 256, 4096, 50.0, 512)}
+
+
+def _edge_contexts(window, span, ps, keys):
+    """Decode contexts at a windowed row's edges: below the window, at it
+    and one past, where the window's first key falls on a key tile, a
+    page and a span of the plan (and one key either side), and the
+    table's end."""
+    ctx = {1, 100, window - 1, window, window + 1, keys - 1, keys}
+    for edge in (ca.KEY_TILE, ps, span, 2 * span):
+        ctx |= {window + edge - 1, window + edge, window + edge + 1}
+    return sorted(c for c in ctx if 1 <= c <= keys)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("shape", sorted(WINDOWED_SHAPES))
+def test_windowed_decode_rows_hold_at_the_window_edges(dev, shape, int8):
+    """decode.cu's rows and ragged.cu's decode rows (beside a chunk) at
+    Phi-3's and Gemma-2's shapes under the window-relative plan, at the
+    contexts where a row one key short or one key long would show,
+    against the plain decode attention; a ragged decode row equals
+    decode.cu's bit for bit (the same blocks under the same plan), and
+    the plan is the library's."""
+    h, n_kv, d, window, cap, width = WINDOWED_SHAPES[shape]
+    ps, sms = 16, torch.cuda.get_device_properties(dev).multi_processor_count
+    keys = width * ps
+    span, _ = ca.split_plan(width, ps, 8, n_kv, sms, window, 1, d)
+    ctx = _edge_contexts(window, span, ps, keys)
+    mods = dict(window=window, logit_cap=cap)
+    kw = dict(page_size=ps, num_kv_heads=n_kv)
+    pages = width + 8
+    for i in range(0, len(ctx), 8):
+        rows = ctx[i:i + 8]
+        q, kp, vp, table, cl = _decode_inputs(
+            dev, int8, h, n_kv, d, rows, width, pages=pages * len(rows),
+            seed=130 + i)
+        q = (q.float() * (4.0 if cap else 1.0)).bfloat16()
+        n = len(rows)
+        out = ca.paged_attention_decode(q, kp, vp, table, cl, **kw, **mods)
+        ref = att.paged_attention_decode_ref(q, kp, vp, table, cl, **kw,
+                                             **mods)
+        torch.testing.assert_close(out.float(), ref.float(), **TOL)
+        # the same rows in a mixed step beside a 256-token chunk at 512
+        tables = torch.zeros((n + 1, width), dtype=torch.int32, device=dev)
+        tables[:n] = table
+        tables[n, :48] = torch.arange(1, 49, device=dev)
+        kv_lens = torch.cat([cl, cl.new_tensor([768])])
+        q_starts = torch.cat([cl - 1, cl.new_tensor([512])])
+        qr = torch.cat([q, _rnd(dev, 256, h, d, seed=140 + i)])
+        rag = ca.ragged_paged_attention(qr, kp, vp, tables, kv_lens,
+                                        q_starts, num_decode=n, **kw, **mods)
+        assert torch.equal(rag[:n], out)
 
 
 def test_latent_kernels_refuse_window_and_cap(dev):

@@ -1,4 +1,5 @@
-"""The port stands alone: no file of dynamo_tpu_torch/ (nor chip_smoke.py)
+"""The port stands alone: no file of dynamo_tpu_torch/ (nor chip_smoke.py,
+nor decode_probe.py)
 imports jax or the JAX package, and importing the worker loads no jax."""
 
 import ast
@@ -13,7 +14,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
     str(p.relative_to(ROOT))
-    for p in (ROOT / "dynamo_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
+    for p in (ROOT / "dynamo_tpu_torch").rglob("*.py")) + [
+        "chip_smoke.py", "decode_probe.py"]
 
 
 @pytest.fixture(scope="module", autouse=True)

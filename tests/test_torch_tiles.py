@@ -22,6 +22,17 @@ the CPU.
   queries at ctx - 1). Rows: context 0, spans that see no key, rows ending
   on a split boundary (256) and one key past it (257), a full table.
   Tolerance 1e-5: all are f32, and only the order of the sums differs.
+- The windowed decode plan (`plan_keys`, `split_plan` with the layer's
+  window, `decode_row_spans`): each row's spans cut the keys it can see
+  from its own window start; at contexts around the window and where its
+  start falls on a key tile, a page or a span, each (query, key inside
+  its window) pair is walked once, nothing below the window's key tile
+  and no page past the table is read, the plan reads no context length,
+  and an unwindowed layer keeps the table's plan. A plain f32 model of
+  the windowed spans and their merge equals the plain decode attention
+  and the JAX package's `paged_attention_decode_xla` with `window`
+  (windows of 1, 5 and one past a span; tolerance 1e-5). Every preset's
+  decode rows fit the narrow tile (`narrow_rows`).
 - chunk.cu at head_dim 640 (`chunk_spans`, `chunk_span_keys`): each query
   tile's keys cut into spans, one block each, merged in the query tile's
   cluster. The plan walks every visible pair once for C in {1, 88, 256}
@@ -41,13 +52,17 @@ the CPU.
   distinct K and V and with K the same tensor as V (tolerance 1e-5).
 """
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dynamo_tpu.ops import attention as jatt
 from dynamo_tpu.ops import pallas_attention as pa
 from dynamo_tpu.ops import ragged_attention as ra
+from dynamo_tpu_torch.models.config import PRESETS
 from dynamo_tpu_torch.ops import attention as att
 from dynamo_tpu_torch.ops import cuda_attention as ca
 
@@ -394,6 +409,236 @@ def test_split_merge_matches_plain_and_pallas_decode(quantized, sms):
         jnp.asarray(table), jnp.asarray(cl), page_size=ps,
         num_kv_heads=n_kv, interpret=True)
     np.testing.assert_allclose(out.numpy(), np.asarray(pallas), **TOL)
+
+
+@pytest.mark.parametrize("name", sorted(PRESETS))
+def test_every_presets_decode_rows_run_the_narrow_tile(name):
+    """Every decode row of every preset below head_dim 640 fits the
+    narrow decode tile's 16 rows (its GQA group is 1 to 8), and so do its
+    verify windows of K + 1 = 5 queries up to a group of 3; wider verify
+    windows (the 8B's 5 x 4) run the 64-row tile."""
+    cfg = PRESETS[name]
+    if cfg.kv_lora_rank:  # MLA: every head on one latent row, the latent tile
+        assert not ca.narrow_rows(1, cfg.num_heads, ca.LATENT_DIM)
+        return
+    group, d = cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
+    assert ca.narrow_rows(1, group, d) and group <= 8
+    assert ca.narrow_rows(5, group, d) == (5 * group <= ca.NARROW_ROWS)
+    assert ca.narrow_rows(ca.NARROW_ROWS // group, group, d)
+    assert not ca.narrow_rows(ca.NARROW_ROWS // group + 1, group, d)
+
+
+def _table_plan(width, ps, num_decode, n_kv, sms):
+    """The split plan as it was cut from the table alone, before windows
+    had plans of their own: an unwindowed layer keeps it."""
+    keys = width * ps
+    cap = max(1, ca.SPLIT_BLOCKS_PER_SM * sms // max(1, num_decode * n_kv))
+    n = min(max(1, -(-keys // ca.SPLIT_KEYS)), cap)
+    span = max(ca.SPLIT_KEYS, -(-(-(-keys // n)) // ca.KEY_TILE)
+               * ca.KEY_TILE)
+    return span, -(-keys // span)
+
+
+def _window_contexts(window, span, ps, keys):
+    """Contexts that put a windowed decode row's edges where an
+    off-by-one would show: below the window (1, window - 1), at it and one
+    past it, and where the first visible key (ctx - window) falls on a key
+    tile, a page and the plan's span, or one past them; cut at the
+    table's end (a context past it too)."""
+    ctx = {0, 1, window - 1, window, window + 1, keys, keys + 5}
+    for edge in (ca.KEY_TILE, 2 * ca.KEY_TILE, ps, 3 * ps, span, 2 * span):
+        ctx |= {window + edge - 1, window + edge, window + edge + 1}
+    return sorted(c for c in ctx if 0 <= c <= keys + 5)
+
+
+WINDOWED_PLANS = [
+    # (width, ps, n_kv, head_dim, sms, window, decode_q, span, splits)
+    (256, 16, 32, 96, H100_SMS, 2047, 1, 576, 4),   # Phi-3's 4096-key tables
+    (512, 16, 8, 256, H100_SMS, 4096, 1, 576, 8),   # Gemma-2's 8192-key ones
+    (512, 16, 8, 256, H100_SMS, 4096, 5, 576, 8),   # its verify windows
+    (128, 16, 8, 128, H100_SMS, 100, 1, 256, 1),    # a window of 100 keys
+    (64, 16, 4, 64, 3, 300, 1, 384, 1),             # a small card
+    (40, 16, 2, 32, H100_SMS, 257, 4, 256, 2),      # one past a 256-key span
+    (20, 16, 2, 32, H100_SMS, 1, 1, 256, 1),        # a window of one key
+    (5, 4, 2, 32, H100_SMS, 5, 2, 256, 1),          # a table under one tile
+    (8, 16, 2, 256, H100_SMS, 4096, 1, 256, 1)]     # a window past the table
+
+
+@pytest.mark.parametrize(
+    "width,ps,n_kv,head_dim,sms,window,decode_q,span,splits", WINDOWED_PLANS)
+def test_windowed_decode_plan_walks_each_key_in_the_window_once(
+        width, ps, n_kv, head_dim, sms, window, decode_q, span, splits):
+    """decode.cu's and ragged.cu's split plan under a sliding window: the
+    spans cut the window + decode_q - 1 keys a row sees (and a key tile
+    for their base's alignment), from each row's own window start, read
+    on the card (decode_row_spans, decode_split_block's placement). For
+    contexts at and around the window and at the key-tile, page and span
+    edges of its start: each (query, key inside its window) pair is
+    walked by exactly one block, no block walks a key below the key tile
+    of its row's first visible key or reads a page past the table's
+    width, and every block's keys lie in one span of the plan. The
+    launch stays within split_blocks_per_sm blocks an SM (8 at head_dim
+    <= 128, where two narrow blocks share one; 4 at 256)."""
+    keys = width * ps
+    assert ca.split_plan(width, ps, 8, n_kv, sms, window, decode_q,
+                         head_dim) == (span, splits)
+    per_sm = ca.split_blocks_per_sm(window, head_dim)
+    assert per_sm == (8 if head_dim <= 128 else 4)
+    assert 8 * n_kv * splits <= max(8 * n_kv, per_sm * sms)
+    assert span % ca.KEY_TILE == 0 and span >= ca.SPLIT_KEYS
+    covered = ca.plan_keys(width, ps, window, decode_q)
+    assert covered <= min(keys, window + decode_q - 1 + ca.KEY_TILE - 1)
+    assert splits == -(-covered // span)
+    for kv_len in _window_contexts(window, span, ps, keys):
+        q_start = max(kv_len - decode_q, 0)
+        kv_len = max(kv_len, q_start + decode_q) if kv_len else 0
+        spans = ca.decode_row_spans(width, ps, 8, n_kv, sms, q_start, kv_len,
+                                    window, decode_q, head_dim)
+        assert len(spans) == splits
+        first = max(0, q_start - window + 1) // ca.KEY_TILE * ca.KEY_TILE
+        count = np.zeros((decode_q, keys), np.int64)
+        for s, (lo, hi) in enumerate(spans):
+            assert lo == first + s * span and lo <= hi <= lo + span
+            assert hi <= keys  # no page past the table's width is read
+            assert lo >= first  # nothing below the window's key tile
+            count += _walked(lo, hi, q_start, decode_q, min(kv_len, keys),
+                             keys)
+        pos = q_start + np.arange(decode_q)[:, None]
+        tok = np.arange(keys)[None]
+        inside = (_visible(q_start, decode_q, min(kv_len, keys), keys)
+                  & (tok > pos - window))
+        # the walk masks what lies below each query's window: the pairs
+        # it walks there are the masked ones, never a second visit
+        assert (count[inside] == 1).all() and (count <= 1).all()
+        assert (count[~_visible(q_start, decode_q, min(kv_len, keys),
+                                keys)] == 0).all()
+
+
+@pytest.mark.parametrize("width,ps,num_decode,n_kv,sms", [
+    (1, 16, 1, 1, H100_SMS), (128, 16, 8, 8, H100_SMS),
+    (256, 16, 8, 32, H100_SMS), (512, 16, 8, 8, H100_SMS),
+    (8192, 16, 8, 8, H100_SMS), (2048, 16, 256, 8, H100_SMS),
+    (40, 16, 6, 2, 3), (5, 4, 2, 2, H100_SMS)])
+def test_decode_plan_reads_no_context_and_keeps_unwindowed_layers(
+        width, ps, num_decode, n_kv, sms):
+    """The split plan is a function of host sizes only (the table's
+    width, page size, rows, decode_q, KV heads, SM count and the layer's
+    window: CUDA-graph capture replays it at any context), and a layer
+    without a window keeps the plan cut from the table, span for span,
+    for decode rows and verify windows alike."""
+    params = set(inspect.signature(ca.split_plan).parameters)
+    assert params == {"width", "page_size", "num_decode", "num_kv",
+                      "num_sms", "window", "decode_q", "head_dim"}
+    old = _table_plan(width, ps, num_decode, n_kv, sms)
+    for decode_q in (1, 5):
+        assert ca.split_plan(width, ps, num_decode, n_kv, sms, 0,
+                             decode_q) == old
+        assert ca.decode_plan(width, ps, num_decode, decode_q, 4, n_kv, 128,
+                              sms) == old
+        for kv_len in (0, 1, width * ps // 2, width * ps):
+            q_start = max(kv_len - decode_q, 0)
+            spans = ca.decode_row_spans(width, ps, num_decode, n_kv, sms,
+                                        q_start, kv_len, 0, decode_q)
+            hor = min(q_start + decode_q, kv_len, width * ps)
+            assert spans == [(s * old[0], max(s * old[0],
+                                              min((s + 1) * old[0], hor)))
+                             for s in range(old[1])]
+        for head_dim in (32, 64, 96, 128, 256):
+            assert ca.split_plan(width, ps, num_decode, n_kv, sms, 0,
+                                 decode_q, head_dim) == old
+    # a window as wide as the table at head_dim 256 plans as no window
+    # does; a windowed plan needs the head_dim
+    assert ca.split_plan(width, ps, num_decode, n_kv, sms,
+                         width * ps + ca.KEY_TILE, 1, 256) == old
+    with pytest.raises(ValueError, match="head_dim"):
+        ca.split_plan(width, ps, num_decode, n_kv, sms, 100)
+
+
+def _windowed_partials(q, k_pages, v_pages, table, ctx, window, sms, *,
+                       page_size, num_kv_heads):
+    """decode.cu's blocks under a window in plain f32: per row, split and
+    head the unnormalized partial over the keys decode_row_spans gives
+    the split (the row's query at ctx - 1 sees keys ctx - window ..
+    ctx - 1), as _partials -> o [S, B, H, D], m and l [S, B, H]."""
+    b, h, d = q.shape
+    g = h // num_kv_heads
+    k = att._paged_kv(k_pages, table, num_kv_heads, d)  # [B, KV, T, D]
+    v = att._paged_kv(v_pages, table, num_kv_heads, d)
+    width = table.shape[1]
+    n = ca.split_plan(width, page_size, b, num_kv_heads, sms, window, 1,
+                      d)[1]
+    o = torch.zeros((n, b, h, d))
+    m = torch.full((n, b, h), float("-inf"))
+    l = torch.zeros((n, b, h))
+    for r in range(b):
+        c = int(ctx[r])
+        spans = ca.decode_row_spans(width, page_size, b, num_kv_heads, sms,
+                                    c - 1, c, window, 1, d)
+        qr = q[r].float().reshape(num_kv_heads, g, d)
+        for s, (lo, hi) in enumerate(spans):
+            tok = torch.arange(lo, hi)
+            tok = tok[tok > c - 1 - window]
+            if not len(tok):
+                continue
+            sc = torch.einsum("kgd,ktd->kgt", qr, k[r][:, tok]) \
+                * (d ** -0.5 * LOG2E)
+            mm = sc.amax(-1)
+            p = torch.exp2(sc - mm[..., None])
+            m[s, r] = mm.reshape(h)
+            l[s, r] = p.sum(-1).reshape(h)
+            o[s, r] = torch.einsum("kgt,ktd->kgd", p,
+                                   v[r][:, tok]).reshape(h, d)
+    return o, m, l
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 3], ids=["h100", "small_card"])
+@pytest.mark.parametrize("quantized", [False, True],
+                         ids=["f32_pool", "int8_pool"])
+@pytest.mark.parametrize("window", [1, 5, 257],
+                         ids=["w1", "w5", "one_past_a_span"])
+def test_split_merge_matches_plain_and_xla_windowed_decode(window,
+                                                           quantized, sms):
+    """decode.cu's rows under a sliding window: the split-and-merge model
+    over the window-relative spans (decode_row_spans) against the plain
+    decode attention and the JAX package's paged_attention_decode_xla
+    with `window`, on f32 and int8 pools. Windows of 1 and 5 keys and
+    one past a 256-key span (two spans on the H100); rows below the
+    window, at it and one past it, whose window starts on a key tile, a
+    page or a span boundary, and at context 0 (exact zeros; the XLA
+    reference gives such a row the mean of V, so it is left out there)."""
+    h, n_kv, d, ps, width = 4, 2, 32, 16, 40  # 640 keys
+    rng = np.random.default_rng(41)
+    kp, vp = _pools(rng, quantized, 400, n_kv, d, ps)
+    ctx = sorted({c for c in (0, 1, window - 1, window, window + 1,
+                              window + 16, window + 63, window + 64,
+                              window + 256, width * ps)
+                  if 0 <= c <= width * ps})
+    table = np.zeros((len(ctx), width), np.int32)
+    perm = rng.permutation(399) + 1
+    used = 0
+    for r, n in enumerate(ctx):
+        k = -(-n // ps)
+        table[r, :k] = perm[used:used + k]
+        used += k
+    cl = np.array(ctx, np.int32)
+    q = rng.normal(size=(len(ctx), h, d)).astype(np.float32)
+    tq, tt, tc = torch.from_numpy(q), torch.from_numpy(table), \
+        torch.from_numpy(cl)
+    kw = dict(page_size=ps, num_kv_heads=n_kv)
+    o, m, l = _windowed_partials(tq, kp, vp, tt, tc, window, sms, **kw)
+    n_splits = ca.split_plan(width, ps, len(ctx), n_kv, sms, window, 1,
+                             d)[1]
+    assert o.shape[0] == n_splits == (2 if window == 257 and sms == H100_SMS
+                                      else 1)
+    out = _merge(o, m, l)
+    assert not out[0].any()  # context 0: exact zeros
+    ref = att.paged_attention_decode_ref(tq, kp, vp, tt, tc, window=window,
+                                         **kw)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **TOL)
+    xla = jatt.paged_attention_decode_xla(
+        jnp.asarray(q), jnp.asarray(kp.numpy()), jnp.asarray(vp.numpy()),
+        jnp.asarray(table), jnp.asarray(cl), window=jnp.int32(window), **kw)
+    np.testing.assert_allclose(out[1:].numpy(), np.asarray(xla)[1:], **TOL)
 
 
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
