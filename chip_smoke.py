@@ -21,6 +21,7 @@
     python3 chip_smoke.py --profile-lead      # phase 1, then profiler
                                               # sessions with and without
                                               # `traced`'s opening kernels
+    python3 chip_smoke.py --lifecycle         # phases 1-2 and 17
 
 (`--kernels-only`, `--window-profile` and the `--mla-*` options time the
 package beside the script, so a copy of it in an older checkout compares
@@ -386,15 +387,15 @@ on failure:
    beside the lora_slots=0 engine's step.
 16. The worker's observability plane, last on the 8B's weights, after a
    profiler run that starts CUPTI (its first start takes seconds and
-   leaves launches slower, so every run serves in that state): four
+   leaves launches slower, so every run serves in that state): two
    jetstream graph-window engines in turn, each warmed up, behind the
    worker with VisibleTokenizer, serving phase 5's four concurrent
    requests and OBS_STREAMS (16) streamed chats of 128 tokens,
    OBS_CONCURRENT (4) at a time, with `/metrics` scraped before and
    after; the plane's switches (DYNAMO_TPU_TRACE, DYNAMO_TPU_TIMELINE,
-   DYNAMO_TPU_FLIGHT_RECORDS, read when an engine is built) off, on, off
-   and on, TTFT, mean ITL and tokens per second of the streams and the
-   live MFU/MBU printed for each (`observability_cost`). The first run
+   DYNAMO_TPU_FLIGHT_RECORDS, read when an engine is built) off, then on
+   (one pair: phase 17 takes the time of a second), TTFT, mean ITL and
+   tokens per second of the streams and the live MFU/MBU printed for each (`observability_cost`). The first run
    with the plane on is checked (`observability`), and fails unless: the
    scrapes parse, their buckets are cumulative with +Inf equal to _count
    (this script's own check) and the OpenMetrics one carries exemplars
@@ -413,7 +414,35 @@ on failure:
    phase 16's four streams on one such engine, a 1 s /debug/trace in
    three of every four, each wave's seconds (`trace_stress`); a wave
    that outlasts OBS_WAVE_S (120 s) fails, as in phase 16.
-17. A `kernels` JSON line (launches summed over the served phases, graph
+17. The worker's lifecycle (`lifecycle_phase`), last on the 8B's weights:
+   one jetstream graph-window worker (8-step windows, with chunks of 256
+   and prefix caching) behind the OpenAI server with VisibleTokenizer, and
+   first, for reference, an engine booted on the second weight version
+   (the 8B drawn from LC_V2_SEED), freed before v2 is staged. Every run
+   of the four greedy LC_PROMPTS (LC_TOKENS tokens) admits them together,
+   one batched prefill. It fails unless: a request with `x-deadline: 0`
+   gets 504 and takes no slot; with `engine.device_nan` armed the lead
+   lane ends with finish "error" and no text, the other three equal the
+   fault-free run, `dynamo_engine_integrity_faults_total` is 1 and the
+   health stays healthy; a 1 s /debug/trace beside two streams with the
+   derived deadline armed (the seams' EWMA x 20, at least 2 s) trips
+   nothing (CUPTI was started in phase 16); `/internal/rollout` stages v2 (its GiB and seconds printed), a v1
+   prefix-cache hit happens, a finish-mode flip with four v1 streams in
+   flight arms, they finish with the v1 tokens, the four admissions held
+   meanwhile decode v2's reference tokens on graph replays (decode
+   launches above 0), a v1 prefix misses under v2, and a rollback gives
+   the v1 tokens again (the flip's and the rollback's ms under the lock
+   printed); with the deadline at LC_STEP_DEADLINE_S (1 s) and
+   `engine.device_hang` queueing LC_HANG_S (3 s) of device spin, the
+   watchdog trips, `/ready` answers 503 and `/live` 200 within 100 ms
+   each while the card spins, `/v1/*` sheds 503, the engine resurrects
+   in place (its seconds printed) and `/ready` returns to 200, and the
+   four prompts give the v1 tokens on graph replays; `/internal/drain`
+   with four streams in flight sheds a new request with 503 while the
+   four finish with the v1 tokens (the drain's seconds printed); a second
+   hang inside the quarantine window quarantines the worker (`/ready`
+   503). The phase's seconds are printed.
+18. A `kernels` JSON line (launches summed over the served phases, graph
    replays included; the verify windows, at decode_q = 5 with and without
    a chunk, decode at head_dim 64, the kernels at head_dim 256, at group
    7 and at group 8 counted as rows of their own: the head_dim 256 rows
@@ -452,6 +481,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -5606,9 +5636,8 @@ def obs_serve(engine: Engine, checked: bool) -> dict:
 
 def observability_phase(engine: Engine, jet_cfg: dict) -> dict:
     """Phase 16 (see the module doc): the same traffic with the plane's
-    switches off, then on and checked, then off and on again, for the
-    plane's served cost; each run on a fresh graph-window engine over the
-    8B's weights."""
+    switches off, then on and checked, for the plane's served cost; each
+    run on a fresh graph-window engine over the 8B's weights."""
     from torch.profiler import ProfilerActivity, profile
 
     # the profiler's first start in a process takes seconds (CUPTI's
@@ -5619,7 +5648,7 @@ def observability_phase(engine: Engine, jet_cfg: dict) -> dict:
         pass
     emit({"phase": "profiler_init", "seconds": time.monotonic() - t0})
     runs = []
-    for plane in ("off", "on", "off", "on"):
+    for plane in ("off", "on"):
         checked = len(runs) == 1  # the first run with the plane on
         saved = {k: os.environ.get(k) for k in OBS_SWITCHES}
         if plane == "off":
@@ -5676,19 +5705,321 @@ def trace_stress(jet_cfg: dict) -> None:
         for k, c in (("capture_wave_s", True), ("plain_wave_s", False))}})
 
 
+# ------------------------------------------------------------- phase 17 --
+
+# phase 17's greedy completions: four prompts of one length (one batched
+# prefill when they queue together), each token one character
+# (VisibleTokenizer), so a response's text is its token ids
+LC_PROMPTS = [f"Lifecycle probe {i}: drain, flip, trip and resurrect."[:48]
+              .ljust(48, ".") for i in range(4)]
+LC_TOKENS = 32
+LC_PREFIX = "A prompt the prefix cache keeps across its pages. " * 3
+LC_TRACE_TOKENS = 96
+LC_V2_SEED = 1  # the second weight version: the 8B drawn from this seed
+LC_STEP_DEADLINE_S = 1.0  # DYNAMO_TPU_STEP_DEADLINE_S for the hang drill
+LC_HANG_S = 3.0  # engine.device_hang's device spin
+LC_PROBE_S = 0.1  # /ready and /live must answer within this while it spins
+
+
+def lc_body(prompt: str, max_tokens: int = LC_TOKENS, **kw) -> dict:
+    return dict(model=MODEL, prompt=prompt, max_tokens=max_tokens,
+                temperature=0.0, ignore_eos=True, **kw)
+
+
+def lc_status(url: str, body: dict = None, headers=None) -> tuple:
+    """(HTTP status, seconds) of a GET (no body) or POST, errors too."""
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            r.read()
+            return r.status, time.monotonic() - t0
+    except urllib.error.HTTPError as e:
+        e.read()
+        return e.code, time.monotonic() - t0
+
+
+def lc_submit(engine: Engine, base: str, prompts) -> tuple:
+    """Queue greedy completions of `prompts` so that they admit together
+    (one batched prefill, as every run of them here): the scheduler held
+    between two steps while they arrive, in order, and the prefix cache
+    emptied first. -> (threads, results) for lc_collect."""
+    results = [None] * len(prompts)
+
+    def one(i):
+        results[i] = post(base + "/v1/completions", lc_body(prompts[i]),
+                          False)
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    with engine.between_steps():
+        if engine.prefix_cache is not None:
+            engine.prefix_cache.evict(engine.cfg.num_pages)
+        n0 = len(engine.pending)
+        for i, t in enumerate(threads):
+            t.start()
+            deadline = time.monotonic() + 30
+            while len(engine.pending) < n0 + i + 1:
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase 17: a request never queued")
+                time.sleep(0.001)
+    return threads, results
+
+
+def lc_collect(submitted: tuple) -> list:
+    """[(text, finish_reason)] of lc_submit's completions."""
+    threads, results = submitted
+    for t in threads:
+        t.join(timeout=120)
+    out = []
+    for r in results:
+        if r is None or r[0] != 200:
+            raise AssertionError(f"phase 17: a completion failed: {r}")
+        choice = r[1]["choices"][0]
+        out.append((choice["text"], choice["finish_reason"]))
+    return out
+
+
+def lc_wait(cond, timeout: float, what: str) -> float:
+    """Seconds until cond() holds; raises after `timeout`."""
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"phase 17: {what} within {timeout} s")
+        time.sleep(0.005)
+    return time.monotonic() - t0
+
+
+def lifecycle_phase(engine: Engine, jet_cfg: dict) -> dict:
+    """Phase 17 (see the module doc): the worker's lifecycle on one
+    graph-window worker over HTTP, on the 8B's weights."""
+    from dynamo_tpu_torch.robustness import faults
+
+    t_phase = time.monotonic()
+    cfg = dict(jet_cfg, prefill_chunk_tokens=CHUNK,
+               enable_prefix_caching=True)
+    errors, out = [], {}
+    # v2's greedy tokens from an engine booted on it, freed before v2 is
+    # staged beside v1
+    ref = Engine(EngineConfig(**dict(cfg, seed=LC_V2_SEED)))
+    ref.warmup()
+    with serving(ref, VisibleTokenizer(), utilization=False) as base:
+        v2_ref = lc_collect(lc_submit(ref, base, LC_PROMPTS))
+    del ref
+    release()
+    eng = Engine(EngineConfig(**cfg), params=engine.model)
+    eng.warmup()
+    wd, wm = eng.watchdog, eng.weights
+    plane = faults.reset_plane()
+    try:
+        with serving(eng, VisibleTokenizer(), utilization=False) as base:
+            # a spent x-deadline: 504 before any slot
+            n0 = eng.metrics.num_requests
+            code, _ = lc_status(base + "/v1/completions", lc_body("late"),
+                                {"x-deadline": "0"})
+            out["deadline"] = {"status": code,
+                               "admitted": eng.metrics.num_requests - n0}
+            if code != 504 or eng.metrics.num_requests != n0:
+                errors.append(f"deadline: {out['deadline']}")
+
+            # the NaN sentinel: the lead lane of a batched prefill
+            v1_ref = lc_collect(lc_submit(eng, base, LC_PROMPTS))
+            plane.configure({"engine.device_nan": {"times": 1}})
+            got = lc_collect(lc_submit(eng, base, LC_PROMPTS))
+            plane.clear()
+            faults_n = samples(scrape(base)).get(
+                ("dynamo_engine_integrity_faults_total",
+                 (("sentinel", "logits"),)))
+            out["integrity"] = {"lead": got[0], "others_equal":
+                                got[1:] == v1_ref[1:], "faults": faults_n,
+                                "health": wd.health}
+            if (got[0] != ("", "error") or got[1:] != v1_ref[1:]
+                    or faults_n != 1 or wd.health != "healthy"):
+                errors.append(f"integrity: {out['integrity']}")
+
+            # a 1 s /debug/trace beside two streams, the derived deadline
+            # armed (no override): no trip
+            trips0 = dict(wd.summary()["trips_total"])
+            streams = [None, None]
+
+            def stream_one(i):
+                streams[i] = post(base + "/v1/completions",
+                                  lc_body(LC_PROMPTS[i], LC_TRACE_TOKENS,
+                                          stream=True), True)
+
+            ts = [threading.Thread(target=stream_one, args=(i,),
+                                   daemon=True) for i in range(2)]
+            t0 = time.monotonic()
+            for t in ts:
+                t.start()
+            with urllib.request.urlopen(base + "/debug/trace?duration_s=1",
+                                        timeout=120) as r:
+                trace_bytes = len(r.read())
+            for t in ts:
+                t.join(timeout=120)
+            summ = wd.summary()
+            out["profiler"] = {
+                "seconds": time.monotonic() - t0, "trace_bytes": trace_bytes,
+                "trips": summ["trips_total"], "deadline_s": summ["deadline_s"],
+                "ewma_s": summ["ewma_s"], "derived": wd.derive_deadline
+                and wd._deadline_override is None,
+                "streams_ok": all(s is not None and s[0] == 200
+                                  and s[1][-1] == "[DONE]" for s in streams)}
+            if (summ["trips_total"] != trips0 or wd.health != "healthy"
+                    or not out["profiler"]["derived"]
+                    or not out["profiler"]["streams_ok"]):
+                errors.append(f"profiler: {out['profiler']}")
+
+            # the rollout: stage v2 beside v1
+            ro = base + "/internal/rollout"
+            staged = post(ro, {"action": "stage", "version": "v2",
+                               "seed": LC_V2_SEED}, False)[1]
+            # a prefix hit under v1
+            hits0 = eng.prefix_cache.stats()["hits"]
+            for _ in range(2):
+                post(base + "/v1/completions", lc_body(LC_PREFIX, 4), False)
+            v1_hits = eng.prefix_cache.stats()["hits"] - hits0
+            # four v1 streams in flight, then a finish-mode flip: armed
+            inflight = lc_submit(eng, base, LC_PROMPTS)
+            lc_wait(lambda: len(eng.seqs) == len(LC_PROMPTS), 30,
+                    "the v1 streams did not start")
+            flip = post(ro, {"action": "flip"}, False)[1]
+            launches0, replays0 = dict(ca.LAUNCHES), \
+                eng.windows.stats()["replays"]
+            held = lc_submit(eng, base, LC_PROMPTS)
+            v1_got, v2_got = lc_collect(inflight), lc_collect(held)
+            flip_ms = wm.last_swap_ms
+            v2_launches = ca.LAUNCHES["decode"] - launches0["decode"]
+            v2_replays = eng.windows.stats()["replays"] - replays0
+            hits1 = eng.prefix_cache.stats()["hits"]
+            post(base + "/v1/completions", lc_body(LC_PREFIX, 4), False)
+            v2_hit = eng.prefix_cache.stats()["hits"] - hits1
+            back = post(ro, {"action": "rollback"}, False)[1]
+            rollback_ms = wm.last_swap_ms
+            v1_again = lc_collect(lc_submit(eng, base, LC_PROMPTS))
+            out["rollout"] = {
+                "stage_gib": staged["bytes"] / 2**30,
+                "stage_s": staged["seconds"], "flip": flip["state"],
+                "flip_ms": flip_ms, "rollback_ms": rollback_ms,
+                "inflight_on_v1": v1_got == v1_ref,
+                "admissions_on_v2": v2_got == v2_ref,
+                "v2_differs": v2_ref != v1_ref,
+                "v2_decode_launches": v2_launches, "v2_replays": v2_replays,
+                "rollback_on_v1": v1_again == v1_ref,
+                "version": back["version"], "v1_prefix_hits": v1_hits,
+                "v2_prefix_hits": v2_hit}
+            r = out["rollout"]
+            if (r["flip"] != "armed" or not r["inflight_on_v1"]
+                    or not r["admissions_on_v2"] or not r["v2_differs"]
+                    or r["v2_decode_launches"] <= 0 or r["v2_replays"] <= 0
+                    or not r["rollback_on_v1"] or r["version"] != "v0"
+                    or r["v1_prefix_hits"] < 1 or r["v2_prefix_hits"] != 0):
+                errors.append(f"rollout: {r}")
+            release()  # the rolled-back buffer
+
+            # a hung device seam: DYNAMO_TPU_STEP_DEADLINE_S's value on the
+            # live watchdog, then LC_HANG_S of device spin (once the trace's
+            # exemption has run out)
+            lc_wait(lambda: not wd.quiet(), 30, "the exemption did not end")
+            wd._deadline_override = LC_STEP_DEADLINE_S
+            plane.configure({"engine.device_hang": {"times": 1,
+                                                    "delay_s": LC_HANG_S}})
+            hung = threading.Thread(target=lambda: lc_status(
+                base + "/v1/completions", lc_body(LC_PROMPTS[0])),
+                daemon=True)
+            t_hang = time.monotonic()
+            hung.start()
+            trip_s = lc_wait(lambda: wd.health != "healthy", 30,
+                             "the watchdog did not trip")
+            ready, live = lc_status(base + "/ready"), lc_status(
+                base + "/live")
+            shed = lc_status(base + "/v1/completions", lc_body("shed"))[0]
+            spinning = time.monotonic() - t_hang < LC_HANG_S
+            lc_wait(lambda: wd.health == "healthy", 60,
+                    "the engine did not resurrect")
+            ready_after = lc_status(base + "/ready")[0]
+            hung.join(timeout=60)
+            plane.clear()
+            launches0, replays0 = dict(ca.LAUNCHES), \
+                eng.windows.stats()["replays"]
+            after = lc_collect(lc_submit(eng, base, LC_PROMPTS))
+            out["hang"] = {
+                "trip_s": trip_s, "ready": ready, "live": live,
+                "probed_while_spinning": spinning, "v1_shed": shed,
+                "resurrect_s": eng.last_resurrect_s,
+                "ready_after": ready_after,
+                "tokens_as_before": after == v1_ref,
+                "decode_launches": ca.LAUNCHES["decode"]
+                - launches0["decode"],
+                "replays": eng.windows.stats()["replays"] - replays0,
+                "trips": wd.summary()["trips_total"]}
+            h = out["hang"]
+            if (ready[0] != 503 or ready[1] > LC_PROBE_S or live[0] != 200
+                    or live[1] > LC_PROBE_S or not spinning or shed != 503
+                    or ready_after != 200 or not h["tokens_as_before"]
+                    or h["decode_launches"] <= 0 or h["replays"] <= 0):
+                errors.append(f"hang: {h}")
+
+            # drain: new requests shed, in-flight streams finish
+            inflight = lc_submit(eng, base, LC_PROMPTS)
+            lc_wait(lambda: len(eng.seqs) == len(LC_PROMPTS), 30,
+                    "the streams did not start")
+            t0 = time.monotonic()
+            drain = lc_status(base + "/internal/drain", {})[0]
+            shed = lc_status(base + "/v1/completions", lc_body("late"))[0]
+            drained = lc_collect(inflight)
+            lc_wait(lambda: not eng.has_work, 60, "the engine did not drain")
+            drain_s = time.monotonic() - t0
+            out["drain"] = {"status": drain, "shed": shed,
+                            "finished_as_before": drained == v1_ref,
+                            "drain_s": drain_s}
+            if drain != 200 or shed != 503 or drained != v1_ref:
+                errors.append(f"drain: {out['drain']}")
+
+            # a second trip inside the quarantine window: quarantined
+            lc_wait(lambda: not wd.quiet(), 30, "the exemption did not end")
+            plane.configure({"engine.device_hang": {"times": 1,
+                                                    "delay_s": LC_HANG_S}})
+            eng.add_request(GenRequest("quarantine", [1, 2, 3],
+                                       max_tokens=LC_TOKENS,
+                                       ignore_eos=True))
+            lc_wait(lambda: wd.health == "quarantined", 30,
+                    "the second trip did not quarantine")
+            ready_q = lc_status(base + "/ready")[0]
+            lc_wait(lambda: not eng.has_work, 60,
+                    "the quarantined engine did not finish its request")
+            out["quarantine"] = {"health": wd.health, "ready": ready_q,
+                                 "trips": wd.summary()["trips_total"]}
+            if ready_q != 503 or wd.health != "quarantined":
+                errors.append(f"quarantine: {out['quarantine']}")
+    finally:
+        plane.clear()
+        wd._deadline_override = None
+    del eng, wd, wm
+    release()
+    out["seconds"] = time.monotonic() - t_phase
+    emit({"phase": "lifecycle", "model": MODEL, **out})
+    if errors:
+        raise AssertionError(f"phase 17: {errors}")
+    return out
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if args not in ([], ["--kernels-only"], ["--mla-chunked-ttft"],
                     ["--mla-verify-profile"], ["--mla-prefill-profile"],
                     ["--window-profile"], ["--observability"],
                     ["--trace-stress"], ["--gemma"], ["--phi3"],
-                    ["--profile-lead"]) and not (
+                    ["--profile-lead"], ["--lifecycle"]) and not (
                         len(args) == 2 and args[0] == "--mla-prefill-profile"
                         and args[1].isdigit()):
         print("usage: chip_smoke.py [--kernels-only | --mla-chunked-ttft | "
               "--mla-verify-profile | --mla-prefill-profile [N] | "
               "--window-profile | --observability | --trace-stress | "
-              "--gemma | --phi3 | --profile-lead]", file=sys.stderr)
+              "--gemma | --phi3 | --profile-lead | --lifecycle]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -5743,6 +6074,9 @@ def main(argv=None) -> int:
         return 0
     if args == ["--trace-stress"]:
         trace_stress(jet_cfg)
+        return 0
+    if args == ["--lifecycle"]:
+        lifecycle_phase(Engine(EngineConfig(**eager_cfg)), jet_cfg)
         return 0
     if args == ["--gemma"]:
         gemma_only(eager_cfg, jet_cfg)
@@ -5924,8 +6258,10 @@ def main(argv=None) -> int:
     rows.update(grammar_kernel_checks(dev))
     guided = guided_phases(engine, jet_cfg)
     lora = lora_phases(engine, eager_cfg, jet_cfg, tok)
-    # the worker's observability plane (phase 16), last on the 8B
+    # the worker's observability plane (phase 16), then its lifecycle
+    # (phase 17), last on the 8B
     observability_phase(engine, jet_cfg)
+    lifecycle_phase(engine, jet_cfg)
 
     # the new families (phase 13), once the 8B's engines and weights are
     # released

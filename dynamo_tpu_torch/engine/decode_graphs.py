@@ -54,6 +54,13 @@ outputs are `out_emitted` [B, K1] and `out_nacc` [B].
 
 On the CPU, and with `enforce_eager`, the same bodies run eagerly. On
 CUDA a capture or replay that fails raises: nothing falls back to eager.
+
+Graphs outlive the engine's lifecycle events because nothing they read
+moves: a weight flip swaps contents into the live weights' storage
+(`elasticity/weights.py`), and a resurrection zeroes the pools and these
+buffers in place (`DeviceBatch.reset`). A capture runs inside
+`DecodeWindows.capture_guard` (the engine's watchdog exemption: a lazy
+capture inside a watched seam takes seconds without being a hang).
 """
 
 from __future__ import annotations
@@ -144,6 +151,22 @@ class DeviceBatch:
         return (self.tokens, self.positions, self.context_lens, self.step,
                 self.tables, self.step_idx, self.drafts, self.room,
                 self.gmode, self.gdepth, self.gbits, self.gactive)
+
+    def reset(self) -> None:
+        """Every buffer back to its initial value, in place (a
+        resurrection: the captured graphs keep their addresses)."""
+        for t in (self.tokens, self.positions, self.step, self.tables,
+                  self.temperature, self.top_k, self.presence,
+                  self.frequency, self.min_p, self.bias_vals,
+                  self.slot_keys, self.token_counts, self.step_idx,
+                  self.out_tokens, self.out_chosen, self.out_tids,
+                  self.out_tvals, self.drafts, self.room, self.out_emitted,
+                  self.out_nacc, self.gmode, self.gdepth, self.gbits,
+                  self.gactive, self.adapters):
+            t.zero_()
+        self.context_lens.fill_(1)
+        self.top_p.fill_(1.0)
+        self.bias_ids.fill_(-1)
 
     def idle(self) -> None:
         """Every slot inactive on the trash page, nothing drafted or
@@ -247,6 +270,10 @@ class DecodeWindows:
         # the engine before the first one
         self.guide = None
         self.graphs: Dict[Tuple[bool, bool, Gates], CapturedStep] = {}
+        # () -> context manager every capture runs in (the engine's
+        # watchdog exemption)
+        self.capture_guard: Callable[[], contextlib.AbstractContextManager] \
+            = contextlib.nullcontext
         self._pool = None
         self._stream: Optional[torch.cuda.Stream] = None
         self.capture_s = 0.0  # seconds spent warming up and capturing
@@ -325,21 +352,22 @@ class DecodeWindows:
         this batch's pool, after one warm-up pass of it on the capture
         stream over an idle batch; the live carry is restored after."""
         b = self.batch
-        if self._stream is None:
-            self._stream = torch.cuda.Stream()
-            self._pool = torch.cuda.graph_pool_handle()
-        saved = [t.clone() for t in b.carry()]
-        b.idle()
-        self._stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(self._stream):
-            b.step_idx.zero_()
-            body()
-        torch.cuda.current_stream().wait_stream(self._stream)
-        graph = torch.cuda.CUDAGraph()
-        with capturing(graph, self._stream, self._pool) as launches:
-            body()
-        for t, s in zip(b.carry(), saved):
-            t.copy_(s)
+        with self.capture_guard():
+            if self._stream is None:
+                self._stream = torch.cuda.Stream()
+                self._pool = torch.cuda.graph_pool_handle()
+            saved = [t.clone() for t in b.carry()]
+            b.idle()
+            self._stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self._stream):
+                b.step_idx.zero_()
+                body()
+            torch.cuda.current_stream().wait_stream(self._stream)
+            graph = torch.cuda.CUDAGraph()
+            with capturing(graph, self._stream, self._pool) as launches:
+                body()
+            for t, s in zip(b.carry(), saved):
+                t.copy_(s)
         return CapturedStep(graph, launches)
 
 

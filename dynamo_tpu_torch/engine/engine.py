@@ -68,6 +68,21 @@ Port of the aggregated-serving core of `dynamo_tpu/engine/engine.py`:
 - Stops (stop ids, model eos unless `ignore_eos`, `max_tokens`,
   `max_seq_len`), aborts, logprobs, OutOfPages deferral at admission and
   preemption by recompute when decode runs out of pages.
+- The lifecycle hooks of the JAX engine: the watchdog
+  (`robustness/watchdog.py`, fed by the timeline's device seams; the
+  kernel library's first build and graph captures run exempt, and an open
+  profiler session keeps seams unarmed), the integrity sentinels
+  (`DYNAMO_TPU_INTEGRITY`: a prefill lane's `isfinite(...).all` flag read
+  back with its first token, and the decode readbacks' token-range check,
+  each aborting exactly the poisoned stream with `integrity_fault`), the
+  fault points `engine.device_nan`, `engine.device_hang` (a device-side
+  spin on the card) and `engine.device_slow`, `resurrect` (the pools and
+  the batch buffers zeroed and the weights restaged in their own storage,
+  so every captured graph stays valid), `device_poisoned` (one probe of
+  the CUDA context), the weight manager (`elasticity/weights.py`: its
+  armed flip applies at the step boundary, admissions hold meanwhile, and
+  the active version seeds the prefix cache's namespace), and resumable
+  sampling state (`resume_key`, `export_sampling_state`).
 
 Runs on the card by default (`device=None` means CUDA and raises without
 it; the tests pass `device="cpu"`), in bf16 there and float32 on the CPU,
@@ -110,6 +125,7 @@ from dynamo_tpu_torch.engine.kv_cache import (
 )
 from dynamo_tpu_torch.engine.request import GenRequest, TokenEvent
 from dynamo_tpu_torch.engine.tokenizer import get_tokenizer
+from dynamo_tpu_torch.elasticity.weights import WeightManager
 from dynamo_tpu_torch.lora.registry import (LoRARegistry, NoFreeAdapterSlot,
                                             parse_adapter_list)
 from dynamo_tpu_torch.models import llama, loader, quant
@@ -117,7 +133,10 @@ from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.observability.cost import CostLedger
 from dynamo_tpu_torch.observability.flight import FlightRecorder
 from dynamo_tpu_torch.observability.timeline import StepTimeline
-from dynamo_tpu_torch.ops import cuda_guide, json_guide
+from dynamo_tpu_torch.ops import cuda_attention, cuda_guide, json_guide
+from dynamo_tpu_torch.robustness import faults
+from dynamo_tpu_torch.robustness.watchdog import (EngineWatchdog,
+                                                  integrity_mode)
 from dynamo_tpu_torch.speculation import AdaptiveK, DraftEngine
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
@@ -146,6 +165,13 @@ def unported_settings(cfg: EngineConfig) -> List[str]:
         ("disaggregation_mode", cfg.disaggregation_mode != "agg"),
     ]
     return [name for name, bad in checks if bad]
+
+
+def _profiler_open() -> Optional[str]:
+    """The watchdog's exemption probe: "profiler" while a torch.profiler
+    session is open (CUPTI's start and the windows right after it run
+    seconds long); a host-side flag, no CUDA call."""
+    return "profiler" if torch._C._autograd._profiler_enabled() else None
 
 
 def _pack_logit_bias(req: GenRequest):
@@ -504,6 +530,19 @@ class Engine:
         self.flight = FlightRecorder()
         self.cost = CostLedger()
         self.timeline = StepTimeline()
+        # the engine watchdog: every device seam of the timeline arms a
+        # hang deadline, derived from the seams' own times on the card
+        # (the CPU path only trips on an explicit override, as the JAX
+        # engine's CPU fallback); the sentinel tier is a boot knob
+        self.watchdog = EngineWatchdog(
+            self, derive_deadline=self.device.type == "cuda")
+        self.watchdog.exempt_probe = _profiler_open
+        self.timeline.watch = self.watchdog
+        self.integrity = integrity_mode()
+        self.last_resurrect_s: Optional[float] = None
+        # called with the request ids abort_all tore down (the serving
+        # layer ends their streams)
+        self.on_abort_all = None
         # Engine.warmup's kernel build and captures (the warmup gauge)
         self.warmup_info: Optional[Dict[str, float]] = None
 
@@ -526,6 +565,10 @@ class Engine:
                              f" but quantization={cfg.quantization!r}")
         log.info("weights: %s (quantization %s), %d bytes", model_cfg.name,
                  mode, quant.param_bytes(self.model))
+        # live elasticity: the weight version and its double buffer; a
+        # flip swaps contents in the live storage, so the captured steps
+        # read the active version (elasticity/weights.py)
+        self.weights = WeightManager(self, version=cfg.model_version)
 
         self.k_pages, self.v_pages = alloc_kv_pages(self.kv_spec,
                                                     self.device)
@@ -565,6 +608,9 @@ class Engine:
         self.windows = DecodeWindows(
             self.batch, self._decode_forward,
             eager=self.device.type != "cuda" or cfg.enforce_eager)
+        # a lazy capture runs inside a dispatch seam: seconds, not a hang
+        self.windows.capture_guard = (
+            lambda: self.watchdog.exempt("graph_capture"))
         # speculative decoding: the verify step, its readback, the
         # proposer (drafter_name labels the spec metrics) and the adaptive
         # window controller
@@ -707,8 +753,12 @@ class Engine:
             if not self.lora.known(req.adapter):
                 raise ValueError(f"unknown adapter {req.adapter!r}")
         if req.resume_key is not None:
-            raise ValueError("resume_key continuations are not supported by "
-                             "dynamo_tpu_torch yet")
+            key = list(req.resume_key)
+            if (len(key) != 2 or not all(isinstance(k, int) and 0 <= k
+                                         < (1 << 32) for k in key)
+                    or key[0] >= (1 << 31)):
+                raise ValueError("resume_key must be a chain root as two "
+                                 "uint32 values [high < 2**31, low]")
         if len(req.prompt_token_ids) >= self.cfg.max_seq_len:
             raise ValueError(
                 f"prompt of {len(req.prompt_token_ids)} tokens exceeds "
@@ -741,12 +791,14 @@ class Engine:
         with self._lock:
             self._insert_pending(req)
             self.metrics.num_requests += 1
-        if req.prior_output_token_ids:
-            # a continuation of a preempted request: the flight ring ties
-            # it back to the preemption
+        if req.resume_key is not None or req.prior_output_token_ids:
+            # recovery seam: a continuation of a preempted request or of
+            # one handed over from another worker; the flight ring ties it
+            # back to the failure
             self.flight.note(
                 "resume", rid=req.request_id, tenant=self._tenant_of(req),
-                n_prior=len(req.prior_output_token_ids), seeded=False)
+                n_prior=len(req.prior_output_token_ids),
+                seeded=req.resume_key is not None)
 
     @contextlib.contextmanager
     def between_steps(self):
@@ -782,7 +834,64 @@ class Engine:
                 ids.append(seq.request_id)
                 self._finish_slot(slot, "abort")
             self.flight.dump("abort_all", rids=ids)
+        cb = self.on_abort_all
+        if cb is not None:
+            try:
+                cb(ids)
+            except Exception:
+                log.exception("on_abort_all hook failed")
         return ids
+
+    def resurrect(self) -> None:
+        """Rebuild device state in place after a watchdog trip: every
+        stream dies (journaled ones already handed off), the KV pools and
+        the decode batch's buffers are zeroed in their own storage, the
+        page allocator and prefix cache start empty, and the weights
+        round-trip through host memory back into their storage
+        (`WeightManager.restage_live`). Nothing moves, so every captured
+        decode and verify graph stays valid and replays (the JAX engine
+        allocates a fresh pool and re-uploads the weights: new addresses,
+        which a captured graph would not follow). A CUDA error here
+        propagates and the watchdog quarantines. Callers hold _exec_lock
+        (the escalation ladder)."""
+        with self._exec_lock, torch.inference_mode():
+            t0 = time.monotonic()
+            self.flight.note("resurrect_begin")
+            self.abort_all()
+            for pool in (self.k_pages, self.v_pages):
+                pool.zero_()
+            self.allocator = PageAllocator(self.cfg.num_pages)
+            if self.prefix_cache is not None:
+                self.prefix_cache = PrefixCache(self.allocator,
+                                                self.cfg.page_size)
+            self.batch.reset()
+            self._invalidate_dev()
+            self.weights.restage_live()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            if self.warmup_info is not None and not self.has_work:
+                # captures only the keys warmup takes that are missing
+                self.warmup()
+            dt = time.monotonic() - t0
+            self.last_resurrect_s = dt
+            self.flight.note("resurrect_done", seconds=round(dt, 3))
+            log.warning("engine resurrected: device state rebuilt in place "
+                        "in %.2fs", dt)
+
+    def device_poisoned(self) -> bool:
+        """One probe of the device context (the watchdog's fatal-step
+        path): True when a synchronize or a one-element op raises, as
+        every CUDA call does after an error that sticks (an illegal
+        address, an ECC error, a device-side assert). Host-only engines
+        are never poisoned."""
+        if self.device.type != "cuda":
+            return False
+        try:
+            torch.cuda.synchronize(self.device)
+            torch.ones(1, device=self.device).add_(1).item()
+            return False
+        except RuntimeError:
+            return True
 
     @staticmethod
     def _tenant_of(req: GenRequest) -> str:
@@ -806,6 +915,11 @@ class Engine:
         followed by one decode window (pipelined under async_scheduling).
         Single consumer: one thread calls step(); add_request and
         abort_request synchronise through _lock."""
+        if self.device.type == "cuda" and cuda_attention._lib is None:
+            # the kernel library's first build takes tens of seconds: not
+            # inside a watched seam
+            with self.watchdog.exempt("kernel_build"):
+                cuda_attention.build()
         with self._exec_lock, torch.inference_mode():
             # one flight record and one timeline record per step: the
             # segments executed fill their phases, decisions attach as
@@ -825,6 +939,10 @@ class Engine:
                     active=len(self.seqs), pending=len(self.pending))
 
     def _step_locked(self) -> List[TokenEvent]:
+        # an armed finish-mode weight flip applies here, at the step
+        # boundary, once the last old-version stream has finished: we hold
+        # _exec_lock, so no step ever mixes versions
+        self.weights.maybe_flip_locked()
         # the JAX engine's step phases less "bank": the port keeps no
         # per-tenant budgets to bank at the end of a step
         with self.timeline.phase("admit"):
@@ -959,6 +1077,11 @@ class Engine:
 
     def _admit(self) -> List[TokenEvent]:
         events: List[TokenEvent] = []
+        if self.weights.admission_held:
+            # finish-mode flip armed: new admissions wait in the pending
+            # queue so they land on the NEW version; in-flight streams
+            # keep decoding on the old one until the flip applies
+            return events
         chunk = self.cfg.prefill_chunk_tokens
         while self._free_slots:
             with self._lock:
@@ -1093,11 +1216,16 @@ class Engine:
             return 0
         return self.lora.acquire_slot(req.adapter)
 
-    @staticmethod
-    def _kv_namespace(adapter: Optional[str]) -> str:
-        """The prefix cache's namespace of a request: its adapter, so an
-        adapter and the base never share a page."""
-        return adapter or ""
+    def _kv_namespace(self, adapter: Optional[str]) -> str:
+        """The prefix cache's namespace of a request: the active weight
+        version composed with its LoRA adapter (JAX `_kv_namespace`), so
+        an adapter and the base never share a page, and v1 pages never
+        match under v2. The base version contributes nothing."""
+        ver = self.weights.namespace
+        a = adapter or ""
+        if not ver:
+            return a
+        return f"{ver}#{a}"
 
     def _prefill_group(self, reqs: List[GenRequest]
                        ) -> Optional[List[TokenEvent]]:
@@ -1137,7 +1265,7 @@ class Engine:
                 adapter_slots=self._tensor(aslots, torch.int32))
         keys = [self._request_key(r) for r in reqs]
         with self.timeline.phase("device_wait"):
-            toks, chosen, tids, tvals = self._sample_first(
+            toks, chosen, tids, tvals, finite = self._sample_first(
                 logits, reqs, keys, [int(s) - 1 for s in seq_lens])
         dt = time.monotonic() - t0
         self.metrics.prefill_time_s += dt
@@ -1149,17 +1277,48 @@ class Engine:
         self._step_obs("prefill", dt, shares=shares)
         events = []
         for i, r in enumerate(reqs):
+            if not finite[i]:
+                # poisoned lane: this stream aborts, its pages go back,
+                # the co-batched lanes admit untouched
+                self.allocator.free(page_lists[i])
+                events.append(self._integrity_abort(r, "prefill_group"))
+                continue
             self.metrics.prompt_tokens += int(seq_lens[i])
             events.append(self._finalize_admission(
                 r, page_lists[i], int(seq_lens[i]), int(toks[i]), keys[i],
                 (float(chosen[i]), tids[i], tvals[i]), t_prefill_start=t0))
         return events
 
+    def _integrity_abort(self, req: GenRequest, where: str) -> TokenEvent:
+        """A prefill lane's logits were not finite: count the sentinel and
+        end exactly this stream (its pages are the caller's to free)."""
+        self.watchdog.record_integrity_fault("logits", [req.request_id],
+                                             where=where)
+        return TokenEvent(req.request_id, -1, 0, True, "integrity_fault")
+
     def _request_key(self, req: GenRequest) -> int:
-        """Per-request sampling chain root: the seed when given."""
+        """Per-request sampling chain root: a resume_key (a recovery or
+        drain-handoff continuation) restores the original worker's root
+        exactly, else the seed when given, else a draw."""
+        if req.resume_key is not None:
+            hi, lo = req.resume_key
+            return (int(hi) << 32) | int(lo)
         if req.seed is not None:
             return int(req.seed) & ((1 << 63) - 1)
         return int(self._rng.integers(0, 1 << 63))
+
+    def export_sampling_state(self, request_id: str) -> Optional[Dict]:
+        """The resumable sampling state of a LIVE sequence: its chain root
+        as two uint32 values [high, low] (what `recovery`'s resume_key
+        check takes) and its output position. A continuation elsewhere
+        with this key, the prompt and the tokens so far samples the same
+        noise: the port's noise is keyed by (root, position)."""
+        for slot, seq in list(self.seqs.items()):
+            if seq.request_id == request_id:
+                root = int(self.slot_keys[slot])
+                return {"key": [root >> 32, root & 0xFFFFFFFF],
+                        "n_output": len(seq.output_tokens)}
+        return None
 
     def _penalty_row(self, req: GenRequest) -> Optional[np.ndarray]:
         """Presence/frequency penalties for a preempted continuation's first
@@ -1215,6 +1374,11 @@ class Engine:
         request's masked by its grammar, as its decode steps' are, unless
         it carries a penalty row: JAX `_first_token`)."""
         n = len(reqs)
+        if faults.check("engine.device_nan") is not None:
+            # chaos drill: a corrupted forward poisons ONE lane (the
+            # lead request); the sentinel must end exactly that stream
+            logits = logits.clone()
+            logits[0] = float("nan")
         bias = [_pack_logit_bias(r) for r in reqs]
         state = smp.make_state(
             [r.temperature for r in reqs], [r.top_p for r in reqs],
@@ -1239,8 +1403,17 @@ class Engine:
         logp = torch.log_softmax(lp_logits.float(), dim=-1)
         chosen = logp.gather(1, toks[:, None])[:, 0]
         tvals, tids = logp.topk(min(5, logp.shape[-1]), dim=-1)
-        return (toks.cpu().numpy(), chosen.cpu().numpy(),
-                tids.cpu().numpy(), tvals.cpu().numpy())
+        if self.integrity != "off":
+            # each lane's finite flag, computed on the device and read
+            # back in the tokens' own copy: no extra sync
+            finite = torch.isfinite(logits).reshape(n, -1).all(1)
+            packed = torch.stack([toks, finite.to(toks.dtype)]).cpu().numpy()
+            toks_np, finite_np = packed[0], packed[1].astype(bool)
+        else:
+            toks_np = toks.cpu().numpy()
+            finite_np = np.ones((n,), np.bool_)
+        return (toks_np, chosen.cpu().numpy(), tids.cpu().numpy(),
+                tvals.cpu().numpy(), finite_np)
 
     def _finalize_admission(self, req: GenRequest, pages, prompt_len: int,
                             first: int, req_key: int, lp,
@@ -1291,8 +1464,12 @@ class Engine:
                 adapter_slots=self._adapter_slot(req))
         key = self._request_key(req)
         with self.timeline.phase("device_wait"):
-            toks, chosen, tids, tvals = self._sample_first(
+            toks, chosen, tids, tvals, finite = self._sample_first(
                 logits[None], [req], [key], [prompt_len - 1])
+        if not finite[0]:
+            # poisoned stream: its pages go back, the engine keeps serving
+            self.allocator.free(pages)
+            return self._integrity_abort(req, "prefill")
         dt = time.monotonic() - t0
         self.metrics.prefill_time_s += dt
         self.metrics.observe_phase("prefill", dt)
@@ -1366,12 +1543,18 @@ class Engine:
         pages and install the sequence in its reserved slot."""
         inf = self._inflight
         self._inflight = None
-        self.metrics.prompt_tokens += inf.prompt_len
         req = inf.req
         key = self._request_key(req)
         with self.timeline.phase("device_wait"):
-            toks, chosen, tids, tvals = self._sample_first(
+            toks, chosen, tids, tvals, finite = self._sample_first(
                 logits[None], [req], [key], [inf.prompt_len - 1])
+        if not finite[0]:
+            # poisoned chunked prefill: release its pages and its reserved
+            # slot; nothing of it reaches the prefix cache
+            self.allocator.free(inf.pages)
+            self._free_slots.append(inf.slot)
+            return self._integrity_abort(req, "prefill_chunk")
+        self.metrics.prompt_tokens += inf.prompt_len
         ev = self._finalize_admission(
             req, inf.pages, inf.prompt_len, int(toks[0]), key,
             (float(chosen[0]), tids[0], tvals[0]), slot=inf.slot,
@@ -1759,6 +1942,13 @@ class Engine:
         mixed forward) and the copy of its outputs to the host."""
         t0 = time.monotonic()
         with self.timeline.phase("dispatch"):
+            # chaos: a wedged device program. On the card a spin queued
+            # ahead of the window, so the hang shows in the device_wait
+            # readback with _exec_lock held, where a real one would; on
+            # the CPU the host sleeps inside this armed seam
+            spec = faults.check("engine.device_hang")
+            if spec is not None:
+                self._device_hang(spec.delay_s)
             self._ensure_dev_state()
             self._check_window_pages(window, offset)
             want_lp = any(s.logprobs is not None
@@ -1776,10 +1966,45 @@ class Engine:
         self._pending_win = (window, rb, want_lp, time.monotonic() - t0,
                              list(self.seqs))
 
+    def _device_hang(self, seconds: float) -> None:
+        """engine.device_hang's effect: `seconds` of device-side spin on
+        the engine's stream (torch.cuda._sleep counts SM clock cycles, at
+        the card's reported clock, else 1.98 GHz) or, on the CPU, of host
+        sleep."""
+        if seconds <= 0:
+            return
+        if self.device.type != "cuda":
+            time.sleep(seconds)
+            return
+        props = torch.cuda.get_device_properties(self.device)
+        khz = getattr(props, "clock_rate", 0) or 1_980_000
+        torch.cuda._sleep(int(seconds * khz * 1e3))
+
     def _materialize_pending(self) -> List[TokenEvent]:
         if self._pending_win is None:
             return []
         return self._materialize_window(self._pending_win)
+
+    def _bad_token_slots(self, tokens: np.ndarray) -> set:
+        """The decode sentinel: slots whose readback [k, B] holds a token
+        id outside [0, vocab), a corrupted device result that would poison
+        detok and the KV it indexes (JAX `_materialize_window`); none with
+        DYNAMO_TPU_INTEGRITY=off."""
+        if self.integrity == "off":
+            return set()
+        oob = ((tokens < 0) | (tokens >= self.model_cfg.vocab_size))
+        return set(np.flatnonzero(oob.reshape(tokens.shape[0], -1)
+                                  .any(axis=0)).tolist())
+
+    def _token_integrity_abort(self, seq: SeqState, slot: int,
+                               events: List[TokenEvent]) -> None:
+        """End exactly this slot's stream on a corrupted readback."""
+        self.watchdog.record_integrity_fault(
+            "decode_tokens", [seq.request_id], slot=slot)
+        events.append(TokenEvent(seq.request_id, -1,
+                                 len(seq.output_tokens), True,
+                                 "integrity_fault"))
+        self._finish_slot(slot, "integrity_fault")
 
     def _materialize_window(self, pw, kind: str = "decode",
                             take: int = 0) -> List[TokenEvent]:
@@ -1793,8 +2018,12 @@ class Engine:
         window, rb, want_lp, dispatch_s, slots = pw
         t_wait = time.monotonic()
         with self.timeline.phase("device_wait"):
+            # chaos: a slow but live readback, which must NOT trip the
+            # watchdog while it stays under the deadline
+            faults.sleep_point("engine.device_slow")
             out = rb.wait()
         next_np = out[0]  # [window, B]
+        bad = self._bad_token_slots(next_np)
         dt = dispatch_s + time.monotonic() - t_wait
         m = self.metrics
         m.decode_steps += window
@@ -1811,6 +2040,9 @@ class Engine:
             for slot in slots:
                 seq = self.seqs.get(slot)
                 if seq is None:  # finished or aborted since dispatch
+                    continue
+                if slot in bad:
+                    self._token_integrity_abort(seq, slot, events)
                     continue
                 for k in range(window):
                     ev = self._emit_token(seq, int(next_np[k, slot]))
@@ -2026,6 +2258,10 @@ class Engine:
         for slot in slots:
             seq = self.seqs.get(slot)
             if seq is None:
+                continue
+            if self._bad_token_slots(emitted[slot, :int(nacc[slot]) + 1,
+                                             None]):
+                self._token_integrity_abort(seq, slot, events)
                 continue
             for j in range(int(nacc[slot]) + 1):
                 ev = self._emit_token(seq, int(emitted[slot, j]))

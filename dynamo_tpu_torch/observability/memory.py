@@ -24,8 +24,10 @@ counters (the engine's CostLedger read at scrape time), and as the
 
 The port's counterpart of `dynamo_tpu/observability/memory.py` (it
 imports nothing of the JAX package): the books and series are the JAX
-module's, less the KVBM host/disk tiers, the parked disaggregated pages
-and the weight double-buffer, which the port does not have.
+module's, less the KVBM host/disk tiers and the parked disaggregated
+pages, which the port does not have; the weight double buffer
+(`elasticity/weights.py`) has its rows in
+`dynamo_memory_staged_weights_bytes`.
 """
 
 from __future__ import annotations
@@ -164,6 +166,19 @@ class MemoryAccountant:
                 "slots_free": max(0, slots_total - len(resident)),
             }
 
+        # live elasticity: the weight double buffer, staged and retained
+        # rollback weights, device bytes OUTSIDE the KV pool partition
+        wm = getattr(eng, "weights", None)
+        weights_out: Optional[Dict[str, Any]] = None
+        if wm is not None:
+            weights_out = {
+                "version": wm.version,
+                "staged_version": wm.staged_version,
+                "staged_bytes": wm.staged_nbytes,
+                "previous_version": wm.previous_version,
+                "previous_bytes": wm.previous_nbytes,
+            }
+
         return {
             "page_bytes": pb,
             "kv_dtype": eng.kv_spec.dtype,
@@ -180,6 +195,7 @@ class MemoryAccountant:
             "device_pages_by_adapter": dict(sorted(by_adapter.items())),
             "tiers": tiers,
             "lora": lora_out,
+            "weights": weights_out,
             "devices": device_memory_stats(eng.device, self.bytes_limit),
         }
 
@@ -211,6 +227,12 @@ class MemoryMetricsBridge:
             "dynamo_memory_lora_slots",
             "LoRA adapter device-slot residency",
             registry, labelnames=("state",))
+        self.weights_gauge = Gauge(
+            "dynamo_memory_staged_weights_bytes",
+            "Weight double-buffer device bytes held by live elasticity: "
+            "buffer=staged (loaded, not yet flipped) / previous (retained "
+            "for rollback until commit or the next stage)",
+            registry, labelnames=("buffer",))
         ledger = engine.cost
         CallbackCounterVec(
             "dynamo_tenant_cost_chip_seconds_total",
@@ -290,6 +312,13 @@ class MemoryMetricsBridge:
             self.lora_gauge.set(float(len(lora["resident"])),
                                 state="resident")
             self.lora_gauge.set(float(lora["slots_free"]), state="free")
+
+        w = snap.get("weights")
+        if w:
+            self.weights_gauge.set(float(w["staged_bytes"]),
+                                   buffer="staged")
+            self.weights_gauge.set(float(w["previous_bytes"]),
+                                   buffer="previous")
 
 
 def attach_memory_metrics(registry: Registry, engine) -> MemoryMetricsBridge:

@@ -1,0 +1,297 @@
+"""Deterministic fault-injection plane (the port's own copy of
+`dynamo_tpu/robustness/faults.py`; keep the two in step).
+
+The serving path's failure handling (bounded failover, circuit breakers,
+deadline shedding, NATS fallback) is only trustworthy if every branch can
+be exercised ON DEMAND, deterministically, in tests — waiting for a real
+worker to crash mid-decode proves nothing on a laptop. This module
+compiles named **fault points** into the hot path; each is a no-op (one
+dict lookup) until armed.
+
+Registry of fault points (the names are the contract — docs/robustness.md):
+
+======================================  =======================================
+name                                    effect at the instrumented site
+======================================  =======================================
+frontend.connect_refused                frontend->worker dial raises
+                                        connection-refused (pre-send, so the
+                                        bounded-failover re-pick is exercised)
+worker.read_stall                       worker handler sleeps ``delay_s``
+                                        before processing (deadline shedding /
+                                        frontend read-timeout path)
+worker.reset_after_headers              worker sends status+headers then
+                                        RST-closes the socket (the
+                                        never-retry-after-send invariant)
+worker.slow_prefill                     engine admission sleeps ``delay_s``
+                                        (agg submit and /disagg/prefill)
+worker.crash_mid_decode                 the token stream dies after a token
+                                        was already delivered; the request is
+                                        aborted engine-side (the frontend
+                                        splices a journaled continuation on
+                                        another worker, or truncates — never
+                                        re-runs the whole generation)
+nats.partition                          NATS publishes raise ConnectionError
+                                        (frontend falls back to HTTP; worker
+                                        responders fail their reply stream)
+disagg.prefill_connect_refused          decode->prefill RPC raises
+                                        connection-refused before any KV moves
+                                        (prefill-pool failover)
+engine.device_hang                      engine dispatch seam sleeps ``delay_s``
+                                        with the exec lock held — a wedged
+                                        device program (watchdog trip,
+                                        quarantine ladder)
+engine.device_nan                       prefill logits are poisoned with NaN
+                                        before sampling (integrity sentinel:
+                                        poisoned streams abort, co-batched
+                                        tenants survive byte-identical)
+engine.device_slow                      decode readback sleeps ``delay_s``
+                                        WITHOUT tripping (sub-deadline
+                                        slowness must not false-positive)
+======================================  =======================================
+
+On the card the engine's `engine.device_hang` site does not sleep on the
+host: it queues a device-side spin of ``delay_s`` on the engine's stream
+(`torch.cuda._sleep`, `Engine._device_hang`), so the hang shows where a
+real one would, in the ``device_wait`` readback with the exec lock held;
+on the CPU it stays the host sleep.
+
+Determinism: every probabilistic draw comes from a per-fault-point
+``random.Random(f"{seed}:{name}")``, so the fire/skip decision at check N
+is a pure function of (seed, spec, N) — re-running a chaos test with the
+same seed replays the same faults in the same places. `make chaos-check`
+pins the seed.
+
+Configuration:
+- env: ``DYNAMO_TPU_FAULTS='{"frontend.connect_refused": {"times": 1}}'``
+  (JSON: name -> spec fields), ``DYNAMO_TPU_FAULT_SEED=<int>``;
+- HTTP: ``GET/POST /internal/faults`` on the frontend and every worker
+  (POST body ``{"seed": N, "faults": {...}}``; ``{"faults": {}}`` disarms).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import random
+import threading
+import time
+from typing import Dict, Mapping, Optional
+
+log = logging.getLogger("dynamo_tpu_torch.faults")
+
+ENV_FAULTS = "DYNAMO_TPU_FAULTS"
+ENV_SEED = "DYNAMO_TPU_FAULT_SEED"
+
+# name -> one-line description; configure() rejects names outside this
+# registry so a typo'd chaos spec fails loudly instead of silently
+# injecting nothing
+REGISTRY: Dict[str, str] = {
+    "frontend.connect_refused":
+        "frontend->worker dial fails pre-send (connection refused)",
+    "worker.read_stall":
+        "worker handler stalls delay_s before processing the request",
+    "worker.reset_after_headers":
+        "worker RST-closes the connection right after the response headers",
+    "worker.slow_prefill":
+        "engine admission sleeps delay_s (slow prefill)",
+    "worker.crash_mid_decode":
+        "token stream dies after delivery started; request aborted "
+        "(recovery plane splices a continuation, else truncate)",
+    "nats.partition":
+        "NATS publishes raise ConnectionError (plane partition)",
+    "disagg.prefill_connect_refused":
+        "decode->prefill RPC fails pre-send (connection refused)",
+    "engine.device_hang":
+        "engine dispatch seam wedges delay_s with the exec lock held "
+        "(watchdog trip, resurrection/quarantine ladder)",
+    "engine.device_nan":
+        "prefill logits poisoned with NaN pre-sampling (integrity "
+        "sentinel aborts exactly the poisoned streams)",
+    "engine.device_slow":
+        "decode readback sleeps delay_s without tripping (sub-deadline "
+        "slowness is not a hang)",
+}
+
+
+@dataclasses.dataclass
+class FaultSpec:
+    """How one armed fault point fires.
+
+    - ``times``: fire at most this many times (-1 = unlimited);
+    - ``p``: per-check fire probability (seeded draw when < 1.0);
+    - ``after``: skip the first N checks (lets a test warm a path up
+      before breaking it);
+    - ``delay_s``: sleep duration for the stall/slow faults.
+    """
+
+    times: int = 1
+    p: float = 1.0
+    after: int = 0
+    delay_s: float = 0.0
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "FaultSpec":
+        allowed = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - allowed
+        if unknown:
+            raise ValueError(f"unknown fault spec fields: {sorted(unknown)}")
+        return cls(**{k: type(getattr(cls, k))(v) for k, v in d.items()})
+
+    def to_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+
+class FaultPlane:
+    """Process-global registry of armed fault points + fire accounting."""
+
+    def __init__(self, seed: Optional[int] = None):
+        self._lock = threading.Lock()
+        self._specs: Dict[str, FaultSpec] = {}
+        self._rngs: Dict[str, random.Random] = {}
+        self._checks: Dict[str, int] = {}
+        self._fired: Dict[str, int] = {}
+        # cumulative across configure() calls — a chaos suite re-arms
+        # between tests and asserts total coverage at the end
+        self._fired_total: Dict[str, int] = {}
+        if seed is None:
+            try:
+                seed = int(os.environ.get(ENV_SEED, "0"))
+            except ValueError:
+                seed = 0
+        self.seed = seed
+        env_spec = os.environ.get(ENV_FAULTS)
+        if env_spec:
+            try:
+                self.configure(json.loads(env_spec))
+            except (ValueError, json.JSONDecodeError) as e:
+                log.warning("ignoring invalid %s: %s", ENV_FAULTS, e)
+
+    # ----------------------------------------------------------- configure --
+    def configure(self, faults: Mapping[str, Mapping],
+                  seed: Optional[int] = None, replace: bool = True) -> None:
+        """Arm the given fault points (name -> spec dict). Unknown names
+        raise. Per-point check/fire counters and RNGs reset for the
+        configured points; cumulative fire totals survive."""
+        specs = {}
+        for name, spec in faults.items():
+            if name not in REGISTRY:
+                raise ValueError(
+                    f"unknown fault point {name!r} (known: "
+                    f"{sorted(REGISTRY)})")
+            specs[name] = (spec if isinstance(spec, FaultSpec)
+                           else FaultSpec.from_dict(spec))
+        with self._lock:
+            if seed is not None:
+                self.seed = seed
+            if replace:
+                self._specs = specs
+            else:
+                self._specs.update(specs)
+            for name in specs:
+                self._rngs[name] = random.Random(f"{self.seed}:{name}")
+                self._checks[name] = 0
+                self._fired[name] = 0
+
+    def arm(self, name: str, **spec) -> None:
+        self.configure({name: spec}, replace=False)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._specs = {}
+
+    # --------------------------------------------------------------- firing --
+    def check(self, name: str) -> Optional[FaultSpec]:
+        """The instrumented-site call: returns the spec when this check
+        fires, else None. No-op-cheap when the point isn't armed."""
+        if not self._specs:  # fast path: nothing armed anywhere
+            return None
+        with self._lock:
+            spec = self._specs.get(name)
+            if spec is None:
+                return None
+            idx = self._checks.get(name, 0)
+            self._checks[name] = idx + 1
+            if idx < spec.after:
+                return None
+            if 0 <= spec.times <= self._fired.get(name, 0):
+                return None
+            if spec.p < 1.0 and self._rngs[name].random() >= spec.p:
+                return None
+            self._fired[name] = self._fired.get(name, 0) + 1
+            self._fired_total[name] = self._fired_total.get(name, 0) + 1
+        log.info("fault injected: %s (fire #%d)", name, self._fired[name])
+        return spec
+
+    # ---------------------------------------------------------- introspection
+    def snapshot(self) -> Dict:
+        with self._lock:
+            return {
+                "seed": self.seed,
+                "armed": {n: s.to_dict() for n, s in self._specs.items()},
+                "checks": dict(self._checks),
+                "fired": dict(self._fired),
+                "fired_total": dict(self._fired_total),
+                "registry": dict(REGISTRY),
+            }
+
+
+_plane: Optional[FaultPlane] = None
+_plane_lock = threading.Lock()
+
+
+def get_plane() -> FaultPlane:
+    global _plane
+    if _plane is None:
+        with _plane_lock:
+            if _plane is None:
+                _plane = FaultPlane()
+    return _plane
+
+
+def reset_plane(seed: Optional[int] = None) -> FaultPlane:
+    """Fresh plane (tests): drops armed specs AND cumulative counters."""
+    global _plane
+    with _plane_lock:
+        _plane = FaultPlane(seed=seed)
+    return _plane
+
+
+# ------------------------- site helpers (the instrumented-path surface) ----
+def check(name: str) -> Optional[FaultSpec]:
+    return get_plane().check(name)
+
+
+def sleep_point(name: str) -> bool:
+    """Delay-type fault site: sleeps spec.delay_s when armed. Returns
+    whether it fired (sites can annotate spans)."""
+    spec = get_plane().check(name)
+    if spec is None:
+        return False
+    if spec.delay_s > 0:
+        time.sleep(spec.delay_s)
+    return True
+
+
+def raise_point(name: str, exc_factory) -> None:
+    """Raise-type fault site: raises exc_factory(message) when armed."""
+    spec = get_plane().check(name)
+    if spec is not None:
+        raise exc_factory(f"injected fault: {name}")
+
+
+def http_payload() -> Dict:
+    """GET /internal/faults body."""
+    return get_plane().snapshot()
+
+
+def http_configure(body: Mapping) -> Dict:
+    """POST /internal/faults: {"seed": N?, "faults": {name: spec}}.
+    Raises ValueError on unknown names/fields (mapped to HTTP 400)."""
+    faults = body.get("faults")
+    if not isinstance(faults, Mapping):
+        raise ValueError('body must carry "faults": {name: spec}')
+    seed = body.get("seed")
+    get_plane().configure(faults, seed=None if seed is None else int(seed))
+    return get_plane().snapshot()

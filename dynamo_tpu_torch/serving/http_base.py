@@ -1,26 +1,48 @@
 """HTTP plumbing for the worker API server: JSON responses, error
-envelopes, body reading, chunked SSE framing (port of
-`dynamo_tpu/serving/http_base.py` without its fault-injection seams)."""
+envelopes with a jittered Retry-After on shed codes, body reading, chunked
+SSE framing and the fault-injection seams of the inference routes (port
+of `dynamo_tpu/serving/http_base.py`)."""
 
 from __future__ import annotations
 
 import json
 import logging
+import random
 import socket
+import struct
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
+from dynamo_tpu_torch.robustness import faults
 from dynamo_tpu_torch.serving import protocol as proto
 
 log = logging.getLogger("dynamo_tpu_torch.http")
 
 MAX_BODY_BYTES = 10 * 1024 * 1024
 
+# every shed/routing-failure response carries a retry hint (429 admission,
+# 502 failed failover, 503 no-worker/draining, 504 deadline)
+RETRY_AFTER_CODES = (429, 502, 503, 504)
+
+
+def retry_after_value(base_s: float = 1.0) -> str:
+    """Retry-After with +-20% jitter: a burst of clients shed together
+    must not come back in lockstep and re-create the overload."""
+    return f"{base_s * (1.0 + random.uniform(-0.2, 0.2)):.2f}"
+
+
+# inference routes are the fault-injectable surface; control-plane routes
+# (/internal/*, /metrics, /health) stay reliable even mid-chaos-test
+FAULTABLE_PATHS = ("/v1/", "/disagg/")
+
 
 class JsonHTTPHandler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     sse_started: bool = False
+    # class-level defaults mirror handle_one_request's per-request reset
+    _fault_reset_after_headers: bool = False
+    _fault_closed: bool = False
 
     def log_message(self, fmt, *args):
         log.debug("%s %s", self.address_string(), fmt % args)
@@ -28,8 +50,33 @@ class JsonHTTPHandler(BaseHTTPRequestHandler):
     def handle_one_request(self):
         # keep-alive reuses the handler: reset per-request state
         self.sse_started = False
+        self._fault_reset_after_headers = False
+        self._fault_closed = False
         self._x_request_id = None
         super().handle_one_request()
+
+    def _fault_gate(self):
+        """Per-request fault hook of the inference routes, called at the
+        top of do_POST: a read stall delays processing; reset-after-headers
+        arms an abrupt close that end_headers() executes."""
+        if not self.path.startswith(FAULTABLE_PATHS):
+            return
+        faults.sleep_point("worker.read_stall")
+        if faults.check("worker.reset_after_headers") is not None:
+            self._fault_reset_after_headers = True
+
+    def _fault_abort_connection(self):
+        """RST-close the client connection (SO_LINGER 0, so the peer sees
+        a hard reset, not a clean FIN that could read as end-of-body)."""
+        self._fault_closed = True
+        self.close_connection = True
+        try:
+            self.wfile.flush()
+            self.connection.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                                       struct.pack("ii", 1, 0))
+            self.connection.close()
+        except (OSError, ValueError):
+            pass
 
     def set_request_id(self, rid: str) -> None:
         """The id the response's X-Request-Id carries (a request's trace
@@ -44,6 +91,9 @@ class JsonHTTPHandler(BaseHTTPRequestHandler):
                          or getattr(self, "_x_request_id", None)
                          or uuid.uuid4().hex)
         super().end_headers()
+        if self._fault_reset_after_headers:
+            self._fault_reset_after_headers = False
+            self._fault_abort_connection()
 
     def _json(self, code: int, obj: Dict[str, Any], headers=None):
         data = json.dumps(obj).encode()
@@ -54,12 +104,19 @@ class JsonHTTPHandler(BaseHTTPRequestHandler):
             for k, v in (headers or {}).items():
                 self.send_header(k, v)
             self.end_headers()
+            if self._fault_closed:
+                return
             self.wfile.write(data)
         except (BrokenPipeError, ConnectionResetError, socket.error):
             self.close_connection = True  # the client hung up first
 
     def _error(self, code: int, msg: str,
-               etype: str = "invalid_request_error", headers=None):
+               etype: str = "invalid_request_error",
+               headers: Optional[Dict[str, str]] = None):
+        headers = dict(headers or {})
+        if code in RETRY_AFTER_CODES:
+            # shed/overload responses carry a jittered retry hint
+            headers.setdefault("Retry-After", retry_after_value())
         self._json(code, {"error": {"message": msg, "type": etype,
                                     "code": code}}, headers)
 
@@ -70,6 +127,8 @@ class JsonHTTPHandler(BaseHTTPRequestHandler):
             self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
+            if self._fault_closed:
+                return
             self.wfile.write(body)
         except (BrokenPipeError, ConnectionResetError, socket.error):
             self.close_connection = True  # the client hung up first
@@ -92,6 +151,8 @@ class JsonHTTPHandler(BaseHTTPRequestHandler):
         self.sse_started = True
 
     def _write_chunk(self, payload: bytes) -> bool:
+        if self._fault_closed:
+            return False
         try:
             self.wfile.write(b"%x\r\n%s\r\n" % (len(payload), payload))
             self.wfile.flush()
@@ -106,6 +167,8 @@ class JsonHTTPHandler(BaseHTTPRequestHandler):
         return self._write_chunk(payload)
 
     def _end_sse(self):
+        if self._fault_closed:
+            return
         try:
             self.wfile.write(b"0\r\n\r\n")
             self.wfile.flush()

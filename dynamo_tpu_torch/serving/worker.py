@@ -2,9 +2,23 @@
 specialised per backend profile.
 
 Port of `dynamo_tpu/serving/worker.py` for the aggregated role. The CLI is
-the JAX worker's (`EngineConfig.add_cli_args`) plus `--host`, `--port` and
-`--device` (the card unless `--device cpu`); flags the port does not serve
-are refused by the engine with NotImplementedError naming them. Each
+the JAX worker's (`EngineConfig.add_cli_args`, `--host`, `--port`,
+`--frontend-url`, `--heartbeat-interval`) plus `--device` (the card unless
+`--device cpu`). Engine fields the port does not serve are refused by the
+engine with NotImplementedError naming them, and so are the worker flags
+it does not serve (`--prefill-url`, `--nats-url`, `--kvbm-peers`,
+`--coordinator`, `--num-processes`, `--process-id`: `unported_flags`).
+
+With `--frontend-url` (comma-separated replicas) the worker heartbeats its
+stats to every replica's `/internal/register` each
+`--heartbeat-interval` seconds, with the JAX worker's payload (load,
+adapters, weight version, costs, timeline, watchdog health). SIGTERM (or
+SIGINT) runs the JAX worker's shutdown: admission off, a deregister from
+every replica, then the drain state machine (`ServingContext.drain`:
+finish within DRAIN_HANDOFF_GRACE_S, hand journaled streams off, wait up
+to DRAIN_TIMEOUT_S), then the server stops; a second signal skips the
+drain. A `/internal/reclaim` notice runs the same path under its
+deadline. Each
 entrypoint selects the JAX package's scheduling defaults for its profile
 (explicit flags win), kept here as the port's own copy:
 
@@ -48,10 +62,15 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
 import os
 import signal
+import socket
 import threading
+import time
+import urllib.request
+from typing import List
 
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.engine import Engine
@@ -83,6 +102,104 @@ BACKEND_PROFILES = {
 }
 
 
+# the JAX worker's flags for roles and planes the port does not serve yet
+# (disaggregation, the NATS request plane, the KVBM, multi-host)
+UNPORTED_FLAGS = ("prefill_url", "nats_url", "kvbm_peers", "coordinator",
+                  "num_processes", "process_id")
+
+
+def unported_flags(args) -> List[str]:
+    """The flags of `args` set to something the port does not serve."""
+    return [f"--{n.replace('_', '-')}" for n in UNPORTED_FLAGS
+            if getattr(args, n, None) not in (None, "")]
+
+
+def _self_url(host: str, port: int) -> str:
+    if host not in ("0.0.0.0", "::"):
+        return f"http://{host}:{port}"
+    # advertise the pod/host IP (downward-API env in K8s, hostname locally)
+    adv = os.environ.get("POD_IP") or socket.gethostbyname(
+        socket.gethostname())
+    return f"http://{adv}:{port}"
+
+
+def heartbeat_payload(ctx: ServingContext, self_url: str) -> dict:
+    """One heartbeat's body: the JAX worker's keys less the KVBM's."""
+    eng = ctx.engine
+    stats = {
+        "active_seqs": eng.num_active,
+        "pending": len(eng.pending),
+        "free_pages": eng.allocator.free_pages,
+        "total_pages": eng.cfg.num_pages,
+        "max_num_seqs": eng.cfg.max_num_seqs,
+        # the weight version, so the rollout controller sees each pod
+        "weight_version": eng.weights.version,
+        "costs": eng.cost.rollup(),
+        "timeline": eng.timeline.summary(),
+        # the router skips suspect/resurrecting/quarantined workers
+        "health": eng.watchdog.summary(),
+    }
+    if eng.lora is not None:
+        # resident adapters drive the router's affinity pass
+        stats["adapters"] = sorted(eng.lora.resident())
+        stats["adapters_available"] = eng.lora.names()
+    if ctx.preemptible:
+        stats["preemptible"] = True
+    return {"url": self_url, "model": ctx.served_model,
+            "mode": eng.cfg.disaggregation_mode, "stats": stats}
+
+
+def _post_json(url: str, body: dict, timeout: float) -> None:
+    urllib.request.urlopen(urllib.request.Request(
+        url, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST"),
+        timeout=timeout).close()
+
+
+def heartbeat_loop(ctx: ServingContext, frontend_url: str, self_url: str,
+                   interval: float, stop: threading.Event) -> None:
+    """Register with EVERY frontend replica now and every `interval`
+    seconds until `stop`: each replica's registry is complete on its own.
+    One dead replica never starves the others of beats."""
+    urls = [u.strip().rstrip("/") + "/internal/register"
+            for u in frontend_url.split(",") if u.strip()]
+    first = True
+    while True:
+        if not first and stop.wait(interval):
+            return
+        first = False
+        body = heartbeat_payload(ctx, self_url)
+        for url in urls:
+            try:
+                _post_json(url, body, timeout=5)
+            except Exception as e:
+                log.warning("heartbeat to %s failed: %s", url, e)
+
+
+def deregister(frontend_url: str, self_url: str) -> None:
+    """Deregister from every replica (one that misses it keeps routing
+    here until the heartbeat's TTL expires)."""
+    for fe in frontend_url.split(","):
+        fe = fe.strip()
+        if not fe:
+            continue
+        try:
+            _post_json(fe.rstrip("/") + "/internal/deregister",
+                       {"url": self_url}, timeout=3)
+        except Exception as e:
+            log.warning("deregister from %s failed (%s); that frontend "
+                        "will expire the heartbeat", fe, e)
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, default))
+    except ValueError:
+        log.warning("invalid %s %r; using %s", name, os.environ.get(name),
+                    default)
+        return default
+
+
 def build_parser(backend_name: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog=f"dynamo_tpu_torch.{backend_name}")
     EngineConfig.add_cli_args(p)
@@ -92,6 +209,16 @@ def build_parser(backend_name: str) -> argparse.ArgumentParser:
                    default=int(os.environ.get("PORT", 8000)))
     p.add_argument("--device", default="cuda",
                    help="torch device the engine runs on (cpu for debugging)")
+    p.add_argument("--frontend-url", default=os.environ.get("FRONTEND_URL"),
+                   help="comma-separated frontend replicas to heartbeat to")
+    p.add_argument("--heartbeat-interval", type=float, default=3.0)
+    # the JAX worker's flags the port refuses (unported_flags)
+    p.add_argument("--prefill-url", default=os.environ.get("PREFILL_URL"))
+    p.add_argument("--nats-url", default=os.environ.get("NATS_URL"))
+    p.add_argument("--kvbm-peers", default=os.environ.get("KVBM_PEERS"))
+    p.add_argument("--coordinator", default=None)
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p
 
 
@@ -99,6 +226,11 @@ def main(argv=None, backend_name: str = "jetstream") -> None:
     logging.basicConfig(level=os.environ.get("LOG_LEVEL", "INFO"))
     p = build_parser(backend_name)
     args = p.parse_args(argv)
+    bad = unported_flags(args)
+    if bad:
+        raise NotImplementedError(
+            f"worker flag(s) {bad} are not ported to dynamo_tpu_torch yet "
+            f"(see ROADMAP.md)")
     if backend_name == "trtllm_tpu" and not args.engine_config:
         p.error("--engine-config FILE is required for the trtllm_tpu "
                 "backend (the TRT engine-build config analogue)")
@@ -114,12 +246,67 @@ def main(argv=None, backend_name: str = "jetstream") -> None:
         engine.warmup()
     ctx = ServingContext(engine, cfg.served_name)
     srv = make_server(ctx, args.host, args.port)
+    port = srv.server_address[1]
+    self_url = _self_url(args.host, port)
+    stop = threading.Event()
+    hb_thread = None
+    if args.frontend_url:
+        hb_thread = threading.Thread(
+            target=heartbeat_loop,
+            args=(ctx, args.frontend_url, self_url,
+                  args.heartbeat_interval, stop),
+            daemon=True, name="heartbeat")
+        hb_thread.start()
 
-    def shutdown(*_):
-        threading.Thread(target=srv.shutdown, daemon=True).start()
+    def shutdown(*_, deadline_s=None, wait=False):
+        """Graceful drain (pod termination): admission off (new requests
+        shed 503 and the frontend fails them over), deregister from every
+        frontend, then the drain state machine, then stop the server.
+        Bounded by DRAIN_TIMEOUT_S (align terminationGracePeriod with it);
+        a reclamation notice passes its `deadline_s` as the hard bound and
+        `wait` so its thread sees the end. A second signal skips the
+        drain."""
+        if stop.is_set():  # an impatient second SIGTERM/SIGINT
+            threading.Thread(target=srv.shutdown, daemon=True).start()
+            return
+        stop.set()
+
+        def _drain():
+            try:
+                if deadline_s is not None:
+                    # leave margin inside the notice for the deregister
+                    drain_s = max(1.0, deadline_s - 3.0)
+                    grace_s = min(5.0, drain_s / 4.0)
+                else:
+                    drain_s = _env_float("DRAIN_TIMEOUT_S", 30.0)
+                    grace_s = _env_float("DRAIN_HANDOFF_GRACE_S", 5.0)
+                ctx.begin_drain()
+                if args.frontend_url:
+                    if hb_thread is not None:
+                        # a heartbeat in flight must land before the
+                        # deregister, or it re-adds this worker
+                        hb_thread.join(timeout=6.0)
+                    deregister(args.frontend_url, self_url)
+                # a request routed a moment before the deregister may be
+                # accepted but not yet submitted
+                time.sleep(1.0)
+                if not ctx.drain(drain_s=drain_s,
+                                 handoff_grace_s=min(grace_s, drain_s)):
+                    log.warning("drain timeout with %d active / %d "
+                                "pending; stopping anyway",
+                                engine.num_active, len(engine.pending))
+            finally:
+                srv.shutdown()
+
+        t = threading.Thread(target=_drain, daemon=True, name="drain")
+        t.start()
+        if wait:
+            t.join()
 
     signal.signal(signal.SIGTERM, shutdown)
     signal.signal(signal.SIGINT, shutdown)
+    # a /internal/reclaim notice drives the same drain under its deadline
+    ctx.reclaim_cb = lambda d: shutdown(deadline_s=d, wait=True)
     log.info("worker serving %s on %s:%d (device %s)", cfg.served_name,
              args.host, srv.server_address[1], engine.device)
     try:

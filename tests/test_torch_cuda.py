@@ -1884,3 +1884,213 @@ def test_pair_tile_rows_equal_whole_chunked_and_mixed(dev, label, h, n_kv, d,
         out = ca.ragged_paged_attention(qr, pk, pv, tables, kv_lens,
                                         q_starts, num_decode=1, **kw)
         assert torch.equal(out[1:], whole[start:start + c]), start
+
+
+# ------------------------------------------------ the worker's lifecycle --
+
+def _greedy_tokens(eng, rid, prompt=(3, 1, 4, 1, 5, 9, 2, 6), n=24):
+    from dynamo_tpu_torch.engine.request import GenRequest
+
+    return eng.generate(GenRequest(rid, list(prompt), max_tokens=n,
+                                   ignore_eos=True))
+
+
+def test_flip_and_rollback_keep_captured_windows_on_the_active_version(dev):
+    """After a flip the CUDA graphs captured on v1 replay v2's weights (the
+    swap writes the live storage): a window gives a fresh v2 engine's
+    tokens, with no new capture; after a rollback, v1's again."""
+    eng = _window_engine(False)
+    eng.warmup()
+    v1 = _greedy_tokens(eng, "v1")
+    v2_ref = _greedy_tokens(_window_engine(False, seed=123), "v2ref")
+    assert v1 != v2_ref
+    graphs = eng.windows.stats()["graphs"]
+    eng.weights.stage("v2", seed=123)
+    eng.weights.flip()
+    replays = eng.windows.stats()["replays"]
+    ca.reset_launch_counts()
+    assert _greedy_tokens(eng, "v2") == v2_ref
+    assert ca.LAUNCHES["decode"] > 0
+    assert eng.windows.stats()["replays"] > replays
+    eng.weights.rollback()
+    assert _greedy_tokens(eng, "v1b") == v1
+    assert eng.windows.stats()["graphs"] == graphs
+
+
+def test_resurrection_keeps_the_graphs_replaying(dev):
+    """resurrect() zeroes the pools and batch buffers in place and
+    restages the weights into their own storage: the graphs captured
+    before replay after it and give the pre-trip tokens."""
+    eng = _window_engine(False)
+    eng.warmup()
+    ref = _greedy_tokens(eng, "pre")
+    graphs = eng.windows.stats()["graphs"]
+    eng.resurrect()
+    replays = eng.windows.stats()["replays"]
+    ca.reset_launch_counts()
+    assert _greedy_tokens(eng, "post") == ref
+    assert ca.LAUNCHES["decode"] > 0
+    assert eng.windows.stats()["replays"] > replays
+    assert eng.windows.stats()["graphs"] == graphs
+
+
+def test_device_hang_trips_the_watchdog_while_ready_answers(dev):
+    """engine.device_hang queues a 2 s spin on the engine's stream: the
+    scheduler blocks in the readback with the exec lock held, the monitor
+    trips at the 0.5 s deadline, /ready answers 503 and /live 200 within
+    100 ms meanwhile, and the engine resurrects and serves the pre-trip
+    tokens on graph replays."""
+    import json
+    import threading
+    import time
+    import urllib.error
+    import urllib.request
+
+    from dynamo_tpu_torch.robustness import faults
+    from dynamo_tpu_torch.serving import api
+
+    eng = _window_engine(False)
+    eng.warmup()
+    ref = _greedy_tokens(eng, "pre")
+    ctx = api.ServingContext(eng, "tiny-debug")
+    srv = api.make_server(ctx, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def get(path):
+        t0 = time.monotonic()
+        try:
+            with urllib.request.urlopen(url + path, timeout=5) as r:
+                code = r.status
+        except urllib.error.HTTPError as e:
+            code = e.code
+        return code, time.monotonic() - t0
+
+    plane = faults.reset_plane()
+    try:
+        eng.watchdog._deadline_override = 0.5
+        plane.configure({"engine.device_hang": {"times": 1,
+                                                "delay_s": 2.0}})
+        # greedy: its graph was captured by warmup (a lazy capture is
+        # exempt, and would hide the hang: the capture synchronizes)
+        body = json.dumps({"model": "tiny-debug", "prompt": "hang",
+                           "max_tokens": 16, "temperature": 0,
+                           "ignore_eos": True}).encode()
+        t = threading.Thread(target=lambda: urllib.request.urlopen(
+            urllib.request.Request(url + "/v1/completions", data=body),
+            timeout=60).read(), daemon=True)
+        t.start()
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and eng.watchdog.health == \
+                "healthy":
+            time.sleep(0.01)
+        assert eng.watchdog.health in ("suspect", "resurrecting")
+        ready, live = get("/ready"), get("/live")
+        assert ready[0] == 503 and ready[1] < 0.1, ready
+        assert live[0] == 200 and live[1] < 0.1, live
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and eng.watchdog.health != \
+                "healthy":
+            time.sleep(0.05)
+        assert eng.watchdog.health == "healthy"
+        assert get("/ready")[0] == 200
+        t.join(timeout=30)
+        ca.reset_launch_counts()
+        assert _greedy_tokens(eng, "post") == ref
+        assert ca.LAUNCHES["decode"] > 0
+    finally:
+        plane.clear()
+        eng.watchdog._deadline_override = None
+        srv.shutdown()
+        ctx.close()
+
+
+def test_slow_build_first_capture_and_profiler_do_not_trip(dev,
+                                                           monkeypatch):
+    """Under an armed derived deadline of 0.3 s (the floor lowered from
+    2 s, the process warmed by an eager engine so that no cold cuBLAS or
+    allocator set-up counts): a kernel-library build taking 1 s, the lazy
+    capture of a graph key inside a dispatch seam (made 0.6 s longer
+    inside the capture), and decode windows under an open torch.profiler
+    session trip nothing."""
+    import contextlib
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynamo_tpu_torch.engine import decode_graphs
+
+    _greedy_tokens(_window_engine(True), "warm")
+    eng = _window_engine(False)
+    eng.watchdog.floor_s = 0.3
+    eng.watchdog.margin = 1.0
+    real_build, real_capturing = ca.build, decode_graphs.capturing
+
+    def slow_build():  # the wrappers call build() at every launch
+        if ca._lib is None:
+            time.sleep(1.0)
+        return real_build()
+
+    @contextlib.contextmanager
+    def slow_capturing(*a, **k):
+        time.sleep(0.6)
+        with real_capturing(*a, **k) as launches:
+            yield launches
+
+    real_build()
+    monkeypatch.setattr(ca, "_lib", None)
+    monkeypatch.setattr(ca, "build", slow_build)
+    monkeypatch.setattr(decode_graphs, "capturing", slow_capturing)
+    assert not eng.windows.graphs
+    _greedy_tokens(eng, "first")  # the build, then a lazy capture
+    assert eng.windows.graphs
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        _greedy_tokens(eng, "profiled")
+    assert eng.watchdog.summary()["trips_total"] == {}
+    assert eng.watchdog.health == "healthy"
+
+
+def test_a_sticky_cuda_error_quarantines_without_resurrection(dev):
+    """In a child process: a device-side assert during a step poisons the
+    CUDA context; the fatal-step path probes it once and quarantines the
+    engine without a resurrection attempt, and the streams end."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    script = r'''
+import json, torch
+from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.engine.engine import Engine
+from dynamo_tpu_torch.engine.request import GenRequest
+from dynamo_tpu_torch.serving.engine_service import EngineService
+eng = Engine(EngineConfig(model="tiny-debug", page_size=16, num_pages=64,
+                          max_num_seqs=4, max_seq_len=512,
+                          enable_prefix_caching=False))
+calls = []
+eng.resurrect = lambda: calls.append(1)
+real = eng._step_locked
+def poisoned():
+    if eng.seqs:
+        x = torch.zeros(4, device="cuda")
+        x[torch.tensor([40], device="cuda")] += 1
+        torch.cuda.synchronize()
+    return real()
+eng._step_locked = poisoned
+svc = EngineService(eng)
+req = GenRequest("p", [1, 2, 3], max_tokens=50, ignore_eos=True)
+last = list(svc.drain(req, svc.submit(req), timeout=60))[-1]
+print(json.dumps({"health": eng.watchdog.health, "resurrect": len(calls),
+                  "last": last.finish_reason,
+                  "sticky": eng.watchdog.summary()["last_trip"].get("sticky")}))
+'''
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", script], cwd=root,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=root))
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+    assert lines, out.stderr[-3000:]
+    got = json.loads(lines[-1])
+    assert got == {"health": "quarantined", "resurrect": 0,
+                   "last": "abort", "sticky": True}, got

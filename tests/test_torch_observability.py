@@ -539,8 +539,9 @@ def test_engine_books_match_the_jax_engine(jparams, extra):
 
 def test_a_failed_step_ends_every_stream_and_dumps_the_ring(monkeypatch):
     """A step that raises: the service notes it in the flight ring, the
-    engine tears every request down (pages back, a dump record), and each
-    waiting stream ends with an abort event."""
+    watchdog trips (a dump) and resurrects the engine in place, whose
+    teardown gives every request's pages back (a dump record) and ends
+    each waiting stream with an abort event, as the JAX service does."""
     from dynamo_tpu_torch.serving.engine_service import EngineService
 
     eng = Engine(EngineConfig(**dict(BASE, enable_prefix_caching=False)),
@@ -569,4 +570,6 @@ def test_a_failed_step_ends_every_stream_and_dumps_the_ring(monkeypatch):
     assert not eng.has_work
     events = [e["ev"] for r in eng.flight.records() for e in r["events"]]
     assert events[events.index("fatal_step"):] == [
-        "fatal_step", "finish", "finish", "dump"]
+        "fatal_step", "watchdog_trip", "dump", "resurrect_begin", "finish",
+        "finish", "dump", "restage_live", "resurrect_done"]
+    assert eng.watchdog.health == "healthy"

@@ -43,14 +43,9 @@ REQUESTS = [
     ("/v1/completions", {"model": "tiny-debug", "prompt": "two choices",
                          "max_tokens": 4, "n": 2, "ignore_eos": True}),
 ]
-# JAX worker families this slice leaves out (ROADMAP queue 1): the
-# watchdog's health series, live elasticity's weight version and staged
-# weights
-OUT_OF_SLICE = {
-    "dynamo_engine_health", "dynamo_engine_watchdog_trips_total",
-    "dynamo_engine_integrity_faults_total", "dynamo_engine_weight_version",
-    "dynamo_memory_staged_weights_bytes",
-}
+# the worker's lifecycle series (health, trips, integrity faults, weight
+# version, staged weight bytes) are served now: no JAX family is left out
+OUT_OF_SLICE: set = set()
 
 
 @pytest.fixture(scope="module", autouse=True)
