@@ -22,6 +22,7 @@
                                               # sessions with and without
                                               # `traced`'s opening kernels
     python3 chip_smoke.py --lifecycle         # phases 1-2 and 17
+    python3 chip_smoke.py --kvbm-qos          # phases 1-2 and 18
 
 (`--kernels-only`, `--window-profile` and the `--mla-*` options time the
 package beside the script, so a copy of it in an older checkout compares
@@ -327,7 +328,8 @@ on failure:
    4600-token prompts; every entry point must launch with the window.
    After them Phi-3 (PHI3_MODEL, `phi3_phase`): phi-3-mini-4k-instruct
    (32 layers, head_dim 96, 32/32 heads, a 2047-key window on every
-   layer) at full width and depth, random bf16 weights from seed 0 (wq
+   layer) at full width and PHI3_LAYERS (20) of its layers (32 before
+   phase 18 took their time), random bf16 weights from seed 0 (wq
    scaled by 2^-4), 8 slots on 2048 pages of its 4096 context: the same
    forwards on both pool kinds at 3000 tokens; four greedy streams of
    2500-3800-token prompts on the classic eager engine, eager engines
@@ -442,7 +444,52 @@ on failure:
    four finish with the v1 tokens (the drain's seconds printed); a second
    hang inside the quarantine window quarantines the worker (`/ready`
    503). The phase's seconds are printed.
-18. A `kernels` JSON line (launches summed over the served phases, graph
+18. The KVBM host tier and per-tenant QoS (`kvbm_qos_phase`), last on
+   the 8B's weights, on eager engines (1-step, synchronous), the kernels'
+   launches counted from zero over the phase. (a) long_shared_prefix's
+   shape (`kvbm_host_tier`): KVBM_CONVS (6) conversations, each its own
+   KVBM_PREFIX-token (1024) prefix and an 8-token turn, served one at a
+   time for two turns (KVBM_TOKENS greedy tokens each) on a device pool
+   of KVBM_DEVICE_PAGES (2.5 conversations: turn 2 always misses on the
+   device) with KVBM_HOST_BLOCKS of pinned host tier (the working set and
+   a conversation more; the gate on "auto"), then with the tier off and
+   on a cache-off engine (turn 2), on bf16 pools and again on int8 pools.
+   It fails unless the arenas are pinned, every turn-2 prompt onboards
+   its whole prefix from the host tier, each launches the chunk kernel
+   once a layer for its one suffix chunk, and the greedy tokens of the
+   three engines are equal. Printed: turn-2 and turn-1 TTFT (engine
+   clock), the host hit ratio, the KVBM's counters, the gate's numbers;
+   and on the bf16 tier-on engine (`kvbm_rates`) the demote and onboard
+   GB/s end to end (2 MiB blocks), the raw pinned host-to-device rate,
+   a one-block onboard's fixed cost and a fit of the eager chunk's wall
+   (the numbers behind `kvbm/cost_model.py`'s defaults). (b)
+   `kvbm_integrity`: under DYNAMO_TPU_INTEGRITY=full, one byte of the
+   first conversation's block at 256 tokens flipped in its pinned host
+   copy: it must drop with one `kv_checksum` fault, the prefix onboard
+   to it and recompute from it with the tier-off run's tokens; then
+   every cached page demoted (the drain's `demote_all`), the engine
+   resurrected, and the next conversation's whole prefix onboarded from
+   the surviving host tier with the tier-off tokens. (c) multi_tenant_skew's
+   shape (`tenant_skew`): on a mixed engine of QOS_SLOTS (4) slots behind
+   the OpenAI server, the 8B's wq scaled by 2^-4 for it (as the windowed
+   models serve: unscaled, two schedules part by whole nats; restored
+   after), QOS_AGGRESSOR (8) streamed chats of
+   QOS_AGGRESSOR_TOKENS greedy tokens tagged `x-tenant-id: aggressor`
+   queued first; once the aggressor holds every slot and has streamed
+   QOS_HEAD_START tokens a slot, QOS_GOOD (2) of QOS_TOKENS tagged `good`,
+   equal weights, with QoS off and on: the good tenant's TTFT p95 printed
+   beside the deferrals and preemptions. With QoS on the aggressor, over
+   its budget and above its slot share, must lose a slot to a WFQ
+   preemption by recompute (none with QoS off), and every stream, the
+   preempted ones included, must equal the same stream with QoS off or
+   first differ at a near-tie of the QoS-off run's top-2 logprobs
+   (`tenant_differences`: the two schedules give the mixed steps other
+   row counts); one request alone tagged `good` with QoS equals the same
+   untagged without. decode,
+   prefill, chunk and ragged must each launch in the phase. Its seconds
+   are printed (the phase's budget, ~35 s, was paid by serving Phi-3 at
+   PHI3_LAYERS of its 32 layers).
+19. A `kernels` JSON line (launches summed over the served phases, graph
    replays included; the verify windows, at decode_q = 5 with and without
    a chunk, decode at head_dim 64, the kernels at head_dim 256, at group
    7 and at group 8 counted as rows of their own: the head_dim 256 rows
@@ -452,7 +499,8 @@ on failure:
    served deepseek-v2-lite phases' variant counts, the Gemma rows from
    the served gemma-2-9b-it phase's windowed launches (`kernel[window]`),
    the Phi-3 rows from the served Phi-3 phase's launches at head_dim 96
-   (`kernel[head_dim=96]`, the longrope runs included);
+   (`kernel[head_dim=96]`, the longrope runs included); phase 18's
+   launches included in the 8B's rows;
    `ms` and `library_ms` device times,
    `call_ms` and `library_call_ms` call times, as phase 3 measures them;
    `device_kernels`, the device kernels of the row's source that serve
@@ -4319,6 +4367,9 @@ GEMMA_LABEL = GEMMA_SHAPE["label"]
 # window on every layer, no cap: decode rows up to the 4096 context,
 # prefill lanes past the window in the 4096 bucket, the chunk at 3008
 PHI3_MODEL = "phi-3-mini-4k-instruct"
+# the layers of its 32 that the Phi-3 phase serves (32 until phase 18
+# took the time of 12 of them)
+PHI3_LAYERS = 20
 PHI3_WINDOW = 2047
 PHI3_SHAPE = dict(
     label=f"head_dim=96,group=1,window={PHI3_WINDOW}", h=32, kv=32, d=96,
@@ -5033,7 +5084,8 @@ def windowed_phase(model: str, n_check: int, lengths, eager_cfg: dict,
                    int8_checks: bool = True, n_streams: int = GEMMA_STREAMS,
                    http: bool = False, controls=(),
                    q_scale: float = None) -> dict:
-    """A windowed model (Gemma-2/3, Phi-3) at full width and depth, every
+    """A windowed model (Gemma-2/3, Phi-3) at full width (and the depth
+    of `model_cfg`), every
     served prompt longer than its window, all engines at `size` (the same
     slots: a decode step's shapes fix its bits), on `model_cfg` (None: the
     preset's) and `params` (None: random bf16 weights from seed 0):
@@ -5274,7 +5326,8 @@ def phi3_longrope_config():
 
 def phi3_phase(eager_cfg: dict, jet_cfg: dict) -> dict:
     """Phi-3-mini (PHI3_MODEL: 32 layers, head_dim 96, 32/32 heads, a
-    2047-key window on every layer) at full width and depth,
+    2047-key window on every layer) at full width and PHI3_LAYERS of its
+    layers,
     served_weights (WINDOWED_WQ_SCALE says why): windowed_phase at
     PHI3_SIZE with PHI3_RUNS and the served check's controls, the
     forwards on both pool kinds (q as the weights give it), the OpenAI
@@ -5285,19 +5338,23 @@ def phi3_phase(eager_cfg: dict, jet_cfg: dict) -> dict:
     and two ~6000-token prompts on LONGROPE_RUNS, past original_max_pos.
     -> {"launches", "variants", "peak_gib"} as family_phase, over both."""
     torch.cuda.reset_peak_memory_stats()
-    weights = served_weights(
-        ModelConfig.from_model_name(PHI3_MODEL, dtype="bfloat16"))
+    cfg = dataclasses.replace(
+        ModelConfig.from_model_name(PHI3_MODEL, dtype="bfloat16"),
+        num_layers=PHI3_LAYERS)
+    weights = served_weights(cfg)
     four_k = windowed_phase(PHI3_MODEL, PHI3_N_CHECK, PHI3_LENGTHS,
                             eager_cfg, jet_cfg, size=PHI3_SIZE,
                             runs=PHI3_RUNS, kernels=WINDOWED_KERNELS,
-                            profiled=True, params=weights, http=True,
-                            controls=tuple(PLANTED_FAULTS), q_scale=1.0)
+                            profiled=True, model_cfg=cfg, params=weights,
+                            http=True, controls=tuple(PLANTED_FAULTS),
+                            q_scale=1.0)
     longrope = windowed_phase(
         PHI3_MODEL, LONGROPE_N_CHECK, LONGROPE_LENGTHS, eager_cfg, jet_cfg,
         size=LONGROPE_SIZE, runs=LONGROPE_RUNS,
         kernels=("decode", "prefill", "chunk", "ragged"),
-        model_cfg=phi3_longrope_config(), params=weights, int8_checks=False,
-        n_streams=2, q_scale=1.0)
+        model_cfg=dataclasses.replace(phi3_longrope_config(),
+                                      num_layers=PHI3_LAYERS),
+        params=weights, int8_checks=False, n_streams=2, q_scale=1.0)
     emit({"phase": "phi3_serve", "ttft_ms": {
         "phi3": four_k["row"]["jetstream_run"]["ttft_ms"],
         "phi3_longrope": longrope["row"]["classic"]["ttft_ms"]},
@@ -6006,19 +6063,478 @@ def lifecycle_phase(engine: Engine, jet_cfg: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 18 --
+
+# (a) the host tier, long_shared_prefix's shape: conversations of a
+# KVBM_PREFIX-token prefix each, served one at a time, two turns; the
+# device pool holds ~2.5 conversations (turn 2 always misses on the
+# device), the host tier the working set and one conversation more
+KVBM_CONVS, KVBM_PREFIX, KVBM_TAIL, KVBM_TOKENS = 6, 1024, 8, 2
+KVBM_CONV_PAGES = KVBM_PREFIX // PS + 2
+KVBM_DEVICE_PAGES = int(KVBM_CONV_PAGES * 2.5)
+KVBM_HOST_BLOCKS = KVBM_CONV_PAGES * (KVBM_CONVS + 1)
+H2D_PROBE_BYTES = 256 * 2**20  # one pinned host -> device copy
+# the eager chunk's widths the gate's recompute side is fit on: two that
+# the card's FLOPs bound (the attained share of the peak), and the
+# engine's own (its fixed cost a chunk: at 256 the eager chunk is
+# host-bound)
+GATE_FIT_CHUNKS = (1024, 2048)
+GATE_FIT_REPS = 3
+# (b) the block whose host copy gets a flipped byte: this many entries
+# into the host tier's LRU order, the first conversation's block at one
+# chunk (the prefix recomputes from a chunk boundary)
+KVBM_CORRUPT_AT = CHUNK // PS
+# (c) multi_tenant_skew's shape: one aggressor's streams against a
+# well-behaved tenant's, equal weights, on a mixed engine of QOS_SLOTS
+# decode slots; the good tenant arrives once the aggressor holds every
+# slot and has streamed QOS_HEAD_START tokens a slot, so that with QoS
+# the aggressor is over budget and above its share while the good tenant
+# queues: a WFQ preemption
+QOS_TENANTS = [{"name": "aggressor", "weight": 1},
+               {"name": "good", "weight": 1}]
+QOS_AGGRESSOR, QOS_GOOD, QOS_SLOTS, QOS_TOKENS = 8, 2, 4, 24
+QOS_AGGRESSOR_TOKENS, QOS_HEAD_START = 32, 4
+
+
+def kvbm_prompts(turn: int) -> list:
+    """Each conversation's prompt of `turn`: its own KVBM_PREFIX-token
+    prefix (seeded by the conversation) and a KVBM_TAIL-token turn."""
+    out = []
+    for c in range(KVBM_CONVS):
+        prefix = np.random.default_rng(1000 + c).integers(
+            1, 100_000, KVBM_PREFIX).tolist()
+        tail = np.random.default_rng(2000 + 10 * c + turn).integers(
+            1, 100_000, KVBM_TAIL).tolist()
+        out.append(prefix + tail)
+    return out
+
+
+def kvbm_run(engine: Engine, turns=(1, 2), convs=range(KVBM_CONVS)) -> dict:
+    """Serve the conversations one at a time, turn by turn, greedy:
+    {"tokens", "ttft_s", "cached", "chunk_launches"} by request id (TTFT
+    on the engine's clock, add_request to the first token; `cached` the
+    prompt tokens the prefix cache served, from the device or onboarded;
+    the chunk kernel's launches for the request)."""
+    chunk = "chunk_int8" if engine.kv_spec.quantized else "chunk"
+    out = {"tokens": {}, "ttft_s": {}, "cached": {}, "chunk_launches": {}}
+    pc = engine.prefix_cache
+    for turn in turns:
+        prompts = kvbm_prompts(turn)
+        for c in convs:
+            rid = f"t{turn}c{c}"
+            n0 = ca.LAUNCHES[chunk]
+            cached0 = pc.stats()["cached_tokens_served"] if pc else 0
+            t0 = time.monotonic()
+            engine.add_request(GenRequest(rid, prompts[c],
+                                          max_tokens=KVBM_TOKENS,
+                                          temperature=0.0, ignore_eos=True))
+            toks, ttft = [], None
+            while engine.has_work:
+                for ev in engine.step():
+                    if ev.token_id >= 0:
+                        ttft = ttft or time.monotonic() - t0
+                        toks.append(ev.token_id)
+            out["tokens"][rid] = toks
+            out["ttft_s"][rid] = ttft
+            out["cached"][rid] = (pc.stats()["cached_tokens_served"]
+                                  - cached0) if pc else 0
+            out["chunk_launches"][rid] = ca.LAUNCHES[chunk] - n0
+    return out
+
+
+def synced_s(fn) -> tuple:
+    """(fn's result, wall seconds until the card finished its work)."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    got = fn()
+    torch.cuda.synchronize()
+    return got, time.monotonic() - t0
+
+
+def kvbm_rates(engine: Engine) -> dict:
+    """On a tier-on engine after its run: the demote of every sole-owned
+    device page (their host copies dropped first, so that each is copied)
+    and the onboard of the last conversation's prefix, as GB/s end to end
+    (host work, gather or scatter, copies: card synchronized after); a
+    one-block onboard's wall less its bytes at the raw rate (the gate's
+    fixed cost); the raw pinned host -> device rate of one H2D_PROBE_BYTES
+    copy (CUDA events, median of 5); and the eager chunk's wall at
+    GATE_FIT_CHUNKS widths, fit as seconds = a fixed cost + FLOPs / (the
+    attained share of the card's bf16 peak), and at the engine's CHUNK,
+    whose wall less its FLOPs at that share is the fixed cost a chunk."""
+    from dynamo_tpu_torch.profiler import roofline
+
+    pc, kvbm = engine.prefix_cache, engine.kvbm
+    block = kvbm.pool.block_nbytes
+    prompt = kvbm_prompts(2)[KVBM_CONVS - 1]
+    for h in list(pc._map):
+        kvbm.pool.drop(h)
+    n, demote_s = synced_s(lambda: pc.evict(pc.evictable()))
+    (pages, _), onboard_s = synced_s(lambda: pc.lookup(prompt))
+    engine.allocator.free(pages)
+    src = torch.empty(H2D_PROBE_BYTES, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(H2D_PROBE_BYTES, dtype=torch.uint8, device="cuda")
+    times = []
+    for _ in range(6):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        dst.copy_(src, non_blocking=True)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / 1e3)
+    h2d = H2D_PROBE_BYTES / statistics.median(times[1:])
+    del src, dst
+    pc.evict(pc.evictable())
+    (one, _), one_s = synced_s(lambda: pc.lookup(prompt[:PS + 1]))
+    engine.allocator.free(one)
+    if len(one) != 1 or len(pages) != KVBM_PREFIX // PS:
+        raise AssertionError(f"phase 18 rates: {n} demoted, {len(pages)} "
+                             f"and {len(one)} onboarded")
+    pc.evict(pc.evictable())
+    fit = {}
+    tokens = sum(kvbm_prompts(1), [])
+    for c in (CHUNK,) + GATE_FIT_CHUNKS:
+        chunk_pages = engine.allocator.alloc(c // PS)
+        table = torch.tensor(chunk_pages, dtype=torch.int32, device="cuda")
+        ids = torch.tensor(tokens[:c], device="cuda")
+        walls = []
+        for _ in range(GATE_FIT_REPS):
+            _, s = synced_s(lambda: llama.prefill_chunk(
+                engine.model, ids, 0, c, engine.k_pages, engine.v_pages,
+                table, page_size=PS))
+            walls.append(s)
+        engine.allocator.free(chunk_pages)
+        fit[c] = statistics.median(walls)
+    (c0, c1) = GATE_FIT_CHUNKS
+    per_token = (fit[c1] - fit[c0]) / (c1 - c0)
+    flops_per_token = 2.0 * roofline.active_param_count(engine.model_cfg)
+    return {"demoted_blocks": n, "onboarded_blocks": len(pages),
+            "block_mib": block / 2**20,
+            "demote_gbps": n * block / demote_s / 1e9,
+            "onboard_gbps": len(pages) * block / onboard_s / 1e9,
+            "demote_s": demote_s, "onboard_s": onboard_s,
+            "h2d_pinned_gbps": h2d / 1e9,
+            "onboard_one_block_s": one_s,
+            "onboard_overhead_s": one_s - block / h2d,
+            "chunk_wall_s": fit,
+            "prefill_mfu": flops_per_token / per_token / BF16_FLOPS_PER_S,
+            "chunk_fixed_s": fit[CHUNK] - CHUNK * per_token}
+
+
+def kvbm_host_tier(engine: Engine, eager_cfg: dict) -> dict:
+    """Phase 18 (a): long_shared_prefix's traffic with the host tier on,
+    off (the prefix cache alone) and on a cache-off engine, on bf16 pools
+    then int8 pools; the rates on the bf16 tier-on engine."""
+    base = dict(eager_cfg, num_pages=KVBM_DEVICE_PAGES)
+    cached = dict(base, enable_prefix_caching=True)
+    layers = engine.model_cfg.num_layers
+    out, errors = {}, []
+    for pools in ("bf16", "int8"):
+        kv = dict(kv_cache_dtype="int8") if pools == "int8" else {}
+        t0 = time.monotonic()
+        on = Engine(EngineConfig(**cached, kvbm_host_blocks=KVBM_HOST_BLOCKS,
+                                 **kv), params=engine.model)
+        alloc_s = time.monotonic() - t0
+        got = {"on": kvbm_run(on)}
+        st = on.kvbm.stats()
+        row = {"pinned": on.kvbm.pool.pinned, "host_alloc_s": alloc_s,
+               "host_gib": KVBM_HOST_BLOCKS * on.kvbm.pool.block_nbytes
+               / 2**30, "gate": on.kvbm.gate.explain(KVBM_PREFIX // PS)}
+        if pools == "bf16":
+            row["rates"] = kvbm_rates(on)
+        del on
+        got["off"] = kvbm_run(Engine(EngineConfig(**cached, **kv),
+                                     params=engine.model))
+        got["cache_off"] = kvbm_run(Engine(EngineConfig(**base, **kv),
+                                           params=engine.model), turns=(2,))
+        release()
+        turn2 = [f"t2c{c}" for c in range(KVBM_CONVS)]
+        lookups = st["host_hits_total"] + st["host_misses_total"]
+        suffix_chunks = {
+            rid: -(-(KVBM_PREFIX + KVBM_TAIL - got["on"]["cached"][rid])
+                   // CHUNK) for rid in turn2}
+        row.update({
+            "ttft_turn2_ms": {k: 1e3 * statistics.mean(
+                got[k]["ttft_s"][r] for r in turn2) for k in got},
+            "ttft_turn1_ms": 1e3 * statistics.mean(
+                got["on"]["ttft_s"][f"t1c{c}"] for c in range(KVBM_CONVS)),
+            "host_hit_ratio": st["host_hits_total"] / max(lookups, 1),
+            "turn2_host_hits": sum(got["on"]["cached"][r] == KVBM_PREFIX
+                                   for r in turn2),
+            "chunk_launches_per_hit": [got["on"]["chunk_launches"][r]
+                                       for r in turn2],
+            "expected_chunk_launches": [layers * suffix_chunks[r]
+                                        for r in turn2],
+            "kvbm": {k: v for k, v in st.items() if k != "gate"},
+            "tokens_equal": {
+                "on_off": got["on"]["tokens"] == got["off"]["tokens"],
+                "on_cache_off": all(got["on"]["tokens"][r]
+                                    == got["cache_off"]["tokens"][r]
+                                    for r in turn2)}})
+        if (not row["pinned"] or row["turn2_host_hits"] != KVBM_CONVS
+                or row["chunk_launches_per_hit"]
+                != row["expected_chunk_launches"]
+                or not all(row["tokens_equal"].values())
+                or st["demoted_blocks_total"] <= 0):
+            errors.append(f"{pools}: {row}")
+        out[pools] = row
+        out[pools + "_tokens"] = got["off"]["tokens"]
+    return out, errors
+
+
+def kvbm_integrity(engine: Engine, eager_cfg: dict, want: dict) -> dict:
+    """Phase 18 (b): under DYNAMO_TPU_INTEGRITY=full, one byte of one
+    demoted block's pinned host copy flipped: the block drops with one
+    kv_checksum fault and the prefix recomputes from it, the tokens those
+    of the tier-off run (`want`); then every cached page is demoted (the
+    drain's demote), the engine resurrects, and the next conversation
+    onboards its whole prefix from the surviving host tier."""
+    cfg = dict(eager_cfg, num_pages=KVBM_DEVICE_PAGES,
+               enable_prefix_caching=True, kvbm_host_blocks=KVBM_HOST_BLOCKS)
+    old = os.environ.get("DYNAMO_TPU_INTEGRITY")
+    os.environ["DYNAMO_TPU_INTEGRITY"] = "full"
+    try:
+        eng = Engine(EngineConfig(**cfg), params=engine.model)
+    finally:
+        if old is None:
+            os.environ.pop("DYNAMO_TPU_INTEGRITY")
+        else:
+            os.environ["DYNAMO_TPU_INTEGRITY"] = old
+    kvbm = eng.kvbm
+    kvbm_run(eng, turns=(1,), convs=range(3))
+    pool = kvbm.pool
+    h = list(pool._entries)[KVBM_CORRUPT_AT]
+    slot = pool._entries[h]
+    pool.settle(slot)
+    raw = pool.k_arena[slot].view(torch.uint8).view(-1)
+    raw[raw.numel() // 3] ^= 0x5A
+    got = kvbm_run(eng, turns=(2,), convs=(0,))
+    wd = eng.watchdog.summary()
+    st = kvbm.stats()
+    demoted = kvbm.demote_all(eng.prefix_cache)
+    held = len(pool)
+    t0 = time.monotonic()
+    eng.resurrect()
+    resurrect_s = time.monotonic() - t0
+    after = kvbm_run(eng, turns=(2,), convs=(1,))
+    out = {"corrupted_block": KVBM_CORRUPT_AT,
+           "kv_checksum_faults": wd["integrity_faults_total"].get(
+               "kv_checksum", 0),
+           "cached_after_fault": got["cached"]["t2c0"],
+           "tokens_equal": got["tokens"]["t2c0"] == want["t2c0"],
+           "removed_blocks": st["removed_blocks_total"],
+           "drain_demoted": demoted, "host_blocks_held": held,
+           "resurrect_s": resurrect_s,
+           "after_resurrect_cached": after["cached"]["t2c1"],
+           "after_resurrect_onboarded": kvbm.stats()[
+               "onboarded_blocks_total"] - st["onboarded_blocks_total"],
+           "after_resurrect_equal": after["tokens"]["t2c1"] == want["t2c1"],
+           "health": eng.watchdog.health}
+    del eng, kvbm, pool
+    release()
+    ok = (out["kv_checksum_faults"] == 1
+          and out["cached_after_fault"] == KVBM_CORRUPT_AT * PS
+          and out["tokens_equal"] and out["removed_blocks"] >= 1
+          and out["after_resurrect_cached"] == KVBM_PREFIX
+          and out["after_resurrect_equal"] and out["health"] == "healthy")
+    return out, ([] if ok else [f"integrity: {out}"])
+
+
+def tenant_stream(base: str, i: int, tenant,
+                  max_tokens: int = QOS_TOKENS) -> tuple:
+    """One streamed chat of `max_tokens` greedy tokens with 2 top
+    logprobs, tagged with x-tenant-id when `tenant` is given: (seconds to
+    the first token event, the streamed text, each token's top-2
+    logprobs, the response id)."""
+    body = dict(COMMON, max_tokens=max_tokens, stream=True, logprobs=True,
+                top_logprobs=2, messages=[
+                    {"role": "user",
+                     "content": f"Tenant stream {i}: tell a story."}])
+    req = urllib.request.Request(
+        base + "/v1/chat/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json",
+                 **({"x-tenant-id": tenant} if tenant else {})})
+    t0, ttft, text, tops, rid = time.monotonic(), None, [], [], None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            chunk = json.loads(line[6:])
+            rid = rid or chunk.get("id")
+            choice = chunk["choices"][0]
+            if choice["delta"].get("content"):
+                ttft = ttft or time.monotonic() - t0
+                text.append(choice["delta"]["content"])
+            for e in (choice.get("logprobs") or {}).get("content") or ():
+                tops.append([a["logprob"] for a in e["top_logprobs"]])
+    return ttft, "".join(text), tops, rid
+
+
+def tenant_skew(engine: Engine, qos: bool) -> dict:
+    """Phase 18 (c) on one mixed engine: the aggressor's QOS_AGGRESSOR
+    streams queued first, then, once they hold every slot and have
+    streamed QOS_HEAD_START tokens a slot, the good tenant's QOS_GOOD; the
+    good tenant's TTFT, every stream's text, the QoS books, the
+    preemptions, and one request alone tagged `good` (with QoS) or
+    untagged (without)."""
+    results = {}
+    with serving(engine, VisibleTokenizer(), utilization=False) as base:
+        def run(key, i, tenant, n=QOS_TOKENS):
+            results[key] = tenant_stream(base, i, tenant, n)
+
+        threads = []
+        for i in range(QOS_AGGRESSOR):
+            threads.append(threading.Thread(
+                target=run, args=(("aggressor", i), i, "aggressor",
+                                  QOS_AGGRESSOR_TOKENS), daemon=True))
+            threads[-1].start()
+        lc_wait(lambda: engine.metrics.num_requests >= QOS_AGGRESSOR, 60,
+                "phase 18: the aggressor's streams did not arrive")
+        lc_wait(lambda: engine.metrics.output_tokens
+                >= QOS_SLOTS * QOS_HEAD_START, 60,
+                "phase 18: the aggressor's streams did not start")
+        for i in range(QOS_GOOD):
+            threads.append(threading.Thread(
+                target=run, args=(("good", i), QOS_AGGRESSOR + i, "good"),
+                daemon=True))
+            threads[-1].start()
+        for t in threads:
+            t.join(timeout=600)
+        worker = stats(base)
+        alone = tenant_stream(base, 99, "good" if qos else None)
+    victims = {e["victim_rid"] for rec in engine.flight.records()
+               for e in rec.get("events", ()) if e.get("ev") == "qos_preempt"}
+    good = sorted(results[("good", i)][0] for i in range(QOS_GOOD))
+    return {"good_ttft_s": good,
+            "good_ttft_p95_s": good[min(len(good) - 1,
+                                        math.ceil(0.95 * len(good)) - 1)],
+            "aggressor_ttft_p95_s": sorted(
+                results[("aggressor", i)][0]
+                for i in range(QOS_AGGRESSOR))[math.ceil(
+                    0.95 * QOS_AGGRESSOR) - 1],
+            "preempted": worker["metrics"].get("num_preempted"),
+            "qos": worker.get("qos"), "alone": alone[1],
+            "texts": {f"{k}{i}": r[1] for (k, i), r in results.items()},
+            "tops": {f"{k}{i}": r[2] for (k, i), r in results.items()},
+            "preempted_streams": sorted(
+                f"{k}{i}" for (k, i), r in results.items()
+                if r[3] in victims),
+            "complete": all(len(r[1]) == (QOS_AGGRESSOR_TOKENS
+                                          if k == "aggressor"
+                                          else QOS_TOKENS)
+                            for (k, _), r in results.items())}
+
+
+def tenant_differences(on: dict, off: dict) -> dict:
+    """Each stream of the QoS-on run against the same stream of the
+    QoS-off run, where nothing was preempted: {stream: its first
+    difference's index, the QoS-off run's top-2 logprob gap there, and
+    whether QoS preempted it} for those that differ. The mixed steps'
+    GEMMs round by their row counts, which the two schedules set
+    otherwise, so a stream may part at a bf16 near-tie (a gap under
+    NEAR_TIE), as phase 12's do; a difference elsewhere, or a length
+    off, is a fault (a preemption's recompute seam among them)."""
+    out = {}
+    for key, want in off["texts"].items():
+        got = on["texts"].get(key, "")
+        if got == want:
+            continue
+        i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                 min(len(got), len(want)))
+        top = off["tops"][key][i] if i < len(off["tops"][key]) else []
+        mine = on["tops"][key][i] if i < len(on["tops"][key]) else []
+        out[key] = {"index": i, "lengths": [len(got), len(want)],
+                    "off_top2_gap": (top[0] - top[1] if len(top) > 1
+                                     and len(got) == len(want)
+                                     else float("inf")),
+                    "on_top2_gap": (mine[0] - mine[1] if len(mine) > 1
+                                    else None),
+                    "preempted": key in on["preempted_streams"]}
+    return out
+
+
+def kvbm_qos_phase(engine: Engine, eager_cfg: dict) -> dict:
+    """Phase 18 (see the module doc) on the 8B's weights -> {"launches"}:
+    the kernels' launches over the whole phase, counted from zero."""
+    t_phase = time.monotonic()
+    ca.reset_launch_counts()
+    host, errors = kvbm_host_tier(engine, eager_cfg)
+    integrity, errs = kvbm_integrity(engine, eager_cfg, host.pop(
+        "bf16_tokens"))
+    host.pop("int8_tokens")
+    errors += errs
+    mixed = dict(eager_cfg, max_num_seqs=QOS_SLOTS, mixed_batch_tokens=CHUNK)
+    skew = {}
+    # on wq scaled as the windowed models serve it (WINDOWED_WQ_SCALE):
+    # as the loader draws it one bf16 unit flips a head's key and two
+    # schedules part by whole nats; scaled, by a unit or two
+    for layer in engine.model.layers:
+        layer.wq.mul_(WINDOWED_WQ_SCALE)  # a power of 2: exact, undone below
+    try:
+        for qos in (False, True):
+            tenants = json.dumps(QOS_TENANTS) if qos else None
+            skew["on" if qos else "off"] = tenant_skew(
+                Engine(EngineConfig(**mixed, tenants=tenants),
+                       params=engine.model), qos)
+            release()
+    finally:
+        for layer in engine.model.layers:
+            layer.wq.div_(WINDOWED_WQ_SCALE)
+    launches = dict(ca.LAUNCHES)
+    on, off = skew["on"], skew["off"]
+    books = on["qos"] or {}
+    deferred = sum((books.get("deferred_total") or {}).values())
+    preempted = (books.get("preempted_total") or {}).get("aggressor", 0)
+    qos_row = {"good_ttft_p95_ms": {k: 1e3 * v["good_ttft_p95_s"]
+                                    for k, v in skew.items()},
+               "aggressor_ttft_p95_ms": {k: 1e3 * v["aggressor_ttft_p95_s"]
+                                         for k, v in skew.items()},
+               "deferrals": deferred, "preemptions": preempted,
+               "engine_preemptions": {k: v["preempted"]
+                                      for k, v in skew.items()},
+               "qos": books, "tagged_equals_untagged":
+               on["alone"] == off["alone"],
+               "preempted_streams": on["preempted_streams"],
+               "first_differences": tenant_differences(on, off),
+               "near_tie_limit": NEAR_TIE,
+               "complete": on["complete"] and off["complete"]}
+    diffs = qos_row["first_differences"]
+    qos_row["streams_equal"] = len(on["texts"]) - len(diffs)
+    if (not qos_row["tagged_equals_untagged"] or not qos_row["complete"]
+            or off["qos"] is not None or preempted == 0
+            or on["preempted"] < preempted or off["preempted"] != 0
+            or not on["preempted_streams"]
+            or any(d["off_top2_gap"] >= NEAR_TIE for d in diffs.values())):
+        errors.append(f"tenants: {qos_row}")
+    missing = [k for k in ("decode", "prefill", "chunk", "ragged")
+               if launches[k] == 0]
+    if missing:
+        errors.append(f"kernels never launched in phase 18: {missing}")
+    out = {"host_tier": host, "integrity": integrity, "tenants": qos_row,
+           "launches": launches, "seconds": time.monotonic() - t_phase}
+    emit({"phase": "kvbm_qos", "model": MODEL, **out})
+    if errors:
+        raise AssertionError(f"phase 18: {errors}")
+    return out
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if args not in ([], ["--kernels-only"], ["--mla-chunked-ttft"],
                     ["--mla-verify-profile"], ["--mla-prefill-profile"],
                     ["--window-profile"], ["--observability"],
                     ["--trace-stress"], ["--gemma"], ["--phi3"],
-                    ["--profile-lead"], ["--lifecycle"]) and not (
+                    ["--profile-lead"], ["--lifecycle"],
+                    ["--kvbm-qos"]) and not (
                         len(args) == 2 and args[0] == "--mla-prefill-profile"
                         and args[1].isdigit()):
         print("usage: chip_smoke.py [--kernels-only | --mla-chunked-ttft | "
               "--mla-verify-profile | --mla-prefill-profile [N] | "
               "--window-profile | --observability | --trace-stress | "
-              "--gemma | --phi3 | --profile-lead | --lifecycle]",
+              "--gemma | --phi3 | --profile-lead | --lifecycle | "
+              "--kvbm-qos]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -6077,6 +6593,9 @@ def main(argv=None) -> int:
         return 0
     if args == ["--lifecycle"]:
         lifecycle_phase(Engine(EngineConfig(**eager_cfg)), jet_cfg)
+        return 0
+    if args == ["--kvbm-qos"]:
+        kvbm_qos_phase(Engine(EngineConfig(**eager_cfg)), eager_cfg)
         return 0
     if args == ["--gemma"]:
         gemma_only(eager_cfg, jet_cfg)
@@ -6258,10 +6777,12 @@ def main(argv=None) -> int:
     rows.update(grammar_kernel_checks(dev))
     guided = guided_phases(engine, jet_cfg)
     lora = lora_phases(engine, eager_cfg, jet_cfg, tok)
-    # the worker's observability plane (phase 16), then its lifecycle
-    # (phase 17), last on the 8B
+    # the worker's observability plane (phase 16), its lifecycle (phase
+    # 17), then the KVBM host tier and tenant QoS (phase 18), last on the
+    # 8B
     observability_phase(engine, jet_cfg)
     lifecycle_phase(engine, jet_cfg)
+    kvbm_qos = kvbm_qos_phase(engine, eager_cfg)
 
     # the new families (phase 13), once the 8B's engines and weights are
     # released
@@ -6298,7 +6819,7 @@ def main(argv=None) -> int:
     launches = dict.fromkeys(ca.LAUNCHES, 0)
     for counts in [phase["launches"] for phase in (
             served, served_mixed[""], served_mixed["_int8"], served_windows,
-            prefix, served_w8a8, prefix_trt, ckpt, guided)] + (
+            prefix, served_w8a8, prefix_trt, ckpt, guided, kvbm_qos)] + (
                 spec["launches"] + lora["launches"]):
         for name, n in counts.items():
             launches[name] += n

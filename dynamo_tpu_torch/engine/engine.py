@@ -33,6 +33,18 @@ Port of the aggregated-serving core of `dynamo_tpu/engine/engine.py`:
   shared, the suffix prefilled, every completed prompt's full pages
   published, and eviction of unshared cached pages as the pressure valve
   (`_ensure_pages`).
+- The KVBM host tier behind it (`kvbm_host_blocks > 0`, `kvbm_gate`,
+  `kvbm_disk_dir`, `kvbm_disk_blocks`; `kvbm/manager.py`): evicted prefix
+  pages demote into pinned host arenas (and a disk tier) and a lookup's
+  miss onboards them back into the live pools in place, gated by the
+  restore-vs-recompute roofline; `set_kv_event_sink` attaches the KV event
+  plane (stored, demoted and removed blocks).
+- Per-tenant QoS (`tenants` or `DYNAMO_TPU_TENANTS`, `qos_burst_tokens`;
+  `qos/tenancy.py`): queue priority offsets per tenant class, fair decode
+  slot caps, deferral of over-budget tenants, one preemption (by
+  recompute) per step of an over-budget or batch-class sequence for a
+  starved tenant, and each step's tokens banked into the weighted-fair
+  budgets, as in the JAX engine.
 - int8 KV pools (`kv_cache_dtype="int8"`: packed values and per-head
   scales, about half the bf16 pool's bytes).
 - Weights from a local safetensors checkpoint (`model_path`, whose
@@ -126,6 +138,7 @@ from dynamo_tpu_torch.engine.kv_cache import (
 from dynamo_tpu_torch.engine.request import GenRequest, TokenEvent
 from dynamo_tpu_torch.engine.tokenizer import get_tokenizer
 from dynamo_tpu_torch.elasticity.weights import WeightManager
+from dynamo_tpu_torch.kvbm.manager import KVBM
 from dynamo_tpu_torch.lora.registry import (LoRARegistry, NoFreeAdapterSlot,
                                             parse_adapter_list)
 from dynamo_tpu_torch.models import llama, loader, quant
@@ -134,6 +147,10 @@ from dynamo_tpu_torch.observability.cost import CostLedger
 from dynamo_tpu_torch.observability.flight import FlightRecorder
 from dynamo_tpu_torch.observability.timeline import StepTimeline
 from dynamo_tpu_torch.ops import cuda_attention, cuda_guide, json_guide
+from dynamo_tpu_torch.qos.tenancy import (BATCH_PRIORITY_PENALTY,
+                                          BATCH_VICTIM_PENALTY,
+                                          OVER_BUDGET_PENALTY,
+                                          TenantAccountant, TenantRegistry)
 from dynamo_tpu_torch.robustness import faults
 from dynamo_tpu_torch.robustness.watchdog import (EngineWatchdog,
                                                   integrity_mode)
@@ -156,12 +173,10 @@ def resolve_device(device=None) -> torch.device:
 def unported_settings(cfg: EngineConfig) -> List[str]:
     """EngineConfig fields set to something the port does not serve."""
     checks = [
-        ("kvbm_host_blocks", cfg.kvbm_host_blocks > 0),
         ("tensor_parallel", cfg.tensor_parallel > 1),
         ("data_parallel", cfg.data_parallel > 1),
         ("expert_parallel", cfg.expert_parallel > 1),
         ("sequence_parallel", cfg.sequence_parallel > 1),
-        ("tenants", bool(cfg.tenants)),
         ("disaggregation_mode", cfg.disaggregation_mode != "agg"),
     ]
     return [name for name, bad in checks if bad]
@@ -530,6 +545,27 @@ class Engine:
         self.flight = FlightRecorder()
         self.cost = CostLedger()
         self.timeline = StepTimeline()
+        # per-tenant QoS: weighted-fair token budgets over the tenant each
+        # request carries (resolved by the serving layer). Over-budget
+        # tenants defer admission, lose group widening and rank first as
+        # preemption victims. None without configured tenants: the
+        # scheduler then behaves as without QoS.
+        self.tenant_registry = (TenantRegistry.from_json(cfg.tenants)
+                                if cfg.tenants else TenantRegistry.from_env())
+        self.qos: Optional[TenantAccountant] = None
+        if self.tenant_registry.enabled:
+            self.qos = TenantAccountant(
+                self.tenant_registry, burst_tokens=cfg.qos_burst_tokens)
+            log.info("per-tenant QoS: %d classes, burst %d tokens",
+                     len(self.tenant_registry.classes), self.qos.burst)
+            # the preemptible batch tier prices as its own rollup row
+            reg = self.tenant_registry
+            self.cost.tier_of = (
+                lambda t: "batch" if reg.is_batch(t) else "interactive")
+        # request_id -> tenant, for budget accounting of TokenEvents whose
+        # sequence may already be gone by the time step() returns them
+        # (kept with QoS on only)
+        self._rid_tenant: Dict[str, str] = {}
         # the engine watchdog: every device seam of the timeline arms a
         # hang deadline, derived from the seams' own times on the card
         # (the CPU path only trips on an explicit override, as the JAX
@@ -583,6 +619,22 @@ class Engine:
         self.prefix_cache: Optional[PrefixCache] = None
         if cfg.enable_prefix_caching and cfg.prefill_chunk_tokens > 0:
             self.prefix_cache = PrefixCache(self.allocator, cfg.page_size)
+        # the KVBM host tier: evicted prefix pages demote to pinned host
+        # arenas (and optionally disk) instead of dying; lookups onboard
+        # them back, cost-gated (kvbm/manager.py)
+        self.kvbm: Optional[KVBM] = None
+        self._kv_event_sink = None  # set_kv_event_sink's
+        if self.prefix_cache is not None and cfg.kvbm_host_blocks > 0:
+            self.kvbm = KVBM(self)
+            self.prefix_cache.kvbm = self.kvbm
+            log.info(
+                "kvbm host tier: %d blocks x %d bytes (%.1f MiB host RAM%s),"
+                " gate=%s%s", cfg.kvbm_host_blocks,
+                self.kvbm.pool.block_nbytes,
+                cfg.kvbm_host_blocks * self.kvbm.pool.block_nbytes / 2**20,
+                ", pinned" if self.kvbm.pool.pinned else "", cfg.kvbm_gate,
+                f", disk tier at {cfg.kvbm_disk_dir}"
+                if cfg.kvbm_disk_dir else "")
 
         b, pmax = cfg.max_num_seqs, cfg.max_pages_per_seq
         # host mirrors of the batch; the device copies in self.batch are
@@ -769,17 +821,28 @@ class Engine:
                              f"{self.cfg.num_pages - 1}")
         _pack_logit_bias(req)
 
+    def set_kv_event_sink(self, sink) -> None:
+        """Attach the cluster KV event plane: `sink(kind, [hash bytes],
+        tier)` receives stored/demoted/removed block events from both the
+        prefix cache and the KVBM tiers (kvbm/events.py publishes them)."""
+        self._kv_event_sink = sink
+        if self.prefix_cache is not None:
+            self.prefix_cache.event_sink = sink
+        if self.kvbm is not None:
+            self.kvbm.events = sink
+
     def _insert_pending(self, req: GenRequest, requeue: bool = False) -> None:
-        """Priority insertion (caller holds _lock): lower priority values
-        admit sooner, FIFO within a level; requeued continuations go before
-        their level's existing entries."""
-        p = req.priority
+        """Priority insertion (caller holds _lock): lower values admit
+        sooner, FIFO within a level; requeued continuations go before their
+        level's existing entries. With QoS on the key is the request's
+        priority plus its tenant class's offset (`_queue_priority`)."""
+        p = self._queue_priority(req)
         if requeue:
             idx = next((i for i, r in enumerate(self.pending)
-                        if r.priority >= p), None)
+                        if self._queue_priority(r) >= p), None)
         else:
             idx = next((i for i, r in enumerate(self.pending)
-                        if r.priority > p), None)
+                        if self._queue_priority(r) > p), None)
         if idx is None:
             self.pending.append(req)
         else:
@@ -790,6 +853,8 @@ class Engine:
         self.validate_request(req)
         with self._lock:
             self._insert_pending(req)
+            if self.qos is not None:  # _qos_account drops it when done
+                self._rid_tenant[req.request_id] = self._tenant_of(req)
             self.metrics.num_requests += 1
         if req.resume_key is not None or req.prior_output_token_ids:
             # recovery seam: a continuation of a preempted request or of
@@ -824,6 +889,7 @@ class Engine:
                 ids = [r.request_id for r in self.pending]
                 self.pending.clear()
                 self._aborted.clear()
+                self._rid_tenant.clear()
             self._pending_win = None  # unread tokens die with their slots
             inf, self._inflight = self._inflight, None
             if inf is not None:
@@ -851,7 +917,10 @@ class Engine:
         (`WeightManager.restage_live`). Nothing moves, so every captured
         decode and verify graph stays valid and replays (the JAX engine
         allocates a fresh pool and re-uploads the weights: new addresses,
-        which a captured graph would not follow). A CUDA error here
+        which a captured graph would not follow). The KVBM's host tier
+        survives (its blocks are host copies) and re-attaches to the new
+        prefix cache, as in the JAX engine, so its blocks re-onboard into
+        the zeroed pools; so does the KV event sink. A CUDA error here
         propagates and the watchdog quarantines. Callers hold _exec_lock
         (the escalation ladder)."""
         with self._exec_lock, torch.inference_mode():
@@ -864,6 +933,8 @@ class Engine:
             if self.prefix_cache is not None:
                 self.prefix_cache = PrefixCache(self.allocator,
                                                 self.cfg.page_size)
+                self.prefix_cache.kvbm = self.kvbm
+                self.prefix_cache.event_sink = self._kv_event_sink
             self.batch.reset()
             self._invalidate_dev()
             self.weights.restage_live()
@@ -893,9 +964,222 @@ class Engine:
         except RuntimeError:
             return True
 
+    # ---------------------------------------------------- per-tenant QoS --
+
     @staticmethod
     def _tenant_of(req: GenRequest) -> str:
         return req.tenant or "default"
+
+    def _queue_priority(self, req: GenRequest) -> int:
+        """STATIC queue-order priority: the request's own priority plus
+        its tenant class's offset. Static by construction (no budget term)
+        so the pending queue's order cannot rot as balances move.
+        Batch-class requests carry a constant penalty that dominates any
+        legal priority sum: the offline lane never queues ahead of
+        interactive work."""
+        if self.qos is None:
+            return req.priority
+        c = self.qos.registry.cls(self._tenant_of(req))
+        p = req.priority + c.priority
+        if c.batch:
+            p += BATCH_PRIORITY_PENALTY
+        return p
+
+    def _is_batch(self, tenant: str) -> bool:
+        return self.qos is not None and self.qos.registry.is_batch(tenant)
+
+    def _class_of(self, tenant: str) -> str:
+        """Flight-recorder taxonomy for preemption victims/beneficiaries."""
+        return "batch" if self._is_batch(tenant) else "interactive"
+
+    def _rank_priority(self, req: GenRequest) -> int:
+        """Preemption-victim rank: queue priority plus the over-budget
+        penalty (an over-budget tenant's sequences are the preferred
+        victims, whatever their nominal class), plus a larger one still for
+        the batch class (evicted before even a misbehaving interactive
+        tenant)."""
+        p = self._queue_priority(req)
+        if self.qos is not None:
+            t = self._tenant_of(req)
+            if self.qos.over_budget(t):
+                p += OVER_BUDGET_PENALTY
+            if self.qos.registry.is_batch(t):
+                p += BATCH_VICTIM_PENALTY
+        return p
+
+    def _qos_slot_state(self, pend) -> tuple:
+        """(held slots per tenant, demanding tenants, fair caps) over the
+        running set + `pend` (a snapshot of the pending queue)."""
+        held: Dict[str, int] = {}
+        for s in self.seqs.values():
+            t = self._tenant_of(s.req)
+            held[t] = held.get(t, 0) + 1
+        if self._inflight is not None:
+            t = self._tenant_of(self._inflight.req)
+            held[t] = held.get(t, 0) + 1
+        demand = set(held) | {self._tenant_of(r) for r in pend}
+        cap = {t: self.qos.slot_cap(t, self.cfg.max_num_seqs, demand)
+               for t in demand}
+        return held, demand, cap
+
+    def _qos_pick_index(self) -> int:
+        """Index of the next pending request to admit (caller holds
+        _lock). With QoS on, requests whose tenant is over budget or
+        already holds its fair slot share are passed over while an
+        admissible tenant waits behind them; when EVERY pending tenant is
+        blocked the head admits anyway (work conservation: fairness must
+        never idle the card)."""
+        if self.qos is None or len(self.pending) <= 1:
+            return 0
+        held, _, cap = self._qos_slot_state(self.pending)
+        deferred: set = set()
+        for i, r in enumerate(self.pending):
+            t = self._tenant_of(r)
+            if held.get(t, 0) >= cap[t] or self.qos.over_budget(t):
+                deferred.add(t)
+                continue
+            if i:
+                for t2 in deferred:
+                    self.qos.note_defer(t2)
+                self.flight.note("defer", tenants=sorted(deferred),
+                                 reason="qos_share_or_budget",
+                                 beneficiary_rid=r.request_id,
+                                 beneficiary_tenant=t)
+            return i
+        return 0
+
+    def _qos_admissible(self, req: GenRequest) -> bool:
+        """Group-widening gate: may `req` take a slot right now? (caller
+        holds _lock)."""
+        if self.qos is None:
+            return True
+        t = self._tenant_of(req)
+        if self.qos.over_budget(t):
+            return False
+        held, _, cap = self._qos_slot_state(self.pending)
+        return held.get(t, 0) < cap[t]
+
+    def _pending_remove(self, req: GenRequest) -> None:
+        """Remove `req` from the pending queue by identity (caller holds
+        _lock): the QoS pick may admit from the middle of the queue."""
+        for i, r in enumerate(self.pending):
+            if r is req:
+                del self.pending[i]
+                return
+
+    def _qos_evict_batch_for_admission(self) -> List[TokenEvent]:
+        """Class-wide batch eviction: interactive traffic returning to a
+        trough-filled engine drains EVERY batch-held slot it needs within
+        this one step (the offline lane's contract is instant yield, not
+        fair contention). Each victim requeues as a recompute
+        continuation; the interactive admissions then land in this same
+        _admit pass. Batch-vs-batch contention stays on the WFQ
+        single-victim path."""
+        if (self.qos is None or self._inflight is not None
+                or not self.seqs):
+            return []
+        if not any(self._is_batch(self._tenant_of(s.req))
+                   for s in self.seqs.values()):
+            return []
+        with self._lock:
+            interactive = [r for r in self.pending
+                           if not self._is_batch(self._tenant_of(r))]
+        need = len(interactive) - len(self._free_slots)
+        if need <= 0:
+            return []
+        # preemption frees pages a window in flight may still touch: drain
+        # the pipeline first (this can also finish sequences, so victims
+        # are picked after)
+        events = self._materialize_pending()
+        victims = sorted(
+            ((slot, s) for slot, s in self.seqs.items()
+             if self._is_batch(self._tenant_of(s.req))),
+            key=lambda kv: (self._rank_priority(kv[1].req),
+                            kv[1].req.arrival_time),
+            reverse=True)
+        head = interactive[0]
+        for slot, seq in victims[:max(0, need)]:
+            self.flight.note(
+                "qos_preempt", victim_rid=seq.request_id, victim_slot=slot,
+                victim_tenant=self._tenant_of(seq.req),
+                victim_class="batch", reason="interactive_return",
+                beneficiary_rid=head.request_id,
+                beneficiary_tenant=self._tenant_of(head),
+                n_out=len(seq.output_tokens))
+            self._preempt_slot(slot)
+        return events
+
+    def _qos_preempt_for_admission(self) -> List[TokenEvent]:
+        """WFQ slot reallocation: when every decode slot is taken and a
+        well-behaved tenant queues below its fair share, preempt ONE
+        sequence (worst rank, then youngest) of an over-budget tenant
+        holding more than its share. At most one preemption per step
+        bounds recompute thrash; the freed slot admits the waiting request
+        in this same _admit pass."""
+        if (self.qos is None or self._free_slots
+                or self._inflight is not None or not self.seqs):
+            return []
+        with self._lock:
+            if not self.pending:
+                return []
+            pend = list(self.pending)
+        held, _, cap = self._qos_slot_state(pend)
+        cand = next(
+            (r for r in pend
+             if not self.qos.over_budget(self._tenant_of(r))
+             and held.get(self._tenant_of(r), 0) < cap[self._tenant_of(r)]),
+            None)
+        if cand is None:
+            return []
+        cand_t = self._tenant_of(cand)
+        victims = [
+            (slot, s) for slot, s in self.seqs.items()
+            if self._tenant_of(s.req) != cand_t
+            and self.qos.over_budget(self._tenant_of(s.req))
+            and held.get(self._tenant_of(s.req), 0)
+            > cap.get(self._tenant_of(s.req), 0)
+        ]
+        if not victims:
+            return []
+        # preemption frees pages a window in flight may still touch: drain
+        # the pipeline first
+        events = self._materialize_pending()
+        slot, seq = max(victims, key=lambda kv: (
+            self._rank_priority(kv[1].req), kv[1].req.arrival_time))
+        if self.seqs.get(slot) is seq:  # materializing may have finished it
+            self.flight.note(
+                "qos_preempt", victim_rid=seq.request_id, victim_slot=slot,
+                victim_tenant=self._tenant_of(seq.req),
+                victim_class=self._class_of(self._tenant_of(seq.req)),
+                reason="wfq_share",
+                beneficiary_rid=cand.request_id, beneficiary_tenant=cand_t)
+            self._preempt_slot(slot)
+        return events
+
+    def _qos_account(self, events: List[TokenEvent]) -> None:
+        """Bank one step's decoded tokens into the tenant budgets."""
+        if self.qos is None or not events:
+            return
+        produced: Dict[str, int] = {}
+        done: List[str] = []
+        for ev in events:
+            if ev.token_id >= 0:
+                t = self._rid_tenant.get(ev.request_id, "default")
+                produced[t] = produced.get(t, 0) + 1
+            if ev.finished:
+                done.append(ev.request_id)
+        if produced:
+            demand = {self._tenant_of(s.req) for s in self.seqs.values()}
+            with self._lock:
+                demand.update(self._tenant_of(r) for r in self.pending)
+            if self._inflight is not None:
+                demand.add(self._tenant_of(self._inflight.req))
+            demand.update(produced)
+            self.qos.account(produced, demand)
+        if done:
+            with self._lock:
+                for rid in done:
+                    self._rid_tenant.pop(rid, None)
 
     @property
     def num_active(self) -> int:
@@ -943,8 +1227,6 @@ class Engine:
         # boundary, once the last old-version stream has finished: we hold
         # _exec_lock, so no step ever mixes versions
         self.weights.maybe_flip_locked()
-        # the JAX engine's step phases less "bank": the port keeps no
-        # per-tenant budgets to bank at the end of a step
         with self.timeline.phase("admit"):
             events = self._apply_aborts()
         spec = self.verify is not None
@@ -957,6 +1239,8 @@ class Engine:
                 if spec:
                     self._demote("logprobs")
                 events.extend(self._mixed_step())
+            with self.timeline.phase("bank"):
+                self._qos_account(events)
             return events
         if self._inflight is not None:
             events.extend(self._advance_chunk())
@@ -970,6 +1254,10 @@ class Engine:
                 events.extend(self._decode_async())
             else:
                 events.extend(self._decode_once())
+        # per-tenant QoS: bank this step's decoded tokens into the
+        # weighted-fair budgets (no-op without configured tenants)
+        with self.timeline.phase("bank"):
+            self._qos_account(events)
         return events
 
     # ------------------------------------------------- flight/cost hooks --
@@ -1082,12 +1370,21 @@ class Engine:
             # queue so they land on the NEW version; in-flight streams
             # keep decoding on the old one until the flip applies
             return events
+        # per-tenant QoS: interactive arrivals drain the batch class first
+        # (every slot they need, this step), then slots full + a well-
+        # behaved tenant below its share -> preempt ONE over-share
+        # over-budget sequence
+        events.extend(self._qos_evict_batch_for_admission())
+        events.extend(self._qos_preempt_for_admission())
         chunk = self.cfg.prefill_chunk_tokens
         while self._free_slots:
             with self._lock:
                 if not self.pending:
                     break
-                req = self.pending[0]
+                # QoS-aware pick: pass over tenants over budget or at their
+                # fair slot share while others wait (the head without
+                # configured tenants)
+                req = self.pending[self._qos_pick_index()]
             if req.adapter:
                 # resolve (and lazily load) the adapter BEFORE any
                 # allocation: from here to installation nothing else can
@@ -1103,7 +1400,7 @@ class Engine:
                     break  # every slot serves live sequences: wait
                 except KeyError:  # unregistered since it was submitted
                     with self._lock:
-                        self.pending.remove(req)
+                        self._pending_remove(req)
                     events.append(TokenEvent(req.request_id, -1, 0, True,
                                              "abort"))
                     self.flight.note("abort", rid=req.request_id,
@@ -1131,7 +1428,7 @@ class Engine:
                                  free_pages=self.allocator.free_pages)
                 break  # OutOfPages deferral: running sequences free pages
             with self._lock:
-                self.pending.popleft()
+                self._pending_remove(req)
             # installing a slot changes the batch: drain the window in
             # flight first
             events.extend(self._materialize_pending())
@@ -1181,6 +1478,8 @@ class Engine:
                 if not self.pending:
                     break
                 nxt = self.pending[0]
+                if not self._qos_admissible(nxt):
+                    break  # over-budget/over-share tenant: own pass later
             plen = len(nxt.prompt_token_ids)
             if chunk > 0 and plen > chunk:
                 break  # chunked path
@@ -1202,7 +1501,7 @@ class Engine:
                 break
             need += n_pg
             with self._lock:
-                self.pending.popleft()
+                self._pending_remove(nxt)
             group.append(nxt)
         return group
 
@@ -1777,9 +2076,12 @@ class Engine:
 
     def _preempt_for(self, need: int, protect: int) -> None:
         """Free >= `need` pages by preempting victims (worst priority, then
-        youngest), never the protected slot nor a better-priority one."""
+        youngest), never the protected slot nor a better-priority one. With
+        QoS on the priority is `_rank_priority`: the tenant class's offset
+        and the over-budget and batch penalties make an over-budget or
+        batch tenant's sequences the first victims."""
         def rank(seq):
-            return (seq.req.priority, seq.req.arrival_time)
+            return (self._rank_priority(seq.req), seq.req.arrival_time)
 
         protected = self.seqs.get(protect)
         floor = rank(protected) if protected is not None else (-(1 << 30),)
@@ -1814,6 +2116,8 @@ class Engine:
         self._finish_slot(slot, None)
         self.metrics.num_finished -= 1  # preempted, not finished
         self.metrics.num_preempted += 1
+        if self.qos is not None:
+            self.qos.note_preempt(self._tenant_of(old))
         with self._lock:
             self._insert_pending(cont, requeue=True)
 

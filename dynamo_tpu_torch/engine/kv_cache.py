@@ -1,7 +1,7 @@
 """Paged KV cache: device page pools + host-side page allocator.
 
 Port of `dynamo_tpu/engine/kv_cache.py`, automatic prefix caching
-(`PrefixCache`) included, without its KVBM host tier and KV event sink. The pools
+(`PrefixCache`) with its KVBM host tier and KV event sink included. The pools
 are [num_layers, num_pages, page_size, lane_width] for K and V, page-major:
 in the model dtype with the KV heads fused into the last axis (head h
 occupies lanes [h*D, (h+1)*D), lane_width = KV*D), or, with
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import logging
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -22,6 +23,8 @@ import torch
 
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops.attention import kv_lane_width
+
+log = logging.getLogger("dynamo_tpu_torch.kvbm")
 
 
 class OutOfPages(Exception):
@@ -142,7 +145,7 @@ class PageAllocator:
 
 class PrefixCache:
     """Automatic prefix caching over the paged KV pool (vLLM-style), the
-    JAX package's `PrefixCache` less its KVBM tier and event sink.
+    JAX package's `PrefixCache`.
 
     A fully prefilled prompt's FULL pages are published under a rolling
     block-hash chain (sha256 from b"root" over int64 token blocks, byte for
@@ -152,7 +155,10 @@ class PrefixCache:
     pages are published, `lookup` leaves at least one token uncached, so
     decode and suffix writes always land on later pages. The cache holds
     one reference per published page; eviction (LRU) takes only pages
-    nothing else references."""
+    nothing else references. With a KVBM attached (`kvbm`, kvbm/manager.py)
+    eviction demotes its victims to the host tier and a lookup onboards the
+    rest of a chain from it; `event_sink` receives the stored, demoted and
+    removed block events (kvbm/events.py)."""
 
     def __init__(self, allocator: PageAllocator, page_size: int):
         self.allocator = allocator
@@ -164,6 +170,23 @@ class PrefixCache:
         self.hits = 0
         self.misses = 0
         self.cached_tokens_served = 0
+        # KVBM tiering bridge, attached by the engine when a host tier is
+        # configured: evict() DEMOTES sole-owned victims through it and
+        # lookup() misses consult the lower tiers before giving up. None =
+        # classic destroy-on-evict.
+        self.kvbm = None
+        # KV event sink: callable(kind, [hash bytes], tier) feeding the
+        # cluster event plane (kvbm/events.py); independent of tiering so
+        # routing events flow even without a host pool.
+        self.event_sink = None
+
+    def _emit(self, kind: str, hashes, tier: str) -> None:
+        if self.event_sink is None or not hashes:
+            return
+        try:
+            self.event_sink(kind, list(hashes), tier)
+        except Exception:  # the event plane must never break the engine
+            log.exception("kv event sink failed")
 
     @staticmethod
     def _chain(prev: bytes, block) -> bytes:
@@ -189,17 +212,40 @@ class PrefixCache:
                namespace: str = "") -> Tuple[List[int], int]:
         """Longest cached prefix: (page ids, tokens). The pages come back
         ref'd for the caller. Leaves >= 1 token uncached so the last
-        token's logits are computed."""
+        token's logits are computed. With a KVBM the rest of the chain is
+        onboarded from the lower tiers. Each page is ref'd as it is
+        matched or onboarded: an onboard further down the chain makes
+        device room by eviction, which must not take the pages this walk
+        already holds."""
         limit = (len(prompt_tokens) - 1) // self.page_size
         pages: List[int] = []
-        for h in self._hashes(prompt_tokens, limit, namespace):
-            page = self._map.get(h)
-            if page is None:
+        hashes = self._hashes(prompt_tokens, limit, namespace)
+        i = 0
+        while i < limit:
+            page = self._map.get(hashes[i])
+            if page is not None:
+                self._map[hashes[i]] = self._map.pop(hashes[i])  # LRU bump
+                self.allocator.ref([page])
+                pages.append(page)
+                i += 1
+                continue
+            if self.kvbm is None:
                 break
-            self._map[h] = self._map.pop(h)  # LRU bump
-            pages.append(page)
+            # consult the lower tiers for the rest of the chain; onboarded
+            # pages come back with one cache-owned ref (exactly like
+            # insert), are republished here and take the caller's ref.
+            # Eviction is oldest-first, so a demoted run can sit IN FRONT
+            # of blocks still on device: keep walking.
+            got = self.kvbm.onboard_chain(hashes[i:])
+            if not got:
+                break
+            for h2, p2 in got:
+                self._map[h2] = p2
+                self._ns[h2] = namespace
+                pages.append(p2)
+            self.allocator.ref([p2 for _, p2 in got])
+            i += len(got)
         if pages:
-            self.allocator.ref(pages)
             self.hits += 1
             self.cached_tokens_served += len(pages) * self.page_size
         else:
@@ -218,6 +264,7 @@ class PrefixCache:
         """Publish a fully prefilled prompt's full pages; each newly
         published page gains a cache-owned reference."""
         n_full = len(prompt_tokens) // self.page_size
+        fresh: List[bytes] = []
         for h, page in zip(self._hashes(prompt_tokens, n_full, namespace),
                            pages[:n_full]):
             if h in self._map:
@@ -225,22 +272,35 @@ class PrefixCache:
             self.allocator.ref([page])
             self._map[h] = page
             self._ns[h] = namespace
+            fresh.append(h)
+        self._emit("stored", fresh, "device")
 
     def evictable(self) -> int:
         """Pages reclaimable now (the cache is the sole owner)."""
         return sum(1 for p in self._map.values()
                    if self.allocator.refs(p) == 1)
 
-    def evict(self, n: int) -> int:
-        """Free up to n sole-owned pages, oldest first; returns how many."""
+    def evict(self, n: int, protect=frozenset()) -> int:
+        """Free up to n sole-owned pages, oldest first; returns how many.
+
+        With a KVBM attached the victims DEMOTE into the host tier before
+        their device pages are freed; the host-pool-full remainder falls
+        back to the classic plain free. `protect` hashes are never victims:
+        the onboard path frees room for an incoming prefix by rotating
+        OTHER prefixes down a tier, and must not evict blocks of the chain
+        it is restoring."""
         if n <= 0:
             return 0
         victims = []
         for h, page in self._map.items():  # insertion order == LRU
-            if self.allocator.refs(page) == 1:
+            if self.allocator.refs(page) == 1 and h not in protect:
                 victims.append((h, page))
                 if len(victims) >= n:
                     break
+        if self.kvbm is not None:
+            self.kvbm.demote(victims)  # emits demoted/removed events
+        else:
+            self._emit("removed", [h for h, _ in victims], "none")
         for h, page in victims:
             del self._map[h]
             del self._ns[h]

@@ -24,8 +24,9 @@ counters (the engine's CostLedger read at scrape time), and as the
 
 The port's counterpart of `dynamo_tpu/observability/memory.py` (it
 imports nothing of the JAX package): the books and series are the JAX
-module's, less the KVBM host/disk tiers and the parked disaggregated
-pages, which the port does not have; the weight double buffer
+module's, the KVBM's host and disk tiers included (`host` and `disk`,
+each its held blocks' bytes and its free room), less the parked
+disaggregated pages, which the port does not have; the weight double buffer
 (`elasticity/weights.py`) has its rows in
 `dynamo_memory_staged_weights_bytes`.
 """
@@ -155,6 +156,24 @@ class MemoryAccountant:
         if draft is not None:
             tiers["draft"] = draft.partition_bytes()
 
+        # the KVBM's host arenas and disk tier, each partitioned into the
+        # blocks it holds and its free room
+        kvbm = getattr(eng, "kvbm", None)
+        kvbm_stats = None
+        if kvbm is not None:
+            kvbm_stats = kvbm.pool.stats()
+            bn = int(kvbm_stats.get("block_nbytes", 0))
+            used = int(kvbm_stats.get("used_blocks", 0))
+            cap = int(kvbm_stats.get("capacity_blocks", 0))
+            tiers["host"] = {"cache": used * bn,
+                             "free": max(0, cap - used) * bn}
+            disk = kvbm_stats.get("disk")
+            if disk:
+                dused = int(disk.get("used_blocks", 0))
+                dcap = int(disk.get("capacity_blocks", 0))
+                tiers["disk"] = {"cache": dused * bn,
+                                 "free": max(0, dcap - dused) * bn}
+
         lora = eng.lora
         lora_out: Optional[Dict[str, Any]] = None
         if lora is not None:
@@ -194,6 +213,7 @@ class MemoryAccountant:
             "device_pages_by_tenant": dict(sorted(by_tenant.items())),
             "device_pages_by_adapter": dict(sorted(by_adapter.items())),
             "tiers": tiers,
+            "kvbm": kvbm_stats,
             "lora": lora_out,
             "weights": weights_out,
             "devices": device_memory_stats(eng.device, self.bytes_limit),

@@ -1,12 +1,15 @@
 """Roofline sizes of a model: parameters, active parameters, KV bytes per
-token and weight bytes per parameter.
+token and weight bytes per parameter, and the two sides of the KVBM's
+onboard gate.
 
 The part of `dynamo_tpu/profiler/roofline.py` the live utilization gauges
-read (observability/engine_metrics.py), copied: the port's own copy (it
-imports nothing of the JAX package); keep the two in step. The JAX
-module's analytic `estimate` of TTFT / ITL for the SLA sweep waits for the
-planner. Counts assume bfloat16 (2 bytes) parameters and KV unless a
-quantization says otherwise.
+(observability/engine_metrics.py) and the KVBM's gate (kvbm/cost_model.py)
+read, copied: the port's own copy (it imports nothing of the JAX package);
+keep the two in step. The gate's rates are the caller's: the JAX module's
+defaults are a TPU's planning numbers, the port's come from the card
+(kvbm/cost_model.py). The JAX module's analytic `estimate` of TTFT / ITL
+for the SLA sweep waits for the planner. Counts assume bfloat16 (2 bytes)
+parameters and KV unless a quantization says otherwise.
 """
 
 from __future__ import annotations
@@ -74,3 +77,23 @@ def kv_bytes_per_token(cfg: ModelConfig, kv_dtype: str = "auto",
 
 def weight_bytes(quant: str) -> float:
     return 1.0 if quant in ("int8", "w8a8") else float(BYTES)
+
+
+def kvbm_restore_seconds(n_bytes: float, bytes_per_s: float,
+                         overhead_s: float) -> float:
+    """Time to restore demoted KV blocks onto the device: bytes over the
+    host<->device link plus one onboard's fixed overhead. One side of the
+    KVBM onboard gate (kvbm/cost_model.py)."""
+    return overhead_s + n_bytes / max(bytes_per_s, 1.0)
+
+
+def kvbm_recompute_seconds(cfg: ModelConfig, n_tokens: int,
+                           chip_flops: float, n_dispatches: int,
+                           mfu: float, dispatch_s: float) -> float:
+    """Time to RECOMPUTE a cached prefix instead of restoring it: the
+    compute-bound prefill roofline for `n_tokens` at `mfu` of the card's
+    peak (linear term only: the quadratic attention term would only widen
+    restore's win) plus `dispatch_s` for each chunk of the chunked-prefill
+    path that would run. The other side of the KVBM onboard gate."""
+    flops = 2.0 * active_param_count(cfg) * n_tokens
+    return n_dispatches * dispatch_s + flops / max(chip_flops * mfu, 1.0)

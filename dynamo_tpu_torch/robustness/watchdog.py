@@ -43,7 +43,10 @@ Three cooperating pieces:
    demote/onboard boundary.  A tripped sentinel aborts ONLY the
    poisoned streams with a typed ``integrity_fault`` flight event —
    never the process, and never the health state machine (corruption is
-   per-batch; hangs are per-device).
+   per-batch; hangs are per-device).  The KV checksum (the ``kv_checksum``
+   sentinel, recorded by ``kvbm/manager.py``'s ``_verify``) aborts
+   nothing: the rotten host block is dropped before it reaches the
+   device pools and its prefix recomputes.
 
 Trip handling runs on the monitor thread and deliberately never touches
 ``_exec_lock`` — the whole point is that the scheduler thread may be

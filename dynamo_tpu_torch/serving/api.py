@@ -45,8 +45,23 @@ The worker's lifecycle is the JAX worker's:
   to journal (`x-recovery-journal`) carries `: dynr` comment frames, and a
   `dynamo_recovery` continuation resumes one on this worker byte for byte.
 
-Not ported yet: tenants, the KVBM and disaggregation (`drain_demote`
-demotes nothing: there is no host tier).
+Per-tenant QoS is the JAX worker's: each inference request's tenant is
+resolved from its headers (the frontend's `x-dynamo-tenant` trusted,
+else `x-tenant-id`, an API key or a bearer token, against the engine's
+`TenantRegistry`), rides into the engine's weighted-fair scheduler, and
+is observed on `dynamo_tenant_requests_total` and the tenant TTFT and ITL
+histograms; `/worker/stats` has `qos`, and the cost ledger prices the
+batch class as its own tier.
+
+The KVBM host tier is the JAX worker's: the `dynamo_kvbm_*` counters and
+`dynamo_kvbm_host_blocks`, `kvbm` in `/worker/stats`, the `kvbm.offload`
+and `kvbm.onboard` spans and the drain's demote of every sole-owned
+prefix page (`drain_demote`).
+
+Not ported yet: disaggregation, the KVBM's cross-worker pull (its
+`HostTierSource` needs the transfer plane), and the KV event plane's
+wiring to NATS (the frontend tier's; `Engine.set_kv_event_sink` attaches
+a `kvbm/events.py` publisher meanwhile).
 """
 
 from __future__ import annotations
@@ -219,7 +234,13 @@ class GenerationHandle:
             prior_output_token_ids=prior,
             resume_key=(rec or {}).get("resume_key"),
             adapter=params.get("adapter"),
+            # per-tenant QoS: the identity the handler resolved from the
+            # request headers rides into the engine's weighted-fair
+            # scheduler (and across preemption/recovery continuations)
+            tenant=params.get("tenant"),
         )
+        self.tenant = self.req.tenant or "default"
+        ctx.metrics.tenant_requests.inc(tenant=self.tenant)
         if self.req.adapter and ctx.lora_requests_total is not None:
             ctx.lora_requests_total.inc(adapter=self.req.adapter)
             ctx.engine.lora.note_request(self.req.adapter)
@@ -359,9 +380,11 @@ class GenerationHandle:
             ex = self.span.trace_id if self.span.recording else None
             if t_prev is None:
                 m.ttft.observe(now - t0, exemplar=ex, model=model)
+                m.tenant_ttft.observe(now - t0, tenant=self.tenant)
                 decode_span = self._first_token_spans(ev, now - t0)
             else:
                 m.itl.observe(now - t_prev, exemplar=ex, model=model)
+                m.tenant_itl.observe(now - t_prev, tenant=self.tenant)
             t_prev = now
             delta, lp_entry = "", None
             if ev.token_id >= 0:
@@ -465,6 +488,11 @@ class ServingContext:
         self.tokenizer = get_tokenizer(engine.cfg.model, engine.cfg.model_path)
         self.metrics = FrontendMetrics()
         r = self.metrics.registry
+        # per-tenant QoS identity: the engine built the registry from
+        # cfg.tenants / DYNAMO_TPU_TENANTS; handlers resolve every
+        # inference request's tenant against the same classes the
+        # weighted-fair scheduler budgets with
+        self.tenants = engine.tenant_registry
         self.kv_gauge = Gauge(
             "dynamo_worker_kv_free_pages", "Free KV pages", r)
         # multi-LoRA adapter serving
@@ -482,6 +510,40 @@ class ServingContext:
             self.lora_loaded_gauge = Gauge(
                 "dynamo_lora_loaded",
                 "Adapters resident in device slots right now", r)
+        # the KVBM tiered block manager: its counters and the host pool's
+        # occupancy
+        self.kvbm_blocks_gauge = None
+        kvbm = engine.kvbm
+        if kvbm is not None:
+            for name, help_, attr in (
+                ("dynamo_kvbm_host_hits_total",
+                 "Prefix lookups served from the KVBM host/disk tier",
+                 "host_hits_total"),
+                ("dynamo_kvbm_host_misses_total",
+                 "Prefix lookup tails the KVBM tiers could not serve",
+                 "host_misses_total"),
+                ("dynamo_kvbm_demoted_blocks_total",
+                 "KV blocks demoted from device to the host tier",
+                 "demoted_blocks_total"),
+                ("dynamo_kvbm_onboarded_blocks_total",
+                 "KV blocks onboarded back onto the device",
+                 "onboarded_blocks_total"),
+                ("dynamo_kvbm_peer_onboarded_blocks_total",
+                 "KV blocks onboarded from a peer worker's host tier",
+                 "peer_onboarded_blocks_total"),
+                ("dynamo_kvbm_removed_blocks_total",
+                 "KV blocks dropped from every tier",
+                 "removed_blocks_total"),
+                ("dynamo_kvbm_gate_recompute_total",
+                 "Onboards skipped because recompute beat restore",
+                 "gate_recompute_total"),
+            ):
+                CallbackCounter(name, help_, r,
+                                (lambda k=kvbm, a=attr: getattr(k, a)))
+            self.kvbm_blocks_gauge = Gauge(
+                "dynamo_kvbm_host_blocks",
+                "KVBM host-pool occupancy by state", r,
+                labelnames=("state",))
         self.preempt_gauge = Gauge(
             "dynamo_worker_preempted_sequences",
             "Sequences preempted (recompute) under KV page pressure", r)
@@ -489,6 +551,10 @@ class ServingContext:
         self._trace_lock = threading.Lock()  # one profiler capture at a time
         # request spans land in the process-wide ring behind /debug/spans
         self.tracer = obs_tracing.Tracer("worker-agg")
+        if kvbm is not None:
+            # kvbm.offload / kvbm.onboard spans land in this worker's ring
+            # buffer (GET /debug/spans) like every other worker span
+            kvbm.tracer = self.tracer
         # SLO burn rates from this worker's own latency histograms
         self.slo = obs_slo.SLOEngine(self.metrics, role="agg")
         # the engine's phase, host-gap, occupancy, spec and live MFU/MBU
@@ -516,7 +582,8 @@ class ServingContext:
             labelnames=("kind",))
         CallbackCounterVec(
             "dynamo_engine_integrity_faults_total",
-            "Integrity sentinel trips by sentinel (logits, decode_tokens)",
+            "Integrity sentinel trips by sentinel "
+            "(logits, decode_tokens, kv_checksum)",
             r, lambda: {(("sentinel", s),): v for s, v in
                         wd.summary()["integrity_faults_total"].items()},
             labelnames=("sentinel",))
@@ -562,6 +629,11 @@ class ServingContext:
         self.kv_gauge.set(eng.allocator.free_pages)
         if self.lora_loaded_gauge is not None:
             self.lora_loaded_gauge.set(len(eng.lora.resident()))
+        if self.kvbm_blocks_gauge is not None:
+            pool = eng.kvbm.pool.stats()
+            self.kvbm_blocks_gauge.set(pool["used_blocks"], state="used")
+            self.kvbm_blocks_gauge.set(pool["capacity_blocks"],
+                                       state="capacity")
         self.slo.refresh_gauges()
         self.engine_bridge.refresh()  # live MFU/MBU + warmup gauges
         self.memory_bridge.refresh()  # KV pool / device / cost books
@@ -657,10 +729,15 @@ class ServingContext:
         self.drain_handoff.set()
 
     def drain_demote(self) -> int:
-        """Demote sole-owned prefix pages to the KVBM host tier for peers:
-        the port has no host tier yet (ROADMAP queue 1), so nothing moves.
-        Returns pages demoted."""
-        return 0
+        """Demote every sole-owned prefix-cache page to the KVBM host tier
+        (one batched device gather), so the departing worker's prefixes
+        stay in host memory for their `demoted` events' readers. No-op
+        without a KVBM tier. Returns pages demoted."""
+        eng = self.engine
+        if eng.prefix_cache is None or eng.kvbm is None:
+            return 0
+        with eng._exec_lock:
+            return eng.kvbm.demote_all(eng.prefix_cache)
 
     def drain(self, drain_s: float = 30.0,
               handoff_grace_s: float = 5.0) -> bool:
@@ -983,6 +1060,12 @@ class _Handler(JsonHTTPHandler):
                 out["spec"] = spec_stats(eng)
             if eng.lora is not None:
                 out["lora"] = eng.lora.stats()
+            if eng.qos is not None:
+                # per-tenant QoS: budget balances, token totals, and the
+                # defer/preempt counters
+                out["qos"] = eng.qos.stats()
+            if eng.kvbm is not None:
+                out["kvbm"] = eng.kvbm.stats()
             # the exact KV books (the dynamo_memory_* series in one read),
             # the cost rollup and the step timeline's bubble attribution
             try:
@@ -1049,10 +1132,15 @@ class _Handler(JsonHTTPHandler):
         # arrived, else a fresh root seeded by x-request-id
         span = obs_tracing.NOOP_SPAN
         self._deadline = None
+        self._tenant = "default"
         if path in ("/v1/chat/completions", "/v1/completions"):
             parent = obs_context.extract_context(self.headers)
             inbound_rid = ((self.headers.get("x-request-id") or "").strip()
                            or None)
+            # per-tenant QoS: trust the frontend's resolved identity
+            # (x-dynamo-tenant) when present, else resolve from the
+            # client's own headers (a worker alone is the edge)
+            self._tenant = ctx.tenants.resolve(self.headers, trusted=True)
             # the propagated budget keeps counting down on this hop; a
             # request that arrives spent sheds with 504 before a slot
             self._deadline = Deadline.from_headers(self.headers)
@@ -1061,7 +1149,8 @@ class _Handler(JsonHTTPHandler):
                 trace_seed=inbound_rid,
                 attributes={"http.path": path, "worker.mode": "agg",
                             "deadline_s": round(self._deadline.budget_s, 3),
-                            "model": ctx.served_model})
+                            "model": ctx.served_model,
+                            "tenant.id": self._tenant})
             rid = inbound_rid or (span.trace_id if span.recording else None)
             if rid:
                 self.set_request_id(rid)
@@ -1252,6 +1341,7 @@ class _Handler(JsonHTTPHandler):
     def _chat(self, body):
         p = proto.parse_chat_request(body)
         p["adapter"] = self._check_model(p["model"])
+        p["tenant"] = self._tenant
         tools, tc = p["tools"], p["tool_choice"]
         if isinstance(tc, tuple):  # ("function", name)
             if p["stream"]:
@@ -1358,6 +1448,7 @@ class _Handler(JsonHTTPHandler):
     def _completion(self, body):
         p = proto.parse_completion_request(body)
         p["adapter"] = self._check_model(p["model"])
+        p["tenant"] = self._tenant
         prompt_ids = self.ctx.tokenizer.encode(p["prompt"])
         rec, journaling = self._setup_recovery(body, p)
         rid = (rec or {}).get("response_id") or proto.new_id("cmpl")

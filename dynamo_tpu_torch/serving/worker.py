@@ -42,7 +42,13 @@ All three leave `--mixed-batch-tokens` (the mixed ragged step: decode rows
 and a prefill chunk in one forward) and `--kv-cache-dtype` (`int8`:
 packed-scale KV pools) at their defaults, off, as the JAX profiles do; all
 serve them when set, and `--model-path DIR` (a local safetensors
-checkpoint) and `--quantization int8|w8a8` (int8 weights). `--warmup` (on
+checkpoint) and `--quantization int8|w8a8` (int8 weights). The KVBM host
+tier behind the prefix cache (`--kvbm-host-blocks N`, `--kvbm-gate
+auto|always|never`, `--kvbm-disk-dir DIR`, `--kvbm-disk-blocks N`: pinned
+host arenas on the card) and per-tenant QoS (`--tenants JSON` or
+`DYNAMO_TPU_TENANTS`, `--qos-burst-tokens`) reach the engine as in the
+JAX worker; the KVBM's cross-worker pull (`--kvbm-peers`) and the NATS
+plane (`--nats-url`) stay refused. `--warmup` (on
 by default) builds the kernels and captures the greedy decode graphs
 before the server starts. Every worker serves the JAX worker's
 observability plane (`serving/api.py`): `/metrics`, `/debug` and its
@@ -103,7 +109,8 @@ BACKEND_PROFILES = {
 
 
 # the JAX worker's flags for roles and planes the port does not serve yet
-# (disaggregation, the NATS request plane, the KVBM, multi-host)
+# (disaggregation, the NATS request plane, the KVBM's cross-worker pull,
+# multi-host)
 UNPORTED_FLAGS = ("prefill_url", "nats_url", "kvbm_peers", "coordinator",
                   "num_processes", "process_id")
 

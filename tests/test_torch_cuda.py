@@ -2094,3 +2094,96 @@ print(json.dumps({"health": eng.watchdog.health, "resurrect": len(calls),
     got = json.loads(lines[-1])
     assert got == {"health": "quarantined", "resurrect": 0,
                    "last": "abort", "sticky": True}, got
+
+
+# ------------------------------------------------- the KVBM host tier --
+
+def _kvbm_engine(**kw):
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import Engine
+
+    return Engine(EngineConfig(**{
+        **dict(model="tiny-debug", page_size=16, num_pages=64,
+               max_num_seqs=4, max_seq_len=512, prefill_chunk_tokens=32,
+               kvbm_host_blocks=16, kvbm_gate="always"), **kw}))
+
+
+def _cache_prompt(eng, n_tokens=49, seed=5):
+    """Run a greedy prompt so that its full pages sit in the prefix
+    cache; returns the prompt."""
+    from dynamo_tpu_torch.engine.request import GenRequest
+
+    prompt = np.random.default_rng(seed).integers(1, 500, n_tokens).tolist()
+    eng.generate(GenRequest("warm", prompt, max_tokens=2, ignore_eos=True))
+    return prompt
+
+
+def test_kvbm_arenas_are_pinned(dev):
+    """An engine on the card keeps its host tier in page-locked memory."""
+    eng = _kvbm_engine()
+    pool = eng.kvbm.pool
+    assert pool.pinned
+    assert pool.k_arena.is_pinned() and pool.v_arena.is_pinned()
+    assert pool.k_arena.shape == (16, eng.kv_spec.num_layers, 16,
+                                  eng.kv_spec.lane_width)
+
+
+def test_demoted_page_keeps_its_bytes_when_rewritten_at_once(dev):
+    """The demote's gather is queued behind a long device spin and the
+    freed pages are overwritten by the very next launch: the host tier
+    still reads back each page's old bytes (the gather is ordered on the
+    compute stream, the arena copies on the copy stream after it)."""
+    eng = _kvbm_engine()
+    _cache_prompt(eng)
+    pc = eng.prefix_cache
+    victims = list(pc._map.items())
+    assert len(victims) == 3
+    before = {h: (eng.k_pages[:, p].clone(), eng.v_pages[:, p].clone())
+              for h, p in victims}
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of device spin
+    assert pc.evict(len(victims)) == len(victims)
+    for _, p in victims:
+        eng.k_pages[:, p].fill_(7)
+        eng.v_pages[:, p].fill_(-7)
+    for h, (k, v) in before.items():
+        got = eng.kvbm.pool.get(h)
+        assert got is not None
+        assert torch.equal(got[0], k.cpu()) and torch.equal(got[1], v.cpu())
+    assert eng.kvbm.stats()["demoted_blocks_total"] == len(victims)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_onboarded_pages_give_the_chunk_the_same_bits(dev, int8):
+    """chunk.cu over a cached prefix's pages, then over the pages the
+    KVBM onboarded after demoting them: equal bit for bit (int8 rows move
+    whole, scales included)."""
+    eng = _kvbm_engine(kv_cache_dtype="int8" if int8 else "auto")
+    prompt = _cache_prompt(eng)
+    pc, ps = eng.prefix_cache, eng.cfg.page_size
+    kv, d = eng.kv_spec.num_kv_heads, eng.kv_spec.head_dim
+    own = eng.allocator.alloc(1)[0]  # the chunk's own page, never cached
+    eng.k_pages[:, own] = eng.k_pages[:, 1]
+    eng.v_pages[:, own] = eng.v_pages[:, 1]
+    q = _rnd(dev, ps, eng.model_cfg.num_heads, d, seed=9)
+    n_cached = len(pc._map)
+
+    def chunk(pages):
+        table = torch.tensor(pages + [own] + [0] * 4, dtype=torch.int32,
+                             device=dev)
+        return torch.stack([ca.chunk_prefill_attention(
+            q, eng.k_pages[l], eng.v_pages[l], table, n_cached * ps,
+            page_size=ps, num_kv_heads=kv)
+            for l in range(eng.kv_spec.num_layers)])
+
+    cached, _ = pc.lookup(prompt)
+    assert len(cached) == n_cached == 3
+    ref = chunk(cached)
+    eng.allocator.free(cached)
+    assert pc.evict(n_cached) == n_cached
+    for p in cached:  # the freed pages, overwritten
+        eng.k_pages[:, p].zero_()
+        eng.v_pages[:, p].zero_()
+    onboarded, n = pc.lookup(prompt)
+    assert n == n_cached * ps
+    assert eng.kvbm.stats()["onboarded_blocks_total"] == n_cached
+    assert torch.equal(chunk(onboarded), ref)
