@@ -23,6 +23,7 @@
                                               # `traced`'s opening kernels
     python3 chip_smoke.py --lifecycle         # phases 1-2 and 17
     python3 chip_smoke.py --kvbm-qos          # phases 1-2 and 18
+    python3 chip_smoke.py --frontend          # phases 1-2 and 19
 
 (`--kernels-only`, `--window-profile` and the `--mla-*` options time the
 package beside the script, so a copy of it in an older checkout compares
@@ -302,8 +303,8 @@ on failure:
    profiled prefill by op (`mla_chunked_ttft`, also run alone by
    `--mla-chunked-ttft`); so that every kernel launches at head_dim 640
    when served. Between the families and the MoE models, Gemma-2 and
-   Gemma-3 (GEMMA_MODELS, `gemma_phase`): gemma-2-9b-it (11 of its 42
-   layers, 6 of them local with a 4096-key window, caps 50 and 30) and
+   Gemma-3 (GEMMA_MODELS, `gemma_phase`): gemma-2-9b-it (5 of its 42
+   layers, 3 of them local with a 4096-key window, caps 50 and 30) and
    gemma-3-1b-it (7 of its 26 layers, 6 local with 512 keys, per-layer
    rope) at full width, random bf16 weights from seed 0 (gemma-2-9b-it's
    wq scaled by 2^-4: WINDOWED_WQ_SCALE), 8 slots on 2560 pages of an
@@ -328,8 +329,8 @@ on failure:
    4600-token prompts; every entry point must launch with the window.
    After them Phi-3 (PHI3_MODEL, `phi3_phase`): phi-3-mini-4k-instruct
    (32 layers, head_dim 96, 32/32 heads, a 2047-key window on every
-   layer) at full width and PHI3_LAYERS (20) of its layers (32 before
-   phase 18 took their time), random bf16 weights from seed 0 (wq
+   layer) at full width and PHI3_LAYERS (12) of its layers (32 before
+   phase 18 and 20 before phase 19 took their time), random bf16 weights from seed 0 (wq
    scaled by 2^-4), 8 slots on 2048 pages of its 4096 context: the same
    forwards on both pool kinds at 3000 tokens; four greedy streams of
    2500-3800-token prompts on the classic eager engine, eager engines
@@ -489,7 +490,46 @@ on failure:
    prefill, chunk and ragged must each launch in the phase. Its seconds
    are printed (the phase's budget, ~35 s, was paid by serving Phi-3 at
    PHI3_LAYERS of its 32 layers).
-19. A `kernels` JSON line (launches summed over the served phases, graph
+19. The frontend tier (`frontend_phase`), last on the 8B's weights (wq
+   scaled by 2^-4 for it, as in 18(c); restored after), the kernels'
+   launches counted from zero over the phase: an in-process
+   `MiniNatsBroker`, two frontends started as `python -m
+   dynamo_tpu_torch.frontend` on free ports (`fe_nats` with `--nats-url`:
+   the NATS request plane and the KV event index; `fe_http` without: the
+   HTTP plane, whose SSE relay journals streams and resumes them
+   mid-stream), both with DYNAMO_TPU_MAX_INFLIGHT=4, and two workers in
+   this process, each its own jetstream-profile engine (8-step graph
+   windows, warmed up) with chunks of 256 and prefix caching, 8 slots and
+   page 16, on the one model, each with its own server, the worker CLI's
+   `--nats-url` wiring (`serving/worker.attach_nats_plane`: the request
+   plane and the KV event publisher) and `heartbeat_loop` to both
+   frontends. (a) FE_CONVS (4) conversations through `fe_nats`: a first
+   turn of ~600 tokens (over the chunk: chunk.cu), then a second turn
+   extending it; the frontend's `KVEventIndex` must have received the
+   workers' stored-block events over NATS, every second turn must go to
+   the worker that served its first (by the index: `kv_index_hits`), and
+   only that worker's prefix cache hits rise. (b) FE_PROMPTS (8) greedy
+   streamed chats of FE_TOKENS (32), each straight to a worker over HTTP
+   SSE and over the NATS request plane, and through each frontend (the
+   prefix caches emptied before each, so every run prefills alike:
+   prefill.cu); each must equal the direct HTTP run or first differ at a
+   near-tie of its top-2 logprobs (NEAR_TIE); TTFT, mean ITL and the
+   time to the first event (the role chunk, sent as the worker queues the
+   request: the request path alone, which no decode window quantizes) on
+   the client's clock for each route. (c) a 64-token stream through `fe_http`
+   with `worker.crash_mid_decode` armed through a worker's
+   `/internal/faults` after FE_CRASH_AFTER tokens: the frontend resumes it
+   on the peer from its journal, and the client's tokens must equal an
+   uninterrupted run's (or first differ at a near-tie); the resume gap is
+   the stream's widest gap between two tokens. (d) four requests held at
+   the workers (`worker.read_stall`) fill `fe_nats`'s in-flight bound: a
+   fifth gets 429; an expired `x-deadline` gets 504. The line prints the
+   frontends' native router core (it fails unless loaded), routed-to-owner
+   counts, each worker's prefix hits, the KV events received, the routes'
+   TTFT, ITL and first event, the `router.pick` span's ms (`/debug/spans`), the resume
+   gap, the launches (decode, prefill and chunk must each launch) and the
+   phase's seconds, with the card line.
+20. A `kernels` JSON line (launches summed over the served phases, graph
    replays included; the verify windows, at decode_q = 5 with and without
    a chunk, decode at head_dim 64, the kernels at head_dim 256, at group
    7 and at group 8 counted as rows of their own: the head_dim 256 rows
@@ -499,8 +539,8 @@ on failure:
    served deepseek-v2-lite phases' variant counts, the Gemma rows from
    the served gemma-2-9b-it phase's windowed launches (`kernel[window]`),
    the Phi-3 rows from the served Phi-3 phase's launches at head_dim 96
-   (`kernel[head_dim=96]`, the longrope runs included); phase 18's
-   launches included in the 8B's rows;
+   (`kernel[head_dim=96]`, the longrope runs included); phases 18's and
+   19's launches included in the 8B's rows;
    `ms` and `library_ms` device times,
    `call_ms` and `library_call_ms` call times, as phase 3 measures them;
    `device_kernels`, the device kernels of the row's source that serve
@@ -523,6 +563,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -4368,8 +4409,8 @@ GEMMA_LABEL = GEMMA_SHAPE["label"]
 # prefill lanes past the window in the 4096 bucket, the chunk at 3008
 PHI3_MODEL = "phi-3-mini-4k-instruct"
 # the layers of its 32 that the Phi-3 phase serves (32 until phase 18
-# took the time of 12 of them)
-PHI3_LAYERS = 20
+# took the time of 12 of them, 20 until phase 19 took that of 8 more)
+PHI3_LAYERS = 12
 PHI3_WINDOW = 2047
 PHI3_SHAPE = dict(
     label=f"head_dim=96,group=1,window={PHI3_WINDOW}", h=32, kv=32, d=96,
@@ -4383,11 +4424,11 @@ WINDOWED_KERNELS = ("decode", "decode_int8", "prefill", "chunk",
 # the served Gemma models, after the families (model, its layers, the
 # forward checks' prompt length, the served prompts' shortest and longest,
 # profiled): every served prompt is longer than the model's window (4096;
-# 512); each at about a quarter of its depth (42 and 26 layers; local and
-# global layers in the preset's pattern: 6 local of 11, 6 of 7), so that
-# the whole script stays under ~900 s on a slower host (1131 s at half
-# depth on one) beside the windowed phases' int8 chunked runs
-GEMMA_MODELS = (("gemma-2-9b-it", 11, 4600, (4500, 6000), True),
+# 512); gemma-2-9b-it at 5 of its 42 layers (11 until phase 19 took their
+# time), gemma-3-1b-it at 7 of 26 (local and global layers in the preset's
+# pattern: 3 local of 5, 6 of 7), so that the whole script stays under
+# ~950 s on a slower host (1131 s at half depth on one)
+GEMMA_MODELS = (("gemma-2-9b-it", 5, 4600, (4500, 6000), True),
                 ("gemma-3-1b-it", 7, 1200, (1000, 2000), False))
 GEMMA_STREAMS, GEMMA_TOKENS = 4, 64
 # 8 slots (the profile's) of 4600-token prompts fit the pool's pages
@@ -6520,6 +6561,443 @@ def kvbm_qos_phase(engine: Engine, eager_cfg: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 19 --
+
+FE_CONVS, FE_FIRST_CHARS, FE_TURN_TOKENS = 4, 600, 16
+FE_PROMPTS, FE_TOKENS = 8, 32
+FE_STREAM_TOKENS, FE_CRASH_AFTER = 64, 24
+FE_INFLIGHT, FE_STALL_S = 4, 3.0
+FE_SLOTS = 8
+FE_WORDS = ("page", "block", "prefix", "router", "worker", "cache", "token",
+            "chunk", "event", "index", "stream", "journal")
+
+
+def fe_first_turn(c: int) -> str:
+    """Conversation c's first user message: ~FE_FIRST_CHARS byte tokens
+    of seeded words, each conversation its own first page (its number
+    leads) and its own page count (the KV event publisher keys a request
+    by its first page and its page count)."""
+    rng = np.random.default_rng(3000 + c)
+    words = [f"{c}:"]
+    while sum(len(w) + 1 for w in words) < FE_FIRST_CHARS + 24 * c:
+        words.append(FE_WORDS[rng.integers(len(FE_WORDS))])
+    return " ".join(words)
+
+
+def fe_events(chunks, t0: float):
+    """(seconds since t0, the moment the request was sent, parsed SSE data
+    event) of a stream of byte chunks, as each event completes; [DONE]
+    ends it."""
+    buf = b""
+    for chunk in chunks:
+        buf += chunk
+        while b"\n\n" in buf:
+            block, buf = buf.split(b"\n\n", 1)
+            for line in block.split(b"\n"):
+                if not line.startswith(b"data: "):
+                    continue
+                if line == b"data: [DONE]":
+                    return
+                yield time.monotonic() - t0, json.loads(line[6:])
+
+
+def fe_summary(events) -> dict:
+    """A streamed chat's text, each token's top-2 logprobs, TTFT and mean
+    ITL on the client's clock, its widest gap between two tokens, and the
+    time to its first event (the role chunk, which a worker sends as it
+    queues the request: the request path's latency, before any window)."""
+    stamps, text, tops, first = [], [], [], None
+    for t, ev in events:
+        first = t if first is None else first
+        choice = (ev.get("choices") or [{}])[0]
+        if (choice.get("delta") or {}).get("content"):
+            stamps.append(t)
+            text.append(choice["delta"]["content"])
+        for e in (choice.get("logprobs") or {}).get("content") or ():
+            tops.append([a["logprob"] for a in e["top_logprobs"]])
+    gaps = [b - a for a, b in zip(stamps, stamps[1:])]
+    return {"text": "".join(text), "tops": tops,
+            "ttft_ms": 1e3 * stamps[0] if stamps else None,
+            "first_event_ms": 1e3 * first if first is not None else None,
+            "itl_ms": 1e3 * statistics.mean(gaps) if gaps else None,
+            "widest_gap_ms": 1e3 * max(gaps) if gaps else None,
+            "widest_gap_at": gaps.index(max(gaps)) + 1 if gaps else None}
+
+
+def fe_http_stream(url: str, body: dict, headers=None) -> dict:
+    req = urllib.request.Request(
+        url + "/v1/chat/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = time.monotonic()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return fe_summary(fe_events(iter(lambda: r.read1(65536), b""), t0))
+
+
+def fe_nats_stream(nc, worker_url: str, body: dict) -> dict:
+    """Straight to a worker over the NATS request plane."""
+    from dynamo_tpu_torch.serving import nats_plane
+
+    t0 = time.monotonic()
+    status, _, parts = nats_plane.nats_request(
+        nc, nats_plane.worker_subject(worker_url), "/v1/chat/completions",
+        body, timeout=600)
+    if status != 200:
+        raise AssertionError(f"phase 19: NATS status {status}")
+    return fe_summary(fe_events(parts, t0))
+
+
+def fe_difference(got: dict, ref: dict):
+    """None when `got` streamed `ref`'s text; else where it first differs,
+    the reference's top-2 logprob gap there, and whether that is a near
+    tie (equal lengths and a gap under NEAR_TIE)."""
+    a, b = got["text"], ref["text"]
+    if a == b:
+        return None
+    i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+             min(len(a), len(b)))
+    top = ref["tops"][i] if i < len(ref["tops"]) else []
+    gap = top[0] - top[1] if len(top) > 1 else float("inf")
+    return {"index": i, "lengths": [len(a), len(b)], "top2_gap": gap,
+            "near_tie": len(a) == len(b) and gap < NEAR_TIE}
+
+
+def fe_get(url: str):
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def fe_frontend(port: int, nats_url=None):
+    """`python -m dynamo_tpu_torch.frontend` on 127.0.0.1:port, its log in
+    a temporary file."""
+    log = tempfile.TemporaryFile()
+    cmd = [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--host",
+           "127.0.0.1", "--port", str(port), "--heartbeat-ttl", "30"]
+    if nats_url:
+        cmd += ["--nats-url", nats_url]
+    env = dict(os.environ, DYNAMO_TPU_MAX_INFLIGHT=str(FE_INFLIGHT))
+    proc = subprocess.Popen(
+        cmd, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=log, stderr=subprocess.STDOUT)
+    return proc, log
+
+
+def fe_log_tail(log) -> str:
+    log.seek(0)
+    return log.read().decode(errors="replace")[-3000:]
+
+
+def fe_evict(ctxs) -> None:
+    """Empty both workers' prefix caches between steps, so that a prompt
+    served again prefills as it did the first time."""
+    for ctx in ctxs:
+        eng = ctx.engine
+        with eng.between_steps():
+            eng.prefix_cache.evict(eng.cfg.num_pages)
+
+
+def fe_served_by(ctxs, fn):
+    """(fn's result, the index of the one worker that took a request)."""
+    before = [c.engine.metrics.num_requests for c in ctxs]
+    got = fn()
+    moved = [i for i, c in enumerate(ctxs)
+             if c.engine.metrics.num_requests > before[i]]
+    if len(moved) != 1:
+        raise AssertionError(f"phase 19: {len(moved)} workers took one "
+                             f"request")
+    return got, moved[0]
+
+
+def fe_body(messages, max_tokens: int, **kw) -> dict:
+    return dict(COMMON, messages=messages, max_tokens=max_tokens,
+                stream=True, logprobs=True, top_logprobs=2, **kw)
+
+
+def fe_routing(fe_nats: str, ctxs) -> tuple:
+    """Phase 19 (a): -> (row, errors)."""
+    errors, owners, seconds, hits = [], [], [], []
+    for c in range(FE_CONVS):
+        msgs = [{"role": "user", "content": fe_first_turn(c)}]
+        n0 = fe_get(fe_nats + "/internal/workers")["router"]["kv_index"][
+            "events_applied"]
+        first, w = fe_served_by(ctxs, lambda: fe_http_stream(
+            fe_nats, fe_body(msgs, FE_TURN_TOKENS)))
+        lc_wait(lambda: fe_get(fe_nats + "/internal/workers")["router"][
+            "kv_index"]["events_applied"] > n0, 30,
+                f"phase 19: conversation {c}'s KV events at the frontend")
+        msgs2 = msgs + [
+            {"role": "assistant", "content": first["text"]},
+            {"role": "user", "content": f"Turn two of conversation {c}: "
+                                        "go on, in more detail."}]
+        h0 = [ctx.engine.prefix_cache.stats()["hits"] for ctx in ctxs]
+        second, w2 = fe_served_by(ctxs, lambda: fe_http_stream(
+            fe_nats, fe_body(msgs2, FE_TURN_TOKENS)))
+        rose = [ctx.engine.prefix_cache.stats()["hits"] - h
+                for ctx, h in zip(ctxs, h0)]
+        owners.append([w, w2])
+        hits.append(rose)
+        seconds.append([first["ttft_ms"], second["ttft_ms"]])
+        if w2 != w or rose[w] <= 0 or rose[1 - w] != 0:
+            errors.append(f"conversation {c}: first on {w}, second on "
+                          f"{w2}, prefix hits rose by {rose}")
+    router = fe_get(fe_nats + "/internal/workers")["router"]
+    row = {"owners": owners, "routed_to_owner": sum(a == b for a, b in
+                                                    owners),
+           "prefix_hits_rise": hits, "turn_ttft_ms": seconds,
+           "kv_index": router["kv_index"],
+           "kv_index_hits": router["kv_index_hits"],
+           "ledger_hits": router["ledger_hits"]}
+    if router["kv_index_hits"] < FE_CONVS:
+        errors.append(f"second turns routed by the KV event index: "
+                      f"{router['kv_index_hits']} of {FE_CONVS}")
+    return row, errors
+
+
+def fe_streams(routes: dict, ctxs) -> tuple:
+    """Phase 19 (b): each prompt through each route in turn -> (row,
+    errors)."""
+    errors, runs = [], {name: [] for name in routes}
+    for i in range(FE_PROMPTS):
+        msgs = [{"role": "user", "content": f"Prompt {i} through the "
+                 "frontend tier: say what the KV-aware router does."}]
+        for name, call in routes.items():
+            fe_evict(ctxs)
+            runs[name].append(call(fe_body(msgs, FE_TOKENS)))
+    row = {}
+    for name, got in runs.items():
+        diffs = [fe_difference(g, r) for g, r in zip(got, runs["direct_http"])]
+        row[name] = {
+            "ttft_ms": statistics.median(g["ttft_ms"] for g in got),
+            "ttft_ms_each": [g["ttft_ms"] for g in got],
+            "first_event_ms": statistics.median(
+                g["first_event_ms"] for g in got),
+            "first_event_ms_each": [g["first_event_ms"] for g in got],
+            "itl_ms": statistics.mean(g["itl_ms"] for g in got),
+            "tokens": [len(g["text"]) for g in got],
+            "equal": sum(d is None for d in diffs),
+            "first_differences": [d for d in diffs if d is not None]}
+        if any(len(g["text"]) != FE_TOKENS for g in got) or any(
+                d is not None and not d["near_tie"] for d in diffs):
+            errors.append(f"{name}: {row[name]}")
+    return row, errors
+
+
+def fe_failover(fe_http: str, urls, ctxs) -> tuple:
+    """Phase 19 (c): -> (row, errors)."""
+    msgs = [{"role": "user", "content": "A long stream that a worker drops "
+             "halfway: resume it on the peer from the journal."}]
+    fe_evict(ctxs)
+    ref = fe_http_stream(fe_http, fe_body(msgs, FE_STREAM_TOKENS))
+    fe_evict(ctxs)
+    status, _ = lc_status(urls[0] + "/internal/faults", {"faults": {
+        "worker.crash_mid_decode": {"times": 1, "after": FE_CRASH_AFTER}}})
+    n0 = [c.engine.metrics.num_requests for c in ctxs]
+    got = fe_http_stream(fe_http, fe_body(msgs, FE_STREAM_TOKENS))
+    took = [c.engine.metrics.num_requests - n for c, n in zip(ctxs, n0)]
+    lc_status(urls[0] + "/internal/faults", {"faults": {}})
+    diff = fe_difference(got, ref)
+    row = {"faults_status": status, "tokens": len(got["text"]),
+           "requests_by_worker": took, "equal": diff is None,
+           "first_difference": diff,
+           "resume_gap_ms": got["widest_gap_ms"],
+           "resume_gap_at_token": got["widest_gap_at"],
+           "itl_ms": got["itl_ms"], "uninterrupted_itl_ms": ref["itl_ms"],
+           "uninterrupted_widest_gap_ms": ref["widest_gap_ms"]}
+    ok = (status == 200 and took == [1, 1]
+          and len(got["text"]) == FE_STREAM_TOKENS
+          and (diff is None or diff["near_tie"]))
+    return row, ([] if ok else [f"failover: {row}"])
+
+
+def fe_admission(fe_nats: str, urls) -> tuple:
+    """Phase 19 (d): -> (row, errors)."""
+    held = [None] * FE_INFLIGHT
+    body = dict(COMMON, messages=[{"role": "user", "content": "Hold."}],
+                max_tokens=4)
+
+    def one(i):
+        held[i] = lc_status(fe_nats + "/v1/chat/completions", body)[0]
+
+    lc_status(urls[0] + "/internal/faults", {"faults": {
+        "worker.read_stall": {"times": FE_INFLIGHT,
+                              "delay_s": FE_STALL_S}}})
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(FE_INFLIGHT)]
+    for t in threads:
+        t.start()
+    lc_wait(lambda: samples(scrape(fe_nats)).get(
+        ("dynamo_frontend_queued_requests", ())) == FE_INFLIGHT, 10,
+            "phase 19: the held requests in flight at the frontend")
+    over = lc_status(fe_nats + "/v1/chat/completions", body)
+    for t in threads:
+        t.join(timeout=60)
+    lc_status(urls[0] + "/internal/faults", {"faults": {}})
+    late = lc_status(fe_nats + "/v1/chat/completions", body,
+                     {"x-deadline": "0"})
+    row = {"held": held, "fifth": over[0], "fifth_ms": 1e3 * over[1],
+           "expired_deadline": late[0], "expired_deadline_ms":
+           1e3 * late[1]}
+    ok = held == [200] * FE_INFLIGHT and over[0] == 429 and late[0] == 504
+    return row, ([] if ok else [f"admission: {row}"])
+
+
+def fe_pick_ms(base: str) -> dict:
+    """The `router.pick` spans' ms at a frontend (`/debug/spans`)."""
+    spans = [(int(s["endTimeUnixNano"]) - int(s["startTimeUnixNano"]))
+             / 1e6 for rs in fe_get(base + "/debug/spans?name=router.pick")[
+                 "resourceSpans"] for ss in rs["scopeSpans"]
+             for s in ss["spans"]]
+    return {"n": len(spans),
+            "median_ms": statistics.median(spans) if spans else None,
+            "max_ms": max(spans) if spans else None}
+
+
+def fe_workers(engines, broker_url: str, frontends: str, stop,
+               closers: list) -> tuple:
+    """The two workers of phase 19, each with its server, the worker CLI's
+    `--nats-url` wiring and heartbeats to every frontend; what stops them
+    goes on `closers` (run in reverse). -> (contexts, URLs, heartbeat
+    threads)."""
+    from dynamo_tpu_torch.serving.worker import (attach_nats_plane,
+                                                 heartbeat_loop)
+
+    ctxs, urls, beats = [], [], []
+    for eng in engines:
+        ctx = ServingContext(eng, MODEL)
+        ctx.tokenizer = VisibleTokenizer()
+        srv = make_server(ctx, host="127.0.0.1", port=0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        closers += [ctx.close, srv.shutdown]
+        plane = attach_nats_plane(ctx, broker_url, url, url)
+        if plane is None:
+            raise AssertionError("phase 19: a worker's NATS plane is down")
+        closers.append(plane.close)
+        beats.append(threading.Thread(target=heartbeat_loop, args=(
+            ctx, frontends, url, 1.0, stop), daemon=True))
+        beats[-1].start()
+        ctxs.append(ctx)
+        urls.append(url)
+    return ctxs, urls, beats
+
+
+def frontend_phase(engine: Engine, jet_cfg: dict) -> dict:
+    """Phase 19 (see the module doc) on the 8B's weights -> {"launches"}:
+    the kernels' launches over the phase, counted from zero."""
+    from dynamo_tpu_torch.serving import nats
+
+    t_phase = time.monotonic()
+    errors, out, closers = [], {}, []
+    ctxs, beats, stop = [], [], threading.Event()
+    broker = nats.MiniNatsBroker()
+    closers.append(broker.close)
+    ports = [fe_free_port() for _ in range(2)]
+    fe_nats, fe_http = (f"http://127.0.0.1:{p}" for p in ports)
+    # the frontends start while the workers warm up
+    procs = [fe_frontend(ports[0], broker.url), fe_frontend(ports[1])]
+    for layer in engine.model.layers:
+        layer.wq.mul_(WINDOWED_WQ_SCALE)  # a power of 2: exact, undone below
+    try:
+        cfg = dict(jet_cfg, max_num_seqs=FE_SLOTS, prefill_chunk_tokens=CHUNK,
+                   enable_prefix_caching=True)
+        engines = [Engine(EngineConfig(**cfg), params=engine.model)
+                   for _ in range(2)]
+        t0 = time.monotonic()
+        for e in engines:
+            e.warmup()
+        del e
+        out["warmup_s"] = time.monotonic() - t0
+        for (proc, log), base in zip(procs, (fe_nats, fe_http)):
+            lc_wait(lambda: proc.poll() is not None or fe_up(base), 60,
+                    "phase 19: a frontend to answer")
+            if proc.poll() is not None:
+                raise AssertionError(f"phase 19: the frontend at {base} "
+                                     f"exited: {fe_log_tail(log)}")
+        ctxs, urls, beats = fe_workers(engines, broker.url,
+                                       f"{fe_nats},{fe_http}", stop, closers)
+        del engines
+        for base in (fe_nats, fe_http):
+            lc_wait(lambda: len(fe_get(base + "/internal/workers")[
+                "workers"]) == 2, 30, "phase 19: both workers registered")
+        cores = {name: fe_get(base + "/internal/workers")["router"][
+            "native_router"] for name, base in (("fe_nats", fe_nats),
+                                                ("fe_http", fe_http))}
+        out["native_router"] = cores
+        if not all(cores.values()):
+            errors.append(f"the native router core did not load: {cores}")
+        ca.reset_launch_counts()
+        out["routing"], errs = fe_routing(fe_nats, ctxs)
+        errors += errs
+        nc = nats.NatsClient(broker.url, name="chip-smoke-client")
+        closers.append(nc.close)
+        routes = {
+            "direct_http": lambda b: fe_http_stream(urls[0], b),
+            "direct_nats": lambda b: fe_nats_stream(nc, urls[0], b),
+            "frontend_http": lambda b: fe_http_stream(fe_http, b),
+            "frontend_nats": lambda b: fe_http_stream(fe_nats, b)}
+        out["streams"], errs = fe_streams(routes, ctxs)
+        errors += errs
+        out["failover"], errs = fe_failover(fe_http, urls, ctxs)
+        errors += errs
+        out["admission"], errs = fe_admission(fe_nats, urls)
+        errors += errs
+        launches = dict(ca.LAUNCHES)
+        out["kv_events"] = {
+            "frontend_received": samples(scrape(fe_nats)).get(
+                ("dynamo_frontend_kv_events_total", ())),
+            "published": [c.kv_event_publisher.stats() for c in ctxs]}
+        out["prefix_hits"] = [c.engine.prefix_cache.stats()["hits"]
+                              for c in ctxs]
+        out["router_pick"] = {"fe_nats": fe_pick_ms(fe_nats),
+                              "fe_http": fe_pick_ms(fe_http)}
+        for name, (proc, log) in zip(("fe_nats", "fe_http"), procs):
+            if proc.poll() is not None:
+                errors.append(f"{name} exited: {fe_log_tail(log)}")
+    finally:
+        stop.set()
+        for close in reversed(closers):
+            try:
+                close()
+            except Exception as e:
+                errors.append(f"teardown: {type(e).__name__}: {e}")
+        for t in beats:
+            t.join(timeout=10)
+        for proc, log in procs:
+            proc.terminate()
+            try:
+                proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=15)
+            log.close()
+        for layer in engine.model.layers:
+            layer.wq.div_(WINDOWED_WQ_SCALE)
+        del ctxs, closers
+        release()
+    missing = [k for k in ("decode", "prefill", "chunk") if launches[k] == 0]
+    if missing:
+        errors.append(f"kernels never launched in phase 19: {missing}")
+    out.update(launches=launches, seconds=time.monotonic() - t_phase,
+               card=card_line())
+    emit({"phase": "frontend", "model": MODEL, **out})
+    if errors:
+        raise AssertionError(f"phase 19: {errors}")
+    return out
+
+
+def fe_free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def fe_up(base: str) -> bool:
+    try:
+        with urllib.request.urlopen(base + "/health", timeout=2) as r:
+            return r.status == 200
+    except OSError:
+        return False
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if args not in ([], ["--kernels-only"], ["--mla-chunked-ttft"],
@@ -6527,14 +7005,14 @@ def main(argv=None) -> int:
                     ["--window-profile"], ["--observability"],
                     ["--trace-stress"], ["--gemma"], ["--phi3"],
                     ["--profile-lead"], ["--lifecycle"],
-                    ["--kvbm-qos"]) and not (
+                    ["--kvbm-qos"], ["--frontend"]) and not (
                         len(args) == 2 and args[0] == "--mla-prefill-profile"
                         and args[1].isdigit()):
         print("usage: chip_smoke.py [--kernels-only | --mla-chunked-ttft | "
               "--mla-verify-profile | --mla-prefill-profile [N] | "
               "--window-profile | --observability | --trace-stress | "
               "--gemma | --phi3 | --profile-lead | --lifecycle | "
-              "--kvbm-qos]",
+              "--kvbm-qos | --frontend]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -6596,6 +7074,9 @@ def main(argv=None) -> int:
         return 0
     if args == ["--kvbm-qos"]:
         kvbm_qos_phase(Engine(EngineConfig(**eager_cfg)), eager_cfg)
+        return 0
+    if args == ["--frontend"]:
+        frontend_phase(Engine(EngineConfig(**eager_cfg)), jet_cfg)
         return 0
     if args == ["--gemma"]:
         gemma_only(eager_cfg, jet_cfg)
@@ -6778,11 +7259,12 @@ def main(argv=None) -> int:
     guided = guided_phases(engine, jet_cfg)
     lora = lora_phases(engine, eager_cfg, jet_cfg, tok)
     # the worker's observability plane (phase 16), its lifecycle (phase
-    # 17), then the KVBM host tier and tenant QoS (phase 18), last on the
-    # 8B
+    # 17), then the KVBM host tier and tenant QoS (phase 18), then the
+    # frontend tier (phase 19), last on the 8B
     observability_phase(engine, jet_cfg)
     lifecycle_phase(engine, jet_cfg)
     kvbm_qos = kvbm_qos_phase(engine, eager_cfg)
+    fronted = frontend_phase(engine, jet_cfg)
 
     # the new families (phase 13), once the 8B's engines and weights are
     # released
@@ -6814,12 +7296,14 @@ def main(argv=None) -> int:
     # classic engine, the mixed engines, the graph-window engines (bf16
     # and w8a8 weights), the prefix-caching ones (vllm_tpu, trtllm_tpu),
     # the checkpoint engine, the speculating engines, the guided and the
-    # LoRA engines (graph replays included); the verify windows and
-    # head_dim 64 from the speculating engines' variant counts
+    # LoRA engines (graph replays included), phase 18's and phase 19's
+    # (the workers behind the frontends); the verify windows and head_dim
+    # 64 from the speculating engines' variant counts
     launches = dict.fromkeys(ca.LAUNCHES, 0)
     for counts in [phase["launches"] for phase in (
             served, served_mixed[""], served_mixed["_int8"], served_windows,
-            prefix, served_w8a8, prefix_trt, ckpt, guided, kvbm_qos)] + (
+            prefix, served_w8a8, prefix_trt, ckpt, guided, kvbm_qos,
+            fronted)] + (
                 spec["launches"] + lora["launches"]):
         for name, n in counts.items():
             launches[name] += n

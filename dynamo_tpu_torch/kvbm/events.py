@@ -1,12 +1,13 @@
 """Cluster-wide KV event plane — worker-side publisher.
 
-The port's copy of `dynamo_tpu/kvbm/events.py`, with its own copies of
-the two helpers it imports there (`subject_token` from the NATS client,
-`text_block_chain` from the router, both byte for byte). The publisher
-takes any client with the NATS client's `publish(subject, data)`; the
-worker's NATS wiring (its `attach_kv_event_publisher` and per-request
-`register_kv_route`) comes with the port's frontend tier; until then
-`Engine.set_kv_event_sink(publisher.on_engine_event)` attaches one.
+The port's copy of `dynamo_tpu/kvbm/events.py`, taking its two helpers
+from the port's copies of the modules the JAX file takes them from
+(`subject_token` from the NATS client, `text_block_chain` from the
+router). The publisher takes any client with the NATS client's
+`publish(subject, data)`; the worker's `--nats-url` wiring
+(`serving/worker.attach_nats_plane`) attaches one on the request plane's
+connection, and each request registers its routing text
+(`ServingContext.register_kv_route`).
 
 Workers announce what their KV cache actually holds: `stored` (block on
 device), `demoted` (spilled to the host/disk tier, still servable),
@@ -34,46 +35,17 @@ degrades routing back to the ledger/HRW path, never correctness.
 
 from __future__ import annotations
 
-import hashlib
 import json
 import logging
 import threading
 from typing import Dict, List, Optional, Tuple
 
+from dynamo_tpu_torch.serving.nats import subject_token
+from dynamo_tpu_torch.serving.router import text_block_chain
+
 log = logging.getLogger("dynamo_tpu_torch.kvbm.events")
 
 SUBJECT_PREFIX = "dynamo.kv_events"
-
-# the router's text-block geometry (`dynamo_tpu/serving/router.py`):
-# 64-char blocks, a 64-block hash window
-BLOCK_CHARS = 64
-MAX_BLOCKS = 64
-
-
-def subject_token(raw: str) -> str:
-    """Sanitize an arbitrary string (model name, worker URL) into a single
-    NATS subject token (no dots/spaces/wildcards)."""
-    return "".join(c if c.isalnum() or c in "-_" else "-" for c in raw)
-
-
-def text_block_chain(text: str, block_chars: int = BLOCK_CHARS,
-                     max_blocks: int = MAX_BLOCKS) -> List[str]:
-    """Rolling hash chain over fixed-size TEXT blocks of the prompt: the
-    frontend-side analogue of the engine's page-block hash chain (the
-    frontend is tokenizer-free, so its chain is over canonical prompt
-    text; a partial tail block is left out, since it cannot be stable
-    across turns)."""
-    out: List[str] = []
-    prev = b""
-    for i in range(0, min(len(text), block_chars * max_blocks), block_chars):
-        block = text[i:i + block_chars]
-        if len(block) < block_chars:
-            break
-        h = hashlib.sha256(prev)
-        h.update(block.encode("utf-8", "surrogatepass"))
-        prev = h.digest()
-        out.append(prev.hex())
-    return out
 
 
 def kv_event_subject(model: str, worker_url: str) -> str:

@@ -58,14 +58,20 @@ The KVBM host tier is the JAX worker's: the `dynamo_kvbm_*` counters and
 and `kvbm.onboard` spans and the drain's demote of every sole-owned
 prefix page (`drain_demote`).
 
-Not ported yet: disaggregation, the KVBM's cross-worker pull (its
-`HostTierSource` needs the transfer plane), and the KV event plane's
-wiring to NATS (the frontend tier's; `Engine.set_kv_event_sink` attaches
-a `kvbm/events.py` publisher meanwhile).
+The KV event plane is the JAX worker's: `attach_kv_event_publisher` hangs
+a `kvbm/events.py` publisher on the engine's event sink (the worker's
+`--nats-url` wiring does, on the NATS plane's connection), and each chat
+and completion request registers its token chain against the text the
+frontend's router hashes (`register_kv_route`); `kvbm.events` in
+`/worker/stats` counts what it published.
+
+Not ported yet: disaggregation and the KVBM's cross-worker pull (its
+`HostTierSource` needs the transfer plane).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import random
@@ -93,8 +99,9 @@ from dynamo_tpu_torch.robustness.watchdog import HEALTH_CODES, PROFILER_TAIL_S
 from dynamo_tpu_torch.serving import protocol as proto
 from dynamo_tpu_torch.serving import recovery
 from dynamo_tpu_torch.serving.engine_service import EngineService
-from dynamo_tpu_torch.serving.http_base import (JsonHTTPHandler,
-                                                 make_http_server)
+from dynamo_tpu_torch.serving.http_base import (  # noqa: F401
+    JsonHTTPHandler, make_http_server,
+    serve_forever_in_thread)  # re-exported for callers and tests
 from dynamo_tpu_torch.serving.metrics import (CallbackCounter,
                                                CallbackCounterVec, Counter,
                                                FrontendMetrics, Gauge)
@@ -513,6 +520,9 @@ class ServingContext:
         # the KVBM tiered block manager: its counters and the host pool's
         # occupancy
         self.kvbm_blocks_gauge = None
+        # the KV event plane's publisher, attached by the worker's NATS
+        # wiring (serving/worker.py attach_nats_plane)
+        self.kv_event_publisher = None
         kvbm = engine.kvbm
         if kvbm is not None:
             for name, help_, attr in (
@@ -640,6 +650,28 @@ class ServingContext:
         self.refresh_weight_gauge()  # the active weight version's label
         self.health_gauge.set(eng.watchdog.health_code)
         return self.metrics.registry.scrape(accept)
+
+    def register_kv_route(self, prompt_token_ids, routing_text: str) -> None:
+        """Feed the KV event publisher one request's (token-chain,
+        text-chain) association: `routing_text` must be the canonical text
+        the FRONTEND hashes for routing (completions: the prompt string;
+        chat: json.dumps(messages)). No-op without a publisher. The chain
+        is seeded with the engine's ACTIVE weight-version namespace so the
+        keys match what the engine publishes; a request that registers
+        just before a flip and admits just after loses its routing events
+        (the plane is advisory)."""
+        if self.kv_event_publisher is None:
+            return
+        try:
+            self.kv_event_publisher.register(
+                prompt_token_ids, routing_text, self.engine.cfg.page_size,
+                namespace=self.engine._kv_namespace(None))
+        except Exception:
+            log.exception("kv route registration failed")
+
+    def attach_kv_event_publisher(self, publisher) -> None:
+        self.kv_event_publisher = publisher
+        self.engine.set_kv_event_sink(publisher.on_engine_event)
 
     def refresh_weight_gauge(self) -> None:
         v = self.engine.weights.version
@@ -1066,6 +1098,8 @@ class _Handler(JsonHTTPHandler):
                 out["qos"] = eng.qos.stats()
             if eng.kvbm is not None:
                 out["kvbm"] = eng.kvbm.stats()
+                if ctx.kv_event_publisher is not None:
+                    out["kvbm"]["events"] = ctx.kv_event_publisher.stats()
             # the exact KV books (the dynamo_memory_* series in one read),
             # the cost rollup and the step timeline's bubble attribution
             try:
@@ -1353,6 +1387,10 @@ class _Handler(JsonHTTPHandler):
         prompt_text = self.ctx.tokenizer.apply_chat_template(
             p["messages"], tools=tools if tc != "none" else None)
         prompt_ids = self.ctx.tokenizer.encode(prompt_text)
+        # KV event plane: associate this request's token-block chain with
+        # the canonical text the frontend's router hashed (json.dumps of
+        # the messages: serving/frontend.py builds the same string)
+        self.ctx.register_kv_route(prompt_ids, json.dumps(p["messages"]))
         # a recovery continuation reuses the ORIGINAL response id so the
         # spliced stream's chunks stay consistent for the client
         rec, journaling = self._setup_recovery(
@@ -1450,6 +1488,9 @@ class _Handler(JsonHTTPHandler):
         p["adapter"] = self._check_model(p["model"])
         p["tenant"] = self._tenant
         prompt_ids = self.ctx.tokenizer.encode(p["prompt"])
+        # KV event plane: the frontend routes completions on the raw
+        # prompt string, the same canonical text registered here
+        self.ctx.register_kv_route(prompt_ids, p["prompt"])
         rec, journaling = self._setup_recovery(body, p)
         rid = (rec or {}).get("response_id") or proto.new_id("cmpl")
         self._span.set_attribute("request.id", rid)

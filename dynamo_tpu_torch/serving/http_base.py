@@ -1,7 +1,7 @@
-"""HTTP plumbing for the worker API server: JSON responses, error
-envelopes with a jittered Retry-After on shed codes, body reading, chunked
-SSE framing and the fault-injection seams of the inference routes (port
-of `dynamo_tpu/serving/http_base.py`)."""
+"""HTTP plumbing for the worker API server and the frontend router: JSON
+responses, error envelopes with a jittered Retry-After on shed codes, body
+reading, chunked SSE framing and the fault-injection seams of the
+inference routes (port of `dynamo_tpu/serving/http_base.py`)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import logging
 import random
 import socket
 import struct
+import threading
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
@@ -133,12 +134,15 @@ class JsonHTTPHandler(BaseHTTPRequestHandler):
         except (BrokenPipeError, ConnectionResetError, socket.error):
             self.close_connection = True  # the client hung up first
 
-    def _read_json_body(self) -> Dict[str, Any]:
+    def _read_raw_body(self) -> bytes:
         length = int(self.headers.get("Content-Length", 0))
         if length <= 0 or length > MAX_BODY_BYTES:
             raise proto.BadRequest("missing or oversized request body")
+        return self.rfile.read(length)
+
+    def _read_json_body(self) -> Dict[str, Any]:
         try:
-            return json.loads(self.rfile.read(length))
+            return json.loads(self._read_raw_body())
         except json.JSONDecodeError as e:
             raise proto.BadRequest(f"invalid JSON: {e}")
 
@@ -190,3 +194,9 @@ def make_http_server(handler_cls, attrs: Dict[str, Any], host: str,
     srv.daemon_threads = True
     return srv
 
+
+def serve_forever_in_thread(srv) -> threading.Thread:
+    t = threading.Thread(target=srv.serve_forever, daemon=True,
+                         name="http-server")
+    t.start()
+    return t

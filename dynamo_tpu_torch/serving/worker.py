@@ -6,8 +6,16 @@ the JAX worker's (`EngineConfig.add_cli_args`, `--host`, `--port`,
 `--frontend-url`, `--heartbeat-interval`) plus `--device` (the card unless
 `--device cpu`). Engine fields the port does not serve are refused by the
 engine with NotImplementedError naming them, and so are the worker flags
-it does not serve (`--prefill-url`, `--nats-url`, `--kvbm-peers`,
-`--coordinator`, `--num-processes`, `--process-id`: `unported_flags`).
+it does not serve (`--prefill-url`, `--kvbm-peers`, `--coordinator`,
+`--num-processes`, `--process-id`: `unported_flags`).
+
+With `--nats-url` the worker also serves the NATS request plane
+(`serving/nats_plane.WorkerNatsPlane`: its own subject and its model's
+queue group, bridged into its HTTP server) and, when the engine has a
+prefix cache, publishes its KV events on that connection
+(`kvbm/events.KVEventPublisher`), which the frontend's router indexes:
+`attach_nats_plane`, the wiring `chip_smoke.py` runs too. The plane
+closes when the drain begins and when the worker exits.
 
 With `--frontend-url` (comma-separated replicas) the worker heartbeats its
 stats to every replica's `/internal/register` each
@@ -47,8 +55,8 @@ tier behind the prefix cache (`--kvbm-host-blocks N`, `--kvbm-gate
 auto|always|never`, `--kvbm-disk-dir DIR`, `--kvbm-disk-blocks N`: pinned
 host arenas on the card) and per-tenant QoS (`--tenants JSON` or
 `DYNAMO_TPU_TENANTS`, `--qos-burst-tokens`) reach the engine as in the
-JAX worker; the KVBM's cross-worker pull (`--kvbm-peers`) and the NATS
-plane (`--nats-url`) stay refused. `--warmup` (on
+JAX worker; the KVBM's cross-worker pull (`--kvbm-peers`) stays
+refused. `--warmup` (on
 by default) builds the kernels and captures the greedy decode graphs
 before the server starts. Every worker serves the JAX worker's
 observability plane (`serving/api.py`): `/metrics`, `/debug` and its
@@ -76,11 +84,13 @@ import socket
 import threading
 import time
 import urllib.request
-from typing import List
+from typing import List, Optional
 
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.engine import Engine
+from dynamo_tpu_torch.kvbm.events import KVEventPublisher
 from dynamo_tpu_torch.serving.api import ServingContext, make_server
+from dynamo_tpu_torch.serving.nats_plane import WorkerNatsPlane
 
 log = logging.getLogger("dynamo_tpu_torch.worker")
 
@@ -109,9 +119,8 @@ BACKEND_PROFILES = {
 
 
 # the JAX worker's flags for roles and planes the port does not serve yet
-# (disaggregation, the NATS request plane, the KVBM's cross-worker pull,
-# multi-host)
-UNPORTED_FLAGS = ("prefill_url", "nats_url", "kvbm_peers", "coordinator",
+# (disaggregation, the KVBM's cross-worker pull, multi-host)
+UNPORTED_FLAGS = ("prefill_url", "kvbm_peers", "coordinator",
                   "num_processes", "process_id")
 
 
@@ -131,7 +140,9 @@ def _self_url(host: str, port: int) -> str:
 
 
 def heartbeat_payload(ctx: ServingContext, self_url: str) -> dict:
-    """One heartbeat's body: the JAX worker's keys less the KVBM's."""
+    """One heartbeat's body: the JAX worker's keys. Of the KVBM's it sends
+    `kvbm_host_blocks`; `kvbm_peer_port` comes with the peer pull, which
+    the port does not serve."""
     eng = ctx.engine
     stats = {
         "active_seqs": eng.num_active,
@@ -146,6 +157,8 @@ def heartbeat_payload(ctx: ServingContext, self_url: str) -> dict:
         # the router skips suspect/resurrecting/quarantined workers
         "health": eng.watchdog.summary(),
     }
+    if eng.kvbm is not None:
+        stats["kvbm_host_blocks"] = eng.cfg.kvbm_host_blocks
     if eng.lora is not None:
         # resident adapters drive the router's affinity pass
         stats["adapters"] = sorted(eng.lora.resident())
@@ -154,6 +167,36 @@ def heartbeat_payload(ctx: ServingContext, self_url: str) -> dict:
         stats["preemptible"] = True
     return {"url": self_url, "model": ctx.served_model,
             "mode": eng.cfg.disaggregation_mode, "stats": stats}
+
+
+def attach_nats_plane(ctx: ServingContext, nats_url: str, http_url: str,
+                      advertised_url: str) -> Optional[WorkerNatsPlane]:
+    """The JAX worker's `--nats-url` wiring: serve the NATS request plane
+    (this worker's subject, named by `advertised_url`, and its model's
+    queue group, bridged into its HTTP server at `http_url`) and, when the
+    engine has a prefix cache, publish its KV events on the plane's
+    connection so the frontend's router can index this worker's real
+    cache contents. None when the broker is unreachable (HTTP only)."""
+    try:
+        plane = WorkerNatsPlane(nats_url, http_url, ctx.served_model,
+                                advertised_url=advertised_url)
+    except OSError as e:
+        log.warning("NATS plane unavailable (%s); HTTP only", e)
+        return None
+    if ctx.engine.prefix_cache is not None:
+        ctx.attach_kv_event_publisher(KVEventPublisher(
+            plane.nc, advertised_url, ctx.served_model))
+        log.info("kv event plane publishing on %s",
+                 ctx.kv_event_publisher.subject)
+    return plane
+
+
+def _close_plane(plane: Optional[WorkerNatsPlane]) -> None:
+    if plane is not None:
+        try:
+            plane.close()
+        except Exception:
+            pass
 
 
 def _post_json(url: str, body: dict, timeout: float) -> None:
@@ -219,9 +262,12 @@ def build_parser(backend_name: str) -> argparse.ArgumentParser:
     p.add_argument("--frontend-url", default=os.environ.get("FRONTEND_URL"),
                    help="comma-separated frontend replicas to heartbeat to")
     p.add_argument("--heartbeat-interval", type=float, default=3.0)
+    p.add_argument("--nats-url", default=os.environ.get("NATS_URL"),
+                   help="NATS server URL: serve requests over the NATS "
+                        "request plane in addition to HTTP, and publish "
+                        "KV events there")
     # the JAX worker's flags the port refuses (unported_flags)
     p.add_argument("--prefill-url", default=os.environ.get("PREFILL_URL"))
-    p.add_argument("--nats-url", default=os.environ.get("NATS_URL"))
     p.add_argument("--kvbm-peers", default=os.environ.get("KVBM_PEERS"))
     p.add_argument("--coordinator", default=None)
     p.add_argument("--num-processes", type=int, default=None)
@@ -255,6 +301,10 @@ def main(argv=None, backend_name: str = "jetstream") -> None:
     srv = make_server(ctx, args.host, args.port)
     port = srv.server_address[1]
     self_url = _self_url(args.host, port)
+    nats_plane = None
+    if args.nats_url:
+        nats_plane = attach_nats_plane(ctx, args.nats_url,
+                                       f"http://127.0.0.1:{port}", self_url)
     stop = threading.Event()
     hb_thread = None
     if args.frontend_url:
@@ -288,6 +338,9 @@ def main(argv=None, backend_name: str = "jetstream") -> None:
                     drain_s = _env_float("DRAIN_TIMEOUT_S", 30.0)
                     grace_s = _env_float("DRAIN_HANDOFF_GRACE_S", 5.0)
                 ctx.begin_drain()
+                # stop consuming the NATS request plane now: new subjects
+                # must not refill the queue mid-drain
+                _close_plane(nats_plane)
                 if args.frontend_url:
                     if hb_thread is not None:
                         # a heartbeat in flight must land before the
@@ -319,6 +372,7 @@ def main(argv=None, backend_name: str = "jetstream") -> None:
     try:
         srv.serve_forever()
     finally:
+        _close_plane(nats_plane)
         ctx.close()
 
 

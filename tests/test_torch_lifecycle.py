@@ -742,8 +742,9 @@ def test_hung_dispatch_handoff_resume_and_resurrection(params):
 # ------------------------------------------------------------ the CLI --
 
 def test_unported_worker_flags_are_refused_by_name():
-    for flag, value in (("--nats-url", "nats://x:4222"),
-                        ("--prefill-url", "http://p:1"),
+    # --nats-url is served (the frontend tier's request and KV event
+    # planes): tests/test_torch_frontend_e2e.py runs it
+    for flag, value in (("--prefill-url", "http://p:1"),
                         ("--kvbm-peers", "h:1"), ("--coordinator", "h:2"),
                         ("--num-processes", "2"), ("--process-id", "1")):
         with pytest.raises(NotImplementedError, match=flag):

@@ -1,6 +1,7 @@
-"""The port's recovery journal on the wire, on the CPU: the JAX package's
-own frontend (`serving/frontend.py`, which imports no JAX) in front of two
-port workers sharing one set of weights, with the port's
+"""The port's recovery journal on the wire, on the CPU: a frontend (the
+JAX package's `serving/frontend.py`, and the port's copy of it: the stack
+is parametrised over both) in front of two port workers sharing one set of
+weights, with the port's
 `worker.crash_mid_decode` and `worker.reset_after_headers` armed; a
 greedy chat stream, a completions stream and a seeded sampled stream each
 resume on the peer with the content of a fault-free run, byte for byte
@@ -26,13 +27,14 @@ from dynamo_tpu.models import llama as jllama
 from dynamo_tpu.models.config import PRESETS as JPRESETS
 from dynamo_tpu.serving import api as japi
 from dynamo_tpu.serving import http_base as jhttp_base
+from dynamo_tpu.serving import frontend as jfrontend
 from dynamo_tpu.serving import recovery as jrecovery
-from dynamo_tpu.serving.frontend import FrontendContext, make_frontend_server
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.engine import Engine
 from dynamo_tpu_torch.engine.request import GenRequest
 from dynamo_tpu_torch.robustness import faults
 from dynamo_tpu_torch.serving import api
+from dynamo_tpu_torch.serving import frontend
 from dynamo_tpu_torch.serving import http_base
 from dynamo_tpu_torch.serving import recovery
 
@@ -92,10 +94,15 @@ def _serve(ctx):
     return srv, f"http://127.0.0.1:{srv.server_address[1]}"
 
 
-@pytest.fixture(scope="module")
-def stack():
-    """The JAX frontend + two port workers on one set of weights (the JAX
-    init carried across), and a JAX worker on the same params."""
+FRONTENDS = {"dynamo_tpu": jfrontend, "dynamo_tpu_torch": frontend}
+
+
+@pytest.fixture(scope="module", params=list(FRONTENDS))
+def stack(request):
+    """A frontend (the JAX package's, then the port's) + two port workers
+    on one set of weights (the JAX init carried across), and a JAX worker
+    on the same params."""
+    front = FRONTENDS[request.param]
     cfg = dataclasses.replace(JPRESETS[MODEL], dtype="float32")
     params = jllama.init_params(cfg, jax.random.PRNGKey(0))
     plane = faults.reset_plane()
@@ -114,8 +121,8 @@ def stack():
         JEngine(JEngineConfig(**KW, async_scheduling=False), params=params),
         MODEL)
     jsrv, jurl = _serve(jctx)
-    fctx = FrontendContext()
-    fsrv = make_frontend_server(fctx, "127.0.0.1", 0)
+    fctx = front.FrontendContext()
+    fsrv = front.make_frontend_server(fctx, "127.0.0.1", 0)
     threading.Thread(target=fsrv.serve_forever, daemon=True).start()
     st = {"frontend": f"http://127.0.0.1:{fsrv.server_address[1]}",
           "fctx": fctx, "plane": plane, "workers": urls, "wctxs": ctxs,
