@@ -24,6 +24,7 @@
     python3 chip_smoke.py --lifecycle         # phases 1-2 and 17
     python3 chip_smoke.py --kvbm-qos          # phases 1-2 and 18
     python3 chip_smoke.py --frontend          # phases 1-2 and 19
+    python3 chip_smoke.py --disagg            # phases 1-2 and 20
 
 (`--kernels-only`, `--window-profile` and the `--mla-*` options time the
 package beside the script, so a copy of it in an older checkout compares
@@ -529,7 +530,46 @@ on failure:
    TTFT, ITL and first event, the `router.pick` span's ms (`/debug/spans`), the resume
    gap, the launches (decode, prefill and chunk must each launch) and the
    phase's seconds, with the card line.
-20. A `kernels` JSON line (launches summed over the served phases, graph
+20. Disaggregated serving (`disagg_phase`), last on the 8B's weights (wq
+   scaled by 2^-4 for (a) and (c), as in phase 19; restored after). (a)
+   A prefill-role engine and a decode-role engine of the jetstream profile
+   (8-step graph windows, warmed up: the prefill role captures nothing and
+   runs one prefill_only, the decode role also its import scatter), each
+   behind its own server, behind an in-process frontend (`dg_frontend`):
+   first the handoff of one DG_RATE_TOKENS (1792)-token prompt's KV timed
+   alone on each plane (`dg_rates`: the in-process gather and scatter;
+   the TCP pull through host memory and its import), then DG_PROMPTS (4)
+   greedy streamed chats of DG_TOKENS (32), one at a time, over `dcn` and
+   then over `ici_inproc` (the prefill engine in `ici_registry`), and the
+   same chats through a frontend to an aggregated jetstream engine; each
+   disagg stream must equal the aggregated one or first differ at a
+   near-tie, the planes' counts must be exactly those chats (nothing
+   silently went `dcn`), prefill.cu must launch on the prefill role and
+   decode.cu on the decode role (the prefill_only calls' launch deltas
+   against the rest); TTFT and ITL per path, the KV bytes, GB/s and import
+   seconds per plane. (b) A child process, `python -m
+   dynamo_tpu_torch.jetstream --device cuda --disaggregation-mode prefill`
+   on a full-depth DRAFT_MODEL (llama-3.2-1b-instruct) checkpoint the
+   phase writes (`dg_checkpoint`), started at the phase's start, and a
+   decode role in this process on the same checkpoint: one
+   DG_RATE_TOKENS-token prompt's KV staged on the child, opened here and
+   imported, timed alone (`dg_ipc_rate`), then DG_PROMPTS chats over CUDA
+   IPC (`ici_device` count 4, `dcn` 0) equal to an aggregated engine's
+   (near-tie rule), the child left holding no KV; then the leak drill,
+   against a 1B prefill role of this process whose stage TTL is cut to
+   DG_STAGED_TTL_S (2 s): a peer process (`DG_PEER`) prefills and stages
+   a request there, maps its KV over CUDA IPC and is killed before its
+   release; the stage ledger must show it leaked after the TTL, and a
+   late /disagg/release must free the stage and the parked pages. The kernel
+   library must not be rebuilt (its files unchanged). (c) The KVBM peer
+   pull: a warm worker's turn 1 (~1400 tokens, chunked) demoted to its
+   host tier (`drain_demote`), then turn 2 on a cold worker with
+   `kvbm_peers` pointed at the warm worker's `HostTierSource` against a
+   worker that recomputes: peer_onboarded_blocks_total > 0, turn-2 TTFT
+   both ways, the streams equal or a near-tie apart. The line prints the
+   native transport's status (it fails unless loaded), the peak device
+   memory of this process and of the child, the launches and the seconds.
+21. A `kernels` JSON line (launches summed over the served phases, graph
    replays included; the verify windows, at decode_q = 5 with and without
    a chunk, decode at head_dim 64, the kernels at head_dim 256, at group
    7 and at group 8 counted as rows of their own: the head_dim 256 rows
@@ -539,8 +579,8 @@ on failure:
    served deepseek-v2-lite phases' variant counts, the Gemma rows from
    the served gemma-2-9b-it phase's windowed launches (`kernel[window]`),
    the Phi-3 rows from the served Phi-3 phase's launches at head_dim 96
-   (`kernel[head_dim=96]`, the longrope runs included); phases 18's and
-   19's launches included in the 8B's rows;
+   (`kernel[head_dim=96]`, the longrope runs included); phases 18's,
+   19's and 20's launches included in the 8B's rows;
    `ms` and `library_ms` device times,
    `call_ms` and `library_call_ms` call times, as phase 3 measures them;
    `device_kernels`, the device kernels of the row's source that serve
@@ -594,6 +634,7 @@ from dynamo_tpu_torch.ops import json_guide
 from dynamo_tpu_torch.ops import moe
 from dynamo_tpu_torch.serving.api import (ServingContext, make_server,
                                           spec_stats)
+from dynamo_tpu_torch.runtime.native import transport_status
 from dynamo_tpu_torch.serving.worker import BACKEND_PROFILES, build_parser
 
 MODEL = "llama-3.1-8b-instruct"
@@ -6998,6 +7039,511 @@ def fe_up(base: str) -> bool:
         return False
 
 
+# ------------------------------------------------------------- phase 20 --
+
+DG_PROMPTS, DG_TOKENS = 4, 32
+# (a)'s handoff rates: a prompt of the length phase 3's chunk rows reach
+DG_RATE_TOKENS = 1792
+# (b): the prefill child's pages, and the stage TTL of the leak drill's
+# prefill worker (it waits the TTL out)
+DG_CHILD_PAGES, DG_STAGED_TTL_S = 1024, 2.0
+DG_LEAK_RID = "dg-leak"
+# (c): turn 1's user message (characters: byte tokens) and the host tier
+DG_TURN1_CHARS, DG_HOST_BLOCKS = 1400, 256
+DG_PEER = r"""
+import json, sys, time, urllib.request
+import torch
+from dynamo_tpu_torch.transfer.kv_transfer import DeviceKVClient, device_uuid
+
+url, rid = sys.argv[1], sys.argv[2]
+
+
+def post(path, body):
+    req = urllib.request.Request(url + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+dev = torch.device("cuda")
+post("/disagg/prefill", {"request_id": rid,
+                         "prompt_token_ids": list(range(1, 300)),
+                         "device_uuid": device_uuid(dev)})
+staged = post("/disagg/stage", {"request_id": rid})
+k, v = DeviceKVClient(dev).pull(staged)
+torch.cuda.synchronize()
+print(json.dumps({"mapped": list(k.shape), "dtype": str(k.dtype),
+                  "k_sum": float(k.float().sum())}), flush=True)
+time.sleep(600)
+"""
+
+
+def dg_serve(ctx, closers) -> str:
+    """`ctx`'s OpenAI server on 127.0.0.1:0 (stopped by `closers`)."""
+    srv = make_server(ctx, host="127.0.0.1", port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    closers.append(ctx.close)
+    closers.append(srv.server_close)
+    closers.append(srv.shutdown)
+    return f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def dg_frontend(workers, closers) -> str:
+    """An in-process frontend with `workers` ((url, mode) pairs, which
+    never expire) registered."""
+    from dynamo_tpu_torch.serving import frontend as fe_mod
+
+    fctx = fe_mod.FrontendContext(fe_mod.Router(heartbeat_ttl=float("inf")))
+    fsrv = fe_mod.make_frontend_server(fctx, "127.0.0.1", 0)
+    threading.Thread(target=fsrv.serve_forever, daemon=True).start()
+    closers.append(fsrv.server_close)
+    closers.append(fsrv.shutdown)
+    base = f"http://127.0.0.1:{fsrv.server_address[1]}"
+    for url, mode in workers:
+        req = urllib.request.Request(
+            base + "/internal/register", data=json.dumps({
+                "url": url, "model": MODEL, "mode": mode,
+                "stats": {"max_num_seqs": MAX_SEQS, "free_pages": 1000,
+                          "total_pages": NUM_PAGES}}).encode(),
+            headers={"Content-Type": "application/json"})
+        urllib.request.urlopen(req, timeout=30).close()
+    return base
+
+
+def dg_post(url: str, body: dict) -> dict:
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def dg_chats(base: str, model: str) -> list:
+    """DG_PROMPTS greedy streamed chats, one at a time (each alone in its
+    batch, so the aggregated and the disaggregated schedules match)."""
+    return [fe_http_stream(base, dict(
+        fe_body([{"role": "user", "content": fe_first_turn(c)}], DG_TOKENS),
+        model=model)) for c in range(DG_PROMPTS)]
+
+
+def dg_compare(runs: list, refs: list, what: str, errors: list) -> list:
+    """Each run against its reference by the near-tie rule."""
+    diffs = [fe_difference(got, ref) for got, ref in zip(runs, refs)]
+    bad = [d for d in diffs if d is not None and not d["near_tie"]]
+    if bad:
+        errors.append(f"{what}: tokens differ from the aggregated worker's "
+                      f"past a near-tie: {bad}")
+    return diffs
+
+
+def dg_latency(runs: list) -> dict:
+    return {"ttft_ms": statistics.median(r["ttft_ms"] for r in runs),
+            "itl_ms": statistics.median(r["itl_ms"] for r in runs)}
+
+
+def dg_rates(pre: Engine, dec: Engine) -> dict:
+    """(a)'s handoff of one DG_RATE_TOKENS-token prompt's KV, each plane
+    timed alone on idle engines (wall seconds until the card finished):
+    ici_inproc's gather and in-place scatter, and dcn's pull (the gather,
+    the device-to-host copy, the TCP stream and the parse) and import (the
+    host-to-device copy and the scatter)."""
+    from dynamo_tpu_torch.transfer.kv_transfer import KVSource, fetch_kv
+
+    prompt = [(7 * j) % 251 + 1 for j in range(DG_RATE_TOKENS)]
+    out = {}
+    for plane in ("ici_inproc", "dcn"):
+        rid = f"__dg_rate_{plane}"
+        req = GenRequest(rid, prompt, max_tokens=4, temperature=0.0,
+                         ignore_eos=True)
+        first = pre.prefill_only(req)[0]
+        if plane == "ici_inproc":
+            (k, v, _), pull_s = synced_s(lambda: pre.export_kv_device(rid))
+            pre.release_parked(rid)
+        else:
+            src = KVSource(pre, port=0)
+            try:
+                (k, v, _), pull_s = synced_s(
+                    lambda: fetch_kv("127.0.0.1", src.port, rid))
+            finally:
+                src.close()
+        _, import_s = synced_s(lambda: dec.import_kv(req, first, k, v))
+        nbytes = int(k.nbytes + v.nbytes)
+        del k, v
+        dec.abort_request(rid)
+        while dec.has_work:
+            dec.step()
+        out[plane] = {"kv_bytes": nbytes, "pull_s": pull_s,
+                      "pull_gb_per_s": nbytes / pull_s / 1e9,
+                      "import_s": import_s,
+                      "import_gb_per_s": nbytes / import_s / 1e9}
+    return out
+
+
+def dg_inproc(engine: Engine, jet_cfg: dict, errors: list,
+              closers: list) -> dict:
+    """Phase 20 (a): the 8B's prefill and decode roles in this process
+    behind a frontend, over dcn and ici_inproc, against an aggregated
+    worker."""
+    from dynamo_tpu_torch.transfer import ici_registry
+
+    out = {}
+    pre = Engine(EngineConfig(**jet_cfg, disaggregation_mode="prefill",
+                              disaggregation_bootstrap_port=0),
+                 params=engine.model)
+    dec = Engine(EngineConfig(**jet_cfg, disaggregation_mode="decode",
+                              disaggregation_transfer_backend="dcn"),
+                 params=engine.model)
+    agg = Engine(EngineConfig(**jet_cfg), params=engine.model)
+    t0 = time.monotonic()
+    for e in (pre, dec, agg):
+        e.warmup()
+    out["warmup_s"] = time.monotonic() - t0
+    with torch.inference_mode():
+        out["rates"] = dg_rates(pre, dec)
+    # the prefill role's launches, apart from the decode role's: the roles
+    # run one request at a time, so the prefill_only calls' deltas are the
+    # prefill role's and the rest is the decode role's
+    role_pre = dict.fromkeys(ca.LAUNCHES, 0)
+    served_pre = pre.prefill_only
+
+    def counted(req):
+        before = dict(ca.LAUNCHES)
+        try:
+            return served_pre(req)
+        finally:
+            for name, n in ca.LAUNCHES.items():
+                role_pre[name] += n - before.get(name, 0)
+
+    pre.prefill_only = counted
+    ca.reset_launch_counts()
+    pre_url = dg_serve(ServingContext(pre, MODEL), closers)
+    ici_registry.register(pre_url, pre)
+    closers.append(lambda: ici_registry.unregister(pre_url))
+    runs, planes = {}, {}
+    for plane, backend in (("dcn", "dcn"), ("ici_inproc", "ici")):
+        # one decode worker at a time on the one engine (one scheduler)
+        dec.cfg = dataclasses.replace(
+            dec.cfg, disaggregation_transfer_backend=backend)
+        ctx = ServingContext(dec, MODEL, prefill_urls=[pre_url])
+        ctx.tokenizer = VisibleTokenizer()
+        mine = []
+        try:
+            dec_url = dg_serve(ctx, mine)
+            base = dg_frontend([(pre_url, "prefill"), (dec_url, "decode")],
+                               mine)
+            runs[plane] = dg_chats(base, MODEL)
+        finally:
+            for close in reversed(mine):
+                close()
+        planes[plane] = dict(ctx.disagg_client.plane_counts)
+    launches = dict(ca.LAUNCHES)
+    agg_ctx = ServingContext(agg, MODEL)
+    agg_ctx.tokenizer = VisibleTokenizer()
+    base = dg_frontend([(dg_serve(agg_ctx, closers), "agg")], closers)
+    runs["agg"] = dg_chats(base, MODEL)
+    role_dec = {k: launches[k] - role_pre[k] for k in launches}
+    out["launches"] = launches
+    out["role_launches"] = {"prefill": role_pre, "decode": role_dec}
+    if not role_pre["prefill"] or not role_dec["decode"]:
+        errors.append(f"(a) the roles' kernels: prefill.cu on the prefill "
+                      f"role, decode.cu on the decode role: "
+                      f"{out['role_launches']}")
+    want = {"dcn": {"ici_inproc": 0, "ici_device": 0, "dcn": DG_PROMPTS},
+            "ici_inproc": {"ici_inproc": DG_PROMPTS, "ici_device": 0,
+                           "dcn": 0}}
+    out["planes"] = planes
+    if planes != want:
+        errors.append(f"(a) planes: {planes}, want {want}")
+    out["latency"] = {k: dg_latency(r) for k, r in runs.items()}
+    out["differences"] = {p: dg_compare(runs[p], runs["agg"], f"(a) {p}",
+                                        errors)
+                          for p in ("dcn", "ici_inproc")}
+    out["parked_after"] = len(pre._parked)
+    return out
+
+
+def dg_checkpoint(dev) -> tuple:
+    """DRAFT_MODEL at full width and depth as a local safetensors
+    checkpoint (hf_tensors' seeded draw): (its directory, its bytes)."""
+    from safetensors.torch import save_file
+
+    cfg = ModelConfig.from_model_name(DRAFT_MODEL)
+    src = hf_tensors(cfg, cfg.num_layers, dev)
+    if cfg.tie_word_embeddings:
+        del src["lm_head.weight"]  # the loader ties it to the embedding
+    path = tempfile.mkdtemp(prefix="dtt_dg_")
+    nbytes = sum(t.numel() * t.element_size() for t in src.values())
+    names = sorted(src)
+    for s in range(2):
+        save_file({n: src[n].cpu() for n in names[s::2]},
+                  os.path.join(path, f"model-{s + 1:05d}-of-00002"
+                                     ".safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config(cfg, cfg.num_layers), f)
+    del src
+    return path, nbytes
+
+
+def dg_child(ckpt: str, port: int):
+    """The prefill role as its own process: `python -m
+    dynamo_tpu_torch.jetstream --device cuda --disaggregation-mode
+    prefill` on DRAFT_MODEL's checkpoint, its log in a temporary file."""
+    log = tempfile.TemporaryFile()
+    cmd = [sys.executable, "-m", "dynamo_tpu_torch.jetstream",
+           "--device", "cuda", "--disaggregation-mode", "prefill",
+           "--disaggregation-bootstrap-port", "0",
+           "--model", DRAFT_MODEL, "--model-path", ckpt,
+           "--host", "127.0.0.1", "--port", str(port),
+           "--page-size", str(PS), "--num-pages", str(DG_CHILD_PAGES),
+           "--max-num-seqs", str(MAX_SEQS), "--max-seq-len", str(MAX_SEQ_LEN)]
+    proc = subprocess.Popen(
+        cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=log, stderr=subprocess.STDOUT)
+    return proc, log
+
+
+def dg_peer(url: str):
+    """A decode peer that stages DG_LEAK_RID on `url`, maps its KV over
+    CUDA IPC, prints one JSON line and waits to be killed."""
+    return subprocess.Popen(
+        [sys.executable, "-c", DG_PEER, url, DG_LEAK_RID],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def dg_line(proc, timeout: float) -> str:
+    """The first JSON line `proc` prints, within `timeout`."""
+    got = []
+
+    def read():
+        for line in proc.stdout:
+            if line.startswith("{"):
+                got.append(line)
+                return
+
+    t = threading.Thread(target=read, daemon=True)
+    t.start()
+    t.join(timeout)
+    return got[0] if got else ""
+
+
+def dg_ipc_rate(child_url: str, dec: Engine) -> dict:
+    """(b)'s CUDA IPC handoff of one DG_RATE_TOKENS-token prompt's KV,
+    timed alone (wall seconds until the card finished): the stage RPC (the
+    child's gather and export), opening the handles here, and the import's
+    scatter into `dec`'s pools."""
+    from dynamo_tpu_torch.transfer.kv_transfer import (DeviceKVClient,
+                                                       device_uuid)
+
+    rid = "__dg_rate_ici_device"
+    prompt = [(7 * j) % 251 + 1 for j in range(DG_RATE_TOKENS)]
+    first = dg_post(child_url + "/disagg/prefill", {
+        "request_id": rid, "prompt_token_ids": prompt,
+        "device_uuid": device_uuid(dec.device)})["first_token"]
+    t0 = time.monotonic()
+    staged = dg_post(child_url + "/disagg/stage", {"request_id": rid})
+    stage_s = time.monotonic() - t0
+    (k, v), open_s = synced_s(
+        lambda: DeviceKVClient(dec.device).pull(staged))
+    req = GenRequest(rid, prompt, max_tokens=4, temperature=0.0,
+                     ignore_eos=True)
+    _, import_s = synced_s(lambda: dec.import_kv(req, first, k, v))
+    nbytes = int(k.nbytes + v.nbytes)
+    del k, v
+    dg_post(child_url + "/disagg/release", {"request_id": rid})
+    dec.abort_request(rid)
+    while dec.has_work:
+        dec.step()
+    return {"kv_bytes": nbytes, "stage_s": stage_s, "open_s": open_s,
+            "import_s": import_s,
+            "import_gb_per_s": nbytes / import_s / 1e9}
+
+
+def dg_cross(proc, log, child_url: str, ckpt: str, jet_cfg: dict,
+             errors: list, closers: list) -> dict:
+    """Phase 20 (b): the prefill child and a decode role here over CUDA
+    IPC, against an aggregated worker on the same checkpoint; then the
+    leak drill against a prefill role of this process."""
+    out = {}
+    cfg = dict(jet_cfg, model=DRAFT_MODEL, model_path=ckpt)
+    dec = Engine(EngineConfig(**cfg, disaggregation_mode="decode"))
+    agg = Engine(EngineConfig(**cfg), params=dec.model)
+    pre = Engine(EngineConfig(**cfg, disaggregation_mode="prefill",
+                              disaggregation_bootstrap_port=0),
+                 params=dec.model)
+    for e in (dec, agg, pre):
+        e.warmup()
+    # the drill's prefill worker: its stage TTL shortened, a peer process
+    # staging on it while the chats below run
+    pre_ctx = ServingContext(pre, DRAFT_MODEL)
+    pre_ctx.kv_device_source.staged_ttl_s = DG_STAGED_TTL_S
+    pre_url = dg_serve(pre_ctx, closers)
+    peer = dg_peer(pre_url)
+    closers.append(lambda: (peer.kill(), peer.wait(timeout=30)))
+    lc_wait(lambda: proc.poll() is not None or fe_up(child_url), 180,
+            "phase 20: the prefill child to answer")
+    if proc.poll() is not None:
+        raise AssertionError(f"phase 20: the prefill child exited: "
+                             f"{fe_log_tail(log)}")
+    with torch.inference_mode():
+        out["rate"] = dg_ipc_rate(child_url, dec)
+    ctx = ServingContext(dec, DRAFT_MODEL, prefill_urls=[child_url])
+    ctx.tokenizer = VisibleTokenizer()
+    dec_url = dg_serve(ctx, closers)
+    agg_ctx = ServingContext(agg, DRAFT_MODEL)
+    agg_ctx.tokenizer = VisibleTokenizer()
+    agg_url = dg_serve(agg_ctx, closers)
+    runs = {"ici_device": dg_chats(dec_url, DRAFT_MODEL),
+            "agg": dg_chats(agg_url, DRAFT_MODEL)}
+    out["planes"] = dict(ctx.disagg_client.plane_counts)
+    want = {"ici_inproc": 0, "ici_device": DG_PROMPTS, "dcn": 0}
+    if out["planes"] != want:
+        errors.append(f"(b) planes: {out['planes']}, want {want}")
+    out["latency"] = {k: dg_latency(r) for k, r in runs.items()}
+    out["differences"] = dg_compare(runs["ici_device"], runs["agg"],
+                                    "(b) ici_device", errors)
+    # the releases go out on threads of their own
+    lc_wait(lambda: fe_get(child_url + "/worker/stats")["parked_kv"] == 0,
+            30, "phase 20: the child's releases")
+    stats = fe_get(child_url + "/worker/stats")
+    out["child_native"] = stats["native"]
+    out["child_peak_gib"] = max(
+        d["peak_bytes_in_use"] for d in stats["memory"]["devices"]) / 2**30
+    if stats["parked_kv"] or stats["staged_kv"] != {"live": 0,
+                                                    "leaked": 0}:
+        errors.append(f"(b) the child holds KV after the releases: "
+                      f"{stats['parked_kv']} parked, {stats['staged_kv']}")
+    # the leak drill: the peer staged and mapped its request's KV; killed
+    # before its release, the stage turns leaked at the TTL, and a late
+    # release frees it and the parked pages
+    line = dg_line(peer, 120)
+    out["peer"] = json.loads(line) if line else None
+    peer.kill()
+    peer.wait(timeout=30)
+    if not line:
+        errors.append("(b) the staging peer never mapped its KV")
+        return out
+    time.sleep(DG_STAGED_TTL_S)
+    stats = lambda: fe_get(pre_url + "/worker/stats")  # noqa: E731
+    before = stats()
+    dg_post(pre_url + "/disagg/release", {"request_id": DG_LEAK_RID})
+    after = stats()
+    out["leak_drill"] = {
+        "staged_kv_after_kill": before["staged_kv"],
+        "parked_after_kill": before["parked_kv"],
+        "staged_kv_after_release": after["staged_kv"],
+        "parked_after_release": after["parked_kv"],
+        "free_pages_after_release": after["free_pages"]}
+    if (before["staged_kv"] != {"live": 0, "leaked": 1}
+            or before["parked_kv"] != 1
+            or after["staged_kv"] != {"live": 0, "leaked": 0}
+            or after["parked_kv"] != 0
+            or after["free_pages"] != pre.cfg.num_pages - 1):
+        errors.append(f"(b) the leak drill: {out['leak_drill']}")
+    return out
+
+
+def dg_kvbm(engine: Engine, eager_cfg: dict, errors: list,
+            closers: list) -> dict:
+    """Phase 20 (c): a warm worker's host tier serves a cold worker through
+    --kvbm-peers; turn 2's TTFT against a worker that recomputes."""
+    cfg = dict(eager_cfg, enable_prefix_caching=True,
+               kvbm_host_blocks=DG_HOST_BLOCKS, kvbm_gate="always")
+    warm, cold, rec = (Engine(EngineConfig(**cfg), params=engine.model)
+                       for _ in range(3))
+    ctx_w = ServingContext(warm, MODEL)
+    ctx_c = ServingContext(cold, MODEL, kvbm_peers=[
+        f"127.0.0.1:{ctx_w.kvbm_source.port}"])
+    ctx_r = ServingContext(rec, MODEL)
+    urls = []
+    for ctx in (ctx_w, ctx_c, ctx_r):
+        ctx.tokenizer = VisibleTokenizer()
+        urls.append(dg_serve(ctx, closers))
+    rng = np.random.default_rng(2000)
+    words = []
+    while sum(len(w) + 1 for w in words) < DG_TURN1_CHARS:
+        words.append(FE_WORDS[rng.integers(len(FE_WORDS))])
+    msgs = [{"role": "user", "content": " ".join(words)}]
+    turn1 = fe_http_stream(urls[0], fe_body(msgs, FE_TURN_TOKENS))
+    demoted = ctx_w.drain_demote()
+    msgs2 = msgs + [{"role": "assistant", "content": turn1["text"]},
+                    {"role": "user", "content": "And the next page?"}]
+    body = fe_body(msgs2, FE_TURN_TOKENS)
+    runs = {"peer_pull": fe_http_stream(urls[1], body),
+            "recompute": fe_http_stream(urls[2], body)}
+    st = cold.kvbm.stats()
+    out = {"demoted_pages": demoted,
+           "peer_onboarded_blocks_total": st["peer_onboarded_blocks_total"],
+           "turn2_ttft_ms": {k: r["ttft_ms"] for k, r in runs.items()},
+           "difference": fe_difference(runs["peer_pull"], runs["recompute"])}
+    if not out["peer_onboarded_blocks_total"]:
+        errors.append(f"(c) no block onboarded from the peer: {st}")
+    d = out["difference"]
+    if d is not None and not d["near_tie"]:
+        errors.append(f"(c) the peer-pulled turn 2 differs: {d}")
+    return out
+
+
+def disagg_phase(engine: Engine, eager_cfg: dict, jet_cfg: dict) -> dict:
+    """Phase 20 (see the module doc) -> {"launches"}: (a)'s launches,
+    counted from zero over its served requests."""
+    t_phase = time.monotonic()
+    errors, out, closers = [], {}, []
+    libs = {p.name: p.stat().st_mtime for p in ca.BUILD_DIR.glob("*.so")}
+    t0 = time.monotonic()
+    ckpt, ckpt_bytes = dg_checkpoint(torch.device("cuda"))
+    out["checkpoint"] = {"gib": ckpt_bytes / 2**30,
+                         "write_s": time.monotonic() - t0}
+    child_url = f"http://127.0.0.1:{fe_free_port()}"
+    # the child starts while (a) and (c) run here
+    proc, log = dg_child(ckpt, int(child_url.rsplit(":", 1)[1]))
+    for layer in engine.model.layers:
+        layer.wq.mul_(WINDOWED_WQ_SCALE)  # a power of 2: exact, undone below
+    try:
+        try:
+            out["inproc"] = dg_inproc(engine, jet_cfg, errors, closers)
+            out["kvbm_peer"] = dg_kvbm(engine, eager_cfg, errors, closers)
+        finally:
+            for layer in engine.model.layers:
+                layer.wq.div_(WINDOWED_WQ_SCALE)
+        out["cross_process"] = dg_cross(proc, log, child_url, ckpt,
+                                        jet_cfg, errors, closers)
+        out["native_transport"] = transport_status()
+        if not out["native_transport"]["native_transport"]:
+            errors.append(f"the native transport did not load: "
+                          f"{out['native_transport']}")
+        rebuilt = {p.name: p.stat().st_mtime for p in
+                   ca.BUILD_DIR.glob("*.so")} != libs
+        out["kernels_rebuilt"] = rebuilt
+        if rebuilt:
+            errors.append("the kernel library was rebuilt during phase 20")
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        for close in reversed(closers):
+            try:
+                close()
+            except Exception as e:
+                errors.append(f"teardown: {type(e).__name__}: {e}")
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=15)
+        out["child_log_tail"] = fe_log_tail(log)[-600:] if errors else ""
+        log.close()
+        shutil.rmtree(ckpt, ignore_errors=True)
+        del closers
+        release()
+    launches = out["inproc"]["launches"]
+    out.update(seconds=time.monotonic() - t_phase, card=card_line())
+    emit({"phase": "disagg", "model": MODEL, "child_model": DRAFT_MODEL,
+          **out})
+    if errors:
+        raise AssertionError(f"phase 20: {errors}")
+    return {"launches": launches}
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if args not in ([], ["--kernels-only"], ["--mla-chunked-ttft"],
@@ -7005,14 +7551,14 @@ def main(argv=None) -> int:
                     ["--window-profile"], ["--observability"],
                     ["--trace-stress"], ["--gemma"], ["--phi3"],
                     ["--profile-lead"], ["--lifecycle"],
-                    ["--kvbm-qos"], ["--frontend"]) and not (
+                    ["--kvbm-qos"], ["--frontend"], ["--disagg"]) and not (
                         len(args) == 2 and args[0] == "--mla-prefill-profile"
                         and args[1].isdigit()):
         print("usage: chip_smoke.py [--kernels-only | --mla-chunked-ttft | "
               "--mla-verify-profile | --mla-prefill-profile [N] | "
               "--window-profile | --observability | --trace-stress | "
               "--gemma | --phi3 | --profile-lead | --lifecycle | "
-              "--kvbm-qos | --frontend]",
+              "--kvbm-qos | --frontend | --disagg]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -7077,6 +7623,9 @@ def main(argv=None) -> int:
         return 0
     if args == ["--frontend"]:
         frontend_phase(Engine(EngineConfig(**eager_cfg)), jet_cfg)
+        return 0
+    if args == ["--disagg"]:
+        disagg_phase(Engine(EngineConfig(**eager_cfg)), eager_cfg, jet_cfg)
         return 0
     if args == ["--gemma"]:
         gemma_only(eager_cfg, jet_cfg)
@@ -7260,11 +7809,13 @@ def main(argv=None) -> int:
     lora = lora_phases(engine, eager_cfg, jet_cfg, tok)
     # the worker's observability plane (phase 16), its lifecycle (phase
     # 17), then the KVBM host tier and tenant QoS (phase 18), then the
-    # frontend tier (phase 19), last on the 8B
+    # frontend tier (phase 19), then disaggregation (phase 20), last on
+    # the 8B
     observability_phase(engine, jet_cfg)
     lifecycle_phase(engine, jet_cfg)
     kvbm_qos = kvbm_qos_phase(engine, eager_cfg)
     fronted = frontend_phase(engine, jet_cfg)
+    disagg = disagg_phase(engine, eager_cfg, jet_cfg)
 
     # the new families (phase 13), once the 8B's engines and weights are
     # released
@@ -7296,14 +7847,15 @@ def main(argv=None) -> int:
     # classic engine, the mixed engines, the graph-window engines (bf16
     # and w8a8 weights), the prefix-caching ones (vllm_tpu, trtllm_tpu),
     # the checkpoint engine, the speculating engines, the guided and the
-    # LoRA engines (graph replays included), phase 18's and phase 19's
-    # (the workers behind the frontends); the verify windows and head_dim
+    # LoRA engines (graph replays included), phase 18's, phase 19's (the
+    # workers behind the frontends) and phase 20's (a) (the prefill and
+    # decode roles); the verify windows and head_dim
     # 64 from the speculating engines' variant counts
     launches = dict.fromkeys(ca.LAUNCHES, 0)
     for counts in [phase["launches"] for phase in (
             served, served_mixed[""], served_mixed["_int8"], served_windows,
             prefix, served_w8a8, prefix_trt, ckpt, guided, kvbm_qos,
-            fronted)] + (
+            fronted, disagg)] + (
                 spec["launches"] + lora["launches"]):
         for name, n in counts.items():
             launches[name] += n

@@ -77,6 +77,16 @@ Port of the aggregated-serving core of `dynamo_tpu/engine/engine.py`:
   steps); admission acquires the adapter's slot (a request waits while
   every slot serves live sequences) and the prefix cache keys pages by
   adapter.
+- Disaggregated serving (`disaggregation_mode` "prefill" or "decode"):
+  the prefill role's `prefill_only` runs a whole prompt at its bucket,
+  samples the first token and parks the pages until `export_kv` (host
+  tensors, the TCP plane) or `export_kv_device` (a fresh device gather,
+  the in-process and CUDA IPC planes) hands them over and
+  `release_parked` or the TTL sweep (`expire_parked`) frees them; the
+  decode role's `import_kv` scatters them into its pools in place (the
+  captured graphs keep their addresses) and installs the sequence, whose
+  chain root is the prefill's, so seeded sampling and the grammar state
+  continue exactly (`serving/disagg.py`, `transfer/kv_transfer.py`).
 - Stops (stop ids, model eos unless `ignore_eos`, `max_tokens`,
   `max_seq_len`), aborts, logprobs, OutOfPages deferral at admission and
   preemption by recompute when decode runs out of pages.
@@ -177,7 +187,6 @@ def unported_settings(cfg: EngineConfig) -> List[str]:
         ("data_parallel", cfg.data_parallel > 1),
         ("expert_parallel", cfg.expert_parallel > 1),
         ("sequence_parallel", cfg.sequence_parallel > 1),
-        ("disaggregation_mode", cfg.disaggregation_mode != "agg"),
     ]
     return [name for name, bad in checks if bad]
 
@@ -699,6 +708,12 @@ class Engine:
         self.pending: collections.deque = collections.deque()
         self._aborted: set = set()
         self._inflight: Optional[InflightPrefill] = None
+        # disagg prefill role: request_id -> (pages, n_tokens, parked at)
+        # held for export (guarded_by: _lock)
+        self._parked: Dict[str, tuple] = {}
+        # disagg decode role: events of a window an import drained, handed
+        # out by the next step
+        self._deferred: List[TokenEvent] = []
         self._rng = np.random.default_rng(cfg.seed)  # unseeded chain roots
         # JSON-guided decoding: the vocab byte table (host; its device copy
         # is windows.guide), built at first use
@@ -722,8 +737,10 @@ class Engine:
         without logprobs, plain and JSON-guided: any request may ask for
         response_format json_object), and with speculation the greedy
         verify step and the draft model's step, before serving, on the
-        card; the eager prefills have nothing to compile. Needs an idle
-        engine. `warmup_info` keeps the graphs captured and the seconds
+        card; the eager prefills have nothing to compile. A disagg prefill
+        role captures nothing (it never decodes) and runs one
+        prefill_only; a decode role also runs the import's scatter once.
+        Needs an idle engine. `warmup_info` keeps the graphs captured and the seconds
         outside the captures (the kernel build), which the warmup gauge
         adds to every capture's time."""
         if self.device.type != "cuda":
@@ -735,7 +752,16 @@ class Engine:
         t0 = time.monotonic()
         captured = self.capture_seconds()
         cuda_attention.build()
-        if not self.windows.eager:
+        role = self.cfg.disaggregation_mode
+        if role == "prefill":
+            # the prefill role serves prompts through prefill_only alone
+            # and never decodes: one whole-prompt prefill warms its path
+            # (JAX runs prefill_only at every bucket: its programs compile)
+            self.prefill_only(GenRequest(
+                "__warm_prefill", [1, 2, 3], max_tokens=1, temperature=0.0,
+                ignore_eos=True))
+            self.release_parked("__warm_prefill")
+        elif not self.windows.eager:
             with self._exec_lock, torch.inference_mode():
                 self._ensure_dev_state()
                 self._ensure_guide_table()
@@ -751,6 +777,14 @@ class Engine:
                     self.verify.capture(greedy)
                 if self.draft is not None and self.draft._graph is None:
                     self.draft.capture()
+                if role == "decode":
+                    # the import's in-place scatter, once, onto the trash
+                    # page (JAX compiles its import program here)
+                    zero = torch.zeros_like(self.k_pages[:, :1])
+                    page0 = self._tensor([0], torch.long)
+                    for pool in (self.k_pages, self.v_pages):
+                        pool.transpose(0, 1).index_copy_(
+                            0, page0, zero.transpose(0, 1))
                 torch.cuda.synchronize(self.device)
         wall = time.monotonic() - t0
         self.warmup_info = {
@@ -776,6 +810,13 @@ class Engine:
         if self.draft is not None:
             s += self.draft.capture_s
         return s
+
+    @property
+    def params(self):
+        """The engine's weights (a `models.llama.Llama`), which another
+        Engine takes as `params`: the JAX engine's attribute, so a prefill
+        and a decode role share one set of weights the same way."""
+        return self.model
 
     @property
     def lora_stacks(self):
@@ -891,6 +932,7 @@ class Engine:
                 self._aborted.clear()
                 self._rid_tenant.clear()
             self._pending_win = None  # unread tokens die with their slots
+            self._deferred = []
             inf, self._inflight = self._inflight, None
             if inf is not None:
                 ids.append(inf.req.request_id)
@@ -929,6 +971,11 @@ class Engine:
             self.abort_all()
             for pool in (self.k_pages, self.v_pages):
                 pool.zero_()
+            # parked disagg KV dies with the pools: its pages belong to the
+            # old allocator, and a late release must not free them into
+            # the new one (the JAX engine keeps them: ROADMAP queue 3)
+            with self._lock:
+                self._parked.clear()
             self.allocator = PageAllocator(self.cfg.num_pages)
             if self.prefix_cache is not None:
                 self.prefix_cache = PrefixCache(self.allocator,
@@ -1188,7 +1235,7 @@ class Engine:
     @property
     def has_work(self) -> bool:
         return (bool(self.seqs) or bool(self.pending)
-                or self._inflight is not None)
+                or self._inflight is not None or bool(self._deferred))
 
     # --------------------------------------------------------- scheduling --
 
@@ -1199,11 +1246,7 @@ class Engine:
         followed by one decode window (pipelined under async_scheduling).
         Single consumer: one thread calls step(); add_request and
         abort_request synchronise through _lock."""
-        if self.device.type == "cuda" and cuda_attention._lib is None:
-            # the kernel library's first build takes tens of seconds: not
-            # inside a watched seam
-            with self.watchdog.exempt("kernel_build"):
-                cuda_attention.build()
+        self._ensure_kernels()
         with self._exec_lock, torch.inference_mode():
             # one flight record and one timeline record per step: the
             # segments executed fill their phases, decisions attach as
@@ -1228,7 +1271,8 @@ class Engine:
         # _exec_lock, so no step ever mixes versions
         self.weights.maybe_flip_locked()
         with self.timeline.phase("admit"):
-            events = self._apply_aborts()
+            events = self._deferred + self._apply_aborts()
+            self._deferred = []
         spec = self.verify is not None
         if self._mixed_eligible():
             # with speculation the verify windows ride the mixed step,
@@ -1291,7 +1335,8 @@ class Engine:
         attribute its wall time and KV residency to tenants: `shares`
         (tenant -> work units), else one unit per decode slot and `take`
         (the chunk's tokens this segment) for the inflight prefill; the
-        holdings (KV bytes on the device) from the live holders."""
+        holdings (KV bytes on the device) from the live holders, parked
+        disagg pages included."""
         pb = self._page_nbytes
         holdings: Dict[str, float] = {}
         computed: Dict[str, float] = {}
@@ -1305,6 +1350,9 @@ class Engine:
             if take > 0:
                 computed[t] = computed.get(t, 0.0) + float(take)
             holdings[t] = holdings.get(t, 0.0) + len(inf.pages) * pb
+        for rid, parked in list(self._parked.items()):
+            t = self._rid_tenant.get(rid, "default")
+            holdings[t] = holdings.get(t, 0.0) + len(parked[0]) * pb
         self.cost.account(dur_s, shares if shares is not None else computed,
                           holdings)
         if self.flight.enabled:
@@ -1743,8 +1791,13 @@ class Engine:
             self._finish_slot(slot, reason)
         return ev
 
-    def _prefill_request(self, req: GenRequest) -> TokenEvent:
-        """Bucketed single-prompt prefill + first token."""
+    def _run_prefill(self, req: GenRequest, where: str = "prefill"):
+        """The bucketed single-prompt prefill and its first token, shared
+        by the aggregated admission path and the disagg prefill role (JAX
+        `_run_prefill`). Returns (first, pages, prompt_len, key, lp, t0)
+        with lp = (chosen logprob, top ids, top logprobs), or the
+        integrity abort's TokenEvent when the logits were not finite (the
+        pages already given back)."""
         cfg = self.cfg
         t0 = time.monotonic()
         prompt = req.prompt_token_ids
@@ -1768,16 +1821,24 @@ class Engine:
         if not finite[0]:
             # poisoned stream: its pages go back, the engine keeps serving
             self.allocator.free(pages)
-            return self._integrity_abort(req, "prefill")
+            return self._integrity_abort(req, where)
         dt = time.monotonic() - t0
         self.metrics.prefill_time_s += dt
         self.metrics.observe_phase("prefill", dt)
         self.metrics.prompt_tokens += prompt_len
         self._step_obs("prefill", dt,
                        shares={self._tenant_of(req): float(prompt_len)})
-        return self._finalize_admission(
-            req, pages, prompt_len, int(toks[0]), key,
-            (float(chosen[0]), tids[0], tvals[0]), t_prefill_start=t0)
+        return (int(toks[0]), pages, prompt_len, key,
+                (float(chosen[0]), tids[0], tvals[0]), t0)
+
+    def _prefill_request(self, req: GenRequest) -> TokenEvent:
+        """Bucketed single-prompt prefill + first token."""
+        got = self._run_prefill(req)
+        if isinstance(got, TokenEvent):
+            return got
+        first, pages, prompt_len, key, lp, t0 = got
+        return self._finalize_admission(req, pages, prompt_len, first, key,
+                                        lp, t_prefill_start=t0)
 
     def _start_inflight(self, req: GenRequest, cached_pages=(),
                         n_cached: int = 0) -> None:
@@ -2413,6 +2474,173 @@ class Engine:
             self._adaptive.reset(slot)
         self._free_slots.append(slot)
         self.metrics.num_finished += 1
+
+    # ------------------------------------------------- disaggregation API --
+
+    def _ensure_kernels(self) -> None:
+        """The kernel library's first build takes tens of seconds: never
+        inside a watched seam."""
+        if self.device.type == "cuda" and cuda_attention._lib is None:
+            with self.watchdog.exempt("kernel_build"):
+                cuda_attention.build()
+
+    def prefill_only(self, req: GenRequest):
+        """Prefill-worker role: run the prompt (the whole prompt at its
+        bucket, prefill.cu on the card), sample the first token, and PARK
+        the sequence (no decode slot) until its KV is exported (JAX
+        `prefill_only`; the reference's `--disaggregation-mode prefill`).
+        Returns (first_token, n_prompt_tokens, extras), extras carrying
+        the first token's logprob fields when requested. The KV stays
+        resident until export_kv*/release_parked or the TTL sweep."""
+        if req.adapter and (self.lora is None
+                            or not self.lora.known(req.adapter)):
+            raise ValueError(f"unknown adapter {req.adapter!r} on this "
+                             f"prefill worker")
+        if len(req.prompt_token_ids) >= self.cfg.max_seq_len:
+            raise ValueError("prompt exceeds max_seq_len")
+        n_pages = max(1, -(-len(req.prompt_token_ids) // self.cfg.page_size))
+        if n_pages > self.cfg.num_pages - 1:
+            raise ValueError(
+                f"prompt needs {n_pages} KV pages; pool only has "
+                f"{self.cfg.num_pages - 1}")
+        self._ensure_kernels()
+        with self._exec_lock, torch.inference_mode():
+            got = self._run_prefill(req, where="prefill_only")
+        if isinstance(got, TokenEvent):
+            raise RuntimeError(
+                f"{req.request_id}: prefill logits not finite "
+                f"(integrity fault); nothing parked")
+        first, pages, prompt_len, _, lp, _ = got
+        with self._lock:
+            stale = self._parked.pop(req.request_id, None)
+            self._parked[req.request_id] = (pages, prompt_len,
+                                            time.monotonic())
+        if stale is not None:
+            with self._exec_lock:
+                self.allocator.free(stale[0])
+        extras = {}
+        if req.logprobs is not None:
+            n = min(int(req.logprobs), len(lp[1]))
+            extras = {"logprob": lp[0],
+                      "top_logprobs": [(int(lp[1][i]), float(lp[2][i]))
+                                       for i in range(n)]}
+        return first, prompt_len, extras
+
+    def _gather_parked(self, request_id: str):
+        """A parked sequence's K and V pages as fresh device tensors
+        [L, n_pages, page_size, lanes] (the pools' layout, page-major),
+        gathered on the stream the steps use, under the exec lock."""
+        with self._lock:
+            pages, n_tokens, _ = self._parked[request_id]
+        idx = self._tensor(pages, torch.long)
+        with self._exec_lock, torch.inference_mode():
+            return (self.k_pages.index_select(1, idx),
+                    self.v_pages.index_select(1, idx), n_tokens)
+
+    def export_kv(self, request_id: str):
+        """A parked sequence's KV for the TCP plane: (k, v, n_tokens) as
+        host tensors [L, n_pages, page_size, lanes] (KeyError for an
+        unknown id)."""
+        k, v, n_tokens = self._gather_parked(request_id)
+        return k.cpu(), v.cpu(), n_tokens
+
+    def export_kv_device(self, request_id: str):
+        """Device-resident twin of export_kv: the gathered pages stay on
+        the card, a fresh allocation each (never a view of the pools), so
+        a same-process decode engine scatters them without a host bounce
+        and the cross-process plane can export them over CUDA IPC."""
+        return self._gather_parked(request_id)
+
+    def release_parked(self, request_id: str) -> None:
+        """Free a parked sequence's pages (idempotent). The allocator's
+        books change under the exec lock, as every prefill_only's do."""
+        with self._lock:
+            parked = self._parked.pop(request_id, None)
+        if parked:
+            with self._exec_lock:
+                self.allocator.free(parked[0])
+
+    def expire_parked(self, ttl_s: float = 120.0) -> int:
+        """Free parked sequences never pulled by a decode worker (a
+        crashed peer or a lost ack). Returns the number expired."""
+        cutoff = time.monotonic() - ttl_s
+        with self._lock:
+            stale = [rid for rid, (_, _, ts) in self._parked.items()
+                     if ts < cutoff]
+        for rid in stale:
+            log.warning("expiring parked KV for %s (never pulled)", rid)
+            self.release_parked(rid)
+        return len(stale)
+
+    def import_kv(self, req: GenRequest, first_token: int, k, v):
+        """Decode-worker role: install transferred KV (host or device
+        tensors [L, n_pages, page_size, lanes]) and the first token as a
+        live sequence, which the normal batch loop then decodes. Returns
+        (finished, reason): finished when the first (prefill-sampled)
+        token already ends the request, and then nothing is installed."""
+        n_prompt = len(req.prompt_token_ids)
+        spec = self.kv_spec
+        dtype = str(k.dtype).replace("torch.", "")
+        if k.shape[-1] != spec.lane_width or dtype != spec.dtype:
+            # fail the handshake loudly: a prefill/decode kv_cache_dtype
+            # mismatch must not surface as a shape error in the scatter
+            raise ValueError(
+                f"transferred KV (dtype={dtype}, lanes={k.shape[-1]}) "
+                f"does not match this decode worker's pool "
+                f"(dtype={spec.dtype}, lanes={spec.lane_width}) — prefill "
+                f"and decode roles must use the same --kv-cache-dtype (and, "
+                f"for int8 KV, the same --tensor-parallel: the rows are "
+                f"lane-blocked per TP shard)")
+        if (tuple(k.shape) != tuple(v.shape) or k.shape[0] != spec.num_layers
+                or k.shape[2] != spec.page_size):
+            raise ValueError(
+                f"transferred KV of shape {tuple(k.shape)} / "
+                f"{tuple(v.shape)} does not match this decode worker's "
+                f"pool ({spec.num_layers} layers, page size "
+                f"{spec.page_size}): the roles must serve the same model "
+                f"at the same --page-size")
+        if req.adapter and (self.lora is None
+                            or not self.lora.known(req.adapter)):
+            raise ValueError(f"unknown adapter {req.adapter!r} on this "
+                             f"decode worker")
+        if first_token in self._stop_ids_for(req):
+            return True, "stop"
+        if req.max_tokens <= 1 or n_prompt + 1 >= self.cfg.max_seq_len:
+            return True, "length"
+        self._ensure_kernels()
+        with self._exec_lock, torch.inference_mode():
+            return self._import_kv_locked(req, first_token, k, v, n_prompt)
+
+    def _import_kv_locked(self, req, first_token, k, v, n_prompt):
+        if not self._free_slots:
+            raise OutOfPages("no free decode slot for imported sequence")
+        # resolve (and lazily load) the adapter BEFORE any allocation so an
+        # unknown or slotless adapter leaks no page or slot
+        self._adapter_slot(req)
+        n_pages = k.shape[1]
+        if not self._ensure_pages(n_pages):  # evicts cached pages
+            raise OutOfPages(f"need {n_pages} pages for the imported "
+                             f"sequence, {self.allocator.free_pages} free")
+        # a new slot changes the batch: drain a window in flight first;
+        # its tokens go out with the next step's events
+        self._deferred.extend(self._materialize_pending())
+        pages = self.allocator.alloc(n_pages)
+        idx = self._tensor(pages, torch.long)
+        # in place: the captured decode graphs hold the pools' addresses
+        self.k_pages.transpose(0, 1).index_copy_(
+            0, idx, k.to(self.device).transpose(0, 1))
+        self.v_pages.transpose(0, 1).index_copy_(
+            0, idx, v.to(self.device).transpose(0, 1))
+        slot = self._free_slots.pop()
+        # a seeded request continues the chain the prefill worker started
+        # (the noise is keyed by root and position), so disagg == agg
+        self._install_slot(req, slot, pages, n_prompt, first_token,
+                           self._request_key(req))
+        if self.qos is not None:
+            with self._lock:
+                self._rid_tenant[req.request_id] = self._tenant_of(req)
+        self.metrics.num_requests += 1
+        return False, None
 
     # -------------------------------------------------------- speculation --
 

@@ -1,5 +1,5 @@
 """KVBM manager: the engine-side bridge between the device prefix cache and
-the lower tiers (host RAM, disk).
+the lower tiers (host RAM, disk, peer workers).
 
 The port's copy of `dynamo_tpu/kvbm/manager.py`: the same counters,
 events, spans (`kvbm.offload`, `kvbm.onboard`) and flight notes. `Engine`
@@ -10,8 +10,10 @@ and attaches it to its `PrefixCache`. From then on:
   instead of destroying them; pages the pool can't take fall back to a
   plain free.
 - `PrefixCache.lookup` misses consult `onboard_chain()`: consecutive
-  blocks found in the host tier are restored into the live pools, gated
-  by the roofline restore-vs-recompute check.
+  blocks found in the host tier (or, when the host tier has none of them,
+  in a peer's, through `peer_fetch`: the serving layer's `--kvbm-peers`
+  wiring over `transfer/kv_transfer.fetch_host_blocks`) are restored into
+  the live pools, gated by the roofline restore-vs-recompute check.
 
 On the card (where the JAX manager's `jnp.take` and jitted import become
 copies the port orders itself):
@@ -108,10 +110,11 @@ class KVBM:
         self._copy_stream: Optional[torch.cuda.Stream] = None
         # cluster plane hooks (set by the serving layer):
         # events(kind, [hash bytes], tier) -> None; kinds: stored | demoted
-        # | removed. peer_fetch stays None: the cross-worker pull needs the
-        # transfer plane, which the port has not yet.
+        # | removed. peer_fetch([hash bytes]) -> [(k, v)]: the consecutive
+        # run from the start of host-layout blocks a peer's host tier holds
         self.events: Optional[Callable[[str, List[bytes], str], None]] = None
-        self.peer_fetch = None
+        self.peer_fetch: Optional[Callable[
+            [List[bytes]], List[Tuple[torch.Tensor, torch.Tensor]]]] = None
         self.tracer = None  # set by ServingContext; spans kvbm.offload/onboard
         # integrity sentinel (DYNAMO_TPU_INTEGRITY=full): CRC32 per demoted
         # block, verified at onboard; a mismatch (host-RAM/disk bit flip)
@@ -340,6 +343,9 @@ class KVBM:
                 self.pool.claim(h)
             blocks.append((h, slot, host))
         source = "host"
+        if not blocks and self.peer_fetch is not None:
+            blocks = self._fetch_from_peer(hashes)
+            source = "peer"
         if disk_drops:
             for h in disk_drops:
                 self._crc.pop(h, None)
@@ -385,6 +391,8 @@ class KVBM:
                 self.host_hits_total += 1
                 self.host_hit_blocks_total += len(out)
                 self.onboarded_blocks_total += len(out)
+                if source == "peer":
+                    self.peer_onboarded_blocks_total += len(out)
             self._emit("stored", [h for h, _ in out], "device")
             span.set_attribute("onboarded", len(out))
             self._flight("kvbm_onboard", blocks=len(out), source=source)
@@ -394,6 +402,27 @@ class KVBM:
             raise
         finally:
             span.end()
+
+    def _fetch_from_peer(self, hashes: List[bytes]) -> list:
+        """Cross-worker onboard: the prefix blocks pulled from a peer's
+        host tier over the TCP plane, as (hash, None, (k, v)) host blocks
+        for `_upload`. A failed fetch or a block of another layout means
+        recompute, never a request failure."""
+        try:
+            got = self.peer_fetch(hashes)
+        except Exception as e:
+            log.warning("kvbm peer fetch failed (%s); recomputing", e)
+            return []
+        out = []
+        for h, (kb, vb) in zip(hashes, got):
+            if tuple(kb.shape) != self.block_shape or kb.dtype != self.dtype:
+                log.warning("kvbm peer block layout mismatch "
+                            "(%s/%s vs %s/%s); recomputing",
+                            tuple(kb.shape), kb.dtype, self.block_shape,
+                            self.dtype)
+                return []
+            out.append((h, None, (kb, vb)))
+        return out
 
     # --------------------------------------------------------------- stats --
     def stats(self) -> dict:

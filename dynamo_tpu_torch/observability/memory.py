@@ -25,9 +25,9 @@ counters (the engine's CostLedger read at scrape time), and as the
 The port's counterpart of `dynamo_tpu/observability/memory.py` (it
 imports nothing of the JAX package): the books and series are the JAX
 module's, the KVBM's host and disk tiers included (`host` and `disk`,
-each its held blocks' bytes and its free room), less the parked
-disaggregated pages, which the port does not have; the weight double buffer
-(`elasticity/weights.py`) has its rows in
+each its held blocks' bytes and its free room) and the parked
+disaggregated pages (a prefill role's, claimed for their request's tenant);
+the weight double buffer (`elasticity/weights.py`) has its rows in
 `dynamo_memory_staged_weights_bytes`.
 """
 
@@ -78,7 +78,7 @@ class MemoryAccountant:
     # ------------------------------------------------------------ books ----
     def _page_owners(self):
         """One pass over the engine's holders: page -> (tenant, adapter).
-        First claim wins (slot order, then inflight, cache), so a
+        First claim wins (slot order, then inflight, parked, cache), so a
         cache page shared with a live sequence counts once, for the
         sequence — disjointness is what makes the sums exact."""
         eng = self.engine
@@ -107,6 +107,9 @@ class MemoryAccountant:
             adapter = (getattr(req, "adapter", None) or "base"
                        if req is not None else "base")
             claim(list(getattr(inf, "pages", ()) or ()), tenant, adapter)
+        for rid, parked in list(eng._parked.items()):
+            claim(list(parked[0]), eng._rid_tenant.get(rid, "default"),
+                  "base")
         pc = eng.prefix_cache
         if pc is not None:
             for ns, pages in pc.pages_by_namespace().items():

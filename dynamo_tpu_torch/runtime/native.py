@@ -1,15 +1,18 @@
-"""ctypes binding + on-demand build of the native router core.
+"""ctypes bindings + on-demand builds of the native libraries.
 
-The port's own copy of the router half of `dynamo_tpu/runtime/native.py`:
-`get_router_lib` with `dr_pick` and `dr_hash64` (the transport library
-comes with disaggregation). The shared object is compiled with g++ from
-`runtime/csrc/dynamo_router.cpp` at first use, into
-`build/dynamo_tpu_torch/native/` beside the package, named by a hash of
-the source (pybind11 is not needed: a plain C ABI). A build or load
-failure degrades to `lib = None`; the router then runs its pure-Python
-pick, whose scores are bit-identical. Whether the core loaded is not left
-silent: `router_status()` says so and why, and the frontend puts it in its
-stats and its log.
+The port's own copy of `dynamo_tpu/runtime/native.py`: the transport
+library (`get_lib`: framed sockets with a rendezvous handshake, the
+disaggregated KV handoff's TCP plane and the KVBM's peer pull,
+`transfer/transport.py`) and the router core (`get_router_lib` with
+`dr_pick` and `dr_hash64`). Each shared object is compiled with g++ from
+`runtime/csrc/` at first use, into `build/dynamo_tpu_torch/native/`
+beside the package, named by a hash of its source (pybind11 is not
+needed: a plain C ABI). A build or load failure degrades to `lib = None`;
+the transport then runs its pure-Python sockets (the same wire format)
+and the router its pure-Python pick (bit-identical scores). Whether each
+loaded is not left silent: `transport_status()` and `router_status()` say
+so and why; the worker's `/worker/stats` and the frontend's stats carry
+them.
 """
 
 from __future__ import annotations
@@ -24,10 +27,15 @@ from pathlib import Path
 
 log = logging.getLogger("dynamo_tpu_torch.native")
 
-_ROUTER_SRC = Path(__file__).resolve().parent / "csrc" / "dynamo_router.cpp"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SRC = _CSRC / "dynamo_transport.cpp"
+_ROUTER_SRC = _CSRC / "dynamo_router.cpp"
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "dynamo_tpu_torch" / "native")
 _lock = threading.Lock()
+_lib = None
+_tried = False
+_error = ""
 _router_lib = None
 _router_tried = False
 _router_error = ""
@@ -53,6 +61,60 @@ def _build(src: Path, stem: str) -> Path:
         if tmp.exists():
             tmp.unlink()
     return so_path
+
+
+def build_library() -> str:
+    """Compile (if needed) and return the transport .so path."""
+    return str(_build(_SRC, "dynamo_transport"))
+
+
+def get_lib():
+    """The loaded native transport library, or None if unavailable."""
+    global _lib, _tried, _error
+    with _lock:
+        if _tried:
+            return _lib
+        _tried = True
+        try:
+            path = build_library()
+            lib = ctypes.CDLL(path)
+            lib.dt_listen.argtypes = [ctypes.c_uint16,
+                                      ctypes.POINTER(ctypes.c_uint16)]
+            lib.dt_listen.restype = ctypes.c_int
+            lib.dt_accept.argtypes = [ctypes.c_int, ctypes.c_char_p,
+                                      ctypes.c_int]
+            lib.dt_accept.restype = ctypes.c_int
+            lib.dt_connect.argtypes = [ctypes.c_char_p, ctypes.c_uint16,
+                                       ctypes.c_char_p]
+            lib.dt_connect.restype = ctypes.c_int
+            lib.dt_send_msg.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                        ctypes.c_int64]
+            lib.dt_send_msg.restype = ctypes.c_int
+            lib.dt_recv_len.argtypes = [ctypes.c_int]
+            lib.dt_recv_len.restype = ctypes.c_int64
+            lib.dt_recv_into.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                         ctypes.c_int64]
+            lib.dt_recv_into.restype = ctypes.c_int
+            lib.dt_close.argtypes = [ctypes.c_int]
+            lib.dt_key_len.restype = ctypes.c_int
+            _lib = lib
+            log.info("native transport loaded: %s", path)
+        except Exception as e:
+            _error = f"{type(e).__name__}: {e}"
+            log.warning("native transport unavailable (%s); python fallback",
+                        e)
+            _lib = None
+        return _lib
+
+
+def transport_status() -> dict:
+    """Whether the native transport loaded (building it on first call),
+    and the reason when it did not."""
+    lib = get_lib()
+    out = {"native_transport": lib is not None}
+    if lib is None:
+        out["native_transport_error"] = _error
+    return out
 
 
 def get_router_lib():

@@ -65,8 +65,30 @@ and completion request registers its token chain against the text the
 frontend's router hashes (`register_kv_route`); `kvbm.events` in
 `/worker/stats` counts what it published.
 
-Not ported yet: disaggregation and the KVBM's cross-worker pull (its
-`HostTierSource` needs the transfer plane).
+The KVBM's cross-worker pull is the JAX worker's: every worker with a
+host tier serves it to peers (`transfer/kv_transfer.HostTierSource`, its
+port in `/worker/stats` `kvbm.peer_port` and the heartbeat), and
+`kvbm_peers` (the CLI's `--kvbm-peers host:port,...`) wires the engine's
+`peer_fetch`: a host-tier miss tries each peer before recompute.
+
+Disaggregated serving is the JAX worker's (`disaggregation_mode`):
+- a prefill role serves `POST /disagg/prefill` (the whole prompt, the
+  first token, the KV parked; the TCP plane's bootstrap port in
+  `transfer.kv_transfer.KVSource`), `/disagg/stage` (the CUDA IPC export
+  of a parked request's gathered KV, `DeviceKVSource`, under the `ici`
+  backend; `dynamo_worker_staged_kv_gathers{state}` counts live and
+  leaked stages) and `/disagg/release`; a drain or a watchdog shed
+  refuses `/disagg/prefill` with 503 and keeps stage and release up;
+- a decode role serves `/v1/*` through `serving/disagg.DisaggDecodeClient`
+  over a `PrefillPool` (`prefill_urls`, or the frontend's prefill workers
+  at `frontend_url`), its planes counted in
+  `dynamo_worker_kv_transfers_total{plane}` and `/worker/stats`
+  `transfer_planes`;
+- spans `worker.prefill_only`, `disagg.prefill_rpc`, `disagg.kv_pull` and
+  `disagg.kv_release` join the request's trace; the tracer and the SLO
+  role are named by the mode (`worker-prefill`, `worker-decode`).
+`/worker/stats` says whether the native transport loaded
+(`runtime.native.transport_status`).
 """
 
 from __future__ import annotations
@@ -96,8 +118,10 @@ from dynamo_tpu_torch.observability.timeline import timeline_debug_payload
 from dynamo_tpu_torch.robustness import faults
 from dynamo_tpu_torch.robustness.deadline import Deadline
 from dynamo_tpu_torch.robustness.watchdog import HEALTH_CODES, PROFILER_TAIL_S
+from dynamo_tpu_torch.runtime.native import transport_status
 from dynamo_tpu_torch.serving import protocol as proto
 from dynamo_tpu_torch.serving import recovery
+from dynamo_tpu_torch.serving.disagg import DisaggDecodeClient, PrefillPool
 from dynamo_tpu_torch.serving.engine_service import EngineService
 from dynamo_tpu_torch.serving.http_base import (  # noqa: F401
     JsonHTTPHandler, make_http_server,
@@ -105,6 +129,9 @@ from dynamo_tpu_torch.serving.http_base import (  # noqa: F401
 from dynamo_tpu_torch.serving.metrics import (CallbackCounter,
                                                CallbackCounterVec, Counter,
                                                FrontendMetrics, Gauge)
+from dynamo_tpu_torch.transfer.kv_transfer import (DeviceKVSource,
+                                                   HostTierSource, KVSource,
+                                                   fetch_host_blocks)
 
 log = logging.getLogger("dynamo_tpu_torch.api")
 
@@ -251,7 +278,13 @@ class GenerationHandle:
         if self.req.adapter and ctx.lora_requests_total is not None:
             ctx.lora_requests_total.inc(adapter=self.req.adapter)
             ctx.engine.lora.note_request(self.req.adapter)
-        self.queue = ctx.service.submit(self.req)  # raises ValueError early
+        if ctx.disagg_client is not None:
+            # decode role: prefill remotely, pull the KV, continue here
+            self.queue = ctx.disagg_client.start(self.req,
+                                                 parent_span=self.span,
+                                                 deadline=deadline)
+        else:
+            self.queue = ctx.service.submit(self.req)  # raises ValueError
         ctx.metrics.requests_total.inc(model=ctx.served_model)
         ctx.metrics.isl.observe(len(prompt_ids), model=ctx.served_model)
         self.lp_entries: List[dict] = []
@@ -488,7 +521,8 @@ def _env_reclaim_deadline_s() -> float:
 class ServingContext:
     """Everything the request handlers need, bundled for the handler."""
 
-    def __init__(self, engine: Engine, served_model: str):
+    def __init__(self, engine: Engine, served_model: str,
+                 prefill_urls=None, frontend_url=None, kvbm_peers=None):
         self.engine = engine
         self.service = EngineService(engine)
         self.served_model = served_model
@@ -523,6 +557,7 @@ class ServingContext:
         # the KV event plane's publisher, attached by the worker's NATS
         # wiring (serving/worker.py attach_nats_plane)
         self.kv_event_publisher = None
+        self.kvbm_source = None  # the peer-pull server on the TCP plane
         kvbm = engine.kvbm
         if kvbm is not None:
             for name, help_, attr in (
@@ -554,19 +589,26 @@ class ServingContext:
                 "dynamo_kvbm_host_blocks",
                 "KVBM host-pool occupancy by state", r,
                 labelnames=("state",))
+            self.kvbm_source = HostTierSource(kvbm)
+            log.info("kvbm host tier serving peers on port %d",
+                     self.kvbm_source.port)
+            if kvbm_peers:
+                self._wire_kvbm_peers(kvbm, kvbm_peers)
+        self.staged_kv_gauge = None  # registered with DeviceKVSource below
         self.preempt_gauge = Gauge(
             "dynamo_worker_preempted_sequences",
             "Sequences preempted (recompute) under KV page pressure", r)
         self.start_time = time.time()
         self._trace_lock = threading.Lock()  # one profiler capture at a time
+        mode = engine.cfg.disaggregation_mode or "agg"
         # request spans land in the process-wide ring behind /debug/spans
-        self.tracer = obs_tracing.Tracer("worker-agg")
+        self.tracer = obs_tracing.Tracer(f"worker-{mode}")
         if kvbm is not None:
             # kvbm.offload / kvbm.onboard spans land in this worker's ring
             # buffer (GET /debug/spans) like every other worker span
             kvbm.tracer = self.tracer
         # SLO burn rates from this worker's own latency histograms
-        self.slo = obs_slo.SLOEngine(self.metrics, role="agg")
+        self.slo = obs_slo.SLOEngine(self.metrics, role=mode)
         # the engine's phase, host-gap, occupancy, spec and live MFU/MBU
         # series, and the KV books, device memory and cost counters
         self.engine_bridge = attach_engine_metrics(r, engine)
@@ -625,8 +667,65 @@ class ServingContext:
         # the heartbeat
         self.preemptible = os.environ.get(
             "DYNAMO_TPU_PREEMPTIBLE", "0").lower() not in ("", "0", "false")
+        # disaggregation: the role's planes (the reference's role flags,
+        # examples/deploy/sglang/disagg.yaml:45-52)
+        self.kv_source: Optional[KVSource] = None
+        self.kv_device_source: Optional[DeviceKVSource] = None
+        self.disagg_client = None
+        if mode == "prefill":
+            self.kv_source = KVSource(
+                engine, port=engine.cfg.disaggregation_bootstrap_port)
+            log.info("prefill role: KV bootstrap on port %d",
+                     self.kv_source.port)
+            if engine.cfg.disaggregation_transfer_backend == "ici":
+                # the cross-process leg of the ici plane: stage parked KV
+                # for CUDA IPC pulls (the TCP source stays the fallback)
+                self.kv_device_source = DeviceKVSource(engine)
+                # registered only beside the source: a worker without the
+                # device plane exposes no label-less zero series
+                self.staged_kv_gauge = Gauge(
+                    "dynamo_worker_staged_kv_gathers",
+                    "Device-plane staged KV gathers by state (leaked = "
+                    "expired un-released, still holding device memory)",
+                    r, labelnames=("state",))
+        elif mode == "decode":
+            self.disagg_client = DisaggDecodeClient(
+                self, PrefillPool(prefill_urls, frontend_url))
+
+    def _wire_kvbm_peers(self, kvbm, peers) -> None:
+        """Cross-worker onboard: on a host-tier miss, try each configured
+        peer's host tier over the TCP plane (`fetch_host_blocks`) before
+        falling back to recompute."""
+        parsed = []
+        for p in peers:
+            host, _, port = p.strip().rpartition(":")
+            if host and port.isdigit():
+                parsed.append((host, int(port)))
+        if not parsed:
+            return
+
+        def peer_fetch(hashes):
+            hexes = [h.hex() for h in hashes]
+            for host, port in parsed:
+                try:
+                    got = fetch_host_blocks(host, port, hexes)
+                except (ConnectionError, OSError, TimeoutError) as e:
+                    log.debug("kvbm peer %s:%d unreachable: %s",
+                              host, port, e)
+                    continue
+                if got:
+                    return got
+            return []
+
+        kvbm.peer_fetch = peer_fetch
+        log.info("kvbm cross-worker onboard enabled: %d peer(s)",
+                 len(parsed))
 
     def close(self) -> None:
+        if self.kv_source is not None:
+            self.kv_source.close()
+        if self.kvbm_source is not None:
+            self.kvbm_source.close()
         self.service.close()
 
     def scrape(self, accept: Optional[str]):
@@ -644,6 +743,13 @@ class ServingContext:
             self.kvbm_blocks_gauge.set(pool["used_blocks"], state="used")
             self.kvbm_blocks_gauge.set(pool["capacity_blocks"],
                                        state="capacity")
+        ds = self.kv_device_source
+        if ds is not None:
+            # leaked > 0 flags a decode peer that staged and crashed before
+            # its release (device memory held until /disagg/release)
+            live, leaked = ds.counts()  # one lock and sweep: no double count
+            self.staged_kv_gauge.set(live, state="staged")
+            self.staged_kv_gauge.set(leaked, state="leaked")
         self.slo.refresh_gauges()
         self.engine_bridge.refresh()  # live MFU/MBU + warmup gauges
         self.memory_bridge.refresh()  # KV pool / device / cost books
@@ -731,10 +837,10 @@ class ServingContext:
     # ------------------------------------------------- drain and lifecycle
 
     def begin_drain(self) -> None:
-        """Stop admission NOW: new /v1 requests shed 503 (+ Retry-After)
-        so a retrying client or the frontend's failover lands them on
-        another replica. In-flight requests run until they finish or hand
-        off."""
+        """Stop admission NOW: new /v1 and /disagg/prefill requests shed
+        503 (+ Retry-After) so a retrying client or the frontend's
+        failover lands them on another replica. In-flight requests run
+        until they finish or hand off."""
         self.draining.set()
 
     def _on_watchdog_trip(self, kind: str, seam: str) -> None:
@@ -1085,6 +1191,11 @@ class _Handler(JsonHTTPHandler):
                 # the weight versions and the double buffer's bytes
                 "weights": eng.weights.stats(),
                 "draining": ctx.draining.is_set(),
+                "disaggregation_mode": eng.cfg.disaggregation_mode,
+                # whether the native transport (the TCP KV plane and the
+                # KVBM peer pull) loaded, as the frontend reports its
+                # router core
+                "native": transport_status(),
             }
             if eng.prefix_cache is not None:
                 out["prefix_cache"] = eng.prefix_cache.stats()
@@ -1098,8 +1209,21 @@ class _Handler(JsonHTTPHandler):
                 out["qos"] = eng.qos.stats()
             if eng.kvbm is not None:
                 out["kvbm"] = eng.kvbm.stats()
+                if ctx.kvbm_source is not None:
+                    out["kvbm"]["peer_port"] = ctx.kvbm_source.port
                 if ctx.kv_event_publisher is not None:
                     out["kvbm"]["events"] = ctx.kv_event_publisher.stats()
+            if ctx.disagg_client is not None:
+                # which KV plane requests ACTUALLY used (an ici deployment
+                # that degraded to dcn shows here, not just in a log)
+                out["transfer_planes"] = dict(ctx.disagg_client.plane_counts)
+            if ctx.kv_device_source is not None:
+                # the stage ledger: leaked > 0 means a decode peer staged
+                # and died before pulling or releasing
+                live, leaked = ctx.kv_device_source.counts()
+                out["staged_kv"] = {"live": live, "leaked": leaked}
+            if ctx.kv_source is not None:
+                out["parked_kv"] = len(eng._parked)
             # the exact KV books (the dynamo_memory_* series in one read),
             # the cost rollup and the step timeline's bubble attribution
             try:
@@ -1145,7 +1269,10 @@ class _Handler(JsonHTTPHandler):
     def do_POST(self):
         path = self.path.split("?")[0]
         ctx = self.ctx
-        if ctx.draining.is_set() and path.startswith("/v1/"):
+        # the admission routes; the disagg stage and release routes stay
+        # up: decode peers must still finish in-flight KV pulls here
+        admits = path.startswith(("/v1/", "/disagg/prefill"))
+        if ctx.draining.is_set() and admits:
             # graceful drain: admission is OFF before anything else; a 503
             # here is retry-safe (nothing ran) and the frontend fails it
             # over to another replica
@@ -1153,7 +1280,7 @@ class _Handler(JsonHTTPHandler):
                         "service_unavailable")
             return
         wd = ctx.engine.watchdog
-        if not wd.ok_for_traffic and path.startswith("/v1/"):
+        if not wd.ok_for_traffic and admits:
             # watchdog shed: a suspect, resurrecting or quarantined engine
             # takes no new inference work
             self._error(503, f"engine {wd.health}; retry another replica",
@@ -1167,7 +1294,8 @@ class _Handler(JsonHTTPHandler):
         span = obs_tracing.NOOP_SPAN
         self._deadline = None
         self._tenant = "default"
-        if path in ("/v1/chat/completions", "/v1/completions"):
+        if path in ("/v1/chat/completions", "/v1/completions",
+                    "/disagg/prefill"):
             parent = obs_context.extract_context(self.headers)
             inbound_rid = ((self.headers.get("x-request-id") or "").strip()
                            or None)
@@ -1181,7 +1309,9 @@ class _Handler(JsonHTTPHandler):
             span = ctx.tracer.start_span(
                 "worker.request", parent=parent, kind="server",
                 trace_seed=inbound_rid,
-                attributes={"http.path": path, "worker.mode": "agg",
+                attributes={"http.path": path,
+                            "worker.mode": (ctx.engine.cfg.disaggregation_mode
+                                            or "agg"),
                             "deadline_s": round(self._deadline.budget_s, 3),
                             "model": ctx.served_model,
                             "tenant.id": self._tenant})
@@ -1199,6 +1329,12 @@ class _Handler(JsonHTTPHandler):
                     self._chat(self._read_json_body())
                 elif path == "/v1/completions":
                     self._completion(self._read_json_body())
+                elif path == "/disagg/prefill":
+                    self._disagg_prefill(self._read_json_body())
+                elif path == "/disagg/stage":
+                    self._disagg_stage(self._read_json_body())
+                elif path == "/disagg/release":
+                    self._disagg_release(self._read_json_body())
                 elif path == "/v1/adapters":
                     self._adapters_post(self._read_json_body())
                 elif path == "/internal/faults":
@@ -1256,7 +1392,7 @@ class _Handler(JsonHTTPHandler):
             self._fail(400, str(e))
         except OutOfPages as e:  # transient capacity: client should retry
             self._fail(503, str(e), "service_unavailable")
-        except RuntimeError as e:  # a refused stage: retry later
+        except RuntimeError as e:  # a refused stage, a disagg dependency
             self._fail(503, str(e), "service_unavailable")
         except ValueError as e:  # engine-level rejection (over-length, ...)
             self._fail(400, str(e))
@@ -1277,6 +1413,117 @@ class _Handler(JsonHTTPHandler):
             self._sse_error(msg)
         else:
             self._error(code, msg, etype)
+
+    def _disagg_prefill(self, body):
+        """Prefill-role RPC: run the prompt, park the KV, return the first
+        token and the pull coordinates (the bootstrap port; whether the
+        CUDA IPC plane is open to this peer)."""
+        ctx = self.ctx
+        if ctx.kv_source is None:
+            raise proto.BadRequest(
+                "this worker is not in --disaggregation-mode prefill")
+        rid = body.get("request_id")
+        ids = body.get("prompt_token_ids")
+        if not rid or not isinstance(ids, list) or not ids:
+            raise proto.BadRequest("need request_id and prompt_token_ids")
+        lp = body.get("logprobs")
+        seed = body.get("seed")
+        req = GenRequest(
+            rid, [int(t) for t in ids],
+            temperature=float(body.get("temperature", 0.0)),
+            top_p=float(body.get("top_p", 1.0)),
+            top_k=int(body.get("top_k", 0)),
+            min_p=float(body.get("min_p", 0.0)),
+            logit_bias={int(k): float(v)
+                        for k, v in (body.get("logit_bias") or {}).items()}
+            or None,
+            seed=int(seed) if seed is not None else None,
+            logprobs=int(lp) if lp is not None else None,
+            guided_json=bool(body.get("guided_json", False)),
+            # multi-LoRA: the prefill runs under the adapter the decode
+            # side will attach
+            adapter=body.get("adapter") or None,
+            # per-tenant QoS: the decode role forwards the resolved tenant
+            tenant=body.get("tenant") or None,
+        )
+        if req.tenant:
+            self._tenant = req.tenant
+        else:
+            req.tenant = self._tenant  # header-resolved (x-dynamo-tenant)
+        ctx.metrics.tenant_requests.inc(tenant=self._tenant)
+        self._span.set_attribute("request.id", rid)
+        faults.sleep_point("worker.slow_prefill")
+        if self._deadline is not None and self._deadline.expired:
+            # the stall (queueing, chaos or a slow peer) ate the budget:
+            # shed BEFORE running a prefill nobody will pull
+            raise TimeoutError(
+                "deadline budget exhausted before prefill; request shed")
+        t0 = time.monotonic()
+        with ctx.tracer.start_span(
+                "worker.prefill_only", parent=self._span,
+                attributes={"request.id": rid,
+                            "prompt_tokens": len(ids)}) as pspan:
+            first, n_tokens, extras = ctx.engine.prefill_only(req)
+            eng_ph = ctx.engine.metrics.phases
+            pspan.set_attributes({
+                "engine.prefill.p50_ms":
+                    round(eng_ph["prefill"].quantile_ms(0.5), 3),
+                "engine.prefill.p95_ms":
+                    round(eng_ph["prefill"].quantile_ms(0.95), 3),
+            })
+        ctx.metrics.ttft.observe(
+            time.monotonic() - t0,
+            exemplar=(self._span.trace_id if self._span.recording else None),
+            model=ctx.served_model)
+        ctx.metrics.requests_total.inc(model=ctx.served_model)
+        ctx.metrics.isl.observe(n_tokens, model=ctx.served_model)
+        ds = ctx.kv_device_source
+        self._json(200, {
+            "request_id": rid,
+            "first_token": first,
+            "n_tokens": n_tokens,
+            "bootstrap_port": ctx.kv_source.port,
+            "transfer_backend": ctx.engine.cfg.disaggregation_transfer_backend,
+            # staging itself is lazy (/disagg/stage), so a TCP-pulling peer
+            # never pins a gathered device copy
+            "device_transfer": bool(
+                ds is not None and ds.eligible_for(body.get("device_uuid"))),
+            **extras,
+        })
+
+    def _disagg_stage(self, body):
+        """Stage a parked sequence's KV for a CUDA IPC pull and return its
+        coordinates (called by an ici decode peer just before it pulls)."""
+        ctx = self.ctx
+        if ctx.kv_device_source is None:
+            raise proto.BadRequest(
+                "this worker does not serve device-buffer KV transfer")
+        rid = body.get("request_id")
+        if not rid:
+            raise proto.BadRequest("need request_id")
+        try:
+            staged = ctx.kv_device_source.stage(rid)
+        except KeyError:
+            raise proto.BadRequest(f"unknown request {rid!r}")
+        if staged is None:
+            raise proto.BadRequest("device-buffer staging unavailable")
+        self._json(200, {"request_id": rid, **staged})
+
+    def _disagg_release(self, body):
+        """The decode side's ack after a device pull: free the parked
+        pages and forget the stage (the TCP plane acks in-stream; the TTL
+        sweep covers peers that die between pull and release)."""
+        ctx = self.ctx
+        if ctx.kv_source is None:
+            raise proto.BadRequest(
+                "this worker is not in --disaggregation-mode prefill")
+        rid = body.get("request_id")
+        if not rid:
+            raise proto.BadRequest("need request_id")
+        ctx.engine.release_parked(rid)
+        if ctx.kv_device_source is not None:
+            ctx.kv_device_source.mark_released(rid)
+        self._json(200, {"request_id": rid, "released": True})
 
     def _adapters_post(self, body):
         """Runtime adapter management (POST /v1/adapters):

@@ -75,6 +75,21 @@ class EngineService:
         self.engine.abort_request(request_id)
         self._wake.set()
 
+    def attach(self, request_id: str) -> "queue.Queue[TokenEvent]":
+        """An event queue for a request that enters the engine by a side
+        door (the disagg decode role's KV import) instead of submit()."""
+        q: "queue.Queue[TokenEvent]" = queue.Queue()
+        with self._lock:
+            self._queues[request_id] = q
+        return q
+
+    def detach(self, request_id: str) -> None:
+        with self._lock:
+            self._queues.pop(request_id, None)
+
+    def wake(self) -> None:
+        self._wake.set()
+
     def nudge_all(self) -> None:
         """Push a no-op event to every open stream queue. A wedged engine
         emits nothing, so handlers blocked in drain() would never see a

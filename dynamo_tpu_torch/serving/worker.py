@@ -1,13 +1,35 @@
-"""Engine-worker process entrypoint: one aggregated OpenAI worker on one GPU,
-specialised per backend profile.
+"""Engine-worker process entrypoint: one OpenAI worker on one GPU, in the
+aggregated, prefill or decode role, specialised per backend profile.
 
-Port of `dynamo_tpu/serving/worker.py` for the aggregated role. The CLI is
-the JAX worker's (`EngineConfig.add_cli_args`, `--host`, `--port`,
-`--frontend-url`, `--heartbeat-interval`) plus `--device` (the card unless
-`--device cpu`). Engine fields the port does not serve are refused by the
-engine with NotImplementedError naming them, and so are the worker flags
-it does not serve (`--prefill-url`, `--kvbm-peers`, `--coordinator`,
-`--num-processes`, `--process-id`: `unported_flags`).
+Port of `dynamo_tpu/serving/worker.py`. The CLI is the JAX worker's
+(`EngineConfig.add_cli_args`, `--host`, `--port`, `--frontend-url`,
+`--heartbeat-interval`, `--prefill-url`, `--kvbm-peers`) plus `--device`
+(the card unless `--device cpu`). Engine fields the port does not serve
+are refused by the engine with NotImplementedError naming them, and so
+are the worker flags it does not serve (the multi-host gang's
+`--coordinator`, `--num-processes`, `--process-id`: `unported_flags`).
+
+Disaggregated serving (`--disaggregation-mode prefill|decode`,
+`--disaggregation-transfer-backend ici|dcn`,
+`--disaggregation-bootstrap-port`): a prefill worker serves
+`/disagg/prefill`, `/disagg/stage` and `/disagg/release`, registers its
+engine in `transfer.ici_registry` under its URLs (a decode role in the
+same process then hands KV over on the card), and registers with the
+frontend under its mode, which the frontend never routes user traffic
+to; a decode worker finds prefill workers by `--prefill-url` (comma
+separated) or from the frontend's `/internal/workers`:
+
+    python -m dynamo_tpu_torch.jetstream --model llama-3.1-8b-instruct \
+        --disaggregation-mode prefill --port 8001 \
+        --frontend-url http://127.0.0.1:8080
+    python -m dynamo_tpu_torch.jetstream --model llama-3.1-8b-instruct \
+        --disaggregation-mode decode --port 8002 \
+        --frontend-url http://127.0.0.1:8080 \
+        [--prefill-url http://127.0.0.1:8001]
+
+`--kvbm-peers host:port,...` lets a worker with a KVBM host tier onboard
+prefix blocks from its peers' host tiers (each peer's port is its
+`/worker/stats` `kvbm.peer_port`, also in its heartbeat).
 
 With `--nats-url` the worker also serves the NATS request plane
 (`serving/nats_plane.WorkerNatsPlane`: its own subject and its model's
@@ -55,8 +77,8 @@ tier behind the prefix cache (`--kvbm-host-blocks N`, `--kvbm-gate
 auto|always|never`, `--kvbm-disk-dir DIR`, `--kvbm-disk-blocks N`: pinned
 host arenas on the card) and per-tenant QoS (`--tenants JSON` or
 `DYNAMO_TPU_TENANTS`, `--qos-burst-tokens`) reach the engine as in the
-JAX worker; the KVBM's cross-worker pull (`--kvbm-peers`) stays
-refused. `--warmup` (on
+JAX worker, the KVBM's cross-worker pull (`--kvbm-peers`) too.
+`--warmup` (on
 by default) builds the kernels and captures the greedy decode graphs
 before the server starts. Every worker serves the JAX worker's
 observability plane (`serving/api.py`): `/metrics`, `/debug` and its
@@ -91,6 +113,7 @@ from dynamo_tpu_torch.engine.engine import Engine
 from dynamo_tpu_torch.kvbm.events import KVEventPublisher
 from dynamo_tpu_torch.serving.api import ServingContext, make_server
 from dynamo_tpu_torch.serving.nats_plane import WorkerNatsPlane
+from dynamo_tpu_torch.transfer import ici_registry
 
 log = logging.getLogger("dynamo_tpu_torch.worker")
 
@@ -118,10 +141,8 @@ BACKEND_PROFILES = {
 }
 
 
-# the JAX worker's flags for roles and planes the port does not serve yet
-# (disaggregation, the KVBM's cross-worker pull, multi-host)
-UNPORTED_FLAGS = ("prefill_url", "kvbm_peers", "coordinator",
-                  "num_processes", "process_id")
+# the JAX worker's flags the port does not serve yet (the multi-host gang)
+UNPORTED_FLAGS = ("coordinator", "num_processes", "process_id")
 
 
 def unported_flags(args) -> List[str]:
@@ -140,9 +161,7 @@ def _self_url(host: str, port: int) -> str:
 
 
 def heartbeat_payload(ctx: ServingContext, self_url: str) -> dict:
-    """One heartbeat's body: the JAX worker's keys. Of the KVBM's it sends
-    `kvbm_host_blocks`; `kvbm_peer_port` comes with the peer pull, which
-    the port does not serve."""
+    """One heartbeat's body: the JAX worker's keys."""
     eng = ctx.engine
     stats = {
         "active_seqs": eng.num_active,
@@ -157,8 +176,9 @@ def heartbeat_payload(ctx: ServingContext, self_url: str) -> dict:
         # the router skips suspect/resurrecting/quarantined workers
         "health": eng.watchdog.summary(),
     }
-    if eng.kvbm is not None:
+    if ctx.kvbm_source is not None:
         stats["kvbm_host_blocks"] = eng.cfg.kvbm_host_blocks
+        stats["kvbm_peer_port"] = ctx.kvbm_source.port
     if eng.lora is not None:
         # resident adapters drive the router's affinity pass
         stats["adapters"] = sorted(eng.lora.resident())
@@ -266,9 +286,15 @@ def build_parser(backend_name: str) -> argparse.ArgumentParser:
                    help="NATS server URL: serve requests over the NATS "
                         "request plane in addition to HTTP, and publish "
                         "KV events there")
-    # the JAX worker's flags the port refuses (unported_flags)
-    p.add_argument("--prefill-url", default=os.environ.get("PREFILL_URL"))
-    p.add_argument("--kvbm-peers", default=os.environ.get("KVBM_PEERS"))
+    p.add_argument("--prefill-url", default=os.environ.get("PREFILL_URL"),
+                   help="comma-separated prefill worker URLs (decode role)")
+    p.add_argument("--kvbm-peers", default=os.environ.get("KVBM_PEERS"),
+                   help="comma-separated host:port peers whose KVBM host "
+                        "tiers this worker may onboard prefix blocks from "
+                        "(ports from the peers' /worker/stats "
+                        "kvbm.peer_port)")
+    # the JAX worker's multi-host flags, which the port refuses
+    # (unported_flags)
     p.add_argument("--coordinator", default=None)
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
@@ -297,10 +323,22 @@ def main(argv=None, backend_name: str = "jetstream") -> None:
         log.info("building the kernels and capturing the decode graphs "
                  "before serving")
         engine.warmup()
-    ctx = ServingContext(engine, cfg.served_name)
+    ctx = ServingContext(
+        engine, cfg.served_name,
+        prefill_urls=(args.prefill_url.split(",") if args.prefill_url
+                      else None),
+        frontend_url=args.frontend_url,
+        kvbm_peers=(args.kvbm_peers.split(",") if args.kvbm_peers
+                    else None))
     srv = make_server(ctx, args.host, args.port)
     port = srv.server_address[1]
     self_url = _self_url(args.host, port)
+    if cfg.disaggregation_mode == "prefill":
+        # a decode role in this process resolves this engine under either
+        # URL for the on-card handoff (transfer.ici_registry); harmless
+        # otherwise
+        for url in (self_url, f"http://127.0.0.1:{port}"):
+            ici_registry.register(url, engine)
     nats_plane = None
     if args.nats_url:
         nats_plane = attach_nats_plane(ctx, args.nats_url,

@@ -1995,6 +1995,11 @@ def test_device_hang_trips_the_watchdog_while_ready_answers(dev):
         assert eng.watchdog.health == "healthy"
         assert get("/ready")[0] == 200
         t.join(timeout=30)
+        # the worker's scheduler thread steps the engine whenever it has
+        # work: stop it before this thread drives the engine, or it takes
+        # some of the steps and their tokens
+        srv.shutdown()
+        ctx.close()
         ca.reset_launch_counts()
         assert _greedy_tokens(eng, "post") == ref
         assert ca.LAUNCHES["decode"] > 0
@@ -2187,3 +2192,102 @@ def test_onboarded_pages_give_the_chunk_the_same_bits(dev, int8):
     assert n == n_cached * ps
     assert eng.kvbm.stats()["onboarded_blocks_total"] == n_cached
     assert torch.equal(chunk(onboarded), ref)
+
+
+# ---------------------------------------------------- disaggregation --
+
+def _disagg_engine(mode="agg", params=None, **kw):
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import Engine
+
+    return Engine(EngineConfig(**{
+        **dict(model="tiny-debug", page_size=16, num_pages=64,
+               max_num_seqs=4, max_seq_len=512, enable_prefix_caching=False,
+               prefill_chunk_tokens=0, num_scheduler_steps=4,
+               async_scheduling=False, disaggregation_mode=mode), **kw}),
+        params=params)
+
+
+@pytest.mark.parametrize("kv_cache_dtype", ["auto", "int8"])
+def test_cuda_ipc_pull_across_processes_equals_the_gather(dev,
+                                                          kv_cache_dtype):
+    """A parked request's KV staged over CUDA IPC (`DeviceKVSource`) and
+    opened in a child process (`DeviceKVClient.pull`) holds the parent's
+    gather byte for byte (the child hashes what it mapped)."""
+    import hashlib
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from dynamo_tpu_torch.engine.request import GenRequest
+    from dynamo_tpu_torch.transfer.kv_transfer import DeviceKVSource
+
+    script = r'''
+import hashlib, json, sys
+import torch
+from dynamo_tpu_torch.transfer.kv_transfer import DeviceKVClient
+staged = json.loads(sys.stdin.read())
+k, v = DeviceKVClient(torch.device("cuda")).pull(staged)
+torch.cuda.synchronize()
+print(json.dumps({n: hashlib.sha256(t.contiguous().view(torch.uint8)
+                                    .cpu().numpy().tobytes()).hexdigest()
+                  for n, t in (("k", k), ("v", v))}))
+'''
+    eng = _disagg_engine("prefill", kv_cache_dtype=kv_cache_dtype)
+    prompt = np.random.default_rng(3).integers(1, 500, 70).tolist()
+    eng.prefill_only(GenRequest("ipc", prompt, max_tokens=4))
+    src = DeviceKVSource(eng)
+    assert src.eligible and src.eligible_for(src.uuid)
+    staged = src.stage("ipc")
+    assert staged["kv_shape"][1] == 5  # 70 tokens on 16-token pages
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", script], cwd=root,
+                         input=json.dumps(staged), capture_output=True,
+                         text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=root))
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+    assert lines, out.stderr[-3000:]
+    k, v, _ = eng.export_kv_device("ipc")
+    want = {n: hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                              .tobytes()).hexdigest()
+            for n, t in (("k", k), ("v", v))}
+    assert json.loads(lines[-1]) == want
+    src.mark_released("ipc")
+    eng.release_parked("ipc")
+    assert src.counts() == (0, 0)
+    assert eng.allocator.free_pages == eng.cfg.num_pages - 1
+
+
+def test_import_into_captured_windows_gives_the_aggregated_tokens(dev):
+    """A decode role whose greedy graphs were captured before any import:
+    the imported pages, scattered into its pools in place, are what the
+    replayed windows read, so its streams equal an aggregated graph
+    engine's token for token, with no new capture and the pools where
+    they were."""
+    from dynamo_tpu_torch.engine.request import GenRequest
+    from dynamo_tpu_torch.transfer.kv_transfer import ICIHandoff
+
+    agg = _disagg_engine()
+    pre = _disagg_engine("prefill", params=agg.model)
+    dec = _disagg_engine("decode", params=agg.model)
+    for e in (pre, dec, agg):
+        e.warmup()
+    pools = (dec.k_pages.data_ptr(), dec.v_pages.data_ptr())
+    graphs = dec.windows.stats()["graphs"]
+    rng = np.random.default_rng(11)
+    for i, n in enumerate((5, 40, 130)):
+        prompt = rng.integers(1, 500, n).tolist()
+        kw = dict(max_tokens=17, ignore_eos=True)
+        want = agg.generate(GenRequest(f"a{i}", prompt, **kw))
+        req = GenRequest(f"d{i}", prompt, **kw)
+        first = pre.prefill_only(req)[0]
+        ICIHandoff(pre, dec).transfer(req, first)
+        got = [first]
+        while dec.has_work:
+            got += [ev.token_id for ev in dec.step() if ev.token_id >= 0]
+        assert got == want, i
+    st = dec.windows.stats()
+    assert st["graphs"] == graphs == 4 and st["replays"] > 0
+    assert (dec.k_pages.data_ptr(), dec.v_pages.data_ptr()) == pools
+    assert pre.allocator.free_pages == pre.cfg.num_pages - 1

@@ -235,8 +235,7 @@ def test_port_server_refuses_with_400(port_server, body):
 
 
 STILL_REFUSED = {"tensor_parallel": 2, "data_parallel": 2,
-                 "expert_parallel": 2, "sequence_parallel": 2,
-                 "disaggregation_mode": "prefill"}
+                 "expert_parallel": 2, "sequence_parallel": 2}
 
 
 @pytest.mark.parametrize("field,value", [
@@ -250,9 +249,10 @@ STILL_REFUSED = {"tensor_parallel": 2, "data_parallel": 2,
 ])
 def test_unported_settings_are_refused(field, value):
     """The settings still unported raise NotImplementedError naming the
-    field; `kvbm_host_blocks` and `tenants`, refused until the KVBM and
-    QoS were ported, now build an engine, and beside a still-unported
-    setting only that one is named."""
+    field; `kvbm_host_blocks`, `tenants` and `disaggregation_mode`,
+    refused until the KVBM, QoS and the disagg roles were ported, now
+    build an engine, and beside a still-unported setting only that one is
+    named."""
     cfg = EngineConfig(**dict(BASE, **{field: value}))
     if field in STILL_REFUSED:
         with pytest.raises(NotImplementedError, match=field):

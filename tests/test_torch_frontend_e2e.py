@@ -193,13 +193,19 @@ def run_script(pkg, front_mod, fctx, furl, slots, ctxs, plane_faults):
     # admission: one request held at the worker (a read stall) fills the
     # frontend's in-flight bound of 1; the next is shed with 429
     fctx.max_inflight = 1
+    # the frontend releases a request's in-flight count after its response
+    # is written, so the last request may still count: wait until none
+    # does, or the held request would be the one shed
+    wait_for(lambda: fctx._inflight == 0, what=f"{pkg}: an idle frontend")
     plane_faults.configure({"worker.read_stall": {"times": 1,
                                                   "delay_s": 2.0}})
     held = {}
     t = threading.Thread(target=lambda: held.update(r=post(chat, dict(
         body, messages=conversation(0)))), daemon=True)
     t.start()
-    wait_for(lambda: fctx._inflight == 1, what=f"{pkg}: a held request")
+    # held: admitted by the frontend and stalled at the worker
+    wait_for(lambda: fctx._inflight == 1 and plane_faults.snapshot()[
+        "fired"].get("worker.read_stall") == 1, what=f"{pkg}: a held request")
     out["codes"]["over_inflight"] = post(chat, dict(
         body, messages=conversation(1)))[0]
     t.join(timeout=60)
@@ -376,7 +382,7 @@ def test_worker_cli_serves_the_nats_plane_and_publishes_kv_events():
 def test_heartbeat_payload_carries_what_the_router_reads(monkeypatch):
     """The port's heartbeat carries the JAX heartbeat's fields that the
     router and the frontend read: load and pages (headroom), the KVBM's
-    host blocks, the batch pool's `preemptible`, health, weight version,
+    host blocks and peer port, the batch pool's `preemptible`, health, weight version,
     costs and the timeline; a router fed it computes the headroom."""
     monkeypatch.setenv("DYNAMO_TPU_PREEMPTIBLE", "1")
     eng = Engine(EngineConfig(**dict(KW, kvbm_host_blocks=8,
@@ -389,6 +395,8 @@ def test_heartbeat_payload_carries_what_the_router_reads(monkeypatch):
                 "weight_version", "costs", "timeline",
                 "health"} <= set(beat["stats"])
         assert beat["stats"]["kvbm_host_blocks"] == 8
+        # the KVBM's peer pull: where peers fetch this host tier
+        assert beat["stats"]["kvbm_peer_port"] == ctx.kvbm_source.port
         r = frontend.Router()
         r.register(beat["url"], beat["model"], beat["mode"], beat["stats"])
         (w,) = r.alive()

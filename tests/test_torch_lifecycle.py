@@ -743,12 +743,17 @@ def test_hung_dispatch_handoff_resume_and_resurrection(params):
 
 def test_unported_worker_flags_are_refused_by_name():
     # --nats-url is served (the frontend tier's request and KV event
-    # planes): tests/test_torch_frontend_e2e.py runs it
-    for flag, value in (("--prefill-url", "http://p:1"),
-                        ("--kvbm-peers", "h:1"), ("--coordinator", "h:2"),
+    # planes): tests/test_torch_frontend_e2e.py runs it; --prefill-url and
+    # --kvbm-peers are served (the disagg decode role and the KVBM's peer
+    # pull: tests/test_torch_disagg*.py)
+    for flag, value in (("--coordinator", "h:2"),
                         ("--num-processes", "2"), ("--process-id", "1")):
         with pytest.raises(NotImplementedError, match=flag):
             tworker.main(["--device", "cpu", flag, value])
+    args = tworker.build_parser("jetstream").parse_args(
+        ["--prefill-url", "http://p:1", "--kvbm-peers", "h:1",
+         "--coordinator", "h:2"])
+    assert tworker.unported_flags(args) == ["--coordinator"]
 
 
 class _FakeFrontend(http.server.BaseHTTPRequestHandler):

@@ -73,7 +73,7 @@ def test_trtllm_tpu_always_warms_up(tmp_path, monkeypatch, caplog, flag):
         def warmup(self):
             seen["warmed"] = True
 
-    def stop(*_):
+    def stop(*_, **__):
         raise _Stop
 
     monkeypatch.setattr(worker, "Engine", StubEngine)
@@ -100,7 +100,7 @@ def test_other_profiles_keep_warmup_off_when_asked(tmp_path, monkeypatch):
         def warmup(self):
             seen["warmed"] = True
 
-    def stop(*_):
+    def stop(*_, **__):
         raise _Stop
 
     monkeypatch.setattr(worker, "Engine", StubEngine)

@@ -10,6 +10,10 @@ counts once per package:
     def test_router_cases(pkg, case, request, tier_fixtures):
         run(request, tier_fixtures, "test_router", pkg, case)
 
+A JAX test parametrised by one `pytest.mark.parametrize` becomes one case
+per parameter set, named `test_x[id]` (its ids, else the values joined by
+"-"), whose values `run` passes as arguments.
+
 The fixtures a JAX test module defines are built here, module-scoped ones
 once per package and module (kept in `tier_fixtures` and finalized with
 it), function-scoped ones per case; pytest's own (`monkeypatch`) come from
@@ -68,14 +72,39 @@ def load(name: str, pkg: str) -> types.ModuleType:
     return _MODULES[key]
 
 
+def _parametrized(fn) -> dict:
+    """A test function's parameter sets by id: {id: {argname: value}}, or
+    {} when it has no parametrize mark."""
+    marks = getattr(fn, "pytestmark", [])
+    marks = [m for m in (marks if isinstance(marks, list) else [marks])
+             if m.name == "parametrize"]
+    if not marks:
+        return {}
+    argnames, argvalues = marks[0].args[:2]
+    names = ([a.strip() for a in argnames.split(",")]
+             if isinstance(argnames, str) else list(argnames))
+    ids = marks[0].kwargs.get("ids")
+    out = {}
+    for i, vals in enumerate(argvalues):
+        vals = vals if len(names) > 1 else (vals,)
+        pid = ids[i] if ids else "-".join(str(v) for v in vals)
+        out[pid] = dict(zip(names, vals))
+    return out
+
+
 def cases(name: str, only=None) -> list:
     """pytest params (pkg, test name) for every test function of
-    `tests/<name>.py` (those `only` accepts), the JAX package's run first,
-    each package's in file order (module-scoped fixtures carry state from
-    case to case, as in the JAX file)."""
-    names = [n for n, fn in vars(load(name, "dynamo_tpu")).items()
-             if n.startswith("test_") and inspect.isfunction(fn)
-             and (only is None or only(n))]
+    `tests/<name>.py` (those `only` accepts; a parametrised one once per
+    parameter set, `test_x[id]`), the JAX package's run first, each
+    package's in file order (module-scoped fixtures carry state from case
+    to case, as in the JAX file)."""
+    names = []
+    for n, fn in vars(load(name, "dynamo_tpu")).items():
+        if not (n.startswith("test_") and inspect.isfunction(fn)
+                and (only is None or only(n))):
+            continue
+        sets = _parametrized(fn)
+        names += [f"{n}[{pid}]" for pid in sets] if sets else [n]
     return [pytest.param(pkg, n, id=f"{pkg}-{n}") for pkg in PKGS
             for n in names]
 
@@ -127,7 +156,9 @@ def _value(request, cache, mod, pkg, name):
 def run(request, cache: FixtureCache, name: str, pkg: str,
         case: str) -> None:
     mod = load(name, pkg)
-    fn = getattr(mod, case)
+    fname, _, pid = case.partition("[")
+    fn = getattr(mod, fname)
     _skip_marks(mod, fn)
-    fn(**{a: _value(request, cache, mod, pkg, a)
+    given = _parametrized(fn)[pid[:-1]] if pid else {}
+    fn(**{a: given[a] if a in given else _value(request, cache, mod, pkg, a)
           for a in inspect.signature(fn).parameters})
