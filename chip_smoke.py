@@ -25,6 +25,9 @@
     python3 chip_smoke.py --kvbm-qos          # phases 1-2 and 18
     python3 chip_smoke.py --frontend          # phases 1-2 and 19
     python3 chip_smoke.py --disagg            # phases 1-2 and 20
+    python3 chip_smoke.py --fleet             # phases 1-2 and 21
+    python3 chip_smoke.py --moe [full]        # phases 1-2, phase 13's MoE
+                                              # models (full: every layer)
 
 (`--kernels-only`, `--window-profile` and the `--mla-*` options time the
 package beside the script, so a copy of it in an older checkout compares
@@ -259,7 +262,8 @@ on failure:
    traffic (gemma-7b-it on bf16 and int8 pools, qwen2.5 on bf16 pools),
    so that every kernel and pool kind launches at head_dim 256 and every
    kernel at group 7. Then, once those are released, the two
-   mixture-of-experts models at full width and depth (MOE_MODELS):
+   mixture-of-experts models at full width, cut in depth to pay for phase
+   21 (MOE_MODELS: 12 of qwen3-30b-a3b's 48 layers, 8 of Mixtral's 32):
    qwen3-30b-a3b (128 experts, top 8, q/k norms, GQA group 8) with random
    bf16 weights from seed 0, and mixtral-8x7b-instruct-v0.1 (8 experts,
    top 2) with w8a8 weights drawn as int8 on the card by the engine's
@@ -569,7 +573,49 @@ on failure:
    both ways, the streams equal or a near-tie apart. The line prints the
    native transport's status (it fails unless loaded), the peak device
    memory of this process and of the child, the launches and the seconds.
-21. A `kernels` JSON line (launches summed over the served phases, graph
+21. The fleet's control plane (`fleet_phase`), last on the 8B's weights
+   (as the loader draws them; the mixed engines freed first). (a) The
+   port's SLA profiler, `python -m dynamo_tpu_torch.profiler` for the 8B
+   on `h100-sxm-1` at FL_SLA, which the 8B meets there: its Estimate
+   (tp 1, the batch, TTFT and ITL). (b) tests/fake_k8s.FakeK8s with a
+   DGDR whose template (`fl_template`) holds a frontend and one jetstream
+   worker of the 8B (FL_PAGES pages, prefix caching and a KVBM host tier
+   of FL_HOST_BLOCKS blocks, one tenant); the port's Controller renders
+   and applies the DGD (the profiler's decision: `--tp 1`,
+   `--max-num-seqs`, `limits.gpu`) and materializes it; the Deployments
+   must run the port's modules on one `nvidia.com/gpu` (request = limit)
+   with the tenants and host-tier env. A kubelet of one
+   (tests/fake_kubelet.py) spawns each container's command, args and env
+   as a child process (POD_IP 127.0.0.1; the worker binds 8000 as in its
+   pod, the frontend another port that the worker's FRONTEND_URL is
+   rewritten to) and puts the Pods in the fake store; the worker serves
+   the 8B at full width and depth from the loader's seed-0 draw. (c)
+   FL_CHAT_CHARS' four greedy streamed chats of FL_TOKENS through the
+   spawned frontend, one at a time, then the same to an engine of this
+   process built from the container's args and env by the worker's own
+   parser (`fl_engine_config`) on the same weights: each stream's tokens
+   and logprobs must equal the reference's or first differ at a near-tie;
+   the worker's /worker/stats must show the max_num_seqs, host blocks and
+   tenant the operator wrote; the served TTFT and ITL beside the
+   roofline's estimate at the served point (tp 1, the batch, the prompt)
+   and (a)'s, with their ratios: the ITL's within FL_ITL_RATIO, the
+   TTFT's within FL_TTFT_RATIO (the window's wait the formula lacks). (d) The DGD's decode pool autoscales
+   (planner v2, FL_STREAMS_PER_REPLICA streams a replica) from the live
+   frontend's /metrics and history: `Controller.planner_tick` under
+   FL_BURST concurrent streams must raise the Deployment's replicas to
+   FL_BURST / FL_STREAMS_PER_REPLICA, ticks after the burst must lower
+   them to 1, marking the worker's Pod as the drain victim, whose
+   /internal/drain must reach the worker. (e) The worker's
+   `kernel_launches` (/worker/stats) over (c) and (d), less its counts
+   once it registered (its warmup's and captures'), must count
+   prefill.cu, chunk.cu and decode.cu. Then the roofline's factors for the card (`fl_factors`,
+   profiler/roofline.py): a FL_PREFILL_TOKENS-token whole prefill's FLOPs
+   over its time, the bytes of a one-slot graph-window step over its time,
+   FL_WIDE slots' FLOPs over their step, and the served ITL less the
+   worker's one-slot step, beside the factors in the code. (f) The
+   phase's seconds and the peak device memory of this process and of
+   the worker.
+22. A `kernels` JSON line (launches summed over the served phases, graph
    replays included; the verify windows, at decode_q = 5 with and without
    a chunk, decode at head_dim 64, the kernels at head_dim 256, at group
    7 and at group 8 counted as rows of their own: the head_dim 256 rows
@@ -580,7 +626,9 @@ on failure:
    the served gemma-2-9b-it phase's windowed launches (`kernel[window]`),
    the Phi-3 rows from the served Phi-3 phase's launches at head_dim 96
    (`kernel[head_dim=96]`, the longrope runs included); phases 18's,
-   19's and 20's launches included in the 8B's rows;
+   19's, 20's and 21's launches (21's worker's counted in its process
+   from its registration)
+   included in the 8B's rows;
    `ms` and `library_ms` device times,
    `call_ms` and `library_call_ms` call times, as phase 3 measures them;
    `device_kernels`, the device kernels of the row's source that serve
@@ -3732,9 +3780,11 @@ FAMILY_ROWS = (
 # Phase 13's mixture-of-experts models, after the families: (model, its
 # weights' quantization, whether a mixed engine serves it and its
 # prompt's TTFT is taken with the capacity path off and on)
+# (model, weights, mixed, layers served: the depth cut that pays for
+# phase 21; `--moe full` serves every layer)
 MOE_MODELS = (
-    ("qwen3-30b-a3b", "none", True),
-    ("mixtral-8x7b-instruct-v0.1", "w8a8", False),
+    ("qwen3-30b-a3b", "none", True, 12),
+    ("mixtral-8x7b-instruct-v0.1", "w8a8", False, 8),
 )
 MOE_CAPACITY = 1.25
 
@@ -3844,7 +3894,7 @@ def capacity_ttft(engine: Engine, eager_cfg: dict) -> dict:
     cfg = dict(eager_cfg, model=engine.cfg.model, prefill_chunk_tokens=0,
                quantization=engine.cfg.quantization)
     engines = {cf: Engine(EngineConfig(**cfg, moe_capacity_factor=cf),
-                          params=engine.model)
+                          model_cfg=engine.model_cfg, params=engine.model)
                for cf in (0.0, MOE_CAPACITY)}
     prompt = [1 + i % 200 for i in range(600)]
     times = {cf: [] for cf in engines}
@@ -3911,13 +3961,17 @@ def capacity_prefill_identical(engine: Engine, prompt) -> dict:
 
 
 def moe_phase(model: str, quantization: str, mixed: bool, eager_cfg: dict,
-              jet_cfg: dict) -> dict:
-    """Phase 13 for one mixture-of-experts model (see the module doc): ->
-    {"launches", "variants", "peak_gib"} as family_phase."""
+              jet_cfg: dict, layers=None) -> dict:
+    """Phase 13 for one mixture-of-experts model (see the module doc) at
+    `layers` of its layers (None: all): -> {"launches", "variants",
+    "peak_gib", "seconds"} as family_phase."""
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.monotonic()
+    t0 = t_phase = time.monotonic()
     base = dict(eager_cfg, model=model, quantization=quantization)
-    engine = Engine(EngineConfig(**base))
+    model_cfg = ModelConfig.from_model_name(model, dtype="bfloat16")
+    if layers:
+        model_cfg = dataclasses.replace(model_cfg, num_layers=layers)
+    engine = Engine(EngineConfig(**base), model_cfg=model_cfg)
     torch.cuda.synchronize()
     cfg = engine.model_cfg
     weight_bytes = quant.param_bytes(engine.model)
@@ -3937,7 +3991,7 @@ def moe_phase(model: str, quantization: str, mixed: bool, eager_cfg: dict,
     served = []
     jet = Engine(EngineConfig(**dict(jet_cfg, model=model,
                                      quantization=quantization)),
-                 params=engine.model)
+                 model_cfg=model_cfg, params=engine.model)
     t0 = time.monotonic()
     jet.warmup()
     emit({"phase": "warmup", "engine": f"jetstream {model}",
@@ -3960,7 +4014,7 @@ def moe_phase(model: str, quantization: str, mixed: bool, eager_cfg: dict,
     release()
     if mixed:
         eng = Engine(EngineConfig(**base, mixed_batch_tokens=CHUNK),
-                     params=engine.model)
+                     model_cfg=model_cfg, params=engine.model)
         row = mixed_serve_checks(eng)
         emit({"phase": "moe_serve_mixed", "model": model, **row})
         served.append(row)
@@ -3972,9 +4026,21 @@ def moe_phase(model: str, quantization: str, mixed: bool, eager_cfg: dict,
         release()
     del engine
     release()
-    return {"launches": [r["launches"] for r in served],
-            "variants": [r["variants"] for r in served],
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    out = {"launches": [r["launches"] for r in served],
+           "variants": [r["variants"] for r in served],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "seconds": time.monotonic() - t_phase}
+    emit({"phase": "moe_done", "model": model,
+          "layers": model_cfg.num_layers, "seconds": out["seconds"]})
+    return out
+
+
+def moe_only(eager_cfg: dict, jet_cfg: dict, full: bool) -> None:
+    """Phase 13's mixture-of-experts models alone, at MOE_MODELS' layers
+    or (full) at all of them: the depth cut's seconds."""
+    for model, q, mixed, layers in MOE_MODELS:
+        moe_phase(model, q, mixed, eager_cfg, jet_cfg,
+                  None if full else layers)
 
 
 def mla_phase(eager_cfg: dict, jet_cfg: dict) -> dict:
@@ -7544,6 +7610,543 @@ def disagg_phase(engine: Engine, eager_cfg: dict, jet_cfg: dict) -> dict:
     return {"launches": launches}
 
 
+# ------------------------------------------------------------- phase 21 --
+
+FL_NS, FL_DGD = "fleet", "fleet"
+FL_SYSTEM = "h100-sxm-1"
+# the SLA the profiler sizes the worker for (the 8B on one card meets it)
+FL_SLA = {"isl": 2048, "osl": 256, "ttft": 1000, "itl": 50}
+FL_PAGES, FL_HOST_BLOCKS = 1024, 64
+FL_TENANTS = [{"name": "fleet", "weight": 1, "apiKeys": ["sk-fleet"]}]
+FL_AUTH = {"Authorization": "Bearer sk-fleet"}
+# the chats' user messages (bytes: tokens), under and over the 256-token
+# chunk, so that prefill.cu and chunk.cu both serve them
+FL_CHAT_CHARS, FL_TOKENS = (120, 600, 200, 900), 32
+FL_BURST, FL_BURST_TOKENS = 8, 128
+FL_STREAMS_PER_REPLICA, FL_MAX_REPLICAS = 2, 4
+# the factors' measurements: a whole prompt's prefill, and graph-window
+# decode steps at 1 slot and at FL_WIDE slots
+FL_PREFILL_TOKENS, FL_WIDE, FL_WINDOWS = 1920, 256, 12
+# the served streams' medians over the roofline's estimate at one live
+# stream. ITL: the factors come from this path, so within the JAX
+# profiler's factor-2 accuracy band. TTFT: the formula has no term for
+# the first token's wait on its decode window nor for a chunked prefill
+# (ROADMAP queue 3), so it runs an order of magnitude low (12.81 on an
+# H100 80GB HBM3 at 700 W); the band holds that gap, and a change that
+# moves it out of the band fails here until the queue's item is updated
+FL_ITL_RATIO, FL_TTFT_RATIO = (0.5, 2.0), (4.0, 40.0)
+
+
+def fl_template(fe_url: str) -> dict:
+    """The DGD the DGDR renders: the frontend and one jetstream worker of
+    the 8B (a small pool, prefix caching with the KVBM's host tier, one
+    tenant), its decode pool autoscaled from the frontend's metrics."""
+    from dynamo_tpu_torch.operator import materialize as mat
+
+    return {
+        "apiVersion": mat.API_VERSION, "kind": mat.DGD_KIND,
+        "metadata": {"name": FL_DGD},
+        "spec": {"services": {
+            "Frontend": {"componentType": "frontend", "replicas": 1,
+                         "tenants": FL_TENANTS},
+            "DecodeWorker": {
+                "componentType": "worker", "replicas": 1,
+                "tenants": FL_TENANTS, "kvbmHostBlocks": FL_HOST_BLOCKS,
+                "drainSeconds": 5,
+                "extraPodSpec": {"mainContainer": {
+                    "command": ["python3", "-m",
+                                "dynamo_tpu_torch.jetstream"],
+                    "args": ["--model", MODEL, "--page-size", str(PS),
+                             "--num-pages", str(FL_PAGES),
+                             "--max-seq-len", str(MAX_SEQ_LEN),
+                             "--prefill-chunk-tokens", str(CHUNK),
+                             "--enable-prefix-caching"]}},
+                "autoscaling": {
+                    "enabled": True, "role": "decode",
+                    "minReplicas": 1, "maxReplicas": FL_MAX_REPLICAS,
+                    "targetUtilization": 1.0, "expectedOsl": FL_TOKENS,
+                    "scaleDownDelaySeconds": 5,
+                    "forecastHorizonSeconds": 10,
+                    "metricsUrl": fe_url + "/metrics",
+                    "historyUrl": fe_url + "/debug/slo?history=1",
+                    # demand in streams: FL_STREAMS_PER_REPLICA a replica
+                    # (the forecast's token rate never binds)
+                    "pool": {"tokensPerSPerReplica": 1e6,
+                             "maxStreamsPerReplica": FL_STREAMS_PER_REPLICA},
+                },
+            },
+        }},
+    }
+
+
+def fl_stream(url: str, body: dict) -> dict:
+    """A greedy streamed chat with logprobs: each token's (text, logprob),
+    its top-2 logprobs, TTFT and mean ITL on the client's clock (every
+    token's event: the byte tokenizer decodes most of the random weights'
+    tokens to nothing), and the usage."""
+    req = urllib.request.Request(
+        url + "/v1/chat/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **FL_AUTH})
+    t0 = time.monotonic()
+    stamps, lps, tops, usage = [], [], [], None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for t, ev in fe_events(iter(lambda: r.read1(65536), b""), t0):
+            usage = ev.get("usage") or usage
+            choice = (ev.get("choices") or [{}])[0]
+            for e in (choice.get("logprobs") or {}).get("content") or ():
+                stamps.append(t)
+                lps.append([e["token"], e["logprob"]])
+                tops.append([a["logprob"] for a in e["top_logprobs"]])
+    gaps = [b - a for a, b in zip(stamps, stamps[1:])]
+    return {"lps": lps, "tops": tops, "usage": usage,
+            "ttft_ms": 1e3 * stamps[0] if stamps else None,
+            "itl_ms": 1e3 * statistics.mean(gaps) if gaps else None}
+
+
+def fl_body(chars: int, max_tokens: int, i: int) -> dict:
+    rng = np.random.default_rng(4000 + i)
+    words = [f"{i}:"]
+    while sum(len(w) + 1 for w in words) < chars:
+        words.append(FE_WORDS[rng.integers(len(FE_WORDS))])
+    return dict(COMMON, messages=[{"role": "user", "content": " ".join(
+        words)}], max_tokens=max_tokens, stream=True, logprobs=True,
+                top_logprobs=2, stream_options={"include_usage": True})
+
+
+def fl_difference(got: dict, ref: dict):
+    """None when `got` streamed `ref`'s tokens with `ref`'s logprobs; else
+    where it first differs, the reference's top-2 gap there, and whether
+    that is a near-tie (equal lengths, a gap under NEAR_TIE)."""
+    a, b = got["lps"], ref["lps"]
+    if a == b:
+        return None
+    i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+             min(len(a), len(b)))
+    top = ref["tops"][i] if i < len(ref["tops"]) else []
+    gap = top[0] - top[1] if len(top) > 1 else float("inf")
+    return {"index": i, "lengths": [len(a), len(b)], "top2_gap": gap,
+            "near_tie": len(a) == len(b) and gap < NEAR_TIE}
+
+
+def fl_engine_config(container: dict) -> EngineConfig:
+    """The EngineConfig the worker container's command builds: its args
+    through the worker's own parser, its env in place (the parser reads
+    the DYNAMO_TPU_* defaults)."""
+    env = {e["name"]: str(e["value"]) for e in container.get("env") or []
+           if "value" in e}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        args = build_parser("jetstream").parse_args(container["args"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return EngineConfig.from_cli_args(args)
+
+
+def fl_window_ms(engine: Engine, slots: int, prompt_len: int = 32) -> float:
+    """ms per decode step of `engine`'s graph windows with `slots` live
+    sequences after `prompt_len`-token prompts: FL_WINDOWS engine steps
+    timed on the host clock, the card synchronized at both ends."""
+    k = engine.cfg.num_scheduler_steps
+    for i in range(slots):
+        engine.add_request(GenRequest(
+            f"fl-win-{i}", [1 + (i + j) % 200 for j in range(prompt_len)],
+            max_tokens=(FL_WINDOWS + 3) * k, temperature=0.0,
+            ignore_eos=True))
+    while engine.pending:
+        engine.step()
+    engine.step()
+    steps0 = engine.metrics.decode_steps
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(FL_WINDOWS):
+        engine.step()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    steps = engine.metrics.decode_steps - steps0
+    while engine.has_work:
+        engine.step()
+    if steps != FL_WINDOWS * k:
+        raise AssertionError(f"phase 21: {steps} decode steps in "
+                             f"{FL_WINDOWS} windows of {k}")
+    return wall / steps * 1e3
+
+
+def fl_factors(engine: Engine, jet_cfg: dict, served_itl_ms: float) -> dict:
+    """The roofline's factors for the card, from this run (see
+    profiler/roofline.py): the whole-prompt prefill's FLOPs over its time
+    (MFU_PREFILL), the weights' and context's bytes over a one-slot
+    graph-window step (HBM_EFF), FL_WIDE slots' FLOPs over their step
+    (MFU_DECODE), and the served streams' ITL (one live stream, as the
+    one-slot step) less that step (DISPATCH_OVERHEAD_S)."""
+    from dynamo_tpu_torch.profiler import roofline
+
+    cfg = engine.model_cfg
+    p_total = roofline.param_count(cfg)
+    p_active = roofline.active_param_count(cfg)
+    kvb = roofline.kv_bytes_per_token(cfg)
+    out = {}
+    one = Engine(EngineConfig(**dict(jet_cfg, max_num_seqs=1)),
+                 params=engine.model)
+    one.warmup()
+    prompt = [1 + i % 200 for i in range(FL_PREFILL_TOKENS)]
+    with torch.inference_mode():
+        ttft_alone(one, prompt)
+        prefill_s = ttft_alone(one, prompt) / 1e3
+        one_ms = fl_window_ms(one, 1)
+    l, nh, hd, n = cfg.num_layers, cfg.num_heads, cfg.head_dim, len(prompt)
+    flops = 2.0 * p_active * n + 4.0 * l * nh * hd * n * n
+    out["prefill"] = {"tokens": n, "seconds": prefill_s, "flops": flops}
+    out["mfu_prefill"] = flops / (prefill_s * BF16_FLOPS_PER_S)
+    ctx = 32 + 1.5 * FL_WINDOWS * one.cfg.num_scheduler_steps
+    nbytes = p_total * roofline.BYTES + kvb * ctx
+    out["decode_1"] = {"ms_per_step": one_ms, "bytes": nbytes}
+    out["hbm_eff"] = nbytes / (one_ms / 1e3 * HBM_BYTES_PER_S)
+    del one
+    release()
+    # pages for every slot's whole run, so that no window shortens
+    wide = Engine(EngineConfig(**dict(jet_cfg, max_num_seqs=FL_WIDE,
+                                      num_pages=FL_WIDE * 10 + 16)),
+                  params=engine.model)
+    wide.warmup()
+    with torch.inference_mode():
+        wide_ms = fl_window_ms(wide, FL_WIDE)
+    out["decode_wide"] = {"slots": FL_WIDE, "ms_per_step": wide_ms}
+    out["mfu_decode"] = (2.0 * p_active * FL_WIDE
+                         / (wide_ms / 1e3 * BF16_FLOPS_PER_S))
+    del wide
+    release()
+    out["served_itl_ms"] = served_itl_ms
+    out["dispatch_s"] = (served_itl_ms - one_ms) / 1e3
+    out["in_code"] = dataclasses.asdict(roofline.CARD_FACTORS)
+    return out
+
+
+def fl_profiler(errors: list) -> dict:
+    """(a): the port's profiler CLI on the SLA."""
+    cmd = [sys.executable, "-m", "dynamo_tpu_torch.profiler", "--model",
+           MODEL, "--system", FL_SYSTEM, "--json"] + [
+               x for k, v in FL_SLA.items() for x in (f"--{k}", str(v))]
+    done = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), capture_output=True, text=True, timeout=300)
+    if done.returncode:
+        raise AssertionError(f"phase 21: the profiler failed: "
+                             f"{done.stderr[-2000:]}")
+    out = json.loads(done.stdout)
+    best = out["best"]
+    if not best or not best["meets_sla"] or best["tp"] != 1:
+        errors.append(f"(a) the profiler found no tp=1 point meeting "
+                      f"{FL_SLA}: {best}")
+    return out
+
+
+def fl_materialized(fake, ctrl, fe_url: str, errors: list) -> tuple:
+    """(b): the DGDR through the controller -> (the frontend's and the
+    worker's Deployments, the decision)."""
+    from dynamo_tpu_torch.operator import materialize as mat
+    from dynamo_tpu_torch.profiler.configurator import ANNOTATION
+
+    fake.put_object("v1", FL_NS, "configmaps", {
+        "apiVersion": "v1", "kind": "ConfigMap",
+        "metadata": {"name": "fleet-template"},
+        "data": {"dgd.yaml": json.dumps(fl_template(fe_url))}})
+    fake.put_object(mat.API_VERSION, FL_NS, mat.DGDR_PLURAL, {
+        "apiVersion": mat.API_VERSION, "kind": mat.DGDR_KIND,
+        "metadata": {"name": "fleet-request"},
+        "spec": {"model": MODEL, "backend": "jetstream", "autoApply": True,
+                 "profilingConfig": {
+                     "config": {"configMapRef": {"name": "fleet-template",
+                                                 "key": "dgd.yaml"}},
+                     "sla": FL_SLA, "tpuSystem": FL_SYSTEM}}})
+    ctrl.reconcile_once()  # DGDR -> DGD
+    ctrl.reconcile_once()  # DGD -> children
+    req = fake.get_object(mat.API_VERSION, FL_NS, mat.DGDR_PLURAL,
+                          "fleet-request")
+    dgd = fake.get_object(mat.API_VERSION, FL_NS, mat.DGD_PLURAL, FL_DGD)
+    if (req.get("status") or {}).get("state") != "successful" or not dgd:
+        raise AssertionError(f"phase 21: the DGDR: {req.get('status')}")
+    decision = json.loads(dgd["metadata"]["annotations"][ANNOTATION])
+    deps = {n: fake.get_object("apps/v1", FL_NS, "deployments",
+                               f"{FL_DGD}-{n}")
+            for n in ("frontend", "decodeworker")}
+    fe_c, w_c = (deps[n]["spec"]["template"]["spec"]["containers"][0]
+                 for n in ("frontend", "decodeworker"))
+    env = {e["name"]: e.get("value") for e in w_c["env"]}
+    checks = {
+        "frontend_command": fe_c["command"] == [
+            "python3", "-m", "dynamo_tpu_torch.frontend"],
+        "worker_command": w_c["command"] == [
+            "python3", "-m", "dynamo_tpu_torch.jetstream"],
+        "gpu_limit": w_c["resources"]["limits"] == {"nvidia.com/gpu": "1"},
+        "gpu_request": w_c["resources"]["requests"] == {
+            "nvidia.com/gpu": "1"},
+        "tp": w_c["args"][w_c["args"].index("--tp") + 1] == "1",
+        "max_num_seqs": w_c["args"][w_c["args"].index(
+            "--max-num-seqs") + 1] == str(decision["max_num_seqs"]),
+        "tenants_env": json.loads(env.get("DYNAMO_TPU_TENANTS") or "[]")[
+            0]["name"] == "fleet",
+        "kvbm_env": env.get("DYNAMO_TPU_KVBM_HOST_BLOCKS") == str(
+            FL_HOST_BLOCKS),
+        "no_gang": "hostsPerReplica" not in dgd["spec"]["services"][
+            "DecodeWorker"],
+    }
+    if not all(checks.values()):
+        errors.append(f"(b) the materialized Deployments: {checks}")
+    return deps, decision, checks
+
+
+def fl_burst(ctrl, fake, fe_url: str, worker_url: str,
+             errors: list) -> dict:
+    """(d): the planner from the live frontend's metrics: up under a
+    burst, down after it, the victim's pre-drain at the worker."""
+    from dynamo_tpu_torch.operator.controller import DRAIN_VICTIM_ANNOTATION
+    from dynamo_tpu_torch.planner.signals import parse_metrics_text
+
+    def replicas():
+        ctrl.reconcile_once()
+        return fake.get_object("apps/v1", FL_NS, "deployments",
+                               f"{FL_DGD}-decodeworker")["spec"]["replicas"]
+
+    def inflight():
+        return parse_metrics_text(scrape(fe_url))["inflight"]
+
+    out = {"before": replicas()}
+    runs = [None] * FL_BURST
+
+    def one(i):
+        runs[i] = fl_stream(fe_url, fl_body(120, FL_BURST_TOKENS, 100 + i))
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(FL_BURST)]
+    for t in threads:
+        t.start()
+    lc_wait(lambda: inflight() >= FL_BURST, 60,
+            "phase 21: the burst in flight at the frontend")
+    out["inflight_at_tick"] = inflight()
+    out["changed_up"] = ctrl.planner_tick(now=1000.0)
+    out["during"] = replicas()
+    for t in threads:
+        t.join(timeout=300)
+    out["burst_itl_ms"] = statistics.median(r["itl_ms"] for r in runs)
+    out["burst_ttft_ms"] = statistics.median(r["ttft_ms"] for r in runs)
+    out["burst_isl"] = int(statistics.median(
+        r["usage"]["prompt_tokens"] for r in runs))
+    lc_wait(lambda: inflight() == 0, 60, "phase 21: the burst's end")
+    ctrl.planner_tick(now=1010.0)  # arms the scale-down delay
+    steps = []
+    for i in range(FL_MAX_REPLICAS):
+        steps.append(ctrl.planner_tick(now=1020.0 + 10 * i))
+    out["after"] = replicas()
+    pod = fake.get_object("v1", FL_NS, "pods", f"{FL_DGD}-decodeworker-0")
+    out["victim_marked"] = ((pod["metadata"].get("annotations") or {})
+                            .get(DRAIN_VICTIM_ANNOTATION) == "true")
+    out["worker_draining"] = fe_get(worker_url + "/worker/stats")["draining"]
+    out["decisions"] = [
+        {k: d[k] for k in ("t", "from_replicas", "to_replicas", "reason",
+                           "inflight")}
+        for d in ctrl.planner_debug_payload()["pools"][
+            f"{FL_NS}/{FL_DGD}"]["decisions"]]
+    want_up = -(-FL_BURST // FL_STREAMS_PER_REPLICA)
+    if not (out["before"] == 1 and out["during"] == min(
+            want_up, FL_MAX_REPLICAS) and out["after"] == 1
+            and out["victim_marked"] and out["worker_draining"]):
+        errors.append(f"(d) the planner: {out}")
+    return out
+
+
+def fleet_phase(engine: Engine, jet_cfg: dict) -> dict:
+    """Phase 21 (see the module doc) on the 8B's weights -> {"launches"}:
+    this process's reference engine's launches over its served chats and
+    the materialized worker's own over its served chats and the burst
+    (its /worker/stats, less its counts once it registered), each counted
+    from zero."""
+    from dynamo_tpu_torch.operator import materialize as mat
+    from dynamo_tpu_torch.operator.controller import Controller
+    from dynamo_tpu_torch.operator.k8s_client import K8sClient
+    from dynamo_tpu_torch.profiler import roofline
+    from dynamo_tpu_torch.profiler.systems import get_system
+    # the test doubles, by path (a `tests` package elsewhere on the path
+    # may shadow the checkout's)
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    from fake_k8s import FakeK8s
+    from fake_kubelet import run_pod
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    errors, out, closers, pods, launches = [], {}, [], [], {}
+    ref = ref_ctx = None
+    out["profiler"] = fl_profiler(errors)
+    emit({"phase": "fleet_profiler", "estimate": out["profiler"]["best"],
+          "sla": out["profiler"]["sla"], "system": FL_SYSTEM})
+    fe_port = fe_free_port()
+    fe_url = f"http://127.0.0.1:{fe_port}"
+    worker_url = f"http://127.0.0.1:{mat.WORKER_PORT}"
+    fake = FakeK8s().__enter__()
+    closers.append(lambda: fake.__exit__(None, None, None))
+    try:
+        ctrl = Controller(K8sClient(fake.url), namespace=None)
+        deps, decision, out["materialized"] = fl_materialized(
+            fake, ctrl, fe_url, errors)
+        out["decision"] = decision
+        # the kubelet of one: the Service's DNS name to the frontend's port
+        # here; the worker binds 8000 on the pod's IP, as in its pod
+        services = {f"http://{FL_DGD}-frontend:{mat.FRONTEND_PORT}": fe_url}
+        pods.append(run_pod(fake, deps["frontend"], cwd=here,
+                            services=services,
+                            env={"DYNAMO_PORT": str(fe_port)}))
+        pods.append(run_pod(fake, deps["decodeworker"], cwd=here,
+                            services=services))
+        # this process's reference: the same engine config on the same
+        # draw, served alike
+        w_c = deps["decodeworker"]["spec"]["template"]["spec"][
+            "containers"][0]
+        ref = Engine(fl_engine_config(w_c), params=engine.model)
+        t0 = time.monotonic()
+        ref.warmup()
+        out["reference_warmup_s"] = time.monotonic() - t0
+        ref_ctx = ServingContext(ref, MODEL)
+        ref_url = dg_serve(ref_ctx, closers)
+        t0 = time.monotonic()
+
+        def registered() -> bool:
+            if not all(p.alive() for p in pods):
+                return True
+            try:
+                return len(fe_get(fe_url + "/internal/workers")[
+                    "workers"]) == 1
+            except OSError:
+                return False
+
+        lc_wait(registered, 300,
+                "phase 21: the materialized worker registered")
+        if not all(p.alive() for p in pods):
+            raise AssertionError(f"phase 21: a pod exited: "
+                                 f"{[p.tail() for p in pods]}")
+        out["worker_ready_after_reference_s"] = time.monotonic() - t0
+        # the worker's counts before the served run: its warmup and graph
+        # captures launched these, no served request
+        child0 = fe_get(worker_url + "/worker/stats")["kernel_launches"]
+        # (c) the chats: through the frontend to the worker, then the same
+        # to the reference, one at a time
+        ca.reset_launch_counts()
+        bodies = [fl_body(c, FL_TOKENS, i)
+                  for i, c in enumerate(FL_CHAT_CHARS)]
+        served = [fl_stream(fe_url, b) for b in bodies]
+        refs = [fl_stream(ref_url, b) for b in bodies]
+        launches = dict(ca.LAUNCHES)
+        diffs = [fl_difference(g, r) for g, r in zip(served, refs)]
+        out["differences"] = diffs
+        out["equal"] = sum(d is None for d in diffs)
+        if any(len(s["lps"]) != FL_TOKENS for s in served) or any(
+                d is not None and not d["near_tie"] for d in diffs):
+            errors.append(f"(c) the worker's streams against this "
+                          f"process's engine: {diffs}")
+        stats = fe_get(worker_url + "/worker/stats")
+        out["worker_stats"] = {
+            "max_num_seqs": stats["max_num_seqs"],
+            "kvbm_capacity_blocks": stats["kvbm"]["host_pool"][
+                "capacity_blocks"],
+            "qos_tenants": sorted(stats["qos"]["tokens_total"]),
+            "decode_graphs": stats["decode_graphs"]}
+        if (stats["max_num_seqs"] != decision["max_num_seqs"]
+                or out["worker_stats"]["kvbm_capacity_blocks"]
+                != FL_HOST_BLOCKS
+                or "fleet" not in out["worker_stats"]["qos_tenants"]):
+            errors.append(f"(c) the operator's settings at the engine: "
+                          f"{out['worker_stats']}")
+        cfg = engine.model_cfg
+        isl = statistics.median(s["usage"]["prompt_tokens"]
+                                for s in served)
+        ttft = statistics.median(s["ttft_ms"] for s in served)
+        itl = statistics.median(s["itl_ms"] for s in served)
+        # the estimate at the served point: one live stream (the KV it
+        # reads), and the engine's max_num_seqs (the sweep's batch)
+        ests = {b: roofline.estimate(cfg, get_system(FL_SYSTEM), 1, b,
+                                     int(isl), FL_TOKENS)
+                for b in (1, decision["max_num_seqs"])}
+        est = ests[1]
+        out["served"] = {
+            "prompt_tokens_median": isl, "ttft_ms": ttft, "itl_ms": itl,
+            "ttft_ms_each": [s["ttft_ms"] for s in served],
+            "itl_ms_each": [s["itl_ms"] for s in served],
+            "reference_ttft_ms": statistics.median(r["ttft_ms"]
+                                                   for r in refs),
+            "reference_itl_ms": statistics.median(r["itl_ms"] for r in refs),
+            "estimate_at_served_point": {
+                str(b): {"isl": int(isl), "ttft_ms": e.ttft_s * 1e3,
+                         "itl_ms": e.itl_s * 1e3} for b, e in ests.items()},
+            "ttft_ratio": ttft / (est.ttft_s * 1e3),
+            "itl_ratio": itl / (est.itl_s * 1e3),
+            "sla_estimate": out["profiler"]["best"]}
+        emit({"phase": "fleet_served", **out["served"],
+              "equal": out["equal"], "differences": diffs,
+              "worker_stats": out["worker_stats"]})
+        for key, (lo, hi) in (("itl_ratio", FL_ITL_RATIO),
+                              ("ttft_ratio", FL_TTFT_RATIO)):
+            if not lo <= out["served"][key] <= hi:
+                errors.append(f"(c) served over estimated {key} "
+                              f"{out['served'][key]:.3f} outside "
+                              f"[{lo}, {hi}]")
+        # (d) the planner, then (e) the worker's own launches
+        out["planner"] = fl_burst(ctrl, fake, fe_url, worker_url, errors)
+        burst = roofline.estimate(cfg, get_system(FL_SYSTEM), 1, FL_BURST,
+                                  out["planner"].pop("burst_isl"),
+                                  FL_BURST_TOKENS)
+        out["planner"]["burst_estimate_itl_ms"] = burst.itl_s * 1e3
+        out["planner"]["burst_itl_ratio"] = (out["planner"]["burst_itl_ms"]
+                                             / (burst.itl_s * 1e3))
+        stats = fe_get(worker_url + "/worker/stats")
+        child = {k: n - child0.get(k, 0)
+                 for k, n in stats["kernel_launches"].items()}
+        out["worker_launches"] = child
+        out["worker_launches_before_serving"] = child0
+        out["worker_peak_gib"] = max(
+            [d["peak_bytes_in_use"] for d in stats["memory"]["devices"]]
+            or [0]) / 2**30
+        missing = [k for k in ("prefill", "decode", "chunk")
+                   if child.get(k, 0) <= 0]
+        if missing:
+            errors.append(f"(e) kernels the worker never launched: "
+                          f"{missing} ({child})")
+        launches = {k: n + child.get(k, 0) for k, n in launches.items()}
+        out["reference_launches"] = {k: launches[k] - child.get(k, 0)
+                                     for k in launches}
+        with torch.inference_mode():
+            out["factors"] = fl_factors(engine, jet_cfg, itl)
+        emit({"phase": "fleet_factors", **out["factors"],
+              "card": card_line()})
+        for p in pods:
+            if not p.alive():
+                errors.append(f"{p.name} exited: {p.tail()}")
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        for close in reversed(closers):
+            try:
+                close()
+            except Exception as e:
+                errors.append(f"teardown: {type(e).__name__}: {e}")
+        tails = {p.name: p.tail(600) for p in pods}
+        for p in pods:
+            p.stop(timeout=20)
+        if errors:
+            out["pod_log_tails"] = tails
+        ref = ref_ctx = None
+        release()
+    out.update(launches=launches, seconds=time.monotonic() - t_phase,
+               card=card_line())
+    emit({"phase": "fleet", "model": MODEL, **{
+        k: v for k, v in out.items() if k not in ("profiler", "served",
+                                                  "factors")}})
+    if errors:
+        raise AssertionError(f"phase 21: {errors}")
+    return {"launches": launches}
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if args not in ([], ["--kernels-only"], ["--mla-chunked-ttft"],
@@ -7551,14 +8154,16 @@ def main(argv=None) -> int:
                     ["--window-profile"], ["--observability"],
                     ["--trace-stress"], ["--gemma"], ["--phi3"],
                     ["--profile-lead"], ["--lifecycle"],
-                    ["--kvbm-qos"], ["--frontend"], ["--disagg"]) and not (
+                    ["--kvbm-qos"], ["--frontend"], ["--disagg"],
+                    ["--fleet"], ["--moe"], ["--moe", "full"]) and not (
                         len(args) == 2 and args[0] == "--mla-prefill-profile"
                         and args[1].isdigit()):
         print("usage: chip_smoke.py [--kernels-only | --mla-chunked-ttft | "
               "--mla-verify-profile | --mla-prefill-profile [N] | "
               "--window-profile | --observability | --trace-stress | "
               "--gemma | --phi3 | --profile-lead | --lifecycle | "
-              "--kvbm-qos | --frontend | --disagg]",
+              "--kvbm-qos | --frontend | --disagg | --fleet | "
+              "--moe [full]]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -7626,6 +8231,12 @@ def main(argv=None) -> int:
         return 0
     if args == ["--disagg"]:
         disagg_phase(Engine(EngineConfig(**eager_cfg)), eager_cfg, jet_cfg)
+        return 0
+    if args == ["--fleet"]:
+        fleet_phase(Engine(EngineConfig(**eager_cfg)), jet_cfg)
+        return 0
+    if args[:1] == ["--moe"]:
+        moe_only(eager_cfg, jet_cfg, full=args[1:] == ["full"])
         return 0
     if args == ["--gemma"]:
         gemma_only(eager_cfg, jet_cfg)
@@ -7809,18 +8420,23 @@ def main(argv=None) -> int:
     lora = lora_phases(engine, eager_cfg, jet_cfg, tok)
     # the worker's observability plane (phase 16), its lifecycle (phase
     # 17), then the KVBM host tier and tenant QoS (phase 18), then the
-    # frontend tier (phase 19), then disaggregation (phase 20), last on
-    # the 8B
+    # frontend tier (phase 19), then disaggregation (phase 20), then the
+    # fleet's control plane (phase 21, its worker a child process: the
+    # mixed engines are freed first), last on the 8B
     observability_phase(engine, jet_cfg)
     lifecycle_phase(engine, jet_cfg)
     kvbm_qos = kvbm_qos_phase(engine, eager_cfg)
     fronted = frontend_phase(engine, jet_cfg)
     disagg = disagg_phase(engine, eager_cfg, jet_cfg)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del mixed, mixed8
+    release()
+    fleet = fleet_phase(engine, jet_cfg)
 
     # the new families (phase 13), once the 8B's engines and weights are
     # released
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    del engine, mixed, mixed8
+    peak_gib = max(peak_gib, torch.cuda.max_memory_allocated() / 2**30)
+    del engine
     release()
     emit({"phase": "released_8b", "peak_gib": peak_gib,
           "allocated_gib": torch.cuda.memory_allocated() / 2**30})
@@ -7835,8 +8451,9 @@ def main(argv=None) -> int:
                      in GEMMA_MODELS})
     families[PHI3_MODEL] = phi3_phase(eager_cfg, jet_cfg)
     # the mixture-of-experts models (phase 13), after the families
-    families.update({model: moe_phase(model, q, mixed, eager_cfg, jet_cfg)
-                     for model, q, mixed in MOE_MODELS})
+    families.update({model: moe_phase(model, q, mixed, eager_cfg, jet_cfg,
+                                      layers)
+                     for model, q, mixed, layers in MOE_MODELS})
     # the MLA model, last (phase 13)
     families[MLA_MODEL] = mla_phase(eager_cfg, jet_cfg)
     emit({"phase": "family_memory",
@@ -7848,14 +8465,16 @@ def main(argv=None) -> int:
     # and w8a8 weights), the prefix-caching ones (vllm_tpu, trtllm_tpu),
     # the checkpoint engine, the speculating engines, the guided and the
     # LoRA engines (graph replays included), phase 18's, phase 19's (the
-    # workers behind the frontends) and phase 20's (a) (the prefill and
-    # decode roles); the verify windows and head_dim
-    # 64 from the speculating engines' variant counts
+    # workers behind the frontends), phase 20's (a) (the prefill and
+    # decode roles) and phase 21's (the materialized worker, counted in
+    # its process from its registration, and this process's reference);
+    # the verify windows and head_dim 64 from the speculating engines'
+    # variant counts
     launches = dict.fromkeys(ca.LAUNCHES, 0)
     for counts in [phase["launches"] for phase in (
             served, served_mixed[""], served_mixed["_int8"], served_windows,
             prefix, served_w8a8, prefix_trt, ckpt, guided, kvbm_qos,
-            fronted, disagg)] + (
+            fronted, disagg, fleet)] + (
                 spec["launches"] + lora["launches"]):
         for name, n in counts.items():
             launches[name] += n

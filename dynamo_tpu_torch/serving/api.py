@@ -115,6 +115,7 @@ from dynamo_tpu_torch.observability.engine_metrics import (
 from dynamo_tpu_torch.observability.flight import debug_flight_payload
 from dynamo_tpu_torch.observability.memory import attach_memory_metrics
 from dynamo_tpu_torch.observability.timeline import timeline_debug_payload
+from dynamo_tpu_torch.ops import cuda_attention
 from dynamo_tpu_torch.robustness import faults
 from dynamo_tpu_torch.robustness.deadline import Deadline
 from dynamo_tpu_torch.robustness.watchdog import HEALTH_CODES, PROFILER_TAIL_S
@@ -1196,6 +1197,9 @@ class _Handler(JsonHTTPHandler):
                 # KVBM peer pull) loaded, as the frontend reports its
                 # router core
                 "native": transport_status(),
+                # the attention kernels' launches in this process (the
+                # wrappers' counts; a graph replay adds its capture's)
+                "kernel_launches": dict(cuda_attention.LAUNCHES),
             }
             if eng.prefix_cache is not None:
                 out["prefix_cache"] = eng.prefix_cache.stats()
